@@ -1,0 +1,58 @@
+"""Equation of state and MHD conservative -> primitive conversion (the
+PyTorch twin of ramsesgpu_tpu/ops/eos.py; reference constoprim.h:28-199).
+
+Conserved state U layout: [8, z, y, x] with components ID, IP(=E), IU, IV,
+IW, IA, IB, IC; the face-centred field sits at each cell's LEFT face.
+"""
+from __future__ import annotations
+
+import torch
+
+from ramsesgpu_tpu.config.params import RunParams
+from ramsesgpu_tpu.core.constants import IA, IB, IC, ID, IP, IU, IV, IW
+
+from .backend import xp
+
+
+def eos(params: RunParams, rho: torch.Tensor, eint: torch.Tensor):
+    """Pressure and sound speed from density and specific internal energy
+    (constoprim.h:29-33)."""
+    p = xp.maximum((params.gamma0 - 1.0) * rho * eint, rho * params.smallp)
+    c = torch.sqrt(params.gamma0 * p / rho)
+    return p, c
+
+
+def constoprim_mhd(params: RunParams, U: torch.Tensor, dt=None):
+    """3D MHD conservative -> primitive (ramsesgpu_tpu ops/eos.py:56).
+
+    The primitive cell-centred B is the average of the cell's left face and
+    the next cell's left face. Returns (Q, c). ``dt`` feeds only the
+    rotating-frame half-kick, which is outside the ported slice."""
+    if params.omega0 > 0:
+        raise NotImplementedError("rotating frame (omega0 > 0) is not ported")
+    if params.dim != 3:
+        raise NotImplementedError("only 3D MHD is ported")
+
+    rho = xp.maximum(U[ID], params.smallr)
+    inv_rho = 1.0 / rho
+    u = U[IU] * inv_rho
+    v = U[IV] * inv_rho
+    w = U[IW] * inv_rho
+
+    bx = 0.5 * (U[IA] + xp.shift_p(U[IA], -1))
+    by = 0.5 * (U[IB] + xp.shift_p(U[IB], -2))
+    bz = 0.5 * (U[IC] + xp.shift_p(U[IC], -3))
+
+    eken = 0.5 * (u * u + v * v + w * w)
+    emag = 0.5 * (bx * bx + by * by + bz * bz)
+
+    if params.c_iso > 0:
+        p = rho * params.c_iso * params.c_iso
+        c = torch.full_like(rho, params.c_iso)
+    else:
+        eint = (U[IP] - emag) * inv_rho - eken
+        p = xp.maximum((params.gamma0 - 1.0) * rho * eint, rho * params.smallp)
+        c = torch.sqrt(params.gamma0 * p * inv_rho)
+
+    Q = torch.stack([rho, p, u, v, w, bx, by, bz])
+    return Q, c

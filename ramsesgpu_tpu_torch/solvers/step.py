@@ -1,0 +1,87 @@
+"""Step and chunk-advance builders (the port's counterpart of
+ramsesgpu_tpu/solvers/step.py:107-452), for the ported slice: fully
+periodic 3D ideal MHD with HLLD fluxes and 2D-HLLD EMFs.
+
+    step(U, t)          -> (U', dt)       one step on the ghosted state
+    advance_n(U, t, n)  -> (U', t', k)    up to n steps, stopping at t_end
+    make_packed_advance_chain -> (pack, advance_packed, unpack(S, t))
+
+Every builder runs the one kernel loop (kernels/fused_mhd3d.py): on a CUDA
+device its wrappers launch the hand-written kernels, on a CPU tensor they
+run their plain twins. ``[implementation] kernel`` = ``auto`` or
+``pallas`` is accepted everywhere; ``jnp`` only on the CPU (the twins must
+not stand in for the kernels on CUDA); ``zcarry`` is not ported.
+``[implementation] zSlabNb`` has no effect on this path, as in the JAX
+package.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ramsesgpu_tpu.config.params import RunParams
+
+from ..kernels.cfl_mhd import cfl_mhd
+from ..kernels.fused_mhd3d import make_advance_n as make_kernel_advance_n
+from ..kernels.mhd_step import mhd_step, require_step_scope
+from .boundary import interior, wrap_pad
+from .timestep import dt_from_inv
+
+# problems whose initial state carries a static gravity field in the JAX
+# package (problems/__init__.py gravity registry) — not ported
+_GRAVITY_PROBLEMS = ("Keplerian-disk", "MRI", "Mri", "mri")
+
+
+def require_slice(params: RunParams, device) -> None:
+    """Raise for configurations outside the port and for kernel choices
+    it refuses on ``device``."""
+    require_step_scope(params)
+    if params.problem in _GRAVITY_PROBLEMS or params.problem in ("jet", "Jet"):
+        raise NotImplementedError(f"problem {params.problem!r} is not ported")
+    device = torch.device(device)
+    kernel = params.kernel
+    if kernel == "zcarry":
+        raise NotImplementedError("[implementation] kernel=zcarry is not ported")
+    if kernel not in ("auto", "pallas", "jnp"):
+        raise ValueError(f"unknown [implementation] kernel={kernel!r}")
+    if device.type == "cuda" and kernel == "jnp":
+        raise ValueError(
+            "kernel=jnp would run the whole-array PyTorch step on the GPU; "
+            "use kernel=auto or pallas there"
+        )
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+
+
+def make_step_fn(params: RunParams, device) -> Callable:
+    """``step(U, t) -> (U_new, dt)`` on the ghosted state."""
+    require_slice(params, device)
+    scratch = None  # the step kernel's stage buffer, allocated once
+
+    def step(U, t):
+        nonlocal scratch
+        S = interior(params, U).contiguous()
+        if scratch is None:
+            scratch = mhd_step.scratch(params, S)
+        dt = dt_from_inv(params, cfl_mhd(params, S))
+        active = torch.ones((), dtype=torch.bool, device=S.device)
+        mhd_step(params, S, dt, active, scratch)
+        return wrap_pad(S, params.ghost_width), dt
+
+    return step
+
+
+def make_advance_n(params: RunParams, device) -> Callable:
+    """``advance_n(U, t, n) -> (U', t', k)``: up to n steps on the ghosted
+    state, stopping once t >= t_end, with t and k device tensors."""
+    require_slice(params, device)
+    return make_kernel_advance_n(params, device)
+
+
+def make_packed_advance_chain(params: RunParams, device):
+    """``(pack, advance_packed, unpack(S, t))`` carrying the port's loop
+    state across chunks. ``advance_packed`` updates S in place."""
+    require_slice(params, device)
+    pack, advance_packed, unpack = make_kernel_advance_n(params, device, packed_form=True)
+    return pack, advance_packed, lambda S, t: unpack(S)

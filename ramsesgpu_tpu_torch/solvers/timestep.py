@@ -1,0 +1,94 @@
+"""CFL time step for MHD (the PyTorch twin of
+ramsesgpu_tpu/solvers/timestep.py; reference cmpdt_mhd.cuh:43-230).
+
+dt = cfl / max over interior cells of sum_d (cf_d + |v_d|) / dx_d, with
+cf_d the fast magnetosonic speed along d and face-B centred to cells.
+"""
+from __future__ import annotations
+
+import torch
+
+from ramsesgpu_tpu.config.params import RunParams
+from ramsesgpu_tpu.core.constants import IA, IB, IC, ID, IP, IU, IV, IW
+
+from ..ops.backend import xp
+from ..ops.stencil import shift_p
+
+
+def _no_rotation(params: RunParams) -> None:
+    if params.omega0 > 0:
+        raise NotImplementedError("rotating frame (omega0 > 0) is not ported")
+    if params.dim != 3:
+        raise NotImplementedError("only 3D MHD is ported")
+
+
+def _interior(params: RunParams, a: torch.Tensor, ghost=None) -> torch.Tensor:
+    g = params.ghost_width if ghost is None else ghost
+    if isinstance(g, int):
+        g = (g,) * params.dim
+    sl = tuple(slice(gi, -gi) if gi else slice(None) for gi in g)
+    return a[(..., *sl)]
+
+
+def _inv_dt_mhd_fields(params: RunParams, rho, eP, u, v, w, bx, by, bz):
+    """Max inverse dt from interior-extent fields (cell-centred B)."""
+    _no_rotation(params)
+    rho = xp.maximum(rho, params.smallr)
+    if params.c_iso > 0:
+        p = rho * params.c_iso**2
+    else:
+        eken = 0.5 * (u * u + v * v + w * w)
+        emag = 0.5 * (bx * bx + by * by + bz * bz)
+        eint = (eP - emag) / rho - eken
+        p = xp.maximum((params.gamma0 - 1.0) * rho * eint, rho * params.smallp)
+
+    b2 = bx * bx + by * by + bz * bz
+    c2 = params.gamma0 * p / rho
+    d2 = 0.5 * (b2 / rho + c2)
+
+    def cf(bn):
+        return torch.sqrt(d2 + torch.sqrt(xp.maximum(d2 * d2 - c2 * bn * bn / rho, 0.0)))
+
+    inv = (
+        (cf(bx) + torch.abs(u)) / params.dx
+        + (cf(by) + torch.abs(v)) / params.dy
+        + (cf(bz) + torch.abs(w)) / params.dz
+    )
+    # torch.max propagates NaN, as jnp.max does
+    return torch.max(inv)
+
+
+def compute_inv_dt_mhd(params: RunParams, U: torch.Tensor, ghost=None) -> torch.Tensor:
+    """Max inverse dt over the interior of a ghosted 3D state (roll shifts
+    for the +1 face-B neighbours; the ghosts absorb the wrap)."""
+    _no_rotation(params)
+    rho = xp.maximum(U[ID], params.smallr)
+    fields = (
+        U[ID], U[IP], U[IU] / rho, U[IV] / rho, U[IW] / rho,
+        0.5 * (U[IA] + shift_p(U[IA], -1)),
+        0.5 * (U[IB] + shift_p(U[IB], -2)),
+        0.5 * (U[IC] + shift_p(U[IC], -3)),
+    )
+    return _inv_dt_mhd_fields(params, *(_interior(params, f, ghost) for f in fields))
+
+
+def inv_dt_mhd_periodic(params: RunParams, S: torch.Tensor) -> torch.Tensor:
+    """compute_inv_dt_mhd on the port's interior-only periodic state
+    [8, nz, ny, nx]: the +1 face-B neighbours wrap around. This is the
+    plain twin of the CUDA CFL kernel (kernels/cfl_mhd.py)."""
+    return compute_inv_dt_mhd(params, S, ghost=0)
+
+
+def compute_dt(params: RunParams, U: torch.Tensor) -> torch.Tensor:
+    """cfl / max(invDt) on a ghosted 3D MHD state (HydroRunBase.cpp:314-426)."""
+    if not params.mhd:
+        raise NotImplementedError("only MHD is ported")
+    if params.problem in ("jet", "Jet"):
+        raise NotImplementedError("the jet problem is not ported")
+    return dt_from_inv(params, compute_inv_dt_mhd(params, U))
+
+
+def dt_from_inv(params: RunParams, inv: torch.Tensor) -> torch.Tensor:
+    """cfl / inv as a true division on the device (``float / tensor`` in
+    torch multiplies by the reciprocal instead)."""
+    return inv.new_full((), params.cfl) / inv
