@@ -5,27 +5,53 @@ NVIDIA GPU.
 
 Phases, in order; any failure raises and no result line is printed:
   1. the card, its power limit, torch / CUDA / nvcc versions;
-  2. build csrc/ with nvcc for sm_90a (prints build time, ptxas report);
-  3. CFL kernel vs its twin on a random physical state at 64^3, f32 + f64;
-  4. step kernel vs its twin at 64^3 (Orszag-Tang), 1 step and 10 chained
-     steps, f32 + f64;
-  5. the main path: make_packed_advance_chain on the bench.py workload
+  2. build csrc/ with nvcc for sm_90a (one nvcc per source, all started
+     together; prints build time and the ptxas report), and, beside it,
+     the operation-counting host build (g++) the bounds of phase 11 use;
+  3. MHD CFL kernel vs its twin on a random physical state at 64^3,
+     f32 + f64, and NaN propagation;
+  4. MHD step kernel vs its twin at 64^3 (Orszag-Tang), 1 step and 10
+     chained steps, f32 + f64;
+  5. the MHD main path: make_packed_advance_chain on the bench.py workload
      (3D MHD+CT Orszag-Tang, HLLD, 256^3 f32): 2 warm-up + 3 timed chunks
-     of 10 steps; launch counts, finiteness, divB and conservation; then
-     one more chunk under torch.profiler: device time by kernel and the
-     device's idle share of the chunk;
-  6. at 256^3 f32, each kernel against its twin on the same inputs, then
-     each kernel's time against its twin's (128^3 for a twin whose
+     of 10 steps; launch counts, no twin call, finiteness, divB and
+     conservation; then one more chunk under torch.profiler: device time by
+     kernel and the device's idle share of the chunk;
+  6. at 256^3 f32, each MHD kernel against its twin on the same inputs,
+     then each kernel's time against its twin's (128^3 for a twin whose
      estimated memory does not fit);
-  7. the kernels JSON line, the card line, and the result line.
+  7. hydro CFL kernel vs its twin at 64^3 on a random physical state, f32 +
+     f64, on both state layouts; the isothermal EOS; NaN propagation;
+  8. hydro step kernel vs its twin at 64^3, f32 + f64: implode (reflecting
+     walls) and blast (periodic), each Riemann solver, 1 step and 10
+     chained steps; the kernel's interior mode == its ghosted mode;
+  9. the two hydro main paths at 256^3 f32 through make_packed_advance_chain:
+     implode (data/implode3d.ini, approx, cfl 0.8) and blast
+     (scripts/perf_table.py's overrides), each 2 warm-up + 3 timed chunks
+     of 10 steps; launch counts, no twin call, finite state, rho > 0,
+     p > 0, mass (and for blast total energy) conserved; one profiled chunk;
+ 10. at 256^3 f32 on the implode state, each hydro kernel against its twin
+     and its time against the twin's; the step kernel's ghosted mode
+     (make_step_fn's) timed on the filled ghosted state and held bitwise
+     equal to the interior mode;
+ 11. each kernel's bound at the timed inputs: the larger of its bytes over
+     the card's memory rate and the floating-point operations its function
+     needs (counted by the counting build on a 32^3 block of the same
+     state, plus the approx solver's Newton iterations counted by the
+     kernel on the card) over the card's f32 rate;
+ 12. the kernels JSON line, the card line, and the result line.
 Imports nothing of JAX; of this repo it imports only ramsesgpu_tpu_torch.
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
@@ -75,7 +101,16 @@ KERNELS = {
                  "ramsesgpu_tpu/pallas/packed_io.py:148"),
     "cfl_mhd": ("ramsesgpu_tpu_torch/csrc/cfl_mhd.cu",
                 "ramsesgpu_tpu/pallas/packed_io.py:51"),
+    "hydro_step": ("ramsesgpu_tpu_torch/csrc/hydro_step.cu",
+                   "ramsesgpu_tpu/pallas/packed_io.py:148 (hydro body fused_hydro3d.py:182), "
+                   "ramsesgpu_tpu/pallas/fused_hydro3d.py:46, "
+                   "ramsesgpu_tpu/pallas/packed_bc.py:126"),
+    "cfl_hydro": ("ramsesgpu_tpu_torch/csrc/cfl_hydro.cu",
+                  "ramsesgpu_tpu/pallas/packed_bc.py:408"),
 }
+# the card's peaks (NVIDIA's H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def card_line() -> str:
@@ -87,13 +122,46 @@ def card_line() -> str:
 
 def setup(n: int, dtype: str):
     from ramsesgpu_tpu_torch.convert import torch_dtype
+    from ramsesgpu_tpu_torch.problems import init_problem
     from ramsesgpu_tpu_torch.solvers.boundary import interior
-    from ramsesgpu_tpu_torch.solvers.run import config_from_ini, init_state
+    from ramsesgpu_tpu_torch.solvers.run import config_from_ini
 
     config, params = config_from_ini(INI.format(n=n, dtype=dtype))
-    U0 = torch.from_numpy(init_state(params, config))
+    U0 = torch.from_numpy(init_problem(params, config))
     S = interior(params, U0).to(device="cuda", dtype=torch_dtype(params)).contiguous()
     return params, S
+
+
+def hydro_setup(problem: str, n: int, dtype: str, solver: str = "approx"):
+    """data/implode3d.ini at n^3 (approx, niter_riemann 10, cfl 0.8,
+    slope_type 1), or its blast variant of scripts/perf_table.py:64-76:
+    params and the ghosted initial state on the card, ghosts filled."""
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.config.params import params_from_config
+    from ramsesgpu_tpu_torch.convert import torch_dtype
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+
+    config = ConfigMap(Path("data/implode3d.ini"))
+    for axis in ("nx", "ny", "nz"):
+        config.set_integer("mesh", axis, n)
+    config.set_string("implementation", "dtype", dtype)
+    config.set_string("hydro", "riemannSolver", solver)
+    if problem == "blast":
+        config.set_string("hydro", "problem", "blast")
+        config.set_float("blast", "radius", 0.2)
+        for face in ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax"):
+            config.set_integer("mesh", f"boundary_{face}", 3)
+    params = params_from_config(config)
+    U0 = torch.from_numpy(init_problem(params, config))
+    U = make_boundaries(params, U0.to(device="cuda", dtype=torch_dtype(params)))
+    return params, U
+
+
+def block_params(params, m: int):
+    """params of an m^3 block of the mesh, with the same cell size."""
+    return params.replace(nx=m, ny=m, nz=m, xmax=params.xmin + m * params.dx,
+                          ymax=params.ymin + m * params.dy, zmax=params.zmin + m * params.dz)
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -114,6 +182,58 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def wrappers():
+    from ramsesgpu_tpu_torch.kernels.cfl_hydro import cfl_hydro
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+
+    return {"mhd_step": mhd_step, "cfl_mhd": cfl_mhd, "hydro_step": hydro_step,
+            "cfl_hydro": cfl_hydro}
+
+
+@contextlib.contextmanager
+def counted_main_path(name: str, expect: dict):
+    """Drive one main path with every launch count set to 0 just before and
+    read just after; fails unless the counts equal ``expect`` (0 for the
+    kernels not named) or a plain twin ran meanwhile. Yields the dict the
+    counts are read into."""
+    from ramsesgpu_tpu_torch.kernels import cfl_hydro, cfl_mhd, hydro_step, mhd_step
+
+    twins = [(mhd_step, "mhd_3d_periodic_update"), (cfl_mhd, "inv_dt_mhd_periodic"),
+             (hydro_step, "hydro_3d_state_update"), (hydro_step, "hydro_3d_interior_update"),
+             (cfl_hydro, "compute_inv_dt_hydro")]
+    twin_calls = []
+
+    def guard(module, attr, fn):
+        def counted(*args, **kw):
+            twin_calls.append(f"{module.__name__}.{attr}")
+            return fn(*args, **kw)
+        return counted
+
+    saved = [(m, a, getattr(m, a)) for m, a in twins]
+    for m, a, fn in saved:
+        setattr(m, a, guard(m, a, fn))
+    kernels = wrappers()
+    for k in kernels.values():
+        k.launches = 0
+    counts: dict = {}
+    try:
+        torch.cuda.synchronize()
+        yield counts
+        torch.cuda.synchronize()
+        counts.update({n: k.launches for n, k in kernels.items()})
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+    want = {n: expect.get(n, 0) for n in kernels}
+    print(f"[{name}] launches during the main path: {counts}")
+    if counts != want:
+        raise AssertionError(f"{name}: launch counts {counts}, expected {want}")
+    if twin_calls:
+        raise AssertionError(f"{name}: plain twins ran on the main path: {sorted(set(twin_calls))}")
+
+
 def phase1() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this test needs a GPU")
@@ -132,11 +252,16 @@ def phase1() -> str:
 def phase2() -> None:
     from ramsesgpu_tpu_torch.kernels.build import build
 
-    b = build("cuda")
-    print(f"[2] built {b.path.name} in {b.seconds:.1f} s")
-    for line in b.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"[2] ptxas: {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:
+        cuda, count = pool.map(build, ("cuda", "count"))
+    print(f"[2] built {cuda.path.name} in {cuda.seconds:.1f} s (nvcc), "
+          f"{count.path.name} in {count.seconds:.1f} s (g++, operation counting)")
+    entry = None
+    for line in cuda.log.splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("entry function")[-1].strip().strip("'")[:80]
+        elif "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
+            print(f"[2] ptxas {entry}: {line.split(':', 1)[-1].strip()}")
 
 
 def phase3() -> None:
@@ -214,31 +339,14 @@ def div_b_max(params, S: torch.Tensor) -> float:
     return float(div.abs().max())
 
 
-def phase5(card: str) -> dict:
-    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
-    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
-    from ramsesgpu_tpu_torch.solvers.boundary import wrap_pad
-    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
-
-    n, chunk = 256, 10
-    params, S_init = setup(n, "float32")
-    U = wrap_pad(S_init, params.ghost_width)
-    del S_init
-    mass0 = float(U[0, 3:-3, 3:-3, 3:-3].double().sum())
-    energy0 = float(U[1, 3:-3, 3:-3, 3:-3].double().sum())
-    pack, advance, unpack = make_packed_advance_chain(params, "cuda")
-    t = torch.zeros((), dtype=torch.float32, device="cuda")
-
-    cfl_mhd.launches = 0
-    mhd_step.launches = 0
-    torch.cuda.synchronize()
-    S = pack(U)
-    del U
+def run_chunks(label: str, card: str, advance, S, t, n: int, chunk: int = 10):
+    """2 warm-up and 3 timed chunks of ``chunk`` steps; prints ms/step and
+    cells/s; returns (S, t)."""
     for _ in range(2):
         S, t, k = advance(S, t, chunk)
         torch.cuda.synchronize()
         if int(k) != chunk:
-            raise AssertionError(f"warm-up chunk stopped early: {int(k)}")
+            raise AssertionError(f"{label}: warm-up chunk stopped early: {int(k)}")
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -247,11 +355,32 @@ def phase5(card: str) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         if int(k) != chunk:
-            raise AssertionError(f"timed chunk stopped early: {int(k)}")
-    launches = {"mhd_step": mhd_step.launches, "cfl_mhd": cfl_mhd.launches}
+            raise AssertionError(f"{label}: timed chunk stopped early: {int(k)}")
+    best, mean = min(times), sum(times) / len(times)
+    print(f"[{label}] main path {n}^3 f32 on {card}: best chunk {best * 1e3 / chunk:.3f} ms/step, "
+          f"{n ** 3 * chunk / best:.4e} cells/s (mean {mean * 1e3 / chunk:.3f} ms/step, "
+          f"chunks {[round(x * 1e3 / chunk, 3) for x in times]} ms/step)")
+    return S, t
+
+
+def phase5(card: str) -> dict:
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries_concat
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+
+    n, chunk = 256, 10
+    params, S_init = setup(n, "float32")
+    U = make_boundaries_concat(params, S_init, interior_only=True)
+    del S_init
+    mass0 = float(U[0, 3:-3, 3:-3, 3:-3].double().sum())
+    energy0 = float(U[1, 3:-3, 3:-3, 3:-3].double().sum())
+    pack, advance, unpack = make_packed_advance_chain(params, "cuda")
+    t = torch.zeros((), dtype=torch.float32, device="cuda")
+
     steps = 5 * chunk
-    if launches != {"mhd_step": steps, "cfl_mhd": steps}:
-        raise AssertionError(f"main path launch counts {launches}, expected {steps} each")
+    with counted_main_path("5", {"mhd_step": steps, "cfl_mhd": steps}) as launches:
+        S = pack(U)
+        del U
+        S, t = run_chunks("5", card, advance, S, t, n, chunk)
 
     if not bool(torch.isfinite(S).all()):
         raise AssertionError("non-finite state after the main path")
@@ -269,14 +398,7 @@ def phase5(card: str) -> dict:
     U_out = unpack(S, t)
     if tuple(U_out.shape) != params.shape:
         raise AssertionError(f"unpacked shape {tuple(U_out.shape)} != {params.shape}")
-
-    best, mean = min(times), sum(times) / len(times)
-    cells = n ** 3
-    print(f"[5] main path {n}^3 f32 on {card}: best chunk {best * 1e3 / chunk:.3f} ms/step, "
-          f"{cells * chunk / best:.4e} cells/s (mean {mean * 1e3 / chunk:.3f} ms/step, "
-          f"chunks {[round(x * 1e3 / chunk, 3) for x in times]} ms/step)")
-    print(f"[5] launches during the main path: {launches}")
-    profile_chunk(card, advance, S, t, chunk)
+    profile_chunk("5p", card, advance, S, t, chunk)
     return launches
 
 
@@ -293,6 +415,7 @@ def phase6(card: str, twin_peak_64: int) -> dict:
         print(f"[6] twin estimated at {twin_peak_64 * 64 / 2**30:.1f} GiB does not fit "
               f"({free / 2**30:.1f} GiB free): twins checked and timed at 128^3")
     params, S = setup(256, "float32")
+    bound_input = S[:, :32, :32, :32].contiguous()  # phase 11 counts the operations here
     active = torch.ones((), dtype=torch.bool, device="cuda")
     scratch = mhd_step.scratch(params, S)
     inv = cfl_mhd(params, S)
@@ -331,11 +454,297 @@ def phase6(card: str, twin_peak_64: int) -> dict:
             raise AssertionError(f"{name} disagrees with its twin at {n_twin}^3: {rel[name]}")
         print(f"[6] {name}: kernel {ms[name]:.3f} ms at 256^3, twin {plain[name]:.3f} ms "
               f"at {n_twin}^3 (f32, {card})")
-    return {"ms": ms, "plain_ms": plain, "max_abs_err": errs}
+    return {"ms": ms, "plain_ms": plain, "max_abs_err": errs,
+            "bound_input": (block_params(params, 32), bound_input.cpu(), float(dt))}
 
 
-def profile_chunk(card: str, advance, S: torch.Tensor, t: torch.Tensor, chunk: int) -> None:
-    """Device time by kernel over one more chunk of the main path, and the
+def phase7() -> None:
+    from ramsesgpu_tpu_torch.kernels.cfl_hydro import cfl_hydro
+    from ramsesgpu_tpu_torch.solvers.boundary import interior, make_boundaries
+    from ramsesgpu_tpu_torch.solvers.timestep import compute_inv_dt_hydro
+
+    for dtype, ciso in (("float32", 0.0), ("float64", 0.0), ("float32", 0.7)):
+        params, U = hydro_setup("implode", 64, dtype)
+        params = params.replace(c_iso=ciso)
+        gen = torch.Generator(device="cuda").manual_seed(4321)
+        # a physical random state: implode with 5 % multiplicative noise and
+        # random velocities (rho and the internal energy stay positive)
+        noise = 1 + 0.05 * torch.randn(U.shape, generator=gen, device="cuda", dtype=U.dtype)
+        U = U * noise
+        U[2:] = 0.3 * U[0] * torch.randn(U[2:].shape, generator=gen, device="cuda", dtype=U.dtype)
+        U[1] = U[1] + 0.5 * (U[2:] ** 2).sum(0) / U[0]
+        U = make_boundaries(params, U)
+        S = interior(params, U).contiguous()
+        want = compute_inv_dt_hydro(params, S, ghost=0)
+        for layout, got in (("interior", cfl_hydro(params, S)),
+                            ("ghosted", cfl_hydro(params, U, ghost=params.ghost_width))):
+            rel = abs(float(got) - float(want)) / abs(float(want))
+            print(f"[7] cfl_hydro {dtype} cIso={ciso} 64^3 {layout}: kernel {float(got)!r} "
+                  f"twin {float(want)!r} rel err {rel:.3e} (tol {TOL_CFL[dtype]:.0e})")
+            if not rel <= TOL_CFL[dtype]:
+                raise AssertionError(f"cfl_hydro {dtype} disagrees with its twin: {rel}")
+        S[2, 7, 9, 11] = float("nan")  # a momentum: read by the isothermal chain too
+        if not torch.isnan(cfl_hydro(params, S)):
+            raise AssertionError("cfl_hydro does not propagate NaN")
+    print("[7] cfl_hydro propagates NaN")
+
+
+def phase8() -> int:
+    """Returns the hydro twin step's peak device memory at 64^3 (bytes)."""
+    from ramsesgpu_tpu_torch.kernels.fused_hydro3d import make_advance_n
+    from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
+    from ramsesgpu_tpu_torch.solvers.boundary import interior
+    from ramsesgpu_tpu_torch.solvers.godunov import hydro_3d_state_update
+    from ramsesgpu_tpu_torch.solvers.timestep import compute_inv_dt_hydro, dt_from_inv
+
+    twin_peak = 0
+    for dtype in ("float32", "float64"):
+        for problem in ("implode", "blast"):
+            for solver in ("approx", "hll", "hllc"):
+                params, U = hydro_setup(problem, 64, dtype, solver)
+                S0 = interior(params, U).contiguous()
+                dt = dt_from_inv(params, compute_inv_dt_hydro(params, S0, ghost=0))
+                active = torch.ones((), dtype=torch.bool, device="cuda")
+                S_k = hydro_step(params, S0.clone(), dt, active, hydro_step.scratch(params, S0))
+                S_g = hydro_step.ghosted(params, U, dt, hydro_step.scratch(params, U, ghosted=True))
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                S_t = hydro_3d_state_update(params, S0, dt)
+                torch.cuda.synchronize()
+                twin_peak = max(twin_peak, torch.cuda.max_memory_allocated() - base)
+                rel1 = rel_l2(S_k, S_t)
+                same = torch.equal(S_k, S_g)
+                label = f"hydro_step {dtype} {problem} {solver} 64^3"
+                print(f"[8] {label} 1 step: rel L2 {rel1:.3e} (tol {TOL_STEP1[dtype]:.0e}), "
+                      f"max abs {float((S_k - S_t).abs().max()):.3e}; interior mode == ghosted "
+                      f"mode: {same}")
+                if not rel1 <= TOL_STEP1[dtype]:
+                    raise AssertionError(f"{label} disagrees with its twin: {rel1}")
+                if not same:
+                    raise AssertionError(f"{label}: interior and ghosted modes differ by "
+                                         f"{float((S_k - S_g).abs().max())}")
+
+                pack, advance, unpack = make_advance_n(params, "cuda", packed_form=True)
+                t0 = torch.zeros((), dtype=S0.dtype, device="cuda")
+                S_k, t_k, k = advance(pack(U), t0, 10)
+                S_t, t_t = S0.clone(), t0.clone()
+                for _ in range(10):
+                    dt = dt_from_inv(params, compute_inv_dt_hydro(params, S_t, ghost=0))
+                    S_t = hydro_3d_state_update(params, S_t, dt)
+                    t_t = t_t + dt
+                rel10 = rel_l2(S_k, S_t)
+                print(f"[8] {label} 10 chained steps: k={int(k)} t kernel {float(t_k)!r} twin "
+                      f"{float(t_t)!r}, rel L2 {rel10:.3e} (tol {TOL_STEP10[dtype]:.0e})")
+                if int(k) != 10 or not rel10 <= TOL_STEP10[dtype]:
+                    raise AssertionError(f"{label}: 10-step run disagrees with the twin: {rel10}")
+    return twin_peak
+
+
+def hydro_pressure(params, S: torch.Tensor) -> torch.Tensor:
+    rho = S[0].double()
+    ekin = 0.5 * (S[2:5].double() ** 2).sum(0) / rho
+    return (params.gamma0 - 1.0) * (S[1].double() - ekin)
+
+
+def phase9(card: str) -> tuple[dict, torch.Tensor]:
+    """Both hydro main paths; returns the summed launch counts and the
+    implode state at the end of its path."""
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+
+    n, chunk, steps = 256, 10, 50
+    total = {}
+    kept = None
+    for problem in ("implode", "blast"):
+        label = f"9 {problem}"
+        params, U = hydro_setup(problem, n, "float32")
+        mass0 = float(U[0, 2:-2, 2:-2, 2:-2].double().sum())
+        energy0 = float(U[1, 2:-2, 2:-2, 2:-2].double().sum())
+        pack, advance, unpack = make_packed_advance_chain(params, "cuda")
+        t = torch.zeros((), dtype=torch.float32, device="cuda")
+        with counted_main_path(label, {"hydro_step": steps, "cfl_hydro": steps}) as launches:
+            S = pack(U)
+            del U
+            S, t = run_chunks(label, card, advance, S, t, n, chunk)
+        for name, c in launches.items():
+            total[name] = total.get(name, 0) + c
+
+        if not bool(torch.isfinite(S).all()):
+            raise AssertionError(f"{problem}: non-finite state after the main path")
+        rho_min, p_min = float(S[0].min()), float(hydro_pressure(params, S).min())
+        mass, energy = float(S[0].double().sum()), float(S[1].double().sum())
+        mass_rel, energy_rel = abs(mass - mass0) / abs(mass0), abs(energy - energy0) / abs(energy0)
+        print(f"[{label}] {steps} steps at {n}^3 f32: t={float(t)!r}, min rho {rho_min:.4e}, "
+              f"min p {p_min:.4e}, mass rel {mass_rel:.3e} (1e-5), energy rel {energy_rel:.3e}"
+              + (" (1e-4)" if problem == "blast" else ""))
+        if not (rho_min > 0 and p_min > 0):
+            raise AssertionError(f"{problem}: non-positive density or pressure")
+        if not mass_rel <= 1e-5 or (problem == "blast" and not energy_rel <= 1e-4):
+            raise AssertionError(f"{problem}: conservation bound violated")
+        U_out = unpack(S, t)
+        if tuple(U_out.shape) != params.shape:
+            raise AssertionError(f"unpacked shape {tuple(U_out.shape)} != {params.shape}")
+        del U_out
+        profile_chunk(f"{label}p", card, advance, S, t, chunk)
+        if problem == "implode":
+            kept = (params, S)
+        else:
+            del S
+    return total, kept
+
+
+def phase10(card: str, implode, twin_peak_64: int) -> dict:
+    """The hydro kernels at 256^3 f32 on the implode main path's state; the
+    step kernel in both modes (ghosted: make_step_fn's, TPU row 5)."""
+    from ramsesgpu_tpu_torch.kernels.cfl_hydro import cfl_hydro
+    from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries_concat
+    from ramsesgpu_tpu_torch.solvers.godunov import (hydro_3d_interior_update,
+                                                     hydro_3d_state_update)
+    from ramsesgpu_tpu_torch.solvers.timestep import compute_inv_dt_hydro, dt_from_inv
+
+    params, S0 = implode
+    torch.cuda.empty_cache()
+    free, _total = torch.cuda.mem_get_info()
+    full = twin_peak_64 * 64 < 0.8 * free
+    if not full:
+        print(f"[10] hydro twin estimated at {twin_peak_64 * 64 / 2**30:.1f} GiB does not fit "
+              f"({free / 2**30:.1f} GiB free): twins checked and timed on a 128^3 block")
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    scratch = hydro_step.scratch(params, S0)
+    inv = cfl_hydro(params, S0)
+    dt = dt_from_inv(params, inv)
+    newton = torch.zeros((), dtype=torch.int64, device="cuda")
+    S_k = hydro_step(params, S0.clone(), dt, active, scratch, newton=newton)
+    S = S0.clone()
+    ms = {
+        "hydro_step": time_ms(lambda: hydro_step(params, S, dt, active, scratch), 10),
+        "cfl_hydro": time_ms(lambda: cfl_hydro(params, S), 50),
+    }
+    del S, scratch
+    # the ghosted mode on the filled ghosted state; the two modes share the
+    # arithmetic's source but not its machine code (the compiler may fuse
+    # other products into FMAs), so they are compared and reported here and
+    # each is held to the twin below
+    U = make_boundaries_concat(params, S0, interior_only=True)
+    scratch = hydro_step.scratch(params, U, ghosted=True)
+    S_g = hydro_step.ghosted(params, U, dt, scratch)
+    ms["hydro_step_ghosted"] = time_ms(lambda: hydro_step.ghosted(params, U, dt, scratch), 10)
+    differ = (S_g != S_k).any(0)
+    near_wall = torch.zeros_like(differ)
+    for axis in range(3):
+        near_wall |= (torch.arange(256, device="cuda") % 253 < 3).view(
+            [256 if a == axis else 1 for a in range(3)])
+    print(f"[10] hydro_step ghosted mode at 256^3 f32 on make_boundaries(implode state): "
+          f"{ms['hydro_step_ghosted']:.3f} ms ({card}); against the interior mode: "
+          f"equal {not bool(differ.any())}, {int(differ.sum())} cells differ "
+          f"({int((differ & near_wall).sum())} within 3 cells of a wall), rel L2 "
+          f"{rel_l2(S_g, S_k):.3e}, max abs {float((S_g - S_k).abs().max()):.3e}")
+    del U, scratch, differ, near_wall
+    if not full:
+        params = block_params(params, 128)
+        S0 = S0[:, :128, :128, :128].contiguous()
+        inv = cfl_hydro(params, S0)
+        S_k = hydro_step(params, S0.clone(), dt, active, hydro_step.scratch(params, S0))
+    U = make_boundaries_concat(params, S0, interior_only=True)
+    if not full:
+        S_g = hydro_step.ghosted(params, U, dt, hydro_step.scratch(params, U, ghosted=True))
+    torch.cuda.empty_cache()
+    inv_t = compute_inv_dt_hydro(params, S0, ghost=0)
+    S_t = hydro_3d_state_update(params, S0, dt)
+    errs = {"cfl_hydro": abs(float(inv) - float(inv_t)),
+            "hydro_step": float((S_k - S_t).abs().max()),
+            "hydro_step_ghosted": float((S_g - S_t).abs().max())}
+    rel = {"cfl_hydro": errs["cfl_hydro"] / abs(float(inv_t)), "hydro_step": rel_l2(S_k, S_t),
+           "hydro_step_ghosted": rel_l2(S_g, S_t)}
+    tol = {"cfl_hydro": TOL_CFL["float32"], "hydro_step": TOL_STEP1["float32"],
+           "hydro_step_ghosted": TOL_STEP1["float32"]}
+    del S_k, S_t, S_g
+    plain = {
+        "hydro_step": time_ms(lambda: hydro_3d_state_update(params, S0, dt), 3),
+        "cfl_hydro": time_ms(lambda: compute_inv_dt_hydro(params, S0, ghost=0), 10),
+        "hydro_step_ghosted": time_ms(lambda: hydro_3d_interior_update(params, U, dt), 3),
+    }
+    del U
+    n_twin = params.nx
+    for name in ("hydro_step", "cfl_hydro", "hydro_step_ghosted"):
+        print(f"[10] {name} at {n_twin}^3 f32 (implode state): kernel vs twin rel err "
+              f"{rel[name]:.3e} (tol {tol[name]:.0e}), max abs {errs[name]:.3e}")
+        if not rel[name] <= tol[name]:
+            raise AssertionError(f"{name} disagrees with its twin at {n_twin}^3: {rel[name]}")
+    for name in ("hydro_step", "cfl_hydro", "hydro_step_ghosted"):
+        print(f"[10] {name}: kernel {ms[name]:.3f} ms at 256^3, twin {plain[name]:.3f} ms "
+              f"at {n_twin}^3 (f32, {card})")
+    print(f"[10] approx solver Newton iterations in one 256^3 step: {int(newton)} "
+          f"({int(newton) / (3 * 256 ** 3):.4f} per face)")
+    return {"ms": ms, "plain_ms": plain, "max_abs_err": errs, "newton": int(newton),
+            "params": implode[0], "dt": float(dt),
+            "bound_input": implode[1][:, :32, :32, :32].contiguous().cpu()}
+
+
+def phase11(mhd: dict, hydro: dict) -> dict:
+    """bound_ms and bound_by of every kernel at the inputs phases 6 and 10
+    timed: max(bytes / memory rate, flops / f32 rate). Bytes: each input
+    value read once and each output written once. Flops: the arithmetic the
+    function needs, counted by the counting build on a 32^3 block of those
+    inputs with the kernels' own per-cell functions (for hydro_step: one
+    trace per cell, one Riemann solve per face, per Newton iteration),
+    scaled to 256^3 with the Newton iterations the card counted."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+    from ramsesgpu_tpu_torch.kernels.packed_bc import bc_codes
+
+    lib = load_library("count")
+    n = 256 ** 3
+    ops = {}
+
+    p_sub, S_sub, dt = mhd["bound_input"]
+    S_sub = S_sub.double().contiguous()
+    ops["mhd_step"] = lib.ramses_mhd_step_ops(S_sub.data_ptr(), 32, 32, 32, param_block(p_sub),
+                                              dt) / 32 ** 3 * n
+    ops["cfl_mhd"] = lib.ramses_cfl_mhd_ops(S_sub.data_ptr(), 32, 32, 32,
+                                            param_block(p_sub)) / 32 ** 3 * n
+
+    # [prim, trace, face fluxes, update]
+    p_sub = block_params(hydro["params"], 32)
+    S_sub = hydro["bound_input"].double().contiguous()
+    parts = (ctypes.c_longlong * 4)()
+    iters = torch.zeros((), dtype=torch.int64)
+    lib.ramses_hydro_step_ops(S_sub.data_ptr(), 32, 32, 32, bc_codes(p_sub), param_block(p_sub),
+                              hydro["dt"], parts, iters.data_ptr())
+    fixed = (ctypes.c_longlong * 4)()
+    p0 = p_sub.replace(niter_riemann=0)  # the same code path without the Newton loop
+    lib.ramses_hydro_step_ops(S_sub.data_ptr(), 32, 32, 32, bc_codes(p0), param_block(p0),
+                              hydro["dt"], fixed, None)
+    faces_sub, faces = 3 * 32 * 32 * 33, 3 * 256 * 256 * 257
+    per_iter = (parts[2] - fixed[2]) / max(int(iters), 1)
+    per_cell = (fixed[0] + fixed[1] + fixed[3]) / 32 ** 3
+    per_face = fixed[2] / faces_sub
+    ops["hydro_step"] = per_cell * n + per_face * faces + per_iter * hydro["newton"]
+    ops["hydro_step_ghosted"] = ops["hydro_step"]
+    ops["cfl_hydro"] = lib.ramses_cfl_hydro_ops(S_sub.data_ptr(), 32, 32, 32, 0,
+                                                param_block(p_sub)) / 32 ** 3 * n
+    print(f"[11] counted flops: hydro_step {per_cell:.1f}/cell (prim {fixed[0] / 32 ** 3:.1f}, "
+          f"trace {fixed[1] / 32 ** 3:.1f}, update {fixed[3] / 32 ** 3:.1f}) + {per_face:.1f}/face "
+          f"+ {per_iter:.1f}/Newton iteration = {ops['hydro_step'] / n:.1f}/cell; "
+          f"mhd_step {ops['mhd_step'] / n:.1f}/cell; cfl_mhd {ops['cfl_mhd'] / n:.1f}/cell; "
+          f"cfl_hydro {ops['cfl_hydro'] / n:.1f}/cell")
+
+    nbytes = {"mhd_step": 2 * 8 * 4 * n, "cfl_mhd": 8 * 4 * n,
+              "hydro_step": 2 * 5 * 4 * n, "cfl_hydro": 5 * 4 * n,
+              "hydro_step_ghosted": 5 * 4 * (n + 260 ** 3)}
+    bounds = {}
+    for name in (*KERNELS, "hydro_step_ghosted"):
+        t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        t_ops = ops[name] / F32_FLOP_PER_S * 1e3
+        bounds[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+        print(f"[11] {name} at 256^3 f32: {nbytes[name] / 1e9:.3f} GB -> {t_bytes:.4f} ms, "
+              f"{ops[name] / 1e9:.3f} GFLOP -> {t_ops:.4f} ms: bound {bounds[name][0]:.4f} ms "
+              f"by {bounds[name][1]}")
+    return bounds
+
+
+def profile_chunk(label: str, card: str, advance, S: torch.Tensor, t: torch.Tensor,
+                  chunk: int) -> None:
+    """Device time by kernel over one more chunk of a main path, and the
     device's idle share of the chunk's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -353,10 +762,11 @@ def profile_chunk(card: str, advance, S: torch.Tensor, t: torch.Tensor, chunk: i
     busy = sum(r[0] for r in rows)
     if not rows:
         raise AssertionError("the profiler saw no device time")
-    print(f"[5p] one {chunk}-step chunk at {S.shape[-1]}^3 f32 on {card}: "
-          f"wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.4f}")
+    print(f"[{label}] one {chunk}-step chunk at {S.shape[-1]}^3 f32 on {card}: "
+          f"wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
+          f"idle share {1 - busy / wall_us:.4f}")
     for us, count, key in sorted(rows, reverse=True):
-        print(f"[5p] {us / 1e3:9.3f} ms {100 * us / busy:5.1f} % {count:4d}x  {key[:110]}")
+        print(f"[{label}] {us / 1e3:9.3f} ms {100 * us / busy:5.1f} % {count:4d}x  {key[:110]}")
 
 
 def main() -> int:
@@ -366,13 +776,24 @@ def main() -> int:
     twin_peak = phase4()
     launches = phase5(card)
     timing = phase6(card, twin_peak)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    phase7()
+    hydro_twin_peak = phase8()
+    hydro_launches, implode = phase9(card)
+    hydro_timing = phase10(card, implode, hydro_twin_peak)
+    del implode
+    bounds = phase11(timing, hydro_timing)
+    if "jax" in sys.modules or any(m.startswith("ramsesgpu_tpu.") for m in sys.modules):
+        raise AssertionError("the port imported jax or the JAX package")
 
+    launches = {**{k: launches[k] for k in ("mhd_step", "cfl_mhd")},
+                **{k: hydro_launches[k] for k in ("hydro_step", "cfl_hydro")}}
+    measured = {key: {**timing[key], **hydro_timing[key]}
+                for key in ("ms", "plain_ms", "max_abs_err")}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": timing["max_abs_err"][name],
-         "ms": timing["ms"][name], "plain_ms": timing["plain_ms"][name]}
+         "launches": launches[name], "max_abs_err": measured["max_abs_err"][name],
+         "ms": measured["ms"][name], "plain_ms": measured["plain_ms"][name],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

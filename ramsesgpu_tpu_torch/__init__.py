@@ -1,22 +1,26 @@
 """ramsesgpu_tpu_torch — the PyTorch + CUDA port of ramsesgpu_tpu.
 
 The port runs on an NVIDIA Hopper GPU (H100). It sits beside the JAX
-package, which stays the reference every slice is tested against, and
-reuses the JAX package's jax-free host modules (INI parsing, RunParams,
-problem initial conditions, VTK output, timers) as they are.
+package, which stays the reference every slice is tested against. It
+imports nothing of that package: it keeps its own copies of the host
+modules it needs (``config/``, ``core/``, ``problems/``, ``io/``,
+``utils/``), and no module here imports jax.
 
-Ported so far: the fully periodic 3D ideal MHD + constrained-transport
-main path (HLLD face fluxes, 2D-HLLD corner EMFs), with its two device
-kernels written by hand in CUDA (``csrc/``) and their whole-array PyTorch
-twins (``solvers/``, ``ops/``). Everything outside that slice raises
-NotImplementedError.
+Ported so far, each with its device kernels written by hand in CUDA
+(``csrc/``) beside their whole-array PyTorch twins (``solvers/``,
+``ops/``):
 
-No module here imports jax.
+- the fully periodic 3D ideal MHD + constrained-transport main path
+  (HLLD face fluxes, 2D-HLLD corner EMFs);
+- 3D hydro (approx / HLL / HLLC, slope_type 0-2, the isothermal EOS)
+  with any mix of DIRICHLET / NEUMANN / PERIODIC faces.
+
+Everything outside those slices raises NotImplementedError.
 """
 
 __version__ = "0.1.0"
 
-from ramsesgpu_tpu.config.configmap import ConfigMap
-from ramsesgpu_tpu.config.params import RunParams, params_from_config
+from .config.configmap import ConfigMap
+from .config.params import RunParams, params_from_config
 
 __all__ = ["ConfigMap", "RunParams", "params_from_config", "__version__"]

@@ -2,21 +2,22 @@
 ramsesgpu_tpu/cli/main.py; reference euler_main.cpp:76-195): read the INI,
 build the Run on ``--device`` and integrate.
 
-    ramses-tpu-torch --param orszag-tang3d.ini [--device cuda] [--max-steps N]
+    ramses-tpu-torch --param implode3d.ini [--device cuda] [--max-steps N]
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
-from ramsesgpu_tpu.config.configmap import ConfigMap
-from ramsesgpu_tpu.config.params import params_from_config
+from ..config.configmap import ConfigMap
+from ..config.params import params_from_config
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="ramses-tpu-torch",
-        description="PyTorch + CUDA port of ramsesgpu_tpu (periodic 3D MHD+CT).",
+        description="PyTorch + CUDA port of ramsesgpu_tpu (3D hydro with walls or "
+                    "periodic faces, periodic 3D MHD+CT).",
     )
     parser.add_argument("--param", "-i", required=True, help="INI parameter file")
     parser.add_argument("--max-steps", type=int, default=None)

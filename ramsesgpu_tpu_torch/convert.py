@@ -1,21 +1,29 @@
 """Moving state between the JAX package and the port.
 
-In this system the "weights" are the state and the RunParams; the
-RunParams are shared as they are. The state layouts:
+In this system the "weights" are the state and the RunParams. The
+port's RunParams is a copy of the JAX package's with the same fields, so
+the functions here take either. The state layouts (nvar = 8 for MHD, 5
+for 3D hydro):
 
-- ghosted: [8, nz+2g, ny+2g, nx+2g], the same in both packages;
-- JAX packed loop state (ramsesgpu_tpu/pallas/packed_io.py:39-48):
-  [8, nz+2g, ny+2*YB, nx] with YB = 8 wrap rows in y, wrap planes in z and
-  no x ghosts;
-- the port's loop state: the interior [8, nz, ny, nx], periodic by index
-  wrap (kernels/fused_mhd3d.py).
+- ghosted: [nvar, nz+2g, ny+2g, nx+2g], the same in both packages;
+- JAX packed loop state of fully periodic runs
+  (ramsesgpu_tpu/pallas/packed_io.py:39-48): [nvar, nz+2g, ny+2*YB, nx]
+  with YB = 8 wrap rows in y, wrap planes in z and no x ghosts;
+- JAX padded-carry loop state of walled hydro runs
+  (ramsesgpu_tpu/pallas/packed_bc.py:108-123): [5, nz+2g, ny+2*YB, WX]
+  with the x ghosts in the row, WX = nx+2g rounded up to a multiple of
+  128, and the ghost bands filled as make_boundaries fills them;
+- the port's loop state: the interior [nvar, nz, ny, nx]; the kernels
+  find neighbours outside it by index rules (kernels/fused_mhd3d.py,
+  kernels/packed_bc.py).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ramsesgpu_tpu.config.params import RunParams
+from .config.params import RunParams
+from .solvers.boundary import make_boundaries_concat
 
 YB = 8  # the JAX packed layout's y ghost band (ramsesgpu_tpu/pallas/packed_io.py:30)
 
@@ -49,3 +57,29 @@ def packed_to_jax(params: RunParams, S: torch.Tensor) -> np.ndarray:
     g = params.ghost_width
     interior = S.detach().cpu().numpy()
     return np.pad(interior, ((0, 0), (g, g), (YB, YB), (0, 0)), mode="wrap")
+
+
+def padded_width(params: RunParams) -> int:
+    """The JAX padded-carry row width: nx + 2g rounded up to 128 lanes."""
+    return -(-(params.nx + 2 * params.ghost_width) // 128) * 128
+
+
+def bc_carry_from_jax(params: RunParams, P_np: np.ndarray, device) -> torch.Tensor:
+    """The JAX padded-carry loop state -> the port's loop state on ``device``."""
+    g = params.ghost_width
+    P = np.asarray(P_np)
+    want = (params.nb_var, params.nz + 2 * g, params.ny + 2 * YB, padded_width(params))
+    if P.shape != want:
+        raise ValueError(f"padded-carry state shape {P.shape} != {want}")
+    S = P[:, g : g + params.nz, YB : YB + params.ny, g : g + params.nx]
+    return torch.from_numpy(np.ascontiguousarray(S)).to(device=device, dtype=torch_dtype(params))
+
+
+def bc_carry_to_jax(params: RunParams, S: torch.Tensor) -> np.ndarray:
+    """The port's loop state -> the JAX padded-carry loop state (numpy),
+    equal to ramsesgpu_tpu.pallas.packed_bc.pack_bc_state of the ghost fill
+    of the same interior."""
+    g = params.ghost_width
+    U = make_boundaries_concat(params, S.detach().cpu(), interior_only=True).numpy()
+    pad_x = padded_width(params) - U.shape[-1]
+    return np.pad(U, ((0, 0), (0, 0), (YB - g, YB - g), (0, pad_x)), mode="edge")

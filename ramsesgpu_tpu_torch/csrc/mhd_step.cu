@@ -9,9 +9,10 @@
 // mhd_3d_periodic_update.
 //
 // Layout: the interior-only periodic state S[8][nz][ny][nx], x fastest
-// (mhd_common.cuh). Periodic neighbours are found by index wrap, so the
+// (common.cuh). Periodic neighbours are found by index wrap, so the
 // TPU layout's 8-row y ghost bands, x-ghost-free lanes and in-kernel ghost
-// band writes have no counterpart: pack is a slice, unpack a wrap pad.
+// band writes have no counterpart: pack is a slice, unpack the periodic
+// ghost fill.
 //
 // Design (first, simple version): six stages, one thread per cell each,
 // intermediates in device memory (one scratch buffer the Python wrapper
@@ -33,16 +34,19 @@
 // A device flag `active` (the loop's t < t_end test) is read by every
 // stage; when it is 0 the step is skipped, so a chunk needs no host sync.
 //
-// Bound on the H100: device-memory traffic. Per cell and step the stages
-// write 8+3+144+15+3+8 = 181 values and read about as many (the trace's
-// 144 state values are each read by the flux or EMF stage), i.e. ~1.4 kB
-// per cell in f32, ~24 GB at 256^3 — ~7 ms per step at 3.35 TB/s. The
-// state itself is 32 B/cell and the arithmetic (~3k flops/cell) is far
-// below the compute bound. Fusing stages to keep the 144 state values on
+// Bound on the H100: the step's least time is its arithmetic, 2979
+// counted flops per cell (op_count.cuh), 0.75 ms at 256^3 at the f32
+// peak, against 64 B/cell of state read and written (0.32 ms at
+// 3.35 TB/s). This staged version is bound by its own stage traffic
+// instead: per cell and step the stages write 8+3+144+15+3+8 = 181 values
+// and read about as many (the trace's 144 state values are each read by
+// the flux or EMF stage), ~1.4 kB per cell in f32, ~24 GB at 256^3, ~7 ms
+// per step at 3.35 TB/s. Fusing stages to keep the 144 state values on
 // chip is the next step for speed.
-#include "mhd_common.cuh"
+#include "common.cuh"
 
-namespace ramses {
+// its own namespace, as hydro_step.cu's (shared stage type names)
+namespace ramses::mhd {
 
 constexpr int NSTATE = 18;  // order: ops/trace_mhd3d.py STATE_NAMES
 enum {
@@ -71,18 +75,6 @@ struct StepArgs {
 // ---------------------------------------------------------------------------
 // per-cell physics
 // ---------------------------------------------------------------------------
-
-// slopes.py slope_1d on one stencil
-template <typename T>
-HD T slope1(T qm, T q, T qp, T st) {
-  const T dlft = st * (q - qm);
-  const T drgt = st * (qp - q);
-  const T dcen = T(0.5) * (qp - qm);
-  const T dsgn = dcen >= T(0) ? T(1) : T(-1);
-  T dlim = pmin(r_abs(dlft), r_abs(drgt));
-  dlim = (dlft * drgt <= T(0)) ? T(0) : dlim;
-  return dsgn * pmin(dlim, r_abs(dcen));
-}
 
 // riemann_mhd.py _fast_speed_precursors / _fast_speed_from_precursors
 template <typename T>
@@ -782,22 +774,38 @@ int mhd_step(T* S, T* scratch, const T* dt, const unsigned char* active, int nx,
   return launch_cells(UpdateStage<T>{a}, n, stream);
 }
 
-}  // namespace ramses
+}  // namespace ramses::mhd
 
 extern "C" {
 
-long long ramses_mhd_step_scratch_per_cell(void) { return ramses::SCRATCH_PER_CELL; }
+long long ramses_mhd_step_scratch_per_cell(void) { return ramses::mhd::SCRATCH_PER_CELL; }
 
 int ramses_mhd_step_f32(float* S, float* scratch, const float* dt,
                         const unsigned char* active, int nx, int ny, int nz,
                         const double* prm, void* stream) {
-  return ramses::mhd_step<float>(S, scratch, dt, active, nx, ny, nz, prm, stream);
+  return ramses::mhd::mhd_step<float>(S, scratch, dt, active, nx, ny, nz, prm, stream);
 }
 
 int ramses_mhd_step_f64(double* S, double* scratch, const double* dt,
                         const unsigned char* active, int nx, int ny, int nz,
                         const double* prm, void* stream) {
-  return ramses::mhd_step<double>(S, scratch, dt, active, nx, ny, nz, prm, stream);
+  return ramses::mhd::mhd_step<double>(S, scratch, dt, active, nx, ny, nz, prm, stream);
 }
 
 }  // extern "C"
+
+#ifdef RAMSES_COUNT_OPS
+// the floating-point operations of one step of S[8][nz][ny][nx] (op_count.cuh)
+extern "C" long long ramses_mhd_step_ops(const double* S, int nx, int ny, int nz,
+                                         const double* prm, double dt) {
+  using ramses::Counted;
+  const long long n = (long long)nx * ny * nz;
+  std::vector<Counted> s = ramses::counted_copy(S, 8 * n);
+  std::vector<Counted> scratch(ramses::mhd::SCRATCH_PER_CELL * n);
+  const Counted dtc(dt);
+  const unsigned char active = 1;
+  Counted::ops = 0;
+  ramses::mhd::mhd_step<Counted>(s.data(), scratch.data(), &dtc, &active, nx, ny, nz, prm, nullptr);
+  return Counted::ops;
+}
+#endif

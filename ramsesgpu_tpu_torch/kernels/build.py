@@ -8,12 +8,17 @@ else ``build/ramsesgpu_tpu_torch/`` of the source checkout the package runs
 from; else, for an installed package, ``ramsesgpu_tpu_torch/`` under the
 user's cache directory (``$XDG_CACHE_HOME`` or ``~/.cache``).
 
-- ``build("cuda")``: ``nvcc`` for ``sm_90a`` (Hopper). The kernels launch on
-  the stream the caller passes (PyTorch's current stream).
+- ``build("cuda")``: ``nvcc`` for ``sm_90a`` (Hopper), one process per
+  source started together, then one link. The kernels launch on the
+  stream the caller passes (PyTorch's current stream).
 - ``build("host")``: the same sources compiled as plain C++ with ``g++``;
   every stage then runs as a serial loop on host pointers. It exists so the
   CPU test suite can check the arithmetic of the CUDA sources against the
   PyTorch twins where no CUDA compiler exists; it never runs on the main path.
+- ``build("count")``: the host build plus the ``ramses_*_ops`` entry
+  points (csrc/op_count.cuh), which run a kernel's code path on a state and
+  count its floating-point operations: the work of the kernels' roofline
+  bounds (chip_smoke.py).
 """
 from __future__ import annotations
 
@@ -28,21 +33,25 @@ from dataclasses import dataclass
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("cfl_mhd.cu", "mhd_step.cu")
-HEADERS = ("mhd_common.cuh",)
+SOURCES = ("cfl_mhd.cu", "mhd_step.cu", "cfl_hydro.cu", "hydro_step.cu")
+HEADERS = ("common.cuh", "op_count.cuh")
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC")
+# per-source compile flags (each source compiles to an object, all in
+# parallel) and the link flags of the shared library
+COMPILE_FLAGS = {
+    "cuda": ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c"),
+    "host": ("-x", "c++", "-std=c++17", "-O2", "-fPIC", "-c"),
+    "count": ("-x", "c++", "-std=c++17", "-O2", "-fPIC", "-c", "-DRAMSES_COUNT_OPS"),
+}
+LINK_FLAGS = ("-shared",)
 
 
 @dataclass(frozen=True)
 class Build:
     path: Path
     seconds: float   # compile time; 0.0 when an existing build was reused
-    log: str         # the compiler's stderr (ptxas register/spill report)
+    log: str         # the compilers' stderr (ptxas register/spill report)
 
 
 def build_dir() -> Path:
@@ -51,7 +60,7 @@ def build_dir() -> Path:
     if override:
         return Path(override)
     checkout = Path(__file__).resolve().parents[2]
-    if (checkout / "pyproject.toml").exists() and (checkout / "ramsesgpu_tpu").is_dir():
+    if (checkout / "pyproject.toml").exists() and (checkout / "ramsesgpu_tpu_torch").is_dir():
         return checkout / "build" / "ramsesgpu_tpu_torch"
     cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
     return Path(cache) / "ramsesgpu_tpu_torch"
@@ -66,51 +75,57 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _compiler(kind: str) -> list[str]:
+def _compiler(kind: str) -> str:
     if kind == "cuda":
-        return [find_nvcc(), *NVCC_FLAGS]
-    if kind == "host":
+        return find_nvcc()
+    if kind in ("host", "count"):
         cxx = shutil.which("g++") or shutil.which("c++")
         if cxx is None:
             raise RuntimeError("no C++ compiler found for the host build")
-        return [cxx, *HOST_FLAGS]
+        return cxx
     raise ValueError(f"unknown build kind {kind!r}")
 
 
-def _digest(cmd: list[str]) -> str:
-    h = hashlib.sha256(" ".join(cmd[1:]).encode())
+def _digest(kind: str) -> str:
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS[kind] + LINK_FLAGS).encode())
     for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
 def build(kind: str = "cuda") -> Build:
-    """Compile csrc/ (or reuse an identical earlier build). Raises
-    RuntimeError with the compiler's output when compilation fails."""
-    cmd = _compiler(kind)
+    """Compile csrc/ (or reuse an identical earlier build): one compiler
+    process per source, all started together, then one link. Raises
+    RuntimeError with the compiler's output when a step fails."""
+    cxx = _compiler(kind)
     directory = build_dir()
-    out = directory / f"libramses_{kind}_{_digest(cmd)}.so"
+    out = directory / f"libramses_{kind}_{_digest(kind)}.so"
     if out.exists():
         return Build(out, 0.0, "")
     directory.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=directory)
-    os.close(fd)
+    work = Path(tempfile.mkdtemp(dir=directory))
     t0 = time.perf_counter()
     try:
-        res = subprocess.run(
-            [*cmd, "-o", tmp, *(str(CSRC / s) for s in SOURCES)],
-            capture_output=True, text=True,
-        )
+        objs = [work / f"{Path(s).stem}.o" for s in SOURCES]
+        procs = [subprocess.Popen([cxx, *COMPILE_FLAGS[kind], "-o", str(o), str(CSRC / s)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        outputs = [proc.communicate() for proc in procs]  # every compiler ends first
+        for src, proc, (stdout, stderr) in zip(SOURCES, procs, outputs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"compiling csrc/{src} with {cxx} failed "
+                                   f"(exit {proc.returncode}):\n{stdout}{stderr}")
+        logs = [stderr for _stdout, stderr in outputs]
+        lib = work / "lib.so"
+        res = subprocess.run([cxx, *LINK_FLAGS, "-o", str(lib), *map(str, objs)],
+                             capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(
-                f"building csrc/ with {cmd[0]} failed (exit {res.returncode}):\n"
-                f"{res.stdout}{res.stderr}"
-            )
-        os.replace(tmp, out)
+            raise RuntimeError(f"linking csrc/ with {cxx} failed (exit {res.returncode}):\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(lib, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return Build(out, time.perf_counter() - t0, res.stderr)
+        shutil.rmtree(work, ignore_errors=True)
+    return Build(out, time.perf_counter() - t0, "".join(logs))
 
 
 _P = ctypes.c_void_p
@@ -122,6 +137,21 @@ _SIGNATURES = {
     "ramses_cfl_mhd_f64": ([_P, _P, _P, _I, _I, _I, _P, _P], _I),
     "ramses_mhd_step_f32": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "ramses_mhd_step_f64": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_cfl_hydro_partials": ([], _I),
+    "ramses_cfl_hydro_f32": ([_P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
+    "ramses_cfl_hydro_f64": ([_P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
+    "ramses_hydro_step_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
+    "ramses_hydro_step_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
+    "ramses_hydro_step_f64": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
+}
+
+# the operation-counting entry points of build("count")
+_L = ctypes.c_longlong
+_COUNT_SIGNATURES = {
+    "ramses_cfl_mhd_ops": ([_P, _I, _I, _I, _P], _L),
+    "ramses_mhd_step_ops": ([_P, _I, _I, _I, _P, ctypes.c_double], _L),
+    "ramses_cfl_hydro_ops": ([_P, _I, _I, _I, _I, _P], _L),
+    "ramses_hydro_step_ops": ([_P, _I, _I, _I, _P, _P, ctypes.c_double, _P, _P], None),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -131,7 +161,8 @@ def load_library(kind: str = "cuda") -> ctypes.CDLL:
     """The built library with every entry point's ctypes signature set."""
     if kind not in _loaded:
         lib = ctypes.CDLL(str(build(kind).path))
-        for name, (argtypes, restype) in _SIGNATURES.items():
+        signatures = dict(_SIGNATURES, **(_COUNT_SIGNATURES if kind == "count" else {}))
+        for name, (argtypes, restype) in signatures.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = restype
@@ -141,9 +172,12 @@ def load_library(kind: str = "cuda") -> ctypes.CDLL:
 
 def param_block(params) -> ctypes.Array:
     """The physical parameters as the C side's P_* double block
-    (csrc/mhd_common.cuh). An iorder-1 scheme is slope_type 0."""
+    (csrc/common.cuh). An iorder-1 scheme is slope_type 0; the Riemann
+    solver travels as its RiemannSolver value."""
     slope = 0.0 if params.iorder == 1 else float(params.slope_type)
-    return (ctypes.c_double * 8)(
+    return (ctypes.c_double * 13)(
         params.gamma0, params.smallr, params.smallp, params.smallc, slope,
         params.dx, params.dy, params.dz,
+        params.niter_riemann, params.smallpp, params.gamma6, params.c_iso,
+        int(params.riemann_solver),
     )

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ramsesgpu_tpu.config.params import RunParams
+from ..config.params import RunParams
 
 from ..solvers.timestep import inv_dt_mhd_periodic
 from .build import load_library, param_block

@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from ramsesgpu_tpu.config.params import RunParams
-from ramsesgpu_tpu.core.constants import MagneticRiemannSolver, RiemannSolver
+from ..config.params import RunParams
+from ..core.constants import MagneticRiemannSolver, RiemannSolver
 
 from ..solvers.boundary import require_periodic
 from ..solvers.godunov_mhd import mhd_3d_periodic_update

@@ -1,15 +1,16 @@
-"""Equation of state and MHD conservative -> primitive conversion (the
+"""Equation of state and conservative <-> primitive conversion (the
 PyTorch twin of ramsesgpu_tpu/ops/eos.py; reference constoprim.h:28-199).
 
-Conserved state U layout: [8, z, y, x] with components ID, IP(=E), IU, IV,
-IW, IA, IB, IC; the face-centred field sits at each cell's LEFT face.
+Conserved state U layout: [nvar, z, y, x] with components ID, IP(=E), IU,
+IV, IW (hydro: nvar 5) and IA, IB, IC (MHD: nvar 8); the face-centred field
+sits at each cell's LEFT face.
 """
 from __future__ import annotations
 
 import torch
 
-from ramsesgpu_tpu.config.params import RunParams
-from ramsesgpu_tpu.core.constants import IA, IB, IC, ID, IP, IU, IV, IW
+from ..config.params import RunParams
+from ..core.constants import IA, IB, IC, ID, IP, IU, IV, IW
 
 from .backend import xp
 
@@ -20,6 +21,37 @@ def eos(params: RunParams, rho: torch.Tensor, eint: torch.Tensor):
     p = xp.maximum((params.gamma0 - 1.0) * rho * eint, rho * params.smallp)
     c = torch.sqrt(params.gamma0 * p / rho)
     return p, c
+
+
+def constoprim_hydro(params: RunParams, U: torch.Tensor):
+    """Hydro conservative -> primitive (ramsesgpu_tpu ops/eos.py:28;
+    constoprim.h:43-111). Returns (Q, c): Q = (rho, p, u, v[, w]) and the
+    sound speed; the isothermal EOS when cIso > 0."""
+    rho = xp.maximum(U[ID], params.smallr)
+    inv_rho = 1.0 / rho
+    velocities = [U[IU] * inv_rho, U[IV] * inv_rho]
+    if params.dim == 3:
+        velocities.append(U[IW] * inv_rho)
+    eken = 0.5 * sum(v * v for v in velocities)
+
+    if params.c_iso > 0:
+        p = rho * params.c_iso * params.c_iso
+        c = torch.full_like(rho, params.c_iso)
+    else:
+        eint = U[IP] * inv_rho - eken
+        p = xp.maximum((params.gamma0 - 1.0) * rho * eint, rho * params.smallp)
+        c = torch.sqrt(params.gamma0 * p * inv_rho)
+    return torch.stack([rho, p, *velocities]), c
+
+
+def prim_to_cons_hydro(params: RunParams, Q: torch.Tensor) -> torch.Tensor:
+    """Primitive -> conservative, the inverse of constoprim_hydro
+    (ramsesgpu_tpu ops/eos.py:107)."""
+    rho, p = Q[ID], Q[IP]
+    velocities = [Q[IU], Q[IV]] + ([Q[IW]] if params.dim == 3 else [])
+    eken = 0.5 * rho * sum(v * v for v in velocities)
+    e_tot = p / (params.gamma0 - 1.0) + eken
+    return torch.stack([rho, e_tot, *[rho * v for v in velocities]])
 
 
 def constoprim_mhd(params: RunParams, U: torch.Tensor, dt=None):

@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from ramsesgpu_tpu.config.params import RunParams
-from ramsesgpu_tpu.core.constants import (
+from ..config.params import RunParams
+from ..core.constants import (
     IA, IB, IC, ID, IP, IU, IV, IW, MagneticRiemannSolver, RiemannSolver,
 )
 

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from ramsesgpu_tpu.config.params import RunParams
+from ..config.params import RunParams
 
 from .backend import xp
 

@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from ramsesgpu_tpu.config.params import RunParams
-from ramsesgpu_tpu.core.constants import IA, IB, IC, ID, IP, IU, IV, IW
+from ..config.params import RunParams
+from ..core.constants import IA, IB, IC, ID, IP, IU, IV, IW
 
 from .backend import xp
 from .slopes import slope_1d

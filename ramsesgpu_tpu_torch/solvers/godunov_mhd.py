@@ -17,8 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from ramsesgpu_tpu.config.params import RunParams
-from ramsesgpu_tpu.core.constants import IA, IB, IC, ID, IP, IU, IV, IW
+from ..config.params import RunParams
+from ..core.constants import IA, IB, IC, ID, IP, IU, IV, IW
 
 from ..ops.backend import xp
 from ..ops.eos import constoprim_mhd

@@ -14,28 +14,15 @@ import sys
 import numpy as np
 import torch
 
-from ramsesgpu_tpu.config.configmap import ConfigMap
-from ramsesgpu_tpu.config.params import RunParams, params_from_config
-from ramsesgpu_tpu.problems import mhd_inits
-from ramsesgpu_tpu.utils.timer import Timer, perf_report
-
+from ..config.configmap import ConfigMap
+from ..config.params import RunParams, params_from_config
 from ..convert import torch_dtype
+from ..io.hdf5 import output_hdf5
+from ..io.vtk import output_vtk
+from ..problems import init_problem
+from ..utils.timer import Timer, perf_report
 from .boundary import make_boundaries
 from .step import make_packed_advance_chain, require_slice
-
-# initial conditions the port runs (all periodic-capable, no gravity and
-# no rotation); the JAX registry's names and aliases
-_INITS = {
-    **dict.fromkeys(("Orszag-Tang", "OrszagTang"), mhd_inits.init_orszag_tang),
-    **dict.fromkeys(
-        ("FieldLoop", "fieldloop", "Fieldloop", "field-loop", "Field-Loop"),
-        mhd_inits.init_mhd_field_loop,
-    ),
-    **dict.fromkeys(
-        ("CurrentSheet", "currentsheet", "Current-Sheet", "current-sheet"),
-        mhd_inits.init_mhd_current_sheet,
-    ),
-}
 
 # INI switches of the JAX Run that the port does not implement
 _UNPORTED_FLAGS = (
@@ -52,16 +39,6 @@ def config_from_ini(text: str) -> tuple[ConfigMap, RunParams]:
     """The ConfigMap of INI text and its RunParams."""
     config = ConfigMap(text=text)
     return config, params_from_config(config)
-
-
-def init_state(params: RunParams, config: ConfigMap) -> np.ndarray:
-    """The problem's initial conserved state (numpy, ghosted)."""
-    init = _INITS.get(params.problem)
-    if init is None:
-        raise NotImplementedError(
-            f"problem {params.problem!r} is not ported; ported: {sorted(set(_INITS))}"
-        )
-    return init(params, config)
 
 
 class Run:
@@ -93,7 +70,7 @@ class Run:
         self.n_step = 0
         self.io_timer = Timer()
 
-        U0 = torch.from_numpy(init_state(self.params, config))
+        U0 = torch.from_numpy(init_problem(self.params, config))
         U0 = U0.to(device=self.device, dtype=torch_dtype(self.params))
         self.U = make_boundaries(self.params, U0)
         self._chain = make_packed_advance_chain(self.params, self.device)
@@ -107,7 +84,7 @@ class Run:
         return self.U
 
     def output(self) -> None:
-        """VTK and/or HDF5 snapshots through the JAX package's host writers."""
+        """VTK and/or HDF5 snapshots."""
         if not (self.output_vtk or self.output_hdf5):
             return
         with self.io_timer:
@@ -115,12 +92,8 @@ class Run:
             kw = dict(output_dir=self.output_dir, prefix=self.output_prefix,
                       ghost_included=self.ghost_included)
             if self.output_vtk:
-                from ramsesgpu_tpu.io.vtk import output_vtk
-
                 output_vtk(self.params, U_host, self.n_step, **kw)
             if self.output_hdf5:
-                from ramsesgpu_tpu.io.hdf5 import output_hdf5
-
                 output_hdf5(self.params, U_host, self.n_step, total_time=self.t, **kw)
 
     def start(self, max_steps: int | None = None, do_output: bool = True) -> None:

@@ -1,18 +1,20 @@
 """Step and chunk-advance builders (the port's counterpart of
-ramsesgpu_tpu/solvers/step.py:107-452), for the ported slice: fully
-periodic 3D ideal MHD with HLLD fluxes and 2D-HLLD EMFs.
+ramsesgpu_tpu/solvers/step.py:107-452), for the ported slices: fully
+periodic 3D ideal MHD with HLLD fluxes and 2D-HLLD EMFs, and 3D hydro
+(approx / HLL / HLLC) with any mix of DIRICHLET / NEUMANN / PERIODIC
+faces.
 
     step(U, t)          -> (U', dt)       one step on the ghosted state
     advance_n(U, t, n)  -> (U', t', k)    up to n steps, stopping at t_end
     make_packed_advance_chain -> (pack, advance_packed, unpack(S, t))
 
-Every builder runs the one kernel loop (kernels/fused_mhd3d.py): on a CUDA
-device its wrappers launch the hand-written kernels, on a CPU tensor they
-run their plain twins. ``[implementation] kernel`` = ``auto`` or
-``pallas`` is accepted everywhere; ``jnp`` only on the CPU (the twins must
-not stand in for the kernels on CUDA); ``zcarry`` is not ported.
-``[implementation] zSlabNb`` has no effect on this path, as in the JAX
-package.
+Each of them runs the kernel path (kernels/fused_mhd3d.py,
+kernels/fused_hydro3d.py): on a CUDA device its wrappers launch the
+hand-written kernels, on a CPU tensor they run their plain twins.
+``[implementation] kernel`` = ``auto`` or ``pallas`` is accepted
+everywhere; ``jnp`` only on the CPU (the twins must not stand in for the
+kernels on CUDA); ``zcarry`` is not ported. ``[implementation] zSlabNb``
+has no effect on this path, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -20,12 +22,12 @@ from typing import Callable
 
 import torch
 
-from ramsesgpu_tpu.config.params import RunParams
-
+from ..config.params import RunParams
+from ..kernels import fused_hydro3d, fused_mhd3d
 from ..kernels.cfl_mhd import cfl_mhd
-from ..kernels.fused_mhd3d import make_advance_n as make_kernel_advance_n
+from ..kernels.hydro_step import require_hydro_scope
 from ..kernels.mhd_step import mhd_step, require_step_scope
-from .boundary import interior, wrap_pad
+from .boundary import interior, make_boundaries_concat
 from .timestep import dt_from_inv
 
 # problems whose initial state carries a static gravity field in the JAX
@@ -36,7 +38,10 @@ _GRAVITY_PROBLEMS = ("Keplerian-disk", "MRI", "Mri", "mri")
 def require_slice(params: RunParams, device) -> None:
     """Raise for configurations outside the port and for kernel choices
     it refuses on ``device``."""
-    require_step_scope(params)
+    if params.mhd:
+        require_step_scope(params)
+    else:
+        require_hydro_scope(params)
     if params.problem in _GRAVITY_PROBLEMS or params.problem in ("jet", "Jet"):
         raise NotImplementedError(f"problem {params.problem!r} is not ported")
     device = torch.device(device)
@@ -57,6 +62,8 @@ def require_slice(params: RunParams, device) -> None:
 def make_step_fn(params: RunParams, device) -> Callable:
     """``step(U, t) -> (U_new, dt)`` on the ghosted state."""
     require_slice(params, device)
+    if not params.mhd:
+        return fused_hydro3d.make_step_fn(params, device)
     scratch = None  # the step kernel's stage buffer, allocated once
 
     def step(U, t):
@@ -67,21 +74,26 @@ def make_step_fn(params: RunParams, device) -> Callable:
         dt = dt_from_inv(params, cfl_mhd(params, S))
         active = torch.ones((), dtype=torch.bool, device=S.device)
         mhd_step(params, S, dt, active, scratch)
-        return wrap_pad(S, params.ghost_width), dt
+        return make_boundaries_concat(params, S, interior_only=True), dt
 
     return step
+
+
+def _loop_module(params: RunParams):
+    return fused_mhd3d if params.mhd else fused_hydro3d
 
 
 def make_advance_n(params: RunParams, device) -> Callable:
     """``advance_n(U, t, n) -> (U', t', k)``: up to n steps on the ghosted
     state, stopping once t >= t_end, with t and k device tensors."""
     require_slice(params, device)
-    return make_kernel_advance_n(params, device)
+    return _loop_module(params).make_advance_n(params, device)
 
 
 def make_packed_advance_chain(params: RunParams, device):
     """``(pack, advance_packed, unpack(S, t))`` carrying the port's loop
     state across chunks. ``advance_packed`` updates S in place."""
     require_slice(params, device)
-    pack, advance_packed, unpack = make_kernel_advance_n(params, device, packed_form=True)
+    pack, advance_packed, unpack = _loop_module(params).make_advance_n(
+        params, device, packed_form=True)
     return pack, advance_packed, lambda S, t: unpack(S)

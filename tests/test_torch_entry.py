@@ -65,22 +65,54 @@ def params_for(n=16, solver="hlld", kernel="auto", outdir="."):
     return params_from_config(config), config
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
+    """Importing every module of the port and running a CPU Run of each
+    slice leaves no jax and no ramsesgpu_tpu module in sys.modules."""
+    pkg = REPO / "ramsesgpu_tpu_torch"
+    modules = sorted(
+        "ramsesgpu_tpu_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
+        for p in pkg.rglob("*.py") if p.name != "__init__.py")
     code = (
-        "import sys\n"
-        "import ramsesgpu_tpu_torch, ramsesgpu_tpu_torch.convert\n"
-        "import ramsesgpu_tpu_torch.cli.main, ramsesgpu_tpu_torch.solvers.run\n"
-        "import ramsesgpu_tpu_torch.solvers.step\n"
-        "import ramsesgpu_tpu_torch.kernels.build, ramsesgpu_tpu_torch.kernels.cfl_mhd\n"
-        "import ramsesgpu_tpu_torch.kernels.mhd_step, ramsesgpu_tpu_torch.kernels.fused_mhd3d\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'triton')))\n"
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from ramsesgpu_tpu_torch.solvers.run import Run, config_from_ini\n"
+        "for text in sys.argv[1:]:\n"
+        "    config, params = config_from_ini(text)\n"
+        "    Run(config, 'cpu', params).start(max_steps=1, do_output=False)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'triton'))\n"
+        "             or m == 'ramsesgpu_tpu' or m.startswith('ramsesgpu_tpu.'))\n"
         "assert not bad, bad\n"
         "print('OK')\n"
     )
+    hydro = (REPO / "data" / "implode3d.ini").read_text().replace("nx=64", "nx=8").replace(
+        "ny=64", "ny=8").replace("nz=64", "nz=8")
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         env=env, timeout=300)
-    assert res.returncode == 0 and res.stdout.strip() == "OK", res.stderr[-4000:]
+    res = subprocess.run([sys.executable, "-c", code, INI.format(
+        n=8, solver="hlld", kernel="auto", outdir=tmp_path, hdf5="no"), hydro],
+        capture_output=True, text=True, env=env, timeout=300, cwd=tmp_path)
+    assert res.returncode == 0 and res.stdout.strip().endswith("OK"), res.stderr[-4000:]
+
+
+def test_config_copies_match_the_jax_package(data_dir):
+    """The port's own copies of config/ and core/ give the JAX package's
+    RunParams, field by field, for every shipped INI file."""
+    import dataclasses
+
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap as TConfigMap
+    from ramsesgpu_tpu_torch.config.params import params_from_config as t_params_from_config
+
+    files = sorted(Path(data_dir).glob("*.ini"))
+    assert len(files) > 50
+    for path in files:
+        want = params_from_config(ConfigMap(path))
+        got = t_params_from_config(TConfigMap(path))
+        assert type(got).__module__.startswith("ramsesgpu_tpu_torch.")
+        for field in dataclasses.fields(want):
+            a, b = getattr(got, field.name), getattr(want, field.name)
+            assert a == b and type(a).__name__ == type(b).__name__, (path.name, field.name, a, b)
+        assert (got.shape, got.dx, got.smallp, got.gamma6) == (want.shape, want.dx, want.smallp,
+                                                              want.gamma6), path.name
 
 
 def test_cli_runs_on_cpu_and_writes_vti(tmp_path, capsys):
@@ -142,11 +174,11 @@ def test_wrappers_take_twins_on_cpu_without_counting():
     from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
     from ramsesgpu_tpu_torch.solvers.boundary import interior
     from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_periodic_update
-    from ramsesgpu_tpu_torch.solvers.run import init_state
+    from ramsesgpu_tpu_torch.problems import init_problem
     from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_periodic
 
     params, config = params_for(n=8)
-    S = interior(params, torch.from_numpy(init_state(params, config))).contiguous()
+    S = interior(params, torch.from_numpy(init_problem(params, config))).contiguous()
     before = (cfl_mhd.launches, mhd_step.launches)
     inv = cfl_mhd(params, S)
     assert torch.equal(inv, inv_dt_mhd_periodic(params, S))
