@@ -39,7 +39,26 @@ Phases, in order; any failure raises and no result line is printed:
      needs (counted by the counting build on a 32^3 block of the same
      state, plus the approx solver's Newton iterations counted by the
      kernel on the card) over the card's f32 rate;
- 12. the kernels JSON line, the card line, and the result line.
+ 12. the shearing box (data/mhd_mri_3d.ini, compensated=no) at 64x128x64,
+     f32 + f64, with the JAX tests' coefficients (omega0 = cIso = 1) and
+     the ini's (0.001), from a t0 whose shear offset is 2.5 cells: each
+     shear kernel against its twin on the same inputs (the CFL with the
+     kept face, and its NaN propagation; the sheared slabs; the step's
+     shear mode and its five x-face planes before the remap; the remap,
+     border columns and kept face), then 1 and 10 chained steps of the
+     loop against the twins' loop;
+ 13. the MRI main path: make_packed_advance_chain at 128x256x128 f32
+     (scripts/perf_table.py's flagship MRI size): 2 warm-up + 3 timed
+     chunks of 10 steps, one launch of each of the four kernels per step,
+     no twin call, finite state, divB (with the kept face) and mass; one
+     profiled chunk;
+ 14. at 128x256x128 f32 on the MRI path's state, each shear kernel against
+     its twin, each of its outputs on its own (as 12), and its time
+     against the twin's; the step kernel's stages in
+     the shear mode beside the periodic mode's on the Orszag-Tang state of
+     the same shape;
+ 15. the shear kernels' bounds (as 11, counted on an 8x32x128 block);
+ 16. the kernels JSON line, the card line, and the result line.
 Imports nothing of JAX; of this repo it imports only ramsesgpu_tpu_torch.
 """
 from __future__ import annotations
@@ -96,11 +115,28 @@ dtype={dtype}
 TOL_CFL = {"float32": 1e-6, "float64": 1e-13}
 TOL_STEP1 = {"float32": 1e-6, "float64": 1e-13}
 TOL_STEP10 = {"float32": 1e-5, "float64": 1e-12}
+# the shear step's five x-face planes before the remap are differences of
+# much larger terms (on the noflux MRI box, whose Bz vanishes at the x
+# faces, the x-face EMFs are ~1e-6 of |v||B| and the density fluxes ~1e-3
+# of rho c_s): relative to their own norm their rounding is the terms'
+# scaled up by that cancellation (PERF.md)
+TOL_PLANES = {"float32": 1e-4, "float64": 1e-12}
 KERNELS = {
     "mhd_step": ("ramsesgpu_tpu_torch/csrc/mhd_step.cu",
                  "ramsesgpu_tpu/pallas/packed_io.py:148"),
     "cfl_mhd": ("ramsesgpu_tpu_torch/csrc/cfl_mhd.cu",
                 "ramsesgpu_tpu/pallas/packed_io.py:51"),
+    "mhd_step_shear": ("ramsesgpu_tpu_torch/csrc/mhd_step.cu",
+                       "ramsesgpu_tpu/pallas/shear_packed.py:89 (MRI main kernel), "
+                       "ramsesgpu_tpu/pallas/shear_packed.py:237 (border strip)"),
+    "cfl_mhd_shear": ("ramsesgpu_tpu_torch/csrc/cfl_mhd.cu",
+                      "ramsesgpu_tpu/pallas/shear_packed.py:716"),
+    "shear_slabs": ("ramsesgpu_tpu_torch/csrc/shear_border.cu",
+                    "ramsesgpu_tpu/pallas/shear_packed.py:237 (the strip's sheared ghosts, "
+                    "built by :952-1004)"),
+    "shear_border": ("ramsesgpu_tpu_torch/csrc/shear_border.cu",
+                     "ramsesgpu_tpu/pallas/shear_packed.py:237 (the strip's planes, remapped "
+                     "and applied by :1108-1174)"),
     "hydro_step": ("ramsesgpu_tpu_torch/csrc/hydro_step.cu",
                    "ramsesgpu_tpu/pallas/packed_io.py:148 (hydro body fused_hydro3d.py:182), "
                    "ramsesgpu_tpu/pallas/fused_hydro3d.py:46, "
@@ -120,13 +156,17 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def setup(n: int, dtype: str):
+def setup(n: int, dtype: str, ny: int | None = None, nz: int | None = None):
+    """The Orszag-Tang workload at n^3 (or n x ny x nz): params and the
+    interior state on the card."""
     from ramsesgpu_tpu_torch.convert import torch_dtype
     from ramsesgpu_tpu_torch.problems import init_problem
     from ramsesgpu_tpu_torch.solvers.boundary import interior
     from ramsesgpu_tpu_torch.solvers.run import config_from_ini
 
-    config, params = config_from_ini(INI.format(n=n, dtype=dtype))
+    text = INI.format(n=n, dtype=dtype)
+    text = text.replace(f"ny={n}", f"ny={ny or n}").replace(f"nz={n}", f"nz={nz or n}")
+    config, params = config_from_ini(text)
     U0 = torch.from_numpy(init_problem(params, config))
     S = interior(params, U0).to(device="cuda", dtype=torch_dtype(params)).contiguous()
     return params, S
@@ -187,9 +227,10 @@ def wrappers():
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
     from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs
 
     return {"mhd_step": mhd_step, "cfl_mhd": cfl_mhd, "hydro_step": hydro_step,
-            "cfl_hydro": cfl_hydro}
+            "cfl_hydro": cfl_hydro, "shear_slabs": shear_slabs, "shear_border": shear_border}
 
 
 @contextlib.contextmanager
@@ -198,11 +239,14 @@ def counted_main_path(name: str, expect: dict):
     read just after; fails unless the counts equal ``expect`` (0 for the
     kernels not named) or a plain twin ran meanwhile. Yields the dict the
     counts are read into."""
-    from ramsesgpu_tpu_torch.kernels import cfl_hydro, cfl_mhd, hydro_step, mhd_step
+    from ramsesgpu_tpu_torch.kernels import (cfl_hydro, cfl_mhd, hydro_step, mhd_step,
+                                             shear_border)
 
     twins = [(mhd_step, "mhd_3d_periodic_update"), (cfl_mhd, "inv_dt_mhd_periodic"),
              (hydro_step, "hydro_3d_state_update"), (hydro_step, "hydro_3d_interior_update"),
-             (cfl_hydro, "compute_inv_dt_hydro")]
+             (cfl_hydro, "compute_inv_dt_hydro"), (mhd_step, "mhd_3d_shear_update"),
+             (cfl_mhd, "inv_dt_mhd_shear"), (shear_border, "shear_slabs_twin"),
+             (shear_border, "shear_border_update")]
     twin_calls = []
 
     def guard(module, attr, fn):
@@ -339,9 +383,12 @@ def div_b_max(params, S: torch.Tensor) -> float:
     return float(div.abs().max())
 
 
-def run_chunks(label: str, card: str, advance, S, t, n: int, chunk: int = 10):
-    """2 warm-up and 3 timed chunks of ``chunk`` steps; prints ms/step and
-    cells/s; returns (S, t)."""
+def run_chunks(label: str, card: str, advance, S, t, n, chunk: int = 10,
+               cells: int | None = None):
+    """2 warm-up and 3 timed chunks of ``chunk`` steps on the n^3 mesh (or
+    ``cells`` cells of the mesh named n); prints ms/step and cells/s;
+    returns (S, t)."""
+    cells = n ** 3 if cells is None else cells
     for _ in range(2):
         S, t, k = advance(S, t, chunk)
         torch.cuda.synchronize()
@@ -357,8 +404,9 @@ def run_chunks(label: str, card: str, advance, S, t, n: int, chunk: int = 10):
         if int(k) != chunk:
             raise AssertionError(f"{label}: timed chunk stopped early: {int(k)}")
     best, mean = min(times), sum(times) / len(times)
-    print(f"[{label}] main path {n}^3 f32 on {card}: best chunk {best * 1e3 / chunk:.3f} ms/step, "
-          f"{n ** 3 * chunk / best:.4e} cells/s (mean {mean * 1e3 / chunk:.3f} ms/step, "
+    size = f"{n}^3" if isinstance(n, int) else n
+    print(f"[{label}] main path {size} f32 on {card}: best chunk {best * 1e3 / chunk:.3f} ms/step, "
+          f"{cells * chunk / best:.4e} cells/s (mean {mean * 1e3 / chunk:.3f} ms/step, "
           f"chunks {[round(x * 1e3 / chunk, 3) for x in times]} ms/step)")
     return S, t
 
@@ -732,12 +780,363 @@ def phase11(mhd: dict, hydro: dict) -> dict:
               "hydro_step": 2 * 5 * 4 * n, "cfl_hydro": 5 * 4 * n,
               "hydro_step_ghosted": 5 * 4 * (n + 260 ** 3)}
     bounds = {}
-    for name in (*KERNELS, "hydro_step_ghosted"):
+    for name in nbytes:
         t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
         t_ops = ops[name] / F32_FLOP_PER_S * 1e3
         bounds[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
         print(f"[11] {name} at 256^3 f32: {nbytes[name] / 1e9:.3f} GB -> {t_bytes:.4f} ms, "
               f"{ops[name] / 1e9:.3f} GFLOP -> {t_ops:.4f} ms: bound {bounds[name][0]:.4f} ms "
+              f"by {bounds[name][1]}")
+    return bounds
+
+
+def mri_setup(nx: int, ny: int, nz: int, dtype: str, coeffs: float | None = None):
+    """data/mhd_mri_3d.ini at nx x ny x nz with compensated=no; with
+    ``coeffs``, omega0 = cIso = coeffs (the JAX package's shear tests use
+    1). Returns params and the loop state (S, kept) on the card."""
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.config.params import params_from_config
+    from ramsesgpu_tpu_torch.convert import torch_dtype
+    from ramsesgpu_tpu_torch.kernels.shear import pack
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+
+    config = ConfigMap(Path("data/mhd_mri_3d.ini"))
+    for axis, n in (("nx", nx), ("ny", ny), ("nz", nz)):
+        config.set_integer("mesh", axis, n)
+    config.set_string("implementation", "dtype", dtype)
+    config.set_string("implementation", "compensated", "no")
+    if coeffs is not None:
+        config.set_float("MHD", "omega0", coeffs)
+        config.set_float("hydro", "cIso", coeffs)
+    params = params_from_config(config)
+    U0 = torch.from_numpy(init_problem(params, config))
+    U = make_boundaries(params, U0.to(device="cuda", dtype=torch_dtype(params)))
+    return params, config, pack(params, U)
+
+
+def shear_t0(params, dtype) -> torch.Tensor:
+    """A time whose sheared-fill offset is 2.5 cells (jplus 2, fraction
+    0.5): at t = 0 the fill is periodic and would test nothing."""
+    t0 = 2.5 * params.dy / (1.5 * params.omega0 * params.dx * params.nx)
+    return torch.tensor(t0, dtype=dtype, device="cuda")
+
+
+def state_rel(a, b) -> float:
+    """Relative L2 of two loop states (S, kept) as one vector."""
+    num = torch.linalg.norm((a[0] - b[0]).double()) ** 2 + torch.linalg.norm((a[1] - b[1]).double()) ** 2
+    den = torch.linalg.norm(b[0].double()) ** 2 + torch.linalg.norm(b[1].double()) ** 2
+    return float((num / den).sqrt())
+
+
+def check(label: str, rel: float, tol: float, extra: str = "") -> None:
+    print(f"[{label}] rel err {rel:.3e} (tol {tol:.0e}){extra}")
+    if not rel <= tol:
+        raise AssertionError(f"{label}: kernel disagrees with its twin: {rel}")
+
+
+PLANES = ("fpl_min", "fpl_max", "eypl_min", "eypl_max", "ezpl_max")
+
+
+def shear_outputs(params, planes, S2, kept2, rem) -> dict:
+    """Each output of the two shear-step kernels on its own, with its
+    tolerance table: the step's five unremapped x-face planes; the border
+    kernel's four remapped planes, the three channels it changes on the
+    border columns 0 and nx-1 (density, Bx, Bz), and the kept face. On its
+    own, so that a small output (an emfY plane beside the density-flux
+    planes, 2 border columns of nx) cannot hide under a larger one's norm."""
+    cols = (0, params.nx - 1)
+    out = {f"plane {name} before the remap": (planes[i], TOL_PLANES)
+           for i, name in enumerate(PLANES)}
+    out.update({f"plane {name} after the remap": (rem[i], TOL_STEP1)
+                for i, name in enumerate(PLANES[:4])})
+    out.update({f"border columns {name}": (S2[c][..., cols], TOL_STEP1)
+                for name, c in (("rho", 0), ("Bx", 5), ("Bz", 7))})
+    out["kept face"] = (kept2, TOL_STEP1)
+    return out
+
+
+def check_shear_outputs(label: str, got: dict, want: dict, dtype: str) -> None:
+    for name, (value, tol) in got.items():
+        check(f"{label} {name}", rel_l2(value, want[name][0]), tol[dtype])
+
+
+def phase12() -> None:
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.shear import make_advance_n
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import (mhd_3d_shear_step, mhd_3d_shear_update,
+                                                         shear_border_update)
+    from ramsesgpu_tpu_torch.solvers.shear import shear_offset
+    from ramsesgpu_tpu_torch.solvers.shear import shear_slabs as slabs_twin
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_shear
+
+    for name, coeffs in (("omega0=cIso=1", 1.0), ("ini omega0=cIso=0.001", None)):
+        for dtype in ("float32", "float64"):
+            params, _config, (S, kept) = mri_setup(64, 128, 64, dtype, coeffs)
+            tag = f"12 {name} {dtype} 64x128x64"
+            t0 = shear_t0(params, S.dtype)
+            jplus, epsi = shear_offset(params, t0)
+            print(f"[{tag}] t0 {float(t0)!r}: jplus {int(jplus)}, fraction "
+                  f"{float(epsi) / params.dy:.3f}")
+            tol1, tol10 = TOL_STEP1[dtype], TOL_STEP10[dtype]
+            inv, inv_t = cfl_mhd(params, S, kept=kept), inv_dt_mhd_shear(params, S, kept)
+            check(f"{tag} cfl_mhd shear", abs(float(inv) - float(inv_t)) / float(inv_t),
+                  TOL_CFL[dtype])
+            S_nan = S.clone()
+            S_nan[3, 5, 7, 9] = float("nan")
+            if not torch.isnan(cfl_mhd(params, S_nan, kept=kept)):
+                raise AssertionError("cfl_mhd's shear mode does not propagate NaN")
+            dt = dt_from_inv(params, inv_t)
+            active = torch.ones((), dtype=torch.bool, device="cuda")
+
+            slabs_t = slabs_twin(params, S, kept, t0 + dt)
+            check(f"{tag} shear_slabs", rel_l2(shear_slabs(params, S, kept, t0, dt), slabs_t),
+                  tol1)
+            planes = torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device="cuda")
+            S1 = mhd_step(params, S.clone(), dt, active, mhd_step.scratch(params, S),
+                          shear=(slabs_t, planes))
+            S1_t, planes_t = mhd_3d_shear_update(params, S, slabs_t, dt)
+            check(f"{tag} mhd_step shear", rel_l2(S1, S1_t), tol1)
+            check(f"{tag} the 5 x-face planes before the remap", rel_l2(planes, planes_t), tol1)
+            S2, kept2 = S1_t.clone(), kept.clone()
+            rem = shear_border(params, S2, kept2, planes_t, t0, dt, active)
+            S2_t, kept2_t, rem_t = shear_border_update(params, S1_t, kept, planes_t, t0, dt)
+            check(f"{tag} shear_border", state_rel((S2, kept2), (S2_t, kept2_t)), tol1)
+            check_shear_outputs(tag, shear_outputs(params, planes, S2, kept2, rem),
+                                shear_outputs(params, planes_t, S2_t, kept2_t, rem_t), dtype)
+
+            _pack, advance, _unpack = make_advance_n(params, "cuda", packed_form=True)
+            state, t_k, k = advance((S.clone(), kept.clone()), t0.clone(), 1)
+            twin = mhd_3d_shear_step(params, S, kept, t0, dt)
+            check(f"{tag} 1 step of the loop", state_rel(state, twin), tol1)
+            state, t_k, k = advance(state, t_k, 9)
+            twin_t = t0 + dt
+            for _ in range(9):
+                dt_t = dt_from_inv(params, inv_dt_mhd_shear(params, *twin))
+                twin = mhd_3d_shear_step(params, *twin, twin_t, dt_t)
+                twin_t = twin_t + dt_t
+            check(f"{tag} 10 chained steps", state_rel(state, twin), tol10,
+                  f": t kernel {float(t_k)!r} twin {float(twin_t)!r}")
+    print("[12] cfl_mhd's shear mode propagates NaN")
+
+
+def div_b_shear(params, S: torch.Tensor, kept: torch.Tensor) -> float:
+    """max |divB| of the loop state: Bx's +1 x face of the last column is
+    the kept face, y and z wrap."""
+    bx, by, bz = (S[c].double() for c in (5, 6, 7))
+    bx_r = torch.cat([bx[..., 1:], kept.double()[..., None]], dim=-1)
+    div = ((bx_r - bx) / params.dx + (torch.roll(by, -1, -2) - by) / params.dy
+           + (torch.roll(bz, -1, -3) - bz) / params.dz)
+    return float(div.abs().max())
+
+
+def phase13(card: str):
+    """The MRI main path; returns its launch counts and its final state."""
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+
+    nx, ny, nz, chunk = 128, 256, 128, 10
+    params, config, (S0, kept0) = mri_setup(nx, ny, nz, "float32")
+    mass0 = float(S0[0].double().sum())
+    pack, advance, unpack = make_packed_advance_chain(params, "cuda", config)
+    U = unpack((S0, kept0), torch.zeros((), device="cuda"))  # the ghosted state a Run holds
+    del S0, kept0
+    t = torch.zeros((), dtype=torch.float32, device="cuda")
+    steps = 5 * chunk
+    expect = {"mhd_step": steps, "cfl_mhd": steps, "shear_slabs": steps, "shear_border": steps}
+    with counted_main_path("13", expect) as launches:
+        state = pack(U)
+        del U
+        state, t = run_chunks("13", card, advance, state, t, f"{nx}x{ny}x{nz}", chunk,
+                              cells=nx * ny * nz)
+    S, kept = state
+    if not (bool(torch.isfinite(S).all()) and bool(torch.isfinite(kept).all())):
+        raise AssertionError("non-finite state after the MRI main path")
+    b_over_dx = max(float(S[5:8].abs().max()), float(kept.abs().max()), 1e-30) / params.dx
+    divb = div_b_shear(params, S, kept)
+    mass = float(S[0].double().sum())
+    print(f"[13] {steps} steps at {nx}x{ny}x{nz} f32: t={float(t)!r}, max|divB|={divb:.3e} "
+          f"(bound {1e-3 * b_over_dx:.3e}), mass rel {abs(mass - mass0) / abs(mass0):.3e} "
+          f"(1e-5), min rho {float(S[0].min()):.4e}")
+    if not divb < 1e-3 * b_over_dx:
+        raise AssertionError("divB bound violated on the MRI path")
+    if not abs(mass - mass0) <= 1e-5 * abs(mass0) or not float(S[0].min()) > 0:
+        raise AssertionError("mass bound violated on the MRI path")
+    U_out = unpack(state, t)
+    if tuple(U_out.shape) != params.shape:
+        raise AssertionError(f"unpacked shape {tuple(U_out.shape)} != {params.shape}")
+    del U_out
+    profile_chunk("13p", card, advance, state, t, chunk)
+    return launches, (params, S, kept, t)
+
+
+def phase14(card: str, mri) -> dict:
+    """The shear kernels at 128x256x128 f32 on the MRI path's state, each
+    against its twin and its time against the twin's."""
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_shear_update, shear_border_update
+    from ramsesgpu_tpu_torch.solvers.shear import shear_slabs as slabs_twin
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_shear
+
+    params, S, kept, t = mri
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    inv = cfl_mhd(params, S, kept=kept)
+    dt = dt_from_inv(params, inv)
+    slabs = shear_slabs(params, S, kept, t, dt)
+    scratch = mhd_step.scratch(params, S)
+    planes = torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device="cuda")
+    S1 = mhd_step(params, S.clone(), dt, active, scratch, shear=(slabs, planes))
+    S2, kept2 = S1.clone(), kept.clone()
+    rem = shear_border(params, S2, kept2, planes, t, dt, active)
+    # timing buffers, overwritten by the timed launches
+    Sw, kw, slabs_w, planes_w = S.clone(), kept.clone(), slabs.clone(), planes.clone()
+    rem_w = rem.clone()
+    ms = {
+        "cfl_mhd_shear": time_ms(lambda: cfl_mhd(params, S, kept=kept), 50),
+        "shear_slabs": time_ms(lambda: shear_slabs(params, S, kept, t, dt, out=slabs_w), 50),
+        "mhd_step_shear": time_ms(lambda: mhd_step(params, Sw, dt, active, scratch,
+                                                   shear=(slabs_w, planes_w)), 10),
+        "shear_border": time_ms(lambda: shear_border(params, Sw, kw, planes_w, t, dt, active,
+                                                     rem_w), 50),
+    }
+    del scratch, Sw, kw, slabs_w, planes_w, rem_w
+    torch.cuda.empty_cache()
+    # the twins on the kernels' inputs
+    inv_t = inv_dt_mhd_shear(params, S, kept)
+    slabs_t = slabs_twin(params, S, kept, t + dt)
+    S1_t, planes_t = mhd_3d_shear_update(params, S, slabs, dt)
+    S2_t, kept2_t, rem_t = shear_border_update(params, S1, kept, planes, t, dt)
+    errs = {"cfl_mhd_shear": abs(float(inv) - float(inv_t)),
+            "shear_slabs": float((slabs - slabs_t).abs().max()),
+            "mhd_step_shear": float((S1 - S1_t).abs().max()),
+            "shear_border": max(float((S2 - S2_t).abs().max()),
+                                float((kept2 - kept2_t).abs().max()))}
+    rel = {"cfl_mhd_shear": errs["cfl_mhd_shear"] / abs(float(inv_t)),
+           "shear_slabs": rel_l2(slabs, slabs_t), "mhd_step_shear": rel_l2(S1, S1_t),
+           "shear_border": state_rel((S2, kept2), (S2_t, kept2_t))}
+    twin_out = shear_outputs(params, planes_t, S2_t, kept2_t, rem_t)
+    check_shear_outputs("14 128x256x128 f32", shear_outputs(params, planes, S2, kept2, rem),
+                        twin_out, "float32")
+    # the yardstick of TOL_PLANES: each output's own f32 rounding, the f32
+    # twin against the f64 twin on the same inputs
+    p64 = params.replace(dtype="float64")
+    S1_64, planes_64 = mhd_3d_shear_update(p64, S.double(), slabs.double(), dt.double())
+    del S1_64
+    ref = shear_outputs(p64, planes_64, *shear_border_update(
+        p64, S1.double(), kept.double(), planes.double(), t.double(), dt.double()))
+    for name, (value, _tol) in twin_out.items():
+        print(f"[14] {name}: f32 twin against f64 twin {rel_l2(value, ref[name][0]):.3e}")
+    del ref, planes_64
+    torch.cuda.empty_cache()
+    plain = {
+        "cfl_mhd_shear": time_ms(lambda: inv_dt_mhd_shear(params, S, kept), 10),
+        "shear_slabs": time_ms(lambda: slabs_twin(params, S, kept, t + dt), 10),
+        "mhd_step_shear": time_ms(lambda: mhd_3d_shear_update(params, S, slabs, dt), 3),
+        "shear_border": time_ms(lambda: shear_border_update(params, S1, kept, planes, t, dt), 10),
+    }
+    stage_breakdown(card, params, S, kept, t, dt)
+    tol = {"cfl_mhd_shear": TOL_CFL["float32"]}
+    for name in ms:
+        check(f"14 {name} 128x256x128 f32", rel[name], tol.get(name, TOL_STEP1["float32"]),
+              f", max abs {errs[name]:.3e}")
+        print(f"[14] {name}: kernel {ms[name]:.4f} ms, twin {plain[name]:.3f} ms "
+              f"(128x256x128 f32, {card})")
+    return {"ms": ms, "plain_ms": plain, "max_abs_err": errs, "params": params, "dt": float(dt),
+            "t": float(t), "S": S, "kept": kept, "planes": planes}
+
+
+def stage_times(fn, reps: int = 5) -> dict:
+    """Device ms per call of each CUDA kernel fn launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("mhd::")[1].split("<")[0] if "mhd::" in e.key else e.key[:40]:
+            e.self_device_time_total / reps / 1e3
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def stage_breakdown(card: str, params, S, kept, t, dt) -> None:
+    """The step kernel's stages, shear mode on the MRI state against the
+    periodic mode on the Orszag-Tang state of the same 128x256x128 shape."""
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs
+
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    slabs = shear_slabs(params, S, kept, t, dt)
+    planes = torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device="cuda")
+    Sw, scratch = S.clone(), mhd_step.scratch(params, S)
+    shear = stage_times(lambda: mhd_step(params, Sw, dt, active, scratch, shear=(slabs, planes)))
+    del Sw, scratch
+    p_ot, S_ot = setup(params.nx, "float32", ny=params.ny, nz=params.nz)
+    scratch = mhd_step.scratch(p_ot, S_ot)
+    periodic = stage_times(lambda: mhd_step(p_ot, S_ot, dt, active, scratch))
+    del scratch, S_ot
+    torch.cuda.empty_cache()
+    print(f"[14] step kernel stages at 128x256x128 f32 ({card}): shear mode (MRI) "
+          f"{sum(shear.values()):.3f} ms, periodic mode (Orszag-Tang) "
+          f"{sum(periodic.values()):.3f} ms")
+    for name in sorted(shear, key=shear.get, reverse=True):
+        print(f"[14]   {name:12s} shear {shear[name]:.4f} ms, periodic "
+              f"{periodic.get(name, 0.0):.4f} ms")
+
+
+def phase15(shear: dict) -> dict:
+    """bound_ms and bound_by of the shear kernels at phase 14's inputs, as
+    phase 11: bytes each input read once and each output written once;
+    flops counted by the counting build on an 8x32x128 block of the state
+    (the full x extent: the shear mode's work depends on nx), scaled to
+    the mesh."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+    from ramsesgpu_tpu_torch.solvers.shear import shear_slabs as slabs_twin
+
+    lib = load_library("count")
+    params = shear["params"]
+    nx, ny, nz = params.nx, params.ny, params.nz
+    bz, by = 8, 32
+    blk = params.replace(nz=bz, zmax=params.zmin + bz * params.dz,
+                         ny=by, ymax=params.ymin + by * params.dy)
+    S = shear["S"][:, :bz, :by].double().contiguous().cpu()
+    kept = shear["kept"][:bz, :by].double().contiguous().cpu()
+    planes = shear["planes"][:, :bz, :by].double().contiguous().cpu()
+    t, dt = shear["t"], shear["dt"]
+    slabs = slabs_twin(blk, S, kept, torch.tensor(t + dt, dtype=torch.float64)).contiguous()
+    scale = (ny * nz) / (by * bz)
+    pb = param_block(blk)
+    ops = {
+        "mhd_step_shear": lib.ramses_mhd_step_shear_ops(S.data_ptr(), slabs.data_ptr(), nx, by,
+                                                        bz, pb, dt) * scale,
+        "cfl_mhd_shear": lib.ramses_cfl_mhd_shear_ops(S.data_ptr(), kept.data_ptr(), nx, by, bz,
+                                                      pb) * scale,
+    }
+    border = (ctypes.c_longlong * 2)()
+    lib.ramses_shear_border_ops(S.data_ptr(), kept.data_ptr(), planes.data_ptr(), nx, by, bz, pb,
+                                t, dt, border)
+    ops["shear_slabs"], ops["shear_border"] = border[0] * scale, border[1] * scale
+    n, rows = nx * ny * nz, ny * nz
+    nbytes = {"mhd_step_shear": 4 * (2 * 8 * n + 2 * 8 * 3 * rows + 5 * rows),
+              "cfl_mhd_shear": 4 * (8 * n + rows),
+              "shear_slabs": 4 * (2 * 8 * 3 * rows + rows + 2 * 8 * 3 * rows),
+              "shear_border": 4 * (5 * rows + 2 * 5 * rows + 2 * rows + 4 * rows)}
+    print(f"[15] counted flops: mhd_step_shear {ops['mhd_step_shear'] / n:.1f}/cell, "
+          f"cfl_mhd_shear {ops['cfl_mhd_shear'] / n:.1f}/cell, shear_slabs "
+          f"{ops['shear_slabs'] / rows:.1f} and shear_border {ops['shear_border'] / rows:.1f} "
+          f"per (z, y) row")
+    bounds = {}
+    for name in ops:
+        t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        t_ops = ops[name] / F32_FLOP_PER_S * 1e3
+        bounds[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+        print(f"[15] {name} at {nx}x{ny}x{nz} f32: {nbytes[name] / 1e9:.4f} GB -> {t_bytes:.5f} ms, "
+              f"{ops[name] / 1e9:.4f} GFLOP -> {t_ops:.5f} ms: bound {bounds[name][0]:.5f} ms "
               f"by {bounds[name][1]}")
     return bounds
 
@@ -762,7 +1161,9 @@ def profile_chunk(label: str, card: str, advance, S: torch.Tensor, t: torch.Tens
     busy = sum(r[0] for r in rows)
     if not rows:
         raise AssertionError("the profiler saw no device time")
-    print(f"[{label}] one {chunk}-step chunk at {S.shape[-1]}^3 f32 on {card}: "
+    grid = S[0] if isinstance(S, tuple) else S
+    size = "x".join(str(d) for d in reversed(grid.shape[1:]))
+    print(f"[{label}] one {chunk}-step chunk at {size} f32 on {card}: "
           f"wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
           f"idle share {1 - busy / wall_us:.4f}")
     for us, count, key in sorted(rows, reverse=True):
@@ -782,12 +1183,20 @@ def main() -> int:
     hydro_timing = phase10(card, implode, hydro_twin_peak)
     del implode
     bounds = phase11(timing, hydro_timing)
+    phase12()
+    shear_launches, mri = phase13(card)
+    shear_timing = phase14(card, mri)
+    del mri
+    bounds.update(phase15(shear_timing))
     if "jax" in sys.modules or any(m.startswith("ramsesgpu_tpu.") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
 
     launches = {**{k: launches[k] for k in ("mhd_step", "cfl_mhd")},
-                **{k: hydro_launches[k] for k in ("hydro_step", "cfl_hydro")}}
-    measured = {key: {**timing[key], **hydro_timing[key]}
+                **{k: hydro_launches[k] for k in ("hydro_step", "cfl_hydro")},
+                "mhd_step_shear": shear_launches["mhd_step"],
+                "cfl_mhd_shear": shear_launches["cfl_mhd"],
+                **{k: shear_launches[k] for k in ("shear_slabs", "shear_border")}}
+    measured = {key: {**timing[key], **hydro_timing[key], **shear_timing[key]}
                 for key in ("ms", "plain_ms", "max_abs_err")}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

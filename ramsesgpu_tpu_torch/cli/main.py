@@ -17,7 +17,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="ramses-tpu-torch",
         description="PyTorch + CUDA port of ramsesgpu_tpu (3D hydro with walls or "
-                    "periodic faces, periodic 3D MHD+CT).",
+                    "periodic faces, periodic 3D MHD+CT, the ideal MRI shearing box).",
     )
     parser.add_argument("--param", "-i", required=True, help="INI parameter file")
     parser.add_argument("--max-steps", type=int, default=None)

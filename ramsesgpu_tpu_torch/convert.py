@@ -13,9 +13,13 @@ for 3D hydro):
   (ramsesgpu_tpu/pallas/packed_bc.py:108-123): [5, nz+2g, ny+2*YB, WX]
   with the x ghosts in the row, WX = nx+2g rounded up to a multiple of
   128, and the ghost bands filled as make_boundaries fills them;
+- JAX shear carry of shearing-box runs (ramsesgpu_tpu/pallas/
+  shear_packed.py:1210 pack_shear): (P, kept_bx), P the packed layout
+  above and kept_bx [nz, ny] the kept Bx face at x = nx;
 - the port's loop state: the interior [nvar, nz, ny, nx]; the kernels
   find neighbours outside it by index rules (kernels/fused_mhd3d.py,
-  kernels/packed_bc.py).
+  kernels/packed_bc.py); a shearing-box run carries the pair (S, kept)
+  (kernels/shear.py).
 """
 from __future__ import annotations
 
@@ -57,6 +61,24 @@ def packed_to_jax(params: RunParams, S: torch.Tensor) -> np.ndarray:
     g = params.ghost_width
     interior = S.detach().cpu().numpy()
     return np.pad(interior, ((0, 0), (g, g), (YB, YB), (0, 0)), mode="wrap")
+
+
+def shear_carry_from_jax(params: RunParams, carry, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX shear carry (P, kept_bx) -> the port's loop state (S, kept)."""
+    P, kept = carry
+    kept = np.asarray(kept)
+    if kept.shape != (params.nz, params.ny):
+        raise ValueError(f"kept face shape {kept.shape} != {(params.nz, params.ny)}")
+    return (packed_from_jax(params, P, device),
+            torch.tensor(kept, dtype=torch_dtype(params), device=device))
+
+
+def shear_carry_to_jax(params: RunParams, state) -> tuple[np.ndarray, np.ndarray]:
+    """The port's loop state (S, kept) -> the JAX shear carry (numpy),
+    equal to ramsesgpu_tpu.pallas.shear_packed.pack_shear of a ghosted
+    state with that interior and kept face."""
+    S, kept = state
+    return packed_to_jax(params, S), kept.detach().cpu().numpy()
 
 
 def padded_width(params: RunParams) -> int:

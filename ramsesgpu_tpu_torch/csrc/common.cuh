@@ -1,5 +1,5 @@
 // Shared pieces of the port's CUDA kernels (cfl_mhd.cu, mhd_step.cu,
-// cfl_hydro.cu, hydro_step.cu).
+// cfl_hydro.cu, hydro_step.cu, shear_border.cu).
 //
 // Layout: a state is channel-major, x fastest: S[nvar][nz][ny][nx] for the
 // loops' interior-only state, the same with a ghost frame for the ghosted
@@ -30,16 +30,26 @@ namespace ramses {
 // Physical parameters. The Python side passes them as doubles in the
 // order of the P_* indices (kernels/build.py param_block); derived
 // constants are formed in double and rounded once to T, as the JAX
-// reference rounds its Python floats. The MHD kernels read the first
-// P_DZ + 1 entries.
+// reference rounds its Python floats. The shearing-box entries: omega0,
+// xmin, and the shift constants of the sheared fill (1.5 omega0 Lx with
+// Lx = dx nx, and Ly = dy ny) and of the remap (1.5 omega0 (xmax - xmin),
+// ymax - ymin), each formed in double as the JAX package forms them.
 enum {
   P_GAMMA0, P_SMALLR, P_SMALLP, P_SMALLC, P_SLOPE, P_DX, P_DY, P_DZ,
-  P_NITER, P_SMALLPP, P_GAMMA6, P_CISO, P_SOLVER, P_COUNT
+  P_NITER, P_SMALLPP, P_GAMMA6, P_CISO, P_SOLVER,
+  P_OMEGA0, P_XMIN, P_FILL_K, P_FILL_LY, P_REMAP_K, P_REMAP_LY, P_COUNT
 };
 
 template <typename T>
 struct Phys {
   T gamma0, gm1, entho, smallr, smallp, smallc, slope, dx, dy, dz;
+  // isothermal EOS (cIso > 0): p = rho * ciso2 in the solvers
+  bool iso;
+  T ciso, ciso2;
+  // rotating frame: -1.5 omega0, 1.5 omega0, 2 omega0, -0.5 omega0, the x
+  // of the first cell centre (xmin + dx/2), dx/2, and the CFL's vy offset
+  // 1.5 omega0 dx / 2
+  T shear_k, rot15, cor2, corm05, xpos0, dx_half, vy_shift;
 };
 
 template <typename T>
@@ -55,6 +65,17 @@ inline Phys<T> make_phys(const double* p) {
   ph.dx = T(p[P_DX]);
   ph.dy = T(p[P_DY]);
   ph.dz = T(p[P_DZ]);
+  ph.iso = p[P_CISO] > 0.0;
+  ph.ciso = T(p[P_CISO]);
+  ph.ciso2 = T(p[P_CISO] * p[P_CISO]);
+  const double om = p[P_OMEGA0];
+  ph.shear_k = T(-1.5 * om);
+  ph.rot15 = T(1.5 * om);
+  ph.cor2 = T(2.0 * om);
+  ph.corm05 = T(-0.5 * om);
+  ph.xpos0 = T(p[P_XMIN] + p[P_DX] / 2);
+  ph.dx_half = T(p[P_DX] / 2);
+  ph.vy_shift = T(1.5 * om * p[P_DX] / 2.0);
   return ph;
 }
 
@@ -95,6 +116,15 @@ HD double r_mul(double a, double b) {
   return a * b;
 #endif
 }
+
+HD float r_fmod(float a, float b) { return fmodf(a, b); }
+HD double r_fmod(double a, double b) { return fmod(a, b); }
+HD float r_floor(float a) { return floorf(a); }
+HD double r_floor(double a) { return floor(a); }
+HD int to_int(float a) { return (int)a; }
+HD int to_int(double a) { return (int)a; }
+// a mod n in [0, n) for any int a
+HD int mod_n(int a, int n) { return ((a % n) + n) % n; }
 
 // max/min that propagate NaN, as torch.maximum and jnp.maximum do
 template <typename T> HD T pmax(T a, T b) { return (a > b || a != a) ? a : b; }

@@ -1,18 +1,29 @@
 // One unsplit MUSCL-Hancock step of 3D ideal MHD with constrained
-// transport on the fully periodic state (HLLD face fluxes, 2D-HLLD corner
-// EMFs).
+// transport (HLLD face fluxes, 2D-HLLD corner EMFs), in two modes:
 //
-// Replaces the TPU kernel ramsesgpu_tpu/pallas/packed_io.py:148
-// make_packed_io_step with the MHD body pallas/fused_mhd3d.py:228 ->
-// solvers/godunov_mhd.py:437 mhd_3d_interior_update_staged.
-// Plain twin: ramsesgpu_tpu_torch/solvers/godunov_mhd.py
-// mhd_3d_periodic_update.
+// - periodic: the fully periodic state. Replaces the TPU kernel
+//   ramsesgpu_tpu/pallas/packed_io.py:148 make_packed_io_step with the
+//   MHD body pallas/fused_mhd3d.py:228 -> solvers/godunov_mhd.py:437
+//   mhd_3d_interior_update_staged. Plain twin:
+//   ramsesgpu_tpu_torch/solvers/godunov_mhd.py mhd_3d_periodic_update.
+// - shearing box: the rotating frame (Coriolis half-kick, the shear terms
+//   of the trace and of the x and z EMFs, per-column x), the isothermal
+//   EOS (cIso > 0) or the adiabatic one, sheared-periodic x faces, y and z
+//   periodic. Replaces the MRI main kernel shear_packed.py:89
+//   _make_main_kernel and the border strip kernel shear_packed.py:237
+//   _make_strip_kernel (mode "godunov"): the TPU strip exists because
+//   x-ghost-free lane-exact rows cannot hold ghost columns; here an x
+//   load outside [0, nx) reads the sheared ghost slabs (built each step
+//   by shear_border.cu), and the stages' x extent grows just enough for
+//   the faces and edges 0..nx, so every face is computed once. The update
+//   writes the unremapped x-face planes (density flux at faces 0 and nx,
+//   emfY there, emfZ at face nx) that shear_border.cu remaps. Plain twin:
+//   solvers/godunov_mhd.py mhd_3d_shear_update.
 //
-// Layout: the interior-only periodic state S[8][nz][ny][nx], x fastest
-// (common.cuh). Periodic neighbours are found by index wrap, so the
-// TPU layout's 8-row y ghost bands, x-ghost-free lanes and in-kernel ghost
-// band writes have no counterpart: pack is a slice, unpack the periodic
-// ghost fill.
+// Layout: the interior-only state S[8][nz][ny][nx], x fastest
+// (common.cuh). Neighbours wrap by index in y and z (and in x, periodic
+// mode), so the TPU layout's 8-row y ghost bands and in-kernel ghost band
+// writes have no counterpart: pack is a slice, unpack the ghost fill.
 //
 // Design (first, simple version): six stages, one thread per cell each,
 // intermediates in device memory (one scratch buffer the Python wrapper
@@ -25,6 +36,17 @@
 //   5 emf     st -> emf[3]        2D-HLLD EMF on the z, y, x edges
 //   6 update  S += dU, CT curl    in place (reads only fluxes, EMFs and the
 //                                  cell's own S)
+// In the shearing-box mode the intermediates live on a stage grid of
+// nx + 2*XH columns (XH = 2 on each side). Stages 1-5 compute every cell
+// of it, with their x reads clamped to the grid (and the state's to its
+// slabs): the cells later stages read, columns -2..nx+1 for prim down to
+// 0..nx for the fluxes and EMFs, see only unclamped data, and the stages
+// write whole rows: skipping the unneeded edge columns left partly
+// written cache lines on every row, whose read-modify-write slowed the
+// store-heavy trace far below the periodic mode's rate (PERF.md). The
+// update runs on the state's cells. Only prim loads the state through the
+// slab rule (a branch per load); it copies its cell's state onto the
+// stage grid (Se[8]), which efield and trace then read by plain index.
 // The per-cell physics is transcribed from the JAX formulas (ops/eos.py,
 // ops/slopes.py, ops/trace_mhd3d.py, ops/riemann_mhd.py,
 // solvers/godunov_mhd.py) keeping their hoisted reciprocals and shared
@@ -57,24 +79,111 @@ enum {
 };
 constexpr int NFLUX = 5;  // rho, E, three momenta
 constexpr long long SCRATCH_PER_CELL = 8 + 3 + NSTATE * 8 + 3 * NFLUX + 3;
+constexpr long long SHEAR_SCRATCH_PER_CELL = SCRATCH_PER_CELL + 8;  // + Se
+constexpr int SLAB = 3;   // ghost columns of each sheared slab (ghost_width)
+constexpr int XH = 2;     // stage-grid columns beyond each x face (shear mode)
+constexpr int NPLANE = 5; // x-face planes written by the shear-mode update
+
+// the kernel's mode: SHEAR (shearing box, rotating frame) and ISO (the
+// isothermal pressure in the solvers); the periodic mode is <false, false>
+template <bool SHEAR_, bool ISO_>
+struct Mode {
+  static constexpr bool SHEAR = SHEAR_;
+  static constexpr bool ISO = ISO_;
+};
+using Periodic = Mode<false, false>;
 
 template <typename T>
 struct StepArgs {
   T* S;         // [8][n]     state, updated in place by stage 6
-  T* Q;         // [8][n]     primitives
-  T* E;         // [3][n]     Ex, Ey, Ez at the trace's edge centres
-  T* st;        // [18][8][n] face / edge states
-  T* fl;        // [3][5][n]  face fluxes x, y, z
-  T* emf;       // [3][n]     edge EMFs z, y, x
+  T* Q;         // [8][ne]    primitives (ne: stage-grid cells)
+  T* E;         // [3][ne]    Ex, Ey, Ez at the trace's edge centres
+  T* st;        // [18][8][ne] face / edge states
+  T* fl;        // [3][5][ne] face fluxes x, y, z
+  T* emf;       // [3][ne]    edge EMFs z, y, x
+  T* Se;        // shear: [8][ne] the state on the stage grid (written by prim)
+  const T* slabs;  // shear: [2][8][nz][ny][SLAB] sheared x ghosts (XMIN, XMAX)
+  T* planes;       // shear: [5][nz][ny] x-face planes
   const T* dt;  // device scalar
   const unsigned char* active;  // device flag: 0 skips the step
-  Dims d;
+  Dims d;       // the state's
+  Dims e;       // the stage grid's: d (periodic), nx + 2 XH columns (shear)
   Phys<T> ph;
+};
+
+HD int clamp_i(int i, int lo, int hi) { return i < lo ? lo : (i > hi ? hi : i); }
+
+HD int wrap_d(int i, int di, int n) {
+  return di == 0 ? i : (di > 0 ? wrap_p(i, n) : wrap_m(i, n));
+}
+
+// One stage thread's cell (i, j, k) and its neighbours. Periodic: the
+// stage grid is the state's and every offset wraps. Shear: stage column
+// i sits at i + XH and x reads clamp to the grid; a state load (src)
+// outside [0, nx) reads the slab, and the stages after prim read the
+// state from its stage-grid copy (s).
+template <typename T, typename M>
+struct Site {
+  const StepArgs<T>& a;
+  int i, j, k;
+  long long c;  // stage-grid index of (i, j, k)
+
+  // t: the thread's index, its stage-grid cell, or (on_state) its state cell
+  HD Site(const StepArgs<T>& a_, long long t, bool on_state = false) : a(a_) {
+    if constexpr (M::SHEAR) {
+      if (on_state) {
+        cell_ijk(a.d, t, i, j, k);
+        c = cell_at(a.e, i + XH, j, k);
+        return;
+      }
+      cell_ijk(a.e, t, i, j, k);
+      i -= XH;
+    } else {
+      cell_ijk(a.d, t, i, j, k);
+    }
+    c = t;
+  }
+  // stage-grid index of the neighbour (i+di, j+dj, k+dk)
+  HD long long q(int di, int dj, int dk) const {
+    if (!M::SHEAR && di == 0 && dj == 0 && dk == 0) return c;
+    const int jj = wrap_d(j, dj, a.d.ny), kk = wrap_d(k, dk, a.d.nz);
+    if constexpr (M::SHEAR)
+      return cell_at(a.e, clamp_i(i + di, -XH, a.e.nx - XH - 1) + XH, jj, kk);
+    return cell_at(a.d, wrap_d(i, di, a.d.nx), jj, kk);
+  }
+  // the state's channel ch at the neighbour, after prim
+  HD T s(int ch, int di, int dj, int dk) const {
+    if constexpr (M::SHEAR) return a.Se[ch * a.e.n + q(di, dj, dk)];
+    return a.S[ch * a.d.n + q(di, dj, dk)];
+  }
+  // the state's channel ch at the neighbour, from the state or a slab
+  HD T src(int ch, int di, int dj, int dk) const {
+    if constexpr (M::SHEAR) {
+      const int ii = clamp_i(i + di, -SLAB, a.d.nx + SLAB - 1);
+      const int jj = wrap_d(j, dj, a.d.ny), kk = wrap_d(k, dk, a.d.nz);
+      if (ii >= 0 && ii < a.d.nx) return a.S[ch * a.d.n + cell_at(a.d, ii, jj, kk)];
+      const int side = ii < 0 ? 0 : 1;
+      const int col = ii < 0 ? ii + SLAB : ii - a.d.nx;
+      return a.slabs[((((long long)side * 8 + ch) * a.d.nz + kk) * a.d.ny + jj) * SLAB + col];
+    } else {
+      return a.S[ch * a.d.n + q(di, dj, dk)];
+    }
+  }
+  // cell-centre x of column i (godunov_mhd.py:44 xpos_array)
+  HD T xpos() const { return a.ph.xpos0 + r_mul(T(i), a.ph.dx); }
 };
 
 // ---------------------------------------------------------------------------
 // per-cell physics
 // ---------------------------------------------------------------------------
+
+// the gas pressure the solvers read: rho cIso^2 with the isothermal EOS
+// (riemann_mhd.py:59,71,146,296,322,557)
+template <typename M, typename T>
+HD T pres(const Phys<T>& ph, const T* q) {
+  if constexpr (M::ISO) return q[ID] * ph.ciso2;
+  return q[IP];
+}
 
 // riemann_mhd.py _fast_speed_precursors / _fast_speed_from_precursors
 template <typename T>
@@ -110,11 +219,11 @@ struct HlldStar {
   T rstar, vstar, wstar, bstar, cstar, vdotbstar, etotstar, sqrtr, calfven;
 };
 
-template <typename T>
+template <typename M, typename T>
 HD HlldSide<T> hlld_prep(const Phys<T>& ph, const T* q, T a) {
   HlldSide<T> s;
   s.r = q[ID];
-  s.p = q[IP];
+  s.p = pres<M>(ph, q);
   s.u = q[IU];
   s.v = q[IV];
   s.w = q[IW];
@@ -155,12 +264,12 @@ HD HlldStar<T> hlld_star(const HlldSide<T>& q, T a, T s_, T ustar, T ptotstar) {
   return o;
 }
 
-template <typename T>
+template <typename M, typename T>
 HD void riemann_hlld(const Phys<T>& ph, const T* ql, const T* qr, T* f) {
   const T a = T(0.5) * (ql[IA] + qr[IA]);
   const T sgnm = a >= T(0) ? T(1) : T(-1);
-  const HlldSide<T> L = hlld_prep(ph, ql, a);
-  const HlldSide<T> R = hlld_prep(ph, qr, a);
+  const HlldSide<T> L = hlld_prep<M>(ph, ql, a);
+  const HlldSide<T> R = hlld_prep<M>(ph, qr, a);
 
   const T sl = pmin(L.u, R.u) - pmax(L.cfast, R.cfast);
   const T sr = pmax(L.u, R.u) + pmax(L.cfast, R.cfast);
@@ -243,18 +352,18 @@ HD T max5(T a0, T a1, T a2, T a3, T a4) {
   return pmax(pmax(pmax(a0, a1), pmax(a2, a3)), a4);
 }
 
-template <typename T>
-HD T ptot2d(const T* q) {
-  return q[IP] + T(0.5) * (q[IA] * q[IA] + q[IB] * q[IB] + q[IC] * q[IC]);
+template <typename M, typename T>
+HD T ptot2d(const Phys<T>& ph, const T* q) {
+  return pres<M>(ph, q) + T(0.5) * (q[IA] * q[IA] + q[IB] * q[IB] + q[IC] * q[IC]);
 }
 
-template <typename T>
+template <typename M, typename T>
 HD T mag_riemann2d_hlld(const Phys<T>& ph, const T* qLL, const T* qRL, const T* qLR,
                         const T* qRR, T eLL, T eRL, T eLR, T eRR) {
-  const FastPre<T> pLL = fast_pre(ph, qLL[ID], qLL[IP], qLL[IA], qLL[IB], qLL[IC]);
-  const FastPre<T> pLR = fast_pre(ph, qLR[ID], qLR[IP], qLR[IA], qLR[IB], qLR[IC]);
-  const FastPre<T> pRL = fast_pre(ph, qRL[ID], qRL[IP], qRL[IA], qRL[IB], qRL[IC]);
-  const FastPre<T> pRR = fast_pre(ph, qRR[ID], qRR[IP], qRR[IA], qRR[IB], qRR[IC]);
+  const FastPre<T> pLL = fast_pre(ph, qLL[ID], pres<M>(ph, qLL), qLL[IA], qLL[IB], qLL[IC]);
+  const FastPre<T> pLR = fast_pre(ph, qLR[ID], pres<M>(ph, qLR), qLR[IA], qLR[IB], qLR[IC]);
+  const FastPre<T> pRL = fast_pre(ph, qRL[ID], pres<M>(ph, qRL), qRL[IA], qRL[IB], qRL[IC]);
+  const FastPre<T> pRR = fast_pre(ph, qRR[ID], pres<M>(ph, qRR), qRR[IA], qRR[IB], qRR[IC]);
   const T cxmax = pmax(pmax(pmax(fast_speed(pLL, qLL[IA]), fast_speed(pLR, qLR[IA])),
                             fast_speed(pRL, qRL[IA])),
                        fast_speed(pRR, qRR[IA]));
@@ -271,8 +380,8 @@ HD T mag_riemann2d_hlld(const Phys<T>& ph, const T* qLL, const T* qRL, const T* 
   const T SB = vlo - cymax;
   const T ST = vhi + cymax;
 
-  const T PtotLL = ptot2d(qLL), PtotLR = ptot2d(qLR);
-  const T PtotRL = ptot2d(qRL), PtotRR = ptot2d(qRR);
+  const T PtotLL = ptot2d<M>(ph, qLL), PtotLR = ptot2d<M>(ph, qLR);
+  const T PtotRL = ptot2d<M>(ph, qRL), PtotRR = ptot2d<M>(ph, qRR);
 
   const T rLL = qLL[ID], uLL = qLL[IU], vLL = qLL[IV], aLL = qLL[IA], bLL = qLL[IB];
   const T rLR = qLR[ID], uLR = qLR[IU], vLR = qLR[IV], aLR = qLR[IA], bLR = qLR[IB];
@@ -343,7 +452,7 @@ HD T mag_riemann2d_hlld(const Phys<T>& ph, const T* qLL, const T* qRL, const T* 
 // riemann_mhd.py compute_emf: rotation (iu, iv, iw, ia, ib, ic) of the
 // edge family, corner quadrants qLL <- qRT, qRL <- qLT, qLR <- qRB,
 // qRR <- qLB with in-plane field continuity.
-template <typename T>
+template <typename M, typename T>
 HD T compute_emf(const Phys<T>& ph, const T* qRT, const T* qRB, const T* qLT,
                  const T* qLB, int iu, int iv, int iw, int ia, int ib, int ic) {
   const T a_bottom = T(0.5) * (qRT[ia] + qLT[ia]);
@@ -358,7 +467,14 @@ HD T compute_emf(const Phys<T>& ph, const T* qRT, const T* qRB, const T* qLT,
   const T eRL = qRL[IU] * qRL[IB] - qRL[IV] * qRL[IA];
   const T eLR = qLR[IU] * qLR[IB] - qLR[IV] * qLR[IA];
   const T eRR = qRR[IU] * qRR[IB] - qRR[IV] * qRR[IA];
-  return mag_riemann2d_hlld(ph, qLL, qRL, qLR, qRR, eLL, eRL, eLR, eRR);
+  return mag_riemann2d_hlld<M>(ph, qLL, qRL, qLR, qRR, eLL, eRL, eLR, eRR);
+}
+
+// the shearing-box upwind term of an EMF (riemann_mhd.py:599-605):
+// where(shear > 0, shear * lo, shear * hi)
+template <typename T>
+HD T shear_upwind(T shear, T lo, T hi) {
+  return shear > T(0) ? shear * lo : shear * hi;
 }
 
 // ---------------------------------------------------------------------------
@@ -366,112 +482,124 @@ HD T compute_emf(const Phys<T>& ph, const T* qRT, const T* qRB, const T* qLT,
 // ---------------------------------------------------------------------------
 
 // 1: eos.py constoprim_mhd
-template <typename T>
+template <typename T, typename M>
 struct PrimStage {
   StepArgs<T> a;
-  HD void operator()(long long c) const {
+  HD void operator()(long long t) const {
     if (!*a.active) return;
-    const long long n = a.d.n;
-    const T* S = a.S;
-    int i, j, k;
-    cell_ijk(a.d, c, i, j, k);
-    const long long cx = cell_at(a.d, wrap_p(i, a.d.nx), j, k);
-    const long long cy = cell_at(a.d, i, wrap_p(j, a.d.ny), k);
-    const long long cz = cell_at(a.d, i, j, wrap_p(k, a.d.nz));
-    const T rho = pmax(S[ID * n + c], a.ph.smallr);
+    const Site<T, M> p(a, t);
+    T sc[8];  // this cell's state
+#pragma unroll
+    for (int ch = 0; ch < 8; ++ch) sc[ch] = p.src(ch, 0, 0, 0);
+    const T rho = pmax(sc[ID], a.ph.smallr);
     const T inv_rho = T(1) / rho;
-    const T u = S[IU * n + c] * inv_rho;
-    const T v = S[IV * n + c] * inv_rho;
-    const T w = S[IW * n + c] * inv_rho;
-    const T bx = T(0.5) * (S[IA * n + c] + S[IA * n + cx]);
-    const T by = T(0.5) * (S[IB * n + c] + S[IB * n + cy]);
-    const T bz = T(0.5) * (S[IC * n + c] + S[IC * n + cz]);
-    const T eken = T(0.5) * (u * u + v * v + w * w);
-    const T emag = T(0.5) * (bx * bx + by * by + bz * bz);
-    const T eint = (S[IP * n + c] - emag) * inv_rho - eken;
-    const T p = pmax(a.ph.gm1 * rho * eint, rho * a.ph.smallp);
+    T u = sc[IU] * inv_rho;
+    T v = sc[IV] * inv_rho;
+    const T w = sc[IW] * inv_rho;
+    const T bx = T(0.5) * (sc[IA] + p.src(IA, 1, 0, 0));
+    const T by = T(0.5) * (sc[IB] + p.src(IB, 0, 1, 0));
+    const T bz = T(0.5) * (sc[IC] + p.src(IC, 0, 0, 1));
+    T pr;
+    if constexpr (M::ISO) {
+      pr = rho * a.ph.ciso * a.ph.ciso;
+    } else {
+      const T eken = T(0.5) * (u * u + v * v + w * w);
+      const T emag = T(0.5) * (bx * bx + by * by + bz * bz);
+      const T eint = (sc[IP] - emag) * inv_rho - eken;
+      pr = pmax(a.ph.gm1 * rho * eint, rho * a.ph.smallp);
+    }
+    if constexpr (M::SHEAR) {
+      // Coriolis predictor half-kick (constoprim.h:190-195)
+      const T dt = *a.dt;
+      const T dvx = a.ph.cor2 * v;
+      const T dvy = a.ph.corm05 * u;
+      u = u + dvx * dt * T(0.5);
+      v = v + dvy * dt * T(0.5);
+    }
+    const long long n = a.e.n, c = p.c;
     T* Q = a.Q;
     Q[ID * n + c] = rho;
-    Q[IP * n + c] = p;
+    Q[IP * n + c] = pr;
     Q[IU * n + c] = u;
     Q[IV * n + c] = v;
     Q[IW * n + c] = w;
     Q[IA * n + c] = bx;
     Q[IB * n + c] = by;
     Q[IC * n + c] = bz;
+    if constexpr (M::SHEAR) {
+#pragma unroll
+      for (int ch = 0; ch < 8; ++ch) a.Se[ch * n + c] = sc[ch];
+    }
   }
 };
 
 // 2: trace_mhd3d.py electric fields at the edge centres: Ex (i, j-1/2,
 // k-1/2), Ey (i-1/2, j, k-1/2), Ez (i-1/2, j-1/2, k)
-template <typename T>
+template <typename T, typename M>
 struct EFieldStage {
   StepArgs<T> a;
   // _corner_avg4(f, ax1, ax2) = 0.25 * (f + f[-1] + f[-2] + f[-1,-2])
   HD T avg4(const T* f, long long c, long long m1, long long m2, long long m12) const {
     return T(0.25) * (f[c] + f[m1] + f[m2] + f[m12]);
   }
-  HD void operator()(long long c) const {
+  HD void operator()(long long t) const {
     if (!*a.active) return;
-    const Dims& d = a.d;
-    const long long n = d.n;
-    int i, j, k;
-    cell_ijk(d, c, i, j, k);
-    const int im = wrap_m(i, d.nx), jm = wrap_m(j, d.ny), km = wrap_m(k, d.nz);
-    const long long cxm = cell_at(d, im, j, k), cym = cell_at(d, i, jm, k);
-    const long long czm = cell_at(d, i, j, km);
-    const long long cyzm = cell_at(d, i, jm, km), cxzm = cell_at(d, im, j, km);
-    const long long cxym = cell_at(d, im, jm, k);
+    const Site<T, M> p(a, t);
+    const long long n = a.e.n, c = p.c;
+    const long long cxm = p.q(-1, 0, 0), cym = p.q(0, -1, 0), czm = p.q(0, 0, -1);
+    const long long cyzm = p.q(0, -1, -1), cxzm = p.q(-1, 0, -1), cxym = p.q(-1, -1, 0);
     const T* Qu = a.Q + IU * n;
     const T* Qv = a.Q + IV * n;
     const T* Qw = a.Q + IW * n;
-    const T* bfx = a.S + IA * n;
-    const T* bfy = a.S + IB * n;
-    const T* bfz = a.S + IC * n;
 
     const T v4 = avg4(Qv, c, cym, czm, cyzm);
     const T w4 = avg4(Qw, c, cym, czm, cyzm);
-    const T B_e = T(0.5) * (bfy[c] + bfy[czm]);
-    const T C_e = T(0.5) * (bfz[c] + bfz[cym]);
-    a.E[c] = v4 * C_e - w4 * B_e;
+    const T B_e = T(0.5) * (p.s(IB, 0, 0, 0) + p.s(IB, 0, 0, -1));
+    const T C_e = T(0.5) * (p.s(IC, 0, 0, 0) + p.s(IC, 0, -1, 0));
+    T ex = v4 * C_e - w4 * B_e;
 
     const T u4 = avg4(Qu, c, cxm, czm, cxzm);
     const T w4b = avg4(Qw, c, cxm, czm, cxzm);
-    const T A_e = T(0.5) * (bfx[c] + bfx[czm]);
-    const T C_e2 = T(0.5) * (bfz[c] + bfz[cxm]);
-    a.E[n + c] = w4b * A_e - u4 * C_e2;
+    const T A_e = T(0.5) * (p.s(IA, 0, 0, 0) + p.s(IA, 0, 0, -1));
+    const T C_e2 = T(0.5) * (p.s(IC, 0, 0, 0) + p.s(IC, -1, 0, 0));
+    const T ey = w4b * A_e - u4 * C_e2;
 
     const T u4c = avg4(Qu, c, cxm, cym, cxym);
     const T v4c = avg4(Qv, c, cxm, cym, cxym);
-    const T A_e2 = T(0.5) * (bfx[c] + bfx[cym]);
-    const T B_e2 = T(0.5) * (bfy[c] + bfy[cxm]);
-    a.E[2 * n + c] = u4c * B_e2 - v4c * A_e2;
+    const T A_e2 = T(0.5) * (p.s(IA, 0, 0, 0) + p.s(IA, 0, -1, 0));
+    const T B_e2 = T(0.5) * (p.s(IB, 0, 0, 0) + p.s(IB, -1, 0, 0));
+    T ez = u4c * B_e2 - v4c * A_e2;
+    if constexpr (M::SHEAR) {
+      // trace_mhd3d.py:53-54, :150-151
+      const T x = p.xpos();
+      ex = ex + (a.ph.shear_k * x) * C_e;
+      ez = ez - (a.ph.shear_k * (x - a.ph.dx_half)) * A_e2;
+    }
+    a.E[c] = ex;
+    a.E[n + c] = ey;
+    a.E[2 * n + c] = ez;
   }
 };
 
 // 3: trace_mhd3d.py trace_mhd3d_state_parts for one cell
-template <typename T>
+template <typename T, typename M>
 struct TraceStage {
   StepArgs<T> a;
-
-  // slope of f along one axis at cell c, with neighbours cm / cp
-  HD T sl(const T* f, long long cm, long long c, long long cp) const {
-    return slope1(f[cm], f[c], f[cp], a.ph.slope);
+  // limited slope of state channel ch along one axis (neighbours -1, +1)
+  HD T sls(const Site<T, M>& p, int ch, int ax, int di, int dj, int dk) const {
+    const int ox = ax == 0, oy = ax == 1, oz = ax == 2;
+    return slope1(p.s(ch, di - ox, dj - oy, dk - oz), p.s(ch, di, dj, dk),
+                  p.s(ch, di + ox, dj + oy, dk + oz), a.ph.slope);
   }
 
-  HD void operator()(long long c) const {
+  HD void operator()(long long t) const {
     if (!*a.active) return;
-    const Dims& d = a.d;
-    const long long n = d.n;
+    const Site<T, M> p(a, t);
+    const long long n = a.e.n, c = p.c;
     const Phys<T>& ph = a.ph;
-    int i, j, k;
-    cell_ijk(d, c, i, j, k);
-    const int im = wrap_m(i, d.nx), ip = wrap_p(i, d.nx);
-    const int jm = wrap_m(j, d.ny), jp = wrap_p(j, d.ny);
-    const int km = wrap_m(k, d.nz), kp = wrap_p(k, d.nz);
-    const long long cxm = cell_at(d, im, j, k), cxp = cell_at(d, ip, j, k);
-    const long long cym = cell_at(d, i, jm, k), cyp = cell_at(d, i, jp, k);
-    const long long czm = cell_at(d, i, j, km), czp = cell_at(d, i, j, kp);
+    const long long cxm = p.q(-1, 0, 0), cxp = p.q(1, 0, 0);
+    const long long cym = p.q(0, -1, 0), cyp = p.q(0, 1, 0);
+    const long long czm = p.q(0, 0, -1), czp = p.q(0, 0, 1);
 
     const T dt = *a.dt;
     const T dtdx = dt / ph.dx, dtdy = dt / ph.dy, dtdz = dt / ph.dz;
@@ -482,31 +610,28 @@ struct TraceStage {
     for (int ch = 0; ch < 8; ++ch) {
       const T* Qc = a.Q + ch * n;
       q[ch] = Qc[c];
-      hx[ch] = T(0.5) * sl(Qc, cxm, c, cxp);
-      hy[ch] = T(0.5) * sl(Qc, cym, c, cyp);
-      hz[ch] = T(0.5) * sl(Qc, czm, c, czp);
+      hx[ch] = T(0.5) * slope1(Qc[cxm], Qc[c], Qc[cxp], ph.slope);
+      hy[ch] = T(0.5) * slope1(Qc[cym], Qc[c], Qc[cyp], ph.slope);
+      hz[ch] = T(0.5) * slope1(Qc[czm], Qc[c], Qc[czp], ph.slope);
     }
 
     // face-centred fields, their right faces and transverse slopes
-    const T* bfx = a.S + IA * n;
-    const T* bfy = a.S + IB * n;
-    const T* bfz = a.S + IC * n;
-    const T AL = bfx[c], AR = bfx[cxp];
-    const T BL = bfy[c], BR = bfy[cyp];
-    const T CL = bfz[c], CR = bfz[czp];
+    const T AL = p.s(IA, 0, 0, 0), AR = p.s(IA, 1, 0, 0);
+    const T BL = p.s(IB, 0, 0, 0), BR = p.s(IB, 0, 1, 0);
+    const T CL = p.s(IC, 0, 0, 0), CR = p.s(IC, 0, 0, 1);
 
-    const T dALy = T(0.5) * sl(bfx, cym, c, cyp);
-    const T dALz = T(0.5) * sl(bfx, czm, c, czp);
-    const T dARy = T(0.5) * sl(bfx, cell_at(d, ip, jm, k), cxp, cell_at(d, ip, jp, k));
-    const T dARz = T(0.5) * sl(bfx, cell_at(d, ip, j, km), cxp, cell_at(d, ip, j, kp));
-    const T dBLx = T(0.5) * sl(bfy, cxm, c, cxp);
-    const T dBLz = T(0.5) * sl(bfy, czm, c, czp);
-    const T dBRx = T(0.5) * sl(bfy, cell_at(d, im, jp, k), cyp, cell_at(d, ip, jp, k));
-    const T dBRz = T(0.5) * sl(bfy, cell_at(d, i, jp, km), cyp, cell_at(d, i, jp, kp));
-    const T dCLx = T(0.5) * sl(bfz, cxm, c, cxp);
-    const T dCLy = T(0.5) * sl(bfz, cym, c, cyp);
-    const T dCRx = T(0.5) * sl(bfz, cell_at(d, im, j, kp), czp, cell_at(d, ip, j, kp));
-    const T dCRy = T(0.5) * sl(bfz, cell_at(d, i, jm, kp), czp, cell_at(d, i, jp, kp));
+    const T dALy = T(0.5) * sls(p, IA, 1, 0, 0, 0);
+    const T dALz = T(0.5) * sls(p, IA, 2, 0, 0, 0);
+    const T dARy = T(0.5) * sls(p, IA, 1, 1, 0, 0);
+    const T dARz = T(0.5) * sls(p, IA, 2, 1, 0, 0);
+    const T dBLx = T(0.5) * sls(p, IB, 0, 0, 0, 0);
+    const T dBLz = T(0.5) * sls(p, IB, 2, 0, 0, 0);
+    const T dBRx = T(0.5) * sls(p, IB, 0, 0, 1, 0);
+    const T dBRz = T(0.5) * sls(p, IB, 2, 0, 1, 0);
+    const T dCLx = T(0.5) * sls(p, IC, 0, 0, 0, 0);
+    const T dCLy = T(0.5) * sls(p, IC, 1, 0, 0, 0);
+    const T dCRx = T(0.5) * sls(p, IC, 0, 0, 0, 1);
+    const T dCRy = T(0.5) * sls(p, IC, 1, 0, 0, 1);
 
     const T dAx = T(0.5) * (AR - AL);
     const T dBy = T(0.5) * (BR - BL);
@@ -516,11 +641,11 @@ struct TraceStage {
     const T* Ex = a.E;
     const T* Ey = a.E + n;
     const T* Ez = a.E + 2 * n;
-    const T ELL = Ex[c], ELR = Ex[czp], ERL = Ex[cyp], ERR = Ex[cell_at(d, i, jp, kp)];
-    const T FLL = Ey[c], FLR = Ey[czp], FRL = Ey[cxp], FRR = Ey[cell_at(d, ip, j, kp)];
-    const T GLL = Ez[c], GLR = Ez[cyp], GRL = Ez[cxp], GRR = Ez[cell_at(d, ip, jp, k)];
+    const T ELL = Ex[c], ELR = Ex[czp], ERL = Ex[cyp], ERR = Ex[p.q(0, 1, 1)];
+    const T FLL = Ey[c], FLR = Ey[czp], FRL = Ey[cxp], FRR = Ey[p.q(1, 0, 1)];
+    const T GLL = Ez[c], GLR = Ez[cyp], GRL = Ez[cxp], GRR = Ez[p.q(1, 1, 0)];
 
-    const T r = q[ID], p = q[IP], u = q[IU], v = q[IV], w = q[IW];
+    const T r = q[ID], pr = q[IP], u = q[IU], v = q[IV], w = q[IW];
     const T A = q[IA], B = q[IB], C = q[IC];
     const T drx = hx[ID], dpx = hx[IP], dux = hx[IU], dvx = hx[IV], dwx = hx[IW];
     const T dBx = hx[IB], dCx = hx[IC];
@@ -532,23 +657,35 @@ struct TraceStage {
 
     // source terms (trace_mhd.h:1127-1155), one hoisted 1/r
     const T inv_r = T(1) / r;
-    const T sr0 = (-u * drx - dux * r) * dtdx + (-v * dry - dvy * r) * dtdy +
-                  (-w * drz - dwz * r) * dtdz;
-    const T su0 = (-u * dux - (dpx + B * dBx + C * dCx) * inv_r) * dtdx +
-                  (-v * duy + B * dAy * inv_r) * dtdy + (-w * duz + C * dAz * inv_r) * dtdz;
-    const T sv0 = (-u * dvx + A * dBx * inv_r) * dtdx +
-                  (-v * dvy - (dpy + A * dAy + C * dCy) * inv_r) * dtdy +
-                  (-w * dvz + C * dBz * inv_r) * dtdz;
-    const T sw0 = (-u * dwx + A * dCx * inv_r) * dtdx + (-v * dwy + B * dCy * inv_r) * dtdy +
-                  (-w * dwz - (dpz + A * dAz + B * dBz) * inv_r) * dtdz;
-    const T sp0 = (-u * dpx - dux * gamma * p) * dtdx + (-v * dpy - dvy * gamma * p) * dtdy +
-                  (-w * dpz - dwz * gamma * p) * dtdz;
-    const T sA0 = (u * dBy + B * duy - v * dAy - A * dvy) * dtdy +
-                  (u * dCz + C * duz - w * dAz - A * dwz) * dtdz;
-    const T sB0 = (v * dAx + A * dvx - u * dBx - B * dux) * dtdx +
-                  (v * dCz + C * dvz - w * dBz - B * dwz) * dtdz;
-    const T sC0 = (w * dAx + A * dwx - u * dCx - C * dux) * dtdx +
-                  (w * dBy + B * dwy - v * dCy - C * dvy) * dtdy;
+    T sr0 = (-u * drx - dux * r) * dtdx + (-v * dry - dvy * r) * dtdy +
+            (-w * drz - dwz * r) * dtdz;
+    T su0 = (-u * dux - (dpx + B * dBx + C * dCx) * inv_r) * dtdx +
+            (-v * duy + B * dAy * inv_r) * dtdy + (-w * duz + C * dAz * inv_r) * dtdz;
+    T sv0 = (-u * dvx + A * dBx * inv_r) * dtdx +
+            (-v * dvy - (dpy + A * dAy + C * dCy) * inv_r) * dtdy +
+            (-w * dvz + C * dBz * inv_r) * dtdz;
+    T sw0 = (-u * dwx + A * dCx * inv_r) * dtdx + (-v * dwy + B * dCy * inv_r) * dtdy +
+            (-w * dwz - (dpz + A * dAz + B * dBz) * inv_r) * dtdz;
+    T sp0 = (-u * dpx - dux * gamma * pr) * dtdx + (-v * dpy - dvy * gamma * pr) * dtdy +
+            (-w * dpz - dwz * gamma * pr) * dtdz;
+    T sA0 = (u * dBy + B * duy - v * dAy - A * dvy) * dtdy +
+            (u * dCz + C * duz - w * dAz - A * dwz) * dtdz;
+    T sB0 = (v * dAx + A * dvx - u * dBx - B * dux) * dtdx +
+            (v * dCz + C * dvz - w * dBz - B * dwz) * dtdz;
+    T sC0 = (w * dAx + A * dwx - u * dCx - C * dux) * dtdx +
+            (w * dBy + B * dwy - v * dCy - C * dvy) * dtdy;
+    if constexpr (M::SHEAR) {
+      // the background shear's advection and stretching (trace_mhd3d.py:231-240)
+      const T shear = ph.shear_k * p.xpos();
+      sr0 = sr0 - shear * dry * dtdy;
+      su0 = su0 - shear * duy * dtdy;
+      sv0 = sv0 - shear * dvy * dtdy;
+      sw0 = sw0 - shear * dwy * dtdy;
+      sp0 = sp0 - shear * dpy * dtdy;
+      sA0 = sA0 - shear * dAy * dtdy;
+      sB0 = sB0 + (shear * dAx - ph.rot15 * A * ph.dx) * dtdx + shear * dBz * dtdz;
+      sC0 = sC0 - shear * dCy * dtdy;
+    }
 
     // face-centred field half-step (induction; trace_mhd.h:1152-1158)
     const T h = T(0.5);
@@ -562,7 +699,7 @@ struct TraceStage {
     // half-step cell values q2 and face values (L/R per axis)
     T q2[8];
     q2[ID] = r + sr0;
-    q2[IP] = p + sp0;
+    q2[IP] = pr + sp0;
     q2[IU] = u + su0;
     q2[IV] = v + sv0;
     q2[IW] = w + sw0;
@@ -634,33 +771,29 @@ struct TraceStage {
 // 4: HLLD flux at each cell's left x, y, z face (godunov_mhd.py
 // mhd_fluxes_emfs: qm of the previous cell against this cell's qp, the y/z
 // problems rotated into the x slots and the flux rotated back)
-template <typename T>
+template <typename T, typename M>
 struct FluxStage {
   StepArgs<T> a;
   HD void load(int s, long long cell, const int* perm, T* q) const {
-    const T* src = a.st + (long long)s * 8 * a.d.n;
+    const T* src = a.st + (long long)s * 8 * a.e.n;
 #pragma unroll
-    for (int ch = 0; ch < 8; ++ch) q[ch] = src[perm[ch] * a.d.n + cell];
+    for (int ch = 0; ch < 8; ++ch) q[ch] = src[perm[ch] * a.e.n + cell];
   }
-  HD void operator()(long long c) const {
+  HD void operator()(long long t) const {
     if (!*a.active) return;
-    const Dims& d = a.d;
-    const long long n = d.n;
-    int i, j, k;
-    cell_ijk(d, c, i, j, k);
+    const Site<T, M> p(a, t);
+    const long long n = a.e.n, c = p.c;
     // component rotations of the y and z sweeps (godunov_mhd.py _PERM_Y/_Z)
     const int perms[3][8] = {{ID, IP, IU, IV, IW, IA, IB, IC},
                              {ID, IP, IV, IU, IW, IB, IA, IC},
                              {ID, IP, IW, IV, IU, IC, IB, IA}};
-    const long long prev[3] = {cell_at(d, wrap_m(i, d.nx), j, k),
-                               cell_at(d, i, wrap_m(j, d.ny), k),
-                               cell_at(d, i, j, wrap_m(k, d.nz))};
+    const long long prev[3] = {p.q(-1, 0, 0), p.q(0, -1, 0), p.q(0, 0, -1)};
 #pragma unroll
     for (int ax = 0; ax < 3; ++ax) {
       T ql[8], qr[8], f[NFLUX];
       load(2 * ax + 1, prev[ax], perms[ax], ql);  // qm of the previous cell
       load(2 * ax, c, perms[ax], qr);             // qp of this cell
-      riemann_hlld(a.ph, ql, qr, f);
+      riemann_hlld<M>(a.ph, ql, qr, f);
       T* out = a.fl + (long long)ax * NFLUX * n;
       // rotate back: out[ch] = f[perm[ch]] (perm is an involution and keeps
       // the five hydro slots among themselves)
@@ -672,71 +805,79 @@ struct FluxStage {
 
 // 5: EMFs at the z, y, x edges of each cell (godunov_mhd.py
 // mhd_fluxes_emfs; note the reference's RB/LT role swap for EMF_Y)
-template <typename T>
+template <typename T, typename M>
 struct EmfStage {
   StepArgs<T> a;
   HD void load(int s, long long cell, T* q) const {
-    const T* src = a.st + (long long)s * 8 * a.d.n;
+    const T* src = a.st + (long long)s * 8 * a.e.n;
 #pragma unroll
-    for (int ch = 0; ch < 8; ++ch) q[ch] = src[ch * a.d.n + cell];
+    for (int ch = 0; ch < 8; ++ch) q[ch] = src[ch * a.e.n + cell];
   }
-  HD void operator()(long long c) const {
+  HD void operator()(long long t) const {
     if (!*a.active) return;
-    const Dims& d = a.d;
-    const long long n = d.n;
-    int i, j, k;
-    cell_ijk(d, c, i, j, k);
-    const int im = wrap_m(i, d.nx), jm = wrap_m(j, d.ny), km = wrap_m(k, d.nz);
+    const Site<T, M> p(a, t);
+    const long long n = a.e.n, c = p.c;
     T qRT[8], qRB[8], qLT[8], qLB[8];
 
     // EMF_Z at (i-1/2, j-1/2, k)
-    load(RT_Z, cell_at(d, im, jm, k), qRT);
-    load(RB_Z, cell_at(d, im, j, k), qRB);
-    load(LT_Z, cell_at(d, i, jm, k), qLT);
+    load(RT_Z, p.q(-1, -1, 0), qRT);
+    load(RB_Z, p.q(-1, 0, 0), qRB);
+    load(LT_Z, p.q(0, -1, 0), qLT);
     load(LB_Z, c, qLB);
-    a.emf[c] = compute_emf(a.ph, qRT, qRB, qLT, qLB, IU, IV, IW, IA, IB, IC);
+    T ez = compute_emf<M>(a.ph, qRT, qRB, qLT, qLB, IU, IV, IW, IA, IB, IC);
+    if constexpr (M::SHEAR) {
+      // upwind shear term on the in-plane Bx (riemann_mhd.py:604-605)
+      const T shear = a.ph.shear_k * (p.xpos() - a.ph.dx_half);
+      ez = ez - shear_upwind(shear, T(0.5) * (qRT[IA] + qLT[IA]), T(0.5) * (qRB[IA] + qLB[IA]));
+    }
+    a.emf[c] = ez;
 
     // EMF_Y at (i-1/2, j, k-1/2)
-    load(RT_Y, cell_at(d, im, j, km), qRT);
-    load(LT_Y, cell_at(d, i, j, km), qRB);
-    load(RB_Y, cell_at(d, im, j, k), qLT);
+    load(RT_Y, p.q(-1, 0, -1), qRT);
+    load(LT_Y, p.q(0, 0, -1), qRB);
+    load(RB_Y, p.q(-1, 0, 0), qLT);
     load(LB_Y, c, qLB);
-    a.emf[n + c] = compute_emf(a.ph, qRT, qRB, qLT, qLB, IW, IU, IV, IC, IA, IB);
+    a.emf[n + c] = compute_emf<M>(a.ph, qRT, qRB, qLT, qLB, IW, IU, IV, IC, IA, IB);
 
     // EMF_X at (i, j-1/2, k-1/2)
-    load(RT_X, cell_at(d, i, jm, km), qRT);
-    load(RB_X, cell_at(d, i, jm, k), qRB);
-    load(LT_X, cell_at(d, i, j, km), qLT);
+    load(RT_X, p.q(0, -1, -1), qRT);
+    load(RB_X, p.q(0, -1, 0), qRB);
+    load(LT_X, p.q(0, 0, -1), qLT);
     load(LB_X, c, qLB);
-    a.emf[2 * n + c] = compute_emf(a.ph, qRT, qRB, qLT, qLB, IV, IW, IU, IB, IC, IA);
+    T ex = compute_emf<M>(a.ph, qRT, qRB, qLT, qLB, IV, IW, IU, IB, IC, IA);
+    if constexpr (M::SHEAR) {
+      // upwind shear term on the in-plane Bz (riemann_mhd.py:601-603)
+      const T shear = a.ph.shear_k * p.xpos();
+      ex = ex + shear_upwind(shear, T(0.5) * (qRT[IC] + qRB[IC]), T(0.5) * (qLT[IC] + qLB[IC]));
+    }
+    a.emf[2 * n + c] = ex;
   }
 };
 
-// 6: godunov_mhd.py mhd_apply_update: flux divergence and CT curl, in place
-template <typename T>
+// 6: godunov_mhd.py mhd_apply_update: flux divergence and CT curl, in
+// place; the shear mode also writes the x-face planes of the remap
+// (godunov_mhd.py:429-434)
+template <typename T, typename M>
 struct UpdateStage {
   StepArgs<T> a;
-  HD void operator()(long long c) const {
+  HD void operator()(long long t) const {  // t: the state's cell
     if (!*a.active) return;
-    const Dims& d = a.d;
-    const long long n = d.n;
-    int i, j, k;
-    cell_ijk(d, c, i, j, k);
-    const long long cxp = cell_at(d, wrap_p(i, d.nx), j, k);
-    const long long cyp = cell_at(d, i, wrap_p(j, d.ny), k);
-    const long long czp = cell_at(d, i, j, wrap_p(k, d.nz));
+    const Site<T, M> p(a, t, true);
+    const long long n = a.e.n, c = p.c;
+    const long long cxp = p.q(1, 0, 0), cyp = p.q(0, 1, 0), czp = p.q(0, 0, 1);
     const T dt = *a.dt;
     const T dtdx = dt / a.ph.dx, dtdy = dt / a.ph.dy, dtdz = dt / a.ph.dz;
     const T* fx = a.fl;
     const T* fy = a.fl + NFLUX * n;
     const T* fz = a.fl + 2 * NFLUX * n;
     T* S = a.S;
+    const long long ns = a.d.n, cs = t;
 #pragma unroll
     for (int ch = 0; ch < NFLUX; ++ch) {
       const long long o = ch * n;
       const T dU = dtdx * (fx[o + c] - fx[o + cxp]) + dtdy * (fy[o + c] - fy[o + cyp]) +
                    dtdz * (fz[o + c] - fz[o + czp]);
-      S[o + c] = S[o + c] + dU;
+      S[ch * ns + cs] = S[ch * ns + cs] + dU;
     }
     const T* ez = a.emf;
     const T* ey = a.emf + n;
@@ -744,34 +885,73 @@ struct UpdateStage {
     const T dbx = (ez[cyp] - ez[c]) * dtdy - (ey[czp] - ey[c]) * dtdz;
     const T dby = (ex[czp] - ex[c]) * dtdz - (ez[cxp] - ez[c]) * dtdx;
     const T dbz = (ey[cxp] - ey[c]) * dtdx - (ex[cyp] - ex[c]) * dtdy;
-    S[IA * n + c] = S[IA * n + c] + dbx;
-    S[IB * n + c] = S[IB * n + c] + dby;
-    S[IC * n + c] = S[IC * n + c] + dbz;
+    S[IA * ns + cs] = S[IA * ns + cs] + dbx;
+    S[IB * ns + cs] = S[IB * ns + cs] + dby;
+    S[IC * ns + cs] = S[IC * ns + cs] + dbz;
+    if constexpr (M::SHEAR) {
+      const long long np = (long long)a.d.nz * a.d.ny;
+      const long long pc = (long long)p.k * a.d.ny + p.j;
+      if (p.i == 0) {
+        a.planes[pc] = fx[c];           // density flux at face 0
+        a.planes[2 * np + pc] = ey[c];  // emfY at face 0
+      }
+      if (p.i == a.d.nx - 1) {
+        a.planes[np + pc] = fx[cxp];        // density flux at face nx
+        a.planes[3 * np + pc] = ey[cxp];    // emfY at face nx
+        a.planes[4 * np + pc] = ez[cxp];    // emfZ at face nx
+      }
+    }
   }
 };
 
-template <typename T>
-int mhd_step(T* S, T* scratch, const T* dt, const unsigned char* active, int nx, int ny,
-             int nz, const double* prm, void* stream) {
+template <typename T, typename M>
+StepArgs<T> step_args(T* S, T* scratch, const T* slabs, T* planes, const T* dt,
+                      const unsigned char* active, int nx, int ny, int nz, const double* prm) {
   StepArgs<T> a;
   a.d = make_dims(nx, ny, nz);
+  a.e = M::SHEAR ? make_dims(nx + 2 * XH, ny, nz) : a.d;
   a.ph = make_phys<T>(prm);
-  const long long n = a.d.n;
+  const long long n = a.e.n;
   a.S = S;
   a.Q = scratch;
   a.E = a.Q + 8 * n;
   a.st = a.E + 3 * n;
   a.fl = a.st + (long long)NSTATE * 8 * n;
   a.emf = a.fl + 3 * NFLUX * n;
+  a.Se = M::SHEAR ? a.emf + 3 * n : nullptr;
+  a.slabs = slabs;
+  a.planes = planes;
   a.dt = dt;
   a.active = active;
+  return a;
+}
+
+template <typename T, typename M>
+int mhd_step(T* S, T* scratch, const T* slabs, T* planes, const T* dt,
+             const unsigned char* active, int nx, int ny, int nz, const double* prm,
+             void* stream) {
+  const StepArgs<T> a =
+      step_args<T, M>(S, scratch, slabs, planes, dt, active, nx, ny, nz, prm);
+  const long long n = a.e.n;
+  // stages 1-5 over the stage grid, the update over the state
   int err;
-  if ((err = launch_cells(PrimStage<T>{a}, n, stream))) return err;
-  if ((err = launch_cells(EFieldStage<T>{a}, n, stream))) return err;
-  if ((err = launch_cells(TraceStage<T>{a}, n, stream))) return err;
-  if ((err = launch_cells(FluxStage<T>{a}, n, stream))) return err;
-  if ((err = launch_cells(EmfStage<T>{a}, n, stream))) return err;
-  return launch_cells(UpdateStage<T>{a}, n, stream);
+  if ((err = launch_cells(PrimStage<T, M>{a}, n, stream))) return err;
+  if ((err = launch_cells(EFieldStage<T, M>{a}, n, stream))) return err;
+  if ((err = launch_cells(TraceStage<T, M>{a}, n, stream))) return err;
+  if ((err = launch_cells(FluxStage<T, M>{a}, n, stream))) return err;
+  if ((err = launch_cells(EmfStage<T, M>{a}, n, stream))) return err;
+  return launch_cells(UpdateStage<T, M>{a}, a.d.n, stream);
+}
+
+template <typename T>
+int mhd_step_shear(T* S, T* scratch, const T* slabs, T* planes, const T* dt,
+                   const unsigned char* active, int nx, int ny, int nz, const double* prm,
+                   void* stream) {
+  if (prm[P_CISO] > 0.0)
+    return mhd_step<T, Mode<true, true>>(S, scratch, slabs, planes, dt, active, nx, ny, nz,
+                                         prm, stream);
+  return mhd_step<T, Mode<true, false>>(S, scratch, slabs, planes, dt, active, nx, ny, nz,
+                                        prm, stream);
 }
 
 }  // namespace ramses::mhd
@@ -780,16 +960,37 @@ extern "C" {
 
 long long ramses_mhd_step_scratch_per_cell(void) { return ramses::mhd::SCRATCH_PER_CELL; }
 
+// the shear mode's scratch: its stage grid has nx + 2 XH columns
+long long ramses_mhd_step_shear_scratch(int nx, int ny, int nz) {
+  return ramses::mhd::SHEAR_SCRATCH_PER_CELL * (nx + 2LL * ramses::mhd::XH) * ny * nz;
+}
+
 int ramses_mhd_step_f32(float* S, float* scratch, const float* dt,
                         const unsigned char* active, int nx, int ny, int nz,
                         const double* prm, void* stream) {
-  return ramses::mhd::mhd_step<float>(S, scratch, dt, active, nx, ny, nz, prm, stream);
+  return ramses::mhd::mhd_step<float, ramses::mhd::Periodic>(
+      S, scratch, nullptr, nullptr, dt, active, nx, ny, nz, prm, stream);
 }
 
 int ramses_mhd_step_f64(double* S, double* scratch, const double* dt,
                         const unsigned char* active, int nx, int ny, int nz,
                         const double* prm, void* stream) {
-  return ramses::mhd::mhd_step<double>(S, scratch, dt, active, nx, ny, nz, prm, stream);
+  return ramses::mhd::mhd_step<double, ramses::mhd::Periodic>(
+      S, scratch, nullptr, nullptr, dt, active, nx, ny, nz, prm, stream);
+}
+
+int ramses_mhd_step_shear_f32(float* S, float* scratch, const float* slabs, float* planes,
+                              const float* dt, const unsigned char* active, int nx, int ny,
+                              int nz, const double* prm, void* stream) {
+  return ramses::mhd::mhd_step_shear<float>(S, scratch, slabs, planes, dt, active, nx, ny, nz,
+                                            prm, stream);
+}
+
+int ramses_mhd_step_shear_f64(double* S, double* scratch, const double* slabs,
+                              double* planes, const double* dt, const unsigned char* active,
+                              int nx, int ny, int nz, const double* prm, void* stream) {
+  return ramses::mhd::mhd_step_shear<double>(S, scratch, slabs, planes, dt, active, nx, ny,
+                                             nz, prm, stream);
 }
 
 }  // extern "C"
@@ -805,7 +1006,65 @@ extern "C" long long ramses_mhd_step_ops(const double* S, int nx, int ny, int nz
   const Counted dtc(dt);
   const unsigned char active = 1;
   Counted::ops = 0;
-  ramses::mhd::mhd_step<Counted>(s.data(), scratch.data(), &dtc, &active, nx, ny, nz, prm, nullptr);
+  ramses::mhd::mhd_step<Counted, ramses::mhd::Periodic>(
+      s.data(), scratch.data(), nullptr, nullptr, &dtc, &active, nx, ny, nz, prm, nullptr);
   return Counted::ops;
+}
+
+namespace ramses::mhd {
+
+// the operations of stage f on the stage-grid cells (shear mode) of columns
+// lo..hi: those a later stage reads, for stages run on every cell
+template <typename F>
+long long counted_columns(const F& f, const Dims& e, int lo, int hi) {
+  long long ops = 0;
+  for (long long t = 0; t < e.n; ++t) {
+    const long long before = Counted::ops;
+    f(t);
+    const int i = (int)(t % e.nx) - XH;
+    if (i >= lo && i <= hi) ops += Counted::ops - before;
+  }
+  return ops;
+}
+
+// the shear mode's step as it needs to be done: prim on columns -2..nx+1,
+// efield on -1..nx+1, trace on -1..nx, fluxes and EMFs on faces 0..nx,
+// the update on the state; the stage grid's other cells are computed by
+// the kernel but never read
+template <typename M>
+long long shear_step_ops(Counted* S, Counted* scratch, const Counted* slabs, Counted* planes,
+                         const Counted* dt, int nx, int ny, int nz, const double* prm) {
+  const unsigned char active = 1;
+  const StepArgs<Counted> a =
+      step_args<Counted, M>(S, scratch, slabs, planes, dt, &active, nx, ny, nz, prm);
+  long long ops = counted_columns(PrimStage<Counted, M>{a}, a.e, -XH, nx + XH - 1);
+  ops += counted_columns(EFieldStage<Counted, M>{a}, a.e, -1, nx + 1);
+  ops += counted_columns(TraceStage<Counted, M>{a}, a.e, -1, nx);
+  ops += counted_columns(FluxStage<Counted, M>{a}, a.e, 0, nx);
+  ops += counted_columns(EmfStage<Counted, M>{a}, a.e, 0, nx);
+  const long long before = Counted::ops;
+  const UpdateStage<Counted, M> update{a};
+  for (long long t = 0; t < a.d.n; ++t) update(t);
+  return ops + Counted::ops - before;
+}
+
+}  // namespace ramses::mhd
+
+// the same for the shearing-box mode, with the sheared slabs beside S
+extern "C" long long ramses_mhd_step_shear_ops(const double* S, const double* slabs, int nx,
+                                               int ny, int nz, const double* prm, double dt) {
+  using ramses::Counted;
+  using ramses::mhd::Mode;
+  using ramses::mhd::SLAB;
+  const long long n = (long long)nx * ny * nz;
+  std::vector<Counted> s = ramses::counted_copy(S, 8 * n);
+  std::vector<Counted> sl = ramses::counted_copy(slabs, 2LL * 8 * nz * ny * SLAB);
+  std::vector<Counted> scratch(ramses_mhd_step_shear_scratch(nx, ny, nz));
+  std::vector<Counted> planes(ramses::mhd::NPLANE * (long long)nz * ny);
+  const Counted dtc(dt);
+  const auto count = prm[ramses::P_CISO] > 0.0
+                         ? ramses::mhd::shear_step_ops<Mode<true, true>>
+                         : ramses::mhd::shear_step_ops<Mode<true, false>>;
+  return count(s.data(), scratch.data(), sl.data(), planes.data(), &dtc, nx, ny, nz, prm);
 }
 #endif

@@ -33,7 +33,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("cfl_mhd.cu", "mhd_step.cu", "cfl_hydro.cu", "hydro_step.cu")
+SOURCES = ("cfl_mhd.cu", "mhd_step.cu", "cfl_hydro.cu", "hydro_step.cu", "shear_border.cu")
 HEADERS = ("common.cuh", "op_count.cuh")
 
 # per-source compile flags (each source compiles to an object, all in
@@ -137,6 +137,15 @@ _SIGNATURES = {
     "ramses_cfl_mhd_f64": ([_P, _P, _P, _I, _I, _I, _P, _P], _I),
     "ramses_mhd_step_f32": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "ramses_mhd_step_f64": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_cfl_mhd_shear_f32": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_cfl_mhd_shear_f64": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_mhd_step_shear_scratch": ([_I, _I, _I], ctypes.c_longlong),
+    "ramses_mhd_step_shear_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_mhd_step_shear_f64": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_shear_slabs_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_shear_slabs_f64": ([_P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_shear_border_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_shear_border_f64": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "ramses_cfl_hydro_partials": ([], _I),
     "ramses_cfl_hydro_f32": ([_P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
     "ramses_cfl_hydro_f64": ([_P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
@@ -150,6 +159,10 @@ _L = ctypes.c_longlong
 _COUNT_SIGNATURES = {
     "ramses_cfl_mhd_ops": ([_P, _I, _I, _I, _P], _L),
     "ramses_mhd_step_ops": ([_P, _I, _I, _I, _P, ctypes.c_double], _L),
+    "ramses_cfl_mhd_shear_ops": ([_P, _P, _I, _I, _I, _P], _L),
+    "ramses_mhd_step_shear_ops": ([_P, _P, _I, _I, _I, _P, ctypes.c_double], _L),
+    "ramses_shear_border_ops": ([_P, _P, _P, _I, _I, _I, _P, ctypes.c_double, ctypes.c_double,
+                                 _P], None),
     "ramses_cfl_hydro_ops": ([_P, _I, _I, _I, _I, _P], _L),
     "ramses_hydro_step_ops": ([_P, _I, _I, _I, _P, _P, ctypes.c_double, _P, _P], None),
 }
@@ -173,11 +186,17 @@ def load_library(kind: str = "cuda") -> ctypes.CDLL:
 def param_block(params) -> ctypes.Array:
     """The physical parameters as the C side's P_* double block
     (csrc/common.cuh). An iorder-1 scheme is slope_type 0; the Riemann
-    solver travels as its RiemannSolver value."""
+    solver travels as its RiemannSolver value. The shearing-box constants
+    are formed as the JAX package forms them: the fill's 1.5 omega0 Lx
+    with Lx = dx nx and Ly = dy ny (solvers/shear.py:40-45), the remap's
+    with Lx = xmax - xmin and Ly = ymax - ymin (godunov_mhd.py:558-561)."""
     slope = 0.0 if params.iorder == 1 else float(params.slope_type)
-    return (ctypes.c_double * 13)(
+    return (ctypes.c_double * 19)(
         params.gamma0, params.smallr, params.smallp, params.smallc, slope,
         params.dx, params.dy, params.dz,
         params.niter_riemann, params.smallpp, params.gamma6, params.c_iso,
         int(params.riemann_solver),
+        params.omega0, params.xmin,
+        1.5 * params.omega0 * (params.dx * params.nx), params.dy * params.ny,
+        1.5 * params.omega0 * (params.xmax - params.xmin), params.ymax - params.ymin,
     )

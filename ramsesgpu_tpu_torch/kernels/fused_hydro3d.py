@@ -34,10 +34,15 @@ def make_advance_n(params: RunParams, device, packed_form: bool = False):
     """The hydro chunk loop; see kernels/loop.py make_kernel_loop. Ghosts
     need not be valid on entry: pack keeps the interior only."""
     require_hydro_scope(params)
+
+    def bind_step(S):
+        scratch = hydro_step.scratch(params, S)
+        return lambda S, dt, active, t: hydro_step(params, S, dt, active, scratch)
+
     return make_kernel_loop(
-        params, device, cfl_hydro, hydro_step,
+        params, device, lambda S: cfl_hydro(params, S), bind_step,
         pack=lambda U: pack_state(params, U),
-        unpack=lambda S: unpack_state(params, S),
+        unpack=lambda S, t: unpack_state(params, S),
         packed_form=packed_form,
     )
 

@@ -29,9 +29,14 @@ def packed_supported(params: RunParams) -> bool:
 def make_advance_n(params: RunParams, device, packed_form: bool = False):
     """The MHD chunk loop; see kernels/loop.py make_kernel_loop."""
     require_step_scope(params)
+
+    def bind_step(S):
+        scratch = mhd_step.scratch(params, S)
+        return lambda S, dt, active, t: mhd_step(params, S, dt, active, scratch)
+
     return make_kernel_loop(
-        params, device, cfl_mhd, mhd_step,
+        params, device, lambda S: cfl_mhd(params, S), bind_step,
         pack=lambda U: interior(params, U).contiguous(),
-        unpack=lambda S: make_boundaries_concat(params, S, interior_only=True),
+        unpack=lambda S, t: make_boundaries_concat(params, S, interior_only=True),
         packed_form=packed_form,
     )

@@ -58,10 +58,9 @@ def constoprim_mhd(params: RunParams, U: torch.Tensor, dt=None):
     """3D MHD conservative -> primitive (ramsesgpu_tpu ops/eos.py:56).
 
     The primitive cell-centred B is the average of the cell's left face and
-    the next cell's left face. Returns (Q, c). ``dt`` feeds only the
-    rotating-frame half-kick, which is outside the ported slice."""
-    if params.omega0 > 0:
-        raise NotImplementedError("rotating frame (omega0 > 0) is not ported")
+    the next cell's left face. Returns (Q, c). With omega0 > 0 the
+    velocities get the Coriolis predictor half-kick over ``dt``
+    (constoprim.h:190-195)."""
     if params.dim != 3:
         raise NotImplementedError("only 3D MHD is ported")
 
@@ -85,6 +84,12 @@ def constoprim_mhd(params: RunParams, U: torch.Tensor, dt=None):
         eint = (U[IP] - emag) * inv_rho - eken
         p = xp.maximum((params.gamma0 - 1.0) * rho * eint, rho * params.smallp)
         c = torch.sqrt(params.gamma0 * p * inv_rho)
+
+    if params.omega0 > 0:
+        dvx = 2.0 * params.omega0 * v
+        dvy = -0.5 * params.omega0 * u
+        u = u + dvx * dt * 0.5
+        v = v + dvy * dt * 0.5
 
     Q = torch.stack([rho, p, u, v, w, bx, by, bz])
     return Q, c

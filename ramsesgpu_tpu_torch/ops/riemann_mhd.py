@@ -310,12 +310,12 @@ EMF_ROTATION = {
 }
 
 
-def compute_emf(params: RunParams, qRT, qRB, qLT, qLB, emf_dir: str):
+def compute_emf(params: RunParams, qRT, qRB, qLT, qLB, emf_dir: str, xpos=None):
     """EMF at cell corners from the four corner-aligned edge states
     (riemann_mhd.h:1056-1193): qRT from the lower-left diagonal cell,
-    qRB/qLT from the adjacent cells, qLB from the current cell."""
-    if params.omega0 > 0:
-        raise NotImplementedError("rotating frame (omega0 > 0) is not ported")
+    qRB/qLT from the adjacent cells, qLB from the current cell. ``xpos``
+    (the cell-centre x coordinate, broadcastable) feeds the shearing-box
+    upwind term when omega0 > 0."""
     iu, iv, iw, ia, ib, ic = EMF_ROTATION[emf_dir]
 
     def build(q):
@@ -341,4 +341,14 @@ def compute_emf(params: RunParams, qRT, qRB, qLT, qLB, emf_dir: str):
     eLR = qLR[IU] * qLR[IB] - qLR[IV] * qLR[IA]
     eRR = qRR[IU] * qRR[IB] - qRR[IV] * qRR[IA]
 
-    return mag_riemann2d(params, qLL, qRL, qLR, qRR, eLL, eRL, eLR, eRR)
+    emf = mag_riemann2d(params, qLL, qRL, qLR, qRR, eLL, eRL, eLR, eRR)
+
+    if params.omega0 > 0 and xpos is not None:
+        # shearing-box upwind correction (riemann_mhd.h:1172-1190)
+        if emf_dir == "x":
+            shear = -1.5 * params.omega0 * xpos
+            emf = emf + torch.where(shear > 0, shear * qLL[IB], shear * qRR[IB])
+        elif emf_dir == "z":
+            shear = -1.5 * params.omega0 * (xpos - params.dx / 2)
+            emf = emf - torch.where(shear > 0, shear * qLL[IA], shear * qRR[IA])
+    return emf

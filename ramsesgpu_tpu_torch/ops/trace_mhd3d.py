@@ -6,8 +6,9 @@ Riemann problems and the 4 corner states of each of the 3 edge families
 feeding the 2D EMF solvers — 18 stacks of 8 channels.
 
 bfx/bfy/bfz hold B at each cell's LEFT x/y/z face (= U[IA]/U[IB]/U[IC]);
-shift_p(bf, axis) is therefore this cell's right face. The rotating-frame
-(omega0 > 0) terms are outside the ported slice and raise.
+shift_p(bf, axis) is therefore this cell's right face. With omega0 > 0
+the rotating-frame terms enter through ``xpos``, the cell-centre x
+coordinate broadcastable over the state's last axis (shearing box).
 """
 from __future__ import annotations
 
@@ -30,11 +31,6 @@ STATE_NAMES = (
 )
 
 
-def _no_rotation(params: RunParams) -> None:
-    if params.omega0 > 0:
-        raise NotImplementedError("rotating frame (omega0 > 0) is not ported")
-
-
 def _corner_avg4(f, ax1, ax2):
     return 0.25 * (
         f
@@ -44,16 +40,17 @@ def _corner_avg4(f, ax1, ax2):
     )
 
 
-def trace_mhd3d_shared_precursors(params: RunParams, Q, bfx, bfy, bfz):
+def trace_mhd3d_shared_precursors(params: RunParams, Q, bfx, bfy, bfz, xpos=None):
     """Edge-centred electric fields Ex (i, j-1/2, k-1/2) and Ey
     (i-1/2, j, k-1/2) (trace_mhd.h:850-905) and the in-plane transverse
     slopes of bfz — the precursors consumed at both z and z+1."""
-    _no_rotation(params)
     v4 = _corner_avg4(Q[IV], _Y, _Z)
     w4 = _corner_avg4(Q[IW], _Y, _Z)
     B_e = 0.5 * (bfy + xp.shift_m(bfy, _Z))
     C_e = 0.5 * (bfz + xp.shift_m(bfz, _Y))
     ExC = v4 * C_e - w4 * B_e
+    if params.omega0 > 0:
+        ExC = ExC + (-1.5 * params.omega0 * xpos) * C_e
 
     u4 = _corner_avg4(Q[IU], _X, _Z)
     w4b = _corner_avg4(Q[IW], _X, _Z)
@@ -75,24 +72,24 @@ def trace_mhd3d_local_precursors(params: RunParams, Q, bfx, bfy):
     )
 
 
-def trace_unsplit_mhd_3d_parts(params: RunParams, Q, bfx, bfy, bfz, dt):
+def trace_unsplit_mhd_3d_parts(params: RunParams, Q, bfx, bfy, bfz, dt, xpos=None):
     """Lazy builders for the 18 face/edge state stacks: a dict
     name -> zero-argument callable returning an [8, ...] tensor."""
-    shared = trace_mhd3d_shared_precursors(params, Q, bfx, bfy, bfz)
+    shared = trace_mhd3d_shared_precursors(params, Q, bfx, bfy, bfz, xpos)
     shared_p = tuple(xp.shift_p(f, _Z) for f in shared)
     local = trace_mhd3d_local_precursors(params, Q, bfx, bfy)
     return trace_mhd3d_state_parts(
         params, Q, bfx, bfy, bfz, xp.shift_p(bfz, _Z),
-        shared, shared_p, local, dt,
+        shared, shared_p, local, dt, xpos,
     )
 
 
 def trace_mhd3d_state_parts(params: RunParams, Q, bfx, bfy, bfz, bfz_p,
-                            shared, shared_p, local, dt):
+                            shared, shared_p, local, dt, xpos=None):
     """In-plane half-step state assembly (trace_mhd.h:906-1418).
     ``bfz_p`` is bfz at z+1; ``shared``/``shared_p`` are the shared
     precursors at z and z+1; ``local`` the local precursors at z."""
-    _no_rotation(params)
+    omega0 = params.omega0
     smallr, smallp, gamma = params.smallr, params.smallp, params.gamma0
     dtdx, dtdy, dtdz = dt / params.dx, dt / params.dy, dt / params.dz
 
@@ -106,6 +103,8 @@ def trace_mhd3d_state_parts(params: RunParams, Q, bfx, bfy, bfz, bfz_p,
     A_e2 = 0.5 * (bfx + xp.shift_m(bfx, _Y))
     B_e2 = 0.5 * (bfy + xp.shift_m(bfy, _X))
     EzC = u4c * B_e2 - v4c * A_e2
+    if omega0 > 0:
+        EzC = EzC - (-1.5 * omega0 * (xpos - params.dx / 2)) * A_e2
 
     ELL, ELR = ExC, ExC_p
     ERL, ERR = xp.shift_p(ExC, _Y), xp.shift_p(ExC_p, _Y)
@@ -179,6 +178,17 @@ def trace_mhd3d_state_parts(params: RunParams, Q, bfx, bfy, bfz, bfz_p,
         w * dBy + B * dwy - v * dCy - C * dvy
     ) * dtdy
 
+    if omega0 > 0:
+        shear = -1.5 * omega0 * xpos
+        sr0 = sr0 - shear * dry * dtdy
+        su0 = su0 - shear * duy * dtdy
+        sv0 = sv0 - shear * dvy * dtdy
+        sw0 = sw0 - shear * dwy * dtdy
+        sp0 = sp0 - shear * dpy * dtdy
+        sA0 = sA0 - shear * dAy * dtdy
+        sB0 = sB0 + (shear * dAx - 1.5 * omega0 * A * params.dx) * dtdx + shear * dBz * dtdz
+        sC0 = sC0 - shear * dCy * dtdy
+
     # face-centred field half-step (induction; trace_mhd.h:1152-1158)
     sAL0 = +(GLR - GLL) * dtdy * 0.5 - (FLR - FLL) * dtdz * 0.5
     sAR0 = +(GRR - GRL) * dtdy * 0.5 - (FRR - FRL) * dtdz * 0.5
@@ -234,10 +244,10 @@ def trace_mhd3d_state_parts(params: RunParams, Q, bfx, bfy, bfz, bfz_p,
     return {k: (lambda f=v: torch.stack(list(f()))) for k, v in builders.items()}
 
 
-def trace_unsplit_mhd_3d(params: RunParams, Q, bfx, bfy, bfz, dt):
+def trace_unsplit_mhd_3d(params: RunParams, Q, bfx, bfy, bfz, dt, xpos=None):
     """Materialized form: (qm, qp, qedge_z, qedge_y, qedge_x), each edge
     family ordered (RT, RB, LT, LB)."""
-    P = trace_unsplit_mhd_3d_parts(params, Q, bfx, bfy, bfz, dt)
+    P = trace_unsplit_mhd_3d_parts(params, Q, bfx, bfy, bfz, dt, xpos)
     qm = (P["qm_x"](), P["qm_y"](), P["qm_z"]())
     qp = (P["qp_x"](), P["qp_y"](), P["qp_z"]())
     qedge_z = (P["qRT_z"](), P["qRB_z"](), P["qLT_z"](), P["qLB_z"]())

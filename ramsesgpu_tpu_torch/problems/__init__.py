@@ -5,8 +5,10 @@ HydroRunBase.cpp:7109-7133, MHDRunBase.cpp:1378-3245).
 The port registers the initial conditions it can run: the gravity-free
 hydro problems below, and the MHD problems of ``mhd_inits`` (registered
 when that module is imported; ``solvers/step.py require_slice`` refuses
-those that need rotation, gravity, walls or 2D). Any other name raises
-NotImplementedError.
+those that need walls, 2D or a static gravity field). Any other name
+raises NotImplementedError. ``has_gravity_field`` is the JAX package's
+gate (problems/__init__.py:48-76): Keplerian-disk always has a field, MRI
+only with a [gravity] section (stratified MRI).
 """
 from __future__ import annotations
 
@@ -32,6 +34,18 @@ _MHD_REGISTRY: dict[str, InitFn] = {}
 
 def register_mhd(name: str, fn: InitFn) -> None:
     _MHD_REGISTRY[name] = fn
+
+
+def has_gravity_field(params: RunParams, config: ConfigMap) -> bool:
+    """Whether the problem carries a static gravity field (the reference's
+    h_gravity, HydroRunBase.h:80-120), by the JAX package's gravity
+    registry (problems/__init__.py:48-76): the Keplerian disk always, MRI
+    only when stratified."""
+    from .mhd_inits import mri_stratified
+
+    if params.problem == "Keplerian-disk":
+        return True
+    return params.problem in ("MRI", "Mri", "mri") and mri_stratified(config)
 
 
 def init_problem(params: RunParams, config: ConfigMap) -> np.ndarray:

@@ -281,27 +281,6 @@ def init_hydro_keplerian_disk(params: RunParams, config: ConfigMap) -> np.ndarra
     return _set_prim(params, U, mask, rho, p0, u, v)
 
 
-def keplerian_gravity_field(params: RunParams, config: ConfigMap) -> np.ndarray:
-    """Static softened point-mass gravity field for the Keplerian disk
-    (HydroRunBase.cpp: h_gravity = -g * r / (r^2+eps^2)^(3/2))."""
-    eps = config.get_float("Keplerian-disk", "epsilon", 0.01)
-    grav = config.get_float("gravity", "g", 1.0)
-    xc = config.get_float("Keplerian-disk", "xCenter", (params.xmax + params.xmin) / 2)
-    yc = config.get_float("Keplerian-disk", "yCenter", (params.ymax + params.ymin) / 2)
-    cs = coords(params)
-    # NOTE: the reference uses the *uncentered* xPos/yPos in dphi (a quirk
-    # kept here literally would break off-center disks; we use the centered
-    # coordinates, which is the physically intended field)
-    x = cs[0] - xc
-    y = cs[1] - yc
-    r2 = x * x + y * y
-    soft = (r2 + eps * eps) ** (-1.5)
-    g = np.zeros((params.dim,) + params.shape[1:], dtype=_np_dtype(params))
-    g[0] = -grav * x * soft
-    g[1] = -grav * y * soft
-    return g
-
-
 def init_hydro_falling_bubble(params: RunParams, config: ConfigMap) -> np.ndarray:
     """Light bubble falling under gravity (HydroRunBase.cpp:6640-6830)."""
     d0 = config.get_float("falling-bubble", "d0", 1.0)      # light (bubble)

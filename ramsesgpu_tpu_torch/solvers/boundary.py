@@ -11,8 +11,9 @@ Per face, the simple BC types:
 
 Faces are filled X, then Y, then Z, so corner ghosts pick up the already
 filled transverse ghosts. The fill is copies and sign flips only, so it is
-bitwise equal to the JAX package's. The other BC types (COPY, shearing
-box, stratified) are not ported and raise.
+bitwise equal to the JAX package's. A BC_SHEARINGBOX x face is left as it
+is here, as the JAX fill leaves it: solvers/shear.py fills it. COPY and
+stratified faces are not ported and raise.
 """
 from __future__ import annotations
 
@@ -65,6 +66,8 @@ def _sign(params: RunParams, like: torch.Tensor, axis: int) -> torch.Tensor:
 def _fill_side(params: RunParams, U: torch.Tensor, axis: int, is_max: bool, bc) -> torch.Tensor:
     """Fill the ghost layers on one side of one axis (boundary.py:42), in
     place; returns U."""
+    if bc == BCT.BC_SHEARINGBOX and axis == _X:
+        return U
     gw = params.ghost_width
     n = U.shape[axis] - 2 * gw
     dst = _take(U, axis, slice(n + gw, n + 2 * gw) if is_max else slice(0, gw))

@@ -49,7 +49,7 @@ class Run:
         self.config = config
         self.params = params or params_from_config(config)
         self.device = torch.device(device)
-        require_slice(self.params, self.device)
+        require_slice(self.params, self.device, config)
         for section, key in _UNPORTED_FLAGS:
             if config.get_bool(section, key, False):
                 raise NotImplementedError(f"[{section}] {key} is not ported")
@@ -73,14 +73,15 @@ class Run:
         U0 = torch.from_numpy(init_problem(self.params, config))
         U0 = U0.to(device=self.device, dtype=torch_dtype(self.params))
         self.U = make_boundaries(self.params, U0)
-        self._chain = make_packed_advance_chain(self.params, self.device)
+        self._chain = make_packed_advance_chain(self.params, self.device, config)
         self._S = None  # the chained loop state while start() runs
 
     def _host_ghosted(self) -> torch.Tensor:
         """The ghosted state for host-facing consumers; while start() runs
         chained it is unpacked from the loop state (which stays untouched)."""
         if self._S is not None:
-            return self._chain[2](self._S, self.t)
+            t = torch.tensor(self.t, dtype=self.U.dtype, device=self.device)
+            return self._chain[2](self._S, t)
         return self.U
 
     def output(self) -> None:

@@ -16,9 +16,7 @@ from ..ops.backend import xp
 from ..ops.stencil import shift_p
 
 
-def _no_rotation(params: RunParams) -> None:
-    if params.omega0 > 0:
-        raise NotImplementedError("rotating frame (omega0 > 0) is not ported")
+def _require_3d(params: RunParams) -> None:
     if params.dim != 3:
         raise NotImplementedError("only 3D MHD is ported")
 
@@ -57,8 +55,9 @@ def compute_inv_dt_hydro(params: RunParams, U: torch.Tensor, ghost=None) -> torc
 
 
 def _inv_dt_mhd_fields(params: RunParams, rho, eP, u, v, w, bx, by, bz):
-    """Max inverse dt from interior-extent fields (cell-centred B)."""
-    _no_rotation(params)
+    """Max inverse dt from interior-extent fields (cell-centred B). In a
+    rotating frame vy carries the shear offset 1.5 omega0 dx / 2."""
+    _require_3d(params)
     rho = xp.maximum(rho, params.smallr)
     if params.c_iso > 0:
         p = rho * params.c_iso**2
@@ -75,9 +74,12 @@ def _inv_dt_mhd_fields(params: RunParams, rho, eP, u, v, w, bx, by, bz):
     def cf(bn):
         return torch.sqrt(d2 + torch.sqrt(xp.maximum(d2 * d2 - c2 * bn * bn / rho, 0.0)))
 
+    vy = v
+    if params.omega0 > 0:
+        vy = vy + 1.5 * params.omega0 * params.dx / 2.0
     inv = (
         (cf(bx) + torch.abs(u)) / params.dx
-        + (cf(by) + torch.abs(v)) / params.dy
+        + (cf(by) + torch.abs(vy)) / params.dy
         + (cf(bz) + torch.abs(w)) / params.dz
     )
     # torch.max propagates NaN, as jnp.max does
@@ -87,7 +89,7 @@ def _inv_dt_mhd_fields(params: RunParams, rho, eP, u, v, w, bx, by, bz):
 def compute_inv_dt_mhd(params: RunParams, U: torch.Tensor, ghost=None) -> torch.Tensor:
     """Max inverse dt over the interior of a ghosted 3D state (roll shifts
     for the +1 face-B neighbours; the ghosts absorb the wrap)."""
-    _no_rotation(params)
+    _require_3d(params)
     rho = xp.maximum(U[ID], params.smallr)
     fields = (
         U[ID], U[IP], U[IU] / rho, U[IV] / rho, U[IW] / rho,
@@ -103,6 +105,23 @@ def inv_dt_mhd_periodic(params: RunParams, S: torch.Tensor) -> torch.Tensor:
     [8, nz, ny, nx]: the +1 face-B neighbours wrap around. This is the
     plain twin of the CUDA CFL kernel (kernels/cfl_mhd.py)."""
     return compute_inv_dt_mhd(params, S, ghost=0)
+
+
+def inv_dt_mhd_shear(params: RunParams, S: torch.Tensor, kept: torch.Tensor) -> torch.Tensor:
+    """The shearing-box CFL reduction on the loop state (S [8, nz, ny, nx],
+    kept [nz, ny]): compute_inv_dt_mhd of the ghosted state, whose +1 x
+    face of the last column is the kept Bx face (ramsesgpu_tpu
+    pallas/shear_packed.py:929-948); y and z wrap. The plain twin of the
+    CUDA CFL kernel's shearing-box mode (kernels/cfl_mhd.py)."""
+    rho = xp.maximum(S[ID], params.smallr)
+    ia = S[IA]
+    ia_p = torch.cat([ia[..., 1:], kept[..., None]], dim=-1)
+    return _inv_dt_mhd_fields(
+        params, S[ID], S[IP], S[IU] / rho, S[IV] / rho, S[IW] / rho,
+        0.5 * (ia + ia_p),
+        0.5 * (S[IB] + shift_p(S[IB], -2)),
+        0.5 * (S[IC] + shift_p(S[IC], -3)),
+    )
 
 
 def compute_dt(params: RunParams, U: torch.Tensor) -> torch.Tensor:

@@ -47,6 +47,9 @@ dtype={dtype}
 # relative L2 of kernel vs twin after one step (ULP-level differences:
 # FMA contraction, rsqrtf)
 TOL = {"float32": 1e-6, "float64": 1e-13}
+# each of the shear step's x-face planes before the remap on its own: they
+# are differences of much larger terms (chip_smoke.py TOL_PLANES)
+TOL_PLANES = {"float32": 1e-4, "float64": 1e-12}
 
 
 @pytest.fixture
@@ -226,3 +229,139 @@ def test_hydro_loop_counts_launches_and_stops_at_t_end(cuda_device):
     assert int(k) == 3 and float(t) == float(t3)
     assert torch.equal(S, S3)
     assert unpack(S, t).shape == params.shape
+
+
+# the ideal MRI shearing box: tests/test_shear.py's box on an uneven mesh,
+# with the JAX shear tests' coefficients (omega0 = cIso = 1)
+MRI_INI = """
+[run]
+tend={tend}
+[mesh]
+nx=32
+ny=24
+nz=16
+xmin=-0.5
+xmax=0.5
+ymin=0.0
+ymax=2.0
+zmin=-0.5
+zmax=0.5
+boundary_xmin=4
+boundary_xmax=4
+boundary_ymin=3
+boundary_ymax=3
+boundary_zmin=3
+boundary_zmax=3
+[hydro]
+problem=MRI
+cfl=0.4
+gamma0=1.001
+cIso={ciso}
+slope_type=2.0
+riemannSolver=hlld
+smallr=1e-8
+smallc=1e-8
+[MHD]
+enable=true
+magRiemannSolver=hlld
+omega0=1.0
+[MRI]
+beta=400.0
+type=noflux
+amp=0.2
+seed=3
+[implementation]
+dtype={dtype}
+"""
+
+
+def mri_state(dtype, device, tend=100.0, ciso=1.0):
+    """params, the loop state (S, kept) and a t0 whose shear offset is 2.5
+    cells (at t = 0 the sheared fill is periodic). The state is always the
+    isothermal box's (with cIso = 0 the MRI init is a uniform state at rest),
+    stepped with cIso = ciso."""
+    from ramsesgpu_tpu_torch.convert import torch_dtype
+    from ramsesgpu_tpu_torch.kernels.shear import pack
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+
+    init_config = ConfigMap(text=MRI_INI.format(dtype=dtype, tend=tend, ciso=1.0))
+    params = params_from_config(ConfigMap(text=MRI_INI.format(dtype=dtype, tend=tend, ciso=ciso)))
+    U = torch.from_numpy(init_problem(params_from_config(init_config), init_config)).to(
+        device, torch_dtype(params))
+    t0 = 2.5 * params.dy / (1.5 * params.omega0 * params.dx * params.nx)
+    return params, pack(params, make_boundaries(params, U)), torch.tensor(
+        t0, dtype=U.dtype, device=device)
+
+
+def rel_l2(a, b):
+    return float(torch.linalg.norm((a - b).flatten()) / torch.linalg.norm(b.flatten()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("ciso", [1.0, 0.0])
+def test_shear_kernels_match_twins(cuda_device, dtype, ciso):
+    """Each shear kernel against its twin on the same inputs: the CFL with
+    the kept face (and NaN), the sheared slabs, the step's shear mode and
+    its x-face planes, the remap / border / kept-face kernel."""
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_shear_update, shear_border_update
+    from ramsesgpu_tpu_torch.solvers.shear import shear_slabs as slabs_twin
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_shear
+
+    params, (S, kept), t0 = mri_state(dtype, cuda_device, ciso=ciso)
+    inv, inv_ref = cfl_mhd(params, S, kept=kept), inv_dt_mhd_shear(params, S, kept)
+    assert abs(float(inv) - float(inv_ref)) <= TOL[dtype] * float(inv_ref)
+    dt = dt_from_inv(params, inv_ref)
+    active = torch.ones((), dtype=torch.bool, device=cuda_device)
+    slabs_t = slabs_twin(params, S, kept, t0 + dt)
+    assert rel_l2(shear_slabs(params, S, kept, t0, dt), slabs_t) <= TOL[dtype]
+    planes = torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device=cuda_device)
+    S1 = mhd_step(params, S.clone(), dt, active, mhd_step.scratch(params, S),
+                  shear=(slabs_t, planes))
+    S1_t, planes_t = mhd_3d_shear_update(params, S, slabs_t, dt)
+    assert rel_l2(S1, S1_t) <= TOL[dtype] and rel_l2(planes, planes_t) <= TOL[dtype]
+    for c in range(5):
+        assert rel_l2(planes[c], planes_t[c]) <= TOL_PLANES[dtype], c
+    S2, kept2 = S1_t.clone(), kept.clone()
+    rem = shear_border(params, S2, kept2, planes_t, t0, dt, active)
+    S2_t, kept2_t, rem_t = shear_border_update(params, S1_t, kept, planes_t, t0, dt)
+    assert rel_l2(S2, S2_t) <= TOL[dtype] and rel_l2(rem, rem_t) <= TOL[dtype]
+    assert float((kept2 - kept2_t).abs().max()) <= TOL[dtype] * float(S[5:].abs().max())
+    # each output of the border kernel on its own
+    for c in range(4):
+        assert rel_l2(rem[c], rem_t[c]) <= TOL[dtype], c
+    for ch in (0, 5, 7):  # the channels it changes on the border columns
+        cols = (0, params.nx - 1)
+        assert rel_l2(S2[ch][..., cols], S2_t[ch][..., cols]) <= TOL[dtype], ch
+    assert rel_l2(kept2, kept2_t) <= TOL[dtype]
+    S[0, 3, 4, 5] = float("nan")
+    assert torch.isnan(cfl_mhd(params, S, kept=kept))
+
+
+@pytest.mark.cuda
+def test_shear_loop_counts_launches_and_stops_at_t_end(cuda_device):
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+
+    wrappers = (cfl_mhd, mhd_step, shear_slabs, shear_border)
+    params, state0, t0 = mri_state("float32", cuda_device)
+    _pack, advance, unpack = make_packed_advance_chain(params, cuda_device)
+    before = [w.launches for w in wrappers]
+    S3, t3, k = advance(tuple(x.clone() for x in state0), t0, 3)
+    assert int(k) == 3
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [3, 3, 3, 3]
+    _, t2, _ = advance(tuple(x.clone() for x in state0), t0, 2)
+
+    # t_end between the ends of steps 2 and 3: a 10-step chunk runs 3
+    params_end, _, _ = mri_state("float32", cuda_device, tend=0.5 * (float(t2) + float(t3)))
+    _, advance_end, _ = make_packed_advance_chain(params_end, cuda_device)
+    state, t, k = advance_end(tuple(x.clone() for x in state0), t0, 10)
+    assert int(k) == 3 and float(t) == float(t3)
+    assert all(torch.equal(a, b) for a, b in zip(state, S3))
+    assert unpack(state, t).shape == params.shape

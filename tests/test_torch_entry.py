@@ -87,9 +87,12 @@ def test_port_imports_no_jax(tmp_path):
     )
     hydro = (REPO / "data" / "implode3d.ini").read_text().replace("nx=64", "nx=8").replace(
         "ny=64", "ny=8").replace("nz=64", "nz=8")
+    mri = (REPO / "data" / "mhd_mri_3d.ini").read_text().replace(
+        "nx=16\nny=32\nnz=16", "nx=8\nny=16\nnz=8").replace("compensated=yes", "compensated=no")
+    assert "nx=8\n" in mri and "compensated=no" in mri
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code, INI.format(
-        n=8, solver="hlld", kernel="auto", outdir=tmp_path, hdf5="no"), hydro],
+        n=8, solver="hlld", kernel="auto", outdir=tmp_path, hdf5="no"), hydro, mri],
         capture_output=True, text=True, env=env, timeout=300, cwd=tmp_path)
     assert res.returncode == 0 and res.stdout.strip().endswith("OK"), res.stderr[-4000:]
 
