@@ -58,7 +58,24 @@ Phases, in order; any failure raises and no result line is printed:
      the shear mode beside the periodic mode's on the Orszag-Tang state of
      the same shape;
  15. the shear kernels' bounds (as 11, counted on an 8x32x128 block);
- 16. the kernels JSON line, the card line, and the result line.
+ 16. the viscous-resistive sub-step (csrc/dissip_step.cu) against its twin:
+     periodic at 64^3 (Orszag-Tang) and shear at 64x128x64 (MRI,
+     isothermal and adiabatic), f32 + f64, each coefficient set of
+     DISSIP_COEFFS: the increment S_out - S_in and the kept face's change,
+     each on its own against the twin's; the inactive kernel changes
+     nothing; then 1 and 10 chained steps of each dissipative loop against
+     the twins' loop;
+ 17. the dissipative periodic main path: phase 5's workload with the JAX
+     dissipation tests' nu = 2e-3, eta = 1e-3, three kernels per step, and
+     nu dt (1/dx^2 + 1/dy^2 + 1/dz^2) and eta dt (...) of the first, the
+     timed and the next step (the CFL has no viscous or resistive limit);
+ 18. the viscous-resistive MRI main path: phase 13's workload with
+     scripts/perf_table.py's nu = 4e-5, eta = 1e-5 (Re = 25000, Pm = 4),
+     five kernels per step (the slab kernel twice), and the same numbers;
+ 19. the dissipation kernel at full width on the states of phases 17 and
+     18: increment and kept face against the twin, its time against the
+     twin's, its stages, and its bound (as 11 and 15);
+ 20. the kernels JSON line, the card line, and the result line.
 Imports nothing of JAX; of this repo it imports only ramsesgpu_tpu_torch.
 """
 from __future__ import annotations
@@ -143,7 +160,20 @@ KERNELS = {
                    "ramsesgpu_tpu/pallas/packed_bc.py:126"),
     "cfl_hydro": ("ramsesgpu_tpu_torch/csrc/cfl_hydro.cu",
                   "ramsesgpu_tpu/pallas/packed_bc.py:408"),
+    "dissip_step": ("ramsesgpu_tpu_torch/csrc/dissip_step.cu",
+                    "ramsesgpu_tpu/pallas/fused_dissip3d.py:51 (make_pallas_step_fn's "
+                    "dissipation kernel), ramsesgpu_tpu/pallas/fused_mhd3d.py:369 (the "
+                    "packed-io loop's dissipative launch)"),
+    "dissip_step_shear": ("ramsesgpu_tpu_torch/csrc/dissip_step.cu",
+                          "ramsesgpu_tpu/pallas/shear_packed.py:917 (the MRI loop's dissipative "
+                          "launch), ramsesgpu_tpu/pallas/shear_packed.py:237 and :432 (the "
+                          "strips' mode dissip)"),
 }
+# the dissipative coefficient sets (nu, eta): the JAX dissipation tests'
+# (tests/test_pallas_dissip.py:46), each term alone, and the viscous-
+# resistive MRI's (scripts/perf_table.py:93-102: Re = 25000, Pm = 4)
+DISSIP_COEFFS = {"nu=2e-3 eta=1e-3": (2e-3, 1e-3), "nu=0 eta=1e-3": (0.0, 1e-3),
+                 "nu=2e-3 eta=0": (2e-3, 0.0), "nu=4e-5 eta=1e-5": (4e-5, 1e-5)}
 # the card's peaks (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -225,12 +255,14 @@ def time_ms(fn, reps: int) -> float:
 def wrappers():
     from ramsesgpu_tpu_torch.kernels.cfl_hydro import cfl_hydro
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
     from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
     from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
     from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs
 
     return {"mhd_step": mhd_step, "cfl_mhd": cfl_mhd, "hydro_step": hydro_step,
-            "cfl_hydro": cfl_hydro, "shear_slabs": shear_slabs, "shear_border": shear_border}
+            "cfl_hydro": cfl_hydro, "shear_slabs": shear_slabs, "shear_border": shear_border,
+            "dissip_step": dissip_step}
 
 
 @contextlib.contextmanager
@@ -239,14 +271,17 @@ def counted_main_path(name: str, expect: dict):
     read just after; fails unless the counts equal ``expect`` (0 for the
     kernels not named) or a plain twin ran meanwhile. Yields the dict the
     counts are read into."""
-    from ramsesgpu_tpu_torch.kernels import (cfl_hydro, cfl_mhd, hydro_step, mhd_step,
-                                             shear_border)
+    from ramsesgpu_tpu_torch.kernels import (cfl_hydro, cfl_mhd, dissip_step, hydro_step,
+                                             mhd_step, shear_border)
 
     twins = [(mhd_step, "mhd_3d_periodic_update"), (cfl_mhd, "inv_dt_mhd_periodic"),
              (hydro_step, "hydro_3d_state_update"), (hydro_step, "hydro_3d_interior_update"),
              (cfl_hydro, "compute_inv_dt_hydro"), (mhd_step, "mhd_3d_shear_update"),
              (cfl_mhd, "inv_dt_mhd_shear"), (shear_border, "shear_slabs_twin"),
-             (shear_border, "shear_border_update")]
+             (shear_border, "shear_border_update"),
+             (dissip_step, "mhd_dissipation_periodic_update"),
+             (dissip_step, "mhd_dissipation_shear_update"),
+             (dissip_step, "kept_face_resistive_ct")]
     twin_calls = []
 
     def guard(module, attr, fn):
@@ -387,7 +422,7 @@ def run_chunks(label: str, card: str, advance, S, t, n, chunk: int = 10,
                cells: int | None = None):
     """2 warm-up and 3 timed chunks of ``chunk`` steps on the n^3 mesh (or
     ``cells`` cells of the mesh named n); prints ms/step and cells/s;
-    returns (S, t)."""
+    returns (S, t, the mean dt of the timed steps)."""
     cells = n ** 3 if cells is None else cells
     for _ in range(2):
         S, t, k = advance(S, t, chunk)
@@ -395,6 +430,7 @@ def run_chunks(label: str, card: str, advance, S, t, n, chunk: int = 10,
         if int(k) != chunk:
             raise AssertionError(f"{label}: warm-up chunk stopped early: {int(k)}")
     times = []
+    t_timed = float(t)
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -408,15 +444,32 @@ def run_chunks(label: str, card: str, advance, S, t, n, chunk: int = 10,
     print(f"[{label}] main path {size} f32 on {card}: best chunk {best * 1e3 / chunk:.3f} ms/step, "
           f"{cells * chunk / best:.4e} cells/s (mean {mean * 1e3 / chunk:.3f} ms/step, "
           f"chunks {[round(x * 1e3 / chunk, 3) for x in times]} ms/step)")
-    return S, t
+    return S, t, (float(t) - t_timed) / (3 * chunk)
 
 
-def phase5(card: str) -> dict:
+def diffusion_numbers(label: str, params, dts: dict) -> None:
+    """nu dt (1/dx^2 + 1/dy^2 + 1/dz^2), and the same with eta, for each dt
+    of ``dts``: the explicit sub-step is stable up to 1/2, and the CFL has
+    no viscous or resistive limit (nor has the JAX package's)."""
+    inv_h2 = 1 / params.dx ** 2 + 1 / params.dy ** 2 + 1 / params.dz ** 2
+    print(f"[{label}] diffusion numbers (explicit limit 0.5): " + "; ".join(
+        f"{name}: dt {dt!r}, nu {params.nu * dt * inv_h2:.5f}, eta {params.eta * dt * inv_h2:.5f}"
+        for name, dt in dts.items()))
+
+
+def phase5(card: str, label: str = "5", nu: float = 0.0, eta: float = 0.0):
+    """The periodic MHD main path, ideal or (phase 17) with viscosity nu and
+    resistivity eta; returns its launch counts and (params, S, t) at its
+    end."""
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries_concat
     from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
 
     n, chunk = 256, 10
     params, S_init = setup(n, "float32")
+    params = params.replace(nu=nu, eta=eta)
+    dt_first = float(dt_from_inv(params, cfl_mhd(params, S_init)))
     U = make_boundaries_concat(params, S_init, interior_only=True)
     del S_init
     mass0 = float(U[0, 3:-3, 3:-3, 3:-3].double().sum())
@@ -425,18 +478,25 @@ def phase5(card: str) -> dict:
     t = torch.zeros((), dtype=torch.float32, device="cuda")
 
     steps = 5 * chunk
-    with counted_main_path("5", {"mhd_step": steps, "cfl_mhd": steps}) as launches:
+    expect = {"mhd_step": steps, "cfl_mhd": steps}
+    if nu > 0 or eta > 0:
+        expect["dissip_step"] = steps
+    with counted_main_path(label, expect) as launches:
         S = pack(U)
         del U
-        S, t = run_chunks("5", card, advance, S, t, n, chunk)
+        S, t, dt_timed = run_chunks(label, card, advance, S, t, n, chunk)
 
     if not bool(torch.isfinite(S).all()):
         raise AssertionError("non-finite state after the main path")
+    if nu > 0 or eta > 0:
+        diffusion_numbers(label, params, {
+            "first step": dt_first, "timed steps (mean)": dt_timed,
+            "next step": float(dt_from_inv(params, cfl_mhd(params, S)))})
     b_over_dx = max(float(S[5].abs().max()), 1e-10) / params.dx
     divb = div_b_max(params, S)
     mass = float(S[0].double().sum())
     energy = float(S[1].double().sum())
-    print(f"[5] {steps} steps at {n}^3 f32: t={float(t)!r}, max|divB|={divb:.3e} "
+    print(f"[{label}] {steps} steps at {n}^3 f32: t={float(t)!r}, max|divB|={divb:.3e} "
           f"(bound {1e-3 * b_over_dx:.3e}), mass rel {abs(mass - mass0) / abs(mass0):.3e} "
           f"(1e-5), energy rel {abs(energy - energy0) / abs(energy0):.3e} (1e-4)")
     if not divb < 1e-3 * b_over_dx:
@@ -446,8 +506,8 @@ def phase5(card: str) -> dict:
     U_out = unpack(S, t)
     if tuple(U_out.shape) != params.shape:
         raise AssertionError(f"unpacked shape {tuple(U_out.shape)} != {params.shape}")
-    profile_chunk("5p", card, advance, S, t, chunk)
-    return launches
+    profile_chunk(f"{label}p", card, advance, S, t, chunk)
+    return launches, (params, S, t)
 
 
 def phase6(card: str, twin_peak_64: int) -> dict:
@@ -612,7 +672,7 @@ def phase9(card: str) -> tuple[dict, torch.Tensor]:
         with counted_main_path(label, {"hydro_step": steps, "cfl_hydro": steps}) as launches:
             S = pack(U)
             del U
-            S, t = run_chunks(label, card, advance, S, t, n, chunk)
+            S, t, _dt = run_chunks(label, card, advance, S, t, n, chunk)
         for name, c in launches.items():
             total[name] = total.get(name, 0) + c
 
@@ -790,10 +850,12 @@ def phase11(mhd: dict, hydro: dict) -> dict:
     return bounds
 
 
-def mri_setup(nx: int, ny: int, nz: int, dtype: str, coeffs: float | None = None):
+def mri_setup(nx: int, ny: int, nz: int, dtype: str, coeffs: float | None = None,
+              nu: float = 0.0, eta: float = 0.0):
     """data/mhd_mri_3d.ini at nx x ny x nz with compensated=no; with
     ``coeffs``, omega0 = cIso = coeffs (the JAX package's shear tests use
-    1). Returns params and the loop state (S, kept) on the card."""
+    1); viscosity nu and resistivity eta. Returns params, the config and the
+    loop state (S, kept) on the card."""
     from ramsesgpu_tpu_torch.config.configmap import ConfigMap
     from ramsesgpu_tpu_torch.config.params import params_from_config
     from ramsesgpu_tpu_torch.convert import torch_dtype
@@ -809,6 +871,8 @@ def mri_setup(nx: int, ny: int, nz: int, dtype: str, coeffs: float | None = None
     if coeffs is not None:
         config.set_float("MHD", "omega0", coeffs)
         config.set_float("hydro", "cIso", coeffs)
+    config.set_float("hydro", "nu", nu)
+    config.set_float("MHD", "eta", eta)
     params = params_from_config(config)
     U0 = torch.from_numpy(init_problem(params, config))
     U = make_boundaries(params, U0.to(device="cuda", dtype=torch_dtype(params)))
@@ -932,12 +996,16 @@ def div_b_shear(params, S: torch.Tensor, kept: torch.Tensor) -> float:
     return float(div.abs().max())
 
 
-def phase13(card: str):
-    """The MRI main path; returns its launch counts and its final state."""
+def phase13(card: str, label: str = "13", nu: float = 0.0, eta: float = 0.0):
+    """The MRI main path, ideal or (phase 18) with viscosity nu and
+    resistivity eta; returns its launch counts and its final state."""
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
 
     nx, ny, nz, chunk = 128, 256, 128, 10
-    params, config, (S0, kept0) = mri_setup(nx, ny, nz, "float32")
+    params, config, (S0, kept0) = mri_setup(nx, ny, nz, "float32", nu=nu, eta=eta)
+    dt_first = float(dt_from_inv(params, cfl_mhd(params, S0, kept=kept0)))
     mass0 = float(S0[0].double().sum())
     pack, advance, unpack = make_packed_advance_chain(params, "cuda", config)
     U = unpack((S0, kept0), torch.zeros((), device="cuda"))  # the ghosted state a Run holds
@@ -945,18 +1013,24 @@ def phase13(card: str):
     t = torch.zeros((), dtype=torch.float32, device="cuda")
     steps = 5 * chunk
     expect = {"mhd_step": steps, "cfl_mhd": steps, "shear_slabs": steps, "shear_border": steps}
-    with counted_main_path("13", expect) as launches:
+    if nu > 0 or eta > 0:
+        expect.update(shear_slabs=2 * steps, dissip_step=steps)
+    with counted_main_path(label, expect) as launches:
         state = pack(U)
         del U
-        state, t = run_chunks("13", card, advance, state, t, f"{nx}x{ny}x{nz}", chunk,
-                              cells=nx * ny * nz)
+        state, t, dt_timed = run_chunks(label, card, advance, state, t, f"{nx}x{ny}x{nz}",
+                                        chunk, cells=nx * ny * nz)
     S, kept = state
+    if nu > 0 or eta > 0:
+        diffusion_numbers(label, params, {
+            "first step": dt_first, "timed steps (mean)": dt_timed,
+            "next step": float(dt_from_inv(params, cfl_mhd(params, S, kept=kept)))})
     if not (bool(torch.isfinite(S).all()) and bool(torch.isfinite(kept).all())):
         raise AssertionError("non-finite state after the MRI main path")
     b_over_dx = max(float(S[5:8].abs().max()), float(kept.abs().max()), 1e-30) / params.dx
     divb = div_b_shear(params, S, kept)
     mass = float(S[0].double().sum())
-    print(f"[13] {steps} steps at {nx}x{ny}x{nz} f32: t={float(t)!r}, max|divB|={divb:.3e} "
+    print(f"[{label}] {steps} steps at {nx}x{ny}x{nz} f32: t={float(t)!r}, max|divB|={divb:.3e} "
           f"(bound {1e-3 * b_over_dx:.3e}), mass rel {abs(mass - mass0) / abs(mass0):.3e} "
           f"(1e-5), min rho {float(S[0].min()):.4e}")
     if not divb < 1e-3 * b_over_dx:
@@ -967,7 +1041,7 @@ def phase13(card: str):
     if tuple(U_out.shape) != params.shape:
         raise AssertionError(f"unpacked shape {tuple(U_out.shape)} != {params.shape}")
     del U_out
-    profile_chunk("13p", card, advance, state, t, chunk)
+    profile_chunk(f"{label}p", card, advance, state, t, chunk)
     return launches, (params, S, kept, t)
 
 
@@ -1048,8 +1122,9 @@ def phase14(card: str, mri) -> dict:
             "t": float(t), "S": S, "kept": kept, "planes": planes}
 
 
-def stage_times(fn, reps: int = 5) -> dict:
-    """Device ms per call of each CUDA kernel fn launches (torch.profiler)."""
+def stage_times(fn, reps: int = 5, ns: str = "mhd::") -> dict:
+    """Device ms per call of each CUDA kernel fn launches (torch.profiler),
+    by its stage name in the namespace ``ns``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1059,7 +1134,7 @@ def stage_times(fn, reps: int = 5) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key.split("mhd::")[1].split("<")[0] if "mhd::" in e.key else e.key[:40]:
+    return {e.key.split(ns)[1].split("<")[0] if ns in e.key else e.key[:40]:
             e.self_device_time_total / reps / 1e3
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
@@ -1141,6 +1216,238 @@ def phase15(shear: dict) -> dict:
     return bounds
 
 
+def increment_rel(got: torch.Tensor, want: torch.Tensor, start: torch.Tensor) -> float:
+    """Relative L2 of the kernel's increment against the twin's, over the
+    twin's increment: the dissipative change is orders of magnitude below
+    the state, whose norm would hide a wrong term. Where the twin changes
+    nothing, 0 if the kernel changes nothing either, else inf."""
+    if torch.equal(want, start):
+        return 0.0 if torch.equal(got, start) else float("inf")
+    return rel_l2(got - start, want - start)
+
+
+def dissip_mri(nx: int, ny: int, nz: int, dtype: str, ciso: float, nu: float, eta: float,
+               noise: bool):
+    """The MRI box with omega0 = 1 stepped with cIso = ciso (its state is
+    the isothermal box's: with cIso = 0 the MRI init is a state at rest),
+    viscosity nu and resistivity eta: params, S, kept and a t0 whose shear
+    offset is 2.5 cells. ``noise``: 20 % noise on B and the kept face (the
+    initial field varies in x only, so its resistive change of the kept face
+    would vanish)."""
+    params, _config, (S, kept) = mri_setup(nx, ny, nz, dtype, 1.0)
+    params = params.replace(c_iso=ciso, nu=nu, eta=eta)
+    if noise:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        scale = 0.2 * float(S[7].abs().max())
+        S[5:] += scale * torch.randn(S[5:].shape, generator=gen, device="cuda", dtype=S.dtype)
+        kept += scale * torch.randn(kept.shape, generator=gen, device="cuda", dtype=S.dtype)
+    return params, S, kept, shear_t0(params, S.dtype)
+
+
+def phase16() -> None:
+    from ramsesgpu_tpu_torch.kernels import fused_mhd3d, shear
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.solvers.dissipation import (kept_face_resistive_ct,
+                                                          mhd_dissipation_periodic_update,
+                                                          mhd_dissipation_shear_update)
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_periodic_step, mhd_3d_shear_step
+    from ramsesgpu_tpu_torch.solvers.shear import shear_slabs as slabs_twin
+    from ramsesgpu_tpu_torch.solvers.timestep import (dt_from_inv, inv_dt_mhd_periodic,
+                                                      inv_dt_mhd_shear)
+
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    idle = torch.zeros((), dtype=torch.bool, device="cuda")
+    modes = (("periodic 64^3 adiabatic", None), ("shear 64x128x64 isothermal", 1.0),
+             ("shear 64x128x64 adiabatic", 0.0))
+    for dtype in ("float32", "float64"):
+        tol1, tol10 = TOL_STEP1[dtype], TOL_STEP10[dtype]
+        for mode, ciso in modes:
+            for cname, (nu, eta) in DISSIP_COEFFS.items():
+                tag = f"16 dissip_step {mode} {dtype} {cname}"
+                # one call against the twin on the same inputs
+                if ciso is None:
+                    params, S = setup(64, dtype)
+                    params = params.replace(nu=nu, eta=eta)
+                    dt = dt_from_inv(params, inv_dt_mhd_periodic(params, S))
+                    want = mhd_dissipation_periodic_update(params, S, dt)
+                    scratch = dissip_step.scratch(params, S)
+                    got = dissip_step(params, S.clone(), dt, active, scratch)
+                    unchanged = torch.equal(dissip_step(params, S.clone(), dt, idle, scratch), S)
+                else:
+                    params, S, kept, t0 = dissip_mri(64, 128, 64, dtype, ciso, nu, eta, True)
+                    dt = dt_from_inv(params, inv_dt_mhd_shear(params, S, kept))
+                    slabs = slabs_twin(params, S, kept, t0 + dt)
+                    want, eypl, ezpl = mhd_dissipation_shear_update(params, S, slabs, dt)
+                    scratch = dissip_step.scratch(params, S)
+                    got, kept_got = S.clone(), kept.clone()
+                    dissip_step(params, got, dt, active, scratch, shear=(slabs, kept_got))
+                    S_idle, kept_idle = S.clone(), kept.clone()
+                    dissip_step(params, S_idle, dt, idle, scratch, shear=(slabs, kept_idle))
+                    unchanged = torch.equal(S_idle, S) and torch.equal(kept_idle, kept)
+                    if eta > 0:
+                        kept_want = kept_face_resistive_ct(params, kept, eypl, ezpl, dt)
+                        check(f"{tag} kept-face change", increment_rel(kept_got, kept_want, kept),
+                              tol1)
+                    elif not torch.equal(kept_got, kept):
+                        raise AssertionError(f"{tag}: the kept face changed without resistivity")
+                check(f"{tag} increment", increment_rel(got, want, S), tol1,
+                      f", max abs {float((got - want).abs().max()):.3e}, increment norm / state "
+                      f"norm {rel_l2(want, S):.3e}")
+                if not unchanged:
+                    raise AssertionError(f"{tag}: the inactive kernel changed its inputs")
+
+                # 1 and 10 chained loop steps against the twins' loop
+                if ciso is None:
+                    _pack, advance, _unpack = fused_mhd3d.make_advance_n(params, "cuda",
+                                                                          packed_form=True)
+                    state0, t0, rel = S, torch.zeros((), dtype=S.dtype, device="cuda"), rel_l2
+
+                    def twin_step(st, t):
+                        dt = dt_from_inv(params, inv_dt_mhd_periodic(params, st))
+                        return mhd_3d_periodic_step(params, st, dt), t + dt
+                else:
+                    params, S, kept, t0 = dissip_mri(64, 128, 64, dtype, ciso, nu, eta, False)
+                    _pack, advance, _unpack = shear.make_advance_n(params, "cuda",
+                                                                    packed_form=True)
+                    state0, rel = (S, kept), state_rel
+
+                    def twin_step(st, t):
+                        dt = dt_from_inv(params, inv_dt_mhd_shear(params, *st))
+                        return mhd_3d_shear_step(params, *st, t, dt), t + dt
+                start = (tuple(x.clone() for x in state0) if isinstance(state0, tuple)
+                         else state0.clone())
+                state, t_k, k = advance(start, t0.clone(), 1)
+                twin, t_t = twin_step(state0, t0)
+                check(f"{tag} 1 loop step", rel(state, twin), tol1)
+                state, t_k, k = advance(state, t_k, 9)
+                for _ in range(9):
+                    twin, t_t = twin_step(twin, t_t)
+                check(f"{tag} 10 chained loop steps", rel(state, twin), tol10,
+                      f": t kernel {float(t_k)!r} twin {float(t_t)!r}")
+                if int(k) != 9:
+                    raise AssertionError(f"{tag}: the loop stopped early")
+
+
+def dissip_bytes(params, shear: bool) -> int:
+    """The bytes the f32 sub-step must move: each channel it reads once (rho
+    and the momenta with nu > 0, B with eta > 0, E unless isothermal), each
+    it changes written once (the momenta with nu, B with eta, E unless
+    isothermal); the shear mode also reads the XH = 2 slab columns per side
+    its stencil reaches and writes the kept face (with eta)."""
+    iso, visc, resist = params.c_iso > 0, params.nu > 0, params.eta > 0
+    read = 4 * visc + 3 * resist + (not iso)
+    written = 3 * visc + 3 * resist + (not iso)
+    n, rows = params.nx * params.ny * params.nz, params.ny * params.nz
+    values = (read + written) * n
+    if shear:
+        values += 2 * 2 * read * rows + resist * rows
+    return 4 * values
+
+
+def phase19(card: str, ot, mri) -> dict:
+    """The dissipation kernel at full width on the end states of phases 17
+    (periodic, 256^3) and 18 (shear, 128x256x128): its increment and kept
+    face against the twin's on the same inputs, its time against the
+    twin's, its stages, and its bound: max(bytes / memory rate, the
+    operations counted by the counting build on a 32^3 block (periodic) or
+    an 8x32x128 block (shear) of the state, scaled / f32 rate)."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs
+    from ramsesgpu_tpu_torch.solvers.dissipation import (kept_face_resistive_ct,
+                                                          mhd_dissipation_periodic_update,
+                                                          mhd_dissipation_shear_update)
+    from ramsesgpu_tpu_torch.solvers.shear import shear_slabs as slabs_twin
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
+
+    lib = load_library("count")
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    out = {"ms": {}, "plain_ms": {}, "max_abs_err": {}, "bounds": {}}
+    tol = TOL_STEP1["float32"]
+
+    params, S, _t = ot
+    name, size = "dissip_step", f"{params.nx}x{params.ny}x{params.nz}"
+    dt = dt_from_inv(params, cfl_mhd(params, S))
+    scratch = dissip_step.scratch(params, S)
+    got = dissip_step(params, S.clone(), dt, active, scratch)
+    Sw = S.clone()
+    out["ms"][name] = time_ms(lambda: dissip_step(params, Sw, dt, active, scratch), 10)
+    stages = {"periodic": stage_times(lambda: dissip_step(params, Sw, dt, active, scratch),
+                                      ns="dissip::")}
+    del Sw, scratch
+    torch.cuda.empty_cache()
+    want = mhd_dissipation_periodic_update(params, S, dt)
+    out["max_abs_err"][name] = float((got - want).abs().max())
+    check(f"19 {name} {size} f32 increment", increment_rel(got, want, S), tol,
+          f", max abs {out['max_abs_err'][name]:.3e}, increment norm / state norm "
+          f"{rel_l2(want, S):.3e}")
+    del got, want
+    torch.cuda.empty_cache()
+    out["plain_ms"][name] = time_ms(lambda: mhd_dissipation_periodic_update(params, S, dt), 3)
+    blk = block_params(params, 32)
+    S_sub = S[:, :32, :32, :32].double().contiguous().cpu()
+    ops = lib.ramses_dissip_step_ops(S_sub.data_ptr(), 32, 32, 32, param_block(blk),
+                                     float(dt)) / 32 ** 3 * (params.nx * params.ny * params.nz)
+    rows = {name: (params, ops, dissip_bytes(params, False), size)}
+
+    params, S, kept, t = mri
+    name, size = "dissip_step_shear", f"{params.nx}x{params.ny}x{params.nz}"
+    dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
+    slabs = shear_slabs(params, S, kept, t, dt)
+    scratch = dissip_step.scratch(params, S)
+    got, kept_got = S.clone(), kept.clone()
+    dissip_step(params, got, dt, active, scratch, shear=(slabs, kept_got))
+    Sw, kw = S.clone(), kept.clone()
+    out["ms"][name] = time_ms(
+        lambda: dissip_step(params, Sw, dt, active, scratch, shear=(slabs, kw)), 10)
+    stages["shear"] = stage_times(
+        lambda: dissip_step(params, Sw, dt, active, scratch, shear=(slabs, kw)), ns="dissip::")
+    del Sw, kw, scratch
+    torch.cuda.empty_cache()
+
+    def twin():
+        S_new, eypl, ezpl = mhd_dissipation_shear_update(params, S, slabs, dt)
+        return S_new, kept_face_resistive_ct(params, kept, eypl, ezpl, dt)
+
+    want, kept_want = twin()
+    out["max_abs_err"][name] = max(float((got - want).abs().max()),
+                                   float((kept_got - kept_want).abs().max()))
+    check(f"19 {name} {size} f32 increment", increment_rel(got, want, S), tol,
+          f", increment norm / state norm {rel_l2(want, S):.3e}")
+    check(f"19 {name} {size} f32 kept-face change", increment_rel(kept_got, kept_want, kept),
+          tol, f", change norm / kept norm {rel_l2(kept_want, kept):.3e}")
+    del got, want
+    torch.cuda.empty_cache()
+    out["plain_ms"][name] = time_ms(twin, 3)
+    bz, by = 8, 32
+    blk = params.replace(nz=bz, zmax=params.zmin + bz * params.dz,
+                         ny=by, ymax=params.ymin + by * params.dy)
+    S_sub = S[:, :bz, :by].double().contiguous().cpu()
+    kept_sub = kept[:bz, :by].double().contiguous().cpu()
+    slabs_sub = slabs_twin(blk, S_sub, kept_sub,
+                           torch.tensor(float(t + dt), dtype=torch.float64)).contiguous()
+    ops = lib.ramses_dissip_step_shear_ops(S_sub.data_ptr(), slabs_sub.data_ptr(), params.nx, by,
+                                           bz, param_block(blk), float(dt))
+    rows[name] = (params, ops * (params.ny * params.nz) / (by * bz), dissip_bytes(params, True),
+                  size)
+
+    for mode, st in stages.items():
+        print(f"[19] dissip_step stages, {mode} mode ({card}): {sum(st.values()):.4f} ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(st.items(), key=lambda kv: -kv[1])))
+    for name, (p, ops, nbytes, size) in rows.items():
+        n = p.nx * p.ny * p.nz
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_FLOP_PER_S * 1e3
+        out["bounds"][name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+        print(f"[19] {name} at {size} f32: {nbytes / n:.1f} B/cell, {nbytes / 1e9:.4f} GB -> "
+              f"{t_bytes:.5f} ms; {ops / n:.1f} flop/cell, {ops / 1e9:.4f} GFLOP -> {t_ops:.5f} ms: "
+              f"bound {out['bounds'][name][0]:.5f} ms by {out['bounds'][name][1]}")
+        print(f"[19] {name}: kernel {out['ms'][name]:.4f} ms, twin {out['plain_ms'][name]:.3f} ms "
+              f"({size} f32, {card})")
+    return out
+
+
 def profile_chunk(label: str, card: str, advance, S: torch.Tensor, t: torch.Tensor,
                   chunk: int) -> None:
     """Device time by kernel over one more chunk of a main path, and the
@@ -1175,7 +1482,8 @@ def main() -> int:
     phase2()
     phase3()
     twin_peak = phase4()
-    launches = phase5(card)
+    launches, _ot = phase5(card)
+    del _ot
     timing = phase6(card, twin_peak)
     phase7()
     hydro_twin_peak = phase8()
@@ -1188,6 +1496,12 @@ def main() -> int:
     shear_timing = phase14(card, mri)
     del mri
     bounds.update(phase15(shear_timing))
+    phase16()
+    dissip_launches, ot_dissip = phase5(card, "17", *DISSIP_COEFFS["nu=2e-3 eta=1e-3"])
+    mri_dissip_launches, mri_dissip = phase13(card, "18", *DISSIP_COEFFS["nu=4e-5 eta=1e-5"])
+    dissip_timing = phase19(card, ot_dissip, mri_dissip)
+    del ot_dissip, mri_dissip
+    bounds.update(dissip_timing["bounds"])
     if "jax" in sys.modules or any(m.startswith("ramsesgpu_tpu.") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
 
@@ -1195,8 +1509,11 @@ def main() -> int:
                 **{k: hydro_launches[k] for k in ("hydro_step", "cfl_hydro")},
                 "mhd_step_shear": shear_launches["mhd_step"],
                 "cfl_mhd_shear": shear_launches["cfl_mhd"],
-                **{k: shear_launches[k] for k in ("shear_slabs", "shear_border")}}
-    measured = {key: {**timing[key], **hydro_timing[key], **shear_timing[key]}
+                **{k: shear_launches[k] for k in ("shear_slabs", "shear_border")},
+                "dissip_step": dissip_launches["dissip_step"],
+                "dissip_step_shear": mri_dissip_launches["dissip_step"]}
+    measured = {key: {**timing[key], **hydro_timing[key], **shear_timing[key],
+                      **dissip_timing[key]}
                 for key in ("ms", "plain_ms", "max_abs_err")}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,5 +1,5 @@
 // Shared pieces of the port's CUDA kernels (cfl_mhd.cu, mhd_step.cu,
-// cfl_hydro.cu, hydro_step.cu, shear_border.cu).
+// cfl_hydro.cu, hydro_step.cu, shear_border.cu, dissip_step.cu).
 //
 // Layout: a state is channel-major, x fastest: S[nvar][nz][ny][nx] for the
 // loops' interior-only state, the same with a ghost frame for the ghosted
@@ -33,11 +33,12 @@ namespace ramses {
 // reference rounds its Python floats. The shearing-box entries: omega0,
 // xmin, and the shift constants of the sheared fill (1.5 omega0 Lx with
 // Lx = dx nx, and Ly = dy ny) and of the remap (1.5 omega0 (xmax - xmin),
-// ymax - ymin), each formed in double as the JAX package forms them.
+// ymax - ymin), each formed in double as the JAX package forms them. Then
+// the kinematic viscosity nu and the resistivity eta.
 enum {
   P_GAMMA0, P_SMALLR, P_SMALLP, P_SMALLC, P_SLOPE, P_DX, P_DY, P_DZ,
   P_NITER, P_SMALLPP, P_GAMMA6, P_CISO, P_SOLVER,
-  P_OMEGA0, P_XMIN, P_FILL_K, P_FILL_LY, P_REMAP_K, P_REMAP_LY, P_COUNT
+  P_OMEGA0, P_XMIN, P_FILL_K, P_FILL_LY, P_REMAP_K, P_REMAP_LY, P_NU, P_ETA, P_COUNT
 };
 
 template <typename T>

@@ -33,7 +33,8 @@ from dataclasses import dataclass
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("cfl_mhd.cu", "mhd_step.cu", "cfl_hydro.cu", "hydro_step.cu", "shear_border.cu")
+SOURCES = ("cfl_mhd.cu", "mhd_step.cu", "cfl_hydro.cu", "hydro_step.cu", "shear_border.cu",
+           "dissip_step.cu")
 HEADERS = ("common.cuh", "op_count.cuh")
 
 # per-source compile flags (each source compiles to an object, all in
@@ -45,6 +46,16 @@ COMPILE_FLAGS = {
     "count": ("-x", "c++", "-std=c++17", "-O2", "-fPIC", "-c", "-DRAMSES_COUNT_OPS"),
 }
 LINK_FLAGS = ("-shared",)
+# flags of one source beside its kind's: the dissipation kernel repeats its
+# twin's roundings, so nothing contracts a product and a sum into an FMA
+SOURCE_FLAGS = {
+    "dissip_step.cu": {"cuda": ("-fmad=false",), "host": ("-ffp-contract=off",),
+                       "count": ("-ffp-contract=off",)},
+}
+
+
+def compile_flags(kind: str, source: str) -> tuple[str, ...]:
+    return COMPILE_FLAGS[kind] + SOURCE_FLAGS.get(source, {}).get(kind, ())
 
 
 @dataclass(frozen=True)
@@ -87,7 +98,8 @@ def _compiler(kind: str) -> str:
 
 
 def _digest(kind: str) -> str:
-    h = hashlib.sha256(" ".join(COMPILE_FLAGS[kind] + LINK_FLAGS).encode())
+    flags = [f for source in SOURCES for f in compile_flags(kind, source)]
+    h = hashlib.sha256(" ".join(flags + list(LINK_FLAGS)).encode())
     for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -107,7 +119,7 @@ def build(kind: str = "cuda") -> Build:
     t0 = time.perf_counter()
     try:
         objs = [work / f"{Path(s).stem}.o" for s in SOURCES]
-        procs = [subprocess.Popen([cxx, *COMPILE_FLAGS[kind], "-o", str(o), str(CSRC / s)],
+        procs = [subprocess.Popen([cxx, *compile_flags(kind, s), "-o", str(o), str(CSRC / s)],
                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                  for s, o in zip(SOURCES, objs)]
         outputs = [proc.communicate() for proc in procs]  # every compiler ends first
@@ -152,6 +164,11 @@ _SIGNATURES = {
     "ramses_hydro_step_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
     "ramses_hydro_step_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
     "ramses_hydro_step_f64": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
+    "ramses_dissip_step_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
+    "ramses_dissip_step_f32": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_dissip_step_f64": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_dissip_step_shear_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_dissip_step_shear_f64": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
 }
 
 # the operation-counting entry points of build("count")
@@ -165,6 +182,8 @@ _COUNT_SIGNATURES = {
                                  _P], None),
     "ramses_cfl_hydro_ops": ([_P, _I, _I, _I, _I, _P], _L),
     "ramses_hydro_step_ops": ([_P, _I, _I, _I, _P, _P, ctypes.c_double, _P, _P], None),
+    "ramses_dissip_step_ops": ([_P, _I, _I, _I, _P, ctypes.c_double], _L),
+    "ramses_dissip_step_shear_ops": ([_P, _P, _I, _I, _I, _P, ctypes.c_double], _L),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -189,9 +208,10 @@ def param_block(params) -> ctypes.Array:
     solver travels as its RiemannSolver value. The shearing-box constants
     are formed as the JAX package forms them: the fill's 1.5 omega0 Lx
     with Lx = dx nx and Ly = dy ny (solvers/shear.py:40-45), the remap's
-    with Lx = xmax - xmin and Ly = ymax - ymin (godunov_mhd.py:558-561)."""
+    with Lx = xmax - xmin and Ly = ymax - ymin (godunov_mhd.py:558-561).
+    Then nu and eta."""
     slope = 0.0 if params.iorder == 1 else float(params.slope_type)
-    return (ctypes.c_double * 19)(
+    return (ctypes.c_double * 21)(
         params.gamma0, params.smallr, params.smallp, params.smallc, slope,
         params.dx, params.dy, params.dz,
         params.niter_riemann, params.smallpp, params.gamma6, params.c_iso,
@@ -199,4 +219,5 @@ def param_block(params) -> ctypes.Array:
         params.omega0, params.xmin,
         1.5 * params.omega0 * (params.dx * params.nx), params.dy * params.ny,
         1.5 * params.omega0 * (params.xmax - params.xmin), params.ymax - params.ymin,
+        params.nu, params.eta,
     )

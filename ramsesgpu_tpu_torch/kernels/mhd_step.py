@@ -40,7 +40,10 @@ def uses_shear(params: RunParams) -> bool:
 
 
 def require_step_scope(params: RunParams) -> None:
-    """Raise NotImplementedError for what the step kernel does not compute."""
+    """Raise NotImplementedError for what the step kernels (this one and,
+    with nu > 0 or eta > 0, kernels/dissip_step.py) do not compute.
+    ``[implementation] stripFused`` is accepted with every value: the
+    port's shear path has no border strip (kernels/shear.py)."""
     reasons = []
     if params.dim != 3 or not params.mhd:
         reasons.append("only 3D MHD")
@@ -48,8 +51,6 @@ def require_step_scope(params: RunParams) -> None:
         reasons.append(f"riemannSolver {params.riemann_solver.name} (HLLD only)")
     if params.mag_riemann_solver != MagneticRiemannSolver.MAG_HLLD:
         reasons.append(f"magRiemannSolver {params.mag_riemann_solver.name} (HLLD only)")
-    if params.nu > 0 or params.eta > 0:
-        reasons.append("viscosity / resistivity")
     if params.compensated:
         reasons.append("Kahan-compensated state")
     if params.gravity_x or params.gravity_y or params.gravity_z:
@@ -64,8 +65,6 @@ def require_step_scope(params: RunParams) -> None:
             reasons.append("a shearing box with non-periodic y or z faces")
         if params.omega0 <= 0:
             reasons.append("a shearing box without rotation (omega0 = 0)")
-        if params.strip_fused:
-            reasons.append("[implementation] stripFused=yes (the fused strip kernel)")
         if params.ghost_width != SLAB or params.nx < 2 * SLAB:
             reasons.append(f"ghost width {params.ghost_width}, nx {params.nx} "
                            f"(the shear mode needs 3 and nx >= 6)")

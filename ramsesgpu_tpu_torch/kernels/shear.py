@@ -9,8 +9,20 @@ sheared fill leaves alone and only the CT updates. Each step launches
 four kernels: the CFL reduction with the kept face (kernels/cfl_mhd.py),
 the sheared ghost slabs at t + dt (kernels/shear_border.py), the step
 kernel's shearing-box mode (kernels/mhd_step.py), and the remap, border
-corrections and kept-face CT (kernels/shear_border.py). The device t
-feeds the slabs and the remap, so a chunk makes no host sync.
+corrections and kept-face CT (kernels/shear_border.py). A dissipative run
+(nu > 0 or eta > 0) launches two more: the slabs again at t + dt, from the
+updated state, and the dissipation kernel's shearing-box mode, which also
+takes the kept face's resistive CT (kernels/dissip_step.py; the JAX loop's
+pallas/shear_packed.py:1178-1203). The device t feeds the slabs and the
+remap, so a chunk makes no host sync.
+
+``[implementation] stripFused`` (the JAX package's fused border strip,
+pallas/shear_packed.py:432, its default for a dissipative MRI when
+ny % 128 == 0) selects nothing here: the port has no strip. What the fused
+strip computes in one launch (the slab build, the flux and emfY remap,
+the density floor, the kept-Bx CT delta, and in its "dissip" mode the
+resistive kept-face planes) these kernels compute for every value of the
+key, on every ny.
 """
 from __future__ import annotations
 
@@ -20,9 +32,11 @@ import torch
 
 from ..config.params import RunParams
 from ..core.constants import IA
+from ..solvers.dissipation import uses_dissipation
 from ..solvers.shear import wrap_yz
 from ..solvers.timestep import dt_from_inv
 from .cfl_mhd import cfl_mhd
+from .dissip_step import dissip_step
 from .loop import make_kernel_loop
 from .mhd_step import NPLANE, SLAB, mhd_step, require_step_scope, uses_shear
 from .shear_border import shear_border, shear_slabs
@@ -69,6 +83,12 @@ def bind_step(params: RunParams, state) -> Callable:
         shear_slabs(params, S, kept, t, dt, out=slabs)
         mhd_step(params, S, dt, active, scratch, shear=(slabs, planes))
         shear_border(params, S, kept, planes, t, dt, active, remapped)
+        if uses_dissipation(params):
+            # the sheared refill at t + dt from the updated state before the
+            # dissipative sub-step (MHDRunGodunov.cpp:1968-1976); the step
+            # kernel's stage buffer is idle by then
+            shear_slabs(params, S, kept, t, dt, out=slabs)
+            dissip_step(params, S, dt, active, scratch, shear=(slabs, kept))
 
     return step
 

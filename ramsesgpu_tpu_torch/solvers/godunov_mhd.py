@@ -21,8 +21,10 @@ x faces, corrects the border columns, floors their density and updates
 the kept Bx face by CT (the twin of the border kernel,
 kernels/shear_border.py). Correcting after the update equals remapping
 before it, as the JAX package's whole-array step does, because the
-update is linear in the face flux and EMF. Gravity, dissipation and Kahan
-compensation are not ported.
+update is linear in the face flux and EMF. The step twins
+(``mhd_3d_periodic_step``, ``mhd_3d_shear_step``) follow a dissipative
+Godunov update with the viscous / resistive sub-step (solvers/dissipation.py).
+Gravity and Kahan compensation are not ported.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ from ..ops.backend import xp
 from ..ops.eos import constoprim_mhd
 from ..ops.riemann_mhd import compute_emf, riemann_mhd
 from ..ops.trace_mhd3d import trace_unsplit_mhd_3d_parts
+from .dissipation import (kept_face_resistive_ct, mhd_dissipation_periodic_update,
+                          mhd_dissipation_shear_update, uses_dissipation)
 from .shear import roll_dynamic, shear_slabs
 
 _X, _Y, _Z = -1, -2, -3
@@ -130,11 +134,20 @@ def mhd_apply_update(params: RunParams, S, fluxes, emfs, dt, x0: int = 0):
 
 
 def mhd_3d_periodic_update(params: RunParams, S: torch.Tensor, dt) -> torch.Tensor:
-    """One 3D MHD+CT step of the interior-only periodic state [8, nz, ny, nx]."""
-    if params.nu > 0 or params.eta > 0:
-        raise NotImplementedError("viscosity / resistivity are not ported")
+    """One 3D MHD+CT Godunov update of the interior-only periodic state
+    [8, nz, ny, nx] (the twin of the step kernel; no dissipation)."""
     fluxes, emfs = mhd_fluxes_emfs(params, S, dt)
     return mhd_apply_update(params, S, fluxes, emfs, dt)
+
+
+def mhd_3d_periodic_step(params: RunParams, S: torch.Tensor, dt) -> torch.Tensor:
+    """One periodic step: the Godunov update, then the dissipative sub-step
+    when nu > 0 or eta > 0 (the roll is the inter-phase refill, as the JAX
+    package's wrap pad; pallas/fused_mhd3d.py:457-463)."""
+    S = mhd_3d_periodic_update(params, S, dt)
+    if uses_dissipation(params):
+        S = mhd_dissipation_periodic_update(params, S, dt)
+    return S
 
 
 # -------------------------------------------------------------------------
@@ -213,9 +226,18 @@ def shear_border_update(params: RunParams, S, kept, planes, t, dt):
 def mhd_3d_shear_step(params: RunParams, S, kept, t, dt):
     """One shearing-box step on the loop state: the sheared slabs at t + dt
     (the reference fills for totalTime + dt, MHDRunGodunov.cpp:3551), the
-    update, then the remap and border corrections at t. Returns
-    (S_new, kept_new)."""
+    update, then the remap and border corrections at t. A dissipative run
+    then refills the slabs at t + dt from the updated state (the sheared
+    refill before the dissipative step, MHDRunGodunov.cpp:1968-1976; no
+    flux remap applies to it), takes the dissipative sub-step and, with
+    resistivity, the kept face's resistive CT
+    (pallas/shear_packed.py:1178-1203). Returns (S_new, kept_new)."""
     slabs = shear_slabs(params, S, kept, t + dt)
     S_new, planes = mhd_3d_shear_update(params, S, slabs, dt)
     S_new, kept_new, _ = shear_border_update(params, S_new, kept, planes, t, dt)
+    if uses_dissipation(params):
+        slabs = shear_slabs(params, S_new, kept_new, t + dt)
+        S_new, eypl, ezpl = mhd_dissipation_shear_update(params, S_new, slabs, dt)
+        if params.eta > 0:
+            kept_new = kept_face_resistive_ct(params, kept_new, eypl, ezpl, dt)
     return S_new, kept_new

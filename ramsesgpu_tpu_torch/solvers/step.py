@@ -1,9 +1,10 @@
 """Step and chunk-advance builders (the port's counterpart of
 ramsesgpu_tpu/solvers/step.py:107-452), for the ported slices: fully
-periodic 3D ideal MHD with HLLD fluxes and 2D-HLLD EMFs; the ideal
-shearing box (MRI: rotating frame, sheared-periodic x faces, isothermal
-or adiabatic, same solvers); and 3D hydro (approx / HLL / HLLC) with any
-mix of DIRICHLET / NEUMANN / PERIODIC faces.
+periodic 3D MHD with HLLD fluxes and 2D-HLLD EMFs; the shearing box (MRI:
+rotating frame, sheared-periodic x faces, isothermal or adiabatic, same
+solvers); both with or without viscosity and resistivity (nu, eta); and 3D
+hydro (approx / HLL / HLLC, inviscid) with any mix of DIRICHLET / NEUMANN /
+PERIODIC faces.
 
     step(U, t)          -> (U', dt)       one step on the ghosted state
     advance_n(U, t, n)  -> (U', t', k)    up to n steps, stopping at t_end
@@ -31,7 +32,7 @@ from ..config.params import RunParams
 from ..kernels import fused_hydro3d, fused_mhd3d, shear
 from ..kernels.cfl_mhd import cfl_mhd
 from ..kernels.hydro_step import require_hydro_scope
-from ..kernels.mhd_step import mhd_step, require_step_scope, uses_shear
+from ..kernels.mhd_step import require_step_scope, uses_shear
 from ..problems import has_gravity_field
 from .boundary import interior, make_boundaries_concat
 from .timestep import dt_from_inv
@@ -73,16 +74,16 @@ def make_step_fn(params: RunParams, device, config: ConfigMap | None = None) -> 
         return fused_hydro3d.make_step_fn(params, device)
     if uses_shear(params):
         return shear.make_step_fn(params, device)
-    scratch = None  # the step kernel's stage buffer, allocated once
+    step_S = None  # bound to the stage buffer of the first state
 
     def step(U, t):
-        nonlocal scratch
+        nonlocal step_S
         S = interior(params, U).contiguous()
-        if scratch is None:
-            scratch = mhd_step.scratch(params, S)
+        if step_S is None:
+            step_S = fused_mhd3d.bind_periodic_step(params, S)
         dt = dt_from_inv(params, cfl_mhd(params, S))
         active = torch.ones((), dtype=torch.bool, device=S.device)
-        mhd_step(params, S, dt, active, scratch)
+        step_S(S, dt, active, t)
         return make_boundaries_concat(params, S, interior_only=True), dt
 
     return step

@@ -365,3 +365,115 @@ def test_shear_loop_counts_launches_and_stops_at_t_end(cuda_device):
     assert int(k) == 3 and float(t) == float(t3)
     assert all(torch.equal(a, b) for a, b in zip(state, S3))
     assert unpack(state, t).shape == params.shape
+
+
+# the viscous-resistive sub-step (kernels/dissip_step.py), with the JAX
+# dissipation tests' coefficients (tests/test_pallas_dissip.py) and each
+# term alone
+DISSIP_COEFFS = [(2e-3, 1e-3), (0.0, 1e-3), (2e-3, 0.0)]
+
+
+def increment_rel(got, want, start):
+    """Relative L2 of the kernel's increment against the twin's, over the
+    twin's increment: the dissipative change is orders of magnitude below
+    the state, whose norm would hide a wrong term. Where the twin changes
+    nothing, 0 if the kernel changes nothing either, else inf."""
+    if torch.equal(want, start):
+        return 0.0 if torch.equal(got, start) else float("inf")
+    return rel_l2(got - start, want - start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("mode, ciso", [("periodic", 0.0), ("shear", 1.0), ("shear", 0.0)])
+def test_dissip_kernel_matches_twin(cuda_device, dtype, mode, ciso):
+    """The dissipation kernel's increment, and in the shear mode the kept
+    face's change, each against the twin's on the same inputs; the
+    inactive kernel changes nothing."""
+    from ramsesgpu_tpu_torch.core.constants import IA
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.solvers.dissipation import (kept_face_resistive_ct,
+                                                          mhd_dissipation_periodic_update,
+                                                          mhd_dissipation_shear_update)
+    from ramsesgpu_tpu_torch.solvers.shear import shear_slabs
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_periodic, inv_dt_mhd_shear
+
+    for nu, eta in DISSIP_COEFFS:
+        if mode == "periodic":
+            params, S = ot_state(dtype, cuda_device)
+            params = params.replace(nu=nu, eta=eta)
+            dt = dt_from_inv(params, inv_dt_mhd_periodic(params, S))
+            shear, want = None, mhd_dissipation_periodic_update(params, S, dt)
+        else:
+            params, (S, kept), t0 = mri_state(dtype, cuda_device, ciso=ciso)
+            params = params.replace(nu=nu, eta=eta)
+            # the initial field varies in x only, so its resistive change of
+            # the kept face vanishes: perturb every field component
+            gen = torch.Generator(device=cuda_device).manual_seed(5)
+            scale = 0.2 * float(S[7].abs().max())
+            S[5:] += scale * torch.randn(S[5:].shape, generator=gen, device=cuda_device,
+                                         dtype=S.dtype)
+            kept += scale * torch.randn(kept.shape, generator=gen, device=cuda_device,
+                                        dtype=S.dtype)
+            dt = dt_from_inv(params, inv_dt_mhd_shear(params, S, kept))
+            slabs = shear_slabs(params, S, kept, t0 + dt)
+            want, eypl, ezpl = mhd_dissipation_shear_update(params, S, slabs, dt)
+            kept_want = (kept_face_resistive_ct(params, kept, eypl, ezpl, dt) if eta > 0
+                         else kept)
+            kept_got = kept.clone()
+            shear = (slabs, kept_got)
+        scratch = dissip_step.scratch(params, S)
+        off = torch.zeros((), dtype=torch.bool, device=cuda_device)
+        assert torch.equal(dissip_step(params, S.clone(), dt, off, scratch, shear=shear), S)
+        got = dissip_step(params, S.clone(), dt, ~off, scratch, shear=shear)
+        assert increment_rel(got, want, S) <= TOL[dtype], (nu, eta)
+        if mode == "shear":
+            assert torch.equal(slabs[1, IA, ..., 0], kept)
+            if eta > 0:
+                assert increment_rel(kept_got, kept_want, kept) <= TOL[dtype], (nu, eta)
+            else:
+                assert torch.equal(kept_got, kept)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["periodic", "shear"])
+def test_dissip_loops_count_launches_and_stop_at_t_end(cuda_device, mode):
+    """Each step of a dissipative loop launches the dissipation kernel once
+    (and, in the shearing box, the slab kernel twice); the loop stops at
+    t_end as the ideal one does."""
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+
+    wrappers = (cfl_mhd, mhd_step, dissip_step, shear_slabs, shear_border)
+    nu, eta = DISSIP_COEFFS[0]
+
+    def setup(tend=100.0):
+        if mode == "periodic":
+            params, S = ot_state("float32", cuda_device, tend=tend)
+            return params.replace(nu=nu, eta=eta), S, torch.zeros((), device=cuda_device)
+        params, state, t0 = mri_state("float32", cuda_device, tend=tend, ciso=0.0)
+        return params.replace(nu=nu, eta=eta), state, t0
+
+    def fresh(state):
+        return tuple(x.clone() for x in state) if isinstance(state, tuple) else state.clone()
+
+    params, state0, t0 = setup()
+    _pack, advance, unpack = make_packed_advance_chain(params, cuda_device)
+    before = [w.launches for w in wrappers]
+    S3, t3, k = advance(fresh(state0), t0, 3)
+    assert int(k) == 3
+    per_step = [1, 1, 1, 0, 0] if mode == "periodic" else [1, 1, 1, 2, 1]
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [3 * c for c in per_step]
+    _, t2, _ = advance(fresh(state0), t0, 2)
+
+    # t_end between the ends of steps 2 and 3: a 10-step chunk runs 3
+    params_end, _, _ = setup(tend=0.5 * (float(t2) + float(t3)))
+    _, advance_end, _ = make_packed_advance_chain(params_end, cuda_device)
+    state, t, k = advance_end(fresh(state0), t0, 10)
+    assert int(k) == 3 and float(t) == float(t3)
+    pairs = zip(state, S3) if mode == "shear" else [(state, S3)]
+    assert all(torch.equal(a, b) for a, b in pairs)
+    assert unpack(state, t).shape == params.shape

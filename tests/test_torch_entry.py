@@ -90,10 +90,18 @@ def test_port_imports_no_jax(tmp_path):
     mri = (REPO / "data" / "mhd_mri_3d.ini").read_text().replace(
         "nx=16\nny=32\nnz=16", "nx=8\nny=16\nnz=8").replace("compensated=yes", "compensated=no")
     assert "nx=8\n" in mri and "compensated=no" in mri
+    # the viscous-resistive MRI (scripts/perf_table.py's Re = 25000, Pm = 4)
+    mri_dissip = mri.replace("cIso=0.001", "cIso=0.001\nnu=4e-5").replace(
+        "omega0=0.001", "omega0=0.001\neta=1e-5")
+    assert "nu=4e-5" in mri_dissip and "eta=1e-5" in mri_dissip
+    ot = INI.format(n=8, solver="hlld", kernel="auto", outdir=tmp_path, hdf5="no")
+    # the dissipative Orszag-Tang run (tests/test_pallas_dissip.py's nu, eta)
+    ot_dissip = ot.replace("smallc=1e-7", "smallc=1e-7\nnu=2e-3").replace(
+        "magRiemannSolver=hlld", "magRiemannSolver=hlld\neta=1e-3")
+    assert "nu=2e-3" in ot_dissip and "eta=1e-3" in ot_dissip
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    res = subprocess.run([sys.executable, "-c", code, INI.format(
-        n=8, solver="hlld", kernel="auto", outdir=tmp_path, hdf5="no"), hydro, mri],
-        capture_output=True, text=True, env=env, timeout=300, cwd=tmp_path)
+    res = subprocess.run([sys.executable, "-c", code, ot, hydro, mri, mri_dissip, ot_dissip],
+                         capture_output=True, text=True, env=env, timeout=300, cwd=tmp_path)
     assert res.returncode == 0 and res.stdout.strip().endswith("OK"), res.stderr[-4000:]
 
 
@@ -201,7 +209,7 @@ def test_wrappers_take_twins_on_cpu_without_counting():
         ({"riemann_solver": "LLF"}, NotImplementedError),
         ({"boundary_xmin": "BC_DIRICHLET"}, NotImplementedError),
         ({"omega0": 1.0}, NotImplementedError),
-        ({"eta": 0.01}, NotImplementedError),
+        ({"compensated": True}, NotImplementedError),
     ],
 )
 def test_out_of_slice_configurations_raise(change, exc):

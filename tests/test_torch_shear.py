@@ -507,12 +507,9 @@ def test_csrc_host_build_matches_shear_twins(dtype):
     "section, key, value",
     [
         ("implementation", "compensated", "yes"),
-        ("hydro", "nu", "4e-5"),
-        ("MHD", "eta", "1e-5"),
         ("mesh", "boundary_zmin", "6"),
         ("gravity", "enabled", "yes"),
         ("implementation", "kernel", "zcarry"),
-        ("implementation", "stripFused", "yes"),
     ],
 )
 def test_out_of_scope_configurations_raise(section, key, value):
@@ -527,6 +524,30 @@ def test_out_of_scope_configurations_raise(section, key, value):
         Run(config, "cpu")
     with pytest.raises(NotImplementedError):
         make_advance_n(params, "cpu", config)
+
+
+@pytest.mark.parametrize(
+    "section, key, value",
+    [
+        ("hydro", "nu", "4e-5"),
+        ("MHD", "eta", "1e-5"),
+        ("implementation", "stripFused", "yes"),
+    ],
+)
+def test_dissipative_and_strip_fused_configurations_run(section, key, value):
+    """Viscosity, resistivity (tests/test_torch_dissip.py holds them against
+    the JAX package) and stripFused=yes, which selects the same kernels as
+    no, run through Run and the loop."""
+    from ramsesgpu_tpu_torch.solvers.run import Run
+    from ramsesgpu_tpu_torch.solvers.step import make_advance_n
+
+    config = ConfigMap(text=ini() + f"\n[{section}]\n{key}={value}\n")
+    params = params_from_config(config)
+    assert (params.nu, params.eta, params.strip_fused) != (0.0, 0.0, None)
+    run = Run(config, "cpu")
+    run.start(max_steps=1, do_output=False)
+    assert np.isfinite(run.interior()).all()
+    make_advance_n(params, "cpu", config)
 
 
 def test_stratified_mri_and_keplerian_disk_raise():
