@@ -1,8 +1,6 @@
 """Chip smoke test of the PyTorch + CUDA port (ramsesgpu_tpu_torch) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py            # all phases, one card
-
 Phases, in order; any failure raises and no result line is printed:
   1. the card, its power limit, torch / CUDA / nvcc versions;
   2. build csrc/ with nvcc for sm_90a (one nvcc per source, all started
@@ -75,7 +73,24 @@ Phases, in order; any failure raises and no result line is printed:
  19. the dissipation kernel at full width on the states of phases 17 and
      18: increment and kept face against the twin, its time against the
      twin's, its stages, and its bound (as 11 and 15);
- 20. the kernels JSON line, the card line, and the result line.
+ 20. the Kahan-compensated kernels against their twins from non-zero
+     carries (periodic OT 64^3, MRI 64x128x64; f32 + f64): the step's
+     state and compensated value, its update stage on its own fluxes
+     bitwise, the border kernel and the dissipative sub-step (every
+     DISSIP_COEFFS set) bitwise, 1 and 10 chained loop steps;
+ 21. the stratified kernels against their twins (data/mhd_mri_3d_stratified.ini
+     at 64x128x64, f32 + f64): CFL, x and z slabs, step, border, loop;
+ 22. the compensated OT main path (phase 5's workload, compensated=yes),
+     and (22d) its dissipative variant (phase 17's coefficients);
+ 23. the flagship MRI exactly as shipped (data/mhd_mri_3d.ini, compensated)
+     at 128x256x128 f32;
+ 24. the stratified MRI as shipped at 128x256x128 f32 (five kernels per
+     step), and (24m) its mass change against its z-face outflow;
+ 25. the new kernel modes at full width on those paths' states: against
+     their twins, their times against the twins', their bounds;
+ 26. long horizon: 500 steps of OT 64^3 (and MRI 64x128x64) in f64, plain
+     f32 and compensated f32 on one dt sequence; err_comp < 0.6 err_plain;
+ 27. the kernels JSON line, the card line, and the result line.
 Imports nothing of JAX; of this repo it imports only ramsesgpu_tpu_torch.
 """
 from __future__ import annotations
@@ -168,12 +183,40 @@ KERNELS = {
                           "ramsesgpu_tpu/pallas/shear_packed.py:917 (the MRI loop's dissipative "
                           "launch), ramsesgpu_tpu/pallas/shear_packed.py:237 and :432 (the "
                           "strips' mode dissip)"),
+    "mhd_step_comp": ("ramsesgpu_tpu_torch/csrc/mhd_step.cu",
+                      "ramsesgpu_tpu/pallas/fused_mhd3d.py:247 (the packed-io step on 2*nvar "
+                      "channels: state + Kahan carry)"),
+    "dissip_step_comp": ("ramsesgpu_tpu_torch/csrc/dissip_step.cu",
+                         "ramsesgpu_tpu/pallas/fused_mhd3d.py:360 (the dissipative launch on "
+                         "2*nvar channels)"),
+    "mhd_step_shear_comp": ("ramsesgpu_tpu_torch/csrc/mhd_step.cu",
+                            "ramsesgpu_tpu/pallas/shear_packed.py:89 (the MRI main kernel on "
+                            "2*nvar channels)"),
+    "shear_border_comp": ("ramsesgpu_tpu_torch/csrc/shear_border.cu",
+                          "ramsesgpu_tpu/pallas/shear_packed.py:237 (the strip's planes, "
+                          "Kahan-applied by :1108-1168)"),
+    "mhd_step_strat": ("ramsesgpu_tpu_torch/csrc/mhd_step.cu",
+                       "ramsesgpu_tpu/pallas/shear_packed.py:89 with the gravity_z aux "
+                       "(:117-131), ramsesgpu_tpu/pallas/shear_packed.py:237 (the strip with "
+                       "gravity)"),
+    "shear_zslabs": ("ramsesgpu_tpu_torch/csrc/shear_border.cu",
+                     "ramsesgpu_tpu/pallas/shear_packed.py:237 (the strip's stratified slab z "
+                     "extension, built by :963-975) and the z band refill :1006-1021"),
 }
+# ms/step of these paths in the version before the compensated and
+# stratified modes, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
+# 5), printed beside this run's with no claim of speed
+EARLIER_MS_PER_STEP = {"5": 10.876, "9 implode": 5.251, "9 blast": 5.274, "13": 2.847,
+                       "17": 14.885, "18": 3.448}
 # the dissipative coefficient sets (nu, eta): the JAX dissipation tests'
 # (tests/test_pallas_dissip.py:46), each term alone, and the viscous-
 # resistive MRI's (scripts/perf_table.py:93-102: Re = 25000, Pm = 4)
 DISSIP_COEFFS = {"nu=2e-3 eta=1e-3": (2e-3, 1e-3), "nu=0 eta=1e-3": (0.0, 1e-3),
                  "nu=2e-3 eta=0": (2e-3, 0.0), "nu=4e-5 eta=1e-5": (4e-5, 1e-5)}
+# the shipped MRI inputs: the flagship and the stratified box, both
+# Kahan-compensated as shipped ([implementation] compensated=yes)
+MRI_INI = "data/mhd_mri_3d.ini"
+STRAT_INI = "data/mhd_mri_3d_stratified.ini"
 # the card's peaks (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -258,11 +301,11 @@ def wrappers():
     from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
     from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
     from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
-    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs, shear_zslabs
 
     return {"mhd_step": mhd_step, "cfl_mhd": cfl_mhd, "hydro_step": hydro_step,
             "cfl_hydro": cfl_hydro, "shear_slabs": shear_slabs, "shear_border": shear_border,
-            "dissip_step": dissip_step}
+            "dissip_step": dissip_step, "shear_zslabs": shear_zslabs}
 
 
 @contextlib.contextmanager
@@ -278,7 +321,7 @@ def counted_main_path(name: str, expect: dict):
              (hydro_step, "hydro_3d_state_update"), (hydro_step, "hydro_3d_interior_update"),
              (cfl_hydro, "compute_inv_dt_hydro"), (mhd_step, "mhd_3d_shear_update"),
              (cfl_mhd, "inv_dt_mhd_shear"), (shear_border, "shear_slabs_twin"),
-             (shear_border, "shear_border_update"),
+             (shear_border, "shear_border_update"), (shear_border, "stratified_zslabs"),
              (dissip_step, "mhd_dissipation_periodic_update"),
              (dissip_step, "mhd_dissipation_shear_update"),
              (dissip_step, "kept_face_resistive_ct")]
@@ -443,7 +486,9 @@ def run_chunks(label: str, card: str, advance, S, t, n, chunk: int = 10,
     size = f"{n}^3" if isinstance(n, int) else n
     print(f"[{label}] main path {size} f32 on {card}: best chunk {best * 1e3 / chunk:.3f} ms/step, "
           f"{cells * chunk / best:.4e} cells/s (mean {mean * 1e3 / chunk:.3f} ms/step, "
-          f"chunks {[round(x * 1e3 / chunk, 3) for x in times]} ms/step)")
+          f"chunks {[round(x * 1e3 / chunk, 3) for x in times]} ms/step)"
+          + (f"; earlier version (PERF.md): {EARLIER_MS_PER_STEP[label]} ms/step"
+             if label in EARLIER_MS_PER_STEP else ""))
     return S, t, (float(t) - t_timed) / (3 * chunk)
 
 
@@ -457,10 +502,11 @@ def diffusion_numbers(label: str, params, dts: dict) -> None:
         for name, dt in dts.items()))
 
 
-def phase5(card: str, label: str = "5", nu: float = 0.0, eta: float = 0.0):
+def phase5(card: str, label: str = "5", nu: float = 0.0, eta: float = 0.0,
+           compensated: bool = False):
     """The periodic MHD main path, ideal or (phase 17) with viscosity nu and
-    resistivity eta; returns its launch counts and (params, S, t) at its
-    end."""
+    resistivity eta, plain or (phases 22, 22d) with the Kahan-compensated
+    state; returns its launch counts and (params, S, t) at its end."""
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries_concat
     from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
@@ -468,8 +514,8 @@ def phase5(card: str, label: str = "5", nu: float = 0.0, eta: float = 0.0):
 
     n, chunk = 256, 10
     params, S_init = setup(n, "float32")
-    params = params.replace(nu=nu, eta=eta)
     dt_first = float(dt_from_inv(params, cfl_mhd(params, S_init)))
+    params = params.replace(nu=nu, eta=eta, compensated=compensated)
     U = make_boundaries_concat(params, S_init, interior_only=True)
     del S_init
     mass0 = float(U[0, 3:-3, 3:-3, 3:-3].double().sum())
@@ -806,7 +852,7 @@ def phase11(mhd: dict, hydro: dict) -> dict:
 
     p_sub, S_sub, dt = mhd["bound_input"]
     S_sub = S_sub.double().contiguous()
-    ops["mhd_step"] = lib.ramses_mhd_step_ops(S_sub.data_ptr(), 32, 32, 32, param_block(p_sub),
+    ops["mhd_step"] = lib.ramses_mhd_step_ops(S_sub.data_ptr(), 0, 32, 32, 32, param_block(p_sub),
                                               dt) / 32 ** 3 * n
     ops["cfl_mhd"] = lib.ramses_cfl_mhd_ops(S_sub.data_ptr(), 32, 32, 32,
                                             param_block(p_sub)) / 32 ** 3 * n
@@ -851,11 +897,13 @@ def phase11(mhd: dict, hydro: dict) -> dict:
 
 
 def mri_setup(nx: int, ny: int, nz: int, dtype: str, coeffs: float | None = None,
-              nu: float = 0.0, eta: float = 0.0):
-    """data/mhd_mri_3d.ini at nx x ny x nz with compensated=no; with
-    ``coeffs``, omega0 = cIso = coeffs (the JAX package's shear tests use
-    1); viscosity nu and resistivity eta. Returns params, the config and the
-    loop state (S, kept) on the card."""
+              nu: float = 0.0, eta: float = 0.0, compensated: bool | None = False,
+              ini: str = MRI_INI):
+    """``ini`` (data/mhd_mri_3d.ini) at nx x ny x nz with compensated=no (or
+    yes; None: as the file says); with ``coeffs``, omega0 = cIso = coeffs
+    (the JAX package's shear tests use 1); viscosity nu and resistivity eta
+    (when not 0). Returns params, the config and the loop state (S, kept)
+    on the card (with zero carries when compensated)."""
     from ramsesgpu_tpu_torch.config.configmap import ConfigMap
     from ramsesgpu_tpu_torch.config.params import params_from_config
     from ramsesgpu_tpu_torch.convert import torch_dtype
@@ -863,16 +911,18 @@ def mri_setup(nx: int, ny: int, nz: int, dtype: str, coeffs: float | None = None
     from ramsesgpu_tpu_torch.problems import init_problem
     from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
 
-    config = ConfigMap(Path("data/mhd_mri_3d.ini"))
+    config = ConfigMap(Path(ini))
     for axis, n in (("nx", nx), ("ny", ny), ("nz", nz)):
         config.set_integer("mesh", axis, n)
     config.set_string("implementation", "dtype", dtype)
-    config.set_string("implementation", "compensated", "no")
+    if compensated is not None:
+        config.set_string("implementation", "compensated", "yes" if compensated else "no")
     if coeffs is not None:
         config.set_float("MHD", "omega0", coeffs)
         config.set_float("hydro", "cIso", coeffs)
-    config.set_float("hydro", "nu", nu)
-    config.set_float("MHD", "eta", eta)
+    if nu or eta:
+        config.set_float("hydro", "nu", nu)
+        config.set_float("MHD", "eta", eta)
     params = params_from_config(config)
     U0 = torch.from_numpy(init_problem(params, config))
     U = make_boundaries(params, U0.to(device="cuda", dtype=torch_dtype(params)))
@@ -996,17 +1046,29 @@ def div_b_shear(params, S: torch.Tensor, kept: torch.Tensor) -> float:
     return float(div.abs().max())
 
 
-def phase13(card: str, label: str = "13", nu: float = 0.0, eta: float = 0.0):
+def phase13(card: str, label: str = "13", nu: float = 0.0, eta: float = 0.0,
+            compensated: bool | None = False, ini: str = MRI_INI):
     """The MRI main path, ideal or (phase 18) with viscosity nu and
-    resistivity eta; returns its launch counts and its final state."""
+    resistivity eta; with ``compensated`` None and ``ini`` (phases 23, 24)
+    a shipped input exactly as shipped but for the mesh. Returns its launch
+    counts and its final state."""
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+    from ramsesgpu_tpu_torch.solvers.stratified import uses_stratified_z
     from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
 
     nx, ny, nz, chunk = 128, 256, 128, 10
-    params, config, (S0, kept0) = mri_setup(nx, ny, nz, "float32", nu=nu, eta=eta)
+    params, config, (S0, kept0) = mri_setup(nx, ny, nz, "float32", nu=nu, eta=eta,
+                                            compensated=compensated, ini=ini)
+    strat = uses_stratified_z(params)
+    print(f"[{label}] {ini} at {nx}x{ny}x{nz}: compensated={params.compensated}, slope_type "
+          f"{params.slope_type}, cIso {params.c_iso}, omega0 {params.omega0}, z faces "
+          f"{[b.name for b in params.boundary_types[4:]]}")
     dt_first = float(dt_from_inv(params, cfl_mhd(params, S0, kept=kept0)))
     mass0 = float(S0[0].double().sum())
+    v_max = float((S0[2:5] / S0[0]).abs().max())
+    print(f"[{label}] initial state: first dt {dt_first!r}, max |v| {v_max:.4e} "
+          f"({v_max / max(params.c_iso, 1e-30):.3g} cIso), min rho {float(S0[0].min()):.4e}")
     pack, advance, unpack = make_packed_advance_chain(params, "cuda", config)
     U = unpack((S0, kept0), torch.zeros((), device="cuda"))  # the ghosted state a Run holds
     del S0, kept0
@@ -1015,6 +1077,8 @@ def phase13(card: str, label: str = "13", nu: float = 0.0, eta: float = 0.0):
     expect = {"mhd_step": steps, "cfl_mhd": steps, "shear_slabs": steps, "shear_border": steps}
     if nu > 0 or eta > 0:
         expect.update(shear_slabs=2 * steps, dissip_step=steps)
+    if strat:
+        expect["shear_zslabs"] = steps
     with counted_main_path(label, expect) as launches:
         state = pack(U)
         del U
@@ -1027,22 +1091,25 @@ def phase13(card: str, label: str = "13", nu: float = 0.0, eta: float = 0.0):
             "next step": float(dt_from_inv(params, cfl_mhd(params, S, kept=kept)))})
     if not (bool(torch.isfinite(S).all()) and bool(torch.isfinite(kept).all())):
         raise AssertionError("non-finite state after the MRI main path")
-    b_over_dx = max(float(S[5:8].abs().max()), float(kept.abs().max()), 1e-30) / params.dx
-    divb = div_b_shear(params, S, kept)
+    face = kept[0] if params.compensated else kept
+    b_over_dx = max(float(S[5:8].abs().max()), float(face.abs().max()), 1e-30) / params.dx
+    divb = div_b_shear(params, S, face)
     mass = float(S[0].double().sum())
+    # the stratified box loses mass through its z faces (bounded in phase 24m)
+    mass_tol = MASS_STRAT_TOL if strat else 1e-5
     print(f"[{label}] {steps} steps at {nx}x{ny}x{nz} f32: t={float(t)!r}, max|divB|={divb:.3e} "
           f"(bound {1e-3 * b_over_dx:.3e}), mass rel {abs(mass - mass0) / abs(mass0):.3e} "
-          f"(1e-5), min rho {float(S[0].min()):.4e}")
+          f"({mass_tol:.0e}), min rho {float(S[0].min()):.4e}")
     if not divb < 1e-3 * b_over_dx:
         raise AssertionError("divB bound violated on the MRI path")
-    if not abs(mass - mass0) <= 1e-5 * abs(mass0) or not float(S[0].min()) > 0:
+    if not abs(mass - mass0) <= mass_tol * abs(mass0) or not float(S[0].min()) > 0:
         raise AssertionError("mass bound violated on the MRI path")
     U_out = unpack(state, t)
     if tuple(U_out.shape) != params.shape:
         raise AssertionError(f"unpacked shape {tuple(U_out.shape)} != {params.shape}")
     del U_out
     profile_chunk(f"{label}p", card, advance, state, t, chunk)
-    return launches, (params, S, kept, t)
+    return launches, (params, S, kept, t, config)
 
 
 def phase14(card: str, mri) -> dict:
@@ -1055,7 +1122,7 @@ def phase14(card: str, mri) -> dict:
     from ramsesgpu_tpu_torch.solvers.shear import shear_slabs as slabs_twin
     from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_shear
 
-    params, S, kept, t = mri
+    params, S, kept, t, _config = mri
     active = torch.ones((), dtype=torch.bool, device="cuda")
     inv = cfl_mhd(params, S, kept=kept)
     dt = dt_from_inv(params, inv)
@@ -1187,14 +1254,14 @@ def phase15(shear: dict) -> dict:
     scale = (ny * nz) / (by * bz)
     pb = param_block(blk)
     ops = {
-        "mhd_step_shear": lib.ramses_mhd_step_shear_ops(S.data_ptr(), slabs.data_ptr(), nx, by,
-                                                        bz, pb, dt) * scale,
+        "mhd_step_shear": lib.ramses_mhd_step_shear_ops(S.data_ptr(), slabs.data_ptr(), None, None,
+                                                        0, nx, by, bz, pb, dt) * scale,
         "cfl_mhd_shear": lib.ramses_cfl_mhd_shear_ops(S.data_ptr(), kept.data_ptr(), nx, by, bz,
                                                       pb) * scale,
     }
-    border = (ctypes.c_longlong * 2)()
-    lib.ramses_shear_border_ops(S.data_ptr(), kept.data_ptr(), planes.data_ptr(), nx, by, bz, pb,
-                                t, dt, border)
+    border = (ctypes.c_longlong * 3)()
+    lib.ramses_shear_border_ops(S.data_ptr(), kept.data_ptr(), planes.data_ptr(), 0, nx, by, bz,
+                                pb, t, dt, border)
     ops["shear_slabs"], ops["shear_border"] = border[0] * scale, border[1] * scale
     n, rows = nx * ny * nz, ny * nz
     nbytes = {"mhd_step_shear": 4 * (2 * 8 * n + 2 * 8 * 3 * rows + 5 * rows),
@@ -1227,14 +1294,14 @@ def increment_rel(got: torch.Tensor, want: torch.Tensor, start: torch.Tensor) ->
 
 
 def dissip_mri(nx: int, ny: int, nz: int, dtype: str, ciso: float, nu: float, eta: float,
-               noise: bool):
+               noise: bool, compensated: bool = False):
     """The MRI box with omega0 = 1 stepped with cIso = ciso (its state is
     the isothermal box's: with cIso = 0 the MRI init is a state at rest),
     viscosity nu and resistivity eta: params, S, kept and a t0 whose shear
     offset is 2.5 cells. ``noise``: 20 % noise on B and the kept face (the
     initial field varies in x only, so its resistive change of the kept face
     would vanish)."""
-    params, _config, (S, kept) = mri_setup(nx, ny, nz, dtype, 1.0)
+    params, _config, (S, kept) = mri_setup(nx, ny, nz, dtype, 1.0, compensated=compensated)
     params = params.replace(c_iso=ciso, nu=nu, eta=eta)
     if noise:
         gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1387,11 +1454,11 @@ def phase19(card: str, ot, mri) -> dict:
     out["plain_ms"][name] = time_ms(lambda: mhd_dissipation_periodic_update(params, S, dt), 3)
     blk = block_params(params, 32)
     S_sub = S[:, :32, :32, :32].double().contiguous().cpu()
-    ops = lib.ramses_dissip_step_ops(S_sub.data_ptr(), 32, 32, 32, param_block(blk),
+    ops = lib.ramses_dissip_step_ops(S_sub.data_ptr(), None, 0, 32, 32, 32, param_block(blk),
                                      float(dt)) / 32 ** 3 * (params.nx * params.ny * params.nz)
     rows = {name: (params, ops, dissip_bytes(params, False), size)}
 
-    params, S, kept, t = mri
+    params, S, kept, t, _config = mri
     name, size = "dissip_step_shear", f"{params.nx}x{params.ny}x{params.nz}"
     dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
     slabs = shear_slabs(params, S, kept, t, dt)
@@ -1427,8 +1494,8 @@ def phase19(card: str, ot, mri) -> dict:
     kept_sub = kept[:bz, :by].double().contiguous().cpu()
     slabs_sub = slabs_twin(blk, S_sub, kept_sub,
                            torch.tensor(float(t + dt), dtype=torch.float64)).contiguous()
-    ops = lib.ramses_dissip_step_shear_ops(S_sub.data_ptr(), slabs_sub.data_ptr(), params.nx, by,
-                                           bz, param_block(blk), float(dt))
+    ops = lib.ramses_dissip_step_ops(S_sub.data_ptr(), slabs_sub.data_ptr(), 0, params.nx, by, bz,
+                                     param_block(blk), float(dt))
     rows[name] = (params, ops * (params.ny * params.nz) / (by * bz), dissip_bytes(params, True),
                   size)
 
@@ -1446,6 +1513,574 @@ def phase19(card: str, ot, mri) -> dict:
         print(f"[19] {name}: kernel {out['ms'][name]:.4f} ms, twin {out['plain_ms'][name]:.3f} ms "
               f"({size} f32, {card})")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the Kahan-compensated state and the stratified MRI (phases 20-26)
+# ---------------------------------------------------------------------------
+# the stratified box's mass changes by its z-face outflow: phase 24m holds
+# the change against the outflow the step kernel's own z fluxes give, to
+# MASS_ACCOUNT_TOL of the mass; the main path's total change is bounded
+# by MASS_STRAT_TOL
+MASS_ACCOUNT_TOL = 1e-8
+MASS_STRAT_TOL = 1e-4
+
+
+def with_carry(S: torch.Tensor, seed: int) -> torch.Tensor:
+    """S ([8, ...]) with a non-zero Kahan carry after it ([16, ...]): a
+    random rounding-sized amount, eps |u| N(0, 1), per value."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    eps = torch.finfo(S.dtype).eps
+    C = eps * S * torch.randn(S.shape, generator=gen, device="cuda", dtype=S.dtype)
+    return torch.cat([S, C]).contiguous()
+
+
+def max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def comp_sum(S: torch.Tensor) -> torch.Tensor:
+    """The value a compensated state stands for, u - c, in f64."""
+    return S[:8].double() - S[8:].double()
+
+
+def check_equal(label: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    """Bitwise equality of a kernel output and its twin's (FMA-free code)."""
+    same = torch.equal(got, want)
+    extra = "" if same else (f" (rel {rel_l2(got, want):.3e}, max abs "
+                             f"{float((got.double() - want.double()).abs().max()):.3e})")
+    print(f"[{label}] bitwise equal: {same}{extra}")
+    if not same:
+        raise AssertionError(f"{label}: kernel and twin differ")
+
+
+def check_step_comp(tag: str, S, S_k, S_t, tol) -> None:
+    """One compensated step against the twin's on the same inputs: the
+    state and the compensated value u - c within ``tol``. The increment and
+    the carry against the twin's are printed: each carry is a rounding
+    error of its value, so it follows the increment's last bits, which the
+    kernel's FMA contractions in the stages before the update move (the
+    update stage is held on its own by check_update_stage; PERF.md)."""
+    check(f"{tag} state", rel_l2(S_k[:8], S_t[:8]), tol)
+    check(f"{tag} compensated value u - c", rel_l2(comp_sum(S_k), comp_sum(S_t)), tol)
+    print(f"[{tag}] against the twin's step: increment rel "
+          f"{rel_l2(S_k[:8] - S[:8], S_t[:8] - S[:8]):.3e}, carry rel {rel_l2(S_k[8:], S_t[8:]):.3e}")
+
+
+def check_update_stage(tag: str, params, S, S_k, scratch, dt, gz=None) -> None:
+    """The compensated update stage held on its own, right after the launch
+    that took S to S_k: the twin's update on the kernel's own fluxes and
+    EMFs (left in its stage buffer) gives bitwise the kernel's state and
+    carry (the stage is FMA-free, csrc/mhd_step.cu)."""
+    from ramsesgpu_tpu_torch.kernels.mhd_step import scratch_fluxes
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_apply_update
+
+    fluxes, emfs, x0, z0 = scratch_fluxes(params, scratch)
+    gzw = None if gz is None else gz[3 - z0:3 - z0 + fluxes[0].shape[1]].view(-1, 1, 1)
+    own = mhd_apply_update(params, S[:8], fluxes, emfs, dt, x0, z0, comp=S[8:], gz=gzw)
+    check_equal(f"{tag} update stage on its own fluxes: state", S_k[:8], own[:8])
+    check_equal(f"{tag} update stage on its own fluxes: carry", S_k[8:], own[8:])
+
+
+def strat_setup(nx: int, ny: int, nz: int, dtype: str, seed: int | None = None):
+    """data/mhd_mri_3d_stratified.ini at nx x ny x nz, as shipped
+    (compensated, slope_type 3): params, config, the loop state (S, kept)
+    (with ``seed``, non-zero carries) and g_z of each z row on the card."""
+    from ramsesgpu_tpu_torch.solvers.step import gravity_z
+
+    params, config, (S, kept) = mri_setup(nx, ny, nz, dtype, compensated=None, ini=STRAT_INI)
+    if seed is not None:
+        S, kept = comp_state(S, kept, seed)
+    return params, config, (S, kept), gravity_z(params, config, "cuda")
+
+
+def comp_state(S, kept, seed: int):
+    """A compensated loop state (S [16, ...], kept [2, nz, ny]) with
+    non-zero carries."""
+    S = with_carry(S[:8], seed)
+    kept = with_carry(kept[0][None], seed + 1).view(2, *kept.shape[1:])
+    return S, kept.contiguous()
+
+
+def phase20() -> None:
+    """The compensated kernels against their twins on the same inputs,
+    from non-zero carries: the step (periodic OT 64^3, MRI 64x128x64 with
+    the ini's coefficients), the border kernel (state, carries, kept face
+    and its carry bitwise), the dissipative sub-step (every DISSIP_COEFFS
+    set, both modes, bitwise), then 1 and 10 chained loop steps."""
+    from ramsesgpu_tpu_torch.kernels import fused_mhd3d, shear
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs
+    from ramsesgpu_tpu_torch.solvers.dissipation import (kept_face_resistive_ct,
+                                                          mhd_dissipation_periodic_update,
+                                                          mhd_dissipation_shear_update)
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import (mhd_3d_periodic_step,
+                                                         mhd_3d_periodic_update,
+                                                         mhd_3d_shear_step, mhd_3d_shear_update,
+                                                         shear_border_update)
+    from ramsesgpu_tpu_torch.solvers.shear import shear_slabs as slabs_twin
+    from ramsesgpu_tpu_torch.solvers.timestep import (dt_from_inv, inv_dt_mhd_periodic,
+                                                      inv_dt_mhd_shear)
+
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    for dtype in ("float32", "float64"):
+        tol1, tol10 = TOL_STEP1[dtype], TOL_STEP10[dtype]
+        # periodic Orszag-Tang
+        tag = f"20 comp OT {dtype} 64^3"
+        params, S8 = setup(64, dtype)
+        params = params.replace(compensated=True)
+        S = with_carry(S8, 20)
+        inv = cfl_mhd(params, S)
+        check_equal(f"{tag} cfl_mhd on the 16-channel state", inv,
+                    cfl_mhd(params.replace(compensated=False), S8))
+        dt = dt_from_inv(params, inv_dt_mhd_periodic(params, S8))
+        scratch = mhd_step.scratch(params, S)
+        S_k = mhd_step(params, S.clone(), dt, active, scratch)
+        check_update_stage(f"{tag} mhd_step", params, S, S_k, scratch, dt)
+        check_step_comp(f"{tag} mhd_step", S, S_k, mhd_3d_periodic_update(params, S, dt), tol1)
+        for cname, (nu, eta) in DISSIP_COEFFS.items():
+            p = params.replace(nu=nu, eta=eta)
+            got = dissip_step(p, S_k.clone(), dt, active, scratch)
+            check_equal(f"{tag} dissip_step {cname}", got,
+                        mhd_dissipation_periodic_update(p, S_k, dt))
+        for cname, (nu, eta) in (("ideal", (0.0, 0.0)),
+                                 ("nu=2e-3 eta=1e-3", DISSIP_COEFFS["nu=2e-3 eta=1e-3"])):
+            p = params.replace(nu=nu, eta=eta)
+            _pack, advance, _unpack = fused_mhd3d.make_advance_n(p, "cuda", packed_form=True)
+            t0 = torch.zeros((), dtype=S.dtype, device="cuda")
+            state, t_k, _k = advance(S.clone(), t0.clone(), 1)
+            twin, t_t = S, t0
+            for n in (1, 10):
+                if n == 10:
+                    state, t_k, _k = advance(state, t_k, 9)
+                for _ in range(1 if n == 1 else 9):
+                    dt_t = dt_from_inv(p, inv_dt_mhd_periodic(p, twin[:8]))
+                    twin, t_t = mhd_3d_periodic_step(p, twin, dt_t), t_t + dt_t
+                check(f"{tag} {cname} {n} loop steps", rel_l2(state[:8], twin[:8]),
+                      tol1 if n == 1 else tol10,
+                      f", u - c {rel_l2(comp_sum(state), comp_sum(twin)):.3e}, carry max abs "
+                      f"diff {max_diff(state[8:], twin[8:]):.3e}, t kernel {float(t_k)!r} twin "
+                      f"{float(t_t)!r}")
+        del scratch
+
+        # the MRI shearing box (the ini's coefficients), compensated as shipped
+        tag = f"20 comp MRI {dtype} 64x128x64"
+        params, _config, (S, kept) = mri_setup(64, 128, 64, dtype, compensated=True)
+        S, kept = comp_state(S, kept, 21)
+        t0 = shear_t0(params, S.dtype)
+        inv, inv_t = cfl_mhd(params, S, kept=kept), inv_dt_mhd_shear(params, S, kept[0])
+        check(f"{tag} cfl_mhd shear", abs(float(inv) - float(inv_t)) / float(inv_t), TOL_CFL[dtype])
+        dt = dt_from_inv(params, inv_t)
+        slabs_t = slabs_twin(params, S[:8], kept[0], t0 + dt)
+        check(f"{tag} shear_slabs", rel_l2(shear_slabs(params, S, kept, t0, dt), slabs_t), tol1)
+        planes = torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device="cuda")
+        scratch = mhd_step.scratch(params, S)
+        S1 = mhd_step(params, S.clone(), dt, active, scratch, shear=(slabs_t, planes))
+        S1_t, planes_t = mhd_3d_shear_update(params, S, slabs_t, dt)
+        check_update_stage(f"{tag} mhd_step shear", params, S, S1, scratch, dt)
+        check_step_comp(f"{tag} mhd_step shear", S, S1, S1_t, tol1)
+        check(f"{tag} the 5 x-face planes before the remap", rel_l2(planes, planes_t), tol1)
+        S2, kept2 = S1_t.clone(), kept.clone()
+        rem = shear_border(params, S2, kept2, planes_t, t0, dt, active)
+        S2_t, kept2_t, rem_t = shear_border_update(params, S1_t, kept, planes_t, t0, dt)
+        check_equal(f"{tag} shear_border state and carry", S2, S2_t)
+        check_equal(f"{tag} shear_border kept face and its carry", kept2, kept2_t)
+        check_equal(f"{tag} shear_border remapped planes", rem, rem_t)
+        del scratch
+        for ciso in (1.0, 0.0):
+            for cname, (nu, eta) in DISSIP_COEFFS.items():
+                p, Sd, keptd, td = dissip_mri(64, 128, 64, dtype, ciso, nu, eta, True, True)
+                Sd, keptd = comp_state(Sd, keptd, 22)
+                dtd = dt_from_inv(p, inv_dt_mhd_shear(p, Sd, keptd[0]))
+                slabs = slabs_twin(p, Sd[:8], keptd[0], td + dtd)
+                got, kept_got = Sd.clone(), keptd.clone()
+                dissip_step(p, got, dtd, active, dissip_step.scratch(p, Sd),
+                            shear=(slabs, kept_got))
+                want, eypl, ezpl = mhd_dissipation_shear_update(p, Sd, slabs, dtd)
+                kept_want = (kept_face_resistive_ct(p, torch.stack([slabs[1, 5, ..., 0], keptd[1]]),
+                                                    eypl, ezpl, dtd) if eta > 0 else keptd)
+                label = f"20 comp dissip_step shear cIso={ciso} {dtype} {cname}"
+                check_equal(f"{label} state and carry", got, want)
+                check_equal(f"{label} kept face and its carry", kept_got, kept_want)
+        _pack, advance, _unpack = shear.make_advance_n(params, "cuda", packed_form=True)
+        state, t_k, _k = advance((S.clone(), kept.clone()), t0.clone(), 1)
+        twin, t_t = (S, kept), t0
+        for n in (1, 10):
+            if n == 10:
+                state, t_k, _k = advance(state, t_k, 9)
+            for _ in range(1 if n == 1 else 9):
+                dt_t = dt_from_inv(params, inv_dt_mhd_shear(params, twin[0], twin[1][0]))
+                twin, t_t = mhd_3d_shear_step(params, *twin, t_t, dt_t), t_t + dt_t
+            check(f"{tag} {n} loop steps", state_rel((state[0][:8], state[1][0]),
+                                                     (twin[0][:8], twin[1][0])),
+                  tol1 if n == 1 else tol10,
+                  f", u - c {rel_l2(comp_sum(state[0]), comp_sum(twin[0])):.3e}, kept carry max abs "
+                  f"diff {max_diff(state[1][1], twin[1][1]):.3e}, t kernel {float(t_k)!r} twin "
+                  f"{float(t_t)!r}")
+
+
+def phase21() -> None:
+    """The stratified kernels against their twins on the same inputs, at
+    64x128x64 with the shipped ini's coefficients (compensated, slope_type
+    3), f32 and f64, from non-zero carries: the CFL with the stratified top
+    row, the x slabs, the z slabs (bitwise), the step (its update stage on
+    its own fluxes bitwise), the border, then 1 and 10 chained loop steps."""
+    from ramsesgpu_tpu_torch.kernels import shear
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import (mhd_3d_shear_step, mhd_3d_shear_update,
+                                                         shear_border_update)
+    from ramsesgpu_tpu_torch.solvers.shear import shear_slabs as slabs_twin
+    from ramsesgpu_tpu_torch.solvers.shear import stratified_zslabs
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_shear
+
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    for dtype in ("float32", "float64"):
+        tol1, tol10 = TOL_STEP1[dtype], TOL_STEP10[dtype]
+        tag = f"21 stratified MRI {dtype} 64x128x64"
+        params, _config, (S, kept), gz = strat_setup(64, 128, 64, dtype, seed=23)
+        t0 = shear_t0(params, S.dtype)
+        inv, inv_t = cfl_mhd(params, S, kept=kept), inv_dt_mhd_shear(params, S, kept[0])
+        check(f"{tag} cfl_mhd shear", abs(float(inv) - float(inv_t)) / float(inv_t), TOL_CFL[dtype])
+        dt = dt_from_inv(params, inv_t)
+        slabs_t = slabs_twin(params, S[:8], kept[0], t0 + dt)
+        check(f"{tag} shear_slabs", rel_l2(shear_slabs(params, S, kept, t0, dt), slabs_t), tol1)
+        zslabs_t = stratified_zslabs(params, S[:8], slabs_t)
+        check_equal(f"{tag} shear_zslabs", shear_zslabs(params, S, slabs_t), zslabs_t)
+        planes = torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device="cuda")
+        scratch = mhd_step.scratch(params, S)
+        S1 = mhd_step(params, S.clone(), dt, active, scratch, shear=(slabs_t, planes, zslabs_t, gz))
+        S1_t, planes_t = mhd_3d_shear_update(params, S, slabs_t, dt, zslabs_t, gz)
+        check_update_stage(f"{tag} mhd_step", params, S, S1, scratch, dt, gz)
+        check_step_comp(f"{tag} mhd_step", S, S1, S1_t, tol1)
+        check(f"{tag} the 5 x-face planes before the remap", rel_l2(planes, planes_t), tol1)
+        del scratch
+        S2, kept2 = S1_t.clone(), kept.clone()
+        rem = shear_border(params, S2, kept2, planes_t, t0, dt, active)
+        S2_t, kept2_t, rem_t = shear_border_update(params, S1_t, kept, planes_t, t0, dt)
+        check_equal(f"{tag} shear_border state and carry", S2, S2_t)
+        check_equal(f"{tag} shear_border kept face and its carry", kept2, kept2_t)
+        check_equal(f"{tag} shear_border remapped planes", rem, rem_t)
+        _pack, advance, _unpack = shear.make_advance_n(params, "cuda", packed_form=True, gz=gz)
+        state, t_k, _k = advance((S.clone(), kept.clone()), t0.clone(), 1)
+        twin, t_t = (S, kept), t0
+        for n in (1, 10):
+            if n == 10:
+                state, t_k, _k = advance(state, t_k, 9)
+            for _ in range(1 if n == 1 else 9):
+                dt_t = dt_from_inv(params, inv_dt_mhd_shear(params, twin[0], twin[1][0]))
+                twin, t_t = mhd_3d_shear_step(params, *twin, t_t, dt_t, gz), t_t + dt_t
+            check(f"{tag} {n} loop steps", state_rel((state[0][:8], state[1][0]),
+                                                     (twin[0][:8], twin[1][0])),
+                  tol1 if n == 1 else tol10,
+                  f", u - c {rel_l2(comp_sum(state[0]), comp_sum(twin[0])):.3e}, t kernel "
+                  f"{float(t_k)!r} twin {float(t_t)!r}")
+
+
+def phase24m(card: str, strat) -> None:
+    """Mass accounting of the stratified box: 5 steps of the loop's kernels
+    from the main path's end state, each step's mass change (f64 sums)
+    against the outflow through the z faces that the step kernel's own z
+    density fluxes give, dt/dz (sum F_z(z=0) - sum F_z(z=nz)) (the x faces'
+    remapped fluxes cancel; y is periodic)."""
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step, scratch_fluxes
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.solvers.step import gravity_z
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
+
+    params, S, kept, t, config = strat
+    S, kept = S.clone(), kept.clone()
+    gz = gravity_z(params, config, "cuda")
+    scratch = mhd_step.scratch(params, S)
+    planes = torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device="cuda")
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    mass = float(S[0].double().sum())
+    mass0, predicted, worst = mass, 0.0, 0.0
+    for _ in range(5):
+        dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
+        slabs = shear_slabs(params, S, kept, t, dt)
+        mhd_step(params, S, dt, active, scratch,
+                 shear=(slabs, planes, shear_zslabs(params, S, slabs), gz))
+        shear_border(params, S, kept, planes, t, dt, active)
+        t = t + dt
+        fluxes, _emfs, x0, z0 = scratch_fluxes(params, scratch)
+        fz = fluxes[2][0][:, :, x0:x0 + params.nx].double()
+        gain = float(dt) / params.dz * float(fz[z0].sum() - fz[z0 + params.nz].sum())
+        new = float(S[0].double().sum())
+        worst = max(worst, abs((new - mass) - gain) / mass0)
+        predicted += gain
+        mass = new
+    print(f"[24m] stratified mass over 5 steps at {params.nx}x{params.ny}x{params.nz} f32: change "
+          f"{mass - mass0:.6e} ({(mass - mass0) / mass0:.3e} of the mass), z-face outflow from the "
+          f"kernel's fluxes {predicted:.6e}; worst step |change - outflow| / mass {worst:.3e} "
+          f"(tol {MASS_ACCOUNT_TOL:.0e})")
+    if not worst <= MASS_ACCOUNT_TOL:
+        raise AssertionError("the stratified box's mass change is not its z-face outflow")
+
+
+def bound(label: str, name: str, nbytes: float, ops: float, size: str, n: int) -> tuple:
+    """(bound_ms, bound_by) of one kernel call: max(bytes / memory rate,
+    operations / f32 rate), printed."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    out = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    print(f"[{label}] {name} at {size} f32: {nbytes / n:.1f} B/cell, {nbytes / 1e9:.4f} GB -> "
+          f"{t_bytes:.5f} ms; {ops / n:.1f} flop/cell, {ops / 1e9:.4f} GFLOP -> {t_ops:.5f} ms: "
+          f"bound {out[0]:.5f} ms by {out[1]}")
+    return out
+
+
+def phase25(card: str, ot_comp, ot_comp_d, mri_comp, strat) -> dict:
+    """The compensated and stratified kernel modes at full width, on the end
+    states of paths 22 (compensated OT, 256^3), 22d (its dissipative
+    variant), 23 (the flagship MRI as shipped) and 24 (the stratified MRI
+    as shipped, 128x256x128): each against its twin on the same inputs
+    (the update stage on its own fluxes bitwise, the FMA-free kernels
+    bitwise), its time against the twin's, and its bound: max(bytes /
+    memory rate, the operations the counting build counts on a block of
+    the state, scaled / f32 rate)."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.solvers.dissipation import mhd_dissipation_periodic_update
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import (mhd_3d_periodic_update,
+                                                         mhd_3d_shear_update, shear_border_update)
+    from ramsesgpu_tpu_torch.solvers.shear import shear_slabs as slabs_twin
+    from ramsesgpu_tpu_torch.solvers.shear import stratified_zslabs
+    from ramsesgpu_tpu_torch.solvers.step import gravity_z
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
+
+    lib = load_library("count")
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    out = {"ms": {}, "plain_ms": {}, "max_abs_err": {}, "bounds": {}}
+    tol = TOL_STEP1["float32"]
+
+    # the periodic step on 16 channels
+    params, S, _t = ot_comp
+    n = params.nx * params.ny * params.nz
+    dt = dt_from_inv(params, cfl_mhd(params, S))
+    scratch = mhd_step.scratch(params, S)
+    S_k = mhd_step(params, S.clone(), dt, active, scratch)
+    check_update_stage("25 mhd_step_comp 256^3 f32", params, S, S_k, scratch, dt)
+    Sw = S.clone()
+    out["ms"]["mhd_step_comp"] = time_ms(lambda: mhd_step(params, Sw, dt, active, scratch), 10)
+    del Sw, scratch
+    torch.cuda.empty_cache()
+    S_t = mhd_3d_periodic_update(params, S, dt)
+    check_step_comp("25 mhd_step_comp 256^3 f32", S, S_k, S_t, tol)
+    out["max_abs_err"]["mhd_step_comp"] = float((S_k[:8] - S_t[:8]).abs().max())
+    del S_k, S_t
+    torch.cuda.empty_cache()
+    out["plain_ms"]["mhd_step_comp"] = time_ms(lambda: mhd_3d_periodic_update(params, S, dt), 3)
+    S_sub = S[:, :32, :32, :32].double().contiguous().cpu()
+    ops = lib.ramses_mhd_step_ops(S_sub.data_ptr(), 1, 32, 32, 32,
+                                    param_block(block_params(params, 32)), float(dt)) / 32 ** 3 * n
+    out["bounds"]["mhd_step_comp"] = bound("25", "mhd_step_comp", 2 * 16 * 4 * n, ops, "256^3", n)
+    print(f"[25] mhd_step_comp: kernel {out['ms']['mhd_step_comp']:.3f} ms, twin "
+          f"{out['plain_ms']['mhd_step_comp']:.3f} ms (256^3 f32, {card})")
+    # the dissipative sub-step on 16 channels (FMA-free: bitwise)
+    params, S, _t = ot_comp_d
+    dt = dt_from_inv(params, cfl_mhd(params, S))
+    scratch = dissip_step.scratch(params, S)
+    got = dissip_step(params, S.clone(), dt, active, scratch)
+    Sw = S.clone()
+    out["ms"]["dissip_step_comp"] = time_ms(lambda: dissip_step(params, Sw, dt, active, scratch), 10)
+    del Sw, scratch
+    torch.cuda.empty_cache()
+    want = mhd_dissipation_periodic_update(params, S, dt)
+    check_equal("25 dissip_step_comp 256^3 f32 state and carry", got, want)
+    out["max_abs_err"]["dissip_step_comp"] = float((got - want).abs().max())
+    del got, want
+    torch.cuda.empty_cache()
+    out["plain_ms"]["dissip_step_comp"] = time_ms(
+        lambda: mhd_dissipation_periodic_update(params, S, dt), 3)
+    S_sub = S[:, :32, :32, :32].double().contiguous().cpu()
+    ops = lib.ramses_dissip_step_ops(S_sub.data_ptr(), None, 1, 32, 32, 32,
+                                       param_block(block_params(params, 32)), float(dt))
+    # the plain sub-step's bytes, and each changed channel's carry read and written
+    changed = 3 * (params.nu > 0) + 3 * (params.eta > 0) + (params.c_iso <= 0)
+    nbytes = dissip_bytes(params, False) + 4 * 2 * changed * n
+    out["bounds"]["dissip_step_comp"] = bound("25", "dissip_step_comp", nbytes,
+                                              ops / 32 ** 3 * n, "256^3", n)
+    print(f"[25] dissip_step_comp: kernel {out['ms']['dissip_step_comp']:.3f} ms, twin "
+          f"{out['plain_ms']['dissip_step_comp']:.3f} ms (256^3 f32, {card})")
+
+    # the shear step on 16 channels and the compensated border (the flagship)
+    params, S, kept, t, _config = mri_comp
+    nx, ny, nz = params.nx, params.ny, params.nz
+    n, rows, size = nx * ny * nz, ny * nz, f"{nx}x{ny}x{nz}"
+    dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
+    slabs = shear_slabs(params, S, kept, t, dt)
+    scratch = mhd_step.scratch(params, S)
+    planes = torch.zeros((5, nz, ny), dtype=S.dtype, device="cuda")
+    S1 = mhd_step(params, S.clone(), dt, active, scratch, shear=(slabs, planes))
+    check_update_stage(f"25 mhd_step_shear_comp {size} f32", params, S, S1, scratch, dt)
+    S1_t, planes_t = mhd_3d_shear_update(params, S, slabs, dt)
+    check_step_comp(f"25 mhd_step_shear_comp {size} f32", S, S1, S1_t, tol)
+    out["max_abs_err"]["mhd_step_shear_comp"] = float((S1[:8] - S1_t[:8]).abs().max())
+    S2, kept2 = S1.clone(), kept.clone()
+    rem = shear_border(params, S2, kept2, planes, t, dt, active)
+    S2_t, kept2_t, rem_t = shear_border_update(params, S1, kept, planes, t, dt)
+    check_equal(f"25 shear_border_comp {size} f32 state and carry", S2, S2_t)
+    check_equal(f"25 shear_border_comp {size} f32 kept face and its carry", kept2, kept2_t)
+    out["max_abs_err"]["shear_border_comp"] = max(float((S2 - S2_t).abs().max()),
+                                                  float((kept2 - kept2_t).abs().max()))
+    del S1_t, S2_t, kept2_t, rem_t
+    Sw, kw, planes_w, rem_w = S.clone(), kept.clone(), planes.clone(), rem.clone()
+    out["ms"]["mhd_step_shear_comp"] = time_ms(
+        lambda: mhd_step(params, Sw, dt, active, scratch, shear=(slabs, planes_w)), 10)
+    out["ms"]["shear_border_comp"] = time_ms(
+        lambda: shear_border(params, Sw, kw, planes_w, t, dt, active, rem_w), 50)
+    del Sw, kw, planes_w, rem_w, scratch
+    torch.cuda.empty_cache()
+    out["plain_ms"]["mhd_step_shear_comp"] = time_ms(
+        lambda: mhd_3d_shear_update(params, S, slabs, dt), 3)
+    out["plain_ms"]["shear_border_comp"] = time_ms(
+        lambda: shear_border_update(params, S1, kept, planes, t, dt), 10)
+    bz, by = 8, 32
+    blk = params.replace(nz=bz, zmax=params.zmin + bz * params.dz, ny=by,
+                         ymax=params.ymin + by * params.dy)
+    Sb = S[:, :bz, :by].double().contiguous().cpu()
+    kb = kept[:, :bz, :by].double().contiguous().cpu()
+    pb = planes[:, :bz, :by].double().contiguous().cpu()
+    sb = slabs_twin(blk, Sb[:8], kb[0], torch.tensor(float(t + dt), dtype=torch.float64)).contiguous()
+    scale = rows / (by * bz)
+    ops = lib.ramses_mhd_step_shear_ops(Sb.data_ptr(), sb.data_ptr(), None, None, 1, nx, by, bz,
+                                          param_block(blk), float(dt)) * scale
+    out["bounds"]["mhd_step_shear_comp"] = bound(
+        "25", "mhd_step_shear_comp", 4 * (2 * 16 * n + 2 * 8 * 3 * rows + 5 * rows), ops, size, n)
+    counts = (ctypes.c_longlong * 3)()
+    lib.ramses_shear_border_ops(Sb.data_ptr(), kb.data_ptr(), pb.data_ptr(), 1, nx, by, bz,
+                                param_block(blk), float(t), float(dt), counts)
+    # planes 5 read, remapped 4 written; 5 border values, 2 kept values and
+    # their carries read and written
+    out["bounds"]["shear_border_comp"] = bound(
+        "25", "shear_border_comp", 4 * rows * (5 + 4 + 2 * 2 * 7), counts[1] * scale, size, n)
+    for name in ("mhd_step_shear_comp", "shear_border_comp"):
+        print(f"[25] {name}: kernel {out['ms'][name]:.4f} ms, twin {out['plain_ms'][name]:.3f} ms "
+              f"({size} f32, {card})")
+    del S1, slabs
+    torch.cuda.empty_cache()
+
+    # the stratified step and the z slabs (the stratified box as shipped)
+    params, S, kept, t, config = strat
+    gz = gravity_z(params, config, "cuda")
+    dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
+    slabs = shear_slabs(params, S, kept, t, dt)
+    zslabs = shear_zslabs(params, S, slabs)
+    zslabs_t = stratified_zslabs(params, S[:8], slabs)
+    check_equal(f"25 shear_zslabs {size} f32", zslabs, zslabs_t)
+    out["max_abs_err"]["shear_zslabs"] = float((zslabs - zslabs_t).abs().max())
+    scratch = mhd_step.scratch(params, S)
+    S1 = mhd_step(params, S.clone(), dt, active, scratch, shear=(slabs, planes, zslabs, gz))
+    check_update_stage(f"25 mhd_step_strat {size} f32", params, S, S1, scratch, dt, gz)
+    S1_t, _planes_t = mhd_3d_shear_update(params, S, slabs, dt, zslabs, gz)
+    check_step_comp(f"25 mhd_step_strat {size} f32", S, S1, S1_t, tol)
+    out["max_abs_err"]["mhd_step_strat"] = float((S1[:8] - S1_t[:8]).abs().max())
+    del S1, S1_t, _planes_t
+    Sw, zw = S.clone(), zslabs.clone()
+    out["ms"]["mhd_step_strat"] = time_ms(
+        lambda: mhd_step(params, Sw, dt, active, scratch, shear=(slabs, planes, zslabs, gz)), 10)
+    out["ms"]["shear_zslabs"] = time_ms(lambda: shear_zslabs(params, S, slabs, out=zw), 50)
+    del Sw, zw, scratch
+    torch.cuda.empty_cache()
+    out["plain_ms"]["mhd_step_strat"] = time_ms(
+        lambda: mhd_3d_shear_update(params, S, slabs, dt, zslabs, gz), 3)
+    out["plain_ms"]["shear_zslabs"] = time_ms(lambda: stratified_zslabs(params, S[:8], slabs), 10)
+    # counted on a full-z block of 8 y rows: the stratified work depends on nz
+    by = 8
+    blk = params.replace(ny=by, ymax=params.ymin + by * params.dy)
+    Sb = S[:, :, :by].double().contiguous().cpu()
+    kb = kept[:, :, :by].double().contiguous().cpu()
+    pb = planes[:, :, :by].double().contiguous().cpu()
+    sb = slabs_twin(blk, Sb[:8], kb[0], torch.tensor(float(t + dt), dtype=torch.float64)).contiguous()
+    zb = stratified_zslabs(blk, Sb[:8], sb).contiguous()
+    gzb = gz.double().cpu().contiguous()
+    scale = ny / by
+    ops = lib.ramses_mhd_step_shear_ops(Sb.data_ptr(), sb.data_ptr(), zb.data_ptr(), gzb.data_ptr(),
+                                          1, nx, by, nz, param_block(blk), float(dt)) * scale
+    zvals = 2 * 8 * 3 * ny * (nx + 6)
+    out["bounds"]["mhd_step_strat"] = bound(
+        "25", "mhd_step_strat", 4 * (2 * 16 * n + 2 * 8 * 3 * rows + 5 * rows + zvals + nz + 6),
+        ops, size, n)
+    lib.ramses_shear_border_ops(Sb.data_ptr(), kb.data_ptr(), pb.data_ptr(), 1, nx, by, nz,
+                                param_block(blk), float(t), float(dt), counts)
+    # the two source rows' six channels it reads (of the interior and of the
+    # x slabs), the three ghost rows of eight it writes, per side
+    out["bounds"]["shear_zslabs"] = bound(
+        "25", "shear_zslabs", 4 * 2 * (6 + 24) * ny * (nx + 6), counts[2] * scale, size, n)
+    for name in ("mhd_step_strat", "shear_zslabs"):
+        print(f"[25] {name}: kernel {out['ms'][name]:.4f} ms, twin {out['plain_ms'][name]:.3f} ms "
+              f"({size} f32, {card})")
+    return out
+
+
+def phase26(card: str) -> None:
+    """Long horizon: 500 steps of Orszag-Tang at 64^3 in f64, plain f32
+    and compensated f32, all on the same dt sequence (each step's dt from
+    the f64 state's CFL, rounded to f32), and the relative L2 of each f32
+    run against f64: tests/test_compensated.py's criterion err_comp < 0.6
+    err_plain; the same for the MRI at 64x128x64 (the ini's coefficients),
+    printed only."""
+    from ramsesgpu_tpu_torch.kernels import fused_mhd3d
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.shear import bind_step
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
+
+    steps = 500
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    for case in ("OT 64^3", "MRI 64x128x64"):
+        runs = {}
+        if case.startswith("OT"):
+            p64, S64 = setup(64, "float64")
+            p32 = setup(64, "float32")[0]
+            states = {"f64": S64, "f32": S64.float().contiguous(),
+                      "f32 comp": torch.cat([S64.float(), torch.zeros_like(S64.float())])}
+            params = {"f64": p64, "f32": p32, "f32 comp": p32.replace(compensated=True)}
+            steps_of = {k: fused_mhd3d.bind_periodic_step(params[k], states[k]) for k in states}
+            cfl = lambda: cfl_mhd(p64, states["f64"])
+            t = {k: torch.zeros((), dtype=states[k].dtype, device="cuda") for k in states}
+        else:
+            p64, _c, (S64, k64) = mri_setup(64, 128, 64, "float64")
+            p32 = p64.replace(dtype="float32")
+            S32, k32 = S64.float().contiguous(), k64.float().contiguous()
+            states = {"f64": (S64, k64), "f32": (S32, k32),
+                      "f32 comp": (torch.cat([S32, torch.zeros_like(S32)]),
+                                   torch.stack([k32, torch.zeros_like(k32)]))}
+            params = {"f64": p64, "f32": p32, "f32 comp": p32.replace(compensated=True)}
+            steps_of = {k: bind_step(params[k], states[k]) for k in states}
+            cfl = lambda: cfl_mhd(p64, states["f64"][0], kept=states["f64"][1])
+            t0 = shear_t0(p64, torch.float64)
+            t = {k: t0.to(states[k][0].dtype) for k in states}
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(steps):
+            dt32 = dt_from_inv(p64, cfl()).float()
+            for k, st in states.items():
+                dt = dt32 if k != "f64" else dt32.double()
+                steps_of[k](st, dt, active, t[k])
+                t[k] = t[k] + dt
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        ref = states["f64"][0] if isinstance(states["f64"], tuple) else states["f64"]
+
+        def err(k):
+            S = states[k][0] if isinstance(states[k], tuple) else states[k]
+            return rel_l2(S[:8], ref)
+
+        err_plain, err_comp = err("f32"), err("f32 comp")
+        print(f"[26] {case}, {steps} steps on one dt sequence (t = {float(t['f64']):.6g}, {wall:.1f} s "
+              f"on {card}): rel L2 against f64: plain f32 {err_plain:.4e}, compensated f32 "
+              f"{err_comp:.4e}, ratio {err_comp / err_plain:.3f}"
+              + (" (criterion < 0.6)" if case.startswith("OT") else " (not asserted)"))
+        if case.startswith("OT") and not err_comp < 0.6 * err_plain:
+            raise AssertionError("compensated f32 is not closer to f64 than plain f32 by 40 %")
 
 
 def profile_chunk(label: str, card: str, advance, S: torch.Tensor, t: torch.Tensor,
@@ -1478,30 +2113,75 @@ def profile_chunk(label: str, card: str, advance, S: torch.Tensor, t: torch.Tens
 
 
 def main() -> int:
+    start = time.perf_counter()
+
+    def lap(phase: str) -> None:
+        print(f"[time] phase {phase} done at {time.perf_counter() - start:.1f} s", flush=True)
+
     card = phase1()
+    lap("1")
     phase2()
+    lap("2")
     phase3()
+    lap("3")
     twin_peak = phase4()
+    lap("4")
     launches, _ot = phase5(card)
+    lap("5")
     del _ot
     timing = phase6(card, twin_peak)
+    lap("6")
     phase7()
+    lap("7")
     hydro_twin_peak = phase8()
+    lap("8")
     hydro_launches, implode = phase9(card)
+    lap("9")
     hydro_timing = phase10(card, implode, hydro_twin_peak)
+    lap("10")
     del implode
     bounds = phase11(timing, hydro_timing)
+    lap("11")
     phase12()
+    lap("12")
     shear_launches, mri = phase13(card)
+    lap("13")
     shear_timing = phase14(card, mri)
+    lap("14")
     del mri
     bounds.update(phase15(shear_timing))
+    lap("15")
     phase16()
+    lap("16")
     dissip_launches, ot_dissip = phase5(card, "17", *DISSIP_COEFFS["nu=2e-3 eta=1e-3"])
+    lap("17")
     mri_dissip_launches, mri_dissip = phase13(card, "18", *DISSIP_COEFFS["nu=4e-5 eta=1e-5"])
+    lap("18")
     dissip_timing = phase19(card, ot_dissip, mri_dissip)
+    lap("19")
     del ot_dissip, mri_dissip
     bounds.update(dissip_timing["bounds"])
+    phase20()
+    lap("20")
+    phase21()
+    lap("21")
+    comp_launches, ot_comp = phase5(card, "22", compensated=True)
+    lap("22")
+    comp_d_launches, ot_comp_d = phase5(card, "22d", *DISSIP_COEFFS["nu=2e-3 eta=1e-3"],
+                                        compensated=True)
+    lap("22d")
+    flagship_launches, mri_comp = phase13(card, "23", compensated=None)
+    lap("23")
+    strat_launches, strat = phase13(card, "24", compensated=None, ini=STRAT_INI)
+    lap("24")
+    phase24m(card, strat)
+    lap("24m")
+    new_timing = phase25(card, ot_comp, ot_comp_d, mri_comp, strat)
+    lap("25")
+    del ot_comp, ot_comp_d, mri_comp, strat
+    bounds.update(new_timing["bounds"])
+    phase26(card)
+    lap("26")
     if "jax" in sys.modules or any(m.startswith("ramsesgpu_tpu.") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
 
@@ -1511,9 +2191,15 @@ def main() -> int:
                 "cfl_mhd_shear": shear_launches["cfl_mhd"],
                 **{k: shear_launches[k] for k in ("shear_slabs", "shear_border")},
                 "dissip_step": dissip_launches["dissip_step"],
-                "dissip_step_shear": mri_dissip_launches["dissip_step"]}
+                "dissip_step_shear": mri_dissip_launches["dissip_step"],
+                "mhd_step_comp": comp_launches["mhd_step"],
+                "dissip_step_comp": comp_d_launches["dissip_step"],
+                "mhd_step_shear_comp": flagship_launches["mhd_step"],
+                "shear_border_comp": flagship_launches["shear_border"],
+                "mhd_step_strat": strat_launches["mhd_step"],
+                "shear_zslabs": strat_launches["shear_zslabs"]}
     measured = {key: {**timing[key], **hydro_timing[key], **shear_timing[key],
-                      **dissip_timing[key]}
+                      **dissip_timing[key], **new_timing[key]}
                 for key in ("ms", "plain_ms", "max_abs_err")}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

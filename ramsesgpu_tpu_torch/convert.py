@@ -20,6 +20,14 @@ for 3D hydro):
   find neighbours outside it by index rules (kernels/fused_mhd3d.py,
   kernels/packed_bc.py); a shearing-box run carries the pair (S, kept)
   (kernels/shear.py).
+
+A Kahan-compensated run ([implementation] compensated) carries 2 * nvar
+channels in both packages, the state and then its carry
+(ramsesgpu_tpu/pallas/fused_mhd3d.py:247-259), and a shearing box's kept
+face becomes [2, nz, ny], the face and its carry
+(pallas/shear_packed.py:1210 pack_shear). A stratified shear carry
+(``pack_shear(..., stratified=True)``) holds the stratified z ghost planes
+of the interior in its z bands and zero carries there.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import torch
 
 from .config.params import RunParams
 from .solvers.boundary import make_boundaries_concat
+from .solvers.stratified import stratified_ghost_slabs
 
 YB = 8  # the JAX packed layout's y ghost band (ramsesgpu_tpu/pallas/packed_io.py:30)
 
@@ -45,10 +54,12 @@ def state_from_jax(params: RunParams, U_np: np.ndarray, device) -> torch.Tensor:
 
 
 def packed_from_jax(params: RunParams, P_np: np.ndarray, device) -> torch.Tensor:
-    """The JAX packed loop state -> the port's loop state on ``device``."""
+    """The JAX packed loop state -> the port's loop state on ``device``
+    (its z and y bands, wraps or stratified ghosts, are dropped)."""
     g = params.ghost_width
     P = np.asarray(P_np)
-    want = (params.nb_var, params.nz + 2 * g, params.ny + 2 * YB, params.nx)
+    nvar = 2 * params.nb_var if params.compensated else params.nb_var  # with the carry
+    want = (nvar, params.nz + 2 * g, params.ny + 2 * YB, params.nx)
     if P.shape != want:
         raise ValueError(f"packed state shape {P.shape} != {want}")
     S = P[:, g : g + params.nz, YB : YB + params.ny, :]
@@ -57,28 +68,44 @@ def packed_from_jax(params: RunParams, P_np: np.ndarray, device) -> torch.Tensor
 
 def packed_to_jax(params: RunParams, S: torch.Tensor) -> np.ndarray:
     """The port's loop state -> the JAX packed loop state (numpy), equal to
-    ramsesgpu_tpu.pallas.packed_io.pack_state of the same interior."""
+    ramsesgpu_tpu.pallas.packed_io.pack_state of the same interior (all
+    channels, carries included, wrap-padded)."""
     g = params.ghost_width
     interior = S.detach().cpu().numpy()
     return np.pad(interior, ((0, 0), (g, g), (YB, YB), (0, 0)), mode="wrap")
 
 
 def shear_carry_from_jax(params: RunParams, carry, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The JAX shear carry (P, kept_bx) -> the port's loop state (S, kept)."""
+    """The JAX shear carry (P, kept_bx) -> the port's loop state (S, kept);
+    plain, compensated or stratified."""
     P, kept = carry
     kept = np.asarray(kept)
-    if kept.shape != (params.nz, params.ny):
-        raise ValueError(f"kept face shape {kept.shape} != {(params.nz, params.ny)}")
+    want = ((2,) if params.compensated else ()) + (params.nz, params.ny)
+    if kept.shape != want:
+        raise ValueError(f"kept face shape {kept.shape} != {want}")
     return (packed_from_jax(params, P, device),
             torch.tensor(kept, dtype=torch_dtype(params), device=device))
 
 
-def shear_carry_to_jax(params: RunParams, state) -> tuple[np.ndarray, np.ndarray]:
+def shear_carry_to_jax(params: RunParams, state,
+                       stratified: bool = False) -> tuple[np.ndarray, np.ndarray]:
     """The port's loop state (S, kept) -> the JAX shear carry (numpy),
-    equal to ramsesgpu_tpu.pallas.shear_packed.pack_shear of a ghosted
-    state with that interior and kept face."""
+    equal to ramsesgpu_tpu.pallas.shear_packed.pack_shear (with
+    ``stratified``) of a ghosted state with that interior, kept face and
+    carries: the z bands wrap, or hold the interior's stratified z ghost
+    planes and zero carries."""
     S, kept = state
-    return packed_to_jax(params, S), kept.detach().cpu().numpy()
+    kept = kept.detach().cpu().numpy()
+    if not stratified:
+        return packed_to_jax(params, S), kept
+    S = S.detach().cpu()
+    zlo, zhi = stratified_ghost_slabs(params, S[:params.nb_var])
+    bands = [torch.cat([zlo, S[:params.nb_var], zhi], dim=-3)]
+    if params.compensated:
+        zero = torch.zeros_like(zlo)
+        bands.append(torch.cat([zero, S[params.nb_var:], zero], dim=-3))
+    mid = torch.cat(bands).numpy()
+    return np.pad(mid, ((0, 0), (0, 0), (YB, YB), (0, 0)), mode="wrap"), kept
 
 
 def padded_width(params: RunParams) -> int:

@@ -14,6 +14,10 @@
 //
 // Layout: the interior-only state S[8][nz][ny][nx] (common.cuh); y and z
 // wrap, x wraps too in the periodic mode; the kept face kept[nz][ny].
+// Channel ch is read at S + ch * nx * ny * nz, so a compensated state
+// S[16][nz][ny][nx] (the state, then its Kahan carry) is read as it lies:
+// the reduction reaches its channels 0-7 only. With stratified z faces
+// (shear mode) the top row's +1 z neighbour is the row itself.
 //
 // Design: the deterministic two-pass NaN-propagating block max of
 // common.cuh (reduce_max) over the per-cell inverse dt.
@@ -76,8 +80,11 @@ HD T inv_dt_at(const Phys<T>& ph, const Dims& d, const T* S, const T* kept, long
     bx_r = kept[(long long)k * d.ny + j];
   else
     bx_r = S[IA * d.n + cell_at(d, wrap_p(i, d.nx), j, k)];
-  return inv_dt_cell<T, SHEAR>(ph, S, d.n, c, bx_r, cell_at(d, i, wrap_p(j, d.ny), k),
-                               cell_at(d, i, j, wrap_p(k, d.nz)));
+  // stratified z faces: the top row's +1 z ghost continues its Bz
+  // (solvers/stratified.py), so its +1 z face is its own
+  const long long czp =
+      SHEAR && ph.zstrat && k == d.nz - 1 ? c : cell_at(d, i, j, wrap_p(k, d.nz));
+  return inv_dt_cell<T, SHEAR>(ph, S, d.n, c, bx_r, cell_at(d, i, wrap_p(j, d.ny), k), czp);
 }
 
 template <typename T, bool SHEAR>

@@ -34,11 +34,16 @@ namespace ramses {
 // xmin, and the shift constants of the sheared fill (1.5 omega0 Lx with
 // Lx = dx nx, and Ly = dy ny) and of the remap (1.5 omega0 (xmax - xmin),
 // ymax - ymin), each formed in double as the JAX package forms them. Then
-// the kinematic viscosity nu and the resistivity eta.
+// the kinematic viscosity nu and the resistivity eta. Then the stratified
+// z faces (BC_Z_STRATIFIED): a flag, and the density factors of the g = 3
+// ghost rows below the interior (z = -1, -2, -3) and above it (z = nz,
+// nz + 1, nz + 2), each the running product of the hydrostatic ratios in
+// double (solvers/stratified.py), rounded once to T.
 enum {
   P_GAMMA0, P_SMALLR, P_SMALLP, P_SMALLC, P_SLOPE, P_DX, P_DY, P_DZ,
   P_NITER, P_SMALLPP, P_GAMMA6, P_CISO, P_SOLVER,
-  P_OMEGA0, P_XMIN, P_FILL_K, P_FILL_LY, P_REMAP_K, P_REMAP_LY, P_NU, P_ETA, P_COUNT
+  P_OMEGA0, P_XMIN, P_FILL_K, P_FILL_LY, P_REMAP_K, P_REMAP_LY, P_NU, P_ETA,
+  P_ZSTRAT, P_ZLO0, P_ZLO1, P_ZLO2, P_ZHI0, P_ZHI1, P_ZHI2, P_COUNT
 };
 
 template <typename T>
@@ -51,6 +56,8 @@ struct Phys {
   // of the first cell centre (xmin + dx/2), dx/2, and the CFL's vy offset
   // 1.5 omega0 dx / 2
   T shear_k, rot15, cor2, corm05, xpos0, dx_half, vy_shift;
+  // stratified z faces: the CFL's +1 z face of the top row is its own
+  bool zstrat;
 };
 
 template <typename T>
@@ -77,6 +84,7 @@ inline Phys<T> make_phys(const double* p) {
   ph.xpos0 = T(p[P_XMIN] + p[P_DX] / 2);
   ph.dx_half = T(p[P_DX] / 2);
   ph.vy_shift = T(1.5 * om * p[P_DX] / 2.0);
+  ph.zstrat = p[P_ZSTRAT] != 0.0;
   return ph;
 }
 
@@ -116,6 +124,48 @@ HD double r_mul(double a, double b) {
 #else
   return a * b;
 #endif
+}
+
+// a sum and a difference the compiler may not fuse with a product (the
+// Kahan-compensated updates repeat their twins' roundings)
+HD float r_add(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+HD double r_add(double a, double b) {
+#ifdef __CUDA_ARCH__
+  return __dadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+HD float r_sub(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fsub_rn(a, b);
+#else
+  return a - b;
+#endif
+}
+HD double r_sub(double a, double b) {
+#ifdef __CUDA_ARCH__
+  return __dsub_rn(a, b);
+#else
+  return a - b;
+#endif
+}
+
+// Kahan-compensated u += d with the running carry c (godunov_mhd.py
+// mhd_apply_update comp): y = d - c; u' = u + y; c' = (u' - u) - y, each
+// rounded on its own
+template <typename T>
+HD void kahan_add(T& u, T& c, T d) {
+  const T y = r_sub(d, c);
+  const T un = r_add(u, y);
+  c = r_sub(r_sub(un, u), y);
+  u = un;
 }
 
 HD float r_fmod(float a, float b) { return fmodf(a, b); }

@@ -42,6 +42,12 @@
 // grid: the clamped cells are never read (PERF.md: partly written rows cost
 // mhd_step.cu's shear mode 1.7x).
 //
+// Compensated (S of 16 channels, the state and then its Kahan carry; kept
+// [2][nz][ny]): the update stage collects each channel's whole increment,
+// B's being the ct stage's delta recomputed from the EMFs, and makes one
+// Kahan add per channel (dissipation.py:357-380); the kept face's resistive
+// CT is Kahan-added to its carry.
+//
 // Rounding: the increment is a difference of nearly equal face fluxes, so
 // an FMA the twin does not make moves it by ~1e-6 of its own norm in f32.
 // The file is compiled without FMA contraction (kernels/build.py) and keeps
@@ -88,6 +94,8 @@ struct Args {
   T* fl;           // [3][NF][ne] face fluxes x, y, z
   const T* slabs;  // shear: [2][8][nz][ny][SLAB] sheared x ghosts (XMIN, XMAX)
   T* kept;         // shear: [nz][ny] the kept Bx face (written when eta > 0)
+  T* C;            // compensated: [8][n] the Kahan carry (S's channels 8-15), else null
+  T* kept_c;       // compensated shear: [nz][ny] the kept face's carry (kept[1])
   const T* dt;     // device scalar
   const unsigned char* active;  // device flag: 0 skips the sub-step
   Dims d;          // the state's
@@ -309,8 +317,11 @@ struct FluxStage {
 // 5: the update of the state's cells, in place (each thread reads and
 // writes its own cell of S only): E and the momenta gain their flux
 // differences in the twin's order (resistive x, y, z, then viscous x, y,
-// z), B becomes B2; the shear mode's last column writes the kept face
-template <typename T, typename M>
+// z), B becomes B2; the shear mode's last column writes the kept face.
+// COMP (the carry C given): each channel's whole increment, B's being the
+// CT delta of the ct stage recomputed from the EMFs, is Kahan-added against
+// the carry (dissipation.py:357-380); untouched channels keep theirs.
+template <typename T, typename M, bool COMP>
 struct UpdateStage {
   Args<T> a;
 
@@ -318,6 +329,17 @@ struct UpdateStage {
     const T* F = a.fl + ((long long)ax * NF + f) * a.e.n;
     const long long nb = p.q(ax == 0, ax == 1, ax == 2);
     return F[p.c] - F[nb];
+  }
+
+  // the ct stage's delta of B component f at the x offset di (0 or 1)
+  HD T ct_delta(const Site<T, M>& p, int f, int di, T dtdx, T dtdy, T dtdz) const {
+    const long long n = a.e.n, c = p.q(di, 0, 0);
+    const T* ez = a.emf;
+    const T* ey = a.emf + n;
+    const T* ex = a.emf + 2 * n;
+    if (f == 0) return (ez[p.q(di, 1, 0)] - ez[c]) * dtdy - (ey[p.q(di, 0, 1)] - ey[c]) * dtdz;
+    if (f == 1) return (ex[p.q(di, 0, 1)] - ex[c]) * dtdz - (ez[p.q(di + 1, 0, 0)] - ez[c]) * dtdx;
+    return (ey[p.q(di + 1, 0, 0)] - ey[c]) * dtdx - (ex[p.q(di, 1, 0)] - ex[c]) * dtdy;
   }
 
   HD void operator()(long long t) const {  // t: the state's cell
@@ -333,30 +355,54 @@ struct UpdateStage {
           for (int ax = 0; ax < 3; ++ax) d = d + diff(p, ax, F_ER);
         if (k.visc)
           for (int ax = 0; ax < 3; ++ax) d = d + diff(p, ax, F_EV);
-        S[IP * ns + t] = S[IP * ns + t] + d;
+        if constexpr (COMP)
+          kahan_add(S[IP * ns + t], a.C[IP * ns + t], d);
+        else
+          S[IP * ns + t] = S[IP * ns + t] + d;
       }
     }
     if (k.visc) {
       for (int q = 0; q < 3; ++q) {
         T d = T(0);
         for (int ax = 0; ax < 3; ++ax) d = d + diff(p, ax, F_U + q);
-        S[(IU + q) * ns + t] = S[(IU + q) * ns + t] + d;
+        if constexpr (COMP)
+          kahan_add(S[(IU + q) * ns + t], a.C[(IU + q) * ns + t], d);
+        else
+          S[(IU + q) * ns + t] = S[(IU + q) * ns + t] + d;
       }
     }
     if (k.resist) {
       const long long n = a.e.n;
-      for (int f = 0; f < 3; ++f) S[(IA + f) * ns + t] = a.W[(W_BX + f) * n + p.c];
-      if constexpr (M::SHEAR) {
-        // the kept face x = nx: the XMAX slab's first Bx column after the CT
-        if (p.i == a.d.nx - 1)
-          a.kept[(long long)p.k * a.d.ny + p.j] = a.W[W_BX * n + p.q(1, 0, 0)];
+      if constexpr (COMP) {
+        const T dt = *a.dt;
+        const T dtdx = dt / a.ph.dx, dtdy = dt / a.ph.dy, dtdz = dt / a.ph.dz;
+        for (int f = 0; f < 3; ++f)
+          kahan_add(S[(IA + f) * ns + t], a.C[(IA + f) * ns + t],
+                    ct_delta(p, f, 0, dtdx, dtdy, dtdz));
+        if constexpr (M::SHEAR) {
+          // the kept face x = nx: its old value is the XMAX slab's first Bx
+          // column, its carry kept_c
+          if (p.i == a.d.nx - 1) {
+            const long long r = (long long)p.k * a.d.ny + p.j;
+            T kf = a.slabs[((((long long)8 + IA) * a.d.nz + p.k) * a.d.ny + p.j) * SLAB];
+            kahan_add(kf, a.kept_c[r], ct_delta(p, 0, 1, dtdx, dtdy, dtdz));
+            a.kept[r] = kf;
+          }
+        }
+      } else {
+        for (int f = 0; f < 3; ++f) S[(IA + f) * ns + t] = a.W[(W_BX + f) * n + p.c];
+        if constexpr (M::SHEAR) {
+          // the kept face x = nx: the XMAX slab's first Bx column after the CT
+          if (p.i == a.d.nx - 1)
+            a.kept[(long long)p.k * a.d.ny + p.j] = a.W[W_BX * n + p.q(1, 0, 0)];
+        }
       }
     }
   }
 };
 
 template <typename T, typename M>
-Args<T> make_args(T* S, T* scratch, const T* slabs, T* kept, const T* dt,
+Args<T> make_args(T* S, T* scratch, const T* slabs, T* kept, bool comp, const T* dt,
                   const unsigned char* active, int nx, int ny, int nz, const double* prm) {
   Args<T> a;
   a.d = make_dims(nx, ny, nz);
@@ -380,16 +426,20 @@ Args<T> make_args(T* S, T* scratch, const T* slabs, T* kept, const T* dt,
   a.fl = a.emf + 3 * n;
   a.slabs = slabs;
   a.kept = kept;
+  a.C = comp ? S + 8 * a.d.n : nullptr;
+  a.kept_c = comp && kept ? kept + (long long)ny * nz : nullptr;
   a.dt = dt;
   a.active = active;
   return a;
 }
 
+// comp: S holds 16 channels (the state, then its Kahan carry) and, shear,
+// kept two planes (the face, then its carry)
 template <typename T, typename M>
-int dissip_step(T* S, T* scratch, const T* slabs, T* kept, const T* dt,
+int dissip_step(T* S, T* scratch, const T* slabs, T* kept, bool comp, const T* dt,
                 const unsigned char* active, int nx, int ny, int nz, const double* prm,
                 void* stream) {
-  const Args<T> a = make_args<T, M>(S, scratch, slabs, kept, dt, active, nx, ny, nz, prm);
+  const Args<T> a = make_args<T, M>(S, scratch, slabs, kept, comp, dt, active, nx, ny, nz, prm);
   const long long n = a.e.n;
   int err;
   if ((err = launch_cells(LoadStage<T, M>{a}, n, stream))) return err;
@@ -399,19 +449,20 @@ int dissip_step(T* S, T* scratch, const T* slabs, T* kept, const T* dt,
   }
   if (a.k.visc || (a.k.resist && !M::ISO))
     if ((err = launch_cells(FluxStage<T, M>{a}, n, stream))) return err;
-  return launch_cells(UpdateStage<T, M>{a}, a.d.n, stream);
+  if (comp) return launch_cells(UpdateStage<T, M, true>{a}, a.d.n, stream);
+  return launch_cells(UpdateStage<T, M, false>{a}, a.d.n, stream);
 }
 
 // the isothermal instantiation for cIso > 0 (no energy terms at all)
 template <typename T, bool SHEAR>
-int dispatch(T* S, T* scratch, const T* slabs, T* kept, const T* dt,
+int dispatch(T* S, T* scratch, const T* slabs, T* kept, bool comp, const T* dt,
              const unsigned char* active, int nx, int ny, int nz, const double* prm,
              void* stream) {
   if (prm[P_CISO] > 0.0)
-    return dissip_step<T, Mode<SHEAR, true>>(S, scratch, slabs, kept, dt, active, nx, ny, nz, prm,
-                                             stream);
-  return dissip_step<T, Mode<SHEAR, false>>(S, scratch, slabs, kept, dt, active, nx, ny, nz, prm,
-                                            stream);
+    return dissip_step<T, Mode<SHEAR, true>>(S, scratch, slabs, kept, comp, dt, active, nx, ny,
+                                             nz, prm, stream);
+  return dissip_step<T, Mode<SHEAR, false>>(S, scratch, slabs, kept, comp, dt, active, nx, ny,
+                                            nz, prm, stream);
 }
 
 }  // namespace ramses::dissip
@@ -424,32 +475,26 @@ long long ramses_dissip_step_scratch(int nx, int ny, int nz, int shear) {
          nz;
 }
 
-int ramses_dissip_step_f32(float* S, float* scratch, const float* dt,
-                           const unsigned char* active, int nx, int ny, int nz,
-                           const double* prm, void* stream) {
-  return ramses::dissip::dispatch<float, false>(S, scratch, nullptr, nullptr, dt, active, nx, ny,
-                                                nz, prm, stream);
+// either mode (shear: slabs [2][8][nz][ny][3] and kept given, else null);
+// comp: S holds 16 channels (the state, then its carry) and kept two planes
+int ramses_dissip_step_f32(float* S, float* scratch, const float* slabs, float* kept,
+                           const float* dt, const unsigned char* active, int comp, int nx,
+                           int ny, int nz, const double* prm, void* stream) {
+  if (slabs)
+    return ramses::dissip::dispatch<float, true>(S, scratch, slabs, kept, comp != 0, dt, active,
+                                                 nx, ny, nz, prm, stream);
+  return ramses::dissip::dispatch<float, false>(S, scratch, nullptr, nullptr, comp != 0, dt,
+                                                active, nx, ny, nz, prm, stream);
 }
 
-int ramses_dissip_step_f64(double* S, double* scratch, const double* dt,
-                           const unsigned char* active, int nx, int ny, int nz,
-                           const double* prm, void* stream) {
-  return ramses::dissip::dispatch<double, false>(S, scratch, nullptr, nullptr, dt, active, nx, ny,
-                                                 nz, prm, stream);
-}
-
-int ramses_dissip_step_shear_f32(float* S, float* scratch, const float* slabs, float* kept,
-                                 const float* dt, const unsigned char* active, int nx, int ny,
-                                 int nz, const double* prm, void* stream) {
-  return ramses::dissip::dispatch<float, true>(S, scratch, slabs, kept, dt, active, nx, ny, nz,
-                                               prm, stream);
-}
-
-int ramses_dissip_step_shear_f64(double* S, double* scratch, const double* slabs, double* kept,
-                                 const double* dt, const unsigned char* active, int nx, int ny,
-                                 int nz, const double* prm, void* stream) {
-  return ramses::dissip::dispatch<double, true>(S, scratch, slabs, kept, dt, active, nx, ny, nz,
-                                                prm, stream);
+int ramses_dissip_step_f64(double* S, double* scratch, const double* slabs, double* kept,
+                           const double* dt, const unsigned char* active, int comp, int nx,
+                           int ny, int nz, const double* prm, void* stream) {
+  if (slabs)
+    return ramses::dissip::dispatch<double, true>(S, scratch, slabs, kept, comp != 0, dt, active,
+                                                  nx, ny, nz, prm, stream);
+  return ramses::dissip::dispatch<double, false>(S, scratch, nullptr, nullptr, comp != 0, dt,
+                                                 active, nx, ny, nz, prm, stream);
 }
 
 }  // extern "C"
@@ -463,11 +508,11 @@ namespace ramses::dissip {
 // -1..nx, the x faces 0..nx and the y and z faces 0..nx-1), the update on
 // the state
 template <typename M>
-long long count_ops(Counted* S, Counted* scratch, const Counted* slabs, Counted* kept,
+long long count_ops(Counted* S, Counted* scratch, const Counted* slabs, Counted* kept, bool comp,
                     const Counted* dt, int nx, int ny, int nz, const double* prm) {
   const unsigned char active = 1;
-  const Args<Counted> a = make_args<Counted, M>(S, scratch, slabs, kept, dt, &active, nx, ny, nz,
-                                                prm);
+  const Args<Counted> a = make_args<Counted, M>(S, scratch, slabs, kept, comp, dt, &active, nx,
+                                                ny, nz, prm);
   long long ops = 0;
   // run f(t) on every stage-grid cell, counting the columns lo..hi
   auto columns = [&](const auto& f, int lo, int hi) {
@@ -497,36 +542,40 @@ long long count_ops(Counted* S, Counted* scratch, const Counted* slabs, Counted*
     }
   }
   const long long before = Counted::ops;
-  const UpdateStage<Counted, M> update{a};
-  for (long long t = 0; t < a.d.n; ++t) update(t);
+  if (comp) {
+    const UpdateStage<Counted, M, true> update{a};
+    for (long long t = 0; t < a.d.n; ++t) update(t);
+  } else {
+    const UpdateStage<Counted, M, false> update{a};
+    for (long long t = 0; t < a.d.n; ++t) update(t);
+  }
   return ops + Counted::ops - before;
 }
 
 template <bool SHEAR>
-long long count_dispatch(const double* S, const double* slabs, int nx, int ny, int nz,
+long long count_dispatch(const double* S, const double* slabs, bool comp, int nx, int ny, int nz,
                          const double* prm, double dt) {
   const long long n = (long long)nx * ny * nz;
-  std::vector<Counted> s = counted_copy(S, 8 * n);
+  std::vector<Counted> s = counted_copy(S, (comp ? 16 : 8) * n);
   std::vector<Counted> sl;
   if (SHEAR) sl = counted_copy(slabs, 2LL * 8 * nz * ny * SLAB);
-  std::vector<Counted> kept((long long)nz * ny);
+  std::vector<Counted> kept(2LL * nz * ny);
   std::vector<Counted> scratch(ramses_dissip_step_scratch(nx, ny, nz, SHEAR));
   const Counted dtc(dt);
   const auto count = prm[P_CISO] > 0.0 ? count_ops<Mode<SHEAR, true>>
                                        : count_ops<Mode<SHEAR, false>>;
-  return count(s.data(), scratch.data(), sl.data(), kept.data(), &dtc, nx, ny, nz, prm);
+  return count(s.data(), scratch.data(), sl.data(), kept.data(), comp, &dtc, nx, ny, nz, prm);
 }
 
 }  // namespace ramses::dissip
 
-extern "C" long long ramses_dissip_step_ops(const double* S, int nx, int ny, int nz,
-                                            const double* prm, double dt) {
-  return ramses::dissip::count_dispatch<false>(S, nullptr, nx, ny, nz, prm, dt);
-}
-
-// the same for the shear mode, with the sheared slabs beside S
-extern "C" long long ramses_dissip_step_shear_ops(const double* S, const double* slabs, int nx,
-                                                  int ny, int nz, const double* prm, double dt) {
-  return ramses::dissip::count_dispatch<true>(S, slabs, nx, ny, nz, prm, dt);
+// either mode (shear: slabs given, else null), compensated or not (S of
+// 16 channels with comp)
+extern "C" long long ramses_dissip_step_ops(const double* S, const double* slabs, int comp,
+                                            int nx, int ny, int nz, const double* prm,
+                                            double dt) {
+  if (slabs)
+    return ramses::dissip::count_dispatch<true>(S, slabs, comp != 0, nx, ny, nz, prm, dt);
+  return ramses::dissip::count_dispatch<false>(S, nullptr, comp != 0, nx, ny, nz, prm, dt);
 }
 #endif

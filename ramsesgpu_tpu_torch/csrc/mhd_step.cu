@@ -19,6 +19,25 @@
 //   writes the unremapped x-face planes (density flux at faces 0 and nx,
 //   emfY there, emfZ at face nx) that shear_border.cu remaps. Plain twin:
 //   solvers/godunov_mhd.py mhd_3d_shear_update.
+// - stratified (the shear mode with BC_Z_STRATIFIED z faces and the static
+//   vertical gravity; isothermal): replaces the MRI main kernel with its
+//   gravity_z aux plane (shear_packed.py:89, :117-131) and the strip's
+//   gravity. A z load outside [0, nz) reads the stratified z slabs
+//   (shear_border.cu ZSlabBuild, whose x extent covers the x slabs'
+//   columns), the stage grid grows by ZH rows on each z side as it does by
+//   XH columns in x, the traced states get the half-dt kick of g_z and the
+//   update the conservative source with the time-centred momentum
+//   (godunov_mhd.py:213-218, 375-413). g_z comes in per z row, ghost rows
+//   included (the run's gravity field column).
+// - compensated (any mode; TPU row A'-compensated, fused_mhd3d.py:247-259):
+//   S holds 16 channels, the state and then its Kahan carry; the update
+//   stage Kahan-adds each channel's increment (and chains the gravity
+//   source through the carry), every operation of that stage rounded on
+//   its own with intrinsics (r_mul, r_add, r_sub), so on the same fluxes
+//   and EMFs it repeats the twin's roundings exactly. The file keeps FMA
+//   contraction elsewhere: -fmad=false on the whole file costs the plain
+//   periodic step ~1 % (PERF.md), the intrinsics cost the plain modes
+//   nothing (their update stage is another instantiation).
 //
 // Layout: the interior-only state S[8][nz][ny][nx], x fastest
 // (common.cuh). Neighbours wrap by index in y and z (and in x, periodic
@@ -82,14 +101,18 @@ constexpr long long SCRATCH_PER_CELL = 8 + 3 + NSTATE * 8 + 3 * NFLUX + 3;
 constexpr long long SHEAR_SCRATCH_PER_CELL = SCRATCH_PER_CELL + 8;  // + Se
 constexpr int SLAB = 3;   // ghost columns of each sheared slab (ghost_width)
 constexpr int XH = 2;     // stage-grid columns beyond each x face (shear mode)
+constexpr int ZH = 2;     // stage-grid rows beyond each z face (stratified mode)
 constexpr int NPLANE = 5; // x-face planes written by the shear-mode update
 
-// the kernel's mode: SHEAR (shearing box, rotating frame) and ISO (the
-// isothermal pressure in the solvers); the periodic mode is <false, false>
-template <bool SHEAR_, bool ISO_>
+// the kernel's mode: SHEAR (shearing box, rotating frame), ISO (the
+// isothermal pressure in the solvers) and STRAT (the stratified MRI:
+// BC_Z_STRATIFIED z faces and the static vertical gravity); the periodic
+// mode is <false, false, false>
+template <bool SHEAR_, bool ISO_, bool STRAT_ = false>
 struct Mode {
   static constexpr bool SHEAR = SHEAR_;
   static constexpr bool ISO = ISO_;
+  static constexpr bool STRAT = STRAT_;
 };
 using Periodic = Mode<false, false>;
 
@@ -104,10 +127,14 @@ struct StepArgs {
   T* Se;        // shear: [8][ne] the state on the stage grid (written by prim)
   const T* slabs;  // shear: [2][8][nz][ny][SLAB] sheared x ghosts (XMIN, XMAX)
   T* planes;       // shear: [5][nz][ny] x-face planes
+  T* C;            // compensated: [8][n] the Kahan carry (S's channels 8-15), else null
+  const T* zslabs; // stratified: [2][8][SLAB][ny][nx + 2 SLAB] z ghosts (ZMIN, ZMAX)
+  const T* gz;     // stratified: [nz + 2 SLAB] g_z of each z row, ghost rows included
   const T* dt;  // device scalar
   const unsigned char* active;  // device flag: 0 skips the step
   Dims d;       // the state's
-  Dims e;       // the stage grid's: d (periodic), nx + 2 XH columns (shear)
+  Dims e;       // the stage grid's: d (periodic), nx + 2 XH columns (shear),
+                // and nz + 2 ZH rows (stratified)
   Phys<T> ph;
 };
 
@@ -121,9 +148,12 @@ HD int wrap_d(int i, int di, int n) {
 // stage grid is the state's and every offset wraps. Shear: stage column
 // i sits at i + XH and x reads clamp to the grid; a state load (src)
 // outside [0, nx) reads the slab, and the stages after prim read the
-// state from its stage-grid copy (s).
+// state from its stage-grid copy (s). Stratified: the same in z, stage
+// row k at k + ZH, a state load outside [0, nz) reading the z slabs
+// (whose x extent covers the x slabs' columns too).
 template <typename T, typename M>
 struct Site {
+  static constexpr int ZOFF = M::STRAT ? ZH : 0;
   const StepArgs<T>& a;
   int i, j, k;
   long long c;  // stage-grid index of (i, j, k)
@@ -133,11 +163,12 @@ struct Site {
     if constexpr (M::SHEAR) {
       if (on_state) {
         cell_ijk(a.d, t, i, j, k);
-        c = cell_at(a.e, i + XH, j, k);
+        c = cell_at(a.e, i + XH, j, k + ZOFF);
         return;
       }
       cell_ijk(a.e, t, i, j, k);
       i -= XH;
+      k -= ZOFF;
     } else {
       cell_ijk(a.d, t, i, j, k);
     }
@@ -146,7 +177,10 @@ struct Site {
   // stage-grid index of the neighbour (i+di, j+dj, k+dk)
   HD long long q(int di, int dj, int dk) const {
     if (!M::SHEAR && di == 0 && dj == 0 && dk == 0) return c;
-    const int jj = wrap_d(j, dj, a.d.ny), kk = wrap_d(k, dk, a.d.nz);
+    // (kk before the branch: nvcc then gives the periodic f32 trace stage
+    // 128 registers, not 96, and that stage runs ~1 % faster; PERF.md)
+    const int jj = wrap_d(j, dj, a.d.ny);
+    const int kk = M::STRAT ? clamp_i(k + dk, -ZH, a.e.nz - ZH - 1) + ZH : wrap_d(k, dk, a.d.nz);
     if constexpr (M::SHEAR)
       return cell_at(a.e, clamp_i(i + di, -XH, a.e.nx - XH - 1) + XH, jj, kk);
     return cell_at(a.d, wrap_d(i, di, a.d.nx), jj, kk);
@@ -160,17 +194,34 @@ struct Site {
   HD T src(int ch, int di, int dj, int dk) const {
     if constexpr (M::SHEAR) {
       const int ii = clamp_i(i + di, -SLAB, a.d.nx + SLAB - 1);
-      const int jj = wrap_d(j, dj, a.d.ny), kk = wrap_d(k, dk, a.d.nz);
-      if (ii >= 0 && ii < a.d.nx) return a.S[ch * a.d.n + cell_at(a.d, ii, jj, kk)];
-      const int side = ii < 0 ? 0 : 1;
-      const int col = ii < 0 ? ii + SLAB : ii - a.d.nx;
-      return a.slabs[((((long long)side * 8 + ch) * a.d.nz + kk) * a.d.ny + jj) * SLAB + col];
+      const int jj = wrap_d(j, dj, a.d.ny);
+      if constexpr (M::STRAT) {
+        const int kk = clamp_i(k + dk, -SLAB, a.d.nz + SLAB - 1);
+        if (kk < 0 || kk >= a.d.nz) {
+          const int side = kk < 0 ? 0 : 1;
+          const int row = kk < 0 ? kk + SLAB : kk - a.d.nz;
+          return a.zslabs[((((long long)side * 8 + ch) * SLAB + row) * a.d.ny + jj) *
+                              (a.d.nx + 2 * SLAB) + ii + SLAB];
+        }
+        return src_x(ch, ii, jj, kk);
+      } else {
+        return src_x(ch, ii, jj, wrap_d(k, dk, a.d.nz));
+      }
     } else {
       return a.S[ch * a.d.n + q(di, dj, dk)];
     }
   }
+  // shear: the state's channel ch at column ii of the interior or a slab
+  HD T src_x(int ch, int ii, int jj, int kk) const {
+    if (ii >= 0 && ii < a.d.nx) return a.S[ch * a.d.n + cell_at(a.d, ii, jj, kk)];
+    const int side = ii < 0 ? 0 : 1;
+    const int col = ii < 0 ? ii + SLAB : ii - a.d.nx;
+    return a.slabs[((((long long)side * 8 + ch) * a.d.nz + kk) * a.d.ny + jj) * SLAB + col];
+  }
   // cell-centre x of column i (godunov_mhd.py:44 xpos_array)
   HD T xpos() const { return a.ph.xpos0 + r_mul(T(i), a.ph.dx); }
+  // stratified: g_z of row k (problems/mhd_inits.py mri_gravity_field)
+  HD T gz() const { return a.gz[k + SLAB]; }
 };
 
 // ---------------------------------------------------------------------------
@@ -718,6 +769,10 @@ struct TraceStage {
     const T* hd[3] = {hx, hy, hz};
     const int face_ch[3] = {IA, IB, IC};
     T* st = a.st;
+    // stratified: the half-dt kick of the vertical gravity on every traced
+    // state (godunov_mhd.py:213-218, after the floors)
+    T kick = T(0);
+    if constexpr (M::STRAT) kick = (T(0.5) * dt) * p.gz();
 
     // face states: qp (left face, sign -1) and qm (right face, sign +1)
 #pragma unroll
@@ -731,6 +786,7 @@ struct TraceStage {
           T val = ch == face_ch[ax] ? (side ? R2[ax] : L2[ax]) : q2[ch] + s * hd[ax][ch];
           if (ch == ID) val = pmax(ph.smallr, val);
           if (ch == IP) val = pmax(ph.smallp, val);
+          if (M::STRAT && ch == IW) val = val + kick;
           out[ch * n + c] = val;
         }
       }
@@ -761,6 +817,7 @@ struct TraceStage {
           }
           if (ch == ID) val = pmax(ph.smallr, val);
           if (ch == IP) val = pmax(ph.smallp, val);
+          if (M::STRAT && ch == IW) val = val + kick;
           out[ch * n + c] = val;
         }
       }
@@ -856,8 +913,13 @@ struct EmfStage {
 
 // 6: godunov_mhd.py mhd_apply_update: flux divergence and CT curl, in
 // place; the shear mode also writes the x-face planes of the remap
-// (godunov_mhd.py:429-434)
-template <typename T, typename M>
+// (godunov_mhd.py:429-434). Stratified: the conservative gravity source
+// with the time-centred momentum (godunov_mhd.py:375-413). COMP: each
+// channel's increment is Kahan-added against the carry C (the gravity
+// source chained through it), every operation rounded on its own in the
+// twin's order (r_mul, r_add, r_sub), so the update repeats the twin's
+// roundings exactly on the same fluxes and EMFs.
+template <typename T, typename M, bool COMP>
 struct UpdateStage {
   StepArgs<T> a;
   HD void operator()(long long t) const {  // t: the state's cell
@@ -870,24 +932,69 @@ struct UpdateStage {
     const T* fx = a.fl;
     const T* fy = a.fl + NFLUX * n;
     const T* fz = a.fl + 2 * NFLUX * n;
-    T* S = a.S;
-    const long long ns = a.d.n, cs = t;
-#pragma unroll
-    for (int ch = 0; ch < NFLUX; ++ch) {
-      const long long o = ch * n;
-      const T dU = dtdx * (fx[o + c] - fx[o + cxp]) + dtdy * (fy[o + c] - fy[o + cyp]) +
-                   dtdz * (fz[o + c] - fz[o + czp]);
-      S[ch * ns + cs] = S[ch * ns + cs] + dU;
-    }
     const T* ez = a.emf;
     const T* ey = a.emf + n;
     const T* ex = a.emf + 2 * n;
-    const T dbx = (ez[cyp] - ez[c]) * dtdy - (ey[czp] - ey[c]) * dtdz;
-    const T dby = (ex[czp] - ex[c]) * dtdz - (ez[cxp] - ez[c]) * dtdx;
-    const T dbz = (ey[cxp] - ey[c]) * dtdx - (ex[cyp] - ex[c]) * dtdy;
-    S[IA * ns + cs] = S[IA * ns + cs] + dbx;
-    S[IB * ns + cs] = S[IB * ns + cs] + dby;
-    S[IC * ns + cs] = S[IC * ns + cs] + dbz;
+    T* S = a.S;
+    const long long ns = a.d.n, cs = t;
+    if constexpr (COMP) {
+      T d[8], u[8], cc[8];
+#pragma unroll
+      for (int ch = 0; ch < NFLUX; ++ch) {
+        const long long o = ch * n;
+        d[ch] = r_add(r_add(r_mul(dtdx, r_sub(fx[o + c], fx[o + cxp])),
+                            r_mul(dtdy, r_sub(fy[o + c], fy[o + cyp]))),
+                      r_mul(dtdz, r_sub(fz[o + c], fz[o + czp])));
+      }
+      d[IA] = r_sub(r_mul(r_sub(ez[cyp], ez[c]), dtdy), r_mul(r_sub(ey[czp], ey[c]), dtdz));
+      d[IB] = r_sub(r_mul(r_sub(ex[czp], ex[c]), dtdz), r_mul(r_sub(ez[cxp], ez[c]), dtdx));
+      d[IC] = r_sub(r_mul(r_sub(ey[cxp], ey[c]), dtdx), r_mul(r_sub(ex[cyp], ex[c]), dtdy));
+#pragma unroll
+      for (int ch = 0; ch < 8; ++ch) {
+        u[ch] = S[ch * ns + cs];
+        cc[ch] = a.C[ch * ns + cs];
+      }
+      const T rho_old = u[ID], w_old = u[IW];
+#pragma unroll
+      for (int ch = 0; ch < 8; ++ch) kahan_add(u[ch], cc[ch], d[ch]);
+      if constexpr (M::STRAT) {
+        const T g = p.gz();
+        const T mom_half = r_mul(T(0.5), r_add(w_old, u[IW]));
+        kahan_add(u[IW], cc[IW], r_mul(r_mul(dt, rho_old), g));
+        kahan_add(u[IP], cc[IP], r_mul(r_mul(dt, mom_half), g));
+      }
+#pragma unroll
+      for (int ch = 0; ch < 8; ++ch) {
+        S[ch * ns + cs] = u[ch];
+        a.C[ch * ns + cs] = cc[ch];
+      }
+    } else {
+      T rho_old = T(0), w_old = T(0);
+      if constexpr (M::STRAT) {
+        rho_old = S[ID * ns + cs];
+        w_old = S[IW * ns + cs];
+      }
+#pragma unroll
+      for (int ch = 0; ch < NFLUX; ++ch) {
+        const long long o = ch * n;
+        const T dU = dtdx * (fx[o + c] - fx[o + cxp]) + dtdy * (fy[o + c] - fy[o + cyp]) +
+                     dtdz * (fz[o + c] - fz[o + czp]);
+        S[ch * ns + cs] = S[ch * ns + cs] + dU;
+      }
+      const T dbx = (ez[cyp] - ez[c]) * dtdy - (ey[czp] - ey[c]) * dtdz;
+      const T dby = (ex[czp] - ex[c]) * dtdz - (ez[cxp] - ez[c]) * dtdx;
+      const T dbz = (ey[cxp] - ey[c]) * dtdx - (ex[cyp] - ex[c]) * dtdy;
+      S[IA * ns + cs] = S[IA * ns + cs] + dbx;
+      S[IB * ns + cs] = S[IB * ns + cs] + dby;
+      S[IC * ns + cs] = S[IC * ns + cs] + dbz;
+      if constexpr (M::STRAT) {
+        const T g = p.gz();
+        const T w_new = S[IW * ns + cs];
+        const T mom_half = T(0.5) * (w_old + w_new);
+        S[IW * ns + cs] = w_new + dt * rho_old * g;
+        S[IP * ns + cs] = S[IP * ns + cs] + dt * mom_half * g;
+      }
+    }
     if constexpr (M::SHEAR) {
       const long long np = (long long)a.d.nz * a.d.ny;
       const long long pc = (long long)p.k * a.d.ny + p.j;
@@ -905,11 +1012,12 @@ struct UpdateStage {
 };
 
 template <typename T, typename M>
-StepArgs<T> step_args(T* S, T* scratch, const T* slabs, T* planes, const T* dt,
-                      const unsigned char* active, int nx, int ny, int nz, const double* prm) {
+StepArgs<T> step_args(T* S, T* scratch, const T* slabs, T* planes, const T* zslabs,
+                      const T* gz, bool comp, const T* dt, const unsigned char* active, int nx,
+                      int ny, int nz, const double* prm) {
   StepArgs<T> a;
   a.d = make_dims(nx, ny, nz);
-  a.e = M::SHEAR ? make_dims(nx + 2 * XH, ny, nz) : a.d;
+  a.e = M::SHEAR ? make_dims(nx + 2 * XH, ny, nz + (M::STRAT ? 2 * ZH : 0)) : a.d;
   a.ph = make_phys<T>(prm);
   const long long n = a.e.n;
   a.S = S;
@@ -921,17 +1029,21 @@ StepArgs<T> step_args(T* S, T* scratch, const T* slabs, T* planes, const T* dt,
   a.Se = M::SHEAR ? a.emf + 3 * n : nullptr;
   a.slabs = slabs;
   a.planes = planes;
+  a.C = comp ? S + 8 * a.d.n : nullptr;
+  a.zslabs = zslabs;
+  a.gz = gz;
   a.dt = dt;
   a.active = active;
   return a;
 }
 
+// comp: S holds 16 channels, the state and then its Kahan carry
 template <typename T, typename M>
-int mhd_step(T* S, T* scratch, const T* slabs, T* planes, const T* dt,
-             const unsigned char* active, int nx, int ny, int nz, const double* prm,
-             void* stream) {
-  const StepArgs<T> a =
-      step_args<T, M>(S, scratch, slabs, planes, dt, active, nx, ny, nz, prm);
+int mhd_step(T* S, T* scratch, const T* slabs, T* planes, const T* zslabs, const T* gz,
+             bool comp, const T* dt, const unsigned char* active, int nx, int ny, int nz,
+             const double* prm, void* stream) {
+  const StepArgs<T> a = step_args<T, M>(S, scratch, slabs, planes, zslabs, gz, comp, dt, active,
+                                        nx, ny, nz, prm);
   const long long n = a.e.n;
   // stages 1-5 over the stage grid, the update over the state
   int err;
@@ -940,18 +1052,26 @@ int mhd_step(T* S, T* scratch, const T* slabs, T* planes, const T* dt,
   if ((err = launch_cells(TraceStage<T, M>{a}, n, stream))) return err;
   if ((err = launch_cells(FluxStage<T, M>{a}, n, stream))) return err;
   if ((err = launch_cells(EmfStage<T, M>{a}, n, stream))) return err;
-  return launch_cells(UpdateStage<T, M>{a}, a.d.n, stream);
+  if (comp) return launch_cells(UpdateStage<T, M, true>{a}, a.d.n, stream);
+  return launch_cells(UpdateStage<T, M, false>{a}, a.d.n, stream);
 }
 
+// the shear modes: isothermal or adiabatic; stratified (zslabs and gz
+// given) only isothermal, as its scale height cIso / omega0 needs
 template <typename T>
-int mhd_step_shear(T* S, T* scratch, const T* slabs, T* planes, const T* dt,
-                   const unsigned char* active, int nx, int ny, int nz, const double* prm,
-                   void* stream) {
+int mhd_step_shear(T* S, T* scratch, const T* slabs, T* planes, const T* zslabs, const T* gz,
+                   bool comp, const T* dt, const unsigned char* active, int nx, int ny, int nz,
+                   const double* prm, void* stream) {
+  if (zslabs != nullptr) {
+    if (!(prm[P_CISO] > 0.0) || gz == nullptr) return 1;  // cudaErrorInvalidValue
+    return mhd_step<T, Mode<true, true, true>>(S, scratch, slabs, planes, zslabs, gz, comp, dt,
+                                               active, nx, ny, nz, prm, stream);
+  }
   if (prm[P_CISO] > 0.0)
-    return mhd_step<T, Mode<true, true>>(S, scratch, slabs, planes, dt, active, nx, ny, nz,
-                                         prm, stream);
-  return mhd_step<T, Mode<true, false>>(S, scratch, slabs, planes, dt, active, nx, ny, nz,
-                                        prm, stream);
+    return mhd_step<T, Mode<true, true>>(S, scratch, slabs, planes, nullptr, nullptr, comp, dt,
+                                         active, nx, ny, nz, prm, stream);
+  return mhd_step<T, Mode<true, false>>(S, scratch, slabs, planes, nullptr, nullptr, comp, dt,
+                                        active, nx, ny, nz, prm, stream);
 }
 
 }  // namespace ramses::mhd
@@ -960,111 +1080,142 @@ extern "C" {
 
 long long ramses_mhd_step_scratch_per_cell(void) { return ramses::mhd::SCRATCH_PER_CELL; }
 
-// the shear mode's scratch: its stage grid has nx + 2 XH columns
-long long ramses_mhd_step_shear_scratch(int nx, int ny, int nz) {
-  return ramses::mhd::SHEAR_SCRATCH_PER_CELL * (nx + 2LL * ramses::mhd::XH) * ny * nz;
+// the shear mode's scratch: its stage grid has nx + 2 XH columns (and,
+// stratified, nz + 2 ZH rows)
+long long ramses_mhd_step_shear_scratch(int nx, int ny, int nz, int strat) {
+  return ramses::mhd::SHEAR_SCRATCH_PER_CELL * (nx + 2LL * ramses::mhd::XH) * ny *
+         (nz + (strat ? 2LL * ramses::mhd::ZH : 0));
 }
 
-int ramses_mhd_step_f32(float* S, float* scratch, const float* dt,
-                        const unsigned char* active, int nx, int ny, int nz,
-                        const double* prm, void* stream) {
+// the periodic step; comp: S holds 16 channels, the state and its carry
+int ramses_mhd_step_f32(float* S, float* scratch, const float* dt, const unsigned char* active,
+                        int comp, int nx, int ny, int nz, const double* prm, void* stream) {
   return ramses::mhd::mhd_step<float, ramses::mhd::Periodic>(
-      S, scratch, nullptr, nullptr, dt, active, nx, ny, nz, prm, stream);
+      S, scratch, nullptr, nullptr, nullptr, nullptr, comp != 0, dt, active, nx, ny, nz, prm,
+      stream);
 }
 
 int ramses_mhd_step_f64(double* S, double* scratch, const double* dt,
-                        const unsigned char* active, int nx, int ny, int nz,
+                        const unsigned char* active, int comp, int nx, int ny, int nz,
                         const double* prm, void* stream) {
   return ramses::mhd::mhd_step<double, ramses::mhd::Periodic>(
-      S, scratch, nullptr, nullptr, dt, active, nx, ny, nz, prm, stream);
+      S, scratch, nullptr, nullptr, nullptr, nullptr, comp != 0, dt, active, nx, ny, nz, prm,
+      stream);
 }
 
+// the shear modes: comp (S holds 16 channels); stratified (zslabs
+// [2][8][3][ny][nx + 6] and gz [nz + 6] given, else null)
 int ramses_mhd_step_shear_f32(float* S, float* scratch, const float* slabs, float* planes,
-                              const float* dt, const unsigned char* active, int nx, int ny,
-                              int nz, const double* prm, void* stream) {
-  return ramses::mhd::mhd_step_shear<float>(S, scratch, slabs, planes, dt, active, nx, ny, nz,
-                                            prm, stream);
+                              const float* zslabs, const float* gz, const float* dt,
+                              const unsigned char* active, int comp, int nx, int ny, int nz,
+                              const double* prm, void* stream) {
+  return ramses::mhd::mhd_step_shear<float>(S, scratch, slabs, planes, zslabs, gz, comp != 0,
+                                            dt, active, nx, ny, nz, prm, stream);
 }
 
-int ramses_mhd_step_shear_f64(double* S, double* scratch, const double* slabs,
-                              double* planes, const double* dt, const unsigned char* active,
-                              int nx, int ny, int nz, const double* prm, void* stream) {
-  return ramses::mhd::mhd_step_shear<double>(S, scratch, slabs, planes, dt, active, nx, ny,
-                                             nz, prm, stream);
+int ramses_mhd_step_shear_f64(double* S, double* scratch, const double* slabs, double* planes,
+                              const double* zslabs, const double* gz, const double* dt,
+                              const unsigned char* active, int comp, int nx, int ny, int nz,
+                              const double* prm, void* stream) {
+  return ramses::mhd::mhd_step_shear<double>(S, scratch, slabs, planes, zslabs, gz, comp != 0,
+                                             dt, active, nx, ny, nz, prm, stream);
 }
 
 }  // extern "C"
 
 #ifdef RAMSES_COUNT_OPS
-// the floating-point operations of one step of S[8][nz][ny][nx] (op_count.cuh)
-extern "C" long long ramses_mhd_step_ops(const double* S, int nx, int ny, int nz,
+// the floating-point operations of one step of S (op_count.cuh): S holds 8
+// channels, or 16 with comp (the state and its Kahan carry)
+extern "C" long long ramses_mhd_step_ops(const double* S, int comp, int nx, int ny, int nz,
                                          const double* prm, double dt) {
   using ramses::Counted;
   const long long n = (long long)nx * ny * nz;
-  std::vector<Counted> s = ramses::counted_copy(S, 8 * n);
+  std::vector<Counted> s = ramses::counted_copy(S, (comp ? 16 : 8) * n);
   std::vector<Counted> scratch(ramses::mhd::SCRATCH_PER_CELL * n);
   const Counted dtc(dt);
   const unsigned char active = 1;
   Counted::ops = 0;
-  ramses::mhd::mhd_step<Counted, ramses::mhd::Periodic>(
-      s.data(), scratch.data(), nullptr, nullptr, &dtc, &active, nx, ny, nz, prm, nullptr);
+  ramses::mhd::mhd_step<Counted, ramses::mhd::Periodic>(s.data(), scratch.data(), nullptr,
+                                                        nullptr, nullptr, nullptr, comp != 0,
+                                                        &dtc, &active, nx, ny, nz, prm, nullptr);
   return Counted::ops;
 }
 
 namespace ramses::mhd {
 
 // the operations of stage f on the stage-grid cells (shear mode) of columns
-// lo..hi: those a later stage reads, for stages run on every cell
-template <typename F>
-long long counted_columns(const F& f, const Dims& e, int lo, int hi) {
+// lo..nx+hi and, stratified, rows lo..nz+hi: those a later stage reads, for
+// stages run on every cell
+template <typename M, typename F>
+long long counted_cells(const F& f, const Dims& e, int lo, int hi, int nx, int nz) {
   long long ops = 0;
   for (long long t = 0; t < e.n; ++t) {
     const long long before = Counted::ops;
     f(t);
-    const int i = (int)(t % e.nx) - XH;
-    if (i >= lo && i <= hi) ops += Counted::ops - before;
+    int i, j, k;
+    cell_ijk(e, t, i, j, k);
+    i -= XH;
+    k -= M::STRAT ? ZH : 0;
+    const bool in_z = !M::STRAT || (k >= lo && k <= nz + hi);
+    if (i >= lo && i <= nx + hi && in_z) ops += Counted::ops - before;
   }
   return ops;
 }
 
 // the shear mode's step as it needs to be done: prim on columns -2..nx+1,
-// efield on -1..nx+1, trace on -1..nx, fluxes and EMFs on faces 0..nx,
-// the update on the state; the stage grid's other cells are computed by
-// the kernel but never read
+// efield on -1..nx+1, trace on -1..nx, fluxes and EMFs on faces 0..nx
+// (stratified: the same rows in z), the update on the state; the stage
+// grid's other cells are computed by the kernel but never read
 template <typename M>
 long long shear_step_ops(Counted* S, Counted* scratch, const Counted* slabs, Counted* planes,
-                         const Counted* dt, int nx, int ny, int nz, const double* prm) {
+                         const Counted* zslabs, const Counted* gz, bool comp, const Counted* dt,
+                         int nx, int ny, int nz, const double* prm) {
   const unsigned char active = 1;
-  const StepArgs<Counted> a =
-      step_args<Counted, M>(S, scratch, slabs, planes, dt, &active, nx, ny, nz, prm);
-  long long ops = counted_columns(PrimStage<Counted, M>{a}, a.e, -XH, nx + XH - 1);
-  ops += counted_columns(EFieldStage<Counted, M>{a}, a.e, -1, nx + 1);
-  ops += counted_columns(TraceStage<Counted, M>{a}, a.e, -1, nx);
-  ops += counted_columns(FluxStage<Counted, M>{a}, a.e, 0, nx);
-  ops += counted_columns(EmfStage<Counted, M>{a}, a.e, 0, nx);
+  const StepArgs<Counted> a = step_args<Counted, M>(S, scratch, slabs, planes, zslabs, gz, comp,
+                                                    dt, &active, nx, ny, nz, prm);
+  long long ops = counted_cells<M>(PrimStage<Counted, M>{a}, a.e, -XH, XH - 1, nx, nz);
+  ops += counted_cells<M>(EFieldStage<Counted, M>{a}, a.e, -1, 1, nx, nz);
+  ops += counted_cells<M>(TraceStage<Counted, M>{a}, a.e, -1, 0, nx, nz);
+  ops += counted_cells<M>(FluxStage<Counted, M>{a}, a.e, 0, 0, nx, nz);
+  ops += counted_cells<M>(EmfStage<Counted, M>{a}, a.e, 0, 0, nx, nz);
   const long long before = Counted::ops;
-  const UpdateStage<Counted, M> update{a};
-  for (long long t = 0; t < a.d.n; ++t) update(t);
+  if (comp) {
+    const UpdateStage<Counted, M, true> update{a};
+    for (long long t = 0; t < a.d.n; ++t) update(t);
+  } else {
+    const UpdateStage<Counted, M, false> update{a};
+    for (long long t = 0; t < a.d.n; ++t) update(t);
+  }
   return ops + Counted::ops - before;
 }
 
 }  // namespace ramses::mhd
 
-// the same for the shearing-box mode, with the sheared slabs beside S
-extern "C" long long ramses_mhd_step_shear_ops(const double* S, const double* slabs, int nx,
-                                               int ny, int nz, const double* prm, double dt) {
+// the same for the shearing-box modes, with the sheared slabs beside S (and,
+// stratified, the z slabs and g_z; else null)
+extern "C" long long ramses_mhd_step_shear_ops(const double* S, const double* slabs,
+                                               const double* zslabs, const double* gz, int comp,
+                                               int nx, int ny, int nz, const double* prm,
+                                               double dt) {
   using ramses::Counted;
   using ramses::mhd::Mode;
   using ramses::mhd::SLAB;
   const long long n = (long long)nx * ny * nz;
-  std::vector<Counted> s = ramses::counted_copy(S, 8 * n);
+  const bool strat = zslabs != nullptr;
+  std::vector<Counted> s = ramses::counted_copy(S, (comp ? 16 : 8) * n);
   std::vector<Counted> sl = ramses::counted_copy(slabs, 2LL * 8 * nz * ny * SLAB);
-  std::vector<Counted> scratch(ramses_mhd_step_shear_scratch(nx, ny, nz));
+  std::vector<Counted> zs, g;
+  if (strat) {
+    zs = ramses::counted_copy(zslabs, 2LL * 8 * SLAB * ny * (nx + 2 * SLAB));
+    g = ramses::counted_copy(gz, nz + 2LL * SLAB);
+  }
+  std::vector<Counted> scratch(ramses_mhd_step_shear_scratch(nx, ny, nz, strat));
   std::vector<Counted> planes(ramses::mhd::NPLANE * (long long)nz * ny);
   const Counted dtc(dt);
-  const auto count = prm[ramses::P_CISO] > 0.0
-                         ? ramses::mhd::shear_step_ops<Mode<true, true>>
-                         : ramses::mhd::shear_step_ops<Mode<true, false>>;
-  return count(s.data(), scratch.data(), sl.data(), planes.data(), &dtc, nx, ny, nz, prm);
+  const auto count = strat ? ramses::mhd::shear_step_ops<Mode<true, true, true>>
+                     : prm[ramses::P_CISO] > 0.0 ? ramses::mhd::shear_step_ops<Mode<true, true>>
+                                                 : ramses::mhd::shear_step_ops<Mode<true, false>>;
+  return count(s.data(), scratch.data(), sl.data(), planes.data(), strat ? zs.data() : nullptr,
+               strat ? g.data() : nullptr, comp != 0, &dtc, nx, ny, nz, prm);
 }
 #endif

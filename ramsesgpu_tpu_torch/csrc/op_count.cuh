@@ -36,6 +36,8 @@ inline Counted r_sqrt(Counted x) { ++Counted::ops; return std::sqrt(x.v); }
 inline Counted r_rsqrt(Counted x) { ++Counted::ops; return 1.0 / std::sqrt(x.v); }
 inline Counted r_abs(Counted x) { return std::fabs(x.v); }
 inline Counted r_mul(Counted a, Counted b) { return a * b; }
+inline Counted r_add(Counted a, Counted b) { return a + b; }
+inline Counted r_sub(Counted a, Counted b) { return a - b; }
 inline Counted r_fmod(Counted a, Counted b) { ++Counted::ops; return std::fmod(a.v, b.v); }
 inline Counted r_floor(Counted a) { return std::floor(a.v); }
 inline int to_int(Counted a) { return (int)a.v; }

@@ -46,15 +46,18 @@ COMPILE_FLAGS = {
     "count": ("-x", "c++", "-std=c++17", "-O2", "-fPIC", "-c", "-DRAMSES_COUNT_OPS"),
 }
 LINK_FLAGS = ("-shared",)
-# flags of one source beside its kind's: the dissipation kernel repeats its
-# twin's roundings, so nothing contracts a product and a sum into an FMA
-SOURCE_FLAGS = {
-    "dissip_step.cu": {"cuda": ("-fmad=false",), "host": ("-ffp-contract=off",),
-                       "count": ("-ffp-contract=off",)},
-}
+# flags of one source beside its kind's: the dissipation kernel and the
+# shear border kernels repeat their twins' roundings (their Kahan carries
+# too), so nothing contracts a product and a sum into an FMA. mhd_step.cu
+# keeps contraction and rounds its compensated update stage on its own
+# with intrinsics (csrc/common.cuh r_add, r_sub, r_mul).
+_NO_FMA = {"cuda": ("-fmad=false",), "host": ("-ffp-contract=off",),
+           "count": ("-ffp-contract=off",)}
+SOURCE_FLAGS = {"dissip_step.cu": _NO_FMA, "shear_border.cu": _NO_FMA}
 
 
 def compile_flags(kind: str, source: str) -> tuple[str, ...]:
+    """The flags of one source: its kind's and its own."""
     return COMPILE_FLAGS[kind] + SOURCE_FLAGS.get(source, {}).get(kind, ())
 
 
@@ -147,17 +150,19 @@ _SIGNATURES = {
     "ramses_mhd_step_scratch_per_cell": ([], ctypes.c_longlong),
     "ramses_cfl_mhd_f32": ([_P, _P, _P, _I, _I, _I, _P, _P], _I),
     "ramses_cfl_mhd_f64": ([_P, _P, _P, _I, _I, _I, _P, _P], _I),
-    "ramses_mhd_step_f32": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
-    "ramses_mhd_step_f64": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_mhd_step_f32": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
+    "ramses_mhd_step_f64": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
     "ramses_cfl_mhd_shear_f32": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "ramses_cfl_mhd_shear_f64": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
-    "ramses_mhd_step_shear_scratch": ([_I, _I, _I], ctypes.c_longlong),
-    "ramses_mhd_step_shear_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
-    "ramses_mhd_step_shear_f64": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_mhd_step_shear_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
+    "ramses_mhd_step_shear_f32": ([_P] * 8 + [_I] * 4 + [_P, _P], _I),
+    "ramses_mhd_step_shear_f64": ([_P] * 8 + [_I] * 4 + [_P, _P], _I),
     "ramses_shear_slabs_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "ramses_shear_slabs_f64": ([_P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
-    "ramses_shear_border_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
-    "ramses_shear_border_f64": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_shear_border_f32": ([_P] * 7 + [_I] * 4 + [_P, _P], _I),
+    "ramses_shear_border_f64": ([_P] * 7 + [_I] * 4 + [_P, _P], _I),
+    "ramses_shear_zslabs_f32": ([_P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_shear_zslabs_f64": ([_P, _P, _P, _I, _I, _I, _P, _P], _I),
     "ramses_cfl_hydro_partials": ([], _I),
     "ramses_cfl_hydro_f32": ([_P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
     "ramses_cfl_hydro_f64": ([_P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
@@ -165,25 +170,22 @@ _SIGNATURES = {
     "ramses_hydro_step_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
     "ramses_hydro_step_f64": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
     "ramses_dissip_step_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
-    "ramses_dissip_step_f32": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
-    "ramses_dissip_step_f64": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
-    "ramses_dissip_step_shear_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
-    "ramses_dissip_step_shear_f64": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_dissip_step_f32": ([_P] * 6 + [_I] * 4 + [_P, _P], _I),
+    "ramses_dissip_step_f64": ([_P] * 6 + [_I] * 4 + [_P, _P], _I),
 }
 
 # the operation-counting entry points of build("count")
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 _COUNT_SIGNATURES = {
     "ramses_cfl_mhd_ops": ([_P, _I, _I, _I, _P], _L),
-    "ramses_mhd_step_ops": ([_P, _I, _I, _I, _P, ctypes.c_double], _L),
+    "ramses_mhd_step_ops": ([_P, _I, _I, _I, _I, _P, _D], _L),
     "ramses_cfl_mhd_shear_ops": ([_P, _P, _I, _I, _I, _P], _L),
-    "ramses_mhd_step_shear_ops": ([_P, _P, _I, _I, _I, _P, ctypes.c_double], _L),
-    "ramses_shear_border_ops": ([_P, _P, _P, _I, _I, _I, _P, ctypes.c_double, ctypes.c_double,
-                                 _P], None),
+    "ramses_mhd_step_shear_ops": ([_P] * 4 + [_I] * 4 + [_P, _D], _L),
+    "ramses_shear_border_ops": ([_P] * 3 + [_I] * 4 + [_P, _D, _D, _P], None),
     "ramses_cfl_hydro_ops": ([_P, _I, _I, _I, _I, _P], _L),
-    "ramses_hydro_step_ops": ([_P, _I, _I, _I, _P, _P, ctypes.c_double, _P, _P], None),
-    "ramses_dissip_step_ops": ([_P, _I, _I, _I, _P, ctypes.c_double], _L),
-    "ramses_dissip_step_shear_ops": ([_P, _P, _I, _I, _I, _P, ctypes.c_double], _L),
+    "ramses_hydro_step_ops": ([_P, _I, _I, _I, _P, _P, _D, _P, _P], None),
+    "ramses_dissip_step_ops": ([_P, _P] + [_I] * 4 + [_P, _D], _L),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -202,6 +204,12 @@ def load_library(kind: str = "cuda") -> ctypes.CDLL:
     return _loaded[kind]
 
 
+# the last params object and its block: every launch of a loop step passes
+# the same params, and building the block costs more host time per launch
+# than a launch of the MRI's small kernels leaves to spare
+_last_block: tuple = (None, None)
+
+
 def param_block(params) -> ctypes.Array:
     """The physical parameters as the C side's P_* double block
     (csrc/common.cuh). An iorder-1 scheme is slope_type 0; the Riemann
@@ -209,9 +217,18 @@ def param_block(params) -> ctypes.Array:
     are formed as the JAX package forms them: the fill's 1.5 omega0 Lx
     with Lx = dx nx and Ly = dy ny (solvers/shear.py:40-45), the remap's
     with Lx = xmax - xmin and Ly = ymax - ymin (godunov_mhd.py:558-561).
-    Then nu and eta."""
+    Then nu and eta; then the stratified z faces' flag and the density
+    factors of their ghost rows (solvers/stratified.py density_factors).
+    The block is read, never written, by the C side."""
+    global _last_block
+    if _last_block[0] is params:
+        return _last_block[1]
+    from ..solvers.stratified import density_factors, uses_stratified_z
+
     slope = 0.0 if params.iorder == 1 else float(params.slope_type)
-    return (ctypes.c_double * 21)(
+    strat = uses_stratified_z(params)
+    lo, hi = density_factors(params) if strat else ((0.0,) * 3, (0.0,) * 3)
+    block = (ctypes.c_double * 28)(
         params.gamma0, params.smallr, params.smallp, params.smallc, slope,
         params.dx, params.dy, params.dz,
         params.niter_riemann, params.smallpp, params.gamma6, params.c_iso,
@@ -220,4 +237,7 @@ def param_block(params) -> ctypes.Array:
         1.5 * params.omega0 * (params.dx * params.nx), params.dy * params.ny,
         1.5 * params.omega0 * (params.xmax - params.xmin), params.ymax - params.ymin,
         params.nu, params.eta,
+        float(strat), *lo, *hi,
     )
+    _last_block = (params, block)
+    return block

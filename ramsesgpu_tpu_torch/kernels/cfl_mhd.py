@@ -6,7 +6,13 @@ Replaces the TPU kernels ramsesgpu_tpu/pallas/packed_io.py:51
 ``_inv_dt_mhd_fields``), twin ``solvers.timestep.inv_dt_mhd_periodic``,
 and, given the kept Bx face, pallas/shear_packed.py:716
 ``make_shear_cfl_kernel`` (shearing box: isothermal or adiabatic, the
-rotating frame's vy offset), twin ``solvers.timestep.inv_dt_mhd_shear``.
+rotating frame's vy offset; stratified z faces), twin
+``solvers.timestep.inv_dt_mhd_shear``.
+
+A compensated state (``[implementation] compensated``) is [16, nz, ny, nx],
+the state and then its Kahan carry, and a shearing box's kept face [2, nz,
+ny]; the reduction reads channels 0-7 and the face, as the JAX kernel reads
+its packed state's first nvar channels (pallas/packed_io.py:190).
 """
 from __future__ import annotations
 
@@ -21,9 +27,20 @@ _FN = {torch.float32: "ramses_cfl_mhd_f32", torch.float64: "ramses_cfl_mhd_f64"}
 _FN_SHEAR = {torch.float32: "ramses_cfl_mhd_shear_f32", torch.float64: "ramses_cfl_mhd_shear_f64"}
 
 
+def state_channels(params: RunParams) -> int:
+    """Channels of the MHD loop state: 8, or 16 with the Kahan carry."""
+    return 16 if params.compensated else 8
+
+
+def kept_lead(params: RunParams) -> tuple:
+    """Leading dims of the kept face: (), or (2,) with its carry."""
+    return (2,) if params.compensated else ()
+
+
 def check_state(params: RunParams, S: torch.Tensor) -> None:
-    """The port's loop state: a contiguous [8, nz, ny, nx] f32/f64 tensor."""
-    want = (8, params.nz, params.ny, params.nx)
+    """The port's loop state: a contiguous [8, nz, ny, nx] f32/f64 tensor
+    ([16, ...] when compensated)."""
+    want = (state_channels(params), params.nz, params.ny, params.nx)
     if tuple(S.shape) != want:
         raise ValueError(f"state shape {tuple(S.shape)} != {want}")
     if S.dtype not in _FN:
@@ -45,9 +62,9 @@ def check_plane(params: RunParams, S: torch.Tensor, name: str, x: torch.Tensor,
 class CflMhdKernel:
     """``inv = kernel(params, S, kept=None)``: the 0-d device tensor
     max over cells of the MHD inverse time step; with the kept Bx face
-    [nz, ny] of a shearing-box state, its shearing-box mode. On a CPU
-    tensor it returns the twin's value; on a CUDA tensor it launches the
-    kernel."""
+    [nz, ny] ([2, nz, ny] compensated) of a shearing-box state, its
+    shearing-box mode. On a CPU tensor it returns the twin's value; on a
+    CUDA tensor it launches the kernel."""
 
     def __init__(self) -> None:
         self.launches = 0
@@ -61,11 +78,11 @@ class CflMhdKernel:
             )
         check_state(params, S)
         if kept is not None:
-            check_plane(params, S, "kept", kept)
+            check_plane(params, S, "kept", kept, kept_lead(params))
         if S.device.type == "cpu":
             if kept is None:
-                return inv_dt_mhd_periodic(params, S)
-            return inv_dt_mhd_shear(params, S, kept)
+                return inv_dt_mhd_periodic(params, S[:8])
+            return inv_dt_mhd_shear(params, S, kept[0] if params.compensated else kept)
         if S.device.type != "cuda":
             raise ValueError(f"unsupported device {S.device}")
         lib = load_library("cuda")

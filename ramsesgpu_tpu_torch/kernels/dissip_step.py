@@ -12,6 +12,11 @@
   ``solvers.dissipation.mhd_dissipation_shear_update`` and
   ``kept_face_resistive_ct``.
 
+Compensated (``[implementation] compensated``): the state is [16, nz, ny,
+nx] (the state, then its Kahan carry) and a shearing box's kept face [2,
+nz, ny]; each channel's whole increment (B's the resistive CT delta) is
+Kahan-added (the compensated form of dissipation.py:357-380).
+
 The kernel updates the interior-only state [8, nz, ny, nx] in place. Its
 stage intermediates (25 values per stage-grid cell; the shearing box's
 stage grid has nx + 4 columns) need less room than the step kernel's, so
@@ -27,12 +32,10 @@ from ..core.constants import IA
 from ..solvers.dissipation import (kept_face_resistive_ct, mhd_dissipation_periodic_update,
                                    mhd_dissipation_shear_update)
 from .build import load_library, param_block
-from .cfl_mhd import check_plane, check_state
-from .mhd_step import SLAB, require_step_scope, uses_shear
+from .cfl_mhd import check_plane, check_state, kept_lead
+from .mhd_step import SLAB, check_buffer, require_step_scope, uses_shear
 
 _FN = {torch.float32: "ramses_dissip_step_f32", torch.float64: "ramses_dissip_step_f64"}
-_FN_SHEAR = {torch.float32: "ramses_dissip_step_shear_f32",
-             torch.float64: "ramses_dissip_step_shear_f64"}
 
 
 class DissipStepKernel:
@@ -41,9 +44,9 @@ class DissipStepKernel:
     true, and returns S. ``dt`` is a 0-d tensor of S's dtype on S's device.
     A shearing-box state passes ``shear=(slabs, kept)``: the sheared ghost
     slabs [2, 8, nz, ny, 3] it reads, whose XMAX slab's first Bx column
-    holds the kept face, and the kept face [nz, ny] it writes when
-    eta > 0. On a CPU tensor the twin runs; on a CUDA tensor the kernel
-    launches."""
+    holds the kept face, and the kept face [nz, ny] ([2, nz, ny] with its
+    carry when compensated) it writes when eta > 0. On a CPU tensor the
+    twin runs; on a CUDA tensor the kernel launches."""
 
     def __init__(self) -> None:
         self.launches = 0
@@ -76,12 +79,8 @@ class DissipStepKernel:
             raise ValueError("shear=(slabs, kept) is given exactly for a shearing-box state")
         if shear is not None:
             slabs, kept = shear
-            want = (2, 8, params.nz, params.ny, SLAB)
-            if (tuple(slabs.shape) != want or slabs.dtype != S.dtype
-                    or slabs.device != S.device or not slabs.is_contiguous()):
-                raise ValueError(f"slabs must be a contiguous {want} {S.dtype} tensor on "
-                                 f"{S.device}")
-            check_plane(params, S, "kept", kept)
+            check_buffer(S, "slabs", slabs, (2, 8, params.nz, params.ny, SLAB))
+            check_plane(params, S, "kept", kept, kept_lead(params))
         if S.device.type == "cpu":
             if shear is None:
                 S.copy_(torch.where(active, mhd_dissipation_periodic_update(params, S, dt), S))
@@ -89,7 +88,10 @@ class DissipStepKernel:
                 S_new, eypl, ezpl = mhd_dissipation_shear_update(params, S, slabs, dt)
                 S.copy_(torch.where(active, S_new, S))
                 if params.eta > 0:
-                    kept_new = kept_face_resistive_ct(params, slabs[1, IA, ..., 0], eypl, ezpl, dt)
+                    # the face's old value: the XMAX slab's first Bx column
+                    face = slabs[1, IA, ..., 0]
+                    old = torch.stack([face, kept[1]]) if params.compensated else face
+                    kept_new = kept_face_resistive_ct(params, old, eypl, ezpl, dt)
                     kept.copy_(torch.where(active, kept_new, kept))
             return S
         if S.device.type != "cuda":
@@ -100,13 +102,12 @@ class DissipStepKernel:
                 or scratch.numel() < need or not scratch.is_contiguous()):
             raise ValueError(f"scratch must be a contiguous {S.dtype} buffer of "
                              f">= {need} values on {S.device} (DissipStepKernel.scratch)")
-        tail = (dt.data_ptr(), active.data_ptr(), params.nx, params.ny, params.nz,
-                param_block(params), torch.cuda.current_stream(S.device).cuda_stream)
-        if shear is None:
-            err = getattr(lib, _FN[S.dtype])(S.data_ptr(), scratch.data_ptr(), *tail)
-        else:
-            err = getattr(lib, _FN_SHEAR[S.dtype])(S.data_ptr(), scratch.data_ptr(),
-                                                   slabs.data_ptr(), kept.data_ptr(), *tail)
+        slab_ptr, kept_ptr = (None, None) if shear is None else (slabs.data_ptr(),
+                                                                  kept.data_ptr())
+        err = getattr(lib, _FN[S.dtype])(
+            S.data_ptr(), scratch.data_ptr(), slab_ptr, kept_ptr, dt.data_ptr(),
+            active.data_ptr(), int(params.compensated), params.nx, params.ny, params.nz,
+            param_block(params), torch.cuda.current_stream(S.device).cuda_stream)
         if err:
             raise RuntimeError(f"dissip_step launch failed: CUDA error {err}")
         self.launches += 1

@@ -9,9 +9,14 @@ CFL kernel (kernels/cfl_mhd.py) and the step kernel (kernels/mhd_step.py)
 through the shared chunk loop (kernels/loop.py); with nu > 0 or eta > 0
 also the dissipation kernel (kernels/dissip_step.py) on the updated state,
 whose index wrap is the inter-phase refill (the JAX loop's second
-packed-io launch, pallas/fused_mhd3d.py:457-463).
+packed-io launch, pallas/fused_mhd3d.py:457-463). A compensated run
+carries [16, nz, ny, nx], the state and its Kahan carry (TPU row
+A′-compensated, pallas/fused_mhd3d.py:247-259): pack appends a zero
+carry, unpack drops it.
 """
 from __future__ import annotations
+
+import torch
 
 from ..config.params import RunParams
 from ..solvers.boundary import interior, make_boundaries_concat
@@ -37,10 +42,26 @@ def make_advance_n(params: RunParams, device, packed_form: bool = False):
 
     return make_kernel_loop(
         params, device, lambda S: cfl_mhd(params, S), lambda S: bind_periodic_step(params, S),
-        pack=lambda U: interior(params, U).contiguous(),
-        unpack=lambda S, t: make_boundaries_concat(params, S, interior_only=True),
+        pack=lambda U: pack(params, U),
+        unpack=lambda S, t: unpack(params, S),
         packed_form=packed_form,
     )
+
+
+def pack(params: RunParams, U) -> torch.Tensor:
+    """Ghosted state -> the loop state (a new contiguous tensor): the
+    interior, and a zero Kahan carry after it when compensated
+    (pallas/packed_io.py pack_state with nvar = 16)."""
+    S = interior(params, U)
+    if params.compensated:
+        S = torch.cat([S, torch.zeros_like(S)])
+    return S.contiguous()
+
+
+def unpack(params: RunParams, S) -> torch.Tensor:
+    """The loop state -> the ghosted state (the periodic fill); the carry
+    is dropped."""
+    return make_boundaries_concat(params, S[:8], interior_only=True)
 
 
 def bind_periodic_step(params: RunParams, S):

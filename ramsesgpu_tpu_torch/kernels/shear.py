@@ -16,6 +16,15 @@ takes the kept face's resistive CT (kernels/dissip_step.py; the JAX loop's
 pallas/shear_packed.py:1178-1203). The device t feeds the slabs and the
 remap, so a chunk makes no host sync.
 
+Compensated (``[implementation] compensated``): S is [16, nz, ny, nx] (the
+state, then its Kahan carry) and kept [2, nz, ny] (the face, then its
+carry); pack appends zero carries and unpack drops them
+(pallas/shear_packed.py:1210-1245). Stratified (BC_Z_STRATIFIED z faces
+and the static vertical gravity, TPU row A′-stratified): one more launch
+per step builds the z ghost slabs of the interior and of the x slabs
+(kernels/shear_border.py) before the step kernel, which reads them and
+g_z, one value per z row (``gz``, the run's gravity field column).
+
 ``[implementation] stripFused`` (the JAX package's fused border strip,
 pallas/shear_packed.py:432, its default for a dissipative MRI when
 ny % 128 == 0) selects nothing here: the port has no strip. What the fused
@@ -34,12 +43,13 @@ from ..config.params import RunParams
 from ..core.constants import IA
 from ..solvers.dissipation import uses_dissipation
 from ..solvers.shear import wrap_yz
+from ..solvers.stratified import uses_stratified_z
 from ..solvers.timestep import dt_from_inv
 from .cfl_mhd import cfl_mhd
 from .dissip_step import dissip_step
 from .loop import make_kernel_loop
-from .mhd_step import NPLANE, SLAB, mhd_step, require_step_scope, uses_shear
-from .shear_border import shear_border, shear_slabs
+from .mhd_step import NPLANE, SLAB, mhd_step, require_step_scope, uses_shear, zslab_shape
+from .shear_border import shear_border, shear_slabs, shear_zslabs
 
 
 def require_shear(params: RunParams) -> None:
@@ -50,38 +60,60 @@ def require_shear(params: RunParams) -> None:
 
 def pack(params: RunParams, U: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Ghosted state -> the loop state (S, kept): new contiguous tensors
-    (pallas/shear_packed.py:1210 pack_shear without its ghost bands)."""
+    (pallas/shear_packed.py:1210 pack_shear without its ghost bands), with
+    zero Kahan carries when compensated."""
     g = params.ghost_width
-    S = U[:, g:-g, g:-g, g:g + params.nx].contiguous()
-    kept = U[IA, g:-g, g:-g, params.nx + g].contiguous()
-    return S, kept
+    S = U[:, g:-g, g:-g, g:g + params.nx]
+    kept = U[IA, g:-g, g:-g, params.nx + g]
+    if params.compensated:
+        S = torch.cat([S, torch.zeros_like(S)])
+        kept = torch.stack([kept, torch.zeros_like(kept)])
+    return S.contiguous(), kept.contiguous()
 
 
 def unpack(params: RunParams, state, t: torch.Tensor) -> torch.Tensor:
     """The loop state -> the ghosted state with a fresh sheared fill at
     time t (pallas/shear_packed.py:1234 unpack_shear): the slabs at t (the
     slab kernel at t + 0, the kept face written as the XMAX slab's first
-    Bx column), beside the interior in x, then the y and z wraps."""
+    Bx column), beside the interior in x, then the y and z wraps (or,
+    stratified, the z ghost slabs of that block and the y wrap). Carries
+    are dropped."""
     S, kept = state
     slabs = shear_slabs(params, S, kept, t, torch.zeros_like(t))
-    return wrap_yz(params, torch.cat([slabs[0], S, slabs[1]], dim=-1))
+    mid = torch.cat([slabs[0], S[:8], slabs[1]], dim=-1)
+    if not uses_stratified_z(params):
+        return wrap_yz(params, mid)
+    zslabs = shear_zslabs(params, S, slabs)
+    mid = torch.cat([zslabs[0], mid, zslabs[1]], dim=-3)
+    g, n = params.ghost_width, params.ny
+    return torch.cat([mid[..., n - g:, :], mid, mid[..., :g, :]], dim=-2)
 
 
-def bind_step(params: RunParams, state) -> Callable:
+def bind_step(params: RunParams, state, gz: torch.Tensor | None = None) -> Callable:
     """The shearing-box step with its buffers for this state's shapes:
-    ``step(state, dt, active, t)`` advances (S, kept) in place from t."""
+    ``step(state, dt, active, t)`` advances (S, kept) in place from t.
+    ``gz``: g_z of each z row [nz + 6], for stratified z faces."""
     S, _kept = state
+    strat = uses_stratified_z(params)
+    if strat and (gz is None or tuple(gz.shape) != (params.nz + 2 * SLAB,)):
+        raise ValueError("stratified z faces need gz, g_z of each z row [nz + 6]")
     scratch = mhd_step.scratch(params, S)
     slabs = torch.empty((2, 8, params.nz, params.ny, SLAB), dtype=S.dtype, device=S.device)
     planes = torch.zeros((NPLANE, params.nz, params.ny), dtype=S.dtype, device=S.device)
     remapped = torch.zeros((4, params.nz, params.ny), dtype=S.dtype, device=S.device)
+    zslabs = torch.empty(zslab_shape(params), dtype=S.dtype, device=S.device) if strat else None
+    gz = None if gz is None else gz.to(device=S.device, dtype=S.dtype).contiguous()
 
     def step(state, dt, active, t):
         S, kept = state
         # the reference fills the shear ghosts for totalTime + dt
         # (MHDRunGodunov.cpp:3551)
         shear_slabs(params, S, kept, t, dt, out=slabs)
-        mhd_step(params, S, dt, active, scratch, shear=(slabs, planes))
+        shear = (slabs, planes)
+        if strat:
+            shear_zslabs(params, S, slabs, out=zslabs)
+            shear = (slabs, planes, zslabs, gz)
+        mhd_step(params, S, dt, active, scratch, shear=shear)
         shear_border(params, S, kept, planes, t, dt, active, remapped)
         if uses_dissipation(params):
             # the sheared refill at t + dt from the updated state before the
@@ -93,23 +125,24 @@ def bind_step(params: RunParams, state) -> Callable:
     return step
 
 
-def make_advance_n(params: RunParams, device, packed_form: bool = False):
+def make_advance_n(params: RunParams, device, packed_form: bool = False,
+                   gz: torch.Tensor | None = None):
     """The shearing-box chunk loop; see kernels/loop.py make_kernel_loop.
-    The loop state is the pair (S, kept)."""
+    The loop state is the pair (S, kept); ``gz`` as in bind_step."""
     require_shear(params)
     return make_kernel_loop(
         params, device, lambda st: cfl_mhd(params, st[0], kept=st[1]),
-        lambda st: bind_step(params, st),
+        lambda st: bind_step(params, st, gz),
         pack=lambda U: pack(params, U),
         unpack=lambda st, t: unpack(params, st, t),
         packed_form=packed_form,
     )
 
 
-def make_step_fn(params: RunParams, device) -> Callable:
-    """``step(U, t) -> (U_new, dt)`` on the ghosted state: pack, one step,
-    and the fresh sheared fill at t + dt
-    (pallas/shear_packed.py:1248 make_shear_packed_step_fn)."""
+def make_step_fn(params: RunParams, device, gz: torch.Tensor | None = None) -> Callable:
+    """``step(U, t) -> (U_new, dt)`` on the ghosted state: pack (zero
+    carries when compensated), one step, and the fresh sheared fill at
+    t + dt (pallas/shear_packed.py:1248 make_shear_packed_step_fn)."""
     require_shear(params)
     step = None  # bound to the buffers of the first state
 
@@ -117,7 +150,7 @@ def make_step_fn(params: RunParams, device) -> Callable:
         nonlocal step
         state = pack(params, U)
         if step is None:
-            step = bind_step(params, state)
+            step = bind_step(params, state, gz)
         dt = dt_from_inv(params, cfl_mhd(params, state[0], kept=state[1]))
         active = torch.ones((), dtype=torch.bool, device=U.device)
         step(state, dt, active, t)

@@ -6,24 +6,32 @@ and their plain PyTorch twins.
 - ``shear_border``: the conservative remap of the step kernel's x-face
   planes at t + dt/2, the border-column corrections, the density floor
   and the CT update of the kept Bx face; twin
-  ``solvers.godunov_mhd.shear_border_update``.
+  ``solvers.godunov_mhd.shear_border_update``. Compensated: Kahan adds,
+  the carry reset where the floor fires, the kept face's carry.
+- ``shear_zslabs``: the stratified z ghost slabs of the interior and of
+  the x slabs beside it (BC_Z_STRATIFIED); twin
+  ``solvers.shear.stratified_zslabs``.
 
 With the step kernel's shearing-box mode (kernels/mhd_step.py) they
 replace the TPU border strip kernel ramsesgpu_tpu/pallas/shear_packed.py:237
-``_make_strip_kernel`` and the XLA glue around it (:952-1004, :1108-1174).
+``_make_strip_kernel`` and the XLA glue around it (:952-1004, :1108-1174;
+stratified, the slab z extension and the z band refills :963-975,
+:1006-1021).
 """
 from __future__ import annotations
 
 import torch
 
 from ..config.params import RunParams
-from ..solvers.godunov_mhd import shear_border_update
+from ..solvers.godunov_mhd import kept_face, shear_border_update
 from ..solvers.shear import shear_slabs as shear_slabs_twin
+from ..solvers.shear import stratified_zslabs
 from .build import load_library, param_block
-from .cfl_mhd import check_plane, check_state
-from .mhd_step import NPLANE, SLAB
+from .cfl_mhd import check_plane, check_state, kept_lead
+from .mhd_step import NPLANE, SLAB, check_buffer, zslab_shape
 
 _SLABS = {torch.float32: "ramses_shear_slabs_f32", torch.float64: "ramses_shear_slabs_f64"}
+_ZSLABS = {torch.float32: "ramses_shear_zslabs_f32", torch.float64: "ramses_shear_zslabs_f64"}
 _BORDER = {torch.float32: "ramses_shear_border_f32", torch.float64: "ramses_shear_border_f64"}
 
 
@@ -50,16 +58,14 @@ class ShearSlabsKernel:
 
     def __call__(self, params: RunParams, S, kept, t, dt, out=None) -> torch.Tensor:
         check_state(params, S)
-        check_plane(params, S, "kept", kept)
+        check_plane(params, S, "kept", kept, kept_lead(params))
         _check_scalars(S, t=t, dt=dt)
         shape = (2, 8, params.nz, params.ny, SLAB)
         if out is None:
             out = torch.empty(shape, dtype=S.dtype, device=S.device)
-        elif (tuple(out.shape) != shape or out.dtype != S.dtype or out.device != S.device
-              or not out.is_contiguous()):
-            raise ValueError(f"out must be a contiguous {shape} {S.dtype} tensor on {S.device}")
+        check_buffer(S, "out", out, shape)
         if S.device.type == "cpu":
-            return out.copy_(shear_slabs_twin(params, S, kept, t + dt))
+            return out.copy_(shear_slabs_twin(params, S[:8], kept_face(kept), t + dt))
         if S.device.type != "cuda":
             raise ValueError(f"unsupported device {S.device}")
         err = getattr(load_library("cuda"), _SLABS[S.dtype])(
@@ -71,13 +77,42 @@ class ShearSlabsKernel:
         return out
 
 
+class ShearZSlabsKernel:
+    """``zslabs = kernel(params, S, slabs, out=None)``: the stratified z
+    ghost slabs [2, 8, 3, ny, nx + 6] (ZMIN, ZMAX) of the block [XMIN slab |
+    S | XMAX slab], written into ``out`` when given. On a CPU tensor the
+    twin runs; on a CUDA tensor the kernel launches."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def __call__(self, params: RunParams, S, slabs, out=None) -> torch.Tensor:
+        check_state(params, S)
+        check_buffer(S, "slabs", slabs, (2, 8, params.nz, params.ny, SLAB))
+        if out is None:
+            out = torch.empty(zslab_shape(params), dtype=S.dtype, device=S.device)
+        check_buffer(S, "out", out, zslab_shape(params))
+        if S.device.type == "cpu":
+            return out.copy_(stratified_zslabs(params, S[:8], slabs))
+        if S.device.type != "cuda":
+            raise ValueError(f"unsupported device {S.device}")
+        err = getattr(load_library("cuda"), _ZSLABS[S.dtype])(
+            S.data_ptr(), slabs.data_ptr(), out.data_ptr(), params.nx, params.ny, params.nz,
+            param_block(params), _stream(S))
+        if err:
+            raise RuntimeError(f"shear_zslabs launch failed: CUDA error {err}")
+        self.launches += 1
+        return out
+
+
 class ShearBorderKernel:
     """``remapped = kernel(params, S, kept, planes, t, dt, active,
     remapped=None)``: when ``active``, the remap of the step's x-face
     planes [5, nz, ny] at t + dt/2 and its corrections, in place on S's
-    border columns and on the kept face; returns the four remapped planes
-    [4, nz, ny] (density flux and emfY at faces 0 and nx). On a CPU tensor
-    the twin runs; on a CUDA tensor the kernel launches."""
+    border columns and on the kept face (compensated: Kahan adds on S's and
+    kept's carries too); returns the four remapped planes [4, nz, ny]
+    (density flux and emfY at faces 0 and nx). On a CPU tensor the twin
+    runs; on a CUDA tensor the kernel launches."""
 
     def __init__(self) -> None:
         self.launches = 0
@@ -85,7 +120,7 @@ class ShearBorderKernel:
     def __call__(self, params: RunParams, S, kept, planes, t, dt, active,
                  remapped=None) -> torch.Tensor:
         check_state(params, S)
-        check_plane(params, S, "kept", kept)
+        check_plane(params, S, "kept", kept, kept_lead(params))
         check_plane(params, S, "planes", planes, (NPLANE,))
         _check_scalars(S, t=t, dt=dt, active=active)
         if remapped is None:
@@ -100,7 +135,7 @@ class ShearBorderKernel:
             raise ValueError(f"unsupported device {S.device}")
         err = getattr(load_library("cuda"), _BORDER[S.dtype])(
             S.data_ptr(), kept.data_ptr(), planes.data_ptr(), remapped.data_ptr(),
-            t.data_ptr(), dt.data_ptr(), active.data_ptr(),
+            t.data_ptr(), dt.data_ptr(), active.data_ptr(), int(params.compensated),
             params.nx, params.ny, params.nz, param_block(params), _stream(S))
         if err:
             raise RuntimeError(f"shear_border launch failed: CUDA error {err}")
@@ -109,4 +144,5 @@ class ShearBorderKernel:
 
 
 shear_slabs = ShearSlabsKernel()
+shear_zslabs = ShearZSlabsKernel()
 shear_border = ShearBorderKernel()

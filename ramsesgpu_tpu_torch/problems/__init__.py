@@ -8,7 +8,8 @@ when that module is imported; ``solvers/step.py require_slice`` refuses
 those that need walls, 2D or a static gravity field). Any other name
 raises NotImplementedError. ``has_gravity_field`` is the JAX package's
 gate (problems/__init__.py:48-76): Keplerian-disk always has a field, MRI
-only with a [gravity] section (stratified MRI).
+only with a [gravity] section (stratified MRI); ``gravity_field`` builds
+the stratified MRI's.
 """
 from __future__ import annotations
 
@@ -46,6 +47,20 @@ def has_gravity_field(params: RunParams, config: ConfigMap) -> bool:
     if params.problem == "Keplerian-disk":
         return True
     return params.problem in ("MRI", "Mri", "mri") and mri_stratified(config)
+
+
+def gravity_field(params: RunParams, config: ConfigMap):
+    """The problem's static gravity field [3, *ghosted shape] (the
+    reference's h_gravity; JAX problems/__init__.py:48-55), or None. Only
+    the stratified MRI's is ported (mhd_inits.mri_gravity_field); the
+    Keplerian disk's raises NotImplementedError."""
+    if params.problem == "Keplerian-disk":
+        raise NotImplementedError("the Keplerian disk's gravity field is not ported")
+    if params.problem in ("MRI", "Mri", "mri"):
+        from .mhd_inits import mri_gravity_field
+
+        return mri_gravity_field(params, config)
+    return None
 
 
 def init_problem(params: RunParams, config: ConfigMap) -> np.ndarray:

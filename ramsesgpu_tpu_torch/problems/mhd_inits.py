@@ -17,7 +17,7 @@ from ..config.configmap import ConfigMap
 from ..config.params import RunParams
 from ..core.constants import IA, IB, IC, ID, IP, IU, IV, IW
 from . import register_mhd
-from .grid import coords, index_grids
+from .grid import cell_centers_1d, coords, index_grids
 
 
 def _np_dtype(params: RunParams):
@@ -354,6 +354,26 @@ def mri_stratified(config: ConfigMap) -> bool:
     """Whether an MRI run is the stratified one: its INI enables [gravity]
     (the reference builds h_gravity only then)."""
     return config.get_bool("gravity", "enabled", False) or config.has("gravity", "static")
+
+
+def mri_gravity_field(params: RunParams, config: ConfigMap):
+    """Static vertical gravity of the STRATIFIED MRI, [3, *ghosted shape]
+    in the state's dtype (ramsesgpu_tpu/problems/mhd_inits.py:353-378):
+    g_z = -omega0^2 z, with the optional smooth cutoff near the vertical
+    boundaries (MHDRunBase.cpp:3163-3245 init_mhd_mri_grav_field); None for
+    an MRI run without a [gravity] section."""
+    if not mri_stratified(config):
+        return None
+    z = cell_centers_1d(params, "z")
+    gz = -params.omega0**2 * z
+    if config.get_bool("MRI", "smoothGravity", False):
+        z_floor = config.get_float("MRI", "zFloor", 5.0)
+        H = params.c_iso / params.omega0
+        gz = gz * np.exp(-((np.abs(z) / (z_floor * H)) ** 8))
+    shape = params.shape[1:]
+    g = np.zeros((3,) + shape, dtype=_np_dtype(params))
+    g[2] = gz[:, None, None]
+    return g
 
 
 # aliases follow the reference's dispatch (MHDRunBase.cpp:1286-1340)

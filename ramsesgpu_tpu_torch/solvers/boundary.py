@@ -12,8 +12,9 @@ Per face, the simple BC types:
 Faces are filled X, then Y, then Z, so corner ghosts pick up the already
 filled transverse ghosts. The fill is copies and sign flips only, so it is
 bitwise equal to the JAX package's. A BC_SHEARINGBOX x face is left as it
-is here, as the JAX fill leaves it: solvers/shear.py fills it. COPY and
-stratified faces are not ported and raise.
+is here, as the JAX fill leaves it: solvers/shear.py fills it. A
+BC_Z_STRATIFIED z face takes the stratified MRI's hydrostatic fill
+(solvers/stratified.py). COPY faces are not ported and raise.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 
 from ..config.params import RunParams
 from ..core.constants import IA, IB, IC, IU, IV, IW, BoundaryConditionType as BCT
+from .stratified import make_boundary_z_stratified
 
 _X, _Y, _Z = -1, -2, -3
 _NORMAL_VEL = {_X: IU, _Y: IV, _Z: IW}
@@ -68,6 +70,8 @@ def _fill_side(params: RunParams, U: torch.Tensor, axis: int, is_max: bool, bc) 
     place; returns U."""
     if bc == BCT.BC_SHEARINGBOX and axis == _X:
         return U
+    if bc == BCT.BC_Z_STRATIFIED and axis == _Z:
+        return U.copy_(make_boundary_z_stratified(params, U, side_max=is_max))
     gw = params.ghost_width
     n = U.shape[axis] - 2 * gw
     dst = _take(U, axis, slice(n + gw, n + 2 * gw) if is_max else slice(0, gw))

@@ -28,6 +28,11 @@ Two forms:
   the JAX package's own f64 runs of the 16^3 dissipative Orszag-Tang test
   (tests/test_torch_dissip.py), 2.2e-8 of the state after one step.
 
+Compensated (a carry beside the state, solvers/godunov_mhd.py): the
+interior forms collect each channel's whole increment, B's being the CT
+delta, and make one Kahan add per channel against the carry; untouched
+channels keep theirs (JAX dissipation.py:357-380).
+
 2D dissipation is not ported: every function raises NotImplementedError
 for a 2D configuration.
 """
@@ -40,6 +45,14 @@ from ..core.constants import IA, IB, IC, ID, IP, IU, IV, IW
 from ..ops.stencil import shift_m, shift_p
 
 _X, _Y, _Z = -1, -2, -3
+
+
+def kahan_add(u, c, d):
+    """Kahan-compensated u + d with the running carry c: (u', c') with
+    y = d - c; u' = u + y; c' = (u' - u) - y (JAX godunov_mhd.py:414-423)."""
+    y = d - c
+    t = u + y
+    return t, (t - u) - y
 
 
 def uses_dissipation(params: RunParams) -> bool:
@@ -204,10 +217,12 @@ def apply_dissipation_mhd(params: RunParams, U, dt):
     return U
 
 
-def _interior_update(params: RunParams, W, dt, margin):
+def _interior_update(params: RunParams, W, dt, margin, comp=None):
     """The interior-only dissipative update of the window W, whose interior
     starts ``margin`` = (mz, my, mx) cells in: (new interior [8, nz, ny, nx],
-    emfY and emfZ at the interior's xmax face, or None without resistivity)."""
+    emfY and emfZ at the interior's xmax face, or None without resistivity).
+    ``comp``: the interior's carry [8, nz, ny, nx]; then the new interior
+    is compensated, [16, nz, ny, nx] (state, then carry)."""
     _require_3d(params)
     mz, my, mx = margin
 
@@ -216,6 +231,7 @@ def _interior_update(params: RunParams, W, dt, margin):
 
     W2 = W
     eypl = ezpl = None
+    dB = {}
     if params.eta > 0:
         emfs = compute_resistivity_emf(params, W)
         # the CT on the whole extent: later stages read the updated B one
@@ -223,6 +239,7 @@ def _interior_update(params: RunParams, W, dt, margin):
         W2 = W.clone()
         for slot, d in zip((IA, IB, IC), _ct_deltas(params, emfs, dt)):
             W2[slot] = W[slot] + d
+            dB[slot] = crop(d)
         face = (mx + params.nx) % W.shape[-1]  # periodic: face nx is face 0
         eypl = emfs[1][mz:mz + params.nz, my:my + params.ny, face]
         ezpl = emfs[0][mz:mz + params.nz, my:my + params.ny, face]
@@ -236,41 +253,61 @@ def _interior_update(params: RunParams, W, dt, margin):
         for axis, comps in compute_viscosity_fluxes(params, W2, dt).items():
             for slot, flx in comps.items():
                 dU[slot] = dU.get(slot, 0.0) + crop(flx - shift_p(flx, axis))
-    out = [crop(W2[c]) for c in range(8)]
-    for slot, d in dU.items():
-        out[slot] = out[slot] + d
-    return torch.stack(out), eypl, ezpl
+    if comp is None:
+        out = [crop(W2[c]) for c in range(8)]
+        for slot, d in dU.items():
+            out[slot] = out[slot] + d
+        return torch.stack(out), eypl, ezpl
+    deltas = {**dU, **dB}
+    outs, carries = [], []
+    for c in range(8):
+        u, carry = crop(W[c]), comp[c]
+        if c in deltas:
+            u, carry = kahan_add(u, carry, deltas[c])
+        outs.append(u)
+        carries.append(carry)
+    return torch.stack(outs + carries), eypl, ezpl
 
 
-def mhd_dissipation_interior_update(params: RunParams, U, dt, shear_planes: bool = False):
+def mhd_dissipation_interior_update(params: RunParams, U, dt, shear_planes: bool = False,
+                                    comp=None):
     """The new interior [8, nz, ny, nx] of a ghosted state after the
     dissipative sub-step in the kernel's form (CT on the whole extent);
     with ``shear_planes`` also the resistive emfY and emfZ at the xmax face
-    (None without resistivity)."""
+    (None without resistivity). ``comp``: a carry in U's layout (only its
+    interior is read); then the result is compensated, [16, nz, ny, nx]."""
     g = params.ghost_width
-    out, eypl, ezpl = _interior_update(params, U, dt, (g, g, g))
+    if comp is not None:
+        comp = comp[:, g:g + params.nz, g:g + params.ny, g:g + params.nx]
+    out, eypl, ezpl = _interior_update(params, U, dt, (g, g, g), comp)
     return (out, eypl, ezpl) if shear_planes else out
 
 
 def mhd_dissipation_periodic_update(params: RunParams, S, dt):
     """The dissipative sub-step of the interior-only periodic state
-    [8, nz, ny, nx]: the plain twin of the kernel's periodic mode."""
-    return _interior_update(params, S, dt, (0, 0, 0))[0]
+    [8, nz, ny, nx], or of a compensated one [16, ...]: the plain twin of
+    the kernel's periodic mode."""
+    comp = S[8:] if S.shape[0] == 16 else None
+    return _interior_update(params, S[:8], dt, (0, 0, 0), comp)[0]
 
 
 def mhd_dissipation_shear_update(params: RunParams, S, slabs, dt):
-    """The dissipative sub-step of the shearing box's interior S with the
-    sheared x ghost slabs [2, 8, nz, ny, g] beside it (y and z wrap):
-    (S_new, eypl, ezpl), the twin of the kernel's shear mode before the
-    kept face's update (``kept_face_resistive_ct``)."""
-    W = torch.cat([slabs[0], S, slabs[1]], dim=-1)
-    return _interior_update(params, W, dt, (0, 0, params.ghost_width))
+    """The dissipative sub-step of the shearing box's interior S (8 or, with
+    its carry, 16 channels) with the sheared x ghost slabs [2, 8, nz, ny, g]
+    beside it (y and z wrap): (S_new, eypl, ezpl), the twin of the kernel's
+    shear mode before the kept face's update (``kept_face_resistive_ct``)."""
+    comp = S[8:] if S.shape[0] == 16 else None
+    W = torch.cat([slabs[0], S[:8], slabs[1]], dim=-1)
+    return _interior_update(params, W, dt, (0, 0, params.ghost_width), comp)
 
 
 def kept_face_resistive_ct(params: RunParams, kept, eypl, ezpl, dt):
     """The kept Bx face after the resistive CT with the xmax-face emfY and
     emfZ planes [nz, ny] (pallas/shear_packed.py:1191-1203; the whole-array
-    ``ct`` range reaches that face)."""
+    ``ct`` range reaches that face); a compensated kept carry [2, nz, ny]
+    (face, carry) takes it as a Kahan add."""
     dtdy, dtdz = _div(dt, params.dy), _div(dt, params.dz)
-    return kept + (dtdy * (torch.roll(ezpl, -1, 1) - ezpl)
-                   - dtdz * (torch.roll(eypl, -1, 0) - eypl))
+    d = dtdy * (torch.roll(ezpl, -1, 1) - ezpl) - dtdz * (torch.roll(eypl, -1, 0) - eypl)
+    if kept.dim() == 3:
+        return torch.stack(kahan_add(kept[0], kept[1], d))
+    return kept + d

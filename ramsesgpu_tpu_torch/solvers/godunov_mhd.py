@@ -24,7 +24,17 @@ before it, as the JAX package's whole-array step does, because the
 update is linear in the face flux and EMF. The step twins
 (``mhd_3d_periodic_step``, ``mhd_3d_shear_step``) follow a dissipative
 Godunov update with the viscous / resistive sub-step (solvers/dissipation.py).
-Gravity and Kahan compensation are not ported.
+
+Kahan-compensated state (``[implementation] compensated``): the loop
+state carries 16 channels, the state and then a running carry c, and each
+channel's increment d is added as y = d - c; u' = u + y; c' = (u' - u) - y
+(JAX godunov_mhd.py:414-423); a shearing box's kept face becomes [2, nz,
+ny], the face and its carry. The stratified MRI (BC_Z_STRATIFIED z faces,
+solvers/stratified.py) adds the static vertical gravity g_z, one value per
+z row: a half-dt kick of the traced states and the conservative source
+with the time-centred momentum, chained through the carry when
+compensated (godunov_mhd.py:213-218, 375-413). Divisions of dt by the
+cell size go through a tensor (dissipation._div), as the kernels divide.
 """
 from __future__ import annotations
 
@@ -37,9 +47,10 @@ from ..ops.backend import xp
 from ..ops.eos import constoprim_mhd
 from ..ops.riemann_mhd import compute_emf, riemann_mhd
 from ..ops.trace_mhd3d import trace_unsplit_mhd_3d_parts
-from .dissipation import (kept_face_resistive_ct, mhd_dissipation_periodic_update,
-                          mhd_dissipation_shear_update, uses_dissipation)
-from .shear import roll_dynamic, shear_slabs
+from .dissipation import (_div, kahan_add, kept_face_resistive_ct,
+                          mhd_dissipation_periodic_update, mhd_dissipation_shear_update,
+                          uses_dissipation)
+from .shear import roll_dynamic, shear_slabs, stratified_zslabs
 
 _X, _Y, _Z = -1, -2, -3
 
@@ -69,11 +80,21 @@ def xpos_array(params: RunParams, dtype, device=None) -> torch.Tensor:
     return params.xmin + params.dx / 2 + (i - params.ghost_width) * params.dx
 
 
-def mhd_fluxes_emfs(params: RunParams, U: torch.Tensor, dt, xpos=None):
+def _kick(q, dt, gz):
+    """The half-dt vertical gravity kick of a traced state [8, ...]."""
+    q = q.clone()
+    q[IW] = q[IW] + 0.5 * dt * gz
+    return q
+
+
+def mhd_fluxes_emfs(params: RunParams, U: torch.Tensor, dt, xpos=None, gz=None):
     """Face fluxes (x, y, z) and edge EMFs (z, y, x) of one 3D MHD step;
-    ``xpos`` (cell-centre x, broadcastable) for the rotating frame."""
+    ``xpos`` (cell-centre x, broadcastable) for the rotating frame; ``gz``
+    (g_z per z row of U, broadcastable) kicks every traced state."""
     Q, _c = constoprim_mhd(params, U, dt)
     P = trace_unsplit_mhd_3d_parts(params, Q, U[IA], U[IB], U[IC], dt, xpos)
+    if gz is not None:
+        P = {k: (lambda f=v: _kick(f(), dt, gz)) for k, v in P.items()}
 
     flux_x = _riemann_dir(params, P["qm_x"](), P["qp_x"](), _X, None)
     flux_y = _riemann_dir(params, P["qm_y"](), P["qp_y"](), _Y, _PERM_Y)
@@ -113,11 +134,23 @@ def mhd_fluxes_emfs(params: RunParams, U: torch.Tensor, dt, xpos=None):
     return (flux_x, flux_y, flux_z), (emf_z, emf_y, emf_x)
 
 
-def mhd_apply_update(params: RunParams, S, fluxes, emfs, dt, x0: int = 0):
+def split_carry(S: torch.Tensor):
+    """(state [8, ...], carry [8, ...] or None) of a loop state of 8 or 16
+    channels."""
+    return (S[:8], S[8:]) if S.shape[0] == 16 else (S, None)
+
+
+def mhd_apply_update(params: RunParams, S, fluxes, emfs, dt, x0: int = 0, z0: int = 0,
+                     comp=None, gz=None):
     """Conservative + CT update of the state [8, nz, ny, nx] from its face
-    fluxes and edge EMFs. y and z wrap; the fluxes and EMFs extend ``x0``
-    columns past S on each x side (0: x wraps too)."""
-    dtdx, dtdy, dtdz = dt / params.dx, dt / params.dy, dt / params.dz
+    fluxes and edge EMFs. y wraps; the fluxes and EMFs extend ``x0``
+    columns (``z0`` rows) past S on each x (z) side (0: x (z) wraps too).
+    ``comp``: the carry [8, nz, ny, nx]; then the update is Kahan-
+    compensated and [16, ...] returns (state, then the new carry).
+    ``gz``: g_z per z row of the fluxes' frame (broadcastable): the
+    conservative gravity source with the time-centred momentum
+    (JAX godunov_mhd.py:375-413)."""
+    dtdx, dtdy, dtdz = _div(dt, params.dx), _div(dt, params.dy), _div(dt, params.dz)
     (flux_x, flux_y, flux_z), (emf_z, emf_y, emf_x) = fluxes, emfs
     dU = (
         dtdx * (flux_x - xp.shift_p(flux_x, _X))
@@ -128,16 +161,33 @@ def mhd_apply_update(params: RunParams, S, fluxes, emfs, dt, x0: int = 0):
     dby = (xp.shift_p(emf_x, _Z) - emf_x) * dtdz - (xp.shift_p(emf_z, _X) - emf_z) * dtdx
     dbz = (xp.shift_p(emf_y, _X) - emf_y) * dtdx - (xp.shift_p(emf_x, _Y) - emf_x) * dtdy
     deltas = [dU[ID], dU[IP], dU[IU], dU[IV], dU[IW], dbx, dby, dbz]
-    if x0:
-        deltas = [d[..., x0:x0 + params.nx] for d in deltas]
-    return torch.stack([S[c] + d for c, d in enumerate(deltas)])
+    if x0 or z0:
+        deltas = [d[..., z0:z0 + params.nz, :, x0:x0 + params.nx] for d in deltas]
+    g = None
+    if gz is not None:
+        g = torch.broadcast_to(gz, flux_x.shape[1:])[z0:z0 + params.nz, :, x0:x0 + params.nx]
+    if comp is None:
+        outs = [S[c] + d for c, d in enumerate(deltas)]
+        if g is not None:
+            mom_half = 0.5 * (S[IW] + outs[IW])
+            outs[IW] = outs[IW] + dt * S[ID] * g
+            outs[IP] = outs[IP] + dt * mom_half * g
+        return torch.stack(outs)
+    outs, carries = map(list, zip(*(kahan_add(S[c], comp[c], d) for c, d in enumerate(deltas))))
+    if g is not None:
+        mom_half = 0.5 * (S[IW] + outs[IW])
+        outs[IW], carries[IW] = kahan_add(outs[IW], carries[IW], dt * S[ID] * g)
+        outs[IP], carries[IP] = kahan_add(outs[IP], carries[IP], dt * mom_half * g)
+    return torch.stack(outs + carries)
 
 
 def mhd_3d_periodic_update(params: RunParams, S: torch.Tensor, dt) -> torch.Tensor:
     """One 3D MHD+CT Godunov update of the interior-only periodic state
-    [8, nz, ny, nx] (the twin of the step kernel; no dissipation)."""
+    [8, nz, ny, nx], or of a compensated one [16, ...] (the twin of the
+    step kernel; no dissipation)."""
+    S, comp = split_carry(S)
     fluxes, emfs = mhd_fluxes_emfs(params, S, dt)
-    return mhd_apply_update(params, S, fluxes, emfs, dt)
+    return mhd_apply_update(params, S, fluxes, emfs, dt, comp=comp)
 
 
 def mhd_3d_periodic_step(params: RunParams, S: torch.Tensor, dt) -> torch.Tensor:
@@ -153,20 +203,29 @@ def mhd_3d_periodic_step(params: RunParams, S: torch.Tensor, dt) -> torch.Tensor
 # -------------------------------------------------------------------------
 # shearing box
 # -------------------------------------------------------------------------
-def mhd_3d_shear_update(params: RunParams, S: torch.Tensor, slabs: torch.Tensor, dt):
+def mhd_3d_shear_update(params: RunParams, S: torch.Tensor, slabs: torch.Tensor, dt,
+                        zslabs=None, gz=None):
     """One rotating-frame 3D MHD+CT step of the interior S [8, nz, ny, nx]
-    with the sheared x ghost slabs [2, 8, nz, ny, g] beside it (y and z
-    wrap). Returns (S_new, planes [5, nz, ny]): the density flux at the x
-    faces 0 and nx, emfY there, and emfZ at face nx, unremapped
-    (godunov_mhd.py:429-434 ``shear_planes``)."""
-    g, nx = params.ghost_width, params.nx
+    (or compensated, [16, ...]) with the sheared x ghost slabs [2, 8, nz,
+    ny, g] beside it (y wraps; z wraps, or, stratified, the z ghost slabs
+    ``zslabs`` [2, 8, g, ny, nx + 2g] lie beside the block and ``gz``
+    [nz + 2g] holds g_z of each row). Returns (S_new, planes [5, nz, ny]):
+    the density flux at the x faces 0 and nx, emfY there, and emfZ at face
+    nx, unremapped (godunov_mhd.py:429-434 ``shear_planes``)."""
+    g, nx, nz = params.ghost_width, params.nx, params.nz
+    S, comp = split_carry(S)
     W = torch.cat([slabs[0], S, slabs[1]], dim=-1)
+    z0, gzw = 0, None
+    if zslabs is not None:
+        W = torch.cat([zslabs[0], W, zslabs[1]], dim=-3)
+        z0, gzw = g, gz.view(-1, 1, 1)
     xpos = xpos_array(params, S.dtype, S.device)
-    fluxes, emfs = mhd_fluxes_emfs(params, W, dt, xpos)
-    S_new = mhd_apply_update(params, S, fluxes, emfs, dt, x0=g)
+    fluxes, emfs = mhd_fluxes_emfs(params, W, dt, xpos, gzw)
+    S_new = mhd_apply_update(params, S, fluxes, emfs, dt, x0=g, z0=z0, comp=comp, gz=gzw)
     (flux_x, _fy, _fz), (emf_z, emf_y, _ex) = fluxes, emfs
-    planes = torch.stack([flux_x[ID, ..., g], flux_x[ID, ..., g + nx],
-                          emf_y[..., g], emf_y[..., g + nx], emf_z[..., g + nx]])
+    zi = slice(z0, z0 + nz)
+    planes = torch.stack([flux_x[ID, zi, :, g], flux_x[ID, zi, :, g + nx],
+                          emf_y[zi, :, g], emf_y[zi, :, g + nx], emf_z[zi, :, g + nx]])
     return S_new, planes
 
 
@@ -175,8 +234,8 @@ def _remap_offset(params: RunParams, t, dt):
     Ly = params.ymax - params.ymin
     Lx = params.xmax - params.xmin
     deltay = torch.remainder(1.5 * params.omega0 * Lx * (t + 0.5 * dt), Ly)
-    jplus = torch.floor(deltay / dy).to(torch.int64)
-    return jplus, torch.remainder(deltay, dy) / dy
+    jplus = torch.floor(_div(deltay, dy)).to(torch.int64)
+    return jplus, _div(torch.remainder(deltay, dy), dy)
 
 
 def _shear_remap_pair_stacked(params: RunParams, f_xmin, f_xmax, t, dt):
@@ -200,9 +259,11 @@ def shear_border_update(params: RunParams, S, kept, planes, t, dt):
     (pallas/shear_packed.py:1117-1168): the density flux and emfY planes
     remapped at t + dt/2; density, Bx and Bz deltas on the border columns
     0 and nx-1; the density floor there; the CT update of the kept Bx face
-    with the remapped emfY. Returns (S_new, kept_new, remapped [4, nz, ny]
-    = fpl_min, fpl_max, eypl_min, eypl_max after the remap)."""
-    dtdx, dtdy, dtdz = dt / params.dx, dt / params.dy, dt / params.dz
+    with the remapped emfY. A compensated state (S [16, ...], kept [2, nz,
+    ny]) takes each as a Kahan add, its carry reset where the floor fires
+    (:1139-1147). Returns (S_new, kept_new, remapped [4, nz, ny] =
+    fpl_min, fpl_max, eypl_min, eypl_max after the remap)."""
+    dtdx, dtdy, dtdz = _div(dt, params.dx), _div(dt, params.dy), _div(dt, params.dz)
     fpl_min, fpl_max, eypl_min, eypl_max, ezpl_max = planes
     min_r, max_r = _shear_remap_pair_stacked(
         params, torch.stack([fpl_min, eypl_min]), torch.stack([fpl_max, eypl_max]), t, dt)
@@ -210,33 +271,57 @@ def shear_border_update(params: RunParams, S, kept, planes, t, dt):
     fmax_r, emax_r = max_r[0], max_r[1]
     d_emin = emin_r - eypl_min
     d_emax = emax_r - eypl_max
-    S = S.clone()
-    S[ID, ..., 0] = torch.maximum(S[ID, ..., 0] + dtdx * (fmin_r - fpl_min),
-                                  S.new_full((), params.smallr))
-    S[IA, ..., 0] = S[IA, ..., 0] + -dtdz * (torch.roll(d_emin, -1, 0) - d_emin)
-    S[IC, ..., 0] = S[IC, ..., 0] + -dtdx * d_emin
-    S[ID, ..., -1] = torch.maximum(S[ID, ..., -1] + -dtdx * (fmax_r - fpl_max),
-                                   S.new_full((), params.smallr))
-    S[IC, ..., -1] = S[IC, ..., -1] + dtdx * d_emax
+    # (column, slot, delta) in the JAX order (shear_packed.py:1128-1157)
+    deltas = ((0, ID, dtdx * (fmin_r - fpl_min)),
+              (0, IA, -dtdz * (torch.roll(d_emin, -1, 0) - d_emin)),
+              (0, IC, -dtdx * d_emin),
+              (-1, ID, -dtdx * (fmax_r - fpl_max)),
+              (-1, IC, dtdx * d_emax))
     d_kept = (dtdy * (torch.roll(ezpl_max, -1, 1) - ezpl_max)
               - dtdz * (torch.roll(emax_r, -1, 0) - emax_r))
-    return S, kept + d_kept, torch.stack([fmin_r, fmax_r, emin_r, emax_r])
+    floor = S.new_full((), params.smallr)
+    S = S.clone()
+    comp = S.shape[0] == 16
+    for col, slot, delta in deltas:
+        if not comp:
+            v = S[slot, ..., col] + delta
+            S[slot, ..., col] = torch.maximum(v, floor) if slot == ID else v
+            continue
+        v, c = kahan_add(S[slot, ..., col], S[8 + slot, ..., col], delta)
+        if slot == ID:
+            fl = torch.maximum(v, floor)
+            c = torch.where(fl == v, c, torch.zeros_like(c))
+            v = fl
+        S[slot, ..., col] = v
+        S[8 + slot, ..., col] = c
+    kept_new = torch.stack(kahan_add(kept[0], kept[1], d_kept)) if comp else kept + d_kept
+    return S, kept_new, torch.stack([fmin_r, fmax_r, emin_r, emax_r])
 
 
-def mhd_3d_shear_step(params: RunParams, S, kept, t, dt):
+def kept_face(kept: torch.Tensor) -> torch.Tensor:
+    """The kept Bx face [nz, ny] of a plain or compensated ([2, nz, ny])
+    kept carry."""
+    return kept[0] if kept.dim() == 3 else kept
+
+
+def mhd_3d_shear_step(params: RunParams, S, kept, t, dt, gz=None):
     """One shearing-box step on the loop state: the sheared slabs at t + dt
     (the reference fills for totalTime + dt, MHDRunGodunov.cpp:3551), the
-    update, then the remap and border corrections at t. A dissipative run
-    then refills the slabs at t + dt from the updated state (the sheared
-    refill before the dissipative step, MHDRunGodunov.cpp:1968-1976; no
-    flux remap applies to it), takes the dissipative sub-step and, with
-    resistivity, the kept face's resistive CT
-    (pallas/shear_packed.py:1178-1203). Returns (S_new, kept_new)."""
-    slabs = shear_slabs(params, S, kept, t + dt)
-    S_new, planes = mhd_3d_shear_update(params, S, slabs, dt)
+    update, then the remap and border corrections at t. A stratified run
+    (``gz``, g_z of each z row [nz + 2g]) builds the z ghost slabs of the
+    interior and of the x slabs first (pallas/shear_packed.py:963-975,
+    1006-1021). A dissipative run then refills the slabs at t + dt from the
+    updated state (the sheared refill before the dissipative step,
+    MHDRunGodunov.cpp:1968-1976; no flux remap applies to it), takes the
+    dissipative sub-step and, with resistivity, the kept face's resistive CT
+    (pallas/shear_packed.py:1178-1203). S and kept may be compensated (16
+    channels, [2, nz, ny]). Returns (S_new, kept_new)."""
+    slabs = shear_slabs(params, S[:8], kept_face(kept), t + dt)
+    zslabs = None if gz is None else stratified_zslabs(params, S[:8], slabs)
+    S_new, planes = mhd_3d_shear_update(params, S, slabs, dt, zslabs, gz)
     S_new, kept_new, _ = shear_border_update(params, S_new, kept, planes, t, dt)
     if uses_dissipation(params):
-        slabs = shear_slabs(params, S_new, kept_new, t + dt)
+        slabs = shear_slabs(params, S_new[:8], kept_face(kept_new), t + dt)
         S_new, eypl, ezpl = mhd_dissipation_shear_update(params, S_new, slabs, dt)
         if params.eta > 0:
             kept_new = kept_face_resistive_ct(params, kept_new, eypl, ezpl, dt)

@@ -12,8 +12,10 @@ it is the last interior cell's own right face (the "kept" face).
 ``shear_slabs`` builds the two ghost slabs from the port's loop state
 (S [8, nz, ny, nx], kept [nz, ny]); it is the plain twin of the CUDA slab
 kernel (kernels/shear_border.py). The y shifts are index gathers with the
-shift as a device tensor, so no host sync is needed. Only periodic y and
-z faces are ported (stratified z, BC_Z_STRATIFIED, raises).
+shift as a device tensor, so no host sync is needed. y is periodic; z is
+periodic or stratified (BC_Z_STRATIFIED): then the z ghosts of the block
+[XMIN slab | interior | XMAX slab] follow solvers/stratified.py
+(``stratified_zslabs``, the twin of the z slab kernel).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from ..config.params import RunParams
 from ..core.constants import IA, IB, BoundaryConditionType as BCT
 
 from ..ops.slopes import slope_1d
+from .stratified import stratified_ghost_slabs
 
 _X, _Y, _Z = -1, -2, -3
 
@@ -97,6 +100,16 @@ def _shear_ghost_slabs(params: RunParams, U: torch.Tensor, t) -> torch.Tensor:
     return shear_slabs(params, core[..., g:g + params.nx], core[IA, ..., params.nx + g], t)
 
 
+def stratified_zslabs(params: RunParams, S: torch.Tensor, slabs: torch.Tensor) -> torch.Tensor:
+    """The stratified z ghost slabs [2, 8, g, ny, nx + 2g] (ZMIN, ZMAX) of
+    the block [XMIN slab | S | XMAX slab]: the x slabs' columns get their z
+    ghosts by the same rule applied to the slab itself, the reference's
+    Z-after-X fill order (pallas/shear_packed.py:963-975). The plain twin
+    of the z slab kernel (kernels/shear_border.py)."""
+    mid = torch.cat([slabs[0], S, slabs[1]], dim=-1)
+    return torch.stack(stratified_ghost_slabs(params, mid))
+
+
 def wrap_yz(params: RunParams, mid: torch.Tensor) -> torch.Tensor:
     """mid with periodic y and z ghost layers added (jnp.pad mode="wrap")."""
     g = params.ghost_width
@@ -107,15 +120,25 @@ def wrap_yz(params: RunParams, mid: torch.Tensor) -> torch.Tensor:
 
 
 def make_all_boundaries_shear(params: RunParams, U: torch.Tensor, t) -> torch.Tensor:
-    """Every ghost of a 3D shearing-box state with periodic y and z faces at
-    time t (solvers/shear.py:202, its periodic fast path): the sheared x
-    slabs beside the interior, then the y and z wraps. A new tensor. Other
-    y / z faces (stratified z, walls) are not ported and raise."""
+    """Every ghost of a 3D shearing-box state with periodic y faces and
+    periodic or stratified z faces at time t (solvers/shear.py:202, its two
+    fast paths): the sheared x slabs beside the interior, then (stratified)
+    the z ghost slabs of that block, then the y (and periodic z) wraps. A
+    new tensor. Other y / z faces (walls) are not ported and raise."""
     bts = params.boundary_types
-    if params.dim != 3 or any(b != BCT.BC_PERIODIC for b in bts[2:]):
+    strat = bts[4:] == (BCT.BC_Z_STRATIFIED, BCT.BC_Z_STRATIFIED)
+    if (params.dim != 3 or any(b != BCT.BC_PERIODIC for b in bts[2:4])
+            or not (strat or bts[4:] == (BCT.BC_PERIODIC, BCT.BC_PERIODIC))):
         names = [b.name for b in bts[2:]]
         raise NotImplementedError(
-            f"the 3D shearing box with periodic y and z is ported, got {names}")
+            f"the 3D shearing box with periodic y and periodic or stratified z is ported, "
+            f"got {names}")
     g = params.ghost_width
     gmin, gmax = _shear_ghost_slabs(params, U, t)
-    return wrap_yz(params, torch.cat([gmin, U[:, g:-g, g:-g, g:params.nx + g], gmax], _X))
+    mid = torch.cat([gmin, U[:, g:-g, g:-g, g:params.nx + g], gmax], _X)
+    if not strat:
+        return wrap_yz(params, mid)
+    zlo, zhi = stratified_ghost_slabs(params, mid)
+    mid = torch.cat([zlo, mid, zhi], -3)
+    n = mid.shape[_Y]
+    return torch.cat([mid.narrow(_Y, n - g, g), mid, mid.narrow(_Y, 0, g)], _Y)

@@ -14,6 +14,7 @@ from ..core.constants import IA, IB, IC, ID, IP, IU, IV, IW
 
 from ..ops.backend import xp
 from ..ops.stencil import shift_p
+from .stratified import uses_stratified_z
 
 
 def _require_3d(params: RunParams) -> None:
@@ -109,18 +110,23 @@ def inv_dt_mhd_periodic(params: RunParams, S: torch.Tensor) -> torch.Tensor:
 
 def inv_dt_mhd_shear(params: RunParams, S: torch.Tensor, kept: torch.Tensor) -> torch.Tensor:
     """The shearing-box CFL reduction on the loop state (S [8, nz, ny, nx],
+    or a compensated state's 16 channels, of which it reads the first 8;
     kept [nz, ny]): compute_inv_dt_mhd of the ghosted state, whose +1 x
     face of the last column is the kept Bx face (ramsesgpu_tpu
-    pallas/shear_packed.py:929-948); y and z wrap. The plain twin of the
-    CUDA CFL kernel's shearing-box mode (kernels/cfl_mhd.py)."""
+    pallas/shear_packed.py:929-948); y wraps; z wraps, or with stratified z
+    faces the top row's +1 z ghost continues its Bz (solvers/stratified.py).
+    The plain twin of the CUDA CFL kernel's shearing-box mode
+    (kernels/cfl_mhd.py)."""
     rho = xp.maximum(S[ID], params.smallr)
     ia = S[IA]
     ia_p = torch.cat([ia[..., 1:], kept[..., None]], dim=-1)
+    ic = S[IC]
+    ic_p = torch.cat([ic[1:], ic[-1:]]) if uses_stratified_z(params) else shift_p(ic, -3)
     return _inv_dt_mhd_fields(
         params, S[ID], S[IP], S[IU] / rho, S[IV] / rho, S[IW] / rho,
         0.5 * (ia + ia_p),
         0.5 * (S[IB] + shift_p(S[IB], -2)),
-        0.5 * (S[IC] + shift_p(S[IC], -3)),
+        0.5 * (ic + ic_p),
     )
 
 

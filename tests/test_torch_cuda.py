@@ -477,3 +477,142 @@ def test_dissip_loops_count_launches_and_stop_at_t_end(cuda_device, mode):
     pairs = zip(state, S3) if mode == "shear" else [(state, S3)]
     assert all(torch.equal(a, b) for a, b in pairs)
     assert unpack(state, t).shape == params.shape
+
+
+# the Kahan-compensated state and the stratified MRI (the shipped
+# data/mhd_mri_3d.ini and data/mhd_mri_3d_stratified.ini, compensated)
+def shipped_mri(name, dtype, device, mesh):
+    """A shipped MRI input at ``mesh`` as shipped otherwise: params, config,
+    the loop state (S [16, ...], kept [2, nz, ny]) with non-zero carries
+    (eps |u| N(0, 1)), t0 (shear offset 2.5 cells) and g_z."""
+    from pathlib import Path
+
+    from ramsesgpu_tpu_torch.convert import torch_dtype
+    from ramsesgpu_tpu_torch.kernels.shear import pack
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+    from ramsesgpu_tpu_torch.solvers.step import gravity_z
+
+    config = ConfigMap(Path(__file__).resolve().parent.parent / "data" / name)
+    for axis, n in zip(("nx", "ny", "nz"), mesh):
+        config.set_integer("mesh", axis, n)
+    config.set_string("implementation", "dtype", dtype)
+    params = params_from_config(config)
+    assert params.compensated
+    U = make_boundaries(params, torch.from_numpy(init_problem(params, config)).to(
+        device, torch_dtype(params)))
+    S, kept = pack(params, U)
+    gen = torch.Generator(device=device).manual_seed(9)
+    eps = torch.finfo(S.dtype).eps
+    S[8:] = eps * S[:8] * torch.randn(S[:8].shape, generator=gen, device=device, dtype=S.dtype)
+    kept[1] = eps * kept[0] * torch.randn(kept[0].shape, generator=gen, device=device,
+                                          dtype=S.dtype)
+    t0 = 2.5 * params.dy / (1.5 * params.omega0 * params.dx * params.nx)
+    return (params, config, (S, kept), torch.tensor(t0, dtype=S.dtype, device=device),
+            gravity_z(params, config, device))
+
+
+def own_update(params, S, scratch, dt, gz=None):
+    """The twin's update stage on the fluxes and EMFs the last launch left in
+    ``scratch`` (compensated: bitwise the kernel's)."""
+    from ramsesgpu_tpu_torch.kernels.mhd_step import scratch_fluxes
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_apply_update
+
+    fluxes, emfs, x0, z0 = scratch_fluxes(params, scratch)
+    gzw = None if gz is None else gz[3 - z0:3 - z0 + fluxes[0].shape[1]].view(-1, 1, 1)
+    return mhd_apply_update(params, S[:8], fluxes, emfs, dt, x0, z0, comp=S[8:], gz=gzw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", ["mhd_mri_3d.ini", "mhd_mri_3d_stratified.ini"])
+def test_compensated_and_stratified_kernels_match_twins(cuda_device, dtype, name):
+    """The compensated (and stratified) MRI kernels against their twins from
+    non-zero carries: the CFL, the z slabs bitwise, the step's state within
+    TOL and its update stage on its own fluxes bitwise, the border kernel
+    (state, carries, kept face and its carry) bitwise."""
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_shear_update, shear_border_update
+    from ramsesgpu_tpu_torch.solvers.shear import stratified_zslabs
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_shear
+
+    params, _config, (S, kept), t0, gz = shipped_mri(name, dtype, cuda_device, (16, 32, 32))
+    inv, inv_ref = cfl_mhd(params, S, kept=kept), inv_dt_mhd_shear(params, S, kept[0])
+    assert abs(float(inv) - float(inv_ref)) <= TOL[dtype] * float(inv_ref)
+    dt = dt_from_inv(params, inv_ref)
+    active = torch.ones((), dtype=torch.bool, device=cuda_device)
+    slabs = shear_slabs(params, S, kept, t0, dt)
+    shear, zslabs = (slabs, torch.zeros((5, params.nz, params.ny), dtype=S.dtype,
+                                        device=cuda_device)), None
+    if gz is not None:
+        zslabs = stratified_zslabs(params, S[:8], slabs)
+        assert torch.equal(shear_zslabs(params, S, slabs), zslabs)
+        shear = shear + (zslabs, gz)
+    scratch = mhd_step.scratch(params, S)
+    S1 = mhd_step(params, S.clone(), dt, active, scratch, shear=shear)
+    assert torch.equal(S1, own_update(params, S, scratch, dt, gz))
+    S1_t, planes_t = mhd_3d_shear_update(params, S, slabs, dt, zslabs, gz)
+    assert rel_l2(S1[:8], S1_t[:8]) <= TOL[dtype]
+    S2, kept2 = S1_t.clone(), kept.clone()
+    rem = shear_border(params, S2, kept2, planes_t, t0, dt, active)
+    S2_t, kept2_t, rem_t = shear_border_update(params, S1_t, kept, planes_t, t0, dt)
+    assert torch.equal(S2, S2_t) and torch.equal(kept2, kept2_t) and torch.equal(rem, rem_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_compensated_periodic_kernels_match_twins(cuda_device, dtype):
+    """The compensated periodic step (its update stage on its own fluxes
+    bitwise, the state within TOL) and dissipative sub-step (bitwise) from a
+    non-zero carry."""
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.solvers.dissipation import mhd_dissipation_periodic_update
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_periodic_update
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_periodic
+
+    params, S8 = ot_state(dtype, cuda_device)
+    params = params.replace(compensated=True, nu=2e-3, eta=1e-3)
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    C = torch.finfo(S8.dtype).eps * S8 * torch.randn(S8.shape, generator=gen, device=cuda_device,
+                                                     dtype=S8.dtype)
+    S = torch.cat([S8, C]).contiguous()
+    dt = dt_from_inv(params, inv_dt_mhd_periodic(params, S8))
+    active = torch.ones((), dtype=torch.bool, device=cuda_device)
+    scratch = mhd_step.scratch(params, S)
+    S1 = mhd_step(params, S.clone(), dt, active, scratch)
+    assert torch.equal(S1, own_update(params, S, scratch, dt))
+    assert rel_l2(S1[:8], mhd_3d_periodic_update(params, S, dt)[:8]) <= TOL[dtype]
+    S2 = dissip_step(params, S1.clone(), dt, active, scratch)
+    assert torch.equal(S2, mhd_dissipation_periodic_update(params, S1, dt))
+
+
+@pytest.mark.cuda
+def test_stratified_loop_counts_launches(cuda_device):
+    """Each step of the stratified MRI loop launches the CFL, the x slabs,
+    the z slabs, the step and the border kernel once; the loop equals the
+    twins' loop within TOL after 3 steps."""
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_shear_step
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_shear
+
+    wrappers = (cfl_mhd, shear_slabs, shear_zslabs, mhd_step, shear_border)
+    params, config, state0, t0, gz = shipped_mri("mhd_mri_3d_stratified.ini", "float32",
+                                                 cuda_device, (16, 32, 32))
+    _pack, advance, unpack = make_packed_advance_chain(params, cuda_device, config)
+    before = [w.launches for w in wrappers]
+    state, t, k = advance(tuple(x.clone() for x in state0), t0, 3)
+    assert int(k) == 3
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [3] * 5
+    twin, t_t = state0, t0
+    for _ in range(3):
+        dt = dt_from_inv(params, inv_dt_mhd_shear(params, twin[0], twin[1][0]))
+        twin, t_t = mhd_3d_shear_step(params, *twin, t_t, dt, gz), t_t + dt
+    assert rel_l2(state[0][:8], twin[0][:8]) <= 1e-5  # chained steps (chip_smoke.py TOL_STEP10)
+    assert float(t) == float(t_t)
+    assert unpack(state, t).shape == params.shape

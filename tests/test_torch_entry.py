@@ -94,13 +94,21 @@ def test_port_imports_no_jax(tmp_path):
     mri_dissip = mri.replace("cIso=0.001", "cIso=0.001\nnu=4e-5").replace(
         "omega0=0.001", "omega0=0.001\neta=1e-5")
     assert "nu=4e-5" in mri_dissip and "eta=1e-5" in mri_dissip
+    # the shipped MRI inputs as shipped (Kahan-compensated) but for the mesh:
+    # the flagship and the stratified box
+    mri_comp = (REPO / "data" / "mhd_mri_3d.ini").read_text().replace(
+        "nx=16\nny=32\nnz=16", "nx=8\nny=16\nnz=8")
+    strat = (REPO / "data" / "mhd_mri_3d_stratified.ini").read_text().replace(
+        "nx=16\nny=64\nnz=128", "nx=8\nny=8\nnz=16")
+    assert "compensated=yes" in mri_comp and "nz=16" in strat and "compensated=yes" in strat
     ot = INI.format(n=8, solver="hlld", kernel="auto", outdir=tmp_path, hdf5="no")
     # the dissipative Orszag-Tang run (tests/test_pallas_dissip.py's nu, eta)
     ot_dissip = ot.replace("smallc=1e-7", "smallc=1e-7\nnu=2e-3").replace(
         "magRiemannSolver=hlld", "magRiemannSolver=hlld\neta=1e-3")
     assert "nu=2e-3" in ot_dissip and "eta=1e-3" in ot_dissip
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    res = subprocess.run([sys.executable, "-c", code, ot, hydro, mri, mri_dissip, ot_dissip],
+    res = subprocess.run([sys.executable, "-c", code, ot, hydro, mri, mri_dissip, ot_dissip,
+                          mri_comp, strat],
                          capture_output=True, text=True, env=env, timeout=300, cwd=tmp_path)
     assert res.returncode == 0 and res.stdout.strip().endswith("OK"), res.stderr[-4000:]
 
@@ -180,6 +188,41 @@ def test_convert_roundtrip_matches_jax_pack_state():
     np.testing.assert_array_equal(state_from_jax(params, U, "cpu").numpy(), U)
 
 
+@pytest.mark.parametrize("stratified", [False, True])
+def test_convert_roundtrip_of_compensated_shear_carries(stratified):
+    """The JAX package's compensated shear carry (pack_shear with its 2 * nvar
+    channels and the [2, nz, ny] kept face; ``stratified``: the stratified z
+    ghost planes in its bands) to the port's loop state and back."""
+    from ramsesgpu_tpu.config.configmap import ConfigMap as JConfigMap
+    from ramsesgpu_tpu.config.params import params_from_config as j_params
+    from ramsesgpu_tpu.pallas.shear_packed import pack_shear
+    from ramsesgpu_tpu.solvers.shear import make_all_boundaries_shear
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap as TConfigMap
+    from ramsesgpu_tpu_torch.config.params import params_from_config as t_params
+    from ramsesgpu_tpu_torch.convert import shear_carry_from_jax, shear_carry_to_jax
+    from ramsesgpu_tpu_torch.kernels.shear import pack
+
+    name = "mhd_mri_3d_stratified.ini" if stratified else "mhd_mri_3d.ini"
+    text = (REPO / "data" / name).read_text()
+    text = text.replace("nx=16\nny=64\nnz=128", "nx=8\nny=8\nnz=16").replace(
+        "nx=16\nny=32\nnz=16", "nx=8\nny=16\nnz=8")
+    jparams = j_params(JConfigMap(text=text))
+    params = t_params(TConfigMap(text=text))
+    assert params.compensated and jparams.compensated
+    rng = np.random.default_rng(5)
+    U = rng.uniform(0.5, 1.5, params.shape).astype(np.float32)
+    U = np.array(make_all_boundaries_shear(jparams, jnp.asarray(U), 0.0))
+    P, kept = pack_shear(jparams, jnp.asarray(U), stratified=stratified)
+    P, kept = np.asarray(P), np.asarray(kept)
+    assert P.shape[0] == 16 and kept.shape == (2, params.nz, params.ny)
+    state = shear_carry_from_jax(params, (P, kept), "cpu")
+    S_p, kept_p = pack(params, torch.from_numpy(U))
+    assert torch.equal(state[0], S_p) and torch.equal(state[1], kept_p)
+    P2, kept2 = shear_carry_to_jax(params, state, stratified=stratified)
+    np.testing.assert_array_equal(P2, P)
+    np.testing.assert_array_equal(kept2, kept)
+
+
 def test_wrappers_take_twins_on_cpu_without_counting():
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
@@ -209,7 +252,6 @@ def test_wrappers_take_twins_on_cpu_without_counting():
         ({"riemann_solver": "LLF"}, NotImplementedError),
         ({"boundary_xmin": "BC_DIRICHLET"}, NotImplementedError),
         ({"omega0": 1.0}, NotImplementedError),
-        ({"compensated": True}, NotImplementedError),
     ],
 )
 def test_out_of_slice_configurations_raise(change, exc):

@@ -478,7 +478,7 @@ def test_csrc_host_build_matches_shear_twins(dtype):
         assert torch.equal(slabs, slabs_ref), ciso
 
         step = getattr(lib, f"ramses_mhd_step_shear_{sfx}")
-        scratch = torch.empty(lib.ramses_mhd_step_shear_scratch(*dims), dtype=tdt)
+        scratch = torch.empty(lib.ramses_mhd_step_shear_scratch(*dims, 0), dtype=tdt)
         S1_ref, planes_ref = mhd_3d_shear_update(params, S0, slabs_ref, dt)
         border = getattr(lib, f"ramses_shear_border_{sfx}")
         S2_ref, kept2_ref, rem_ref = shear_border_update(params, S1_ref, kept0, planes_ref, t, dt)
@@ -486,10 +486,11 @@ def test_csrc_host_build_matches_shear_twins(dtype):
             flag = torch.tensor(active)
             S1, planes = S0.clone(), torch.zeros_like(planes_ref)
             assert step(S1.data_ptr(), scratch.data_ptr(), slabs_ref.data_ptr(),
-                        planes.data_ptr(), dt.data_ptr(), flag.data_ptr(), *dims, blk, None) == 0
+                        planes.data_ptr(), None, None, dt.data_ptr(), flag.data_ptr(), 0, *dims,
+                        blk, None) == 0
             S2, kept2, rem = S1_ref.clone(), kept0.clone(), torch.zeros_like(rem_ref)
             assert border(S2.data_ptr(), kept2.data_ptr(), planes_ref.data_ptr(), rem.data_ptr(),
-                          t.data_ptr(), dt.data_ptr(), flag.data_ptr(), *dims, blk, None) == 0
+                          t.data_ptr(), dt.data_ptr(), flag.data_ptr(), 0, *dims, blk, None) == 0
             if not active:
                 assert torch.equal(S1, S0) and torch.equal(S2, S1_ref)
                 assert torch.equal(kept2, kept0)
@@ -506,7 +507,6 @@ def test_csrc_host_build_matches_shear_twins(dtype):
 @pytest.mark.parametrize(
     "section, key, value",
     [
-        ("implementation", "compensated", "yes"),
         ("mesh", "boundary_zmin", "6"),
         ("gravity", "enabled", "yes"),
         ("implementation", "kernel", "zcarry"),
@@ -532,18 +532,21 @@ def test_out_of_scope_configurations_raise(section, key, value):
         ("hydro", "nu", "4e-5"),
         ("MHD", "eta", "1e-5"),
         ("implementation", "stripFused", "yes"),
+        ("implementation", "compensated", "yes"),
     ],
 )
 def test_dissipative_and_strip_fused_configurations_run(section, key, value):
     """Viscosity, resistivity (tests/test_torch_dissip.py holds them against
-    the JAX package) and stripFused=yes, which selects the same kernels as
-    no, run through Run and the loop."""
+    the JAX package), stripFused=yes, which selects the same kernels as no,
+    and the Kahan-compensated state (tests/test_torch_compensated.py) run
+    through Run and the loop."""
     from ramsesgpu_tpu_torch.solvers.run import Run
     from ramsesgpu_tpu_torch.solvers.step import make_advance_n
 
     config = ConfigMap(text=ini() + f"\n[{section}]\n{key}={value}\n")
     params = params_from_config(config)
-    assert (params.nu, params.eta, params.strip_fused) != (0.0, 0.0, None)
+    assert (params.nu, params.eta, params.strip_fused, params.compensated) != (0.0, 0.0, None,
+                                                                             False)
     run = Run(config, "cpu")
     run.start(max_steps=1, do_output=False)
     assert np.isfinite(run.interior()).all()
@@ -551,12 +554,19 @@ def test_dissipative_and_strip_fused_configurations_run(section, key, value):
 
 
 def test_stratified_mri_and_keplerian_disk_raise():
+    """The stratified MRI runs (tests/test_torch_stratified.py) but not with
+    viscosity or resistivity, nor adiabatic; a [gravity] section without
+    stratified z faces and the Keplerian disk raise."""
     from ramsesgpu_tpu_torch.solvers.run import Run
     from ramsesgpu_tpu_torch.solvers.step import require_slice
 
-    stratified = ConfigMap(REPO / "data" / "mhd_mri_3d_stratified.ini")
-    with pytest.raises(NotImplementedError):
-        Run(stratified, "cpu")
+    text = (REPO / "data" / "mhd_mri_3d_stratified.ini").read_text()
+    for change in ("nu=4e-5", "eta=1e-5", "cIso=0"):
+        key, value = change.split("=")
+        stratified = ConfigMap(text=text)
+        stratified.set_float("MHD" if key == "eta" else "hydro", key, float(value))
+        with pytest.raises(NotImplementedError):
+            Run(stratified, "cpu")
     # MRI with a [gravity] section but periodic z: the gravity gate alone
     config = ConfigMap(text=ini() + "\n[gravity]\nstatic=yes\n")
     with pytest.raises(NotImplementedError, match="gravity"):

@@ -258,7 +258,7 @@ def test_csrc_host_build_matches_twins(dtype):
     for active, want in ((False, S0), (True, mhd_3d_periodic_update(params, S0, dt))):
         S = S0.clone()
         flag = torch.tensor(active)
-        assert step(S.data_ptr(), scratch.data_ptr(), dt.data_ptr(), flag.data_ptr(),
+        assert step(S.data_ptr(), scratch.data_ptr(), dt.data_ptr(), flag.data_ptr(), 0,
                     16, 16, 16, blk, None) == 0
         err = float(torch.linalg.norm((S - want).flatten()) / torch.linalg.norm(want.flatten()))
         assert err <= TOL_HOST[dtype]
