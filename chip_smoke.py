@@ -90,7 +90,27 @@ Phases, in order; any failure raises and no result line is printed:
      their twins, their times against the twins', their bounds;
  26. long horizon: 500 steps of OT 64^3 (and MRI 64x128x64) in f64, plain
      f32 and compensated f32 on one dt sequence; err_comp < 0.6 err_plain;
- 27. the kernels JSON line, the card line, and the result line.
+     the MRI again with t carried in f64 (the shear offset formed in
+     double), and where its error sits (by channel, the f32 rounding of
+     the f64 end state, the compensated value with its carry);
+ 27. the z-streaming step kernels ([implementation] kernel=zcarry) against
+     their twins and the staged kernels at 64^3 / 64x128x64, f32 + f64:
+     periodic MHD (plain, compensated), the blast (approx, HLLC), the MRI
+     (isothermal, adiabatic, compensated), the stratified MRI; 1 step, the
+     folded inverse dt against the CFL kernel on the step's output, an
+     inactive step, and 10 chained loop steps against the twins' loop;
+ 28. the blast main path (phase 9's) with kernel=zcarry;
+ 29. the OT main path (phase 5's) with kernel=zcarry, and (29c) compensated;
+ 30. the MRI main path (phase 13's) with kernel=zcarry, (30c) as shipped,
+     (30v) viscous-resistive, (30s) the stratified MRI as shipped; each
+     zcarry path checks that its profiled chunk ran the streamed kernel,
+     once per step, and no stage of a staged step kernel;
+ 32. the streamed kernels at full width on those paths' states: against
+     their twins, their times against the twins', their bounds;
+ 31. one 10-step chunk of OT at 512^3 f32 with kernel=zcarry: peak device
+     memory (bound 24 GB) and the kernel's rings (in shared memory; bound
+     1 GB), divB, mass;
+ 33. the kernels JSON line, the card line, and the result line.
 Imports nothing of JAX; of this repo it imports only ramsesgpu_tpu_torch.
 """
 from __future__ import annotations
@@ -202,6 +222,14 @@ KERNELS = {
     "shear_zslabs": ("ramsesgpu_tpu_torch/csrc/shear_border.cu",
                      "ramsesgpu_tpu/pallas/shear_packed.py:237 (the strip's stratified slab z "
                      "extension, built by :963-975) and the z band refill :1006-1021"),
+    "zcarry_mhd": ("ramsesgpu_tpu_torch/csrc/zcarry_mhd.cu",
+                   "ramsesgpu_tpu/pallas/zcarry_mhd3d.py:102 (with_inv_dt: the periodic loop, "
+                   "pallas/fused_mhd3d.py:341)"),
+    "zcarry_hydro": ("ramsesgpu_tpu_torch/csrc/zcarry_hydro.cu",
+                     "ramsesgpu_tpu/pallas/zcarry_hydro3d.py:58"),
+    "zcarry_mhd_shear": ("ramsesgpu_tpu_torch/csrc/zcarry_mhd.cu",
+                         "ramsesgpu_tpu/pallas/zcarry_mhd3d.py:102 (the MRI main kernel, "
+                         "pallas/shear_packed.py:891)"),
 }
 # ms/step of these paths in the version before the compensated and
 # stratified modes, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
@@ -302,10 +330,13 @@ def wrappers():
     from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
     from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
     from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.kernels.zcarry_hydro3d import zcarry_hydro
+    from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
 
     return {"mhd_step": mhd_step, "cfl_mhd": cfl_mhd, "hydro_step": hydro_step,
             "cfl_hydro": cfl_hydro, "shear_slabs": shear_slabs, "shear_border": shear_border,
-            "dissip_step": dissip_step, "shear_zslabs": shear_zslabs}
+            "dissip_step": dissip_step, "shear_zslabs": shear_zslabs,
+            "zcarry_mhd": zcarry_mhd, "zcarry_hydro": zcarry_hydro}
 
 
 @contextlib.contextmanager
@@ -315,7 +346,8 @@ def counted_main_path(name: str, expect: dict):
     kernels not named) or a plain twin ran meanwhile. Yields the dict the
     counts are read into."""
     from ramsesgpu_tpu_torch.kernels import (cfl_hydro, cfl_mhd, dissip_step, hydro_step,
-                                             mhd_step, shear_border)
+                                             mhd_step, shear_border, zcarry_hydro3d,
+                                             zcarry_mhd3d)
 
     twins = [(mhd_step, "mhd_3d_periodic_update"), (cfl_mhd, "inv_dt_mhd_periodic"),
              (hydro_step, "hydro_3d_state_update"), (hydro_step, "hydro_3d_interior_update"),
@@ -324,7 +356,10 @@ def counted_main_path(name: str, expect: dict):
              (shear_border, "shear_border_update"), (shear_border, "stratified_zslabs"),
              (dissip_step, "mhd_dissipation_periodic_update"),
              (dissip_step, "mhd_dissipation_shear_update"),
-             (dissip_step, "kept_face_resistive_ct")]
+             (dissip_step, "kept_face_resistive_ct"),
+             (zcarry_mhd3d, "mhd_3d_periodic_update"), (zcarry_mhd3d, "mhd_3d_shear_update"),
+             (zcarry_mhd3d, "inv_dt_mhd_periodic"), (zcarry_hydro3d, "hydro_3d_state_update"),
+             (zcarry_hydro3d, "compute_inv_dt_hydro")]
     twin_calls = []
 
     def guard(module, attr, fn):
@@ -503,10 +538,12 @@ def diffusion_numbers(label: str, params, dts: dict) -> None:
 
 
 def phase5(card: str, label: str = "5", nu: float = 0.0, eta: float = 0.0,
-           compensated: bool = False):
+           compensated: bool = False, kernel: str = "auto"):
     """The periodic MHD main path, ideal or (phase 17) with viscosity nu and
     resistivity eta, plain or (phases 22, 22d) with the Kahan-compensated
-    state; returns its launch counts and (params, S, t) at its end."""
+    state, on the staged step kernel or (kernel=zcarry, phases 29, 29c)
+    the streamed one; returns its launch counts and (params, S, t) at its
+    end."""
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries_concat
     from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
@@ -515,7 +552,7 @@ def phase5(card: str, label: str = "5", nu: float = 0.0, eta: float = 0.0,
     n, chunk = 256, 10
     params, S_init = setup(n, "float32")
     dt_first = float(dt_from_inv(params, cfl_mhd(params, S_init)))
-    params = params.replace(nu=nu, eta=eta, compensated=compensated)
+    params = params.replace(nu=nu, eta=eta, compensated=compensated, kernel=kernel)
     U = make_boundaries_concat(params, S_init, interior_only=True)
     del S_init
     mass0 = float(U[0, 3:-3, 3:-3, 3:-3].double().sum())
@@ -524,8 +561,13 @@ def phase5(card: str, label: str = "5", nu: float = 0.0, eta: float = 0.0,
     t = torch.zeros((), dtype=torch.float32, device="cuda")
 
     steps = 5 * chunk
-    expect = {"mhd_step": steps, "cfl_mhd": steps}
-    if nu > 0 or eta > 0:
+    dissipative = nu > 0 or eta > 0
+    if kernel == "zcarry":
+        # the CFL folded into the streamed step: one CFL launch per chunk
+        expect = {"zcarry_mhd": steps, "cfl_mhd": steps if dissipative else 5}
+    else:
+        expect = {"mhd_step": steps, "cfl_mhd": steps}
+    if dissipative:
         expect["dissip_step"] = steps
     with counted_main_path(label, expect) as launches:
         S = pack(U)
@@ -552,7 +594,7 @@ def phase5(card: str, label: str = "5", nu: float = 0.0, eta: float = 0.0,
     U_out = unpack(S, t)
     if tuple(U_out.shape) != params.shape:
         raise AssertionError(f"unpacked shape {tuple(U_out.shape)} != {params.shape}")
-    profile_chunk(f"{label}p", card, advance, S, t, chunk)
+    check_streamed(f"{label}p", kernel, profile_chunk(f"{label}p", card, advance, S, t, chunk))
     return launches, (params, S, t)
 
 
@@ -608,7 +650,7 @@ def phase6(card: str, twin_peak_64: int) -> dict:
             raise AssertionError(f"{name} disagrees with its twin at {n_twin}^3: {rel[name]}")
         print(f"[6] {name}: kernel {ms[name]:.3f} ms at 256^3, twin {plain[name]:.3f} ms "
               f"at {n_twin}^3 (f32, {card})")
-    return {"ms": ms, "plain_ms": plain, "max_abs_err": errs,
+    return {"ms": ms, "plain_ms": plain, "max_abs_err": errs, "n_twin": n_twin,
             "bound_input": (block_params(params, 32), bound_input.cpu(), float(dt))}
 
 
@@ -700,22 +742,26 @@ def hydro_pressure(params, S: torch.Tensor) -> torch.Tensor:
     return (params.gamma0 - 1.0) * (S[1].double() - ekin)
 
 
-def phase9(card: str) -> tuple[dict, torch.Tensor]:
-    """Both hydro main paths; returns the summed launch counts and the
-    implode state at the end of its path."""
+def phase9(card: str, problems=("implode", "blast"), kernel: str = "auto",
+           phase: str = "9") -> tuple[dict, torch.Tensor]:
+    """The hydro main paths (kernel=zcarry: the streamed step, phase 28);
+    returns the summed launch counts and the end state of the first."""
     from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
 
     n, chunk, steps = 256, 10, 50
     total = {}
     kept = None
-    for problem in ("implode", "blast"):
-        label = f"9 {problem}"
+    for problem in problems:
+        label = f"{phase} {problem}"
         params, U = hydro_setup(problem, n, "float32")
+        params = params.replace(kernel=kernel)
         mass0 = float(U[0, 2:-2, 2:-2, 2:-2].double().sum())
         energy0 = float(U[1, 2:-2, 2:-2, 2:-2].double().sum())
         pack, advance, unpack = make_packed_advance_chain(params, "cuda")
         t = torch.zeros((), dtype=torch.float32, device="cuda")
-        with counted_main_path(label, {"hydro_step": steps, "cfl_hydro": steps}) as launches:
+        expect = ({"zcarry_hydro": steps, "cfl_hydro": 5} if kernel == "zcarry"
+                  else {"hydro_step": steps, "cfl_hydro": steps})
+        with counted_main_path(label, expect) as launches:
             S = pack(U)
             del U
             S, t, _dt = run_chunks(label, card, advance, S, t, n, chunk)
@@ -738,8 +784,8 @@ def phase9(card: str) -> tuple[dict, torch.Tensor]:
         if tuple(U_out.shape) != params.shape:
             raise AssertionError(f"unpacked shape {tuple(U_out.shape)} != {params.shape}")
         del U_out
-        profile_chunk(f"{label}p", card, advance, S, t, chunk)
-        if problem == "implode":
+        check_streamed(f"{label}p", kernel, profile_chunk(f"{label}p", card, advance, S, t, chunk))
+        if kept is None:
             kept = (params, S)
         else:
             del S
@@ -893,6 +939,7 @@ def phase11(mhd: dict, hydro: dict) -> dict:
         print(f"[11] {name} at 256^3 f32: {nbytes[name] / 1e9:.3f} GB -> {t_bytes:.4f} ms, "
               f"{ops[name] / 1e9:.3f} GFLOP -> {t_ops:.4f} ms: bound {bounds[name][0]:.4f} ms "
               f"by {bounds[name][1]}")
+    bounds["ops"] = ops  # the operation counts, for the streamed kernels' bounds (phase 32)
     return bounds
 
 
@@ -1047,11 +1094,12 @@ def div_b_shear(params, S: torch.Tensor, kept: torch.Tensor) -> float:
 
 
 def phase13(card: str, label: str = "13", nu: float = 0.0, eta: float = 0.0,
-            compensated: bool | None = False, ini: str = MRI_INI):
+            compensated: bool | None = False, ini: str = MRI_INI, kernel: str = "auto"):
     """The MRI main path, ideal or (phase 18) with viscosity nu and
     resistivity eta; with ``compensated`` None and ``ini`` (phases 23, 24)
-    a shipped input exactly as shipped but for the mesh. Returns its launch
-    counts and its final state."""
+    a shipped input exactly as shipped but for the mesh; with kernel=zcarry
+    (phases 30-30s) on the streamed step kernel. Returns its launch counts
+    and its final state."""
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
     from ramsesgpu_tpu_torch.solvers.stratified import uses_stratified_z
@@ -1060,6 +1108,7 @@ def phase13(card: str, label: str = "13", nu: float = 0.0, eta: float = 0.0,
     nx, ny, nz, chunk = 128, 256, 128, 10
     params, config, (S0, kept0) = mri_setup(nx, ny, nz, "float32", nu=nu, eta=eta,
                                             compensated=compensated, ini=ini)
+    params = params.replace(kernel=kernel)
     strat = uses_stratified_z(params)
     print(f"[{label}] {ini} at {nx}x{ny}x{nz}: compensated={params.compensated}, slope_type "
           f"{params.slope_type}, cIso {params.c_iso}, omega0 {params.omega0}, z faces "
@@ -1074,7 +1123,8 @@ def phase13(card: str, label: str = "13", nu: float = 0.0, eta: float = 0.0,
     del S0, kept0
     t = torch.zeros((), dtype=torch.float32, device="cuda")
     steps = 5 * chunk
-    expect = {"mhd_step": steps, "cfl_mhd": steps, "shear_slabs": steps, "shear_border": steps}
+    step_kernel = "zcarry_mhd" if kernel == "zcarry" else "mhd_step"
+    expect = {step_kernel: steps, "cfl_mhd": steps, "shear_slabs": steps, "shear_border": steps}
     if nu > 0 or eta > 0:
         expect.update(shear_slabs=2 * steps, dissip_step=steps)
     if strat:
@@ -1108,7 +1158,7 @@ def phase13(card: str, label: str = "13", nu: float = 0.0, eta: float = 0.0,
     if tuple(U_out.shape) != params.shape:
         raise AssertionError(f"unpacked shape {tuple(U_out.shape)} != {params.shape}")
     del U_out
-    profile_chunk(f"{label}p", card, advance, state, t, chunk)
+    check_streamed(f"{label}p", kernel, profile_chunk(f"{label}p", card, advance, state, t, chunk))
     return launches, (params, S, kept, t, config)
 
 
@@ -2043,16 +2093,17 @@ def phase26(card: str) -> None:
             states = {"f64": S64, "f32": S64.float().contiguous(),
                       "f32 comp": torch.cat([S64.float(), torch.zeros_like(S64.float())])}
             params = {"f64": p64, "f32": p32, "f32 comp": p32.replace(compensated=True)}
-            steps_of = {k: fused_mhd3d.bind_periodic_step(params[k], states[k]) for k in states}
+            steps_of = {k: fused_mhd3d.bind_step(params[k], states[k]) for k in states}
             cfl = lambda: cfl_mhd(p64, states["f64"])
             t = {k: torch.zeros((), dtype=states[k].dtype, device="cuda") for k in states}
         else:
             p64, _c, (S64, k64) = mri_setup(64, 128, 64, "float64")
             p32 = p64.replace(dtype="float32")
             S32, k32 = S64.float().contiguous(), k64.float().contiguous()
-            states = {"f64": (S64, k64), "f32": (S32, k32),
-                      "f32 comp": (torch.cat([S32, torch.zeros_like(S32)]),
-                                   torch.stack([k32, torch.zeros_like(k32)]))}
+            def comp(S, k):
+                return (torch.cat([S, torch.zeros_like(S)]), torch.stack([k, torch.zeros_like(k)]))
+
+            states = {"f64": (S64, k64), "f32": (S32, k32), "f32 comp": comp(S32, k32)}
             params = {"f64": p64, "f32": p32, "f32 comp": p32.replace(compensated=True)}
             steps_of = {k: bind_step(params[k], states[k]) for k in states}
             cfl = lambda: cfl_mhd(p64, states["f64"][0], kept=states["f64"][1])
@@ -2079,8 +2130,374 @@ def phase26(card: str) -> None:
               f"on {card}): rel L2 against f64: plain f32 {err_plain:.4e}, compensated f32 "
               f"{err_comp:.4e}, ratio {err_comp / err_plain:.3f}"
               + (" (criterion < 0.6)" if case.startswith("OT") else " (not asserted)"))
+        if not case.startswith("OT"):
+            # where the error sits: each channel's share of it, against the
+            # norm of all channels, and the f32 rounding of the start
+            norm = float(torch.linalg.norm(ref.double()))
+            for k in ("f32", "f32 comp"):
+                S = states[k][0][:8].double()
+                print(f"[26] {case} {k}: error by channel / |f64 state| "
+                      + ", ".join(f"{float(torch.linalg.norm(S[c] - ref[c].double())) / norm:.3e}"
+                                  for c in range(8)))
+            start = mri_setup(64, 128, 64, "float64")[2][0]
+            comp_value = states["f32 comp"][0][:8].double() - states["f32 comp"][0][8:].double()
+            print(f"[26] {case}: the f32 rounding of the start {rel_l2(start.float(), start):.3e}, "
+                  f"of the f64 end state {rel_l2(ref.float(), ref):.3e}; the compensated run's "
+                  f"value with its carry (u - c, in f64) {rel_l2(comp_value, ref):.3e}")
         if case.startswith("OT") and not err_comp < 0.6 * err_plain:
             raise AssertionError("compensated f32 is not closer to f64 than plain f32 by 40 %")
+
+
+# ---------------------------------------------------------------------------
+# the z-streaming step kernels ([implementation] kernel=zcarry, phases 27-32)
+# ---------------------------------------------------------------------------
+# after 10 chained steps in f64 the streamed kernels stay within the one-step
+# bound (its ULP-level differences do not grow in 10 steps)
+TOL_Z10 = {"float32": 1e-5, "float64": 1e-13}
+# the folded inverse dt against the CFL kernel on the step's output: the
+# same per-cell function (cfl_mhd.cuh, cfl_hydro.cuh) on the same values,
+# compiled in another kernel, so FMA contraction may differ in the last bit
+ULP_FOLD = 4
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    """|a - b| in units of the last place of b (0-d tensors)."""
+    return abs(float(a) - float(b)) / (torch.finfo(b.dtype).eps * abs(float(b)))
+
+
+def zcarry_case(name: str, dtype: str, n: int = 64):
+    """(params, loop state, t0, gz) of one phase-27 case on the card:
+    Orszag-Tang at n^3 (plain or compensated), the periodic blast at n^3,
+    the MRI at n x 2n x n (isothermal, adiabatic, compensated as shipped)
+    or the stratified MRI as shipped."""
+    from ramsesgpu_tpu_torch.kernels.packed_bc import pack_state
+    from ramsesgpu_tpu_torch.solvers.step import gravity_z
+
+    t0 = torch.zeros((), dtype=getattr(torch, dtype), device="cuda")
+    if name in ("ot", "ot comp"):
+        params, S = setup(n, dtype)
+        params = params.replace(kernel="zcarry", compensated=name == "ot comp")
+        if name == "ot comp":
+            S = with_carry(S, 31)
+        return params, S, t0, None
+    if name.startswith("blast"):
+        params, U = hydro_setup("blast", n, dtype, name.split()[-1])
+        params = params.replace(kernel="zcarry")
+        return params, pack_state(params, U), t0, None
+    ini = STRAT_INI if name == "strat" else MRI_INI
+    comp = None if name in ("mri comp", "strat") else False
+    params, config, (S, kept) = mri_setup(n, 2 * n, n, dtype, compensated=comp, ini=ini)
+    params = params.replace(kernel="zcarry", c_iso=0.0 if name == "mri adiabatic" else params.c_iso)
+    if params.compensated:
+        S, kept = comp_state(S, kept, 33)
+    gz = gravity_z(params, config, "cuda") if name == "strat" else None
+    return params, (S, kept), shear_t0(params, S.dtype), (None if gz is None else gz.to(S.dtype))
+
+
+ZCARRY_CASES = ["ot", "ot comp", "blast approx", "blast hllc", "mri", "mri adiabatic",
+                "mri comp", "strat"]
+
+
+def zcarry_one_step(params, state, t0, gz) -> dict:
+    """One step of the streamed kernel against its twin and the staged
+    kernel on the same inputs; the folded inverse dt against the CFL kernel
+    on its output; an inactive step copies. Returns the errors."""
+    from ramsesgpu_tpu_torch.kernels.cfl_hydro import cfl_hydro
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.kernels.zcarry_hydro3d import zcarry_hydro
+    from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
+    from ramsesgpu_tpu_torch.solvers.godunov import hydro_3d_state_update
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_periodic_update, mhd_3d_shear_update
+    from ramsesgpu_tpu_torch.solvers.timestep import (compute_inv_dt_hydro, dt_from_inv,
+                                                      inv_dt_mhd_periodic, inv_dt_mhd_shear)
+
+    dtype = str(params.dtype)
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    idle = torch.zeros_like(active)
+    out = {}
+    if not params.mhd:
+        S = state
+        dt = dt_from_inv(params, compute_inv_dt_hydro(params, S, ghost=0))
+        S1 = torch.empty_like(S)
+        inv = zcarry_hydro(params, S, S1, dt, active)
+        twin = hydro_3d_state_update(params, S, dt)
+        staged = hydro_step(params, S.clone(), dt, active, hydro_step.scratch(params, S))
+        inv_cfl = cfl_hydro(params, S1)
+    else:
+        S, kept = state if isinstance(state, tuple) else (state, None)
+        shear = None
+        if kept is None:
+            dt = dt_from_inv(params, inv_dt_mhd_periodic(params, S[:8]))
+        else:
+            dt = dt_from_inv(params, inv_dt_mhd_shear(params, S, kept[0] if params.compensated
+                                                      else kept))
+            slabs = shear_slabs(params, S, kept, t0, dt)
+            shear = (slabs, torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device="cuda"))
+            if gz is not None:
+                shear = shear + (shear_zslabs(params, S, slabs), gz)
+        S1 = torch.empty_like(S)
+        inv = zcarry_mhd(params, S, S1, dt, active, shear=shear, fold=shear is None)
+        if shear is None:
+            twin = mhd_3d_periodic_update(params, S, dt)
+            inv_cfl = cfl_mhd(params, S1)
+            staged_shear = None
+        else:
+            twin, planes_t = mhd_3d_shear_update(params, S, shear[0], dt, *shear[2:])
+            out["planes"] = max(rel_l2(p, q) for p, q in zip(shear[1], planes_t))
+            staged_shear = (shear[0], torch.zeros_like(shear[1])) + shear[2:]
+        staged = mhd_step(params, S.clone(), dt, active, mhd_step.scratch(params, S),
+                          shear=staged_shear)
+        twin, staged = twin[:8], staged[:8]
+    out["twin"] = rel_l2(S1[:8], twin)
+    out["staged"] = rel_l2(S1[:8], staged)
+    out["max_abs"] = float((S1[:8] - twin).abs().max())
+    if inv is not None:
+        out["fold_ulps"] = ulps(inv, inv_cfl)
+    # the inactive step: its output is its input
+    S2 = torch.full_like(S, float("nan"))
+    if not params.mhd:
+        zcarry_hydro(params, S, S2, dt, idle)
+    else:
+        zcarry_mhd(params, S, S2, dt, idle, shear=shear, fold=shear is None)
+    out["idle_copy"] = bool(torch.equal(S2, S))
+    return out
+
+
+def twin_loop(params, state, t0, gz, n: int):
+    """n steps of the twins on the card from the loop state: (S, t)."""
+    from ramsesgpu_tpu_torch.solvers.godunov import hydro_3d_state_update
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_periodic_update, mhd_3d_shear_step
+    from ramsesgpu_tpu_torch.solvers.timestep import (compute_inv_dt_hydro, dt_from_inv,
+                                                      inv_dt_mhd_periodic, inv_dt_mhd_shear)
+
+    t = t0.clone()
+    for _ in range(n):
+        if not params.mhd:
+            dt = dt_from_inv(params, compute_inv_dt_hydro(params, state, ghost=0))
+            state = hydro_3d_state_update(params, state, dt)
+        elif not isinstance(state, tuple):
+            dt = dt_from_inv(params, inv_dt_mhd_periodic(params, state[:8]))
+            state = mhd_3d_periodic_update(params, state, dt)
+        else:
+            face = state[1][0] if params.compensated else state[1]
+            dt = dt_from_inv(params, inv_dt_mhd_shear(params, state[0], face))
+            state = mhd_3d_shear_step(params, *state, t, dt, gz)
+        t = t + dt
+    return (state[0] if isinstance(state, tuple) else state), t
+
+
+def phase27() -> None:
+    """Each streamed kernel mode against its twin and the staged kernel, 1
+    step and 10 chained steps of its loop against the twins' loop, f32 and
+    f64."""
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+
+    for dtype in ("float32", "float64"):
+        for name in ZCARRY_CASES:
+            params, state, t0, gz = zcarry_case(name, dtype)
+            e = zcarry_one_step(params, state, t0, gz)
+            tag = f"[27] {name} {dtype}"
+            print(f"{tag} 1 step: vs twin rel L2 {e['twin']:.3e}, vs staged {e['staged']:.3e} "
+                  f"(tol {TOL_STEP1[dtype]:.0e}), max abs {e['max_abs']:.3e}"
+                  + (f", x-face planes {e['planes']:.3e} (tol {TOL_PLANES[dtype]:.0e})"
+                     if "planes" in e else "")
+                  + (f", folded inv dt vs CFL kernel {e['fold_ulps']:.2f} ULP (bound {ULP_FOLD})"
+                     if "fold_ulps" in e else "") + f", inactive copies: {e['idle_copy']}")
+            if not (e["twin"] <= TOL_STEP1[dtype] and e["staged"] <= TOL_STEP1[dtype]
+                    and e.get("planes", 0) <= TOL_PLANES[dtype]
+                    and e.get("fold_ulps", 0) <= ULP_FOLD and e["idle_copy"]):
+                raise AssertionError(f"{tag}: the streamed step disagrees: {e}")
+            # 10 chained steps of the loop against the twins' loop
+            config = None
+            if name == "strat":
+                config = mri_setup(64, 128, 64, dtype, compensated=None, ini=STRAT_INI)[1]
+            _pack, advance, _unpack = make_packed_advance_chain(params, "cuda", config)
+            st = tuple(x.clone() for x in state) if isinstance(state, tuple) else state.clone()
+            st, t_k, k = advance(st, t0.clone(), 10)
+            want, t_t = twin_loop(params, state, t0, gz, 10)
+            got = st[0] if isinstance(st, tuple) else st
+            rel10 = rel_l2(got[:8], want[:8])
+            print(f"{tag} 10 chained steps: k={int(k)}, t {float(t_k)!r} (twins {float(t_t)!r}), "
+                  f"rel L2 {rel10:.3e} (tol {TOL_Z10[dtype]:.0e})")
+            if int(k) != 10 or not rel10 <= TOL_Z10[dtype]:
+                raise AssertionError(f"{tag}: 10 chained steps disagree with the twins: {rel10}")
+            del state, st
+
+
+def phase31(card: str) -> None:
+    """One 10-step chunk of Orszag-Tang at 512^3 f32 with kernel=zcarry:
+    the state built on the card, its peak memory and the rings' bytes, in
+    shared memory (the staged step's stage buffer would be 173 values per
+    cell, ~93 GB)."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library
+    from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+
+    n, chunk = 512, 10
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params, S = setup(n, "float32")
+    params = params.replace(kernel="zcarry")
+    print(f"[31] Orszag-Tang {n}^3 f32 set up in {time.perf_counter() - t0:.1f} s "
+          f"(host init, copy to the card)")
+    blocks = zcarry_mhd.blocks(params, S)
+    ring_bytes = blocks * load_library("cuda").ramses_zcarry_mhd_ring_bytes(0)
+    b_over_dx = max(float(S[5].abs().max()), 1e-10) / params.dx
+    mass0 = float(S[0].double().sum())
+    _pack, advance, _unpack = make_packed_advance_chain(params, "cuda")
+    with counted_main_path("31", {"zcarry_mhd": chunk, "cfl_mhd": 1}):
+        t = torch.zeros((), device="cuda")
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        S, t, k = advance(S, t, chunk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated() - base
+    divb = div_b_max(params, S)
+    mass = float(S[0].double().sum())
+    print(f"[31] {n}^3 f32 zcarry chunk on {card}: k={int(k)}, {wall * 1e3 / chunk:.3f} ms/step "
+          f"(first chunk, build and warm-up included), {n ** 3 * chunk / wall:.4e} cells/s; "
+          f"peak allocated {peak / 1e9:.3f} GB (bound 24 GB), the kernel's rings "
+          f"{ring_bytes / 1e9:.4f} GB in shared memory ({blocks} blocks), none in device "
+          f"memory (bound 1 GB); state {S.numel() * 4 / 1e9:.3f} GB; "
+          f"max|divB| {divb:.3e} (bound {1e-3 * b_over_dx:.3e}), mass rel "
+          f"{abs(mass - mass0) / abs(mass0):.3e} (1e-5)")
+    if not (int(k) == chunk and bool(torch.isfinite(S).all())):
+        raise AssertionError("512^3: non-finite state or a short chunk")
+    if not (divb < 1e-3 * b_over_dx and abs(mass - mass0) <= 1e-5 * abs(mass0)):
+        raise AssertionError("512^3: divB or mass bound violated")
+    if not (peak < 24e9 and ring_bytes < 1e9):
+        raise AssertionError(f"512^3: peak {peak} B or rings {ring_bytes} B above their bounds")
+
+
+def phase32(card: str, ot, blast, mri, bounds: dict, twin_n: int) -> dict:
+    """The streamed kernels at full width on the end states of paths 29
+    (Orszag-Tang 256^3), 28 (blast 256^3) and 30 (MRI 128x256x128):
+    against their twins (the step's twin, then the CFL twin on its
+    result), their times against the twins', and their bounds: the staged
+    kernels' (phases 11, 15) bytes, read once and written once, and their
+    operations plus the folded CFL's."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+    from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
+    from ramsesgpu_tpu_torch.kernels.packed_bc import bc_codes
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs
+    from ramsesgpu_tpu_torch.kernels.zcarry_hydro3d import zcarry_hydro
+    from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
+    from ramsesgpu_tpu_torch.solvers.godunov import hydro_3d_state_update
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_periodic_update, mhd_3d_shear_update
+    from ramsesgpu_tpu_torch.solvers.timestep import (compute_inv_dt_hydro, dt_from_inv,
+                                                      inv_dt_mhd_periodic, inv_dt_mhd_shear)
+
+    res = {"ms": {}, "plain_ms": {}, "max_abs_err": {}, "bounds": {}}
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    count = load_library("count")
+
+    # periodic MHD (with the folded CFL)
+    params, S, _t = ot
+    dt = dt_from_inv(params, inv_dt_mhd_periodic(params, S))
+    S1 = torch.empty_like(S)
+    res["ms"]["zcarry_mhd"] = time_ms(lambda: zcarry_mhd(params, S, S1, dt, active, fold=True),
+                                      10)
+    Sw = S if twin_n == 256 else S[:, :twin_n, :twin_n, :twin_n].contiguous()
+    pw = params if twin_n == 256 else block_params(params, twin_n)
+    S1 = torch.empty_like(Sw)
+    inv = zcarry_mhd(pw, Sw, S1, dt, active, fold=True)
+    S_t = mhd_3d_periodic_update(pw, Sw, dt)
+    inv_t = inv_dt_mhd_periodic(pw, S_t)
+    res["max_abs_err"]["zcarry_mhd"] = float((S1 - S_t).abs().max())
+    rel, inv_rel = rel_l2(S1, S_t), abs(float(inv) - float(inv_t)) / float(inv_t)
+    del S_t
+    torch.cuda.empty_cache()
+    res["plain_ms"]["zcarry_mhd"] = time_ms(
+        lambda: inv_dt_mhd_periodic(pw, mhd_3d_periodic_update(pw, Sw, dt)), 2)
+    print(f"[32] zcarry_mhd at {twin_n}^3 f32 (Orszag-Tang, path 29's end state): vs twin rel L2 "
+          f"{rel:.3e} (tol {TOL_STEP1['float32']:.0e}), folded inv dt rel {inv_rel:.3e} "
+          f"(tol {TOL_CFL['float32']:.0e}); kernel {res['ms']['zcarry_mhd']:.3f} ms at 256^3, "
+          f"twin {res['plain_ms']['zcarry_mhd']:.3f} ms at {twin_n}^3 ({card})")
+    if not (rel <= TOL_STEP1["float32"] and inv_rel <= TOL_CFL["float32"]):
+        raise AssertionError("zcarry_mhd disagrees with its twin at full width")
+    del Sw, S1
+    # the bound: the state read and written once, and the step's operations
+    # plus the folded CFL's (phase 11's counts on a 32^3 block)
+    n = 256 ** 3
+    res["bounds"]["zcarry_mhd"] = bound("32", "zcarry_mhd", 2 * 8 * 4 * n,
+                                        bounds["ops"]["mhd_step"] + bounds["ops"]["cfl_mhd"],
+                                        "256^3", n)
+
+    # periodic hydro (folded CFL), the blast
+    params, S = blast
+    dt = dt_from_inv(params, compute_inv_dt_hydro(params, S, ghost=0))
+    S1 = torch.empty_like(S)
+    res["ms"]["zcarry_hydro"] = time_ms(lambda: zcarry_hydro(params, S, S1, dt, active), 10)
+    inv = zcarry_hydro(params, S, S1, dt, active)
+    S_t = hydro_3d_state_update(params, S, dt)
+    inv_t = compute_inv_dt_hydro(params, S_t, ghost=0)
+    res["max_abs_err"]["zcarry_hydro"] = float((S1 - S_t).abs().max())
+    rel, inv_rel = rel_l2(S1, S_t), abs(float(inv) - float(inv_t)) / float(inv_t)
+    del S_t
+    torch.cuda.empty_cache()
+    res["plain_ms"]["zcarry_hydro"] = time_ms(
+        lambda: compute_inv_dt_hydro(params, hydro_3d_state_update(params, S, dt), ghost=0), 2)
+    print(f"[32] zcarry_hydro at 256^3 f32 (blast, path 28's end state): vs twin rel L2 "
+          f"{rel:.3e}, inv dt rel {inv_rel:.3e}; kernel {res['ms']['zcarry_hydro']:.3f} ms, "
+          f"twin {res['plain_ms']['zcarry_hydro']:.3f} ms ({card})")
+    if not (rel <= TOL_STEP1["float32"] and inv_rel <= TOL_CFL["float32"]):
+        raise AssertionError("zcarry_hydro disagrees with its twin at full width")
+    # its operations on this state: the counting build on a 32^3 block (one
+    # trace per cell, one Riemann solve per face) and the Newton iterations
+    # of this step, counted by the staged kernel on the card
+    newton = torch.zeros((), dtype=torch.int64, device="cuda")
+    hydro_step(params, S.clone(), dt, active, hydro_step.scratch(params, S), newton=newton)
+    p_sub = block_params(params, 32)
+    S_sub = S[:, :32, :32, :32].double().contiguous().cpu()
+    parts, fixed = (ctypes.c_longlong * 4)(), (ctypes.c_longlong * 4)()
+    iters = torch.zeros((), dtype=torch.int64)
+    count.ramses_hydro_step_ops(S_sub.data_ptr(), 32, 32, 32, bc_codes(p_sub),
+                                param_block(p_sub), float(dt), parts, iters.data_ptr())
+    p0 = p_sub.replace(niter_riemann=0)
+    count.ramses_hydro_step_ops(S_sub.data_ptr(), 32, 32, 32, bc_codes(p0), param_block(p0),
+                                float(dt), fixed, None)
+    n = 256 ** 3
+    per_iter = (parts[2] - fixed[2]) / max(int(iters), 1)
+    ops = ((fixed[0] + fixed[1] + fixed[3]) / 32 ** 3 * n + fixed[2] / (3 * 32 * 32 * 33)
+           * 3 * 256 * 256 * 257 + per_iter * int(newton))
+    ops += count.ramses_cfl_hydro_ops(S_sub.data_ptr(), 32, 32, 32, 0, param_block(p_sub)) \
+        / 32 ** 3 * n
+    res["bounds"]["zcarry_hydro"] = bound("32", "zcarry_hydro", 2 * 5 * 4 * n, ops, "256^3", n)
+    del S1
+
+    # the shearing box (no folded CFL): the MRI path's end state
+    params, S, kept, t, _config = mri
+    dt = dt_from_inv(params, inv_dt_mhd_shear(params, S, kept))
+    slabs = shear_slabs(params, S, kept, t, dt)
+    planes = torch.zeros((5, params.nz, params.ny), device="cuda")
+    S1 = torch.empty_like(S)
+    res["ms"]["zcarry_mhd_shear"] = time_ms(
+        lambda: zcarry_mhd(params, S, S1, dt, active, shear=(slabs, planes)), 10)
+    zcarry_mhd(params, S, S1, dt, active, shear=(slabs, planes))
+    S_t, planes_t = mhd_3d_shear_update(params, S, slabs, dt)
+    res["max_abs_err"]["zcarry_mhd_shear"] = float((S1 - S_t).abs().max())
+    rel = rel_l2(S1, S_t)
+    rel_p = max(rel_l2(p, q) for p, q in zip(planes, planes_t))
+    del S_t
+    torch.cuda.empty_cache()
+    res["plain_ms"]["zcarry_mhd_shear"] = time_ms(
+        lambda: mhd_3d_shear_update(params, S, slabs, dt), 2)
+    print(f"[32] zcarry_mhd_shear at 128x256x128 f32 (MRI, path 30's end state): vs twin rel L2 "
+          f"{rel:.3e}, x-face planes {rel_p:.3e} (tol {TOL_PLANES['float32']:.0e}); kernel "
+          f"{res['ms']['zcarry_mhd_shear']:.3f} ms, twin {res['plain_ms']['zcarry_mhd_shear']:.3f} "
+          f"ms ({card})")
+    if not (rel <= TOL_STEP1["float32"] and rel_p <= TOL_PLANES["float32"]):
+        raise AssertionError("zcarry_mhd_shear disagrees with its twin at full width")
+    res["bounds"]["zcarry_mhd_shear"] = bounds["mhd_step_shear"]
+    print(f"[32] zcarry_mhd_shear: bound {bounds['mhd_step_shear'][0]:.5f} ms by "
+          f"{bounds['mhd_step_shear'][1]} (the staged shear step's, phase 15: the same function)")
+    return res
 
 
 def profile_chunk(label: str, card: str, advance, S: torch.Tensor, t: torch.Tensor,
@@ -2110,6 +2527,26 @@ def profile_chunk(label: str, card: str, advance, S: torch.Tensor, t: torch.Tens
           f"idle share {1 - busy / wall_us:.4f}")
     for us, count, key in sorted(rows, reverse=True):
         print(f"[{label}] {us / 1e3:9.3f} ms {100 * us / busy:5.1f} % {count:4d}x  {key[:110]}")
+    return {key: (us, count) for us, count, key in rows}
+
+
+# the staged step kernels' stages as the profiler names them
+STAGED_STEP_KERNELS = ("mhd::PrimStage", "mhd::TraceStage", "mhd::UpdateStage",
+                       "hydro::FluxStage", "hydro::UpdateStage")
+
+
+def check_streamed(label: str, kernel: str, rows: dict) -> None:
+    """With kernel=zcarry the profiled chunk ran the streamed step kernel,
+    one launch per step, and no stage of a staged step kernel."""
+    if kernel != "zcarry":
+        return
+    streamed = {k: c for k, (_us, c) in rows.items() if "zcarry" in k}
+    staged = [k for k in rows if any(s in k for s in STAGED_STEP_KERNELS)]
+    print(f"[{label}] streamed step launches in the profiled chunk: "
+          f"{sum(streamed.values())} ({len(streamed)} kernel(s)); staged stages: {len(staged)}")
+    if not streamed or staged:
+        raise AssertionError(f"{label}: the profiled chunk ran {sorted(streamed)} and staged "
+                             f"stages {staged[:3]}")
 
 
 def main() -> int:
@@ -2182,6 +2619,28 @@ def main() -> int:
     bounds.update(new_timing["bounds"])
     phase26(card)
     lap("26")
+    phase27()
+    lap("27")
+    zc_hydro_launches, blast = phase9(card, ("blast",), "zcarry", "28")
+    lap("28")
+    zc_launches, ot_zc = phase5(card, "29", kernel="zcarry")
+    lap("29")
+    phase5(card, "29c", compensated=True, kernel="zcarry")
+    lap("29c")
+    zc_shear_launches, mri_zc = phase13(card, "30", kernel="zcarry")
+    lap("30")
+    phase13(card, "30c", compensated=None, kernel="zcarry")
+    lap("30c")
+    phase13(card, "30v", *DISSIP_COEFFS["nu=4e-5 eta=1e-5"], kernel="zcarry")
+    lap("30v")
+    phase13(card, "30s", compensated=None, ini=STRAT_INI, kernel="zcarry")
+    lap("30s")
+    zc_timing = phase32(card, ot_zc, blast, mri_zc, bounds, timing["n_twin"])
+    lap("32")
+    del ot_zc, blast, mri_zc
+    bounds.update(zc_timing["bounds"])
+    phase31(card)
+    lap("31")
     if "jax" in sys.modules or any(m.startswith("ramsesgpu_tpu.") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
 
@@ -2197,9 +2656,12 @@ def main() -> int:
                 "mhd_step_shear_comp": flagship_launches["mhd_step"],
                 "shear_border_comp": flagship_launches["shear_border"],
                 "mhd_step_strat": strat_launches["mhd_step"],
-                "shear_zslabs": strat_launches["shear_zslabs"]}
+                "shear_zslabs": strat_launches["shear_zslabs"],
+                "zcarry_mhd": zc_launches["zcarry_mhd"],
+                "zcarry_hydro": zc_hydro_launches["zcarry_hydro"],
+                "zcarry_mhd_shear": zc_shear_launches["zcarry_mhd"]}
     measured = {key: {**timing[key], **hydro_timing[key], **shear_timing[key],
-                      **dissip_timing[key], **new_timing[key]}
+                      **dissip_timing[key], **new_timing[key], **zc_timing[key]}
                 for key in ("ms", "plain_ms", "max_abs_err")}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

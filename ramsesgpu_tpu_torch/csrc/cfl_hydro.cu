@@ -20,7 +20,7 @@
 // Bound on the H100: it reads 5 values per cell, 20 B/cell in f32 (0.34 GB
 // at 256^3, 0.10 ms at 3.35 TB/s); ~25 flops per cell are far below the
 // compute bound.
-#include "common.cuh"
+#include "cfl_hydro.cuh"
 
 namespace ramses {
 
@@ -39,20 +39,7 @@ struct HydroInvDt {
     const int k = (int)(r / ny);
     const long long a =
         ((long long)(k + off) * (ny + 2 * off) + (j + off)) * (nx + 2 * off) + (i + off);
-    const T rho = pmax(A[ID * stride + a], ph.smallr);
-    const T u = A[IU * stride + a] / rho;
-    const T v = A[IV * stride + a] / rho;
-    const T w = A[IW * stride + a] / rho;
-    T cs;
-    if (c_iso > T(0)) {
-      cs = c_iso;
-    } else {
-      const T eken = r_mul(T(0.5), r_mul(u, u) + r_mul(v, v) + r_mul(w, w));
-      const T eint = A[IP * stride + a] / rho - eken;
-      const T p = pmax(r_mul(r_mul(ph.gm1, rho), eint), r_mul(rho, ph.smallp));
-      cs = r_sqrt(r_mul(ph.gamma0, p) / rho);
-    }
-    return (cs + r_abs(u)) / ph.dx + (cs + r_abs(v)) / ph.dy + (cs + r_abs(w)) / ph.dz;
+    return hydro_inv_dt_cell(ph, c_iso, A + a, stride);
   }
 };
 

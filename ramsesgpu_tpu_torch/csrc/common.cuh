@@ -176,6 +176,13 @@ HD int to_int(float a) { return (int)a; }
 HD int to_int(double a) { return (int)a; }
 // a mod n in [0, n) for any int a
 HD int mod_n(int a, int n) { return ((a % n) + n) % n; }
+// a mod n for any int a: one compare when a is within one period of
+// [0, n), as a neighbour of an interior cell is on an axis of n >= 3 cells
+HD int wrap_any(int a, int n) {
+  if (a < 0) return a + n >= 0 ? a + n : mod_n(a, n);
+  if (a >= n) return a - n < n ? a - n : mod_n(a, n);
+  return a;
+}
 
 // max/min that propagate NaN, as torch.maximum and jnp.maximum do
 template <typename T> HD T pmax(T a, T b) { return (a > b || a != a) ? a : b; }
@@ -198,7 +205,7 @@ struct Dims {
   long long n;  // nx * ny * nz
 };
 
-inline Dims make_dims(int nx, int ny, int nz) {
+HD Dims make_dims(int nx, int ny, int nz) {
   Dims d;
   d.nx = nx;
   d.ny = ny;
@@ -217,6 +224,54 @@ HD void cell_ijk(const Dims& d, long long c, int& i, int& j, int& k) {
   const long long r = c / d.nx;
   j = (int)(r % d.ny);
   k = (int)(r / d.ny);
+}
+
+// The z-streaming kernels (zcarry_mhd.cu, zcarry_hydro.cu) run a block
+// body as phases: the block's threads stride over a phase's n work items
+// t and meet at block_sync() before the next phase; the host build runs
+// each phase as a serial loop, so it runs the same ring logic item by item.
+template <typename F>
+HD void block_items(int n, const F& f) {
+#ifdef __CUDA_ARCH__
+  for (int t = threadIdx.x; t < n; t += blockDim.x) f(t);
+#else
+  for (int t = 0; t < n; ++t) f(t);
+#endif
+}
+
+// a phase over a tile's w x h cells: tile-local column lo + t % w, row
+// lo + t / w
+template <typename F>
+HD void block_phase(int w, int h, int lo, const F& f) {
+  block_items(w * h, [&](int t) { f(lo + t % w, lo + t / w); });
+}
+
+// the z chunks of each (x, y) tile for a persistent grid of `blocks`: the
+// count whose busiest block walks the fewest planes, each item walking its
+// chunk and about three planes of warm-up
+HD int pick_z_chunks(long long tiles, int blocks, int nz) {
+  int best = 1;
+  long long best_cost = -1;
+  for (int c = 1; c <= 64 && c <= nz; ++c) {
+    const int bz = (nz + c - 1) / c;
+    const long long items = tiles * ((nz + bz - 1) / bz);
+    const long long cost = (items + blocks - 1) / blocks * (bz + 3);
+    if (best_cost < 0 || cost < best_cost) {
+      best = c;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// bytes of shared memory a block may opt into on the H100 (227 KB;
+// cudaFuncAttributeMaxDynamicSharedMemorySize), static arrays included
+constexpr long long SMEM_LIMIT = 232448;
+
+HD void block_sync() {
+#ifdef __CUDA_ARCH__
+  __syncthreads();
+#endif
 }
 
 #ifdef __CUDACC__
@@ -286,6 +341,26 @@ __global__ void __launch_bounds__(MAX_THREADS) max_final_kernel(const T* partial
   for (int b = threadIdx.x; b < nblocks; b += blockDim.x) m = pmax(m, partial[b]);
   m = block_max(m);
   if (threadIdx.x == 0) out[0] = m;
+}
+
+// the max of the block's values v into *out, a device value the caller set
+// to 0 before the launch: the block's max (NaN-propagating; by warp
+// shuffles, then over the warps), then one atomic max on its bit pattern,
+// which orders non-negative floats as their values and puts a NaN of either
+// sign above every one of them. Every thread of the block calls it.
+template <typename T>
+__device__ void atomic_max_nonneg(T* out, T v) {
+  __shared__ T warp_max[32];
+  for (int o = 16; o > 0; o >>= 1) v = pmax(v, __shfl_down_sync(0xffffffffu, v, o));
+  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = v;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  for (int w = 1; w < (int)(blockDim.x + 31) / 32; ++w) v = pmax(v, warp_max[w]);
+  if constexpr (sizeof(T) == 4)
+    atomicMax(reinterpret_cast<unsigned int*>(out), __float_as_uint(v));
+  else
+    atomicMax(reinterpret_cast<unsigned long long*>(out),
+              (unsigned long long)__double_as_longlong(v));
 }
 #endif
 

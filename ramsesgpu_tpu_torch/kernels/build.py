@@ -34,8 +34,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("cfl_mhd.cu", "mhd_step.cu", "cfl_hydro.cu", "hydro_step.cu", "shear_border.cu",
-           "dissip_step.cu")
-HEADERS = ("common.cuh", "op_count.cuh")
+           "dissip_step.cu", "zcarry_mhd.cu", "zcarry_hydro.cu")
+HEADERS = ("common.cuh", "op_count.cuh", "mhd_stages.cuh", "hydro_stages.cuh", "cfl_mhd.cuh",
+           "cfl_hydro.cuh")
 
 # per-source compile flags (each source compiles to an object, all in
 # parallel) and the link flags of the shared library
@@ -172,6 +173,13 @@ _SIGNATURES = {
     "ramses_dissip_step_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
     "ramses_dissip_step_f32": ([_P] * 6 + [_I] * 4 + [_P, _P], _I),
     "ramses_dissip_step_f64": ([_P] * 6 + [_I] * 4 + [_P, _P], _I),
+    "ramses_zcarry_mhd_ring_bytes": ([_I], ctypes.c_longlong),
+    "ramses_zcarry_mhd_blocks": ([_I, _I, _I, _P], _I),
+    "ramses_zcarry_mhd_f32": ([_P, _P, _I] + [_P] * 7 + [_I] * 4 + [_P, _P], _I),
+    "ramses_zcarry_mhd_f64": ([_P, _P, _I] + [_P] * 7 + [_I] * 4 + [_P, _P], _I),
+    "ramses_zcarry_hydro_blocks": ([_I], _I),
+    "ramses_zcarry_hydro_f32": ([_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_zcarry_hydro_f64": ([_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P], _I),
 }
 
 # the operation-counting entry points of build("count")

@@ -9,7 +9,12 @@ step.
   interior-only S [5, nz, ny, nx] for any mix of DIRICHLET / NEUMANN /
   PERIODIC faces (kernels/packed_bc.py), so one loop serves both. Each
   step launches the CFL kernel (kernels/cfl_hydro.py) and the step
-  kernel's interior mode (kernels/hydro_step.py).
+  kernel's interior mode (kernels/hydro_step.py). With ``[implementation]
+  kernel=zcarry`` a fully periodic run takes the streamed step instead
+  (kernels/zcarry_hydro3d.py: one launch per step, the CFL folded in, the
+  JAX inv-carry loop of fused_hydro3d.py:243-260); a walled run keeps the
+  staged wall-rule kernel, as the JAX package takes its whole-array step
+  there (scripts/perf_table.py:113-114).
 - ``make_step_fn`` is ``make_pallas_hydro_step_fn`` (:393): one step of a
   ghosted state through the step kernel's ghosted mode (the TPU kernel
   ``make_fused_hydro_update``, :46), then the boundary fill around the new
@@ -26,8 +31,9 @@ from ..solvers.boundary import make_boundaries_concat
 from ..solvers.timestep import dt_from_inv
 from .cfl_hydro import cfl_hydro
 from .hydro_step import hydro_step, require_hydro_scope
-from .loop import make_kernel_loop
+from .loop import make_kernel_loop, streamed_step
 from .packed_bc import pack_state, unpack_state
+from .zcarry_hydro3d import zcarry_hydro, zcarry_hydro_supported
 
 
 def make_advance_n(params: RunParams, device, packed_form: bool = False):
@@ -36,8 +42,11 @@ def make_advance_n(params: RunParams, device, packed_form: bool = False):
     require_hydro_scope(params)
 
     def bind_step(S):
+        if params.kernel == "zcarry" and zcarry_hydro_supported(params):
+            return streamed_step(S, lambda S, out, dt, active, t: zcarry_hydro(
+                params, S, out, dt, active))
         scratch = hydro_step.scratch(params, S)
-        return lambda S, dt, active, t: hydro_step(params, S, dt, active, scratch)
+        return lambda S, dt, active, t: (hydro_step(params, S, dt, active, scratch), None)
 
     return make_kernel_loop(
         params, device, lambda S: cfl_hydro(params, S), bind_step,

@@ -13,6 +13,13 @@ packed-io launch, pallas/fused_mhd3d.py:457-463). A compensated run
 carries [16, nz, ny, nx], the state and its Kahan carry (TPU row
 A′-compensated, pallas/fused_mhd3d.py:247-259): pack appends a zero
 carry, unpack drops it.
+
+``[implementation] kernel=zcarry`` (pallas/fused_mhd3d.py:321-349) runs
+the streamed step instead (kernels/zcarry_mhd3d.py: one launch, no stage
+buffer, the state in two buffers that take turns), which folds the next
+step's CFL into the step where there is no dissipation; a dissipative run
+keeps the separate CFL launch, as the JAX loop does, because the folded
+reduction would see the state before the dissipation kernel.
 """
 from __future__ import annotations
 
@@ -23,8 +30,9 @@ from ..solvers.boundary import interior, make_boundaries_concat
 from ..solvers.dissipation import uses_dissipation
 from .cfl_mhd import cfl_mhd
 from .dissip_step import dissip_step
-from .loop import make_kernel_loop
+from .loop import make_kernel_loop, streamed_step
 from .mhd_step import mhd_step, require_step_scope
+from .zcarry_mhd3d import zcarry_mhd
 
 
 def packed_supported(params: RunParams) -> bool:
@@ -41,7 +49,7 @@ def make_advance_n(params: RunParams, device, packed_form: bool = False):
     require_step_scope(params)
 
     return make_kernel_loop(
-        params, device, lambda S: cfl_mhd(params, S), lambda S: bind_periodic_step(params, S),
+        params, device, lambda S: cfl_mhd(params, S), lambda S: bind_step(params, S),
         pack=lambda U: pack(params, U),
         unpack=lambda S, t: unpack(params, S),
         packed_form=packed_form,
@@ -64,15 +72,30 @@ def unpack(params: RunParams, S) -> torch.Tensor:
     return make_boundaries_concat(params, S[:8], interior_only=True)
 
 
-def bind_periodic_step(params: RunParams, S):
-    """``step(S, dt, active, t)``: the periodic step on S in place with the
-    stage buffer for S's shape; the dissipation kernel reuses the step
-    kernel's buffer, idle by then on the same stream."""
+def bind_step(params: RunParams, S):
+    """``step(S, dt, active, t) -> (S', inv)`` (kernels/loop.py) with the
+    buffers for S's shape: the staged step on S in place, whose stage
+    buffer the dissipation kernel reuses, idle by then on the same stream;
+    or, with kernel=zcarry, the streamed step into the other buffer, the
+    dissipation kernel with its own scratch, and the folded inverse dt
+    where there is no dissipation."""
+    dissip = uses_dissipation(params)
+    if params.kernel == "zcarry":
+        dscratch = dissip_step.scratch(params, S) if dissip else None
+
+        def step_into(S, out, dt, active, t):
+            inv = zcarry_mhd(params, S, out, dt, active, fold=not dissip)
+            if dissip:
+                dissip_step(params, out, dt, active, dscratch)
+            return inv
+
+        return streamed_step(S, step_into)
     scratch = mhd_step.scratch(params, S)
 
     def step(S, dt, active, t):
         mhd_step(params, S, dt, active, scratch)
-        if uses_dissipation(params):
+        if dissip:
             dissip_step(params, S, dt, active, scratch)
+        return S, None
 
     return step

@@ -2,10 +2,13 @@
 ``lax.while_loop`` in ramsesgpu_tpu/pallas/fused_mhd3d.py:295 and
 fused_hydro3d.py:204,302).
 
-Each step launches a CFL kernel and the step's kernels on the loop state;
-dt, t, the step count and the ``t < t_end`` flag stay device tensors and
-the step kernels skip their work when the flag is false, so a chunk of n
-steps makes no host sync.
+Each step launches the step's kernels on the loop state, and a CFL kernel
+unless the step before returned the next inverse dt (the streamed steps of
+``kernel=zcarry`` fold the reduction into the step, as the JAX inv-carry
+loops do, pallas/fused_mhd3d.py:395-415, fused_hydro3d.py:243-260); dt,
+t, the step count and the ``t < t_end`` flag stay device tensors and the
+step kernels skip their work when the flag is false, so a chunk of n steps
+makes no host sync.
 """
 from __future__ import annotations
 
@@ -29,11 +32,16 @@ def make_kernel_loop(params: RunParams, device, cfl: Callable, bind_step: Callab
 
     The loop state S is a tensor, or a tuple of tensors (the shearing box
     carries (S, kept)). ``cfl(S)`` returns the 0-d inverse dt;
-    ``bind_step(S)`` allocates the step's stage buffers for S's shapes once
-    per chunk and returns ``step(S, dt, active, t)``, which advances S in
-    place from time t. ``t`` is a 0-d tensor of the state dtype on
-    ``device``; ``n`` an int. The loop stops advancing once t >= t_end
-    (t_end > 0), as the JAX while_loop does, without leaving the device."""
+    ``bind_step(S)`` allocates the step's buffers for S's shapes once per
+    chunk and returns ``step(S, dt, active, t) -> (S', inv)``: the state
+    after the step from time t, which is S itself for a step in place or
+    another buffer of the same shapes for a streamed one, and the next
+    step's 0-d inverse dt when the step reduced it, else None. The first
+    dt of a chunk comes from ``cfl``; a chunk that ends in another buffer
+    copies its state into the caller's S once. ``t`` is a 0-d tensor of the
+    state dtype on ``device``; ``n`` an int. The loop stops advancing once
+    t >= t_end (t_end > 0), as the JAX while_loop does, without leaving the
+    device."""
     device = torch.device(device)
     t_end = params.t_end
 
@@ -47,12 +55,14 @@ def make_kernel_loop(params: RunParams, device, cfl: Callable, bind_step: Callab
         k = torch.zeros((), dtype=torch.int32, device=t.device)
         always = torch.ones((), dtype=torch.bool, device=t.device)
         step = bind_step(S)
+        cur, inv = S, None
         for _ in range(n):
             active = (t < t_end) if t_end > 0 else always
-            dt = dt_from_inv(params, cfl(S))
-            step(S, dt, active, t)
+            dt = dt_from_inv(params, cfl(cur) if inv is None else inv)
+            cur, inv = step(cur, dt, active, t)
             t = t + torch.where(active, dt, torch.zeros_like(dt))
             k = k + active.to(torch.int32)
+        copy_state(S, cur)
         return S, t, k
 
     if packed_form:
@@ -63,3 +73,30 @@ def make_kernel_loop(params: RunParams, device, cfl: Callable, bind_step: Callab
         return unpack(S, t_new), t_new, k
 
     return advance_n
+
+
+def copy_state(dst, src) -> None:
+    """Copy the loop state src into dst (tensors, or tuples of them), each
+    tensor that is not already dst's own."""
+    for d, s in (zip(dst, src) if isinstance(dst, tuple) else ((dst, src),)):
+        if d is not s:
+            d.copy_(s)
+
+
+def streamed_step(S, step_into: Callable) -> Callable:
+    """``step(S, dt, active, t) -> (S', inv)`` for a step that cannot work
+    in place: ``step_into(S_in, S_out, dt, active, t) -> inv`` writes the
+    step of the loop state S_in into the tensor S_out. The bound state's
+    tensor (its first, for a tuple state, whose other members the step
+    updates in place) and one more buffer of its shape take turns as
+    S_out."""
+    first = S[0] if isinstance(S, tuple) else S
+    other = torch.empty_like(first)
+
+    def step(cur, dt, active, t):
+        head = cur[0] if isinstance(cur, tuple) else cur
+        out = first if head is other else other
+        inv = step_into(cur, out, dt, active, t)
+        return ((out, *cur[1:]) if isinstance(cur, tuple) else out), inv
+
+    return step

@@ -25,6 +25,11 @@ per step builds the z ghost slabs of the interior and of the x slabs
 (kernels/shear_border.py) before the step kernel, which reads them and
 g_z, one value per z row (``gz``, the run's gravity field column).
 
+``[implementation] kernel=zcarry`` (pallas/shear_packed.py:880-895) runs
+the streamed step kernel's shear modes (kernels/zcarry_mhd3d.py) as the
+main kernel: the same slabs, border and CFL launches around it, the state
+in two buffers that take turns (kept stays one), no stage buffer.
+
 ``[implementation] stripFused`` (the JAX package's fused border strip,
 pallas/shear_packed.py:432, its default for a dissipative MRI when
 ny % 128 == 0) selects nothing here: the port has no strip. What the fused
@@ -42,14 +47,15 @@ import torch
 from ..config.params import RunParams
 from ..core.constants import IA
 from ..solvers.dissipation import uses_dissipation
-from ..solvers.shear import wrap_yz
+from ..solvers.shear import wrap_axis, wrap_yz
 from ..solvers.stratified import uses_stratified_z
 from ..solvers.timestep import dt_from_inv
 from .cfl_mhd import cfl_mhd
 from .dissip_step import dissip_step
-from .loop import make_kernel_loop
+from .loop import make_kernel_loop, streamed_step
 from .mhd_step import NPLANE, SLAB, mhd_step, require_step_scope, uses_shear, zslab_shape
 from .shear_border import shear_border, shear_slabs, shear_zslabs
+from .zcarry_mhd3d import zcarry_mhd
 
 
 def require_shear(params: RunParams) -> None:
@@ -85,27 +91,32 @@ def unpack(params: RunParams, state, t: torch.Tensor) -> torch.Tensor:
         return wrap_yz(params, mid)
     zslabs = shear_zslabs(params, S, slabs)
     mid = torch.cat([zslabs[0], mid, zslabs[1]], dim=-3)
-    g, n = params.ghost_width, params.ny
-    return torch.cat([mid[..., n - g:, :], mid, mid[..., :g, :]], dim=-2)
+    return wrap_axis(params, mid, -2)
 
 
 def bind_step(params: RunParams, state, gz: torch.Tensor | None = None) -> Callable:
     """The shearing-box step with its buffers for this state's shapes:
-    ``step(state, dt, active, t)`` advances (S, kept) in place from t.
-    ``gz``: g_z of each z row [nz + 6], for stratified z faces."""
-    S, _kept = state
+    ``step(state, dt, active, t) -> (state', None)`` advances (S, kept)
+    from t (kernels/loop.py): in place, or, with kernel=zcarry, into S's
+    other buffer (kept is updated in place either way). ``gz``: g_z of each
+    z row [nz + 6], for stratified z faces."""
+    S = state[0]
     strat = uses_stratified_z(params)
     if strat and (gz is None or tuple(gz.shape) != (params.nz + 2 * SLAB,)):
         raise ValueError("stratified z faces need gz, g_z of each z row [nz + 6]")
-    scratch = mhd_step.scratch(params, S)
+    dissip = uses_dissipation(params)
+    streamed = params.kernel == "zcarry"
+    if streamed:
+        scratch = dissip_step.scratch(params, S) if dissip else None
+    else:
+        scratch = mhd_step.scratch(params, S)
     slabs = torch.empty((2, 8, params.nz, params.ny, SLAB), dtype=S.dtype, device=S.device)
     planes = torch.zeros((NPLANE, params.nz, params.ny), dtype=S.dtype, device=S.device)
     remapped = torch.zeros((4, params.nz, params.ny), dtype=S.dtype, device=S.device)
     zslabs = torch.empty(zslab_shape(params), dtype=S.dtype, device=S.device) if strat else None
     gz = None if gz is None else gz.to(device=S.device, dtype=S.dtype).contiguous()
 
-    def step(state, dt, active, t):
-        S, kept = state
+    def step_into(S, kept, out, dt, active, t):
         # the reference fills the shear ghosts for totalTime + dt
         # (MHDRunGodunov.cpp:3551)
         shear_slabs(params, S, kept, t, dt, out=slabs)
@@ -113,14 +124,25 @@ def bind_step(params: RunParams, state, gz: torch.Tensor | None = None) -> Calla
         if strat:
             shear_zslabs(params, S, slabs, out=zslabs)
             shear = (slabs, planes, zslabs, gz)
-        mhd_step(params, S, dt, active, scratch, shear=shear)
-        shear_border(params, S, kept, planes, t, dt, active, remapped)
-        if uses_dissipation(params):
+        if streamed:
+            zcarry_mhd(params, S, out, dt, active, shear=shear)
+        else:
+            mhd_step(params, S, dt, active, scratch, shear=shear)
+        shear_border(params, out, kept, planes, t, dt, active, remapped)
+        if dissip:
             # the sheared refill at t + dt from the updated state before the
-            # dissipative sub-step (MHDRunGodunov.cpp:1968-1976); the step
-            # kernel's stage buffer is idle by then
-            shear_slabs(params, S, kept, t, dt, out=slabs)
-            dissip_step(params, S, dt, active, scratch, shear=(slabs, kept))
+            # dissipative sub-step (MHDRunGodunov.cpp:1968-1976); its
+            # scratch (the staged step's stage buffer) is idle by then
+            shear_slabs(params, out, kept, t, dt, out=slabs)
+            dissip_step(params, out, dt, active, scratch, shear=(slabs, kept))
+
+    if streamed:
+        return streamed_step(state, lambda st, out, dt, active, t: step_into(
+            st[0], st[1], out, dt, active, t))
+
+    def step(state, dt, active, t):
+        step_into(state[0], state[1], state[0], dt, active, t)
+        return state, None
 
     return step
 
@@ -153,7 +175,7 @@ def make_step_fn(params: RunParams, device, gz: torch.Tensor | None = None) -> C
             step = bind_step(params, state, gz)
         dt = dt_from_inv(params, cfl_mhd(params, state[0], kept=state[1]))
         active = torch.ones((), dtype=torch.bool, device=U.device)
-        step(state, dt, active, t)
+        state, _ = step(state, dt, active, t)
         return unpack(params, state, t + dt), dt
 
     return step_fn

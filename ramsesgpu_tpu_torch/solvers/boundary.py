@@ -76,7 +76,7 @@ def _fill_side(params: RunParams, U: torch.Tensor, axis: int, is_max: bool, bc) 
     n = U.shape[axis] - 2 * gw
     dst = _take(U, axis, slice(n + gw, n + 2 * gw) if is_max else slice(0, gw))
     if bc == BCT.BC_PERIODIC:
-        dst.copy_(_take(U, axis, slice(gw, 2 * gw) if is_max else slice(n, n + gw)))
+        dst.copy_(periodic_band(_take(U, axis, slice(gw, n + gw)), axis, gw, is_max))
     elif bc == BCT.BC_NEUMANN:
         edge = n + gw - 1 if is_max else gw
         dst.copy_(_take(U, axis, slice(edge, edge + 1)).expand_as(dst))
@@ -87,6 +87,19 @@ def _fill_side(params: RunParams, U: torch.Tensor, axis: int, is_max: bool, bc) 
     else:
         raise NotImplementedError(f"boundary type {BCT(bc).name} is not ported")
     return U
+
+
+def periodic_band(mid: torch.Tensor, axis: int, g: int, is_max: bool) -> torch.Tensor:
+    """The g-wide periodic ghost band beside one side of ``mid`` (no ghost
+    layers along ``axis``), by modular index as jnp.pad(mode="wrap") takes
+    it: a slice when the axis has at least g cells, else the wrap repeats
+    (an axis of 2 cells under 3 ghost layers)."""
+    n = mid.shape[axis]
+    if g <= n:
+        return mid.narrow(axis, 0 if is_max else n - g, g)
+    start = n if is_max else -g
+    idx = torch.arange(start, start + g, device=mid.device) % n
+    return mid.index_select(axis, idx)
 
 
 def make_boundaries(params: RunParams, U: torch.Tensor) -> torch.Tensor:
@@ -109,7 +122,7 @@ def ghost_band(params: RunParams, mid: torch.Tensor, axis: int, bc, is_max: bool
     gw = params.ghost_width
     n = mid.shape[axis]
     if bc == BCT.BC_PERIODIC:
-        return _take(mid, axis, slice(0, gw) if is_max else slice(n - gw, n))
+        return periodic_band(mid, axis, gw, is_max)
     if bc == BCT.BC_NEUMANN:
         edge = _take(mid, axis, slice(n - 1, n) if is_max else slice(0, 1))
         return torch.cat([edge] * gw, dim=axis)

@@ -25,6 +25,7 @@ from ..config.params import RunParams
 from ..core.constants import IA, IB, BoundaryConditionType as BCT
 
 from ..ops.slopes import slope_1d
+from .boundary import periodic_band
 from .stratified import stratified_ghost_slabs
 
 _X, _Y, _Z = -1, -2, -3
@@ -112,11 +113,17 @@ def stratified_zslabs(params: RunParams, S: torch.Tensor, slabs: torch.Tensor) -
 
 def wrap_yz(params: RunParams, mid: torch.Tensor) -> torch.Tensor:
     """mid with periodic y and z ghost layers added (jnp.pad mode="wrap")."""
-    g = params.ghost_width
     for axis in (_Y, _Z):
-        n = mid.shape[axis]
-        mid = torch.cat([mid.narrow(axis, n - g, g), mid, mid.narrow(axis, 0, g)], axis)
+        mid = wrap_axis(params, mid, axis)
     return mid
+
+
+def wrap_axis(params: RunParams, mid: torch.Tensor, axis: int) -> torch.Tensor:
+    """mid with periodic ghost layers added along one axis, by modular
+    index (solvers/boundary.py periodic_band)."""
+    g = params.ghost_width
+    return torch.cat([periodic_band(mid, axis, g, False), mid,
+                      periodic_band(mid, axis, g, True)], axis)
 
 
 def make_all_boundaries_shear(params: RunParams, U: torch.Tensor, t) -> torch.Tensor:
@@ -140,5 +147,4 @@ def make_all_boundaries_shear(params: RunParams, U: torch.Tensor, t) -> torch.Te
         return wrap_yz(params, mid)
     zlo, zhi = stratified_ghost_slabs(params, mid)
     mid = torch.cat([zlo, mid, zhi], -3)
-    n = mid.shape[_Y]
-    return torch.cat([mid.narrow(_Y, n - g, g), mid, mid.narrow(_Y, 0, g)], _Y)
+    return wrap_axis(params, mid, _Y)

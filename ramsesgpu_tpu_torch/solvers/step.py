@@ -17,8 +17,18 @@ kernels/shear.py, kernels/fused_hydro3d.py): on a CUDA device its
 wrappers launch the hand-written kernels, on a CPU tensor they run their
 plain twins. ``[implementation] kernel`` = ``auto`` or ``pallas`` is
 accepted everywhere; ``jnp`` only on the CPU (the twins must not stand in
-for the kernels on CUDA); ``zcarry`` is not ported. ``[implementation]
-zSlabNb`` has no effect on this path, as in the JAX package. Of the
+for the kernels on CUDA). ``zcarry`` selects the z-streaming step kernels
+(kernels/zcarry_mhd3d.py, kernels/zcarry_hydro3d.py: one launch per step,
+no stage buffer) on the MHD paths (periodic and shearing box, plain,
+compensated, dissipative, stratified) and on fully periodic hydro; hydro
+with walls keeps the staged wall-rule kernel under it, which computes the
+same function, as the JAX package falls back to its whole-array step
+there, and the ghosted one-step hydro ``make_step_fn`` keeps the ghosted
+kernel for every choice. Of the JAX package's refusals of zcarry
+("configuration outside the zcarry kernel") only its TPU tile conditions
+are left on the ported paths, and the port's kernels take any nx, ny, nz.
+``[implementation] zSlabNb`` has no effect on this path, as in the JAX
+package. Of the
 problems with a static gravity field (problems.has_gravity_field) only the
 stratified MRI is ported: its g_z column (problems.gravity_field, the
 field the JAX whole-array path uses, in the state's dtype) goes to the
@@ -65,9 +75,7 @@ def require_slice(params: RunParams, device, config: ConfigMap | None = None) ->
             "BC_Z_STRATIFIED z faces without the stratified MRI's gravity field are not ported")
     device = torch.device(device)
     kernel = params.kernel
-    if kernel == "zcarry":
-        raise NotImplementedError("[implementation] kernel=zcarry is not ported")
-    if kernel not in ("auto", "pallas", "jnp"):
+    if kernel not in ("auto", "pallas", "jnp", "zcarry"):
         raise ValueError(f"unknown [implementation] kernel={kernel!r}")
     if device.type == "cuda" and kernel == "jnp":
         raise ValueError(
@@ -95,16 +103,16 @@ def make_step_fn(params: RunParams, device, config: ConfigMap | None = None) -> 
         return fused_hydro3d.make_step_fn(params, device)
     if uses_shear(params):
         return shear.make_step_fn(params, device, gravity_z(params, config, device))
-    step_S = None  # bound to the stage buffer of the first state
+    step_S = None  # bound to the buffers of the first state
 
     def step(U, t):
         nonlocal step_S
         S = fused_mhd3d.pack(params, U)
         if step_S is None:
-            step_S = fused_mhd3d.bind_periodic_step(params, S)
+            step_S = fused_mhd3d.bind_step(params, S)
         dt = dt_from_inv(params, cfl_mhd(params, S))
         active = torch.ones((), dtype=torch.bool, device=S.device)
-        step_S(S, dt, active, t)
+        S, _ = step_S(S, dt, active, t)
         return fused_mhd3d.unpack(params, S), dt
 
     return step

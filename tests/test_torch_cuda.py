@@ -616,3 +616,149 @@ def test_stratified_loop_counts_launches(cuda_device):
     assert rel_l2(state[0][:8], twin[0][:8]) <= 1e-5  # chained steps (chip_smoke.py TOL_STEP10)
     assert float(t) == float(t_t)
     assert unpack(state, t).shape == params.shape
+
+
+# ---------------------------------------------------------------------------
+# the z-streaming step kernels ([implementation] kernel=zcarry)
+# ---------------------------------------------------------------------------
+def ulp_close(a, b, ulps=4) -> bool:
+    """|a - b| within `ulps` units of the last place of b (0-d tensors)."""
+    eps = torch.finfo(b.dtype).eps
+    return abs(float(a) - float(b)) <= ulps * eps * abs(float(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("mode", ["periodic", "compensated", "shear-iso", "shear-adiabatic",
+                                  "stratified"])
+def test_zcarry_mhd_matches_twin_and_staged(cuda_device, dtype, mode):
+    """The streamed MHD step against its twin and the staged kernel on the
+    same input (within TOL; the x-face planes within TOL_PLANES), the folded
+    inverse dt against the CFL kernel on the kernel's output (4 ULP), and an
+    inactive step (a copy)."""
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_periodic_update, mhd_3d_shear_update
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_periodic, inv_dt_mhd_shear
+
+    shear = gz = None
+    if mode in ("periodic", "compensated"):
+        params, S = ot_state(dtype, cuda_device)
+        if mode == "compensated":
+            params = params.replace(compensated=True)
+            S = torch.cat([S, torch.finfo(S.dtype).eps * S]).contiguous()
+        dt = dt_from_inv(params, inv_dt_mhd_periodic(params, S[:8]))
+    else:
+        name = "mhd_mri_3d_stratified.ini" if mode == "stratified" else "mhd_mri_3d.ini"
+        params, _config, (S, kept), t0, gz = shipped_mri(name, dtype, cuda_device, (40, 36, 20))
+        if mode == "shear-adiabatic":
+            params = params.replace(c_iso=0.0)
+        dt = dt_from_inv(params, inv_dt_mhd_shear(params, S, kept[0]))
+        slabs = shear_slabs(params, S, kept, t0, dt)
+        shear = (slabs, torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device=cuda_device))
+        if gz is not None:
+            shear = shear + (shear_zslabs(params, S, slabs), gz)
+    active = torch.ones((), dtype=torch.bool, device=cuda_device)
+    out = torch.empty_like(S)
+    fold = shear is None
+    inv = zcarry_mhd(params, S, out, dt, active, shear=shear, fold=fold)
+    staged_shear = None if shear is None else (shear[0], torch.zeros_like(shear[1])) + shear[2:]
+    staged = mhd_step(params, S.clone(), dt, active, mhd_step.scratch(params, S),
+                      shear=staged_shear)
+    assert rel_l2(out[:8], staged[:8]) <= TOL[dtype]
+    if shear is None:
+        assert rel_l2(out[:8], mhd_3d_periodic_update(params, S, dt)[:8]) <= TOL[dtype]
+        assert ulp_close(inv, cfl_mhd(params, out))
+    else:
+        want, planes = mhd_3d_shear_update(params, S, shear[0], dt, *shear[2:])
+        assert rel_l2(out[:8], want[:8]) <= TOL[dtype]
+        for p, q in zip(shear[1], planes):
+            assert rel_l2(p, q) <= TOL_PLANES[dtype]
+    idle = torch.zeros((), dtype=torch.bool, device=cuda_device)
+    zcarry_mhd(params, S, out, dt, idle, shear=shear, fold=fold)
+    assert torch.equal(out, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("solver", ["approx", "hll", "hllc"])
+def test_zcarry_hydro_matches_twin_and_staged(cuda_device, dtype, solver):
+    """The streamed hydro step against its twin and the staged kernel (within
+    TOL), its inverse dt against the CFL kernel on its output (4 ULP), and
+    an inactive step (a copy)."""
+    from ramsesgpu_tpu_torch.kernels.cfl_hydro import cfl_hydro
+    from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
+    from ramsesgpu_tpu_torch.kernels.zcarry_hydro3d import zcarry_hydro
+    from ramsesgpu_tpu_torch.solvers.boundary import interior
+    from ramsesgpu_tpu_torch.solvers.godunov import hydro_3d_state_update
+    from ramsesgpu_tpu_torch.solvers.timestep import compute_inv_dt_hydro, dt_from_inv
+
+    params, U = hydro_state(dtype, cuda_device, "blast", solver)
+    S = interior(params, U).contiguous()
+    dt = dt_from_inv(params, compute_inv_dt_hydro(params, S, ghost=0))
+    active = torch.ones((), dtype=torch.bool, device=cuda_device)
+    out = torch.empty_like(S)
+    inv = zcarry_hydro(params, S, out, dt, active)
+    staged = hydro_step(params, S.clone(), dt, active, hydro_step.scratch(params, S))
+    assert rel_l2(out, staged) <= TOL[dtype]
+    assert rel_l2(out, hydro_3d_state_update(params, S, dt)) <= TOL[dtype]
+    assert ulp_close(inv, cfl_hydro(params, out))
+    zcarry_hydro(params, S, out, dt, torch.zeros_like(active))
+    assert torch.equal(out, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["ot", "ot-dissipative", "blast", "mri"])
+def test_zcarry_loops_count_launches(cuda_device, path):
+    """kernel=zcarry launches the streamed step once per step and no staged
+    step; the CFL once per chunk where it is folded (ideal periodic MHD,
+    hydro), once per step elsewhere; 3 steps equal the twins' loop."""
+    from ramsesgpu_tpu_torch.kernels.cfl_hydro import cfl_hydro
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.zcarry_hydro3d import zcarry_hydro
+    from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+
+    if path == "blast":
+        params, U = hydro_state("float32", cuda_device, "blast")
+        step_k, staged_k, cfl_k, cfl_n = zcarry_hydro, hydro_step, cfl_hydro, 1
+    elif path == "mri":
+        params, U = mri_ghosted(cuda_device)
+        step_k, staged_k, cfl_k, cfl_n = zcarry_mhd, mhd_step, cfl_mhd, 3
+    else:
+        from ramsesgpu_tpu_torch.problems import init_problem
+        from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+
+        config = ConfigMap(text=INI.format(dtype="float32", tend=100.0))
+        params = params_from_config(config)
+        if path == "ot-dissipative":
+            params = params.replace(nu=2e-3, eta=1e-3)
+        U = make_boundaries(params, torch.from_numpy(init_problem(params, config)).to(cuda_device))
+        step_k, staged_k, cfl_k, cfl_n = zcarry_mhd, mhd_step, cfl_mhd, (3 if path != "ot" else 1)
+    t0 = torch.tensor(2.5 * params.dy / (1.5 * params.omega0 * params.dx * params.nx)
+                      if params.omega0 > 0 else 0.0, device=cuda_device)
+    results = {}
+    for kernel in ("auto", "zcarry"):
+        p = params.replace(kernel=kernel)
+        pack, advance, unpack = make_packed_advance_chain(p, cuda_device)
+        before = (step_k.launches, staged_k.launches, cfl_k.launches)
+        state, t, k = advance(pack(U), t0, 3)
+        counts = tuple(x.launches - b for x, b in zip((step_k, staged_k, cfl_k), before))
+        results[kernel] = unpack(state, t)
+        if kernel == "zcarry":
+            assert int(k) == 3 and counts == (3, 0, cfl_n)
+    assert rel_l2(results["zcarry"], results["auto"]) <= 1e-5  # chained steps (chip_smoke.py TOL_STEP10)
+
+
+def mri_ghosted(device):
+    """The shipped MRI input at 40 x 36 x 20, ghosted with its sheared fill at
+    t0 (shear offset 2.5 cells)."""
+    from ramsesgpu_tpu_torch.kernels.shear import unpack
+
+    params, _config, state, t0, _gz = shipped_mri("mhd_mri_3d.ini", "float32", device,
+                                                  (40, 36, 20))
+    return params, unpack(params, state, t0)

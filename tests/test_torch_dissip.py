@@ -505,7 +505,11 @@ def test_out_of_scope_dissipative_configurations_raise(case):
         text = text.replace("boundary_zmin=3", "boundary_zmin=6").replace(
             "boundary_zmax=3", "boundary_zmax=6") + "\n[gravity]\nstatic=yes\n"
     elif case == "zcarry":
+        # dissipative zcarry runs are ported (tests/test_torch_zcarry.py); a
+        # zcarry stratified one, like any stratified one with nu / eta, is not
         text = text.replace("kernel=auto", "kernel=zcarry")
+        text = text.replace("boundary_zmin=3", "boundary_zmin=6").replace(
+            "boundary_zmax=3", "boundary_zmax=6") + "\n[gravity]\nstatic=yes\n"
     else:
         text = ini("ot").replace("nz=16", "nz=1")
     config = ConfigMap(text=text)
@@ -584,6 +588,28 @@ def test_slice_matches_jax(problem, dtype, coeffs, jax_refs):
     else:
         assert abs(t - t_wa) <= TOL_T[dtype] * abs(t_wa)
         assert whole_array <= TOL_L2[dtype]
+
+
+ZCARRY_SLICES = [("ot", "float32", (2e-3, 1e-3)), ("mri", "float32", "ini")]
+
+
+@pytest.mark.parametrize("problem, dtype, coeffs", ZCARRY_SLICES,
+                         ids=[SLICE_IDS[SLICES.index(c)] for c in ZCARRY_SLICES])
+def test_zcarry_slice_matches_jax(problem, dtype, coeffs, jax_refs):
+    """kernel=zcarry (the streamed step into the other buffer, then the
+    dissipation kernel on it, the CFL a launch of its own; its twins on
+    the CPU) against the same JAX run: dissipative Orszag-Tang and the
+    viscous-resistive MRI as the ini gives it."""
+    i = SLICES.index((problem, dtype, coeffs))
+    params, U0, U, t, k = port_run(problem, dtype, coeffs, kernel="zcarry")
+    assert params.kernel == "zcarry" and not forms_differ(problem, dtype, coeffs)
+    jax_refs = jax_refs()
+    np.testing.assert_array_equal(U0.numpy(), jax_refs[f"{i}_U0"])  # the same start
+    assert k == int(jax_refs[f"{i}_k"]) == N_STEPS
+    assert np.isfinite(U.numpy()).all()
+    t_ref = float(jax_refs[f"{i}_t"])
+    assert abs(t - t_ref) <= TOL_T[dtype] * abs(t_ref)
+    assert state_rel(loop_state(params, U), loop_state(params, jax_refs[f"{i}_U"])) <= TOL_L2[dtype]
 
 
 @pytest.mark.parametrize("problem, coeffs", [("ot", (2e-3, 1e-3)), ("mri", "adiabatic")])

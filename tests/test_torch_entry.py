@@ -2,6 +2,7 @@
 CLI on the CPU, state conversion to and from the JAX package, the kernel
 wrappers' CPU dispatch, and the configurations the port refuses."""
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -65,6 +66,15 @@ def params_for(n=16, solver="hlld", kernel="auto", outdir="."):
     return params_from_config(config), config
 
 
+def zcarry(text: str) -> str:
+    """The INI text with [implementation] kernel=zcarry."""
+    if "\nkernel=" in text:
+        return re.sub(r"\nkernel=\w+", "\nkernel=zcarry", text)
+    if "[implementation]\n" in text:
+        return text.replace("[implementation]\n", "[implementation]\nkernel=zcarry\n", 1)
+    return text + "\n[implementation]\nkernel=zcarry\n"
+
+
 def test_port_imports_no_jax(tmp_path):
     """Importing every module of the port and running a CPU Run of each
     slice leaves no jax and no ramsesgpu_tpu module in sys.modules."""
@@ -106,9 +116,16 @@ def test_port_imports_no_jax(tmp_path):
     ot_dissip = ot.replace("smallc=1e-7", "smallc=1e-7\nnu=2e-3").replace(
         "magRiemannSolver=hlld", "magRiemannSolver=hlld\neta=1e-3")
     assert "nu=2e-3" in ot_dissip and "eta=1e-3" in ot_dissip
+    # and each of them again with [implementation] kernel=zcarry (the walled
+    # implode keeps the staged kernel there; the periodic blast streams)
+    blast = hydro.replace("problem=implode", "problem=blast")
+    for face in ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax"):
+        blast = re.sub(rf"boundary_{face}=\d", f"boundary_{face}=3", blast)
+    assert "problem=blast" in blast and "boundary_zmax=3" in blast
+    texts = [ot, hydro, mri, mri_dissip, ot_dissip, mri_comp, strat]
+    texts += [zcarry(text) for text in texts + [blast]]
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    res = subprocess.run([sys.executable, "-c", code, ot, hydro, mri, mri_dissip, ot_dissip,
-                          mri_comp, strat],
+    res = subprocess.run([sys.executable, "-c", code, *texts],
                          capture_output=True, text=True, env=env, timeout=300, cwd=tmp_path)
     assert res.returncode == 0 and res.stdout.strip().endswith("OK"), res.stderr[-4000:]
 
@@ -248,7 +265,7 @@ def test_wrappers_take_twins_on_cpu_without_counting():
 @pytest.mark.parametrize(
     "change, exc",
     [
-        ({"kernel": "zcarry"}, NotImplementedError),
+        ({"c_iso": 1.0}, NotImplementedError),
         ({"riemann_solver": "LLF"}, NotImplementedError),
         ({"boundary_xmin": "BC_DIRICHLET"}, NotImplementedError),
         ({"omega0": 1.0}, NotImplementedError),
@@ -264,7 +281,7 @@ def test_out_of_slice_configurations_raise(change, exc):
     enums = {"riemann_solver": RiemannSolver, "boundary_xmin": BoundaryConditionType}
     change = {k: enums[k][v] if k in enums else v for k, v in change.items()}
     assert packed_supported(params)
-    assert packed_supported(params.replace(**change)) == ("kernel" in change)
+    assert not packed_supported(params.replace(**change))
     with pytest.raises(exc):
         make_advance_n(params.replace(**change), "cpu")
 
@@ -277,7 +294,7 @@ def test_kernel_jnp_refused_on_cuda():
     with pytest.raises(ValueError):
         require_slice(params, "cuda")
     require_slice(params, "cpu")
-    for kernel in ("auto", "pallas"):
+    for kernel in ("auto", "pallas", "zcarry"):
         require_slice(params.replace(kernel=kernel), "cuda")
     with pytest.raises(ValueError):
         require_slice(params.replace(kernel="auto"), "meta")

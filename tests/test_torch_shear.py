@@ -40,6 +40,7 @@ REPO = Path(__file__).resolve().parent.parent
 N_STEPS = 5
 TOL_T = {"float32": 1e-6, "float64": 1e-12}
 TOL_L2 = {"float32": 2e-6, "float64": 1e-11}
+TOL_ZCARRY = {"float32": 2e-6, "float64": 1e-13}
 
 # tests/test_shear.py's MRI box; amp 0.2 instead of 0.01 so the random
 # velocities drive every solver branch within 5 steps
@@ -193,17 +194,31 @@ def jax_refs(tmp_path_factory):
             for d, c in SLICES}
 
 
-@pytest.mark.parametrize("dtype, coeffs", SLICES)
-def test_slice_matches_jax(dtype, coeffs, jax_refs):
+def check_slice(dtype, coeffs, jax_refs, kernel, tol_l2):
     U0_ref, U_ref, t_ref, k_ref = jax_refs[dtype, coeffs]
-    params, config, t0, U0 = setup(dtype, coeffs)
+    params, config, t0, U0 = setup(dtype, coeffs, kernel=kernel)
+    assert params.kernel == kernel
     np.testing.assert_array_equal(U0.numpy(), U0_ref)  # the same start, fill bitwise
     U, t, k = port_advance(params, config, U0, t0, N_STEPS)
     assert k == int(k_ref) == N_STEPS
     assert U.dtype == (torch.float64 if dtype == "float64" else torch.float32)
     assert np.isfinite(U.numpy()).all()
     assert abs(t - float(t_ref)) <= TOL_T[dtype] * abs(float(t_ref))
-    assert state_rel(loop_state(params, U), loop_state(params, U_ref)) <= TOL_L2[dtype]
+    assert state_rel(loop_state(params, U), loop_state(params, U_ref)) <= tol_l2[dtype]
+
+
+@pytest.mark.parametrize("dtype, coeffs", SLICES)
+def test_slice_matches_jax(dtype, coeffs, jax_refs):
+    check_slice(dtype, coeffs, jax_refs, "auto", TOL_L2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_zcarry_slice_matches_jax(dtype, jax_refs):
+    """kernel=zcarry (the streamed step's shear mode between the same slab,
+    border and CFL launches; two buffers that take turns, the kept face in
+    place; its twins on the CPU) against the same JAX run, at the zcarry
+    tests' tolerance (tests/test_torch_zcarry.py TOL_L2)."""
+    check_slice(dtype, 1.0, jax_refs, "zcarry", TOL_ZCARRY)
 
 
 # -------------------------------------------------------------------------
@@ -520,6 +535,13 @@ def test_out_of_scope_configurations_raise(section, key, value):
     config = ConfigMap(text=text)
     params = params_from_config(config)
     require_slice(params_from_config(ConfigMap(text=ini())), "cpu", ConfigMap(text=ini()))
+    if value == "zcarry":
+        # in the scope since the z-streaming kernels (tests/test_torch_zcarry.py)
+        run = Run(config, "cpu")
+        run.start(max_steps=1, do_output=False)
+        assert np.isfinite(run.interior()).all()
+        make_advance_n(params, "cpu", config)
+        return
     with pytest.raises(NotImplementedError):
         Run(config, "cpu")
     with pytest.raises(NotImplementedError):

@@ -3,9 +3,9 @@ Orszag-Tang, fully periodic, HLLD + 2D-HLLD, 16^3 (g = 3), 5 steps.
 
 The JAX reference is ``make_advance_n`` with ``[implementation] kernel=jnp``
 (its whole-array path, which tests/test_pallas.py holds equal to the
-Pallas kernel in interpret mode), run op by op under ``jax.disable_jit()``:
-the same functions without XLA's whole-step compile, which costs ~50 s of
-CPU time per dtype at this size. The port runs its kernel loop, whose
+Pallas kernel in interpret mode), run op by op under ``jax.disable_jit()``
+in one subprocess: the same functions without XLA's whole-step compile,
+which costs ~50 s of CPU time per dtype at this size. The port runs its kernel loop, whose
 wrappers run their plain twins on CPU tensors. Pass criteria: equal step
 counts; t within rtol 1e-6 (f32) / 1e-12 (f64); state relative L2 <= 2e-6
 (f32) / 1e-11 (f64).
@@ -18,8 +18,6 @@ import subprocess
 import sys
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -67,6 +65,7 @@ kernel={kernel}
 N_STEPS = 5
 TOL_T = {"float32": 1e-6, "float64": 1e-12}
 TOL_L2 = {"float32": 2e-6, "float64": 1e-11}
+TOL_ZCARRY = {"float32": 2e-6, "float64": 1e-13}
 
 
 def ot_params(dtype="float32", kernel="jnp", tend=100.0):
@@ -94,31 +93,22 @@ def rel_l2(a, b, g=3):
     return float(np.linalg.norm((a - b).ravel()) / np.linalg.norm(b.ravel()))
 
 
-@pytest.fixture(scope="module")
-def jax_f32():
-    from ramsesgpu_tpu.solvers.step import make_advance_n
-
-    params, config = ot_params("float32")
-    U0 = jnp.asarray(initial_state(params, config).numpy())
-    with jax.disable_jit():
-        U, t, k = make_advance_n(params, config)(
-            U0, jnp.asarray(0.0, jnp.float32), jnp.array(N_STEPS, jnp.int32)
-        )
-    return np.asarray(U), float(t), int(k)
-
-
-_JAX_F64 = r"""
+_JAX_SCRIPT = r"""
 import sys
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
+sys.path.insert(0, sys.argv[4])
 from ramsesgpu_tpu.config.configmap import ConfigMap
 from ramsesgpu_tpu.config.params import params_from_config
+from ramsesgpu_tpu.problems import init_problem
 from ramsesgpu_tpu.problems.mhd_inits import init_orszag_tang
 from ramsesgpu_tpu.solvers.boundary import make_boundaries
-from ramsesgpu_tpu.solvers.step import make_advance_n
+from ramsesgpu_tpu.solvers.shear import make_all_boundaries_shear
+from ramsesgpu_tpu.solvers.step import make_advance_n, uses_shear
+import test_torch_step as m
 config = ConfigMap(text=sys.argv[1])
 params = params_from_config(config)
 U = make_boundaries(params, jnp.asarray(init_orszag_tang(params, config)))
@@ -126,35 +116,86 @@ assert U.dtype == jnp.float64
 with jax.disable_jit():
     U, t, k = make_advance_n(params, config)(
         U, jnp.asarray(0.0, U.dtype), jnp.array(int(sys.argv[3]), jnp.int32))
-np.savez(sys.argv[2], U=np.asarray(U), t=float(t), k=int(k))
+out = dict(U=np.asarray(U), t=float(t), k=int(k))
+# the f32 slice from the port's f32 initial state (the same arrays, bitwise,
+# as without jax_enable_x64)
+params, config = m.ot_params("float32")
+U0 = jnp.asarray(m.initial_state(params, config).numpy())
+with jax.disable_jit():
+    U, t, k = make_advance_n(params, config)(
+        U0, jnp.asarray(0.0, jnp.float32), jnp.array(int(sys.argv[3]), jnp.int32))
+out.update(f32_U=np.asarray(U), f32_t=float(t), f32_k=int(k))
+# the short-axis cases (test_short_axis_periodic_ghosts_match_jax)
+for name in m.NZ2_CASES:
+    config = ConfigMap(text=m.nz2_text(name, "jnp"))
+    params = params_from_config(config)
+    U = make_boundaries(params, jnp.asarray(init_problem(params, config), jnp.float64))
+    t0 = jnp.asarray(0.0, jnp.float64)
+    if uses_shear(params):
+        U = make_all_boundaries_shear(params, U, t0)
+    with jax.disable_jit():
+        U, t, k = make_advance_n(params, config)(U, t0, jnp.array(m.NZ2_STEPS, jnp.int32))
+    out[name + "_U"], out[name + "_t"], out[name + "_k"] = np.asarray(U), float(t), int(k)
+np.savez(sys.argv[2], **out)
 """
 
 
 @pytest.fixture(scope="module")
-def jax_f64(tmp_path_factory):
+def jax_refs(tmp_path_factory):
+    """The JAX package's runs, one subprocess: the slice in f64 and f32,
+    and the short-axis cases."""
     out = tmp_path_factory.mktemp("jax_f64") / "ref.npz"
     env = dict(os.environ)
     env.pop("JAX_PLATFORMS", None)
-    repo_root = str(Path(__file__).resolve().parent.parent)
-    env["PYTHONPATH"] = os.pathsep.join(p for p in (repo_root, env.get("PYTHONPATH")) if p)
+    here = Path(__file__).resolve().parent
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(here.parent), env.get("PYTHONPATH")) if p)
+    # a quick, single-threaded backend: the suite's other workers share the
+    # cores (the arrays are bitwise those of the default backend)
+    flags = ("--xla_backend_optimization_level=0 --xla_cpu_multi_thread_eigen=false "
+             "intra_op_parallelism_threads=1")
+    env["XLA_FLAGS"] = " ".join(f for f in (env.get("XLA_FLAGS"), flags) if f)
     ini = OT3D_INI.format(dtype="float64", kernel="jnp", tend=100.0)
-    res = subprocess.run([sys.executable, "-c", _JAX_F64, ini, str(out), str(N_STEPS)],
+    res = subprocess.run([sys.executable, "-c", _JAX_SCRIPT, ini, str(out), str(N_STEPS),
+                          str(here)],
                          capture_output=True, text=True, env=env, timeout=600)
     assert res.returncode == 0, res.stderr[-4000:]
-    ref = np.load(out)
-    return ref["U"], float(ref["t"]), int(ref["k"])
+    return dict(np.load(out))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_slice_matches_jax(dtype, request):
+@pytest.fixture(scope="module")
+def jax_f64(jax_refs):
+    return jax_refs["U"], float(jax_refs["t"]), int(jax_refs["k"])
+
+
+@pytest.fixture(scope="module")
+def jax_f32(jax_refs):
+    return jax_refs["f32_U"], float(jax_refs["f32_t"]), int(jax_refs["f32_k"])
+
+
+def check_slice(dtype, kernel, request, tol_l2):
     U_ref, t_ref, k_ref = request.getfixturevalue("jax_f32" if dtype == "float32" else "jax_f64")
-    params, config = ot_params(dtype, "auto")
+    params, config = ot_params(dtype, kernel)
+    assert params.kernel == kernel
     U, t, k = port_advance(params, initial_state(params, config), N_STEPS)
     assert k == k_ref == N_STEPS
     assert U.dtype == U_ref.dtype == np.dtype(dtype)
     assert np.isfinite(U).all()
     assert abs(t - t_ref) <= TOL_T[dtype] * abs(t_ref)
-    assert rel_l2(U, U_ref) <= TOL_L2[dtype]
+    assert rel_l2(U, U_ref) <= tol_l2[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_slice_matches_jax(dtype, request):
+    check_slice(dtype, "auto", request, TOL_L2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_zcarry_slice_matches_jax(dtype, request):
+    """kernel=zcarry (the streamed step's loop: two buffers that take
+    turns, the folded inverse dt, the copy back after an odd step count;
+    its twins on the CPU) against the same JAX run, at the zcarry tests'
+    tolerance (tests/test_torch_zcarry.py TOL_L2)."""
+    check_slice(dtype, "zcarry", request, TOL_ZCARRY)
 
 
 def test_chained_chunks_equal_unchained():
@@ -262,3 +303,52 @@ def test_csrc_host_build_matches_twins(dtype):
                     16, 16, 16, blk, None) == 0
         err = float(torch.linalg.norm((S - want).flatten()) / torch.linalg.norm(want.flatten()))
         assert err <= TOL_HOST[dtype]
+
+
+# -------------------------------------------------------------------------
+# an axis shorter than the ghost width: periodic ghosts by modular index
+# -------------------------------------------------------------------------
+# two shipped inputs at 16x16x2 under g = 3 ghost layers: the field loop in
+# the shearing box (shipped with nz = 2) and Orszag-Tang; 3 f64 steps of
+# the port's loop against the JAX whole-array run (kernel=jnp), interiors
+# within relative L2 TOL_NZ2 and t equal
+NZ2_CASES = {"fieldloop3d_shear": "data/mhd_fieldloop3d_shear.ini",
+             "orszag-tang3d": "data/orszag-tang3d.ini"}
+NZ2_STEPS = 3
+TOL_NZ2 = 1e-14
+
+
+def nz2_text(name: str, kernel: str) -> str:
+    """The INI of one case at 16x16x2, f64, with the kernel choice."""
+    import re
+
+    text = (Path(__file__).resolve().parent.parent / NZ2_CASES[name]).read_text()
+    for key, value in (("nx", 16), ("ny", 16), ("nz", 2)):
+        text = re.sub(rf"^{key}=.*$", f"{key}={value}", text, flags=re.M)
+    return text + f"\n[implementation]\ndtype=float64\nkernel={kernel}\n"
+
+
+@pytest.mark.parametrize("name", list(NZ2_CASES))
+def test_short_axis_periodic_ghosts_match_jax(name, jax_refs):
+    """nz = 2 under 3 ghost layers: the unpack's periodic ghosts wrap by
+    modular index (solvers/boundary.py periodic_band), as jnp.pad does, so
+    the loop, its unpack and the next chunk run as the JAX package's."""
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap as TConfigMap
+    from ramsesgpu_tpu_torch.config.params import params_from_config as t_params
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+    from ramsesgpu_tpu_torch.solvers.shear import make_all_boundaries_shear
+    from ramsesgpu_tpu_torch.solvers.step import make_advance_n
+
+    config = TConfigMap(text=nz2_text(name, "auto"))
+    params = t_params(config)
+    U = make_boundaries(params, torch.from_numpy(init_problem(params, config)).double())
+    t0 = torch.zeros((), dtype=torch.float64)
+    if name == "fieldloop3d_shear":
+        U = make_all_boundaries_shear(params, U, t0)
+    advance = make_advance_n(params, "cpu", config)
+    U1, t1, k1 = advance(U, t0, 2)        # two chunks: the unpack feeds the next pack
+    U2, t2, k2 = advance(U1, t1, NZ2_STEPS - 2)
+    assert U2.shape == U.shape and int(k1) + int(k2) == int(jax_refs[name + "_k"]) == NZ2_STEPS
+    assert float(t2) == float(jax_refs[name + "_t"])
+    assert rel_l2(U2.numpy(), jax_refs[name + "_U"]) <= TOL_NZ2

@@ -280,18 +280,17 @@ def port_run(jax_refs):
     return _port_runs["run"]
 
 
-def test_stratified_mri_matches_jax(jax_refs):
+def check_run(params, U, t, refs):
+    """The port's run against the JAX one: t, and the loop state (interior,
+    kept face) as one vector, as tests/test_torch_shear.py
+    test_slice_matches_jax holds it."""
     from ramsesgpu_tpu_torch.core.constants import IA
 
-    params, U, t, _masses, _outflows = port_run(jax_refs)
-    refs = jax_refs()
     g, nx = params.ghost_width, params.nx
     np.testing.assert_allclose(t, float(refs["run_t"]), rtol=TOL_T)
     want = refs["run_U"]
     got = U.numpy()
     assert np.isfinite(got).all()
-    # the loop state (interior, kept face) as one vector, as
-    # tests/test_torch_shear.py test_slice_matches_jax holds it
     inner = (slice(None), slice(g, -g), slice(g, -g), slice(g, -g))
     kept = (IA, slice(g, -g), slice(g, -g), nx + g)
     diff = np.linalg.norm((got[inner] - want[inner]).astype(np.float64)) ** 2 + \
@@ -299,6 +298,29 @@ def test_stratified_mri_matches_jax(jax_refs):
     norm = np.linalg.norm(want[inner].astype(np.float64)) ** 2 + \
         np.linalg.norm(want[kept].astype(np.float64)) ** 2
     assert np.sqrt(diff / norm) <= TOL_L2
+
+
+def test_stratified_mri_matches_jax(jax_refs):
+    params, U, t, _masses, _outflows = port_run(jax_refs)
+    check_run(params, U, t, jax_refs())
+
+
+def test_zcarry_stratified_mri_matches_jax(jax_refs):
+    """kernel=zcarry (the streamed step's stratified mode between the same
+    slab, z-slab, border and CFL launches, two buffers that take turns;
+    its twins on the CPU): the 3 steps in one chunk, so the state ends in
+    the other buffer and is copied back, against the same JAX run."""
+    from ramsesgpu_tpu_torch.solvers.step import make_advance_n
+
+    config = ConfigMap(text=strat_text().replace("[implementation]\n",
+                                                 "[implementation]\nkernel=zcarry\n", 1))
+    params = params_from_config(config)
+    assert params.kernel == "zcarry"
+    refs = jax_refs()
+    t0 = torch.tensor(t_start(params), dtype=torch.float32)
+    U, t, k = make_advance_n(params, "cpu", config)(torch.from_numpy(refs["run_U0"]), t0, N_STEPS)
+    assert int(k) == N_STEPS
+    check_run(params, U, float(t), refs)
 
 
 def test_stratified_fill_equals_jax(jax_refs):
