@@ -110,7 +110,21 @@ Phases, in order; any failure raises and no result line is printed:
  31. one 10-step chunk of OT at 512^3 f32 with kernel=zcarry: peak device
      memory (bound 24 GB) and the kernel's rings (in shared memory; bound
      1 GB), divB, mass;
- 33. the kernels JSON line, the card line, and the result line.
+ 33. the ghosted modes (walls and the inflow jet; TPU row 3) against their
+     twins at 64x48x40, f32 + f64: the 3D Brio-Wu under NEUMANN, DIRICHLET
+     and mixed faces and the MHD jet: the CFL with the jet's floor, one step
+     on the whole ghosted array and on its CT face layer n+g alone, an
+     inactive step, make_fused_mhd_update, 10 chained loop steps; the hydro
+     jet's in-place ghosted step and loop;
+ 34. the walled main path: data/testRiemannHLLD.ini's physics at 256^3 f32
+     (six NEUMANN faces) through make_packed_advance_chain, 2 warm-up + 3
+     timed chunks of 10 steps: launches, peak memory, finite state, rho,
+     p > 0, max|divB|; one profiled chunk (device time by step, CFL and
+     fill); the ghosted step and CFL kernels with CUDA events against their
+     twins and their bounds;
+ 35. data/testRiemannHLLD.ini, data/mhd_jet3d.ini and data/jet3d_gpu.ini as
+     shipped through Run on CUDA, at most 50 steps each, with 34's gates;
+ 36. the kernels JSON line, the card line, and the result line.
 Imports nothing of JAX; of this repo it imports only ramsesgpu_tpu_torch.
 """
 from __future__ import annotations
@@ -230,6 +244,12 @@ KERNELS = {
     "zcarry_mhd_shear": ("ramsesgpu_tpu_torch/csrc/zcarry_mhd.cu",
                          "ramsesgpu_tpu/pallas/zcarry_mhd3d.py:102 (the MRI main kernel, "
                          "pallas/shear_packed.py:891)"),
+    "mhd_step_ghosted": ("ramsesgpu_tpu_torch/csrc/mhd_step.cu",
+                         "ramsesgpu_tpu/pallas/fused_mhd3d.py:80 (make_fused_mhd_update, "
+                         "pallas_call at :173)"),
+    "cfl_mhd_ghosted": ("ramsesgpu_tpu_torch/csrc/cfl_mhd.cu",
+                        "ramsesgpu_tpu/pallas/packed_io.py:51 (its reduction, on the ghosted "
+                        "state; the JAX walled path runs it in XLA, solvers/timestep.py:245)"),
 }
 # ms/step of these paths in the version before the compensated and
 # stratified modes, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
@@ -359,7 +379,8 @@ def counted_main_path(name: str, expect: dict):
              (dissip_step, "kept_face_resistive_ct"),
              (zcarry_mhd3d, "mhd_3d_periodic_update"), (zcarry_mhd3d, "mhd_3d_shear_update"),
              (zcarry_mhd3d, "inv_dt_mhd_periodic"), (zcarry_hydro3d, "hydro_3d_state_update"),
-             (zcarry_hydro3d, "compute_inv_dt_hydro")]
+             (zcarry_hydro3d, "compute_inv_dt_hydro"), (mhd_step, "mhd_3d_ghosted_update"),
+             (cfl_mhd, "inv_dt_mhd_ghosted")]
     twin_calls = []
 
     def guard(module, attr, fn):
@@ -2500,6 +2521,356 @@ def phase32(card: str, ot, blast, mri, bounds: dict, twin_n: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# walls and the inflow jet: the ghosted modes of the step and CFL kernels
+# (TPU row 3, pallas/fused_mhd3d.py:80; phases 33-35)
+# ---------------------------------------------------------------------------
+# the face types (xmin, xmax, ymin, ymax, zmin, zmax) of each walled case:
+# the shipped 3D Brio-Wu under NEUMANN, DIRICHLET and a mix; and the MHD jet
+# (its DIRICHLET walls)
+WALL_CASES = {"neumann": (2,) * 6, "dirichlet": (1,) * 6, "mixed": (2, 2, 3, 3, 1, 1),
+              "jet": None}
+FACE_KEYS = ("boundary_xmin", "boundary_xmax", "boundary_ymin", "boundary_ymax",
+             "boundary_zmin", "boundary_zmax")
+HLLD_INI = "data/testRiemannHLLD.ini"
+MHD_JET_INI = "data/mhd_jet3d.ini"
+HYDRO_JET_INI = "data/jet3d_gpu.ini"
+
+
+def shipped(path: str, dtype: str = "float32", mesh=None, faces=None, jet=None,
+            bamb: float | None = None):
+    """A shipped INI's ConfigMap and params, cut to ``mesh`` (nx, ny, nz)
+    and, where given, with the faces, the jet's (ijet, offsetJet) and an
+    ambient field bamb."""
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.config.params import params_from_config
+
+    config = ConfigMap(Path(path))
+    for key, value in zip(("nx", "ny", "nz"), mesh or ()):
+        config.set_integer("mesh", key, value)
+    for key, value in zip(FACE_KEYS, faces or ()):
+        config.set_integer("mesh", key, value)
+    for key, value in zip(("ijet", "offsetJet"), jet or ()):
+        config.set_integer("jet", key, value)
+    if bamb is not None:
+        config.set_float("jet", "bamb", bamb)
+    config.set_string("implementation", "dtype", dtype)
+    return config, params_from_config(config)
+
+
+def ghosted_state(config, params, seed: int | None = None) -> torch.Tensor:
+    """The filled ghosted initial state on the card; with ``seed``, the
+    initial state times 1 + 0.05 N(0, 1) before the fill."""
+    from ramsesgpu_tpu_torch.convert import torch_dtype
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+
+    U = torch.from_numpy(init_problem(params, config)).to(device="cuda",
+                                                          dtype=torch_dtype(params))
+    if seed is not None:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        U = U * (1 + 0.05 * torch.randn(U.shape, generator=gen, device="cuda", dtype=U.dtype))
+    return make_boundaries(params, U).contiguous()
+
+
+def wall_case(case: str, dtype: str, mesh, seed: int | None = None):
+    """params and the filled ghosted state of one WALL_CASES case (the jet:
+    ijet 4, offsetJet 5 and an ambient field 0.7, so that B varies)."""
+    if case == "jet":
+        config, params = shipped(MHD_JET_INI, dtype, mesh, jet=(4, 5), bamb=0.7)
+    else:
+        config, params = shipped(HLLD_INI, dtype, mesh, faces=WALL_CASES[case])
+    return params, ghosted_state(config, params, seed)
+
+
+def layer_mask(params) -> torch.Tensor:
+    """The CT face layer of a ghosted state: the cube g .. n+g of every
+    axis minus the interior, [nz+2g, ny+2g, nx+2g] on the card."""
+    g = params.ghost_width
+    shape = params.shape[1:]
+    cube = torch.zeros(shape, dtype=torch.bool, device="cuda")
+    cube[g:shape[0] - g + 1, g:shape[1] - g + 1, g:shape[2] - g + 1] = True
+    cube[g:-g, g:-g, g:-g] = False
+    return cube
+
+
+def phase33() -> None:
+    """The ghosted modes against their twins at 64x48x40, f32 + f64: for
+    every face mix and the MHD jet, the CFL (the jet's floor in the
+    kernel), one step on the whole ghosted array and on its CT face layer
+    alone, an inactive step, make_fused_mhd_update (row 3's contract), and
+    10 chained steps of the walled loop against the twins' loop; then the
+    hydro jet's in-place ghosted step and its loop."""
+    from ramsesgpu_tpu_torch.kernels.cfl_hydro import cfl_hydro
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.fused_mhd3d import make_fused_mhd_update
+    from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.solvers.boundary import fill_ghosts_, interior
+    from ramsesgpu_tpu_torch.solvers.godunov import hydro_3d_interior_update
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_ghosted_update
+    from ramsesgpu_tpu_torch.solvers.step import make_advance_n
+    from ramsesgpu_tpu_torch.solvers.timestep import (compute_inv_dt_hydro, dt_from_inv,
+                                                      inv_dt_mhd_ghosted, with_jet)
+
+    mesh = (64, 48, 40)
+    on = torch.ones((), dtype=torch.bool, device="cuda")
+    off = torch.zeros_like(on)
+    for dtype in ("float32", "float64"):
+        for case in WALL_CASES:
+            label = f"33 {case} {dtype}"
+            params, U = wall_case(case, dtype, mesh, seed=33)
+            g = params.ghost_width
+            inv, inv_t = cfl_mhd(params, U, ghost=g), inv_dt_mhd_ghosted(params, U)
+            check(f"{label} cfl_mhd ghosted", abs(float(inv) - float(inv_t)) / float(inv_t),
+                  TOL_CFL[dtype], f"; kernel {float(inv)!r}, twin {float(inv_t)!r}")
+            dt = dt_from_inv(params, inv_t)
+            want = mhd_3d_ghosted_update(params, U, dt)
+            scratch = mhd_step.scratch(params, U, ghosted=True)
+            got = U.clone()
+            mhd_step.ghosted(params, got, dt, off, scratch)
+            if not torch.equal(got, U):
+                raise AssertionError(f"{label}: an inactive step changed the state")
+            mhd_step.ghosted(params, got, dt, on, scratch)
+            layer = layer_mask(params)
+            check(f"{label} mhd_step ghosted 1 step, whole ghosted array", rel_l2(got, want),
+                  TOL_STEP1[dtype], f", max abs {float((got - want).abs().max()):.3e}")
+            check(f"{label} mhd_step ghosted 1 step, CT face layer n+g alone",
+                  rel_l2(got[5:, layer], want[5:, layer]), TOL_STEP1[dtype])
+            fused = make_fused_mhd_update(params, "cuda")(U, dt)
+            check(f"{label} make_fused_mhd_update (row 3's contract)",
+                  rel_l2(fused, interior(params, want)), TOL_STEP1[dtype])
+            t0 = torch.zeros((), dtype=U.dtype, device="cuda")
+            got, t, k = make_advance_n(params, "cuda")(U, t0, 10)
+            want, t_ref = U.clone(), t0.clone()
+            for _ in range(10):
+                dt = dt_from_inv(params, inv_dt_mhd_ghosted(params, want))
+                want = mhd_3d_ghosted_update(params, fill_ghosts_(params, want), dt)
+                t_ref = t_ref + dt
+            t_rel = abs(float(t) - float(t_ref)) / float(t_ref)
+            check(f"{label} 10 chained steps of the walled loop", rel_l2(got, want),
+                  TOL_STEP10[dtype], f"; k={int(k)}, t rel {t_rel:.3e}")
+            if int(k) != 10 or not t_rel <= TOL_STEP10[dtype]:
+                raise AssertionError(f"{label}: k={int(k)}, t rel {t_rel}")
+            del scratch, got, want
+        # the hydro jet: the in-place ghosted step, its CFL with the jet's floor
+        label = f"33 hydro jet {dtype}"
+        config, params = shipped(HYDRO_JET_INI, dtype, mesh, jet=(8, 10))
+        U = ghosted_state(config, params, seed=34)
+        g = params.ghost_width
+        inv = cfl_hydro(params, U, ghost=g)
+        inv_t = with_jet(params, compute_inv_dt_hydro(params, U, ghost=g))
+        check(f"{label} cfl_hydro ghosted", abs(float(inv) - float(inv_t)) / float(inv_t),
+              TOL_CFL[dtype])
+        dt = dt_from_inv(params, inv_t)
+        want = U.clone()
+        interior(params, want).copy_(hydro_3d_interior_update(params, U, dt))
+        scratch = hydro_step.scratch(params, U, ghosted=True)
+        got = U.clone()
+        hydro_step.ghosted_(params, got, dt, off, scratch)
+        if not torch.equal(got, U):
+            raise AssertionError(f"{label}: an inactive step changed the state")
+        hydro_step.ghosted_(params, got, dt, on, scratch)
+        check(f"{label} hydro_step ghosted in place, 1 step", rel_l2(got, want), TOL_STEP1[dtype])
+        t0 = torch.zeros((), dtype=U.dtype, device="cuda")
+        got, t, k = make_advance_n(params, "cuda")(U, t0, 10)
+        want = U.clone()
+        for _ in range(10):
+            dt = dt_from_inv(params, with_jet(params, compute_inv_dt_hydro(params, want, ghost=g)))
+            fill_ghosts_(params, want)
+            interior(params, want).copy_(hydro_3d_interior_update(params, want, dt))
+        check(f"{label} 10 chained steps of the jet loop", rel_l2(got, want), TOL_STEP10[dtype],
+              f"; k={int(k)}")
+        if int(k) != 10:
+            raise AssertionError(f"{label}: k={int(k)}")
+
+
+def div_b_ghosted(params, U: torch.Tensor) -> float:
+    """max|divB| over the interior of a ghosted state, each cell's +1 faces
+    from the array (the last cell's from the CT face layer n+g)."""
+    g = params.ghost_width
+    zi, yi, xi = (slice(g, g + n) for n in (params.nz, params.ny, params.nx))
+    zp, yp, xp = (slice(g + 1, g + n + 1) for n in (params.nz, params.ny, params.nx))
+    bx, by, bz = (U[c].double() for c in (5, 6, 7))
+    div = ((bx[zi, yi, xp] - bx[zi, yi, xi]) / params.dx
+           + (by[zi, yp, xi] - by[zi, yi, xi]) / params.dy
+           + (bz[zp, yi, xi] - bz[zi, yi, xi]) / params.dz)
+    return float(div.abs().max())
+
+
+def mhd_pressure(params, U: torch.Tensor) -> torch.Tensor:
+    """The gas pressure of a ghosted MHD state's interior (cell-centred B)."""
+    g = params.ghost_width
+    zi, yi, xi = (slice(g, g + n) for n in (params.nz, params.ny, params.nx))
+    zp, yp, xp = (slice(g + 1, g + n + 1) for n in (params.nz, params.ny, params.nx))
+    W = U[:, zi, yi, xi].double()
+    bx = 0.5 * (W[5] + U[5, zi, yi, xp].double())
+    by = 0.5 * (W[6] + U[6, zi, yp, xi].double())
+    bz = 0.5 * (W[7] + U[7, zp, yi, xi].double())
+    ekin = 0.5 * (W[2:5] ** 2).sum(0) / W[0]
+    return (params.gamma0 - 1.0) * (W[1] - ekin - 0.5 * (bx * bx + by * by + bz * bz))
+
+
+def check_walled_state(label: str, params, U: torch.Tensor) -> str:
+    """The gates of a walled or jet run's ghosted state: finite, rho > 0,
+    p > 0 on the interior, and for MHD max|divB| < 1e-3 max|Bx| / dx
+    (PERF.md section 2). Returns the numbers as text."""
+    from ramsesgpu_tpu_torch.solvers.boundary import interior
+
+    if not bool(torch.isfinite(U).all()):
+        raise AssertionError(f"{label}: non-finite state")
+    inner = interior(params, U)
+    rho_min = float(inner[0].min())
+    if params.mhd:
+        p_min = float(mhd_pressure(params, U).min())
+        divb = div_b_ghosted(params, U)
+        b_over_dx = max(float(inner[5].abs().max()), 1e-10) / params.dx
+        text = (f"min rho {rho_min:.4e}, min p {p_min:.4e}, max|divB| {divb:.3e} "
+                f"(bound {1e-3 * b_over_dx:.3e})")
+        if not divb < 1e-3 * b_over_dx:
+            raise AssertionError(f"{label}: divB bound violated: {text}")
+    else:
+        p_min = float(hydro_pressure(params, inner).min())
+        text = f"min rho {rho_min:.4e}, min p {p_min:.4e}"
+    if not (rho_min > 0 and p_min > 0):
+        raise AssertionError(f"{label}: non-positive density or pressure: {text}")
+    return text
+
+
+def phase34(card: str, n_twin: int) -> dict:
+    """The walled MHD main path: data/testRiemannHLLD.ini's physics (3D
+    Brio-Wu, six NEUMANN faces) at 256^3 f32 through
+    make_packed_advance_chain, 2 warm-up + 3 timed chunks of 10 steps; its
+    launches, peak memory, gates and one profiled chunk (device time by
+    kernel: step, CFL, fill); then the ghosted step and CFL kernels with
+    CUDA events on the path's end state, against their twins (at n_twin^3,
+    phase 6's choice) and their bounds (bytes read and written once, the
+    operations of the interior counted by build("count") on a 32^3 block)."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.solvers.boundary import fill_ghosts_
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_ghosted_update
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_ghosted
+
+    n, chunk, steps = 256, 10, 50
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    config, params = shipped(HLLD_INI, "float32", (n, n, n))
+    U = ghosted_state(config, params)
+    g = params.ghost_width
+    pack, advance, unpack = make_packed_advance_chain(params, "cuda")
+    t = torch.zeros((), dtype=torch.float32, device="cuda")
+    with counted_main_path("34", {"mhd_step": steps, "cfl_mhd": steps}) as launches:
+        S = pack(U)
+        del U
+        S, t, _dt = run_chunks("34", card, advance, S, t, n, chunk)
+    peak = torch.cuda.max_memory_allocated() - base
+    gates = check_walled_state("34", params, S)
+    print(f"[34] {steps} steps at {n}^3 f32 (six NEUMANN faces) on {card}: t={float(t)!r}, "
+          f"{gates}; launches per step: mhd_step {launches['mhd_step'] / steps:g}, cfl_mhd "
+          f"{launches['cfl_mhd'] / steps:g}; peak allocated {peak / 1e9:.3f} GB (ghosted state "
+          f"{S.numel() * 4 / 1e9:.3f} GB, stage buffer "
+          f"{mhd_step.scratch_size(load_library('cuda'), params, True) * 4 / 1e9:.3f} GB)")
+    if tuple(unpack(S, t).shape) != params.shape:
+        raise AssertionError("34: unpacked shape")
+    rows = profile_chunk("34p", card, advance, S, t, chunk)
+    parts = {"step": 0.0, "cfl": 0.0, "fill": 0.0}
+    for key, (us, _count) in rows.items():
+        part = "step" if "mhd::" in key else "cfl" if "max_" in key else "fill"
+        parts[part] += us
+    busy = sum(parts.values())
+    print("[34p] device time per step by part: " + ", ".join(
+        f"{k} {v / 1e3 / chunk:.4f} ms ({100 * v / busy:.1f} %)" for k, v in parts.items()))
+
+    # the kernels on the path's end state, filled as the loop fills it
+    on = torch.ones((), dtype=torch.bool, device="cuda")
+    W = fill_ghosts_(params, S.clone())
+    del S
+    inv = cfl_mhd(params, W, ghost=g)
+    dt = dt_from_inv(params, inv)
+    scratch = mhd_step.scratch(params, W, ghosted=True)
+    got = mhd_step.ghosted(params, W.clone(), dt, on, scratch)
+    W_t = W.clone()
+    ms = {"mhd_step_ghosted": time_ms(lambda: mhd_step.ghosted(params, W_t, dt, on, scratch), 10),
+          "cfl_mhd_ghosted": time_ms(lambda: cfl_mhd(params, W, ghost=g), 50)}
+    del W_t, scratch
+    bound_input = W[:, :32 + 2 * g, :32 + 2 * g, :32 + 2 * g].double().cpu().contiguous()
+    if n_twin != n:
+        config, params = shipped(HLLD_INI, "float32", (n_twin,) * 3)
+        W = ghosted_state(config, params, seed=35)
+        inv = cfl_mhd(params, W, ghost=g)
+        dt = dt_from_inv(params, inv)
+        got = mhd_step.ghosted(params, W.clone(), dt, on, mhd_step.scratch(params, W, True))
+    torch.cuda.empty_cache()
+    inv_t = inv_dt_mhd_ghosted(params, W)
+    want = mhd_3d_ghosted_update(params, W, dt)
+    errs = {"mhd_step_ghosted": float((got - want).abs().max()),
+            "cfl_mhd_ghosted": abs(float(inv) - float(inv_t))}
+    rel = {"mhd_step_ghosted": rel_l2(got, want),
+           "cfl_mhd_ghosted": errs["cfl_mhd_ghosted"] / float(inv_t)}
+    del got, want
+    plain = {"mhd_step_ghosted": time_ms(lambda: mhd_3d_ghosted_update(params, W, dt), 3),
+             "cfl_mhd_ghosted": time_ms(lambda: inv_dt_mhd_ghosted(params, W), 10)}
+    tol = {"mhd_step_ghosted": TOL_STEP1["float32"], "cfl_mhd_ghosted": TOL_CFL["float32"]}
+    for name in ms:
+        check(f"34 {name} at {n_twin}^3 f32 (the path's state)", rel[name], tol[name],
+              f", max abs {errs[name]:.3e}")
+        print(f"[34] {name}: kernel {ms[name]:.3f} ms at {n}^3 (CUDA events), twin "
+              f"{plain[name]:.3f} ms at {n_twin}^3 (f32, {card})")
+    del W
+
+    # bounds: the operations of the interior, counted on a 32^3 block of the
+    # end state (its first 32 + 2g layers on each axis: a ghosted block)
+    lib = load_library("count")
+    p_blk = block_params(params, 32)
+    cells, ng = n ** 3, (n + 2 * g) ** 3
+    ops = {"mhd_step_ghosted": lib.ramses_mhd_step_ghosted_ops(
+               bound_input.data_ptr(), 32, 32, 32, g, param_block(p_blk), float(dt)) / 32 ** 3,
+           "cfl_mhd_ghosted": lib.ramses_cfl_mhd_ghosted_ops(
+               bound_input.data_ptr(), 32, 32, 32, g, param_block(p_blk)) / 32 ** 3}
+    # the ghosted state read once, the interior and the CT face layer's
+    # three face fields written once; the CFL reads the interior's 8 values
+    nbytes = {"mhd_step_ghosted": 4 * (8 * ng + 8 * cells + 3 * ((n + 1) ** 3 - cells)),
+              "cfl_mhd_ghosted": 4 * 8 * cells}
+    bounds = {name: bound("34", name, nbytes[name], ops[name] * cells, f"{n}^3", cells)
+              for name in ms}
+    for name in ms:
+        print(f"[34] {name}: {ms[name]:.3f} ms against its bound {bounds[name][0]:.4f} ms "
+              f"({ms[name] / bounds[name][0]:.1f}x)")
+    return {"ms": ms, "plain_ms": plain, "max_abs_err": errs, "bounds": bounds,
+            "launches": {"mhd_step_ghosted": launches["mhd_step"],
+                         "cfl_mhd_ghosted": launches["cfl_mhd"]}}
+
+
+def phase35(card: str) -> None:
+    """data/testRiemannHLLD.ini, data/mhd_jet3d.ini and data/jet3d_gpu.ini
+    as shipped, through Run on CUDA for at most 50 steps each (nstepmax
+    permitting): one step kernel and one CFL launch per step, no twin, and
+    the gates of phase 34."""
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.config.params import params_from_config
+    from ramsesgpu_tpu_torch.solvers.run import Run
+
+    for path in (HLLD_INI, MHD_JET_INI, HYDRO_JET_INI):
+        config = ConfigMap(Path(path))
+        params = params_from_config(config)
+        steps = min(50, params.n_stepmax)
+        label = f"35 {Path(path).name}"
+        expect = ({"mhd_step": steps, "cfl_mhd": steps} if params.mhd
+                  else {"hydro_step": steps, "cfl_hydro": steps})
+        with counted_main_path(label, expect):
+            run = Run(config, "cuda", params)
+            run.start(max_steps=50, do_output=False)
+        print(f"[{label}] {params.nx}x{params.ny}x{params.nz} {params.dtype} as shipped on "
+              f"{card}: {run.n_step} steps, t={run.t!r}, "
+              + check_walled_state(label, params, run.U))
+        if run.n_step != steps:
+            raise AssertionError(f"{label}: {run.n_step} steps, expected {steps}")
+
+
 def profile_chunk(label: str, card: str, advance, S: torch.Tensor, t: torch.Tensor,
                   chunk: int) -> None:
     """Device time by kernel over one more chunk of a main path, and the
@@ -2641,6 +3012,13 @@ def main() -> int:
     bounds.update(zc_timing["bounds"])
     phase31(card)
     lap("31")
+    phase33()
+    lap("33")
+    wall_timing = phase34(card, timing["n_twin"])
+    lap("34")
+    bounds.update(wall_timing["bounds"])
+    phase35(card)
+    lap("35")
     if "jax" in sys.modules or any(m.startswith("ramsesgpu_tpu.") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
 
@@ -2659,9 +3037,11 @@ def main() -> int:
                 "shear_zslabs": strat_launches["shear_zslabs"],
                 "zcarry_mhd": zc_launches["zcarry_mhd"],
                 "zcarry_hydro": zc_hydro_launches["zcarry_hydro"],
-                "zcarry_mhd_shear": zc_shear_launches["zcarry_mhd"]}
+                "zcarry_mhd_shear": zc_shear_launches["zcarry_mhd"],
+                **wall_timing["launches"]}
     measured = {key: {**timing[key], **hydro_timing[key], **shear_timing[key],
-                      **dissip_timing[key], **new_timing[key], **zc_timing[key]}
+                      **dissip_timing[key], **new_timing[key], **zc_timing[key],
+                      **wall_timing[key]}
                 for key in ("ms", "plain_ms", "max_abs_err")}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -12,6 +12,14 @@
 // ramsesgpu_tpu_torch/solvers/timestep.py inv_dt_mhd_periodic and
 // inv_dt_mhd_shear.
 //
+// The ghosted mode reads a ghosted state U[8][nz+2g][ny+2g][nx+2g] as it
+// stands (compute_dt runs before the fill, fused_mhd3d.py:541-542): the
+// interior cells' +1 faces come from the ghost frame as given, like JAX
+// compute_inv_dt_mhd and compute_inv_dt_mhd_ghosted (timestep.py:219-240),
+// and the max starts from the inflow jet's (ujet + cjet) / dx
+// (timestep.py:257-262; -inf without a jet). Plain twin:
+// solvers/timestep.py inv_dt_mhd_ghosted.
+//
 // Layout: the interior-only state S[8][nz][ny][nx] (common.cuh); y and z
 // wrap, x wraps too in the periodic mode; the kept face kept[nz][ny].
 // Channel ch is read at S + ch * nx * ny * nz, so a compensated state
@@ -47,9 +55,45 @@ int cfl_mhd(const T* S, const T* kept, T* partial, T* out, int nx, int ny, int n
                     stream);
 }
 
+// the ghosted mode: interior cell c of U (offset g), +1 faces as they lie
+template <typename T>
+struct MhdInvDtGhosted {
+  Phys<T> ph;
+  Dims in, d;
+  int g;
+  const T* U;
+  HD T operator()(long long c) const {
+    int i, j, k;
+    cell_ijk(in, c, i, j, k);
+    const long long a = cell_at(d, i + g, j + g, k + g);
+    return inv_dt_cell<T, false>(ph, U, d.n, a, U[IA * d.n + a + 1], a + d.nx,
+                                 a + (long long)d.nx * d.ny);
+  }
+};
+
+template <typename T>
+int cfl_mhd_ghosted(const T* U, T* partial, T* out, int nx, int ny, int nz, int g,
+                    double floor, const double* prm, void* stream) {
+  const MhdInvDtGhosted<T> f{make_phys<T>(prm), make_dims(nx, ny, nz),
+                             make_dims(nx + 2 * g, ny + 2 * g, nz + 2 * g), g, U};
+  return reduce_max(f, f.in.n, partial, out, stream, T(floor));
+}
+
 }  // namespace ramses
 
 extern "C" {
+
+// the ghosted mode: U [8][nz+2g][ny+2g][nx+2g]; floor: the jet's inverse
+// dt, or -inf
+int ramses_cfl_mhd_ghosted_f32(const float* U, float* partial, float* out, int nx, int ny,
+                               int nz, int g, double floor, const double* prm, void* stream) {
+  return ramses::cfl_mhd_ghosted<float>(U, partial, out, nx, ny, nz, g, floor, prm, stream);
+}
+
+int ramses_cfl_mhd_ghosted_f64(const double* U, double* partial, double* out, int nx, int ny,
+                               int nz, int g, double floor, const double* prm, void* stream) {
+  return ramses::cfl_mhd_ghosted<double>(U, partial, out, nx, ny, nz, g, floor, prm, stream);
+}
 
 int ramses_cfl_mhd_partials(void) { return ramses::MAX_BLOCKS; }
 
@@ -85,6 +129,19 @@ extern "C" long long ramses_cfl_mhd_ops(const double* S, int nx, int ny, int nz,
   Counted out;
   Counted::ops = 0;
   ramses::cfl_mhd<Counted, false>(s.data(), nullptr, nullptr, &out, nx, ny, nz, prm, nullptr);
+  return Counted::ops;
+}
+
+// the ghosted mode's operations on U [8][nz+2g][ny+2g][nx+2g]
+extern "C" long long ramses_cfl_mhd_ghosted_ops(const double* U, int nx, int ny, int nz, int g,
+                                                const double* prm) {
+  using ramses::Counted;
+  std::vector<Counted> u =
+      ramses::counted_copy(U, 8LL * (nx + 2 * g) * (ny + 2 * g) * (nz + 2 * g));
+  Counted out;
+  Counted::ops = 0;
+  ramses::cfl_mhd_ghosted<Counted>(u.data(), nullptr, &out, nx, ny, nz, g, -INFINITY, prm,
+                                   nullptr);
   return Counted::ops;
 }
 

@@ -336,8 +336,8 @@ __global__ void __launch_bounds__(MAX_THREADS) max_partial_kernel(F f, long long
 
 template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS) max_final_kernel(const T* partial, int nblocks,
-                                                               T* out) {
-  T m = -T(INFINITY);
+                                                               T init, T* out) {
+  T m = init;
   for (int b = threadIdx.x; b < nblocks; b += blockDim.x) m = pmax(m, partial[b]);
   m = block_max(m);
   if (threadIdx.x == 0) out[0] = m;
@@ -364,9 +364,11 @@ __device__ void atomic_max_nonneg(T* out, T v) {
 }
 #endif
 
-// `partial` holds MAX_BLOCKS values (unused in the host build).
+// `partial` holds MAX_BLOCKS values (unused in the host build); the max
+// starts from `init` (a floor of the result, as the jet's inverse dt).
 template <typename T, typename F>
-inline int reduce_max(const F& f, long long n, T* partial, T* out, void* stream) {
+inline int reduce_max(const F& f, long long n, T* partial, T* out, void* stream,
+                      T init = -T(INFINITY)) {
 #ifdef __CUDACC__
   long long blocks = (n + MAX_THREADS - 1) / MAX_THREADS;
   if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
@@ -374,12 +376,12 @@ inline int reduce_max(const F& f, long long n, T* partial, T* out, void* stream)
   max_partial_kernel<T><<<(unsigned)blocks, MAX_THREADS, 0, s>>>(f, n, partial);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  max_final_kernel<T><<<1, MAX_THREADS, 0, s>>>(partial, (int)blocks, out);
+  max_final_kernel<T><<<1, MAX_THREADS, 0, s>>>(partial, (int)blocks, init, out);
   return (int)cudaGetLastError();
 #else
   (void)partial;
   (void)stream;
-  T m = -T(INFINITY);
+  T m = init;
   for (long long c = 0; c < n; ++c) m = pmax(m, f(c));
   out[0] = m;
   return 0;

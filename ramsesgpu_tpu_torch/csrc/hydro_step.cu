@@ -25,7 +25,10 @@
 //    sign flips are exact; so the TPU kernel's in-kernel ghost rebuild
 //    becomes a load rule, and no ghost is ever written.
 //  - ghosted mode (row 5): reads a ghosted U[5][nz+4][ny+4][nx+4] as it
-//    is and writes the interior to a separate out[5][nz][ny][nx].
+//    is and writes the interior to a separate out[5][nz][ny][nx], or, in
+//    place (ghosted = 2; the jet's loop on the ghosted state), into U's
+//    own interior: the update reads only its cell of U, after the stages
+//    that read the rest.
 //
 // Design (first, simple version): three kinds of stage, one thread per
 // cell or face each, intermediates in one scratch buffer the wrapper
@@ -75,7 +78,9 @@ namespace ramses::hydro {
 template <typename T>
 struct StepArgs {
   const T* U;   // the state: interior [5][n] or ghosted [5][ng]
-  T* out;       // the new interior [5][n] (== U in the interior mode)
+  T* out;       // the new interior [5][n] (== U in the interior mode), or,
+                // in place in the ghosted mode, U itself ([5][nq])
+  bool in_place;  // ghosted mode: out is U, the interior at its ghosted index
   T* Q;         // [5][nq] primitives (nq = n, or ng in the ghosted mode)
   T* F[3];      // face fluxes x [5][nz][ny][nx+1], y [5][nz][ny+1][nx], z [5][nz+1][ny][nx]
   const T* dt;  // device scalar
@@ -176,7 +181,8 @@ struct UpdateStage {
       const T* fx = a.F[0] + ch * nfx;
       const T* fy = a.F[1] + ch * nfy;
       const T* fz = a.F[2] + ch * nfz;
-      a.out[ch * a.n + c] = update_value(a.U[ch * a.nq + cu], fx[cx], fx[cx + 1], fy[cy],
+      T* out = a.in_place ? a.out + ch * a.nq + cu : a.out + ch * a.n + c;
+      *out = update_value(a.U[ch * a.nq + cu], fx[cx], fx[cx + 1], fy[cy],
                                          fy[cy + nx], fz[cz], fz[cz + (long long)ny * nx],
                                          dtdx, dtdy, dtdz);
     }
@@ -204,7 +210,9 @@ int hydro_step(StepArgs<T> a, void* stream) {
 }
 
 // in: the state (interior mode: S, updated in place, so out == in;
-// ghosted mode: the ghosted U); bc: the six face types (interior mode)
+// ghosted mode: the ghosted U); ghosted: 0 interior mode, 1 ghosted mode
+// into out, 2 ghosted mode in place (out == in); bc: the six face types
+// (interior mode)
 template <typename T>
 int hydro_step_entry(const T* in, T* out, T* scratch, const T* dt, const unsigned char* active,
                      int nx, int ny, int nz, int ghosted, const int* bc, const double* prm,
@@ -212,6 +220,7 @@ int hydro_step_entry(const T* in, T* out, T* scratch, const T* dt, const unsigne
   StepArgs<T> a;
   a.U = in;
   a.out = out;
+  a.in_place = ghosted == 2;
   a.nx = nx;
   a.ny = ny;
   a.nz = nz;
@@ -301,6 +310,7 @@ extern "C" void ramses_hydro_step_ops(const double* S, int nx, int ny, int nz, c
   StepArgs<Counted> a;
   a.U = s.data();
   a.out = s.data();
+  a.in_place = false;
   a.nx = nx;
   a.ny = ny;
   a.nz = nz;

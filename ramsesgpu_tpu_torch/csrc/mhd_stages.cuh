@@ -28,16 +28,20 @@ constexpr int ZH = 2;     // stage-grid rows beyond each z face (stratified mode
 constexpr int NPLANE = 5; // x-face planes written by the shear-mode update
 
 // the kernel's mode: SHEAR (shearing box, rotating frame), ISO (the
-// isothermal pressure in the solvers) and STRAT (the stratified MRI:
-// BC_Z_STRATIFIED z faces and the static vertical gravity); the periodic
-// mode is <false, false, false>
-template <bool SHEAR_, bool ISO_, bool STRAT_ = false>
+// isothermal pressure in the solvers), STRAT (the stratified MRI:
+// BC_Z_STRATIFIED z faces and the static vertical gravity) and GHOST (the
+// ghosted mode: the stages run on a filled ghosted state as on a periodic
+// box of its own extent, the update writes its interior and CT face
+// layer); the periodic mode is <false, false, false, false>
+template <bool SHEAR_, bool ISO_, bool STRAT_ = false, bool GHOST_ = false>
 struct Mode {
   static constexpr bool SHEAR = SHEAR_;
   static constexpr bool ISO = ISO_;
   static constexpr bool STRAT = STRAT_;
+  static constexpr bool GHOST = GHOST_;
 };
 using Periodic = Mode<false, false>;
+using Ghosted = Mode<false, false, false, true>;
 
 template <typename T>
 struct StepArgs {
@@ -57,9 +61,11 @@ struct StepArgs {
   const T* gz;     // stratified: [nz + 2 SLAB] g_z of each z row, ghost rows included
   const T* dt;  // device scalar
   const unsigned char* active;  // device flag: 0 skips the step
-  Dims d;       // the state's
-  Dims e;       // the stage grid's: d (periodic), nx + 2 XH columns (shear),
-                // and nz + 2 ZH rows (stratified)
+  Dims d;       // the state's (ghosted mode: the ghosted array's)
+  Dims e;       // the stage grid's: d (periodic, ghosted), nx + 2 XH columns
+                // (shear), and nz + 2 ZH rows (stratified)
+  Dims in;      // ghosted: the interior's (at offset g on every axis)
+  int g;        // ghosted: the ghost width
   Phys<T> ph;
 };
 
@@ -97,7 +103,9 @@ HD T load_shear(const StepArgs<T>& a, int ch, int ii, int jj, int kk) {
 }
 
 // One stage thread's cell (i, j, k) and its neighbours. Periodic: the
-// stage grid is the state's and every offset wraps. Shear: stage column
+// stage grid is the state's and every offset wraps. Ghosted: the same on
+// the ghosted array (the rolls of the JAX whole-array step), but the
+// update's threads cover the cube g .. n + g of every axis. Shear: stage column
 // i sits at i + XH and x reads clamp to the grid; a state load (src)
 // outside [0, nx) reads the slab, and the stages after prim read the
 // state from its stage-grid copy (s). Stratified: the same in z, stage
@@ -123,11 +131,22 @@ struct Site {
       cell_ijk(a.e, t, i, j, k);
       i -= XH;
       k -= ZOFF;
+    } else if (M::GHOST && on_state) {
+      // the update's cells: the interior and the CT face layer n + g
+      cell_ijk(make_dims(a.in.nx + 1, a.in.ny + 1, a.in.nz + 1), t, i, j, k);
+      i += a.g;
+      j += a.g;
+      k += a.g;
+      t = cell_at(a.d, i, j, k);
     } else {
       cell_ijk(a.d, t, i, j, k);
     }
     c = t;
     cs = t;
+  }
+  // ghosted: whether the cell is in the interior (not the CT face layer)
+  HD bool interior() const {
+    return i < a.g + a.in.nx && j < a.g + a.in.ny && k < a.g + a.in.nz;
   }
   // stage-grid index of the neighbour (i+di, j+dj, k+dk)
   HD long long q(int di, int dj, int dk) const {
@@ -924,7 +943,10 @@ HD T ct_delta(const T* emf, long long n, int ch, long long c, long long cxp, lon
 }
 
 // 6: godunov_mhd.py mhd_apply_update: flux divergence and CT curl, in
-// place; the shear mode also writes the x-face planes of the remap
+// place; the ghosted mode adds the flux divergence to the interior only
+// and the CT curl to the cube g .. n + g of every axis, as the JAX
+// whole-array step does (godunov_mhd.py:657-669, 733-744); the shear mode
+// also writes the x-face planes of the remap
 // (godunov_mhd.py:429-434). Stratified: the conservative gravity source
 // with the time-centred momentum (godunov_mhd.py:375-413). COMP: each
 // channel's increment is Kahan-added against the carry C (the gravity
@@ -990,12 +1012,16 @@ struct UpdateStage {
         rho_old = S[ID * ns + cs];
         w_old = S[IW * ns + cs];
       }
+      bool hydro = true;  // ghosted: the CT face layer takes the curl only
+      if constexpr (M::GHOST) hydro = p.interior();
+      if (hydro) {
 #pragma unroll
-      for (int ch = 0; ch < NFLUX; ++ch) {
-        const long long o = ch * n;
-        const T dU = dtdx * (fx[o + c] - fx[o + cxp]) + dtdy * (fy[o + c] - fy[o + cyp]) +
-                     dtdz * (fz[o + c] - fz[o + czp]);
-        So[ch * ns + cs] = S[ch * ns + cs] + dU;
+        for (int ch = 0; ch < NFLUX; ++ch) {
+          const long long o = ch * n;
+          const T dU = dtdx * (fx[o + c] - fx[o + cxp]) + dtdy * (fy[o + c] - fy[o + cyp]) +
+                       dtdz * (fz[o + c] - fz[o + czp]);
+          So[ch * ns + cs] = S[ch * ns + cs] + dU;
+        }
       }
 #pragma unroll
       for (int ch = IA; ch <= IC; ++ch)

@@ -1,5 +1,5 @@
 // One unsplit MUSCL-Hancock step of 3D ideal MHD with constrained
-// transport (HLLD face fluxes, 2D-HLLD corner EMFs), in two modes:
+// transport (HLLD face fluxes, 2D-HLLD corner EMFs), in four modes:
 //
 // - periodic: the fully periodic state. Replaces the TPU kernel
 //   ramsesgpu_tpu/pallas/packed_io.py:148 make_packed_io_step with the
@@ -29,7 +29,25 @@
 //   update the conservative source with the time-centred momentum
 //   (godunov_mhd.py:213-218, 375-413). g_z comes in per z row, ghost rows
 //   included (the run's gravity field column).
-// - compensated (any mode; TPU row A'-compensated, fused_mhd3d.py:247-259):
+// - ghosted: a ghosted state U[8][nz+2g][ny+2g][nx+2g] whose ghosts some
+//   fill has written (walls of any DIRICHLET / NEUMANN / PERIODIC mix, the
+//   inflow jet), updated in place. Replaces the TPU kernel
+//   pallas/fused_mhd3d.py:80 make_fused_mhd_update (pallas_call at :173),
+//   with the semantics of the JAX whole-array step it stands for
+//   (godunov_mhd.py:596-744): every stage runs on the whole ghosted array
+//   as on a periodic box of its extent (the rolls of that step: a +1 face
+//   of the last ghost layer wraps to the first), loads are plain offsets
+//   into U with no load rule, the update adds the flux divergence to the
+//   interior and the CT curl to the cube g .. n + g of every axis, so the
+//   max-side face layer (Bx[nx+g], By[ny+g], Bz[nz+g] and the rest of that
+//   layer) changes too, as the reference C++'s CT range does
+//   (mhd_ct_update.cuh:124-213). The stage grid is the ghosted array: the
+//   outer edges of that CT layer read the last ghost layer's primitives,
+//   whose +1 face wraps, so a grid of the interior plus 2 cells could not
+//   give that step's values there. Plain twin:
+//   solvers/godunov_mhd.py mhd_3d_ghosted_update.
+// - compensated (the periodic and shear modes; TPU row A'-compensated,
+//   fused_mhd3d.py:247-259):
 //   S holds 16 channels, the state and then its Kahan carry; the update
 //   stage Kahan-adds each channel's increment (and chains the gravity
 //   source through the carry), every operation of that stage rounded on
@@ -117,6 +135,21 @@ StepArgs<T> step_args(T* S, T* scratch, const T* slabs, T* planes, const T* zsla
   return a;
 }
 
+// stages 1-5 over the stage grid, the update over n_update cells (the
+// state's; ghosted: the cube g .. n + g)
+template <typename T, typename M>
+int run_stages(const StepArgs<T>& a, bool comp, long long n_update, void* stream) {
+  const long long n = a.e.n;
+  int err;
+  if ((err = launch_cells(PrimStage<T, M>{a}, n, stream))) return err;
+  if ((err = launch_cells(EFieldStage<T, M>{a}, n, stream))) return err;
+  if ((err = launch_cells(TraceStage<T, M>{a}, n, stream))) return err;
+  if ((err = launch_cells(FluxStage<T, M>{a}, n, stream))) return err;
+  if ((err = launch_cells(EmfStage<T, M>{a}, n, stream))) return err;
+  if (comp) return launch_cells(UpdateStage<T, M, true>{a}, n_update, stream);
+  return launch_cells(UpdateStage<T, M, false>{a}, n_update, stream);
+}
+
 // comp: S holds 16 channels, the state and then its Kahan carry
 template <typename T, typename M>
 int mhd_step(T* S, T* scratch, const T* slabs, T* planes, const T* zslabs, const T* gz,
@@ -124,16 +157,32 @@ int mhd_step(T* S, T* scratch, const T* slabs, T* planes, const T* zslabs, const
              const double* prm, void* stream) {
   const StepArgs<T> a = step_args<T, M>(S, scratch, slabs, planes, zslabs, gz, comp, dt, active,
                                         nx, ny, nz, prm);
-  const long long n = a.e.n;
-  // stages 1-5 over the stage grid, the update over the state
-  int err;
-  if ((err = launch_cells(PrimStage<T, M>{a}, n, stream))) return err;
-  if ((err = launch_cells(EFieldStage<T, M>{a}, n, stream))) return err;
-  if ((err = launch_cells(TraceStage<T, M>{a}, n, stream))) return err;
-  if ((err = launch_cells(FluxStage<T, M>{a}, n, stream))) return err;
-  if ((err = launch_cells(EmfStage<T, M>{a}, n, stream))) return err;
-  if (comp) return launch_cells(UpdateStage<T, M, true>{a}, a.d.n, stream);
-  return launch_cells(UpdateStage<T, M, false>{a}, a.d.n, stream);
+  return run_stages<T, M>(a, comp, a.d.n, stream);
+}
+
+// the ghosted mode's arguments: the interior nx x ny x nz at offset g of U
+template <typename T>
+StepArgs<T> ghosted_args(T* U, T* scratch, const T* dt, const unsigned char* active, int nx,
+                         int ny, int nz, int g, const double* prm) {
+  StepArgs<T> a = step_args<T, Ghosted>(U, scratch, nullptr, nullptr, nullptr, nullptr, false,
+                                        dt, active, nx + 2 * g, ny + 2 * g, nz + 2 * g, prm);
+  a.in = make_dims(nx, ny, nz);
+  a.g = g;
+  return a;
+}
+
+// the cells of the ghosted mode's update: the cube g .. n + g
+HD long long ghosted_update_cells(int nx, int ny, int nz) {
+  return (nx + 1LL) * (ny + 1LL) * (nz + 1LL);
+}
+
+// the ghosted mode: U [8][nz+2g][ny+2g][nx+2g], its ghosts filled; plain
+// update only (the JAX package's walled step has no compensated branch)
+template <typename T>
+int mhd_step_ghosted(T* U, T* scratch, const T* dt, const unsigned char* active, int nx, int ny,
+                     int nz, int g, const double* prm, void* stream) {
+  const StepArgs<T> a = ghosted_args(U, scratch, dt, active, nx, ny, nz, g, prm);
+  return run_stages<T, Ghosted>(a, false, ghosted_update_cells(nx, ny, nz), stream);
 }
 
 // the shear modes: isothermal or adiabatic; stratified (zslabs and gz
@@ -165,6 +214,26 @@ long long ramses_mhd_step_scratch_per_cell(void) { return ramses::mhd::SCRATCH_P
 long long ramses_mhd_step_shear_scratch(int nx, int ny, int nz, int strat) {
   return ramses::mhd::SHEAR_SCRATCH_PER_CELL * (nx + 2LL * ramses::mhd::XH) * ny *
          (nz + (strat ? 2LL * ramses::mhd::ZH : 0));
+}
+
+// the ghosted mode's scratch: its stage grid is the ghosted array
+long long ramses_mhd_step_ghosted_scratch(int nx, int ny, int nz, int g) {
+  return ramses::mhd::SCRATCH_PER_CELL * (nx + 2LL * g) * (ny + 2LL * g) * (nz + 2LL * g);
+}
+
+// the ghosted mode: U [8][nz+2g][ny+2g][nx+2g], ghosts filled, updated in
+// place (its interior and the CT face layer n + g)
+int ramses_mhd_step_ghosted_f32(float* U, float* scratch, const float* dt,
+                                const unsigned char* active, int nx, int ny, int nz, int g,
+                                const double* prm, void* stream) {
+  return ramses::mhd::mhd_step_ghosted<float>(U, scratch, dt, active, nx, ny, nz, g, prm, stream);
+}
+
+int ramses_mhd_step_ghosted_f64(double* U, double* scratch, const double* dt,
+                                const unsigned char* active, int nx, int ny, int nz, int g,
+                                const double* prm, void* stream) {
+  return ramses::mhd::mhd_step_ghosted<double>(U, scratch, dt, active, nx, ny, nz, g, prm,
+                                               stream);
 }
 
 // the periodic step; comp: S holds 16 channels, the state and its carry
@@ -269,7 +338,52 @@ long long shear_step_ops(Counted* S, Counted* scratch, const Counted* slabs, Cou
   return ops + Counted::ops - before;
 }
 
+// the ghosted mode's operations on the interior: each stage on the cells
+// of the interior only, the work per interior cell of its function (the
+// halo cells it computes besides are the stage grid's edges)
+inline long long ghosted_step_ops(Counted* U, Counted* scratch, const Counted* dt, int nx,
+                                  int ny, int nz, int g, const double* prm) {
+  const unsigned char active = 1;
+  const StepArgs<Counted> a = ghosted_args(U, scratch, dt, &active, nx, ny, nz, g, prm);
+  long long ops = 0;
+  auto count = [&](const auto& f) {
+    for (long long t = 0; t < a.e.n; ++t) {
+      const long long before = Counted::ops;
+      f(t);
+      int i, j, k;
+      cell_ijk(a.e, t, i, j, k);
+      if (i >= g && i < g + nx && j >= g && j < g + ny && k >= g && k < g + nz)
+        ops += Counted::ops - before;
+    }
+  };
+  count(PrimStage<Counted, Ghosted>{a});
+  count(EFieldStage<Counted, Ghosted>{a});
+  count(TraceStage<Counted, Ghosted>{a});
+  count(FluxStage<Counted, Ghosted>{a});
+  count(EmfStage<Counted, Ghosted>{a});
+  const UpdateStage<Counted, Ghosted, false> update{a};
+  for (long long t = 0; t < ghosted_update_cells(nx, ny, nz); ++t) {
+    const long long before = Counted::ops;
+    update(t);
+    const Site<Counted, Ghosted> p(a, t, true);
+    if (p.interior()) ops += Counted::ops - before;
+  }
+  return ops;
+}
+
 }  // namespace ramses::mhd
+
+// the ghosted mode's operations on the interior of a ghosted state U
+// [8][nz+2g][ny+2g][nx+2g] (ghosts filled)
+extern "C" long long ramses_mhd_step_ghosted_ops(const double* U, int nx, int ny, int nz, int g,
+                                                 const double* prm, double dt) {
+  using ramses::Counted;
+  std::vector<Counted> u =
+      ramses::counted_copy(U, 8LL * (nx + 2 * g) * (ny + 2 * g) * (nz + 2 * g));
+  std::vector<Counted> scratch(ramses_mhd_step_ghosted_scratch(nx, ny, nz, g));
+  const Counted dtc(dt);
+  return ramses::mhd::ghosted_step_ops(u.data(), scratch.data(), &dtc, nx, ny, nz, g, prm);
+}
 
 // the same for the shearing-box modes, with the sheared slabs beside S (and,
 // stratified, the z slabs and g_z; else null)

@@ -153,6 +153,11 @@ _SIGNATURES = {
     "ramses_cfl_mhd_f64": ([_P, _P, _P, _I, _I, _I, _P, _P], _I),
     "ramses_mhd_step_f32": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
     "ramses_mhd_step_f64": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
+    "ramses_mhd_step_ghosted_scratch": ([_I] * 4, ctypes.c_longlong),
+    "ramses_mhd_step_ghosted_f32": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
+    "ramses_mhd_step_ghosted_f64": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
+    "ramses_cfl_mhd_ghosted_f32": ([_P] * 3 + [_I] * 4 + [ctypes.c_double, _P, _P], _I),
+    "ramses_cfl_mhd_ghosted_f64": ([_P] * 3 + [_I] * 4 + [ctypes.c_double, _P, _P], _I),
     "ramses_cfl_mhd_shear_f32": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "ramses_cfl_mhd_shear_f64": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "ramses_mhd_step_shear_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
@@ -189,6 +194,8 @@ _COUNT_SIGNATURES = {
     "ramses_cfl_mhd_ops": ([_P, _I, _I, _I, _P], _L),
     "ramses_mhd_step_ops": ([_P, _I, _I, _I, _I, _P, _D], _L),
     "ramses_cfl_mhd_shear_ops": ([_P, _P, _I, _I, _I, _P], _L),
+    "ramses_mhd_step_ghosted_ops": ([_P] + [_I] * 4 + [_P, _D], _L),
+    "ramses_cfl_mhd_ghosted_ops": ([_P] + [_I] * 4 + [_P], _L),
     "ramses_mhd_step_shear_ops": ([_P] * 4 + [_I] * 4 + [_P, _D], _L),
     "ramses_shear_border_ops": ([_P] * 3 + [_I] * 4 + [_P, _D, _D, _P], None),
     "ramses_cfl_hydro_ops": ([_P, _I, _I, _I, _I, _P], _L),

@@ -4,14 +4,16 @@ plain PyTorch twin.
 Replaces the TPU kernel ramsesgpu_tpu/pallas/packed_bc.py:408
 ``make_packed_cfl_hydro`` (formula: solvers/timestep.py:33
 ``compute_inv_dt_hydro``). The twin is ``solvers.timestep.compute_inv_dt_hydro``,
-which the kernel equals bitwise on the same state.
+which the kernel equals bitwise on the same state. With the inflow jet the
+result is at least the jet's (ujet + cjet) / dx (``solvers.timestep.with_jet``,
+one torch.maximum on the result's device).
 """
 from __future__ import annotations
 
 import torch
 
 from ..config.params import RunParams
-from ..solvers.timestep import compute_inv_dt_hydro
+from ..solvers.timestep import compute_inv_dt_hydro, with_jet
 from .build import load_library, param_block
 
 _FN = {torch.float32: "ramses_cfl_hydro_f32", torch.float64: "ramses_cfl_hydro_f64"}
@@ -43,6 +45,9 @@ class CflHydroKernel:
         if params.mhd or params.dim != 3:
             raise NotImplementedError("the hydro CFL kernel covers 3D hydro")
         check_hydro_state(params, A, ghost)
+        return with_jet(params, self._reduce(params, A, ghost))
+
+    def _reduce(self, params: RunParams, A: torch.Tensor, ghost: int) -> torch.Tensor:
         if A.device.type == "cpu":
             return compute_inv_dt_hydro(params, A, ghost=ghost)
         if A.device.type != "cuda":

@@ -9,6 +9,13 @@ and, given the kept Bx face, pallas/shear_packed.py:716
 rotating frame's vy offset; stratified z faces), twin
 ``solvers.timestep.inv_dt_mhd_shear``.
 
+Given ``ghost=g``, its ghosted mode reads a ghosted state [8, nz+2g,
+ny+2g, nx+2g] as it stands (the walled and jet loops run it before the
+fill, as JAX compute_dt runs before make_boundaries): the +1 faces come
+from the ghost frame, and the jet's inverse dt is the floor of the max
+(solvers/timestep.py:257-262 in the JAX package). Twin:
+``solvers.timestep.inv_dt_mhd_ghosted``.
+
 A compensated state (``[implementation] compensated``) is [16, nz, ny, nx],
 the state and then its Kahan carry, and a shearing box's kept face [2, nz,
 ny]; the reduction reads channels 0-7 and the face, as the JAX kernel reads
@@ -20,10 +27,13 @@ import torch
 
 from ..config.params import RunParams
 
-from ..solvers.timestep import inv_dt_mhd_periodic, inv_dt_mhd_shear
+from ..solvers.timestep import (inv_dt_mhd_ghosted, inv_dt_mhd_periodic, inv_dt_mhd_shear,
+                                jet_inv_dt)
 from .build import load_library, param_block
 
 _FN = {torch.float32: "ramses_cfl_mhd_f32", torch.float64: "ramses_cfl_mhd_f64"}
+_FN_GHOSTED = {torch.float32: "ramses_cfl_mhd_ghosted_f32",
+               torch.float64: "ramses_cfl_mhd_ghosted_f64"}
 _FN_SHEAR = {torch.float32: "ramses_cfl_mhd_shear_f32", torch.float64: "ramses_cfl_mhd_shear_f64"}
 
 
@@ -49,6 +59,17 @@ def check_state(params: RunParams, S: torch.Tensor) -> None:
         raise ValueError("state must be contiguous")
 
 
+def check_ghosted(params: RunParams, U: torch.Tensor) -> None:
+    """A ghosted MHD state: a contiguous [8, nz+2g, ny+2g, nx+2g] f32/f64
+    tensor."""
+    if tuple(U.shape) != params.shape or U.shape[0] != 8:
+        raise ValueError(f"ghosted state shape {tuple(U.shape)} != {params.shape}")
+    if U.dtype not in _FN:
+        raise TypeError(f"state dtype {U.dtype} is not float32/float64")
+    if not U.is_contiguous():
+        raise ValueError("state must be contiguous")
+
+
 def check_plane(params: RunParams, S: torch.Tensor, name: str, x: torch.Tensor,
                 lead: tuple = ()) -> None:
     """A contiguous [*lead, nz, ny] tensor of S's dtype on S's device."""
@@ -60,17 +81,22 @@ def check_plane(params: RunParams, S: torch.Tensor, name: str, x: torch.Tensor,
 
 
 class CflMhdKernel:
-    """``inv = kernel(params, S, kept=None)``: the 0-d device tensor
-    max over cells of the MHD inverse time step; with the kept Bx face
-    [nz, ny] ([2, nz, ny] compensated) of a shearing-box state, its
-    shearing-box mode. On a CPU tensor it returns the twin's value; on a
-    CUDA tensor it launches the kernel."""
+    """``inv = kernel(params, S, kept=None, ghost=0)``: the 0-d device
+    tensor max over cells of the MHD inverse time step; with the kept Bx
+    face [nz, ny] ([2, nz, ny] compensated) of a shearing-box state, its
+    shearing-box mode; with ``ghost`` = ghost_width, its ghosted mode on a
+    ghosted state. On a CPU tensor it returns the twin's value; on a CUDA
+    tensor it launches the kernel."""
 
     def __init__(self) -> None:
         self.launches = 0
 
     def __call__(self, params: RunParams, S: torch.Tensor,
-                 kept: torch.Tensor | None = None) -> torch.Tensor:
+                 kept: torch.Tensor | None = None, ghost: int = 0) -> torch.Tensor:
+        if ghost:
+            return self._ghosted(params, S, ghost)
+        if jet_inv_dt(params) is not None:
+            raise NotImplementedError("the jet runs on the ghosted state (ghost=ghost_width)")
         if kept is None and (params.omega0 > 0 or params.c_iso > 0):
             raise NotImplementedError(
                 "the periodic CFL covers the ideal adiabatic, non-rotating case; "
@@ -98,6 +124,30 @@ class CflMhdKernel:
                                                    partial.data_ptr(), out.data_ptr(), *dims)
         if err:
             raise RuntimeError(f"cfl_mhd launch failed: CUDA error {err}")
+        self.launches += 1
+        return out
+
+    def _ghosted(self, params: RunParams, U: torch.Tensor, ghost: int) -> torch.Tensor:
+        if ghost != params.ghost_width:
+            raise ValueError(f"ghost {ghost} != ghost_width {params.ghost_width}")
+        if params.omega0 > 0 or params.c_iso > 0:
+            raise NotImplementedError("the ghosted CFL covers the ideal adiabatic, "
+                                      "non-rotating case")
+        check_ghosted(params, U)
+        if U.device.type == "cpu":
+            return inv_dt_mhd_ghosted(params, U)
+        if U.device.type != "cuda":
+            raise ValueError(f"unsupported device {U.device}")
+        lib = load_library("cuda")
+        partial = torch.empty(lib.ramses_cfl_mhd_partials(), dtype=U.dtype, device=U.device)
+        out = torch.empty((), dtype=U.dtype, device=U.device)
+        jet = jet_inv_dt(params)
+        err = getattr(lib, _FN_GHOSTED[U.dtype])(
+            U.data_ptr(), partial.data_ptr(), out.data_ptr(), params.nx, params.ny, params.nz,
+            ghost, float("-inf") if jet is None else jet, param_block(params),
+            torch.cuda.current_stream(U.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"cfl_mhd ghosted launch failed: CUDA error {err}")
         self.launches += 1
         return out
 

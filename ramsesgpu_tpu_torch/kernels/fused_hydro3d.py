@@ -19,6 +19,13 @@ step.
   ghosted state through the step kernel's ghosted mode (the TPU kernel
   ``make_fused_hydro_update``, :46), then the boundary fill around the new
   interior.
+- The inflow jet (``problem=jet``) rewrites ghosts, which the interior
+  mode's load rules cannot express, so its loop runs on the ghosted state
+  itself (kernels/loop.py make_ghosted_loop): each step the CFL kernel on
+  the ghosted state with the jet's floor, the in-place fill with the jet,
+  and the step kernel's ghosted mode in place (``hydro_step.ghosted_``).
+  Its ``make_step_fn`` is the JAX whole-array step (the JAX package takes
+  no kernel for the jet, fused_hydro3d.py:42): the same three on a copy.
 """
 from __future__ import annotations
 
@@ -27,19 +34,25 @@ from typing import Callable
 import torch
 
 from ..config.params import RunParams
-from ..solvers.boundary import make_boundaries_concat
+from ..solvers.boundary import fill_ghosts_, make_boundaries_concat, uses_jet
 from ..solvers.timestep import dt_from_inv
 from .cfl_hydro import cfl_hydro
 from .hydro_step import hydro_step, require_hydro_scope
-from .loop import make_kernel_loop, streamed_step
+from .loop import make_ghosted_loop, make_kernel_loop, streamed_step
 from .packed_bc import pack_state, unpack_state
 from .zcarry_hydro3d import zcarry_hydro, zcarry_hydro_supported
 
 
 def make_advance_n(params: RunParams, device, packed_form: bool = False):
     """The hydro chunk loop; see kernels/loop.py make_kernel_loop. Ghosts
-    need not be valid on entry: pack keeps the interior only."""
+    need not be valid on entry: pack keeps the interior only (the jet:
+    make_ghosted_loop, on the ghosted state as it is)."""
     require_hydro_scope(params)
+    g = params.ghost_width
+    if uses_jet(params):
+        return make_ghosted_loop(
+            params, device, lambda U: cfl_hydro(params, U, ghost=g), hydro_step.ghosted_,
+            lambda U: hydro_step.scratch(params, U, ghosted=True), packed_form=packed_form)
 
     def bind_step(S):
         if params.kernel == "zcarry" and zcarry_hydro_supported(params):
@@ -69,6 +82,10 @@ def make_step_fn(params: RunParams, device) -> Callable:
         if scratch is None:
             scratch = hydro_step.scratch(params, U, ghosted=True)
         dt = dt_from_inv(params, cfl_hydro(params, U, ghost=g))
+        if uses_jet(params):
+            U = fill_ghosts_(params, U.clone())
+            always = torch.ones((), dtype=torch.bool, device=U.device)
+            return hydro_step.ghosted_(params, U, dt, always, scratch), dt
         new_interior = hydro_step.ghosted(params, U, dt, scratch)
         return make_boundaries_concat(params, new_interior, interior_only=True), dt
 

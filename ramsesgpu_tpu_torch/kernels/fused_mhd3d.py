@@ -20,18 +20,36 @@ buffer, the state in two buffers that take turns), which folds the next
 step's CFL into the step where there is no dissipation; a dissipative run
 keeps the separate CFL launch, as the JAX loop does, because the folded
 reduction would see the state before the dissipation kernel.
+
+Walls (any mix of DIRICHLET / NEUMANN / PERIODIC faces that is not fully
+periodic) and the inflow jet take the ghosted route, the JAX package's
+``make_pallas_step_fn`` non-periodic branch (:538-548: compute_dt, the
+fill, TPU row 3 ``make_fused_mhd_update``, the interior merge) with the
+whole-array step's semantics: the loop state is the ghosted array
+(kernels/loop.py make_ghosted_loop), and each step launches the CFL
+kernel's ghosted mode on the state as it stands, fills the ghosts in
+place (the jet too) and launches the step kernel's ghosted mode, which
+writes the interior and the CT face layer n+g. ``kernel=zcarry`` runs
+the same staged kernel there, as the JAX package takes its whole-array
+step (solvers/step.py:326-358); ``compensated=yes`` runs the plain
+update, as the JAX ``make_step_fn`` has no compensated branch.
+``make_fused_mhd_update`` is row 3 with its outside contract, for the
+sharded step of a later slice.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
 from ..config.params import RunParams
-from ..solvers.boundary import interior, make_boundaries_concat
+from ..solvers.boundary import fill_ghosts_, interior, make_boundaries_concat
 from ..solvers.dissipation import uses_dissipation
+from ..solvers.timestep import dt_from_inv
 from .cfl_mhd import cfl_mhd
 from .dissip_step import dissip_step
-from .loop import make_kernel_loop, streamed_step
-from .mhd_step import mhd_step, require_step_scope
+from .loop import make_ghosted_loop, make_kernel_loop, streamed_step
+from .mhd_step import mhd_step, require_step_scope, uses_ghosted, uses_shear
 from .zcarry_mhd3d import zcarry_mhd
 
 
@@ -41,12 +59,18 @@ def packed_supported(params: RunParams) -> bool:
         require_step_scope(params)
     except NotImplementedError:
         return False
-    return params.problem not in ("jet", "Jet")
+    return True
 
 
 def make_advance_n(params: RunParams, device, packed_form: bool = False):
-    """The MHD chunk loop; see kernels/loop.py make_kernel_loop."""
+    """The MHD chunk loop; see kernels/loop.py make_kernel_loop (walls
+    or the jet: make_ghosted_loop)."""
     require_step_scope(params)
+    if uses_ghosted(params):
+        return make_ghosted_loop(
+            params, device, lambda U: cfl_mhd(params, U, ghost=params.ghost_width),
+            mhd_step.ghosted, lambda U: mhd_step.scratch(params, U, ghosted=True),
+            packed_form=packed_form)
 
     return make_kernel_loop(
         params, device, lambda S: cfl_mhd(params, S), lambda S: bind_step(params, S),
@@ -99,3 +123,52 @@ def bind_step(params: RunParams, S):
         return S, None
 
     return step
+
+
+def make_ghosted_step_fn(params: RunParams, device) -> Callable:
+    """``step(U, t) -> (U_new, dt)`` of a walled or jet run on the ghosted
+    state: the JAX whole-array step (solvers/step.py:208-243 there):
+    compute_dt on U as it stands, the fill, the ghosted step; U_new's
+    ghosts are that fill's but for the CT face layer. U is not changed."""
+    require_step_scope(params)
+    scratch = None  # the stage buffer, allocated once
+
+    def step(U, t):
+        nonlocal scratch
+        U = U.clone(memory_format=torch.contiguous_format)
+        if scratch is None:
+            scratch = mhd_step.scratch(params, U, ghosted=True)
+        dt = dt_from_inv(params, cfl_mhd(params, U, ghost=params.ghost_width))
+        mhd_step.ghosted(params, fill_ghosts_(params, U), dt,
+                         torch.ones((), dtype=torch.bool, device=U.device), scratch)
+        return U, dt
+
+    return step
+
+
+def make_fused_mhd_update(params: RunParams, device) -> Callable:
+    """``update(U_ghosted, dt) -> U_interior_new``: TPU row 3
+    (pallas/fused_mhd3d.py:80) with its outside contract, for any face
+    types: one MHD+CT step of a ghosted state whose ghosts a fill has
+    written, and the new interior [8, nz, ny, nx]. ``dt``: a number or a
+    0-d tensor. On a CUDA state it launches the step kernel's ghosted
+    mode on a copy of U; on a CPU state the twin runs."""
+    require_step_scope(params)
+    if uses_shear(params):
+        raise NotImplementedError("row 3 does not cover the rotating frame")
+    device = torch.device(device)
+    scratch = None  # the stage buffer, allocated once
+
+    def update(U, dt):
+        nonlocal scratch
+        if U.device.type != device.type:
+            raise ValueError(f"state on {U.device}, update built for {device}")
+        W = U.clone(memory_format=torch.contiguous_format)
+        if scratch is None:
+            scratch = mhd_step.scratch(params, W, ghosted=True)
+        dt = torch.as_tensor(dt, dtype=W.dtype, device=W.device)
+        mhd_step.ghosted(params, W, dt, torch.ones((), dtype=torch.bool, device=W.device),
+                         scratch)
+        return interior(params, W).contiguous()
+
+    return update

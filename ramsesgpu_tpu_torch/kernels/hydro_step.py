@@ -15,7 +15,9 @@ Two modes, one kernel source:
   ``solvers.godunov.hydro_3d_state_update``.
 - ``hydro_step.ghosted(params, U, dt, scratch)`` reads a ghosted state
   [5, nz+4, ny+4, nx+4] as it is and returns its new interior. Twin:
-  ``solvers.godunov.hydro_3d_interior_update``.
+  ``solvers.godunov.hydro_3d_interior_update``. ``hydro_step.ghosted_(params,
+  U, dt, active, scratch)`` writes that interior into U itself when
+  ``active`` (the jet's loop on the ghosted state).
 
 The stage intermediates live in one scratch buffer (~20 values per cell)
 that the caller allocates once with ``HydroStepKernel.scratch``.
@@ -26,7 +28,7 @@ import torch
 
 from ..config.params import RunParams
 from ..core.constants import RiemannSolver
-from ..solvers.boundary import require_simple_bcs
+from ..solvers.boundary import interior, require_simple_bcs
 from ..solvers.godunov import hydro_3d_interior_update, hydro_3d_state_update
 from .build import load_library, param_block
 from .cfl_hydro import check_hydro_state
@@ -60,7 +62,7 @@ def require_hydro_scope(params: RunParams) -> None:
     require_simple_bcs(params)
 
 
-def _check_scalars(S: torch.Tensor, **scalars) -> None:
+def check_scalars(S: torch.Tensor, **scalars) -> None:
     for name, (x, dtype) in scalars.items():
         if x.shape != () or x.dtype != dtype or x.device != S.device:
             raise ValueError(f"{name} must be a 0-d {dtype} tensor on {S.device}, "
@@ -90,11 +92,11 @@ class HydroStepKernel:
         CUDA tensor, accumulates the approx solver's Newton iterations."""
         require_hydro_scope(params)
         check_hydro_state(params, S, 0)
-        _check_scalars(S, dt=(dt, S.dtype), active=(active, torch.bool))
+        check_scalars(S, dt=(dt, S.dtype), active=(active, torch.bool))
         if S.device.type == "cpu":
             S.copy_(torch.where(active, hydro_3d_state_update(params, S, dt), S))
             return S
-        self._launch(params, S, S, dt, active, scratch, False, newton)
+        self._launch(params, S, S, dt, active, scratch, 0, newton)
         return S
 
     def ghosted(self, params: RunParams, U: torch.Tensor, dt: torch.Tensor,
@@ -103,19 +105,34 @@ class HydroStepKernel:
         ghosts must be filled."""
         require_hydro_scope(params)
         check_hydro_state(params, U, params.ghost_width)
-        _check_scalars(U, dt=(dt, U.dtype))
+        check_scalars(U, dt=(dt, U.dtype))
         if U.device.type == "cpu":
             return hydro_3d_interior_update(params, U, dt)
         out = torch.empty((5, params.nz, params.ny, params.nx), dtype=U.dtype, device=U.device)
         active = torch.ones((), dtype=torch.bool, device=U.device)
-        self._launch(params, U, out, dt, active, scratch, True, None)
+        self._launch(params, U, out, dt, active, scratch, 1, None)
         return out
 
+    def ghosted_(self, params: RunParams, U: torch.Tensor, dt: torch.Tensor,
+                 active: torch.Tensor, scratch=None) -> torch.Tensor:
+        """The ghosted step in place: U's interior becomes the new interior
+        when ``active``; its ghosts stay. Returns U."""
+        require_hydro_scope(params)
+        check_hydro_state(params, U, params.ghost_width)
+        check_scalars(U, dt=(dt, U.dtype), active=(active, torch.bool))
+        if U.device.type == "cpu":
+            inner = interior(params, U)
+            inner.copy_(torch.where(active, hydro_3d_interior_update(params, U, dt), inner))
+            return U
+        self._launch(params, U, U, dt, active, scratch, 2, None)
+        return U
+
     def _launch(self, params, src, out, dt, active, scratch, ghosted, newton) -> None:
+        """ghosted: 0 interior mode, 1 ghosted into out, 2 ghosted in place."""
         if src.device.type != "cuda":
             raise ValueError(f"unsupported device {src.device}")
         lib = load_library("cuda")
-        need = lib.ramses_hydro_step_scratch(params.nx, params.ny, params.nz, int(ghosted))
+        need = lib.ramses_hydro_step_scratch(params.nx, params.ny, params.nz, ghosted)
         if (scratch is None or scratch.device != src.device or scratch.dtype != src.dtype
                 or scratch.numel() < need or not scratch.is_contiguous()):
             raise ValueError(f"scratch must be a contiguous {src.dtype} buffer of >= {need} "
@@ -125,7 +142,7 @@ class HydroStepKernel:
             raise ValueError("newton must be a 0-d int64 tensor on the state's device")
         err = getattr(lib, _FN[src.dtype])(
             src.data_ptr(), out.data_ptr(), scratch.data_ptr(), dt.data_ptr(), active.data_ptr(),
-            params.nx, params.ny, params.nz, int(ghosted), bc_codes(params), param_block(params),
+            params.nx, params.ny, params.nz, ghosted, bc_codes(params), param_block(params),
             None if newton is None else newton.data_ptr(),
             torch.cuda.current_stream(src.device).cuda_stream,
         )

@@ -17,6 +17,7 @@ from typing import Callable
 import torch
 
 from ..config.params import RunParams
+from ..solvers.boundary import fill_ghosts_
 from ..solvers.timestep import dt_from_inv
 
 
@@ -73,6 +74,34 @@ def make_kernel_loop(params: RunParams, device, cfl: Callable, bind_step: Callab
         return unpack(S, t_new), t_new, k
 
     return advance_n
+
+
+def make_ghosted_loop(params: RunParams, device, cfl: Callable, step_: Callable,
+                      scratch: Callable, packed_form: bool = False):
+    """The chunk loop on the ghosted state itself, for the runs whose fill
+    the interior loops' load rules cannot express (MHD walls, whose
+    step also writes the CT face layer; the inflow jet). Pack is a
+    contiguous copy of the ghosted state, unpack hands a copy back. Each
+    step runs, in this order: ``cfl(U)`` on the state as it stands (the
+    JAX compute_dt before make_boundaries, so a wall's +1 face is the
+    previous step's ghost); the in-place fill (solvers/boundary.py
+    fill_ghosts_, the jet included), gated by the loop's ``active`` flag;
+    ``step_(params, U, dt, active, buf)``, the kernel's ghosted mode in
+    place, with ``buf = scratch(U)`` allocated once per chunk. See
+    make_kernel_loop for the rest."""
+    def bind_step(U):
+        buf = scratch(U)
+
+        def step(U, dt, active, t):
+            fill_ghosts_(params, U, active)
+            step_(params, U, dt, active, buf)
+            return U, None
+
+        return step
+
+    return make_kernel_loop(params, device, cfl, bind_step,
+                            pack=lambda U: U.clone(memory_format=torch.contiguous_format),
+                            unpack=lambda U, t: U.clone(), packed_form=packed_form)
 
 
 def copy_state(dst, src) -> None:

@@ -1,5 +1,5 @@
 """One 3D MHD+CT step: the CUDA kernel ``csrc/mhd_step.cu`` and its plain
-PyTorch twins, in three modes.
+PyTorch twins, in four modes.
 
 - Periodic: replaces the TPU kernel ramsesgpu_tpu/pallas/packed_io.py:148
   ``make_packed_io_step`` with the MHD body pallas/fused_mhd3d.py:228 ->
@@ -18,16 +18,26 @@ PyTorch twins, in three modes.
   kick and the update the conservative source. Twin: the same, with
   ``zslabs`` and ``gz``.
 
-Compensated (``[implementation] compensated``, both modes; TPU row
-A′-compensated, fused_mhd3d.py:247-259): the state is [16, nz, ny, nx],
-the state and then its Kahan carry, and the update stage Kahan-adds each
-channel's increment.
+- Ghosted (``MhdStepKernel.ghosted``): a ghosted state [8, nz+2g, ny+2g,
+  nx+2g] whose ghosts a fill has written, for any mix of DIRICHLET /
+  NEUMANN / PERIODIC faces and the inflow jet, updated in place with the
+  JAX whole-array step's semantics: its interior, and the CT curl of the
+  max-side face layer n+g. Replaces the TPU kernel
+  pallas/fused_mhd3d.py:80 ``make_fused_mhd_update`` (whose interior is
+  this one's). Twin: ``solvers.godunov_mhd.mhd_3d_ghosted_update``.
+
+Compensated (``[implementation] compensated``, the periodic and shear
+modes; TPU row A′-compensated, fused_mhd3d.py:247-259): the state is [16,
+nz, ny, nx], the state and then its Kahan carry, and the update stage
+Kahan-adds each channel's increment. The ghosted mode has no compensated
+form: the JAX package's walled step has none either.
 
 The kernel updates the interior-only state [8, nz, ny, nx] in place. Its
 stage intermediates live in one scratch buffer (~11.6 GB at 256^3 f32;
 the shearing box's stage grid has nx + 4 columns, the stratified one
-nz + 4 rows too) that the caller allocates once per advance with
-``MhdStepKernel.scratch``.
+nz + 4 rows too; the ghosted mode's is the ghosted array, ~12.4 GB at
+256^3) that the caller allocates once per advance with
+``MhdStepKernel.scratch`` (``ghosted=True`` for the ghosted mode).
 """
 from __future__ import annotations
 
@@ -36,13 +46,18 @@ import torch
 from ..config.params import RunParams
 from ..core.constants import BoundaryConditionType as BCT, MagneticRiemannSolver, RiemannSolver
 
-from ..solvers.boundary import require_periodic
-from ..solvers.godunov_mhd import mhd_3d_periodic_update, mhd_3d_shear_update
+from ..solvers.boundary import require_simple_bcs, uses_jet
+from ..solvers.dissipation import uses_dissipation
+from ..solvers.godunov_mhd import (mhd_3d_ghosted_update, mhd_3d_periodic_update,
+                                   mhd_3d_shear_update)
 from ..solvers.stratified import uses_stratified_z
 from .build import load_library, param_block
-from .cfl_mhd import check_plane, check_state
+from .cfl_mhd import check_ghosted, check_plane, check_state
+from .hydro_step import check_scalars
 
 _FN = {torch.float32: "ramses_mhd_step_f32", torch.float64: "ramses_mhd_step_f64"}
+_FN_GHOSTED = {torch.float32: "ramses_mhd_step_ghosted_f32",
+               torch.float64: "ramses_mhd_step_ghosted_f64"}
 _FN_SHEAR = {torch.float32: "ramses_mhd_step_shear_f32",
              torch.float64: "ramses_mhd_step_shear_f64"}
 SLAB = 3     # columns of each sheared ghost slab (csrc/mhd_step.cu SLAB)
@@ -53,6 +68,13 @@ def uses_shear(params: RunParams) -> bool:
     return BCT.BC_SHEARINGBOX in (params.boundary_xmin, params.boundary_xmax)
 
 
+def uses_ghosted(params: RunParams) -> bool:
+    """Whether an MHD run without a shearing box takes the ghosted step:
+    a face that is not periodic, or the inflow jet."""
+    return (not uses_shear(params)
+            and (uses_jet(params) or any(b != BCT.BC_PERIODIC for b in params.boundary_types)))
+
+
 def require_step_scope(params: RunParams) -> None:
     """Raise NotImplementedError for what the step kernels (this one and,
     with nu > 0 or eta > 0, kernels/dissip_step.py) do not compute.
@@ -60,7 +82,10 @@ def require_step_scope(params: RunParams) -> None:
     port's shear path has no border strip (kernels/shear.py). Stratified z
     faces (BC_Z_STRATIFIED) are taken on the shearing box, isothermal and
     without viscosity or resistivity; whether the run carries the gravity
-    field they need is solvers/step.py require_slice's test."""
+    field they need is solvers/step.py require_slice's test. Without a
+    shearing box any mix of DIRICHLET / NEUMANN / PERIODIC faces and the
+    jet are taken, ideal and adiabatic (walls or the jet with nu or eta
+    need a ghosted mode of the dissipation kernel)."""
     reasons = []
     if params.dim != 3 or not params.mhd:
         reasons.append("only 3D MHD")
@@ -93,10 +118,13 @@ def require_step_scope(params: RunParams) -> None:
             reasons.append("rotating frame (omega0 > 0) without a shearing box")
         if params.c_iso > 0:
             reasons.append("isothermal EOS (cIso > 0) outside the shearing box")
+        if uses_ghosted(params) and uses_dissipation(params):
+            reasons.append("viscosity or resistivity with walls or the jet (the ghosted mode "
+                           "of csrc/dissip_step.cu)")
     if reasons:
         raise NotImplementedError("not ported: " + "; ".join(reasons))
     if not uses_shear(params):
-        require_periodic(params)
+        require_simple_bcs(params)
 
 
 class MhdStepKernel:
@@ -114,22 +142,21 @@ class MhdStepKernel:
         self.launches = 0
 
     @staticmethod
-    def scratch(params: RunParams, S: torch.Tensor) -> torch.Tensor | None:
-        """The stage buffer for S's shape and device (None on the CPU)."""
+    def scratch(params: RunParams, S: torch.Tensor, ghosted: bool = False
+                ) -> torch.Tensor | None:
+        """The stage buffer for S's shape and device (None on the CPU);
+        ``ghosted``: the ghosted mode's."""
         if S.device.type == "cpu":
             return None
-        size = MhdStepKernel.scratch_size(load_library("cuda"), params)
+        size = MhdStepKernel.scratch_size(load_library("cuda"), params, ghosted)
         return torch.empty(size, dtype=S.dtype, device=S.device)
 
     def __call__(self, params, S, dt, active, scratch=None, shear=None) -> torch.Tensor:
         require_step_scope(params)
+        if uses_ghosted(params):
+            raise ValueError("a walled or jet state steps through MhdStepKernel.ghosted")
         check_state(params, S)
-        for name, x, dtype in (("dt", dt, S.dtype), ("active", active, torch.bool)):
-            if x.shape != () or x.dtype != dtype or x.device != S.device:
-                raise ValueError(
-                    f"{name} must be a 0-d {dtype} tensor on {S.device}, "
-                    f"got {tuple(x.shape)} {x.dtype} on {x.device}"
-                )
+        check_scalars(S, dt=(dt, S.dtype), active=(active, torch.bool))
         if (shear is not None) != uses_shear(params):
             raise ValueError("shear=(slabs, planes) is given exactly for a shearing-box state")
         zslabs = gz = None
@@ -153,14 +180,7 @@ class MhdStepKernel:
                 S.copy_(torch.where(active, S_new, S))
                 planes.copy_(torch.where(active, planes_new, planes))
             return S
-        if S.device.type != "cuda":
-            raise ValueError(f"unsupported device {S.device}")
-        lib = load_library("cuda")
-        need = self.scratch_size(lib, params)
-        if (scratch is None or scratch.device != S.device or scratch.dtype != S.dtype
-                or scratch.numel() < need or not scratch.is_contiguous()):
-            raise ValueError(f"scratch must be a contiguous {S.dtype} buffer of "
-                             f">= {need} values on {S.device} (MhdStepKernel.scratch)")
+        lib = self._cuda_lib(S, self.scratch_size, params, scratch, False)
         tail = (dt.data_ptr(), active.data_ptr(), int(params.compensated), params.nx, params.ny,
                 params.nz, param_block(params), torch.cuda.current_stream(S.device).cuda_stream)
         if shear is None:
@@ -175,8 +195,50 @@ class MhdStepKernel:
         self.launches += 1
         return S
 
+    def ghosted(self, params: RunParams, U: torch.Tensor, dt: torch.Tensor,
+                active: torch.Tensor, scratch=None) -> torch.Tensor:
+        """One step of the ghosted state U [8, nz+2g, ny+2g, nx+2g], whose
+        ghosts must be filled, in place when ``active``: the interior and
+        the CT face layer n+g (see the module note); returns U. A
+        compensated run takes this plain update, as the JAX package's
+        walled step does. ``scratch``: ``MhdStepKernel.scratch(params, U,
+        ghosted=True)``."""
+        require_step_scope(params)
+        if uses_shear(params):
+            raise NotImplementedError("the ghosted mode covers runs without a shearing box")
+        check_ghosted(params, U)
+        check_scalars(U, dt=(dt, U.dtype), active=(active, torch.bool))
+        if U.device.type == "cpu":
+            U.copy_(torch.where(active, mhd_3d_ghosted_update(params, U, dt), U))
+            return U
+        lib = self._cuda_lib(U, self.scratch_size, params, scratch, True)
+        err = getattr(lib, _FN_GHOSTED[U.dtype])(
+            U.data_ptr(), scratch.data_ptr(), dt.data_ptr(), active.data_ptr(), params.nx,
+            params.ny, params.nz, params.ghost_width, param_block(params),
+            torch.cuda.current_stream(U.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"mhd_step ghosted launch failed: CUDA error {err}")
+        self.launches += 1
+        return U
+
     @staticmethod
-    def scratch_size(lib, params: RunParams) -> int:
+    def _cuda_lib(S, size, params, scratch, ghosted: bool):
+        """The CUDA library, after checking S's device and the scratch."""
+        if S.device.type != "cuda":
+            raise ValueError(f"unsupported device {S.device}")
+        lib = load_library("cuda")
+        need = size(lib, params, ghosted)
+        if (scratch is None or scratch.device != S.device or scratch.dtype != S.dtype
+                or scratch.numel() < need or not scratch.is_contiguous()):
+            raise ValueError(f"scratch must be a contiguous {S.dtype} buffer of "
+                             f">= {need} values on {S.device} (MhdStepKernel.scratch)")
+        return lib
+
+    @staticmethod
+    def scratch_size(lib, params: RunParams, ghosted: bool = False) -> int:
+        if ghosted:
+            return lib.ramses_mhd_step_ghosted_scratch(params.nx, params.ny, params.nz,
+                                                       params.ghost_width)
         if uses_shear(params):
             return lib.ramses_mhd_step_shear_scratch(params.nx, params.ny, params.nz,
                                                      int(uses_stratified_z(params)))

@@ -20,7 +20,7 @@ from ..solvers.godunov import hydro_3d_state_update
 from ..solvers.timestep import compute_inv_dt_hydro
 from .build import load_library, param_block
 from .cfl_hydro import check_hydro_state
-from .hydro_step import _check_scalars, require_hydro_scope
+from .hydro_step import check_scalars, require_hydro_scope
 
 _FN = {torch.float32: "ramses_zcarry_hydro_f32", torch.float64: "ramses_zcarry_hydro_f64"}
 
@@ -63,7 +63,7 @@ class ZcarryHydroKernel:
         check_hydro_state(params, S_out, 0)
         if S_out.dtype != S.dtype or S_out.device != S.device or S_out.data_ptr() == S.data_ptr():
             raise ValueError("S_out must be another buffer of S's dtype on its device")
-        _check_scalars(S, dt=(dt, S.dtype), active=(active, torch.bool))
+        check_scalars(S, dt=(dt, S.dtype), active=(active, torch.bool))
         if S.device.type == "cpu":
             S_out.copy_(torch.where(active, hydro_3d_state_update(params, S, dt), S))
             return compute_inv_dt_hydro(params, S_out, ghost=0)

@@ -5,8 +5,8 @@ HydroRunBase.cpp:7109-7133, MHDRunBase.cpp:1378-3245).
 The port registers the initial conditions it can run: the gravity-free
 hydro problems below, and the MHD problems of ``mhd_inits`` (registered
 when that module is imported; ``solvers/step.py require_slice`` refuses
-those that need walls, 2D or a static gravity field). Any other name
-raises NotImplementedError. ``has_gravity_field`` is the JAX package's
+those that need 2D or a static gravity field). Any other name raises
+NotImplementedError. ``has_gravity_field`` is the JAX package's
 gate (problems/__init__.py:48-76): Keplerian-disk always has a field, MRI
 only with a [gravity] section (stratified MRI); ``gravity_field`` builds
 the stratified MRI's.
@@ -28,6 +28,7 @@ _HYDRO_REGISTRY: dict[str, InitFn] = {
     "implode": hydro_inits.init_hydro_implode,
     "blast": hydro_inits.init_hydro_blast,
     "Kelvin-Helmholtz": hydro_inits.init_hydro_kelvin_helmholtz,
+    "jet": hydro_inits.init_hydro_jet,
 }
 
 _MHD_REGISTRY: dict[str, InitFn] = {}

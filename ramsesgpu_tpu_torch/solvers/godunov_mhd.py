@@ -10,7 +10,9 @@ mhd_godunov_unsplit_cpu_v1.cpp, godunov_unsplit_mhd.cuh):
 Shifts are rolls, so on the port's interior-only periodic state
 [8, nz, ny, nx] (``mhd_3d_periodic_update``) the wrap is the boundary
 condition and every cell is valid: that function is the plain twin of the
-CUDA step kernel (kernels/mhd_step.py).
+CUDA step kernel (kernels/mhd_step.py). On a ghosted state whose ghosts a
+fill has written (walls, the jet), ``mhd_3d_ghosted_update`` is the JAX
+whole-array step itself, the twin of the kernel's ghosted mode.
 
 The shearing box (rotating frame, sheared-periodic x faces) runs on the
 loop state (S, kept): ``mhd_3d_shear_update`` updates S with the sheared
@@ -188,6 +190,37 @@ def mhd_3d_periodic_update(params: RunParams, S: torch.Tensor, dt) -> torch.Tens
     S, comp = split_carry(S)
     fluxes, emfs = mhd_fluxes_emfs(params, S, dt)
     return mhd_apply_update(params, S, fluxes, emfs, dt, comp=comp)
+
+
+def mhd_3d_ghosted_update(params: RunParams, U: torch.Tensor, dt) -> torch.Tensor:
+    """One 3D MHD+CT Godunov step of a ghosted state [8, nz+2g, ny+2g,
+    nx+2g] whose ghosts a fill has written: the JAX whole-array step
+    (godunov_mhd.py:596-744) without gravity, shear or dissipation. Every
+    stage runs on the whole array with rolls; the flux divergence updates
+    the interior, and the CT curl the cube g .. n+g of every axis
+    (:733-744, mhd_ct_update.cuh:124-213), so the max-side face layer n+g
+    (Bx[nx+g], By[ny+g], Bz[nz+g] and the rest of that layer) changes too;
+    every other ghost stays as filled. Returns the new ghosted array. The
+    plain twin of the step kernel's ghosted mode (TPU row 3's interior is
+    its interior)."""
+    g = params.ghost_width
+    dtdx, dtdy, dtdz = _div(dt, params.dx), _div(dt, params.dy), _div(dt, params.dz)
+    (flux_x, flux_y, flux_z), (emf_z, emf_y, emf_x) = mhd_fluxes_emfs(params, U, dt)
+    inner = (slice(None),) + (slice(g, -g),) * 3
+    ct = tuple(slice(g, n - g + 1) for n in U.shape[1:])
+    dU = (
+        dtdx * (flux_x - xp.shift_p(flux_x, _X))
+        + dtdy * (flux_y - xp.shift_p(flux_y, _Y))
+        + dtdz * (flux_z - xp.shift_p(flux_z, _Z))
+    )[inner]
+    dbx = ((xp.shift_p(emf_z, _Y) - emf_z) * dtdy - (xp.shift_p(emf_y, _Z) - emf_y) * dtdz)[ct]
+    dby = ((xp.shift_p(emf_x, _Z) - emf_x) * dtdz - (xp.shift_p(emf_z, _X) - emf_z) * dtdx)[ct]
+    dbz = ((xp.shift_p(emf_y, _X) - emf_y) * dtdx - (xp.shift_p(emf_x, _Y) - emf_x) * dtdy)[ct]
+    out = U.clone()
+    out[(slice(0, 5),) + inner[1:]] = U[(slice(0, 5),) + inner[1:]] + dU[:5]
+    for ch, d in ((IA, dbx), (IB, dby), (IC, dbz)):
+        out[(ch,) + ct] = U[(ch,) + ct] + d
+    return out
 
 
 def mhd_3d_periodic_step(params: RunParams, S: torch.Tensor, dt) -> torch.Tensor:

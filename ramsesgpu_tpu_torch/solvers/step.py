@@ -5,8 +5,10 @@ rotating frame, sheared-periodic x faces, isothermal or adiabatic, same
 solvers); both with or without viscosity and resistivity (nu, eta) and
 with or without the Kahan-compensated state ([implementation]
 compensated); the stratified MRI (BC_Z_STRATIFIED z faces and its static
-vertical gravity, ideal); and 3D hydro (approx / HLL / HLLC, inviscid)
-with any mix of DIRICHLET / NEUMANN / PERIODIC faces.
+vertical gravity, ideal); ideal 3D MHD with any mix of DIRICHLET /
+NEUMANN / PERIODIC faces and the inflow jet (the ghosted route,
+kernels/fused_mhd3d.py); and 3D hydro (approx / HLL / HLLC, inviscid)
+with any mix of DIRICHLET / NEUMANN / PERIODIC faces and the jet.
 
     step(U, t)          -> (U', dt)       one step on the ghosted state
     advance_n(U, t, n)  -> (U', t', k)    up to n steps, stopping at t_end
@@ -19,9 +21,10 @@ plain twins. ``[implementation] kernel`` = ``auto`` or ``pallas`` is
 accepted everywhere; ``jnp`` only on the CPU (the twins must not stand in
 for the kernels on CUDA). ``zcarry`` selects the z-streaming step kernels
 (kernels/zcarry_mhd3d.py, kernels/zcarry_hydro3d.py: one launch per step,
-no stage buffer) on the MHD paths (periodic and shearing box, plain,
+no stage buffer) on the periodic and shearing-box MHD paths (plain,
 compensated, dissipative, stratified) and on fully periodic hydro; hydro
-with walls keeps the staged wall-rule kernel under it, which computes the
+with walls keeps the staged wall-rule kernel under it, MHD with walls or
+the jet and the hydro jet the staged ghosted kernels, which compute the
 same function, as the JAX package falls back to its whole-array step
 there, and the ghosted one-step hydro ``make_step_fn`` keeps the ghosted
 kernel for every choice. Of the JAX package's refusals of zcarry
@@ -47,7 +50,7 @@ from ..config.params import RunParams
 from ..kernels import fused_hydro3d, fused_mhd3d, shear
 from ..kernels.cfl_mhd import cfl_mhd
 from ..kernels.hydro_step import require_hydro_scope
-from ..kernels.mhd_step import require_step_scope, uses_shear
+from ..kernels.mhd_step import require_step_scope, uses_ghosted, uses_shear
 from ..problems import gravity_field, has_gravity_field
 from .stratified import uses_stratified_z
 from .timestep import dt_from_inv
@@ -62,8 +65,6 @@ def require_slice(params: RunParams, device, config: ConfigMap | None = None) ->
         require_step_scope(params)
     else:
         require_hydro_scope(params)
-    if params.problem in ("jet", "Jet"):
-        raise NotImplementedError(f"problem {params.problem!r} is not ported")
     gravity = has_gravity_field(params, config if config is not None else ConfigMap(text=""))
     strat = params.mhd and uses_shear(params) and uses_stratified_z(params)
     if gravity and not strat:
@@ -103,6 +104,8 @@ def make_step_fn(params: RunParams, device, config: ConfigMap | None = None) -> 
         return fused_hydro3d.make_step_fn(params, device)
     if uses_shear(params):
         return shear.make_step_fn(params, device, gravity_z(params, config, device))
+    if uses_ghosted(params):
+        return fused_mhd3d.make_ghosted_step_fn(params, device)
     step_S = None  # bound to the buffers of the first state
 
     def step(U, t):

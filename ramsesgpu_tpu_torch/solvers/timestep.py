@@ -3,9 +3,11 @@ reference cmpdt.cuh:43-230, cmpdt_mhd.cuh:43-230).
 
 dt = cfl / max over interior cells of sum_d (c_d + |v_d|) / dx_d, with
 c_d the sound speed (hydro) or the fast magnetosonic speed along d (MHD,
-face-B centred to cells).
+face-B centred to cells); with the inflow jet, at least (ujet + cjet) / dx.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -14,6 +16,7 @@ from ..core.constants import IA, IB, IC, ID, IP, IU, IV, IW
 
 from ..ops.backend import xp
 from ..ops.stencil import shift_p
+from .boundary import uses_jet
 from .stratified import uses_stratified_z
 
 
@@ -130,12 +133,37 @@ def inv_dt_mhd_shear(params: RunParams, S: torch.Tensor, kept: torch.Tensor) -> 
     )
 
 
+def inv_dt_mhd_ghosted(params: RunParams, U: torch.Tensor) -> torch.Tensor:
+    """compute_inv_dt_mhd on a ghosted 3D state as it stands (the +1
+    face-B neighbours of the interior come from the ghost frame, as in JAX
+    compute_inv_dt_mhd and compute_inv_dt_mhd_ghosted, timestep.py:219-240),
+    then the jet's floor. The plain twin of the CUDA CFL kernel's ghosted
+    mode (kernels/cfl_mhd.py)."""
+    return with_jet(params, compute_inv_dt_mhd(params, U))
+
+
+def jet_inv_dt(params: RunParams) -> float | None:
+    """(ujet + cjet) / dx of the inflow jet, in double, or None without a
+    jet (timestep.py:257-262; HydroRunBase.cpp:365-367)."""
+    if not uses_jet(params):
+        return None
+    cjet = math.sqrt(params.gamma0 * params.pjet / params.djet)
+    return (params.ujet + cjet) / params.dx
+
+
+def with_jet(params: RunParams, inv: torch.Tensor) -> torch.Tensor:
+    """max(inv, the jet's inverse dt) in inv's dtype (jnp.maximum with the
+    Python float), or inv without a jet."""
+    jet = jet_inv_dt(params)
+    return inv if jet is None else torch.maximum(inv, inv.new_full((), jet))
+
+
 def compute_dt(params: RunParams, U: torch.Tensor) -> torch.Tensor:
-    """cfl / max(invDt) on a ghosted 3D state (HydroRunBase.cpp:314-426)."""
-    if params.problem in ("jet", "Jet"):
-        raise NotImplementedError("the jet problem is not ported")
-    inv = compute_inv_dt_mhd(params, U) if params.mhd else compute_inv_dt_hydro(params, U)
-    return dt_from_inv(params, inv)
+    """cfl / max(invDt) on a ghosted 3D state (HydroRunBase.cpp:314-426),
+    the jet's speed included."""
+    if params.mhd:
+        return dt_from_inv(params, inv_dt_mhd_ghosted(params, U))
+    return dt_from_inv(params, with_jet(params, compute_inv_dt_hydro(params, U)))
 
 
 def dt_from_inv(params: RunParams, inv: torch.Tensor) -> torch.Tensor:

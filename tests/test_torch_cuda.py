@@ -762,3 +762,145 @@ def mri_ghosted(device):
     params, _config, state, t0, _gz = shipped_mri("mhd_mri_3d.ini", "float32", device,
                                                   (40, 36, 20))
     return params, unpack(params, state, t0)
+
+
+# walls and the inflow jet: the ghosted modes of the step and CFL kernels
+# (TPU row 3), on the shipped 3D Brio-Wu under each face mix and on the
+# MHD jet, at an odd 21 x 18 x 11
+WALL_CASES = {"neumann": (2,) * 6, "dirichlet": (1,) * 6, "mixed": (2, 2, 3, 3, 1, 1),
+              "jet": None}
+
+
+def walled_state(case, dtype, device, seed=5):
+    """params and the filled ghosted state of one WALL_CASES case: Brio-Wu
+    (testRiemannHLLD.ini) or the MHD jet (mhd_jet3d.ini, ijet 4, offsetJet
+    3, ambient field 0.7), times 1 + 0.05 N(0, 1) from a seed."""
+    import re
+    from pathlib import Path
+
+    from ramsesgpu_tpu_torch.convert import torch_dtype
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+
+    name = "mhd_jet3d.ini" if case == "jet" else "testRiemannHLLD.ini"
+    text = (Path(__file__).resolve().parent.parent / "data" / name).read_text()
+    subs = {"nx": 21, "ny": 18, "nz": 11, "ijet": 4, "offsetJet": 3}
+    if WALL_CASES[case] is not None:
+        subs.update(zip(("boundary_xmin", "boundary_xmax", "boundary_ymin", "boundary_ymax",
+                         "boundary_zmin", "boundary_zmax"), WALL_CASES[case]))
+    for key, value in subs.items():
+        text = re.sub(rf"^{key}=.*$", f"{key}={value}", text, flags=re.M)
+    text = text.replace("[jet]\n", "[jet]\nbamb=0.7\n") + f"\n[implementation]\ndtype={dtype}\n"
+    config = ConfigMap(text=text)
+    params = params_from_config(config)
+    U = torch.from_numpy(init_problem(params, config))
+    gen = torch.Generator().manual_seed(seed)
+    U = U * (1 + 0.05 * torch.randn(U.shape, generator=gen, dtype=U.dtype))
+    return params, make_boundaries(params, U.to(device, torch_dtype(params))).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", list(WALL_CASES))
+def test_ghosted_kernels_match_twins(cuda_device, dtype, case):
+    """The step kernel's ghosted mode against its twin on the whole ghosted
+    array after 1 step and after 10 steps of the walled loop against the
+    twins' loop; the CFL's ghosted mode against its twin; an inactive step
+    changes nothing; make_fused_mhd_update is the twin's interior."""
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.fused_mhd3d import make_fused_mhd_update
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.solvers.boundary import fill_ghosts_, interior
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_ghosted_update
+    from ramsesgpu_tpu_torch.solvers.step import make_advance_n
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_ghosted
+
+    params, U = walled_state(case, dtype, cuda_device)
+    g = params.ghost_width
+    inv, inv_ref = cfl_mhd(params, U, ghost=g), inv_dt_mhd_ghosted(params, U)
+    assert abs(float(inv) - float(inv_ref)) <= TOL[dtype] * float(inv_ref)
+    dt = dt_from_inv(params, inv_ref)
+    want = mhd_3d_ghosted_update(params, U, dt)
+    scratch = mhd_step.scratch(params, U, ghosted=True)
+    got = U.clone()
+    mhd_step.ghosted(params, got, dt, torch.zeros((), dtype=torch.bool, device=cuda_device),
+                     scratch)
+    assert torch.equal(got, U)
+    mhd_step.ghosted(params, got, dt, torch.ones((), dtype=torch.bool, device=cuda_device),
+                     scratch)
+    assert rel_l2(got, want) <= TOL[dtype]
+    fused = make_fused_mhd_update(params, cuda_device)(U, dt)
+    assert rel_l2(fused, interior(params, want)) <= TOL[dtype]
+
+    t0 = torch.zeros((), dtype=U.dtype, device=cuda_device)
+    got, t, k = make_advance_n(params, cuda_device)(U, t0, 10)
+    want, t_ref = U.clone(), t0.clone()
+    for _ in range(10):
+        dt = dt_from_inv(params, inv_dt_mhd_ghosted(params, want))
+        want = mhd_3d_ghosted_update(params, fill_ghosts_(params, want), dt)
+        t_ref = t_ref + dt
+    assert int(k) == 10
+    assert abs(float(t) - float(t_ref)) <= TOL_STEP10[dtype] * float(t_ref)
+    assert rel_l2(got, want) <= TOL_STEP10[dtype]
+
+
+# after 10 chained steps (chip_smoke.py TOL_STEP10)
+TOL_STEP10 = {"float32": 1e-5, "float64": 1e-12}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "jet", "hydro_jet"])
+def test_ghosted_loops_count_launches_and_stop_at_t_end(cuda_device, case):
+    """On CUDA the walled and jet loops launch the ghosted step and the CFL
+    once per step each and never a twin; a chunk that reaches t_end stops
+    there, its inactive steps leaving the state, ghosts included."""
+    from ramsesgpu_tpu_torch.kernels import cfl_hydro, cfl_mhd, hydro_step, mhd_step
+    from ramsesgpu_tpu_torch.solvers.step import make_advance_n
+
+    if case == "hydro_jet":
+        params, U = hydro_jet_state(cuda_device)
+        step_k, cfl_k = hydro_step.hydro_step, cfl_hydro.cfl_hydro
+    else:
+        params, U = walled_state(case, "float32", cuda_device)
+        step_k, cfl_k = mhd_step.mhd_step, cfl_mhd.cfl_mhd
+    twins = [(mhd_step, "mhd_3d_ghosted_update"), (cfl_mhd, "inv_dt_mhd_ghosted"),
+             (hydro_step, "hydro_3d_interior_update"), (cfl_hydro, "compute_inv_dt_hydro")]
+    saved = [(m, a, getattr(m, a)) for m, a in twins]
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain twin ran on the CUDA path")
+
+    t0 = torch.zeros((), dtype=U.dtype, device=cuda_device)
+    try:
+        for m, a, _fn in saved:
+            setattr(m, a, refuse)
+        before = (step_k.launches, cfl_k.launches)
+        U3, t3, k = make_advance_n(params, cuda_device)(U, t0, 3)
+        assert int(k) == 3
+        assert (step_k.launches - before[0], cfl_k.launches - before[1]) == (3, 3)
+        _, t2, _ = make_advance_n(params, cuda_device)(U, t0, 2)
+        params_end = params.replace(t_end=0.5 * (float(t2) + float(t3)))
+        U_end, t, k = make_advance_n(params_end, cuda_device)(U, t0, 6)
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+    assert int(k) == 3 and float(t) == float(t3)
+    assert torch.equal(U_end, U3)
+
+
+def hydro_jet_state(device):
+    """data/jet3d_gpu.ini at 20 x 18 x 30 (ijet 4, offsetJet 5), f32,
+    ghosts filled."""
+    import re
+    from pathlib import Path
+
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+
+    text = (Path(__file__).resolve().parent.parent / "data" / "jet3d_gpu.ini").read_text()
+    for key, value in {"nx": 20, "ny": 18, "nz": 30, "ijet": 4, "offsetJet": 5}.items():
+        text = re.sub(rf"^{key}=.*$", f"{key}={value}", text, flags=re.M)
+    config = ConfigMap(text=text)
+    params = params_from_config(config)
+    U = torch.from_numpy(init_problem(params, config)).to(device)
+    return params, make_boundaries(params, U)

@@ -122,7 +122,18 @@ def test_port_imports_no_jax(tmp_path):
     for face in ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax"):
         blast = re.sub(rf"boundary_{face}=\d", f"boundary_{face}=3", blast)
     assert "problem=blast" in blast and "boundary_zmax=3" in blast
-    texts = [ot, hydro, mri, mri_dissip, ot_dissip, mri_comp, strat]
+    # the walled and jet inputs (the ghosted route): 3D Brio-Wu with six
+    # NEUMANN faces, the MHD jet (DIRICHLET walls) and the hydro jet
+    walls = (REPO / "data" / "testRiemannHLLD.ini").read_text().replace(
+        "nx=32\nny=32\nnz=12", "nx=8\nny=8\nnz=6")
+    mhd_jet = (REPO / "data" / "mhd_jet3d.ini").read_text().replace(
+        "nx=15\nny=15\nnz=60", "nx=8\nny=8\nnz=12").replace("ijet=5", "ijet=3").replace(
+        "offsetJet=5", "offsetJet=2")
+    hydro_jet = (REPO / "data" / "jet3d_gpu.ini").read_text().replace(
+        "nx=50\nny=50\nnz=200", "nx=8\nny=8\nnz=16").replace("ijet=10", "ijet=3").replace(
+        "offsetJet=10", "offsetJet=2")
+    assert "nz=6" in walls and "ijet=3" in mhd_jet and "nz=16" in hydro_jet
+    texts = [ot, hydro, mri, mri_dissip, ot_dissip, mri_comp, strat, walls, mhd_jet, hydro_jet]
     texts += [zcarry(text) for text in texts + [blast]]
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code, *texts],
@@ -267,8 +278,10 @@ def test_wrappers_take_twins_on_cpu_without_counting():
     [
         ({"c_iso": 1.0}, NotImplementedError),
         ({"riemann_solver": "LLF"}, NotImplementedError),
-        ({"boundary_xmin": "BC_DIRICHLET"}, NotImplementedError),
+        ({"boundary_xmin": "BC_COPY"}, NotImplementedError),
         ({"omega0": 1.0}, NotImplementedError),
+        # walls with viscosity: a ghosted mode of csrc/dissip_step.cu
+        ({"boundary_xmin": "BC_DIRICHLET", "nu": 1e-3}, NotImplementedError),
     ],
 )
 def test_out_of_slice_configurations_raise(change, exc):

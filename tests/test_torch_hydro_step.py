@@ -350,7 +350,7 @@ def test_cli_runs_implode_on_cpu_and_writes_vti(tmp_path, capsys):
     [
         ("gravity", "static_field_z", "-0.1", False),
         ("hydro", "nu", "0.01", False),
-        ("hydro", "problem", "jet", False),
+        ("hydro", "problem", "jet", True),  # in the slice since the ghosted jet loop
         ("hydro", "problem", "Rayleigh-Taylor", True),  # no ported initial state
         ("mesh", "nz", "1", False),
         ("mesh", "boundary_xmin", "5", False),
@@ -364,9 +364,10 @@ def test_out_of_slice_configurations_raise(section, key, value, kernels_cover_it
 
     text = ini() + f"\n[{section}]\n{key}={value}\n"
     config = ConfigMap(text=text)
-    if value == "zcarry":
+    if value in ("zcarry", "jet"):
         # the z-streaming kernels (tests/test_torch_zcarry.py): a walled run
-        # keeps the staged kernel under kernel=zcarry, and Run takes it
+        # keeps the staged kernel under kernel=zcarry, and Run takes it; the
+        # jet runs its ghosted loop (tests/test_torch_walls.py)
         Run(config, "cpu").start(max_steps=1, do_output=False)
     else:
         with pytest.raises(NotImplementedError):
