@@ -124,7 +124,31 @@ Phases, in order; any failure raises and no result line is printed:
      twins and their bounds;
  35. data/testRiemannHLLD.ini, data/mhd_jet3d.ini and data/jet3d_gpu.ini as
      shipped through Run on CUDA, at most 50 steps each, with 34's gates;
- 36. the kernels JSON line, the card line, and the result line.
+ 36. TPU row 4 (the step kernel's shear window mode) and the ghosted-shear
+     CFL against their twins on one rank's ghosted window, x0 != xmin, f32
+     + f64: the ideal MRI (data/mhd_mri_3d_mpi_debug.ini's physics, a
+     2x2x1 block of a 32x64x32 box) and the stratified one
+     (data/mhd_mri_3d_stratified_mpi.ini's, a 2x1x2 block: g_z, z0 !=
+     zmin); then at the sharded MRI's local size, 64x128x128 f32, against
+     the twins, with CUDA-event times and bounds;
+ 37. the sharded MRI: data/mhd_mri_3d_mpi_debug.ini's physics at
+     128x256x128 f32 (scripts/perf_table.py's MRI mesh), four ranks
+     (2x2x1) of torch.distributed on the one card, spawned as processes
+     running parallel/sharded_step.py rank_advance: 2 warm-up + 3 timed
+     chunks of 10 steps: ms/step, cells/s, the transport, the share of a
+     step outside the kernels; launches (row 4 and its CFL once per rank
+     and step, the single-device shear step never), finite state, mass,
+     divB with the rebuilt xmax face; then 10 steps from the initial state
+     with each rank's step sections and row-4 and CFL CUDA-event times
+     profiled, against the single-rank MRI path: each channel's relative
+     L2 within SHARDED_REL_L2, JAX's budget (tests/test_parallel.py:444)
+     printed beside it;
+ 38. both shipped MRI [mpi] inputs as shipped through the CLI's main() in
+     four spawned ranks, at most 50 steps each (no HDF5 snapshots where
+     h5py is not installed), with 37's gates and its comparison with the
+     single-rank path; the stratified box's mass change is the
+     single-rank path's (its z faces let mass out);
+ then the kernels JSON line, the card line, and the result line.
 Imports nothing of JAX; of this repo it imports only ramsesgpu_tpu_torch.
 """
 from __future__ import annotations
@@ -250,6 +274,13 @@ KERNELS = {
     "cfl_mhd_ghosted": ("ramsesgpu_tpu_torch/csrc/cfl_mhd.cu",
                         "ramsesgpu_tpu/pallas/packed_io.py:51 (its reduction, on the ghosted "
                         "state; the JAX walled path runs it in XLA, solvers/timestep.py:245)"),
+    "mhd_window": ("ramsesgpu_tpu_torch/csrc/mhd_step.cu",
+                   "ramsesgpu_tpu/pallas/fused_mhd3d.py:587 (make_fused_mhd_shear, pallas_call "
+                   "at :691)"),
+    "cfl_mhd_window": ("ramsesgpu_tpu_torch/csrc/cfl_mhd.cu",
+                       "ramsesgpu_tpu/pallas/packed_io.py:51 (its reduction on a rank's ghosted "
+                       "shearing-box block; the JAX sharded path runs it in XLA, "
+                       "parallel/sharded_step.py:551-556)"),
 }
 # ms/step of these paths in the version before the compensated and
 # stratified modes, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
@@ -345,10 +376,10 @@ def time_ms(fn, reps: int) -> float:
 
 def wrappers():
     from ramsesgpu_tpu_torch.kernels.cfl_hydro import cfl_hydro
-    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd, cfl_mhd_window
     from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
     from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
-    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step, mhd_window
     from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs, shear_zslabs
     from ramsesgpu_tpu_torch.kernels.zcarry_hydro3d import zcarry_hydro
     from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
@@ -356,7 +387,8 @@ def wrappers():
     return {"mhd_step": mhd_step, "cfl_mhd": cfl_mhd, "hydro_step": hydro_step,
             "cfl_hydro": cfl_hydro, "shear_slabs": shear_slabs, "shear_border": shear_border,
             "dissip_step": dissip_step, "shear_zslabs": shear_zslabs,
-            "zcarry_mhd": zcarry_mhd, "zcarry_hydro": zcarry_hydro}
+            "zcarry_mhd": zcarry_mhd, "zcarry_hydro": zcarry_hydro,
+            "mhd_window": mhd_window, "cfl_mhd_window": cfl_mhd_window}
 
 
 @contextlib.contextmanager
@@ -380,7 +412,8 @@ def counted_main_path(name: str, expect: dict):
              (zcarry_mhd3d, "mhd_3d_periodic_update"), (zcarry_mhd3d, "mhd_3d_shear_update"),
              (zcarry_mhd3d, "inv_dt_mhd_periodic"), (zcarry_hydro3d, "hydro_3d_state_update"),
              (zcarry_hydro3d, "compute_inv_dt_hydro"), (mhd_step, "mhd_3d_ghosted_update"),
-             (cfl_mhd, "inv_dt_mhd_ghosted")]
+             (cfl_mhd, "inv_dt_mhd_ghosted"), (mhd_step, "mhd_3d_shear_window_update"),
+             (cfl_mhd, "inv_dt_mhd_ghosted_shear")]
     twin_calls = []
 
     def guard(module, attr, fn):
@@ -2871,6 +2904,389 @@ def phase35(card: str) -> None:
             raise AssertionError(f"{label}: {run.n_step} steps, expected {steps}")
 
 
+# ---------------------------------------------------------------------------
+# the sharded shearing box (TPU row 4): phases 36-38
+# ---------------------------------------------------------------------------
+DEBUG_INI = "data/mhd_mri_3d_mpi_debug.ini"
+STRAT_MPI_INI = "data/mhd_mri_3d_stratified_mpi.ini"
+# JAX's sharded-vs-single budget (tests/test_parallel.py:444), printed
+# beside the gate: its atol is a quarter of the debug input's field and
+# larger than its velocity perturbation
+SHARDED_RTOL, SHARDED_ATOL = 1e-4, 2e-5
+# the gate: each channel's relative L2 against the single-rank path, per
+# phase, set between the clean run's reading and what a planted fault reads
+# (PERF.md section 6, PR 8)
+SHARDED_REL_L2 = {"37": 1e-6, "38": 5e-4}
+# the window stage grid's cells of each stage, beyond the interior n per
+# axis (csrc/mhd_step.cu, the shear window mode): prim, efield, trace, flux,
+# EMF, update
+WINDOW_STAGE_EXTRA = (4, 3, 2, 1, 1, 0)
+
+
+def window_of(params, U: torch.Tensor, topo, rank):
+    """The ghosted window of rank (iz, iy, ix) of the grid ``topo`` (mx, my,
+    mz) cut from the ghosted global state U, and the window's params, x0
+    and z0."""
+    mx, my, mz = topo
+    iz, iy, ix = rank
+    g = params.ghost_width
+    lnx, lny, lnz = params.nx // mx, params.ny // my, params.nz // mz
+    W = U[:, iz * lnz:iz * lnz + lnz + 2 * g, iy * lny:iy * lny + lny + 2 * g,
+          ix * lnx:ix * lnx + lnx + 2 * g].contiguous()
+    lp = params.replace(nx=lnx, ny=lny, nz=lnz, xmax=params.xmin + lnx * params.dx,
+                        ymax=params.ymin + lny * params.dy, zmax=params.zmin + lnz * params.dz)
+    return lp, W, params.xmin + ix * lnx * params.dx, params.zmin + iz * lnz * params.dz
+
+
+def window_gz(params, config, lp, z0: float, W: torch.Tensor):
+    """g_z of the window's rows as kernels/fused_mhd3d.py make_fused_mhd_shear
+    forms them, or None without static gravity."""
+    from ramsesgpu_tpu_torch.solvers.step import mri_gz_profile
+    from ramsesgpu_tpu_torch.solvers.stratified import uses_stratified_z
+
+    if not uses_stratified_z(params):
+        return None
+    rows = torch.arange(W.shape[1], dtype=W.dtype, device=W.device)
+    zc = torch.tensor(z0, dtype=W.dtype, device=W.device) + lp.dz / 2 + (
+        rows - lp.ghost_width) * lp.dz
+    return mri_gz_profile(params, config)(zc).contiguous()
+
+
+def window_case36(ini: str, mesh, topo, rank, dtype: str, seed: int):
+    """``ini`` at ``mesh`` (compensated=no), its sheared fill at a t0 whose
+    offset is 2.5 cells, times (1 + 0.01 N(0, 1)); rank ``rank``'s window of
+    the grid ``topo``: (params, config, lp, W, x0, z0, gz)."""
+    from ramsesgpu_tpu_torch.kernels.shear import unpack
+
+    params, config, state = mri_setup(*mesh, dtype, ini=ini)
+    U = unpack(params, state, shear_t0(params, state[0].dtype))
+    if seed is not None:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        U = U * (1 + 0.01 * torch.randn(U.shape, generator=gen, device="cuda",
+                                        dtype=torch.float64).to(U.dtype))
+    lp, W, x0, z0 = window_of(params, U, topo, rank)
+    return params, config, lp, W, x0, z0, window_gz(params, config, lp, z0, W)
+
+
+def phase36(card: str) -> dict:
+    """Row 4 and the ghosted-shear CFL against their twins on one rank's
+    window, then their times and bounds at the sharded MRI's local size."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block, window_block
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd_window
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_window
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_shear_window_update
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_ghosted_shear
+
+    cases = {"ideal": (DEBUG_INI, (32, 64, 32), (2, 2, 1), (0, 1, 1)),
+             "stratified": (STRAT_MPI_INI, (32, 64, 32), (2, 1, 2), (1, 0, 1))}
+    for name, (ini, mesh, topo, rank) in cases.items():
+        for dtype in ("float32", "float64"):
+            _p, _c, lp, W, x0, z0, gz = window_case36(ini, mesh, topo, rank, dtype, seed=36)
+            label = f"36 {name} {dtype}"
+            inv, inv_t = cfl_mhd_window(lp, W), inv_dt_mhd_ghosted_shear(lp, W)
+            u = ulps(inv, inv_t)
+            print(f"[{label}] window {lp.nx}x{lp.ny}x{lp.nz} at x0={x0!r}, z0={z0!r} of "
+                  f"{mesh}: CFL {u:.2f} ULP (bound 4)")
+            if not u <= 4:
+                raise AssertionError(f"{label}: the ghosted-shear CFL disagrees: {u} ULP")
+            dt = dt_from_inv(lp, inv_t)
+            out, planes = mhd_window(lp, W, dt, x0, gz, mhd_window.scratch(lp, W))
+            want, want_p = mhd_3d_shear_window_update(lp, W, dt, x0, gz)
+            check(label, rel_l2(out, want), TOL_STEP1[dtype],
+                  f", max abs {float((out - want).abs().max()):.3e}")
+            for c in range(5):
+                check(f"{label} plane {c}", rel_l2(planes[c], want_p[c]), TOL_PLANES[dtype])
+    # at the sharded MRI's local size: rank (0, 0, 1) of 2x2x1 at 128x256x128
+    params, config, lp, W, x0, z0, gz = window_case36(DEBUG_INI, (128, 256, 128), (2, 2, 1),
+                                                      (0, 0, 1), "float32", seed=None)
+    inv = cfl_mhd_window(lp, W)
+    inv_t = inv_dt_mhd_ghosted_shear(lp, W)
+    dt = dt_from_inv(lp, inv_t)
+    scratch = mhd_window.scratch(lp, W)
+    out, planes = mhd_window(lp, W, dt, x0, gz, scratch)
+    want, want_p = mhd_3d_shear_window_update(lp, W, dt, x0, gz)
+    size = f"{lp.nx}x{lp.ny}x{lp.nz}"
+    errs = {"mhd_window": float((out - want).abs().max()),
+            "cfl_mhd_window": abs(float(inv) - float(inv_t))}
+    check(f"36 row 4 at {size} f32", rel_l2(out, want), TOL_STEP1["float32"])
+    u = ulps(inv, inv_t)
+    print(f"[36] ghosted-shear CFL at {size} f32: {u:.2f} ULP")
+    if not u <= 4:
+        raise AssertionError(f"36: the ghosted-shear CFL disagrees at {size}: {u} ULP")
+    del out, planes, want, want_p
+    ms = {"mhd_window": time_ms(lambda: mhd_window(lp, W, dt, x0, gz, scratch), 20),
+          "cfl_mhd_window": time_ms(lambda: cfl_mhd_window(lp, W), 50)}
+    plain = {"mhd_window": time_ms(lambda: mhd_3d_shear_window_update(lp, W, dt, x0, gz), 3),
+             "cfl_mhd_window": time_ms(lambda: inv_dt_mhd_ghosted_shear(lp, W), 10)}
+    for name in ms:
+        print(f"[36] {name} at {size} f32 (window {tuple(W.shape[1:])}): kernel "
+              f"{ms[name]:.4f} ms (CUDA events), twin {plain[name]:.3f} ms ({card})")
+    # bounds: each stage's operations per cell, counted on a 16x32x32 window
+    # of the same state, times its cells at this size; the window read once,
+    # the interior and the five planes written once
+    lib = load_library("count")
+    m = (16, 32, 32)
+    g = lp.ghost_width
+    small = W[:, :m[2] + 2 * g, :m[1] + 2 * g, :m[0] + 2 * g].double().cpu().contiguous()
+    p_small = lp.replace(nx=m[0], ny=m[1], nz=m[2], xmax=lp.xmin + m[0] * lp.dx,
+                         ymax=lp.ymin + m[1] * lp.dy, zmax=lp.zmin + m[2] * lp.dz)
+    per = (ctypes.c_longlong * 6)()
+    lib.ramses_mhd_step_window_ops(small.data_ptr(), None, *m, g, window_block(p_small, x0),
+                                   float(dt), per)
+    n_small = [(m[0] + e) * (m[1] + e) * (m[2] + e) for e in WINDOW_STAGE_EXTRA]
+    n_full = [(lp.nx + e) * (lp.ny + e) * (lp.nz + e) for e in WINDOW_STAGE_EXTRA]
+    ops_row4 = sum(per[i] / n_small[i] * n_full[i] for i in range(6))
+    ops_cfl = lib.ramses_cfl_mhd_ghosted_shear_ops(small.data_ptr(), *m, g,
+                                                   param_block(p_small)) / (m[0] * m[1] * m[2])
+    cells = lp.nx * lp.ny * lp.nz
+    nbytes = {"mhd_window": 4 * (W.numel() + 8 * cells + 5 * lp.nz * lp.ny),
+              "cfl_mhd_window": 4 * 8 * cells}
+    bounds = {"mhd_window": bound("36", "mhd_window", nbytes["mhd_window"], ops_row4, size,
+                                  cells),
+              "cfl_mhd_window": bound("36", "cfl_mhd_window", nbytes["cfl_mhd_window"],
+                                      ops_cfl * cells, size, cells)}
+    for name in ms:
+        print(f"[36] {name}: {ms[name]:.4f} ms against its bound {bounds[name][0]:.5f} ms "
+              f"({ms[name] / bounds[name][0]:.1f}x)")
+    del W, scratch
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain, "max_abs_err": errs, "bounds": bounds}
+
+
+def sharded_ini(path: str, mesh=None) -> str:
+    """The INI text of ``path``, at ``mesh`` (nx, ny, nz) when given."""
+    import re
+
+    text = Path(path).read_text()
+    for key, value in zip(("nx", "ny", "nz"), mesh or ()):
+        text, n = re.subn(rf"^{key}=.*$", f"{key}={value}", text, flags=re.M)
+        if n != 1:
+            raise AssertionError(f"{path}: {key}")
+    return text
+
+
+def div_b_rebuilt(params, S: torch.Tensor) -> float:
+    """max |divB| of a gathered shearing-box interior, the xmax face of the
+    last column rebuilt from divB = 0 as parallel/shear_dist.py
+    fix_xmax_bx_face rebuilds it (the y and z +1 faces wrap)."""
+    S = S.double()
+    by, bz = S[6], S[7]
+    dby = (torch.roll(by, -1, -2) - by)[..., -1] / params.dy
+    dbz = (torch.roll(bz, -1, -3) - bz)[..., -1] / params.dz
+    face = S[5][..., -1] - params.dx * (dby + dbz)
+    return div_b_shear(params, S, face)
+
+
+def sharded_gates(label: str, params, S: torch.Tensor, S0: torch.Tensor,
+                  single: torch.Tensor | None = None) -> str:
+    """Finite state, mass within 1e-5, max|divB| < 1e-3 max|B|/dx with the
+    rebuilt face. A stratified box lets mass out through its z faces, so
+    there the mass change is held against the single-rank path's
+    (``single``) within 1e-6 of the mass."""
+    if not bool(torch.isfinite(S).all()):
+        raise AssertionError(f"{label}: non-finite state")
+    mass0, mass = float(S0[0].double().sum()), float(S[0].double().sum())
+    rel = abs(mass - mass0) / abs(mass0)
+    tol = 1e-5
+    if single is not None:
+        rel = abs(mass - float(single[0].double().sum())) / abs(mass0)
+        tol = 1e-6
+    divb = div_b_rebuilt(params, S)
+    b_over_dx = max(float(S[5:8].abs().max()), 1e-30) / params.dx
+    if not rel <= tol or not float(S[0].min()) > 0:
+        raise AssertionError(f"{label}: mass {rel} (tol {tol}), min rho {float(S[0].min())}")
+    if not divb < 1e-3 * b_over_dx:
+        raise AssertionError(f"{label}: divB {divb} (bound {1e-3 * b_over_dx})")
+    what = "mass rel" if single is None else (
+        f"mass change {abs(mass - mass0) / abs(mass0):.3e}, against the single-rank path's")
+    return (f"finite, {what} {rel:.3e} (tol {tol:.0e}), max|divB| {divb:.3e} (bound "
+            f"{1e-3 * b_over_dx:.3e}), min rho {float(S[0].min()):.4e}")
+
+
+def check_rank_counts(label: str, ranks: list, steps: int) -> None:
+    want = {"mhd_window": steps, "cfl_mhd_window": steps, "mhd_step": 0, "cfl_mhd": 0}
+    for r in ranks:
+        print(f"[{label}] rank {r['rank']} ({r['device']}): launches {r['counts']}")
+        if r["counts"] != want:
+            raise AssertionError(f"{label}: rank {r['rank']} launches {r['counts']}, "
+                                 f"expected {want}")
+
+
+def phase37(card: str, row4: dict) -> dict:
+    """The sharded MRI at 128x256x128 f32 on four ranks sharing the card:
+    in one world, 5 chunks of 10 steps from the initial state (2 warm-up,
+    3 timed), then 10 steps from the initial state again with each step's
+    sections profiled, held against the single-rank path."""
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.parallel.launch import spawn_ranks
+    from ramsesgpu_tpu_torch.parallel.sharded_step import rank_jobs
+    from ramsesgpu_tpu_torch.problems import init_problem
+
+    nx, ny, nz, chunk, compare = 128, 256, 128, 10, 10
+    text = sharded_ini(DEBUG_INI, (nx, ny, nz))
+    torch.cuda.empty_cache()
+    jobs = [dict(config_text=text, device="cuda", n_steps=chunk, chunks=5),
+            dict(config_text=text, device="cuda", n_steps=compare, profile=True)]
+    per_rank = spawn_ranks(rank_jobs, 4, (jobs,))
+    ranks, profiled = [r[0] for r in per_rank], [r[1] for r in per_rank]
+    r0 = ranks[0]
+    print(f"[37] {DEBUG_INI} at {nx}x{ny}x{nz} f32: {r0['transport']}, devices "
+          f"{[r['device'] for r in ranks]}")
+    if any(r["k"] != chunk for r in ranks):
+        raise AssertionError(f"37: a chunk stopped early: {[r['k'] for r in ranks]}")
+    per_chunk = [max(r["chunk_s"][i] for r in ranks) for i in range(2, 5)]
+    best = min(per_chunk)
+    cells = nx * ny * nz
+    ms_step = best * 1e3 / chunk
+    print(f"[37] main path {nx}x{ny}x{nz} f32 on {card}: best chunk {ms_step:.3f} ms/step, "
+          f"{cells * chunk / best:.4e} cells/s (chunks "
+          f"{[round(x * 1e3 / chunk, 3) for x in per_chunk]} ms/step, slowest rank each)")
+    kernels_per_step = 4 * (row4["ms"]["mhd_window"] + row4["ms"]["cfl_mhd_window"])
+    print(f"[37] kernel work per global step from phase 36's times: 4 x (row 4 "
+          f"{row4['ms']['mhd_window']:.4f} + CFL {row4['ms']['cfl_mhd_window']:.4f}) = "
+          f"{kernels_per_step:.4f} ms; share of the step outside the kernels (staging, "
+          f"collectives, the fill and the post-correction): {1 - kernels_per_step / ms_step:.4f}")
+    print(f"[37] {compare} steps from the initial state profiled on {card} (each section ends "
+          f"in a device sync; CUDA events around each launch hold the other ranks' work that "
+          f"the card time-sliced in), ms per step:")
+    for r in profiled:
+        prof = r["profile"]
+        walls = ", ".join(f"{k} {v / compare:.3f}" for k, v in prof["wall_ms"].items())
+        events = ", ".join(f"{k} {v / compare:.4f}" for k, v in prof["kernel_ms"].items())
+        print(f"[37p] rank {r['rank']}: step {r['chunk_s'][0] * 1e3 / compare:.3f}; sections: "
+              f"{walls}; kernel events: {events}")
+    check_rank_counts("37", ranks, 5 * chunk)
+    check_rank_counts("37p", profiled, compare)
+    params = params_from_text(text)
+    g = params.ghost_width
+    S0 = torch.from_numpy(init_problem(params, ConfigMap(text=text)))[:, g:-g, g:-g, g:-g]
+    S = torch.from_numpy(r0["U"])
+    print(f"[37] {5 * chunk} steps: t={r0['t']!r}; " + sharded_gates("37", params, S, S0))
+    # the single-rank MRI path on the same global mesh, 10 steps from t = 0
+    p0 = profiled[0]
+    compare_single("37", text, torch.from_numpy(p0["U"]), S0, p0["t"], p0["k"], compare,
+                   SHARDED_REL_L2["37"])
+    return {"launches": {"mhd_window": sum(r["counts"]["mhd_window"] for r in ranks),
+                         "cfl_mhd_window": sum(r["counts"]["cfl_mhd_window"] for r in ranks)}}
+
+
+def single_rank(text: str, steps: int):
+    """(interior, t, k) of the single-rank MRI path (make_packed_advance_chain
+    on the card) from the INI's initial state at t = 0, compensated=no as
+    the distributed path runs."""
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.convert import torch_dtype
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+
+    config = ConfigMap(text=text.replace("compensated=yes", "compensated=no"))
+    params = params_from_text(text.replace("compensated=yes", "compensated=no"))
+    pack, advance, _unpack = make_packed_advance_chain(params, "cuda", config)
+    U0 = torch.from_numpy(init_problem(params, config)).to("cuda", torch_dtype(params))
+    state, t, k = advance(pack(make_boundaries(params, U0)),
+                          torch.zeros((), dtype=U0.dtype, device="cuda"), steps)
+    return state[0].cpu(), float(t), int(k)
+
+
+def compare_single(label: str, text: str, got: torch.Tensor, S0: torch.Tensor, t_got: float,
+                   k_got: int, steps: int, tol: float) -> torch.Tensor:
+    """The gathered sharded state after ``steps`` against the single-rank
+    path's: each channel's relative L2 within ``tol`` (SHARDED_REL_L2), and
+    JAX's sharded-vs-single budget printed beside it; returns the latter."""
+    single, t1, k1 = single_rank(text, steps)
+    diff = (got - single).double()
+    rel = [float(diff[c].norm() / single[c].double().norm()) for c in range(single.shape[0])]
+    vs_change = [float(diff[c].norm() / (single[c] - S0[c]).double().norm())
+                 for c in range(single.shape[0])]
+    excess = float((diff.abs() - (SHARDED_ATOL + SHARDED_RTOL * single.abs())).max())
+    print(f"[{label}] {steps} steps, 4 ranks against the single-rank MRI path: t {t_got!r} vs "
+          f"{t1!r}; relative L2 per channel {[f'{x:.3e}' for x in rel]} (<= {tol:.0e}); "
+          f"against each channel's change from the initial state "
+          f"{[f'{x:.3e}' for x in vs_change]}; max |diff| {float(diff.abs().max()):.3e}, max "
+          f"excess over JAX's rtol {SHARDED_RTOL} / atol {SHARDED_ATOL}: {excess:.3e}")
+    if not (max(rel) <= tol and k1 == k_got == steps and abs(t1 - t_got) <= 1e-6 * t1):
+        raise AssertionError(f"{label}: the sharded MRI disagrees with the single-rank path")
+    torch.cuda.empty_cache()
+    return single
+
+
+def params_from_text(text: str):
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.config.params import params_from_config
+
+    return params_from_config(ConfigMap(text=text))
+
+
+def cli_rank_checked(argv: list, workdir: str) -> dict:
+    """One rank of phase 38 (a spawned process): the CLI's main(argv) in
+    ``workdir``, as the CLI's own spawned ranks run it, with the
+    DistributedRun it builds kept for the gates: launch counts, steps, t,
+    and on rank 0 the gathered state and the initial one."""
+    import os
+
+    from ramsesgpu_tpu_torch.cli.main import main
+    from ramsesgpu_tpu_torch.parallel.sharded_step import launch_counts
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.run_distributed import DistributedRun
+
+    os.chdir(workdir)
+    runs = []
+    start = DistributedRun.start
+
+    def kept_start(self, *args, **kw):
+        runs.append(self)
+        return start(self, *args, **kw)
+
+    DistributedRun.start = kept_start
+    before = launch_counts()
+    rc = main(argv)
+    counts = {name: n - before[name] for name, n in launch_counts().items()}
+    run = runs[0]
+    out = {"rank": run.grid.rank, "rc": rc, "counts": counts, "n_step": run.n_step,
+           "t": run.t, "backend": run.grid.describe(), "device": str(run.device)}
+    S = run.interior()
+    if S is not None:
+        g = run.params.ghost_width
+        out.update(U=S, U0=init_problem(run.params, run.config)[:, g:-g, g:-g, g:-g])
+    return out
+
+
+def phase38(card: str) -> None:
+    """Both shipped MRI [mpi] inputs as shipped through the CLI's main() on
+    four spawned ranks, at most 50 steps each."""
+    import importlib.util
+    import tempfile
+
+    from ramsesgpu_tpu_torch.parallel.launch import spawn_ranks
+    from ramsesgpu_tpu_torch.solvers.stratified import uses_stratified_z
+
+    for ini in (DEBUG_INI, STRAT_MPI_INI):
+        label = f"38 {Path(ini).name}"
+        params = params_from_text(Path(ini).read_text())
+        steps = min(50, params.n_stepmax)
+        argv = ["--param", str(Path(ini).resolve()), "--max-steps", str(steps)]
+        if importlib.util.find_spec("h5py") is None and "outputHdf5=yes" in Path(ini).read_text():
+            print(f"[{label}] h5py is not installed here: its HDF5 snapshots are skipped "
+                  f"(--no-output)")
+            argv.append("--no-output")
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="smoke38_") as workdir:
+            ranks = spawn_ranks(cli_rank_checked, 4, (argv, workdir))
+            written = sorted(p.name for p in Path(workdir).iterdir())
+        r0 = ranks[0]
+        print(f"[{label}] {params.nx}x{params.ny}x{params.nz} {params.dtype} as shipped on "
+              f"{card}: {r0['backend']}, {r0['n_step']} steps, t={r0['t']!r}, files {written}")
+        if any(r["rc"] != 0 or r["n_step"] != steps for r in ranks):
+            raise AssertionError(f"{label}: {[(r['rc'], r['n_step']) for r in ranks]}")
+        check_rank_counts(label, ranks, steps)
+        got, S0 = torch.from_numpy(r0["U"]), torch.from_numpy(r0["U0"])
+        single = compare_single(label, Path(ini).read_text(), got, S0, r0["t"], r0["n_step"],
+                                steps, SHARDED_REL_L2["38"])
+        print(f"[{label}] " + sharded_gates(label, params, got, S0,
+                                            single if uses_stratified_z(params) else None))
+
+
 def profile_chunk(label: str, card: str, advance, S: torch.Tensor, t: torch.Tensor,
                   chunk: int) -> None:
     """Device time by kernel over one more chunk of a main path, and the
@@ -3019,6 +3435,12 @@ def main() -> int:
     bounds.update(wall_timing["bounds"])
     phase35(card)
     lap("35")
+    row4 = phase36(card)
+    lap("36")
+    sharded = phase37(card, row4)
+    lap("37")
+    phase38(card)
+    lap("38")
     if "jax" in sys.modules or any(m.startswith("ramsesgpu_tpu.") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
 
@@ -3038,10 +3460,11 @@ def main() -> int:
                 "zcarry_mhd": zc_launches["zcarry_mhd"],
                 "zcarry_hydro": zc_hydro_launches["zcarry_hydro"],
                 "zcarry_mhd_shear": zc_shear_launches["zcarry_mhd"],
-                **wall_timing["launches"]}
+                **wall_timing["launches"], **sharded["launches"]}
+    bounds.update(row4["bounds"])
     measured = {key: {**timing[key], **hydro_timing[key], **shear_timing[key],
                       **dissip_timing[key], **new_timing[key], **zc_timing[key],
-                      **wall_timing[key]}
+                      **wall_timing[key], **row4[key]}
                 for key in ("ms", "plain_ms", "max_abs_err")}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

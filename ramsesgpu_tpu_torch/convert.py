@@ -19,7 +19,14 @@ for 3D hydro):
 - the port's loop state: the interior [nvar, nz, ny, nx]; the kernels
   find neighbours outside it by index rules (kernels/fused_mhd3d.py,
   kernels/packed_bc.py); a shearing-box run carries the pair (S, kept)
-  (kernels/shear.py).
+  (kernels/shear.py);
+- a sharded run: JAX holds one global interior-only array [nvar, nz, ny,
+  nx] laid over the device mesh (parallel/sharded_step.py); the port's
+  ranks each hold their interior block [nvar, lnz, lny, lnx]
+  (parallel/sharded_step.py of the port), rank (iz, iy, ix) the block at
+  (iz lnz, iy lny, ix lnx); its ``shard_global_state`` takes a rank's
+  block of the JAX global state (numpy) and ``gather_global_state``
+  assembles the blocks on rank 0 in the JAX layout.
 
 A Kahan-compensated run ([implementation] compensated) carries 2 * nvar
 channels in both packages, the state and then its carry

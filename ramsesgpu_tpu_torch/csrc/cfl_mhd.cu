@@ -18,7 +18,11 @@
 // compute_inv_dt_mhd and compute_inv_dt_mhd_ghosted (timestep.py:219-240),
 // and the max starts from the inflow jet's (ujet + cjet) / dx
 // (timestep.py:257-262; -inf without a jet). Plain twin:
-// solvers/timestep.py inv_dt_mhd_ghosted.
+// solvers/timestep.py inv_dt_mhd_ghosted. Its shearing-box form (the
+// sharded shearing box's CFL on a rank's ghosted block as it stands, JAX
+// parallel/sharded_step.py:551-556 compute_inv_dt_mhd(local_params, Ug))
+// takes the isothermal pressure and the vy offset as the shear mode does,
+// and no jet; plain twin: solvers/timestep.py inv_dt_mhd_ghosted_shear.
 //
 // Layout: the interior-only state S[8][nz][ny][nx] (common.cuh); y and z
 // wrap, x wraps too in the periodic mode; the kept face kept[nz][ny].
@@ -56,7 +60,7 @@ int cfl_mhd(const T* S, const T* kept, T* partial, T* out, int nx, int ny, int n
 }
 
 // the ghosted mode: interior cell c of U (offset g), +1 faces as they lie
-template <typename T>
+template <typename T, bool SHEAR>
 struct MhdInvDtGhosted {
   Phys<T> ph;
   Dims in, d;
@@ -66,15 +70,15 @@ struct MhdInvDtGhosted {
     int i, j, k;
     cell_ijk(in, c, i, j, k);
     const long long a = cell_at(d, i + g, j + g, k + g);
-    return inv_dt_cell<T, false>(ph, U, d.n, a, U[IA * d.n + a + 1], a + d.nx,
+    return inv_dt_cell<T, SHEAR>(ph, U, d.n, a, U[IA * d.n + a + 1], a + d.nx,
                                  a + (long long)d.nx * d.ny);
   }
 };
 
-template <typename T>
+template <typename T, bool SHEAR = false>
 int cfl_mhd_ghosted(const T* U, T* partial, T* out, int nx, int ny, int nz, int g,
                     double floor, const double* prm, void* stream) {
-  const MhdInvDtGhosted<T> f{make_phys<T>(prm), make_dims(nx, ny, nz),
+  const MhdInvDtGhosted<T, SHEAR> f{make_phys<T>(prm), make_dims(nx, ny, nz),
                              make_dims(nx + 2 * g, ny + 2 * g, nz + 2 * g), g, U};
   return reduce_max(f, f.in.n, partial, out, stream, T(floor));
 }
@@ -93,6 +97,19 @@ int ramses_cfl_mhd_ghosted_f32(const float* U, float* partial, float* out, int n
 int ramses_cfl_mhd_ghosted_f64(const double* U, double* partial, double* out, int nx, int ny,
                                int nz, int g, double floor, const double* prm, void* stream) {
   return ramses::cfl_mhd_ghosted<double>(U, partial, out, nx, ny, nz, g, floor, prm, stream);
+}
+
+// the ghosted shearing-box form: U [8][nz+2g][ny+2g][nx+2g] as it stands
+int ramses_cfl_mhd_ghosted_shear_f32(const float* U, float* partial, float* out, int nx, int ny,
+                                     int nz, int g, const double* prm, void* stream) {
+  return ramses::cfl_mhd_ghosted<float, true>(U, partial, out, nx, ny, nz, g, -INFINITY, prm,
+                                              stream);
+}
+
+int ramses_cfl_mhd_ghosted_shear_f64(const double* U, double* partial, double* out, int nx,
+                                     int ny, int nz, int g, const double* prm, void* stream) {
+  return ramses::cfl_mhd_ghosted<double, true>(U, partial, out, nx, ny, nz, g, -INFINITY, prm,
+                                               stream);
 }
 
 int ramses_cfl_mhd_partials(void) { return ramses::MAX_BLOCKS; }
@@ -142,6 +159,19 @@ extern "C" long long ramses_cfl_mhd_ghosted_ops(const double* U, int nx, int ny,
   Counted::ops = 0;
   ramses::cfl_mhd_ghosted<Counted>(u.data(), nullptr, &out, nx, ny, nz, g, -INFINITY, prm,
                                    nullptr);
+  return Counted::ops;
+}
+
+// the ghosted shearing-box form's operations on U [8][nz+2g][ny+2g][nx+2g]
+extern "C" long long ramses_cfl_mhd_ghosted_shear_ops(const double* U, int nx, int ny, int nz,
+                                                      int g, const double* prm) {
+  using ramses::Counted;
+  std::vector<Counted> u =
+      ramses::counted_copy(U, 8LL * (nx + 2 * g) * (ny + 2 * g) * (nz + 2 * g));
+  Counted out;
+  Counted::ops = 0;
+  ramses::cfl_mhd_ghosted<Counted, true>(u.data(), nullptr, &out, nx, ny, nz, g, -INFINITY, prm,
+                                         nullptr);
   return Counted::ops;
 }
 

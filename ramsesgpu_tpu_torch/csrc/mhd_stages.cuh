@@ -26,19 +26,24 @@ constexpr int SLAB = 3;   // ghost columns of each sheared slab (ghost_width)
 constexpr int XH = 2;     // stage-grid columns beyond each x face (shear mode)
 constexpr int ZH = 2;     // stage-grid rows beyond each z face (stratified mode)
 constexpr int NPLANE = 5; // x-face planes written by the shear-mode update
+constexpr int WH = 2;     // stage-grid cells beyond each face, every axis (window mode)
 
 // the kernel's mode: SHEAR (shearing box, rotating frame), ISO (the
 // isothermal pressure in the solvers), STRAT (the stratified MRI:
 // BC_Z_STRATIFIED z faces and the static vertical gravity) and GHOST (the
 // ghosted mode: the stages run on a filled ghosted state as on a periodic
 // box of its own extent, the update writes its interior and CT face
-// layer); the periodic mode is <false, false, false, false>
+// layer); the periodic mode is <false, false, false, false>. SHEAR and
+// GHOST together are the shear window mode: the rotating-frame step of a
+// ghosted window whose ghosts every axis's exchange has written (a rank's
+// block of the sharded shearing box), written out of place (mhd_step.cu)
 template <bool SHEAR_, bool ISO_, bool STRAT_ = false, bool GHOST_ = false>
 struct Mode {
   static constexpr bool SHEAR = SHEAR_;
   static constexpr bool ISO = ISO_;
   static constexpr bool STRAT = STRAT_;
   static constexpr bool GHOST = GHOST_;
+  static constexpr bool WINDOW = SHEAR_ && GHOST_;
 };
 using Periodic = Mode<false, false>;
 using Ghosted = Mode<false, false, false, true>;
@@ -46,7 +51,8 @@ using Ghosted = Mode<false, false, false, true>;
 template <typename T>
 struct StepArgs {
   const T* S;   // [8][n]     state (read)
-  T* So;        // [8][n]     the updated state stage 6 writes (== S: in place)
+  T* So;        // [8][n]     the updated state stage 6 writes (== S: in place;
+                //            window: the interior [8][in.n], out of place)
   T* Q;         // [8][ne]    primitives (ne: stage-grid cells)
   T* E;         // [3][ne]    Ex, Ey, Ez at the trace's edge centres
   T* st;        // [18][8][ne] face / edge states
@@ -63,9 +69,10 @@ struct StepArgs {
   const unsigned char* active;  // device flag: 0 skips the step
   Dims d;       // the state's (ghosted mode: the ghosted array's)
   Dims e;       // the stage grid's: d (periodic, ghosted), nx + 2 XH columns
-                // (shear), and nz + 2 ZH rows (stratified)
-  Dims in;      // ghosted: the interior's (at offset g on every axis)
-  int g;        // ghosted: the ghost width
+                // (shear), and nz + 2 ZH rows (stratified); window: the
+                // interior and WH cells on each side of every axis
+  Dims in;      // ghosted, window: the interior's (at offset g on every axis)
+  int g;        // ghosted, window: the ghost width
   Phys<T> ph;
 };
 
@@ -110,7 +117,11 @@ HD T load_shear(const StepArgs<T>& a, int ch, int ii, int jj, int kk) {
 // outside [0, nx) reads the slab, and the stages after prim read the
 // state from its stage-grid copy (s). Stratified: the same in z, stage
 // row k at k + ZH, a state load outside [0, nz) reading the z slabs
-// (whose x extent covers the x slabs' columns too).
+// (whose x extent covers the x slabs' columns too). Window: (i, j, k)
+// counts from the interior's first cell, stage cell i sits at i + WH on
+// every axis and reads clamp to the stage grid; every state load is a
+// plain offset g into the ghosted window, the update's threads cover the
+// interior, and it writes the interior array (co).
 template <typename T, typename M>
 struct Site {
   static constexpr int ZOFF = M::STRAT ? ZH : 0;
@@ -118,14 +129,31 @@ struct Site {
   int i, j, k;
   long long c;   // stage-grid index of (i, j, k)
   long long cs;  // on_state: the state's index of (i, j, k)
+  long long co;  // on_state: the updated state's index (window: the interior's)
 
   // t: the thread's index, its stage-grid cell, or (on_state) its state cell
   HD Site(const StepArgs<T>& a_, long long t, bool on_state = false) : a(a_) {
+    if constexpr (M::WINDOW) {
+      if (on_state) {
+        cell_ijk(a.in, t, i, j, k);
+        c = cell_at(a.e, i + WH, j + WH, k + WH);
+      } else {
+        cell_ijk(a.e, t, i, j, k);
+        i -= WH;
+        j -= WH;
+        k -= WH;
+        c = t;
+      }
+      cs = cell_at(a.d, i + a.g, j + a.g, k + a.g);
+      co = t;
+      return;
+    }
     if constexpr (M::SHEAR) {
       if (on_state) {
         cell_ijk(a.d, t, i, j, k);
         c = cell_at(a.e, i + XH, j, k + ZOFF);
         cs = t;
+        co = t;
         return;
       }
       cell_ijk(a.e, t, i, j, k);
@@ -143,6 +171,7 @@ struct Site {
     }
     c = t;
     cs = t;
+    co = t;
   }
   // ghosted: whether the cell is in the interior (not the CT face layer)
   HD bool interior() const {
@@ -150,6 +179,10 @@ struct Site {
   }
   // stage-grid index of the neighbour (i+di, j+dj, k+dk)
   HD long long q(int di, int dj, int dk) const {
+    if constexpr (M::WINDOW)
+      return cell_at(a.e, clamp_i(i + di, -WH, a.e.nx - WH - 1) + WH,
+                     clamp_i(j + dj, -WH, a.e.ny - WH - 1) + WH,
+                     clamp_i(k + dk, -WH, a.e.nz - WH - 1) + WH);
     if (!M::SHEAR && di == 0 && dj == 0 && dk == 0) return c;
     // (kk before the branch: nvcc then gives the periodic f32 trace stage
     // 128 registers, not 96, and that stage runs ~1 % faster; PERF.md)
@@ -179,28 +212,39 @@ struct Site {
   HD long long nst() const { return a.e.n; }
   // prim's copy of the cell's state sc (shear: the later stages read it, s)
   HD void keep_state(const T* sc) const {
-    if constexpr (M::SHEAR) {
+    if constexpr (M::SHEAR && !M::WINDOW) {
 #pragma unroll
       for (int ch = 0; ch < 8; ++ch) a.Se[ch * a.e.n + c] = sc[ch];
     }
   }
   // the state's channel ch at the neighbour, after prim
   HD T s(int ch, int di, int dj, int dk) const {
+    if constexpr (M::WINDOW) return window(ch, di, dj, dk);
     if constexpr (M::SHEAR) return a.Se[ch * a.e.n + q(di, dj, dk)];
     return a.S[ch * a.d.n + q(di, dj, dk)];
   }
   // the state's channel ch at the neighbour, from the state or a slab
   HD T src(int ch, int di, int dj, int dk) const {
-    if constexpr (M::SHEAR) {
+    if constexpr (M::WINDOW) {
+      return window(ch, di, dj, dk);
+    } else if constexpr (M::SHEAR) {
       return load_shear<T, M>(a, ch, i + di, wrap_d(j, dj, a.d.ny),
                               M::STRAT ? k + dk : wrap_d(k, dk, a.d.nz));
     } else {
       return a.S[ch * a.d.n + q(di, dj, dk)];
     }
   }
-  // cell-centre x of column i (godunov_mhd.py:44 xpos_array)
+  // window: the state's channel ch at the neighbour; every stage cell's
+  // neighbours (at most 1 away on each axis) lie in the window, as WH + 1
+  // <= g
+  HD T window(int ch, int di, int dj, int dk) const {
+    return a.S[ch * a.d.n + cell_at(a.d, i + di + a.g, j + dj + a.g, k + dk + a.g)];
+  }
+  // cell-centre x of column i (godunov_mhd.py:44 xpos_array; window: xpos0
+  // is the window's x0 + dx/2)
   HD T xpos() const { return a.ph.xpos0 + r_mul(T(i), a.ph.dx); }
-  // stratified: g_z of row k (problems/mhd_inits.py mri_gravity_field)
+  // stratified: g_z of row k (problems/mhd_inits.py mri_gravity_field;
+  // window: of the window's rows, SLAB == g)
   HD T gz() const { return a.gz[k + SLAB]; }
 };
 
@@ -975,7 +1019,14 @@ struct UpdateStage {
     const T* S = a.S;
     T* So = a.So;
     const long long ns = a.d.n, cs = p.cs;
+    // where the update goes: the state in place, or the window's interior
+    long long no = ns, co = cs;
+    if constexpr (M::WINDOW) {
+      no = a.in.n;
+      co = p.co;
+    }
     if constexpr (COMP) {
+      static_assert(!M::WINDOW, "the window mode has no compensated update");
       T d[8], u[8], cc[8];
 #pragma unroll
       for (int ch = 0; ch < NFLUX; ++ch) {
@@ -1013,36 +1064,37 @@ struct UpdateStage {
         w_old = S[IW * ns + cs];
       }
       bool hydro = true;  // ghosted: the CT face layer takes the curl only
-      if constexpr (M::GHOST) hydro = p.interior();
+      if constexpr (M::GHOST && !M::WINDOW) hydro = p.interior();
       if (hydro) {
 #pragma unroll
         for (int ch = 0; ch < NFLUX; ++ch) {
           const long long o = ch * n;
           const T dU = dtdx * (fx[o + c] - fx[o + cxp]) + dtdy * (fy[o + c] - fy[o + cyp]) +
                        dtdz * (fz[o + c] - fz[o + czp]);
-          So[ch * ns + cs] = S[ch * ns + cs] + dU;
+          So[ch * no + co] = S[ch * ns + cs] + dU;
         }
       }
 #pragma unroll
       for (int ch = IA; ch <= IC; ++ch)
-        So[ch * ns + cs] =
+        So[ch * no + co] =
             S[ch * ns + cs] + ct_delta<false>(a.emf, n, ch, c, cxp, cyp, czp, dtdx, dtdy, dtdz);
       if constexpr (M::STRAT) {
         const T g = p.gz();
-        const T w_new = So[IW * ns + cs];
+        const T w_new = So[IW * no + co];
         const T mom_half = T(0.5) * (w_old + w_new);
-        So[IW * ns + cs] = w_new + dt * rho_old * g;
-        So[IP * ns + cs] = So[IP * ns + cs] + dt * mom_half * g;
+        So[IW * no + co] = w_new + dt * rho_old * g;
+        So[IP * no + co] = So[IP * no + co] + dt * mom_half * g;
       }
     }
     if constexpr (M::SHEAR) {
-      const long long np = (long long)a.d.nz * a.d.ny;
-      const long long pc = (long long)p.k * a.d.ny + p.j;
+      const Dims& dp = M::WINDOW ? a.in : a.d;  // the planes' (z, y) extent
+      const long long np = (long long)dp.nz * dp.ny;
+      const long long pc = (long long)p.k * dp.ny + p.j;
       if (p.i == 0) {
         a.planes[pc] = fx[c];           // density flux at face 0
         a.planes[2 * np + pc] = ey[c];  // emfY at face 0
       }
-      if (p.i == a.d.nx - 1) {
+      if (p.i == dp.nx - 1) {
         a.planes[np + pc] = fx[cxp];        // density flux at face nx
         a.planes[3 * np + pc] = ey[cxp];    // emfY at face nx
         a.planes[4 * np + pc] = ez[cxp];    // emfZ at face nx

@@ -1,5 +1,5 @@
 // One unsplit MUSCL-Hancock step of 3D ideal MHD with constrained
-// transport (HLLD face fluxes, 2D-HLLD corner EMFs), in four modes:
+// transport (HLLD face fluxes, 2D-HLLD corner EMFs), in five modes:
 //
 // - periodic: the fully periodic state. Replaces the TPU kernel
 //   ramsesgpu_tpu/pallas/packed_io.py:148 make_packed_io_step with the
@@ -46,6 +46,31 @@
 //   whose +1 face wraps, so a grid of the interior plus 2 cells could not
 //   give that step's values there. Plain twin:
 //   solvers/godunov_mhd.py mhd_3d_ghosted_update.
+// - shear window (Mode<true, ISO, STRAT, true>): one rank's block of the
+//   sharded shearing box. Replaces the TPU kernel pallas/fused_mhd3d.py:587
+//   make_fused_mhd_shear (pallas_call at :691), whose body is
+//   solvers/godunov_mhd.py:294 mhd_3d_interior_update(params, U, dt,
+//   margin=(g, g, g), shear_planes=True, xpos=..., gravity=...). Input: a
+//   ghosted window U[8][nz+2g][ny+2g][nx+2g] whose ghosts the halo exchange
+//   and the sheared x fill have written (parallel/shear_dist.py); x0, the
+//   window's global x offset, travels as prm[P_XMIN], so column i's centre
+//   is x0 + dx/2 + i dx; g_z of the window's rows (from its z offset z0)
+//   comes in gz[nz + 2g] when stratified. Output, out of place: the new
+//   interior [8][nz][ny][nx] and the five planes of the remap, [5][nz][ny]
+//   in the order fpl[0], fpl[1], eypl[0], eypl[1], ezpl. Not the ghosted
+//   mode's whole-array semantics: nothing wraps, only the interior is
+//   written, and the CT face layer n+g is left to the next exchange.
+//   Stage grid: the interior and WH = 2 cells beyond each face of every
+//   axis. The update of the interior reads fluxes and EMFs on cells 0..n
+//   of each axis; those read the traced states on -1..n; the trace reads
+//   the primitives on -2..n+1 and the edge fields on -1..n+1, which read
+//   the primitives on -2..n+1 too; prim at cell n+1 reads the state at
+//   n+2. So primitives are needed on -2..n+1, the grid's extent, and every
+//   state load (at most 1 past a stage cell) lies within the window when
+//   g >= 3. The grid's other cells read clamped neighbours and are never
+//   read themselves. With g = 3 the TPU kernel's window (n + 6 per axis)
+//   is one cell larger on each side than this grid. Plain twin:
+//   solvers/godunov_mhd.py mhd_3d_shear_window_update.
 // - compensated (the periodic and shear modes; TPU row A'-compensated,
 //   fused_mhd3d.py:247-259):
 //   S holds 16 channels, the state and then its Kahan carry; the update
@@ -107,6 +132,18 @@
 namespace ramses::mhd {
 
 
+// the intermediates' places in the scratch buffer, by the stage grid a.e
+template <typename T, typename M>
+void carve(StepArgs<T>& a, T* scratch) {
+  const long long n = a.e.n;
+  a.Q = scratch;
+  a.E = a.Q + 8 * n;
+  a.st = a.E + 3 * n;
+  a.fl = a.st + (long long)NSTATE * 8 * n;
+  a.emf = a.fl + 3 * NFLUX * n;
+  a.Se = M::SHEAR && !M::WINDOW ? a.emf + 3 * n : nullptr;
+}
+
 template <typename T, typename M>
 StepArgs<T> step_args(T* S, T* scratch, const T* slabs, T* planes, const T* zslabs,
                       const T* gz, bool comp, const T* dt, const unsigned char* active, int nx,
@@ -115,15 +152,9 @@ StepArgs<T> step_args(T* S, T* scratch, const T* slabs, T* planes, const T* zsla
   a.d = make_dims(nx, ny, nz);
   a.e = M::SHEAR ? make_dims(nx + 2 * XH, ny, nz + (M::STRAT ? 2 * ZH : 0)) : a.d;
   a.ph = make_phys<T>(prm);
-  const long long n = a.e.n;
   a.S = S;
   a.So = S;
-  a.Q = scratch;
-  a.E = a.Q + 8 * n;
-  a.st = a.E + 3 * n;
-  a.fl = a.st + (long long)NSTATE * 8 * n;
-  a.emf = a.fl + 3 * NFLUX * n;
-  a.Se = M::SHEAR ? a.emf + 3 * n : nullptr;
+  carve<T, M>(a, scratch);
   a.slabs = slabs;
   a.planes = planes;
   a.C = comp ? S + 8 * a.d.n : nullptr;
@@ -146,7 +177,9 @@ int run_stages(const StepArgs<T>& a, bool comp, long long n_update, void* stream
   if ((err = launch_cells(TraceStage<T, M>{a}, n, stream))) return err;
   if ((err = launch_cells(FluxStage<T, M>{a}, n, stream))) return err;
   if ((err = launch_cells(EmfStage<T, M>{a}, n, stream))) return err;
-  if (comp) return launch_cells(UpdateStage<T, M, true>{a}, n_update, stream);
+  if constexpr (!M::WINDOW) {  // the window mode has no compensated update
+    if (comp) return launch_cells(UpdateStage<T, M, true>{a}, n_update, stream);
+  }
   return launch_cells(UpdateStage<T, M, false>{a}, n_update, stream);
 }
 
@@ -185,6 +218,56 @@ int mhd_step_ghosted(T* U, T* scratch, const T* dt, const unsigned char* active,
   return run_stages<T, Ghosted>(a, false, ghosted_update_cells(nx, ny, nz), stream);
 }
 
+// the shear window mode's arguments: U the ghosted window
+// [8][nz+2g][ny+2g][nx+2g], out its new interior [8][nz][ny][nx], the
+// stage grid the interior and WH cells beyond each face
+template <typename T, typename M>
+StepArgs<T> window_args(const T* U, T* out, T* scratch, T* planes, const T* gz, const T* dt,
+                        const unsigned char* active, int nx, int ny, int nz, int g,
+                        const double* prm) {
+  StepArgs<T> a{};
+  a.d = make_dims(nx + 2 * g, ny + 2 * g, nz + 2 * g);
+  a.e = make_dims(nx + 2 * WH, ny + 2 * WH, nz + 2 * WH);
+  a.in = make_dims(nx, ny, nz);
+  a.g = g;
+  a.ph = make_phys<T>(prm);
+  a.S = U;
+  a.So = out;
+  carve<T, M>(a, scratch);
+  a.planes = planes;
+  a.gz = gz;
+  a.dt = dt;
+  a.active = active;
+  return a;
+}
+
+// the shear window mode (TPU row 4): the window's ghosts filled by the
+// exchange, x0 in prm[P_XMIN], g_z of the window's rows in gz (stratified)
+// or null; the stencil reaches 1 cell past the stage grid, so g >= WH + 1
+template <typename T>
+int mhd_step_window(const T* U, T* out, T* planes, T* scratch, const T* gz, const T* dt,
+                    const unsigned char* active, int nx, int ny, int nz, int g,
+                    const double* prm, void* stream) {
+  if (g != SLAB) return 1;  // cudaErrorInvalidValue (gz rows sit at k + SLAB)
+  if (gz != nullptr) {
+    if (!(prm[P_CISO] > 0.0)) return 1;
+    using M = Mode<true, true, true, true>;
+    return run_stages<T, M>(
+        window_args<T, M>(U, out, scratch, planes, gz, dt, active, nx, ny, nz, g, prm), false,
+        (long long)nx * ny * nz, stream);
+  }
+  if (prm[P_CISO] > 0.0) {
+    using M = Mode<true, true, false, true>;
+    return run_stages<T, M>(
+        window_args<T, M>(U, out, scratch, planes, nullptr, dt, active, nx, ny, nz, g, prm),
+        false, (long long)nx * ny * nz, stream);
+  }
+  using M = Mode<true, false, false, true>;
+  return run_stages<T, M>(
+      window_args<T, M>(U, out, scratch, planes, nullptr, dt, active, nx, ny, nz, g, prm),
+      false, (long long)nx * ny * nz, stream);
+}
+
 // the shear modes: isothermal or adiabatic; stratified (zslabs and gz
 // given) only isothermal, as its scale height cIso / omega0 needs
 template <typename T>
@@ -219,6 +302,29 @@ long long ramses_mhd_step_shear_scratch(int nx, int ny, int nz, int strat) {
 // the ghosted mode's scratch: its stage grid is the ghosted array
 long long ramses_mhd_step_ghosted_scratch(int nx, int ny, int nz, int g) {
   return ramses::mhd::SCRATCH_PER_CELL * (nx + 2LL * g) * (ny + 2LL * g) * (nz + 2LL * g);
+}
+
+// the shear window mode's scratch: its stage grid has WH cells beyond
+// each face of the interior
+long long ramses_mhd_step_window_scratch(int nx, int ny, int nz) {
+  using ramses::mhd::WH;
+  return ramses::mhd::SCRATCH_PER_CELL * (nx + 2LL * WH) * (ny + 2LL * WH) * (nz + 2LL * WH);
+}
+
+// the shear window mode: U [8][nz+2g][ny+2g][nx+2g] (ghosts filled) ->
+// out [8][nz][ny][nx] and planes [5][nz][ny]; gz [nz + 2g] or null
+int ramses_mhd_step_window_f32(const float* U, float* out, float* planes, float* scratch,
+                               const float* gz, const float* dt, const unsigned char* active,
+                               int nx, int ny, int nz, int g, const double* prm, void* stream) {
+  return ramses::mhd::mhd_step_window<float>(U, out, planes, scratch, gz, dt, active, nx, ny,
+                                             nz, g, prm, stream);
+}
+
+int ramses_mhd_step_window_f64(const double* U, double* out, double* planes, double* scratch,
+                               const double* gz, const double* dt, const unsigned char* active,
+                               int nx, int ny, int nz, int g, const double* prm, void* stream) {
+  return ramses::mhd::mhd_step_window<double>(U, out, planes, scratch, gz, dt, active, nx, ny,
+                                              nz, g, prm, stream);
 }
 
 // the ghosted mode: U [8][nz+2g][ny+2g][nx+2g], ghosts filled, updated in
@@ -371,7 +477,80 @@ inline long long ghosted_step_ops(Counted* U, Counted* scratch, const Counted* d
   return ops;
 }
 
+// the window mode's step as it needs to be done: prim on cells -2..n+1 of
+// every axis, efield on -1..n+1, trace on -1..n, fluxes and EMFs on 0..n,
+// the update on the interior; the stage grid's other cells are computed
+// by the kernel but never read. per_stage (6 entries, or null) gets each
+// stage's share, in that order.
+template <typename M>
+long long window_step_ops(const StepArgs<Counted>& a, long long* per_stage) {
+  long long ops = 0;
+  int stage = 0;
+  auto count = [&](const auto& f, int lo, int hi) {
+    const long long start = ops;
+    for (long long t = 0; t < a.e.n; ++t) {
+      const long long before = Counted::ops;
+      f(t);
+      int i, j, k;
+      cell_ijk(a.e, t, i, j, k);
+      i -= WH;
+      j -= WH;
+      k -= WH;
+      if (i >= lo && i <= a.in.nx + hi && j >= lo && j <= a.in.ny + hi && k >= lo &&
+          k <= a.in.nz + hi)
+        ops += Counted::ops - before;
+    }
+    if (per_stage != nullptr) per_stage[stage] = ops - start;
+    ++stage;
+  };
+  count(PrimStage<Counted, M>{a}, -WH, WH - 1);
+  count(EFieldStage<Counted, M>{a}, -1, 1);
+  count(TraceStage<Counted, M>{a}, -1, 0);
+  count(FluxStage<Counted, M>{a}, 0, 0);
+  count(EmfStage<Counted, M>{a}, 0, 0);
+  const long long before = Counted::ops;
+  const UpdateStage<Counted, M, false> update{a};
+  for (long long t = 0; t < a.in.n; ++t) update(t);
+  if (per_stage != nullptr) per_stage[5] = Counted::ops - before;
+  return ops + Counted::ops - before;
+}
+
 }  // namespace ramses::mhd
+
+// the window mode's operations on a ghosted window U [8][nz+2g][ny+2g][nx+2g]
+// (ghosts filled), with g_z of its rows gz [nz + 2g] or null; prm[P_XMIN]
+// holds the window's x0; per_stage (6 entries: prim, efield, trace, flux,
+// EMF, update) or null
+extern "C" long long ramses_mhd_step_window_ops(const double* U, const double* gz, int nx,
+                                                int ny, int nz, int g, const double* prm,
+                                                double dt, long long* per_stage) {
+  using ramses::Counted;
+  using ramses::mhd::Mode;
+  std::vector<Counted> u =
+      ramses::counted_copy(U, 8LL * (nx + 2 * g) * (ny + 2 * g) * (nz + 2 * g));
+  std::vector<Counted> gzc;
+  if (gz != nullptr) gzc = ramses::counted_copy(gz, nz + 2LL * g);
+  std::vector<Counted> scratch(ramses_mhd_step_window_scratch(nx, ny, nz));
+  std::vector<Counted> out(8LL * nx * ny * nz);
+  std::vector<Counted> planes(ramses::mhd::NPLANE * (long long)nz * ny);
+  const Counted dtc(dt);
+  const unsigned char active = 1;
+  const Counted* gzp = gz != nullptr ? gzc.data() : nullptr;
+  auto args = [&](auto mode) {
+    using M = decltype(mode);
+    return ramses::mhd::window_args<Counted, M>(u.data(), out.data(), scratch.data(),
+                                                planes.data(), gzp, &dtc, &active, nx, ny, nz,
+                                                g, prm);
+  };
+  if (gz != nullptr)
+    return ramses::mhd::window_step_ops<Mode<true, true, true, true>>(
+        args(Mode<true, true, true, true>{}), per_stage);
+  if (prm[ramses::P_CISO] > 0.0)
+    return ramses::mhd::window_step_ops<Mode<true, true, false, true>>(
+        args(Mode<true, true, false, true>{}), per_stage);
+  return ramses::mhd::window_step_ops<Mode<true, false, false, true>>(
+      args(Mode<true, false, false, true>{}), per_stage);
+}
 
 // the ghosted mode's operations on the interior of a ghosted state U
 // [8][nz+2g][ny+2g][nx+2g] (ghosts filled)

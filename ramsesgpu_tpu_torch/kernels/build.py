@@ -158,6 +158,11 @@ _SIGNATURES = {
     "ramses_mhd_step_ghosted_f64": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
     "ramses_cfl_mhd_ghosted_f32": ([_P] * 3 + [_I] * 4 + [ctypes.c_double, _P, _P], _I),
     "ramses_cfl_mhd_ghosted_f64": ([_P] * 3 + [_I] * 4 + [ctypes.c_double, _P, _P], _I),
+    "ramses_cfl_mhd_ghosted_shear_f32": ([_P] * 3 + [_I] * 4 + [_P, _P], _I),
+    "ramses_cfl_mhd_ghosted_shear_f64": ([_P] * 3 + [_I] * 4 + [_P, _P], _I),
+    "ramses_mhd_step_window_scratch": ([_I] * 3, ctypes.c_longlong),
+    "ramses_mhd_step_window_f32": ([_P] * 7 + [_I] * 4 + [_P, _P], _I),
+    "ramses_mhd_step_window_f64": ([_P] * 7 + [_I] * 4 + [_P, _P], _I),
     "ramses_cfl_mhd_shear_f32": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "ramses_cfl_mhd_shear_f64": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "ramses_mhd_step_shear_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
@@ -195,6 +200,8 @@ _COUNT_SIGNATURES = {
     "ramses_mhd_step_ops": ([_P, _I, _I, _I, _I, _P, _D], _L),
     "ramses_cfl_mhd_shear_ops": ([_P, _P, _I, _I, _I, _P], _L),
     "ramses_mhd_step_ghosted_ops": ([_P] + [_I] * 4 + [_P, _D], _L),
+    "ramses_mhd_step_window_ops": ([_P, _P] + [_I] * 4 + [_P, _D, _P], _L),
+    "ramses_cfl_mhd_ghosted_shear_ops": ([_P] + [_I] * 4 + [_P], _L),
     "ramses_cfl_mhd_ghosted_ops": ([_P] + [_I] * 4 + [_P], _L),
     "ramses_mhd_step_shear_ops": ([_P] * 4 + [_I] * 4 + [_P, _D], _L),
     "ramses_shear_border_ops": ([_P] * 3 + [_I] * 4 + [_P, _D, _D, _P], None),
@@ -255,4 +262,14 @@ def param_block(params) -> ctypes.Array:
         float(strat), *lo, *hi,
     )
     _last_block = (params, block)
+    return block
+
+
+def window_block(params, x0: float) -> ctypes.Array:
+    """param_block of ``params`` with its x origin (P_XMIN) set to ``x0``:
+    a rank's ghosted window of the sharded shearing box, whose column i has
+    its centre at x0 + dx/2 + i dx (csrc/mhd_step.cu, the shear window
+    mode). A new block."""
+    block = (ctypes.c_double * len(param_block(params)))(*param_block(params))
+    block[14] = x0   # P_XMIN (csrc/common.cuh)
     return block

@@ -16,6 +16,11 @@ from the ghost frame, and the jet's inverse dt is the floor of the max
 (solvers/timestep.py:257-262 in the JAX package). Twin:
 ``solvers.timestep.inv_dt_mhd_ghosted``.
 
+``cfl_mhd_window`` is the ghosted form with the shearing box's pressure
+and vy offset, on a rank's ghosted block of the sharded shearing box as it
+stands (JAX parallel/sharded_step.py:551-556 compute_inv_dt_mhd on the
+block). Twin: ``solvers.timestep.inv_dt_mhd_ghosted_shear``.
+
 A compensated state (``[implementation] compensated``) is [16, nz, ny, nx],
 the state and then its Kahan carry, and a shearing box's kept face [2, nz,
 ny]; the reduction reads channels 0-7 and the face, as the JAX kernel reads
@@ -27,14 +32,16 @@ import torch
 
 from ..config.params import RunParams
 
-from ..solvers.timestep import (inv_dt_mhd_ghosted, inv_dt_mhd_periodic, inv_dt_mhd_shear,
-                                jet_inv_dt)
+from ..solvers.timestep import (inv_dt_mhd_ghosted, inv_dt_mhd_ghosted_shear,
+                                inv_dt_mhd_periodic, inv_dt_mhd_shear, jet_inv_dt)
 from .build import load_library, param_block
 
 _FN = {torch.float32: "ramses_cfl_mhd_f32", torch.float64: "ramses_cfl_mhd_f64"}
 _FN_GHOSTED = {torch.float32: "ramses_cfl_mhd_ghosted_f32",
                torch.float64: "ramses_cfl_mhd_ghosted_f64"}
 _FN_SHEAR = {torch.float32: "ramses_cfl_mhd_shear_f32", torch.float64: "ramses_cfl_mhd_shear_f64"}
+_FN_GHOSTED_SHEAR = {torch.float32: "ramses_cfl_mhd_ghosted_shear_f32",
+                     torch.float64: "ramses_cfl_mhd_ghosted_shear_f64"}
 
 
 def state_channels(params: RunParams) -> int:
@@ -152,4 +159,39 @@ class CflMhdKernel:
         return out
 
 
+class CflMhdWindowKernel:
+    """``inv = kernel(params, U)``: the 0-d device tensor max inverse time
+    step of a rank's ghosted block U [8, nz+2g, ny+2g, nx+2g] of the
+    sharded shearing box as it stands (``params``: the block's extent):
+    the ghosted shearing-box form of csrc/cfl_mhd.cu, JAX
+    compute_inv_dt_mhd(local_params, Ug) (parallel/sharded_step.py:551-556).
+    On a CPU tensor it returns the twin's value
+    (solvers.timestep.inv_dt_mhd_ghosted_shear); on a CUDA tensor it
+    launches the kernel."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def __call__(self, params: RunParams, U: torch.Tensor) -> torch.Tensor:
+        if params.omega0 <= 0:
+            raise NotImplementedError("the ghosted shearing-box CFL needs the rotating frame")
+        check_ghosted(params, U)
+        if U.device.type == "cpu":
+            return inv_dt_mhd_ghosted_shear(params, U)
+        if U.device.type != "cuda":
+            raise ValueError(f"unsupported device {U.device}")
+        lib = load_library("cuda")
+        partial = torch.empty(lib.ramses_cfl_mhd_partials(), dtype=U.dtype, device=U.device)
+        out = torch.empty((), dtype=U.dtype, device=U.device)
+        err = getattr(lib, _FN_GHOSTED_SHEAR[U.dtype])(
+            U.data_ptr(), partial.data_ptr(), out.data_ptr(), params.nx, params.ny, params.nz,
+            params.ghost_width, param_block(params),
+            torch.cuda.current_stream(U.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"cfl_mhd ghosted shear launch failed: CUDA error {err}")
+        self.launches += 1
+        return out
+
+
 cfl_mhd = CflMhdKernel()
+cfl_mhd_window = CflMhdWindowKernel()

@@ -34,7 +34,9 @@ the same staged kernel there, as the JAX package takes its whole-array
 step (solvers/step.py:326-358); ``compensated=yes`` runs the plain
 update, as the JAX ``make_step_fn`` has no compensated branch.
 ``make_fused_mhd_update`` is row 3 with its outside contract, for the
-sharded step of a later slice.
+sharded step of a later slice. ``make_fused_mhd_shear`` is TPU row 4
+(pallas/fused_mhd3d.py:587) with its outside contract: a rank's step of
+the sharded shearing box (parallel/sharded_step.py).
 """
 from __future__ import annotations
 
@@ -49,7 +51,8 @@ from ..solvers.timestep import dt_from_inv
 from .cfl_mhd import cfl_mhd
 from .dissip_step import dissip_step
 from .loop import make_ghosted_loop, make_kernel_loop, streamed_step
-from .mhd_step import mhd_step, require_step_scope, uses_ghosted, uses_shear
+from .mhd_step import (mhd_step, mhd_window, require_step_scope, require_window_scope,
+                       uses_ghosted, uses_shear)
 from .zcarry_mhd3d import zcarry_mhd
 
 
@@ -170,5 +173,47 @@ def make_fused_mhd_update(params: RunParams, device) -> Callable:
         mhd_step.ghosted(params, W, dt, torch.ones((), dtype=torch.bool, device=W.device),
                          scratch)
         return interior(params, W).contiguous()
+
+    return update
+
+
+def make_fused_mhd_shear(params: RunParams, device, gravity_z: Callable | None = None
+                         ) -> Callable:
+    """``update(U_ghosted, dt, x0=None, z0=None) -> (new_int, fpl, eypl,
+    ezpl)``: TPU row 4 (pallas/fused_mhd3d.py:587 make_fused_mhd_shear)
+    with its outside contract. One rotating-frame MHD+CT step of a ghosted
+    window [8, nz+2g, ny+2g, nx+2g] (``params``: the window's extent) whose
+    ghosts an exchange has written; x0, z0 are the window's global offsets
+    (default xmin, zmin). Returns the new interior [8, nz, ny, nx], the
+    density flux at the two x faces fpl [2, nz, ny], emfY there eypl
+    [2, nz, ny] and emfZ at the xmax face ezpl [nz, ny], all before the
+    remap. ``gravity_z``: the analytic profile g_z(z) of the stratified
+    MRI (solvers/step.py mri_gz_profile), evaluated on the window's row
+    centres z0 + dz/2 + (r - g) dz as the JAX ``update`` does (:733-745).
+    ``dt``: a number or a 0-d tensor. On a CUDA window it launches the
+    step kernel's shear window mode (kernels/mhd_step.py mhd_window); on a
+    CPU window the twin runs."""
+    require_window_scope(params)
+    device = torch.device(device)
+    g = params.ghost_width
+    scratch = None  # the stage buffer, allocated once
+
+    def update(U, dt, x0=None, z0=None):
+        nonlocal scratch
+        if U.device.type != device.type:
+            raise ValueError(f"window on {U.device}, update built for {device}")
+        x0 = params.xmin if x0 is None else float(x0)
+        z0 = params.zmin if z0 is None else float(z0)
+        if scratch is None:
+            scratch = mhd_window.scratch(params, U)
+        dt = torch.as_tensor(dt, dtype=U.dtype, device=U.device)
+        gz = None
+        if gravity_z is not None:
+            rows = torch.arange(U.shape[1], dtype=U.dtype, device=U.device)
+            zc = torch.tensor(z0, dtype=U.dtype, device=U.device) + params.dz / 2 + (
+                rows - g) * params.dz
+            gz = gravity_z(zc).contiguous()
+        new_int, planes = mhd_window(params, U, dt, x0, gz, scratch)
+        return new_int, planes[0:2], planes[2:4], planes[4]
 
     return update

@@ -1,5 +1,5 @@
 """One 3D MHD+CT step: the CUDA kernel ``csrc/mhd_step.cu`` and its plain
-PyTorch twins, in four modes.
+PyTorch twins, in five modes.
 
 - Periodic: replaces the TPU kernel ramsesgpu_tpu/pallas/packed_io.py:148
   ``make_packed_io_step`` with the MHD body pallas/fused_mhd3d.py:228 ->
@@ -26,6 +26,14 @@ PyTorch twins, in four modes.
   pallas/fused_mhd3d.py:80 ``make_fused_mhd_update`` (whose interior is
   this one's). Twin: ``solvers.godunov_mhd.mhd_3d_ghosted_update``.
 
+- Shear window (``MhdWindowKernel``, ``mhd_window``): one rank's ghosted
+  block of the sharded shearing box, its ghosts written by the halo
+  exchange and the sheared x fill (parallel/shear_dist.py), stepped in the
+  rotating frame out of place: the new interior and the five x-face
+  planes of the remap. Replaces the TPU kernel pallas/fused_mhd3d.py:587
+  ``make_fused_mhd_shear`` (TPU row 4). Twin:
+  ``solvers.godunov_mhd.mhd_3d_shear_window_update``.
+
 Compensated (``[implementation] compensated``, the periodic and shear
 modes; TPU row A′-compensated, fused_mhd3d.py:247-259): the state is [16,
 nz, ny, nx], the state and then its Kahan carry, and the update stage
@@ -37,7 +45,9 @@ stage intermediates live in one scratch buffer (~11.6 GB at 256^3 f32;
 the shearing box's stage grid has nx + 4 columns, the stratified one
 nz + 4 rows too; the ghosted mode's is the ghosted array, ~12.4 GB at
 256^3) that the caller allocates once per advance with
-``MhdStepKernel.scratch`` (``ghosted=True`` for the ghosted mode).
+``MhdStepKernel.scratch`` (``ghosted=True`` for the ghosted mode); the
+shear window mode's stage grid is the interior and 2 cells a side
+(``MhdWindowKernel.scratch``, ~0.82 GB for a 64x128x128 f32 block).
 """
 from __future__ import annotations
 
@@ -49,9 +59,9 @@ from ..core.constants import BoundaryConditionType as BCT, MagneticRiemannSolver
 from ..solvers.boundary import require_simple_bcs, uses_jet
 from ..solvers.dissipation import uses_dissipation
 from ..solvers.godunov_mhd import (mhd_3d_ghosted_update, mhd_3d_periodic_update,
-                                   mhd_3d_shear_update)
+                                   mhd_3d_shear_update, mhd_3d_shear_window_update)
 from ..solvers.stratified import uses_stratified_z
-from .build import load_library, param_block
+from .build import load_library, param_block, window_block
 from .cfl_mhd import check_ghosted, check_plane, check_state
 from .hydro_step import check_scalars
 
@@ -60,6 +70,8 @@ _FN_GHOSTED = {torch.float32: "ramses_mhd_step_ghosted_f32",
                torch.float64: "ramses_mhd_step_ghosted_f64"}
 _FN_SHEAR = {torch.float32: "ramses_mhd_step_shear_f32",
              torch.float64: "ramses_mhd_step_shear_f64"}
+_FN_WINDOW = {torch.float32: "ramses_mhd_step_window_f32",
+              torch.float64: "ramses_mhd_step_window_f64"}
 SLAB = 3     # columns of each sheared ghost slab (csrc/mhd_step.cu SLAB)
 NPLANE = 5   # x-face planes of the shearing-box mode
 
@@ -274,4 +286,87 @@ def check_buffer(S: torch.Tensor, name: str, x: torch.Tensor, want: tuple) -> No
                          f"got {tuple(x.shape)} {x.dtype} on {x.device}")
 
 
+def require_window_scope(params: RunParams) -> None:
+    """Raise NotImplementedError for what the shear window mode does not
+    compute: it is the ideal rotating-frame 3D MHD step (HLLD fluxes,
+    2D-HLLD EMFs), isothermal or adiabatic, on a window of ghost width 3;
+    with g_z (stratified) only isothermal."""
+    reasons = []
+    if params.dim != 3 or not params.mhd:
+        reasons.append("only 3D MHD")
+    if params.riemann_solver != RiemannSolver.HLLD:
+        reasons.append(f"riemannSolver {params.riemann_solver.name} (HLLD only)")
+    if params.mag_riemann_solver != MagneticRiemannSolver.MAG_HLLD:
+        reasons.append(f"magRiemannSolver {params.mag_riemann_solver.name} (HLLD only)")
+    if params.omega0 <= 0:
+        reasons.append("no rotating frame (omega0 = 0)")
+    if params.ghost_width != SLAB:
+        reasons.append(f"ghost width {params.ghost_width} (3 only)")
+    if params.nu > 0 or params.eta > 0:
+        reasons.append("viscosity or resistivity")
+    if reasons:
+        raise NotImplementedError("not ported: " + "; ".join(reasons))
+
+
+class MhdWindowKernel:
+    """``out, planes = kernel(params, U, dt, x0, gz=None, scratch=None)``:
+    one rotating-frame step of the ghosted window U [8, nz+2g, ny+2g,
+    nx+2g] (``params``: the window's extent; its ghosts filled), out of
+    place: the new interior [8, nz, ny, nx] and the planes [5, nz, ny]
+    (fpl_min, fpl_max, eypl_min, eypl_max, ezpl_max, unremapped). ``dt``
+    is a 0-d tensor of U's dtype on its device, ``x0`` the window's global
+    x offset, ``gz`` g_z of its rows [nz + 2g] (stratified, isothermal) or
+    None. On a CPU tensor the twin runs; on a CUDA tensor the kernel
+    launches (TPU row 4)."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._true = {}  # a 0-d true flag per device (the stages' ``active``)
+
+    @staticmethod
+    def scratch(params: RunParams, U: torch.Tensor) -> torch.Tensor | None:
+        """The stage buffer for the window's extent on U's device (None on
+        the CPU)."""
+        if U.device.type == "cpu":
+            return None
+        size = load_library("cuda").ramses_mhd_step_window_scratch(params.nx, params.ny,
+                                                                   params.nz)
+        return torch.empty(size, dtype=U.dtype, device=U.device)
+
+    def __call__(self, params: RunParams, U: torch.Tensor, dt: torch.Tensor, x0: float,
+                 gz: torch.Tensor | None = None, scratch=None):
+        require_window_scope(params)
+        check_ghosted(params, U)
+        check_scalars(U, dt=(dt, U.dtype))
+        if gz is not None:
+            if params.c_iso <= 0:
+                raise NotImplementedError("g_z with the adiabatic EOS (cIso = 0)")
+            check_buffer(U, "gz", gz, (params.nz + 2 * SLAB,))
+        if U.device.type == "cpu":
+            return mhd_3d_shear_window_update(params, U, dt, x0, gz)
+        if U.device.type != "cuda":
+            raise ValueError(f"unsupported device {U.device}")
+        lib = load_library("cuda")
+        need = lib.ramses_mhd_step_window_scratch(params.nx, params.ny, params.nz)
+        if (scratch is None or scratch.device != U.device or scratch.dtype != U.dtype
+                or scratch.numel() < need or not scratch.is_contiguous()):
+            raise ValueError(f"scratch must be a contiguous {U.dtype} buffer of >= {need} "
+                             f"values on {U.device} (MhdWindowKernel.scratch)")
+        if U.device not in self._true:
+            self._true[U.device] = torch.ones((), dtype=torch.bool, device=U.device)
+        out = torch.empty((8, params.nz, params.ny, params.nx), dtype=U.dtype, device=U.device)
+        planes = torch.empty((NPLANE, params.nz, params.ny), dtype=U.dtype, device=U.device)
+        err = getattr(lib, _FN_WINDOW[U.dtype])(
+            U.data_ptr(), out.data_ptr(), planes.data_ptr(), scratch.data_ptr(),
+            None if gz is None else gz.data_ptr(), dt.data_ptr(),
+            self._true[U.device].data_ptr(), params.nx, params.ny, params.nz,
+            params.ghost_width, window_block(params, x0),
+            torch.cuda.current_stream(U.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"mhd_step window launch failed: CUDA error {err}")
+        self.launches += 1
+        return out, planes
+
+
 mhd_step = MhdStepKernel()
+mhd_window = MhdWindowKernel()

@@ -143,10 +143,10 @@ def split_carry(S: torch.Tensor):
 
 
 def mhd_apply_update(params: RunParams, S, fluxes, emfs, dt, x0: int = 0, z0: int = 0,
-                     comp=None, gz=None):
+                     comp=None, gz=None, y0: int = 0):
     """Conservative + CT update of the state [8, nz, ny, nx] from its face
-    fluxes and edge EMFs. y wraps; the fluxes and EMFs extend ``x0``
-    columns (``z0`` rows) past S on each x (z) side (0: x (z) wraps too).
+    fluxes and edge EMFs. The fluxes and EMFs extend ``x0`` columns (``y0``
+    rows, ``z0`` planes) past S on each x (y, z) side; 0: that axis wraps.
     ``comp``: the carry [8, nz, ny, nx]; then the update is Kahan-
     compensated and [16, ...] returns (state, then the new carry).
     ``gz``: g_z per z row of the fluxes' frame (broadcastable): the
@@ -163,11 +163,12 @@ def mhd_apply_update(params: RunParams, S, fluxes, emfs, dt, x0: int = 0, z0: in
     dby = (xp.shift_p(emf_x, _Z) - emf_x) * dtdz - (xp.shift_p(emf_z, _X) - emf_z) * dtdx
     dbz = (xp.shift_p(emf_y, _X) - emf_y) * dtdx - (xp.shift_p(emf_x, _Y) - emf_x) * dtdy
     deltas = [dU[ID], dU[IP], dU[IU], dU[IV], dU[IW], dbx, dby, dbz]
-    if x0 or z0:
-        deltas = [d[..., z0:z0 + params.nz, :, x0:x0 + params.nx] for d in deltas]
+    inner = (slice(z0, z0 + params.nz), slice(y0, y0 + params.ny), slice(x0, x0 + params.nx))
+    if x0 or y0 or z0:
+        deltas = [d[(..., *inner)] for d in deltas]
     g = None
     if gz is not None:
-        g = torch.broadcast_to(gz, flux_x.shape[1:])[z0:z0 + params.nz, :, x0:x0 + params.nx]
+        g = torch.broadcast_to(gz, flux_x.shape[1:])[inner]
     if comp is None:
         outs = [S[c] + d for c, d in enumerate(deltas)]
         if g is not None:
@@ -259,6 +260,34 @@ def mhd_3d_shear_update(params: RunParams, S: torch.Tensor, slabs: torch.Tensor,
     zi = slice(z0, z0 + nz)
     planes = torch.stack([flux_x[ID, zi, :, g], flux_x[ID, zi, :, g + nx],
                           emf_y[zi, :, g], emf_y[zi, :, g + nx], emf_z[zi, :, g + nx]])
+    return S_new, planes
+
+
+def mhd_3d_shear_window_update(params: RunParams, U: torch.Tensor, dt, x0: float, gz=None):
+    """One rotating-frame MHD+CT step of a ghosted window U [8, nz+2g,
+    ny+2g, nx+2g] (``params``: the window's extent) whose ghosts an
+    exchange has written: JAX godunov_mhd.py:294 ``mhd_3d_interior_update(
+    params, U, dt, margin=(g, g, g), shear_planes=True, xpos=..., gravity=
+    ...)``, the body of TPU row 4 (pallas/fused_mhd3d.py:587
+    make_fused_mhd_shear). ``x0``: the window's global x offset; ``gz``:
+    g_z of the window's rows [nz + 2g], or None. Every stage runs on the
+    window with rolls, whose wrap only the ghost margins see. Returns
+    (interior [8, nz, ny, nx], planes [5, nz, ny]: the density flux at the
+    x faces 0 and nx, emfY there, emfZ at face nx, unremapped). The plain
+    twin of the step kernel's shear window mode (kernels/mhd_step.py)."""
+    g, nx, ny, nz = params.ghost_width, params.nx, params.ny, params.nz
+    # column i's centre: x0 + dx/2 + (i - g) dx (JAX godunov_mhd.py:190-203
+    # with a shard's xpos)
+    i = torch.arange(U.shape[-1], dtype=U.dtype, device=U.device).view(1, 1, -1)
+    xpos = x0 + params.dx / 2 + (i - g) * params.dx
+    gzw = None if gz is None else gz.view(-1, 1, 1)
+    fluxes, emfs = mhd_fluxes_emfs(params, U, dt, xpos, gzw)
+    S_new = mhd_apply_update(params, U[:, g:-g, g:-g, g:-g], fluxes, emfs, dt,
+                             x0=g, y0=g, z0=g, gz=gzw)
+    (flux_x, _fy, _fz), (emf_z, emf_y, _ex) = fluxes, emfs
+    zi, yi = slice(g, g + nz), slice(g, g + ny)
+    planes = torch.stack([flux_x[ID, zi, yi, g], flux_x[ID, zi, yi, g + nx],
+                          emf_y[zi, yi, g], emf_y[zi, yi, g + nx], emf_z[zi, yi, g + nx]])
     return S_new, planes
 
 

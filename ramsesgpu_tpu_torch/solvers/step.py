@@ -96,6 +96,27 @@ def gravity_z(params: RunParams, config: ConfigMap | None, device) -> torch.Tens
     return torch.from_numpy(np.ascontiguousarray(field[2, :, 0, 0])).to(device)
 
 
+def mri_gz_profile(params: RunParams, config: ConfigMap | None) -> Callable:
+    """The stratified MRI's vertical gravity as a function g_z(z) of a
+    tensor of cell-centre z (JAX solvers/step.py:53 ``_mri_gz_profile``,
+    the formula of problems/mhd_inits.py mri_gravity_field): -omega0^2 z,
+    with the smooth cutoff near the vertical boundaries when
+    ``[MRI] smoothGravity``. Evaluated in z's dtype."""
+    config = config if config is not None else ConfigMap(text="")
+    smooth = config.get_bool("MRI", "smoothGravity", False)
+    z_floor = config.get_float("MRI", "zFloor", 5.0)
+    om2 = params.omega0 ** 2
+    H = params.c_iso / params.omega0 if params.omega0 > 0 else 1.0
+
+    def profile(zc: torch.Tensor) -> torch.Tensor:
+        gz = -om2 * zc
+        if smooth:
+            gz = gz * torch.exp(-((torch.abs(zc) / (z_floor * H)) ** 8))
+        return gz
+
+    return profile
+
+
 def make_step_fn(params: RunParams, device, config: ConfigMap | None = None) -> Callable:
     """``step(U, t) -> (U_new, dt)`` on the ghosted state (a compensated
     run packs a zero carry on each call)."""

@@ -142,6 +142,16 @@ def inv_dt_mhd_ghosted(params: RunParams, U: torch.Tensor) -> torch.Tensor:
     return with_jet(params, compute_inv_dt_mhd(params, U))
 
 
+def inv_dt_mhd_ghosted_shear(params: RunParams, U: torch.Tensor) -> torch.Tensor:
+    """The sharded shearing box's CFL on a rank's ghosted block as it
+    stands: JAX compute_inv_dt_mhd(local_params, Ug) (parallel/
+    sharded_step.py:551-556), with the isothermal pressure and the vy
+    offset of the rotating frame; the +1 faces of the interior come from
+    the ghost frame. The plain twin of the CUDA CFL kernel's ghosted
+    shearing-box form (kernels/cfl_mhd.py)."""
+    return compute_inv_dt_mhd(params, U)
+
+
 def jet_inv_dt(params: RunParams) -> float | None:
     """(ujet + cjet) / dx of the inflow jet, in double, or None without a
     jet (timestep.py:257-262; HydroRunBase.cpp:365-367)."""

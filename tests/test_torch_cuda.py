@@ -904,3 +904,86 @@ def hydro_jet_state(device):
     params = params_from_config(config)
     U = torch.from_numpy(init_problem(params, config)).to(device)
     return params, make_boundaries(params, U)
+
+
+def window_case(dtype, device, ciso=1.0, gravity=False):
+    """A rank's ghosted window of MRI_INI's box as a 2 x 1 x 2 grid cut at
+    rank (iz, iy, ix) = (1, 0, 1), so x0 != xmin and z0 != zmin: the
+    sheared fill of the box at a t0 whose shear offset is 2.5 cells, times
+    (1 + 0.01 N(0, 1)) from a seed; the window's params, its x0, and (with
+    ``gravity``) g_z of its rows from the stratified MRI's profile."""
+    from ramsesgpu_tpu_torch.kernels.shear import unpack
+    from ramsesgpu_tpu_torch.solvers.step import mri_gz_profile
+
+    params, state, t0 = mri_state(dtype, device, ciso=ciso)
+    U = unpack(params, state, t0)
+    g = params.ghost_width
+    lnx, lny, lnz = params.nx // 2, params.ny, params.nz // 2
+    W = U[:, lnz:2 * lnz + 2 * g, :, lnx:2 * lnx + 2 * g]
+    gen = torch.Generator().manual_seed(7)
+    W = (W * (1 + 0.01 * torch.randn(W.shape, generator=gen, dtype=torch.float64).to(
+        device, W.dtype))).contiguous()
+    lp = params.replace(nx=lnx, ny=lny, nz=lnz, xmax=params.xmin + lnx * params.dx,
+                        zmax=params.zmin + lnz * params.dz)
+    x0, z0 = params.xmin + lnx * params.dx, params.zmin + lnz * params.dz
+    gz = None
+    if gravity:
+        zc = z0 + params.dz / 2 + (torch.arange(lnz + 2 * g, dtype=W.dtype, device=device)
+                                   - g) * params.dz
+        gz = mri_gz_profile(params, ConfigMap(text="[MRI]\nsmoothGravity=yes\nzFloor=2.0"))(
+            zc).contiguous()
+    return lp, W, x0, z0, gz
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("mode", ["iso", "adiabatic", "gravity"])
+def test_window_kernel_matches_twin(cuda_device, dtype, mode):
+    """TPU row 4 (the step kernel's shear window mode) against its twin on a
+    rank's window: the interior within TOL, each x-face plane within
+    TOL_PLANES; the ghosted-shear CFL within 4 ULP of its twin."""
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd_window
+    from ramsesgpu_tpu_torch.kernels.fused_mhd3d import make_fused_mhd_shear
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_window
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_shear_window_update
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_ghosted_shear
+
+    lp, W, x0, z0, gz = window_case(dtype, cuda_device, 0.0 if mode == "adiabatic" else 1.0,
+                                    mode == "gravity")
+    inv, inv_ref = cfl_mhd_window(lp, W), inv_dt_mhd_ghosted_shear(lp, W)
+    assert ulp_close(inv, inv_ref)
+    dt = dt_from_inv(lp, inv_ref)
+    before = mhd_window.launches
+    out, planes = mhd_window(lp, W, dt, x0, gz, mhd_window.scratch(lp, W))
+    assert mhd_window.launches == before + 1
+    want, want_planes = mhd_3d_shear_window_update(lp, W, dt, x0, gz)
+    assert rel_l2(out, want) <= TOL[dtype]
+    for c in range(5):
+        assert rel_l2(planes[c], want_planes[c]) <= TOL_PLANES[dtype], c
+    if gz is None:
+        new, fpl, eypl, ezpl = make_fused_mhd_shear(lp, cuda_device)(W, dt, x0, z0)
+        assert torch.equal(new, out) and torch.equal(ezpl, planes[4])
+
+
+@pytest.mark.cuda
+def test_two_rank_sharded_mri_on_the_card(cuda_device):
+    """Two ranks of the sharded MRI (a 2 x 1 x 1 grid) share the card over
+    gloo: row 4 and the ghosted-shear CFL launch once per rank and step,
+    the single-device shear step never; 3 steps in f64 agree with the same
+    run on the CPU (the twins) within 1e-12."""
+    from ramsesgpu_tpu_torch.parallel.launch import spawn_ranks
+    from ramsesgpu_tpu_torch.parallel.sharded_step import rank_jobs
+
+    text = MRI_INI.format(dtype="float64", tend=100.0, ciso=1.0) + "\n[mpi]\nmx=2\n"
+    jobs = [dict(config_text=text, device=dev, n_steps=3, t0=0.1) for dev in ("cuda", "cpu")]
+    ranks = spawn_ranks(rank_jobs, 2, (jobs,))
+    for r in ranks:
+        card, host = r
+        assert card["backend"] == "gloo" and card["device"] == "cuda:0"
+        assert card["counts"] == {"mhd_window": 3, "cfl_mhd_window": 3, "mhd_step": 0,
+                                  "cfl_mhd": 0}
+        assert card["k"] == host["k"] == 3
+    card, host = ranks[0]
+    assert abs(card["t"] - host["t"]) <= 1e-12 * host["t"]
+    got, want = torch.from_numpy(card["U"]), torch.from_numpy(host["U"])
+    assert rel_l2(got, want) <= 1e-12

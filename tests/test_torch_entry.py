@@ -76,8 +76,9 @@ def zcarry(text: str) -> str:
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Importing every module of the port and running a CPU Run of each
-    slice leaves no jax and no ramsesgpu_tpu module in sys.modules."""
+    """Importing every module of the port (parallel/* among them) and
+    running a CPU Run of each slice leaves no jax and no ramsesgpu_tpu
+    module in sys.modules."""
     pkg = REPO / "ramsesgpu_tpu_torch"
     modules = sorted(
         "ramsesgpu_tpu_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
@@ -86,6 +87,8 @@ def test_port_imports_no_jax(tmp_path):
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
+        "assert all(f'ramsesgpu_tpu_torch.parallel.{m}' in sys.modules\n"
+        "           for m in ('mesh', 'launch', 'halo', 'shear_dist', 'sharded_step'))\n"
         "from ramsesgpu_tpu_torch.solvers.run import Run, config_from_ini\n"
         "for text in sys.argv[1:]:\n"
         "    config, params = config_from_ini(text)\n"
