@@ -15,9 +15,10 @@ Phases, in order; any failure raises and no result line is printed:
      of 10 steps; launch counts, no twin call, finiteness, divB and
      conservation; then one more chunk under torch.profiler: device time by
      kernel and the device's idle share of the chunk;
-  6. at 256^3 f32, each MHD kernel against its twin on the same inputs,
-     then each kernel's time against its twin's (128^3 for a twin whose
-     estimated memory does not fit);
+  6. at 256^3 f32, the step kernel's stage buffer (values per cell, GB),
+     each MHD kernel against its twin on the same inputs, then each
+     kernel's time against its twin's (128^3 for a twin whose estimated
+     memory does not fit);
   7. hydro CFL kernel vs its twin at 64^3 on a random physical state, f32 +
      f64, on both state layouts; the isothermal EOS; NaN propagation;
   8. hydro step kernel vs its twin at 64^3, f32 + f64: implode (reflecting
@@ -109,7 +110,8 @@ Phases, in order; any failure raises and no result line is printed:
      their twins, their times against the twins', their bounds;
  31. one 10-step chunk of OT at 512^3 f32 with kernel=zcarry: peak device
      memory (bound 24 GB) and the kernel's rings (in shared memory; bound
-     1 GB), divB, mass;
+     1 GB), divB, mass; the streamed kernel's ring bytes, tile and blocks
+     per SM in f32 and f64;
  33. the ghosted modes (walls and the inflow jet; TPU row 3) against their
      twins at 64x48x40, f32 + f64: the 3D Brio-Wu under NEUMANN, DIRICHLET
      and mixed faces and the MHD jet: the CFL with the jet's floor, one step
@@ -148,7 +150,8 @@ Phases, in order; any failure raises and no result line is printed:
      h5py is not installed), with 37's gates and its comparison with the
      single-rank path; the stratified box's mass change is the
      single-rank path's (its z faces let mass out);
- then the kernels JSON line, the card line, and the result line.
+ then the MHD step kernel's rows (A, A', 3, 4, 12) with their times and
+ bounds, the kernels JSON line, the card line, and the result line.
 Imports nothing of JAX; of this repo it imports only ramsesgpu_tpu_torch.
 """
 from __future__ import annotations
@@ -665,6 +668,7 @@ def phase6(card: str, twin_peak_64: int) -> dict:
         print(f"[6] twin estimated at {twin_peak_64 * 64 / 2**30:.1f} GiB does not fit "
               f"({free / 2**30:.1f} GiB free): twins checked and timed at 128^3")
     params, S = setup(256, "float32")
+    stage_buffer(params)
     bound_input = S[:, :32, :32, :32].contiguous()  # phase 11 counts the operations here
     active = torch.ones((), dtype=torch.bool, device="cuda")
     scratch = mhd_step.scratch(params, S)
@@ -706,6 +710,19 @@ def phase6(card: str, twin_peak_64: int) -> dict:
               f"at {n_twin}^3 (f32, {card})")
     return {"ms": ms, "plain_ms": plain, "max_abs_err": errs, "n_twin": n_twin,
             "bound_input": (block_params(params, 32), bound_input.cpu(), float(dt))}
+
+
+def stage_buffer(params) -> None:
+    """The staged step's stage buffer: its values per stage-grid cell and
+    its size at the OT path's 256^3 f32 (kernels/mhd_step.py)."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library
+    from ramsesgpu_tpu_torch.kernels.mhd_step import MhdStepKernel
+
+    lib = load_library("cuda")
+    per_cell = lib.ramses_mhd_step_scratch_per_cell()
+    size = MhdStepKernel.scratch_size(lib, params)
+    print(f"[6] stage buffer: {per_cell} values per stage-grid cell ({per_cell + 8} in the "
+          f"shear modes), {size * 4 / 1e9:.3f} GB at {params.nx}x{params.ny}x{params.nz} f32")
 
 
 def phase7() -> None:
@@ -2401,6 +2418,7 @@ def phase31(card: str) -> None:
           f"(host init, copy to the card)")
     blocks = zcarry_mhd.blocks(params, S)
     ring_bytes = blocks * load_library("cuda").ramses_zcarry_mhd_ring_bytes(0)
+    zcarry_ring(params)
     b_over_dx = max(float(S[5].abs().max()), 1e-10) / params.dx
     mass0 = float(S[0].double().sum())
     _pack, advance, _unpack = make_packed_advance_chain(params, "cuda")
@@ -2427,6 +2445,22 @@ def phase31(card: str) -> None:
         raise AssertionError("512^3: divB or mass bound violated")
     if not (peak < 24e9 and ring_bytes < 1e9):
         raise AssertionError(f"512^3: peak {peak} B or rings {ring_bytes} B above their bounds")
+
+
+def zcarry_ring(params) -> None:
+    """Row 12's tile and ring per dtype: the bytes of a block's ring in
+    shared memory, its tile and threads, and the blocks an SM holds."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+
+    lib = load_library("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for f64, name in ((0, "f32"), (1, "f64")):
+        tile = (ctypes.c_int * 3)()
+        lib.ramses_zcarry_mhd_tile(f64, tile)
+        blocks = lib.ramses_zcarry_mhd_blocks(0, 0, f64, param_block(params))
+        print(f"[31] zcarry_mhd {name}: ring {lib.ramses_zcarry_mhd_ring_bytes(f64)} B a block, "
+              f"tile {tile[0]}x{tile[1]}, {tile[2]} threads, {blocks / sms:g} blocks per SM "
+              f"({blocks} on {sms} SMs)")
 
 
 def phase32(card: str, ot, blast, mri, bounds: dict, twin_n: int) -> dict:
@@ -2918,9 +2952,9 @@ SHARDED_RTOL, SHARDED_ATOL = 1e-4, 2e-5
 # (PERF.md section 6, PR 8)
 SHARDED_REL_L2 = {"37": 1e-6, "38": 5e-4}
 # the window stage grid's cells of each stage, beyond the interior n per
-# axis (csrc/mhd_step.cu, the shear window mode): prim, efield, trace, flux,
-# EMF, update
-WINDOW_STAGE_EXTRA = (4, 3, 2, 1, 1, 0)
+# axis (csrc/mhd_step.cu, the shear window mode): prim, efield, precursors,
+# fluxes and EMFs, update
+WINDOW_STAGE_EXTRA = (4, 3, 2, 1, 0)
 
 
 def window_of(params, U: torch.Tensor, topo, rank):
@@ -3030,12 +3064,12 @@ def phase36(card: str) -> dict:
     small = W[:, :m[2] + 2 * g, :m[1] + 2 * g, :m[0] + 2 * g].double().cpu().contiguous()
     p_small = lp.replace(nx=m[0], ny=m[1], nz=m[2], xmax=lp.xmin + m[0] * lp.dx,
                          ymax=lp.ymin + m[1] * lp.dy, zmax=lp.zmin + m[2] * lp.dz)
-    per = (ctypes.c_longlong * 6)()
+    per = (ctypes.c_longlong * len(WINDOW_STAGE_EXTRA))()
     lib.ramses_mhd_step_window_ops(small.data_ptr(), None, *m, g, window_block(p_small, x0),
                                    float(dt), per)
     n_small = [(m[0] + e) * (m[1] + e) * (m[2] + e) for e in WINDOW_STAGE_EXTRA]
     n_full = [(lp.nx + e) * (lp.ny + e) * (lp.nz + e) for e in WINDOW_STAGE_EXTRA]
-    ops_row4 = sum(per[i] / n_small[i] * n_full[i] for i in range(6))
+    ops_row4 = sum(p / ns * nf for p, ns, nf in zip(per, n_small, n_full))
     ops_cfl = lib.ramses_cfl_mhd_ghosted_shear_ops(small.data_ptr(), *m, g,
                                                    param_block(p_small)) / (m[0] * m[1] * m[2])
     cells = lp.nx * lp.ny * lp.nz
@@ -3318,8 +3352,15 @@ def profile_chunk(label: str, card: str, advance, S: torch.Tensor, t: torch.Tens
 
 
 # the staged step kernels' stages as the profiler names them
-STAGED_STEP_KERNELS = ("mhd::PrimStage", "mhd::TraceStage", "mhd::UpdateStage",
-                       "hydro::FluxStage", "hydro::UpdateStage")
+STAGED_STEP_KERNELS = ("mhd::PrimStage", "mhd::PrecursorStage", "mhd::FluxEmfStage",
+                       "mhd::UpdateStage", "hydro::FluxStage", "hydro::UpdateStage")
+
+
+# the MHD step kernel's rows (PERF.md section 6) and their names here
+STEP_ROWS = (("A", "mhd_step"), ("A'-compensated", "mhd_step_comp"),
+             ("A'-shear-main", "mhd_step_shear"), ("A'-stratified", "mhd_step_strat"),
+             ("3", "mhd_step_ghosted"), ("4", "mhd_window"), ("12", "zcarry_mhd"),
+             ("12 shear", "zcarry_mhd_shear"))
 
 
 def check_streamed(label: str, kernel: str, rows: dict) -> None:
@@ -3473,6 +3514,10 @@ def main() -> int:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name, (src, rep) in KERNELS.items()
     ]
+    for row, name in STEP_ROWS:
+        ms, (bound_ms, by) = measured["ms"][name], bounds[name]
+        print(f"[rows] {row} ({name}): {ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
+              f"{ms / bound_ms:.1f}x ({card})")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

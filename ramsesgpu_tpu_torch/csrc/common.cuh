@@ -18,6 +18,7 @@
 #include <cuda_runtime.h>
 #define HD __host__ __device__ __forceinline__
 #else
+#include <vector>
 #define HD inline
 #endif
 
@@ -294,6 +295,34 @@ inline int launch_cells(const F& f, long long n, void* stream) {
 #else
   (void)stream;
   for (long long c = 0; c < n; ++c) f(c);
+  return 0;
+#endif
+}
+
+#ifdef __CUDACC__
+template <typename T, typename F>
+__global__ void __launch_bounds__(F::NT, F::MIN_BLOCKS) for_each_block(F f) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  f(blockIdx.x, reinterpret_cast<T*>(smem));
+}
+#endif
+
+// Run f(b, tile) for every block b in [0, blocks): a CUDA block of F::NT
+// threads whose tile is F::BYTES of shared memory, on `stream`; in the host
+// build the blocks run in turn on one local tile, each of their phases a
+// serial loop (block_items, block_sync). Returns the cudaError_t (0 = ok).
+template <typename T, typename F>
+inline int launch_blocks(const F& f, long long blocks, void* stream) {
+#ifdef __CUDACC__
+  const int err = (int)cudaFuncSetAttribute(
+      for_each_block<T, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::BYTES);
+  if (err) return err;
+  for_each_block<T, F><<<(unsigned)blocks, F::NT, F::BYTES, (cudaStream_t)stream>>>(f);
+  return (int)cudaGetLastError();
+#else
+  (void)stream;
+  std::vector<T> tile(F::BYTES / sizeof(T));
+  for (long long b = 0; b < blocks; ++b) f(b, tile.data());
   return 0;
 #endif
 }

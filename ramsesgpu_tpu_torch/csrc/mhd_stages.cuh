@@ -1,10 +1,11 @@
-// The per-cell physics and the six stages of one 3D MHD+CT step, shared by
+// The per-cell physics and the five stages of one 3D MHD+CT step, shared by
 // the staged kernel (mhd_step.cu: one launch per stage over a stage buffer)
 // and the z-streaming kernel (zcarry_mhd.cu: every stage in one launch, on
 // a per-block ring of z planes). Each stage's body is ``at(p)`` on a site p
 // that names its cell and maps its neighbours: Site below (the stage
-// grid), or zcarry_mhd.cu's RingSite (the ring). The physics, the stages
-// and their modes are described in mhd_step.cu.
+// grid), mhd_step.cu's TileSite (the fused flux + EMF stage's tile in
+// shared memory) or zcarry_mhd.cu's RingSite (the ring). The physics, the
+// stages and their modes are described in mhd_step.cu.
 #pragma once
 
 #include "common.cuh"
@@ -12,15 +13,27 @@
 // its own namespace, as hydro_step.cu's (shared stage type names)
 namespace ramses::mhd {
 
-constexpr int NSTATE = 18;  // order: ops/trace_mhd3d.py STATE_NAMES
+// the 18 traced face / edge states, in the order of ops/trace_mhd3d.py
+// STATE_NAMES; none is stored: each is formed where it is read (traced)
+constexpr int NSTATE = 18;
 enum {
   QP_X = 0, QM_X, QP_Y, QM_Y, QP_Z, QM_Z,
   RT_X, RB_X, LT_X, LB_X,
   RT_Y, RB_Y, LT_Y, LB_Y,
   RT_Z, RB_Z, LT_Z, LB_Z
 };
+// the precursors of a cell's traced states, the trace's output: the
+// half-step cell values q2 [8]; the half-slopes hx, hy, hz of Q without the
+// face-normal field of their own axis [3][7]; the half-step face fields L2
+// [3] and R2 [3]; the transverse half-slopes of the face fields dF [face
+// axis][L/R][the two other axes]; the stratified gravity kick
+constexpr int PQ = 0, PH = 8, PL = 29, PR = 32, PF = 35, PKICK = 47, NPRE = 48;
+HD constexpr int ph_slot(int ax, int ch) { return PH + 7 * ax + (ch < IA + ax ? ch : ch - 1); }
+HD constexpr int pf_slot(int fax, int side, int along) {
+  return PF + 4 * fax + 2 * side + (along < fax ? along : along - 1);
+}
 constexpr int NFLUX = 5;  // rho, E, three momenta
-constexpr long long SCRATCH_PER_CELL = 8 + 3 + NSTATE * 8 + 3 * NFLUX + 3;
+constexpr long long SCRATCH_PER_CELL = 8 + 3 + NPRE + 3 * NFLUX + 3;
 constexpr long long SHEAR_SCRATCH_PER_CELL = SCRATCH_PER_CELL + 8;  // + Se
 constexpr int SLAB = 3;   // ghost columns of each sheared slab (ghost_width)
 constexpr int XH = 2;     // stage-grid columns beyond each x face (shear mode)
@@ -55,7 +68,7 @@ struct StepArgs {
                 //            window: the interior [8][in.n], out of place)
   T* Q;         // [8][ne]    primitives (ne: stage-grid cells)
   T* E;         // [3][ne]    Ex, Ey, Ez at the trace's edge centres
-  T* st;        // [18][8][ne] face / edge states
+  T* pre;       // [NPRE][ne] the traced states' precursors
   T* fl;        // [3][5][ne] face fluxes x, y, z
   T* emf;       // [3][ne]    edge EMFs z, y, x
   T* Se;        // shear: [8][ne] the state on the stage grid (written by prim)
@@ -173,6 +186,16 @@ struct Site {
     cs = t;
     co = t;
   }
+  // the stage-grid cell (x, y, z): the cell the thread-index constructor
+  // gives for t = cell_at(a.e, x, y, z), without its divisions
+  HD Site(const StepArgs<T>& a_, int x, int y, int z) : a(a_) {
+    i = x - (M::WINDOW ? WH : M::SHEAR ? XH : 0);
+    j = y - (M::WINDOW ? WH : 0);
+    k = z - (M::WINDOW ? WH : ZOFF);
+    c = cell_at(a.e, x, y, z);
+    cs = M::WINDOW ? cell_at(a.d, i + a.g, j + a.g, k + a.g) : c;
+    co = c;
+  }
   // ghosted: whether the cell is in the interior (not the CT face layer)
   HD bool interior() const {
     return i < a.g + a.in.nx && j < a.g + a.in.ny && k < a.g + a.in.nz;
@@ -192,24 +215,36 @@ struct Site {
       return cell_at(a.e, clamp_i(i + di, -XH, a.e.nx - XH - 1) + XH, jj, kk);
     return cell_at(a.d, wrap_d(i, di, a.d.nx), jj, kk);
   }
+  // the stage-grid index of stage-grid cell (x, y, z), each coordinate at
+  // least -1: a -1 is q's neighbour of cell 0 below it (the x, y, z rules
+  // of q: wrap, or clamp in x (shear), z (stratified), every axis (window))
+  HD static long long grid_index(const StepArgs<T>& a, int x, int y, int z) {
+    constexpr bool wrap_x = !M::SHEAR, wrap_y = !M::WINDOW, wrap_z = !M::STRAT && !M::WINDOW;
+    if (x < 0) x = wrap_x ? a.e.nx - 1 : 0;
+    if (y < 0) y = wrap_y ? a.e.ny - 1 : 0;
+    if (z < 0) z = wrap_z ? a.e.nz - 1 : 0;
+    return cell_at(a.e, x, y, z);
+  }
   // the index of the neighbour (i+di, j+dj, k+dk), or of this cell, in
   // each intermediate array, and the array's channel stride; here every
   // array lies on the stage grid (zcarry_mhd.cu's RingSite gives each its
-  // own ring): Q, E, the fluxes and EMFs, and state s of the traced states
+  // own ring): Q, E, the fluxes and EMFs, and the precursors
   HD long long iq(int di, int dj, int dk) const { return q(di, dj, dk); }
   HD long long ie(int di, int dj, int dk) const { return q(di, dj, dk); }
   HD long long iflux(int di, int dj, int dk) const { return q(di, dj, dk); }
-  HD long long ist(int s, int di, int dj, int dk) const {
-    return (long long)s * 8 * a.e.n + q(di, dj, dk);
-  }
-  HD long long ist(int s) const { return (long long)s * 8 * a.e.n + c; }
   HD long long cq() const { return c; }
   HD long long ce() const { return c; }
   HD long long cflux() const { return c; }
   HD long long nq() const { return a.e.n; }
   HD long long ne() const { return a.e.n; }
   HD long long nflux() const { return a.e.n; }
-  HD long long nst() const { return a.e.n; }
+  // precursor v of this cell (the trace's output slot) and of the neighbour
+  // (di, dj, dk), read from the stage buffer (the operation counts' per-cell
+  // flux + EMF stage; the kernel's reads its tile, mhd_step.cu TileSite)
+  HD long long ipre(int v) const { return (long long)v * a.e.n + c; }
+  HD T pre(int v, int di, int dj, int dk) const {
+    return a.pre[(long long)v * a.e.n + q(di, dj, dk)];
+  }
   // prim's copy of the cell's state sc (shear: the later stages read it, s)
   HD void keep_state(const T* sc) const {
     if constexpr (M::SHEAR && !M::WINDOW) {
@@ -660,9 +695,11 @@ struct EFieldStage {
   }
 };
 
-// 3: trace_mhd3d.py trace_mhd3d_state_parts for one cell
+// 3: trace_mhd3d.py trace_mhd3d_state_parts for one cell, up to the
+// precursors its 18 states are formed from (traced); stored in the
+// precursor slots (PQ ... PKICK) of the site's array
 template <typename T, typename M>
-struct TraceStage {
+struct PrecursorStage {
   StepArgs<T> a;
   // limited slope of state channel ch along one axis (neighbours -1, +1)
   template <typename P>
@@ -794,83 +831,90 @@ struct TraceStage {
     const T L2[3] = {AL + sAL0, BL + sBL0, CL + sCL0};
     const T R2[3] = {AR + sAR0, BR + sBR0, CR + sCR0};
     // transverse half-slopes of the face fields: dF[face axis][L/R][along]
-    // (only the two transverse entries are used)
+    // (only the two transverse entries are kept)
     const T dF[3][2][3] = {
         {{T(0), dALy, dALz}, {T(0), dARy, dARz}},
         {{dBLx, T(0), dBLz}, {dBRx, T(0), dBRz}},
         {{dCLx, dCLy, T(0)}, {dCRx, dCRy, T(0)}},
     };
     const T* hd[3] = {hx, hy, hz};
-    const int face_ch[3] = {IA, IB, IC};
-    T* st = a.st;
-    const long long ns = p.nst();
-    // stratified: the half-dt kick of the vertical gravity on every traced
-    // state (godunov_mhd.py:213-218, after the floors)
-    T kick = T(0);
-    if constexpr (M::STRAT) kick = (T(0.5) * dt) * p.gz();
-
-    // face states: qp (left face, sign -1) and qm (right face, sign +1)
+    T* out = a.pre;
+#pragma unroll
+    for (int ch = 0; ch < 8; ++ch) out[p.ipre(PQ + ch)] = q2[ch];
 #pragma unroll
     for (int ax = 0; ax < 3; ++ax) {
 #pragma unroll
-      for (int side = 0; side < 2; ++side) {
-        const T s = side ? T(1) : T(-1);
-        T* out = st + p.ist(2 * ax + side);
+      for (int ch = 0; ch < 8; ++ch)
+        if (ch != IA + ax) out[p.ipre(ph_slot(ax, ch))] = hd[ax][ch];
+      out[p.ipre(PL + ax)] = L2[ax];
+      out[p.ipre(PR + ax)] = R2[ax];
 #pragma unroll
-        for (int ch = 0; ch < 8; ++ch) {
-          T val = ch == face_ch[ax] ? (side ? R2[ax] : L2[ax]) : q2[ch] + s * hd[ax][ch];
-          if (ch == ID) val = pmax(ph.smallr, val);
-          if (ch == IP) val = pmax(ph.smallp, val);
-          if (M::STRAT && ch == IW) val = val + kick;
-          out[ch * ns] = val;
-        }
-      }
+      for (int side = 0; side < 2; ++side)
+#pragma unroll
+        for (int along = 0; along < 3; ++along)
+          if (along != ax) out[p.ipre(pf_slot(ax, side, along))] = dF[ax][side][along];
     }
-
-    // edge states of family f (edges along axis f, varying in the two
-    // other axes d1 < d2): RT (+,+), RB (+,-), LT (-,+), LB (-,-)
-    const int fam_axes[3][2] = {{1, 2}, {0, 2}, {0, 1}};
-#pragma unroll
-    for (int f = 0; f < 3; ++f) {
-      const int d1 = fam_axes[f][0], d2 = fam_axes[f][1];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int p1 = (e < 2) ? 1 : 0;        // R in d1
-        const int p2 = (e % 2 == 0) ? 1 : 0;   // T in d2
-        const T s1 = p1 ? T(1) : T(-1);
-        const T s2 = p2 ? T(1) : T(-1);
-        T* out = st + p.ist(6 + 4 * f + e);
-#pragma unroll
-        for (int ch = 0; ch < 8; ++ch) {
-          T val;
-          if (ch == face_ch[d1]) {
-            val = (p1 ? R2[d1] : L2[d1]) + s2 * dF[d1][p1][d2];
-          } else if (ch == face_ch[d2]) {
-            val = (p2 ? R2[d2] : L2[d2]) + s1 * dF[d2][p2][d1];
-          } else {
-            val = q2[ch] + s1 * hd[d1][ch] + s2 * hd[d2][ch];
-          }
-          if (ch == ID) val = pmax(ph.smallr, val);
-          if (ch == IP) val = pmax(ph.smallp, val);
-          if (M::STRAT && ch == IW) val = val + kick;
-          out[ch * ns] = val;
-        }
-      }
-    }
+    // stratified: the half-dt kick of the vertical gravity on every traced
+    // state (godunov_mhd.py:213-218, after the floors)
+    if constexpr (M::STRAT) out[p.ipre(PKICK)] = (T(0.5) * dt) * p.gz();
   }
 };
 
-// 4: HLLD flux at each cell's left x, y, z face (godunov_mhd.py
+// channel ch of the traced state S (STATE_NAMES order) of the neighbour
+// (di, dj, dk) of site p, formed from its precursors (p.pre) as the trace
+// forms it (trace_mhd3d.py trace_mhd3d_state_parts): a face state is q2 -+
+// the half-slope of its axis (the face-normal field: L2 or R2), an edge
+// state of family f (edges along f, varying in d1 < d2; RT (+,+), RB (+,-),
+// LT (-,+), LB (-,-)) adds the half-slopes of d1 and d2 in turn (a face
+// field: its L2 or R2 and its transverse half-slope), then the floors and,
+// stratified, the gravity kick. The signs are +-1, so the state equals the
+// one the trace would store, bit for bit.
+template <typename M, int S, typename T, typename P>
+HD T traced(const Phys<T>& ph, const P& p, int di, int dj, int dk, int ch) {
+  const auto at = [&](int v) { return p.pre(v, di, dj, dk); };
+  T val;
+  if constexpr (S < 6) {
+    constexpr int ax = S / 2, side = S % 2;
+    const T s = side ? T(1) : T(-1);
+    val = ch == IA + ax ? at(side ? PR + ax : PL + ax) : at(PQ + ch) + s * at(ph_slot(ax, ch));
+  } else {
+    constexpr int f = (S - 6) / 4, e = (S - 6) % 4;
+    constexpr int d1 = f == 0 ? 1 : 0, d2 = f == 2 ? 1 : 2;
+    constexpr int p1 = e < 2 ? 1 : 0, p2 = e % 2 == 0 ? 1 : 0;  // R in d1, T in d2
+    const T s1 = p1 ? T(1) : T(-1);
+    const T s2 = p2 ? T(1) : T(-1);
+    if (ch == IA + d1)
+      val = at(p1 ? PR + d1 : PL + d1) + s2 * at(pf_slot(d1, p1, d2));
+    else if (ch == IA + d2)
+      val = at(p2 ? PR + d2 : PL + d2) + s1 * at(pf_slot(d2, p2, d1));
+    else
+      val = at(PQ + ch) + s1 * at(ph_slot(d1, ch)) + s2 * at(ph_slot(d2, ch));
+  }
+  if (ch == ID) val = pmax(ph.smallr, val);
+  if (ch == IP) val = pmax(ph.smallp, val);
+  if constexpr (M::STRAT) {
+    if (ch == IW) val = val + at(PKICK);
+  }
+  return val;
+}
+
+// 4: the HLLD flux at each cell's left x, y, z face (godunov_mhd.py
 // mhd_fluxes_emfs: qm of the previous cell against this cell's qp, the y/z
-// problems rotated into the x slots and the flux rotated back)
+// problems rotated into the x slots and the flux rotated back) and the
+// 2D-HLLD EMFs at its z, y, x edges (note the reference's RB/LT role swap
+// for EMF_Y), each state formed from the precursors (traced) where it is
+// read. p: a site whose pre() reads the precursors of the cell and of its
+// -1 neighbours (x, y, z and the pairs xy, xz, yz). operator() is one cell
+// of the stage grid read from the stage buffer (the operation counts);
+// the kernel runs it on a tile (mhd_step.cu FluxEmfStage).
 template <typename T, typename M>
-struct FluxStage {
+struct FluxEmf {
   StepArgs<T> a;
-  // q: the traced state at a.st[o] (channel stride ns), permuted
-  HD void load(long long o, long long ns, const int* perm, T* q) const {
-    const T* src = a.st + o;
+  // state S of the neighbour (di, dj, dk), its channels permuted
+  template <int S, typename P>
+  HD void state(const P& p, int di, int dj, int dk, const int* perm, T* q) const {
 #pragma unroll
-    for (int ch = 0; ch < 8; ++ch) q[ch] = src[perm[ch] * ns];
+    for (int ch = 0; ch < 8; ++ch) q[ch] = traced<M, S>(a.ph, p, di, dj, dk, perm[ch]);
   }
   HD void operator()(long long t) const {
     if (!*a.active) return;
@@ -878,22 +922,34 @@ struct FluxStage {
   }
   template <typename P>
   HD void at(const P& p) const {
-    axis<0>(p);
-    axis<1>(p);
-    axis<2>(p);
+    for (int k = 0; k < 6; ++k) part(p, k);
+  }
+  // output k: the x, y, z face fluxes (0-2), the z, y, x edge EMFs (3-5);
+  // the kernels pick k at run time, so each part is compiled on its own,
+  // alike in both (mhd_step.cu FluxEmfStage, zcarry_mhd.cu)
+  template <typename P>
+  HD void part(const P& p, int k) const {
+    switch (k) {
+      case 0: axis<0>(p); break;
+      case 1: axis<1>(p); break;
+      case 2: axis<2>(p); break;
+      case 3: edge<0>(p); break;
+      case 4: edge<1>(p); break;
+      default: edge<2>(p); break;
+    }
   }
   // the flux through the cell's left face along AX
   template <int AX, typename P>
   HD void axis(const P& p) const {
-    const long long n = p.nflux(), c = p.cflux(), ns = p.nst();
+    const long long n = p.nflux(), c = p.cflux();
     // component rotation of the sweep (godunov_mhd.py _PERM_Y/_Z)
     const int perm[8] = {ID, IP, AX == 0 ? IU : AX == 1 ? IV : IW, AX == 1 ? IU : IV,
                          AX == 2 ? IU : IW, AX == 0 ? IA : AX == 1 ? IB : IC,
                          AX == 1 ? IA : IB, AX == 2 ? IA : IC};
     T ql[8], qr[8], f[NFLUX];
     // qm of the previous cell, qp of this one
-    load(p.ist(2 * AX + 1, -(AX == 0), -(AX == 1), -(AX == 2)), ns, perm, ql);
-    load(p.ist(2 * AX), ns, perm, qr);
+    state<2 * AX + 1>(p, -(AX == 0), -(AX == 1), -(AX == 2), perm, ql);
+    state<2 * AX>(p, 0, 0, 0, perm, qr);
     riemann_hlld<M>(a.ph, ql, qr, f);
     T* out = a.fl + (long long)AX * NFLUX * n;
     // rotate back: out[ch] = f[perm[ch]] (perm is an involution and keeps
@@ -901,40 +957,18 @@ struct FluxStage {
 #pragma unroll
     for (int ch = 0; ch < NFLUX; ++ch) out[ch * n + c] = f[perm[ch]];
   }
-};
-
-// 5: EMFs at the z, y, x edges of each cell (godunov_mhd.py
-// mhd_fluxes_emfs; note the reference's RB/LT role swap for EMF_Y)
-template <typename T, typename M>
-struct EmfStage {
-  StepArgs<T> a;
-  // q: the traced state at a.st[o] (channel stride ns)
-  HD void load(long long o, long long ns, T* q) const {
-    const T* src = a.st + o;
-#pragma unroll
-    for (int ch = 0; ch < 8; ++ch) q[ch] = src[ch * ns];
-  }
-  HD void operator()(long long t) const {
-    if (!*a.active) return;
-    at(Site<T, M>(a, t));
-  }
-  template <typename P>
-  HD void at(const P& p) const {
-    edge<0>(p);
-    edge<1>(p);
-    edge<2>(p);
-  }
   // the EMF of the cell's edge family F: 0 z, 1 y, 2 x
   template <int F, typename P>
   HD void edge(const P& p) const {
-    const long long n = p.nflux(), c = p.cflux(), ns = p.nst();
+    const long long n = p.nflux(), c = p.cflux();
+    const int id[8] = {0, 1, 2, 3, 4, 5, 6, 7};
     T qRT[8], qRB[8], qLT[8], qLB[8];
     if constexpr (F == 0) {
       // EMF_Z at (i-1/2, j-1/2, k)
-      load(p.ist(RT_Z, -1, -1, 0), ns, qRT);
-      load(p.ist(RB_Z, -1, 0, 0), ns, qRB);
-      load(p.ist(LT_Z, 0, -1, 0), ns, qLT);
-      load(p.ist(LB_Z), ns, qLB);
+      state<RT_Z>(p, -1, -1, 0, id, qRT);
+      state<RB_Z>(p, -1, 0, 0, id, qRB);
+      state<LT_Z>(p, 0, -1, 0, id, qLT);
+      state<LB_Z>(p, 0, 0, 0, id, qLB);
       T ez = compute_emf<M>(a.ph, qRT, qRB, qLT, qLB, IU, IV, IW, IA, IB, IC);
       if constexpr (M::SHEAR) {
         // upwind shear term on the in-plane Bx (riemann_mhd.py:604-605)
@@ -944,17 +978,17 @@ struct EmfStage {
       a.emf[c] = ez;
     } else if constexpr (F == 1) {
       // EMF_Y at (i-1/2, j, k-1/2)
-      load(p.ist(RT_Y, -1, 0, -1), ns, qRT);
-      load(p.ist(LT_Y, 0, 0, -1), ns, qRB);
-      load(p.ist(RB_Y, -1, 0, 0), ns, qLT);
-      load(p.ist(LB_Y), ns, qLB);
+      state<RT_Y>(p, -1, 0, -1, id, qRT);
+      state<LT_Y>(p, 0, 0, -1, id, qRB);
+      state<RB_Y>(p, -1, 0, 0, id, qLT);
+      state<LB_Y>(p, 0, 0, 0, id, qLB);
       a.emf[n + c] = compute_emf<M>(a.ph, qRT, qRB, qLT, qLB, IW, IU, IV, IC, IA, IB);
     } else {
       // EMF_X at (i, j-1/2, k-1/2)
-      load(p.ist(RT_X, 0, -1, -1), ns, qRT);
-      load(p.ist(RB_X, 0, -1, 0), ns, qRB);
-      load(p.ist(LT_X, 0, 0, -1), ns, qLT);
-      load(p.ist(LB_X), ns, qLB);
+      state<RT_X>(p, 0, -1, -1, id, qRT);
+      state<RB_X>(p, 0, -1, 0, id, qRB);
+      state<LT_X>(p, 0, 0, -1, id, qLT);
+      state<LB_X>(p, 0, 0, 0, id, qLB);
       T ex = compute_emf<M>(a.ph, qRT, qRB, qLT, qLB, IV, IW, IU, IB, IC, IA);
       if constexpr (M::SHEAR) {
         // upwind shear term on the in-plane Bz (riemann_mhd.py:601-603)
@@ -986,7 +1020,7 @@ HD T ct_delta(const T* emf, long long n, int ch, long long c, long long cxp, lon
   return (f1[n1] - f1[c]) * s1 - (f2[n2] - f2[c]) * s2;
 }
 
-// 6: godunov_mhd.py mhd_apply_update: flux divergence and CT curl, in
+// 5: godunov_mhd.py mhd_apply_update: flux divergence and CT curl, in
 // place; the ghosted mode adds the flux divergence to the interior only
 // and the CT curl to the cube g .. n + g of every axis, as the JAX
 // whole-array step does (godunov_mhd.py:657-669, 733-744); the shear mode

@@ -87,19 +87,36 @@
 // mode), so the TPU layout's 8-row y ghost bands and in-kernel ghost band
 // writes have no counterpart: pack is a slice, unpack the ghost fill.
 //
-// Design (first, simple version): six stages, one thread per cell each,
-// intermediates in device memory (one scratch buffer the Python wrapper
-// allocates once per advance):
-//   1 prim    S -> Q[8]           constoprim, cell-centred B
-//   2 efield  Q, S -> E[3]        edge-centred Ex, Ey, Ez of the trace
-//   3 trace   Q, S, E -> st[18][8] face states qp/qm (x, y, z) and the
-//                                  4 corner states of each edge family
-//   4 flux    st -> fl[3][5]      HLLD flux at each cell's left x/y/z face
-//   5 emf     st -> emf[3]        2D-HLLD EMF on the z, y, x edges
-//   6 update  S += dU, CT curl    in place (reads only fluxes, EMFs and the
-//                                  cell's own S)
+// Design: five stages; prim, efield, the precursors and the update run one
+// thread per cell, the fused flux + EMF stage one block per tile; the
+// intermediates live in one scratch buffer the Python wrapper allocates
+// once per advance:
+//   1 prim      S -> Q[8]           constoprim, cell-centred B
+//   2 efield    Q, S -> E[3]        edge-centred Ex, Ey, Ez of the trace
+//   3 precursor Q, S, E -> pre[48]  the trace up to what its 18 face / edge
+//                                    states are formed from: q2, the
+//                                    half-slopes of Q, the half-step face
+//                                    fields and their transverse
+//                                    half-slopes (mhd_stages.cuh PQ ... PKICK)
+//   4 flux+EMF  pre -> fl[3][5],    HLLD flux at each cell's left x/y/z face,
+//               emf[3]              2D-HLLD EMF on its z, y, x edges
+//   5 update    S += dU, CT curl    in place (reads only fluxes, EMFs and the
+//                                    cell's own S)
+// No traced state is stored: each of the 18 is a sum of a few precursors of
+// its cell with signs +-1, then the floors (and the stratified kick), so
+// stage 4 forms each where it is read (mhd_stages.cuh traced), with the
+// same bits as the trace would have stored, and each is read by one face
+// or edge only. Stage 4 needs the precursors of a cell and of its -1
+// neighbours in x, y, z and the pairs xy, xz, yz: a block takes a tile of
+// TX x TY columns (FluxTile) and a chunk of z planes, and walks the planes
+// upwards with the precursors of the tile and a one-cell halo on its -x and
+// -y sides staged in shared memory, for the plane and the one below
+// (TileSite); its threads stride over the cells' six outputs, a work item
+// each.
+// The stage buffer holds 77 values per stage-grid cell (8 + 3 + 48 + 15 +
+// 3; shear: + 8), where the trace's 144 stored states made it 173.
 // In the shearing-box mode the intermediates live on a stage grid of
-// nx + 2*XH columns (XH = 2 on each side). Stages 1-5 compute every cell
+// nx + 2*XH columns (XH = 2 on each side). Stages 1-4 compute every cell
 // of it, with their x reads clamped to the grid (and the state's to its
 // slabs): the cells later stages read, columns -2..nx+1 for prim down to
 // 0..nx for the fluxes and EMFs, see only unclamped data, and the stages
@@ -108,7 +125,8 @@
 // store-heavy trace far below the periodic mode's rate (PERF.md). The
 // update runs on the state's cells. Only prim loads the state through the
 // slab rule (a branch per load); it copies its cell's state onto the
-// stage grid (Se[8]), which efield and trace then read by plain index.
+// stage grid (Se[8]), which efield and the precursors then read by plain
+// index.
 // The per-cell physics is transcribed from the JAX formulas (ops/eos.py,
 // ops/slopes.py, ops/trace_mhd3d.py, ops/riemann_mhd.py,
 // solvers/godunov_mhd.py) keeping their hoisted reciprocals and shared
@@ -121,12 +139,11 @@
 // Bound on the H100: the step's least time is its arithmetic, 2979
 // counted flops per cell (op_count.cuh), 0.75 ms at 256^3 at the f32
 // peak, against 64 B/cell of state read and written (0.32 ms at
-// 3.35 TB/s). This staged version is bound by its own stage traffic
-// instead: per cell and step the stages write 8+3+144+15+3+8 = 181 values
-// and read about as many (the trace's 144 state values are each read by
-// the flux or EMF stage), ~1.4 kB per cell in f32, ~24 GB at 256^3, ~7 ms
-// per step at 3.35 TB/s. Fusing stages to keep the 144 state values on
-// chip is the next step for speed.
+// 3.35 TB/s). This staged version moves its stage buffer besides: per
+// cell and step the stages write 8+3+48+15+3 = 77 values (shear: +8) and
+// read about as many again (the precursors once more for a tile's halo,
+// 1.2x at the f32 tile), ~0.8 kB per cell in f32, where storing the 144
+// traced states made it ~1.4 kB.
 #include "mhd_stages.cuh"
 
 namespace ramses::mhd {
@@ -138,8 +155,8 @@ void carve(StepArgs<T>& a, T* scratch) {
   const long long n = a.e.n;
   a.Q = scratch;
   a.E = a.Q + 8 * n;
-  a.st = a.E + 3 * n;
-  a.fl = a.st + (long long)NSTATE * 8 * n;
+  a.pre = a.E + 3 * n;
+  a.fl = a.pre + (long long)NPRE * n;
   a.emf = a.fl + 3 * NFLUX * n;
   a.Se = M::SHEAR && !M::WINDOW ? a.emf + 3 * n : nullptr;
 }
@@ -166,7 +183,92 @@ StepArgs<T> step_args(T* S, T* scratch, const T* slabs, T* planes, const T* zsla
   return a;
 }
 
-// stages 1-5 over the stage grid, the update over n_update cells (the
+// the fused flux + EMF stage's tile of TX x TY output columns, per dtype
+// (the primary template: f64, and the operation counts' Counted): a block
+// of TX TY threads stages the precursors of (TX + 1) x (TY + 1) cells of
+// two planes, 58,752 B in f32 and 62,208 B in f64, so three blocks share
+// an SM (MIN_BLOCKS, which also caps the registers at 168 a thread)
+template <typename T>
+struct FluxTile {
+  static constexpr int TX = 8, TY = 8;
+};
+template <>
+struct FluxTile<float> {
+  static constexpr int TX = 16, TY = 8;
+};
+constexpr int FLUX_BZ = 32;  // z planes of a block's chunk (one more below it is staged)
+
+// a stage-grid cell of the fused stage's tile: its Site (output index,
+// x) and its precursors and its -1 neighbours' from the tile, the plane of
+// the cell in slot z & 1 and the one below in the other
+template <typename T, typename M, int W, int PP>
+struct TileSite {
+  const Site<T, M>& s;
+  const T* tile;  // [2 planes][NPRE][PP]
+  int slot;       // the cell's plane
+  int cell;       // the cell's place in a plane: (row + 1) W + column + 1
+  HD T pre(int v, int di, int dj, int dk) const {
+    return tile[((dk == 0 ? slot : 1 - slot) * NPRE + v) * PP + cell + dj * W + di];
+  }
+  HD long long nflux() const { return s.nflux(); }
+  HD long long cflux() const { return s.cflux(); }
+  HD T xpos() const { return s.xpos(); }
+};
+
+// 4: the fused flux + EMF stage (FluxEmf) on the whole stage grid, one
+// block per tile and z chunk: at each plane z of its chunk (and the one
+// below it, first) the block loads the plane's precursors of the tile and
+// its halo into the tile slot z & 1, then the block's threads stride over
+// the six outputs of each cell from the tile, each a work item (part k of
+// FluxEmf), as the streamed kernel's flux phase does. The halo's -1
+// neighbours follow the site's rule (Site::grid_index); cells beyond the
+// grid's far edges are neither loaded nor computed.
+template <typename T, typename M>
+struct FluxEmfStage {
+  static constexpr int TX = FluxTile<T>::TX, TY = FluxTile<T>::TY;
+  static constexpr int W = TX + 1, PP = (TX + 1) * (TY + 1), CELLS = TX * TY;
+  static constexpr int NT = CELLS, MIN_BLOCKS = 3;
+  static constexpr long long BYTES = 2LL * NPRE * PP * (long long)sizeof(T);
+  StepArgs<T> a;
+  int ntx, nty;
+  long long blocks;
+
+  explicit FluxEmfStage(const StepArgs<T>& a_) : a(a_) {
+    ntx = (a.e.nx + TX - 1) / TX;
+    nty = (a.e.ny + TY - 1) / TY;
+    blocks = (long long)ntx * nty * ((a.e.nz + FLUX_BZ - 1) / FLUX_BZ);
+  }
+  HD void operator()(long long b, T* tile) const {
+    if (!*a.active) return;
+    const int x0 = (int)(b % ntx) * TX;
+    const long long r = b / ntx;
+    const int y0 = (int)(r % nty) * TY, z0 = (int)(r / nty) * FLUX_BZ;
+    const int z1 = a.e.nz - z0 < FLUX_BZ ? a.e.nz : z0 + FLUX_BZ;
+    for (int z = z0 - 1; z < z1; ++z) {
+      T* plane = tile + (long long)(z & 1) * NPRE * PP;
+      block_sync();  // the slot's last readers (plane z - 1's cells) are done
+      block_items(PP, [&](int cell) {
+        const int x = x0 - 1 + cell % W, y = y0 - 1 + cell / W;
+        if (x >= a.e.nx || y >= a.e.ny) return;
+        const long long g = Site<T, M>::grid_index(a, x, y, z);
+#pragma unroll
+        for (int v = 0; v < NPRE; ++v) plane[v * PP + cell] = a.pre[(long long)v * a.e.n + g];
+      });
+      block_sync();
+      if (z < z0) continue;
+      block_items(6 * CELLS, [&](int t) {
+        const int k = t / CELLS, c = t - k * CELLS;
+        const int x = x0 + c % TX, y = y0 + c / TX;
+        if (x >= a.e.nx || y >= a.e.ny) return;
+        const Site<T, M> s(a, x, y, z);
+        FluxEmf<T, M>{a}.part(
+            TileSite<T, M, W, PP>{s, tile, z & 1, (c / TX + 1) * W + c % TX + 1}, k);
+      });
+    }
+  }
+};
+
+// stages 1-4 over the stage grid, the update over n_update cells (the
 // state's; ghosted: the cube g .. n + g)
 template <typename T, typename M>
 int run_stages(const StepArgs<T>& a, bool comp, long long n_update, void* stream) {
@@ -174,9 +276,9 @@ int run_stages(const StepArgs<T>& a, bool comp, long long n_update, void* stream
   int err;
   if ((err = launch_cells(PrimStage<T, M>{a}, n, stream))) return err;
   if ((err = launch_cells(EFieldStage<T, M>{a}, n, stream))) return err;
-  if ((err = launch_cells(TraceStage<T, M>{a}, n, stream))) return err;
-  if ((err = launch_cells(FluxStage<T, M>{a}, n, stream))) return err;
-  if ((err = launch_cells(EmfStage<T, M>{a}, n, stream))) return err;
+  if ((err = launch_cells(PrecursorStage<T, M>{a}, n, stream))) return err;
+  const FluxEmfStage<T, M> flux_emf(a);
+  if ((err = launch_blocks<T>(flux_emf, flux_emf.blocks, stream))) return err;
   if constexpr (!M::WINDOW) {  // the window mode has no compensated update
     if (comp) return launch_cells(UpdateStage<T, M, true>{a}, n_update, stream);
   }
@@ -378,6 +480,51 @@ int ramses_mhd_step_shear_f64(double* S, double* scratch, const double* slabs, d
 
 }  // extern "C"
 
+#ifndef __CUDACC__
+namespace ramses::mhd {
+
+// the traced states S.. of stage cell p, formed as the flux + EMF stage
+// forms them, into out [18][8][n]
+template <int S = 0, typename T, typename P>
+void store_traced(const Phys<T>& ph, const P& p, T* out, long long n) {
+  for (int ch = 0; ch < 8; ++ch)
+    out[((long long)S * 8 + ch) * n + p.c] = traced<Periodic, S>(ph, p, 0, 0, 0, ch);
+  if constexpr (S + 1 < NSTATE) store_traced<S + 1>(ph, p, out, n);
+}
+
+// the periodic step's 18 traced states of every cell, formed from the
+// precursor stage's output (stages 1-3 on S)
+template <typename T>
+int traced_states(T* S, T* scratch, T* out, const T* dt, int nx, int ny, int nz,
+                  const double* prm) {
+  const unsigned char active = 1;
+  const StepArgs<T> a = step_args<T, Periodic>(S, scratch, nullptr, nullptr, nullptr, nullptr,
+                                               false, dt, &active, nx, ny, nz, prm);
+  launch_cells(PrimStage<T, Periodic>{a}, a.e.n, nullptr);
+  launch_cells(EFieldStage<T, Periodic>{a}, a.e.n, nullptr);
+  launch_cells(PrecursorStage<T, Periodic>{a}, a.e.n, nullptr);
+  for (long long t = 0; t < a.e.n; ++t) store_traced(a.ph, Site<T, Periodic>(a, t), out, a.e.n);
+  return 0;
+}
+
+}  // namespace ramses::mhd
+
+// host builds: the 18 traced states [18][8][nz][ny][nx] (ops/trace_mhd3d.py
+// STATE_NAMES order) of the periodic step of S [8][nz][ny][nx] by dt, formed
+// from the precursors as the kernel's flux + EMF stage forms them
+extern "C" int ramses_mhd_traced_states_f32(float* S, float* scratch, float* out,
+                                            const float* dt, int nx, int ny, int nz,
+                                            const double* prm) {
+  return ramses::mhd::traced_states<float>(S, scratch, out, dt, nx, ny, nz, prm);
+}
+
+extern "C" int ramses_mhd_traced_states_f64(double* S, double* scratch, double* out,
+                                            const double* dt, int nx, int ny, int nz,
+                                            const double* prm) {
+  return ramses::mhd::traced_states<double>(S, scratch, out, dt, nx, ny, nz, prm);
+}
+#endif
+
 #ifdef RAMSES_COUNT_OPS
 // the floating-point operations of one step of S (op_count.cuh): S holds 8
 // channels, or 16 with comp (the state and its Kahan carry)
@@ -430,9 +577,8 @@ long long shear_step_ops(Counted* S, Counted* scratch, const Counted* slabs, Cou
                                                     dt, &active, nx, ny, nz, prm);
   long long ops = counted_cells<M>(PrimStage<Counted, M>{a}, a.e, -XH, XH - 1, nx, nz);
   ops += counted_cells<M>(EFieldStage<Counted, M>{a}, a.e, -1, 1, nx, nz);
-  ops += counted_cells<M>(TraceStage<Counted, M>{a}, a.e, -1, 0, nx, nz);
-  ops += counted_cells<M>(FluxStage<Counted, M>{a}, a.e, 0, 0, nx, nz);
-  ops += counted_cells<M>(EmfStage<Counted, M>{a}, a.e, 0, 0, nx, nz);
+  ops += counted_cells<M>(PrecursorStage<Counted, M>{a}, a.e, -1, 0, nx, nz);
+  ops += counted_cells<M>(FluxEmf<Counted, M>{a}, a.e, 0, 0, nx, nz);
   const long long before = Counted::ops;
   if (comp) {
     const UpdateStage<Counted, M, true> update{a};
@@ -464,9 +610,8 @@ inline long long ghosted_step_ops(Counted* U, Counted* scratch, const Counted* d
   };
   count(PrimStage<Counted, Ghosted>{a});
   count(EFieldStage<Counted, Ghosted>{a});
-  count(TraceStage<Counted, Ghosted>{a});
-  count(FluxStage<Counted, Ghosted>{a});
-  count(EmfStage<Counted, Ghosted>{a});
+  count(PrecursorStage<Counted, Ghosted>{a});
+  count(FluxEmf<Counted, Ghosted>{a});
   const UpdateStage<Counted, Ghosted, false> update{a};
   for (long long t = 0; t < ghosted_update_cells(nx, ny, nz); ++t) {
     const long long before = Counted::ops;
@@ -478,10 +623,10 @@ inline long long ghosted_step_ops(Counted* U, Counted* scratch, const Counted* d
 }
 
 // the window mode's step as it needs to be done: prim on cells -2..n+1 of
-// every axis, efield on -1..n+1, trace on -1..n, fluxes and EMFs on 0..n,
-// the update on the interior; the stage grid's other cells are computed
-// by the kernel but never read. per_stage (6 entries, or null) gets each
-// stage's share, in that order.
+// every axis, efield on -1..n+1, the precursors on -1..n, fluxes and EMFs
+// on 0..n, the update on the interior; the stage grid's other cells are
+// computed by the kernel but never read. per_stage (5 entries, or null)
+// gets each stage's share, in that order.
 template <typename M>
 long long window_step_ops(const StepArgs<Counted>& a, long long* per_stage) {
   long long ops = 0;
@@ -505,13 +650,12 @@ long long window_step_ops(const StepArgs<Counted>& a, long long* per_stage) {
   };
   count(PrimStage<Counted, M>{a}, -WH, WH - 1);
   count(EFieldStage<Counted, M>{a}, -1, 1);
-  count(TraceStage<Counted, M>{a}, -1, 0);
-  count(FluxStage<Counted, M>{a}, 0, 0);
-  count(EmfStage<Counted, M>{a}, 0, 0);
+  count(PrecursorStage<Counted, M>{a}, -1, 0);
+  count(FluxEmf<Counted, M>{a}, 0, 0);
   const long long before = Counted::ops;
   const UpdateStage<Counted, M, false> update{a};
   for (long long t = 0; t < a.in.n; ++t) update(t);
-  if (per_stage != nullptr) per_stage[5] = Counted::ops - before;
+  if (per_stage != nullptr) per_stage[4] = Counted::ops - before;
   return ops + Counted::ops - before;
 }
 
@@ -519,8 +663,8 @@ long long window_step_ops(const StepArgs<Counted>& a, long long* per_stage) {
 
 // the window mode's operations on a ghosted window U [8][nz+2g][ny+2g][nx+2g]
 // (ghosts filled), with g_z of its rows gz [nz + 2g] or null; prm[P_XMIN]
-// holds the window's x0; per_stage (6 entries: prim, efield, trace, flux,
-// EMF, update) or null
+// holds the window's x0; per_stage (5 entries: prim, efield, precursors,
+// fluxes and EMFs, update) or null
 extern "C" long long ramses_mhd_step_window_ops(const double* U, const double* gz, int nx,
                                                 int ny, int nz, int g, const double* prm,
                                                 double dt, long long* per_stage) {

@@ -23,28 +23,28 @@
 //   block's threads stride over it; block_phase, block_sync):
 //     prim (m)         columns -2 .. W+1   Q
 //     efield (m)       -1 .. W+1          E
-//     trace (m - 1)    -1 .. W            the 18 face / edge states
+//     precursor (m-1)  -1 .. W            what the 18 face / edge states
+//                                         are formed from (mhd_stages.cuh)
 //     flux, emf (m-1)  0 .. W             x, y, z face fluxes and the
 //                                         z, y, x edge EMFs of plane m-1,
 //                                         each of the six a work item
+//                                         forming its states (FluxEmf)
 //     update (m - 2)   0 .. W-1           the new state into So (not S)
 //   (rows likewise; W, H: the tile's own extent, smaller at the grid's
 //   edge). The tile's halo columns and rows and the chunk's two warm-up
 //   planes are computed again by the neighbouring items.
 // - The ring keeps of each array only the planes a later phase reads:
-//     Q, Se   3 planes (trace reads m-2 .. m)        8 + 8 values
-//     E       2 planes (trace reads m-1, m)          3
-//     states  the plane being traced, and of the plane below only the
-//             five states a z face or edge reads (the z face's qm and
-//             the x and y edges' RT and LT corners), in 2 planes
-//                                                   13 x 8 + 2 x 5 x 8
-//     fluxes, EMFs  2 planes (update reads m-2, m-1) 2 x (15 + 3)
-//   274 values per ring cell (Se: the state, copied by prim). Per dtype
-//   the tile is the largest whose ring fits the 227 KB of shared memory a
-//   block may opt into (SMEM_LIMIT): f32 12 x 8 (16 x 12 ring cells,
-//   210,432 B), f64 8 x 4 (12 x 8, 210,432 B); one block per SM, of 352
-//   (f32) or 160 (f64) threads. The grid is persistent: as many blocks as the card holds at once,
-//   each striding over the work items, so nothing grows with nz.
+//     Q, Se       3 planes (the precursors read m-2 .. m)   8 + 8 values
+//     E           2 planes (the precursors read m-1, m)     3
+//     precursors  2 planes (a z face or edge reads m-2)     NPRE = 48
+//     fluxes, EMFs  2 planes (update reads m-2, m-1)        15 + 3
+//   189 values per ring cell with the folded CFL's three face values (Se:
+//   the state, copied by prim), where the 18 traced states made it 277.
+//   The tile: f32 8 x 8 (12 x 12 ring cells, 108,864 B), so two blocks of
+//   256 threads share an SM; f64 8 x 4 (12 x 8 ring cells, 145,152 B), one
+//   block of 160 threads per SM. The grid is persistent: as many blocks as
+//   the card holds at once, each striding over the work items, so nothing
+//   grows with nz.
 // - Two state buffers: a block reads halo cells of its neighbours' tiles,
 //   so the step reads S and writes So (a single launch cannot update in
 //   place). The Python loop swaps them each step.
@@ -64,48 +64,33 @@
 // Bound on the H100: the step's arithmetic, as mhd_step.cu (2979 counted
 // flops per cell in the periodic mode, 0.75 ms at 256^3 at the f32 peak;
 // state in and out 64 B/cell, 0.32 ms), plus the folded CFL's ~69 flops
-// per cell; the halo recomputation adds 1.46x the trace's cells and 1.22x
-// the fluxes' at the f32 tile.
+// per cell; the halo recomputation adds 1.56x the precursors' cells and
+// 1.27x the fluxes' at the f32 tile.
 #include "cfl_mhd.cuh"
 #include "mhd_stages.cuh"
-
-#ifndef __CUDACC__
-#include <vector>
-#endif
 
 namespace ramses::zmhd {
 
 using namespace ramses::mhd;
 
-// the (x, y) tile of a work item and the threads of a block, per dtype
+// the (x, y) tile of a work item, the threads of a block and the blocks an
+// SM holds, per dtype
 template <typename T>
 struct Tile;
 template <>
 struct Tile<float> {
-  static constexpr int TX = 12, TY = 8, NT = 384;
+  static constexpr int TX = 8, TY = 8, NT = 256, PER_SM = 2;
 };
 template <>
 struct Tile<double> {
-  static constexpr int TX = 8, TY = 4, NT = 160;
+  static constexpr int TX = 8, TY = 4, NT = 160, PER_SM = 1;
 };
 
 constexpr int LO = 2;        // ring columns (rows) below the tile: prim reaches -2
-constexpr int NCARRY = 5;    // traced states the plane above reads
-constexpr int NPLAIN = NSTATE - NCARRY;
-
-// the position of traced state s among the five the plane above reads
-// (FluxStage's z face, EmfStage's y and x edges at dk = -1), else -1; and
-// among the other thirteen
-HD int carry_pos(int s) {
-  return s == QM_Z ? 0 : s == RT_X ? 1 : s == LT_X ? 2 : s == RT_Y ? 3 : s == LT_Y ? 4 : -1;
-}
-HD int plain_pos(int s) {
-  return s - (s > QM_Z) - (s > RT_X) - (s > LT_X) - (s > RT_Y) - (s > LT_Y);
-}
 
 // a block's ring in shared memory: PP cells per plane; Q and the state
-// Se [8][3 planes], E [3][2], the plane's other states [13][8], the carried
-// states [2 planes][5][8], fluxes [3][5][2] and EMFs [3][2], each plane PP
+// Se [8][3 planes], E [3][2], the precursors [2][NPRE], fluxes [3][5][2]
+// and EMFs [3][2], and the folded CFL's face values [3], each plane PP
 // values
 template <typename T>
 struct Ring {
@@ -115,15 +100,18 @@ struct Ring {
   static constexpr int RQ = 3;  // planes of Q and Se (the others: 2)
   static constexpr long long OFF_SE = 8 * RQ * PP;
   static constexpr long long OFF_E = OFF_SE + 8 * RQ * PP;
-  static constexpr long long OFF_ST = OFF_E + 3 * 2 * PP;
-  static constexpr long long OFF_CARRY = NPLAIN * 8 * PP;  // from OFF_ST
-  static constexpr long long OFF_F = OFF_ST + OFF_CARRY + 2 * NCARRY * 8 * PP;
+  static constexpr long long OFF_PRE = OFF_E + 3 * 2 * PP;
+  static constexpr long long OFF_F = OFF_PRE + 2 * NPRE * PP;
   static constexpr long long OFF_EMF = OFF_F + 3 * NFLUX * 2 * PP;
   static constexpr long long OFF_FACE = OFF_EMF + 3 * 2 * PP;  // folded CFL: [3]
   static constexpr long long VALUES = OFF_FACE + 3 * PP;
   static constexpr long long BYTES = VALUES * (long long)sizeof(T);
+  // an SM's 228 KB hold PER_SM rings, each with the reduction's 32 values
+  // (atomic_max_nonneg) and the 1 KB the runtime keeps per block
+  static_assert(Tile<T>::PER_SM * (BYTES + 32 * (long long)sizeof(T) + 1024) <= 233472,
+                "the rings of the blocks an SM holds fit its shared memory");
   static_assert(BYTES + 32 * (long long)sizeof(T) <= SMEM_LIMIT,
-                "the ring and the reduction's 32 values (atomic_max_nonneg) fit a block");
+                "the ring and the reduction's 32 values fit a block");
 };
 
 template <typename T>
@@ -162,21 +150,18 @@ struct RingSite {
   HD long long iq(int di, int dj, int dk) const { return sq[dk + 1] * R::PP + cell(di, dj); }
   HD long long ie(int di, int dj, int dk) const { return s2[dk + 1] * R::PP + cell(di, dj); }
   HD long long iflux(int di, int dj, int dk) const { return ie(di, dj, dk); }
-  // state s of the neighbour: dk = -1 only for the carried states
-  HD long long ist(int s, int di, int dj, int dk) const {
-    const int cp = carry_pos(s);
-    if (cp >= 0)
-      return R::OFF_CARRY + ((long long)s2[dk + 1] * NCARRY + cp) * 8 * R::PP + cell(di, dj);
-    return (long long)plain_pos(s) * 8 * R::PP + cell(di, dj);
+  // precursor v of this cell (the precursor stage's output) and of the
+  // neighbour (di, dj, dk), dk = 0 or -1
+  HD long long ipre(int v) const { return ((long long)s2[1] * NPRE + v) * R::PP + cell(0, 0); }
+  HD T pre(int v, int di, int dj, int dk) const {
+    return a.pre[((long long)s2[dk + 1] * NPRE + v) * R::PP + cell(di, dj)];
   }
-  HD long long ist(int s) const { return ist(s, 0, 0, 0); }
   HD long long cq() const { return iq(0, 0, 0); }
   HD long long ce() const { return ie(0, 0, 0); }
   HD long long cflux() const { return ie(0, 0, 0); }
   HD long long nq() const { return R::RQ * R::PP; }
   HD long long ne() const { return 2 * R::PP; }
   HD long long nflux() const { return 2 * R::PP; }
-  HD long long nst() const { return R::PP; }
   // prim's copy of the cell's state, which the later stages read (s)
   HD void keep_state(const T* sc) const {
     const long long c = cq();
@@ -261,7 +246,7 @@ HD T run_block(const ZArgs<T>& z, T* ring, long long block, long long nblocks) {
   a.Q = ring;
   a.Se = ring + R::OFF_SE;
   a.E = ring + R::OFF_E;
-  a.st = ring + R::OFF_ST;
+  a.pre = ring + R::OFF_PRE;
   a.fl = ring + R::OFF_F;
   a.emf = ring + R::OFF_EMF;
   T* face = ring + R::OFF_FACE;
@@ -303,7 +288,7 @@ HD T run_block(const ZArgs<T>& z, T* ring, long long block, long long nblocks) {
       }
       if (m >= z0) {
         block_phase(W + 2, H + 2, -1, [&](int li, int lj) {
-          TraceStage<T, M>{a}.at(RingSite<T, M>(a, x0, y0, li, lj, m - 1));
+          PrecursorStage<T, M>{a}.at(RingSite<T, M>(a, x0, y0, li, lj, m - 1));
         });
         block_sync();
       }
@@ -313,24 +298,16 @@ HD T run_block(const ZArgs<T>& z, T* ring, long long block, long long nblocks) {
         const int w = W + 1, cells = (W + 1) * (H + 1);
         block_items(6 * cells, [&](int t) {
           const int part = t / cells, c = t - part * cells;
-          const RingSite<T, M> p(a, x0, y0, c % w, c / w, m - 1);
-          switch (part) {
-            case 0: FluxStage<T, M>{a}.template axis<0>(p); break;
-            case 1: FluxStage<T, M>{a}.template axis<1>(p); break;
-            case 2: FluxStage<T, M>{a}.template axis<2>(p); break;
-            case 3: EmfStage<T, M>{a}.template edge<0>(p); break;
-            case 4: EmfStage<T, M>{a}.template edge<1>(p); break;
-            default: EmfStage<T, M>{a}.template edge<2>(p); break;
-          }
+          FluxEmf<T, M>{a}.part(RingSite<T, M>(a, x0, y0, c % w, c / w, m - 1), part);
         });
         block_sync();
       }
       if (m - 2 >= z0) {
         // the update of each cell and, with the folded CFL, B on its three
         // +1 faces, each a work item; then the cells' inverse dt. No sync
-        // after: the next plane's prim, efield and trace write no ring
-        // array these phases read, and its flux phase comes after three
-        // syncs
+        // after: the next plane's prim, efield and precursors write no
+        // ring array these phases read, and its flux phase comes after
+        // three syncs
         const int cells = W * H;
         block_items(fold ? 4 * cells : cells, [&](int t) {
           const int part = t / cells, c = t - part * cells;
@@ -363,7 +340,7 @@ HD T run_block(const ZArgs<T>& z, T* ring, long long block, long long nblocks) {
 
 #ifdef __CUDACC__
 template <typename T, typename M>
-__global__ void __launch_bounds__(Ring<T>::NT, 1) zcarry_kernel(ZArgs<T> z) {
+__global__ void __launch_bounds__(Ring<T>::NT, Tile<T>::PER_SM) zcarry_kernel(ZArgs<T> z) {
   extern __shared__ __align__(16) unsigned char smem[];
   const T inv = run_block<T, M>(z, reinterpret_cast<T*>(smem), blockIdx.x, gridDim.x);
   if (z.inv != nullptr) atomic_max_nonneg(z.inv, inv);
@@ -461,6 +438,15 @@ extern "C" {
 long long ramses_zcarry_mhd_ring_bytes(int f64) {
   using namespace ramses::zmhd;
   return f64 ? Ring<double>::BYTES : Ring<float>::BYTES;
+}
+
+// the tile of a work item and the threads of a block: out[0] TX, out[1]
+// TY, out[2] the threads
+void ramses_zcarry_mhd_tile(int f64, int* out) {
+  using namespace ramses::zmhd;
+  out[0] = f64 ? Tile<double>::TX : Tile<float>::TX;
+  out[1] = f64 ? Tile<double>::TY : Tile<float>::TY;
+  out[2] = f64 ? Tile<double>::NT : Tile<float>::NT;
 }
 
 // the persistent grid of the mode (shear, stratified; isothermal from prm)

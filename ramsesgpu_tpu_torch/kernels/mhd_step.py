@@ -41,13 +41,14 @@ Kahan-adds each channel's increment. The ghosted mode has no compensated
 form: the JAX package's walled step has none either.
 
 The kernel updates the interior-only state [8, nz, ny, nx] in place. Its
-stage intermediates live in one scratch buffer (~11.6 GB at 256^3 f32;
-the shearing box's stage grid has nx + 4 columns, the stratified one
-nz + 4 rows too; the ghosted mode's is the ghosted array, ~12.4 GB at
-256^3) that the caller allocates once per advance with
-``MhdStepKernel.scratch`` (``ghosted=True`` for the ghosted mode); the
-shear window mode's stage grid is the interior and 2 cells a side
-(``MhdWindowKernel.scratch``, ~0.82 GB for a 64x128x128 f32 block).
+stage intermediates live in one scratch buffer of 77 values per
+stage-grid cell (~5.2 GB at 256^3 f32; the shearing box's stage grid has
+nx + 4 columns, the stratified one nz + 4 rows too, and 85 values a cell;
+the ghosted mode's is the ghosted array, ~5.5 GB at 256^3) that the
+caller allocates once per advance with ``MhdStepKernel.scratch``
+(``ghosted=True`` for the ghosted mode); the shear window mode's stage
+grid is the interior and 2 cells a side (``MhdWindowKernel.scratch``,
+~0.37 GB for a 64x128x128 f32 block).
 """
 from __future__ import annotations
 
@@ -74,6 +75,7 @@ _FN_WINDOW = {torch.float32: "ramses_mhd_step_window_f32",
               torch.float64: "ramses_mhd_step_window_f64"}
 SLAB = 3     # columns of each sheared ghost slab (csrc/mhd_step.cu SLAB)
 NPLANE = 5   # x-face planes of the shearing-box mode
+NPRE = 48    # precursors of the traced states per stage-grid cell (csrc/mhd_stages.cuh)
 
 
 def uses_shear(params: RunParams) -> bool:
@@ -267,7 +269,7 @@ def scratch_fluxes(params: RunParams, scratch: torch.Tensor):
     x0, z0 = (2 if shear else 0), (2 if strat else 0)   # csrc/mhd_step.cu XH, ZH
     grid = (params.nz + 2 * z0, params.ny, params.nx + 2 * x0)
     ne = grid[0] * grid[1] * grid[2]
-    base = (8 + 3 + 18 * 8) * ne   # after Q, E and the 18 face / edge states
+    base = (8 + 3 + NPRE) * ne   # after Q, E and the precursors
     fl = scratch[base:base + 15 * ne].view(3, 5, *grid)
     emf = scratch[base + 15 * ne:base + 18 * ne].view(3, *grid)
     return tuple(fl), tuple(emf), x0, z0

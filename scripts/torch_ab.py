@@ -10,6 +10,18 @@ checkout A, then B, B and A, each in its own process from the root of its
 checkout (its library builds there once and is reused by its second run);
 prints each run's ms/step lines and its profiled chunk's device time.
 
+``parent P``: csrc/mhd_step.cu and csrc/zcarry_mhd.cu of this checkout
+against those of the checkout P (its library built there), through the
+same wrappers on the same inputs: one step of every mode of the staged
+step kernel (periodic, compensated, shear isothermal / adiabatic /
+compensated, stratified, ghosted walls and jet, shear window ideal and
+stratified) and of the streamed one (periodic, shear), f32 and f64, at
+64^3-sized grids: whether the new state (and planes) is bitwise the
+parent's, else its largest difference in ULP and whether the fluxes and
+EMFs the update read already differ; then the periodic step's stages at
+256^3 f32 of each (torch.profiler), and each mode's time at the main
+paths' sizes in f32, P, this, this, P (CUDA events, 10 launches).
+
 ``fmad``: the periodic step at 256^3 f32, plain and compensated, launched
 in turns (default, variant, variant, default) from the package's library
 and from one whose csrc/mhd_step.cu was compiled with its usual flags plus
@@ -18,7 +30,9 @@ launches each.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import importlib.util
 import subprocess
 import sys
 import tempfile
@@ -87,9 +101,294 @@ def fmad() -> None:
         torch.cuda.empty_cache()
 
 
+def ulp_diff(a, b) -> tuple:
+    """(elements that differ, the largest |a - b| in ULP of b) of two
+    tensors of one dtype."""
+    import torch
+
+    diff = (a != b) & ~(a.isnan() & b.isnan())
+    if not bool(diff.any()):
+        return 0, 0.0
+    tiny = torch.finfo(b.dtype).tiny
+    ulp = torch.finfo(b.dtype).eps * b.abs().clamp_min(tiny)
+    return int(diff.sum()), float(((a - b).abs() / ulp)[diff].max())
+
+
+@contextlib.contextmanager
+def library(lib):
+    """The step wrappers (kernels/mhd_step.py, kernels/zcarry_mhd3d.py)
+    launching from ``lib``."""
+    from ramsesgpu_tpu_torch.kernels import mhd_step as ms, zcarry_mhd3d as zm
+
+    saved = ms.load_library, zm.load_library
+    ms.load_library = zm.load_library = lambda kind="cuda": lib
+    try:
+        yield
+    finally:
+        ms.load_library, zm.load_library = saved
+
+
+def step_cases(cs, dtype: str, full: bool):
+    """(name, params, run) of every mode: run(lib) makes its buffers with
+    that library, launches one step and returns (outputs, fluxes and EMFs,
+    a relaunch for timing). ``full``: the main paths' sizes (f32)."""
+    import torch
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd, cfl_mhd_window
+    from ramsesgpu_tpu_torch.kernels.mhd_step import MhdStepKernel, MhdWindowKernel
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import ZcarryMhdKernel
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
+
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    n, mri = (256, (128, 256, 128)) if full else (64, (64, 128, 64))
+
+    def tail(scratch, lib, shear=False):
+        # the fluxes [3][5] and EMFs [3] on the stage grid, the last 18 of
+        # the values per cell before the shear mode's state copy Se [8]
+        per_cell = lib.ramses_mhd_step_scratch_per_cell()
+        ne = scratch.numel() // (per_cell + (8 if shear else 0))
+        return scratch[(per_cell - 18) * ne:per_cell * ne]
+
+    def periodic(comp):
+        params, S = cs.setup(n, dtype)
+        if comp:
+            params, S = params.replace(compensated=True), cs.with_carry(S, 31)
+        dt = dt_from_inv(params, cfl_mhd(params, S))
+
+        def run(lib):
+            k, Sw = MhdStepKernel(), S.clone()
+            scratch = k.scratch(params, S)
+            k(params, Sw, dt, active, scratch)
+            return ((Sw,), tail(scratch, lib),
+                    lambda: k(params, Sw, dt, active, scratch))
+        return params, run
+
+    def shear(kind):
+        if kind == "stratified":
+            params, _config, (S, kept), gz = cs.strat_setup(*mri, dtype, seed=33)
+            gz = gz.to(S.dtype)
+        else:
+            params, _config, (S, kept) = cs.mri_setup(*mri, dtype, compensated=(
+                None if kind == "compensated" else False))
+            if kind == "adiabatic":
+                params = params.replace(c_iso=0.0)
+            if params.compensated:
+                S, kept = cs.comp_state(S, kept, 33)
+            gz = None
+        t = cs.shear_t0(params, S.dtype)
+        dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
+        slabs = shear_slabs(params, S, kept, t, dt)
+        extra = () if gz is None else (shear_zslabs(params, S, slabs), gz)
+
+        def run(lib):
+            k, Sw = MhdStepKernel(), S.clone()
+            planes = torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device="cuda")
+            scratch = k.scratch(params, S)
+            k(params, Sw, dt, active, scratch, shear=(slabs, planes, *extra))
+            return ((Sw, planes), tail(scratch, lib, shear=True),
+                    lambda: k(params, Sw, dt, active, scratch, shear=(slabs, planes, *extra)))
+        return params, run
+
+    def ghosted(case):
+        params, U = cs.wall_case(case, dtype, (n, n, n) if full else (64, 48, 40))
+        dt = dt_from_inv(params, cfl_mhd(params, U, ghost=params.ghost_width))
+
+        def run(lib):
+            k, Uw = MhdStepKernel(), U.clone()
+            scratch = k.scratch(params, U, ghosted=True)
+            k.ghosted(params, Uw, dt, active, scratch)
+            return ((Uw,), tail(scratch, lib),
+                    lambda: k.ghosted(params, Uw, dt, active, scratch))
+        return params, run
+
+    def window(kind):
+        ini, topo, rank = ((cs.DEBUG_INI, (2, 2, 1), (0, 1, 1)) if kind == "ideal"
+                           else (cs.STRAT_MPI_INI, (2, 1, 2), (1, 0, 1)))
+        mesh = mri if full else (32, 64, 32)
+        _p, _c, lp, W, x0, _z0, gz = cs.window_case36(ini, mesh, topo, rank, dtype, seed=36)
+        dt = dt_from_inv(lp, cfl_mhd_window(lp, W))
+
+        def run(lib):
+            k = MhdWindowKernel()
+            scratch = k.scratch(lp, W)
+            out = k(lp, W, dt, x0, gz, scratch)
+            return (out, tail(scratch, lib),
+                    lambda: k(lp, W, dt, x0, gz, scratch))
+        return lp, run
+
+    def zcarry(kind):
+        if kind == "periodic":
+            params, S = cs.setup(n, dtype)
+            params = params.replace(kernel="zcarry")
+            dt = dt_from_inv(params, cfl_mhd(params, S))
+            extra, fold = None, True
+        else:
+            params, _config, (S, kept) = cs.mri_setup(*mri, dtype)
+            params = params.replace(kernel="zcarry")
+            t = cs.shear_t0(params, S.dtype)
+            dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
+            extra, fold = shear_slabs(params, S, kept, t, dt), False
+
+        def run(_lib):
+            k, out = ZcarryMhdKernel(), torch.empty_like(S)
+            planes = torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device="cuda")
+            sh = None if extra is None else (extra, planes)
+            inv = k(params, S, out, dt, active, shear=sh, fold=fold)
+            outs = (out, planes) if inv is None else (out, inv)
+            return outs, None, lambda: k(params, S, out, dt, active, shear=sh, fold=fold)
+        return params, run
+
+    yield "mhd_step periodic", *periodic(False)
+    yield "mhd_step compensated", *periodic(True)
+    for kind in ("isothermal", "adiabatic", "compensated", "stratified"):
+        yield f"mhd_step shear {kind}", *shear(kind)
+    for case in ("neumann", "jet"):
+        yield f"mhd_step ghosted {case}", *ghosted(case)
+    for kind in ("ideal", "stratified"):
+        yield f"mhd_step window {kind}", *window(kind)
+    for kind in ("periodic", "shear"):
+        yield f"zcarry_mhd {kind}", *zcarry(kind)
+
+
+def formed_states(pre, smallr: float, smallp: float):
+    """The 18 traced states [18][8][...] formed from precursors [48][...]
+    (csrc/mhd_stages.cuh traced, without the stratified kick): q2 -+ the
+    half-slopes, the face fields from L2 / R2 and their transverse
+    half-slopes, then the floors; each sum rounded as the kernel rounds
+    it (the signs are +-1, so no product is rounded)."""
+    import torch
+
+    def h(ax, ch):
+        return pre[8 + 7 * ax + (ch if ch < 5 + ax else ch - 1)]
+
+    def df(fax, side, along):
+        return pre[35 + 4 * fax + 2 * side + (along if along < fax else along - 1)]
+
+    def floors(q):
+        q[0] = torch.maximum(q[0], torch.full_like(q[0], smallr))
+        q[1] = torch.maximum(q[1], torch.full_like(q[1], smallp))
+        return torch.stack(q)
+
+    out = []
+    for ax in range(3):
+        for side in range(2):
+            sg = 1.0 if side else -1.0
+            out.append(floors([pre[(32 if side else 29) + ax] if ch == 5 + ax
+                               else pre[ch] + sg * h(ax, ch) for ch in range(8)]))
+    for f, (d1, d2) in enumerate(((1, 2), (0, 2), (0, 1))):
+        for e in range(4):
+            p1, p2 = int(e < 2), int(e % 2 == 0)
+            s1, s2 = (1.0 if p1 else -1.0), (1.0 if p2 else -1.0)
+            q = []
+            for ch in range(8):
+                if ch == 5 + d1:
+                    q.append(pre[(32 if p1 else 29) + d1] + s2 * df(d1, p1, d2))
+                elif ch == 5 + d2:
+                    q.append(pre[(32 if p2 else 29) + d2] + s1 * df(d2, p2, d1))
+                else:
+                    q.append(pre[ch] + s1 * h(d1, ch) + s2 * h(d2, ch))
+            out.append(floors(q))
+    return torch.stack(out)
+
+
+def trace_vs_parent(cs, libs, dtype: str) -> str:
+    """The periodic step's traced states: this tree's, formed from its
+    precursor stage's output (formed_states), against the parent's trace
+    stage's stored states, on the same state and dt."""
+    import torch
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.mhd_step import MhdStepKernel
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
+
+    params, S = cs.setup(64, dtype)
+    dt = dt_from_inv(params, cfl_mhd(params, S))
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    n = S[0].numel()
+    got = {}
+    for who in ("parent", "this"):
+        with library(libs[who]):
+            k = MhdStepKernel()
+            scratch = k.scratch(params, S)
+            k(params, S.clone(), dt, active, scratch)
+            got[who] = scratch[11 * n:(11 + (144 if who == "parent" else 48)) * n].view(-1, n)
+    states = formed_states(got["this"], params.smallr, params.smallp).view(144, n)
+    nd, u = ulp_diff(states, got["parent"])
+    return "bitwise equal" if nd == 0 else f"{nd} values differ, up to {u:.2f} ULP"
+
+
+def parent(tree: str) -> None:
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from ramsesgpu_tpu_torch.kernels import build as b
+
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.mhd_step import MhdStepKernel
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
+
+    card = cs.card_line()
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", Path(tree).resolve() / "ramsesgpu_tpu_torch" / "kernels" / "build.py")
+    pb = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = pb  # (its dataclass looks its module up)
+    spec.loader.exec_module(pb)
+    libs = {"parent": pb.load_library("cuda"), "this": b.load_library("cuda")}
+    print(f"[parent] {card}; stage buffer values per cell: parent "
+          f"{libs['parent'].ramses_mhd_step_scratch_per_cell()}, this "
+          f"{libs['this'].ramses_mhd_step_scratch_per_cell()}", flush=True)
+    for dtype in ("float32", "float64"):
+        print(f"[parent] periodic {dtype}: the traced states formed from this tree's "
+              f"precursors against the parent's stored ones: {trace_vs_parent(cs, libs, dtype)}",
+              flush=True)
+        for name, _params, run in step_cases(cs, dtype, full=False):
+            got = {}
+            for who in ("parent", "this"):
+                with library(libs[who]):
+                    outs, fe, _again = run(libs[who])
+                    torch.cuda.synchronize()
+                    got[who] = (outs, fe)
+            (po, pf), (to, tf) = got["parent"], got["this"]
+            diffs = [ulp_diff(t, p) for t, p in zip(to, po)]
+            same = all(d[0] == 0 for d in diffs)
+            line = f"[parent] {name} {dtype}: " + ("bitwise equal" if same else "outputs differ " + ", ".join(
+                f"{d[0]} elements up to {d[1]:.2f} ULP" for d in diffs))
+            if pf is not None:
+                nd, u = ulp_diff(tf, pf)
+                line += f"; fluxes and EMFs {'bitwise equal' if nd == 0 else f'{nd} differ, up to {u:.2f} ULP'}"
+            print(line, flush=True)
+            del got, po, pf, to, tf
+            torch.cuda.empty_cache()
+    params, S = cs.setup(256, "float32")
+    dt = dt_from_inv(params, cfl_mhd(params, S))
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    for who in ("parent", "this"):
+        with library(libs[who]):
+            k = MhdStepKernel()
+            scratch = k.scratch(params, S)
+            stages = cs.stage_times(lambda: k(params, S, dt, active, scratch))
+        print(f"[parent] {who}'s periodic step at 256^3 f32 by stage (torch.profiler; {card}): "
+              + ", ".join(f"{n} {ms:.3f} ms" for n, ms in stages.items()), flush=True)
+        del scratch
+    del S
+    torch.cuda.empty_cache()
+    for name, _params, run in step_cases(cs, "float32", full=True):
+        times = []
+        for who in ("parent", "this", "this", "parent"):
+            with library(libs[who]):
+                _outs, _fe, again = run(libs[who])
+                times.append((who, cs.time_ms(again, 10)))
+            del _outs, _fe, again
+            torch.cuda.empty_cache()
+        print(f"[parent] {name} f32 (main path size; {card}): "
+              + ", ".join(f"{who} {ms:.3f} ms" for who, ms in times), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["trees"] and len(sys.argv) == 4:
         trees(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["parent"] and len(sys.argv) == 3:
+        parent(sys.argv[2])
     elif sys.argv[1:] == ["fmad"]:
         fmad()
     else:

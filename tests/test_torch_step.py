@@ -271,8 +271,12 @@ def test_divb_and_conservation():
 TOL_HOST = {"float32": 1e-6, "float64": 1e-13}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_csrc_host_build_matches_twins(dtype):
+# the cases: one step and its CFL, or (states) the 18 traced states the
+# step kernel forms from its precursor stage's output
+@pytest.mark.parametrize("dtype,part", [("float32", "step"), ("float64", "step"),
+                                        ("float32", "states"), ("float64", "states")],
+                         ids=["float32", "float64", "float32-states", "float64-states"])
+def test_csrc_host_build_matches_twins(dtype, part):
     from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
     from ramsesgpu_tpu_torch.solvers.boundary import interior
     from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_periodic_update
@@ -286,6 +290,9 @@ def test_csrc_host_build_matches_twins(dtype):
     noise = torch.from_numpy(rng.standard_normal(S0.shape)).to(S0.dtype)
     S0 = (S0 * (1 + 0.05 * noise)).contiguous()
     blk = param_block(params)
+    if part == "states":
+        check_host_traced_states(lib, sfx, params, S0, blk)
+        return
 
     inv = torch.zeros((), dtype=S0.dtype)
     assert getattr(lib, f"ramses_cfl_mhd_{sfx}")(
@@ -303,6 +310,29 @@ def test_csrc_host_build_matches_twins(dtype):
                     16, 16, 16, blk, None) == 0
         err = float(torch.linalg.norm((S - want).flatten()) / torch.linalg.norm(want.flatten()))
         assert err <= TOL_HOST[dtype]
+
+
+def check_host_traced_states(lib, sfx, params, S0, blk):
+    """Each of the 18 traced states, formed from the host build's precursor
+    stage as the step kernel's flux + EMF stage forms them, against the
+    twin's (ops/trace_mhd3d.py) on the same state and dt."""
+    from ramsesgpu_tpu_torch.ops.eos import constoprim_mhd
+    from ramsesgpu_tpu_torch.ops.trace_mhd3d import STATE_NAMES, trace_unsplit_mhd_3d_parts
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_periodic
+
+    dt = dt_from_inv(params, inv_dt_mhd_periodic(params, S0))
+    n = S0[0].numel()
+    scratch = torch.empty(lib.ramses_mhd_step_scratch_per_cell() * n, dtype=S0.dtype)
+    got = torch.empty((18, 8) + tuple(S0.shape[1:]), dtype=S0.dtype)
+    assert getattr(lib, f"ramses_mhd_traced_states_{sfx}")(
+        S0.data_ptr(), scratch.data_ptr(), got.data_ptr(), dt.data_ptr(), params.nx,
+        params.ny, params.nz, blk) == 0
+    Q, _c = constoprim_mhd(params, S0, dt)
+    parts = trace_unsplit_mhd_3d_parts(params, Q, S0[IA], S0[IB], S0[IC], dt)
+    for s, name in enumerate(STATE_NAMES):
+        want = parts[name]()
+        err = float(torch.linalg.norm((got[s] - want).flatten()) / torch.linalg.norm(want.flatten()))
+        assert err <= TOL_HOST[params.dtype], (name, err)
 
 
 # -------------------------------------------------------------------------
