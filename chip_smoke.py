@@ -2448,32 +2448,43 @@ def phase31(card: str) -> None:
 
 
 def zcarry_ring(params) -> None:
-    """Row 12's tile and ring per dtype: the bytes of a block's ring in
-    shared memory, its tile and threads, and the blocks an SM holds."""
+    """Row 12's tile and ring per dtype: its tile, the threads of its
+    producer and consumer warp groups, the blocks an SM holds, the bytes of
+    a block's ring in shared memory, and the depth of the z chunks it takes
+    on the main paths' grids."""
     from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
 
     lib = load_library("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for f64, name in ((0, "f32"), (1, "f64")):
-        tile = (ctypes.c_int * 3)()
+        tile = (ctypes.c_int * 5)()
         lib.ramses_zcarry_mhd_tile(f64, tile)
         blocks = lib.ramses_zcarry_mhd_blocks(0, 0, f64, param_block(params))
-        print(f"[31] zcarry_mhd {name}: ring {lib.ramses_zcarry_mhd_ring_bytes(f64)} B a block, "
-              f"tile {tile[0]}x{tile[1]}, {tile[2]} threads, {blocks / sms:g} blocks per SM "
-              f"({blocks} on {sms} SMs)")
+        depths = ", ".join(
+            f"{nx}x{ny}x{nz}: {lib.ramses_zcarry_mhd_chunk_depth(f64, nx, ny, nz, blocks)}"
+            for nx, ny, nz in ((512, 512, 512), (256, 256, 256), (128, 256, 128)))
+        print(f"[31] zcarry_mhd {name}: tile {tile[0]}x{tile[1]}, {tile[2]} threads: producer "
+              f"{tile[3] // 32} warps, consumer {tile[4] // 32} warps; ring "
+              f"{lib.ramses_zcarry_mhd_ring_bytes(f64)} B a block, {blocks / sms:g} blocks per SM "
+              f"({blocks} on {sms} SMs); z chunk depth {depths}")
 
 
-def phase32(card: str, ot, blast, mri, bounds: dict, twin_n: int) -> dict:
+def phase32(card: str, ot, blast, mri, bounds: dict, twin_n: int, staged: dict, ot_comp,
+            strat) -> dict:
     """The streamed kernels at full width on the end states of paths 29
     (Orszag-Tang 256^3), 28 (blast 256^3) and 30 (MRI 128x256x128):
     against their twins (the step's twin, then the CFL twin on its
     result), their times against the twins', and their bounds: the staged
     kernels' (phases 11, 15) bytes, read once and written once, and their
-    operations plus the folded CFL's."""
+    operations plus the folded CFL's. Then row 12's other modes on the end
+    states of paths 29c (compensated OT) and 30s (the stratified MRI), and
+    each mode's time against its bound and against the staged step's
+    (``staged``: phases 6, 14 and 25) on the same grid."""
     from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
     from ramsesgpu_tpu_torch.kernels.packed_bc import bc_codes
-    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs, shear_zslabs
     from ramsesgpu_tpu_torch.kernels.zcarry_hydro3d import zcarry_hydro
     from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
     from ramsesgpu_tpu_torch.solvers.godunov import hydro_3d_state_update
@@ -2585,6 +2596,41 @@ def phase32(card: str, ot, blast, mri, bounds: dict, twin_n: int) -> dict:
     res["bounds"]["zcarry_mhd_shear"] = bounds["mhd_step_shear"]
     print(f"[32] zcarry_mhd_shear: bound {bounds['mhd_step_shear'][0]:.5f} ms by "
           f"{bounds['mhd_step_shear'][1]} (the staged shear step's, phase 15: the same function)")
+    del S1
+
+    # the compensated periodic mode (folded CFL) and the stratified mode
+    from ramsesgpu_tpu_torch.solvers.step import gravity_z
+
+    params, S, _t = ot_comp
+    dt = dt_from_inv(params, cfl_mhd(params, S))
+    S1 = torch.empty_like(S)
+    comp_ms = time_ms(lambda: zcarry_mhd(params, S, S1, dt, active, fold=True), 10)
+    del S1
+    params, S, kept, t, config = strat
+    gz = gravity_z(params, config, "cuda").to(S.dtype)
+    dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
+    slabs = shear_slabs(params, S, kept, t, dt)
+    sh = (slabs, torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device="cuda"),
+          shear_zslabs(params, S, slabs), gz)
+    S1 = torch.empty_like(S)
+    strat_ms = time_ms(lambda: zcarry_mhd(params, S, S1, dt, active, shear=sh), 10)
+    del S1
+    # the compensated step's bound (phase 25, by its operations) with the
+    # folded CFL's operations added
+    comp_bound, by = bounds["mhd_step_comp"]
+    if by == "operations":
+        comp_bound += bounds["ops"]["cfl_mhd"] / F32_FLOP_PER_S * 1e3
+    modes = {"periodic, folded CFL, 256^3": (res["ms"]["zcarry_mhd"], res["bounds"]["zcarry_mhd"][0],
+                                             staged["mhd_step"]),
+             "compensated, folded CFL, 256^3": (comp_ms, comp_bound, staged["mhd_step_comp"]),
+             "shear, 128x256x128": (res["ms"]["zcarry_mhd_shear"], bounds["mhd_step_shear"][0],
+                                    staged["mhd_step_shear"]),
+             "stratified, 128x256x128": (strat_ms, bounds["mhd_step_strat"][0],
+                                         staged["mhd_step_strat"])}
+    for mode, (ms, bound_ms, staged_ms) in modes.items():
+        print(f"[32] row 12 {mode} f32: {ms:.3f} ms, {ms / bound_ms:.1f}x its bound "
+              f"({bound_ms:.4f} ms), {ms / staged_ms:.2f}x the staged step ({staged_ms:.3f} ms) "
+              f"({card})")
     return res
 
 
@@ -3453,7 +3499,7 @@ def main() -> int:
     lap("28")
     zc_launches, ot_zc = phase5(card, "29", kernel="zcarry")
     lap("29")
-    phase5(card, "29c", compensated=True, kernel="zcarry")
+    _l, ot_zc_comp = phase5(card, "29c", compensated=True, kernel="zcarry")
     lap("29c")
     zc_shear_launches, mri_zc = phase13(card, "30", kernel="zcarry")
     lap("30")
@@ -3461,11 +3507,13 @@ def main() -> int:
     lap("30c")
     phase13(card, "30v", *DISSIP_COEFFS["nu=4e-5 eta=1e-5"], kernel="zcarry")
     lap("30v")
-    phase13(card, "30s", compensated=None, ini=STRAT_INI, kernel="zcarry")
+    _l, strat_zc = phase13(card, "30s", compensated=None, ini=STRAT_INI, kernel="zcarry")
     lap("30s")
-    zc_timing = phase32(card, ot_zc, blast, mri_zc, bounds, timing["n_twin"])
+    staged = {**timing["ms"], **shear_timing["ms"], **new_timing["ms"]}
+    zc_timing = phase32(card, ot_zc, blast, mri_zc, bounds, timing["n_twin"], staged, ot_zc_comp,
+                        strat_zc)
     lap("32")
-    del ot_zc, blast, mri_zc
+    del ot_zc, blast, mri_zc, ot_zc_comp, strat_zc
     bounds.update(zc_timing["bounds"])
     phase31(card)
     lap("31")

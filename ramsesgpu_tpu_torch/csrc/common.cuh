@@ -1,5 +1,6 @@
 // Shared pieces of the port's CUDA kernels (cfl_mhd.cu, mhd_step.cu,
-// cfl_hydro.cu, hydro_step.cu, shear_border.cu, dissip_step.cu).
+// cfl_hydro.cu, hydro_step.cu, shear_border.cu, dissip_step.cu,
+// zcarry_mhd.cu, zcarry_hydro.cu).
 //
 // Layout: a state is channel-major, x fastest: S[nvar][nz][ny][nx] for the
 // loops' interior-only state, the same with a ghost frame for the ghosted
@@ -227,10 +228,11 @@ HD void cell_ijk(const Dims& d, long long c, int& i, int& j, int& k) {
   k = (int)(r / d.ny);
 }
 
-// The z-streaming kernels (zcarry_mhd.cu, zcarry_hydro.cu) run a block
-// body as phases: the block's threads stride over a phase's n work items
-// t and meet at block_sync() before the next phase; the host build runs
-// each phase as a serial loop, so it runs the same ring logic item by item.
+// zcarry_hydro.cu and mhd_step.cu's fused stage run a block body as
+// phases: the block's threads stride over a phase's n work items t and
+// meet at block_sync() before the next phase; the host build runs each
+// phase as a serial loop, so it runs the same ring logic item by item.
+// (zcarry_mhd.cu splits its block into warp groups: Group below.)
 template <typename F>
 HD void block_items(int n, const F& f) {
 #ifdef __CUDA_ARCH__
@@ -274,6 +276,65 @@ HD void block_sync() {
   __syncthreads();
 #endif
 }
+
+// Named barriers (PTX bar.sync / bar.arrive): barrier `id` completes when
+// `n` threads (a multiple of 32, whole warps) have reached it; sync waits
+// for that, arrive does not. Both order each thread's earlier memory
+// accesses before the barrier's completion. The host build runs one
+// thread: both are no-ops.
+HD void bar_sync(int id, int n) {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+#else
+  (void)id;
+  (void)n;
+#endif
+}
+HD void bar_arrive(int id, int n) {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+#else
+  (void)id;
+  (void)n;
+#endif
+}
+
+// *dst = *src from device memory into shared memory without holding the
+// thread (cp.async); copy_async_wait() waits for this thread's copies,
+// after which a barrier shows them to the others. Host build: a copy.
+template <typename T>
+HD void copy_async(T* dst, const T* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(s), "l"(src) : "memory");
+#else
+  *dst = *src;
+#endif
+}
+HD void copy_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+#endif
+}
+
+// A group of a block's threads: threads [first, first + size) of the block
+// as tid 0 .. size-1, with its own named barrier. Its threads stride over
+// a phase's n work items; the host build runs each phase as a serial loop.
+struct Group {
+  int tid, size, bar;
+  template <typename F>
+  HD void items(int n, const F& f) const {
+#ifdef __CUDA_ARCH__
+    for (int t = tid; t < n; t += size) f(t);
+#else
+    for (int t = 0; t < n; ++t) f(t);
+#endif
+  }
+  HD void sync() const { bar_sync(bar, size); }
+};
 
 #ifdef __CUDACC__
 template <typename F>

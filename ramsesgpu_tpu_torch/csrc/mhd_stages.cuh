@@ -95,31 +95,38 @@ HD int wrap_d(int i, int di, int n) {
   return di == 0 ? i : (di > 0 ? wrap_p(i, n) : wrap_m(i, n));
 }
 
-// shear: the state's channel ch at column ii of the interior or a slab
+// shear: where the state's channel ch at column ii of the interior or a
+// slab lies
 template <typename T>
-HD T load_x(const StepArgs<T>& a, int ch, int ii, int jj, int kk) {
-  if (ii >= 0 && ii < a.d.nx) return a.S[ch * a.d.n + cell_at(a.d, ii, jj, kk)];
+HD const T* at_x(const StepArgs<T>& a, int ch, int ii, int jj, int kk) {
+  if (ii >= 0 && ii < a.d.nx) return a.S + ch * a.d.n + cell_at(a.d, ii, jj, kk);
   const int side = ii < 0 ? 0 : 1;
   const int col = ii < 0 ? ii + SLAB : ii - a.d.nx;
-  return a.slabs[((((long long)side * 8 + ch) * a.d.nz + kk) * a.d.ny + jj) * SLAB + col];
+  return a.slabs + ((((long long)side * 8 + ch) * a.d.nz + kk) * a.d.ny + jj) * SLAB + col;
 }
 
-// shear modes: the state's channel ch at column ii (any, clamped to the
-// slabs), row jj in [0, ny) and z kk: in [0, nz), or, stratified, any
-// (clamped to the z slabs, read outside [0, nz))
+// shear modes: where the state's channel ch at column ii (any, clamped to
+// the slabs), row jj in [0, ny) and z kk lies: kk in [0, nz), or,
+// stratified, any (clamped to the z slabs, read outside [0, nz))
 template <typename T, typename M>
-HD T load_shear(const StepArgs<T>& a, int ch, int ii, int jj, int kk) {
+HD const T* at_shear(const StepArgs<T>& a, int ch, int ii, int jj, int kk) {
   ii = clamp_i(ii, -SLAB, a.d.nx + SLAB - 1);
   if constexpr (M::STRAT) {
     kk = clamp_i(kk, -SLAB, a.d.nz + SLAB - 1);
     if (kk < 0 || kk >= a.d.nz) {
       const int side = kk < 0 ? 0 : 1;
       const int row = kk < 0 ? kk + SLAB : kk - a.d.nz;
-      return a.zslabs[((((long long)side * 8 + ch) * SLAB + row) * a.d.ny + jj) *
-                          (a.d.nx + 2 * SLAB) + ii + SLAB];
+      return a.zslabs + ((((long long)side * 8 + ch) * SLAB + row) * a.d.ny + jj) *
+                            (a.d.nx + 2 * SLAB) + ii + SLAB;
     }
   }
-  return load_x(a, ch, ii, jj, kk);
+  return at_x(a, ch, ii, jj, kk);
+}
+
+// the value there (the load rule of the shear modes' state loads)
+template <typename T, typename M>
+HD T load_shear(const StepArgs<T>& a, int ch, int ii, int jj, int kk) {
+  return *at_shear<T, M>(a, ch, ii, jj, kk);
 }
 
 // One stage thread's cell (i, j, k) and its neighbours. Periodic: the
@@ -1030,7 +1037,9 @@ HD T ct_delta(const T* emf, long long n, int ch, long long c, long long cxp, lon
 // channel's increment is Kahan-added against the carry C (the gravity
 // source chained through it), every operation rounded on its own in the
 // twin's order (r_mul, r_add, r_sub), so the update repeats the twin's
-// roundings exactly on the same fluxes and EMFs.
+// roundings exactly on the same fluxes and EMFs. The cell's state is read
+// before anything is written (So may be S), so its loads overlap. With
+// res, the cell's new state is also left there (res[ch]).
 template <typename T, typename M, bool COMP>
 struct UpdateStage {
   StepArgs<T> a;
@@ -1039,7 +1048,7 @@ struct UpdateStage {
     at(Site<T, M>(a, t, true));
   }
   template <typename P>
-  HD void at(const P& p) const {  // p: a state cell
+  HD void at(const P& p, T* res = nullptr) const {  // p: a state cell
     const long long n = p.nflux(), c = p.cflux();
     const long long cxp = p.iflux(1, 0, 0), cyp = p.iflux(0, 1, 0), czp = p.iflux(0, 0, 1);
     const T dt = *a.dt;
@@ -1059,9 +1068,14 @@ struct UpdateStage {
       no = a.in.n;
       co = p.co;
     }
+    T u[8];
+#pragma unroll
+    for (int ch = 0; ch < 8; ++ch) u[ch] = S[ch * ns + cs];
     if constexpr (COMP) {
       static_assert(!M::WINDOW, "the window mode has no compensated update");
-      T d[8], u[8], cc[8];
+      T d[8], cc[8];
+#pragma unroll
+      for (int ch = 0; ch < 8; ++ch) cc[ch] = a.C[ch * ns + cs];
 #pragma unroll
       for (int ch = 0; ch < NFLUX; ++ch) {
         const long long o = ch * n;
@@ -1072,11 +1086,6 @@ struct UpdateStage {
 #pragma unroll
       for (int ch = IA; ch <= IC; ++ch)
         d[ch] = ct_delta<true>(a.emf, n, ch, c, cxp, cyp, czp, dtdx, dtdy, dtdz);
-#pragma unroll
-      for (int ch = 0; ch < 8; ++ch) {
-        u[ch] = S[ch * ns + cs];
-        cc[ch] = a.C[ch * ns + cs];
-      }
       const T rho_old = u[ID], w_old = u[IW];
 #pragma unroll
       for (int ch = 0; ch < 8; ++ch) kahan_add(u[ch], cc[ch], d[ch]);
@@ -1092,11 +1101,7 @@ struct UpdateStage {
         a.Co[ch * ns + cs] = cc[ch];
       }
     } else {
-      T rho_old = T(0), w_old = T(0);
-      if constexpr (M::STRAT) {
-        rho_old = S[ID * ns + cs];
-        w_old = S[IW * ns + cs];
-      }
+      const T rho_old = u[ID], w_old = u[IW];
       bool hydro = true;  // ghosted: the CT face layer takes the curl only
       if constexpr (M::GHOST && !M::WINDOW) hydro = p.interior();
       if (hydro) {
@@ -1105,20 +1110,26 @@ struct UpdateStage {
           const long long o = ch * n;
           const T dU = dtdx * (fx[o + c] - fx[o + cxp]) + dtdy * (fy[o + c] - fy[o + cyp]) +
                        dtdz * (fz[o + c] - fz[o + czp]);
-          So[ch * no + co] = S[ch * ns + cs] + dU;
+          u[ch] = u[ch] + dU;
         }
       }
 #pragma unroll
       for (int ch = IA; ch <= IC; ++ch)
-        So[ch * no + co] =
-            S[ch * ns + cs] + ct_delta<false>(a.emf, n, ch, c, cxp, cyp, czp, dtdx, dtdy, dtdz);
+        u[ch] = u[ch] + ct_delta<false>(a.emf, n, ch, c, cxp, cyp, czp, dtdx, dtdy, dtdz);
       if constexpr (M::STRAT) {
         const T g = p.gz();
-        const T w_new = So[IW * no + co];
+        const T w_new = u[IW];
         const T mom_half = T(0.5) * (w_old + w_new);
-        So[IW * no + co] = w_new + dt * rho_old * g;
-        So[IP * no + co] = So[IP * no + co] + dt * mom_half * g;
+        u[IW] = w_new + dt * rho_old * g;
+        u[IP] = u[IP] + dt * mom_half * g;
       }
+#pragma unroll
+      for (int ch = 0; ch < 8; ++ch)
+        if (hydro || ch >= IA) So[ch * no + co] = u[ch];
+    }
+    if (res != nullptr) {
+#pragma unroll
+      for (int ch = 0; ch < 8; ++ch) res[ch] = u[ch];
     }
     if constexpr (M::SHEAR) {
       const Dims& dp = M::WINDOW ? a.in : a.d;  // the planes' (z, y) extent

@@ -16,11 +16,10 @@
 // intermediate array of a stage cell's neighbours into a per-block ring in
 // shared memory instead of a full-grid stage buffer.
 //
-// Design (first, simple version):
+// Design (for Hopper):
 // - A work item is an (x, y) tile of TX x TY columns and a z chunk
-//   [z0, z1). One thread block walks its item's z planes m = z0-2 .. z1+1
-//   and at each plane runs, each as a phase over the tile's cells (the
-//   block's threads stride over it; block_phase, block_sync):
+//   [z0, z1). One thread block walks its items' z planes in turn, item
+//   after item. Each plane m runs these phases over the tile's cells:
 //     prim (m)         columns -2 .. W+1   Q
 //     efield (m)       -1 .. W+1          E
 //     precursor (m-1)  -1 .. W            what the 18 face / edge states
@@ -31,20 +30,41 @@
 //                                         forming its states (FluxEmf)
 //     update (m - 2)   0 .. W-1           the new state into So (not S)
 //   (rows likewise; W, H: the tile's own extent, smaller at the grid's
-//   edge). The tile's halo columns and rows and the chunk's two warm-up
+//   edge). The tile's halo columns and rows and the chunk's warm-up
 //   planes are computed again by the neighbouring items.
-// - The ring keeps of each array only the planes a later phase reads:
-//     Q, Se       3 planes (the precursors read m-2 .. m)   8 + 8 values
-//     E           2 planes (the precursors read m-1, m)     3
-//     precursors  2 planes (a z face or edge reads m-2)     NPRE = 48
-//     fluxes, EMFs  2 planes (update reads m-2, m-1)        15 + 3
-//   189 values per ring cell with the folded CFL's three face values (Se:
-//   the state, copied by prim), where the 18 traced states made it 277.
-//   The tile: f32 8 x 8 (12 x 12 ring cells, 108,864 B), so two blocks of
-//   256 threads share an SM; f64 8 x 4 (12 x 8 ring cells, 145,152 B), one
-//   block of 160 threads per SM. The grid is persistent: as many blocks as
-//   the card holds at once, each striding over the work items, so nothing
-//   grows with nz.
+// - Two planes in flight, in two warp groups. The producer (NA threads)
+//   runs the state loads, prim, efield and the precursors of one plane;
+//   the consumer (NB threads) runs the fluxes, EMFs and the update of the
+//   planes before it (with the folded CFL: each cell's +1 faces and its
+//   inverse dt by the thread that updates it, from its registers). Each
+//   group meets its own named barrier between its phases; the precursor
+//   planes pass from one to the other through a ring of RP = 3 planes and
+//   named barriers, not block-wide ones (Pipe below): the producer may
+//   write precursor plane g once the consumer is done with plane g - 3, so
+//   it writes plane g while the consumer forms the fluxes of g - 1 from
+//   g - 1 and g - 2.
+// - The state is loaded early: while a plane computes, the producer copies
+//   plane m + 2's state (8 channels on the tile and a halo of 2 below and
+//   3 above; the shear and stratified modes through the slabs' load rule)
+//   into its ring slot with cp.async, so prim and the stages after it read
+//   the state from shared memory only.
+// - The ring keeps of each array only the planes a later phase reads, each
+//   on its own extent (the columns and rows its readers reach):
+//     state   5 planes (m - 2 .. m + 2)   8 values   (W + 5) x (H + 5)
+//     Q       3 planes (m - 2 .. m)       8          (W + 4) x (H + 4)
+//     E       2 planes                    3          (W + 3) x (H + 3)
+//     precursors  3 planes                NPRE = 48  (W + 2) x (H + 2)
+//     fluxes, EMFs  2 planes              15 + 3     (W + 1) x (H + 1)
+//   The tile: f32 16 x 8 (197,448 B; one block of 256 + 256 threads per
+//   SM: prim, efield and the precursors fill 94, 82 and 70 % of the
+//   producer's threads, the flux items 90 % of the consumer's); f64 8 x 8
+//   (226,064 B, 64 + 192 threads). The grid is persistent: as many blocks
+//   as the card holds at once, each striding over the work items, so
+//   nothing grows with nz.
+// - The host build runs the same per-plane steps of both groups in one
+//   serial schedule, the producer two planes ahead of the consumer (the
+//   most the ring allows), so the CPU tests check the ring's plane slots
+//   as the card uses them at the widest gap.
 // - Two state buffers: a block reads halo cells of its neighbours' tiles,
 //   so the step reads S and writes So (a single launch cannot update in
 //   place). The Python loop swaps them each step.
@@ -64,55 +84,66 @@
 // Bound on the H100: the step's arithmetic, as mhd_step.cu (2979 counted
 // flops per cell in the periodic mode, 0.75 ms at 256^3 at the f32 peak;
 // state in and out 64 B/cell, 0.32 ms), plus the folded CFL's ~69 flops
-// per cell; the halo recomputation adds 1.56x the precursors' cells and
-// 1.27x the fluxes' at the f32 tile.
+// per cell; the halo recomputation adds 1.41x the precursors' cells and
+// 1.20x the fluxes' at the f32 tile.
 #include "cfl_mhd.cuh"
 #include "mhd_stages.cuh"
+#if defined(RAMSES_ZCARRY_CLOCKS) && defined(__CUDACC__)
+#include <cstdio>
+#endif
 
 namespace ramses::zmhd {
 
 using namespace ramses::mhd;
 
-// the (x, y) tile of a work item, the threads of a block and the blocks an
-// SM holds, per dtype
+// the (x, y) tile of a work item and the threads of its producer and
+// consumer groups, per dtype
 template <typename T>
 struct Tile;
 template <>
 struct Tile<float> {
-  static constexpr int TX = 8, TY = 8, NT = 256, PER_SM = 2;
+  static constexpr int TX = 16, TY = 8, NA = 256, NB = 256;
 };
 template <>
 struct Tile<double> {
-  static constexpr int TX = 8, TY = 4, NT = 160, PER_SM = 1;
+  static constexpr int TX = 8, TY = 8, NA = 64, NB = 192;
 };
 
-constexpr int LO = 2;        // ring columns (rows) below the tile: prim reaches -2
-
-// a block's ring in shared memory: PP cells per plane; Q and the state
-// Se [8][3 planes], E [3][2], the precursors [2][NPRE], fluxes [3][5][2]
-// and EMFs [3][2], and the folded CFL's face values [3], each plane PP
-// values
+// a block's ring in shared memory: each array [channel][plane slot][cell]
+// (the precursors [plane slot][NPRE][cell]) on its own extent, a cell at
+// tile-local (li, lj) at (lj + lo) * width + li + lo
 template <typename T>
 struct Ring {
-  static constexpr int TX = Tile<T>::TX, TY = Tile<T>::TY, NT = Tile<T>::NT;
-  static constexpr int PW = TX + 4, PH = TY + 4;
-  static constexpr long long PP = (long long)PW * PH;
-  static constexpr int RQ = 3;  // planes of Q and Se (the others: 2)
-  static constexpr long long OFF_SE = 8 * RQ * PP;
-  static constexpr long long OFF_E = OFF_SE + 8 * RQ * PP;
-  static constexpr long long OFF_PRE = OFF_E + 3 * 2 * PP;
-  static constexpr long long OFF_F = OFF_PRE + 2 * NPRE * PP;
-  static constexpr long long OFF_EMF = OFF_F + 3 * NFLUX * 2 * PP;
-  static constexpr long long OFF_FACE = OFF_EMF + 3 * 2 * PP;  // folded CFL: [3]
-  static constexpr long long VALUES = OFF_FACE + 3 * PP;
+  static constexpr int TX = Tile<T>::TX, TY = Tile<T>::TY;
+  static constexpr int NA = Tile<T>::NA, NB = Tile<T>::NB, NT = NA + NB;
+  static constexpr int RS = 5, RQ = 3, RE = 2, RP = 3, RF = 2;  // plane slots
+  static constexpr int SW = TX + 5, QW = TX + 4, EW = TX + 3, PW = TX + 2, FW = TX + 1;
+  static constexpr int SPP = SW * (TY + 5), QPP = QW * (TY + 4), EPP = EW * (TY + 3);
+  static constexpr int PPP = PW * (TY + 2), FPP = FW * (TY + 1);
+  // a flux part's work items: its cells, rounded up to whole warps (a warp
+  // then runs one part's code)
+  static constexpr int FPART = (FPP + 31) / 32 * 32;
+  static constexpr long long OFF_Q = 8LL * RS * SPP;
+  static constexpr long long OFF_E = OFF_Q + 8LL * RQ * QPP;
+  static constexpr long long OFF_PRE = OFF_E + 3LL * RE * EPP;
+  static constexpr long long OFF_F = OFF_PRE + (long long)NPRE * RP * PPP;
+  static constexpr long long OFF_EMF = OFF_F + 3LL * NFLUX * RF * FPP;
+  static constexpr long long VALUES = OFF_EMF + 3LL * RF * FPP;
   static constexpr long long BYTES = VALUES * (long long)sizeof(T);
-  // an SM's 228 KB hold PER_SM rings, each with the reduction's 32 values
-  // (atomic_max_nonneg) and the 1 KB the runtime keeps per block
-  static_assert(Tile<T>::PER_SM * (BYTES + 32 * (long long)sizeof(T) + 1024) <= 233472,
-                "the rings of the blocks an SM holds fit its shared memory");
+  // one block an SM: the ring, the reduction's 32 values (atomic_max_nonneg)
+  // and the 1 KB the runtime keeps per block in the SM's 228 KB
+  static_assert(BYTES + 32 * (long long)sizeof(T) + 1024 <= 233472,
+                "the ring of a block fits an SM's shared memory");
   static_assert(BYTES + 32 * (long long)sizeof(T) <= SMEM_LIMIT,
                 "the ring and the reduction's 32 values fit a block");
+  static_assert(NA % 32 == 0 && NB % 32 == 0, "the groups are whole warps");
 };
+
+// the named barriers: the hand-over of precursor plane g (FULL, one of
+// three: the producer may run up to three planes ahead of the consumer's
+// wait, and a barrier never has two arrivals of one group pending), its
+// release (EMPTY, one of two) and each group's own
+enum { BAR_FULL = 1, BAR_EMPTY = 4, BAR_A = 6, BAR_B = 7 };
 
 template <typename T>
 struct ZArgs {
@@ -124,63 +155,85 @@ struct ZArgs {
 
 // a stage cell of the ring: global cell (i, j, k) of tile-local column li,
 // row lj, z plane k (unwrapped: the halo reaches outside the grid); its
-// neighbours' intermediates are ring cells of each array's planes, its
-// state loads go through the load rule (periodic wrap, or the slabs)
+// neighbours' intermediates and state are ring cells of each array's
+// planes (the state: loaded into the ring through the load rule, Stream
+// load). The precursor planes take their slots by their index in the
+// block's walk, k + walk (the hand-over counts planes so, Pipe), the
+// other arrays by k.
 template <typename T, typename M>
 struct RingSite {
   using R = Ring<T>;
   const StepArgs<T>& a;
   int i, j, k, li, lj;
-  int sq[3], s2[3];  // the planes of Q and of the 2-plane arrays at k - 1, k, k + 1
+  // the plane slots of k - 1, k, k + 1: the state, Q, and the 2-plane
+  // arrays (E, fluxes, EMFs); the precursors' of k - 1, k
+  int ss[3], sq[3], s2[3], sp[2];
   long long cs;      // on_state: the state's index of (i, j, k)
+  const T* pb[2];    // this cell's precursors in the planes k, k - 1
+  const T* sb[3];    // this cell's state in the planes k - 1, k, k + 1
 
-  HD RingSite(const StepArgs<T>& a_, int x0, int y0, int li_, int lj_, int m, bool on_state = false)
+  HD RingSite(const StepArgs<T>& a_, int x0, int y0, int li_, int lj_, int m, int walk,
+              bool on_state)
       : a(a_), i(x0 + li_), j(y0 + lj_), k(m), li(li_), lj(lj_) {
-    const int s0 = mod_n(m, R::RQ);
-    sq[0] = s0 == 0 ? R::RQ - 1 : s0 - 1;
-    sq[1] = s0;
-    sq[2] = s0 == R::RQ - 1 ? 0 : s0 + 1;
+    const int s0 = mod_n(m, R::RS);
+    ss[0] = s0 == 0 ? R::RS - 1 : s0 - 1;
+    ss[1] = s0;
+    ss[2] = s0 == R::RS - 1 ? 0 : s0 + 1;
+    const int q0 = mod_n(m, R::RQ);
+    sq[0] = q0 == 0 ? R::RQ - 1 : q0 - 1;
+    sq[1] = q0;
+    sq[2] = q0 == R::RQ - 1 ? 0 : q0 + 1;
     s2[1] = m & 1;
     s2[0] = s2[2] = 1 - s2[1];
+    sp[1] = mod_n(m + walk, R::RP);
+    sp[0] = sp[1] == 0 ? R::RP - 1 : sp[1] - 1;
     cs = on_state ? cell_at(a.d, i, j, k) : 0;
+    pb[0] = a.pre + sp[1] * NPRE * R::PPP + cell(0, 0, 1, R::PW);
+    pb[1] = a.pre + sp[0] * NPRE * R::PPP + cell(0, 0, 1, R::PW);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) sb[d] = a.Se + ss[d] * R::SPP + cell(0, 0, 2, R::SW);
   }
-  HD long long cell(int di, int dj) const {
-    return (long long)(lj + dj + LO) * R::PW + (li + di + LO);
+  // the neighbour (di, dj)'s cell in an array whose extent starts lo
+  // cells below the tile and whose rows are w wide
+  HD int cell(int di, int dj, int lo, int w) const { return (lj + dj + lo) * w + li + di + lo; }
+  HD long long iq(int di, int dj, int dk) const { return sq[dk + 1] * R::QPP + cell(di, dj, 2, R::QW); }
+  HD long long ie(int di, int dj, int dk) const { return s2[dk + 1] * R::EPP + cell(di, dj, 1, R::EW); }
+  HD long long iflux(int di, int dj, int dk) const {
+    return s2[dk + 1] * R::FPP + cell(di, dj, 0, R::FW);
   }
-  HD long long iq(int di, int dj, int dk) const { return sq[dk + 1] * R::PP + cell(di, dj); }
-  HD long long ie(int di, int dj, int dk) const { return s2[dk + 1] * R::PP + cell(di, dj); }
-  HD long long iflux(int di, int dj, int dk) const { return ie(di, dj, dk); }
   // precursor v of this cell (the precursor stage's output) and of the
   // neighbour (di, dj, dk), dk = 0 or -1
-  HD long long ipre(int v) const { return ((long long)s2[1] * NPRE + v) * R::PP + cell(0, 0); }
+  HD long long ipre(int v) const { return (pb[0] - a.pre) + v * R::PPP; }
   HD T pre(int v, int di, int dj, int dk) const {
-    return a.pre[((long long)s2[dk + 1] * NPRE + v) * R::PP + cell(di, dj)];
+    return pb[-dk][v * R::PPP + dj * R::PW + di];
   }
   HD long long cq() const { return iq(0, 0, 0); }
   HD long long ce() const { return ie(0, 0, 0); }
-  HD long long cflux() const { return ie(0, 0, 0); }
-  HD long long nq() const { return R::RQ * R::PP; }
-  HD long long ne() const { return 2 * R::PP; }
-  HD long long nflux() const { return 2 * R::PP; }
-  // prim's copy of the cell's state, which the later stages read (s)
-  HD void keep_state(const T* sc) const {
-    const long long c = cq();
-#pragma unroll
-    for (int ch = 0; ch < 8; ++ch) a.Se[ch * nq() + c] = sc[ch];
+  HD long long cflux() const { return iflux(0, 0, 0); }
+  HD long long nq() const { return R::RQ * R::QPP; }
+  HD long long ne() const { return R::RE * R::EPP; }
+  HD long long nflux() const { return R::RF * R::FPP; }
+  // the state is in the ring already
+  HD void keep_state(const T*) const {}
+  HD T s(int ch, int di, int dj, int dk) const {
+    return sb[dk + 1][ch * R::RS * R::SPP + dj * R::SW + di];
   }
-  HD T src(int ch, int di, int dj, int dk) const {
-    const int jj = wrap_any(j + dj, a.d.ny);
-    if constexpr (M::SHEAR) {
-      return load_shear<T, M>(a, ch, i + di, jj, M::STRAT ? k + dk : wrap_any(k + dk, a.d.nz));
-    } else {
-      return a.S[ch * a.d.n +
-                 cell_at(a.d, wrap_any(i + di, a.d.nx), jj, wrap_any(k + dk, a.d.nz))];
-    }
-  }
-  HD T s(int ch, int di, int dj, int dk) const { return a.Se[ch * nq() + iq(di, dj, dk)]; }
+  HD T src(int ch, int di, int dj, int dk) const { return s(ch, di, dj, dk); }
   HD T xpos() const { return a.ph.xpos0 + r_mul(T(i), a.ph.dx); }
   HD T gz() const { return a.gz[k + SLAB]; }
 };
+
+// where the state's channel ch at the (unwrapped) cell (i, j, k) lies: the
+// periodic wrap, or the shear modes' load rule (as mhd_step.cu's Site src)
+template <typename T, typename M>
+HD const T* state_at(const StepArgs<T>& a, int ch, int i, int j, int k) {
+  const int jj = wrap_any(j, a.d.ny);
+  if constexpr (M::SHEAR) {
+    return at_shear<T, M>(a, ch, i, jj, M::STRAT ? k : wrap_any(k, a.d.nz));
+  } else {
+    return a.S + ch * a.d.n + cell_at(a.d, wrap_any(i, a.d.nx), jj, wrap_any(k, a.d.nz));
+  }
+}
 
 // the new face field ch (IA, IB, IC) of the cell (di, dj, dk) from p, by
 // the update's CT (UpdateStage): from the ring's EMFs, which cover the +1
@@ -220,52 +273,232 @@ HD T folded_face(const StepArgs<T>& a, const RingSite<T, M>& p, int f) {
   }
 }
 
-// the folded CFL of the state cell p after its update (So): the cell's
-// channels and B on its +1 faces (folded_face, at face[f PP + cell]),
-// through inv_dt_cell
-template <typename T, typename M>
-HD T folded_inv_dt(const StepArgs<T>& a, const RingSite<T, M>& p, const T* face) {
-  using R = Ring<T>;
-  const long long c = p.cell(0, 0);
+// the folded CFL of a state cell after its update: its new channels u and
+// B on its +1 x, y, z faces (folded_face) through inv_dt_cell
+template <typename T>
+HD T folded_inv_dt(const Phys<T>& ph, const T* u, const T* face) {
   // channel ch of the cell at v[3 ch]; By at +1 y: v[3 IB + 1]; Bz at +1
   // z: v[3 IC + 2]
   T v[8 * 3];
 #pragma unroll
-  for (int ch = 0; ch < 8; ++ch) v[3 * ch] = a.So[ch * a.d.n + p.cs];
-  v[3 * IB + 1] = face[R::PP + c];
-  v[3 * IC + 2] = face[2 * R::PP + c];
-  return inv_dt_cell<T, false>(a.ph, v, 3, 0, face[c], 1, 2);
+  for (int ch = 0; ch < 8; ++ch) v[3 * ch] = u[ch];
+  v[3 * IB + 1] = face[1];
+  v[3 * IC + 2] = face[2];
+  return inv_dt_cell<T, false>(ph, v, 3, 0, face[0], 1, 2);
 }
 
-// One block's work: its items in turn, on `ring` (its own); returns the
-// max inverse dt of the cells it updated (folded CFL), else 0.
-template <typename T, typename M>
-HD T run_block(const ZArgs<T>& z, T* ring, long long block, long long nblocks) {
+// the precursor planes a block's group walks, item after item: plane p of
+// the item whose tile is (x0, y0, W x H) and z chunk [z0, z1) (the planes
+// z0 - 1 .. z1), and its index g in the block's whole walk
+template <typename T>
+struct Cursor {
   using R = Ring<T>;
-  StepArgs<T> a = z.a;
-  a.Q = ring;
-  a.Se = ring + R::OFF_SE;
-  a.E = ring + R::OFF_E;
-  a.pre = ring + R::OFF_PRE;
-  a.fl = ring + R::OFF_F;
-  a.emf = ring + R::OFF_EMF;
-  T* face = ring + R::OFF_FACE;
-  const bool fold = z.inv != nullptr;
-  const bool comp = a.C != nullptr;
-  T inv = T(0);
-  for (long long item = block; item < z.items; item += nblocks) {
-    const int tx = (int)(item % z.ntx);
+  const ZArgs<T>& z;
+  long long item, stride, g = 0;
+  int x0 = 0, y0 = 0, z0 = 0, z1 = 0, W = 0, H = 0, p = 0;
+
+  HD Cursor(const ZArgs<T>& z_, long long block, long long nblocks)
+      : z(z_), item(block), stride(nblocks) {
+    enter();
+  }
+  HD bool valid() const { return item < z.items; }
+  HD bool first() const { return p == z0 - 1; }
+  HD void enter() {
+    if (!valid()) return;
+    const Dims& d = z.a.d;
+    x0 = (int)(item % z.ntx) * R::TX;
     const long long r = item / z.ntx;
-    const int ty = (int)(r % z.nty);
-    const int x0 = tx * R::TX, y0 = ty * R::TY, z0 = (int)(r / z.nty) * z.bz;
-    const int W = a.d.nx - x0 < R::TX ? a.d.nx - x0 : R::TX;
-    const int H = a.d.ny - y0 < R::TY ? a.d.ny - y0 : R::TY;
-    const int z1 = a.d.nz - z0 < z.bz ? a.d.nz : z0 + z.bz;
-    if (!*a.active) {
-      // the step is skipped: its output is its input
-      for (int k = z0; k < z1; ++k) {
-        block_phase(W, H, 0, [&](int li, int lj) {
-          const long long cs = cell_at(a.d, x0 + li, y0 + lj, k);
+    y0 = (int)(r % z.nty) * R::TY;
+    z0 = (int)(r / z.nty) * z.bz;
+    W = d.nx - x0 < R::TX ? d.nx - x0 : R::TX;
+    H = d.ny - y0 < R::TY ? d.ny - y0 : R::TY;
+    z1 = d.nz - z0 < z.bz ? d.nz : z0 + z.bz;
+    p = z0 - 1;
+  }
+  HD void next() {
+    ++g;
+    if (++p > z1) next_item();
+  }
+  HD void next_item() {
+    item += stride;
+    enter();
+  }
+};
+
+// The hand-over of the precursor planes between the groups, on named
+// barriers of all NT threads: the producer arrives at FULL(g) once it has
+// written plane g, the consumer waits there before it reads g; the
+// consumer arrives at EMPTY(r) once it no longer reads plane r (after its
+// wait at FULL(r + 1)), the producer waits there before it writes plane
+// r + 3 into r's slot. Each barrier has at most one arrival of each group
+// pending: between the producer's arrivals at FULL(g) and FULL(g + 3) it
+// waits at EMPTY(g), which follows the consumer's wait at FULL(g + 1);
+// between the consumer's arrivals at EMPTY(r) and EMPTY(r + 2), its wait
+// at FULL(r + 3) follows the producer's wait at EMPTY(r). Host build:
+// no-ops (the serial schedule keeps the order).
+template <typename T>
+struct Pipe {
+  static constexpr int NT = Ring<T>::NT;
+  HD static void full_arrive(long long g) { bar_arrive(BAR_FULL + (int)(g % 3), NT); }
+  HD static void full_wait(long long g) { bar_sync(BAR_FULL + (int)(g % 3), NT); }
+  HD static void empty_arrive(long long r) { bar_arrive(BAR_EMPTY + (int)(r % 2), NT); }
+  HD static void empty_wait(long long r) { bar_sync(BAR_EMPTY + (int)(r % 2), NT); }
+};
+
+// The cycles a block's groups spend in their phases, barrier waits
+// included, in builds with RAMSES_ZCARRY_CLOCKS (scripts/torch_ab.py
+// clocks): lap(i) adds the clock64() time since the last lap to t[i].
+// Producer: 0 state loads, prim, efield; 1 the wait for a free precursor
+// plane; 2 the precursors and their hand-over. Consumer: 3 the wait for a
+// precursor plane; 4 fluxes and EMFs; 5 the update (and folded CFL). Other
+// builds: no-ops.
+struct Clocks {
+#if defined(RAMSES_ZCARRY_CLOCKS) && defined(__CUDA_ARCH__)
+  long long t[6] = {0, 0, 0, 0, 0, 0}, last = 0;
+  __device__ void lap(int i) {
+    const long long now = clock64();
+    if (i >= 0) t[i] += now - last;
+    last = now;
+  }
+#else
+  HD void lap(int) {}
+#endif
+};
+
+// One block's step on its ring: the producer's and the consumer's part of
+// each precursor plane (produce, consume), and the inactive step's copy.
+template <typename T, typename M>
+struct Stream {
+  using R = Ring<T>;
+  StepArgs<T> a;
+  bool fold, comp;
+  T inv = T(0);  // the max inverse dt of the cells this thread updated (folded CFL)
+  Clocks clk;
+
+  HD Stream(const ZArgs<T>& z, T* ring) : a(z.a), fold(z.inv != nullptr) {
+    a.Se = ring;  // the state's planes
+    a.Q = ring + R::OFF_Q;
+    a.E = ring + R::OFF_E;
+    a.pre = ring + R::OFF_PRE;
+    a.fl = ring + R::OFF_F;
+    a.emf = ring + R::OFF_EMF;
+    comp = a.C != nullptr;
+  }
+  // f(li, lj) on the tile's columns lo .. lo + w - 1 and rows lo .. lo + h
+  // - 1, the items laid out WMAX (>= w) to a row: a division by a constant
+  template <int WMAX, typename F>
+  HD static void cells(const Group& g, int w, int h, int lo, const F& f) {
+    g.items(WMAX * h, [&](int t) {
+      const int li = t % WMAX;
+      if (li < w) f(lo + li, lo + t / WMAX);
+    });
+  }
+  HD RingSite<T, M> site(const Cursor<T>& c, int li, int lj, int m, bool on_state = false) const {
+    return RingSite<T, M>(a, c.x0, c.y0, li, lj, m, (int)(c.g - c.p), on_state);
+  }
+
+  // producer: start the copy of plane k's state (columns -2 .. W+2, rows
+  // likewise) into its ring slot
+  HD void load(const Cursor<T>& c, const Group& g, int k) {
+    T* dst = a.Se + mod_n(k, R::RS) * R::SPP;
+    const int rows = c.H + 5;
+    g.items(8 * rows * R::SW, [&](int t) {
+      const int r = t / R::SW, li = t - r * R::SW - 2;
+      const int ch = r / rows, lj = r - ch * rows - 2;
+      if (li <= c.W + 2)
+        copy_async(dst + ch * R::RS * R::SPP + (lj + 2) * R::SW + li + 2,
+                   state_at<T, M>(a, ch, c.x0 + li, c.y0 + lj, k));
+    });
+  }
+  // producer: prim and (past the first warm-up plane) efield of plane m;
+  // first the copy of plane m + 2 (prim reads m + 1's Bz)
+  HD void prim_efield(const Cursor<T>& c, const Group& g, int m) {
+    if (m + 2 <= c.z1 + 2) load(c, g, m + 2);
+    cells<R::QW>(g, c.W + 4, c.H + 4, -2,
+                 [&](int li, int lj) { PrimStage<T, M>{a}.at(site(c, li, lj, m)); });
+    if (m >= c.z0 - 1) {
+      g.sync();
+      cells<R::EW>(g, c.W + 3, c.H + 3, -1,
+                   [&](int li, int lj) { EFieldStage<T, M>{a}.at(site(c, li, lj, m)); });
+    }
+  }
+  // producer: precursor plane c.p (the item's first: after the warm-up
+  // planes z0 - 2, z0 - 1 and their state)
+  HD void produce(const Cursor<T>& c, const Group& g) {
+    if (c.first()) {
+      load(c, g, c.z0 - 2);
+      load(c, g, c.z0 - 1);
+      copy_async_wait();
+      g.sync();
+      for (int m = c.z0 - 2; m < c.z0; ++m) {
+        prim_efield(c, g, m);
+        copy_async_wait();
+        g.sync();
+      }
+    }
+    prim_efield(c, g, c.p + 1);
+    g.sync();
+    clk.lap(0);
+    if (c.g >= R::RP) Pipe<T>::empty_wait(c.g - R::RP);
+    clk.lap(1);
+    cells<R::PW>(g, c.W + 2, c.H + 2, -1,
+                 [&](int li, int lj) { PrecursorStage<T, M>{a}.at(site(c, li, lj, c.p)); });
+    Pipe<T>::full_arrive(c.g);
+    copy_async_wait();
+    g.sync();  // the next plane's prim overwrites the Q and state this plane read
+    clk.lap(2);
+  }
+  // consumer: the fluxes and EMFs of plane q = c.p, from precursor planes
+  // q and q - 1 (each part's items a whole number of warps), then the
+  // update of plane q - 1 (with the folded CFL: B on each cell's +1 faces
+  // and its inverse dt, by the same thread, from its registers)
+  HD void consume(const Cursor<T>& c, const Group& g) {
+    clk.lap(5);
+    Pipe<T>::full_wait(c.g);  // (also the group's barrier: its last update is done)
+    clk.lap(3);
+    const int q = c.p;
+    if (!c.first()) {
+      g.items(6 * R::FPART, [&](int t) {
+        const int part = t / R::FPART, cc = t - part * R::FPART;
+        const int li = cc % R::FW, lj = cc / R::FW;
+        if (cc < R::FPP && li <= c.W && lj <= c.H)
+          FluxEmf<T, M>{a}.part(site(c, li, lj, q), part);
+      });
+      g.sync();
+    }
+    clk.lap(4);
+    if (c.g >= 1) Pipe<T>::empty_arrive(c.g - 1);
+    if (c.first() || q - 1 < c.z0) return;
+    cells<R::TX>(g, c.W, c.H, 0, [&](int li, int lj) {
+      const RingSite<T, M> p = site(c, li, lj, q - 1, true);
+      if (comp)
+        update<true>(p);
+      else
+        update<false>(p);
+    });
+  }
+  // the update of the state cell p and, with the folded CFL, its inverse dt
+  // (the faces first: their loads then overlap the update's)
+  template <bool COMP>
+  HD void update(const RingSite<T, M>& p) {
+    if constexpr (!M::SHEAR) {
+      if (fold) {
+        const T face[3] = {folded_face<COMP>(a, p, 0), folded_face<COMP>(a, p, 1),
+                           folded_face<COMP>(a, p, 2)};
+        T u[8];
+        UpdateStage<T, M, COMP>{a}.at(p, u);
+        inv = pmax(inv, folded_inv_dt(a.ph, u, face));
+        return;
+      }
+    }
+    UpdateStage<T, M, COMP>{a}.at(p);
+  }
+  // the skipped step: its output is its input (every thread of the block)
+  HD void copy(Cursor<T> c, const Group& g) {
+    for (; c.valid(); c.next_item()) {
+      for (int k = c.z0; k < c.z1; ++k) {
+        cells<R::TX>(g, c.W, c.H, 0, [&](int li, int lj) {
+          const long long cs = cell_at(a.d, c.x0 + li, c.y0 + lj, k);
           for (int ch = 0; ch < 8; ++ch) {
             a.So[ch * a.d.n + cs] = a.S[ch * a.d.n + cs];
             if (comp) a.Co[ch * a.d.n + cs] = a.C[ch * a.d.n + cs];
@@ -273,76 +506,75 @@ HD T run_block(const ZArgs<T>& z, T* ring, long long block, long long nblocks) {
           if (fold) inv = pmax(inv, inv_dt_at<T, false>(a.ph, a.d, a.S, nullptr, cs));
         });
       }
-      continue;
     }
-    for (int m = z0 - 2; m <= z1 + 1; ++m) {
-      block_phase(W + 4, H + 4, -2, [&](int li, int lj) {
-        PrimStage<T, M>{a}.at(RingSite<T, M>(a, x0, y0, li, lj, m));
-      });
-      block_sync();
-      if (m >= z0 - 1) {
-        block_phase(W + 3, H + 3, -1, [&](int li, int lj) {
-          EFieldStage<T, M>{a}.at(RingSite<T, M>(a, x0, y0, li, lj, m));
-        });
-        block_sync();
-      }
-      if (m >= z0) {
-        block_phase(W + 2, H + 2, -1, [&](int li, int lj) {
-          PrecursorStage<T, M>{a}.at(RingSite<T, M>(a, x0, y0, li, lj, m - 1));
-        });
-        block_sync();
-      }
-      if (m - 1 >= z0) {
-        // the three face fluxes and the three edge EMFs of each cell, one
-        // work item each, so that every thread of the block has work
-        const int w = W + 1, cells = (W + 1) * (H + 1);
-        block_items(6 * cells, [&](int t) {
-          const int part = t / cells, c = t - part * cells;
-          FluxEmf<T, M>{a}.part(RingSite<T, M>(a, x0, y0, c % w, c / w, m - 1), part);
-        });
-        block_sync();
-      }
-      if (m - 2 >= z0) {
-        // the update of each cell and, with the folded CFL, B on its three
-        // +1 faces, each a work item; then the cells' inverse dt. No sync
-        // after: the next plane's prim, efield and precursors write no
-        // ring array these phases read, and its flux phase comes after
-        // three syncs
-        const int cells = W * H;
-        block_items(fold ? 4 * cells : cells, [&](int t) {
-          const int part = t / cells, c = t - part * cells;
-          const RingSite<T, M> p(a, x0, y0, c % W, c / W, m - 2, true);
-          if (part == 0) {
-            if (comp)
-              UpdateStage<T, M, true>{a}.at(p);
-            else
-              UpdateStage<T, M, false>{a}.at(p);
-          } else if constexpr (!M::SHEAR) {
-            face[(part - 1) * R::PP + p.cell(0, 0)] =
-                comp ? folded_face<true>(a, p, part - 1) : folded_face<false>(a, p, part - 1);
-          }
-        });
-        if constexpr (!M::SHEAR) {
-          if (fold) {
-            block_sync();
-            block_phase(W, H, 0, [&](int li, int lj) {
-              const RingSite<T, M> p(a, x0, y0, li, lj, m - 2, true);
-              inv = pmax(inv, folded_inv_dt(a, p, face));
-            });
-          }
-        }
-      }
-    }
-    block_sync();  // the next item's prim overwrites the ring
   }
-  return inv;
+};
+
+// One block's work: its items in turn, on `ring` (its own), by thread tid
+// of the block; returns the max inverse dt of the cells this thread
+// updated (folded CFL), else 0.
+template <typename T, typename M>
+HD T run_block(const ZArgs<T>& z, T* ring, long long block, long long nblocks, int tid) {
+  using R = Ring<T>;
+  Stream<T, M> st(z, ring);
+  if (!*z.a.active) {
+    st.copy(Cursor<T>(z, block, nblocks), Group{tid, R::NT, 0});
+    return st.inv;
+  }
+#ifdef __CUDA_ARCH__
+  st.clk.lap(-1);
+  if (tid < R::NA) {
+    const Group g{tid, R::NA, BAR_A};
+    Cursor<T> c(z, block, nblocks);
+    for (; c.valid(); c.next()) st.produce(c, g);
+    // the consumer's releases of the last planes, which no write waits for
+    for (long long r = c.g < R::RP ? 0 : c.g - R::RP; r <= c.g - 2; ++r) Pipe<T>::empty_wait(r);
+#ifdef RAMSES_ZCARRY_CLOCKS
+    const long long* t = st.clk.t;
+    if (block == 0 && tid == 0)
+      printf("[clocks] producer, block 0: %lld precursor planes; cycles: loads, prim, efield "
+             "%lld; wait for a free plane %lld; precursors and hand-over %lld\n",
+             c.g, t[0], t[1], t[2]);
+#endif
+  } else {
+    const Group g{tid - R::NA, R::NB, BAR_B};
+    long long planes = 0;
+    for (Cursor<T> c(z, block, nblocks); c.valid(); c.next(), ++planes) st.consume(c, g);
+    st.clk.lap(5);
+#ifdef RAMSES_ZCARRY_CLOCKS
+    const long long* t = st.clk.t;
+    if (block == 0 && tid == R::NA)
+      printf("[clocks] consumer, block 0: %lld precursor planes; cycles: wait for a plane "
+             "%lld; fluxes, EMFs %lld; update (folded CFL) %lld\n", planes, t[3], t[4], t[5]);
+#else
+    (void)planes;
+#endif
+  }
+#else
+  // one serial schedule of both groups' steps, in an order the barriers
+  // allow: the consumer's plane g - 2 (which releases g - 3) just before
+  // the producer's plane g
+  (void)tid;
+  const Group g{0, 1, 0};
+  Cursor<T> ca(z, block, nblocks), cb(z, block, nblocks);
+  while (ca.valid() || cb.valid()) {
+    if (cb.valid() && (!ca.valid() || ca.g >= cb.g + R::RP - 1)) {
+      st.consume(cb, g);
+      cb.next();
+    } else {
+      st.produce(ca, g);
+      ca.next();
+    }
+  }
+#endif
+  return st.inv;
 }
 
 #ifdef __CUDACC__
 template <typename T, typename M>
-__global__ void __launch_bounds__(Ring<T>::NT, Tile<T>::PER_SM) zcarry_kernel(ZArgs<T> z) {
+__global__ void __launch_bounds__(Ring<T>::NT, 1) zcarry_kernel(ZArgs<T> z) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const T inv = run_block<T, M>(z, reinterpret_cast<T*>(smem), blockIdx.x, gridDim.x);
+  const T inv = run_block<T, M>(z, reinterpret_cast<T*>(smem), blockIdx.x, gridDim.x, threadIdx.x);
   if (z.inv != nullptr) atomic_max_nonneg(z.inv, inv);
 }
 
@@ -362,16 +594,23 @@ int resident(int* blocks) {
 }
 #endif
 
+// the depth of a z chunk on a grid for a persistent grid of `blocks`
+template <typename T>
+int chunk_depth(int nx, int ny, int nz, int blocks) {
+  using R = Ring<T>;
+  const int ntx = (nx + R::TX - 1) / R::TX, nty = (ny + R::TY - 1) / R::TY;
+  const int nzc = pick_z_chunks((long long)ntx * nty, blocks, nz);
+  return (nz + nzc - 1) / nzc;
+}
+
 // blocks: the persistent grid (ramses_zcarry_mhd_blocks)
 template <typename T, typename M>
 int zcarry_step(ZArgs<T> z, int blocks, void* stream) {
   using R = Ring<T>;
-  const int ntx = (z.a.d.nx + R::TX - 1) / R::TX, nty = (z.a.d.ny + R::TY - 1) / R::TY;
-  const int nzc = pick_z_chunks((long long)ntx * nty, blocks, z.a.d.nz);
-  z.ntx = ntx;
-  z.nty = nty;
-  z.bz = (z.a.d.nz + nzc - 1) / nzc;
-  z.items = (long long)ntx * nty * ((z.a.d.nz + z.bz - 1) / z.bz);
+  z.ntx = (z.a.d.nx + R::TX - 1) / R::TX;
+  z.nty = (z.a.d.ny + R::TY - 1) / R::TY;
+  z.bz = chunk_depth<T>(z.a.d.nx, z.a.d.ny, z.a.d.nz, blocks);
+  z.items = (long long)z.ntx * z.nty * ((z.a.d.nz + z.bz - 1) / z.bz);
 #ifdef __CUDACC__
   cudaStream_t s = (cudaStream_t)stream;
   int err = z.inv != nullptr ? (int)cudaMemsetAsync(z.inv, 0, sizeof(T), s) : 0;
@@ -385,7 +624,7 @@ int zcarry_step(ZArgs<T> z, int blocks, void* stream) {
   (void)stream;
   std::vector<T> ring(R::VALUES);  // the serial blocks take turns on one ring
   T inv = T(0);
-  for (int b = 0; b < blocks; ++b) inv = pmax(inv, run_block<T, M>(z, ring.data(), b, blocks));
+  for (int b = 0; b < blocks; ++b) inv = pmax(inv, run_block<T, M>(z, ring.data(), b, blocks, 0));
   if (z.inv != nullptr) *z.inv = inv;
   return 0;
 #endif
@@ -441,12 +680,22 @@ long long ramses_zcarry_mhd_ring_bytes(int f64) {
 }
 
 // the tile of a work item and the threads of a block: out[0] TX, out[1]
-// TY, out[2] the threads
+// TY, out[2] the threads, out[3] the producer group's, out[4] the
+// consumer group's
 void ramses_zcarry_mhd_tile(int f64, int* out) {
   using namespace ramses::zmhd;
   out[0] = f64 ? Tile<double>::TX : Tile<float>::TX;
   out[1] = f64 ? Tile<double>::TY : Tile<float>::TY;
-  out[2] = f64 ? Tile<double>::NT : Tile<float>::NT;
+  out[3] = f64 ? Tile<double>::NA : Tile<float>::NA;
+  out[4] = f64 ? Tile<double>::NB : Tile<float>::NB;
+  out[2] = out[3] + out[4];
+}
+
+// the depth of the z chunks a step on an nx x ny x nz grid takes with a
+// persistent grid of `blocks`
+int ramses_zcarry_mhd_chunk_depth(int f64, int nx, int ny, int nz, int blocks) {
+  using namespace ramses::zmhd;
+  return f64 ? chunk_depth<double>(nx, ny, nz, blocks) : chunk_depth<float>(nx, ny, nz, blocks);
 }
 
 // the persistent grid of the mode (shear, stratified; isothermal from prm)

@@ -198,6 +198,7 @@ _SIGNATURES = {
     "ramses_dissip_step_f64": ([_P] * 6 + [_I] * 4 + [_P, _P], _I),
     "ramses_zcarry_mhd_ring_bytes": ([_I], ctypes.c_longlong),
     "ramses_zcarry_mhd_tile": ([_I, _P], None),
+    "ramses_zcarry_mhd_chunk_depth": ([_I] * 5, _I),
     "ramses_zcarry_mhd_blocks": ([_I, _I, _I, _P], _I),
     "ramses_zcarry_mhd_f32": ([_P, _P, _I] + [_P] * 7 + [_I] * 4 + [_P, _P], _I),
     "ramses_zcarry_mhd_f64": ([_P, _P, _I] + [_P] * 7 + [_I] * 4 + [_P, _P], _I),

@@ -9,6 +9,13 @@ The difference from jnp that this layer absorbs: ``torch.maximum`` and
 ``torch.minimum`` take tensors only; a Python scalar is broadcast as a 0-d
 tensor of the other operand's dtype (jnp's weak typing does the same
 cast). Both propagate NaN, as jnp does.
+
+And ``sqrt``, correctly rounded in float32: some CPU builds of torch round
+a float32 square root wrongly in the last place (one value in five on an
+AVX-512 host), where g++, XLA and CUDA's ``sqrtf`` round it correctly. The
+float32 root is taken in float64 and rounded once more, which is exact: a
+double rounding of a square root is harmless with 53 >= 2 * 24 + 2 bits.
+Every square root of the twins goes through it.
 """
 from __future__ import annotations
 
@@ -25,13 +32,22 @@ def _as_tensor_pair(a, b):
     return a, b
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of x (float32: through float64;
+    other dtypes: torch.sqrt)."""
+    if x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 class TorchBackend:
-    """Roll shifts and maximum/minimum that accept a Python
-    scalar on either side. Everything else is plain torch (torch.sqrt,
-    torch.rsqrt, torch.where, ...)."""
+    """Roll shifts, maximum/minimum that accept a Python scalar on either
+    side, and the correctly rounded sqrt. Everything else is plain torch
+    (torch.rsqrt, torch.where, ...)."""
 
     shift_p = staticmethod(_shift_p)
     shift_m = staticmethod(_shift_m)
+    sqrt = staticmethod(sqrt)
 
     @staticmethod
     def maximum(a, b):

@@ -19,7 +19,7 @@ def eos(params: RunParams, rho: torch.Tensor, eint: torch.Tensor):
     """Pressure and sound speed from density and specific internal energy
     (constoprim.h:29-33)."""
     p = xp.maximum((params.gamma0 - 1.0) * rho * eint, rho * params.smallp)
-    c = torch.sqrt(params.gamma0 * p / rho)
+    c = xp.sqrt(params.gamma0 * p / rho)
     return p, c
 
 
@@ -40,7 +40,7 @@ def constoprim_hydro(params: RunParams, U: torch.Tensor):
     else:
         eint = U[IP] * inv_rho - eken
         p = xp.maximum((params.gamma0 - 1.0) * rho * eint, rho * params.smallp)
-        c = torch.sqrt(params.gamma0 * p * inv_rho)
+        c = xp.sqrt(params.gamma0 * p * inv_rho)
     return torch.stack([rho, p, *velocities]), c
 
 
@@ -83,7 +83,7 @@ def constoprim_mhd(params: RunParams, U: torch.Tensor, dt=None):
     else:
         eint = (U[IP] - emag) * inv_rho - eken
         p = xp.maximum((params.gamma0 - 1.0) * rho * eint, rho * params.smallp)
-        c = torch.sqrt(params.gamma0 * p * inv_rho)
+        c = xp.sqrt(params.gamma0 * p * inv_rho)
 
     if params.omega0 > 0:
         dvx = 2.0 * params.omega0 * v

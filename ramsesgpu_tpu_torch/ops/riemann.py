@@ -48,8 +48,8 @@ def riemann_approx(params: RunParams, ql: torch.Tensor, qr: torch.Tensor) -> tor
     # Lagrangian sound speed squared
     cl = gamma * pl * rl
     cr = gamma * pr * rr
-    wl = torch.sqrt(cl)
-    wr = torch.sqrt(cr)
+    wl = xp.sqrt(cl)
+    wr = xp.sqrt(cr)
     pstar = xp.maximum(((wr * pl + wl * pr) + wl * wr * (ul - ur)) / (wl + wr), 0.0)
     pold = pstar
     conv = torch.ones_like(pstar)
@@ -93,9 +93,9 @@ def riemann_approx(params: RunParams, ql: torch.Tensor, qr: torch.Tensor) -> tor
     inv_wo = torch.where(left_going, rwl_f, rwr_f)
 
     inv_ro = 1.0 / ro
-    co = xp.maximum(smallc, torch.sqrt(torch.abs(gamma * po * inv_ro)))
+    co = xp.maximum(smallc, xp.sqrt(torch.abs(gamma * po * inv_ro)))
     rstar = xp.maximum(ro / (1.0 + ro * (po - pstar) * (inv_wo * inv_wo)), smallr)
-    cstar = xp.maximum(smallc, torch.sqrt(torch.abs(gamma * pstar / rstar)))
+    cstar = xp.maximum(smallc, xp.sqrt(torch.abs(gamma * pstar / rstar)))
 
     spout = co - sgnm * uo
     spin = cstar - sgnm * ustar
@@ -136,8 +136,8 @@ def riemann_hll(params: RunParams, ql: torch.Tensor, qr: torch.Tensor) -> torch.
     ur = qr[IU]
     pr = xp.maximum(qr[IP], rr * smallp)
 
-    cl = torch.sqrt(gamma * pl / rl)
-    cr = torch.sqrt(gamma * pr / rr)
+    cl = xp.sqrt(gamma * pl / rl)
+    cr = xp.sqrt(gamma * pr / rr)
     SL = xp.minimum(xp.minimum(ul, ur) - xp.maximum(cl, cr), 0.0)
     SR = xp.maximum(xp.maximum(ul, ur) + xp.maximum(cl, cr), 0.0)
 
@@ -173,8 +173,8 @@ def riemann_hllc(params: RunParams, ql: torch.Tensor, qr: torch.Tensor) -> torch
     ecinr = ecinr + 0.5 * rr * qr[IW] * qr[IW]
     etotr = pr * entho + ecinr
 
-    cfastl = torch.sqrt(xp.maximum(gamma * pl / rl, smallc * smallc))
-    cfastr = torch.sqrt(xp.maximum(gamma * pr / rr, smallc * smallc))
+    cfastl = xp.sqrt(xp.maximum(gamma * pl / rl, smallc * smallc))
+    cfastr = xp.sqrt(xp.maximum(gamma * pr / rr, smallc * smallc))
     SL = xp.minimum(ul, ur) - xp.maximum(cfastl, cfastr)
     SR = xp.maximum(ul, ur) + xp.maximum(cfastl, cfastr)
 

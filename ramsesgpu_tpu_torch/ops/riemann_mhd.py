@@ -34,7 +34,7 @@ def _fast_speed_precursors(params: RunParams, d, p, a, b, c):
 
 def _fast_speed_from_precursors(pre, bn):
     d2, cb, _ = pre
-    return torch.sqrt(d2 + torch.sqrt(xp.maximum(d2 * d2 - cb * (bn * bn), 0.0)))
+    return xp.sqrt(d2 + xp.sqrt(xp.maximum(d2 * d2 - cb * (bn * bn), 0.0)))
 
 
 def _fast_speed_components(params: RunParams, d, p, a, b, c, bn=None):

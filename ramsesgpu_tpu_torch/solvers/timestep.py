@@ -51,7 +51,7 @@ def compute_inv_dt_hydro(params: RunParams, U: torch.Tensor, ghost=None) -> torc
         eken = 0.5 * (u * u + v * v + w * w)
         eint = U[IP] / rho - eken
         p = xp.maximum((params.gamma0 - 1.0) * rho * eint, rho * params.smallp)
-        c = torch.sqrt(params.gamma0 * p / rho)
+        c = xp.sqrt(params.gamma0 * p / rho)
     inv = (c + torch.abs(u)) / params.dx + (c + torch.abs(v)) / params.dy
     inv = inv + (c + torch.abs(w)) / params.dz
     # torch.max propagates NaN, as jnp.max does
@@ -76,7 +76,7 @@ def _inv_dt_mhd_fields(params: RunParams, rho, eP, u, v, w, bx, by, bz):
     d2 = 0.5 * (b2 / rho + c2)
 
     def cf(bn):
-        return torch.sqrt(d2 + torch.sqrt(xp.maximum(d2 * d2 - c2 * bn * bn / rho, 0.0)))
+        return xp.sqrt(d2 + xp.sqrt(xp.maximum(d2 * d2 - c2 * bn * bn / rho, 0.0)))
 
     vy = v
     if params.omega0 > 0:

@@ -3,6 +3,9 @@ NVIDIA GPU. Run from the root of a checkout.
 
     python3 scripts/torch_ab.py trees A B   # two checkouts, in turns A, B, B, A
     python3 scripts/torch_ab.py fmad        # mhd_step.cu with and without -fmad=false
+    python3 scripts/torch_ab.py parent P    # the step kernels of this checkout against P's
+    python3 scripts/torch_ab.py zcarry T... # row 12 of this checkout against the checkouts T
+    python3 scripts/torch_ab.py clocks      # row 12's phases in cycles, per warp group
 
 ``trees``: runs chip_smoke.py's build (phase 2) and main paths 5 (MHD OT
 256^3), 13 (MRI 128x256x128, compensated=no) and 17 (OT dissipative) of
@@ -15,12 +18,27 @@ against those of the checkout P (its library built there), through the
 same wrappers on the same inputs: one step of every mode of the staged
 step kernel (periodic, compensated, shear isothermal / adiabatic /
 compensated, stratified, ghosted walls and jet, shear window ideal and
-stratified) and of the streamed one (periodic, shear), f32 and f64, at
+stratified) and of the streamed one (periodic, compensated, shear,
+stratified), f32 and f64, at
 64^3-sized grids: whether the new state (and planes) is bitwise the
 parent's, else its largest difference in ULP and whether the fluxes and
 EMFs the update read already differ; then the periodic step's stages at
 256^3 f32 of each (torch.profiler), and each mode's time at the main
 paths' sizes in f32, P, this, this, P (CUDA events, 10 launches).
+
+``zcarry T...``: row 12 (csrc/zcarry_mhd.cu) of this checkout against
+the checkouts T (each library built there) in its four modes (periodic
+and compensated with the folded CFL at 256^3, shear and stratified at
+128x256x128, f32): each tree's new state against this one's (ULP), then
+the times in turns this, T..., T... reversed, this (CUDA events, 10
+launches). For trying a variant of the kernel: unpack a copy of the
+checkout into a directory that .gitignore lists and edit it there.
+
+``clocks``: row 12 built with -DRAMSES_ZCARRY_CLOCKS, one launch of each
+of its four modes at the main paths' sizes (f32): block 0's producer and
+consumer groups print the cycles they spent in each of their phases,
+waits at the hand-over included (csrc/zcarry_mhd.cu Clocks); then that
+build against the package's, timed in turns, for the counters' cost.
 
 ``fmad``: the periodic step at 256^3 f32, plain and compensated, launched
 in turns (default, variant, variant, default) from the package's library
@@ -101,6 +119,47 @@ def fmad() -> None:
         torch.cuda.empty_cache()
 
 
+def clocks() -> None:
+    """Row 12's phases: csrc/zcarry_mhd.cu built on its own with
+    -DRAMSES_ZCARRY_CLOCKS, one launch of each mode at the main paths'
+    sizes (f32); block 0 prints the cycles its groups spent in each phase
+    (Clocks in the source). Then the same launch of the package's library
+    and of the counting build's, timed, for the cost of the counters."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from ramsesgpu_tpu_torch.kernels import build as b
+
+    card = cs.card_line()
+    nvcc = b.find_nvcc()
+    work = Path(tempfile.mkdtemp(dir=b.build_dir()))
+    obj, path = work / "zcarry_mhd.o", work / "libzcarry_clocks.so"
+    for cmd in ([nvcc, *b.compile_flags("cuda", "zcarry_mhd.cu"), "-DRAMSES_ZCARRY_CLOCKS",
+                 "-o", str(obj), str(b.CSRC / "zcarry_mhd.cu")],
+                [nvcc, *b.LINK_FLAGS, "-o", str(path), str(obj)]):
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(path))
+    for name, (args, res) in b._SIGNATURES.items():
+        if name.startswith("ramses_zcarry_mhd"):
+            getattr(lib, name).argtypes, getattr(lib, name).restype = args, res
+    libs = {"clocks": lib, "package": b.load_library("cuda")}
+    for name, _params, run in step_cases(cs, "float32", full=True, streamed_only=True):
+        with library(libs["clocks"]):
+            print(f"[clocks] {name} f32 (main path size; {card}): one launch", flush=True)
+            outs, _fe, again = run(libs["clocks"])
+            torch.cuda.synchronize()
+            del outs
+        times = []
+        for who in ("package", "clocks", "clocks", "package"):
+            with library(libs[who]):
+                times.append((who, cs.time_ms(again, 10)))
+        print(f"[clocks] {name}: " + ", ".join(f"{who} {ms:.3f} ms" for who, ms in times),
+              flush=True)
+        del _fe, again
+        torch.cuda.empty_cache()
+
+
 def ulp_diff(a, b) -> tuple:
     """(elements that differ, the largest |a - b| in ULP of b) of two
     tensors of one dtype."""
@@ -128,10 +187,11 @@ def library(lib):
         ms.load_library, zm.load_library = saved
 
 
-def step_cases(cs, dtype: str, full: bool):
+def step_cases(cs, dtype: str, full: bool, streamed_only: bool = False):
     """(name, params, run) of every mode: run(lib) makes its buffers with
     that library, launches one step and returns (outputs, fluxes and EMFs,
-    a relaunch for timing). ``full``: the main paths' sizes (f32)."""
+    a relaunch for timing). ``full``: the main paths' sizes (f32);
+    ``streamed_only``: the streamed step's modes alone."""
     import torch
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd, cfl_mhd_window
     from ramsesgpu_tpu_torch.kernels.mhd_step import MhdStepKernel, MhdWindowKernel
@@ -217,103 +277,57 @@ def step_cases(cs, dtype: str, full: bool):
         return lp, run
 
     def zcarry(kind):
-        if kind == "periodic":
+        if kind in ("periodic", "compensated"):
             params, S = cs.setup(n, dtype)
-            params = params.replace(kernel="zcarry")
+            params = params.replace(kernel="zcarry", compensated=kind == "compensated")
+            if params.compensated:
+                S = cs.with_carry(S, 31)
             dt = dt_from_inv(params, cfl_mhd(params, S))
             extra, fold = None, True
         else:
-            params, _config, (S, kept) = cs.mri_setup(*mri, dtype)
+            if kind == "stratified":
+                params, _config, (S, kept), gz = cs.strat_setup(*mri, dtype, seed=33)
+            else:
+                params, _config, (S, kept) = cs.mri_setup(*mri, dtype)
             params = params.replace(kernel="zcarry")
             t = cs.shear_t0(params, S.dtype)
             dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
-            extra, fold = shear_slabs(params, S, kept, t, dt), False
+            slabs = shear_slabs(params, S, kept, t, dt)
+            extra = (slabs,) if kind == "shear" else (
+                slabs, shear_zslabs(params, S, slabs), gz.to(S.dtype))
+            fold = False
 
         def run(_lib):
             k, out = ZcarryMhdKernel(), torch.empty_like(S)
             planes = torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device="cuda")
-            sh = None if extra is None else (extra, planes)
+            sh = None if extra is None else (extra[0], planes, *extra[1:])
             inv = k(params, S, out, dt, active, shear=sh, fold=fold)
             outs = (out, planes) if inv is None else (out, inv)
             return outs, None, lambda: k(params, S, out, dt, active, shear=sh, fold=fold)
         return params, run
 
-    yield "mhd_step periodic", *periodic(False)
-    yield "mhd_step compensated", *periodic(True)
-    for kind in ("isothermal", "adiabatic", "compensated", "stratified"):
-        yield f"mhd_step shear {kind}", *shear(kind)
-    for case in ("neumann", "jet"):
-        yield f"mhd_step ghosted {case}", *ghosted(case)
-    for kind in ("ideal", "stratified"):
-        yield f"mhd_step window {kind}", *window(kind)
-    for kind in ("periodic", "shear"):
+    if not streamed_only:
+        yield "mhd_step periodic", *periodic(False)
+        yield "mhd_step compensated", *periodic(True)
+        for kind in ("isothermal", "adiabatic", "compensated", "stratified"):
+            yield f"mhd_step shear {kind}", *shear(kind)
+        for case in ("neumann", "jet"):
+            yield f"mhd_step ghosted {case}", *ghosted(case)
+        for kind in ("ideal", "stratified"):
+            yield f"mhd_step window {kind}", *window(kind)
+    for kind in ("periodic", "compensated", "shear", "stratified"):
         yield f"zcarry_mhd {kind}", *zcarry(kind)
 
 
-def formed_states(pre, smallr: float, smallp: float):
-    """The 18 traced states [18][8][...] formed from precursors [48][...]
-    (csrc/mhd_stages.cuh traced, without the stratified kick): q2 -+ the
-    half-slopes, the face fields from L2 / R2 and their transverse
-    half-slopes, then the floors; each sum rounded as the kernel rounds
-    it (the signs are +-1, so no product is rounded)."""
-    import torch
-
-    def h(ax, ch):
-        return pre[8 + 7 * ax + (ch if ch < 5 + ax else ch - 1)]
-
-    def df(fax, side, along):
-        return pre[35 + 4 * fax + 2 * side + (along if along < fax else along - 1)]
-
-    def floors(q):
-        q[0] = torch.maximum(q[0], torch.full_like(q[0], smallr))
-        q[1] = torch.maximum(q[1], torch.full_like(q[1], smallp))
-        return torch.stack(q)
-
-    out = []
-    for ax in range(3):
-        for side in range(2):
-            sg = 1.0 if side else -1.0
-            out.append(floors([pre[(32 if side else 29) + ax] if ch == 5 + ax
-                               else pre[ch] + sg * h(ax, ch) for ch in range(8)]))
-    for f, (d1, d2) in enumerate(((1, 2), (0, 2), (0, 1))):
-        for e in range(4):
-            p1, p2 = int(e < 2), int(e % 2 == 0)
-            s1, s2 = (1.0 if p1 else -1.0), (1.0 if p2 else -1.0)
-            q = []
-            for ch in range(8):
-                if ch == 5 + d1:
-                    q.append(pre[(32 if p1 else 29) + d1] + s2 * df(d1, p1, d2))
-                elif ch == 5 + d2:
-                    q.append(pre[(32 if p2 else 29) + d2] + s1 * df(d2, p2, d1))
-                else:
-                    q.append(pre[ch] + s1 * h(d1, ch) + s2 * h(d2, ch))
-            out.append(floors(q))
-    return torch.stack(out)
-
-
-def trace_vs_parent(cs, libs, dtype: str) -> str:
-    """The periodic step's traced states: this tree's, formed from its
-    precursor stage's output (formed_states), against the parent's trace
-    stage's stored states, on the same state and dt."""
-    import torch
-    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
-    from ramsesgpu_tpu_torch.kernels.mhd_step import MhdStepKernel
-    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
-
-    params, S = cs.setup(64, dtype)
-    dt = dt_from_inv(params, cfl_mhd(params, S))
-    active = torch.ones((), dtype=torch.bool, device="cuda")
-    n = S[0].numel()
-    got = {}
-    for who in ("parent", "this"):
-        with library(libs[who]):
-            k = MhdStepKernel()
-            scratch = k.scratch(params, S)
-            k(params, S.clone(), dt, active, scratch)
-            got[who] = scratch[11 * n:(11 + (144 if who == "parent" else 48)) * n].view(-1, n)
-    states = formed_states(got["this"], params.smallr, params.smallp).view(144, n)
-    nd, u = ulp_diff(states, got["parent"])
-    return "bitwise equal" if nd == 0 else f"{nd} values differ, up to {u:.2f} ULP"
+def tree_library(tree: str, tag: str):
+    """The CUDA library of the checkout ``tree``, built there by its own
+    kernels/build.py."""
+    spec = importlib.util.spec_from_file_location(
+        f"{tag}_build", Path(tree).resolve() / "ramsesgpu_tpu_torch" / "kernels" / "build.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # (its dataclass looks its module up)
+    spec.loader.exec_module(mod)
+    return mod.load_library("cuda")
 
 
 def parent(tree: str) -> None:
@@ -328,19 +342,11 @@ def parent(tree: str) -> None:
     from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
 
     card = cs.card_line()
-    spec = importlib.util.spec_from_file_location(
-        "parent_build", Path(tree).resolve() / "ramsesgpu_tpu_torch" / "kernels" / "build.py")
-    pb = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = pb  # (its dataclass looks its module up)
-    spec.loader.exec_module(pb)
-    libs = {"parent": pb.load_library("cuda"), "this": b.load_library("cuda")}
+    libs = {"parent": tree_library(tree, "parent"), "this": b.load_library("cuda")}
     print(f"[parent] {card}; stage buffer values per cell: parent "
           f"{libs['parent'].ramses_mhd_step_scratch_per_cell()}, this "
           f"{libs['this'].ramses_mhd_step_scratch_per_cell()}", flush=True)
     for dtype in ("float32", "float64"):
-        print(f"[parent] periodic {dtype}: the traced states formed from this tree's "
-              f"precursors against the parent's stored ones: {trace_vs_parent(cs, libs, dtype)}",
-              flush=True)
         for name, _params, run in step_cases(cs, dtype, full=False):
             got = {}
             for who in ("parent", "this"):
@@ -384,12 +390,48 @@ def parent(tree: str) -> None:
               + ", ".join(f"{who} {ms:.3f} ms" for who, ms in times), flush=True)
 
 
+def zcarry(others: list) -> None:
+    """Row 12 of this checkout and of the checkouts ``others``, each mode at
+    the main paths' sizes in f32: each one's new state against this one's
+    (ULP), then the times in turns this, others, others reversed, this."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from ramsesgpu_tpu_torch.kernels import build as b
+
+    card = cs.card_line()
+    libs = {"this": b.load_library("cuda"),
+            **{t: tree_library(t, f"tree{i}") for i, t in enumerate(others)}}
+    order = ["this", *others, *reversed(others), "this"]
+    for name, _params, run in step_cases(cs, "float32", full=True, streamed_only=True):
+        first, times = {}, []
+        for who in order:
+            with library(libs[who]):
+                outs, _fe, again = run(libs[who])
+                first.setdefault(who, outs[0])
+                times.append((who, cs.time_ms(again, 10)))
+            del outs, _fe, again
+        diffs = "; ".join(f"{t}: " + ("bitwise equal" if d[0] == 0 else
+                                      f"{d[0]} elements up to {d[1]:.2f} ULP")
+                          for t in others for d in [ulp_diff(first[t], first["this"])])
+        print(f"[zcarry] {name} f32 (main path size; {card}): "
+              + ", ".join(f"{who} {ms:.3f} ms" for who, ms in times)
+              + f"; against this: {diffs}", flush=True)
+        del first
+        torch.cuda.empty_cache()
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["trees"] and len(sys.argv) == 4:
         trees(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["zcarry"] and len(sys.argv) >= 3:
+        zcarry(sys.argv[2:])
     elif sys.argv[1:2] == ["parent"] and len(sys.argv) == 3:
         parent(sys.argv[2])
     elif sys.argv[1:] == ["fmad"]:
         fmad()
+    elif sys.argv[1:] == ["clocks"]:
+        clocks()
     else:
         sys.exit(__doc__)

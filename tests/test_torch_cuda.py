@@ -59,12 +59,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def ot_state(dtype, device, tend=100.0):
+def ot_state(dtype, device, tend=100.0, mesh=(32, 24, 16)):
     from ramsesgpu_tpu_torch.convert import torch_dtype
     from ramsesgpu_tpu_torch.solvers.boundary import interior
     from ramsesgpu_tpu_torch.problems import init_problem
 
-    config = ConfigMap(text=INI.format(dtype=dtype, tend=tend))
+    text = INI.format(dtype=dtype, tend=tend)
+    for key, n in zip(("nx", "ny", "nz"), mesh):
+        text = text.replace(f"{key}={dict(nx=32, ny=24, nz=16)[key]}\n", f"{key}={n}\n")
+    config = ConfigMap(text=text)
     params = params_from_config(config)
     U = torch.from_numpy(init_problem(params, config)).to(device, torch_dtype(params))
     return params, interior(params, U).contiguous()
@@ -679,6 +682,48 @@ def test_zcarry_mhd_matches_twin_and_staged(cuda_device, dtype, mode):
     idle = torch.zeros((), dtype=torch.bool, device=cuda_device)
     zcarry_mhd(params, S, out, dt, idle, shear=shear, fold=fold)
     assert torch.equal(out, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["periodic", "shear"])
+def test_zcarry_mhd_odd_tiles(cuda_device, mode):
+    """The streamed MHD step (f32) on a 37 x 21 x 13 grid, which its tile
+    divides along neither x nor y, against its twin within TOL (the folded
+    inverse dt within 4 ULP of the CFL kernel on its output; the x-face
+    planes within TOL_PLANES)."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs
+    from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_periodic_update, mhd_3d_shear_update
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_periodic, inv_dt_mhd_shear
+
+    import ctypes
+
+    mesh = (37, 21, 13)
+    tile = (ctypes.c_int * 5)()
+    load_library("cuda").ramses_zcarry_mhd_tile(0, tile)
+    assert mesh[0] % tile[0] and mesh[1] % tile[1]
+    active = torch.ones((), dtype=torch.bool, device=cuda_device)
+    if mode == "periodic":
+        params, S = ot_state("float32", cuda_device, mesh=mesh)
+        dt = dt_from_inv(params, inv_dt_mhd_periodic(params, S))
+        out = torch.empty_like(S)
+        inv = zcarry_mhd(params, S, out, dt, active, fold=True)
+        assert rel_l2(out, mhd_3d_periodic_update(params, S, dt)) <= TOL["float32"]
+        assert ulp_close(inv, cfl_mhd(params, out))
+    else:
+        params, _config, (S, kept), t0, _gz = shipped_mri("mhd_mri_3d.ini", "float32",
+                                                         cuda_device, mesh)
+        dt = dt_from_inv(params, inv_dt_mhd_shear(params, S, kept[0]))
+        slabs = shear_slabs(params, S, kept, t0, dt)
+        planes = torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device=cuda_device)
+        out = torch.empty_like(S)
+        zcarry_mhd(params, S, out, dt, active, shear=(slabs, planes))
+        want, want_planes = mhd_3d_shear_update(params, S, slabs, dt)
+        assert rel_l2(out[:8], want[:8]) <= TOL["float32"]
+        for p, q in zip(planes, want_planes):
+            assert rel_l2(p, q) <= TOL_PLANES["float32"]
 
 
 @pytest.mark.cuda

@@ -246,3 +246,18 @@ def f64_ratios():
 @pytest.mark.parametrize("name", list(CASES))
 def test_op_parity_f64(name, f64_ratios):
     assert f64_ratios[name] <= 1.0
+
+
+def test_backend_sqrt_correctly_rounded():
+    """ops/backend.py sqrt: the float32 square root, rounded as np.sqrt,
+    g++, XLA and CUDA's sqrtf round it (correctly), bit for bit."""
+    from ramsesgpu_tpu_torch.ops.backend import sqrt
+
+    x = np.random.default_rng(10).uniform(0.5, 1.5, 100_000).astype(np.float32)
+    x[:4] = [0.0, 1e-38, 3.0e38, 2.0]
+    got = sqrt(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), np.sqrt(x).view(np.uint32))
+    assert torch.isnan(sqrt(torch.tensor([-1.0]))).all()
+    x64 = torch.from_numpy(x.astype(np.float64))
+    assert torch.equal(sqrt(x64), torch.sqrt(x64))

@@ -4,11 +4,14 @@ on the CPU.
 - The g++ host build (kernels/build.py ``build("host")``) of
   csrc/zcarry_mhd.cu and csrc/zcarry_hydro.cu, whose block bodies run as
   serial phase loops with the same ring, warm-up and drain logic as on the
-  card, and a persistent grid of 3 blocks striding over the work items.
-  Grids whose tiles (MHD 12 x 8 in f32, 8 x 4 in f64; hydro 16 x 8) do
-  not divide nx and ny, a single z plane, nz = 2, and a single tile whose
-  nz = 7 planes the blocks take in z chunks of 3 (a chunk as deep as the
-  ring, and one shallower). Held against the twins
+  card (the MHD kernel's two warp groups in one serial schedule, the
+  producer as far ahead of the consumer as its ring allows), and a
+  persistent grid of 3 blocks striding over the work items. Grids whose
+  tiles (MHD 16 x 8 in f32, 8 x 8 in f64; hydro 16 x 8) do not divide nx
+  and ny, a single z plane, nz = 2, and a single tile whose nz = 7 planes
+  the blocks take in z chunks of 3 (a chunk as deep as the ring, and one
+  shallower); the MHD modes also on a grid of partial tiles taken by 8
+  blocks in z chunks of 4 and 3, with a random Bz. Held against the twins
   (relative L2 1e-6 f32 / 1e-13 f64) and, bitwise, against the host build
   of the staged kernels on the same input (the same arithmetic in the same
   order: csrc/mhd_stages.cuh, csrc/hydro_stages.cuh); an inactive step
@@ -25,6 +28,7 @@ on the CPU.
   paths' kernel=zcarry runs are held against the JAX runs of their own
   test files (see CASES).
 """
+import ctypes
 import os
 import subprocess
 import sys
@@ -180,13 +184,12 @@ def test_zcarry_advance_matches_jax(name, dtype, jax_refs):
 # the host build of the kernels
 # -------------------------------------------------------------------------
 # (nx, ny, nz): several x and y tiles, the last of each partial where
-# the tile (hydro 16 x 8, MHD f32 12 x 8) does not divide; a single z
-# plane; nz = 2
+# the tile (hydro and MHD f32 16 x 8, MHD f64 8 x 8) does not divide; a
+# single z plane; nz = 2
 GRIDS = [(40, 20, 7), (20, 12, 7), (40, 20, 1), (40, 20, 2)]
-# and, for the f64 tile (8 x 4), whose y tiles 20 and 12 rows divide, a
-# partial last y tile; and one partial tile of each dtype, which the 3
-# host blocks take in z chunks of 3 (a chunk as deep as the ring, and a
-# last one of 1 plane, shallower)
+# and a partial last y tile of 22 rows; and one partial tile of each
+# dtype, which the 3 host blocks take in z chunks of 3 (a chunk as deep as
+# the precursor ring, and a last one of 1 plane, shallower)
 MHD_HOST = ([(d, g) for d in ("float32", "float64") for g in GRIDS]
             + [("float64", (40, 22, 7)), ("float32", (10, 6, 7)), ("float64", (6, 3, 7))])
 
@@ -224,6 +227,43 @@ def ot_state(dtype, nx, ny, nz, comp):
     return params, S.contiguous()
 
 
+def check_host_periodic(lib, params, S, comp, blocks):
+    """The periodic mode on S: bitwise the staged host kernel, within
+    TOL_HOST of the twin; the folded inverse dt bitwise the CFL kernel's
+    (and the twin's) on the kernel's output; inactive: a copy."""
+    from ramsesgpu_tpu_torch.kernels.build import param_block
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_periodic_update
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_periodic
+
+    nz, ny, nx = S.shape[-3:]
+    sfx = "f32" if S.dtype == torch.float32 else "f64"
+    blk = param_block(params)
+    dt = dt_from_inv(params, inv_dt_mhd_periodic(params, S[:8]))
+    for active in (True, False):
+        out = torch.full_like(S, float("nan"))
+        inv = torch.full((), float("nan"), dtype=S.dtype)
+        flag = torch.tensor(active)
+        assert getattr(lib, f"ramses_zcarry_mhd_{sfx}")(
+            S.data_ptr(), out.data_ptr(), blocks, None, None, None, None,
+            inv.data_ptr(), dt.data_ptr(), flag.data_ptr(), int(comp), nx, ny, nz, blk,
+            None) == 0
+        staged = S.clone()
+        scratch = torch.empty(lib.ramses_mhd_step_scratch_per_cell() * nx * ny * nz,
+                              dtype=S.dtype)
+        assert getattr(lib, f"ramses_mhd_step_{sfx}")(
+            staged.data_ptr(), scratch.data_ptr(), dt.data_ptr(), flag.data_ptr(), int(comp),
+            nx, ny, nz, blk, None) == 0
+        assert torch.equal(out, staged)
+        if not active:
+            assert torch.equal(out, S)
+        else:
+            assert rel(out[:8], mhd_3d_periodic_update(params, S, dt)[:8]) <= TOL_HOST[S.dtype]
+        inv_cfl = torch.zeros((), dtype=S.dtype)
+        assert getattr(lib, f"ramses_cfl_mhd_{sfx}")(
+            out.data_ptr(), None, inv_cfl.data_ptr(), nx, ny, nz, blk, None) == 0
+        assert float(inv) == float(inv_cfl) == float(inv_dt_mhd_periodic(params, out[:8]))
+
+
 @pytest.mark.parametrize("dtype, grid", MHD_HOST,
                          ids=[f"{d}-{'x'.join(map(str, g))}" for d, g in MHD_HOST])
 def test_host_zcarry_mhd_periodic(dtype, grid):
@@ -231,48 +271,20 @@ def test_host_zcarry_mhd_periodic(dtype, grid):
     kernel, within TOL_HOST of the twin; the folded inverse dt bitwise the
     CFL kernel's (and the twin's) on the kernel's output; inactive: a copy."""
     from ramsesgpu_tpu_torch.kernels.build import param_block
-    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_periodic_update
-    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_periodic
 
     lib = host_lib()
-    nx, ny, nz = grid
-    sfx = "f32" if dtype == "float32" else "f64"
     for comp in (False, True):
-        params, S = ot_state(dtype, nx, ny, nz, comp)
-        blk = param_block(params)
-        dt = dt_from_inv(params, inv_dt_mhd_periodic(params, S[:8]))
-        blocks = lib.ramses_zcarry_mhd_blocks(0, 0, int(dtype == "float64"), blk)
-        for active in (True, False):
-            out = torch.full_like(S, float("nan"))
-            inv = torch.full((), float("nan"), dtype=S.dtype)
-            flag = torch.tensor(active)
-            assert getattr(lib, f"ramses_zcarry_mhd_{sfx}")(
-                S.data_ptr(), out.data_ptr(), blocks, None, None, None, None,
-                inv.data_ptr(), dt.data_ptr(), flag.data_ptr(), int(comp), nx, ny, nz, blk,
-                None) == 0
-            staged = S.clone()
-            scratch = torch.empty(lib.ramses_mhd_step_scratch_per_cell() * nx * ny * nz,
-                                  dtype=S.dtype)
-            assert getattr(lib, f"ramses_mhd_step_{sfx}")(
-                staged.data_ptr(), scratch.data_ptr(), dt.data_ptr(), flag.data_ptr(), int(comp),
-                nx, ny, nz, blk, None) == 0
-            assert torch.equal(out, staged)
-            if not active:
-                assert torch.equal(out, S)
-            else:
-                assert rel(out[:8], mhd_3d_periodic_update(params, S, dt)[:8]) <= TOL_HOST[S.dtype]
-            inv_cfl = torch.zeros((), dtype=S.dtype)
-            assert getattr(lib, f"ramses_cfl_mhd_{sfx}")(
-                out.data_ptr(), None, inv_cfl.data_ptr(), nx, ny, nz, blk, None) == 0
-            assert float(inv) == float(inv_cfl) == float(inv_dt_mhd_periodic(params, out[:8]))
+        params, S = ot_state(dtype, *grid, comp)
+        blocks = lib.ramses_zcarry_mhd_blocks(0, 0, int(dtype == "float64"), param_block(params))
+        check_host_periodic(lib, params, S, comp, blocks)
 
 
 SHEAR_MODES = ["isothermal", "adiabatic", "stratified"]
 
 
-def shear_state(dtype, mode):
-    """A shearing-box state at 40 x 20 x 5 with a random Kahan carry and
-    its inputs: (params, S, kept, slabs, zslabs, gz, dt)."""
+def shear_state(dtype, mode, grid=(40, 20, 5)):
+    """A shearing-box state at grid (nx, ny, nz) with a random Kahan carry
+    and its inputs: (params, S, kept, slabs, zslabs, gz, dt)."""
     from ramsesgpu_tpu_torch.kernels.shear import pack
     from ramsesgpu_tpu_torch.problems import init_problem
     from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
@@ -281,9 +293,9 @@ def shear_state(dtype, mode):
     from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_shear
 
     if mode == "stratified":
-        text = strat.strat_text(dtype, 40, 20, 5)
+        text = strat.strat_text(dtype, *grid)
     else:
-        text = with_mesh(shear.ini(dtype, coeffs=1.0), 40, 20, 5, old=(16, 32, 16))
+        text = with_mesh(shear.ini(dtype, coeffs=1.0), *grid, old=(16, 32, 16))
         text = set_impl(text, compensated="yes")
     config = ConfigMap(text=text)
     params = params_from_config(config)
@@ -305,21 +317,16 @@ def shear_state(dtype, mode):
     return params, S.contiguous(), kept, slabs, zslabs, gz, dt
 
 
-@pytest.mark.parametrize("mode", SHEAR_MODES)
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_host_zcarry_mhd_shear(dtype, mode):
+def check_host_shear(lib, params, S, slabs, zslabs, gz, dt, blocks):
     """The shear modes (compensated): state and x-face planes bitwise the
-    staged host kernel's, within TOL_HOST of the twin; no folded CFL."""
+    staged host kernel's, within TOL_HOST of the twin."""
     from ramsesgpu_tpu_torch.kernels.build import param_block
     from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_shear_update
 
-    lib = host_lib()
-    sfx = "f32" if dtype == "float32" else "f64"
-    params, S, kept, slabs, zslabs, gz, dt = shear_state(dtype, mode)
+    sfx = "f32" if S.dtype == torch.float32 else "f64"
     dims, blk = (params.nx, params.ny, params.nz), param_block(params)
-    is_strat = mode == "stratified"
+    is_strat = zslabs is not None
     ptr = (lambda x: None if x is None else x.data_ptr())
-    blocks = lib.ramses_zcarry_mhd_blocks(1, int(is_strat), int(dtype == "float64"), blk)
     out = torch.full_like(S, float("nan"))
     planes = torch.zeros((5, params.nz, params.ny), dtype=S.dtype)
     flag = torch.tensor(True)
@@ -337,6 +344,55 @@ def test_host_zcarry_mhd_shear(dtype, mode):
     want, want_planes = mhd_3d_shear_update(params, S, slabs, dt, zslabs, gz)
     assert rel(out[:8], want[:8]) <= TOL_HOST[S.dtype]
     assert rel(planes, want_planes) <= TOL_HOST[S.dtype]
+
+
+@pytest.mark.parametrize("mode", SHEAR_MODES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_host_zcarry_mhd_shear(dtype, mode):
+    """The shear modes (compensated): state and x-face planes bitwise the
+    staged host kernel's, within TOL_HOST of the twin; no folded CFL."""
+    from ramsesgpu_tpu_torch.kernels.build import param_block
+
+    lib = host_lib()
+    params, S, _kept, slabs, zslabs, gz, dt = shear_state(dtype, mode)
+    blocks = lib.ramses_zcarry_mhd_blocks(1, int(mode == "stratified"),
+                                          int(dtype == "float64"), param_block(params))
+    check_host_shear(lib, params, S, slabs, zslabs, gz, dt, blocks)
+
+
+# the edge tiles and a short last z chunk: per dtype a grid that its tile
+# divides along neither x nor y (2 x 2 tiles, the last ones 2 columns and
+# 2 rows wide), taken by a persistent grid of 8 blocks in z chunks of 4 and
+# 3 planes; the periodic state gets a random Bz (Orszag-Tang's is 0), which
+# reaches the pressure of the plane above a chunk's top through prim
+EDGE_GRID = {"float32": (18, 10, 7), "float64": (10, 10, 7)}
+EDGE_BLOCKS = 8
+
+
+@pytest.mark.parametrize("mode", ["periodic", "adiabatic"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_host_zcarry_mhd_edge_tiles(dtype, mode):
+    """The periodic mode (plain and compensated) and the adiabatic shear
+    mode on partial edge tiles and a short last z chunk: bitwise the
+    staged host kernel, within TOL_HOST of the twin (and the folded inverse
+    dt: bitwise the CFL kernel's)."""
+    lib = host_lib()
+    grid = EDGE_GRID[dtype]
+    f64 = int(dtype == "float64")
+    assert lib.ramses_zcarry_mhd_chunk_depth(f64, *grid, EDGE_BLOCKS) == 4
+    tile = (ctypes.c_int * 5)()
+    lib.ramses_zcarry_mhd_tile(f64, tile)
+    assert grid[0] % tile[0] and grid[1] % tile[1] and tile[3] + tile[4] == tile[2]
+    if mode == "periodic":
+        for comp in (False, True):
+            params, S = ot_state(dtype, *grid, comp)
+            bx = S[5].abs().max()
+            rng = np.random.default_rng(11)
+            S[7] += 0.1 * bx * torch.from_numpy(rng.standard_normal(S[7].shape)).to(S.dtype)
+            check_host_periodic(lib, params, S, comp, EDGE_BLOCKS)
+    else:
+        params, S, _kept, slabs, zslabs, gz, dt = shear_state(dtype, mode, grid)
+        check_host_shear(lib, params, S, slabs, zslabs, gz, dt, EDGE_BLOCKS)
 
 
 HYDRO_GRIDS = [((40, 20, 7), "approx"), ((20, 12, 7), "hllc"), ((40, 20, 2), "hll"),
