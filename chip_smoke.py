@@ -302,6 +302,7 @@ STRAT_INI = "data/mhd_mri_3d_stratified.ini"
 # the card's peaks (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12
 
 
 def card_line() -> str:
@@ -772,8 +773,8 @@ def phase8() -> int:
                 S0 = interior(params, U).contiguous()
                 dt = dt_from_inv(params, compute_inv_dt_hydro(params, S0, ghost=0))
                 active = torch.ones((), dtype=torch.bool, device="cuda")
-                S_k = hydro_step(params, S0.clone(), dt, active, hydro_step.scratch(params, S0))
-                S_g = hydro_step.ghosted(params, U, dt, hydro_step.scratch(params, U, ghosted=True))
+                S_k = hydro_step(params, S0, torch.empty_like(S0), dt, active)
+                S_g = hydro_step.ghosted(params, U, dt)
                 torch.cuda.reset_peak_memory_stats()
                 base = torch.cuda.memory_allocated()
                 S_t = hydro_3d_state_update(params, S0, dt)
@@ -863,9 +864,71 @@ def phase9(card: str, problems=("implode", "blast"), kernel: str = "auto",
     return total, kept
 
 
+def hydro_stream_report(label: str, card: str, dtype: str, mode: str, ms: float,
+                        bound_ms: float, by: str) -> None:
+    """One line of the streamed hydro body's shape and time for a mode and
+    dtype: the tile, the warps of each group, the blocks an SM holds, the
+    ring bytes and the z chunk depth at 256^3 (csrc/hydro_stream.cuh)."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library
+
+    lib = load_library("cuda")
+    f64 = int(dtype == "float64")
+    tile = (ctypes.c_int * 6)()
+    lib.ramses_hydro_stream_tile(f64, tile)
+    blocks = lib.ramses_hydro_step_blocks(f64)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[{label}] {mode} {dtype} 256^3: tile {tile[0]}x{tile[1]}, {tile[3] // 32} + "
+          f"{tile[4] // 32} warps (producer + consumer), {blocks / sms:g} blocks/SM "
+          f"({blocks} blocks), ring {lib.ramses_hydro_stream_ring_bytes(f64)} B, z chunks "
+          f"{lib.ramses_hydro_stream_chunk_depth(f64, 256, 256, 256, blocks)} deep; "
+          f"{ms:.4f} ms against a bound of {bound_ms:.4f} ms ({by}): {ms / bound_ms:.1f}x ({card})")
+
+
+def hydro_ops(params, S: torch.Tensor, dt: float, newton: int) -> dict:
+    """The operations one 256^3 hydro step needs on the state S: the
+    counting build on its 32^3 corner with the kernels' own per-cell
+    functions (one trace per cell, one Riemann solve per face, per Newton
+    iteration), with the Newton iterations ``newton`` the card counted on
+    the whole state."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+    from ramsesgpu_tpu_torch.kernels.packed_bc import bc_codes
+
+    lib = load_library("count")
+    p_sub = block_params(params, 32)
+    S_sub = S[:, :32, :32, :32].double().contiguous().cpu()
+    parts, fixed = (ctypes.c_longlong * 4)(), (ctypes.c_longlong * 4)()
+    iters = torch.zeros((), dtype=torch.int64)
+    lib.ramses_hydro_step_ops(S_sub.data_ptr(), 32, 32, 32, bc_codes(p_sub), param_block(p_sub),
+                              dt, parts, iters.data_ptr())
+    p0 = p_sub.replace(niter_riemann=0)  # the same code path without the Newton loop
+    lib.ramses_hydro_step_ops(S_sub.data_ptr(), 32, 32, 32, bc_codes(p0), param_block(p0), dt,
+                              fixed, None)
+    n, faces_sub, faces = 256 ** 3, 3 * 32 * 32 * 33, 3 * 256 * 256 * 257
+    out = {"per_iter": (parts[2] - fixed[2]) / max(int(iters), 1),
+           "per_cell": (fixed[0] + fixed[1] + fixed[3]) / 32 ** 3,
+           "per_face": fixed[2] / faces_sub,
+           "parts": [fixed[i] / 32 ** 3 for i in (0, 1, 3)],
+           "cfl": lib.ramses_cfl_hydro_ops(S_sub.data_ptr(), 32, 32, 32, 0,
+                                           param_block(p_sub)) / 32 ** 3 * n}
+    out["ops"] = out["per_cell"] * n + out["per_face"] * faces + out["per_iter"] * newton
+    return out
+
+
+def hydro_bound(nbytes: float, ops: float, dtype: str) -> tuple:
+    """(bound_ms, bound_by): bytes over the memory rate against operations
+    over the dtype's peak (f32 67, f64 34 TFLOP/s outside the tensor cores,
+    NVIDIA's H100 SXM data sheet)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (F32_FLOP_PER_S if dtype == "float32" else F64_FLOP_PER_S) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def phase10(card: str, implode, twin_peak_64: int) -> dict:
-    """The hydro kernels at 256^3 f32 on the implode main path's state; the
-    step kernel in both modes (ghosted: make_step_fn's, TPU row 5)."""
+    """The hydro kernels at 256^3 on the implode main path's state; the
+    step kernel's interior mode (walls), its ghosted mode (make_step_fn's,
+    TPU row 5) and its in-place ghosted mode (the jet's), f32 and f64 (the
+    f32 end state in f64), each with the streamed body's shape and its time
+    against its bound."""
     from ramsesgpu_tpu_torch.kernels.cfl_hydro import cfl_hydro
     from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
     from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries_concat
@@ -881,44 +944,54 @@ def phase10(card: str, implode, twin_peak_64: int) -> dict:
         print(f"[10] hydro twin estimated at {twin_peak_64 * 64 / 2**30:.1f} GiB does not fit "
               f"({free / 2**30:.1f} GiB free): twins checked and timed on a 128^3 block")
     active = torch.ones((), dtype=torch.bool, device="cuda")
-    scratch = hydro_step.scratch(params, S0)
     inv = cfl_hydro(params, S0)
     dt = dt_from_inv(params, inv)
     newton = torch.zeros((), dtype=torch.int64, device="cuda")
-    S_k = hydro_step(params, S0.clone(), dt, active, scratch, newton=newton)
-    S = S0.clone()
-    ms = {
-        "hydro_step": time_ms(lambda: hydro_step(params, S, dt, active, scratch), 10),
-        "cfl_hydro": time_ms(lambda: cfl_hydro(params, S), 50),
-    }
-    del S, scratch
-    # the ghosted mode on the filled ghosted state; the two modes share the
-    # arithmetic's source but not its machine code (the compiler may fuse
-    # other products into FMAs), so they are compared and reported here and
-    # each is held to the twin below
+    S_k = hydro_step(params, S0, torch.empty_like(S0), dt, active, newton=newton)
+    ms = {"cfl_hydro": time_ms(lambda: cfl_hydro(params, S0), 50)}
+    # each mode and dtype of the step kernel, against its bound
+    n = 256 ** 3
+    modes = {}
+    for dtype in ("float32", "float64"):
+        S = S0 if dtype == "float32" else S0.double()
+        dt_m = dt if dtype == "float32" else dt.double()
+        count = torch.zeros((), dtype=torch.int64, device="cuda")
+        hydro_step(params, S, torch.empty_like(S), dt_m, active, newton=count)
+        ops = hydro_ops(params, S, float(dt_m), int(count))["ops"]
+        U = make_boundaries_concat(params, S, interior_only=True)
+        out, Uw, buf = torch.empty_like(S), U.clone(), hydro_step.scratch(params, U)
+        size = S.element_size()
+        for mode, fn, nbytes in (
+                ("interior (walls)", lambda: hydro_step(params, S, out, dt_m, active),
+                 2 * 5 * size * n),
+                ("ghosted", lambda: hydro_step.ghosted(params, U, dt_m), 5 * size * (n + 260 ** 3)),
+                ("ghosted in place", lambda: hydro_step.ghosted_(params, Uw, dt_m, active, buf),
+                 5 * size * (n + 260 ** 3))):
+            t = time_ms(fn, 10)
+            modes[(mode, dtype)] = (t, *hydro_bound(nbytes, ops, dtype))
+            hydro_stream_report("10", card, dtype, mode, *modes[(mode, dtype)])
+        del S, U, out, Uw, buf
+    ms["hydro_step"] = modes[("interior (walls)", "float32")][0]
+    ms["hydro_step_ghosted"] = modes[("ghosted", "float32")][0]
+    # the ghosted mode on the filled ghosted state: the same kernel as the
+    # interior mode on a copy of the same state values, so bitwise equal
     U = make_boundaries_concat(params, S0, interior_only=True)
-    scratch = hydro_step.scratch(params, U, ghosted=True)
-    S_g = hydro_step.ghosted(params, U, dt, scratch)
-    ms["hydro_step_ghosted"] = time_ms(lambda: hydro_step.ghosted(params, U, dt, scratch), 10)
+    S_g = hydro_step.ghosted(params, U, dt)
     differ = (S_g != S_k).any(0)
-    near_wall = torch.zeros_like(differ)
-    for axis in range(3):
-        near_wall |= (torch.arange(256, device="cuda") % 253 < 3).view(
-            [256 if a == axis else 1 for a in range(3)])
-    print(f"[10] hydro_step ghosted mode at 256^3 f32 on make_boundaries(implode state): "
-          f"{ms['hydro_step_ghosted']:.3f} ms ({card}); against the interior mode: "
-          f"equal {not bool(differ.any())}, {int(differ.sum())} cells differ "
-          f"({int((differ & near_wall).sum())} within 3 cells of a wall), rel L2 "
-          f"{rel_l2(S_g, S_k):.3e}, max abs {float((S_g - S_k).abs().max()):.3e}")
-    del U, scratch, differ, near_wall
+    print(f"[10] hydro_step ghosted mode at 256^3 f32 on make_boundaries(implode state) against "
+          f"the interior mode: equal {not bool(differ.any())}, {int(differ.sum())} cells differ, "
+          f"rel L2 {rel_l2(S_g, S_k):.3e}, max abs {float((S_g - S_k).abs().max()):.3e}")
+    if bool(differ.any()):
+        raise AssertionError("hydro_step: the ghosted and the interior mode differ at 256^3")
+    del U, differ
     if not full:
         params = block_params(params, 128)
         S0 = S0[:, :128, :128, :128].contiguous()
         inv = cfl_hydro(params, S0)
-        S_k = hydro_step(params, S0.clone(), dt, active, hydro_step.scratch(params, S0))
+        S_k = hydro_step(params, S0, torch.empty_like(S0), dt, active)
     U = make_boundaries_concat(params, S0, interior_only=True)
     if not full:
-        S_g = hydro_step.ghosted(params, U, dt, hydro_step.scratch(params, U, ghosted=True))
+        S_g = hydro_step.ghosted(params, U, dt)
     torch.cuda.empty_cache()
     inv_t = compute_inv_dt_hydro(params, S0, ghost=0)
     S_t = hydro_3d_state_update(params, S0, dt)
@@ -949,7 +1022,7 @@ def phase10(card: str, implode, twin_peak_64: int) -> dict:
           f"({int(newton) / (3 * 256 ** 3):.4f} per face)")
     return {"ms": ms, "plain_ms": plain, "max_abs_err": errs, "newton": int(newton),
             "params": implode[0], "dt": float(dt),
-            "bound_input": implode[1][:, :32, :32, :32].contiguous().cpu()}
+            "state": implode[1][:, :32, :32, :32].contiguous()}
 
 
 def phase11(mhd: dict, hydro: dict) -> dict:
@@ -961,7 +1034,6 @@ def phase11(mhd: dict, hydro: dict) -> dict:
     trace per cell, one Riemann solve per face, per Newton iteration),
     scaled to 256^3 with the Newton iterations the card counted."""
     from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
-    from ramsesgpu_tpu_torch.kernels.packed_bc import bc_codes
 
     lib = load_library("count")
     n = 256 ** 3
@@ -975,26 +1047,13 @@ def phase11(mhd: dict, hydro: dict) -> dict:
                                             param_block(p_sub)) / 32 ** 3 * n
 
     # [prim, trace, face fluxes, update]
-    p_sub = block_params(hydro["params"], 32)
-    S_sub = hydro["bound_input"].double().contiguous()
-    parts = (ctypes.c_longlong * 4)()
-    iters = torch.zeros((), dtype=torch.int64)
-    lib.ramses_hydro_step_ops(S_sub.data_ptr(), 32, 32, 32, bc_codes(p_sub), param_block(p_sub),
-                              hydro["dt"], parts, iters.data_ptr())
-    fixed = (ctypes.c_longlong * 4)()
-    p0 = p_sub.replace(niter_riemann=0)  # the same code path without the Newton loop
-    lib.ramses_hydro_step_ops(S_sub.data_ptr(), 32, 32, 32, bc_codes(p0), param_block(p0),
-                              hydro["dt"], fixed, None)
-    faces_sub, faces = 3 * 32 * 32 * 33, 3 * 256 * 256 * 257
-    per_iter = (parts[2] - fixed[2]) / max(int(iters), 1)
-    per_cell = (fixed[0] + fixed[1] + fixed[3]) / 32 ** 3
-    per_face = fixed[2] / faces_sub
-    ops["hydro_step"] = per_cell * n + per_face * faces + per_iter * hydro["newton"]
+    h = hydro_ops(hydro["params"], hydro["state"], hydro["dt"], hydro["newton"])
+    per_cell, per_face, per_iter = h["per_cell"], h["per_face"], h["per_iter"]
+    ops["hydro_step"] = h["ops"]
     ops["hydro_step_ghosted"] = ops["hydro_step"]
-    ops["cfl_hydro"] = lib.ramses_cfl_hydro_ops(S_sub.data_ptr(), 32, 32, 32, 0,
-                                                param_block(p_sub)) / 32 ** 3 * n
-    print(f"[11] counted flops: hydro_step {per_cell:.1f}/cell (prim {fixed[0] / 32 ** 3:.1f}, "
-          f"trace {fixed[1] / 32 ** 3:.1f}, update {fixed[3] / 32 ** 3:.1f}) + {per_face:.1f}/face "
+    ops["cfl_hydro"] = h["cfl"]
+    print(f"[11] counted flops: hydro_step {per_cell:.1f}/cell (prim {h['parts'][0]:.1f}, "
+          f"trace {h['parts'][1]:.1f}, update {h['parts'][2]:.1f}) + {per_face:.1f}/face "
           f"+ {per_iter:.1f}/Newton iteration = {ops['hydro_step'] / n:.1f}/cell; "
           f"mhd_step {ops['mhd_step'] / n:.1f}/cell; cfl_mhd {ops['cfl_mhd'] / n:.1f}/cell; "
           f"cfl_hydro {ops['cfl_hydro'] / n:.1f}/cell")
@@ -2295,7 +2354,7 @@ def zcarry_one_step(params, state, t0, gz) -> dict:
         S1 = torch.empty_like(S)
         inv = zcarry_hydro(params, S, S1, dt, active)
         twin = hydro_3d_state_update(params, S, dt)
-        staged = hydro_step(params, S.clone(), dt, active, hydro_step.scratch(params, S))
+        staged = hydro_step(params, S, torch.empty_like(S), dt, active)
         inv_cfl = cfl_hydro(params, S1)
     else:
         S, kept = state if isinstance(state, tuple) else (state, None)
@@ -2480,10 +2539,8 @@ def phase32(card: str, ot, blast, mri, bounds: dict, twin_n: int, staged: dict, 
     states of paths 29c (compensated OT) and 30s (the stratified MRI), and
     each mode's time against its bound and against the staged step's
     (``staged``: phases 6, 14 and 25) on the same grid."""
-    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
-    from ramsesgpu_tpu_torch.kernels.packed_bc import bc_codes
     from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs, shear_zslabs
     from ramsesgpu_tpu_torch.kernels.zcarry_hydro3d import zcarry_hydro
     from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
@@ -2494,7 +2551,6 @@ def phase32(card: str, ot, blast, mri, bounds: dict, twin_n: int, staged: dict, 
 
     res = {"ms": {}, "plain_ms": {}, "max_abs_err": {}, "bounds": {}}
     active = torch.ones((), dtype=torch.bool, device="cuda")
-    count = load_library("count")
 
     # periodic MHD (with the folded CFL)
     params, S, _t = ot
@@ -2549,25 +2605,33 @@ def phase32(card: str, ot, blast, mri, bounds: dict, twin_n: int, staged: dict, 
         raise AssertionError("zcarry_hydro disagrees with its twin at full width")
     # its operations on this state: the counting build on a 32^3 block (one
     # trace per cell, one Riemann solve per face) and the Newton iterations
-    # of this step, counted by the staged kernel on the card
-    newton = torch.zeros((), dtype=torch.int64, device="cuda")
-    hydro_step(params, S.clone(), dt, active, hydro_step.scratch(params, S), newton=newton)
-    p_sub = block_params(params, 32)
-    S_sub = S[:, :32, :32, :32].double().contiguous().cpu()
-    parts, fixed = (ctypes.c_longlong * 4)(), (ctypes.c_longlong * 4)()
-    iters = torch.zeros((), dtype=torch.int64)
-    count.ramses_hydro_step_ops(S_sub.data_ptr(), 32, 32, 32, bc_codes(p_sub),
-                                param_block(p_sub), float(dt), parts, iters.data_ptr())
-    p0 = p_sub.replace(niter_riemann=0)
-    count.ramses_hydro_step_ops(S_sub.data_ptr(), 32, 32, 32, bc_codes(p0), param_block(p0),
-                                float(dt), fixed, None)
+    # of this step, counted by the step kernel on the card, plus the CFL's
     n = 256 ** 3
-    per_iter = (parts[2] - fixed[2]) / max(int(iters), 1)
-    ops = ((fixed[0] + fixed[1] + fixed[3]) / 32 ** 3 * n + fixed[2] / (3 * 32 * 32 * 33)
-           * 3 * 256 * 256 * 257 + per_iter * int(newton))
-    ops += count.ramses_cfl_hydro_ops(S_sub.data_ptr(), 32, 32, 32, 0, param_block(p_sub)) \
-        / 32 ** 3 * n
-    res["bounds"]["zcarry_hydro"] = bound("32", "zcarry_hydro", 2 * 5 * 4 * n, ops, "256^3", n)
+    for dtype in ("float32", "float64"):
+        Sd = S if dtype == "float32" else S.double()
+        dtd = dt if dtype == "float32" else dt.double()
+        newton = torch.zeros((), dtype=torch.int64, device="cuda")
+        hydro_step(params, Sd, torch.empty_like(Sd), dtd, active, newton=newton)
+        h = hydro_ops(params, Sd, float(dtd), int(newton))
+        size = Sd.element_size()
+        if dtype == "float32":
+            res["bounds"]["zcarry_hydro"] = bound("32", "zcarry_hydro", 2 * 5 * size * n,
+                                                  h["ops"] + h["cfl"], "256^3", n)
+        # the streamed body's two uses on the periodic state: the step
+        # kernel's interior mode (row A'-hydro) and row 13
+        out = torch.empty_like(Sd)
+        t_step = time_ms(lambda: hydro_step(params, Sd, out, dtd, active), 10)
+        t_fold = (res["ms"]["zcarry_hydro"] if dtype == "float32" else
+                  time_ms(lambda: zcarry_hydro(params, Sd, out, dtd, active), 10))
+        hydro_stream_report("32", card, dtype, "interior (periodic)", t_step,
+                            *hydro_bound(2 * 5 * size * n, h["ops"], dtype))
+        hydro_stream_report("32", card, dtype, "row 13 (folded CFL)", t_fold,
+                            *hydro_bound(2 * 5 * size * n, h["ops"] + h["cfl"], dtype))
+        if dtype == "float32":
+            print(f"[32] zcarry_hydro against the step kernel's periodic interior mode and the "
+                  f"CFL kernel on the same state: {t_fold:.3f} ms against {t_step:.3f} + "
+                  f"{staged['cfl_hydro']:.3f} ms ({card})")
+        del Sd, out
     del S1
 
     # the shearing box (no folded CFL): the MRI path's end state
@@ -2778,12 +2842,12 @@ def phase33() -> None:
         dt = dt_from_inv(params, inv_t)
         want = U.clone()
         interior(params, want).copy_(hydro_3d_interior_update(params, U, dt))
-        scratch = hydro_step.scratch(params, U, ghosted=True)
+        buf = hydro_step.scratch(params, U)
         got = U.clone()
-        hydro_step.ghosted_(params, got, dt, off, scratch)
+        hydro_step.ghosted_(params, got, dt, off, buf)
         if not torch.equal(got, U):
             raise AssertionError(f"{label}: an inactive step changed the state")
-        hydro_step.ghosted_(params, got, dt, on, scratch)
+        hydro_step.ghosted_(params, got, dt, on, buf)
         check(f"{label} hydro_step ghosted in place, 1 step", rel_l2(got, want), TOL_STEP1[dtype])
         t0 = torch.zeros((), dtype=U.dtype, device="cuda")
         got, t, k = make_advance_n(params, "cuda")(U, t0, 10)
@@ -3397,16 +3461,18 @@ def profile_chunk(label: str, card: str, advance, S: torch.Tensor, t: torch.Tens
     return {key: (us, count) for us, count, key in rows}
 
 
-# the staged step kernels' stages as the profiler names them
+# the step kernels that kernel=zcarry replaces, as the profiler names them:
+# the staged MHD step's stages and the hydro step kernel
 STAGED_STEP_KERNELS = ("mhd::PrimStage", "mhd::PrecursorStage", "mhd::FluxEmfStage",
-                       "mhd::UpdateStage", "hydro::FluxStage", "hydro::UpdateStage")
+                       "mhd::UpdateStage", "hydro::hydro_step_kernel")
 
 
-# the MHD step kernel's rows (PERF.md section 6) and their names here
+# the step kernels' rows (PERF.md section 6) and their names here
 STEP_ROWS = (("A", "mhd_step"), ("A'-compensated", "mhd_step_comp"),
              ("A'-shear-main", "mhd_step_shear"), ("A'-stratified", "mhd_step_strat"),
              ("3", "mhd_step_ghosted"), ("4", "mhd_window"), ("12", "zcarry_mhd"),
-             ("12 shear", "zcarry_mhd_shear"))
+             ("12 shear", "zcarry_mhd_shear"), ("A'-hydro / 6", "hydro_step"),
+             ("5", "hydro_step_ghosted"), ("13", "zcarry_hydro"))
 
 
 def check_streamed(label: str, kernel: str, rows: dict) -> None:
@@ -3509,7 +3575,7 @@ def main() -> int:
     lap("30v")
     _l, strat_zc = phase13(card, "30s", compensated=None, ini=STRAT_INI, kernel="zcarry")
     lap("30s")
-    staged = {**timing["ms"], **shear_timing["ms"], **new_timing["ms"]}
+    staged = {**timing["ms"], **hydro_timing["ms"], **shear_timing["ms"], **new_timing["ms"]}
     zc_timing = phase32(card, ot_zc, blast, mri_zc, bounds, timing["n_twin"], staged, ot_zc_comp,
                         strat_zc)
     lap("32")

@@ -26,6 +26,9 @@
 #ifdef RAMSES_COUNT_OPS
 #include "op_count.cuh"
 #endif
+#if defined(RAMSES_ZCARRY_CLOCKS) && defined(__CUDACC__)
+#include <cstdio>
+#endif
 
 namespace ramses {
 
@@ -228,11 +231,11 @@ HD void cell_ijk(const Dims& d, long long c, int& i, int& j, int& k) {
   k = (int)(r / d.ny);
 }
 
-// zcarry_hydro.cu and mhd_step.cu's fused stage run a block body as
-// phases: the block's threads stride over a phase's n work items t and
-// meet at block_sync() before the next phase; the host build runs each
-// phase as a serial loop, so it runs the same ring logic item by item.
-// (zcarry_mhd.cu splits its block into warp groups: Group below.)
+// mhd_step.cu's fused stage runs a block body as phases: the block's
+// threads stride over a phase's n work items t and meet at block_sync()
+// before the next phase; the host build runs each phase as a serial loop,
+// so it runs the same ring logic item by item. (zcarry_mhd.cu and
+// hydro_stream.cuh split their blocks into warp groups: Group below.)
 template <typename F>
 HD void block_items(int n, const F& f) {
 #ifdef __CUDA_ARCH__
@@ -240,13 +243,6 @@ HD void block_items(int n, const F& f) {
 #else
   for (int t = 0; t < n; ++t) f(t);
 #endif
-}
-
-// a phase over a tile's w x h cells: tile-local column lo + t % w, row
-// lo + t / w
-template <typename F>
-HD void block_phase(int w, int h, int lo, const F& f) {
-  block_items(w * h, [&](int t) { f(lo + t % w, lo + t / w); });
 }
 
 // the z chunks of each (x, y) tile for a persistent grid of `blocks`: the
@@ -334,6 +330,49 @@ struct Group {
 #endif
   }
   HD void sync() const { bar_sync(bar, size); }
+};
+
+// The named barriers of a block split into a producer and a consumer
+// group (zcarry_mhd.cu, hydro_stream.cuh): the hand-over of plane g (FULL,
+// one of three: the producer may run up to three planes ahead of the
+// consumer's wait, and a barrier never has two arrivals of one group
+// pending), its release (EMPTY, one of two) and each group's own.
+enum { BAR_FULL = 1, BAR_EMPTY = 4, BAR_A = 6, BAR_B = 7 };
+
+// The hand-over of the planes of a three-plane ring between the groups,
+// on named barriers of all NT threads: the producer arrives at FULL(g)
+// once it has written plane g, the consumer waits there before it reads
+// g; the consumer arrives at EMPTY(r) once it no longer reads plane r
+// (after its wait at FULL(r + 1)), the producer waits there before it
+// writes plane r + 3 into r's slot. Each barrier has at most one arrival
+// of each group pending: between the producer's arrivals at FULL(g) and
+// FULL(g + 3) it waits at EMPTY(g), which follows the consumer's wait at
+// FULL(g + 1); between the consumer's arrivals at EMPTY(r) and EMPTY(r +
+// 2), its wait at FULL(r + 3) follows the producer's wait at EMPTY(r).
+// Host build: no-ops (the serial schedule keeps the order).
+template <int NT>
+struct Pipe {
+  HD static void full_arrive(long long g) { bar_arrive(BAR_FULL + (int)(g % 3), NT); }
+  HD static void full_wait(long long g) { bar_sync(BAR_FULL + (int)(g % 3), NT); }
+  HD static void empty_arrive(long long r) { bar_arrive(BAR_EMPTY + (int)(r % 2), NT); }
+  HD static void empty_wait(long long r) { bar_sync(BAR_EMPTY + (int)(r % 2), NT); }
+};
+
+// The cycles a block's warp groups spend in their phases, barrier waits
+// included, in builds with RAMSES_ZCARRY_CLOCKS (scripts/torch_ab.py
+// clocks; zcarry_mhd.cu and hydro_stream.cuh name their phases): lap(i)
+// adds the clock64() time since the last lap to t[i]. Other builds: no-ops.
+struct Clocks {
+#if defined(RAMSES_ZCARRY_CLOCKS) && defined(__CUDA_ARCH__)
+  long long t[6] = {0, 0, 0, 0, 0, 0}, last = 0;
+  __device__ void lap(int i) {
+    const long long now = clock64();
+    if (i >= 0) t[i] += now - last;
+    last = now;
+  }
+#else
+  HD void lap(int) {}
+#endif
 };
 
 #ifdef __CUDACC__

@@ -1,6 +1,7 @@
 // The per-cell physics of one 3D hydro step (primitives, trace, Riemann
-// solvers, update), shared by the staged kernel (hydro_step.cu) and the
-// z-streaming kernel (zcarry_hydro.cu); hydro_step.cu describes it.
+// solvers, update), run by the streamed block body (hydro_stream.cuh) of
+// hydro_step.cu and zcarry_hydro.cu, and by the operation count
+// (hydro_step.cu ramses_hydro_step_ops).
 #pragma once
 
 #include "common.cuh"
@@ -44,10 +45,15 @@ inline HydroPhys<T> make_hydro_phys(const double* p) {
 }
 
 // ---------------------------------------------------------------------------
-// the primitive field and its two load layouts
+// the interior mode's load rule
 // ---------------------------------------------------------------------------
 
-// one axis of the interior mode's load rule; toggles `flip` on a mirror
+// One axis of the load rule of an interior-only state: an index outside
+// [0, n) maps per axis: PERIODIC wraps, NEUMANN clamps, DIRICHLET mirrors
+// (i -> -1-i on the min side, 2n-1-i on the max side; boundary.py:87-92)
+// and toggles `flip`, the sign of that axis's normal momentum. Composing
+// the per-axis maps gives exactly what the X->Y->Z make_boundaries writes
+// into edge and corner ghosts, since copies and sign flips are exact.
 HD int map_axis(int i, int n, int bc_lo, int bc_hi, bool& flip) {
   if (i < 0) {
     if (bc_lo == BC_PERIODIC) return i + n;
@@ -63,33 +69,6 @@ HD int map_axis(int i, int n, int bc_lo, int bc_hi, bool& flip) {
   }
   return i;
 }
-
-// Q[5][cells] with (i, j, k) in interior coordinates, -G <= i < nx + G
-template <typename T, bool GHOSTED>
-struct Prim {
-  const T* Q;
-  long long stride;  // cells per channel of Q
-  int nx, ny, nz;
-  int bc[6];  // xmin, xmax, ymin, ymax, zmin, zmax (interior mode)
-
-  HD void load(int i, int j, int k, T* q) const {
-    long long c;
-    bool fx = false, fy = false, fz = false;
-    if (GHOSTED) {
-      c = ((long long)(k + G) * (ny + 2 * G) + (j + G)) * (nx + 2 * G) + (i + G);
-    } else {
-      const int ii = map_axis(i, nx, bc[0], bc[1], fx);
-      const int jj = map_axis(j, ny, bc[2], bc[3], fy);
-      const int kk = map_axis(k, nz, bc[4], bc[5], fz);
-      c = ((long long)kk * ny + jj) * nx + ii;
-    }
-#pragma unroll
-    for (int ch = 0; ch < NV; ++ch) q[ch] = Q[ch * stride + c];
-    if (fx) q[IU] = -q[IU];
-    if (fy) q[IV] = -q[IV];
-    if (fz) q[IW] = -q[IW];
-  }
-};
 
 // ---------------------------------------------------------------------------
 // per-cell physics
@@ -141,25 +120,26 @@ HD void trace_cell(const HydroPhys<T>& ph, const P& prim, int i, int j, int k, T
             (-w * hz[IP] - hz[IW] * gamma * pr) * dtdz;
 }
 
-// the cell's state on its right face along AX (sign +1, qm) or its left
-// face (sign -1, qp)
-template <int AX, typename T>
-HD void face_state(const HydroPhys<T>& ph, const CellTrace<T>& c, T sign, T* out) {
-  const T* h = c.h[AX];
-  const T rho_f = pmax(ph.smallr, (c.q[ID] + c.s[ID]) + sign * h[ID]);
+// the cell's state on its right face (sign +1, qm) or its left face (sign
+// -1, qp) along an axis, from its q + s (qs) and its half slopes h along
+// that axis
+template <typename T>
+HD void face_state(const HydroPhys<T>& ph, const T* qs, const T* h, T sign, T* out) {
+  const T rho_f = pmax(ph.smallr, qs[ID] + sign * h[ID]);
   out[ID] = rho_f;
-  out[IP] = pmax(ph.smallp * rho_f, (c.q[IP] + c.s[IP]) + sign * h[IP]);
-  out[IU] = (c.q[IU] + c.s[IU]) + sign * h[IU];
-  out[IV] = (c.q[IV] + c.s[IV]) + sign * h[IV];
-  out[IW] = (c.q[IW] + c.s[IW]) + sign * h[IW];
+  out[IP] = pmax(ph.smallp * rho_f, qs[IP] + sign * h[IP]);
+  out[IU] = qs[IU] + sign * h[IU];
+  out[IV] = qs[IV] + sign * h[IV];
+  out[IW] = qs[IW] + sign * h[IW];
 }
 
-template <int AX, typename T, typename P>
-HD void trace_face(const HydroPhys<T>& ph, const P& prim, int i, int j, int k, T sign,
-                   T dtdx, T dtdy, T dtdz, T* out) {
-  CellTrace<T> c;
-  trace_cell(ph, prim, i, j, k, dtdx, dtdy, dtdz, c);
-  face_state<AX>(ph, c, sign, out);
+// the same from the whole trace, along AX
+template <int AX, typename T>
+HD void face_state(const HydroPhys<T>& ph, const CellTrace<T>& c, T sign, T* out) {
+  T qs[NV];
+#pragma unroll
+  for (int ch = 0; ch < NV; ++ch) qs[ch] = c.q[ch] + c.s[ch];
+  face_state(ph, qs, c.h[AX], sign, out);
 }
 
 // riemann.py cmpflx (3D): flux from the Godunov state g (rotated order)
@@ -391,21 +371,26 @@ HD T update_value(T u, T fxl, T fxr, T fyl, T fyr, T fzl, T fzr, T dtdx, T dtdy,
   return u + dtdz * (fzl - fzr);
 }
 
-// godunov.py compute_fluxes at one face along AX: qm against qp, rotated so
-// the normal velocity sits in the IU slot, the Riemann solver, the flux
-// rotated back into f. Returns the approx solver's Newton iterations.
-template <int AX, typename T>
-HD int face_flux(const HydroPhys<T>& ph, const T* qm, const T* qp, T* f) {
-  // the rotation (godunov.py _rotation) swaps IU with the normal slot;
-  // it is an involution, so the same swap rotates the flux back
-  constexpr int NS = AX == 0 ? IU : (AX == 1 ? IV : IW);
+// godunov.py compute_fluxes at one face along axis ax: qm against qp,
+// rotated so the normal velocity sits in the IU slot, the Riemann solver,
+// the flux rotated back into f. Returns the approx solver's Newton
+// iterations.
+template <typename T>
+HD int face_flux(const HydroPhys<T>& ph, int ax, const T* qm, const T* qp, T* f) {
+  // the rotation (godunov.py _rotation) swaps IU with the normal slot
+  // IU + ax; it is an involution, so the same swap rotates the flux back
+  // (selects, so the arrays stay in registers for a runtime axis)
   T ql[NV], qr[NV], fr[NV];
-#pragma unroll
-  for (int ch = 0; ch < NV; ++ch) {
-    const int src = ch == IU ? NS : (ch == NS ? IU : ch);
-    ql[ch] = qm[src];
-    qr[ch] = qp[src];
-  }
+  ql[ID] = qm[ID];
+  ql[IP] = qm[IP];
+  ql[IU] = ax == 0 ? qm[IU] : (ax == 1 ? qm[IV] : qm[IW]);
+  ql[IV] = ax == 1 ? qm[IU] : qm[IV];
+  ql[IW] = ax == 2 ? qm[IU] : qm[IW];
+  qr[ID] = qp[ID];
+  qr[IP] = qp[IP];
+  qr[IU] = ax == 0 ? qp[IU] : (ax == 1 ? qp[IV] : qp[IW]);
+  qr[IV] = ax == 1 ? qp[IU] : qp[IV];
+  qr[IW] = ax == 2 ? qp[IU] : qp[IW];
   int it = 0;
   if (ph.solver == SOLVER_APPROX) {
     it = riemann_approx(ph, ql, qr, fr);
@@ -414,8 +399,11 @@ HD int face_flux(const HydroPhys<T>& ph, const T* qm, const T* qp, T* f) {
   } else {
     riemann_hllc(ph, ql, qr, fr);
   }
-#pragma unroll
-  for (int ch = 0; ch < NV; ++ch) f[ch] = fr[ch == IU ? NS : (ch == NS ? IU : ch)];
+  f[ID] = fr[ID];
+  f[IP] = fr[IP];
+  f[IU] = ax == 0 ? fr[IU] : (ax == 1 ? fr[IV] : fr[IW]);
+  f[IV] = ax == 1 ? fr[IU] : fr[IV];
+  f[IW] = ax == 2 ? fr[IU] : fr[IW];
   return it;
 }
 

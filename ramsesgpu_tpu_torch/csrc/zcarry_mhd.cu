@@ -39,7 +39,7 @@
 //   inverse dt by the thread that updates it, from its registers). Each
 //   group meets its own named barrier between its phases; the precursor
 //   planes pass from one to the other through a ring of RP = 3 planes and
-//   named barriers, not block-wide ones (Pipe below): the producer may
+//   named barriers, not block-wide ones (common.cuh Pipe): the producer may
 //   write precursor plane g once the consumer is done with plane g - 3, so
 //   it writes plane g while the consumer forms the fluxes of g - 1 from
 //   g - 1 and g - 2.
@@ -88,9 +88,6 @@
 // 1.20x the fluxes' at the f32 tile.
 #include "cfl_mhd.cuh"
 #include "mhd_stages.cuh"
-#if defined(RAMSES_ZCARRY_CLOCKS) && defined(__CUDACC__)
-#include <cstdio>
-#endif
 
 namespace ramses::zmhd {
 
@@ -138,12 +135,6 @@ struct Ring {
                 "the ring and the reduction's 32 values fit a block");
   static_assert(NA % 32 == 0 && NB % 32 == 0, "the groups are whole warps");
 };
-
-// the named barriers: the hand-over of precursor plane g (FULL, one of
-// three: the producer may run up to three planes ahead of the consumer's
-// wait, and a barrier never has two arrivals of one group pending), its
-// release (EMPTY, one of two) and each group's own
-enum { BAR_FULL = 1, BAR_EMPTY = 4, BAR_A = 6, BAR_B = 7 };
 
 template <typename T>
 struct ZArgs {
@@ -325,45 +316,10 @@ struct Cursor {
   }
 };
 
-// The hand-over of the precursor planes between the groups, on named
-// barriers of all NT threads: the producer arrives at FULL(g) once it has
-// written plane g, the consumer waits there before it reads g; the
-// consumer arrives at EMPTY(r) once it no longer reads plane r (after its
-// wait at FULL(r + 1)), the producer waits there before it writes plane
-// r + 3 into r's slot. Each barrier has at most one arrival of each group
-// pending: between the producer's arrivals at FULL(g) and FULL(g + 3) it
-// waits at EMPTY(g), which follows the consumer's wait at FULL(g + 1);
-// between the consumer's arrivals at EMPTY(r) and EMPTY(r + 2), its wait
-// at FULL(r + 3) follows the producer's wait at EMPTY(r). Host build:
-// no-ops (the serial schedule keeps the order).
-template <typename T>
-struct Pipe {
-  static constexpr int NT = Ring<T>::NT;
-  HD static void full_arrive(long long g) { bar_arrive(BAR_FULL + (int)(g % 3), NT); }
-  HD static void full_wait(long long g) { bar_sync(BAR_FULL + (int)(g % 3), NT); }
-  HD static void empty_arrive(long long r) { bar_arrive(BAR_EMPTY + (int)(r % 2), NT); }
-  HD static void empty_wait(long long r) { bar_sync(BAR_EMPTY + (int)(r % 2), NT); }
-};
-
-// The cycles a block's groups spend in their phases, barrier waits
-// included, in builds with RAMSES_ZCARRY_CLOCKS (scripts/torch_ab.py
-// clocks): lap(i) adds the clock64() time since the last lap to t[i].
-// Producer: 0 state loads, prim, efield; 1 the wait for a free precursor
-// plane; 2 the precursors and their hand-over. Consumer: 3 the wait for a
-// precursor plane; 4 fluxes and EMFs; 5 the update (and folded CFL). Other
-// builds: no-ops.
-struct Clocks {
-#if defined(RAMSES_ZCARRY_CLOCKS) && defined(__CUDA_ARCH__)
-  long long t[6] = {0, 0, 0, 0, 0, 0}, last = 0;
-  __device__ void lap(int i) {
-    const long long now = clock64();
-    if (i >= 0) t[i] += now - last;
-    last = now;
-  }
-#else
-  HD void lap(int) {}
-#endif
-};
+// The phases of common.cuh Clocks here: producer 0 state loads, prim,
+// efield; 1 the wait for a free precursor plane; 2 the precursors and their
+// hand-over. Consumer: 3 the wait for a precursor plane; 4 fluxes and EMFs;
+// 5 the update (and folded CFL).
 
 // One block's step on its ring: the producer's and the consumer's part of
 // each precursor plane (produce, consume), and the inactive step's copy.
@@ -439,11 +395,11 @@ struct Stream {
     prim_efield(c, g, c.p + 1);
     g.sync();
     clk.lap(0);
-    if (c.g >= R::RP) Pipe<T>::empty_wait(c.g - R::RP);
+    if (c.g >= R::RP) Pipe<R::NT>::empty_wait(c.g - R::RP);
     clk.lap(1);
     cells<R::PW>(g, c.W + 2, c.H + 2, -1,
                  [&](int li, int lj) { PrecursorStage<T, M>{a}.at(site(c, li, lj, c.p)); });
-    Pipe<T>::full_arrive(c.g);
+    Pipe<R::NT>::full_arrive(c.g);
     copy_async_wait();
     g.sync();  // the next plane's prim overwrites the Q and state this plane read
     clk.lap(2);
@@ -454,7 +410,7 @@ struct Stream {
   // and its inverse dt, by the same thread, from its registers)
   HD void consume(const Cursor<T>& c, const Group& g) {
     clk.lap(5);
-    Pipe<T>::full_wait(c.g);  // (also the group's barrier: its last update is done)
+    Pipe<R::NT>::full_wait(c.g);  // (also the group's barrier: its last update is done)
     clk.lap(3);
     const int q = c.p;
     if (!c.first()) {
@@ -467,7 +423,7 @@ struct Stream {
       g.sync();
     }
     clk.lap(4);
-    if (c.g >= 1) Pipe<T>::empty_arrive(c.g - 1);
+    if (c.g >= 1) Pipe<R::NT>::empty_arrive(c.g - 1);
     if (c.first() || q - 1 < c.z0) return;
     cells<R::TX>(g, c.W, c.H, 0, [&](int li, int lj) {
       const RingSite<T, M> p = site(c, li, lj, q - 1, true);
@@ -528,7 +484,8 @@ HD T run_block(const ZArgs<T>& z, T* ring, long long block, long long nblocks, i
     Cursor<T> c(z, block, nblocks);
     for (; c.valid(); c.next()) st.produce(c, g);
     // the consumer's releases of the last planes, which no write waits for
-    for (long long r = c.g < R::RP ? 0 : c.g - R::RP; r <= c.g - 2; ++r) Pipe<T>::empty_wait(r);
+    for (long long r = c.g < R::RP ? 0 : c.g - R::RP; r <= c.g - 2; ++r)
+      Pipe<R::NT>::empty_wait(r);
 #ifdef RAMSES_ZCARRY_CLOCKS
     const long long* t = st.clk.t;
     if (block == 0 && tid == 0)

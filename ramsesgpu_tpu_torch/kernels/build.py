@@ -36,8 +36,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("cfl_mhd.cu", "mhd_step.cu", "cfl_hydro.cu", "hydro_step.cu", "shear_border.cu",
            "dissip_step.cu", "zcarry_mhd.cu", "zcarry_hydro.cu")
-HEADERS = ("common.cuh", "op_count.cuh", "mhd_stages.cuh", "hydro_stages.cuh", "cfl_mhd.cuh",
-           "cfl_hydro.cuh")
+HEADERS = ("common.cuh", "op_count.cuh", "mhd_stages.cuh", "hydro_stages.cuh", "hydro_stream.cuh",
+           "cfl_mhd.cuh", "cfl_hydro.cuh")
 
 # per-source compile flags (each source compiles to an object, all in
 # parallel) and the link flags of the shared library
@@ -190,9 +190,12 @@ _SIGNATURES = {
     "ramses_cfl_hydro_partials": ([], _I),
     "ramses_cfl_hydro_f32": ([_P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
     "ramses_cfl_hydro_f64": ([_P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
-    "ramses_hydro_step_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
-    "ramses_hydro_step_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
-    "ramses_hydro_step_f64": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
+    "ramses_hydro_step_blocks": ([_I], _I),
+    "ramses_hydro_stream_tile": ([_I, _P], None),
+    "ramses_hydro_stream_ring_bytes": ([_I], ctypes.c_longlong),
+    "ramses_hydro_stream_chunk_depth": ([_I] * 5, _I),
+    "ramses_hydro_step_f32": ([_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
+    "ramses_hydro_step_f64": ([_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
     "ramses_dissip_step_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
     "ramses_dissip_step_f32": ([_P] * 6 + [_I] * 4 + [_P, _P], _I),
     "ramses_dissip_step_f64": ([_P] * 6 + [_I] * 4 + [_P, _P], _I),

@@ -9,12 +9,14 @@ step.
   interior-only S [5, nz, ny, nx] for any mix of DIRICHLET / NEUMANN /
   PERIODIC faces (kernels/packed_bc.py), so one loop serves both. Each
   step launches the CFL kernel (kernels/cfl_hydro.py) and the step
-  kernel's interior mode (kernels/hydro_step.py). With ``[implementation]
-  kernel=zcarry`` a fully periodic run takes the streamed step instead
-  (kernels/zcarry_hydro3d.py: one launch per step, the CFL folded in, the
-  JAX inv-carry loop of fused_hydro3d.py:243-260); a walled run keeps the
-  staged wall-rule kernel, as the JAX package takes its whole-array step
-  there (scripts/perf_table.py:113-114).
+  kernel's interior mode (kernels/hydro_step.py), which writes the new
+  state into a second buffer (the two take turns, kernels/loop.py
+  streamed_step). With ``[implementation] kernel=zcarry`` a fully periodic
+  run takes the folded-CFL step instead (kernels/zcarry_hydro3d.py: the
+  same streamed body, the CFL folded in, the JAX inv-carry loop of
+  fused_hydro3d.py:243-260); a walled run keeps the step kernel's wall
+  rules, as the JAX package takes its whole-array step there
+  (scripts/perf_table.py:113-114).
 - ``make_step_fn`` is ``make_pallas_hydro_step_fn`` (:393): one step of a
   ghosted state through the step kernel's ghosted mode (the TPU kernel
   ``make_fused_hydro_update``, :46), then the boundary fill around the new
@@ -52,17 +54,18 @@ def make_advance_n(params: RunParams, device, packed_form: bool = False):
     if uses_jet(params):
         return make_ghosted_loop(
             params, device, lambda U: cfl_hydro(params, U, ghost=g), hydro_step.ghosted_,
-            lambda U: hydro_step.scratch(params, U, ghosted=True), packed_form=packed_form)
+            lambda U: hydro_step.scratch(params, U), packed_form=packed_form)
 
-    def bind_step(S):
-        if params.kernel == "zcarry" and zcarry_hydro_supported(params):
-            return streamed_step(S, lambda S, out, dt, active, t: zcarry_hydro(
-                params, S, out, dt, active))
-        scratch = hydro_step.scratch(params, S)
-        return lambda S, dt, active, t: (hydro_step(params, S, dt, active, scratch), None)
+    folded = params.kernel == "zcarry" and zcarry_hydro_supported(params)
+
+    def step_into(S, out, dt, active, t):
+        if folded:
+            return zcarry_hydro(params, S, out, dt, active)
+        hydro_step(params, S, out, dt, active)
+        return None
 
     return make_kernel_loop(
-        params, device, lambda S: cfl_hydro(params, S), bind_step,
+        params, device, lambda S: cfl_hydro(params, S), lambda S: streamed_step(S, step_into),
         pack=lambda U: pack_state(params, U),
         unpack=lambda S, t: unpack_state(params, S),
         packed_form=packed_form,
@@ -74,19 +77,19 @@ def make_step_fn(params: RunParams, device) -> Callable:
     must be valid on entry (every step returns them filled)."""
     require_hydro_scope(params)
     g = params.ghost_width
-    scratch = None  # the step kernel's stage buffer, allocated once
+    buf = None  # the in-place step's interior buffer (the jet), allocated once
 
     def step(U, t):
-        nonlocal scratch
+        nonlocal buf
         U = U.contiguous()
-        if scratch is None:
-            scratch = hydro_step.scratch(params, U, ghosted=True)
         dt = dt_from_inv(params, cfl_hydro(params, U, ghost=g))
         if uses_jet(params):
             U = fill_ghosts_(params, U.clone())
+            if buf is None:
+                buf = hydro_step.scratch(params, U)
             always = torch.ones((), dtype=torch.bool, device=U.device)
-            return hydro_step.ghosted_(params, U, dt, always, scratch), dt
-        new_interior = hydro_step.ghosted(params, U, dt, scratch)
+            return hydro_step.ghosted_(params, U, dt, always, buf), dt
+        new_interior = hydro_step.ghosted(params, U, dt)
         return make_boundaries_concat(params, new_interior, interior_only=True), dt
 
     return step

@@ -7,20 +7,21 @@ ramsesgpu_tpu/solvers/godunov.py:78: ramsesgpu_tpu/pallas/packed_io.py:148
 loop), pallas/fused_hydro3d.py:46 ``make_fused_hydro_update`` (the ghosted
 step) and pallas/packed_bc.py:126 ``make_packed_bc_step`` (the walled loop).
 
-Two modes, one kernel source:
+Three modes, one kernel (the streamed block body, csrc/hydro_stream.cuh):
 
-- ``hydro_step(params, S, dt, active, scratch)`` advances the loops'
-  interior-only state S [5, nz, ny, nx] in place, for any mix of
-  DIRICHLET / NEUMANN / PERIODIC faces. Twin:
-  ``solvers.godunov.hydro_3d_state_update``.
-- ``hydro_step.ghosted(params, U, dt, scratch)`` reads a ghosted state
+- ``hydro_step(params, S, S_out, dt, active)`` writes the step of the
+  loops' interior-only state S [5, nz, ny, nx] into S_out, another buffer
+  (a copy of S when ``active`` is false), for any mix of DIRICHLET /
+  NEUMANN / PERIODIC faces. Twin: ``solvers.godunov.hydro_3d_state_update``.
+- ``hydro_step.ghosted(params, U, dt)`` reads a ghosted state
   [5, nz+4, ny+4, nx+4] as it is and returns its new interior. Twin:
   ``solvers.godunov.hydro_3d_interior_update``. ``hydro_step.ghosted_(params,
-  U, dt, active, scratch)`` writes that interior into U itself when
-  ``active`` (the jet's loop on the ghosted state).
+  U, dt, active, buf)`` writes that interior into U itself when ``active``
+  (the jet's loop on the ghosted state), through the interior buffer
+  ``buf`` that the caller allocates once with ``HydroStepKernel.scratch``.
 
-The stage intermediates live in one scratch buffer (~20 values per cell)
-that the caller allocates once with ``HydroStepKernel.scratch``.
+The kernel's intermediates live in shared memory; it runs on a persistent
+grid of as many blocks as the card holds at once.
 """
 from __future__ import annotations
 
@@ -76,31 +77,42 @@ class HydroStepKernel:
 
     def __init__(self) -> None:
         self.launches = 0
+        self._blocks = {}   # (device, dtype) -> the persistent grid
 
     @staticmethod
-    def scratch(params: RunParams, S: torch.Tensor, ghosted: bool = False):
-        """The stage buffer for this shape and S's device (None on the CPU)."""
-        if S.device.type == "cpu":
+    def scratch(params: RunParams, U: torch.Tensor):
+        """The in-place ghosted step's interior buffer for U's dtype and
+        device (None on the CPU)."""
+        if U.device.type == "cpu":
             return None
-        n = load_library("cuda").ramses_hydro_step_scratch(
-            params.nx, params.ny, params.nz, int(ghosted))
-        return torch.empty(n, dtype=S.dtype, device=S.device)
+        return torch.empty((5, params.nz, params.ny, params.nx), dtype=U.dtype, device=U.device)
 
-    def __call__(self, params: RunParams, S: torch.Tensor, dt: torch.Tensor,
-                 active: torch.Tensor, scratch=None, newton=None) -> torch.Tensor:
-        """Advance S in place; returns S. ``newton``, an optional 0-d int64
-        CUDA tensor, accumulates the approx solver's Newton iterations."""
+    def blocks(self, S: torch.Tensor) -> int:
+        """The persistent grid for S's device and dtype (asked once)."""
+        key = (S.device, S.dtype)
+        if key not in self._blocks:
+            blocks = load_library("cuda").ramses_hydro_step_blocks(int(S.dtype == torch.float64))
+            if blocks <= 0:
+                raise RuntimeError(f"hydro_step occupancy query failed: CUDA error {-blocks}")
+            self._blocks[key] = blocks
+        return self._blocks[key]
+
+    def __call__(self, params: RunParams, S: torch.Tensor, S_out: torch.Tensor,
+                 dt: torch.Tensor, active: torch.Tensor, newton=None) -> torch.Tensor:
+        """Write the step of S into S_out; returns S_out. ``newton``, an
+        optional 0-d int64 CUDA tensor, accumulates the approx solver's
+        Newton iterations."""
         require_hydro_scope(params)
         check_hydro_state(params, S, 0)
+        check_out(params, S, S_out)
         check_scalars(S, dt=(dt, S.dtype), active=(active, torch.bool))
         if S.device.type == "cpu":
-            S.copy_(torch.where(active, hydro_3d_state_update(params, S, dt), S))
-            return S
-        self._launch(params, S, S, dt, active, scratch, 0, newton)
-        return S
+            S_out.copy_(torch.where(active, hydro_3d_state_update(params, S, dt), S))
+            return S_out
+        self._launch(params, S, S_out, dt, active, 0, newton)
+        return S_out
 
-    def ghosted(self, params: RunParams, U: torch.Tensor, dt: torch.Tensor,
-                scratch=None) -> torch.Tensor:
+    def ghosted(self, params: RunParams, U: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:
         """The new interior [5, nz, ny, nx] of the ghosted state U, whose
         ghosts must be filled."""
         require_hydro_scope(params)
@@ -110,13 +122,14 @@ class HydroStepKernel:
             return hydro_3d_interior_update(params, U, dt)
         out = torch.empty((5, params.nz, params.ny, params.nx), dtype=U.dtype, device=U.device)
         active = torch.ones((), dtype=torch.bool, device=U.device)
-        self._launch(params, U, out, dt, active, scratch, 1, None)
+        self._launch(params, U, out, dt, active, 1, None)
         return out
 
     def ghosted_(self, params: RunParams, U: torch.Tensor, dt: torch.Tensor,
-                 active: torch.Tensor, scratch=None) -> torch.Tensor:
+                 active: torch.Tensor, buf=None) -> torch.Tensor:
         """The ghosted step in place: U's interior becomes the new interior
-        when ``active``; its ghosts stay. Returns U."""
+        when ``active``; its ghosts stay. ``buf``: the interior buffer
+        (``scratch``). Returns U."""
         require_hydro_scope(params)
         check_hydro_state(params, U, params.ghost_width)
         check_scalars(U, dt=(dt, U.dtype), active=(active, torch.bool))
@@ -124,24 +137,23 @@ class HydroStepKernel:
             inner = interior(params, U)
             inner.copy_(torch.where(active, hydro_3d_interior_update(params, U, dt), inner))
             return U
-        self._launch(params, U, U, dt, active, scratch, 2, None)
+        if buf is None:
+            raise ValueError("the in-place ghosted step needs its interior buffer "
+                             "(HydroStepKernel.scratch)")
+        check_out(params, U, buf)
+        self._launch(params, U, buf, dt, active, 2, None)
         return U
 
-    def _launch(self, params, src, out, dt, active, scratch, ghosted, newton) -> None:
-        """ghosted: 0 interior mode, 1 ghosted into out, 2 ghosted in place."""
+    def _launch(self, params, src, out, dt, active, ghosted, newton) -> None:
+        """ghosted: 0 interior mode, 1 ghosted into out, 2 ghosted in place
+        (through the buffer out)."""
         if src.device.type != "cuda":
             raise ValueError(f"unsupported device {src.device}")
-        lib = load_library("cuda")
-        need = lib.ramses_hydro_step_scratch(params.nx, params.ny, params.nz, ghosted)
-        if (scratch is None or scratch.device != src.device or scratch.dtype != src.dtype
-                or scratch.numel() < need or not scratch.is_contiguous()):
-            raise ValueError(f"scratch must be a contiguous {src.dtype} buffer of >= {need} "
-                             f"values on {src.device} (HydroStepKernel.scratch)")
         if newton is not None and (newton.shape != () or newton.dtype != torch.int64
                                    or newton.device != src.device):
             raise ValueError("newton must be a 0-d int64 tensor on the state's device")
-        err = getattr(lib, _FN[src.dtype])(
-            src.data_ptr(), out.data_ptr(), scratch.data_ptr(), dt.data_ptr(), active.data_ptr(),
+        err = getattr(load_library("cuda"), _FN[src.dtype])(
+            src.data_ptr(), out.data_ptr(), self.blocks(src), dt.data_ptr(), active.data_ptr(),
             params.nx, params.ny, params.nz, ghosted, bc_codes(params), param_block(params),
             None if newton is None else newton.data_ptr(),
             torch.cuda.current_stream(src.device).cuda_stream,
@@ -149,6 +161,14 @@ class HydroStepKernel:
         if err:
             raise RuntimeError(f"hydro_step launch failed: CUDA error {err}")
         self.launches += 1
+
+
+def check_out(params: RunParams, S: torch.Tensor, out: torch.Tensor) -> None:
+    """``out`` must be another contiguous interior-shaped buffer of S's
+    dtype on its device."""
+    check_hydro_state(params, out, 0)
+    if out.dtype != S.dtype or out.device != S.device or out.data_ptr() == S.data_ptr():
+        raise ValueError("the output must be another buffer of the state's dtype on its device")
 
 
 hydro_step = HydroStepKernel()

@@ -4,9 +4,10 @@ kernel ``csrc/zcarry_hydro.cu`` and its plain PyTorch twin.
 
 Replaces the TPU kernel ramsesgpu_tpu/pallas/zcarry_hydro3d.py:58
 ``make_zcarry_hydro_packed_io`` (``with_inv_dt=True``): the step of
-kernels/hydro_step.py's interior PERIODIC mode in one launch, its
-intermediates on a ring of z planes per block in shared memory, writing
-the new state into a second buffer and returning the inverse dt of it. Twin:
+kernels/hydro_step.py's interior PERIODIC mode (the same streamed block
+body, csrc/hydro_stream.cuh, so bitwise its new state) in one launch,
+writing the new state into a second buffer and returning the inverse dt
+of it, reduced in the same launch. Twin:
 ``solvers.godunov.hydro_3d_state_update``, then
 ``solvers.timestep.compute_inv_dt_hydro`` on its result.
 """
@@ -20,7 +21,7 @@ from ..solvers.godunov import hydro_3d_state_update
 from ..solvers.timestep import compute_inv_dt_hydro
 from .build import load_library, param_block
 from .cfl_hydro import check_hydro_state
-from .hydro_step import check_scalars, require_hydro_scope
+from .hydro_step import check_out, check_scalars, require_hydro_scope
 
 _FN = {torch.float32: "ramses_zcarry_hydro_f32", torch.float64: "ramses_zcarry_hydro_f64"}
 
@@ -28,8 +29,8 @@ _FN = {torch.float32: "ramses_zcarry_hydro_f32", torch.float64: "ramses_zcarry_h
 def zcarry_hydro_supported(params: RunParams) -> bool:
     """Whether the streamed kernel covers the run: fully periodic faces
     (pallas/zcarry_hydro3d.py:46 without the TPU's tile conditions). A
-    walled run takes the staged wall-rule kernel, as the JAX package takes
-    its whole-array step there."""
+    walled run takes the step kernel's wall rules and the CFL kernel, as
+    the JAX package takes its whole-array step there."""
     return all(b == BCT.BC_PERIODIC for b in params.boundary_types)
 
 
@@ -60,9 +61,7 @@ class ZcarryHydroKernel:
         if not zcarry_hydro_supported(params):
             raise ValueError("configuration outside the hydro zcarry kernel")
         check_hydro_state(params, S, 0)
-        check_hydro_state(params, S_out, 0)
-        if S_out.dtype != S.dtype or S_out.device != S.device or S_out.data_ptr() == S.data_ptr():
-            raise ValueError("S_out must be another buffer of S's dtype on its device")
+        check_out(params, S, S_out)
         check_scalars(S, dt=(dt, S.dtype), active=(active, torch.bool))
         if S.device.type == "cpu":
             S_out.copy_(torch.where(active, hydro_3d_state_update(params, S, dt), S))

@@ -22,9 +22,10 @@ accepted everywhere; ``jnp`` only on the CPU (the twins must not stand in
 for the kernels on CUDA). ``zcarry`` selects the z-streaming step kernels
 (kernels/zcarry_mhd3d.py, kernels/zcarry_hydro3d.py: one launch per step,
 no stage buffer) on the periodic and shearing-box MHD paths (plain,
-compensated, dissipative, stratified) and on fully periodic hydro; hydro
-with walls keeps the staged wall-rule kernel under it, MHD with walls or
-the jet and the hydro jet the staged ghosted kernels, which compute the
+compensated, dissipative, stratified) and the folded-CFL step on fully
+periodic hydro; hydro with walls keeps the step kernel's wall rules under
+it, MHD with walls or the jet and the hydro jet the ghosted kernels, which
+compute the
 same function, as the JAX package falls back to its whole-array step
 there, and the ghosted one-step hydro ``make_step_fn`` keeps the ghosted
 kernel for every choice. Of the JAX package's refusals of zcarry

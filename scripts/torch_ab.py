@@ -5,7 +5,9 @@ NVIDIA GPU. Run from the root of a checkout.
     python3 scripts/torch_ab.py fmad        # mhd_step.cu with and without -fmad=false
     python3 scripts/torch_ab.py parent P    # the step kernels of this checkout against P's
     python3 scripts/torch_ab.py zcarry T... # row 12 of this checkout against the checkouts T
+    python3 scripts/torch_ab.py hydro T...  # the hydro step kernels against the checkouts T
     python3 scripts/torch_ab.py clocks      # row 12's phases in cycles, per warp group
+    python3 scripts/torch_ab.py clocks hydro  # the hydro body's phases, likewise
 
 ``trees``: runs chip_smoke.py's build (phase 2) and main paths 5 (MHD OT
 256^3), 13 (MRI 128x256x128, compensated=no) and 17 (OT dissipative) of
@@ -24,7 +26,19 @@ stratified), f32 and f64, at
 parent's, else its largest difference in ULP and whether the fluxes and
 EMFs the update read already differ; then the periodic step's stages at
 256^3 f32 of each (torch.profiler), and each mode's time at the main
-paths' sizes in f32, P, this, this, P (CUDA events, 10 launches).
+paths' sizes in f32, P, this, this, P (CUDA events, 10 launches). Then the
+same for csrc/hydro_step.cu (interior mode with walls and periodic, ghosted,
+ghosted in place) and csrc/zcarry_hydro.cu (its new state and inverse dt),
+called through each library's own C entry points, so a parent with another
+hydro interface (the staged kernel, which updates in place through a stage
+buffer) is compared on the same inputs: bitwise or in ULP at 72^3, f32 and
+f64, then each mode's time at 256^3 in f32 and f64, P, this, this, P.
+
+``hydro T...``: the hydro modes of ``parent`` at 256^3, f32 and f64, this
+checkout against the checkouts T (ULP, then the times in turns this, T...,
+T... reversed, this). For trying a variant of the streamed hydro body (its
+tile, its groups): unpack a copy of the checkout into a directory that
+.gitignore lists and edit csrc/hydro_stream.cuh there.
 
 ``zcarry T...``: row 12 (csrc/zcarry_mhd.cu) of this checkout against
 the checkouts T (each library built there) in its four modes (periodic
@@ -39,6 +53,11 @@ of its four modes at the main paths' sizes (f32): block 0's producer and
 consumer groups print the cycles they spent in each of their phases,
 waits at the hand-over included (csrc/zcarry_mhd.cu Clocks); then that
 build against the package's, timed in turns, for the counters' cost.
+
+``clocks hydro``: the same for the streamed hydro body (csrc/hydro_stream.cuh:
+csrc/hydro_step.cu and csrc/zcarry_hydro.cu built with the flag), one
+launch of each hydro mode at 256^3, f32 and f64, untimed (row 12's
+counters cost nothing measurable).
 
 ``fmad``: the periodic step at 256^3 f32, plain and compensated, launched
 in turns (default, variant, variant, default) from the package's library
@@ -117,6 +136,42 @@ def fmad() -> None:
               + ", ".join(f"{name} {ms:.3f} ms" for name, ms in times), flush=True)
         del S, scratch
         torch.cuda.empty_cache()
+
+
+def clocks_hydro() -> None:
+    """The streamed hydro body's phases: csrc/hydro_step.cu and
+    csrc/zcarry_hydro.cu built on their own with -DRAMSES_ZCARRY_CLOCKS, one
+    launch of each mode at 256^3, f32 and f64 (block 0 prints its groups'
+    cycles, hydro_stream.cuh Stream::clk)."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from ramsesgpu_tpu_torch.kernels import build as b
+
+    card = cs.card_line()
+    nvcc = b.find_nvcc()
+    work = Path(tempfile.mkdtemp(dir=b.build_dir()))
+    sources = ("hydro_step.cu", "zcarry_hydro.cu")
+    objs = [work / f"{Path(src).stem}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *b.compile_flags("cuda", src), "-DRAMSES_ZCARRY_CLOCKS",
+                               "-o", str(obj), str(b.CSRC / src)])
+             for src, obj in zip(sources, objs)]
+    if any(proc.wait() for proc in procs):
+        raise RuntimeError("building the hydro clocks variant failed")
+    path = work / "libhydro_clocks.so"
+    subprocess.run([nvcc, *b.LINK_FLAGS, "-o", str(path), *map(str, objs)], check=True)
+    lib = ctypes.CDLL(str(path))
+    for name, (args, res) in b._SIGNATURES.items():
+        if name.startswith(("ramses_hydro_step", "ramses_hydro_stream", "ramses_zcarry_hydro")):
+            getattr(lib, name).argtypes, getattr(lib, name).restype = args, res
+    for dtype in ("float32", "float64"):
+        for name, run in hydro_cases(cs, dtype, 256):
+            print(f"[clocks] {name} {dtype} 256^3 ({card}): one launch", flush=True)
+            _outs, _again = run(lib)
+            torch.cuda.synchronize()
+            del _outs, _again
+            torch.cuda.empty_cache()
 
 
 def clocks() -> None:
@@ -319,6 +374,135 @@ def step_cases(cs, dtype: str, full: bool, streamed_only: bool = False):
         yield f"zcarry_mhd {kind}", *zcarry(kind)
 
 
+def hydro_cases(cs, dtype: str, n: int):
+    """(name, run) of every mode of the hydro step kernels on an n^3 state
+    (data/implode3d.ini, walls, or its periodic blast, 1 % noise from a
+    seed on the interior, ghosts filled): run(lib) launches one step through
+    lib's C entry points and returns (outputs, a relaunch for timing). A
+    library with ramses_hydro_step_scratch has the staged kernel (interior
+    mode in place, a stage buffer); else the streamed one (the new state
+    into another buffer)."""
+    import torch
+    from ramsesgpu_tpu_torch.kernels.build import param_block
+    from ramsesgpu_tpu_torch.kernels.packed_bc import bc_codes
+    from ramsesgpu_tpu_torch.solvers.boundary import interior, make_boundaries
+    from ramsesgpu_tpu_torch.solvers.timestep import compute_inv_dt_hydro, dt_from_inv
+
+    f64 = int(dtype == "float64")
+    sfx = "f64" if f64 else "f32"
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def state(problem):
+        params, U = cs.hydro_setup(problem, n, dtype)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        inner = interior(params, U)
+        inner *= 1 + 0.01 * torch.randn(inner.shape, generator=gen, device="cuda", dtype=U.dtype)
+        U = make_boundaries(params, U)
+        S = interior(params, U).contiguous()
+        return params, U, S, dt_from_inv(params, compute_inv_dt_hydro(params, S, ghost=0))
+
+    def launcher(lib, params, dt, ghosted, src, out):
+        """A launch of src into out (the staged kernel: out its in-place
+        target), the buffers made with lib."""
+        fn = getattr(lib, f"ramses_hydro_step_{sfx}")
+        if hasattr(lib, "ramses_hydro_step_scratch"):
+            third = torch.empty(lib.ramses_hydro_step_scratch(n, n, n, ghosted), dtype=src.dtype,
+                                device="cuda")
+            arg = third.data_ptr()
+        else:
+            third, arg = None, lib.ramses_hydro_step_blocks(f64)
+
+        def go(third=third):
+            err = fn(src.data_ptr(), out.data_ptr(), arg, dt.data_ptr(), active.data_ptr(),
+                     n, n, n, ghosted, bc_codes(params), param_block(params), None, stream)
+            if err:
+                raise RuntimeError(f"hydro_step launch failed: CUDA error {err}")
+        return go
+
+    def interior_mode(problem):
+        params, _U, S, dt = state(problem)
+
+        def run(lib):
+            if hasattr(lib, "ramses_hydro_step_scratch"):
+                out = S.clone()
+                go = launcher(lib, params, dt, 0, out, out)
+            else:
+                out = torch.empty_like(S)
+                go = launcher(lib, params, dt, 0, S, out)
+            go()
+            return (out,), go
+        return run
+
+    def ghosted_mode(in_place):
+        params, U, _S, dt = state("implode")
+
+        def run(lib):
+            if in_place:
+                Uw = U.clone()
+                buf = (Uw if hasattr(lib, "ramses_hydro_step_scratch")
+                       else torch.empty_like(interior(params, U)).contiguous())
+                go = launcher(lib, params, dt, 2, Uw, buf)
+                go()
+                return (Uw,), go
+            out = torch.empty_like(interior(params, U)).contiguous()
+            go = launcher(lib, params, dt, 1, U, out)
+            go()
+            return (out,), go
+        return run
+
+    def folded():
+        params, _U, S, dt = state("blast")
+
+        def run(lib):
+            out = torch.empty_like(S)
+            inv = torch.empty((), dtype=S.dtype, device="cuda")
+            blocks = lib.ramses_zcarry_hydro_blocks(f64)
+            fn = getattr(lib, f"ramses_zcarry_hydro_{sfx}")
+
+            def go():
+                err = fn(S.data_ptr(), out.data_ptr(), blocks, inv.data_ptr(), dt.data_ptr(),
+                         active.data_ptr(), n, n, n, param_block(params), stream)
+                if err:
+                    raise RuntimeError(f"zcarry_hydro launch failed: CUDA error {err}")
+            go()
+            return (out, inv), go
+        return run
+
+    yield "hydro_step interior (walls)", interior_mode("implode")
+    yield "hydro_step interior (periodic)", interior_mode("blast")
+    yield "hydro_step ghosted", ghosted_mode(False)
+    yield "hydro_step ghosted in place", ghosted_mode(True)
+    yield "zcarry_hydro", folded()
+
+
+def hydro_turns(cs, libs: dict, order: list, card: str, tag: str) -> None:
+    """The hydro modes at 256^3, f32 and f64: each library's new state
+    against the first's (ULP), then the times in the turns of ``order``
+    (CUDA events, 10 launches)."""
+    import torch
+
+    first = order[0]
+    for dtype in ("float32", "float64"):
+        for name, run in hydro_cases(cs, dtype, 256):
+            outs, times = {}, []
+            for who in order:
+                got, again = run(libs[who])
+                outs.setdefault(who, tuple(x.clone() for x in got))  # (relaunches update in place)
+                times.append((who, cs.time_ms(again, 10)))
+                del got, again
+            diffs = "; ".join(
+                f"{who}: " + ", ".join("bitwise equal" if d[0] == 0 else
+                                       f"{d[0]} elements up to {d[1]:.2f} ULP"
+                                       for d in map(ulp_diff, outs[who], outs[first]))
+                for who in outs if who != first)
+            print(f"[{tag}] {name} {dtype} 256^3 ({card}): "
+                  + ", ".join(f"{who} {ms:.3f} ms" for who, ms in times)
+                  + f"; against {first}: {diffs}", flush=True)
+            del outs
+            torch.cuda.empty_cache()
+
+
 def tree_library(tree: str, tag: str):
     """The CUDA library of the checkout ``tree``, built there by its own
     kernels/build.py."""
@@ -388,6 +572,17 @@ def parent(tree: str) -> None:
             torch.cuda.empty_cache()
         print(f"[parent] {name} f32 (main path size; {card}): "
               + ", ".join(f"{who} {ms:.3f} ms" for who, ms in times), flush=True)
+    # the hydro step kernels: bitwise at 72^3 (partial x tiles), then in turns
+    for dtype in ("float32", "float64"):
+        for name, run in hydro_cases(cs, dtype, 72):
+            got = {who: run(libs[who])[0] for who in ("parent", "this")}
+            torch.cuda.synchronize()
+            diffs = [ulp_diff(t, p) for t, p in zip(got["this"], got["parent"])]
+            print(f"[parent] {name} {dtype} 72^3: " + (
+                "bitwise equal" if all(d[0] == 0 for d in diffs) else "outputs differ " +
+                ", ".join(f"{d[0]} elements up to {d[1]:.2f} ULP" for d in diffs)), flush=True)
+            del got
+    hydro_turns(cs, libs, ["parent", "this", "this", "parent"], card, "parent")
 
 
 def zcarry(others: list) -> None:
@@ -422,16 +617,33 @@ def zcarry(others: list) -> None:
         torch.cuda.empty_cache()
 
 
+def hydro(others: list) -> None:
+    """The hydro step kernels of this checkout and of the checkouts
+    ``others`` at 256^3, in turns this, others, others reversed, this."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from ramsesgpu_tpu_torch.kernels import build as b
+
+    card = cs.card_line()
+    libs = {"this": b.load_library("cuda"),
+            **{t: tree_library(t, f"tree{i}") for i, t in enumerate(others)}}
+    hydro_turns(cs, libs, ["this", *others, *reversed(others), "this"], card, "hydro")
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["trees"] and len(sys.argv) == 4:
         trees(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["zcarry"] and len(sys.argv) >= 3:
         zcarry(sys.argv[2:])
+    elif sys.argv[1:2] == ["hydro"] and len(sys.argv) >= 3:
+        hydro(sys.argv[2:])
     elif sys.argv[1:2] == ["parent"] and len(sys.argv) == 3:
         parent(sys.argv[2])
     elif sys.argv[1:] == ["fmad"]:
         fmad()
     elif sys.argv[1:] == ["clocks"]:
         clocks()
+    elif sys.argv[1:] == ["clocks", "hydro"]:
+        clocks_hydro()
     else:
         sys.exit(__doc__)

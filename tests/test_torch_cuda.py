@@ -122,9 +122,9 @@ HYDRO_INI = """
 [run]
 tend={tend}
 [mesh]
-nx=32
-ny=24
-nz=16
+nx={nx}
+ny={ny}
+nz={nz}
 boundary_xmin={bc}
 boundary_xmax={bc}
 boundary_ymin={bc}
@@ -145,14 +145,16 @@ dtype={dtype}
 """
 
 
-def hydro_state(dtype, device, problem="implode", solver="approx", tend=100.0, ciso=0.0):
+def hydro_state(dtype, device, problem="implode", solver="approx", tend=100.0, ciso=0.0,
+                mesh=(32, 24, 16)):
     from ramsesgpu_tpu_torch.convert import torch_dtype
     from ramsesgpu_tpu_torch.problems import init_problem
     from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
 
     bc = 1 if problem == "implode" else 3
     config = ConfigMap(text=HYDRO_INI.format(dtype=dtype, tend=tend, problem=problem, bc=bc,
-                                             solver=solver, ciso=ciso))
+                                             solver=solver, ciso=ciso, nx=mesh[0], ny=mesh[1],
+                                             nz=mesh[2]))
     params = params_from_config(config)
     U = torch.from_numpy(init_problem(params, config)).to(device, torch_dtype(params))
     return params, make_boundaries(params, U)
@@ -179,10 +181,10 @@ def test_hydro_kernels_match_twins(cuda_device, dtype, problem, solver):
     dt = dt_from_inv(params, inv_ref)
     want = hydro_3d_state_update(params, S, dt)
     active = torch.ones((), dtype=torch.bool, device=cuda_device)
-    got = hydro_step(params, S.clone(), dt, active, hydro_step.scratch(params, S))
+    got = hydro_step(params, S, torch.empty_like(S), dt, active)
     err = torch.linalg.norm((got - want).flatten()) / torch.linalg.norm(want.flatten())
     assert float(err) <= TOL[dtype]
-    ghosted = hydro_step.ghosted(params, U, dt, hydro_step.scratch(params, U, ghosted=True))
+    ghosted = hydro_step.ghosted(params, U, dt)
     assert torch.equal(ghosted, got)
 
 
@@ -203,7 +205,7 @@ def test_hydro_isothermal_and_nan(cuda_device):
     dt = dt_from_inv(params, inv_ref)
     want = hydro_3d_state_update(params, S, dt)
     active = torch.ones((), dtype=torch.bool, device=cuda_device)
-    got = hydro_step(params, S.clone(), dt, active, hydro_step.scratch(params, S))
+    got = hydro_step(params, S, torch.empty_like(S), dt, active)
     err = torch.linalg.norm((got - want).flatten()) / torch.linalg.norm(want.flatten())
     assert float(err) <= TOL["float32"]
     S[2, 3, 4, 5] = float("nan")
@@ -232,6 +234,50 @@ def test_hydro_loop_counts_launches_and_stops_at_t_end(cuda_device):
     assert int(k) == 3 and float(t) == float(t3)
     assert torch.equal(S, S3)
     assert unpack(S, t).shape == params.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["implode", "blast-folded", "in-place"])
+def test_hydro_stream_partial_tiles(cuda_device, case):
+    """The streamed hydro body on a grid that no tile divides (36 x 20 x 11):
+    the step kernel's interior mode with reflecting walls, row 13 on the
+    periodic blast (its inverse dt against the CFL kernel's, 4 ULP) and the
+    in-place ghosted step, each against its twin; inactive steps copy or
+    leave the state."""
+    from ramsesgpu_tpu_torch.kernels.cfl_hydro import cfl_hydro
+    from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
+    from ramsesgpu_tpu_torch.kernels.zcarry_hydro3d import zcarry_hydro
+    from ramsesgpu_tpu_torch.solvers.boundary import interior
+    from ramsesgpu_tpu_torch.solvers.godunov import (hydro_3d_interior_update,
+                                                     hydro_3d_state_update)
+    from ramsesgpu_tpu_torch.solvers.timestep import compute_inv_dt_hydro, dt_from_inv
+
+    params, U = hydro_state("float32", cuda_device, "blast" if case == "blast-folded"
+                            else "implode", mesh=(36, 20, 11))
+    S = interior(params, U).contiguous()
+    dt = dt_from_inv(params, compute_inv_dt_hydro(params, S, ghost=0))
+    on = torch.ones((), dtype=torch.bool, device=cuda_device)
+    off = torch.zeros_like(on)
+    if case == "in-place":
+        want = hydro_3d_interior_update(params, U, dt)
+        got, buf = U.clone(), hydro_step.scratch(params, U)
+        hydro_step.ghosted_(params, got, dt, off, buf)
+        assert torch.equal(got, U)
+        hydro_step.ghosted_(params, got, dt, on, buf)
+        assert rel_l2(interior(params, got), want) <= TOL["float32"]
+        interior(params, got).copy_(interior(params, U))
+        assert torch.equal(got, U)  # the ghosts stay
+        return
+    want = hydro_3d_state_update(params, S, dt)
+    out = torch.full_like(S, float("nan"))
+    if case == "blast-folded":
+        inv = zcarry_hydro(params, S, out, dt, on)
+        assert ulp_close(inv, cfl_hydro(params, out))
+    else:
+        hydro_step(params, S, out, dt, on)
+    assert rel_l2(out, want) <= TOL["float32"]
+    hydro_step(params, S, out, dt, off)
+    assert torch.equal(out, S)
 
 
 # the ideal MRI shearing box: tests/test_shear.py's box on an uneven mesh,
@@ -730,7 +776,7 @@ def test_zcarry_mhd_odd_tiles(cuda_device, mode):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("solver", ["approx", "hll", "hllc"])
 def test_zcarry_hydro_matches_twin_and_staged(cuda_device, dtype, solver):
-    """The streamed hydro step against its twin and the staged kernel (within
+    """The folded-CFL hydro step against its twin and the step kernel (within
     TOL), its inverse dt against the CFL kernel on its output (4 ULP), and
     an inactive step (a copy)."""
     from ramsesgpu_tpu_torch.kernels.cfl_hydro import cfl_hydro
@@ -746,7 +792,7 @@ def test_zcarry_hydro_matches_twin_and_staged(cuda_device, dtype, solver):
     active = torch.ones((), dtype=torch.bool, device=cuda_device)
     out = torch.empty_like(S)
     inv = zcarry_hydro(params, S, out, dt, active)
-    staged = hydro_step(params, S.clone(), dt, active, hydro_step.scratch(params, S))
+    staged = hydro_step(params, S, torch.empty_like(S), dt, active)
     assert rel_l2(out, staged) <= TOL[dtype]
     assert rel_l2(out, hydro_3d_state_update(params, S, dt)) <= TOL[dtype]
     assert ulp_close(inv, cfl_hydro(params, out))

@@ -288,12 +288,12 @@ def test_csrc_host_build_matches_twins(dtype):
         dt = dt_from_inv(params, inv_ref)
         want = hydro_3d_state_update(params, S, dt)
         outs = {}
+        blocks = lib.ramses_hydro_step_blocks(int(dtype == "float64"))
         for ghosted, src in ((0, S.clone()), (1, U)):
-            scratch = torch.empty(lib.ramses_hydro_step_scratch(*dims, ghosted), dtype=S.dtype)
-            out = src if not ghosted else torch.empty_like(S)
+            out = torch.empty_like(S)
             for active in (False, True):
                 flag = torch.tensor(active)
-                assert step(src.data_ptr(), out.data_ptr(), scratch.data_ptr(), dt.data_ptr(),
+                assert step(src.data_ptr(), out.data_ptr(), blocks, dt.data_ptr(),
                             flag.data_ptr(), *dims, ghosted, bc_codes(params), blk, None,
                             None) == 0
                 if not active and not ghosted:
@@ -366,8 +366,8 @@ def test_out_of_slice_configurations_raise(section, key, value, kernels_cover_it
     config = ConfigMap(text=text)
     if value in ("zcarry", "jet"):
         # the z-streaming kernels (tests/test_torch_zcarry.py): a walled run
-        # keeps the staged kernel under kernel=zcarry, and Run takes it; the
-        # jet runs its ghosted loop (tests/test_torch_walls.py)
+        # keeps the step kernel's wall rules under kernel=zcarry, and Run
+        # takes it; the jet runs its ghosted loop (tests/test_torch_walls.py)
         Run(config, "cpu").start(max_steps=1, do_output=False)
     else:
         with pytest.raises(NotImplementedError):

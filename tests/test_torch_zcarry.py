@@ -404,8 +404,8 @@ HYDRO_GRIDS = [((40, 20, 7), "approx"), ((20, 12, 7), "hllc"), ((40, 20, 2), "hl
                               for i, (g, s) in enumerate(HYDRO_GRIDS)])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_host_zcarry_hydro(dtype, grid, solver):
-    """The periodic hydro step: bitwise the staged host kernel (interior
-    PERIODIC mode), within TOL_HOST of the twin; the folded inverse dt
+    """The periodic hydro step: bitwise the step kernel's host build
+    (interior PERIODIC mode), within TOL_HOST of the twin; the folded inverse dt
     bitwise the CFL kernel's and the twin's on the kernel's output;
     inactive: a copy."""
     from ramsesgpu_tpu_torch.kernels.build import param_block
@@ -434,10 +434,9 @@ def test_host_zcarry_hydro(dtype, grid, solver):
         assert getattr(lib, f"ramses_zcarry_hydro_{sfx}")(
             S.data_ptr(), out.data_ptr(), blocks, inv.data_ptr(), dt.data_ptr(),
             flag.data_ptr(), nx, ny, nz, blk, None) == 0
-        staged = S.clone()
-        scratch = torch.empty(lib.ramses_hydro_step_scratch(nx, ny, nz, 0), dtype=S.dtype)
+        staged = torch.empty_like(S)
         assert getattr(lib, f"ramses_hydro_step_{sfx}")(
-            staged.data_ptr(), staged.data_ptr(), scratch.data_ptr(), dt.data_ptr(),
+            S.data_ptr(), staged.data_ptr(), lib.ramses_hydro_step_blocks(f64), dt.data_ptr(),
             flag.data_ptr(), nx, ny, nz, 0, bc_codes(params), blk, None, None) == 0
         assert torch.equal(out, staged)
         if not active:
@@ -448,6 +447,73 @@ def test_host_zcarry_hydro(dtype, grid, solver):
         assert getattr(lib, f"ramses_cfl_hydro_{sfx}")(
             out.data_ptr(), None, inv_cfl.data_ptr(), nx, ny, nz, 0, blk, None) == 0
         assert float(inv) == float(inv_cfl) == float(compute_inv_dt_hydro(params, out, ghost=0))
+
+
+# 8 serial blocks: on a grid of 2 x 2 partial tiles of the streamed hydro
+# body, the z chunks of nz = 7 leave a short last one (4 + 3 planes)
+STREAM_BLOCKS = 8
+
+
+@pytest.mark.parametrize("solver", ["approx", "hll", "hllc"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_host_hydro_stream_edge_tiles(dtype, solver):
+    """The streamed hydro body (csrc/hydro_stream.cuh) on partial tiles and
+    a short last z chunk: csrc/hydro_step.cu's interior mode on mixed
+    DIRICHLET / NEUMANN / PERIODIC faces and on periodic ones, its ghosted
+    mode into out and in place, each within TOL_HOST of the twin and
+    bitwise one another; an inactive in-place step changes nothing; on the
+    periodic faces row 13 (csrc/zcarry_hydro.cu) bitwise the interior mode,
+    its folded inverse dt the twin's on its output."""
+    from test_torch_hydro_ops import ini_text, random_state
+
+    from ramsesgpu_tpu_torch.kernels.build import param_block
+    from ramsesgpu_tpu_torch.kernels.packed_bc import bc_codes
+    from ramsesgpu_tpu_torch.solvers.boundary import interior, make_boundaries
+    from ramsesgpu_tpu_torch.solvers.godunov import hydro_3d_state_update
+    from ramsesgpu_tpu_torch.solvers.timestep import compute_inv_dt_hydro, dt_from_inv
+
+    lib = host_lib()
+    f64 = int(dtype == "float64")
+    sfx = "f64" if f64 else "f32"
+    tile = (ctypes.c_int * 6)()
+    lib.ramses_hydro_stream_tile(f64, tile)
+    nx, ny, nz = tile[0] + 4, tile[1] + 4, 7
+    assert tile[3] + tile[4] == tile[2]
+    assert lib.ramses_hydro_stream_chunk_depth(f64, nx, ny, nz, STREAM_BLOCKS) == 4
+    step = getattr(lib, f"ramses_hydro_step_{sfx}")
+    rng = np.random.default_rng(12)
+    on, off = torch.tensor(True), torch.tensor(False)
+    for bcs in ((1, 2, 2, 1, 3, 3), (3,) * 6):
+        text = with_mesh(ini_text(dtype, solver=solver, bcs=bcs, slope=2.0), nx, ny, nz)
+        params = params_from_config(ConfigMap(text=text))
+        U = make_boundaries(params, torch.from_numpy(random_state(params, rng, dtype)))
+        S = interior(params, U).contiguous()
+        blk, codes = param_block(params), bc_codes(params)
+        dt = dt_from_inv(params, compute_inv_dt_hydro(params, S, ghost=0))
+        want = hydro_3d_state_update(params, S, dt)
+        outs = []
+        for ghosted, src in ((0, S), (1, U), (2, U.clone())):
+            for flag in ((off, on) if ghosted == 2 else (on,)):
+                out = torch.full_like(S, float("nan"))
+                assert step(src.data_ptr(), out.data_ptr(), STREAM_BLOCKS, dt.data_ptr(),
+                            flag.data_ptr(), nx, ny, nz, ghosted, codes, blk, None, None) == 0
+                if ghosted == 2 and not flag:
+                    assert torch.equal(src, U), (bcs, "inactive in place")
+            got = interior(params, src) if ghosted == 2 else out
+            assert rel(got, want) <= TOL_HOST[S.dtype], (bcs, ghosted)
+            outs.append(got)
+        assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2]), bcs
+        ghosts = torch.ones_like(U, dtype=torch.bool)
+        interior(params, ghosts).fill_(False)
+        assert torch.equal(src[ghosts], U[ghosts]), bcs  # the in-place step keeps the ghosts
+        if bcs == (3,) * 6:
+            out = torch.full_like(S, float("nan"))
+            inv = torch.full((), float("nan"), dtype=S.dtype)
+            assert getattr(lib, f"ramses_zcarry_hydro_{sfx}")(
+                S.data_ptr(), out.data_ptr(), STREAM_BLOCKS, inv.data_ptr(), dt.data_ptr(),
+                on.data_ptr(), nx, ny, nz, blk, None) == 0
+            assert torch.equal(out, outs[0])
+            assert float(inv) == float(compute_inv_dt_hydro(params, out, ghost=0))
 
 
 def test_zcarry_loops_equal_staged_loops_on_cpu():
