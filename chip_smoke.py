@@ -61,9 +61,9 @@ Phases, in order; any failure raises and no result line is printed:
      periodic at 64^3 (Orszag-Tang) and shear at 64x128x64 (MRI,
      isothermal and adiabatic), f32 + f64, each coefficient set of
      DISSIP_COEFFS: the increment S_out - S_in and the kept face's change,
-     each on its own against the twin's; the inactive kernel changes
-     nothing; then 1 and 10 chained steps of each dissipative loop against
-     the twins' loop;
+     each on its own against the twin's; the inactive kernel writes S_in
+     into S_out and leaves the kept face; then 1 and 10 chained steps of
+     each dissipative loop against the twins' loop;
  17. the dissipative periodic main path: phase 5's workload with the JAX
      dissipation tests' nu = 2e-3, eta = 1e-3, three kernels per step, and
      nu dt (1/dx^2 + 1/dy^2 + 1/dz^2) and eta dt (...) of the first, the
@@ -73,7 +73,8 @@ Phases, in order; any failure raises and no result line is printed:
      five kernels per step (the slab kernel twice), and the same numbers;
  19. the dissipation kernel at full width on the states of phases 17 and
      18: increment and kept face against the twin, its time against the
-     twin's, its stages, and its bound (as 11 and 15);
+     twin's and its bound (as 11 and 15), and its launch in each mode (one
+     a sub-step): tile, threads, ring bytes, registers, blocks an SM;
  20. the Kahan-compensated kernels against their twins from non-zero
      carries (periodic OT 64^3, MRI 64x128x64; f32 + f64): the step's
      state and compensated value, its update stage on its own fluxes
@@ -103,7 +104,8 @@ Phases, in order; any failure raises and no result line is printed:
  28. the blast main path (phase 9's) with kernel=zcarry;
  29. the OT main path (phase 5's) with kernel=zcarry, and (29c) compensated;
  30. the MRI main path (phase 13's) with kernel=zcarry, (30c) as shipped,
-     (30v) viscous-resistive, (30s) the stratified MRI as shipped; each
+     (30v) viscous-resistive, (30s) the stratified MRI as shipped (each
+     MRI path prints its peak device memory); each
      zcarry path checks that its profiled chunk ran the streamed kernel,
      once per step, and no stage of a staged step kernel;
  32. the streamed kernels at full width on those paths' states: against
@@ -1259,12 +1261,17 @@ def phase13(card: str, label: str = "13", nu: float = 0.0, eta: float = 0.0,
         expect.update(shear_slabs=2 * steps, dissip_step=steps)
     if strat:
         expect["shear_zslabs"] = steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with counted_main_path(label, expect) as launches:
         state = pack(U)
         del U
         state, t, dt_timed = run_chunks(label, card, advance, state, t, f"{nx}x{ny}x{nz}",
                                         chunk, cells=nx * ny * nz)
     S, kept = state
+    print(f"[{label}] peak device memory of the path: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB (the state {S.nbytes / 1e9:.3f} GB; "
+          f"kernel={kernel}, {card})")
     if nu > 0 or eta > 0:
         diffusion_numbers(label, params, {
             "first step": dt_first, "timed steps (mean)": dt_timed,
@@ -1369,9 +1376,9 @@ def phase14(card: str, mri) -> dict:
             "t": float(t), "S": S, "kept": kept, "planes": planes}
 
 
-def stage_times(fn, reps: int = 5, ns: str = "mhd::") -> dict:
+def stage_times(fn, reps: int = 5) -> dict:
     """Device ms per call of each CUDA kernel fn launches (torch.profiler),
-    by its stage name in the namespace ``ns``."""
+    by its stage name in the namespace ``mhd::``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1381,7 +1388,7 @@ def stage_times(fn, reps: int = 5, ns: str = "mhd::") -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key.split(ns)[1].split("<")[0] if ns in e.key else e.key[:40]:
+    return {e.key.split("mhd::")[1].split("<")[0] if "mhd::" in e.key else e.key[:40]:
             e.self_device_time_total / reps / 1e3
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
@@ -1517,19 +1524,18 @@ def phase16() -> None:
                     params = params.replace(nu=nu, eta=eta)
                     dt = dt_from_inv(params, inv_dt_mhd_periodic(params, S))
                     want = mhd_dissipation_periodic_update(params, S, dt)
-                    scratch = dissip_step.scratch(params, S)
-                    got = dissip_step(params, S.clone(), dt, active, scratch)
-                    unchanged = torch.equal(dissip_step(params, S.clone(), dt, idle, scratch), S)
+                    got = dissip_step(params, S, torch.empty_like(S), dt, active)
+                    unchanged = torch.equal(
+                        dissip_step(params, S, torch.full_like(S, float("nan")), dt, idle), S)
                 else:
                     params, S, kept, t0 = dissip_mri(64, 128, 64, dtype, ciso, nu, eta, True)
                     dt = dt_from_inv(params, inv_dt_mhd_shear(params, S, kept))
                     slabs = slabs_twin(params, S, kept, t0 + dt)
                     want, eypl, ezpl = mhd_dissipation_shear_update(params, S, slabs, dt)
-                    scratch = dissip_step.scratch(params, S)
-                    got, kept_got = S.clone(), kept.clone()
-                    dissip_step(params, got, dt, active, scratch, shear=(slabs, kept_got))
-                    S_idle, kept_idle = S.clone(), kept.clone()
-                    dissip_step(params, S_idle, dt, idle, scratch, shear=(slabs, kept_idle))
+                    got, kept_got = torch.empty_like(S), kept.clone()
+                    dissip_step(params, S, got, dt, active, shear=(slabs, kept_got))
+                    S_idle, kept_idle = torch.full_like(S, float("nan")), kept.clone()
+                    dissip_step(params, S, S_idle, dt, idle, shear=(slabs, kept_idle))
                     unchanged = torch.equal(S_idle, S) and torch.equal(kept_idle, kept)
                     if eta > 0:
                         kept_want = kept_face_resistive_ct(params, kept, eypl, ezpl, dt)
@@ -1595,12 +1601,13 @@ def phase19(card: str, ot, mri) -> dict:
     """The dissipation kernel at full width on the end states of phases 17
     (periodic, 256^3) and 18 (shear, 128x256x128): its increment and kept
     face against the twin's on the same inputs, its time against the
-    twin's, its stages, and its bound: max(bytes / memory rate, the
-    operations counted by the counting build on a 32^3 block (periodic) or
-    an 8x32x128 block (shear) of the state, scaled / f32 rate)."""
+    twin's, its launch (tile, threads, ring bytes, registers, blocks an
+    SM), and its bound: max(bytes / memory rate, the operations counted
+    by the counting build on a 32^3 block (periodic) or an 8x32x128 block
+    (shear) of the state, scaled / f32 rate)."""
     from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
-    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step, launch_info
     from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs
     from ramsesgpu_tpu_torch.solvers.dissipation import (kept_face_resistive_ct,
                                                           mhd_dissipation_periodic_update,
@@ -1609,6 +1616,7 @@ def phase19(card: str, ot, mri) -> dict:
     from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
 
     lib = load_library("count")
+    lib_cuda = load_library("cuda")
     active = torch.ones((), dtype=torch.bool, device="cuda")
     out = {"ms": {}, "plain_ms": {}, "max_abs_err": {}, "bounds": {}}
     tol = TOL_STEP1["float32"]
@@ -1616,13 +1624,11 @@ def phase19(card: str, ot, mri) -> dict:
     params, S, _t = ot
     name, size = "dissip_step", f"{params.nx}x{params.ny}x{params.nz}"
     dt = dt_from_inv(params, cfl_mhd(params, S))
-    scratch = dissip_step.scratch(params, S)
-    got = dissip_step(params, S.clone(), dt, active, scratch)
-    Sw = S.clone()
-    out["ms"][name] = time_ms(lambda: dissip_step(params, Sw, dt, active, scratch), 10)
-    stages = {"periodic": stage_times(lambda: dissip_step(params, Sw, dt, active, scratch),
-                                      ns="dissip::")}
-    del Sw, scratch
+    got = dissip_step(params, S, torch.empty_like(S), dt, active)
+    Sw = torch.empty_like(S)
+    out["ms"][name] = time_ms(lambda: dissip_step(params, S, Sw, dt, active), 10)
+    launches = {"periodic": launch_info(lib_cuda, params, S.dtype)}
+    del Sw
     torch.cuda.empty_cache()
     want = mhd_dissipation_periodic_update(params, S, dt)
     out["max_abs_err"][name] = float((got - want).abs().max())
@@ -1642,15 +1648,13 @@ def phase19(card: str, ot, mri) -> dict:
     name, size = "dissip_step_shear", f"{params.nx}x{params.ny}x{params.nz}"
     dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
     slabs = shear_slabs(params, S, kept, t, dt)
-    scratch = dissip_step.scratch(params, S)
-    got, kept_got = S.clone(), kept.clone()
-    dissip_step(params, got, dt, active, scratch, shear=(slabs, kept_got))
-    Sw, kw = S.clone(), kept.clone()
-    out["ms"][name] = time_ms(
-        lambda: dissip_step(params, Sw, dt, active, scratch, shear=(slabs, kw)), 10)
-    stages["shear"] = stage_times(
-        lambda: dissip_step(params, Sw, dt, active, scratch, shear=(slabs, kw)), ns="dissip::")
-    del Sw, kw, scratch
+    got, kept_got = torch.empty_like(S), kept.clone()
+    dissip_step(params, S, got, dt, active, shear=(slabs, kept_got))
+    Sw, kw = torch.empty_like(S), kept.clone()
+    out["ms"][name] = time_ms(lambda: dissip_step(params, S, Sw, dt, active, shear=(slabs, kw)),
+                              10)
+    launches["shear"] = launch_info(lib_cuda, params, S.dtype)
+    del Sw, kw
     torch.cuda.empty_cache()
 
     def twin():
@@ -1679,9 +1683,11 @@ def phase19(card: str, ot, mri) -> dict:
     rows[name] = (params, ops * (params.ny * params.nz) / (by * bz), dissip_bytes(params, True),
                   size)
 
-    for mode, st in stages.items():
-        print(f"[19] dissip_step stages, {mode} mode ({card}): {sum(st.values()):.4f} ms: "
-              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(st.items(), key=lambda kv: -kv[1])))
+    for mode, li in launches.items():
+        print(f"[19] dissip_step launch, {mode} mode f32: tile {li['tx']}x{li['ty']}, "
+              f"{li['threads']} threads, rings {li['ring_bytes']} B, {li['registers']} registers "
+              f"a thread, {li['blocks_per_sm']} block(s) an SM (one launch a sub-step, no "
+              f"scratch in device memory)")
     for name, (p, ops, nbytes, size) in rows.items():
         n = p.nx * p.ny * p.nz
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1822,7 +1828,7 @@ def phase20() -> None:
         check_step_comp(f"{tag} mhd_step", S, S_k, mhd_3d_periodic_update(params, S, dt), tol1)
         for cname, (nu, eta) in DISSIP_COEFFS.items():
             p = params.replace(nu=nu, eta=eta)
-            got = dissip_step(p, S_k.clone(), dt, active, scratch)
+            got = dissip_step(p, S_k, torch.empty_like(S_k), dt, active)
             check_equal(f"{tag} dissip_step {cname}", got,
                         mhd_dissipation_periodic_update(p, S_k, dt))
         for cname, (nu, eta) in (("ideal", (0.0, 0.0)),
@@ -1875,9 +1881,8 @@ def phase20() -> None:
                 Sd, keptd = comp_state(Sd, keptd, 22)
                 dtd = dt_from_inv(p, inv_dt_mhd_shear(p, Sd, keptd[0]))
                 slabs = slabs_twin(p, Sd[:8], keptd[0], td + dtd)
-                got, kept_got = Sd.clone(), keptd.clone()
-                dissip_step(p, got, dtd, active, dissip_step.scratch(p, Sd),
-                            shear=(slabs, kept_got))
+                got, kept_got = torch.empty_like(Sd), keptd.clone()
+                dissip_step(p, Sd, got, dtd, active, shear=(slabs, kept_got))
                 want, eypl, ezpl = mhd_dissipation_shear_update(p, Sd, slabs, dtd)
                 kept_want = (kept_face_resistive_ct(p, torch.stack([slabs[1, 5, ..., 0], keptd[1]]),
                                                     eypl, ezpl, dtd) if eta > 0 else keptd)
@@ -2025,7 +2030,7 @@ def phase25(card: str, ot_comp, ot_comp_d, mri_comp, strat) -> dict:
     the state, scaled / f32 rate)."""
     from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
-    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step, launch_info
     from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
     from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs, shear_zslabs
     from ramsesgpu_tpu_torch.solvers.dissipation import mhd_dissipation_periodic_update
@@ -2037,6 +2042,7 @@ def phase25(card: str, ot_comp, ot_comp_d, mri_comp, strat) -> dict:
     from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
 
     lib = load_library("count")
+    lib_cuda = load_library("cuda")
     active = torch.ones((), dtype=torch.bool, device="cuda")
     out = {"ms": {}, "plain_ms": {}, "max_abs_err": {}, "bounds": {}}
     tol = TOL_STEP1["float32"]
@@ -2067,11 +2073,10 @@ def phase25(card: str, ot_comp, ot_comp_d, mri_comp, strat) -> dict:
     # the dissipative sub-step on 16 channels (FMA-free: bitwise)
     params, S, _t = ot_comp_d
     dt = dt_from_inv(params, cfl_mhd(params, S))
-    scratch = dissip_step.scratch(params, S)
-    got = dissip_step(params, S.clone(), dt, active, scratch)
-    Sw = S.clone()
-    out["ms"]["dissip_step_comp"] = time_ms(lambda: dissip_step(params, Sw, dt, active, scratch), 10)
-    del Sw, scratch
+    got = dissip_step(params, S, torch.empty_like(S), dt, active)
+    Sw = torch.empty_like(S)
+    out["ms"]["dissip_step_comp"] = time_ms(lambda: dissip_step(params, S, Sw, dt, active), 10)
+    del Sw
     torch.cuda.empty_cache()
     want = mhd_dissipation_periodic_update(params, S, dt)
     check_equal("25 dissip_step_comp 256^3 f32 state and carry", got, want)
@@ -2088,8 +2093,12 @@ def phase25(card: str, ot_comp, ot_comp_d, mri_comp, strat) -> dict:
     nbytes = dissip_bytes(params, False) + 4 * 2 * changed * n
     out["bounds"]["dissip_step_comp"] = bound("25", "dissip_step_comp", nbytes,
                                               ops / 32 ** 3 * n, "256^3", n)
-    print(f"[25] dissip_step_comp: kernel {out['ms']['dissip_step_comp']:.3f} ms, twin "
-          f"{out['plain_ms']['dissip_step_comp']:.3f} ms (256^3 f32, {card})")
+    li = launch_info(load_library("cuda"), params, S.dtype)
+    print(f"[25] dissip_step_comp: kernel {out['ms']['dissip_step_comp']:.3f} ms against its "
+          f"bound {out['bounds']['dissip_step_comp'][0]:.4f} ms, twin "
+          f"{out['plain_ms']['dissip_step_comp']:.3f} ms (256^3 f32, {card}); tile "
+          f"{li['tx']}x{li['ty']}, {li['threads']} threads, rings {li['ring_bytes']} B, "
+          f"{li['registers']} registers a thread, {li['blocks_per_sm']} block(s) an SM")
 
     # the shear step on 16 channels and the compensated border (the flagship)
     params, S, kept, t, _config = mri_comp
@@ -3467,12 +3476,16 @@ STAGED_STEP_KERNELS = ("mhd::PrimStage", "mhd::PrecursorStage", "mhd::FluxEmfSta
                        "mhd::UpdateStage", "hydro::hydro_step_kernel")
 
 
-# the step kernels' rows (PERF.md section 6) and their names here
-STEP_ROWS = (("A", "mhd_step"), ("A'-compensated", "mhd_step_comp"),
-             ("A'-shear-main", "mhd_step_shear"), ("A'-stratified", "mhd_step_strat"),
-             ("3", "mhd_step_ghosted"), ("4", "mhd_window"), ("12", "zcarry_mhd"),
-             ("12 shear", "zcarry_mhd_shear"), ("A'-hydro / 6", "hydro_step"),
-             ("5", "hydro_step_ghosted"), ("13", "zcarry_hydro"))
+# the rows of the step, dissipation and MHD CFL kernels (PERF.md section
+# 6) and their names here: each kernel's time beside its bound
+ROWS = (("A", "mhd_step"), ("A'-compensated", "mhd_step_comp"),
+        ("A'-shear-main", "mhd_step_shear"), ("A'-stratified", "mhd_step_strat"),
+        ("3", "mhd_step_ghosted"), ("4", "mhd_window"), ("12", "zcarry_mhd"),
+        ("12 shear", "zcarry_mhd_shear"), ("A'-hydro / 6", "hydro_step"),
+        ("5", "hydro_step_ghosted"), ("13", "zcarry_hydro"),
+        ("A'-dissipation / 8", "dissip_step"), ("A'-shear-dissipation / 10", "dissip_step_shear"),
+        ("A'-compensated dissipation", "dissip_step_comp"), ("B", "cfl_mhd"),
+        ("11", "cfl_mhd_shear"), ("CFL of 3", "cfl_mhd_ghosted"), ("CFL of 4", "cfl_mhd_window"))
 
 
 def check_streamed(label: str, kernel: str, rows: dict) -> None:
@@ -3628,7 +3641,7 @@ def main() -> int:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name, (src, rep) in KERNELS.items()
     ]
-    for row, name in STEP_ROWS:
+    for row, name in ROWS:
         ms, (bound_ms, by) = measured["ms"][name], bounds[name]
         print(f"[rows] {row} ({name}): {ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
               f"{ms / bound_ms:.1f}x ({card})")

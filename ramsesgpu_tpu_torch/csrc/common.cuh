@@ -315,6 +315,19 @@ HD void copy_async_wait() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
 #endif
 }
+// the copies this thread started since its last commit form one group
+// (copy_async_commit); copy_async_wait_prior() waits for all its groups but
+// the last, which may run on while the thread computes
+HD void copy_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;" ::: "memory");
+#endif
+}
+HD void copy_async_wait_prior() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+#endif
+}
 
 // A group of a block's threads: threads [first, first + size) of the block
 // as tid 0 .. size-1, with its own named barrier. Its threads stride over

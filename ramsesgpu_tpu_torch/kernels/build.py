@@ -162,22 +162,22 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ramses_cfl_mhd_partials": ([], _I),
     "ramses_mhd_step_scratch_per_cell": ([], ctypes.c_longlong),
-    "ramses_cfl_mhd_f32": ([_P, _P, _P, _I, _I, _I, _P, _P], _I),
-    "ramses_cfl_mhd_f64": ([_P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_cfl_mhd_f32": ([_P] * 4 + [_I] * 3 + [_P, _P], _I),
+    "ramses_cfl_mhd_f64": ([_P] * 4 + [_I] * 3 + [_P, _P], _I),
     "ramses_mhd_step_f32": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
     "ramses_mhd_step_f64": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
     "ramses_mhd_step_ghosted_scratch": ([_I] * 4, ctypes.c_longlong),
     "ramses_mhd_step_ghosted_f32": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
     "ramses_mhd_step_ghosted_f64": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
-    "ramses_cfl_mhd_ghosted_f32": ([_P] * 3 + [_I] * 4 + [ctypes.c_double, _P, _P], _I),
-    "ramses_cfl_mhd_ghosted_f64": ([_P] * 3 + [_I] * 4 + [ctypes.c_double, _P, _P], _I),
-    "ramses_cfl_mhd_ghosted_shear_f32": ([_P] * 3 + [_I] * 4 + [_P, _P], _I),
-    "ramses_cfl_mhd_ghosted_shear_f64": ([_P] * 3 + [_I] * 4 + [_P, _P], _I),
+    "ramses_cfl_mhd_ghosted_f32": ([_P] * 4 + [_I] * 4 + [ctypes.c_double, _P, _P], _I),
+    "ramses_cfl_mhd_ghosted_f64": ([_P] * 4 + [_I] * 4 + [ctypes.c_double, _P, _P], _I),
+    "ramses_cfl_mhd_ghosted_shear_f32": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
+    "ramses_cfl_mhd_ghosted_shear_f64": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
     "ramses_mhd_step_window_scratch": ([_I] * 3, ctypes.c_longlong),
     "ramses_mhd_step_window_f32": ([_P] * 7 + [_I] * 4 + [_P, _P], _I),
     "ramses_mhd_step_window_f64": ([_P] * 7 + [_I] * 4 + [_P, _P], _I),
-    "ramses_cfl_mhd_shear_f32": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
-    "ramses_cfl_mhd_shear_f64": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_cfl_mhd_shear_f32": ([_P] * 5 + [_I] * 3 + [_P, _P], _I),
+    "ramses_cfl_mhd_shear_f64": ([_P] * 5 + [_I] * 3 + [_P, _P], _I),
     "ramses_mhd_step_shear_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
     "ramses_mhd_step_shear_f32": ([_P] * 8 + [_I] * 4 + [_P, _P], _I),
     "ramses_mhd_step_shear_f64": ([_P] * 8 + [_I] * 4 + [_P, _P], _I),
@@ -196,7 +196,7 @@ _SIGNATURES = {
     "ramses_hydro_stream_chunk_depth": ([_I] * 5, _I),
     "ramses_hydro_step_f32": ([_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
     "ramses_hydro_step_f64": ([_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
-    "ramses_dissip_step_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
+    "ramses_dissip_step_launch": ([_I, _I, _I, _I, _P], _I),
     "ramses_dissip_step_f32": ([_P] * 6 + [_I] * 4 + [_P, _P], _I),
     "ramses_dissip_step_f64": ([_P] * 6 + [_I] * 4 + [_P, _P], _I),
     "ramses_zcarry_mhd_ring_bytes": ([_I], ctypes.c_longlong),

@@ -21,6 +21,11 @@ and vy offset, on a rank's ghosted block of the sharded shearing box as it
 stands (JAX parallel/sharded_step.py:551-556 compute_inv_dt_mhd on the
 block). Twin: ``solvers.timestep.inv_dt_mhd_ghosted_shear``.
 
+Each reduction is one launch: the blocks walk whole x rows and the last
+block to finish forms the max from the blocks' partials, through a counter
+in device memory that it sets back to 0 (``workspace``: the partials and
+the counter, allocated once per device and dtype).
+
 A compensated state (``[implementation] compensated``) is [16, nz, ny, nx],
 the state and then its Kahan carry, and a shearing box's kept face [2, nz,
 ny]; the reduction reads channels 0-7 and the face, as the JAX kernel reads
@@ -87,6 +92,22 @@ def check_plane(params: RunParams, S: torch.Tensor, name: str, x: torch.Tensor,
                          f"got {tuple(x.shape)} {x.dtype} on {x.device}")
 
 
+# per (device, dtype): the reduction's per-block partials and the counter of
+# the blocks done, which the kernel sets back to 0 as it ends
+_WORK: dict = {}
+
+
+def workspace(lib, S: torch.Tensor) -> tuple[int, int]:
+    """The pointers of the partials and the counter for a reduction on S's
+    device and dtype: allocated once (the counter zeroed), then reused by
+    every launch on the stream, one after another."""
+    key = (S.device, S.dtype)
+    if key not in _WORK:
+        _WORK[key] = (torch.empty(lib.ramses_cfl_mhd_partials(), dtype=S.dtype, device=S.device),
+                      torch.zeros(1, dtype=torch.int32, device=S.device))
+    return tuple(x.data_ptr() for x in _WORK[key])
+
+
 class CflMhdKernel:
     """``inv = kernel(params, S, kept=None, ghost=0)``: the 0-d device
     tensor max over cells of the MHD inverse time step; with the kept Bx
@@ -119,16 +140,15 @@ class CflMhdKernel:
         if S.device.type != "cuda":
             raise ValueError(f"unsupported device {S.device}")
         lib = load_library("cuda")
-        partial = torch.empty(lib.ramses_cfl_mhd_partials(), dtype=S.dtype, device=S.device)
+        work = workspace(lib, S)
         out = torch.empty((), dtype=S.dtype, device=S.device)
         stream = torch.cuda.current_stream(S.device).cuda_stream
         dims = (params.nx, params.ny, params.nz, param_block(params), stream)
         if kept is None:
-            err = getattr(lib, _FN[S.dtype])(S.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                                             *dims)
+            err = getattr(lib, _FN[S.dtype])(S.data_ptr(), *work, out.data_ptr(), *dims)
         else:
-            err = getattr(lib, _FN_SHEAR[S.dtype])(S.data_ptr(), kept.data_ptr(),
-                                                   partial.data_ptr(), out.data_ptr(), *dims)
+            err = getattr(lib, _FN_SHEAR[S.dtype])(S.data_ptr(), kept.data_ptr(), *work,
+                                                   out.data_ptr(), *dims)
         if err:
             raise RuntimeError(f"cfl_mhd launch failed: CUDA error {err}")
         self.launches += 1
@@ -146,11 +166,10 @@ class CflMhdKernel:
         if U.device.type != "cuda":
             raise ValueError(f"unsupported device {U.device}")
         lib = load_library("cuda")
-        partial = torch.empty(lib.ramses_cfl_mhd_partials(), dtype=U.dtype, device=U.device)
         out = torch.empty((), dtype=U.dtype, device=U.device)
         jet = jet_inv_dt(params)
         err = getattr(lib, _FN_GHOSTED[U.dtype])(
-            U.data_ptr(), partial.data_ptr(), out.data_ptr(), params.nx, params.ny, params.nz,
+            U.data_ptr(), *workspace(lib, U), out.data_ptr(), params.nx, params.ny, params.nz,
             ghost, float("-inf") if jet is None else jet, param_block(params),
             torch.cuda.current_stream(U.device).cuda_stream)
         if err:
@@ -181,10 +200,9 @@ class CflMhdWindowKernel:
         if U.device.type != "cuda":
             raise ValueError(f"unsupported device {U.device}")
         lib = load_library("cuda")
-        partial = torch.empty(lib.ramses_cfl_mhd_partials(), dtype=U.dtype, device=U.device)
         out = torch.empty((), dtype=U.dtype, device=U.device)
         err = getattr(lib, _FN_GHOSTED_SHEAR[U.dtype])(
-            U.data_ptr(), partial.data_ptr(), out.data_ptr(), params.nx, params.ny, params.nz,
+            U.data_ptr(), *workspace(lib, U), out.data_ptr(), params.nx, params.ny, params.nz,
             params.ghost_width, param_block(params),
             torch.cuda.current_stream(U.device).cuda_stream)
         if err:

@@ -9,7 +9,8 @@ CFL kernel (kernels/cfl_mhd.py) and the step kernel (kernels/mhd_step.py)
 through the shared chunk loop (kernels/loop.py); with nu > 0 or eta > 0
 also the dissipation kernel (kernels/dissip_step.py) on the updated state,
 whose index wrap is the inter-phase refill (the JAX loop's second
-packed-io launch, pallas/fused_mhd3d.py:457-463). A compensated run
+packed-io launch, pallas/fused_mhd3d.py:457-463), writing the new state
+into the other of two state buffers, which take turns. A compensated run
 carries [16, nz, ny, nx], the state and its Kahan carry (TPU row
 A′-compensated, pallas/fused_mhd3d.py:247-259): pack appends a zero
 carry, unpack drops it.
@@ -19,7 +20,8 @@ the streamed step instead (kernels/zcarry_mhd3d.py: one launch, no stage
 buffer, the state in two buffers that take turns), which folds the next
 step's CFL into the step where there is no dissipation; a dissipative run
 keeps the separate CFL launch, as the JAX loop does, because the folded
-reduction would see the state before the dissipation kernel.
+reduction would see the state before the dissipation kernel, whose output
+goes back into the step's input buffer (no third buffer).
 
 Walls (any mix of DIRICHLET / NEUMANN / PERIODIC faces that is not fully
 periodic) and the inflow jet take the ghosted route, the JAX package's
@@ -101,31 +103,37 @@ def unpack(params: RunParams, S) -> torch.Tensor:
 
 def bind_step(params: RunParams, S):
     """``step(S, dt, active, t) -> (S', inv)`` (kernels/loop.py) with the
-    buffers for S's shape: the staged step on S in place, whose stage
-    buffer the dissipation kernel reuses, idle by then on the same stream;
-    or, with kernel=zcarry, the streamed step into the other buffer, the
-    dissipation kernel with its own scratch, and the folded inverse dt
-    where there is no dissipation."""
+    buffers for S's shape: the staged step on S in place (dissipative: then
+    the dissipation kernel from S into the other buffer, the two taking
+    turns); or, with kernel=zcarry, the streamed step into the other buffer
+    and the folded inverse dt (dissipative: the dissipation kernel from
+    that buffer back into S, and no folded reduction)."""
     dissip = uses_dissipation(params)
     if params.kernel == "zcarry":
-        dscratch = dissip_step.scratch(params, S) if dissip else None
+        if not dissip:
+            return streamed_step(S, lambda S, out, dt, active, t: zcarry_mhd(
+                params, S, out, dt, active, fold=True))
+        other = torch.empty_like(S)
 
-        def step_into(S, out, dt, active, t):
-            inv = zcarry_mhd(params, S, out, dt, active, fold=not dissip)
-            if dissip:
-                dissip_step(params, out, dt, active, dscratch)
-            return inv
+        def step(S, dt, active, t):
+            zcarry_mhd(params, S, other, dt, active, fold=False)
+            dissip_step(params, other, S, dt, active)
+            return S, None
 
-        return streamed_step(S, step_into)
+        return step
     scratch = mhd_step.scratch(params, S)
+    if not dissip:
+        def step(S, dt, active, t):
+            mhd_step(params, S, dt, active, scratch)
+            return S, None
 
-    def step(S, dt, active, t):
+        return step
+
+    def step_into(S, out, dt, active, t):
         mhd_step(params, S, dt, active, scratch)
-        if dissip:
-            dissip_step(params, S, dt, active, scratch)
-        return S, None
+        dissip_step(params, S, out, dt, active)
 
-    return step
+    return streamed_step(S, step_into)
 
 
 def make_ghosted_step_fn(params: RunParams, device) -> Callable:

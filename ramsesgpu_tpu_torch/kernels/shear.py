@@ -13,8 +13,9 @@ corrections and kept-face CT (kernels/shear_border.py). A dissipative run
 (nu > 0 or eta > 0) launches two more: the slabs again at t + dt, from the
 updated state, and the dissipation kernel's shearing-box mode, which also
 takes the kept face's resistive CT (kernels/dissip_step.py; the JAX loop's
-pallas/shear_packed.py:1178-1203). The device t feeds the slabs and the
-remap, so a chunk makes no host sync.
+pallas/shear_packed.py:1178-1203); it writes the new state into the other
+of two state buffers, which take turns. The device t feeds the slabs and
+the remap, so a chunk makes no host sync.
 
 Compensated (``[implementation] compensated``): S is [16, nz, ny, nx] (the
 state, then its Kahan carry) and kept [2, nz, ny] (the face, then its
@@ -28,7 +29,8 @@ g_z, one value per z row (``gz``, the run's gravity field column).
 ``[implementation] kernel=zcarry`` (pallas/shear_packed.py:880-895) runs
 the streamed step kernel's shear modes (kernels/zcarry_mhd3d.py) as the
 main kernel: the same slabs, border and CFL launches around it, the state
-in two buffers that take turns (kept stays one), no stage buffer.
+in two buffers that take turns (kept stays one), no stage buffer; a
+dissipative run's sub-step writes back into the step's input buffer.
 
 ``[implementation] stripFused`` (the JAX package's fused border strip,
 pallas/shear_packed.py:432, its default for a dissipative MRI when
@@ -97,19 +99,18 @@ def unpack(params: RunParams, state, t: torch.Tensor) -> torch.Tensor:
 def bind_step(params: RunParams, state, gz: torch.Tensor | None = None) -> Callable:
     """The shearing-box step with its buffers for this state's shapes:
     ``step(state, dt, active, t) -> (state', None)`` advances (S, kept)
-    from t (kernels/loop.py): in place, or, with kernel=zcarry, into S's
-    other buffer (kept is updated in place either way). ``gz``: g_z of each
-    z row [nz + 6], for stratified z faces."""
+    from t (kernels/loop.py): in place; into S's other buffer with
+    kernel=zcarry or with nu / eta (the dissipation kernel writes into it
+    after the staged step); both, and back into S, with kernel=zcarry and
+    nu / eta. kept is updated in place. ``gz``: g_z of each z row [nz +
+    6], for stratified z faces."""
     S = state[0]
     strat = uses_stratified_z(params)
     if strat and (gz is None or tuple(gz.shape) != (params.nz + 2 * SLAB,)):
         raise ValueError("stratified z faces need gz, g_z of each z row [nz + 6]")
     dissip = uses_dissipation(params)
     streamed = params.kernel == "zcarry"
-    if streamed:
-        scratch = dissip_step.scratch(params, S) if dissip else None
-    else:
-        scratch = mhd_step.scratch(params, S)
+    scratch = None if streamed else mhd_step.scratch(params, S)
     slabs = torch.empty((2, 8, params.nz, params.ny, SLAB), dtype=S.dtype, device=S.device)
     planes = torch.zeros((NPLANE, params.nz, params.ny), dtype=S.dtype, device=S.device)
     remapped = torch.zeros((4, params.nz, params.ny), dtype=S.dtype, device=S.device)
@@ -129,16 +130,34 @@ def bind_step(params: RunParams, state, gz: torch.Tensor | None = None) -> Calla
         else:
             mhd_step(params, S, dt, active, scratch, shear=shear)
         shear_border(params, out, kept, planes, t, dt, active, remapped)
-        if dissip:
-            # the sheared refill at t + dt from the updated state before the
-            # dissipative sub-step (MHDRunGodunov.cpp:1968-1976); its
-            # scratch (the staged step's stage buffer) is idle by then
-            shear_slabs(params, out, kept, t, dt, out=slabs)
-            dissip_step(params, out, dt, active, scratch, shear=(slabs, kept))
 
-    if streamed:
-        return streamed_step(state, lambda st, out, dt, active, t: step_into(
-            st[0], st[1], out, dt, active, t))
+    def dissip_into(S, kept, out, dt, active, t):
+        # the sheared refill at t + dt from the updated state S before the
+        # dissipative sub-step into out (MHDRunGodunov.cpp:1968-1976)
+        shear_slabs(params, S, kept, t, dt, out=slabs)
+        dissip_step(params, S, out, dt, active, shear=(slabs, kept))
+
+    if streamed and dissip:
+        # the step into the other buffer, the sub-step back into S
+        other = torch.empty_like(S)
+
+        def step(state, dt, active, t):
+            step_into(state[0], state[1], other, dt, active, t)
+            dissip_into(other, state[1], state[0], dt, active, t)
+            return state, None
+
+        return step
+    if streamed or dissip:
+        # the streamed step, or the staged step in place and the sub-step
+        # into the other buffer: the two buffers take turns
+        def into(st, out, dt, active, t):
+            if streamed:
+                step_into(st[0], st[1], out, dt, active, t)
+            else:
+                step_into(st[0], st[1], st[0], dt, active, t)
+                dissip_into(st[0], st[1], out, dt, active, t)
+
+        return streamed_step(state, into)
 
     def step(state, dt, active, t):
         step_into(state[0], state[1], state[0], dt, active, t)

@@ -3,11 +3,13 @@ NVIDIA GPU. Run from the root of a checkout.
 
     python3 scripts/torch_ab.py trees A B   # two checkouts, in turns A, B, B, A
     python3 scripts/torch_ab.py fmad        # mhd_step.cu with and without -fmad=false
-    python3 scripts/torch_ab.py parent P    # the step kernels of this checkout against P's
+    python3 scripts/torch_ab.py parent P [PART...]  # the kernels of this checkout against P's
     python3 scripts/torch_ab.py zcarry T... # row 12 of this checkout against the checkouts T
     python3 scripts/torch_ab.py hydro T...  # the hydro step kernels against the checkouts T
     python3 scripts/torch_ab.py clocks      # row 12's phases in cycles, per warp group
     python3 scripts/torch_ab.py clocks hydro  # the hydro body's phases, likewise
+    python3 scripts/torch_ab.py clocks dissip # the dissipation kernel's phases
+    python3 scripts/torch_ab.py kernels T...  # dissip_step.cu, cfl_mhd.cu against the checkouts T
 
 ``trees``: runs chip_smoke.py's build (phase 2) and main paths 5 (MHD OT
 256^3), 13 (MRI 128x256x128, compensated=no) and 17 (OT dissipative) of
@@ -34,6 +36,14 @@ hydro interface (the staged kernel, which updates in place through a stage
 buffer) is compared on the same inputs: bitwise or in ULP at 72^3, f32 and
 f64, then each mode's time at 256^3 in f32 and f64, P, this, this, P.
 
+Then (PART dissip) every mode and coefficient set of csrc/dissip_step.cu and
+(PART cfl) every mode of csrc/cfl_mhd.cu (a NaN cell too), through each
+library's own C entry points (a parent with the staged dissipation kernel
+or the two-launch CFL is compared on the same inputs): bitwise or in ULP
+at 72^3-sized grids, f32 and f64, then each mode's time at the main paths'
+sizes, P, this, this, P. PART: any of step, hydro, dissip, cfl (default:
+all four).
+
 ``hydro T...``: the hydro modes of ``parent`` at 256^3, f32 and f64, this
 checkout against the checkouts T (ULP, then the times in turns this, T...,
 T... reversed, this). For trying a variant of the streamed hydro body (its
@@ -58,6 +68,16 @@ build against the package's, timed in turns, for the counters' cost.
 csrc/hydro_step.cu and csrc/zcarry_hydro.cu built with the flag), one
 launch of each hydro mode at 256^3, f32 and f64, untimed (row 12's
 counters cost nothing measurable).
+
+``kernels T...``: csrc/dissip_step.cu and csrc/cfl_mhd.cu of this checkout
+against the checkouts T, every mode at the main paths' sizes, f32 and f64
+(ULP, then the times in turns this, T..., T... reversed, this). For trying
+a variant (a Tile or CflTile constant): unpack a copy of the checkout into
+a directory that .gitignore lists and edit it there.
+
+``clocks dissip``: csrc/dissip_step.cu built with -DRAMSES_ZCARRY_CLOCKS,
+one launch of each mode at the main paths' sizes, f32 and f64: block 0's
+thread 0 prints the cycles of each phase, its barrier included.
 
 ``fmad``: the periodic step at 256^3 f32, plain and compensated, launched
 in turns (default, variant, variant, default) from the package's library
@@ -476,6 +496,167 @@ def hydro_cases(cs, dtype: str, n: int):
     yield "zcarry_hydro", folded()
 
 
+def dissip_cases(cs, dtype: str, full: bool):
+    """(name, run) of every mode of csrc/dissip_step.cu (periodic plain and
+    compensated, shear isothermal and adiabatic, plain and compensated) and
+    coefficient set (``full``: the main paths' sets, at their sizes):
+    run(lib) launches one sub-step through lib's C entry points and
+    returns (outputs, a relaunch for timing). A library with
+    ramses_dissip_step_scratch has the staged kernel (in place, through a
+    scratch buffer); else the one-launch kernel (S into another buffer)."""
+    import torch
+    from ramsesgpu_tpu_torch.kernels.build import param_block
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.solvers.shear import shear_slabs
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
+
+    sfx = "f64" if dtype == "float64" else "f32"
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    n, mri = (256, (128, 256, 128)) if full else (72, (40, 72, 24))
+
+    def case(params, S, slabs=None, kept=None):
+        plain = params.replace(compensated=False)
+        face = None if kept is None else (kept[0] if params.compensated else kept)
+        dt = dt_from_inv(params, cfl_mhd(plain, S[:8], kept=face))
+
+        def run(lib):
+            fn = getattr(lib, f"ramses_dissip_step_{sfx}")
+            dims = (params.nx, params.ny, params.nz)
+            staged = hasattr(lib, "ramses_dissip_step_scratch")
+            out = S.clone() if staged else torch.empty_like(S)
+            third = (torch.empty(lib.ramses_dissip_step_scratch(*dims, int(slabs is not None)),
+                                 dtype=S.dtype, device="cuda") if staged else out)
+            kept_w = None if kept is None else kept.clone()
+
+            def go():
+                err = fn((out if staged else S).data_ptr(), third.data_ptr(),
+                         None if slabs is None else slabs.data_ptr(),
+                         None if kept is None else kept_w.data_ptr(), dt.data_ptr(),
+                         active.data_ptr(), int(params.compensated), *dims,
+                         param_block(params), stream)
+                if err:
+                    raise RuntimeError(f"dissip_step launch failed: CUDA error {err}")
+            go()
+            return (out.clone(),) + (() if kept is None else (kept_w.clone(),)), go
+        return run
+
+    coeffs = ({"nu=2e-3 eta=1e-3": cs.DISSIP_COEFFS["nu=2e-3 eta=1e-3"]} if full else
+              {k: v for k, v in cs.DISSIP_COEFFS.items() if k != "nu=4e-5 eta=1e-5"})
+    for cname, (nu, eta) in coeffs.items():
+        params, S = cs.setup(n, dtype)
+        params = params.replace(nu=nu, eta=eta)
+        size = f"{n}^3"
+        yield f"dissip_step periodic {size} {cname}", case(params, S)
+        yield (f"dissip_step periodic compensated {size} {cname}",
+               case(params.replace(compensated=True), cs.with_carry(S, 20)))
+        del S
+    size = "x".join(map(str, mri))
+    coeffs = {"nu=4e-5 eta=1e-5": cs.DISSIP_COEFFS["nu=4e-5 eta=1e-5"]} if full else coeffs
+    for ciso in (1.0,) if full else (1.0, 0.0):
+        for cname, (nu, eta) in coeffs.items():
+            for comp in (False, True):
+                p, S, kept, t0 = cs.dissip_mri(*mri, dtype, ciso, nu, eta, True)
+                if comp:
+                    p = p.replace(compensated=True)
+                    S, kept = cs.comp_state(S, kept[None], 22)
+                face = kept[0] if comp else kept
+                dt = dt_from_inv(p, cfl_mhd(p.replace(compensated=False), S[:8], kept=face))
+                slabs = shear_slabs(p, S[:8], face, t0 + dt).contiguous()
+                yield (f"dissip_step shear cIso={ciso}{' compensated' if comp else ''} {size} "
+                       f"{cname}", case(p, S, slabs, kept))
+                del S, kept, slabs
+
+
+def cfl_cases(cs, dtype: str, full: bool):
+    """(name, run) of every mode of csrc/cfl_mhd.cu (periodic, shear,
+    stratified shear, ghosted with and without a floor, ghosted shear; a
+    NaN cell in the periodic and shear modes): run(lib) launches one
+    reduction through lib's C entry points and returns ((inv,), a relaunch
+    for timing). A parent whose entry points take no block counter runs the
+    two-launch reduction."""
+    import torch
+    from ramsesgpu_tpu_torch.kernels import fused_mhd3d, shear
+    from ramsesgpu_tpu_torch.kernels.build import param_block
+
+    sfx = "f64" if dtype == "float64" else "f32"
+    stream = torch.cuda.current_stream().cuda_stream
+    n, mri, window = (256, (128, 256, 128), (64, 128, 128)) if full else (72, (40, 72, 24),
+                                                                         (20, 36, 24))
+
+    def case(entry, params, S, *args, ghost=0, floor=None):
+        def run(lib):
+            fn = getattr(lib, f"ramses_cfl_mhd_{entry}{sfx}")
+            partial = torch.empty(lib.ramses_cfl_mhd_partials(), dtype=S.dtype, device="cuda")
+            work = [partial.data_ptr()]
+            count = torch.zeros(1, dtype=torch.int32, device="cuda")
+            if len(fn.argtypes) > 8 + len(args) + bool(ghost) + (floor is not None):
+                work.append(count.data_ptr())
+            out = torch.empty((), dtype=S.dtype, device="cuda")
+            tail = (params.nx, params.ny, params.nz) + ((ghost,) if ghost else ()) + (
+                () if floor is None else (floor,)) + (param_block(params), stream)
+
+            def go():
+                err = fn(S.data_ptr(), *(a.data_ptr() for a in args), *work, out.data_ptr(),
+                         *tail)
+                if err:
+                    raise RuntimeError(f"cfl_mhd launch failed: CUDA error {err}")
+            go()
+            return (out.clone(),), go
+        return run
+
+    params, S = cs.setup(n, dtype)
+    yield f"cfl_mhd periodic {n}^3", case("", params, S)
+    U = fused_mhd3d.unpack(params, S).contiguous()
+    g = params.ghost_width
+    yield f"cfl_mhd ghosted {n}^3", case("ghosted_", params, U, ghost=g, floor=float("-inf"))
+    yield (f"cfl_mhd ghosted {n}^3, floor 1e6", case("ghosted_", params, U, ghost=g,
+                                                     floor=1e6))
+    if not full:
+        S_nan = S.clone()
+        S_nan[1, 3, 5, 7] = float("nan")
+        yield f"cfl_mhd periodic {n}^3 NaN cell", case("", params, S_nan)
+    del S, U
+    size = "x".join(map(str, mri))
+    for ini in (cs.MRI_INI, cs.STRAT_INI):
+        params, _config, (S, kept) = cs.mri_setup(*mri, dtype, ini=ini)
+        yield f"cfl_mhd shear {ini} {size}", case("shear_", params, S, kept)
+        if not full and ini == cs.MRI_INI:
+            S_nan = S.clone()
+            S_nan[0, 2, 3, params.nx - 1] = float("nan")
+            yield f"cfl_mhd shear {size} NaN cell", case("shear_", params, S_nan, kept)
+    params, _config, (S, kept) = cs.mri_setup(*window, dtype)
+    U = shear.unpack(params, (S, kept), cs.shear_t0(params, S.dtype)).contiguous()
+    yield (f"cfl_mhd ghosted shear {'x'.join(map(str, window))}",
+           case("ghosted_shear_", params, U, ghost=params.ghost_width))
+
+
+def kernel_turns(cs, cases, libs: dict, order: list, card: str, tag: str, reps: int) -> None:
+    """Each case of ``cases`` (dissip_cases, cfl_cases): each library's
+    outputs against the first's of ``order`` (bitwise, else ULP), then the
+    times in the turns of ``order`` (CUDA events, ``reps`` launches)."""
+    import torch
+
+    first = order[0]
+    for name, run in cases:
+        outs, times = {}, []
+        for who in order:
+            got, again = run(libs[who])
+            outs.setdefault(who, got)
+            times.append((who, cs.time_ms(again, reps)))
+            del got, again
+        diffs = "; ".join(
+            f"{who}: " + ("bitwise equal" if all(d[0] == 0 for d in ds) else
+                          "outputs differ " + ", ".join(f"{d[0]} elements up to {d[1]:.2f} ULP"
+                                                        for d in ds))
+            for who in outs if who != first
+            for ds in [[ulp_diff(t, p) for t, p in zip(outs[who], outs[first])]])
+        print(f"[{tag}] {name} ({card}): against {first}: {diffs}; "
+              + ", ".join(f"{who} {ms:.4f} ms" for who, ms in times), flush=True)
+        del outs
+        torch.cuda.empty_cache()
+
+
 def hydro_turns(cs, libs: dict, order: list, card: str, tag: str) -> None:
     """The hydro modes at 256^3, f32 and f64: each library's new state
     against the first's (ULP), then the times in the turns of ``order``
@@ -514,7 +695,7 @@ def tree_library(tree: str, tag: str):
     return mod.load_library("cuda")
 
 
-def parent(tree: str) -> None:
+def parent(tree: str, parts: list) -> None:
     import torch
 
     sys.path.insert(0, str(REPO))
@@ -527,6 +708,26 @@ def parent(tree: str) -> None:
 
     card = cs.card_line()
     libs = {"parent": tree_library(tree, "parent"), "this": b.load_library("cuda")}
+    parts = parts or ["step", "hydro", "dissip", "cfl"]
+    # the dissipation and MHD CFL kernels: every mode bitwise or in ULP at
+    # 72^3-sized grids (partial tiles and rows), f32 and f64, then in turns
+    # at the main paths' sizes
+    turns = ["parent", "this", "this", "parent"]
+    if "dissip" in parts:
+        for dtype in ("float32", "float64"):
+            kernel_turns(cs, dissip_cases(cs, dtype, False), libs, turns, card, "parent", 3)
+        for dtype in ("float32", "float64"):
+            kernel_turns(cs, dissip_cases(cs, dtype, True), libs, turns, card, "parent", 10)
+    if "cfl" in parts:
+        for dtype in ("float32", "float64"):
+            kernel_turns(cs, cfl_cases(cs, dtype, False), libs, turns, card, "parent", 3)
+        for dtype in ("float32", "float64"):
+            kernel_turns(cs, cfl_cases(cs, dtype, True), libs, turns, card, "parent", 50)
+    if "step" not in parts and "hydro" not in parts:
+        return
+    if "step" not in parts:
+        hydro_turns(cs, libs, ["parent", "this", "this", "parent"], card, "parent")
+        return
     print(f"[parent] {card}; stage buffer values per cell: parent "
           f"{libs['parent'].ramses_mhd_step_scratch_per_cell()}, this "
           f"{libs['this'].ramses_mhd_step_scratch_per_cell()}", flush=True)
@@ -572,6 +773,8 @@ def parent(tree: str) -> None:
             torch.cuda.empty_cache()
         print(f"[parent] {name} f32 (main path size; {card}): "
               + ", ".join(f"{who} {ms:.3f} ms" for who, ms in times), flush=True)
+    if "hydro" not in parts:
+        return
     # the hydro step kernels: bitwise at 72^3 (partial x tiles), then in turns
     for dtype in ("float32", "float64"):
         for name, run in hydro_cases(cs, dtype, 72):
@@ -617,6 +820,57 @@ def zcarry(others: list) -> None:
         torch.cuda.empty_cache()
 
 
+def kernels(others: list) -> None:
+    """csrc/dissip_step.cu and csrc/cfl_mhd.cu of this checkout and of the
+    checkouts ``others`` (variants: another tile, threads or cells in
+    flight), every mode at the main paths' sizes, f32 and f64: each one's
+    outputs against this one's (ULP), then the times in turns this,
+    others, others reversed, this."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from ramsesgpu_tpu_torch.kernels import build as b
+
+    card = cs.card_line()
+    libs = {"this": b.load_library("cuda"),
+            **{t: tree_library(t, f"tree{i}") for i, t in enumerate(others)}}
+    order = ["this", *others, *reversed(others), "this"]
+    for dtype in ("float32", "float64"):
+        kernel_turns(cs, dissip_cases(cs, dtype, True), libs, order, card, "kernels", 10)
+        kernel_turns(cs, cfl_cases(cs, dtype, True), libs, order, card, "kernels", 50)
+
+
+def clocks_dissip() -> None:
+    """The dissipation kernel's phases: csrc/dissip_step.cu built on its own
+    with -DRAMSES_ZCARRY_CLOCKS, one launch of each mode at the main paths'
+    sizes, f32 and f64: block 0's thread 0 prints the cycles of each phase
+    of its planes, the block barrier that ends it included."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from ramsesgpu_tpu_torch.kernels import build as b
+
+    card = cs.card_line()
+    nvcc = b.find_nvcc()
+    work = Path(tempfile.mkdtemp(dir=b.build_dir()))
+    obj, path = work / "dissip_step.o", work / "libdissip_clocks.so"
+    for cmd in ([nvcc, *b.compile_flags("cuda", "dissip_step.cu"), "-DRAMSES_ZCARRY_CLOCKS",
+                 "-o", str(obj), str(b.CSRC / "dissip_step.cu")],
+                [nvcc, *b.LINK_FLAGS, "-o", str(path), str(obj)]):
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(path))
+    for name, (args, res) in b._SIGNATURES.items():
+        if name.startswith("ramses_dissip_step"):
+            getattr(lib, name).argtypes, getattr(lib, name).restype = args, res
+    for dtype in ("float32", "float64"):
+        for name, run in dissip_cases(cs, dtype, True):
+            print(f"[clocks] {name} {dtype} ({card}): one launch", flush=True)
+            _outs, _again = run(lib)
+            torch.cuda.synchronize()
+            del _outs, _again
+            torch.cuda.empty_cache()
+
+
 def hydro(others: list) -> None:
     """The hydro step kernels of this checkout and of the checkouts
     ``others`` at 256^3, in turns this, others, others reversed, this."""
@@ -637,13 +891,17 @@ if __name__ == "__main__":
         zcarry(sys.argv[2:])
     elif sys.argv[1:2] == ["hydro"] and len(sys.argv) >= 3:
         hydro(sys.argv[2:])
-    elif sys.argv[1:2] == ["parent"] and len(sys.argv) == 3:
-        parent(sys.argv[2])
+    elif sys.argv[1:2] == ["parent"] and len(sys.argv) >= 3:
+        parent(sys.argv[2], sys.argv[3:])
     elif sys.argv[1:] == ["fmad"]:
         fmad()
     elif sys.argv[1:] == ["clocks"]:
         clocks()
     elif sys.argv[1:] == ["clocks", "hydro"]:
         clocks_hydro()
+    elif sys.argv[1:] == ["clocks", "dissip"]:
+        clocks_dissip()
+    elif sys.argv[1:2] == ["kernels"] and len(sys.argv) >= 3:
+        kernels(sys.argv[2:])
     else:
         sys.exit(__doc__)

@@ -456,7 +456,6 @@ def test_csrc_host_build_matches_dissip_twins(dtype):
             S = interior(params, U).contiguous()
             kept = U[IA, 3:-3, 3:-3, nx + 3].contiguous()
             shear = problem == "mri"
-            scratch = torch.empty(lib.ramses_dissip_step_scratch(*dims, int(shear)), dtype=tdt)
             if shear:
                 slabs = shear_slabs(params, S, kept, torch.tensor(t_start(params), dtype=tdt))
                 want, eypl, ezpl = mhd_dissipation_shear_update(params, S, slabs, dt)
@@ -468,9 +467,9 @@ def test_csrc_host_build_matches_dissip_twins(dtype):
             label = f"{problem} cIso={ciso} nu={nu} eta={eta}"
             for active in (False, True):
                 flag = torch.tensor(active)
-                got, kept_got = S.clone(), kept.clone()
+                got, kept_got = torch.full_like(S, float("nan")), kept.clone()
                 ptrs = ((slabs.data_ptr(), kept_got.data_ptr()) if shear else (None, None))
-                assert fn(got.data_ptr(), scratch.data_ptr(), *ptrs, dt.data_ptr(),
+                assert fn(S.data_ptr(), got.data_ptr(), *ptrs, dt.data_ptr(),
                           flag.data_ptr(), 0, *dims, blk, None) == 0
                 if not active:
                     assert torch.equal(got, S) and torch.equal(kept_got, kept), label
@@ -480,6 +479,89 @@ def test_csrc_host_build_matches_dissip_twins(dtype):
                     assert rel(kept_got - kept, kept_want - kept) <= TOL_HOST[dtype], label
                 else:
                     assert torch.equal(kept_got, kept), label
+
+
+# shapes where csrc/dissip_step.cu's tiling meets trouble: no multiple of
+# its x or y tile (f32 32 x 8, f64 16 x 8), and an axis shorter than its z
+# halo of two planes (nz = 2; ny = 3)
+EDGE_SHAPES = [(37, 11, 2), (21, 13, 5), (40, 3, 2)]
+
+
+def mesh_ini(text: str, nx: int, ny: int, nz: int) -> str:
+    """An INI text with its [mesh] extent set to nx x ny x nz (the cell
+    sizes follow)."""
+    import re
+
+    for axis, n in (("nx", nx), ("ny", ny), ("nz", nz)):
+        text = re.sub(rf"^{axis}=\d+$", f"{axis}={n}", text, count=1, flags=re.M)
+    return text
+
+
+@pytest.mark.parametrize("comp", [False, True], ids=["plain", "compensated"])
+@pytest.mark.parametrize("mode", ["periodic", "shear"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_csrc_host_build_dissip_edge_tiles(dtype, mode, comp):
+    """csrc/dissip_step.cu built with g++ on EDGE_SHAPES, adiabatic with nu
+    and eta: the new state against the twin's (the increment within
+    TOL_HOST; compensated, the state and carry bitwise, the code being
+    FMA-free), the kept face's change likewise, S untouched; an inactive
+    sub-step writes S itself into S_out, bitwise, and leaves the kept face."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+    from ramsesgpu_tpu_torch.solvers.boundary import interior
+    from ramsesgpu_tpu_torch.solvers.dissipation import (kept_face_resistive_ct,
+                                                          mhd_dissipation_periodic_update,
+                                                          mhd_dissipation_shear_update)
+    from ramsesgpu_tpu_torch.solvers.shear import shear_slabs
+
+    lib = load_library("host")
+    tdt = torch.float32 if dtype == "float32" else torch.float64
+    fn = getattr(lib, f"ramses_dissip_step_{'f32' if dtype == 'float32' else 'f64'}")
+    rng = np.random.default_rng(21)
+    dt = torch.tensor(0.01, dtype=tdt)
+    shear = mode == "shear"
+
+    def rel(a, b):
+        return float(torch.linalg.norm((a - b).flatten()) / torch.linalg.norm(b.flatten()))
+
+    for nx, ny, nz in EDGE_SHAPES:
+        text = ini("mri", dtype, "adiabatic") if shear else ini("ot", dtype)
+        params = params_from_config(ConfigMap(text=mesh_ini(text, nx, ny, nz))).replace(
+            compensated=comp)
+        U = torch.from_numpy(random_state(params, rng, dtype))
+        S = interior(params, U).contiguous()
+        kept = U[IA, 3:-3, 3:-3, nx + 3].contiguous()
+        if comp:
+            eps = torch.finfo(tdt).eps
+            S = torch.cat([S, eps * S * torch.from_numpy(rng.standard_normal(S.shape)).to(tdt)])
+            kept = torch.stack([kept, eps * kept * torch.from_numpy(
+                rng.standard_normal(kept.shape)).to(tdt)])
+        face = kept[0] if comp else kept
+        if shear:
+            slabs = shear_slabs(params, S[:8], face, torch.tensor(t_start(params), dtype=tdt))
+            want, eypl, ezpl = mhd_dissipation_shear_update(params, S, slabs, dt)
+            old = torch.stack([slabs[1, IA, ..., 0], kept[1]]) if comp else slabs[1, IA, ..., 0]
+            kept_want = kept_face_resistive_ct(params, old, eypl, ezpl, dt)
+        else:
+            want = mhd_dissipation_periodic_update(params, S, dt)
+        label = f"{mode} {dtype} {nx}x{ny}x{nz}"
+        S_in = S.clone()
+        for active in (True, False):
+            got, kept_got = torch.full_like(S, float("nan")), kept.clone()
+            ptrs = (slabs.data_ptr(), kept_got.data_ptr()) if shear else (None, None)
+            assert fn(S.data_ptr(), got.data_ptr(), *ptrs, dt.data_ptr(),
+                      torch.tensor(active).data_ptr(), int(comp), nx, ny, nz,
+                      param_block(params), None) == 0
+            assert torch.equal(S, S_in), label
+            if not active:
+                assert torch.equal(got, S) and torch.equal(kept_got, kept), label
+            elif comp:
+                assert torch.equal(got, want), label
+                if shear:
+                    assert torch.equal(kept_got, kept_want), label
+            else:
+                assert rel(got - S, want - S) <= TOL_HOST[dtype], label
+                if shear:
+                    assert rel(kept_got - kept, kept_want - kept) <= TOL_HOST[dtype], label
 
 
 # -------------------------------------------------------------------------

@@ -341,8 +341,8 @@ def test_window_host_build_matches_twin(kind, jax_refs):
     lib = load_library("host")
     dims, g = (lp.nx, lp.ny, lp.nz), lp.ghost_width
     inv = torch.zeros((), dtype=W.dtype)
-    assert lib.ramses_cfl_mhd_ghosted_shear_f64(W.data_ptr(), None, inv.data_ptr(), *dims, g,
-                                                param_block(lp), None) == 0
+    assert lib.ramses_cfl_mhd_ghosted_shear_f64(W.data_ptr(), None, None, inv.data_ptr(), *dims,
+                                                g, param_block(lp), None) == 0
     inv_ref = inv_dt_mhd_ghosted_shear(lp, W)
     assert torch.equal(inv, inv_ref)
     dt = dt_from_inv(lp, inv_ref)

@@ -479,7 +479,7 @@ def test_csrc_host_build_matches_shear_twins(dtype):
 
         inv = torch.zeros((), dtype=tdt)
         assert getattr(lib, f"ramses_cfl_mhd_shear_{sfx}")(
-            S0.data_ptr(), kept0.data_ptr(), None, inv.data_ptr(), *dims, blk, None) == 0
+            S0.data_ptr(), kept0.data_ptr(), None, None, inv.data_ptr(), *dims, blk, None) == 0
         inv_ref = inv_dt_mhd_shear(params, S0, kept0)
         assert abs(float(inv) - float(inv_ref)) <= TOL_HOST[dtype] * float(inv_ref), ciso
         dt = dt_from_inv(params, inv_ref)

@@ -28,6 +28,8 @@ from ramsesgpu_tpu.core.constants import IA, IB, IC, ID, IP
 
 torch.set_num_threads(2)
 
+REPO = Path(__file__).resolve().parent.parent
+
 OT3D_INI = """
 [run]
 tend={tend}
@@ -271,6 +273,85 @@ def test_divb_and_conservation():
 TOL_HOST = {"float32": 1e-6, "float64": 1e-13}
 
 
+# every mode of csrc/cfl_mhd.cu on a shape that is no multiple of its row
+# split (a warp takes a row, a lane 4 cells 32 apart): the mode, its input
+# (an INI text or a shipped input) and whether its state is ghosted
+CFL_MODES = {"periodic": ("ot", False), "shear": ("data/mhd_mri_3d.ini", False),
+             "stratified": ("data/mhd_mri_3d_stratified.ini", False),
+             "ghosted": ("ot", True), "ghosted_shear": ("data/mhd_mri_3d.ini", True)}
+
+
+@pytest.mark.parametrize("mode", list(CFL_MODES))
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_csrc_host_build_cfl_mhd_modes(dtype, mode):
+    """csrc/cfl_mhd.cu built with g++, each mode at 37x11x5 (and 133x3x2:
+    rows longer than a warp's 128 cells) on a random physical state against
+    its twin (TOL_HOST); a NaN cell makes the result NaN."""
+    import re
+
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap as PortConfigMap
+    from ramsesgpu_tpu_torch.config.params import params_from_config as port_params
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+    from ramsesgpu_tpu_torch.solvers.timestep import (inv_dt_mhd_ghosted,
+                                                      inv_dt_mhd_ghosted_shear,
+                                                      inv_dt_mhd_periodic, inv_dt_mhd_shear)
+
+    lib = load_library("host")
+    sfx = "f32" if dtype == "float32" else "f64"
+    tdt = torch.float32 if dtype == "float32" else torch.float64
+    source, ghosted = CFL_MODES[mode]
+    rng = np.random.default_rng(9)
+    for nx, ny, nz in ((37, 11, 5), (133, 3, 2)):
+        text = (OT3D_INI.format(dtype=dtype, kernel="auto", tend=1.0) if source == "ot"
+                else Path(REPO, source).read_text())
+        for axis, n in (("nx", nx), ("ny", ny), ("nz", nz)):
+            text = re.sub(rf"^{axis}=\d+$", f"{axis}={n}", text, count=1, flags=re.M)
+        params = port_params(PortConfigMap(text=text)).replace(compensated=False)
+        g = params.ghost_width
+        shape = params.shape[1:] if ghosted else (nz, ny, nx)
+        rho = rng.uniform(0.5, 1.5, shape)
+        vel = 0.5 * rng.standard_normal((3,) + shape)
+        bf = 0.5 * rng.standard_normal((3,) + shape)
+        e = rng.uniform(0.5, 1.5, shape) / (params.gamma0 - 1.0) + 0.5 * rho * (
+            vel ** 2).sum(0) + 0.5 * (bf ** 2).sum(0)
+        S = torch.from_numpy(np.stack([rho, e, *(rho * vel), *bf])).to(tdt).contiguous()
+        kept = torch.from_numpy(0.5 * rng.standard_normal((nz, ny))).to(tdt)
+        blk = param_block(params)
+
+        def host(S):
+            inv = torch.zeros((), dtype=tdt)
+            fn = getattr(lib, f"ramses_cfl_mhd_{mode}_{sfx}" if mode != "periodic" and
+                         mode != "stratified" else
+                         f"ramses_cfl_mhd_{'shear_' if mode == 'stratified' else ''}{sfx}")
+            if mode == "ghosted":
+                err = fn(S.data_ptr(), None, None, inv.data_ptr(), nx, ny, nz, g,
+                         float("-inf"), blk, None)
+            elif mode == "ghosted_shear":
+                err = fn(S.data_ptr(), None, None, inv.data_ptr(), nx, ny, nz, g, blk, None)
+            elif mode in ("shear", "stratified"):
+                err = fn(S.data_ptr(), kept.data_ptr(), None, None, inv.data_ptr(), nx, ny, nz,
+                         blk, None)
+            else:
+                err = fn(S.data_ptr(), None, None, inv.data_ptr(), nx, ny, nz, blk, None)
+            assert err == 0
+            return inv
+
+        def twin(S):
+            if mode == "periodic":
+                return inv_dt_mhd_periodic(params, S)
+            if mode in ("shear", "stratified"):
+                return inv_dt_mhd_shear(params, S, kept)
+            if mode == "ghosted":
+                return inv_dt_mhd_ghosted(params, S)
+            return inv_dt_mhd_ghosted_shear(params, S)
+
+        got, want = host(S), twin(S)
+        assert abs(float(got) - float(want)) <= TOL_HOST[dtype] * float(want), (nx, ny, nz)
+        o = g if ghosted else 0  # an interior cell
+        S[ID, nz // 2 + o, 1 + o, 2 + o] = float("nan")
+        assert torch.isnan(host(S)) and torch.isnan(twin(S)), (nx, ny, nz)
+
+
 # the cases: one step and its CFL, or (states) the 18 traced states the
 # step kernel forms from its precursor stage's output
 @pytest.mark.parametrize("dtype,part", [("float32", "step"), ("float64", "step"),
@@ -296,7 +377,7 @@ def test_csrc_host_build_matches_twins(dtype, part):
 
     inv = torch.zeros((), dtype=S0.dtype)
     assert getattr(lib, f"ramses_cfl_mhd_{sfx}")(
-        S0.data_ptr(), None, inv.data_ptr(), 16, 16, 16, blk, None) == 0
+        S0.data_ptr(), None, None, inv.data_ptr(), 16, 16, 16, blk, None) == 0
     inv_ref = inv_dt_mhd_periodic(params, S0)
     assert abs(float(inv) - float(inv_ref)) <= TOL_HOST[dtype] * float(inv_ref)
 

@@ -412,7 +412,7 @@ def test_csrc_host_build_matches_stratified_twins(dtype):
 
     inv = torch.zeros((), dtype=tdt)
     assert getattr(lib, f"ramses_cfl_mhd_shear_{sfx}")(
-        S.data_ptr(), kept.data_ptr(), None, inv.data_ptr(), *dims, blk, None) == 0
+        S.data_ptr(), kept.data_ptr(), None, None, inv.data_ptr(), *dims, blk, None) == 0
     inv_ref = inv_dt_mhd_shear(params, S, kept[0])
     assert abs(float(inv) - float(inv_ref)) <= tol * float(inv_ref)
     dt = dt_from_inv(params, inv_ref)

@@ -415,7 +415,7 @@ def test_csrc_host_build_matches_twins(dtype, jax_refs):
         dims, g, blk = (params.nx, params.ny, params.nz), params.ghost_width, param_block(params)
         jet = jet_inv_dt(params)
         inv = torch.zeros((), dtype=U0.dtype)
-        assert cfl(U0.data_ptr(), None, inv.data_ptr(), *dims, g,
+        assert cfl(U0.data_ptr(), None, None, inv.data_ptr(), *dims, g,
                    float("-inf") if jet is None else jet, blk, None) == 0
         inv_ref = inv_dt_mhd_ghosted(params, U0)
         assert torch.equal(inv, inv_ref), case

@@ -260,7 +260,7 @@ def check_host_periodic(lib, params, S, comp, blocks):
             assert rel(out[:8], mhd_3d_periodic_update(params, S, dt)[:8]) <= TOL_HOST[S.dtype]
         inv_cfl = torch.zeros((), dtype=S.dtype)
         assert getattr(lib, f"ramses_cfl_mhd_{sfx}")(
-            out.data_ptr(), None, inv_cfl.data_ptr(), nx, ny, nz, blk, None) == 0
+            out.data_ptr(), None, None, inv_cfl.data_ptr(), nx, ny, nz, blk, None) == 0
         assert float(inv) == float(inv_cfl) == float(inv_dt_mhd_periodic(params, out[:8]))
 
 
