@@ -20,7 +20,8 @@ Phases, in order; any failure raises and no result line is printed:
      kernel's time against its twin's (128^3 for a twin whose estimated
      memory does not fit);
   7. hydro CFL kernel vs its twin at 64^3 on a random physical state, f32 +
-     f64, on both state layouts; the isothermal EOS; NaN propagation;
+     f64, on both state layouts, bitwise; the isothermal EOS; the jet's
+     floor taken in the kernel; NaN propagation;
   8. hydro step kernel vs its twin at 64^3, f32 + f64: implode (reflecting
      walls) and blast (periodic), each Riemann solver, 1 step and 10
      chained steps; the kernel's interior mode == its ghosted mode;
@@ -52,11 +53,15 @@ Phases, in order; any failure raises and no result line is printed:
      no twin call, finite state, divB (with the kept face) and mass; one
      profiled chunk;
  14. at 128x256x128 f32 on the MRI path's state, each shear kernel against
-     its twin, each of its outputs on its own (as 12), and its time
-     against the twin's; the step kernel's stages in
+     its twin, each of its outputs on its own (as 12; the slab and border
+     kernels bitwise), and its time against the twin's (CUDA events; the
+     slab and border kernels' device time by torch.profiler beside it:
+     they run for less time than their launch takes on the host, and the
+     kernels line gives it as device_ms); the step kernel's stages in
      the shear mode beside the periodic mode's on the Orszag-Tang state of
      the same shape;
- 15. the shear kernels' bounds (as 11, counted on an 8x32x128 block);
+ 15. the shear kernels' bounds (as 11, counted on an 8x32x128 block), each
+     beside its time;
  16. the viscous-resistive sub-step (csrc/dissip_step.cu) against its twin:
      periodic at 64^3 (Orszag-Tang) and shear at 64x128x64 (MRI,
      isothermal and adiabatic), f32 + f64, each coefficient set of
@@ -86,8 +91,9 @@ Phases, in order; any failure raises and no result line is printed:
      and (22d) its dissipative variant (phase 17's coefficients);
  23. the flagship MRI exactly as shipped (data/mhd_mri_3d.ini, compensated)
      at 128x256x128 f32;
- 24. the stratified MRI as shipped at 128x256x128 f32 (five kernels per
-     step), and (24m) its mass change against its z-face outflow;
+ 24. the stratified MRI as shipped at 128x256x128 f32 (four kernels per
+     step: one slab launch builds the x and the z slabs), and (24m) its
+     mass change against its z-face outflow;
  25. the new kernel modes at full width on those paths' states: against
      their twins, their times against the twins', their bounds;
  26. long horizon: 500 steps of OT 64^3 (and MRI 64x128x64) in f64, plain
@@ -262,9 +268,11 @@ KERNELS = {
                        "ramsesgpu_tpu/pallas/shear_packed.py:89 with the gravity_z aux "
                        "(:117-131), ramsesgpu_tpu/pallas/shear_packed.py:237 (the strip with "
                        "gravity)"),
-    "shear_zslabs": ("ramsesgpu_tpu_torch/csrc/shear_border.cu",
-                     "ramsesgpu_tpu/pallas/shear_packed.py:237 (the strip's stratified slab z "
-                     "extension, built by :963-975) and the z band refill :1006-1021"),
+    "shear_slabs_strat": ("ramsesgpu_tpu_torch/csrc/shear_border.cu",
+                          "ramsesgpu_tpu/pallas/shear_packed.py:237 (the strip's sheared ghosts "
+                          "and their stratified z extension, built by :952-1004 and :963-975: "
+                          "the slab kernel's stratified launch) and the z band refill "
+                          ":1006-1021"),
     "zcarry_mhd": ("ramsesgpu_tpu_torch/csrc/zcarry_mhd.cu",
                    "ramsesgpu_tpu/pallas/zcarry_mhd3d.py:102 (with_inv_dt: the periodic loop, "
                    "pallas/fused_mhd3d.py:341)"),
@@ -380,19 +388,40 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Device ms per call of fn: the summed time of the CUDA kernels it
+    launches (torch.profiler), free of the host's launch overhead, which
+    exceeds the run time of the smallest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _attempt in range(3):  # (a profile now and then comes back empty)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / reps / 1e3
+    raise AssertionError("torch.profiler recorded no device time in three profiles")
+
+
 def wrappers():
     from ramsesgpu_tpu_torch.kernels.cfl_hydro import cfl_hydro
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd, cfl_mhd_window
     from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
     from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
     from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step, mhd_window
-    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs
     from ramsesgpu_tpu_torch.kernels.zcarry_hydro3d import zcarry_hydro
     from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
 
     return {"mhd_step": mhd_step, "cfl_mhd": cfl_mhd, "hydro_step": hydro_step,
             "cfl_hydro": cfl_hydro, "shear_slabs": shear_slabs, "shear_border": shear_border,
-            "dissip_step": dissip_step, "shear_zslabs": shear_zslabs,
+            "dissip_step": dissip_step,
             "zcarry_mhd": zcarry_mhd, "zcarry_hydro": zcarry_hydro,
             "mhd_window": mhd_window, "cfl_mhd_window": cfl_mhd_window}
 
@@ -729,9 +758,13 @@ def stage_buffer(params) -> None:
 
 
 def phase7() -> None:
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
     from ramsesgpu_tpu_torch.kernels.cfl_hydro import cfl_hydro
+    from ramsesgpu_tpu_torch.kernels.cfl_rows import workspace
     from ramsesgpu_tpu_torch.solvers.boundary import interior, make_boundaries
     from ramsesgpu_tpu_torch.solvers.timestep import compute_inv_dt_hydro
+
+    lib = load_library("cuda")
 
     for dtype, ciso in (("float32", 0.0), ("float64", 0.0), ("float32", 0.7)):
         params, U = hydro_setup("implode", 64, dtype)
@@ -748,15 +781,28 @@ def phase7() -> None:
         want = compute_inv_dt_hydro(params, S, ghost=0)
         for layout, got in (("interior", cfl_hydro(params, S)),
                             ("ghosted", cfl_hydro(params, U, ghost=params.ghost_width))):
-            rel = abs(float(got) - float(want)) / abs(float(want))
+            same = torch.equal(got, want)
             print(f"[7] cfl_hydro {dtype} cIso={ciso} 64^3 {layout}: kernel {float(got)!r} "
-                  f"twin {float(want)!r} rel err {rel:.3e} (tol {TOL_CFL[dtype]:.0e})")
-            if not rel <= TOL_CFL[dtype]:
-                raise AssertionError(f"cfl_hydro {dtype} disagrees with its twin: {rel}")
+                  f"twin {float(want)!r}: bitwise equal {same}")
+            if not same:
+                raise AssertionError(f"cfl_hydro {dtype} {layout} is not its twin bit for bit")
+        # the jet's floor, taken in the kernel: above the max, the result
+        fn = getattr(lib, f"ramses_cfl_hydro_{'f32' if dtype == 'float32' else 'f64'}")
+        for floor in (0.5 * float(want), 2.0 * float(want)):
+            got = torch.empty((), dtype=S.dtype, device="cuda")
+            err = fn(S.data_ptr(), *workspace(lib, S), got.data_ptr(), params.nx, params.ny,
+                     params.nz, 0, floor, param_block(params),
+                     torch.cuda.current_stream().cuda_stream)
+            if err or not torch.equal(got, torch.maximum(want, want.new_full((), floor))):
+                raise AssertionError(f"cfl_hydro's floor {floor!r}: {float(got)!r} (error {err})")
+        print(f"[7] cfl_hydro {dtype} cIso={ciso}: a floor below and above the max taken in the "
+              f"kernel, bitwise")
         S[2, 7, 9, 11] = float("nan")  # a momentum: read by the isothermal chain too
-        if not torch.isnan(cfl_hydro(params, S)):
+        U[2, 9, 11, 13] = float("nan")
+        if not (torch.isnan(cfl_hydro(params, S))
+                and torch.isnan(cfl_hydro(params, U, ghost=params.ghost_width))):
             raise AssertionError("cfl_hydro does not propagate NaN")
-    print("[7] cfl_hydro propagates NaN")
+    print("[7] cfl_hydro propagates NaN in both layouts")
 
 
 def phase8() -> int:
@@ -951,6 +997,13 @@ def phase10(card: str, implode, twin_peak_64: int) -> dict:
     newton = torch.zeros((), dtype=torch.int64, device="cuda")
     S_k = hydro_step(params, S0, torch.empty_like(S0), dt, active, newton=newton)
     ms = {"cfl_hydro": time_ms(lambda: cfl_hydro(params, S0), 50)}
+    S64 = S0.double()
+    if not torch.equal(cfl_hydro(params, S64), compute_inv_dt_hydro(params, S64, ghost=0)):
+        raise AssertionError("cfl_hydro at 256^3 f64 is not its twin bit for bit")
+    cfl_f64_ms = time_ms(lambda: cfl_hydro(params, S64), 50)
+    print(f"[10] cfl_hydro at 256^3 bitwise its twin in f32 and f64: {ms['cfl_hydro']:.4f} ms "
+          f"f32, {cfl_f64_ms:.4f} ms f64 ({card})")
+    del S64
     # each mode and dtype of the step kernel, against its bound
     n = 256 ** 3
     modes = {}
@@ -996,6 +1049,9 @@ def phase10(card: str, implode, twin_peak_64: int) -> dict:
         S_g = hydro_step.ghosted(params, U, dt)
     torch.cuda.empty_cache()
     inv_t = compute_inv_dt_hydro(params, S0, ghost=0)
+    if not torch.equal(inv, inv_t):
+        raise AssertionError(f"cfl_hydro at {params.nx}^3 f32 is not its twin bit for bit: "
+                             f"{float(inv)!r} against {float(inv_t)!r}")
     S_t = hydro_3d_state_update(params, S0, dt)
     errs = {"cfl_hydro": abs(float(inv) - float(inv_t)),
             "hydro_step": float((S_k - S_t).abs().max()),
@@ -1023,11 +1079,12 @@ def phase10(card: str, implode, twin_peak_64: int) -> dict:
     print(f"[10] approx solver Newton iterations in one 256^3 step: {int(newton)} "
           f"({int(newton) / (3 * 256 ** 3):.4f} per face)")
     return {"ms": ms, "plain_ms": plain, "max_abs_err": errs, "newton": int(newton),
+            "cfl_f64_ms": cfl_f64_ms,
             "params": implode[0], "dt": float(dt),
             "state": implode[1][:, :32, :32, :32].contiguous()}
 
 
-def phase11(mhd: dict, hydro: dict) -> dict:
+def phase11(mhd: dict, hydro: dict, card: str) -> dict:
     """bound_ms and bound_by of every kernel at the inputs phases 6 and 10
     timed: max(bytes / memory rate, flops / f32 rate). Bytes: each input
     value read once and each output written once. Flops: the arithmetic the
@@ -1071,6 +1128,11 @@ def phase11(mhd: dict, hydro: dict) -> dict:
         print(f"[11] {name} at 256^3 f32: {nbytes[name] / 1e9:.3f} GB -> {t_bytes:.4f} ms, "
               f"{ops[name] / 1e9:.3f} GFLOP -> {t_ops:.4f} ms: bound {bounds[name][0]:.4f} ms "
               f"by {bounds[name][1]}")
+    t64 = max(5 * 8 * n / HBM_BYTES_PER_S, ops["cfl_hydro"] / F64_FLOP_PER_S) * 1e3
+    for dtype, ms, bnd in (("f32", hydro["ms"]["cfl_hydro"], bounds["cfl_hydro"][0]),
+                           ("f64", hydro["cfl_f64_ms"], t64)):
+        print(f"[11] cfl_hydro at 256^3 {dtype}: kernel {ms:.4f} ms against its bound {bnd:.4f} "
+              f"ms: {ms / bnd:.2f}x ({card})")
     bounds["ops"] = ops  # the operation counts, for the streamed kernels' bounds (phase 32)
     return bounds
 
@@ -1113,6 +1175,16 @@ def shear_t0(params, dtype) -> torch.Tensor:
     0.5): at t = 0 the fill is periodic and would test nothing."""
     t0 = 2.5 * params.dy / (1.5 * params.omega0 * params.dx * params.nx)
     return torch.tensor(t0, dtype=dtype, device="cuda")
+
+
+def strat_slabs(params, S, kept, t, dt):
+    """The x slabs and the stratified z slabs, from one launch of the slab
+    kernel."""
+    from ramsesgpu_tpu_torch.kernels.mhd_step import zslab_shape
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs
+
+    zslabs = torch.empty(zslab_shape(params), dtype=S.dtype, device=S.device)
+    return shear_slabs(params, S, kept, t, dt, zout=zslabs), zslabs
 
 
 def state_rel(a, b) -> float:
@@ -1185,8 +1257,7 @@ def phase12() -> None:
             active = torch.ones((), dtype=torch.bool, device="cuda")
 
             slabs_t = slabs_twin(params, S, kept, t0 + dt)
-            check(f"{tag} shear_slabs", rel_l2(shear_slabs(params, S, kept, t0, dt), slabs_t),
-                  tol1)
+            check_equal(f"{tag} shear_slabs", shear_slabs(params, S, kept, t0, dt), slabs_t)
             planes = torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device="cuda")
             S1 = mhd_step(params, S.clone(), dt, active, mhd_step.scratch(params, S),
                           shear=(slabs_t, planes))
@@ -1196,7 +1267,9 @@ def phase12() -> None:
             S2, kept2 = S1_t.clone(), kept.clone()
             rem = shear_border(params, S2, kept2, planes_t, t0, dt, active)
             S2_t, kept2_t, rem_t = shear_border_update(params, S1_t, kept, planes_t, t0, dt)
-            check(f"{tag} shear_border", state_rel((S2, kept2), (S2_t, kept2_t)), tol1)
+            check_equal(f"{tag} shear_border state", S2, S2_t)
+            check_equal(f"{tag} shear_border kept face", kept2, kept2_t)
+            check_equal(f"{tag} shear_border remapped planes", rem, rem_t)
             check_shear_outputs(tag, shear_outputs(params, planes, S2, kept2, rem),
                                 shear_outputs(params, planes_t, S2_t, kept2_t, rem_t), dtype)
 
@@ -1259,8 +1332,6 @@ def phase13(card: str, label: str = "13", nu: float = 0.0, eta: float = 0.0,
     expect = {step_kernel: steps, "cfl_mhd": steps, "shear_slabs": steps, "shear_border": steps}
     if nu > 0 or eta > 0:
         expect.update(shear_slabs=2 * steps, dissip_step=steps)
-    if strat:
-        expect["shear_zslabs"] = steps
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with counted_main_path(label, expect) as launches:
@@ -1330,6 +1401,15 @@ def phase14(card: str, mri) -> dict:
         "shear_border": time_ms(lambda: shear_border(params, Sw, kw, planes_w, t, dt, active,
                                                      rem_w), 50),
     }
+    # the border kernels run for less time than their launch takes on the
+    # host: the kernels line gives their device time (torch.profiler) as
+    # device_ms beside ms, CUDA events through the wrapper
+    dev = {"shear_slabs": device_ms(lambda: shear_slabs(params, S, kept, t, dt, out=slabs_w)),
+           "shear_border": device_ms(lambda: shear_border(params, Sw, kw, planes_w, t, dt,
+                                                          active, rem_w))}
+    for name, dms in dev.items():
+        print(f"[14] {name}: CUDA events through the wrapper {ms[name]:.5f} ms, device time "
+              f"{dms:.5f} ms (torch.profiler) (128x256x128 f32, {card})")
     del scratch, Sw, kw, slabs_w, planes_w, rem_w
     torch.cuda.empty_cache()
     # the twins on the kernels' inputs
@@ -1348,6 +1428,10 @@ def phase14(card: str, mri) -> dict:
     twin_out = shear_outputs(params, planes_t, S2_t, kept2_t, rem_t)
     check_shear_outputs("14 128x256x128 f32", shear_outputs(params, planes, S2, kept2, rem),
                         twin_out, "float32")
+    check_equal("14 shear_slabs 128x256x128 f32", slabs, slabs_t)
+    check_equal("14 shear_border state 128x256x128 f32", S2, S2_t)
+    check_equal("14 shear_border kept face 128x256x128 f32", kept2, kept2_t)
+    check_equal("14 shear_border remapped planes 128x256x128 f32", rem, rem_t)
     # the yardstick of TOL_PLANES: each output's own f32 rounding, the f32
     # twin against the f64 twin on the same inputs
     p64 = params.replace(dtype="float64")
@@ -1372,7 +1456,8 @@ def phase14(card: str, mri) -> dict:
               f", max abs {errs[name]:.3e}")
         print(f"[14] {name}: kernel {ms[name]:.4f} ms, twin {plain[name]:.3f} ms "
               f"(128x256x128 f32, {card})")
-    return {"ms": ms, "plain_ms": plain, "max_abs_err": errs, "params": params, "dt": float(dt),
+    return {"ms": ms, "plain_ms": plain, "max_abs_err": errs, "device_ms": dev,
+            "params": params, "dt": float(dt),
             "t": float(t), "S": S, "kept": kept, "planes": planes}
 
 
@@ -1418,7 +1503,7 @@ def stage_breakdown(card: str, params, S, kept, t, dt) -> None:
               f"{periodic.get(name, 0.0):.4f} ms")
 
 
-def phase15(shear: dict) -> dict:
+def phase15(shear: dict, card: str) -> dict:
     """bound_ms and bound_by of the shear kernels at phase 14's inputs, as
     phase 11: bytes each input read once and each output written once;
     flops counted by the counting build on an 8x32x128 block of the state
@@ -1467,6 +1552,12 @@ def phase15(shear: dict) -> dict:
         print(f"[15] {name} at {nx}x{ny}x{nz} f32: {nbytes[name] / 1e9:.4f} GB -> {t_bytes:.5f} ms, "
               f"{ops[name] / 1e9:.4f} GFLOP -> {t_ops:.5f} ms: bound {bounds[name][0]:.5f} ms "
               f"by {bounds[name][1]}")
+    for name in ops:
+        ms, dev = shear["ms"][name], shear["device_ms"].get(name)
+        print(f"[15] {name}: kernel {ms:.5f} ms (CUDA events) against its bound "
+              f"{bounds[name][0]:.5f} ms: {ms / bounds[name][0]:.1f}x" + (
+                  "" if dev is None else
+                  f"; device time {dev:.5f} ms: {dev / bounds[name][0]:.1f}x") + f" ({card})")
     return bounds
 
 
@@ -1915,7 +2006,7 @@ def phase21() -> None:
     from ramsesgpu_tpu_torch.kernels import shear
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
-    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border
     from ramsesgpu_tpu_torch.solvers.godunov_mhd import (mhd_3d_shear_step, mhd_3d_shear_update,
                                                          shear_border_update)
     from ramsesgpu_tpu_torch.solvers.shear import shear_slabs as slabs_twin
@@ -1932,9 +2023,10 @@ def phase21() -> None:
         check(f"{tag} cfl_mhd shear", abs(float(inv) - float(inv_t)) / float(inv_t), TOL_CFL[dtype])
         dt = dt_from_inv(params, inv_t)
         slabs_t = slabs_twin(params, S[:8], kept[0], t0 + dt)
-        check(f"{tag} shear_slabs", rel_l2(shear_slabs(params, S, kept, t0, dt), slabs_t), tol1)
         zslabs_t = stratified_zslabs(params, S[:8], slabs_t)
-        check_equal(f"{tag} shear_zslabs", shear_zslabs(params, S, slabs_t), zslabs_t)
+        slabs_k, zslabs_k = strat_slabs(params, S, kept, t0, dt)
+        check_equal(f"{tag} shear_slabs (one launch with the z slabs)", slabs_k, slabs_t)
+        check_equal(f"{tag} shear_slabs' z slabs", zslabs_k, zslabs_t)
         planes = torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device="cuda")
         scratch = mhd_step.scratch(params, S)
         S1 = mhd_step(params, S.clone(), dt, active, scratch, shear=(slabs_t, planes, zslabs_t, gz))
@@ -1973,7 +2065,7 @@ def phase24m(card: str, strat) -> None:
     remapped fluxes cancel; y is periodic)."""
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step, scratch_fluxes
-    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border
     from ramsesgpu_tpu_torch.solvers.step import gravity_z
     from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
 
@@ -1987,9 +2079,8 @@ def phase24m(card: str, strat) -> None:
     mass0, predicted, worst = mass, 0.0, 0.0
     for _ in range(5):
         dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
-        slabs = shear_slabs(params, S, kept, t, dt)
-        mhd_step(params, S, dt, active, scratch,
-                 shear=(slabs, planes, shear_zslabs(params, S, slabs), gz))
+        slabs, zslabs = strat_slabs(params, S, kept, t, dt)
+        mhd_step(params, S, dt, active, scratch, shear=(slabs, planes, zslabs, gz))
         shear_border(params, S, kept, planes, t, dt, active)
         t = t + dt
         fluxes, _emfs, x0, z0 = scratch_fluxes(params, scratch)
@@ -2032,7 +2123,7 @@ def phase25(card: str, ot_comp, ot_comp_d, mri_comp, strat) -> dict:
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step, launch_info
     from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
-    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs
     from ramsesgpu_tpu_torch.solvers.dissipation import mhd_dissipation_periodic_update
     from ramsesgpu_tpu_torch.solvers.godunov_mhd import (mhd_3d_periodic_update,
                                                          mhd_3d_shear_update, shear_border_update)
@@ -2044,7 +2135,7 @@ def phase25(card: str, ot_comp, ot_comp_d, mri_comp, strat) -> dict:
     lib = load_library("count")
     lib_cuda = load_library("cuda")
     active = torch.ones((), dtype=torch.bool, device="cuda")
-    out = {"ms": {}, "plain_ms": {}, "max_abs_err": {}, "bounds": {}}
+    out = {"ms": {}, "plain_ms": {}, "max_abs_err": {}, "bounds": {}, "device_ms": {}}
     tol = TOL_STEP1["float32"]
 
     # the periodic step on 16 channels
@@ -2126,6 +2217,8 @@ def phase25(card: str, ot_comp, ot_comp_d, mri_comp, strat) -> dict:
         lambda: mhd_step(params, Sw, dt, active, scratch, shear=(slabs, planes_w)), 10)
     out["ms"]["shear_border_comp"] = time_ms(
         lambda: shear_border(params, Sw, kw, planes_w, t, dt, active, rem_w), 50)
+    out["device_ms"]["shear_border_comp"] = device_ms(
+        lambda: shear_border(params, Sw, kw, planes_w, t, dt, active, rem_w))
     del Sw, kw, planes_w, rem_w, scratch
     torch.cuda.empty_cache()
     out["plain_ms"]["mhd_step_shear_comp"] = time_ms(
@@ -2157,15 +2250,19 @@ def phase25(card: str, ot_comp, ot_comp_d, mri_comp, strat) -> dict:
     del S1, slabs
     torch.cuda.empty_cache()
 
-    # the stratified step and the z slabs (the stratified box as shipped)
+    # the stratified step and the slab kernel's stratified launch (the x and
+    # the z slabs; the stratified box as shipped)
     params, S, kept, t, config = strat
     gz = gravity_z(params, config, "cuda")
     dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
-    slabs = shear_slabs(params, S, kept, t, dt)
-    zslabs = shear_zslabs(params, S, slabs)
-    zslabs_t = stratified_zslabs(params, S[:8], slabs)
-    check_equal(f"25 shear_zslabs {size} f32", zslabs, zslabs_t)
-    out["max_abs_err"]["shear_zslabs"] = float((zslabs - zslabs_t).abs().max())
+    slabs, zslabs = strat_slabs(params, S, kept, t, dt)
+    slabs_t = slabs_twin(params, S[:8], kept[0], t + dt)
+    zslabs_t = stratified_zslabs(params, S[:8], slabs_t)
+    check_equal(f"25 shear_slabs stratified {size} f32", slabs, slabs_t)
+    check_equal(f"25 shear_slabs' z slabs {size} f32", zslabs, zslabs_t)
+    out["max_abs_err"]["shear_slabs_strat"] = max(float((slabs - slabs_t).abs().max()),
+                                             float((zslabs - zslabs_t).abs().max()))
+    del slabs_t, zslabs_t
     scratch = mhd_step.scratch(params, S)
     S1 = mhd_step(params, S.clone(), dt, active, scratch, shear=(slabs, planes, zslabs, gz))
     check_update_stage(f"25 mhd_step_strat {size} f32", params, S, S1, scratch, dt, gz)
@@ -2173,15 +2270,20 @@ def phase25(card: str, ot_comp, ot_comp_d, mri_comp, strat) -> dict:
     check_step_comp(f"25 mhd_step_strat {size} f32", S, S1, S1_t, tol)
     out["max_abs_err"]["mhd_step_strat"] = float((S1[:8] - S1_t[:8]).abs().max())
     del S1, S1_t, _planes_t
-    Sw, zw = S.clone(), zslabs.clone()
+    Sw, sw, zw = S.clone(), slabs.clone(), zslabs.clone()
     out["ms"]["mhd_step_strat"] = time_ms(
         lambda: mhd_step(params, Sw, dt, active, scratch, shear=(slabs, planes, zslabs, gz)), 10)
-    out["ms"]["shear_zslabs"] = time_ms(lambda: shear_zslabs(params, S, slabs, out=zw), 50)
-    del Sw, zw, scratch
+    out["ms"]["shear_slabs_strat"] = time_ms(
+        lambda: shear_slabs(params, S, kept, t, dt, out=sw, zout=zw), 50)
+    out["device_ms"]["shear_slabs_strat"] = device_ms(
+        lambda: shear_slabs(params, S, kept, t, dt, out=sw, zout=zw))
+    x_only_ms = device_ms(lambda: shear_slabs(params, S, kept, t, dt, out=sw))
+    del Sw, sw, zw, scratch
     torch.cuda.empty_cache()
     out["plain_ms"]["mhd_step_strat"] = time_ms(
         lambda: mhd_3d_shear_update(params, S, slabs, dt, zslabs, gz), 3)
-    out["plain_ms"]["shear_zslabs"] = time_ms(lambda: stratified_zslabs(params, S[:8], slabs), 10)
+    out["plain_ms"]["shear_slabs_strat"] = time_ms(
+        lambda: stratified_zslabs(params, S[:8], slabs_twin(params, S[:8], kept[0], t + dt)), 10)
     # counted on a full-z block of 8 y rows: the stratified work depends on nz
     by = 8
     blk = params.replace(ny=by, ymax=params.ymin + by * params.dy)
@@ -2200,13 +2302,22 @@ def phase25(card: str, ot_comp, ot_comp_d, mri_comp, strat) -> dict:
         ops, size, n)
     lib.ramses_shear_border_ops(Sb.data_ptr(), kb.data_ptr(), pb.data_ptr(), 1, nx, by, nz,
                                 param_block(blk), float(t), float(dt), counts)
-    # the two source rows' six channels it reads (of the interior and of the
-    # x slabs), the three ghost rows of eight it writes, per side
-    out["bounds"]["shear_zslabs"] = bound(
-        "25", "shear_zslabs", 4 * 2 * (6 + 24) * ny * (nx + 6), counts[2] * scale, size, n)
-    for name in ("mhd_step_strat", "shear_zslabs"):
-        print(f"[25] {name}: kernel {out['ms'][name]:.4f} ms, twin {out['plain_ms'][name]:.3f} ms "
-              f"({size} f32, {card})")
+    # the x slabs' bytes (phase 15), then per z side the two source rows'
+    # six channels (of the interior and of the x slabs) it reads and the
+    # three ghost rows of eight it writes
+    out["bounds"]["shear_slabs_strat"] = bound(
+        "25", "shear_slabs_strat (x and z slabs in one launch)",
+        4 * (2 * 8 * 3 * rows + rows + 2 * 8 * 3 * rows) + 4 * 2 * (6 + 24) * ny * (nx + 6),
+        (counts[0] + counts[2]) * scale, size, n)
+    for name in ("mhd_step_strat", "shear_slabs_strat", "shear_border_comp"):
+        ms, dev, bnd = out["ms"][name], out["device_ms"].get(name), out["bounds"][name][0]
+        print(f"[25] {name}: kernel {ms:.4f} ms (CUDA events) against its bound {bnd:.5f} ms "
+              f"({ms / bnd:.1f}x)" + ("" if dev is None else
+                                       f", device time {dev:.5f} ms ({dev / bnd:.1f}x)")
+              + f", twin {out['plain_ms'][name]:.3f} ms ({size} f32, {card})")
+    print(f"[25] the slab kernel on the stratified state (device time, torch.profiler): x and z "
+          f"slabs in one launch {out['device_ms']['shear_slabs_strat']:.5f} ms, the x slabs "
+          f"alone {x_only_ms:.5f} ms ({card})")
     return out
 
 
@@ -2345,7 +2456,7 @@ def zcarry_one_step(params, state, t0, gz) -> dict:
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
     from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
-    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs
     from ramsesgpu_tpu_torch.kernels.zcarry_hydro3d import zcarry_hydro
     from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
     from ramsesgpu_tpu_torch.solvers.godunov import hydro_3d_state_update
@@ -2373,10 +2484,12 @@ def zcarry_one_step(params, state, t0, gz) -> dict:
         else:
             dt = dt_from_inv(params, inv_dt_mhd_shear(params, S, kept[0] if params.compensated
                                                       else kept))
-            slabs = shear_slabs(params, S, kept, t0, dt)
-            shear = (slabs, torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device="cuda"))
-            if gz is not None:
-                shear = shear + (shear_zslabs(params, S, slabs), gz)
+            planes = torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device="cuda")
+            if gz is None:
+                shear = (shear_slabs(params, S, kept, t0, dt), planes)
+            else:
+                slabs, zslabs = strat_slabs(params, S, kept, t0, dt)
+                shear = (slabs, planes, zslabs, gz)
         S1 = torch.empty_like(S)
         inv = zcarry_mhd(params, S, S1, dt, active, shear=shear, fold=shear is None)
         if shear is None:
@@ -2550,7 +2663,7 @@ def phase32(card: str, ot, blast, mri, bounds: dict, twin_n: int, staged: dict, 
     (``staged``: phases 6, 14 and 25) on the same grid."""
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
-    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs
     from ramsesgpu_tpu_torch.kernels.zcarry_hydro3d import zcarry_hydro
     from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
     from ramsesgpu_tpu_torch.solvers.godunov import hydro_3d_state_update
@@ -2682,9 +2795,8 @@ def phase32(card: str, ot, blast, mri, bounds: dict, twin_n: int, staged: dict, 
     params, S, kept, t, config = strat
     gz = gravity_z(params, config, "cuda").to(S.dtype)
     dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
-    slabs = shear_slabs(params, S, kept, t, dt)
-    sh = (slabs, torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device="cuda"),
-          shear_zslabs(params, S, slabs), gz)
+    slabs, zslabs = strat_slabs(params, S, kept, t, dt)
+    sh = (slabs, torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device="cuda"), zslabs, gz)
     S1 = torch.empty_like(S)
     strat_ms = time_ms(lambda: zcarry_mhd(params, S, S1, dt, active, shear=sh), 10)
     del S1
@@ -3485,7 +3597,10 @@ ROWS = (("A", "mhd_step"), ("A'-compensated", "mhd_step_comp"),
         ("5", "hydro_step_ghosted"), ("13", "zcarry_hydro"),
         ("A'-dissipation / 8", "dissip_step"), ("A'-shear-dissipation / 10", "dissip_step_shear"),
         ("A'-compensated dissipation", "dissip_step_comp"), ("B", "cfl_mhd"),
-        ("11", "cfl_mhd_shear"), ("CFL of 3", "cfl_mhd_ghosted"), ("CFL of 4", "cfl_mhd_window"))
+        ("11", "cfl_mhd_shear"), ("CFL of 3", "cfl_mhd_ghosted"), ("CFL of 4", "cfl_mhd_window"),
+        ("7", "cfl_hydro"), ("9 / 10 x slabs", "shear_slabs"), ("9 / 10 border", "shear_border"),
+        ("9 / 10 border, compensated", "shear_border_comp"),
+        ("9 stratified x + z slabs", "shear_slabs_strat"))
 
 
 def check_streamed(label: str, kernel: str, rows: dict) -> None:
@@ -3530,7 +3645,7 @@ def main() -> int:
     hydro_timing = phase10(card, implode, hydro_twin_peak)
     lap("10")
     del implode
-    bounds = phase11(timing, hydro_timing)
+    bounds = phase11(timing, hydro_timing, card)
     lap("11")
     phase12()
     lap("12")
@@ -3539,7 +3654,7 @@ def main() -> int:
     shear_timing = phase14(card, mri)
     lap("14")
     del mri
-    bounds.update(phase15(shear_timing))
+    bounds.update(phase15(shear_timing, card))
     lap("15")
     phase16()
     lap("16")
@@ -3624,7 +3739,7 @@ def main() -> int:
                 "mhd_step_shear_comp": flagship_launches["mhd_step"],
                 "shear_border_comp": flagship_launches["shear_border"],
                 "mhd_step_strat": strat_launches["mhd_step"],
-                "shear_zslabs": strat_launches["shear_zslabs"],
+                "shear_slabs_strat": strat_launches["shear_slabs"],
                 "zcarry_mhd": zc_launches["zcarry_mhd"],
                 "zcarry_hydro": zc_hydro_launches["zcarry_hydro"],
                 "zcarry_mhd_shear": zc_shear_launches["zcarry_mhd"],
@@ -3634,17 +3749,23 @@ def main() -> int:
                       **dissip_timing[key], **new_timing[key], **zc_timing[key],
                       **wall_timing[key], **row4[key]}
                 for key in ("ms", "plain_ms", "max_abs_err")}
+    # device time (torch.profiler) beside ms (CUDA events) where a kernel
+    # runs for less time than its launch takes on the host
+    device = {**shear_timing["device_ms"], **new_timing["device_ms"]}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": measured["max_abs_err"][name],
          "ms": measured["ms"][name], "plain_ms": measured["plain_ms"][name],
-         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
+         "device_ms": device.get(name)}
         for name, (src, rep) in KERNELS.items()
     ]
     for row, name in ROWS:
-        ms, (bound_ms, by) = measured["ms"][name], bounds[name]
+        ms, (bound_ms, by), dev = measured["ms"][name], bounds[name], device.get(name)
         print(f"[rows] {row} ({name}): {ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
-              f"{ms / bound_ms:.1f}x ({card})")
+              f"{ms / bound_ms:.1f}x" + ("" if dev is None else
+                                          f"; device time {dev:.5f} ms, {dev / bound_ms:.1f}x")
+              + f" ({card})")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -31,34 +31,21 @@
 // the reduction reaches its channels 0-7 only. With stratified z faces
 // (shear mode) the top row's +1 z neighbour is the row itself.
 //
-// Design: one launch. Blocks walk whole x rows, a warp a row at a time:
-// the row's offsets (its own, its +1 y and +1 z neighbours', the source of
-// its last +1 x face) are formed once per row in 64 bits, the cells inside
-// it by 32-bit indices. A lane holds U cells of a row in flight (x = x0 +
-// lane + 32 u; U per dtype, CflTile): their ten loads each (the eight
-// channels, By at +1 y, Bz at +1 z) are issued before the arithmetic, and
-// the +1 x face comes from the neighbouring lane (a shuffle), else from the
-// row's own load. The grid is one wave (the blocks the card holds at
-// once). Each block forms its max by warp shuffles and writes it to
-// partial[block]; the last
-// block to finish (a counter in device memory, which it sets back to 0)
-// forms the final max from `floor` and the partials. The max is exact, so
-// the result is the same whatever the order; it propagates NaN (pmax), as
-// jnp.max and torch.max do: a blown-up state yields a NaN dt, which stops
-// the loop. The per-cell arithmetic is cfl_mhd.cuh inv_dt_cell, the one
-// the z-streaming step's folded CFL calls too. The host build walks the
-// same rows serially.
+// Design: the one-launch row walk of cfl_rows.cuh. The row's offsets
+// (its own, its +1 y and +1 z neighbours', the source of its last +1 x
+// face) are formed once per row; a lane's cells load ten values each (the
+// eight channels, By at +1 y, Bz at +1 z), the +1 x face comes from the
+// neighbouring lane. The per-cell arithmetic is cfl_mhd.cuh inv_dt_cell,
+// the one the z-streaming step's folded CFL calls too.
 //
 // Bound on the H100: it reads the 8 channels once (plus the +1 face
 // neighbours, mostly from cache): 32 bytes/cell in f32, about 0.54 GB at
 // 256^3, so ~0.16 ms at the 3.35 TB/s peak; its 69 counted flops per
 // cell (op_count.cuh) are far below the compute bound.
 #include "cfl_mhd.cuh"
+#include "cfl_rows.cuh"
 
 namespace ramses {
-
-constexpr int CFL_THREADS = 256;  // a block: 8 warps
-constexpr int CFL_BLOCKS = 1024;  // at most (the partials)
 
 // the cells of a row a lane has in flight, per dtype (H100 at 700 W,
 // periodic 256^3, scripts/torch_ab.py kernels: f32 U = 2 0.270 ms against
@@ -80,6 +67,9 @@ struct CflTile<double> {
 // its last cell's +1 x face lie.
 template <typename T, bool SHEAR, bool GHOSTED>
 struct Rows {
+  using Tile = CflTile<T>;
+  static constexpr int NV = 10;     // values a cell loads
+  static constexpr bool FACE = true;  // the +1 x face from the next lane
   Phys<T> ph;
   const T* S;
   const T* kept;   // shear: the kept face [nz][ny]
@@ -128,123 +118,6 @@ struct Rows {
   }
   HD T inv(const T* v, T bx_r) const { return inv_dt_cell<T, SHEAR>(ph, v, 1, 0, bx_r, 2, 2); }
 };
-
-#ifdef __CUDACC__
-template <typename T>
-__device__ T warp_max(T v) {
-  for (int o = 16; o > 0; o >>= 1) v = pmax(v, __shfl_down_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// the block's max of v into thread 0's return value
-template <typename T>
-__device__ T cfl_block_max(T v) {
-  __shared__ T warp_m[CFL_THREADS / 32];
-  v = warp_max(v);
-  if (threadIdx.x % 32 == 0) warp_m[threadIdx.x / 32] = v;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    v = threadIdx.x < CFL_THREADS / 32 ? warp_m[threadIdx.x] : -T(INFINITY);
-    v = warp_max(v);
-  }
-  return v;
-}
-
-template <typename T, typename F>
-__global__ void __launch_bounds__(CFL_THREADS) cfl_rows_kernel(F f, T* partial,
-                                                               unsigned* count, T* out) {
-  constexpr int CFL_U = CflTile<T>::U;
-  const int lane = threadIdx.x % 32;
-  const long long rows = (long long)f.in.ny * f.in.nz;
-  const long long warps = (long long)gridDim.x * (CFL_THREADS / 32);
-  const int nx = f.in.nx;
-  T m = -T(INFINITY);
-  for (long long r = blockIdx.x * (CFL_THREADS / 32) + threadIdx.x / 32; r < rows; r += warps) {
-    const typename F::Row w = f.row(r);
-    for (int x0 = 0; x0 < nx; x0 += 32 * CFL_U) {
-      T v[CFL_U][10];
-#pragma unroll
-      for (int u = 0; u < CFL_U; ++u) {
-        const int x = x0 + lane + 32 * u;
-        if (x < nx) f.load(w, x, v[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < CFL_U; ++u) {
-        const int x = x0 + lane + 32 * u;
-        // the +1 x face: the next lane's Bx, lane 31's the next u's lane 0
-        T bx_r = __shfl_down_sync(0xffffffffu, v[u][IA], 1);
-        if (u + 1 < CFL_U) {
-          const T next = __shfl_sync(0xffffffffu, v[u + 1][IA], 0);
-          if (lane == 31) bx_r = next;
-        }
-        if (x + 1 >= nx || (lane == 31 && u + 1 == CFL_U)) bx_r = f.face(w, x);
-        if (x < nx) m = pmax(m, f.inv(v[u], bx_r));
-      }
-    }
-  }
-  m = cfl_block_max(m);
-  __shared__ bool last;
-  if (threadIdx.x == 0) {
-    partial[blockIdx.x] = m;
-    __threadfence();
-    last = atomicAdd(count, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  // the last block: the max of the partials, from the floor
-  __threadfence();
-  T v = -T(INFINITY);
-  for (int b = threadIdx.x; b < (int)gridDim.x; b += CFL_THREADS)
-    v = pmax(v, static_cast<volatile T*>(partial)[b]);
-  v = cfl_block_max(v);
-  if (threadIdx.x == 0) {
-    *out = pmax(f.floor, v);
-    *count = 0;
-  }
-}
-#endif
-
-// max over the interior's cells of the inverse dt into out[0]; partial
-// holds CFL_BLOCKS values and count one counter that is 0 before the
-// launch (the kernel sets it back to 0); both unused in the host build
-template <typename T, bool SHEAR, bool GHOSTED>
-int cfl_rows(const Rows<T, SHEAR, GHOSTED>& f, T* partial, unsigned* count, T* out,
-             void* stream) {
-  const long long rows = (long long)f.in.ny * f.in.nz;
-#ifdef __CUDACC__
-  // one wave: the blocks the card holds at once (at most CFL_BLOCKS), or a
-  // warp a row
-  static const int resident = [] {
-    int per_sm = 0, dev = 0, sms = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, cfl_rows_kernel<T, Rows<T, SHEAR, GHOSTED>>, CFL_THREADS, 0);
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return per_sm * sms;
-  }();
-  if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
-  long long blocks = (rows + CFL_THREADS / 32 - 1) / (CFL_THREADS / 32);
-  if (blocks > resident) blocks = resident;
-  if (blocks > CFL_BLOCKS) blocks = CFL_BLOCKS;
-  cfl_rows_kernel<T><<<(unsigned)blocks, CFL_THREADS, 0, (cudaStream_t)stream>>>(f, partial,
-                                                                                count, out);
-  return (int)cudaGetLastError();
-#else
-  (void)partial;
-  (void)count;
-  (void)stream;
-  T m = f.floor, v[10];
-  for (long long r = 0; r < rows; ++r) {
-    const auto w = f.row(r);
-    for (int x = 0; x < f.in.nx; ++x) {
-      f.load(w, x, v);
-      m = pmax(m, f.inv(v, f.face(w, x)));
-    }
-  }
-  out[0] = m;
-  return 0;
-#endif
-}
 
 // the interior-only modes: S [8][nz][ny][nx] (periodic), with the kept face
 // (shear)
@@ -317,8 +190,9 @@ int ramses_cfl_mhd_ghosted_shear_f64(const double* U, double* partial, unsigned*
                                                -INFINITY, prm, stream);
 }
 
-// the values `partial` holds
-int ramses_cfl_mhd_partials(void) { return ramses::CFL_BLOCKS; }
+// the values `partial` holds: the row walk's (cfl_rows.cuh), for both CFL
+// kernels
+int ramses_cfl_rows_partials(void) { return ramses::CFL_BLOCKS; }
 
 int ramses_cfl_mhd_f32(const float* S, float* partial, unsigned* count, float* out, int nx,
                        int ny, int nz, const double* prm, void* stream) {

@@ -189,6 +189,32 @@ HD int wrap_any(int a, int n) {
   return a;
 }
 
+// x / d for a divisor d fixed for the call. When d is a power of two its
+// reciprocal r is exact and x * r is x / d bit for bit (one rounding of
+// the same real value), so the quotient costs a product: a grid of 2^k
+// cells on a domain of length 2^m has such cell sizes. (Its users,
+// dissip_step.cu and cfl_hydro.cu, are compiled without FMA contraction,
+// so the product is never fused with a sum.)
+template <typename T>
+struct Div {
+  T d, r;
+  bool pow2;
+  HD T operator()(T x) const { return pow2 ? x * r : x / d; }
+};
+
+template <typename T>
+inline Div<T> make_div(double v) {
+  Div<T> q;
+  q.d = T(v);
+  int e = 0;
+  const double m = std::frexp((double)q.d, &e);
+  // a normal power of two whose reciprocal is normal too (exact in T)
+  q.r = T(1) / q.d;
+  q.pow2 = m == 0.5 && std::isnormal((double)q.d) && std::isnormal((double)q.r) &&
+           (double)q.r * (double)q.d == 1.0;
+  return q;
+}
+
 // max/min that propagate NaN, as torch.maximum and jnp.maximum do
 template <typename T> HD T pmax(T a, T b) { return (a > b || a != a) ? a : b; }
 template <typename T> HD T pmin(T a, T b) { return (a < b || a != a) ? a : b; }
@@ -440,51 +466,7 @@ inline int launch_blocks(const F& f, long long blocks, void* stream) {
 #endif
 }
 
-// ---------------------------------------------------------------------------
-// max over c in [0, n) of f(c): the CFL reductions. Pass 1 runs a fixed
-// grid of at most MAX_BLOCKS blocks; each thread grid-strides over cells,
-// each block tree-reduces in shared memory and writes one partial. Pass 2
-// (one block) reduces the partials into out[0]. The max is exact and the
-// cell-to-thread map is fixed, so the result does not depend on
-// scheduling. The max propagates NaN (pmax), as jnp.max and torch.max do:
-// a blown-up state yields a NaN dt, which stops the loop, instead of a
-// finite dt that an integer-bit atomicMax would give.
-// ---------------------------------------------------------------------------
-constexpr int MAX_THREADS = 256;
-constexpr int MAX_BLOCKS = 1024;
-
 #ifdef __CUDACC__
-template <typename T>
-__device__ T block_max(T v) {
-  __shared__ T sdata[MAX_THREADS];
-  sdata[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = MAX_THREADS / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sdata[threadIdx.x] = pmax(sdata[threadIdx.x], sdata[threadIdx.x + s]);
-    __syncthreads();
-  }
-  return sdata[0];
-}
-
-template <typename T, typename F>
-__global__ void __launch_bounds__(MAX_THREADS) max_partial_kernel(F f, long long n, T* partial) {
-  T m = -T(INFINITY);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < n; c += stride)
-    m = pmax(m, f(c));
-  m = block_max(m);
-  if (threadIdx.x == 0) partial[blockIdx.x] = m;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS) max_final_kernel(const T* partial, int nblocks,
-                                                               T init, T* out) {
-  T m = init;
-  for (int b = threadIdx.x; b < nblocks; b += blockDim.x) m = pmax(m, partial[b]);
-  m = block_max(m);
-  if (threadIdx.x == 0) out[0] = m;
-}
-
 // the max of the block's values v into *out, a device value the caller set
 // to 0 before the launch: the block's max (NaN-propagating; by warp
 // shuffles, then over the warps), then one atomic max on its bit pattern,
@@ -505,29 +487,5 @@ __device__ void atomic_max_nonneg(T* out, T v) {
               (unsigned long long)__double_as_longlong(v));
 }
 #endif
-
-// `partial` holds MAX_BLOCKS values (unused in the host build); the max
-// starts from `init` (a floor of the result, as the jet's inverse dt).
-template <typename T, typename F>
-inline int reduce_max(const F& f, long long n, T* partial, T* out, void* stream,
-                      T init = -T(INFINITY)) {
-#ifdef __CUDACC__
-  long long blocks = (n + MAX_THREADS - 1) / MAX_THREADS;
-  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
-  cudaStream_t s = (cudaStream_t)stream;
-  max_partial_kernel<T><<<(unsigned)blocks, MAX_THREADS, 0, s>>>(f, n, partial);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  max_final_kernel<T><<<1, MAX_THREADS, 0, s>>>(partial, (int)blocks, init, out);
-  return (int)cudaGetLastError();
-#else
-  (void)partial;
-  (void)stream;
-  T m = init;
-  for (long long c = 0; c < n; ++c) m = pmax(m, f(c));
-  out[0] = m;
-  return 0;
-#endif
-}
 
 }  // namespace ramses

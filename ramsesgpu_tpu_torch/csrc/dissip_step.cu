@@ -123,30 +123,6 @@ struct Mode {
   static constexpr bool COMP = COMP_;
 };
 
-// x / d for a divisor d fixed for the call. When d is a power of two its
-// reciprocal r is exact and x * r is x / d bit for bit (one rounding of
-// the same real value), so the quotient costs a product: a grid of 2^k
-// cells on a domain of length 2^m has such cell sizes.
-template <typename T>
-struct Div {
-  T d, r;
-  bool pow2;
-  HD T operator()(T x) const { return pow2 ? x * r : x / d; }
-};
-
-template <typename T>
-Div<T> make_div(double v) {
-  Div<T> q;
-  q.d = T(v);
-  int e = 0;
-  const double m = std::frexp((double)q.d, &e);
-  // a normal power of two whose reciprocal is normal too (exact in T)
-  q.r = T(1) / q.d;
-  q.pow2 = m == 0.5 && std::isnormal((double)q.d) && std::isnormal((double)q.r) &&
-           (double)q.r * (double)q.d == 1.0;
-  return q;
-}
-
 // the coefficients, each formed in double as the JAX package forms its
 // Python floats and rounded once to T
 template <typename T>

@@ -37,7 +37,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("cfl_mhd.cu", "mhd_step.cu", "cfl_hydro.cu", "hydro_step.cu", "shear_border.cu",
            "dissip_step.cu", "zcarry_mhd.cu", "zcarry_hydro.cu")
 HEADERS = ("common.cuh", "op_count.cuh", "mhd_stages.cuh", "hydro_stages.cuh", "hydro_stream.cuh",
-           "cfl_mhd.cuh", "cfl_hydro.cuh")
+           "cfl_mhd.cuh", "cfl_hydro.cuh", "cfl_rows.cuh")
 
 # per-source compile flags (each source compiles to an object, all in
 # parallel) and the link flags of the shared library
@@ -50,14 +50,16 @@ COMPILE_FLAGS = {
     "count": ("-x", "c++", "-std=c++17", "-O2", "-fPIC", "-c", "-DRAMSES_COUNT_OPS"),
 }
 LINK_FLAGS = ("-shared",)
-# flags of one source beside its kind's: the dissipation kernel and the
-# shear border kernels repeat their twins' roundings (their Kahan carries
-# too), so nothing contracts a product and a sum into an FMA. mhd_step.cu
-# keeps contraction and rounds its compensated update stage on its own
-# with intrinsics (csrc/common.cuh r_add, r_sub, r_mul).
+# flags of one source beside its kind's: the dissipation kernel, the
+# shear border kernels and the hydro CFL kernel repeat their twins'
+# roundings (their Kahan carries too; the CFL's products by an exact
+# reciprocal), so nothing contracts a product and a sum into an FMA.
+# mhd_step.cu keeps contraction and rounds its compensated update stage on
+# its own with intrinsics (csrc/common.cuh r_add, r_sub, r_mul).
 _NO_FMA = {"cuda": ("-fmad=false",), "host": ("-ffp-contract=off",),
            "count": ("-ffp-contract=off",)}
-SOURCE_FLAGS = {"dissip_step.cu": _NO_FMA, "shear_border.cu": _NO_FMA}
+SOURCE_FLAGS = {"dissip_step.cu": _NO_FMA, "shear_border.cu": _NO_FMA,
+                "cfl_hydro.cu": _NO_FMA}
 
 
 def compile_flags(kind: str, source: str) -> tuple[str, ...]:
@@ -160,7 +162,7 @@ def _compile(kind: str, cxx: str, directory: Path, out: Path) -> Build:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "ramses_cfl_mhd_partials": ([], _I),
+    "ramses_cfl_rows_partials": ([], _I),
     "ramses_mhd_step_scratch_per_cell": ([], ctypes.c_longlong),
     "ramses_cfl_mhd_f32": ([_P] * 4 + [_I] * 3 + [_P, _P], _I),
     "ramses_cfl_mhd_f64": ([_P] * 4 + [_I] * 3 + [_P, _P], _I),
@@ -181,15 +183,12 @@ _SIGNATURES = {
     "ramses_mhd_step_shear_scratch": ([_I, _I, _I, _I], ctypes.c_longlong),
     "ramses_mhd_step_shear_f32": ([_P] * 8 + [_I] * 4 + [_P, _P], _I),
     "ramses_mhd_step_shear_f64": ([_P] * 8 + [_I] * 4 + [_P, _P], _I),
-    "ramses_shear_slabs_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
-    "ramses_shear_slabs_f64": ([_P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ramses_shear_slabs_f32": ([_P] * 6 + [_I] * 3 + [_P, _P], _I),
+    "ramses_shear_slabs_f64": ([_P] * 6 + [_I] * 3 + [_P, _P], _I),
     "ramses_shear_border_f32": ([_P] * 7 + [_I] * 4 + [_P, _P], _I),
     "ramses_shear_border_f64": ([_P] * 7 + [_I] * 4 + [_P, _P], _I),
-    "ramses_shear_zslabs_f32": ([_P, _P, _P, _I, _I, _I, _P, _P], _I),
-    "ramses_shear_zslabs_f64": ([_P, _P, _P, _I, _I, _I, _P, _P], _I),
-    "ramses_cfl_hydro_partials": ([], _I),
-    "ramses_cfl_hydro_f32": ([_P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
-    "ramses_cfl_hydro_f64": ([_P, _P, _P, _I, _I, _I, _I, _P, _P], _I),
+    "ramses_cfl_hydro_f32": ([_P] * 4 + [_I] * 4 + [ctypes.c_double, _P, _P], _I),
+    "ramses_cfl_hydro_f64": ([_P] * 4 + [_I] * 4 + [ctypes.c_double, _P, _P], _I),
     "ramses_hydro_step_blocks": ([_I], _I),
     "ramses_hydro_stream_tile": ([_I, _P], None),
     "ramses_hydro_stream_ring_bytes": ([_I], ctypes.c_longlong),

@@ -5,16 +5,21 @@ Replaces the TPU kernel ramsesgpu_tpu/pallas/packed_bc.py:408
 ``make_packed_cfl_hydro`` (formula: solvers/timestep.py:33
 ``compute_inv_dt_hydro``). The twin is ``solvers.timestep.compute_inv_dt_hydro``,
 which the kernel equals bitwise on the same state. With the inflow jet the
-result is at least the jet's (ujet + cjet) / dx (``solvers.timestep.with_jet``,
-one torch.maximum on the result's device).
+result is at least the jet's (ujet + cjet) / dx (``solvers.timestep.with_jet``
+on the CPU; on the card the kernel's floor).
+
+One launch a reduction: the row walk of ``csrc/cfl_rows.cuh``, through its
+partials and block counter (``kernels.cfl_rows.workspace``, allocated once
+per device and dtype and shared with the MHD CFL kernel).
 """
 from __future__ import annotations
 
 import torch
 
 from ..config.params import RunParams
-from ..solvers.timestep import compute_inv_dt_hydro, with_jet
+from ..solvers.timestep import compute_inv_dt_hydro, jet_inv_dt, with_jet
 from .build import load_library, param_block
+from .cfl_rows import workspace
 
 _FN = {torch.float32: "ramses_cfl_hydro_f32", torch.float64: "ramses_cfl_hydro_f64"}
 
@@ -35,8 +40,8 @@ class CflHydroKernel:
     """``inv = kernel(params, A, ghost=0)``: the 0-d device tensor max over
     the interior cells of the hydro inverse time step, for the loops'
     interior-only state (``ghost`` 0) or a ghosted state (``ghost`` =
-    ghost_width). On a CPU tensor it returns the twin's value; on a CUDA
-    tensor it launches the kernel."""
+    ghost_width), at least the inflow jet's inverse dt. On a CPU tensor it
+    returns the twin's value; on a CUDA tensor it launches the kernel."""
 
     def __init__(self) -> None:
         self.launches = 0
@@ -45,19 +50,16 @@ class CflHydroKernel:
         if params.mhd or params.dim != 3:
             raise NotImplementedError("the hydro CFL kernel covers 3D hydro")
         check_hydro_state(params, A, ghost)
-        return with_jet(params, self._reduce(params, A, ghost))
-
-    def _reduce(self, params: RunParams, A: torch.Tensor, ghost: int) -> torch.Tensor:
         if A.device.type == "cpu":
-            return compute_inv_dt_hydro(params, A, ghost=ghost)
+            return with_jet(params, compute_inv_dt_hydro(params, A, ghost=ghost))
         if A.device.type != "cuda":
             raise ValueError(f"unsupported device {A.device}")
         lib = load_library("cuda")
-        partial = torch.empty(lib.ramses_cfl_hydro_partials(), dtype=A.dtype, device=A.device)
         out = torch.empty((), dtype=A.dtype, device=A.device)
+        jet = jet_inv_dt(params)
         err = getattr(lib, _FN[A.dtype])(
-            A.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            params.nx, params.ny, params.nz, ghost, param_block(params),
+            A.data_ptr(), *workspace(lib, A), out.data_ptr(), params.nx, params.ny, params.nz,
+            ghost, float("-inf") if jet is None else jet, param_block(params),
             torch.cuda.current_stream(A.device).cuda_stream,
         )
         if err:

@@ -23,8 +23,8 @@ block). Twin: ``solvers.timestep.inv_dt_mhd_ghosted_shear``.
 
 Each reduction is one launch: the blocks walk whole x rows and the last
 block to finish forms the max from the blocks' partials, through a counter
-in device memory that it sets back to 0 (``workspace``: the partials and
-the counter, allocated once per device and dtype).
+in device memory that it sets back to 0 (``kernels.cfl_rows.workspace``: the
+partials and the counter, allocated once per device and dtype).
 
 A compensated state (``[implementation] compensated``) is [16, nz, ny, nx],
 the state and then its Kahan carry, and a shearing box's kept face [2, nz,
@@ -40,6 +40,7 @@ from ..config.params import RunParams
 from ..solvers.timestep import (inv_dt_mhd_ghosted, inv_dt_mhd_ghosted_shear,
                                 inv_dt_mhd_periodic, inv_dt_mhd_shear, jet_inv_dt)
 from .build import load_library, param_block
+from .cfl_rows import workspace
 
 _FN = {torch.float32: "ramses_cfl_mhd_f32", torch.float64: "ramses_cfl_mhd_f64"}
 _FN_GHOSTED = {torch.float32: "ramses_cfl_mhd_ghosted_f32",
@@ -90,22 +91,6 @@ def check_plane(params: RunParams, S: torch.Tensor, name: str, x: torch.Tensor,
             or not x.is_contiguous()):
         raise ValueError(f"{name} must be a contiguous {want} {S.dtype} tensor on {S.device}, "
                          f"got {tuple(x.shape)} {x.dtype} on {x.device}")
-
-
-# per (device, dtype): the reduction's per-block partials and the counter of
-# the blocks done, which the kernel sets back to 0 as it ends
-_WORK: dict = {}
-
-
-def workspace(lib, S: torch.Tensor) -> tuple[int, int]:
-    """The pointers of the partials and the counter for a reduction on S's
-    device and dtype: allocated once (the counter zeroed), then reused by
-    every launch on the stream, one after another."""
-    key = (S.device, S.dtype)
-    if key not in _WORK:
-        _WORK[key] = (torch.empty(lib.ramses_cfl_mhd_partials(), dtype=S.dtype, device=S.device),
-                      torch.zeros(1, dtype=torch.int32, device=S.device))
-    return tuple(x.data_ptr() for x in _WORK[key])
 
 
 class CflMhdKernel:

@@ -21,8 +21,8 @@ Compensated (``[implementation] compensated``): S is [16, nz, ny, nx] (the
 state, then its Kahan carry) and kept [2, nz, ny] (the face, then its
 carry); pack appends zero carries and unpack drops them
 (pallas/shear_packed.py:1210-1245). Stratified (BC_Z_STRATIFIED z faces
-and the static vertical gravity, TPU row A′-stratified): one more launch
-per step builds the z ghost slabs of the interior and of the x slabs
+and the static vertical gravity, TPU row A′-stratified): the slab launch
+also builds the z ghost slabs of the interior and of the x slabs
 (kernels/shear_border.py) before the step kernel, which reads them and
 g_z, one value per z row (``gz``, the run's gravity field column).
 
@@ -56,7 +56,7 @@ from .cfl_mhd import cfl_mhd
 from .dissip_step import dissip_step
 from .loop import make_kernel_loop, streamed_step
 from .mhd_step import NPLANE, SLAB, mhd_step, require_step_scope, uses_shear, zslab_shape
-from .shear_border import shear_border, shear_slabs, shear_zslabs
+from .shear_border import shear_border, shear_slabs
 from .zcarry_mhd3d import zcarry_mhd
 
 
@@ -87,11 +87,12 @@ def unpack(params: RunParams, state, t: torch.Tensor) -> torch.Tensor:
     stratified, the z ghost slabs of that block and the y wrap). Carries
     are dropped."""
     S, kept = state
-    slabs = shear_slabs(params, S, kept, t, torch.zeros_like(t))
+    strat = uses_stratified_z(params)
+    zslabs = torch.empty(zslab_shape(params), dtype=S.dtype, device=S.device) if strat else None
+    slabs = shear_slabs(params, S, kept, t, torch.zeros_like(t), zout=zslabs)
     mid = torch.cat([slabs[0], S[:8], slabs[1]], dim=-1)
-    if not uses_stratified_z(params):
+    if not strat:
         return wrap_yz(params, mid)
-    zslabs = shear_zslabs(params, S, slabs)
     mid = torch.cat([zslabs[0], mid, zslabs[1]], dim=-3)
     return wrap_axis(params, mid, -2)
 
@@ -120,11 +121,8 @@ def bind_step(params: RunParams, state, gz: torch.Tensor | None = None) -> Calla
     def step_into(S, kept, out, dt, active, t):
         # the reference fills the shear ghosts for totalTime + dt
         # (MHDRunGodunov.cpp:3551)
-        shear_slabs(params, S, kept, t, dt, out=slabs)
-        shear = (slabs, planes)
-        if strat:
-            shear_zslabs(params, S, slabs, out=zslabs)
-            shear = (slabs, planes, zslabs, gz)
+        shear_slabs(params, S, kept, t, dt, out=slabs, zout=zslabs)
+        shear = (slabs, planes, zslabs, gz) if strat else (slabs, planes)
         if streamed:
             zcarry_mhd(params, S, out, dt, active, shear=shear)
         else:

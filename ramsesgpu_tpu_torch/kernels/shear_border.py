@@ -2,15 +2,18 @@
 and their plain PyTorch twins.
 
 - ``shear_slabs``: the sheared x ghost slabs at t + dt from the loop state
-  (S, kept); twin ``solvers.shear.shear_slabs``.
+  (S, kept); twin ``solvers.shear.shear_slabs``. Given ``zout`` (the
+  stratified z faces, BC_Z_STRATIFIED), the same launch builds the z ghost
+  slabs of the interior and of the x slabs beside it; twin
+  ``solvers.shear.stratified_zslabs``.
 - ``shear_border``: the conservative remap of the step kernel's x-face
   planes at t + dt/2, the border-column corrections, the density floor
   and the CT update of the kept Bx face; twin
   ``solvers.godunov_mhd.shear_border_update``. Compensated: Kahan adds,
   the carry reset where the floor fires, the kept face's carry.
-- ``shear_zslabs``: the stratified z ghost slabs of the interior and of
-  the x slabs beside it (BC_Z_STRATIFIED); twin
-  ``solvers.shear.stratified_zslabs``.
+- ``shear_zslabs``: the stratified z ghost slabs alone, from given x slabs:
+  the twin's entry point, for CPU tensors (on the card the slab kernel
+  builds them).
 
 With the step kernel's shearing-box mode (kernels/mhd_step.py) they
 replace the TPU border strip kernel ramsesgpu_tpu/pallas/shear_packed.py:237
@@ -31,7 +34,6 @@ from .cfl_mhd import check_plane, check_state, kept_lead
 from .mhd_step import NPLANE, SLAB, check_buffer, zslab_shape
 
 _SLABS = {torch.float32: "ramses_shear_slabs_f32", torch.float64: "ramses_shear_slabs_f64"}
-_ZSLABS = {torch.float32: "ramses_shear_zslabs_f32", torch.float64: "ramses_shear_zslabs_f64"}
 _BORDER = {torch.float32: "ramses_shear_border_f32", torch.float64: "ramses_shear_border_f64"}
 
 
@@ -48,15 +50,17 @@ def _stream(S: torch.Tensor) -> int:
 
 
 class ShearSlabsKernel:
-    """``slabs = kernel(params, S, kept, t, dt, out=None)``: the sheared x
-    ghost slabs [2, 8, nz, ny, 3] (XMIN, XMAX) at time t + dt, written
-    into ``out`` when given. On a CPU tensor the twin runs; on a CUDA
-    tensor the kernel launches."""
+    """``slabs = kernel(params, S, kept, t, dt, out=None, zout=None)``: the
+    sheared x ghost slabs [2, 8, nz, ny, 3] (XMIN, XMAX) at time t + dt,
+    written into ``out`` when given; with ``zout`` [2, 8, 3, ny, nx + 6]
+    (stratified z faces), the z ghost slabs of the block [XMIN slab | S |
+    XMAX slab] too, in the same launch. On a CPU tensor the twins run; on a
+    CUDA tensor the kernel launches."""
 
     def __init__(self) -> None:
         self.launches = 0
 
-    def __call__(self, params: RunParams, S, kept, t, dt, out=None) -> torch.Tensor:
+    def __call__(self, params: RunParams, S, kept, t, dt, out=None, zout=None) -> torch.Tensor:
         check_state(params, S)
         check_plane(params, S, "kept", kept, kept_lead(params))
         _check_scalars(S, t=t, dt=dt)
@@ -64,12 +68,18 @@ class ShearSlabsKernel:
         if out is None:
             out = torch.empty(shape, dtype=S.dtype, device=S.device)
         check_buffer(S, "out", out, shape)
+        if zout is not None:
+            check_buffer(S, "zout", zout, zslab_shape(params))
         if S.device.type == "cpu":
-            return out.copy_(shear_slabs_twin(params, S[:8], kept_face(kept), t + dt))
+            out.copy_(shear_slabs_twin(params, S[:8], kept_face(kept), t + dt))
+            if zout is not None:
+                zout.copy_(stratified_zslabs(params, S[:8], out))
+            return out
         if S.device.type != "cuda":
             raise ValueError(f"unsupported device {S.device}")
         err = getattr(load_library("cuda"), _SLABS[S.dtype])(
-            S.data_ptr(), kept.data_ptr(), out.data_ptr(), t.data_ptr(), dt.data_ptr(),
+            S.data_ptr(), kept.data_ptr(), out.data_ptr(),
+            None if zout is None else zout.data_ptr(), t.data_ptr(), dt.data_ptr(),
             params.nx, params.ny, params.nz, param_block(params), _stream(S))
         if err:
             raise RuntimeError(f"shear_slabs launch failed: CUDA error {err}")
@@ -77,32 +87,20 @@ class ShearSlabsKernel:
         return out
 
 
-class ShearZSlabsKernel:
-    """``zslabs = kernel(params, S, slabs, out=None)``: the stratified z
-    ghost slabs [2, 8, 3, ny, nx + 6] (ZMIN, ZMAX) of the block [XMIN slab |
-    S | XMAX slab], written into ``out`` when given. On a CPU tensor the
-    twin runs; on a CUDA tensor the kernel launches."""
-
-    def __init__(self) -> None:
-        self.launches = 0
-
-    def __call__(self, params: RunParams, S, slabs, out=None) -> torch.Tensor:
-        check_state(params, S)
-        check_buffer(S, "slabs", slabs, (2, 8, params.nz, params.ny, SLAB))
-        if out is None:
-            out = torch.empty(zslab_shape(params), dtype=S.dtype, device=S.device)
-        check_buffer(S, "out", out, zslab_shape(params))
-        if S.device.type == "cpu":
-            return out.copy_(stratified_zslabs(params, S[:8], slabs))
-        if S.device.type != "cuda":
-            raise ValueError(f"unsupported device {S.device}")
-        err = getattr(load_library("cuda"), _ZSLABS[S.dtype])(
-            S.data_ptr(), slabs.data_ptr(), out.data_ptr(), params.nx, params.ny, params.nz,
-            param_block(params), _stream(S))
-        if err:
-            raise RuntimeError(f"shear_zslabs launch failed: CUDA error {err}")
-        self.launches += 1
-        return out
+def shear_zslabs(params: RunParams, S, slabs, out=None) -> torch.Tensor:
+    """The stratified z ghost slabs [2, 8, 3, ny, nx + 6] (ZMIN, ZMAX) of
+    the block [XMIN slab | S | XMAX slab] from the x slabs ``slabs``,
+    written into ``out`` when given: the twin, on CPU tensors. On the card
+    the slab kernel builds them (``shear_slabs(..., zout=...)``)."""
+    check_state(params, S)
+    check_buffer(S, "slabs", slabs, (2, 8, params.nz, params.ny, SLAB))
+    if out is None:
+        out = torch.empty(zslab_shape(params), dtype=S.dtype, device=S.device)
+    check_buffer(S, "out", out, zslab_shape(params))
+    if S.device.type != "cpu":
+        raise ValueError("on the card the slab kernel builds the z slabs: "
+                         "shear_slabs(params, S, kept, t, dt, zout=...)")
+    return out.copy_(stratified_zslabs(params, S[:8], slabs))
 
 
 class ShearBorderKernel:
@@ -144,5 +142,4 @@ class ShearBorderKernel:
 
 
 shear_slabs = ShearSlabsKernel()
-shear_zslabs = ShearZSlabsKernel()
 shear_border = ShearBorderKernel()

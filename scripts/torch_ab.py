@@ -36,13 +36,17 @@ hydro interface (the staged kernel, which updates in place through a stage
 buffer) is compared on the same inputs: bitwise or in ULP at 72^3, f32 and
 f64, then each mode's time at 256^3 in f32 and f64, P, this, this, P.
 
-Then (PART dissip) every mode and coefficient set of csrc/dissip_step.cu and
-(PART cfl) every mode of csrc/cfl_mhd.cu (a NaN cell too), through each
-library's own C entry points (a parent with the staged dissipation kernel
-or the two-launch CFL is compared on the same inputs): bitwise or in ULP
-at 72^3-sized grids, f32 and f64, then each mode's time at the main paths'
-sizes, P, this, this, P. PART: any of step, hydro, dissip, cfl (default:
-all four).
+Then (PART dissip) every mode and coefficient set of csrc/dissip_step.cu,
+(PART cfl) every mode of csrc/cfl_mhd.cu (a NaN cell too), (PART
+cfl_hydro) csrc/cfl_hydro.cu on both layouts, with and without the jet's
+floor (a NaN cell too), and (PART border) csrc/shear_border.cu's x slabs,
+stratified x and z slabs and border kernel (plain, compensated,
+inactive), through each library's own C entry points (a parent with the
+staged dissipation kernel, the two-launch CFL reductions or the separate z
+slab kernel is compared on the same inputs): bitwise or in ULP at
+72^3-sized grids, f32 and f64, then each mode's time at the main paths'
+sizes, P, this, this, P. PART: any of step, hydro, dissip, cfl, cfl_hydro,
+border (default: all six).
 
 ``hydro T...``: the hydro modes of ``parent`` at 256^3, f32 and f64, this
 checkout against the checkouts T (ULP, then the times in turns this, T...,
@@ -270,7 +274,7 @@ def step_cases(cs, dtype: str, full: bool, streamed_only: bool = False):
     import torch
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd, cfl_mhd_window
     from ramsesgpu_tpu_torch.kernels.mhd_step import MhdStepKernel, MhdWindowKernel
-    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs
     from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import ZcarryMhdKernel
     from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
 
@@ -312,8 +316,11 @@ def step_cases(cs, dtype: str, full: bool, streamed_only: bool = False):
             gz = None
         t = cs.shear_t0(params, S.dtype)
         dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
-        slabs = shear_slabs(params, S, kept, t, dt)
-        extra = () if gz is None else (shear_zslabs(params, S, slabs), gz)
+        if gz is None:
+            slabs, extra = shear_slabs(params, S, kept, t, dt), ()
+        else:
+            slabs, zslabs = cs.strat_slabs(params, S, kept, t, dt)
+            extra = (zslabs, gz)
 
         def run(lib):
             k, Sw = MhdStepKernel(), S.clone()
@@ -367,9 +374,10 @@ def step_cases(cs, dtype: str, full: bool, streamed_only: bool = False):
             params = params.replace(kernel="zcarry")
             t = cs.shear_t0(params, S.dtype)
             dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
-            slabs = shear_slabs(params, S, kept, t, dt)
-            extra = (slabs,) if kind == "shear" else (
-                slabs, shear_zslabs(params, S, slabs), gz.to(S.dtype))
+            if kind == "shear":
+                extra = (shear_slabs(params, S, kept, t, dt),)
+            else:
+                extra = (*cs.strat_slabs(params, S, kept, t, dt), gz.to(S.dtype))
             fold = False
 
         def run(_lib):
@@ -568,6 +576,15 @@ def dissip_cases(cs, dtype: str, full: bool):
                 del S, kept, slabs
 
 
+def cfl_partials(lib) -> int:
+    """The values of the CFL reductions' partials in lib (a parent named
+    them after the MHD CFL kernel)."""
+    for name in ("ramses_cfl_rows_partials", "ramses_cfl_mhd_partials"):
+        if hasattr(lib, name):
+            return getattr(lib, name)()
+    raise AttributeError("the library sizes no CFL partials")
+
+
 def cfl_cases(cs, dtype: str, full: bool):
     """(name, run) of every mode of csrc/cfl_mhd.cu (periodic, shear,
     stratified shear, ghosted with and without a floor, ghosted shear; a
@@ -587,7 +604,7 @@ def cfl_cases(cs, dtype: str, full: bool):
     def case(entry, params, S, *args, ghost=0, floor=None):
         def run(lib):
             fn = getattr(lib, f"ramses_cfl_mhd_{entry}{sfx}")
-            partial = torch.empty(lib.ramses_cfl_mhd_partials(), dtype=S.dtype, device="cuda")
+            partial = torch.empty(cfl_partials(lib), dtype=S.dtype, device="cuda")
             work = [partial.data_ptr()]
             count = torch.zeros(1, dtype=torch.int32, device="cuda")
             if len(fn.argtypes) > 8 + len(args) + bool(ghost) + (floor is not None):
@@ -631,10 +648,155 @@ def cfl_cases(cs, dtype: str, full: bool):
            case("ghosted_shear_", params, U, ghost=params.ghost_width))
 
 
-def kernel_turns(cs, cases, libs: dict, order: list, card: str, tag: str, reps: int) -> None:
-    """Each case of ``cases`` (dissip_cases, cfl_cases): each library's
-    outputs against the first's of ``order`` (bitwise, else ULP), then the
-    times in the turns of ``order`` (CUDA events, ``reps`` launches)."""
+def cfl_hydro_cases(cs, dtype: str, full: bool):
+    """(name, run) of csrc/cfl_hydro.cu on the implode state (n^3: 72, rows
+    of a partial warp tile, or 256): the interior-only and the ghosted
+    layout, the latter with the jet's floor below and above the max, and
+    (72^3) a NaN cell: run(lib) launches one reduction through lib's C
+    entry point and returns ((inv,), a relaunch for timing). A parent
+    whose entry takes no block counter runs its two-launch reduction and,
+    given a floor, the torch.maximum its wrapper added."""
+    import torch
+    from ramsesgpu_tpu_torch.kernels.build import param_block
+    from ramsesgpu_tpu_torch.solvers.boundary import interior
+
+    sfx = "f64" if dtype == "float64" else "f32"
+    stream = torch.cuda.current_stream().cuda_stream
+    n = 256 if full else 72
+    params, U = cs.hydro_setup("implode", n, dtype)
+    S = interior(params, U).contiguous()
+    dims = (params.nx, params.ny, params.nz)
+
+    def case(A, off, floor=None):
+        def run(lib):
+            fn = getattr(lib, f"ramses_cfl_hydro_{sfx}")
+            out = torch.empty((), dtype=A.dtype, device="cuda")
+            if hasattr(lib, "ramses_cfl_hydro_partials"):
+                partial = torch.empty(lib.ramses_cfl_hydro_partials(), dtype=A.dtype,
+                                      device="cuda")
+                res = torch.empty_like(out)
+
+                def go():
+                    if fn(A.data_ptr(), partial.data_ptr(), out.data_ptr(), *dims, off,
+                          param_block(params), stream):
+                        raise RuntimeError("cfl_hydro launch failed")
+                    if floor is not None:
+                        torch.maximum(out, out.new_full((), floor), out=res)
+                result = out if floor is None else res
+            else:
+                partial = torch.empty(cfl_partials(lib), dtype=A.dtype, device="cuda")
+                count = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+                def go():
+                    if fn(A.data_ptr(), partial.data_ptr(), count.data_ptr(), out.data_ptr(),
+                          *dims, off, float("-inf") if floor is None else floor,
+                          param_block(params), stream):
+                        raise RuntimeError("cfl_hydro launch failed")
+                result = out
+            go()
+            return (result.clone(),), go
+        return run
+
+    yield f"cfl_hydro interior {n}^3", case(S, 0)
+    g = params.ghost_width
+    yield f"cfl_hydro ghosted {n}^3", case(U, g)
+    for floor in (1.0, 1e6):
+        yield f"cfl_hydro ghosted {n}^3, floor {floor:g}", case(U, g, floor)
+    if not full:
+        S_nan = S.clone()
+        S_nan[2, 3, 5, 7] = float("nan")
+        yield f"cfl_hydro interior {n}^3 NaN cell", case(S_nan, 0)
+
+
+def border_cases(cs, dtype: str, full: bool):
+    """(name, run) of csrc/shear_border.cu at the MRI's 128x256x128 or at
+    40x72x24 (a partial y run of the slab and border blocks): the x slabs;
+    the stratified MRI's x and z slabs (this checkout: one launch; a parent
+    with the separate z slab kernel launches it after its x slabs); the
+    border kernel plain, compensated (non-zero carries) and (40x72x24)
+    inactive: run(lib) launches through lib's C entry points and returns
+    (outputs, a relaunch for timing)."""
+    import torch
+    from ramsesgpu_tpu_torch.kernels.build import param_block
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.mhd_step import zslab_shape
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
+
+    sfx = "f64" if dtype == "float64" else "f32"
+    stream = torch.cuda.current_stream().cuda_stream
+    mri = (128, 256, 128) if full else (40, 72, 24)
+    size = "x".join(map(str, mri))
+
+    def slabs_case(params, S, kept, strat):
+        t = cs.shear_t0(params, S.dtype)
+        dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
+
+        def run(lib):
+            fn = getattr(lib, f"ramses_shear_slabs_{sfx}")
+            slabs = torch.empty((2, 8, params.nz, params.ny, 3), dtype=S.dtype, device="cuda")
+            Z = torch.empty(zslab_shape(params), dtype=S.dtype, device="cuda") if strat else None
+            tail = (params.nx, params.ny, params.nz, param_block(params), stream)
+            fused = len(fn.argtypes) == 11
+
+            def go():
+                if fused:
+                    err = fn(S.data_ptr(), kept.data_ptr(), slabs.data_ptr(),
+                             None if Z is None else Z.data_ptr(), t.data_ptr(), dt.data_ptr(),
+                             *tail)
+                else:
+                    err = fn(S.data_ptr(), kept.data_ptr(), slabs.data_ptr(), t.data_ptr(),
+                             dt.data_ptr(), *tail)
+                    if not err and Z is not None:
+                        err = getattr(lib, f"ramses_shear_zslabs_{sfx}")(
+                            S.data_ptr(), slabs.data_ptr(), Z.data_ptr(), *tail)
+                if err:
+                    raise RuntimeError(f"shear_slabs launch failed: CUDA error {err}")
+            go()
+            return (slabs.clone(),) + (() if Z is None else (Z.clone(),)), go
+        return run
+
+    def border_case(params, S, kept, active):
+        t = cs.shear_t0(params, S.dtype)
+        dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        planes = 1e-3 * torch.randn((5, params.nz, params.ny), generator=gen, device="cuda",
+                                    dtype=S.dtype)
+        flag = torch.tensor(active, device="cuda")
+
+        def run(lib):
+            fn = getattr(lib, f"ramses_shear_border_{sfx}")
+            Sw, kw = S.clone(), kept.clone()
+            rem = torch.zeros((4, params.nz, params.ny), dtype=S.dtype, device="cuda")
+
+            def go():
+                err = fn(Sw.data_ptr(), kw.data_ptr(), planes.data_ptr(), rem.data_ptr(),
+                         t.data_ptr(), dt.data_ptr(), flag.data_ptr(), int(params.compensated),
+                         params.nx, params.ny, params.nz, param_block(params), stream)
+                if err:
+                    raise RuntimeError(f"shear_border launch failed: CUDA error {err}")
+            go()
+            return (Sw.clone(), kw.clone(), rem.clone()), go
+        return run
+
+    params, _config, (S, kept) = cs.mri_setup(*mri, dtype)
+    yield f"shear_slabs {size}", slabs_case(params, S, kept, False)
+    yield f"shear_border {size}", border_case(params, S, kept, True)
+    if not full:
+        yield f"shear_border {size} inactive", border_case(params, S, kept, False)
+    params, _config, (S, kept) = cs.mri_setup(*mri, dtype, compensated=None)
+    S, kept = cs.comp_state(S, kept, 33)
+    yield f"shear_border compensated {size}", border_case(params, S, kept, True)
+    params, _config, (S, kept), _gz = cs.strat_setup(*mri, dtype, seed=33)
+    yield f"shear_slabs stratified (x and z slabs) {size}", slabs_case(params, S, kept, True)
+
+
+def kernel_turns(cs, cases, libs: dict, order: list, card: str, tag: str, reps: int,
+                 device: bool = False) -> None:
+    """Each case of ``cases`` (dissip_cases, cfl_cases, ...): each
+    library's outputs against the first's of ``order`` (bitwise, else ULP),
+    then the times in the turns of ``order`` (CUDA events, ``reps``
+    launches; with ``device``, each also as device time by torch.profiler,
+    free of the launches' host overhead)."""
     import torch
 
     first = order[0]
@@ -643,7 +805,9 @@ def kernel_turns(cs, cases, libs: dict, order: list, card: str, tag: str, reps: 
         for who in order:
             got, again = run(libs[who])
             outs.setdefault(who, got)
-            times.append((who, cs.time_ms(again, reps)))
+            ms = cs.time_ms(again, reps)
+            times.append((who, f"{ms:.4f} ms" + (f" (device {cs.device_ms(again):.4f})"
+                                                if device else "")))
             del got, again
         diffs = "; ".join(
             f"{who}: " + ("bitwise equal" if all(d[0] == 0 for d in ds) else
@@ -652,7 +816,7 @@ def kernel_turns(cs, cases, libs: dict, order: list, card: str, tag: str, reps: 
             for who in outs if who != first
             for ds in [[ulp_diff(t, p) for t, p in zip(outs[who], outs[first])]])
         print(f"[{tag}] {name} ({card}): against {first}: {diffs}; "
-              + ", ".join(f"{who} {ms:.4f} ms" for who, ms in times), flush=True)
+              + ", ".join(f"{who} {ms}" for who, ms in times), flush=True)
         del outs
         torch.cuda.empty_cache()
 
@@ -708,7 +872,7 @@ def parent(tree: str, parts: list) -> None:
 
     card = cs.card_line()
     libs = {"parent": tree_library(tree, "parent"), "this": b.load_library("cuda")}
-    parts = parts or ["step", "hydro", "dissip", "cfl"]
+    parts = parts or ["step", "hydro", "dissip", "cfl", "cfl_hydro", "border"]
     # the dissipation and MHD CFL kernels: every mode bitwise or in ULP at
     # 72^3-sized grids (partial tiles and rows), f32 and f64, then in turns
     # at the main paths' sizes
@@ -723,6 +887,14 @@ def parent(tree: str, parts: list) -> None:
             kernel_turns(cs, cfl_cases(cs, dtype, False), libs, turns, card, "parent", 3)
         for dtype in ("float32", "float64"):
             kernel_turns(cs, cfl_cases(cs, dtype, True), libs, turns, card, "parent", 50)
+    # the hydro CFL kernel and the shear border kernels, likewise
+    for part, cases in (("cfl_hydro", cfl_hydro_cases), ("border", border_cases)):
+        if part in parts:
+            for dtype in ("float32", "float64"):
+                kernel_turns(cs, cases(cs, dtype, False), libs, turns, card, "parent", 3)
+            for dtype in ("float32", "float64"):
+                kernel_turns(cs, cases(cs, dtype, True), libs, turns, card, "parent", 50,
+                             device=True)
     if "step" not in parts and "hydro" not in parts:
         return
     if "step" not in parts:

@@ -582,9 +582,10 @@ def test_compensated_and_stratified_kernels_match_twins(cuda_device, dtype, name
     (state, carries, kept face and its carry) bitwise."""
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
-    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.kernels.mhd_step import zslab_shape
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs
     from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_shear_update, shear_border_update
-    from ramsesgpu_tpu_torch.solvers.shear import stratified_zslabs
+    from ramsesgpu_tpu_torch.solvers.shear import shear_slabs as slabs_twin, stratified_zslabs
     from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_shear
 
     params, _config, (S, kept), t0, gz = shipped_mri(name, dtype, cuda_device, (16, 32, 32))
@@ -592,12 +593,13 @@ def test_compensated_and_stratified_kernels_match_twins(cuda_device, dtype, name
     assert abs(float(inv) - float(inv_ref)) <= TOL[dtype] * float(inv_ref)
     dt = dt_from_inv(params, inv_ref)
     active = torch.ones((), dtype=torch.bool, device=cuda_device)
-    slabs = shear_slabs(params, S, kept, t0, dt)
-    shear, zslabs = (slabs, torch.zeros((5, params.nz, params.ny), dtype=S.dtype,
-                                        device=cuda_device)), None
+    zslabs = None if gz is None else torch.empty(zslab_shape(params), dtype=S.dtype,
+                                                 device=cuda_device)
+    slabs = shear_slabs(params, S, kept, t0, dt, zout=zslabs)
+    assert torch.equal(slabs, slabs_twin(params, S[:8], kept[0], t0 + dt))
+    shear = (slabs, torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device=cuda_device))
     if gz is not None:
-        zslabs = stratified_zslabs(params, S[:8], slabs)
-        assert torch.equal(shear_zslabs(params, S, slabs), zslabs)
+        assert torch.equal(zslabs, stratified_zslabs(params, S[:8], slabs))
         shear = shear + (zslabs, gz)
     scratch = mhd_step.scratch(params, S)
     S1 = mhd_step(params, S.clone(), dt, active, scratch, shear=shear)
@@ -640,24 +642,24 @@ def test_compensated_periodic_kernels_match_twins(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_stratified_loop_counts_launches(cuda_device):
-    """Each step of the stratified MRI loop launches the CFL, the x slabs,
-    the z slabs, the step and the border kernel once; the loop equals the
-    twins' loop within TOL after 3 steps."""
+    """Each step of the stratified MRI loop launches the CFL, the slab
+    kernel (x and z slabs), the step and the border kernel once; the loop
+    equals the twins' loop within TOL after 3 steps."""
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
-    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs
     from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_shear_step
     from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
     from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_shear
 
-    wrappers = (cfl_mhd, shear_slabs, shear_zslabs, mhd_step, shear_border)
+    wrappers = (cfl_mhd, shear_slabs, mhd_step, shear_border)
     params, config, state0, t0, gz = shipped_mri("mhd_mri_3d_stratified.ini", "float32",
                                                  cuda_device, (16, 32, 32))
     _pack, advance, unpack = make_packed_advance_chain(params, cuda_device, config)
     before = [w.launches for w in wrappers]
     state, t, k = advance(tuple(x.clone() for x in state0), t0, 3)
     assert int(k) == 3
-    assert [w.launches - b for w, b in zip(wrappers, before)] == [3] * 5
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [3] * 4
     twin, t_t = state0, t0
     for _ in range(3):
         dt = dt_from_inv(params, inv_dt_mhd_shear(params, twin[0], twin[1][0]))
@@ -686,8 +688,8 @@ def test_zcarry_mhd_matches_twin_and_staged(cuda_device, dtype, mode):
     inverse dt against the CFL kernel on the kernel's output (4 ULP), and an
     inactive step (a copy)."""
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
-    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
-    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs, shear_zslabs
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step, zslab_shape
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs
     from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
     from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_periodic_update, mhd_3d_shear_update
     from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_periodic, inv_dt_mhd_shear
@@ -705,10 +707,12 @@ def test_zcarry_mhd_matches_twin_and_staged(cuda_device, dtype, mode):
         if mode == "shear-adiabatic":
             params = params.replace(c_iso=0.0)
         dt = dt_from_inv(params, inv_dt_mhd_shear(params, S, kept[0]))
-        slabs = shear_slabs(params, S, kept, t0, dt)
+        zslabs = None if gz is None else torch.empty(zslab_shape(params), dtype=S.dtype,
+                                                     device=cuda_device)
+        slabs = shear_slabs(params, S, kept, t0, dt, zout=zslabs)
         shear = (slabs, torch.zeros((5, params.nz, params.ny), dtype=S.dtype, device=cuda_device))
         if gz is not None:
-            shear = shear + (shear_zslabs(params, S, slabs), gz)
+            shear = shear + (zslabs, gz)
     active = torch.ones((), dtype=torch.bool, device=cuda_device)
     out = torch.empty_like(S)
     fold = shear is None

@@ -16,6 +16,7 @@ step counts; t within rtol 1e-6 (f32) / 1e-12 (f64); interior relative L2
 <= 2e-6 (f32) / 1e-11 (f64).
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -282,7 +283,8 @@ def test_csrc_host_build_matches_twins(dtype):
         inv_ref = compute_inv_dt_hydro(params, S, ghost=0)
         for state, off in ((S, 0), (U, 2)):
             inv = torch.zeros((), dtype=S.dtype)
-            assert cfl(state.data_ptr(), None, inv.data_ptr(), *dims, off, blk, None) == 0
+            assert cfl(state.data_ptr(), None, None, inv.data_ptr(), *dims, off, -math.inf, blk,
+                       None) == 0
             assert torch.equal(inv, inv_ref), label
 
         dt = dt_from_inv(params, inv_ref)
@@ -302,6 +304,49 @@ def test_csrc_host_build_matches_twins(dtype):
             err = float(torch.linalg.norm((out - want).flatten()) / torch.linalg.norm(want.flatten()))
             assert err <= TOL_HOST[dtype], (label, ghosted, err)
         assert torch.equal(outs[0], outs[1]), label
+
+
+# csrc/cfl_hydro.cu's rows: 37 cells (no multiple of a warp's 32 U cells)
+# and 64 (on the unit x extent: dx a power of two), 15 rows (no multiple of
+# a block's 8 warps)
+@pytest.mark.parametrize("dims", [(37, 5, 3), (64, 3, 5)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_csrc_host_build_cfl_hydro_edges(dtype, dims):
+    """csrc/cfl_hydro.cu built with g++ on short and partial rows, both
+    layouts (interior-only and ghosted): bitwise the twin; the jet's floor
+    taken in the kernel below and above the max; a NaN cell propagates
+    past the floor."""
+    from test_torch_hydro_ops import ini_text, random_state
+
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+    from ramsesgpu_tpu_torch.solvers.boundary import interior
+    from ramsesgpu_tpu_torch.solvers.timestep import compute_inv_dt_hydro
+
+    lib = load_library("host")
+    cfl = getattr(lib, f"ramses_cfl_hydro_{'f32' if dtype == 'float32' else 'f64'}")
+    nx, ny, nz = dims
+    text = ini_text(dtype, bcs=(3,) * 6).replace("nx=16\nny=16\nnz=16",
+                                                 f"nx={nx}\nny={ny}\nnz={nz}")
+    params = params_from_config(ConfigMap(text=text))
+    assert (params.nx, params.ny, params.nz) == dims
+    U = torch.from_numpy(random_state(params, np.random.default_rng(23), dtype))
+    S = interior(params, U).contiguous()
+    want = compute_inv_dt_hydro(params, S, ghost=0)
+    g = params.ghost_width
+    for floor in (-math.inf, 0.5 * float(want), 2.0 * float(want)):
+        expect = torch.maximum(want, want.new_full((), floor))
+        for state, off in ((S, 0), (U, g)):
+            for nan in (False, True):
+                A = state.clone()
+                if nan:
+                    A[3, off + nz - 1, off + ny - 1, off + nx - 1] = float("nan")
+                inv = torch.zeros((), dtype=S.dtype)
+                assert cfl(A.data_ptr(), None, None, inv.data_ptr(), nx, ny, nz, off, floor,
+                           param_block(params), None) == 0
+                if nan:
+                    assert torch.isnan(inv), (floor, off)
+                else:
+                    assert torch.equal(inv, expect), (floor, off)
 
 
 def test_convert_roundtrips_match_jax_layouts():

@@ -487,8 +487,8 @@ def test_csrc_host_build_matches_shear_twins(dtype):
 
         slabs = torch.empty((2, 8, nz, ny, 3), dtype=tdt)
         assert getattr(lib, f"ramses_shear_slabs_{sfx}")(
-            S0.data_ptr(), kept0.data_ptr(), slabs.data_ptr(), t.data_ptr(), dt.data_ptr(),
-            *dims, blk, None) == 0
+            S0.data_ptr(), kept0.data_ptr(), slabs.data_ptr(), None, t.data_ptr(),
+            dt.data_ptr(), *dims, blk, None) == 0
         slabs_ref = shear_slabs(params, S0, kept0, t + dt)
         assert torch.equal(slabs, slabs_ref), ciso
 
@@ -514,6 +514,63 @@ def test_csrc_host_build_matches_shear_twins(dtype):
             assert rel(planes, planes_ref) <= TOL_HOST[dtype], ciso
             assert torch.equal(S2, S2_ref) and torch.equal(kept2, kept2_ref), ciso
             assert torch.equal(rem, rem_ref), ciso
+
+
+def shifted_t(params, cells: float) -> float:
+    """A time whose sheared-fill offset deltay/dy is ``cells``."""
+    return cells * params.dy / (1.5 * params.omega0 * params.dx * params.nx)
+
+
+# ny = 70 leaves a partial y run of csrc/shear_border.cu's slab blocks (16
+# rows) and of its border blocks (128 rows); a fill shift of 66.7 cells
+# wraps the slab blocks' source window around y
+@pytest.mark.parametrize("shift", [2.5, 66.7])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_csrc_host_build_shear_border_partial_blocks(dtype, shift):
+    """csrc/shear_border.cu built with g++ on a 6x70x3 box: the x slabs, and
+    the border kernel plain and compensated (non-zero carries), bitwise the
+    twins: the border columns, the kept face, their carries, the remapped
+    planes; the inactive border kernel changes nothing."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import shear_border_update
+    from ramsesgpu_tpu_torch.solvers.shear import shear_slabs
+
+    lib = load_library("host")
+    sfx = "f32" if dtype == "float32" else "f64"
+    tdt = torch.float32 if dtype == "float32" else torch.float64
+    base = params_from_config(ConfigMap(text=ini(dtype)))
+    nx, ny, nz = 6, 70, 3
+    params = base.replace(nx=nx, ny=ny, nz=nz, xmax=base.xmin + nx * base.dx,
+                          ymax=base.ymin + ny * base.dy, zmax=base.zmin + nz * base.dz)
+    dims, blk = (nx, ny, nz), param_block(params)
+    rng = np.random.default_rng(13)
+    S, kept = (torch.from_numpy(np.ascontiguousarray(a)).to(tdt)
+               for a in loop_state(params, random_state(params, rng)))
+    t = torch.tensor(shifted_t(params, shift), dtype=tdt)
+    dt = torch.tensor(0.01 * float(t), dtype=tdt)
+
+    slabs = torch.full((2, 8, nz, ny, 3), float("nan"), dtype=tdt)
+    assert getattr(lib, f"ramses_shear_slabs_{sfx}")(
+        S.data_ptr(), kept.data_ptr(), slabs.data_ptr(), None, t.data_ptr(), dt.data_ptr(),
+        *dims, blk, None) == 0
+    assert torch.equal(slabs, shear_slabs(params, S, kept, t + dt))
+
+    planes = torch.from_numpy(rng.standard_normal((5, nz, ny))).to(tdt)
+    eps = torch.finfo(tdt).eps
+    gen = torch.Generator().manual_seed(17)
+    S16 = torch.cat([S, eps * S * torch.randn(S.shape, generator=gen, dtype=tdt)])
+    kept2 = torch.stack([kept, eps * kept * torch.randn(kept.shape, generator=gen, dtype=tdt)])
+    border = getattr(lib, f"ramses_shear_border_{sfx}")
+    for comp, (S0, k0) in enumerate(((S, kept), (S16, kept2))):
+        want = shear_border_update(params, S0, k0, planes, t, dt)
+        for active in (False, True):
+            S1, k1 = S0.clone(), k0.clone()
+            rem = torch.zeros((4, nz, ny), dtype=tdt)
+            assert border(S1.data_ptr(), k1.data_ptr(), planes.data_ptr(), rem.data_ptr(),
+                          t.data_ptr(), dt.data_ptr(), torch.tensor(active).data_ptr(), comp,
+                          *dims, blk, None) == 0
+            expect = want if active else (S0, k0, torch.zeros_like(rem))
+            assert all(torch.equal(a, b) for a, b in zip((S1, k1, rem), expect)), (comp, active)
 
 
 # -------------------------------------------------------------------------

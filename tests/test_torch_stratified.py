@@ -381,10 +381,10 @@ def test_step_fn_equals_one_loop_step(jax_refs):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_csrc_host_build_matches_stratified_twins(dtype):
     """The stratified modes of csrc/cfl_mhd.cu and csrc/mhd_step.cu and the
-    z slab kernel of csrc/shear_border.cu, built with g++, against the twins
-    on the shipped ini's state with non-zero carries: the CFL and the step
-    within 1e-6 / 1e-13, the z slabs and the update stage on its own
-    fluxes bitwise."""
+    slab kernel of csrc/shear_border.cu with its z slabs, built with g++,
+    against the twins on the shipped ini's state with non-zero carries: the
+    CFL and the step within 1e-6 / 1e-13, the x and z slabs and the update
+    stage on its own fluxes bitwise."""
     from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
     from ramsesgpu_tpu_torch.kernels.mhd_step import scratch_fluxes
     from ramsesgpu_tpu_torch.kernels.shear import pack
@@ -419,8 +419,11 @@ def test_csrc_host_build_matches_stratified_twins(dtype):
     t0 = torch.tensor(t_start(params), dtype=tdt)
     slabs = shear_slabs(params, S[:8], kept[0], t0 + dt)
     zslabs = torch.empty((2, 8, 3, params.ny, params.nx + 6), dtype=tdt)
-    assert getattr(lib, f"ramses_shear_zslabs_{sfx}")(
-        S.data_ptr(), slabs.data_ptr(), zslabs.data_ptr(), *dims, blk, None) == 0
+    slabs_k = torch.empty_like(slabs)
+    assert getattr(lib, f"ramses_shear_slabs_{sfx}")(
+        S.data_ptr(), kept.data_ptr(), slabs_k.data_ptr(), zslabs.data_ptr(), t0.data_ptr(),
+        dt.data_ptr(), *dims, blk, None) == 0
+    assert torch.equal(slabs_k, slabs)
     assert torch.equal(zslabs, stratified_zslabs(params, S[:8], slabs))
     scratch = torch.empty(lib.ramses_mhd_step_shear_scratch(*dims, 1), dtype=tdt)
     planes = torch.zeros((5, params.nz, params.ny), dtype=tdt)
@@ -441,3 +444,57 @@ def test_csrc_host_build_matches_stratified_twins(dtype):
     for got, want in ((S1[:8], S1_t[:8]), (planes, planes_t)):
         err = torch.linalg.norm((got - want).double()) / torch.linalg.norm(want.double())
         assert float(err) <= tol
+
+
+# ny = 70: a partial y run of csrc/shear_border.cu's slab and border
+# blocks; nz = 2: every slab block writes z ghosts
+@pytest.mark.parametrize("nz", [2, 5])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_csrc_host_build_stratified_slabs_partial_blocks(dtype, nz):
+    """csrc/shear_border.cu's stratified slab launch built with g++ on a
+    6x70xnz box: the x slabs and the z slabs bitwise the twins and the
+    wrappers' CPU entry points (kernels/shear_border.py shear_slabs with
+    zout, shear_zslabs); then the border kernel on the shipped
+    (compensated) state, inactive (nothing changes) and active (bitwise the
+    twin)."""
+    from ramsesgpu_tpu_torch.kernels import shear_border as wrappers
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import shear_border_update
+    from ramsesgpu_tpu_torch.solvers.shear import shear_slabs, stratified_zslabs
+
+    lib = load_library("host")
+    sfx = "f32" if dtype == "float32" else "f64"
+    tdt = torch.float32 if dtype == "float32" else torch.float64
+    params = params_from_config(ConfigMap(text=strat_text(dtype, 6, 70, nz)))
+    rng = np.random.default_rng(29)
+    U = torch.from_numpy(random_state(params, rng, dtype))
+    g, nx, ny = params.ghost_width, params.nx, params.ny
+    S8 = U[:, g:-g, g:-g, g:g + nx].contiguous()
+    eps = torch.finfo(tdt).eps
+    S = torch.cat([S8, eps * S8 * torch.from_numpy(rng.standard_normal(S8.shape)).to(tdt)])
+    kept = torch.stack([U[5, g:-g, g:-g, nx + g], eps * U[5, g:-g, g:-g, nx + g]]).contiguous()
+    dims, blk = (nx, ny, nz), param_block(params)
+    t = torch.tensor(t_start(params), dtype=tdt)
+    dt = torch.tensor(0.01 * float(t), dtype=tdt)
+
+    slabs = torch.full((2, 8, nz, ny, 3), float("nan"), dtype=tdt)
+    zslabs = torch.full((2, 8, 3, ny, nx + 6), float("nan"), dtype=tdt)
+    assert getattr(lib, f"ramses_shear_slabs_{sfx}")(
+        S.data_ptr(), kept.data_ptr(), slabs.data_ptr(), zslabs.data_ptr(), t.data_ptr(),
+        dt.data_ptr(), *dims, blk, None) == 0
+    assert torch.equal(slabs, shear_slabs(params, S8, kept[0], t + dt))
+    assert torch.equal(zslabs, stratified_zslabs(params, S8, slabs))
+    zout = torch.empty_like(zslabs)
+    assert torch.equal(wrappers.shear_slabs(params, S, kept, t, dt, zout=zout), slabs)
+    assert torch.equal(zout, zslabs)
+    assert torch.equal(wrappers.shear_zslabs(params, S, slabs), zslabs)
+
+    planes = torch.from_numpy(1e-3 * rng.standard_normal((5, nz, ny))).to(tdt)
+    want = shear_border_update(params, S, kept, planes, t, dt)
+    for active in (False, True):
+        S1, k1, rem = S.clone(), kept.clone(), torch.zeros((4, nz, ny), dtype=tdt)
+        assert getattr(lib, f"ramses_shear_border_{sfx}")(
+            S1.data_ptr(), k1.data_ptr(), planes.data_ptr(), rem.data_ptr(), t.data_ptr(),
+            dt.data_ptr(), torch.tensor(active).data_ptr(), 1, *dims, blk, None) == 0
+        expect = want if active else (S, kept, torch.zeros_like(rem))
+        assert all(torch.equal(a, b) for a, b in zip((S1, k1, rem), expect)), active

@@ -29,6 +29,7 @@ on the CPU.
   test files (see CASES).
 """
 import ctypes
+import math
 import os
 import subprocess
 import sys
@@ -445,7 +446,8 @@ def test_host_zcarry_hydro(dtype, grid, solver):
             assert rel(out, hydro_3d_state_update(params, S, dt)) <= TOL_HOST[S.dtype]
         inv_cfl = torch.zeros((), dtype=S.dtype)
         assert getattr(lib, f"ramses_cfl_hydro_{sfx}")(
-            out.data_ptr(), None, inv_cfl.data_ptr(), nx, ny, nz, 0, blk, None) == 0
+            out.data_ptr(), None, None, inv_cfl.data_ptr(), nx, ny, nz, 0, -math.inf, blk,
+            None) == 0
         assert float(inv) == float(inv_cfl) == float(compute_inv_dt_hydro(params, out, ghost=0))
 
 
