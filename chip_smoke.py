@@ -158,8 +158,38 @@ Phases, in order; any failure raises and no result line is printed:
      h5py is not installed), with 37's gates and its comparison with the
      single-rank path; the stratified box's mass change is the
      single-rank path's (its z faces let mass out);
- then the MHD step kernel's rows (A, A', 3, 4, 12) with their times and
- bounds, the kernels JSON line, the card line, and the result line.
+ 39. the isothermal instances (cIso > 0) of rows A (plain, compensated), B,
+     3 and 12 against their twins on an isothermal turbulence state at
+     64^3 (data/turbulence_mhd_ou.ini's physics, a Mach 1 flow, a
+     divergence-free field), f32 + f64: the CFL (periodic, ghosted; the
+     adiabatic instance reads another pressure there), one step streamed
+     and staged, the folded inverse dt against the CFL kernel, an inactive
+     step, 10 chained loop steps (kernel=auto and zcarry) against the twins'
+     loop, the dissipation kernel's isothermal periodic mode, the ghosted
+     step;
+ 40. both forcings (ops/forcing.py) on the card against their CPU results
+     on the same tensors and draws (3 kicks at 64^3, f32 + f64), and 10
+     steps of the forced loops (static and OU MHD, OU hydro) against the
+     twins' forced loop with the same draws;
+ 41. the forced paths at 256^3 f32 through make_forced_chain: the physics
+     of data/turbulence_mhd.ini (41a; 41z with kernel=zcarry),
+     turbulence_mhd_ou.ini (41b), turbulence_hydro.ini (41h) and
+     turbulence_hydro_ou.ini (41o): 2 warm-up + 3 timed chunks of 10 steps,
+     ms/step, cells/s, launches per step (one CFL launch a step, kernel=zcarry
+     too), peak memory; finite, rho > 0, mass within 1e-5, MHD max|divB|,
+     the static kick's kinetic energy = n_cells dt edot within 1e-4; a
+     profiled chunk's idle share and the forcing's share of device time;
+     41c: phase 5's workload isothermal (cIso = 1) and compensated; 41w:
+     phase 34's walled path isothermal (cIso = 1, rows 3 and its CFL); 41k:
+     the isothermal instances of rows A, B, 12 and A' at 256^3 against their
+     twins, their times and bounds;
+ 42. the four turbulence inputs as shipped through the CLI's main(), at
+     most 50 steps each (no HDF5 snapshots where h5py is not installed):
+     launches, and turbulence_mhd_ou.ini's history file (written, parsed,
+     its mass column constant to 1e-5);
+ then the MHD step kernel's rows (A, A', 3, 4, 12, and the isothermal
+ instances) with their times and bounds, the kernels JSON line, the card
+ line, and the result line.
 Imports nothing of JAX; of this repo it imports only ramsesgpu_tpu_torch.
 """
 from __future__ import annotations
@@ -294,6 +324,25 @@ KERNELS = {
                        "ramsesgpu_tpu/pallas/packed_io.py:51 (its reduction on a rank's ghosted "
                        "shearing-box block; the JAX sharded path runs it in XLA, "
                        "parallel/sharded_step.py:551-556)"),
+    # the isothermal instances (cIso > 0: the turbulence inputs, phases 39-42)
+    "mhd_step_iso": ("ramsesgpu_tpu_torch/csrc/mhd_step.cu",
+                     "ramsesgpu_tpu/pallas/packed_io.py:423 (make_packed_io_step, MHD body "
+                     "fused_mhd3d.py:228, cIso > 0)"),
+    "cfl_mhd_iso": ("ramsesgpu_tpu_torch/csrc/cfl_mhd.cu",
+                    "ramsesgpu_tpu/pallas/packed_io.py:125 (make_packed_cfl_mhd, the isothermal "
+                    "pressure of solvers/timestep.py:117-118)"),
+    "zcarry_mhd_iso": ("ramsesgpu_tpu_torch/csrc/zcarry_mhd.cu",
+                       "ramsesgpu_tpu/pallas/zcarry_mhd3d.py:670 (make_zcarry_mhd_packed_io, "
+                       "cIso > 0)"),
+    "mhd_step_comp_iso": ("ramsesgpu_tpu_torch/csrc/mhd_step.cu",
+                          "ramsesgpu_tpu/pallas/fused_mhd3d.py:247 (the packed-io step on 2*nvar "
+                          "channels, cIso > 0)"),
+    "mhd_step_ghosted_iso": ("ramsesgpu_tpu_torch/csrc/mhd_step.cu",
+                             "ramsesgpu_tpu/pallas/fused_mhd3d.py:173 (make_fused_mhd_update, "
+                             "cIso > 0)"),
+    "cfl_mhd_ghosted_iso": ("ramsesgpu_tpu_torch/csrc/cfl_mhd.cu",
+                            "ramsesgpu_tpu/pallas/packed_io.py:125 (its isothermal reduction on "
+                            "the ghosted state)"),
 }
 # ms/step of these paths in the version before the compensated and
 # stratified modes, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
@@ -627,12 +676,12 @@ def diffusion_numbers(label: str, params, dts: dict) -> None:
 
 
 def phase5(card: str, label: str = "5", nu: float = 0.0, eta: float = 0.0,
-           compensated: bool = False, kernel: str = "auto"):
+           compensated: bool = False, kernel: str = "auto", c_iso: float = 0.0):
     """The periodic MHD main path, ideal or (phase 17) with viscosity nu and
     resistivity eta, plain or (phases 22, 22d) with the Kahan-compensated
     state, on the staged step kernel or (kernel=zcarry, phases 29, 29c)
-    the streamed one; returns its launch counts and (params, S, t) at its
-    end."""
+    the streamed one, adiabatic or (phase 41c) isothermal with c_iso;
+    returns its launch counts and (params, S, t) at its end."""
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
     from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries_concat
     from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
@@ -641,7 +690,7 @@ def phase5(card: str, label: str = "5", nu: float = 0.0, eta: float = 0.0,
     n, chunk = 256, 10
     params, S_init = setup(n, "float32")
     dt_first = float(dt_from_inv(params, cfl_mhd(params, S_init)))
-    params = params.replace(nu=nu, eta=eta, compensated=compensated, kernel=kernel)
+    params = params.replace(nu=nu, eta=eta, compensated=compensated, kernel=kernel, c_iso=c_iso)
     U = make_boundaries_concat(params, S_init, interior_only=True)
     del S_init
     mass0 = float(U[0, 3:-3, 3:-3, 3:-3].double().sum())
@@ -3020,7 +3069,9 @@ def check_walled_state(label: str, params, U: torch.Tensor) -> str:
     inner = interior(params, U)
     rho_min = float(inner[0].min())
     if params.mhd:
-        p_min = float(mhd_pressure(params, U).min())
+        # (isothermal: the pressure is rho cIso^2)
+        p_min = (rho_min * params.c_iso ** 2 if params.c_iso > 0
+                 else float(mhd_pressure(params, U).min()))
         divb = div_b_ghosted(params, U)
         b_over_dx = max(float(inner[5].abs().max()), 1e-10) / params.dx
         text = (f"min rho {rho_min:.4e}, min p {p_min:.4e}, max|divB| {divb:.3e} "
@@ -3035,9 +3086,10 @@ def check_walled_state(label: str, params, U: torch.Tensor) -> str:
     return text
 
 
-def phase34(card: str, n_twin: int) -> dict:
+def phase34(card: str, n_twin: int, label: str = "34", c_iso: float = 0.0) -> dict:
     """The walled MHD main path: data/testRiemannHLLD.ini's physics (3D
-    Brio-Wu, six NEUMANN faces) at 256^3 f32 through
+    Brio-Wu, six NEUMANN faces; phase 41w: isothermal, c_iso, the
+    kernels' isothermal ghosted instances, named with _iso) at 256^3 f32 through
     make_packed_advance_chain, 2 warm-up + 3 timed chunks of 10 steps; its
     launches, peak memory, gates and one profiled chunk (device time by
     kernel: step, CFL, fill); then the ghosted step and CFL kernels with
@@ -3057,30 +3109,32 @@ def phase34(card: str, n_twin: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     config, params = shipped(HLLD_INI, "float32", (n, n, n))
+    params = params.replace(c_iso=c_iso)
+    sfx = "_iso" if c_iso > 0 else ""
     U = ghosted_state(config, params)
     g = params.ghost_width
     pack, advance, unpack = make_packed_advance_chain(params, "cuda")
     t = torch.zeros((), dtype=torch.float32, device="cuda")
-    with counted_main_path("34", {"mhd_step": steps, "cfl_mhd": steps}) as launches:
+    with counted_main_path(label, {"mhd_step": steps, "cfl_mhd": steps}) as launches:
         S = pack(U)
         del U
-        S, t, _dt = run_chunks("34", card, advance, S, t, n, chunk)
+        S, t, _dt = run_chunks(label, card, advance, S, t, n, chunk)
     peak = torch.cuda.max_memory_allocated() - base
-    gates = check_walled_state("34", params, S)
-    print(f"[34] {steps} steps at {n}^3 f32 (six NEUMANN faces) on {card}: t={float(t)!r}, "
+    gates = check_walled_state(label, params, S)
+    print(f"[{label}] {steps} steps at {n}^3 f32 (six NEUMANN faces) on {card}: t={float(t)!r}, "
           f"{gates}; launches per step: mhd_step {launches['mhd_step'] / steps:g}, cfl_mhd "
           f"{launches['cfl_mhd'] / steps:g}; peak allocated {peak / 1e9:.3f} GB (ghosted state "
           f"{S.numel() * 4 / 1e9:.3f} GB, stage buffer "
           f"{mhd_step.scratch_size(load_library('cuda'), params, True) * 4 / 1e9:.3f} GB)")
     if tuple(unpack(S, t).shape) != params.shape:
-        raise AssertionError("34: unpacked shape")
-    rows = profile_chunk("34p", card, advance, S, t, chunk)
+        raise AssertionError(f"{label}: unpacked shape")
+    rows = profile_chunk(f"{label}p", card, advance, S, t, chunk)
     parts = {"step": 0.0, "cfl": 0.0, "fill": 0.0}
     for key, (us, _count) in rows.items():
-        part = "step" if "mhd::" in key else "cfl" if "max_" in key else "fill"
+        part = "step" if "mhd::" in key else "cfl" if "cfl_rows" in key else "fill"
         parts[part] += us
     busy = sum(parts.values())
-    print("[34p] device time per step by part: " + ", ".join(
+    print(f"[{label}p] device time per step by part: " + ", ".join(
         f"{k} {v / 1e3 / chunk:.4f} ms ({100 * v / busy:.1f} %)" for k, v in parts.items()))
 
     # the kernels on the path's end state, filled as the loop fills it
@@ -3098,6 +3152,7 @@ def phase34(card: str, n_twin: int) -> dict:
     bound_input = W[:, :32 + 2 * g, :32 + 2 * g, :32 + 2 * g].double().cpu().contiguous()
     if n_twin != n:
         config, params = shipped(HLLD_INI, "float32", (n_twin,) * 3)
+        params = params.replace(c_iso=c_iso)
         W = ghosted_state(config, params, seed=35)
         inv = cfl_mhd(params, W, ghost=g)
         dt = dt_from_inv(params, inv)
@@ -3114,9 +3169,9 @@ def phase34(card: str, n_twin: int) -> dict:
              "cfl_mhd_ghosted": time_ms(lambda: inv_dt_mhd_ghosted(params, W), 10)}
     tol = {"mhd_step_ghosted": TOL_STEP1["float32"], "cfl_mhd_ghosted": TOL_CFL["float32"]}
     for name in ms:
-        check(f"34 {name} at {n_twin}^3 f32 (the path's state)", rel[name], tol[name],
+        check(f"{label} {name} at {n_twin}^3 f32 (the path's state)", rel[name], tol[name],
               f", max abs {errs[name]:.3e}")
-        print(f"[34] {name}: kernel {ms[name]:.3f} ms at {n}^3 (CUDA events), twin "
+        print(f"[{label}] {name}: kernel {ms[name]:.3f} ms at {n}^3 (CUDA events), twin "
               f"{plain[name]:.3f} ms at {n_twin}^3 (f32, {card})")
     del W
 
@@ -3133,14 +3188,15 @@ def phase34(card: str, n_twin: int) -> dict:
     # three face fields written once; the CFL reads the interior's 8 values
     nbytes = {"mhd_step_ghosted": 4 * (8 * ng + 8 * cells + 3 * ((n + 1) ** 3 - cells)),
               "cfl_mhd_ghosted": 4 * 8 * cells}
-    bounds = {name: bound("34", name, nbytes[name], ops[name] * cells, f"{n}^3", cells)
+    bounds = {name: bound(label, name, nbytes[name], ops[name] * cells, f"{n}^3", cells)
               for name in ms}
     for name in ms:
-        print(f"[34] {name}: {ms[name]:.3f} ms against its bound {bounds[name][0]:.4f} ms "
+        print(f"[{label}] {name}: {ms[name]:.3f} ms against its bound {bounds[name][0]:.4f} ms "
               f"({ms[name] / bounds[name][0]:.1f}x)")
-    return {"ms": ms, "plain_ms": plain, "max_abs_err": errs, "bounds": bounds,
-            "launches": {"mhd_step_ghosted": launches["mhd_step"],
-                         "cfl_mhd_ghosted": launches["cfl_mhd"]}}
+    out = {"ms": ms, "plain_ms": plain, "max_abs_err": errs, "bounds": bounds,
+           "launches": {"mhd_step_ghosted": launches["mhd_step"],
+                        "cfl_mhd_ghosted": launches["cfl_mhd"]}}
+    return {key: {name + sfx: v for name, v in part.items()} for key, part in out.items()}
 
 
 def phase35(card: str) -> None:
@@ -3552,6 +3608,458 @@ def phase38(card: str) -> None:
                                             single if uses_stratified_z(params) else None))
 
 
+# ---------------------------------------------------------------------------
+# turbulence: isothermal periodic MHD, the two forcings, the history
+# ---------------------------------------------------------------------------
+TURB = {name: f"data/{name}.ini" for name in
+        ("turbulence_mhd", "turbulence_mhd_ou", "turbulence_hydro", "turbulence_hydro_ou")}
+# the five timed forced paths of phase 41 at 256^3 f32: label, input, kernel
+TURB_PATHS = (("41a", "turbulence_mhd", "auto"), ("41b", "turbulence_mhd_ou", "auto"),
+              ("41h", "turbulence_hydro", "auto"), ("41o", "turbulence_hydro_ou", "auto"),
+              ("41z", "turbulence_mhd", "zcarry"))
+# the static kick's kinetic-energy change against n_cells dt edot
+# (ops/forcing.py random_forcing_normalization's identity)
+TOL_KICK = 1e-4
+MASS_TOL = 1e-5
+
+
+def turb_setup(name: str, n: int, dtype: str = "float32", kernel: str = "auto"):
+    """data/<name>.ini at n^3 with the dtype and the kernel choice: config
+    and params."""
+    from ramsesgpu_tpu_torch.config.params import params_from_config
+
+    config, _params = shipped(TURB[name], dtype, (n, n, n))
+    config.set_string("implementation", "kernel", kernel)
+    return config, params_from_config(config)
+
+
+def iso_state(dtype: str, n: int = 64):
+    """Phase 39's isothermal turbulence state on the card:
+    data/turbulence_mhd_ou.ini's physics (cIso = 1) at n^3, its velocity the
+    static forcing field at Mach 1 and the divergence-free field Bx = 0.2,
+    By = 0.1 sin 2 pi x, Bz = 0.1 cos 2 pi y: params, the interior S and
+    the filled ghosted state U."""
+    import numpy as np
+
+    from ramsesgpu_tpu_torch.convert import torch_dtype
+    from ramsesgpu_tpu_torch.ops.forcing import turbulence_init_field
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import interior, make_boundaries
+
+    config, params = turb_setup("turbulence_mhd_ou", n, dtype)
+    U = init_problem(params, config)
+    U[2:5] = U[0] * turbulence_init_field(params, 1.0)
+    g = params.ghost_width
+    x = params.xmin + params.dx / 2 + (np.arange(params.isize) - g) * params.dx
+    y = params.ymin + params.dy / 2 + (np.arange(params.jsize) - g) * params.dy
+    U[5] = 0.2
+    U[6] = 0.1 * np.sin(2 * np.pi * x)[None, None, :]
+    U[7] = 0.1 * np.cos(2 * np.pi * y)[None, :, None]
+    U = make_boundaries(params, torch.from_numpy(U).to(device="cuda", dtype=torch_dtype(params)))
+    return params, interior(params, U).contiguous(), U.contiguous()
+
+
+def phase39() -> None:
+    """The isothermal instances (rows A plain and compensated, B, 3, 12)
+    against their twins on iso_state at 64^3, f32 + f64: the CFL (periodic
+    and ghosted; the adiabatic instance reads another pressure on this
+    state, so the isothermal one ran), one step of the streamed kernel
+    against its twin and the staged kernel, its folded inverse dt against
+    the CFL kernel, an inactive step, 10 chained steps of the loop
+    (kernel=auto and zcarry) against the twins' loop, the dissipation
+    kernel's periodic isothermal mode (its increment), and the ghosted step
+    (and its inactive step) against its twin."""
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.solvers.dissipation import mhd_dissipation_periodic_update
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_ghosted_update
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+    from ramsesgpu_tpu_torch.solvers.timestep import (dt_from_inv, inv_dt_mhd_ghosted,
+                                                      inv_dt_mhd_periodic)
+
+    on = torch.ones((), dtype=torch.bool, device="cuda")
+    for dtype in ("float32", "float64"):
+        params, S, U = iso_state(dtype)
+        g = params.ghost_width
+        t0 = torch.zeros((), dtype=S.dtype, device="cuda")
+        inv, inv_t = cfl_mhd(params, S), inv_dt_mhd_periodic(params, S)
+        inv_a = cfl_mhd(params.replace(c_iso=0.0), S)
+        inv_g, inv_gt = cfl_mhd(params, U, ghost=g), inv_dt_mhd_ghosted(params, U)
+        apart = abs(float(inv_a) - float(inv)) / float(inv)
+        check(f"39 cfl_mhd isothermal {dtype}", abs(float(inv) - float(inv_t)) / float(inv_t),
+              TOL_CFL[dtype], f" (the adiabatic instance {apart:.3e} apart)")
+        check(f"39 cfl_mhd ghosted isothermal {dtype}",
+              abs(float(inv_g) - float(inv_gt)) / float(inv_gt), TOL_CFL[dtype])
+        if not apart > 1e-3:
+            raise AssertionError("39: the isothermal CFL did not take the isothermal pressure")
+        for comp in (False, True):
+            name = "compensated" if comp else "plain"
+            p = params.replace(kernel="zcarry", compensated=comp)
+            state = with_carry(S, 31) if comp else S
+            e = zcarry_one_step(p, state, t0, None)
+            tag = f"[39] {name} {dtype}"
+            print(f"{tag} 1 step: streamed vs twin rel L2 {e['twin']:.3e}, vs staged "
+                  f"{e['staged']:.3e} (tol {TOL_STEP1[dtype]:.0e}), max abs {e['max_abs']:.3e}, "
+                  f"folded inv dt vs CFL kernel {e['fold_ulps']:.2f} ULP (bound {ULP_FOLD}), "
+                  f"inactive copies: {e['idle_copy']}")
+            if not (e["twin"] <= TOL_STEP1[dtype] and e["staged"] <= TOL_STEP1[dtype]
+                    and e["fold_ulps"] <= ULP_FOLD and e["idle_copy"]):
+                raise AssertionError(f"{tag}: the isothermal step disagrees: {e}")
+            want, t_t = twin_loop(p, state, t0, None, 10)
+            for kernel in ("auto", "zcarry"):
+                _pack, advance, _unpack = make_packed_advance_chain(p.replace(kernel=kernel),
+                                                                    "cuda")
+                got, t_k, k = advance(state.clone(), t0.clone(), 10)
+                rel10 = rel_l2(got[:8], want[:8])
+                print(f"{tag} 10 chained steps, kernel={kernel}: k={int(k)}, t {float(t_k)!r} "
+                      f"(twins {float(t_t)!r}), rel L2 {rel10:.3e} (tol {TOL_Z10[dtype]:.0e})")
+                if int(k) != 10 or not rel10 <= TOL_Z10[dtype]:
+                    raise AssertionError(f"{tag} kernel={kernel}: 10 steps disagree: {rel10}")
+        # the dissipation kernel's periodic isothermal mode (no energy flux)
+        pd = params.replace(nu=DISSIP_COEFFS["nu=2e-3 eta=1e-3"][0],
+                            eta=DISSIP_COEFFS["nu=2e-3 eta=1e-3"][1])
+        dt = dt_from_inv(pd, inv_t)
+        got = dissip_step(pd, S, torch.empty_like(S), dt, on)
+        check(f"39 dissip_step periodic isothermal {dtype} increment",
+              increment_rel(got, mhd_dissipation_periodic_update(pd, S, dt), S), TOL_STEP1[dtype])
+        dt = dt_from_inv(params, inv_gt)
+        scratch = mhd_step.scratch(params, U, ghosted=True)
+        got = mhd_step.ghosted(params, U.clone(), dt, on, scratch)
+        check(f"39 ghosted step isothermal {dtype}", rel_l2(got, mhd_3d_ghosted_update(params, U, dt)),
+              TOL_STEP1[dtype])
+        if not torch.equal(mhd_step.ghosted(params, U.clone(), dt, ~on, scratch), U):
+            raise AssertionError("39: the inactive ghosted step changed the state")
+        del S, U, got, scratch
+        torch.cuda.empty_cache()
+
+
+def forced_twin_loop(params, S: torch.Tensor, forcing, n: int):
+    """n forced steps of the twins on the card from the interior state S
+    (the JAX forced step: dt from the state, the step, the kick): (S, t)."""
+    from ramsesgpu_tpu_torch.solvers.godunov import hydro_3d_state_update
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_periodic_update
+    from ramsesgpu_tpu_torch.solvers.timestep import (compute_inv_dt_hydro, dt_from_inv,
+                                                      inv_dt_mhd_periodic)
+
+    on = torch.ones((), dtype=torch.bool, device=S.device)
+    t = torch.zeros((), dtype=S.dtype, device=S.device)
+    for _ in range(n):
+        if params.mhd:
+            dt = dt_from_inv(params, inv_dt_mhd_periodic(params, S))
+            S = mhd_3d_periodic_update(params, S, dt)
+        else:
+            dt = dt_from_inv(params, compute_inv_dt_hydro(params, S, ghost=0))
+            S = hydro_3d_state_update(params, S, dt)
+        forcing(S, dt, on)
+        t = t + dt
+    return S, t
+
+
+def replay(forcing, draws: torch.Tensor) -> None:
+    """Give an OU forcing the draws ``draws`` [k, 3, 31] in turn."""
+    if forcing.state is not None:
+        it = iter(draws.to(forcing.state.forcingField.device))
+        forcing.state.draw = lambda: next(it)
+
+
+def phase40() -> None:
+    """Both forcings on the card against their CPU results on the same
+    tensors (3 kicks of a moving 64^3 state, the OU draws the same), f32 +
+    f64; then 10 steps of each forced loop (static and OU MHD, OU hydro:
+    the step kernels, a CFL launch every step, the kick) against the twins'
+    forced loop with the same draws."""
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.ops.forcing import make_forcing
+    from ramsesgpu_tpu_torch.solvers.boundary import interior
+    from ramsesgpu_tpu_torch.solvers.step import make_forced_chain
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
+
+    for dtype in ("float32", "float64"):
+        tdt = getattr(torch, dtype)
+        draws = torch.randn((10, 3, 31), generator=torch.Generator().manual_seed(40), dtype=tdt)
+        for name in ("turbulence_mhd", "turbulence_mhd_ou"):
+            config, params = turb_setup(name, 64, dtype)
+            S = interior(params, ghosted_state(config, params, seed=41)).contiguous()
+            S[2:5] += 0.1 * S[0]
+            dt = dt_from_inv(params, cfl_mhd(params, S))
+            on = torch.ones((), dtype=torch.bool, device="cuda")
+            card_f, host_f = (make_forcing(params, config, d, tdt) for d in ("cuda", "cpu"))
+            replay(card_f, draws)
+            replay(host_f, draws)
+            Sc = S.cpu()
+            for _ in range(3):
+                card_f(S, dt, on)
+                host_f(Sc, dt.cpu(), on.cpu())
+            rel = rel_l2(S.cpu(), Sc)
+            extra = ""
+            if card_f.state is not None:
+                f_rel = rel_l2(card_f.state.forcingField.cpu(), host_f.state.forcingField)
+                extra = f", OU field rel L2 {f_rel:.3e}"
+                rel = max(rel, f_rel)
+            check(f"40 {name} forcing on the card vs the CPU, 3 kicks, {dtype}", rel,
+                  TOL_STEP1[dtype], extra)
+        for name in ("turbulence_mhd", "turbulence_mhd_ou", "turbulence_hydro_ou"):
+            config, params = turb_setup(name, 64, dtype)
+            U = ghosted_state(config, params)
+            (pack, advance, _unpack), forcing = make_forced_chain(params, "cuda", config)
+            twin = make_forcing(params, config, "cuda", tdt)
+            replay(forcing, draws)
+            replay(twin, draws)
+            t0 = torch.zeros((), dtype=tdt, device="cuda")
+            S, t, k = advance(pack(U), t0, 10)
+            W, t_w = forced_twin_loop(params, interior(params, U).contiguous(), twin, 10)
+            rel10 = rel_l2(S, W)
+            print(f"[40] {name} {dtype}: 10 forced loop steps: k={int(k)}, t {float(t)!r} "
+                  f"(twins {float(t_w)!r}), rel L2 {rel10:.3e} (tol {TOL_STEP10[dtype]:.0e})")
+            if int(k) != 10 or not rel10 <= TOL_STEP10[dtype]:
+                raise AssertionError(f"40 {name} {dtype}: the forced loop disagrees: {rel10}")
+            del U, S, W
+        torch.cuda.empty_cache()
+
+
+def kinetic_energy(S: torch.Tensor) -> float:
+    """sum |rho v|^2 / (2 rho) over the interior state, in float64."""
+    S64 = S[:5].double()
+    return float((0.5 * (S64[2:5] ** 2).sum(0) / S64[0]).sum())
+
+
+def kick_identity(label: str, params, forcing, S: torch.Tensor, dt: torch.Tensor) -> str:
+    """The static kick on a copy of S: its kinetic-energy change against
+    n_cells dt edot (norm s0 + norm^2 s1 / 2 = N dt edot, ops/forcing.py)."""
+    from ramsesgpu_tpu_torch.ops.forcing import add_random_forcing, random_forcing_normalization
+
+    X = S.clone()
+    before = kinetic_energy(X)
+    norm = random_forcing_normalization(params, X, forcing.F, dt, forcing.edot)
+    add_random_forcing(params, X, forcing.F, norm)
+    change = kinetic_energy(X) - before
+    want = params.nx * params.ny * params.nz * float(dt) * forcing.edot
+    rel = abs(change - want) / abs(want)
+    if not rel <= TOL_KICK:
+        raise AssertionError(f"{label}: the kick's kinetic energy {change!r}, N dt edot {want!r}")
+    return f"kick dKE {change:.6e} vs N dt edot {want:.6e} (rel {rel:.2e}, tol {TOL_KICK:.0e})"
+
+
+def phase41(card: str) -> dict:
+    """The five forced paths at 256^3 f32 (TURB_PATHS) through
+    make_forced_chain: 2 warm-up and 3 timed chunks of 10 steps each,
+    launches per step (one CFL launch a step, also with kernel=zcarry),
+    peak memory, the gates (finite, rho > 0, mass within 1e-5, MHD max|divB|
+    as phase 5, the static kick's energy identity) and a profiled chunk:
+    its idle share and the forcing's share of device time (every kernel
+    besides the step and CFL kernels: the forcing's PyTorch passes and the
+    loop's 0-d ops). Returns each path's launches and the end state of 41a
+    and 41z."""
+    from ramsesgpu_tpu_torch.kernels.cfl_hydro import cfl_hydro
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.ops.forcing import OUForcing
+    from ramsesgpu_tpu_torch.solvers.boundary import interior
+    from ramsesgpu_tpu_torch.solvers.step import make_forced_chain
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
+
+    n, chunk, steps = 256, 10, 50
+    out = {"launches": {}, "ends": {}}
+    for label, name, kernel in TURB_PATHS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        config, params = turb_setup(name, n, "float32", kernel)
+        U = ghosted_state(config, params)
+        mass0 = float(interior(params, U)[0].double().sum())
+        (pack, advance, unpack), forcing = make_forced_chain(params, "cuda", config)
+        if params.mhd:
+            step = "zcarry_mhd" if kernel == "zcarry" else "mhd_step"
+            expect = {step: steps, "cfl_mhd": steps}
+        else:
+            expect = {"hydro_step": steps, "cfl_hydro": steps}
+        t = torch.zeros((), dtype=torch.float32, device="cuda")
+        with counted_main_path(label, expect) as launches:
+            S = pack(U)
+            del U
+            S, t, _dt = run_chunks(label, card, advance, S, t, n, chunk)
+        peak = torch.cuda.max_memory_allocated() - base
+        if not bool(torch.isfinite(S).all()):
+            raise AssertionError(f"{label}: non-finite state")
+        rho_min = float(S[0].min())
+        mass = float(S[0].double().sum())
+        text = f"min rho {rho_min:.4e}, mass rel {abs(mass - mass0) / mass0:.3e} ({MASS_TOL:.0e})"
+        if not (rho_min > 0 and abs(mass - mass0) <= MASS_TOL * mass0):
+            raise AssertionError(f"{label}: {text}")
+        if params.mhd:
+            b_over_dx = max(float(S[5].abs().max()), 1e-10) / params.dx
+            divb = div_b_max(params, S)
+            text += f", max|divB| {divb:.3e} (bound {1e-3 * b_over_dx:.3e})"
+            if not divb < 1e-3 * b_over_dx:
+                raise AssertionError(f"{label}: divB bound violated: {text}")
+            inv = cfl_mhd(params, S)
+        else:
+            inv = cfl_hydro(params, S)
+        if not isinstance(forcing, OUForcing):
+            text += "; " + kick_identity(label, params, forcing, S, dt_from_inv(params, inv))
+        basis = getattr(forcing, "basis", None)
+        print(f"[{label}] {name} at {n}^3 f32, kernel={kernel} on {card}: {steps} steps, "
+              f"t={float(t)!r}; {text}; launches per step: "
+              + ", ".join(f"{k} {v / steps:g}" for k, v in launches.items() if v)
+              + f"; peak allocated {peak / 1e9:.3f} GB"
+              + ("" if basis is None else f" (OU basis {basis.numel() * 4 / 1e9:.3f} GB)"))
+        if tuple(unpack(S, t).shape) != params.shape:
+            raise AssertionError(f"{label}: unpacked shape")
+        cfl = cfl_mhd if params.mhd else cfl_hydro
+        before = cfl.launches
+        rows = profile_chunk(f"{label}p", card, advance, S, t, chunk)
+        cfl_launches = cfl.launches - before
+        check_streamed(f"{label}p", kernel, rows)
+        parts = {"step": 0.0, "cfl": 0.0, "forcing": 0.0}
+        profiled_cfl = 0
+        for key, (us, count) in rows.items():
+            if "cfl_rows" in key:
+                parts["cfl"] += us
+                profiled_cfl += count
+            elif "mhd::" in key or "zcarry" in key or "hydro" in key:
+                parts["step"] += us
+            else:
+                parts["forcing"] += us
+        busy = sum(parts.values())
+        print(f"[{label}p] device time per step by part: " + ", ".join(
+            f"{k} {v / 1e3 / chunk:.4f} ms ({100 * v / busy:.1f} %)" for k, v in parts.items())
+            + f"; forcing share {parts['forcing'] / busy:.4f} (the forcing's passes and the "
+              f"loop's 0-d ops); CFL launches {cfl_launches} in {chunk} steps (the profiler "
+              f"recorded {profiled_cfl})")
+        if cfl_launches != chunk:
+            raise AssertionError(f"{label}: {cfl_launches} CFL launches in a {chunk}-step chunk")
+        out["launches"][label] = dict(launches)
+        if label in ("41a", "41z"):
+            out["ends"][label] = (params, S, forcing)
+        else:
+            del S, forcing
+    return out
+
+
+def phase41k(card: str, ends: dict, comp, n_twin: int) -> dict:
+    """The isothermal instances at full width on the end states of paths
+    41a (static MHD: rows A and B), 41z (row 12, the folded CFL) and 41c
+    (compensated OT: row A's compensated instance): each against its twin
+    (at n_twin^3, phase 6's choice), its time (CUDA events) against the
+    twin's, and its bound: the state read and written once (the CFL: read),
+    and the operations counted by build("count") on a 32^3 block."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_periodic_update
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_periodic
+
+    res = {"ms": {}, "plain_ms": {}, "max_abs_err": {}, "bounds": {}}
+    on = torch.ones((), dtype=torch.bool, device="cuda")
+    lib = load_library("count")
+    n = 256 ** 3
+    cases = (("mhd_step_iso", ends["41a"][:2]), ("cfl_mhd_iso", ends["41a"][:2]),
+             ("zcarry_mhd_iso", ends["41z"][:2]), ("mhd_step_comp_iso", comp[:2]))
+    for name, (params, S) in cases:
+        dt = dt_from_inv(params, cfl_mhd(params, S))
+        Sw = S if n_twin == 256 else S[:, :n_twin, :n_twin, :n_twin].contiguous()
+        pw = params if n_twin == 256 else block_params(params, n_twin)
+        if name == "cfl_mhd_iso":
+            run = lambda: cfl_mhd(params, S)  # noqa: E731
+            got, want = cfl_mhd(pw, Sw), inv_dt_mhd_periodic(pw, Sw)
+            plain = lambda: inv_dt_mhd_periodic(pw, Sw)  # noqa: E731
+            tol = TOL_CFL["float32"]
+        elif name == "zcarry_mhd_iso":
+            S1 = torch.empty_like(S)
+            run = lambda: zcarry_mhd(params, S, S1, dt, on, fold=True)  # noqa: E731
+            got = torch.empty_like(Sw)
+            zcarry_mhd(pw, Sw, got, dt, on, fold=True)
+            want = mhd_3d_periodic_update(pw, Sw, dt)
+            plain = lambda: inv_dt_mhd_periodic(pw, mhd_3d_periodic_update(pw, Sw, dt))  # noqa
+            tol = TOL_STEP1["float32"]
+        else:
+            scratch = mhd_step.scratch(params, S)
+            X = S.clone()
+            run = lambda: mhd_step(params, X, dt, on, scratch)  # noqa: E731
+            got = mhd_step(pw, Sw.clone(), dt, on, mhd_step.scratch(pw, Sw))
+            want = mhd_3d_periodic_update(pw, Sw, dt)
+            plain = lambda: mhd_3d_periodic_update(pw, Sw, dt)  # noqa: E731
+            tol = TOL_STEP1["float32"]
+        res["ms"][name] = time_ms(run, 10 if name != "cfl_mhd_iso" else 50)
+        if name != "cfl_mhd_iso":  # the state; a compensated state's carry follows it
+            got, want = got[:8], want[:8]
+        check(f"41k {name} at {n_twin}^3 f32 (the path's end state)", rel_l2(got, want), tol)
+        res["max_abs_err"][name] = float((got - want).abs().max())
+        del got, want
+        torch.cuda.empty_cache()
+        res["plain_ms"][name] = time_ms(plain, 2 if name != "cfl_mhd_iso" else 10)
+        blk = S[:, :32, :32, :32].double().cpu().contiguous()
+        p32 = block_params(params, 32)
+        comp_flag = int(params.compensated)
+        step_ops = lib.ramses_mhd_step_ops(blk.data_ptr(), comp_flag, 32, 32, 32,
+                                           param_block(p32), float(dt)) / 32 ** 3 * n
+        cfl_ops = lib.ramses_cfl_mhd_ops(blk.data_ptr(), 32, 32, 32, param_block(p32)) / 32 ** 3 * n
+        ch = S.shape[0]
+        nbytes, ops = {"cfl_mhd_iso": (8 * 4 * n, cfl_ops),
+                       "zcarry_mhd_iso": (2 * 8 * 4 * n, step_ops + cfl_ops)}.get(
+            name, (2 * ch * 4 * n, step_ops))
+        res["bounds"][name] = bound("41k", name, nbytes, ops, "256^3", n)
+        print(f"[41k] {name}: kernel {res['ms'][name]:.4f} ms at 256^3, twin "
+              f"{res['plain_ms'][name]:.3f} ms at {n_twin}^3, bound {res['bounds'][name][0]:.4f} "
+              f"ms: {res['ms'][name] / res['bounds'][name][0]:.1f}x (f32, {card})")
+        del Sw
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase42(card: str) -> None:
+    """The four turbulence inputs as shipped through the CLI's main() on
+    the card, at most 50 steps each, in a directory of their own (no HDF5
+    snapshots where h5py is not installed: --no-output): the step kernels
+    and one CFL launch a step, no twin; turbulence_mhd_ou.ini's history
+    file is written, parses, and its mass column is constant to 1e-5."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from ramsesgpu_tpu_torch.cli.main import main as cli_main
+    from ramsesgpu_tpu_torch.io.history import read_history
+
+    for name, path in TURB.items():
+        params = params_from_text(Path(path).read_text())
+        steps = min(50, params.n_stepmax)
+        argv = ["--param", str(Path(path).resolve()), "--max-steps", str(steps)]
+        label = f"42 {name}.ini"
+        if importlib.util.find_spec("h5py") is None and "outputHdf5=yes" in Path(path).read_text():
+            print(f"[{label}] h5py is not installed here: its HDF5 snapshots are skipped "
+                  f"(--no-output)")
+            argv.append("--no-output")
+        expect = ({"mhd_step": steps, "cfl_mhd": steps} if params.mhd
+                  else {"hydro_step": steps, "cfl_hydro": steps})
+        cwd = os.getcwd()
+        with tempfile.TemporaryDirectory(prefix="smoke42_") as workdir:
+            os.chdir(workdir)
+            try:
+                with counted_main_path(label, expect):
+                    rc = cli_main(argv)
+            finally:
+                os.chdir(cwd)
+            written = sorted(p.name for p in Path(workdir).iterdir())
+            history = Path(workdir) / f"{name}.history"
+            text = f"rc {rc}, files {written}"
+            if name == "turbulence_mhd_ou":
+                if not history.exists():
+                    raise AssertionError(f"{label}: no history file: {written}")
+                cols = read_history(history)
+                mass = cols["mass"]
+                drift = max(abs(m - mass[0]) for m in mass) / abs(mass[0])
+                text += (f"; history: {len(mass)} samples, {len(cols)} columns, t "
+                         f"{cols['totalTime'][0]:.4f} .. {cols['totalTime'][-1]:.4f}, mass drift "
+                         f"{drift:.3e} (tol {MASS_TOL:.0e})")
+                if not (len(mass) >= 2 and drift <= MASS_TOL):
+                    raise AssertionError(f"{label}: history {text}")
+        print(f"[{label}] {params.nx}^3 {params.dtype} as shipped on {card}: {steps} steps; "
+              + text)
+        if rc != 0:
+            raise AssertionError(f"{label}: rc {rc}")
+
+
 def profile_chunk(label: str, card: str, advance, S: torch.Tensor, t: torch.Tensor,
                   chunk: int) -> None:
     """Device time by kernel over one more chunk of a main path, and the
@@ -3600,7 +4108,10 @@ ROWS = (("A", "mhd_step"), ("A'-compensated", "mhd_step_comp"),
         ("11", "cfl_mhd_shear"), ("CFL of 3", "cfl_mhd_ghosted"), ("CFL of 4", "cfl_mhd_window"),
         ("7", "cfl_hydro"), ("9 / 10 x slabs", "shear_slabs"), ("9 / 10 border", "shear_border"),
         ("9 / 10 border, compensated", "shear_border_comp"),
-        ("9 stratified x + z slabs", "shear_slabs_strat"))
+        ("9 stratified x + z slabs", "shear_slabs_strat"), ("A isothermal", "mhd_step_iso"),
+        ("A'-compensated isothermal", "mhd_step_comp_iso"), ("B isothermal", "cfl_mhd_iso"),
+        ("3 isothermal", "mhd_step_ghosted_iso"), ("CFL of 3 isothermal", "cfl_mhd_ghosted_iso"),
+        ("12 isothermal", "zcarry_mhd_iso"))
 
 
 def check_streamed(label: str, kernel: str, rows: dict) -> None:
@@ -3724,6 +4235,23 @@ def main() -> int:
     lap("37")
     phase38(card)
     lap("38")
+    phase39()
+    lap("39")
+    phase40()
+    lap("40")
+    turb = phase41(card)
+    lap("41")
+    comp_iso_launches, ot_comp_iso = phase5(card, "41c", compensated=True, c_iso=1.0)
+    lap("41c")
+    wall_iso = phase34(card, timing["n_twin"], "41w", c_iso=1.0)
+    lap("41w")
+    iso_timing = phase41k(card, turb["ends"], ot_comp_iso, timing["n_twin"])
+    lap("41k")
+    del turb["ends"], ot_comp_iso
+    bounds.update(iso_timing["bounds"])
+    bounds.update(wall_iso["bounds"])
+    phase42(card)
+    lap("42")
     if "jax" in sys.modules or any(m.startswith("ramsesgpu_tpu.") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
 
@@ -3743,11 +4271,15 @@ def main() -> int:
                 "zcarry_mhd": zc_launches["zcarry_mhd"],
                 "zcarry_hydro": zc_hydro_launches["zcarry_hydro"],
                 "zcarry_mhd_shear": zc_shear_launches["zcarry_mhd"],
-                **wall_timing["launches"], **sharded["launches"]}
+                **wall_timing["launches"], **sharded["launches"],
+                "mhd_step_iso": turb["launches"]["41a"]["mhd_step"],
+                "cfl_mhd_iso": turb["launches"]["41a"]["cfl_mhd"],
+                "zcarry_mhd_iso": turb["launches"]["41z"]["zcarry_mhd"],
+                "mhd_step_comp_iso": comp_iso_launches["mhd_step"], **wall_iso["launches"]}
     bounds.update(row4["bounds"])
     measured = {key: {**timing[key], **hydro_timing[key], **shear_timing[key],
                       **dissip_timing[key], **new_timing[key], **zc_timing[key],
-                      **wall_timing[key], **row4[key]}
+                      **wall_timing[key], **row4[key], **iso_timing[key], **wall_iso[key]}
                 for key in ("ms", "plain_ms", "max_abs_err")}
     # device time (torch.profiler) beside ms (CUDA events) where a kernel
     # runs for less time than its launch takes on the host

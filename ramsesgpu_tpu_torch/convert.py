@@ -28,6 +28,16 @@ for 3D hydro):
   block of the JAX global state (numpy) and ``gather_global_state``
   assembles the blocks on rank 0 in the JAX layout.
 
+The OU forcing state: the JAX package's is a dict of mode [3, 31],
+projTens [3, 3, 31], forcingField [3, 31] (float32) and a PRNG key
+(uint32 [2]); the port's an ops/forcing.py OUState with the same three
+arrays and a torch.Generator (seed, blocks drawn). The two random streams
+differ, so a key maps to a seed and no more: ``forcing_state_from_jax``
+seeds the generator with the key's two words as one 64-bit integer
+(k0 << 32 | k1; PRNGKey(s) gives seed s) and no draws;
+``forcing_state_to_jax`` gives the key of the seed (k0 = seed >> 32, k1 =
+its low 32 bits), whatever has been drawn since.
+
 A Kahan-compensated run ([implementation] compensated) carries 2 * nvar
 channels in both packages, the state and then its carry
 (ramsesgpu_tpu/pallas/fused_mhd3d.py:247-259), and a shearing box's kept
@@ -139,3 +149,29 @@ def bc_carry_to_jax(params: RunParams, S: torch.Tensor) -> np.ndarray:
     U = make_boundaries_concat(params, S.detach().cpu(), interior_only=True).numpy()
     pad_x = padded_width(params) - U.shape[-1]
     return np.pad(U, ((0, 0), (0, 0), (YB - g, YB - g), (0, pad_x)), mode="edge")
+
+
+def forcing_state_from_jax(jstate: dict, device, dtype=torch.float32):
+    """The JAX OU forcing state (numpy or JAX arrays) -> the port's OUState
+    on ``device``, drawing in ``dtype`` (the run's); the key rule is the
+    module note's."""
+    from .ops.forcing import OUState
+
+    key = np.asarray(jstate["key"]).astype(np.uint64).reshape(2)
+    return OUState(
+        mode=torch.from_numpy(np.array(jstate["mode"], np.float64)).to(device),
+        projTens=torch.from_numpy(np.array(jstate["projTens"], np.float64)).to(device),
+        forcingField=torch.from_numpy(np.array(jstate["forcingField"], np.float32)).to(device),
+        seed=int((key[0] << np.uint64(32)) | key[1]), dtype=dtype,
+    )
+
+
+def forcing_state_to_jax(state) -> dict:
+    """The port's OUState -> the JAX OU forcing state's arrays (numpy):
+    mode, projTens, forcingField and the key of its seed."""
+    return {
+        "mode": state.mode.cpu().numpy(),
+        "projTens": state.projTens.cpu().numpy(),
+        "forcingField": state.forcingField.cpu().numpy(),
+        "key": np.array([state.seed >> 32, state.seed & 0xFFFFFFFF], np.uint32),
+    }

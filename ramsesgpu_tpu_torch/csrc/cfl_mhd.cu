@@ -4,8 +4,10 @@
 // averaged to cell centres (+1 face neighbour by periodic wrap).
 //
 // Replaces the TPU kernels ramsesgpu_tpu/pallas/packed_io.py:51
-// make_packed_cfl_mhd (formula: solvers/timestep.py:114 _inv_dt_mhd_fields)
-// and, in its shearing-box mode, pallas/shear_packed.py:716
+// make_packed_cfl_mhd (formula: solvers/timestep.py:114 _inv_dt_mhd_fields;
+// with cIso > 0 the isothermal pressure of :117-118, in an instance of its
+// own, Rows<..., ISO>, in the periodic and the ghosted mode) and, in its
+// shearing-box mode, pallas/shear_packed.py:716
 // make_shear_cfl_kernel: the isothermal pressure (cIso > 0), vy offset by
 // the rotating frame's 1.5 omega0 dx / 2, and the last column's +1 x face
 // read from the kept Bx face. Plain twins:
@@ -64,8 +66,10 @@ struct CflTile<double> {
 
 // One mode's rows: the state's pointer and channel stride, the interior's
 // extent, and where row (j, k)'s cells, its +1 y and +1 z neighbours and
-// its last cell's +1 x face lie.
-template <typename T, bool SHEAR, bool GHOSTED>
+// its last cell's +1 x face lie. ISO: the isothermal pressure, an
+// instance of its own (the periodic and ghosted modes; the shear modes
+// read it from the parameters)
+template <typename T, bool SHEAR, bool GHOSTED, bool ISO = false>
 struct Rows {
   using Tile = CflTile<T>;
   static constexpr int NV = 10;     // values a cell loads
@@ -116,15 +120,17 @@ struct Rows {
   HD T face(const Row& w, int x) const {
     return x + 1 < in.nx ? S[IA * n + w.c + x + 1] : *w.last;
   }
-  HD T inv(const T* v, T bx_r) const { return inv_dt_cell<T, SHEAR>(ph, v, 1, 0, bx_r, 2, 2); }
+  HD T inv(const T* v, T bx_r) const {
+    return inv_dt_cell<T, SHEAR, ISO>(ph, v, 1, 0, bx_r, 2, 2);
+  }
 };
 
 // the interior-only modes: S [8][nz][ny][nx] (periodic), with the kept face
 // (shear)
-template <typename T, bool SHEAR>
-int cfl_mhd(const T* S, const T* kept, T* partial, unsigned* count, T* out, int nx, int ny,
-            int nz, const double* prm, void* stream) {
-  Rows<T, SHEAR, false> f;
+template <typename T, bool SHEAR, bool ISO = false>
+int cfl_mhd_rows(const T* S, const T* kept, T* partial, unsigned* count, T* out, int nx, int ny,
+                 int nz, const double* prm, void* stream) {
+  Rows<T, SHEAR, false, ISO> f;
   f.ph = make_phys<T>(prm);
   f.S = S;
   f.kept = kept;
@@ -137,12 +143,22 @@ int cfl_mhd(const T* S, const T* kept, T* partial, unsigned* count, T* out, int 
   return cfl_rows(f, partial, count, out, stream);
 }
 
+// the interior-only modes; the periodic mode's isothermal instance where
+// cIso > 0
+template <typename T, bool SHEAR>
+int cfl_mhd(const T* S, const T* kept, T* partial, unsigned* count, T* out, int nx, int ny,
+            int nz, const double* prm, void* stream) {
+  if (!SHEAR && prm[P_CISO] > 0.0)
+    return cfl_mhd_rows<T, false, true>(S, kept, partial, count, out, nx, ny, nz, prm, stream);
+  return cfl_mhd_rows<T, SHEAR>(S, kept, partial, count, out, nx, ny, nz, prm, stream);
+}
+
 // the ghosted mode: the interior of U [8][nz+2g][ny+2g][nx+2g], +1 faces as
 // they lie
-template <typename T, bool SHEAR = false>
-int cfl_mhd_ghosted(const T* U, T* partial, unsigned* count, T* out, int nx, int ny, int nz,
-                    int g, double floor, const double* prm, void* stream) {
-  Rows<T, SHEAR, true> f;
+template <typename T, bool SHEAR, bool ISO>
+int cfl_mhd_ghosted_rows(const T* U, T* partial, unsigned* count, T* out, int nx, int ny,
+                         int nz, int g, double floor, const double* prm, void* stream) {
+  Rows<T, SHEAR, true, ISO> f;
   f.ph = make_phys<T>(prm);
   f.S = U;
   f.kept = nullptr;
@@ -153,6 +169,18 @@ int cfl_mhd_ghosted(const T* U, T* partial, unsigned* count, T* out, int nx, int
   f.sy = ny + 2 * g;
   f.floor = T(floor);
   return cfl_rows(f, partial, count, out, stream);
+}
+
+// the ghosted mode, and its isothermal instance where cIso > 0 (SHEAR: the
+// ghosted shearing-box form, whose pressure follows the parameters)
+template <typename T, bool SHEAR = false>
+int cfl_mhd_ghosted(const T* U, T* partial, unsigned* count, T* out, int nx, int ny, int nz,
+                    int g, double floor, const double* prm, void* stream) {
+  if (!SHEAR && prm[P_CISO] > 0.0)
+    return cfl_mhd_ghosted_rows<T, false, true>(U, partial, count, out, nx, ny, nz, g, floor,
+                                                prm, stream);
+  return cfl_mhd_ghosted_rows<T, SHEAR, false>(U, partial, count, out, nx, ny, nz, g, floor, prm,
+                                               stream);
 }
 
 }  // namespace ramses

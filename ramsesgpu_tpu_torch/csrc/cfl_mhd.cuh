@@ -14,8 +14,10 @@ HD T fast_speed_cfl(T d2, T c2, T bn, T rho) {
 }
 
 // timestep.py _inv_dt_mhd_fields on one cell c: bx_r is Bx on its +1 x
-// face, cyp/czp its +1 y/z neighbours
-template <typename T, bool SHEAR>
+// face, cyp/czp its +1 y/z neighbours. ISO: the isothermal pressure
+// rho cIso^2 (timestep.py:117-118), chosen at compile time for the
+// periodic and ghosted instances; the shear instances read ph.iso
+template <typename T, bool SHEAR, bool ISO = false>
 HD T inv_dt_cell(const Phys<T>& ph, const T* S, long long n, long long c,
                  T bx_r, long long cyp, long long czp) {
   const T rho_raw = S[ID * n + c];
@@ -29,7 +31,7 @@ HD T inv_dt_cell(const Phys<T>& ph, const T* S, long long n, long long c,
 
   const T rho = pmax(rho_raw, ph.smallr);
   T p;
-  if (SHEAR && ph.iso) {
+  if (ISO || (SHEAR && ph.iso)) {
     p = rho * ph.ciso2;
   } else {
     const T eken = T(0.5) * (u * u + v * v + w * w);
@@ -49,7 +51,7 @@ HD T inv_dt_cell(const Phys<T>& ph, const T* S, long long n, long long c,
 
 // the cell's inverse dt; the shearing-box mode reads the last column's +1
 // x face from kept
-template <typename T, bool SHEAR>
+template <typename T, bool SHEAR, bool ISO = false>
 HD T inv_dt_at(const Phys<T>& ph, const Dims& d, const T* S, const T* kept, long long c) {
   int i, j, k;
   cell_ijk(d, c, i, j, k);
@@ -62,7 +64,8 @@ HD T inv_dt_at(const Phys<T>& ph, const Dims& d, const T* S, const T* kept, long
   // (solvers/stratified.py), so its +1 z face is its own
   const long long czp =
       SHEAR && ph.zstrat && k == d.nz - 1 ? c : cell_at(d, i, j, wrap_p(k, d.nz));
-  return inv_dt_cell<T, SHEAR>(ph, S, d.n, c, bx_r, cell_at(d, i, wrap_p(j, d.ny), k), czp);
+  return inv_dt_cell<T, SHEAR, ISO>(ph, S, d.n, c, bx_r, cell_at(d, i, wrap_p(j, d.ny), k),
+                                   czp);
 }
 
 }  // namespace ramses

@@ -60,6 +60,9 @@ struct Mode {
 };
 using Periodic = Mode<false, false>;
 using Ghosted = Mode<false, false, false, true>;
+// their isothermal instances (cIso > 0: turbulence, isothermal OT)
+using PeriodicIso = Mode<false, true>;
+using GhostedIso = Mode<false, true, false, true>;
 
 template <typename T>
 struct StepArgs {

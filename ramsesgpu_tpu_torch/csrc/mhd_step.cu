@@ -6,6 +6,12 @@
 //   MHD body pallas/fused_mhd3d.py:228 -> solvers/godunov_mhd.py:437
 //   mhd_3d_interior_update_staged. Plain twin:
 //   ramsesgpu_tpu_torch/solvers/godunov_mhd.py mhd_3d_periodic_update.
+//   With cIso > 0 (the turbulence inputs, isothermal Orszag-Tang) its
+//   isothermal instance runs (Mode<false, true>, mhd_stages.cuh
+//   PeriodicIso: the solvers read rho cIso^2 as the gas pressure), chosen
+//   at launch from the parameter block, plain or compensated; the ghosted
+//   mode below has its isothermal instance likewise (GhostedIso). The
+//   adiabatic instances are the code earlier builds ran.
 // - shearing box: the rotating frame (Coriolis half-kick, the shear terms
 //   of the trace and of the x and z EMFs, per-column x), the isothermal
 //   EOS (cIso > 0) or the adiabatic one, sheared-periodic x faces, y and z
@@ -296,11 +302,11 @@ int mhd_step(T* S, T* scratch, const T* slabs, T* planes, const T* zslabs, const
 }
 
 // the ghosted mode's arguments: the interior nx x ny x nz at offset g of U
-template <typename T>
+template <typename T, typename M = Ghosted>
 StepArgs<T> ghosted_args(T* U, T* scratch, const T* dt, const unsigned char* active, int nx,
                          int ny, int nz, int g, const double* prm) {
-  StepArgs<T> a = step_args<T, Ghosted>(U, scratch, nullptr, nullptr, nullptr, nullptr, false,
-                                        dt, active, nx + 2 * g, ny + 2 * g, nz + 2 * g, prm);
+  StepArgs<T> a = step_args<T, M>(U, scratch, nullptr, nullptr, nullptr, nullptr, false, dt,
+                                  active, nx + 2 * g, ny + 2 * g, nz + 2 * g, prm);
   a.in = make_dims(nx, ny, nz);
   a.g = g;
   return a;
@@ -312,12 +318,29 @@ HD long long ghosted_update_cells(int nx, int ny, int nz) {
 }
 
 // the ghosted mode: U [8][nz+2g][ny+2g][nx+2g], its ghosts filled; plain
-// update only (the JAX package's walled step has no compensated branch)
+// update only (the JAX package's walled step has no compensated branch);
+// its isothermal instance where cIso > 0
 template <typename T>
 int mhd_step_ghosted(T* U, T* scratch, const T* dt, const unsigned char* active, int nx, int ny,
                      int nz, int g, const double* prm, void* stream) {
-  const StepArgs<T> a = ghosted_args(U, scratch, dt, active, nx, ny, nz, g, prm);
-  return run_stages<T, Ghosted>(a, false, ghosted_update_cells(nx, ny, nz), stream);
+  const auto run = [&](auto mode) {
+    using M = decltype(mode);
+    const StepArgs<T> a = ghosted_args<T, M>(U, scratch, dt, active, nx, ny, nz, g, prm);
+    return run_stages<T, M>(a, false, ghosted_update_cells(nx, ny, nz), stream);
+  };
+  return prm[P_CISO] > 0.0 ? run(GhostedIso{}) : run(Ghosted{});
+}
+
+// the periodic mode, and its isothermal instance where cIso > 0 (the
+// adiabatic instance is the one every earlier build ran)
+template <typename T>
+int mhd_step_periodic(T* S, T* scratch, bool comp, const T* dt, const unsigned char* active,
+                      int nx, int ny, int nz, const double* prm, void* stream) {
+  if (prm[P_CISO] > 0.0)
+    return mhd_step<T, PeriodicIso>(S, scratch, nullptr, nullptr, nullptr, nullptr, comp, dt,
+                                    active, nx, ny, nz, prm, stream);
+  return mhd_step<T, Periodic>(S, scratch, nullptr, nullptr, nullptr, nullptr, comp, dt, active,
+                               nx, ny, nz, prm, stream);
 }
 
 // the shear window mode's arguments: U the ghosted window
@@ -444,20 +467,19 @@ int ramses_mhd_step_ghosted_f64(double* U, double* scratch, const double* dt,
                                                stream);
 }
 
-// the periodic step; comp: S holds 16 channels, the state and its carry
+// the periodic step (isothermal where cIso > 0); comp: S holds 16
+// channels, the state and its carry
 int ramses_mhd_step_f32(float* S, float* scratch, const float* dt, const unsigned char* active,
                         int comp, int nx, int ny, int nz, const double* prm, void* stream) {
-  return ramses::mhd::mhd_step<float, ramses::mhd::Periodic>(
-      S, scratch, nullptr, nullptr, nullptr, nullptr, comp != 0, dt, active, nx, ny, nz, prm,
-      stream);
+  return ramses::mhd::mhd_step_periodic<float>(S, scratch, comp != 0, dt, active, nx, ny, nz,
+                                               prm, stream);
 }
 
 int ramses_mhd_step_f64(double* S, double* scratch, const double* dt,
                         const unsigned char* active, int comp, int nx, int ny, int nz,
                         const double* prm, void* stream) {
-  return ramses::mhd::mhd_step<double, ramses::mhd::Periodic>(
-      S, scratch, nullptr, nullptr, nullptr, nullptr, comp != 0, dt, active, nx, ny, nz, prm,
-      stream);
+  return ramses::mhd::mhd_step_periodic<double>(S, scratch, comp != 0, dt, active, nx, ny, nz,
+                                                prm, stream);
 }
 
 // the shear modes: comp (S holds 16 channels); stratified (zslabs
@@ -537,9 +559,8 @@ extern "C" long long ramses_mhd_step_ops(const double* S, int comp, int nx, int 
   const Counted dtc(dt);
   const unsigned char active = 1;
   Counted::ops = 0;
-  ramses::mhd::mhd_step<Counted, ramses::mhd::Periodic>(s.data(), scratch.data(), nullptr,
-                                                        nullptr, nullptr, nullptr, comp != 0,
-                                                        &dtc, &active, nx, ny, nz, prm, nullptr);
+  ramses::mhd::mhd_step_periodic<Counted>(s.data(), scratch.data(), comp != 0, &dtc, &active, nx,
+                                          ny, nz, prm, nullptr);
   return Counted::ops;
 }
 
@@ -593,10 +614,12 @@ long long shear_step_ops(Counted* S, Counted* scratch, const Counted* slabs, Cou
 // the ghosted mode's operations on the interior: each stage on the cells
 // of the interior only, the work per interior cell of its function (the
 // halo cells it computes besides are the stage grid's edges)
-inline long long ghosted_step_ops(Counted* U, Counted* scratch, const Counted* dt, int nx,
-                                  int ny, int nz, int g, const double* prm) {
+template <typename M>
+long long ghosted_step_ops(Counted* U, Counted* scratch, const Counted* dt, int nx, int ny,
+                           int nz, int g, const double* prm) {
   const unsigned char active = 1;
-  const StepArgs<Counted> a = ghosted_args(U, scratch, dt, &active, nx, ny, nz, g, prm);
+  const StepArgs<Counted> a = ghosted_args<Counted, M>(U, scratch, dt, &active, nx, ny, nz, g,
+                                                       prm);
   long long ops = 0;
   auto count = [&](const auto& f) {
     for (long long t = 0; t < a.e.n; ++t) {
@@ -608,15 +631,15 @@ inline long long ghosted_step_ops(Counted* U, Counted* scratch, const Counted* d
         ops += Counted::ops - before;
     }
   };
-  count(PrimStage<Counted, Ghosted>{a});
-  count(EFieldStage<Counted, Ghosted>{a});
-  count(PrecursorStage<Counted, Ghosted>{a});
-  count(FluxEmf<Counted, Ghosted>{a});
-  const UpdateStage<Counted, Ghosted, false> update{a};
+  count(PrimStage<Counted, M>{a});
+  count(EFieldStage<Counted, M>{a});
+  count(PrecursorStage<Counted, M>{a});
+  count(FluxEmf<Counted, M>{a});
+  const UpdateStage<Counted, M, false> update{a};
   for (long long t = 0; t < ghosted_update_cells(nx, ny, nz); ++t) {
     const long long before = Counted::ops;
     update(t);
-    const Site<Counted, Ghosted> p(a, t, true);
+    const Site<Counted, M> p(a, t, true);
     if (p.interior()) ops += Counted::ops - before;
   }
   return ops;
@@ -705,7 +728,10 @@ extern "C" long long ramses_mhd_step_ghosted_ops(const double* U, int nx, int ny
       ramses::counted_copy(U, 8LL * (nx + 2 * g) * (ny + 2 * g) * (nz + 2 * g));
   std::vector<Counted> scratch(ramses_mhd_step_ghosted_scratch(nx, ny, nz, g));
   const Counted dtc(dt);
-  return ramses::mhd::ghosted_step_ops(u.data(), scratch.data(), &dtc, nx, ny, nz, g, prm);
+  const auto count = prm[ramses::P_CISO] > 0.0
+                         ? ramses::mhd::ghosted_step_ops<ramses::mhd::GhostedIso>
+                         : ramses::mhd::ghosted_step_ops<ramses::mhd::Ghosted>;
+  return count(u.data(), scratch.data(), &dtc, nx, ny, nz, g, prm);
 }
 
 // the same for the shearing-box modes, with the sheared slabs beside S (and,

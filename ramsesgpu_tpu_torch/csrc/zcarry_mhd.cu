@@ -6,7 +6,9 @@
 // step streamed over z blocks, the stage planes a z block needs from the
 // one below carried instead of recomputed, the next step's CFL reduction
 // optionally folded in, in the periodic, shearing-box and stratified modes,
-// plain or Kahan-compensated. Plain twin: the step twin
+// plain or Kahan-compensated; the periodic and shear modes adiabatic or
+// isothermal (cIso > 0: their isothermal instance, the folded CFL with the
+// isothermal pressure too). Plain twin: the step twin
 // (solvers/godunov_mhd.py mhd_3d_periodic_update / mhd_3d_shear_update)
 // and, folded, solvers/timestep.py inv_dt_mhd_periodic on its result
 // (kernels/zcarry_mhd3d.py).
@@ -265,8 +267,9 @@ HD T folded_face(const StepArgs<T>& a, const RingSite<T, M>& p, int f) {
 }
 
 // the folded CFL of a state cell after its update: its new channels u and
-// B on its +1 x, y, z faces (folded_face) through inv_dt_cell
-template <typename T>
+// B on its +1 x, y, z faces (folded_face) through inv_dt_cell (ISO: the
+// isothermal pressure)
+template <typename T, bool ISO>
 HD T folded_inv_dt(const Phys<T>& ph, const T* u, const T* face) {
   // channel ch of the cell at v[3 ch]; By at +1 y: v[3 IB + 1]; Bz at +1
   // z: v[3 IC + 2]
@@ -275,7 +278,7 @@ HD T folded_inv_dt(const Phys<T>& ph, const T* u, const T* face) {
   for (int ch = 0; ch < 8; ++ch) v[3 * ch] = u[ch];
   v[3 * IB + 1] = face[1];
   v[3 * IC + 2] = face[2];
-  return inv_dt_cell<T, false>(ph, v, 3, 0, face[0], 1, 2);
+  return inv_dt_cell<T, false, ISO>(ph, v, 3, 0, face[0], 1, 2);
 }
 
 // the precursor planes a block's group walks, item after item: plane p of
@@ -443,7 +446,7 @@ struct Stream {
                            folded_face<COMP>(a, p, 2)};
         T u[8];
         UpdateStage<T, M, COMP>{a}.at(p, u);
-        inv = pmax(inv, folded_inv_dt(a.ph, u, face));
+        inv = pmax(inv, folded_inv_dt<T, M::ISO>(a.ph, u, face));
         return;
       }
     }
@@ -459,7 +462,7 @@ struct Stream {
             a.So[ch * a.d.n + cs] = a.S[ch * a.d.n + cs];
             if (comp) a.Co[ch * a.d.n + cs] = a.C[ch * a.d.n + cs];
           }
-          if (fold) inv = pmax(inv, inv_dt_at<T, false>(a.ph, a.d, a.S, nullptr, cs));
+          if (fold) inv = pmax(inv, inv_dt_at<T, false, M::ISO>(a.ph, a.d, a.S, nullptr, cs));
         });
       }
     }
@@ -587,12 +590,12 @@ int zcarry_step(ZArgs<T> z, int blocks, void* stream) {
 #endif
 }
 
-// the mode from the inputs, as mhd_step.cu: shear (slabs given), its
-// isothermal form (cIso > 0) and stratified (zslabs and gz given, only
-// isothermal)
+// the mode from the inputs, as mhd_step.cu: periodic or shear (slabs
+// given), each in its isothermal form where cIso > 0, and stratified
+// (zslabs and gz given, only isothermal)
 template <typename T, typename F>
 int with_mode(const T* slabs, const T* zslabs, const T* gz, const double* prm, const F& f) {
-  if (slabs == nullptr) return f(Periodic{});
+  if (slabs == nullptr) return prm[P_CISO] > 0.0 ? f(PeriodicIso{}) : f(Periodic{});
   if (zslabs != nullptr) {
     if (!(prm[P_CISO] > 0.0) || gz == nullptr) return 1;  // cudaErrorInvalidValue
     return f(Mode<true, true, true>{});

@@ -21,6 +21,11 @@ and vy offset, on a rank's ghosted block of the sharded shearing box as it
 stands (JAX parallel/sharded_step.py:551-556 compute_inv_dt_mhd on the
 block). Twin: ``solvers.timestep.inv_dt_mhd_ghosted_shear``.
 
+The periodic and ghosted modes take the isothermal pressure rho cIso^2
+where cIso > 0 (solvers/timestep.py:117-118 of the JAX package): an
+instance of their own in the kernel, chosen at launch from the parameter
+block, so the adiabatic instances are the ones earlier builds ran.
+
 Each reduction is one launch: the blocks walk whole x rows and the last
 block to finish forms the max from the blocks' partials, through a counter
 in device memory that it sets back to 0 (``kernels.cfl_rows.workspace``: the
@@ -110,10 +115,10 @@ class CflMhdKernel:
             return self._ghosted(params, S, ghost)
         if jet_inv_dt(params) is not None:
             raise NotImplementedError("the jet runs on the ghosted state (ghost=ghost_width)")
-        if kept is None and (params.omega0 > 0 or params.c_iso > 0):
+        if kept is None and params.omega0 > 0:
             raise NotImplementedError(
-                "the periodic CFL covers the ideal adiabatic, non-rotating case; "
-                "a rotating or isothermal state needs the kept face (shearing box)"
+                "the periodic CFL covers the non-rotating case; a rotating state "
+                "needs the kept face (shearing box)"
             )
         check_state(params, S)
         if kept is not None:
@@ -142,9 +147,8 @@ class CflMhdKernel:
     def _ghosted(self, params: RunParams, U: torch.Tensor, ghost: int) -> torch.Tensor:
         if ghost != params.ghost_width:
             raise ValueError(f"ghost {ghost} != ghost_width {params.ghost_width}")
-        if params.omega0 > 0 or params.c_iso > 0:
-            raise NotImplementedError("the ghosted CFL covers the ideal adiabatic, "
-                                      "non-rotating case")
+        if params.omega0 > 0:
+            raise NotImplementedError("the ghosted CFL covers the non-rotating case")
         check_ghosted(params, U)
         if U.device.type == "cpu":
             return inv_dt_mhd_ghosted(params, U)

@@ -45,13 +45,18 @@ from .packed_bc import pack_state, unpack_state
 from .zcarry_hydro3d import zcarry_hydro, zcarry_hydro_supported
 
 
-def make_advance_n(params: RunParams, device, packed_form: bool = False):
+def make_advance_n(params: RunParams, device, packed_form: bool = False,
+                   post_step: Callable | None = None):
     """The hydro chunk loop; see kernels/loop.py make_kernel_loop. Ghosts
     need not be valid on entry: pack keeps the interior only (the jet:
-    make_ghosted_loop, on the ghosted state as it is)."""
+    make_ghosted_loop, on the ghosted state as it is). ``post_step``: the
+    forcing of a turbulence run (the loop then takes the CFL kernel's
+    inverse dt each step, not the folded one)."""
     require_hydro_scope(params)
     g = params.ghost_width
     if uses_jet(params):
+        if post_step is not None:
+            raise NotImplementedError("forcing with the jet")
         return make_ghosted_loop(
             params, device, lambda U: cfl_hydro(params, U, ghost=g), hydro_step.ghosted_,
             lambda U: hydro_step.scratch(params, U), packed_form=packed_form)
@@ -68,7 +73,7 @@ def make_advance_n(params: RunParams, device, packed_form: bool = False):
         params, device, lambda S: cfl_hydro(params, S), lambda S: streamed_step(S, step_into),
         pack=lambda U: pack_state(params, U),
         unpack=lambda S, t: unpack_state(params, S),
-        packed_form=packed_form,
+        packed_form=packed_form, post_step=post_step,
     )
 
 

@@ -67,21 +67,28 @@ def packed_supported(params: RunParams) -> bool:
     return True
 
 
-def make_advance_n(params: RunParams, device, packed_form: bool = False):
+def make_advance_n(params: RunParams, device, packed_form: bool = False,
+                   post_step: Callable | None = None):
     """The MHD chunk loop; see kernels/loop.py make_kernel_loop (walls
-    or the jet: make_ghosted_loop)."""
+    or the jet: make_ghosted_loop). ``post_step``: the forcing of a
+    turbulence run, on the periodic loop only; a forced streamed step
+    reduces no folded inverse dt (the loop's CFL launch takes it after
+    the kick)."""
     require_step_scope(params)
     if uses_ghosted(params):
+        if post_step is not None:
+            raise NotImplementedError("forcing with walls or the jet (fully periodic faces only)")
         return make_ghosted_loop(
             params, device, lambda U: cfl_mhd(params, U, ghost=params.ghost_width),
             mhd_step.ghosted, lambda U: mhd_step.scratch(params, U, ghosted=True),
             packed_form=packed_form)
 
+    fold = post_step is None
     return make_kernel_loop(
-        params, device, lambda S: cfl_mhd(params, S), lambda S: bind_step(params, S),
+        params, device, lambda S: cfl_mhd(params, S), lambda S: bind_step(params, S, fold),
         pack=lambda U: pack(params, U),
         unpack=lambda S, t: unpack(params, S),
-        packed_form=packed_form,
+        packed_form=packed_form, post_step=post_step,
     )
 
 
@@ -101,18 +108,18 @@ def unpack(params: RunParams, S) -> torch.Tensor:
     return make_boundaries_concat(params, S[:8], interior_only=True)
 
 
-def bind_step(params: RunParams, S):
+def bind_step(params: RunParams, S, fold: bool = True):
     """``step(S, dt, active, t) -> (S', inv)`` (kernels/loop.py) with the
     buffers for S's shape: the staged step on S in place (dissipative: then
     the dissipation kernel from S into the other buffer, the two taking
     turns); or, with kernel=zcarry, the streamed step into the other buffer
-    and the folded inverse dt (dissipative: the dissipation kernel from
-    that buffer back into S, and no folded reduction)."""
+    and, with ``fold``, the folded inverse dt (dissipative: the dissipation
+    kernel from that buffer back into S, and no folded reduction)."""
     dissip = uses_dissipation(params)
     if params.kernel == "zcarry":
         if not dissip:
             return streamed_step(S, lambda S, out, dt, active, t: zcarry_mhd(
-                params, S, out, dt, active, fold=True))
+                params, S, out, dt, active, fold=fold))
         other = torch.empty_like(S)
 
         def step(S, dt, active, t):

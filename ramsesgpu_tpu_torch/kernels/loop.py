@@ -9,6 +9,13 @@ loops do, pallas/fused_mhd3d.py:395-415, fused_hydro3d.py:243-260); dt,
 t, the step count and the ``t < t_end`` flag stay device tensors and the
 step kernels skip their work when the flag is false, so a chunk of n steps
 makes no host sync.
+
+A forced run (the turbulence problems, the JAX make_forced_advance_n,
+solvers/step.py:466-528 there) adds a post-step hook: the forcing kick on
+the state after each step, gated by the same flag. The JAX forced step
+takes its dt from the forced state, so with a hook the loop launches the
+CFL kernel every step and a streamed step's folded inverse dt, reduced
+before the kick, is not used.
 """
 from __future__ import annotations
 
@@ -22,7 +29,8 @@ from ..solvers.timestep import dt_from_inv
 
 
 def make_kernel_loop(params: RunParams, device, cfl: Callable, bind_step: Callable,
-                     pack: Callable, unpack: Callable, packed_form: bool = False):
+                     pack: Callable, unpack: Callable, packed_form: bool = False,
+                     post_step: Callable | None = None):
     """``advance_n(U_ghosted, t, n) -> (U_ghosted', t', k)`` carrying the
     loop state across the chunk; or, with ``packed_form``, the triple
     ``(pack, advance_packed, unpack)``:
@@ -42,7 +50,8 @@ def make_kernel_loop(params: RunParams, device, cfl: Callable, bind_step: Callab
     copies its state into the caller's S once. ``t`` is a 0-d tensor of the
     state dtype on ``device``; ``n`` an int. The loop stops advancing once
     t >= t_end (t_end > 0), as the JAX while_loop does, without leaving the
-    device."""
+    device. ``post_step(S', dt, active)``, when given, updates the state
+    after each step in place (the forcing; see the module note)."""
     device = torch.device(device)
     t_end = params.t_end
 
@@ -61,6 +70,9 @@ def make_kernel_loop(params: RunParams, device, cfl: Callable, bind_step: Callab
             active = (t < t_end) if t_end > 0 else always
             dt = dt_from_inv(params, cfl(cur) if inv is None else inv)
             cur, inv = step(cur, dt, active, t)
+            if post_step is not None:
+                post_step(cur, dt, active)
+                inv = None  # reduced before the kick
             t = t + torch.where(active, dt, torch.zeros_like(dt))
             k = k + active.to(torch.int32)
         copy_state(S, cur)

@@ -34,6 +34,11 @@ PyTorch twins, in five modes.
   ``make_fused_mhd_shear`` (TPU row 4). Twin:
   ``solvers.godunov_mhd.mhd_3d_shear_window_update``.
 
+Isothermal (cIso > 0): the periodic and ghosted modes run their
+isothermal instances (the solvers' gas pressure rho cIso^2), chosen in
+the launch from the parameter block; the shear modes read it from there
+too.
+
 Compensated (``[implementation] compensated``, the periodic and shear
 modes; TPU row A′-compensated, fused_mhd3d.py:247-259): the state is [16,
 nz, ny, nx], the state and then its Kahan carry, and the update stage
@@ -98,7 +103,9 @@ def require_step_scope(params: RunParams) -> None:
     without viscosity or resistivity; whether the run carries the gravity
     field they need is solvers/step.py require_slice's test. Without a
     shearing box any mix of DIRICHLET / NEUMANN / PERIODIC faces and the
-    jet are taken, ideal and adiabatic (walls or the jet with nu or eta
+    jet are taken, adiabatic or isothermal (cIso > 0: the isothermal
+    instances of the periodic and ghosted modes), ideal, or viscous and
+    resistive on fully periodic faces (walls or the jet with nu or eta
     need a ghosted mode of the dissipation kernel)."""
     reasons = []
     if params.dim != 3 or not params.mhd:
@@ -130,8 +137,6 @@ def require_step_scope(params: RunParams) -> None:
     else:
         if params.omega0 > 0:
             reasons.append("rotating frame (omega0 > 0) without a shearing box")
-        if params.c_iso > 0:
-            reasons.append("isothermal EOS (cIso > 0) outside the shearing box")
         if uses_ghosted(params) and uses_dissipation(params):
             reasons.append("viscosity or resistivity with walls or the jet (the ghosted mode "
                            "of csrc/dissip_step.cu)")

@@ -3,7 +3,8 @@ the CUDA kernel ``csrc/zcarry_mhd.cu`` and its plain PyTorch twin.
 
 Replaces the TPU kernel ramsesgpu_tpu/pallas/zcarry_mhd3d.py:102
 ``make_zcarry_mhd_packed_io``: the step of kernels/mhd_step.py (periodic,
-shearing-box and stratified modes, plain or compensated) in one launch,
+shearing-box and stratified modes, plain or compensated, adiabatic or
+isothermal) in one launch,
 with no stage buffer that grows with the grid: its intermediates live in
 a ring of z planes per block in shared memory. It reads S and
 writes the new state into a second buffer. In the periodic mode it also

@@ -3,9 +3,11 @@
 HydroRunBase.cpp:7109-7133, MHDRunBase.cpp:1378-3245).
 
 The port registers the initial conditions it can run: the gravity-free
-hydro problems below, and the MHD problems of ``mhd_inits`` (registered
-when that module is imported; ``solvers/step.py require_slice`` refuses
-those that need 2D or a static gravity field). Any other name raises
+hydro problems below, the MHD problems of ``mhd_inits`` and the four
+turbulence problems of ``turbulence_inits`` (hydro and MHD; registered
+when those modules are imported, as the JAX package's
+problems/__init__.py:60-69 does; ``solvers/step.py require_slice``
+refuses those that need 2D or a static gravity field). Any other name raises
 NotImplementedError. ``has_gravity_field`` is the JAX package's
 gate (problems/__init__.py:48-76): Keplerian-disk always has a field, MRI
 only with a [gravity] section (stratified MRI); ``gravity_field`` builds
@@ -32,6 +34,10 @@ _HYDRO_REGISTRY: dict[str, InitFn] = {
 }
 
 _MHD_REGISTRY: dict[str, InitFn] = {}
+
+
+def register_hydro(name: str, fn: InitFn) -> None:
+    _HYDRO_REGISTRY[name] = fn
 
 
 def register_mhd(name: str, fn: InitFn) -> None:
@@ -66,6 +72,8 @@ def gravity_field(params: RunParams, config: ConfigMap):
 
 def init_problem(params: RunParams, config: ConfigMap) -> np.ndarray:
     """The initial conserved state (numpy, ghosted) of ``params.problem``."""
+    from . import turbulence_inits  # noqa: F401  (registers on import)
+
     if params.mhd:
         from . import mhd_inits  # noqa: F401  (registers on import)
 

@@ -3,9 +3,13 @@ counterpart of ramsesgpu_tpu/solvers/run.py:26-330; reference
 HydroRunGodunov.cpp:3857-4079).
 
 The hot loop is a chunk of device work per output interval with one host
-sync per chunk; the host orchestrates output and logging. History,
-restart, forcing, the numerics guard and the other output formats are not
-ported and raise when the INI asks for them.
+sync per chunk; the host orchestrates output and logging. The turbulence
+problems run the forced loop (solvers/step.py make_forced_chain; JAX
+run.py:92-116), whose OU forcing state is written beside each output
+(JAX run.py:178-185); ``[history] enabled`` appends a sample after each
+chunk, every ``dtHist`` of simulated time (io/history.py; JAX
+run.py:65-71, 289-300). Restart, the numerics guard and the other output
+formats are not ported and raise when the INI asks for them.
 """
 from __future__ import annotations
 
@@ -18,15 +22,17 @@ from ..config.configmap import ConfigMap
 from ..config.params import RunParams, params_from_config
 from ..convert import torch_dtype
 from ..io.hdf5 import output_hdf5
+from ..io.history import HistoryWriter, compute_history
 from ..io.vtk import output_vtk
+from ..ops.forcing import OUForcing, save_ou_forcing
 from ..problems import init_problem
 from ..utils.timer import Timer, perf_report
 from .boundary import make_boundaries
-from .step import make_packed_advance_chain, require_slice
+from .step import is_forced, make_forced_chain, make_packed_advance_chain, require_slice
 
 # INI switches of the JAX Run that the port does not implement
 _UNPORTED_FLAGS = (
-    ("run", "restart"), ("history", "enabled"), ("run", "fpe_check"),
+    ("run", "restart"), ("run", "fpe_check"),
     ("debug", "dumpData"), ("output", "outputPng"),
     ("output", "outputNrrd"), ("output", "outputXsm"), ("output", "outputBin"),
     ("output", "outputFaces"), ("output", "outputNetcdf4"),
@@ -49,15 +55,15 @@ class Run:
         self.config = config
         self.params = params or params_from_config(config)
         self.device = torch.device(device)
-        require_slice(self.params, self.device, config)
+        # (a forced run ignores [implementation] compensated, as the JAX one)
+        require_slice(self.params.replace(compensated=False) if is_forced(self.params)
+                      else self.params, self.device, config)
         for section, key in _UNPORTED_FLAGS:
             if config.get_bool(section, key, False):
                 raise NotImplementedError(f"[{section}] {key} is not ported")
         topo = tuple(config.get_integer("mpi", k, 1) for k in ("mx", "my", "mz"))
         if topo != (1, 1, 1):
             raise NotImplementedError(f"[mpi] distributed runs are not ported {topo}")
-        if self.params.problem.startswith("turbulence"):
-            raise NotImplementedError("turbulence forcing is not ported")
 
         self.output_dir = config.get_string("output", "outputDir", "./")
         self.output_prefix = config.get_string("output", "outputPrefix", "output")
@@ -66,6 +72,14 @@ class Run:
         self.ghost_included = config.get_bool("output", "ghostIncluded", False)
         self.n_log = config.get_integer("run", "nlog", 0)
 
+        # history ([history] section, HydroRunBase.cpp:7235+)
+        self._history_writer = None
+        self.dt_hist = config.get_float("history", "dtHist", 0.0)
+        self._next_hist_time = 0.0
+        if config.get_bool("history", "enabled", False):
+            self._history_writer = HistoryWriter(self.params, self.output_dir,
+                                                 self.output_prefix)
+
         self.t = 0.0
         self.n_step = 0
         self.io_timer = Timer()
@@ -73,7 +87,11 @@ class Run:
         U0 = torch.from_numpy(init_problem(self.params, config))
         U0 = U0.to(device=self.device, dtype=torch_dtype(self.params))
         self.U = make_boundaries(self.params, U0)
-        self._chain = make_packed_advance_chain(self.params, self.device, config)
+        self.forcing = None  # the turbulence problems' forcing, its state on the device
+        if is_forced(self.params):
+            self._chain, self.forcing = make_forced_chain(self.params, self.device, config)
+        else:
+            self._chain = make_packed_advance_chain(self.params, self.device, config)
         self._S = None  # the chained loop state while start() runs
 
     def _host_ghosted(self) -> torch.Tensor:
@@ -85,17 +103,20 @@ class Run:
         return self.U
 
     def output(self) -> None:
-        """VTK and/or HDF5 snapshots."""
-        if not (self.output_vtk or self.output_hdf5):
-            return
+        """VTK and/or HDF5 snapshots, and the OU forcing state's checkpoint
+        (``<prefix>_forcing_<step>.npz``)."""
         with self.io_timer:
-            U_host = self._host_ghosted().cpu().numpy()
-            kw = dict(output_dir=self.output_dir, prefix=self.output_prefix,
-                      ghost_included=self.ghost_included)
-            if self.output_vtk:
-                output_vtk(self.params, U_host, self.n_step, **kw)
-            if self.output_hdf5:
-                output_hdf5(self.params, U_host, self.n_step, total_time=self.t, **kw)
+            if self.output_vtk or self.output_hdf5:
+                U_host = self._host_ghosted().cpu().numpy()
+                kw = dict(output_dir=self.output_dir, prefix=self.output_prefix,
+                          ghost_included=self.ghost_included)
+                if self.output_vtk:
+                    output_vtk(self.params, U_host, self.n_step, **kw)
+                if self.output_hdf5:
+                    output_hdf5(self.params, U_host, self.n_step, total_time=self.t, **kw)
+            if isinstance(self.forcing, OUForcing):
+                save_ou_forcing(self.forcing.state, f"{self.output_dir}/{self.output_prefix}"
+                                                    f"_forcing_{self.n_step:07d}.npz")
 
     def start(self, max_steps: int | None = None, do_output: bool = True) -> None:
         """Run to t_end / nstepmax, writing output every noutput steps."""
@@ -122,6 +143,14 @@ class Run:
                     break  # t_end reached exactly
                 if self.n_log > 0 and self.n_step % self.n_log == 0:
                     print(f"step {self.n_step:7d}  t={self.t:.6f}", file=sys.stderr)
+                if self._history_writer is not None and (
+                        self.dt_hist <= 0 or self.t >= self._next_hist_time):
+                    sample = compute_history(p, self._host_ghosted(), self.t, 0.0)
+                    with self.io_timer:
+                        self._history_writer.append(sample)
+                    if self.dt_hist > 0:
+                        while self._next_hist_time <= self.t:
+                            self._next_hist_time += self.dt_hist
         finally:
             # leave the chained loop state even when a chunk raised, so the
             # ghosted-state contract (self.U) holds afterwards

@@ -51,9 +51,10 @@ class DistributedRun(Run):
         topo = topology_from_config(config)
         validate_decomposition(p, *topo)
         require_sharded_scope(p, device, config)
-        for section, key in _UNPORTED_FLAGS:
+        for section, key in _UNPORTED_FLAGS + (("history", "enabled"),):
             if config.get_bool(section, key, False):
-                raise NotImplementedError(f"[{section}] {key} is not ported")
+                raise NotImplementedError(f"[{section}] {key} is not ported in a distributed "
+                                          f"run")
         self.output_dir = config.get_string("output", "outputDir", "./")
         self.output_prefix = config.get_string("output", "outputPrefix", "output")
         self.output_vtk = config.get_bool("output", "outputVtk", True)

@@ -13,6 +13,16 @@ with any mix of DIRICHLET / NEUMANN / PERIODIC faces and the jet.
     step(U, t)          -> (U', dt)       one step on the ghosted state
     advance_n(U, t, n)  -> (U', t', k)    up to n steps, stopping at t_end
     make_packed_advance_chain -> (pack, advance_packed, unpack(S, t))
+    make_forced_advance_n, make_forced_chain -> (the above, forcing)
+
+The turbulence problems (static-spectrum and Ornstein-Uhlenbeck forcing)
+run the forced loops, the counterpart of the JAX make_forced_step_fn /
+make_forced_advance_n (solvers/step.py:466-528 there): the same kernel
+loop with the forcing as its post-step hook (ops/forcing.py; a CFL launch
+every step, on the forced state). The forcing state stays on the device
+in the returned forcing object across chunks. As the JAX forced step,
+which has no compensated branch, a forced run with ``compensated=yes``
+runs the plain state.
 
 Each of them runs the kernel path (kernels/fused_mhd3d.py,
 kernels/shear.py, kernels/fused_hydro3d.py): on a CUDA device its
@@ -48,10 +58,12 @@ import torch
 
 from ..config.configmap import ConfigMap
 from ..config.params import RunParams
+from ..convert import torch_dtype
 from ..kernels import fused_hydro3d, fused_mhd3d, shear
 from ..kernels.cfl_mhd import cfl_mhd
 from ..kernels.hydro_step import require_hydro_scope
 from ..kernels.mhd_step import require_step_scope, uses_ghosted, uses_shear
+from ..ops.forcing import FORCED_PROBLEMS, make_forcing
 from ..problems import gravity_field, has_gravity_field
 from .stratified import uses_stratified_z
 from .timestep import dt_from_inv
@@ -143,13 +155,18 @@ def make_step_fn(params: RunParams, device, config: ConfigMap | None = None) -> 
     return step
 
 
-def _loop(params: RunParams, device, config: ConfigMap | None, packed_form: bool):
+def _loop(params: RunParams, device, config: ConfigMap | None, packed_form: bool,
+          post_step: Callable | None = None):
     if not params.mhd:
-        return fused_hydro3d.make_advance_n(params, device, packed_form=packed_form)
+        return fused_hydro3d.make_advance_n(params, device, packed_form=packed_form,
+                                            post_step=post_step)
     if uses_shear(params):
+        if post_step is not None:
+            raise NotImplementedError("forcing in a shearing box")
         return shear.make_advance_n(params, device, packed_form=packed_form,
                                     gz=gravity_z(params, config, device))
-    return fused_mhd3d.make_advance_n(params, device, packed_form=packed_form)
+    return fused_mhd3d.make_advance_n(params, device, packed_form=packed_form,
+                                      post_step=post_step)
 
 
 def make_advance_n(params: RunParams, device, config: ConfigMap | None = None) -> Callable:
@@ -167,3 +184,32 @@ def make_packed_advance_chain(params: RunParams, device, config: ConfigMap | Non
     fill needs it)."""
     require_slice(params, device, config)
     return _loop(params, device, config, packed_form=True)
+
+
+def is_forced(params: RunParams) -> bool:
+    """Whether the problem drives turbulence (the JAX Run's ``_forced``)."""
+    return params.problem in FORCED_PROBLEMS
+
+
+def _forced(params: RunParams, device, config: ConfigMap, packed_form: bool):
+    if not is_forced(params):
+        raise ValueError(f"problem {params.problem!r} has no forcing")
+    params = params.replace(compensated=False)
+    require_slice(params, device, config)
+    forcing = make_forcing(params, config, device, torch_dtype(params))
+    return _loop(params, device, config, packed_form, post_step=forcing), forcing
+
+
+def make_forced_advance_n(params: RunParams, device, config: ConfigMap):
+    """``(advance_n, forcing)``: advance_n(U, t, n) -> (U', t', k) as
+    make_advance_n's, each step followed by the forcing kick; ``forcing``
+    (ops/forcing.py StaticForcing or OUForcing) carries the forcing state
+    across calls (``forcing.state``: the OU modes, None for the static
+    field)."""
+    return _forced(params, device, config, packed_form=False)
+
+
+def make_forced_chain(params: RunParams, device, config: ConfigMap):
+    """``((pack, advance_packed, unpack(S, t)), forcing)``: the forced loop
+    in make_packed_advance_chain's form."""
+    return _forced(params, device, config, packed_form=True)

@@ -15,7 +15,7 @@ import torch
 from ramsesgpu_tpu.config.configmap import ConfigMap
 from ramsesgpu_tpu.config.params import params_from_config
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -85,6 +85,8 @@ def test_port_imports_no_jax(tmp_path):
         for p in pkg.rglob("*.py") if p.name != "__init__.py")
     code = (
         "import importlib, sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "assert all(f'ramsesgpu_tpu_torch.parallel.{m}' in sys.modules\n"
@@ -136,12 +138,18 @@ def test_port_imports_no_jax(tmp_path):
         "nx=50\nny=50\nnz=200", "nx=8\nny=8\nnz=16").replace("ijet=10", "ijet=3").replace(
         "offsetJet=10", "offsetJet=2")
     assert "nz=6" in walls and "ijet=3" in mhd_jet and "nz=16" in hydro_jet
-    texts = [ot, hydro, mri, mri_dissip, ot_dissip, mri_comp, strat, walls, mhd_jet, hydro_jet]
+    # a turbulence input (isothermal MHD, the OU forcing, the history file)
+    turb = (REPO / "data" / "turbulence_mhd_ou.ini").read_text().replace(
+        "nx=32\nny=32\nnz=32", "nx=8\nny=8\nnz=8")
+    assert "nx=8\n" in turb and "[history]\nenabled=yes" in turb
+    texts = [ot, hydro, mri, mri_dissip, ot_dissip, mri_comp, strat, walls, mhd_jet, hydro_jet,
+             turb]
     texts += [zcarry(text) for text in texts + [blast]]
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code, *texts],
                          capture_output=True, text=True, env=env, timeout=300, cwd=tmp_path)
     assert res.returncode == 0 and res.stdout.strip().endswith("OK"), res.stderr[-4000:]
+    assert (tmp_path / "turbulence_mhd_ou.history").read_text().startswith("# totalTime dt mass")
 
 
 def test_config_copies_match_the_jax_package(data_dir):
@@ -279,7 +287,9 @@ def test_wrappers_take_twins_on_cpu_without_counting():
 @pytest.mark.parametrize(
     "change, exc",
     [
-        ({"c_iso": 1.0}, NotImplementedError),
+        # static gravity in MHD (ROADMAP Queue 1 item 4); isothermal periodic
+        # MHD, refused here before, runs (tests/test_torch_forcing.py)
+        ({"gravity_z": -1.0}, NotImplementedError),
         ({"riemann_solver": "LLF"}, NotImplementedError),
         ({"boundary_xmin": "BC_COPY"}, NotImplementedError),
         ({"omega0": 1.0}, NotImplementedError),

@@ -23,7 +23,7 @@ from ramsesgpu_tpu.config.configmap import ConfigMap
 from ramsesgpu_tpu.config.params import params_from_config
 from ramsesgpu_tpu.core.constants import IA, IB, IC
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 OPS_INI = """
 [mesh]

@@ -188,11 +188,13 @@ for kind, dtype in T.WINDOWS:
     # a full-window field, as the kernel's gravity channel (fused_mhd3d.py:740-745)
     grav = None if gz is None else (None, None, jnp.broadcast_to(
         jnp.asarray(gz).reshape(-1, 1, 1), W.shape[1:]))
-    inv = jax.jit(lambda W: compute_inv_dt_mhd(lp, W))(jnp.asarray(W))
-    dt = params.cfl / inv
-    new, fpl, eypl, ezpl = jax.jit(lambda W, dt, xpos, grav: mhd_3d_interior_update(
-        lp, W, dt, margin=(g, g, g), shear_planes=True, xpos=xpos, gravity=grav))(
-        jnp.asarray(W), dt, xpos, grav)
+    # op by op (a whole-array step under jit costs ~2x its CPU here)
+    with jax.disable_jit():
+        inv = compute_inv_dt_mhd(lp, jnp.asarray(W))
+        dt = params.cfl / inv
+        new, fpl, eypl, ezpl = mhd_3d_interior_update(
+            lp, jnp.asarray(W), dt, margin=(g, g, g), shear_planes=True, xpos=xpos,
+            gravity=grav)
     key = f"{kind}_{dtype}"
     out[key + "_W"], out[key + "_inv"], out[key + "_dt"] = W, np.asarray(inv), np.asarray(dt)
     out[key + "_new"] = np.asarray(new)

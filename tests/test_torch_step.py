@@ -26,7 +26,7 @@ from ramsesgpu_tpu.config.configmap import ConfigMap
 from ramsesgpu_tpu.config.params import params_from_config
 from ramsesgpu_tpu.core.constants import IA, IB, IC, ID, IP
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 
