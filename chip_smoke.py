@@ -187,6 +187,17 @@ Phases, in order; any failure raises and no result line is printed:
      most 50 steps each (no HDF5 snapshots where h5py is not installed):
      launches, and turbulence_mhd_ou.ini's history file (written, parsed,
      its mass column constant to 1e-5);
+ 43. the 19 single-device 2D inputs without gravity as shipped through the
+     CLI's main() on the card, at most 10 steps each (the 2D path is
+     whole-array PyTorch: the JAX package has no 2D kernel, so no kernel
+     launches and no twin runs): finite, rho > 0 (hydro: p > 0), mass on
+     periodic faces within 1e-5, MHD max|divB| < 1e-3 max|Bx| / dx;
+ 44. the two timed 2D cells, f32: Orszag-Tang at 2048^2 and
+     data/kelvin_helmholtz_gpu_2d_large.ini as shipped (1200^2), 2 warm-up
+     and 3 timed chunks of 10 steps: ms/step, cells/s, peak memory, and a
+     profiled chunk's launches a step and idle share;
+ 45. the 2D path on the card against the CPU (OT and the Sod tube at 64^2,
+     f64, 10 steps): relative L2 <= 1e-12, no host sync in the chunk;
  then the MHD step kernel's rows (A, A', 3, 4, 12, and the isothermal
  instances) with their times and bounds, the kernels JSON line, the card
  line, and the result line.
@@ -4060,6 +4071,190 @@ def phase42(card: str) -> None:
             raise AssertionError(f"{label}: rc {rc}")
 
 
+# the 19 single-device 2D inputs without gravity (the 2D path: whole-array
+# PyTorch on the card; the JAX package has no 2D kernel)
+INPUTS_2D = ("hydro_sod2d", "implode2d", "blast2d", "Gresho_vortex2d", "riemann2d",
+             "kelvin_helmholtz_cpu_2d", "kelvin_helmholtz_gpu_2d",
+             "kelvin_helmholtz_gpu_2d_large", "jet2d_cpu", "jet2d_gpu", "orszag-tang",
+             "mhd_rotor", "mhd_BrioWu", "mhd_currentSheet_2d", "mhd_fieldloop2d",
+             "mhd_kelvin_helmholtz_2d", "kelvin_helmholtz_gpu_2d_mhd", "mhd_jet2d",
+             "mhd_inertialWave_2d")
+
+
+def check_2d_state(label: str, params, U: torch.Tensor, U0: torch.Tensor) -> str:
+    """The gates of a 2D run's ghosted state U (initial state U0): finite,
+    rho > 0 and (hydro) p > 0 on the interior; with periodic faces the
+    mass within MASS_TOL; MHD: max|dBx/dx + dBy/dy| over the interior (its
+    +1 faces are the CT layer n+g) < 1e-3 max|Bx| / dx. Returns the
+    numbers as text."""
+    from ramsesgpu_tpu_torch.core.constants import BoundaryConditionType as BCT
+
+    g = params.ghost_width
+    yi, xi = slice(g, g + params.ny), slice(g, g + params.nx)
+    if not bool(torch.isfinite(U).all()):
+        raise AssertionError(f"{label}: non-finite state")
+    W = U[:, yi, xi].double()
+    rho_min = float(W[0].min())
+    ok = rho_min > 0
+    text = f"min rho {rho_min:.4e}"
+    if not params.mhd:
+        ekin = 0.5 * (W[2:4] ** 2).sum(0) / W[0]
+        p_min = float(((params.gamma0 - 1.0) * (W[1] - ekin)).min())
+        ok = ok and p_min > 0
+        text += f", min p {p_min:.4e}"
+    else:
+        bx, by = U[5].double(), U[6].double()
+        div = ((bx[yi, g + 1:g + params.nx + 1] - bx[yi, xi]) / params.dx
+               + (by[g + 1:g + params.ny + 1, xi] - by[yi, xi]) / params.dy)
+        divb = float(div.abs().max())
+        bound = 1e-3 * max(float(W[5].abs().max()), 1e-10) / params.dx
+        ok = ok and divb < bound
+        text += f", max|divB| {divb:.3e} (bound {bound:.3e})"
+    if all(b == BCT.BC_PERIODIC for b in params.boundary_types[:4]):
+        mass0 = float(U0[0, yi, xi].double().sum())
+        drift = abs(float(W[0].sum()) - mass0) / mass0
+        ok = ok and drift <= MASS_TOL
+        text += f", mass drift {drift:.3e} (tol {MASS_TOL:.0e})"
+    if not ok:
+        raise AssertionError(f"{label}: {text}")
+    return text
+
+
+def phase43(card: str) -> None:
+    """Every 2D input as shipped through the CLI's main() on the card, at
+    most 10 steps each, with --no-output (no HDF5 where h5py is missing,
+    and the snapshots are not what is checked): no kernel launch and no
+    twin (there is no 2D kernel), the Run on the card, and check_2d_state's
+    gates on the state it ends with."""
+    import os
+    import tempfile
+
+    from ramsesgpu_tpu_torch.cli.main import main as cli_main
+    from ramsesgpu_tpu_torch.solvers.run import Run
+
+    start = Run.start
+    for name in INPUTS_2D:
+        path = Path(f"data/{name}.ini").resolve()
+        params = params_from_text(path.read_text())
+        steps = min(10, params.n_stepmax)
+        label = f"43 {name}.ini"
+        runs = []
+
+        def kept_start(self, *args, **kw):
+            runs.append((self, self.U.clone()))
+            return start(self, *args, **kw)
+
+        cwd = os.getcwd()
+        Run.start = kept_start
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="smoke43_") as workdir:
+            os.chdir(workdir)
+            try:
+                with counted_main_path(label, {}):
+                    rc = cli_main(["--param", str(path), "--max-steps", str(steps), "--no-output"])
+            finally:
+                os.chdir(cwd)
+                Run.start = start
+        wall = time.perf_counter() - t0
+        run, U0 = runs[0]
+        if rc != 0 or run.n_step != steps or run.U.device.type != "cuda":
+            raise AssertionError(f"{label}: rc {rc}, {run.n_step} steps, on {run.U.device}")
+        text = check_2d_state(label, run.params, run.U, U0)
+        print(f"[{label}] {params.nx}x{params.ny} {params.dtype} "
+              f"{'MHD' if params.mhd else 'hydro'} {params.riemann_solver.name} as shipped on "
+              f"{card}: {steps} steps to t {run.t:.4e} in {wall:.2f} s (set-up included); {text}")
+
+
+def phase44(card: str) -> None:
+    """The two timed 2D cells, f32, through make_packed_advance_chain on
+    the card: Orszag-Tang at 2048^2 (data/orszag-tang.ini's physics on a
+    mesh enlarged as a 2D production run would be) and
+    data/kelvin_helmholtz_gpu_2d_large.ini as shipped (1200^2). Each: 2
+    warm-up and 3 timed chunks of 10 steps (ms/step, cells/s), peak device
+    memory, one profiled chunk (device time by kernel, launches a step,
+    idle share), check_2d_state's gates."""
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.config.params import params_from_config
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+
+    for label, name, n in (("44 OT 2048^2", "orszag-tang", 2048),
+                           ("44 KH 1200^2", "kelvin_helmholtz_gpu_2d_large", None)):
+        config = ConfigMap(Path(f"data/{name}.ini"))
+        if n is not None:
+            config.set_integer("mesh", "nx", n)
+            config.set_integer("mesh", "ny", n)
+        params = params_from_config(config)
+        if params.dtype != "float32" or params.dim != 2:
+            raise AssertionError(f"{label}: {params.dtype}, dim {params.dim}")
+        U0 = make_boundaries(params, torch.from_numpy(init_problem(params, config)).cuda())
+        pack, advance, unpack = make_packed_advance_chain(params, "cuda", config)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        S = pack(U0)
+        t = torch.zeros((), dtype=U0.dtype, device="cuda")
+        cells = params.nx * params.ny
+        with counted_main_path(label, {}):
+            S, t, _dt = run_chunks(label, card, advance, S, t, f"{params.nx}x{params.ny}",
+                                   cells=cells)
+        peak = torch.cuda.max_memory_allocated() - base
+        rows = profile_chunk(label, card, advance, S, t, 10)
+        launches = sum(count for _us, count in rows.values()) / 10
+        busy_ms = sum(us for us, _count in rows.values()) / 1e3
+        # the profiler slows the host's launches: the idle share against one
+        # more chunk without it too
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S, t, _k = advance(S, t, 10)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        print(f"[{label}] {launches:.1f} kernel launches a step; device busy {busy_ms:.3f} ms "
+              f"against {wall_ms:.3f} ms of an unprofiled chunk: idle share "
+              f"{1 - busy_ms / wall_ms:.4f}; peak device memory {peak / 2**30:.3f} GiB above "
+              f"the initial state ({peak / cells:.1f} B a cell); "
+              f"{check_2d_state(label, params, unpack(S, t), U0)}")
+        del S, U0
+
+
+def phase45(card: str) -> None:
+    """The 2D path on the card against the CPU through the same code:
+    data/orszag-tang.ini and data/hydro_sod2d.ini at 64^2, f64, 10 steps of
+    make_advance_n; relative L2 <= 1e-12, equal t and step counts, and no
+    host sync in the card's chunk (sync debug mode "error" raises on one)."""
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.config.params import params_from_config
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+    from ramsesgpu_tpu_torch.solvers.step import make_advance_n
+
+    for name in ("orszag-tang", "hydro_sod2d"):
+        label = f"45 {name}"
+        config = ConfigMap(Path(f"data/{name}.ini"))
+        for axis in ("nx", "ny"):
+            config.set_integer("mesh", axis, 64)
+        config.set_string("implementation", "dtype", "float64")
+        params = params_from_config(config)
+        U = make_boundaries(params, torch.from_numpy(init_problem(params, config)).cuda())
+        t0 = torch.zeros((), dtype=U.dtype, device="cuda")
+        advance = make_advance_n(params, "cuda", config)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            U_gpu, t_gpu, k_gpu = advance(U, t0, 10)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        U_cpu, t_cpu, k_cpu = make_advance_n(params, "cpu", config)(U.cpu(), t0.cpu(), 10)
+        rel = rel_l2(U_gpu.cpu(), U_cpu)
+        dt_rel = abs(float(t_gpu) - float(t_cpu)) / float(t_cpu)
+        print(f"[{label}] 64^2 f64, 10 steps, card vs CPU: relative L2 {rel:.3e} (tol 1e-12), "
+              f"t {float(t_gpu):.6e} vs {float(t_cpu):.6e} (rel {dt_rel:.1e}); no host sync "
+              f"in the card's chunk")
+        if not (int(k_gpu) == int(k_cpu) == 10 and rel <= 1e-12 and dt_rel <= 1e-12):
+            raise AssertionError(f"{label}: k {int(k_gpu)}/{int(k_cpu)}, rel {rel}, t {dt_rel}")
+
+
 def profile_chunk(label: str, card: str, advance, S: torch.Tensor, t: torch.Tensor,
                   chunk: int) -> None:
     """Device time by kernel over one more chunk of a main path, and the
@@ -4252,6 +4447,12 @@ def main() -> int:
     bounds.update(wall_iso["bounds"])
     phase42(card)
     lap("42")
+    phase43(card)
+    lap("43")
+    phase44(card)
+    lap("44")
+    phase45(card)
+    lap("45")
     if "jax" in sys.modules or any(m.startswith("ramsesgpu_tpu.") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
 

@@ -25,9 +25,9 @@ from ..config.params import params_from_config
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="ramses-tpu-torch",
-        description="PyTorch + CUDA port of ramsesgpu_tpu (3D hydro and ideal MHD+CT "
-                    "with walls or periodic faces, the inflow jet, viscous-resistive "
-                    "periodic MHD, the MRI shearing box).",
+        description="PyTorch + CUDA port of ramsesgpu_tpu (2D and 3D hydro and ideal "
+                    "MHD+CT with walls or periodic faces, the inflow jet, viscous-resistive "
+                    "periodic 3D MHD, the MRI shearing box, driven turbulence).",
     )
     parser.add_argument("--param", "-i", required=True, help="INI parameter file")
     parser.add_argument("--max-steps", type=int, default=None)

@@ -3,9 +3,11 @@
 In this system the "weights" are the state and the RunParams. The
 port's RunParams is a copy of the JAX package's with the same fields, so
 the functions here take either. The state layouts (nvar = 8 for MHD, 5
-for 3D hydro):
+for 3D hydro, 4 for 2D hydro):
 
-- ghosted: [nvar, nz+2g, ny+2g, nx+2g], the same in both packages;
+- ghosted: [nvar, nz+2g, ny+2g, nx+2g], the same in both packages; in 2D
+  [nvar, ny+2g, nx+2g], which is also the loop state of both packages'
+  2D paths (``state_from_jax`` / ``state_to_jax``);
 - JAX packed loop state of fully periodic runs
   (ramsesgpu_tpu/pallas/packed_io.py:39-48): [nvar, nz+2g, ny+2*YB, nx]
   with YB = 8 wrap rows in y, wrap planes in z and no x ghosts;
@@ -68,6 +70,13 @@ def state_from_jax(params: RunParams, U_np: np.ndarray, device) -> torch.Tensor:
     if U.shape != params.shape:
         raise ValueError(f"state shape {U.shape} != {params.shape}")
     return torch.from_numpy(np.ascontiguousarray(U)).to(device=device, dtype=torch_dtype(params))
+
+
+def state_to_jax(params: RunParams, U: torch.Tensor) -> np.ndarray:
+    """A ghosted state of the port -> the JAX package's (numpy)."""
+    if tuple(U.shape) != params.shape:
+        raise ValueError(f"state shape {tuple(U.shape)} != {params.shape}")
+    return U.detach().cpu().numpy()
 
 
 def packed_from_jax(params: RunParams, P_np: np.ndarray, device) -> torch.Tensor:

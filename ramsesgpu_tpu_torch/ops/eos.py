@@ -1,9 +1,10 @@
 """Equation of state and conservative <-> primitive conversion (the
 PyTorch twin of ramsesgpu_tpu/ops/eos.py; reference constoprim.h:28-199).
 
-Conserved state U layout: [nvar, z, y, x] with components ID, IP(=E), IU,
-IV, IW (hydro: nvar 5) and IA, IB, IC (MHD: nvar 8); the face-centred field
-sits at each cell's LEFT face.
+Conserved state U layout: [nvar, (z,) y, x] with components ID, IP(=E),
+IU, IV(, IW) (hydro: nvar 4 in 2D, 5 in 3D) and IW, IA, IB, IC (MHD: nvar
+8 in 2D and 3D); the face-centred field sits at each cell's LEFT face. In
+2D Bz is cell-centred (the DUMSES convention).
 """
 from __future__ import annotations
 
@@ -55,15 +56,12 @@ def prim_to_cons_hydro(params: RunParams, Q: torch.Tensor) -> torch.Tensor:
 
 
 def constoprim_mhd(params: RunParams, U: torch.Tensor, dt=None):
-    """3D MHD conservative -> primitive (ramsesgpu_tpu ops/eos.py:56).
+    """MHD conservative -> primitive (ramsesgpu_tpu ops/eos.py:56).
 
     The primitive cell-centred B is the average of the cell's left face and
-    the next cell's left face. Returns (Q, c). With omega0 > 0 the
-    velocities get the Coriolis predictor half-kick over ``dt``
-    (constoprim.h:190-195)."""
-    if params.dim != 3:
-        raise NotImplementedError("only 3D MHD is ported")
-
+    the next cell's left face (in 2D Bz is already cell-centred). Returns
+    (Q, c). With omega0 > 0 the velocities get the Coriolis predictor
+    half-kick over ``dt`` (constoprim.h:190-195)."""
     rho = xp.maximum(U[ID], params.smallr)
     inv_rho = 1.0 / rho
     u = U[IU] * inv_rho
@@ -72,7 +70,7 @@ def constoprim_mhd(params: RunParams, U: torch.Tensor, dt=None):
 
     bx = 0.5 * (U[IA] + xp.shift_p(U[IA], -1))
     by = 0.5 * (U[IB] + xp.shift_p(U[IB], -2))
-    bz = 0.5 * (U[IC] + xp.shift_p(U[IC], -3))
+    bz = 0.5 * (U[IC] + xp.shift_p(U[IC], -3)) if params.dim == 3 else U[IC]
 
     eken = 0.5 * (u * u + v * v + w * w)
     emag = 0.5 * (bx * bx + by * by + bz * bz)

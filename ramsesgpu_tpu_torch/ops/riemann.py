@@ -1,10 +1,11 @@
 """Hydro Riemann solvers over whole interface arrays (the PyTorch twin of
 ramsesgpu_tpu/ops/riemann.py; reference riemann.h:31-401, cmpflx.h:22-49):
-the iterative two-shock "approx" solver, HLL and HLLC, in 3D.
+the iterative two-shock "approx" solver, HLL and HLLC, in 2D and 3D.
 
-Interface convention: ``ql``/``qr`` are primitive arrays [5, ...] in
-*rotated* component order (IU holds the face-normal velocity); each solver
-returns the flux [5, ...] in the same rotated order. The op forms are the
+Interface convention: ``ql``/``qr`` are primitive arrays [4, ...] (2D) or
+[5, ...] (3D) in *rotated* component order (IU holds the face-normal
+velocity); each solver returns the flux of the same shape in the same
+rotated order. The op forms are the
 reference's: hoisted 1/pl, 1/pr and rsqrt in the Newton loop, shared
 reciprocals in HLLC; parity with it is tolerance-based, never bitwise.
 """
@@ -19,12 +20,16 @@ from .backend import xp
 
 def cmpflx(params: RunParams, qgdnv: torch.Tensor) -> torch.Tensor:
     """Euler flux from a Godunov (interface) state (cmpflx.h:22-49)."""
-    rho, p, u, v, w = qgdnv[ID], qgdnv[IP], qgdnv[IU], qgdnv[IV], qgdnv[IW]
+    rho, p, u, v = qgdnv[ID], qgdnv[IP], qgdnv[IU], qgdnv[IV]
     f_rho = rho * u
     f_mu = f_rho * u + p
     f_mv = f_rho * v
-    f_mw = f_rho * w
     entho = 1.0 / (params.gamma0 - 1.0)
+    if params.dim == 2:
+        etot = p * entho + 0.5 * rho * (u * u + v * v)
+        return torch.stack([f_rho, u * (etot + p), f_mu, f_mv])
+    w = qgdnv[IW]
+    f_mw = f_rho * w
     ekin = 0.5 * rho * (u * u + v * v + w * w)
     etot = p * entho + ekin
     f_e = u * (etot + p)
@@ -119,9 +124,10 @@ def riemann_approx(params: RunParams, ql: torch.Tensor, qr: torch.Tensor) -> tor
     g_u = torch.where(spin > 0.0, ustar, g_u)
     g_p = torch.where(spin > 0.0, pstar, g_p)
 
-    g_v = torch.where(left_going, ql[IV], qr[IV])
-    g_w = torch.where(left_going, ql[IW], qr[IW])
-    return cmpflx(params, torch.stack([g_rho, g_p, g_u, g_v, g_w]))
+    parts = [g_rho, g_p, g_u, torch.where(left_going, ql[IV], qr[IV])]
+    if params.dim == 3:
+        parts.append(torch.where(left_going, ql[IW], qr[IW]))
+    return cmpflx(params, torch.stack(parts))
 
 
 def riemann_hll(params: RunParams, ql: torch.Tensor, qr: torch.Tensor) -> torch.Tensor:
@@ -142,12 +148,17 @@ def riemann_hll(params: RunParams, ql: torch.Tensor, qr: torch.Tensor) -> torch.
     SR = xp.maximum(xp.maximum(ul, ur) + xp.maximum(cl, cr), 0.0)
 
     def cons_and_flux(q):
-        rho, p, u, v, w = q[ID], q[IP], q[IU], q[IV], q[IW]
+        rho, p, u, v = q[ID], q[IP], q[IU], q[IV]
         e = p * entho + 0.5 * rho * (u * u + v * v)
-        e = e + 0.5 * rho * w * w
-        mu, mv, mw = rho * u, rho * v, rho * w
-        return (torch.stack([rho, e, mu, mv, mw]),
-                torch.stack([mu, u * (e + p), p + mu * u, mu * v, mu * w]))
+        if params.dim == 3:
+            e = e + 0.5 * rho * q[IW] * q[IW]
+        mu, mv = rho * u, rho * v
+        cons = [rho, e, mu, mv]
+        flux = [mu, u * (e + p), p + mu * u, mu * v]
+        if params.dim == 3:
+            cons.append(rho * q[IW])
+            flux.append(mu * q[IW])
+        return torch.stack(cons), torch.stack(flux)
 
     uleft, fleft = cons_and_flux(ql)
     uright, fright = cons_and_flux(qr)
@@ -163,14 +174,16 @@ def riemann_hllc(params: RunParams, ql: torch.Tensor, qr: torch.Tensor) -> torch
     pl = xp.maximum(ql[IP], rl * smallp)
     ul = ql[IU]
     ecinl = 0.5 * rl * (ul * ul + ql[IV] * ql[IV])
-    ecinl = ecinl + 0.5 * rl * ql[IW] * ql[IW]
+    if params.dim == 3:
+        ecinl = ecinl + 0.5 * rl * ql[IW] * ql[IW]
     etotl = pl * entho + ecinl
 
     rr = xp.maximum(qr[ID], smallr)
     pr = xp.maximum(qr[IP], rr * smallp)
     ur = qr[IU]
     ecinr = 0.5 * rr * (ur * ur + qr[IV] * qr[IV])
-    ecinr = ecinr + 0.5 * rr * qr[IW] * qr[IW]
+    if params.dim == 3:
+        ecinr = ecinr + 0.5 * rr * qr[IW] * qr[IW]
     etotr = pr * entho + ecinr
 
     cfastl = xp.sqrt(xp.maximum(gamma * pl / rl, smallc * smallc))
@@ -206,8 +219,10 @@ def riemann_hllc(params: RunParams, ql: torch.Tensor, qr: torch.Tensor) -> torch
     f_mu = f_rho * uo + ptoto
     f_e = (etoto + ptoto) * uo
     f_mv = torch.where(f_rho > 0.0, f_rho * ql[IV], f_rho * qr[IV])
-    f_mw = torch.where(f_rho > 0.0, f_rho * ql[IW], f_rho * qr[IW])
-    return torch.stack([f_rho, f_e, f_mu, f_mv, f_mw])
+    parts = [f_rho, f_e, f_mu, f_mv]
+    if params.dim == 3:
+        parts.append(torch.where(f_rho > 0.0, f_rho * ql[IW], f_rho * qr[IW]))
+    return torch.stack(parts)
 
 
 _SOLVERS = {

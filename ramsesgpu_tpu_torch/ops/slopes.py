@@ -26,11 +26,6 @@ def slope_1d(params: RunParams, q: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def slopes_unsplit(params: RunParams, Q: torch.Tensor) -> tuple:
-    """Slopes in every direction for the unsplit 3D scheme: (dqX, dqY, dqZ)."""
-    if params.dim != 3:
-        raise NotImplementedError("only 3D is ported")
-    return (
-        slope_1d(params, Q, -1),
-        slope_1d(params, Q, -2),
-        slope_1d(params, Q, -3),
-    )
+    """Slopes in every direction for the unsplit scheme: (dqX, dqY) in 2D,
+    (dqX, dqY, dqZ) in 3D, each of Q's shape."""
+    return tuple(slope_1d(params, Q, axis) for axis in (-1, -2, -3)[: params.dim])

@@ -3,11 +3,12 @@
 HydroRunBase.cpp:7109-7133, MHDRunBase.cpp:1378-3245).
 
 The port registers the initial conditions it can run: the gravity-free
-hydro problems below, the MHD problems of ``mhd_inits`` and the four
-turbulence problems of ``turbulence_inits`` (hydro and MHD; registered
-when those modules are imported, as the JAX package's
-problems/__init__.py:60-69 does; ``solvers/step.py require_slice``
-refuses those that need 2D or a static gravity field). Any other name raises
+hydro problems below, the 2D Riemann problems of ``riemann2d``, the MHD
+problems of ``mhd_inits`` and the four turbulence problems of
+``turbulence_inits`` (hydro and MHD; registered when those modules are
+imported, as the JAX package's problems/__init__.py:60-69 does;
+``solvers/step.py require_slice`` refuses those that need a static
+gravity field). Any other name raises
 NotImplementedError. ``has_gravity_field`` is the JAX package's
 gate (problems/__init__.py:48-76): Keplerian-disk always has a field, MRI
 only with a [gravity] section (stratified MRI); ``gravity_field`` builds
@@ -30,6 +31,7 @@ _HYDRO_REGISTRY: dict[str, InitFn] = {
     "implode": hydro_inits.init_hydro_implode,
     "blast": hydro_inits.init_hydro_blast,
     "Kelvin-Helmholtz": hydro_inits.init_hydro_kelvin_helmholtz,
+    "Gresho-vortex": hydro_inits.init_hydro_gresho_vortex,
     "jet": hydro_inits.init_hydro_jet,
 }
 
@@ -72,7 +74,7 @@ def gravity_field(params: RunParams, config: ConfigMap):
 
 def init_problem(params: RunParams, config: ConfigMap) -> np.ndarray:
     """The initial conserved state (numpy, ghosted) of ``params.problem``."""
-    from . import turbulence_inits  # noqa: F401  (registers on import)
+    from . import riemann2d, turbulence_inits  # noqa: F401  (register on import)
 
     if params.mhd:
         from . import mhd_inits  # noqa: F401  (registers on import)

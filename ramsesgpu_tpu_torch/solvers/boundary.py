@@ -1,4 +1,4 @@
-"""Ghost-cell boundary fill of 3D states (the PyTorch twin of
+"""Ghost-cell boundary fill of 2D and 3D states (the PyTorch twin of
 ramsesgpu_tpu/solvers/boundary.py; reference make_boundary_base.h:709-1332).
 
 Per face, the simple BC types:
@@ -9,9 +9,10 @@ Per face, the simple BC types:
   BC_NEUMANN:   copy of the first/last interior layer
   BC_PERIODIC:  wrap copy from the opposite interior
 
-Faces are filled X, then Y, then Z, so corner ghosts pick up the already
-filled transverse ghosts; then the inflow jet of the jet problem rewrites
-its ZMIN ghost square (``make_jet``). The fill is copies, sign flips and
+Faces are filled X, then Y, then Z (3D), so corner ghosts pick up the
+already filled transverse ghosts; then the inflow jet of the jet problem
+rewrites its ghost cells (``make_jet``: the YMIN strip in 2D, the ZMIN
+square in 3D). The fill is copies, sign flips and
 the jet's constants only, so it is bitwise equal to the JAX package's. A
 BC_SHEARINGBOX x face is left as it is here, as the JAX fill leaves it:
 solvers/shear.py fills it. A BC_Z_STRATIFIED z face takes the stratified
@@ -108,19 +109,23 @@ def uses_jet(params: RunParams) -> bool:
 def make_jet(params: RunParams, U: torch.Tensor, active: torch.Tensor | None = None
              ) -> torch.Tensor:
     """The inflow jet injected into the ghost zone (boundary.py:97-121;
-    reference HydroRunBase.cpp make_jet), in place (where ``active``); 3D
-    only: the ZMIN ghost square of width ijet at offsetJet in x and y,
-    density djet, pressure pjet, velocity +z ujet; B is left as filled.
-    Returns U."""
-    if params.dim != 3:
-        raise NotImplementedError("the 2D jet is not ported")
+    reference HydroRunBase.cpp make_jet), in place (where ``active``): in
+    2D the YMIN ghost strip of width ijet at offsetJet in x, velocity +y
+    ujet; in 3D the ZMIN ghost square of width ijet at offsetJet in x and
+    y, velocity +z ujet; density djet, pressure pjet; B (and in 2D the
+    out-of-plane momentum) is left as filled. Returns U."""
     g = params.ghost_width
     i0 = g + params.offset_jet
     i1 = i0 + params.ijet
     djet, ujet, pjet = params.djet, params.ujet, params.pjet
     e_jet = pjet / (params.gamma0 - 1.0) + 0.5 * djet * ujet * ujet
-    sl = (slice(0, g), slice(i0, i1), slice(i0, i1))
-    for ch, value in ((ID, djet), (IP, e_jet), (IU, 0.0), (IV, 0.0), (IW, djet * ujet)):
+    if params.dim == 2:
+        sl = (slice(0, g), slice(i0, i1))
+        values = ((ID, djet), (IP, e_jet), (IU, 0.0), (IV, djet * ujet))
+    else:
+        sl = (slice(0, g), slice(i0, i1), slice(i0, i1))
+        values = ((ID, djet), (IP, e_jet), (IU, 0.0), (IV, 0.0), (IW, djet * ujet))
+    for ch, value in values:
         dst = U[(ch,) + sl]
         _set(dst, torch.full_like(dst, value), active)
     return U
@@ -128,13 +133,11 @@ def make_jet(params: RunParams, U: torch.Tensor, active: torch.Tensor | None = N
 
 def fill_ghosts_(params: RunParams, U: torch.Tensor, active: torch.Tensor | None = None
                  ) -> torch.Tensor:
-    """make_boundaries in place on the ghosted 3D state U: every ghost
-    layer filled X then Y then Z, then the jet; with the 0-d bool
+    """make_boundaries in place on the ghosted 2D or 3D state U: every
+    ghost layer filled X then Y (then Z), then the jet; with the 0-d bool
     ``active``, each band written only where it is true. Returns U."""
-    if params.dim != 3:
-        raise NotImplementedError("only 3D is ported")
     bts = params.boundary_types
-    for k, axis in enumerate((_X, _Y, _Z)):
+    for k, axis in enumerate((_X, _Y, _Z)[: params.dim]):
         _fill_side(params, U, axis, False, bts[2 * k], active)
         _fill_side(params, U, axis, True, bts[2 * k + 1], active)
     if uses_jet(params):
@@ -156,8 +159,8 @@ def periodic_band(mid: torch.Tensor, axis: int, g: int, is_max: bool) -> torch.T
 
 
 def make_boundaries(params: RunParams, U: torch.Tensor) -> torch.Tensor:
-    """A copy of the ghosted 3D state U with every ghost layer filled, X
-    then Y then Z, then the jet (boundary.py:213; HydroRunBase.cpp:2223-2331)."""
+    """A copy of the ghosted state U with every ghost layer filled, X then
+    Y (then Z), then the jet (boundary.py:213; HydroRunBase.cpp:2223-2331)."""
     return fill_ghosts_(params, U.clone())
 
 

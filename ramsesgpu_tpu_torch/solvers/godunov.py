@@ -1,13 +1,15 @@
-"""Unsplit MUSCL-Hancock Godunov step for 3D hydrodynamics, whole-array
-(the PyTorch twin of ramsesgpu_tpu/solvers/godunov.py; reference
-HydroRunGodunov.cpp:1860-2500, godunov_unsplit.cuh):
+"""Unsplit MUSCL-Hancock Godunov step for 2D and 3D hydrodynamics,
+whole-array (the PyTorch twin of ramsesgpu_tpu/solvers/godunov.py;
+reference HydroRunGodunov.cpp:1860-2500, godunov_unsplit.cuh):
 
   primitives -> slopes -> trace -> face Riemann problems -> flux update.
 
 flux[c] is the flux through the *left* face of cell c, so
 U_new[c] = U[c] + dtdx * (flux[c] - flux[c+1]). Shifts are rolls; on a
-ghosted state (g = 2) the ghost layers absorb the wrap. Gravity is not
-ported.
+ghosted state (g = 2) the ghost layers absorb the wrap. The 3D interior
+forms are the plain twins of the CUDA step kernels; the 2D step is
+``godunov_unsplit_hydro`` itself (the JAX package has no 2D kernel).
+Gravity is not ported.
 """
 from __future__ import annotations
 
@@ -21,16 +23,17 @@ from ..ops.riemann import riemann_hydro
 from ..ops.slopes import slopes_unsplit
 from ..ops.trace import trace_unsplit_hydro
 from .boundary import make_boundaries_concat
+from .dissipation import _div
 
-# spatial axis per direction index (0=x, 1=y, 2=z) for the [nvar, z, y, x] layout
+# spatial axis per direction index (0=x, 1=y, 2=z) for the [nvar, (z,) y, x] layout
 _AXIS = (-1, -2, -3)
 
 
-def _rotation(direction: int) -> list[int]:
+def _rotation(params: RunParams, direction: int) -> list[int]:
     """Component permutation bringing the direction-normal velocity into
     the IU slot (godunov.py:30; HydroRunGodunov.cpp:2062-2068). Each is an
     involution."""
-    perm = [ID, IP, IU, IV, IW]
+    perm = [ID, IP, IU, IV, IW][: params.nb_var]
     if direction == 1:
         perm[IU], perm[IV] = perm[IV], perm[IU]
     elif direction == 2:
@@ -38,15 +41,22 @@ def _rotation(direction: int) -> list[int]:
     return perm
 
 
+def permute(q: torch.Tensor, perm) -> torch.Tensor:
+    """q's channels in the order ``perm``, stacked: indexing by a Python
+    list would copy an index tensor from the host, a host sync on CUDA
+    (the JAX package stacks too, godunov.py:57)."""
+    return torch.stack([q[c] for c in perm])
+
+
 def compute_fluxes(params: RunParams, qm, qp) -> list[torch.Tensor]:
     """flux[d][..., c]: the flux through the left face of cell c along
     direction d, from the Riemann problem (qm[d] at c-1, qp[d] at c)."""
     fluxes = []
-    for d in range(3):
-        perm = _rotation(d)
-        ql = xp.shift_m(qm[d], _AXIS[d])[perm]
-        qr = qp[d][perm]
-        fluxes.append(riemann_hydro(params, ql, qr)[perm])
+    for d in range(params.dim):
+        perm = _rotation(params, d)
+        ql = permute(xp.shift_m(qm[d], _AXIS[d]), perm)
+        qr = permute(qp[d], perm)
+        fluxes.append(permute(riemann_hydro(params, ql, qr), perm))
     return fluxes
 
 
@@ -79,14 +89,15 @@ def hydro_3d_state_update(params: RunParams, S: torch.Tensor, dt) -> torch.Tenso
 
 
 def godunov_unsplit_hydro(params: RunParams, U: torch.Tensor, dt) -> torch.Tensor:
-    """One unsplit MUSCL-Hancock update of a ghosted 3D hydro state whose
-    ghosts are filled (godunov.py:111, without gravity): U with its
-    interior advanced by dU = x part + y part + z part."""
+    """One unsplit MUSCL-Hancock update of a ghosted 2D or 3D hydro state
+    whose ghosts are filled (godunov.py:111, without gravity): U with its
+    interior advanced by dU = x part + y part (+ z part); dt over the cell
+    size is a true division on every device."""
     g = params.ghost_width
-    interior = (slice(None),) + (slice(g, -g),) * 3
+    interior = (slice(None),) + (slice(g, -g),) * params.dim
     dU = torch.zeros_like(U[interior])
     for d, flux in enumerate(_fluxes(params, U, dt)):
-        step = dt / (params.dx, params.dy, params.dz)[d]
+        step = _div(dt, (params.dx, params.dy, params.dz)[d])
         dU = dU + step * (flux - xp.shift_p(flux, _AXIS[d]))[interior]
     U_new = U.clone()
     U_new[interior] += dU

@@ -1,4 +1,4 @@
-"""Unsplit MUSCL-Hancock Godunov step for 3D MHD with constrained
+"""Unsplit MUSCL-Hancock Godunov step for MHD with constrained
 transport, whole-array (the PyTorch twin of
 ramsesgpu_tpu/solvers/godunov_mhd.py; reference
 mhd_godunov_unsplit_cpu_v1.cpp, godunov_unsplit_mhd.cuh):
@@ -13,6 +13,14 @@ condition and every cell is valid: that function is the plain twin of the
 CUDA step kernel (kernels/mhd_step.py). On a ghosted state whose ghosts a
 fill has written (walls, the jet), ``mhd_3d_ghosted_update`` is the JAX
 whole-array step itself, the twin of the kernel's ghosted mode.
+
+2D (``godunov_unsplit_mhd`` of a [8, ny+2g, nx+2g] state) is the JAX
+``_godunov_unsplit_mhd_2d`` (godunov_mhd.py:103-170) without gravity or
+dissipation: the 2D trace (ops/trace_mhd.py), HLLD fluxes along x and y,
+the conservative update of every channel but IA and IB (the in-plane
+face field; IW and IC, out of plane, go with the fluxes), and the CT
+update of IA and IB from the z-edge EMFs alone. The JAX package has no
+2D kernel, so this whole-array step is the 2D path on every device.
 
 The shearing box (rotating frame, sheared-periodic x faces) runs on the
 loop state (S, kept): ``mhd_3d_shear_update`` updates S with the sheared
@@ -48,10 +56,12 @@ from ..core.constants import IA, IB, IC, ID, IP, IU, IV, IW
 from ..ops.backend import xp
 from ..ops.eos import constoprim_mhd
 from ..ops.riemann_mhd import compute_emf, riemann_mhd
+from ..ops.trace_mhd import trace_unsplit_mhd_2d
 from ..ops.trace_mhd3d import trace_unsplit_mhd_3d_parts
 from .dissipation import (_div, kahan_add, kept_face_resistive_ct,
                           mhd_dissipation_periodic_update, mhd_dissipation_shear_update,
                           uses_dissipation)
+from .godunov import permute
 from .shear import roll_dynamic, shear_slabs, stratified_zslabs
 
 _X, _Y, _Z = -1, -2, -3
@@ -62,8 +72,6 @@ _PERM_Y = (ID, IP, IV, IU, IW, IB, IA, IC)
 _PERM_Z = (ID, IP, IW, IV, IU, IC, IB, IA)
 
 
-def _permute(q, perm):
-    return q[list(perm)]
 
 
 def _riemann_dir(params: RunParams, qm, qp, axis, perm):
@@ -72,13 +80,15 @@ def _riemann_dir(params: RunParams, qm, qp, axis, perm):
     ql = xp.shift_m(qm, axis)
     if perm is None:
         return riemann_mhd(params, ql, qp)
-    return _permute(riemann_mhd(params, _permute(ql, perm), _permute(qp, perm)), perm)
+    return permute(riemann_mhd(params, permute(ql, perm), permute(qp, perm)), perm)
 
 
 def xpos_array(params: RunParams, dtype, device=None) -> torch.Tensor:
-    """Cell-centre x coordinates of the x-ghosted columns, [1, 1, nx + 2g]
-    (godunov_mhd.py:44; column i holds xmin + dx/2 + (i - g) dx)."""
-    i = torch.arange(params.isize, dtype=dtype, device=device).view(1, 1, -1)
+    """Cell-centre x coordinates of the x-ghosted columns, [1, nx + 2g] in
+    2D and [1, 1, nx + 2g] in 3D (godunov_mhd.py:44; column i holds
+    xmin + dx/2 + (i - g) dx)."""
+    i = torch.arange(params.isize, dtype=dtype, device=device)
+    i = i.view((1,) * (params.dim - 1) + (-1,))
     return params.xmin + params.dx / 2 + (i - params.ghost_width) * params.dx
 
 
@@ -222,6 +232,54 @@ def mhd_3d_ghosted_update(params: RunParams, U: torch.Tensor, dt) -> torch.Tenso
     for ch, d in ((IA, dbx), (IB, dby), (IC, dbz)):
         out[(ch,) + ct] = U[(ch,) + ct] + d
     return out
+
+
+def _godunov_unsplit_mhd_2d(params: RunParams, U: torch.Tensor, dt) -> torch.Tensor:
+    """One 2D MHD+CT step of a ghosted state [8, ny+2g, nx+2g] whose ghosts
+    a fill has written (JAX godunov_mhd.py:103-170 without gravity and
+    dissipation). The flux divergence updates the interior of every
+    channel but IA and IB; the CT curl of the z-edge EMF updates IA and IB
+    on one extra face layer (rows and columns g .. n+g, the reference's
+    loop bound jsize-g+1). Every other ghost stays as filled."""
+    g = params.ghost_width
+    dtdx, dtdy = _div(dt, params.dx), _div(dt, params.dy)
+    xpos = xpos_array(params, U.dtype, U.device)
+
+    Q, _c = constoprim_mhd(params, U, dt)
+    (qm_x, qm_y), (qp_x, qp_y), (qRT, qRB, qLT, qLB) = trace_unsplit_mhd_2d(
+        params, Q, U[IA], U[IB], dt, xpos)
+    flux_x = _riemann_dir(params, qm_x, qp_x, _X, None)
+    flux_y = _riemann_dir(params, qm_y, qp_y, _Y, _PERM_Y)
+
+    inner = (slice(g, -g), slice(g, -g))
+    dU = (dtdx * (flux_x - xp.shift_p(flux_x, _X)) + dtdy * (flux_y - xp.shift_p(flux_y, _Y)))
+    emf_z = compute_emf(
+        params,
+        xp.shift_m(xp.shift_m(qRT, _X), _Y),
+        xp.shift_m(qRB, _X),
+        xp.shift_m(qLT, _Y),
+        qLB,
+        "z",
+        xpos,
+    )
+    ct = tuple(slice(g, n - g + 1) for n in U.shape[1:])
+    dbx = ((xp.shift_p(emf_z, _Y) - emf_z) * dtdy)[ct]
+    dby = (-(xp.shift_p(emf_z, _X) - emf_z) * dtdx)[ct]
+    out = U.clone()
+    for ch in (ID, IP, IU, IV, IW, IC):
+        out[(ch,) + inner] = U[(ch,) + inner] + dU[(ch,) + inner]
+    out[(IA,) + ct] = U[(IA,) + ct] + dbx
+    out[(IB,) + ct] = U[(IB,) + ct] + dby
+    return out
+
+
+def godunov_unsplit_mhd(params: RunParams, U: torch.Tensor, dt) -> torch.Tensor:
+    """One MHD+CT step of a ghosted 2D or 3D state whose ghosts a fill has
+    written (JAX godunov_mhd.py:55-72 without gravity, shear or
+    dissipation): ``_godunov_unsplit_mhd_2d`` or ``mhd_3d_ghosted_update``."""
+    if params.dim == 2:
+        return _godunov_unsplit_mhd_2d(params, U, dt)
+    return mhd_3d_ghosted_update(params, U, dt)
 
 
 def mhd_3d_periodic_step(params: RunParams, S: torch.Tensor, dt) -> torch.Tensor:

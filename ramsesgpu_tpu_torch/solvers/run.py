@@ -171,4 +171,4 @@ class Run:
     def interior(self) -> np.ndarray:
         """Ghost-stripped conserved state on the host."""
         g = self.params.ghost_width
-        return self.U[:, g:-g, g:-g, g:-g].cpu().numpy()
+        return self.U[(slice(None),) + (slice(g, -g),) * self.params.dim].cpu().numpy()

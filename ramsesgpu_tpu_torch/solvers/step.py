@@ -7,8 +7,16 @@ with or without the Kahan-compensated state ([implementation]
 compensated); the stratified MRI (BC_Z_STRATIFIED z faces and its static
 vertical gravity, ideal); ideal 3D MHD with any mix of DIRICHLET /
 NEUMANN / PERIODIC faces and the inflow jet (the ghosted route,
-kernels/fused_mhd3d.py); and 3D hydro (approx / HLL / HLLC, inviscid)
-with any mix of DIRICHLET / NEUMANN / PERIODIC faces and the jet.
+kernels/fused_mhd3d.py); 3D hydro (approx / HLL / HLLC, inviscid)
+with any mix of DIRICHLET / NEUMANN / PERIODIC faces and the jet; and 2D
+hydro and ideal 2D MHD+CT with those faces and the jet (solvers/step2d.py).
+
+2D has no TPU kernel in the reference: every Pallas kernel of the JAX
+package is gated on dim == 3, and it runs 2D as its whole-array step
+(step.py:207-228, 258-280 there). The port's 2D path is that step in whole-array PyTorch on
+the run's device, under every ``[implementation] kernel`` value and on
+both devices, as the JAX package takes it; it is therefore not a fallback
+from a kernel.
 
     step(U, t)          -> (U', dt)       one step on the ghosted state
     advance_n(U, t, n)  -> (U', t', k)    up to n steps, stopping at t_end
@@ -28,9 +36,9 @@ Each of them runs the kernel path (kernels/fused_mhd3d.py,
 kernels/shear.py, kernels/fused_hydro3d.py): on a CUDA device its
 wrappers launch the hand-written kernels, on a CPU tensor they run their
 plain twins. ``[implementation] kernel`` = ``auto`` or ``pallas`` is
-accepted everywhere; ``jnp`` only on the CPU (the twins must not stand in
-for the kernels on CUDA). ``zcarry`` selects the z-streaming step kernels
-(kernels/zcarry_mhd3d.py, kernels/zcarry_hydro3d.py: one launch per step,
+accepted everywhere; in 3D ``jnp`` only on the CPU (the twins must not
+stand in for the kernels on CUDA). ``zcarry`` selects the z-streaming step
+kernels (kernels/zcarry_mhd3d.py, kernels/zcarry_hydro3d.py: one launch per step,
 no stage buffer) on the periodic and shearing-box MHD paths (plain,
 compensated, dissipative, stratified) and the folded-CFL step on fully
 periodic hydro; hydro with walls keeps the step kernel's wall rules under
@@ -65,6 +73,7 @@ from ..kernels.hydro_step import require_hydro_scope
 from ..kernels.mhd_step import require_step_scope, uses_ghosted, uses_shear
 from ..ops.forcing import FORCED_PROBLEMS, make_forcing
 from ..problems import gravity_field, has_gravity_field
+from . import step2d
 from .stratified import uses_stratified_z
 from .timestep import dt_from_inv
 
@@ -74,7 +83,9 @@ def require_slice(params: RunParams, device, config: ConfigMap | None = None) ->
     it refuses on ``device``. ``config`` (the run's INI) decides whether
     the problem carries a static gravity field; without it the INI
     defaults do."""
-    if params.mhd:
+    if params.dim == 2:
+        step2d.require_2d_scope(params)
+    elif params.mhd:
         require_step_scope(params)
     else:
         require_hydro_scope(params)
@@ -91,7 +102,7 @@ def require_slice(params: RunParams, device, config: ConfigMap | None = None) ->
     kernel = params.kernel
     if kernel not in ("auto", "pallas", "jnp", "zcarry"):
         raise ValueError(f"unknown [implementation] kernel={kernel!r}")
-    if device.type == "cuda" and kernel == "jnp":
+    if device.type == "cuda" and kernel == "jnp" and params.dim == 3:
         raise ValueError(
             "kernel=jnp would run the whole-array PyTorch step on the GPU; "
             "use kernel=auto or pallas there"
@@ -134,6 +145,8 @@ def make_step_fn(params: RunParams, device, config: ConfigMap | None = None) -> 
     """``step(U, t) -> (U_new, dt)`` on the ghosted state (a compensated
     run packs a zero carry on each call)."""
     require_slice(params, device, config)
+    if params.dim == 2:
+        return step2d.make_step_fn(params)
     if not params.mhd:
         return fused_hydro3d.make_step_fn(params, device)
     if uses_shear(params):
@@ -157,6 +170,10 @@ def make_step_fn(params: RunParams, device, config: ConfigMap | None = None) -> 
 
 def _loop(params: RunParams, device, config: ConfigMap | None, packed_form: bool,
           post_step: Callable | None = None):
+    if params.dim == 2:
+        if post_step is not None:
+            raise NotImplementedError("forcing in 2D")
+        return step2d.make_advance_n(params, device, packed_form=packed_form)
     if not params.mhd:
         return fused_hydro3d.make_advance_n(params, device, packed_form=packed_form,
                                             post_step=post_step)

@@ -20,11 +20,6 @@ from .boundary import uses_jet
 from .stratified import uses_stratified_z
 
 
-def _require_3d(params: RunParams) -> None:
-    if params.dim != 3:
-        raise NotImplementedError("only 3D MHD is ported")
-
-
 def _interior(params: RunParams, a: torch.Tensor, ghost=None) -> torch.Tensor:
     g = params.ghost_width if ghost is None else ghost
     if isinstance(g, int):
@@ -34,34 +29,35 @@ def _interior(params: RunParams, a: torch.Tensor, ghost=None) -> torch.Tensor:
 
 
 def compute_inv_dt_hydro(params: RunParams, U: torch.Tensor, ghost=None) -> torch.Tensor:
-    """Max inverse dt over the interior of a 3D hydro state
+    """Max inverse dt over the interior of a 2D or 3D hydro state
     (timestep.py:33; cmpdt.cuh:84-86). ``ghost`` overrides the ghost frame
     width (0: U is the interior-only state). The same op order as the JAX
-    function, so the same bits; the plain twin of the CUDA CFL kernel
+    function, so the same bits; in 3D the plain twin of the CUDA CFL kernel
     (kernels/cfl_hydro.py)."""
-    if params.dim != 3:
-        raise NotImplementedError("only 3D hydro is ported")
+    dim3 = params.dim == 3
     rho = xp.maximum(U[ID], params.smallr)
     u = U[IU] / rho
     v = U[IV] / rho
-    w = U[IW] / rho
+    w = U[IW] / rho if dim3 else None
     if params.c_iso > 0:
         c = torch.full_like(rho, params.c_iso)
     else:
-        eken = 0.5 * (u * u + v * v + w * w)
+        eken = 0.5 * (u * u + v * v + w * w) if dim3 else 0.5 * (u * u + v * v)
         eint = U[IP] / rho - eken
         p = xp.maximum((params.gamma0 - 1.0) * rho * eint, rho * params.smallp)
         c = xp.sqrt(params.gamma0 * p / rho)
     inv = (c + torch.abs(u)) / params.dx + (c + torch.abs(v)) / params.dy
-    inv = inv + (c + torch.abs(w)) / params.dz
+    if dim3:
+        inv = inv + (c + torch.abs(w)) / params.dz
     # torch.max propagates NaN, as jnp.max does
     return torch.max(_interior(params, inv, ghost))
 
 
 def _inv_dt_mhd_fields(params: RunParams, rho, eP, u, v, w, bx, by, bz):
     """Max inverse dt from interior-extent fields (cell-centred B). In a
-    rotating frame vy carries the shear offset 1.5 omega0 dx / 2."""
-    _require_3d(params)
+    rotating frame vy carries the shear offset 1.5 omega0 dx / 2. In 2D
+    the z term is left out (w and bz still enter the pressure and the
+    fast speeds)."""
     rho = xp.maximum(rho, params.smallr)
     if params.c_iso > 0:
         p = rho * params.c_iso**2
@@ -81,25 +77,23 @@ def _inv_dt_mhd_fields(params: RunParams, rho, eP, u, v, w, bx, by, bz):
     vy = v
     if params.omega0 > 0:
         vy = vy + 1.5 * params.omega0 * params.dx / 2.0
-    inv = (
-        (cf(bx) + torch.abs(u)) / params.dx
-        + (cf(by) + torch.abs(vy)) / params.dy
-        + (cf(bz) + torch.abs(w)) / params.dz
-    )
+    inv = (cf(bx) + torch.abs(u)) / params.dx + (cf(by) + torch.abs(vy)) / params.dy
+    if params.dim == 3:
+        inv = inv + (cf(bz) + torch.abs(w)) / params.dz
     # torch.max propagates NaN, as jnp.max does
     return torch.max(inv)
 
 
 def compute_inv_dt_mhd(params: RunParams, U: torch.Tensor, ghost=None) -> torch.Tensor:
-    """Max inverse dt over the interior of a ghosted 3D state (roll shifts
-    for the +1 face-B neighbours; the ghosts absorb the wrap)."""
-    _require_3d(params)
+    """Max inverse dt over the interior of a ghosted state (roll shifts
+    for the +1 face-B neighbours; the ghosts absorb the wrap; in 2D Bz is
+    cell-centred)."""
     rho = xp.maximum(U[ID], params.smallr)
     fields = (
         U[ID], U[IP], U[IU] / rho, U[IV] / rho, U[IW] / rho,
         0.5 * (U[IA] + shift_p(U[IA], -1)),
         0.5 * (U[IB] + shift_p(U[IB], -2)),
-        0.5 * (U[IC] + shift_p(U[IC], -3)),
+        0.5 * (U[IC] + shift_p(U[IC], -3)) if params.dim == 3 else U[IC],
     )
     return _inv_dt_mhd_fields(params, *(_interior(params, f, ghost) for f in fields))
 
@@ -168,12 +162,18 @@ def with_jet(params: RunParams, inv: torch.Tensor) -> torch.Tensor:
     return inv if jet is None else torch.maximum(inv, inv.new_full((), jet))
 
 
-def compute_dt(params: RunParams, U: torch.Tensor) -> torch.Tensor:
-    """cfl / max(invDt) on a ghosted 3D state (HydroRunBase.cpp:314-426),
-    the jet's speed included."""
+def inv_dt_ghosted(params: RunParams, U: torch.Tensor) -> torch.Tensor:
+    """The max inverse dt of a ghosted 2D or 3D state as it stands, the
+    jet's speed included (timestep.py:246-262)."""
     if params.mhd:
-        return dt_from_inv(params, inv_dt_mhd_ghosted(params, U))
-    return dt_from_inv(params, with_jet(params, compute_inv_dt_hydro(params, U)))
+        return inv_dt_mhd_ghosted(params, U)
+    return with_jet(params, compute_inv_dt_hydro(params, U))
+
+
+def compute_dt(params: RunParams, U: torch.Tensor) -> torch.Tensor:
+    """cfl / max(invDt) on a ghosted 2D or 3D state as it stands
+    (HydroRunBase.cpp:314-426), the jet's speed included."""
+    return dt_from_inv(params, inv_dt_ghosted(params, U))
 
 
 def dt_from_inv(params: RunParams, inv: torch.Tensor) -> torch.Tensor:

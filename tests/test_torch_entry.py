@@ -77,8 +77,8 @@ def zcarry(text: str) -> str:
 
 def test_port_imports_no_jax(tmp_path):
     """Importing every module of the port (parallel/* among them) and
-    running a CPU Run of each slice leaves no jax and no ramsesgpu_tpu
-    module in sys.modules."""
+    running a CPU Run of each slice (2D among them) leaves no jax and no
+    ramsesgpu_tpu module in sys.modules."""
     pkg = REPO / "ramsesgpu_tpu_torch"
     modules = sorted(
         "ramsesgpu_tpu_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
@@ -142,8 +142,15 @@ def test_port_imports_no_jax(tmp_path):
     turb = (REPO / "data" / "turbulence_mhd_ou.ini").read_text().replace(
         "nx=32\nny=32\nnz=32", "nx=8\nny=8\nnz=8")
     assert "nx=8\n" in turb and "[history]\nenabled=yes" in turb
+    # 2D inputs (the whole-array 2D path): the Sod tube and the rotating,
+    # isothermal MHD inertial wave, as shipped but for the mesh
+    sod2d = (REPO / "data" / "hydro_sod2d.ini").read_text().replace(
+        "nx=128\nny=128", "nx=8\nny=8")
+    wave2d = (REPO / "data" / "mhd_inertialWave_2d.ini").read_text().replace(
+        "nx=32\nny=32", "nx=8\nny=8")
+    assert "nx=8\nny=8\nnz=1" in sod2d and "nx=8\nny=8\nnz=1" in wave2d
     texts = [ot, hydro, mri, mri_dissip, ot_dissip, mri_comp, strat, walls, mhd_jet, hydro_jet,
-             turb]
+             turb, sod2d, wave2d]
     texts += [zcarry(text) for text in texts + [blast]]
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code, *texts],

@@ -397,29 +397,37 @@ def test_cli_runs_implode_on_cpu_and_writes_vti(tmp_path, capsys):
         ("hydro", "nu", "0.01", False),
         ("hydro", "problem", "jet", True),  # in the slice since the ghosted jet loop
         ("hydro", "problem", "Rayleigh-Taylor", True),  # no ported initial state
-        ("mesh", "nz", "1", False),
+        ("mesh", "nz", "1", False),  # 2D: no kernel, the whole-array step (test_torch_2d.py)
         ("mesh", "boundary_xmin", "5", False),
         ("implementation", "kernel", "zcarry", True),  # in the slice since the zcarry kernels
         ("implementation", "compensated", "yes", False),
     ],
 )
 def test_out_of_slice_configurations_raise(section, key, value, kernels_cover_it):
+    from ramsesgpu_tpu_torch.kernels.hydro_step import require_hydro_scope
     from ramsesgpu_tpu_torch.solvers.run import Run
     from ramsesgpu_tpu_torch.solvers.step import require_slice
 
     text = ini() + f"\n[{section}]\n{key}={value}\n"
     config = ConfigMap(text=text)
-    if value in ("zcarry", "jet"):
+    if value in ("zcarry", "jet") or key == "nz":
         # the z-streaming kernels (tests/test_torch_zcarry.py): a walled run
         # keeps the step kernel's wall rules under kernel=zcarry, and Run
-        # takes it; the jet runs its ghosted loop (tests/test_torch_walls.py)
+        # takes it; the jet runs its ghosted loop (tests/test_torch_walls.py);
+        # nz = 1 is a 2D run, in the slice since the 2D path
         Run(config, "cpu").start(max_steps=1, do_output=False)
     else:
         with pytest.raises(NotImplementedError):
             Run(config, "cpu")
     require_slice(params_from_config(ConfigMap(text=ini())), "cpu")
     params = params_from_config(config).replace(kernel="auto")
-    if kernels_cover_it:
+    if key == "nz":
+        # no kernel covers 2D, and none is asked for: require_slice admits
+        # it, the hydro kernels' scope does not
+        require_slice(params, "cpu")
+        with pytest.raises(NotImplementedError):
+            require_hydro_scope(params)
+    elif kernels_cover_it:
         require_slice(params, "cpu")
     else:
         with pytest.raises(NotImplementedError):
