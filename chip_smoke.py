@@ -198,6 +198,21 @@ Phases, in order; any failure raises and no result line is printed:
      profiled chunk's launches a step and idle share;
  45. the 2D path on the card against the CPU (OT and the Sod tube at 64^2,
      f64, 10 steps): relative L2 <= 1e-12, no host sync in the chunk;
+ 46. the new kernel instances and mode against their twins at 64^3 and
+     50x50x72, f32 + f64, 1 step and 10 loop steps: hydro_step.cu's gravity
+     instance (interior mode with walls, ghosted mode), mhd_step.cu's
+     ghosted gravity instance, dissip_step.cu's ghosted mode (walled
+     Brio-Wu with nu, eta);
+ 47. the six single-device gravity inputs as shipped through the CLI's
+     main() on the card (at most 10 steps; gates, kernel launches a step);
+     make_step_fn of the 3D hydro Rayleigh-Taylor (the ghosted gravity
+     mode), counted; the four 2D ones in f64 at their shipped mesh, card
+     against CPU within 1e-12;
+ 48. three timed cells at 256^3 f32 (2 warm-up + 3 timed chunks of 10
+     steps, peak memory, a profiled chunk's idle share and launches): the
+     3D hydro and MHD Rayleigh-Taylor physics, and the walled Brio-Wu with
+     nu and eta; the new instances and mode against their twins, their
+     times and bounds;
  then the MHD step kernel's rows (A, A', 3, 4, 12, and the isothermal
  instances) with their times and bounds, the kernels JSON line, the card
  line, and the result line.
@@ -335,6 +350,22 @@ KERNELS = {
                        "ramsesgpu_tpu/pallas/packed_io.py:51 (its reduction on a rank's ghosted "
                        "shearing-box block; the JAX sharded path runs it in XLA, "
                        "parallel/sharded_step.py:551-556)"),
+    # static gravity and the walled dissipation (phases 46-48)
+    "hydro_step_grav": ("ramsesgpu_tpu_torch/csrc/hydro_step.cu",
+                        "ramsesgpu_tpu/pallas/packed_bc.py:126 (make_packed_bc_step, pallas_call "
+                        "at :371; with a uniform static gravity, which the JAX package runs on "
+                        "its whole-array step, solvers/godunov.py:115-160)"),
+    "hydro_step_ghosted_grav": ("ramsesgpu_tpu_torch/csrc/hydro_step.cu",
+                                "ramsesgpu_tpu/pallas/fused_hydro3d.py:46 (make_fused_hydro_update,"
+                                " pallas_call at :131; with a uniform static gravity)"),
+    "mhd_step_ghosted_grav": ("ramsesgpu_tpu_torch/csrc/mhd_step.cu",
+                              "ramsesgpu_tpu/pallas/fused_mhd3d.py:80 (make_fused_mhd_update, "
+                              "pallas_call at :173; with a uniform static gravity, "
+                              "solvers/godunov_mhd.py:613-618, 745-746)"),
+    "dissip_step_ghosted": ("ramsesgpu_tpu_torch/csrc/dissip_step.cu",
+                            "ramsesgpu_tpu/pallas/fused_dissip3d.py:51 (make_fused_mhd_dissipation,"
+                            " pallas_call at :135, on the refilled ghosted array of the walled "
+                            "step, pallas/fused_mhd3d.py:545-547)"),
     # the isothermal instances (cIso > 0: the turbulence inputs, phases 39-42)
     "mhd_step_iso": ("ramsesgpu_tpu_torch/csrc/mhd_step.cu",
                      "ramsesgpu_tpu/pallas/packed_io.py:423 (make_packed_io_step, MHD body "
@@ -373,6 +404,39 @@ STRAT_INI = "data/mhd_mri_3d_stratified.ini"
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 F64_FLOP_PER_S = 34e12
+
+
+def ghosted_reads(kind: str, dims, visc: bool = False, resist: bool = False,
+                  iso: bool = False) -> int:
+    """The values a step function on a ghosted state must read: for each
+    channel, the cells its written values depend on (the interior; B on the
+    CT face layer too for the MHD step and, with eta, the dissipation), not
+    the whole ghost frame. The counts are the support of the plain twin's
+    gradient (tests/test_torch_gravity.py
+    test_ghosted_reads_are_the_twins_support):
+    - "hydro" (g = 2): the interior, two layers past each face and the
+      diagonal layer along each edge, in each of the 5 channels;
+    - "mhd" (g = 3): prod(n + 5) - 6 sum(n) - 75 cells in each of the 8
+      channels (the one more layer of B normal to its face not counted);
+    - "window" (g = 3, row 4's shear window: the interior and the x face
+      planes, no face layer): prod(n + 4) - 6 sum(n) - 57 cells, likewise;
+    - "dissip": with nu, rho prod(n + 2) - 8 and momentum d that less
+      4 n_d; with eta, B_d (n_d + 2) prod_{e != d}(n_e + 3) - 4 n_d -
+      sum_{e != d} n_e - 10; the energy on the interior unless isothermal."""
+    nx, ny, nz = dims
+    cells, sides = nx * ny * nz, nx + ny + nz
+    if kind == "hydro":
+        return 5 * (cells + 4 * (nx * ny + ny * nz + nz * nx) + 4 * sides)
+    if kind == "mhd":
+        return 8 * ((nx + 5) * (ny + 5) * (nz + 5) - 6 * sides - 75)
+    if kind == "window":
+        return 8 * ((nx + 4) * (ny + 4) * (nz + 4) - 6 * sides - 57)
+    box = (nx + 2) * (ny + 2) * (nz + 2) - 8
+    values = visc * (4 * box - 4 * sides) + (not iso) * cells
+    if resist:
+        frame = (nx + 3) * (ny + 3) * (nz + 3)
+        values += sum(frame // (n + 3) * (n + 2) - 3 * n - sides - 10 for n in dims)
+    return values
 
 
 def card_line() -> str:
@@ -469,6 +533,32 @@ def device_ms(fn, reps: int = 10) -> float:
     raise AssertionError("torch.profiler recorded no device time in three profiles")
 
 
+def device_parts(fn, key: str, reps: int = 10):
+    """Device ms per call of fn, which launches one kernel whose name holds
+    ``key``: that kernel's, and that of the other kernels it launches, per
+    call the profile recorded (torch.profiler drops some calls' events, so
+    the count of the key kernel's launches is the calls' count), and that
+    count; None when three profiles recorded no such launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        calls = sum(n for k, _us, n in rows if key in k)
+        if calls:
+            mine = sum(us for k, us, _n in rows if key in k)
+            others = sum(us for k, us, _n in rows if key not in k)
+            return mine / calls / 1e3, others / calls / 1e3, calls
+    return None
+
+
 def wrappers():
     from ramsesgpu_tpu_torch.kernels.cfl_hydro import cfl_hydro
     from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd, cfl_mhd_window
@@ -503,6 +593,7 @@ def counted_main_path(name: str, expect: dict):
              (shear_border, "shear_border_update"), (shear_border, "stratified_zslabs"),
              (dissip_step, "mhd_dissipation_periodic_update"),
              (dissip_step, "mhd_dissipation_shear_update"),
+             (dissip_step, "mhd_dissipation_ghosted_update"),
              (dissip_step, "kept_face_resistive_ct"),
              (zcarry_mhd3d, "mhd_3d_periodic_update"), (zcarry_mhd3d, "mhd_3d_shear_update"),
              (zcarry_mhd3d, "inv_dt_mhd_periodic"), (zcarry_hydro3d, "hydro_3d_state_update"),
@@ -1079,9 +1170,10 @@ def phase10(card: str, implode, twin_peak_64: int) -> dict:
         for mode, fn, nbytes in (
                 ("interior (walls)", lambda: hydro_step(params, S, out, dt_m, active),
                  2 * 5 * size * n),
-                ("ghosted", lambda: hydro_step.ghosted(params, U, dt_m), 5 * size * (n + 260 ** 3)),
+                ("ghosted", lambda: hydro_step.ghosted(params, U, dt_m),
+                 size * (5 * n + ghosted_reads("hydro", (256,) * 3))),
                 ("ghosted in place", lambda: hydro_step.ghosted_(params, Uw, dt_m, active, buf),
-                 5 * size * (n + 260 ** 3))):
+                 size * (5 * n + ghosted_reads("hydro", (256,) * 3)))):
             t = time_ms(fn, 10)
             modes[(mode, dtype)] = (t, *hydro_bound(nbytes, ops, dtype))
             hydro_stream_report("10", card, dtype, mode, *modes[(mode, dtype)])
@@ -1179,7 +1271,7 @@ def phase11(mhd: dict, hydro: dict, card: str) -> dict:
 
     nbytes = {"mhd_step": 2 * 8 * 4 * n, "cfl_mhd": 8 * 4 * n,
               "hydro_step": 2 * 5 * 4 * n, "cfl_hydro": 5 * 4 * n,
-              "hydro_step_ghosted": 5 * 4 * (n + 260 ** 3)}
+              "hydro_step_ghosted": 4 * (5 * n + ghosted_reads("hydro", (256,) * 3))}
     bounds = {}
     for name in nbytes:
         t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
@@ -3190,14 +3282,16 @@ def phase34(card: str, n_twin: int, label: str = "34", c_iso: float = 0.0) -> di
     # end state (its first 32 + 2g layers on each axis: a ghosted block)
     lib = load_library("count")
     p_blk = block_params(params, 32)
-    cells, ng = n ** 3, (n + 2 * g) ** 3
+    cells = n ** 3
     ops = {"mhd_step_ghosted": lib.ramses_mhd_step_ghosted_ops(
                bound_input.data_ptr(), 32, 32, 32, g, param_block(p_blk), float(dt)) / 32 ** 3,
            "cfl_mhd_ghosted": lib.ramses_cfl_mhd_ghosted_ops(
                bound_input.data_ptr(), 32, 32, 32, g, param_block(p_blk)) / 32 ** 3}
-    # the ghosted state read once, the interior and the CT face layer's
-    # three face fields written once; the CFL reads the interior's 8 values
-    nbytes = {"mhd_step_ghosted": 4 * (8 * ng + 8 * cells + 3 * ((n + 1) ** 3 - cells)),
+    # the cells of the ghosted state the step reads (ghosted_reads) read
+    # once, the interior and the CT face layer's three face fields written
+    # once; the CFL reads the interior's 8 values
+    nbytes = {"mhd_step_ghosted": 4 * (ghosted_reads("mhd", (n,) * 3) + 8 * cells
+                                       + 3 * ((n + 1) ** 3 - cells)),
               "cfl_mhd_ghosted": 4 * 8 * cells}
     bounds = {name: bound(label, name, nbytes[name], ops[name] * cells, f"{n}^3", cells)
               for name in ms}
@@ -3354,8 +3448,9 @@ def phase36(card: str) -> dict:
         print(f"[36] {name} at {size} f32 (window {tuple(W.shape[1:])}): kernel "
               f"{ms[name]:.4f} ms (CUDA events), twin {plain[name]:.3f} ms ({card})")
     # bounds: each stage's operations per cell, counted on a 16x32x32 window
-    # of the same state, times its cells at this size; the window read once,
-    # the interior and the five planes written once
+    # of the same state, times its cells at this size; the cells of the
+    # window the step reads (ghosted_reads) read once, the interior and the
+    # five planes written once
     lib = load_library("count")
     m = (16, 32, 32)
     g = lp.ghost_width
@@ -3371,7 +3466,8 @@ def phase36(card: str) -> dict:
     ops_cfl = lib.ramses_cfl_mhd_ghosted_shear_ops(small.data_ptr(), *m, g,
                                                    param_block(p_small)) / (m[0] * m[1] * m[2])
     cells = lp.nx * lp.ny * lp.nz
-    nbytes = {"mhd_window": 4 * (W.numel() + 8 * cells + 5 * lp.nz * lp.ny),
+    nbytes = {"mhd_window": 4 * (ghosted_reads("window", (lp.nx, lp.ny, lp.nz)) + 8 * cells
+                                 + 5 * lp.nz * lp.ny),
               "cfl_mhd_window": 4 * 8 * cells}
     bounds = {"mhd_window": bound("36", "mhd_window", nbytes["mhd_window"], ops_row4, size,
                                   cells),
@@ -4120,12 +4216,12 @@ def check_2d_state(label: str, params, U: torch.Tensor, U0: torch.Tensor) -> str
     return text
 
 
-def phase43(card: str) -> None:
-    """Every 2D input as shipped through the CLI's main() on the card, at
-    most 10 steps each, with --no-output (no HDF5 where h5py is missing,
-    and the snapshots are not what is checked): no kernel launch and no
-    twin (there is no 2D kernel), the Run on the card, and check_2d_state's
-    gates on the state it ends with."""
+def cli_run(label: str, path: Path, steps: int, expect: dict):
+    """The CLI's main() on the input ``path`` for ``steps`` steps with
+    --no-output (no HDF5 where h5py is missing, and the snapshots are not
+    what is checked), in a temporary directory, its kernel launches counted
+    against ``expect`` (counted_main_path): the Run on the card, its
+    initial state and the wall seconds, set-up included."""
     import os
     import tempfile
 
@@ -4133,32 +4229,40 @@ def phase43(card: str) -> None:
     from ramsesgpu_tpu_torch.solvers.run import Run
 
     start = Run.start
+    runs = []
+
+    def kept_start(self, *args, **kw):
+        runs.append((self, self.U.clone()))
+        return start(self, *args, **kw)
+
+    cwd = os.getcwd()
+    Run.start = kept_start
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke_cli_") as workdir:
+        os.chdir(workdir)
+        try:
+            with counted_main_path(label, expect):
+                rc = cli_main(["--param", str(path), "--max-steps", str(steps), "--no-output"])
+        finally:
+            os.chdir(cwd)
+            Run.start = start
+    run, U0 = runs[0]
+    if rc != 0 or run.n_step != steps or run.U.device.type != "cuda":
+        raise AssertionError(f"{label}: rc {rc}, {run.n_step} steps, on {run.U.device}")
+    return run, U0, time.perf_counter() - t0
+
+
+def phase43(card: str) -> None:
+    """Every 2D input as shipped through the CLI's main() on the card, at
+    most 10 steps each (cli_run): no kernel launch and no twin (there is no
+    2D kernel), the Run on the card, and check_2d_state's gates on the
+    state it ends with."""
     for name in INPUTS_2D:
         path = Path(f"data/{name}.ini").resolve()
         params = params_from_text(path.read_text())
         steps = min(10, params.n_stepmax)
         label = f"43 {name}.ini"
-        runs = []
-
-        def kept_start(self, *args, **kw):
-            runs.append((self, self.U.clone()))
-            return start(self, *args, **kw)
-
-        cwd = os.getcwd()
-        Run.start = kept_start
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory(prefix="smoke43_") as workdir:
-            os.chdir(workdir)
-            try:
-                with counted_main_path(label, {}):
-                    rc = cli_main(["--param", str(path), "--max-steps", str(steps), "--no-output"])
-            finally:
-                os.chdir(cwd)
-                Run.start = start
-        wall = time.perf_counter() - t0
-        run, U0 = runs[0]
-        if rc != 0 or run.n_step != steps or run.U.device.type != "cuda":
-            raise AssertionError(f"{label}: rc {rc}, {run.n_step} steps, on {run.U.device}")
+        run, U0, wall = cli_run(label, path, steps, {})
         text = check_2d_state(label, run.params, run.U, U0)
         print(f"[{label}] {params.nx}x{params.ny} {params.dtype} "
               f"{'MHD' if params.mhd else 'hydro'} {params.riemann_solver.name} as shipped on "
@@ -4255,6 +4359,397 @@ def phase45(card: str) -> None:
             raise AssertionError(f"{label}: k {int(k_gpu)}/{int(k_cpu)}, rel {rel}, t {dt_rel}")
 
 
+# ---------------------------------------------------------------------------
+# static gravity and the walled dissipation: phases 46-48
+# ---------------------------------------------------------------------------
+RT3_INI = "data/rayleigh_taylor_gpu_3d.ini"
+RT3_MHD_INI = "data/rayleigh_taylor_gpu_3d_mhd.ini"
+GRAVITY_2D = ("rayleigh_taylor_gpu_2d", "falling_bubble_gpu_2d", "Keplerian_disk2d",
+              "rayleigh_taylor_cpu_2d_mhd")
+GRAVITY_3D = ("rayleigh_taylor_gpu_3d", "rayleigh_taylor_gpu_3d_mhd")
+# phase 46's cases: the step kernels' gravity instances and the dissipation
+# kernel's ghosted mode on perturbed initial states (the walled Brio-Wu
+# with phase 17's nu and eta)
+CASES_46 = ("hydro gravity", "mhd gravity", "walls dissipation")
+# the gravity-free numbers phase 48's cells are printed beside (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md sections 5-6)
+GRAVITY_FREE_48 = {"48h": "implode 2.553 ms/step, row 6 2.299 ms",
+                   "48m": "MHD walls 9.881 ms/step, row 3 9.164 ms",
+                   "48d": "MHD walls 9.881 ms/step; periodic dissipation 2.182 ms, bound 0.300 ms"}
+
+
+def case_46(case: str, dtype: str, mesh, seed: int = 46):
+    """(config, params, filled ghosted state) of a phase 46 case at
+    ``mesh``, times 1 + 0.05 N(0, 1) before the fill."""
+    path = {"hydro gravity": RT3_INI, "mhd gravity": RT3_MHD_INI,
+            "walls dissipation": HLLD_INI}[case]
+    config, params = shipped(path, dtype, mesh)
+    if case == "walls dissipation":
+        nu, eta = DISSIP_COEFFS["nu=2e-3 eta=1e-3"]
+        config.set_float("hydro", "nu", nu)
+        config.set_float("MHD", "eta", eta)
+        params = params.replace(nu=nu, eta=eta)
+    return config, params, ghosted_state(config, params, seed=seed)
+
+
+def twin_loop_46(case: str, params, U: torch.Tensor, n: int):
+    """n steps of the loop's semantics on the card through the twins: the
+    hydro interior loop (CFL, step from the load rules' fill), or the
+    ghosted loop (CFL on the state as it stands, the fill, the step; with
+    nu or eta the fill again and the ghosted dissipation). Returns the
+    ghosted state (hydro: the interior's fill) and t."""
+    from ramsesgpu_tpu_torch.solvers.boundary import (fill_ghosts_, interior,
+                                                      make_boundaries_concat)
+    from ramsesgpu_tpu_torch.solvers.dissipation import mhd_dissipation_ghosted_update
+    from ramsesgpu_tpu_torch.solvers.godunov import gravity_vector, hydro_3d_state_update
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_ghosted_update
+    from ramsesgpu_tpu_torch.solvers.timestep import (compute_inv_dt_hydro, dt_from_inv,
+                                                      inv_dt_mhd_ghosted)
+
+    grav, t = gravity_vector(params, U), 0.0
+    if not params.mhd:
+        S = interior(params, U).contiguous()
+        for _ in range(n):
+            dt = dt_from_inv(params, compute_inv_dt_hydro(params, S, ghost=0))
+            S = hydro_3d_state_update(params, S, dt, grav)
+            t += float(dt)
+        return make_boundaries_concat(params, S, interior_only=True), t
+    U = U.clone()
+    for _ in range(n):
+        dt = dt_from_inv(params, inv_dt_mhd_ghosted(params, U))
+        U = mhd_3d_ghosted_update(params, fill_ghosts_(params, U), dt, grav)
+        if params.nu > 0 or params.eta > 0:
+            U = mhd_dissipation_ghosted_update(params, fill_ghosts_(params, U), dt)
+        t += float(dt)
+    return U, t
+
+
+def phase46() -> None:
+    """The new kernel instances and mode against their twins on the card,
+    at 64^3 and at an odd 50x50x72 (no multiple of any tile), f32 and f64:
+    one step of hydro_step.cu's gravity instance (interior mode with the z
+    walls, and ghosted mode), of mhd_step.cu's ghosted gravity instance, of
+    dissip_step.cu's ghosted mode (the interior and the CT face layer; an
+    inactive sub-step changes nothing), each against its twin; then 10
+    steps of each loop (make_advance_n) against the twins' loop."""
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.solvers.boundary import interior
+    from ramsesgpu_tpu_torch.solvers.dissipation import mhd_dissipation_ghosted_update
+    from ramsesgpu_tpu_torch.solvers.godunov import (gravity_vector, hydro_3d_interior_update,
+                                                     hydro_3d_state_update)
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_ghosted_update
+    from ramsesgpu_tpu_torch.solvers.step import make_advance_n
+
+    on = torch.ones((), dtype=torch.bool, device="cuda")
+    off = torch.zeros((), dtype=torch.bool, device="cuda")
+    for mesh in ((64, 64, 64), (50, 50, 72)):
+        size = "x".join(map(str, mesh))
+        for dtype in ("float32", "float64"):
+            for case in CASES_46:
+                label = f"46 {case} {size} {dtype}"
+                config, params, U = case_46(case, dtype, mesh)
+                dt = torch.tensor(1e-3, dtype=U.dtype, device="cuda")
+                grav = gravity_vector(params, U)
+                if case == "hydro gravity":
+                    S = interior(params, U).contiguous()
+                    got = hydro_step(params, S, torch.empty_like(S), dt, on)
+                    check(f"{label} interior mode (walls), 1 step",
+                          rel_l2(got, hydro_3d_state_update(params, S, dt, grav)),
+                          TOL_STEP1[dtype])
+                    check(f"{label} ghosted mode, 1 step",
+                          rel_l2(hydro_step.ghosted(params, U, dt),
+                                 hydro_3d_interior_update(params, U, dt, grav)), TOL_STEP1[dtype])
+                elif case == "mhd gravity":
+                    got = U.clone()
+                    mhd_step.ghosted(params, got, dt, on, mhd_step.scratch(params, U, True))
+                    check(f"{label} ghosted mode, 1 step",
+                          rel_l2(got, mhd_3d_ghosted_update(params, U, dt, grav)),
+                          TOL_STEP1[dtype])
+                else:
+                    buf = dissip_step.scratch(params, U)
+                    got = U.clone()
+                    dissip_step.ghosted_(params, got, dt, off, buf)
+                    if not torch.equal(got, U):
+                        raise AssertionError(f"{label}: an inactive sub-step changed the state")
+                    dissip_step.ghosted_(params, got, dt, on, buf)
+                    want = mhd_dissipation_ghosted_update(params, U, dt)
+                    check(f"{label} ghosted dissipation, increment",
+                          increment_rel(got, want, U), TOL_STEP1[dtype],
+                          f", increment norm / state norm {rel_l2(want, U):.3e}")
+                t0 = torch.zeros((), dtype=U.dtype, device="cuda")
+                got, t, k = make_advance_n(params, "cuda", config)(U, t0, 10)
+                want, t_ref = twin_loop_46(case, params, U, 10)
+                rel = rel_l2(interior(params, got), interior(params, want))
+                if int(k) != 10 or abs(float(t) - t_ref) > TOL_STEP10[dtype] * t_ref:
+                    raise AssertionError(f"{label}: k {int(k)}, t {float(t)!r} vs {t_ref!r}")
+                check(f"{label} 10 loop steps against the twins' loop (interior)", rel,
+                      TOL_STEP10[dtype])
+                del U, got, want
+    torch.cuda.empty_cache()
+
+
+def phase47(card: str) -> dict:
+    """The six single-device gravity inputs as shipped through the CLI's
+    main() on the card, at most 10 steps each (cli_run): the Run on the
+    card, the gates (finite, rho > 0, hydro p > 0, MHD divB), the kernel
+    launches a step (none in 2D; 3D the step and CFL kernels once a step,
+    no twin); make_step_fn of rayleigh_taylor_gpu_3d (the hydro step's
+    ghosted gravity mode, TPU row 5), 10 steps on the card, counted; and the
+    four 2D inputs at their shipped mesh in f64, 10 steps of make_advance_n
+    on the card against the CPU (relative L2 <= 1e-12, equal t). Returns
+    the launches of the ghosted hydro gravity mode."""
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.config.params import params_from_config, static_gravity
+    from ramsesgpu_tpu_torch.problems import has_gravity_field, init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+    from ramsesgpu_tpu_torch.solvers.step import make_advance_n, make_step_fn
+
+    for name in GRAVITY_2D + GRAVITY_3D:
+        path = Path(f"data/{name}.ini").resolve()
+        params = params_from_text(path.read_text())
+        steps = min(10, params.n_stepmax)
+        label = f"47 {name}.ini"
+        expect = {} if params.dim == 2 else (
+            {"mhd_step": steps, "cfl_mhd": steps} if params.mhd
+            else {"hydro_step": steps, "cfl_hydro": steps})
+        run, U0, wall = cli_run(label, path, steps, expect)
+        text = (check_2d_state(label, run.params, run.U, U0) if params.dim == 2
+                else check_walled_state(label, run.params, run.U))
+        per_step = ", ".join(f"{k} {v / steps:g}" for k, v in expect.items()) or "none"
+        field = ("the problem field" if has_gravity_field(params, run.config)
+                 else static_gravity(params))
+        print(f"[{label}] {'x'.join(str(n) for n in (params.nx, params.ny, params.nz)[:params.dim])}"
+              f" {params.dtype} {'MHD' if params.mhd else 'hydro'} {params.riemann_solver.name}, "
+              f"gravity {field} as shipped on "
+              f"{card}: {steps} steps to t {run.t:.4e} in {wall:.2f} s (set-up included); kernel "
+              f"launches a step: {per_step}; {text}")
+
+    # the ghosted mode's gravity instance through make_step_fn (TPU row 5)
+    config = ConfigMap(Path(RT3_INI))
+    params = params_from_config(config)
+    step = make_step_fn(params, "cuda", config)
+    U = make_boundaries(params, torch.from_numpy(init_problem(params, config)).cuda())
+    with counted_main_path("47 make_step_fn rayleigh_taylor_gpu_3d.ini",
+                           {"hydro_step": 10, "cfl_hydro": 10}) as launches:
+        t = 0.0
+        for _ in range(10):
+            U, dt = step(U, t)
+            t += float(dt)
+    check_walled_state("47 make_step_fn", params, U)
+
+    for name in GRAVITY_2D:
+        label = f"47 {name} f64 card vs CPU"
+        config = ConfigMap(Path(f"data/{name}.ini"))
+        config.set_string("implementation", "dtype", "float64")
+        params = params_from_config(config)
+        U = make_boundaries(params, torch.from_numpy(init_problem(params, config)).cuda())
+        t0 = torch.zeros((), dtype=U.dtype, device="cuda")
+        U_gpu, t_gpu, k_gpu = make_advance_n(params, "cuda", config)(U, t0, 10)
+        U_cpu, t_cpu, k_cpu = make_advance_n(params, "cpu", config)(U.cpu(), t0.cpu(), 10)
+        rel = rel_l2(U_gpu.cpu(), U_cpu)
+        dt_rel = abs(float(t_gpu) - float(t_cpu)) / float(t_cpu)
+        print(f"[{label}] {params.nx}x{params.ny} f64, 10 steps: relative L2 {rel:.3e} "
+              f"(tol 1e-12), t {float(t_gpu):.6e} vs {float(t_cpu):.6e} (rel {dt_rel:.1e})")
+        if not (int(k_gpu) == int(k_cpu) == 10 and rel <= 1e-12 and dt_rel <= 1e-12):
+            raise AssertionError(f"{label}: k {int(k_gpu)}/{int(k_cpu)}, rel {rel}, t {dt_rel}")
+    return {"hydro_step_ghosted_grav": launches["hydro_step"]}
+
+
+def phase48(card: str, n_twin: int) -> dict:
+    """Three timed cells at 256^3 f32 through make_packed_advance_chain,
+    each 2 warm-up and 3 timed chunks of 10 steps (ms/step, cells/s),
+    counted (one launch of each kernel a step, no twin), peak device
+    memory, gated, and one profiled chunk (device time by kernel, launches a
+    step, idle share): 48h the 3D hydro Rayleigh-Taylor physics
+    (data/rayleigh_taylor_gpu_3d.ini: x, y periodic, z reflecting, g_z =
+    -0.2, approx) and 48m the same in 3D MHD (data/rayleigh_taylor_gpu_3d_mhd.ini,
+    HLLD), both at 256^3 instead of 50x50x200; 48d data/testRiemannHLLD.ini's
+    walled Brio-Wu with phase 17's nu and eta at 256^3. Then the new kernel
+    instances on each path's end state with CUDA events against their twins
+    (at 256^3; the MHD step's at n_twin^3, phase 6's choice) and their
+    bounds (bytes read and written once; the operations counted by
+    build("count") on a 32^3 block)."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+    from ramsesgpu_tpu_torch.kernels.cfl_hydro import cfl_hydro
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.solvers.boundary import fill_ghosts_, make_boundaries_concat
+    from ramsesgpu_tpu_torch.solvers.dissipation import mhd_dissipation_ghosted_update
+    from ramsesgpu_tpu_torch.solvers.godunov import (gravity_vector, hydro_3d_interior_update,
+                                                     hydro_3d_state_update)
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_ghosted_update
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
+
+    n, chunk, steps = 256, 10, 50
+    cells = n ** 3
+    on = torch.ones((), dtype=torch.bool, device="cuda")
+    out = {"ms": {}, "plain_ms": {}, "max_abs_err": {}, "bounds": {}, "launches": {}}
+    lib = load_library("count")
+    for label, path in (("48h", RT3_INI), ("48m", RT3_MHD_INI), ("48d", HLLD_INI)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        config, params = shipped(path, "float32", (n, n, n))
+        if label == "48d":
+            nu, eta = DISSIP_COEFFS["nu=2e-3 eta=1e-3"]
+            config.set_float("hydro", "nu", nu)
+            config.set_float("MHD", "eta", eta)
+            params = params.replace(nu=nu, eta=eta)
+        g = params.ghost_width
+        U = ghosted_state(config, params)
+        expect = ({"hydro_step": steps, "cfl_hydro": steps} if not params.mhd
+                  else {"mhd_step": steps, "cfl_mhd": steps})
+        if label == "48d":
+            expect["dissip_step"] = steps
+        pack, advance, unpack = make_packed_advance_chain(params, "cuda", config)
+        t = torch.zeros((), dtype=torch.float32, device="cuda")
+        with counted_main_path(label, expect) as launches:
+            S = pack(U)
+            del U
+            S, t, _dt = run_chunks(label, card, advance, S, t, n, chunk)
+        peak = torch.cuda.max_memory_allocated() - base
+        U = unpack(S, t)
+        gates = check_walled_state(label, params, U)
+        del U
+        rows = profile_chunk(f"{label}p", card, advance, S, t, chunk)
+        per_step = sum(count for _us, count in rows.values()) / chunk
+        print(f"[{label}] {steps} steps at {n}^3 f32 on {card}: t={float(t)!r}, {gates}; "
+              f"launches per step: " + ", ".join(f"{k} {v / steps:g}" for k, v in expect.items())
+              + f"; {per_step:.1f} device kernels a step in the profiled chunk (the fill's "
+              f"included); peak allocated {peak / 1e9:.3f} GB; gravity-free (PERF.md): "
+              f"{GRAVITY_FREE_48[label]}")
+
+        dt = dt_from_inv(params, cfl_hydro(params, S) if not params.mhd
+                         else cfl_mhd(params, S, ghost=g))
+        grav = gravity_vector(params, S)
+        if label == "48h":
+            name = "hydro_step_grav"
+            out["launches"][name] = launches["hydro_step"]
+            newton = torch.zeros((), dtype=torch.int64, device="cuda")
+            got = hydro_step(params, S, torch.empty_like(S), dt, on, newton=newton)
+            So = torch.empty_like(S)
+            U = make_boundaries_concat(params, S, interior_only=True)
+            out["ms"][name] = time_ms(lambda: hydro_step(params, S, So, dt, on), 10)
+            out["ms"]["hydro_step_ghosted_grav"] = time_ms(
+                lambda: hydro_step.ghosted(params, U, dt), 10)
+            # the gravity-free instance on the same state: what gravity costs
+            p0 = params.replace(gravity_x=0.0, gravity_y=0.0, gravity_z=0.0)
+            free_ms = time_ms(lambda: hydro_step(p0, S, So, dt, on), 10)
+            print(f"[48h] hydro_step on the path's state: gravity instance "
+                  f"{out['ms'][name]:.4f} ms, gravity-free instance {free_ms:.4f} ms ({card})")
+            got_g = hydro_step.ghosted(params, U, dt)
+            del So
+            torch.cuda.empty_cache()
+            want = hydro_3d_state_update(params, S, dt, grav)
+            for key, k_out in ((name, got), ("hydro_step_ghosted_grav", got_g)):
+                out["max_abs_err"][key] = float((k_out - want).abs().max())
+                check(f"48h {key} 256^3 f32 (the path's state)", rel_l2(k_out, want),
+                      TOL_STEP1["float32"], f", max abs {out['max_abs_err'][key]:.3e}")
+            del got, got_g, want
+            torch.cuda.empty_cache()
+            out["plain_ms"][name] = time_ms(lambda: hydro_3d_state_update(params, S, dt, grav), 3)
+            out["plain_ms"]["hydro_step_ghosted_grav"] = time_ms(
+                lambda: hydro_3d_interior_update(params, U, dt, grav), 3)
+            ops = hydro_ops(params, S, float(dt), int(newton))["ops"]
+            out["bounds"][name] = bound(label, name, 2 * 5 * 4 * cells, ops, "256^3", cells)
+            out["bounds"]["hydro_step_ghosted_grav"] = bound(
+                label, "hydro_step_ghosted_grav",
+                4 * (5 * cells + ghosted_reads("hydro", (n,) * 3)), ops, "256^3", cells)
+            names = (name, "hydro_step_ghosted_grav")
+            del U
+        elif label == "48m":
+            name = "mhd_step_ghosted_grav"
+            names = (name,)
+            out["launches"][name] = launches["mhd_step"]
+            W = fill_ghosts_(params, S.clone())
+            scratch = mhd_step.scratch(params, W, ghosted=True)
+            W_t = W.clone()
+            out["ms"][name] = time_ms(lambda: mhd_step.ghosted(params, W_t, dt, on, scratch), 10)
+            p0 = params.replace(gravity_x=0.0, gravity_y=0.0, gravity_z=0.0)
+            free_ms = time_ms(lambda: mhd_step.ghosted(p0, W_t, dt, on, scratch), 10)
+            print(f"[48m] mhd_step ghosted on the path's state: gravity instance "
+                  f"{out['ms'][name]:.4f} ms, gravity-free instance {free_ms:.4f} ms ({card})")
+            del W_t
+            got = mhd_step.ghosted(params, W.clone(), dt, on, scratch)
+            del scratch
+            bound_input = W[:, :32 + 2 * g, :32 + 2 * g, :32 + 2 * g].double().cpu().contiguous()
+            if n_twin != n:
+                config_t, params_t = shipped(path, "float32", (n_twin,) * 3)
+                W = ghosted_state(config_t, params_t, seed=48)
+                got = mhd_step.ghosted(params_t, W.clone(), dt, on,
+                                       mhd_step.scratch(params_t, W, True))
+            else:
+                params_t = params
+            torch.cuda.empty_cache()
+            want = mhd_3d_ghosted_update(params_t, W, dt, grav)
+            out["max_abs_err"][name] = float((got - want).abs().max())
+            check(f"48m {name} at {n_twin}^3 f32", rel_l2(got, want), TOL_STEP1["float32"],
+                  f", max abs {out['max_abs_err'][name]:.3e}")
+            del got, want
+            torch.cuda.empty_cache()
+            out["plain_ms"][name] = time_ms(lambda: mhd_3d_ghosted_update(params_t, W, dt, grav),
+                                            3)
+            del W
+            p_blk = block_params(params, 32)
+            ops = lib.ramses_mhd_step_ghosted_ops(bound_input.data_ptr(), 32, 32, 32, g,
+                                                  param_block(p_blk), float(dt)) / 32 ** 3
+            nbytes = 4 * (ghosted_reads("mhd", (n,) * 3) + 8 * cells + 3 * ((n + 1) ** 3 - cells))
+            out["bounds"][name] = bound(label, name, nbytes, ops * cells, "256^3", cells)
+        else:
+            name = "dissip_step_ghosted"
+            names = (name,)
+            out["launches"][name] = launches["dissip_step"]
+            W = fill_ghosts_(params, S.clone())
+            buf = dissip_step.scratch(params, W)
+            got = dissip_step.ghosted_(params, W.clone(), dt, on, buf)
+            W_t = W.clone()
+            out["ms"][name] = time_ms(lambda: dissip_step.ghosted_(params, W_t, dt, on, buf), 10)
+            parts = device_parts(lambda: dissip_step.ghosted_(params, W_t, dt, on, buf),
+                                 "dissip::Body")
+            split = ("not measured (the profiler recorded no launch)" if parts is None else
+                     f"the kernel {parts[0]:.4f} ms, the copy back {parts[1]:.4f} ms "
+                     f"({parts[2]} of 10 calls profiled)")
+            print(f"[48d] {name}: {out['ms'][name]:.4f} ms through the wrapper (CUDA events); "
+                  f"device time a call: {split} ({card})")
+            del W_t, buf
+            torch.cuda.empty_cache()
+            want = mhd_dissipation_ghosted_update(params, W, dt)
+            out["max_abs_err"][name] = float((got - want).abs().max())
+            check(f"48d {name} 256^3 f32 increment", increment_rel(got, want, W),
+                  TOL_STEP1["float32"], f", max abs {out['max_abs_err'][name]:.3e}, increment "
+                  f"norm / state norm {rel_l2(want, W):.3e}")
+            del got, want
+            torch.cuda.empty_cache()
+            out["plain_ms"][name] = time_ms(lambda: mhd_dissipation_ghosted_update(params, W, dt),
+                                            3)
+            blk = block_params(params, 32)
+            S_sub = W[:, g:g + 32, g:g + 32, g:g + 32].double().contiguous().cpu()
+            ops = lib.ramses_dissip_step_ops(S_sub.data_ptr(), None, 0, 32, 32, 32,
+                                             param_block(blk), float(dt)) / 32 ** 3 * cells
+            # as dissip_bytes: it reads the cells of the ghosted state that
+            # reach what it writes (ghosted_reads) and, with eta, B of the CT
+            # face layer written too
+            iso, visc, resist = params.c_iso > 0, params.nu > 0, params.eta > 0
+            written = 3 * visc + 3 * resist + (not iso)
+            nbytes = 4 * (ghosted_reads("dissip", (n,) * 3, visc, resist, iso) + written * cells
+                          + 3 * resist * ((n + 1) ** 3 - cells))
+            out["bounds"][name] = bound(label, name, nbytes, ops, "256^3", cells)
+            del W
+        for key in names:
+            print(f"[{label}] {key}: kernel {out['ms'][key]:.4f} ms, twin "
+                  f"{out['plain_ms'][key]:.3f} ms, bound {out['bounds'][key][0]:.4f} ms "
+                  f"({out['bounds'][key][1]}), {out['ms'][key] / out['bounds'][key][0]:.1f}x "
+                  f"(256^3 f32, {card})")
+        del S
+        torch.cuda.empty_cache()
+    return out
+
+
 def profile_chunk(label: str, card: str, advance, S: torch.Tensor, t: torch.Tensor,
                   chunk: int) -> None:
     """Device time by kernel over one more chunk of a main path, and the
@@ -4306,7 +4801,9 @@ ROWS = (("A", "mhd_step"), ("A'-compensated", "mhd_step_comp"),
         ("9 stratified x + z slabs", "shear_slabs_strat"), ("A isothermal", "mhd_step_iso"),
         ("A'-compensated isothermal", "mhd_step_comp_iso"), ("B isothermal", "cfl_mhd_iso"),
         ("3 isothermal", "mhd_step_ghosted_iso"), ("CFL of 3 isothermal", "cfl_mhd_ghosted_iso"),
-        ("12 isothermal", "zcarry_mhd_iso"))
+        ("12 isothermal", "zcarry_mhd_iso"), ("6 gravity", "hydro_step_grav"),
+        ("5 gravity", "hydro_step_ghosted_grav"), ("3 gravity", "mhd_step_ghosted_grav"),
+        ("8 ghosted", "dissip_step_ghosted"))
 
 
 def check_streamed(label: str, kernel: str, rows: dict) -> None:
@@ -4453,6 +4950,13 @@ def main() -> int:
     lap("44")
     phase45(card)
     lap("45")
+    phase46()
+    lap("46")
+    grav_launches = phase47(card)
+    lap("47")
+    grav = phase48(card, timing["n_twin"])
+    lap("48")
+    bounds.update(grav["bounds"])
     if "jax" in sys.modules or any(m.startswith("ramsesgpu_tpu.") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
 
@@ -4476,11 +4980,13 @@ def main() -> int:
                 "mhd_step_iso": turb["launches"]["41a"]["mhd_step"],
                 "cfl_mhd_iso": turb["launches"]["41a"]["cfl_mhd"],
                 "zcarry_mhd_iso": turb["launches"]["41z"]["zcarry_mhd"],
-                "mhd_step_comp_iso": comp_iso_launches["mhd_step"], **wall_iso["launches"]}
+                "mhd_step_comp_iso": comp_iso_launches["mhd_step"], **wall_iso["launches"],
+                **grav["launches"], **grav_launches}
     bounds.update(row4["bounds"])
     measured = {key: {**timing[key], **hydro_timing[key], **shear_timing[key],
                       **dissip_timing[key], **new_timing[key], **zc_timing[key],
-                      **wall_timing[key], **row4[key], **iso_timing[key], **wall_iso[key]}
+                      **wall_timing[key], **row4[key], **iso_timing[key], **wall_iso[key],
+                      **grav[key]}
                 for key in ("ms", "plain_ms", "max_abs_err")}
     # device time (torch.profiler) beside ms (CUDA events) where a kernel
     # runs for less time than its launch takes on the host

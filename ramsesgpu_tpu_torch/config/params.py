@@ -238,6 +238,14 @@ class RunParams:
         return dataclasses.replace(self, **kw)
 
 
+def static_gravity(params: RunParams) -> tuple[float, float, float] | None:
+    """The uniform static gravity [gravity] static_field_* as (gx, gy, gz),
+    or None when all three are 0: the constant vector the 3D kernels take
+    (the parameter block's P_GX .. P_GZ)."""
+    gvec = (params.gravity_x, params.gravity_y, params.gravity_z)
+    return gvec if any(gvec) else None
+
+
 def params_from_config(config: ConfigMap, **overrides) -> RunParams:
     """Build a :class:`RunParams` from an INI ConfigMap, mirroring the parse
     logic and defaults of HydroParameters.h:196-437."""

@@ -18,6 +18,9 @@ for 3D hydro, 4 for 2D hydro):
 - JAX shear carry of shearing-box runs (ramsesgpu_tpu/pallas/
   shear_packed.py:1210 pack_shear): (P, kept_bx), P the packed layout
   above and kept_bx [nz, ny] the kept Bx face at x = nx;
+- a static gravity field: [dim, *ghosted shape] in both packages (the 2D
+  step takes it); a uniform one is, for the 3D kernels, the constant
+  vector (gx, gy, gz) (``gravity_from_jax``);
 - the port's loop state: the interior [nvar, nz, ny, nx]; the kernels
   find neighbours outside it by index rules (kernels/fused_mhd3d.py,
   kernels/packed_bc.py); a shearing-box run carries the pair (S, kept)
@@ -70,6 +73,20 @@ def state_from_jax(params: RunParams, U_np: np.ndarray, device) -> torch.Tensor:
     if U.shape != params.shape:
         raise ValueError(f"state shape {U.shape} != {params.shape}")
     return torch.from_numpy(np.ascontiguousarray(U)).to(device=device, dtype=torch_dtype(params))
+
+
+def gravity_from_jax(params: RunParams, g_np: np.ndarray, device):
+    """A static gravity field of the JAX package (numpy [dim, *ghosted
+    shape], make_gravity_field) as the port's: the field tensor on
+    ``device`` that the 2D step takes, and the constant vector (gx, gy, gz)
+    the 3D kernels take where the field is one (else None)."""
+    field = torch.from_numpy(np.ascontiguousarray(g_np)).to(device)
+    flat = g_np.reshape(g_np.shape[0], -1)
+    uniform = bool((flat == flat[:, :1]).all())
+    vec = None
+    if uniform and params.dim == 3:
+        vec = tuple(float(v) for v in flat[:, 0])
+    return field, vec
 
 
 def state_to_jax(params: RunParams, U: torch.Tensor) -> np.ndarray:

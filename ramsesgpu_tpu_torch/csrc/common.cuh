@@ -43,13 +43,20 @@ namespace ramses {
 // z faces (BC_Z_STRATIFIED): a flag, and the density factors of the g = 3
 // ghost rows below the interior (z = -1, -2, -3) and above it (z = nz,
 // nz + 1, nz + 2), each the running product of the hydrostatic ratios in
-// double (solvers/stratified.py), rounded once to T.
+// double (solvers/stratified.py), rounded once to T. Then the uniform
+// static gravity (gx, gy, gz).
 enum {
   P_GAMMA0, P_SMALLR, P_SMALLP, P_SMALLC, P_SLOPE, P_DX, P_DY, P_DZ,
   P_NITER, P_SMALLPP, P_GAMMA6, P_CISO, P_SOLVER,
   P_OMEGA0, P_XMIN, P_FILL_K, P_FILL_LY, P_REMAP_K, P_REMAP_LY, P_NU, P_ETA,
-  P_ZSTRAT, P_ZLO0, P_ZLO1, P_ZLO2, P_ZHI0, P_ZHI1, P_ZHI2, P_COUNT
+  P_ZSTRAT, P_ZLO0, P_ZLO1, P_ZLO2, P_ZHI0, P_ZHI1, P_ZHI2, P_GX, P_GY, P_GZ, P_COUNT
 };
+
+// whether the block carries a uniform static gravity (P_GX .. P_GZ, the
+// [gravity] static_field_*): the step kernels' gravity instances
+inline bool has_gravity(const double* p) {
+  return p[P_GX] != 0.0 || p[P_GY] != 0.0 || p[P_GZ] != 0.0;
+}
 
 template <typename T>
 struct Phys {
@@ -63,6 +70,8 @@ struct Phys {
   T shear_k, rot15, cor2, corm05, xpos0, dx_half, vy_shift;
   // stratified z faces: the CFL's +1 z face of the top row is its own
   bool zstrat;
+  // the uniform static gravity (the gravity instances read it)
+  T grav[3];
 };
 
 template <typename T>
@@ -90,6 +99,7 @@ inline Phys<T> make_phys(const double* p) {
   ph.dx_half = T(p[P_DX] / 2);
   ph.vy_shift = T(1.5 * om * p[P_DX] / 2.0);
   ph.zstrat = p[P_ZSTRAT] != 0.0;
+  for (int a = 0; a < 3; ++a) ph.grav[a] = T(p[P_GX + a]);
   return ph;
 }
 

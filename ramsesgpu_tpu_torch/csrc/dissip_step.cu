@@ -16,6 +16,18 @@
 //   that face's old value comes from the XMAX slab's first Bx column, never
 //   from `kept`, which this kernel writes. Plain twin:
 //   mhd_dissipation_shear_update + kept_face_resistive_ct.
+// - ghosted (walls, the jet): a ghosted state U[nch][nz+2g][ny+2g][nx+2g]
+//   whose ghosts the fill after the Godunov step has written, its new
+//   interior into another buffer. Replaces the TPU kernel of the first
+//   mode on the ghosted array (fused_mhd3d.py:545-547, the walled step's
+//   refill and dissipation). A load outside the interior is a plain offset
+//   into the ghost frame, and the CT updates B only on the interior and
+//   its max-side face layer (the whole-array step's ct range,
+//   godunov_mhd.py:748-761 -> dissipation.py apply_dissipation_mhd), so
+//   the fluxes of the cells by a low face read the ghosts' B as filled;
+//   the face layer's new B is written beside the interior (the output is
+//   the cube 0 .. n of every axis), as the whole-array step updates it.
+//   Plain twin: mhd_dissipation_ghosted_update.
 //
 // The function (JAX solvers/dissipation.py:285 mhd_dissipation_interior_update):
 // the resistive EMF -eta J on the edges from the old B; its CT curl on the
@@ -116,11 +128,15 @@ HD int state_channel(int f) {
 // energy flux (kept apart: the twin sums the two in another order)
 enum { F_U = 0, F_V, F_W, F_EV, F_ER, NF };
 
-template <bool SHEAR_, bool ISO_, bool COMP_>
+// GHOST: the ghosted mode (a filled ghosted state in; its interior and
+// its max-side face layer's B out)
+template <bool SHEAR_, bool ISO_, bool COMP_, bool GHOST_ = false>
 struct Mode {
   static constexpr bool SHEAR = SHEAR_;
   static constexpr bool ISO = ISO_;
   static constexpr bool COMP = COMP_;
+  static constexpr bool GHOST = GHOST_;
+  static_assert(!(SHEAR_ && GHOST_), "the ghosted mode has no shearing box");
 };
 
 // the coefficients, each formed in double as the JAX package forms its
@@ -178,15 +194,21 @@ struct Ring {
 
 template <typename T>
 struct Args {
-  const T* S;      // [nch][n] the state (8 channels, or 16 with the carry)
-  T* So;           // [nch][n] the new state (another buffer)
+  const T* S;      // [nch][n] the state (8 channels, or 16 with the carry);
+                   // ghosted: [nch][ng], the ghosted array
+  T* So;           // [nch][n] the new state (another buffer); ghosted: [8][oc.n],
+                   // the cube 0 .. n of every axis (the interior and its
+                   // max-side face layer, whose B the CT updates)
   const T* slabs;  // shear: [2][8][nz][ny][SLAB] sheared x ghosts (XMIN, XMAX)
   T* kept;         // shear: [nz][ny] the kept Bx face (written when eta > 0)
   T* kept_c;       // compensated shear: [nz][ny] the kept face's carry (kept[1])
   const T* dt;     // device scalar
   const unsigned char* active;  // device flag: 0 skips the sub-step (So = S)
-  Dims d;
+  Dims d;          // the interior's
+  Dims oc;         // So's: d, or (ghosted) the cube of (nx + 1) (ny + 1) (nz + 1)
   int nch;         // 8, or 16 compensated
+  int g;           // ghosted: the ghost width
+  long long ng;    // ghosted: the cells of the ghosted array
   Phys<T> ph;
   Coef<T> k;
   int ntx, nty, bz;        // tiles along x and y; depth of a z chunk
@@ -364,15 +386,20 @@ struct Body {
   HD void load(const Item& it, int k, int w, T* ring) const {
     const Dims& d = a.d;
     T* dst = state(ring, w);
-    const int kk = wrap_any(k, d.nz);
+    const int kk = M::GHOST ? k : wrap_any(k, d.nz);
     const bool mine = k >= it.z0 && k < it.z1;
     block_items(R::LPP, [&](int t) {
       const int li = t % R::LW - 2, lj = t / R::LW - 2;
       if (li > it.W + 1 || lj > it.H + 1) return;
-      const int i = it.x0 + li, j = wrap_any(it.y0 + lj, d.ny);
+      const int i = it.x0 + li, j = M::GHOST ? it.y0 + lj : wrap_any(it.y0 + lj, d.ny);
       const T* src;
       long long stride;
-      if (M::SHEAR && (i < 0 || i >= d.nx)) {
+      if constexpr (M::GHOST) {
+        // a plain offset into the ghost frame (the fill wrote it)
+        stride = a.ng;
+        src = a.S + ((long long)(kk + a.g) * (d.ny + 2 * a.g) + (j + a.g)) * (d.nx + 2 * a.g) +
+              i + a.g;
+      } else if (M::SHEAR && (i < 0 || i >= d.nx)) {
         // a sheared slab: XMIN's columns -3 .. -1, XMAX's nx .. nx + 2
         const int side = i < 0 ? 0 : 1, col = i < 0 ? i + SLAB : i - d.nx;
         stride = (long long)d.nz * d.ny * SLAB;
@@ -387,9 +414,10 @@ struct Body {
       if (mine && li >= 0 && li < it.W && lj >= 0 && lj < it.H) {
         // E, then the carries of channels 0-7
         T* own = dst + NW * R::LPP + lj * R::TX + li;
-        copy_async(own, src + IP * d.n);
+        const long long chs = M::GHOST ? a.ng : d.n;
+        copy_async(own, src + IP * chs);
 #pragma unroll
-        for (int f = 1; f < R::NOWN; ++f) copy_async(own + f * R::OPP, src + (8 + f - 1) * d.n);
+        for (int f = 1; f < R::NOWN; ++f) copy_async(own + f * R::OPP, src + (8 + f - 1) * chs);
       }
     });
   }
@@ -434,18 +462,40 @@ struct Body {
   }
 
   // ct: B2 of plane p - 1 (walk index w - 1): its old B plus the CT curl of
-  // the EMFs of p - 1 and p; an item a cell and a component
+  // the EMFs of p - 1 and p; an item a cell and a component. Ghosted: the
+  // curl only on the interior and its max-side face layer (the cube 0 ..
+  // n of every axis, the whole-array step's ct range); elsewhere B2 is the
+  // old B, as the fill left it
   HD void ct(const Item& it, int w, T dtdx, T dtdy, T dtdz, T* ring) const {
     const T* s = state(ring, w - 1);
     const T* e0 = emf(ring, w - 1);
     const T* e1 = emf(ring, w);
     T* b = b2(ring, w - 1);
+    const int k = it.z0 + w - 3;
+    const bool k_in = !M::GHOST || (k >= 0 && k <= a.d.nz);
     block_items(3 * R::BPP, [&](int t) {
       const int f = t / R::BPP, o = t % R::BPP;
       const int li = o % R::BW - 1, lj = o / R::BW - 1;
       if (li > it.W || lj > it.H) return;
-      b[t] = s[(W_BX + f) * R::LPP + (lj + 2) * R::LW + li + 2] +
-             ct_delta(e0, e1, R::EPP, R::EW, (lj + 1) * R::EW + li + 1, f, dtdx, dtdy, dtdz);
+      const T old = s[(W_BX + f) * R::LPP + (lj + 2) * R::LW + li + 2];
+      if constexpr (M::GHOST) {
+        const int i = it.x0 + li, j = it.y0 + lj;
+        if (!k_in || i < 0 || i > a.d.nx || j < 0 || j > a.d.ny) {
+          b[t] = old;
+          return;
+        }
+      }
+      b[t] = old + ct_delta(e0, e1, R::EPP, R::EW, (lj + 1) * R::EW + li + 1, f, dtdx, dtdy, dtdz);
+      if constexpr (M::GHOST) {
+        // the face layer (i, j or k = n): written by the item that owns
+        // its column, row and plane (the last tile or chunk for n itself)
+        const int i = it.x0 + li, j = it.y0 + lj;
+        const bool own_x = li >= 0 && (li < it.W || i == a.d.nx);
+        const bool own_y = lj >= 0 && (lj < it.H || j == a.d.ny);
+        const bool own_z = (k >= it.z0 && k < it.z1) || (k == a.d.nz && it.z1 == a.d.nz);
+        if ((i == a.d.nx || j == a.d.ny || k == a.d.nz) && own_x && own_y && own_z)
+          a.So[(IA + f) * a.oc.n + cell_at(a.oc, i, j, k)] = b[t];
+      }
     });
   }
 
@@ -519,7 +569,7 @@ struct Body {
   HD void update_value(const Item& it, int k, int w, int ch, int li, int lj, T dtdx, T dtdy,
                        T dtdz, T* ring) const {
     const Coef<T>& kc = a.k;
-    const Dims& d = a.d;
+    const Dims& d = M::GHOST ? a.oc : a.d;  // So's
     const long long n = d.n;
     const T* s = state(ring, w);
     const T* ow = own(ring, w);
@@ -612,12 +662,22 @@ struct Body {
     });
   }
 
-  // the skipped sub-step: So = S, every channel, the blocks striding over
-  // the values
+  // the skipped sub-step: So = S (ghosted: S on So's cube), every
+  // channel, the blocks striding over the values
   HD void copy(long long block) const {
-    const long long total = (long long)a.nch * a.d.n, stride = a.nblocks * NT;
+    const long long total = (long long)a.nch * a.oc.n, stride = a.nblocks * NT;
     block_items(NT, [&](int tid) {
-      for (long long t = block * NT + tid; t < total; t += stride) a.So[t] = a.S[t];
+      for (long long t = block * NT + tid; t < total; t += stride) {
+        if constexpr (M::GHOST) {
+          const long long ch = t / a.oc.n;
+          int i, j, k;
+          cell_ijk(a.oc, t - ch * a.oc.n, i, j, k);
+          a.So[t] = a.S[ch * a.ng + ((long long)(k + a.g) * (a.d.ny + 2 * a.g) + (j + a.g)) *
+                                        (a.d.nx + 2 * a.g) + i + a.g];
+        } else {
+          a.So[t] = a.S[t];
+        }
+      }
     });
   }
 
@@ -728,11 +788,12 @@ int resident_blocks(int* blocks) {
 #endif
 
 // comp: S and So hold 16 channels (the state, then its carry) and, shear,
-// kept two planes (the face, then its carry)
+// kept two planes (the face, then its carry); ghosted: S the ghosted array
+// of ghost width g, So the cube 0 .. n of every axis
 template <typename T, typename M>
 int dissip_step(const T* S, T* So, const T* slabs, T* kept, const T* dt,
                 const unsigned char* active, int nx, int ny, int nz, const double* prm,
-                void* stream) {
+                void* stream, int g = 0) {
   using R = Ring<T, M>;
   Body<T, M> body;
   Args<T>& a = body.a;
@@ -745,6 +806,9 @@ int dissip_step(const T* S, T* So, const T* slabs, T* kept, const T* dt,
   a.active = active;
   a.d = make_dims(nx, ny, nz);
   a.nch = M::COMP ? 16 : 8;
+  a.g = g;
+  a.ng = (long long)(nx + 2 * g) * (ny + 2 * g) * (nz + 2 * g);
+  a.oc = M::GHOST ? make_dims(nx + 1, ny + 1, nz + 1) : a.d;
   a.ph = make_phys<T>(prm);
   a.k = make_coef<T>(prm);
   int blocks = 3;  // the host build: the serial blocks stride as the card's do
@@ -771,6 +835,22 @@ int dispatch(const T* S, T* So, const T* slabs, T* kept, const T* dt,
                                                    prm, stream);
   return dissip_step<T, Mode<SHEAR, false, COMP>>(S, So, slabs, kept, dt, active, nx, ny, nz,
                                                   prm, stream);
+}
+
+// the ghosted mode: U [8][nz+2g][ny+2g][nx+2g] (g >= 3: the stencil reads
+// 2 cells beyond the interior in x and y and 3 in z), out [8] over the cube
+// (nz+1) x (ny+1) x (nx+1): every channel of the interior, and B of the
+// max-side face layer where eta > 0. Plain only: the walled step, as the
+// JAX package's, has no compensated form.
+template <typename T>
+int dissip_ghosted_entry(const T* U, T* out, const T* dt, const unsigned char* active, int nx,
+                         int ny, int nz, int g, const double* prm, void* stream) {
+  if (g < 3) return 1;  // cudaErrorInvalidValue
+  if (prm[P_CISO] > 0.0)
+    return dissip_step<T, Mode<false, true, false, true>>(U, out, nullptr, nullptr, dt, active,
+                                                          nx, ny, nz, prm, stream, g);
+  return dissip_step<T, Mode<false, false, false, true>>(U, out, nullptr, nullptr, dt, active,
+                                                         nx, ny, nz, prm, stream, g);
 }
 
 template <typename T>
@@ -849,6 +929,24 @@ int ramses_dissip_step_f64(const double* S, double* So, const double* slabs, dou
                            int ny, int nz, const double* prm, void* stream) {
   return ramses::dissip::dissip_entry<double>(S, So, slabs, kept, dt, active, comp, nx, ny, nz,
                                               prm, stream);
+}
+
+// the ghosted mode (walls, the jet): U [8][nz+2g][ny+2g][nx+2g], its
+// ghosts filled, is read; out [8][nz+1][ny+1][nx+1] (another buffer) gets
+// the new interior and, where eta > 0, the new B of the max-side face layer
+// (its other channels there are not written)
+int ramses_dissip_step_ghosted_f32(const float* U, float* out, const float* dt,
+                                   const unsigned char* active, int nx, int ny, int nz, int g,
+                                   const double* prm, void* stream) {
+  return ramses::dissip::dissip_ghosted_entry<float>(U, out, dt, active, nx, ny, nz, g, prm,
+                                                     stream);
+}
+
+int ramses_dissip_step_ghosted_f64(const double* U, double* out, const double* dt,
+                                   const unsigned char* active, int nx, int ny, int nz, int g,
+                                   const double* prm, void* stream) {
+  return ramses::dissip::dissip_ghosted_entry<double>(U, out, dt, active, nx, ny, nz, g, prm,
+                                                      stream);
 }
 
 }  // extern "C"

@@ -28,6 +28,11 @@
 //    is and writes the interior to a separate out[5][nz][ny][nx];
 //  - in place (ghosted = 2; the jet's loop on the ghosted state): the same
 //    into out, then out copied into U's interior (a second launch).
+// A uniform static gravity (the parameter block's P_GX .. P_GZ, the
+// [gravity] static_field_*) selects the gravity instance in every mode:
+// the half-dt kick in the trace and the conservative source in the update
+// (godunov.py:115-160); the vector rides in the launch's arguments, no
+// gravity array goes to the device.
 // Each cell is traced once, the intermediates stay in a per-block ring in
 // shared memory, and the state is read once per copied value.
 // The approx solver's fixed-count masked Newton loop (riemann.py:87-103)
@@ -54,17 +59,19 @@
 
 namespace ramses::hydro {
 
+// GRAV: the uniform static gravity's instance (hydro_stream.cuh Stream),
+// chosen at launch when the parameter block carries one
 #ifdef __CUDACC__
-template <typename T>
+template <typename T, bool GRAV = false>
 __global__ void __launch_bounds__(Ring<T>::NT, Ring<T>::PER_SM) hydro_step_kernel(ZArgs<T> z) {
-  stream_block<T>(z);
+  stream_block<T, GRAV>(z);
 }
-template <typename T>
+template <typename T, bool GRAV>
 auto step_kernel() {
-  return hydro_step_kernel<T>;
+  return hydro_step_kernel<T, GRAV>;
 }
 #else
-template <typename T>
+template <typename T, bool GRAV>
 std::nullptr_t step_kernel() {
   return nullptr;
 }
@@ -97,7 +104,10 @@ int hydro_step_entry(T* in, T* out, int blocks, const T* dt, const unsigned char
                      unsigned long long* newton, void* stream) {
   const ZArgs<T> z = stream_args<T>(in, out, nullptr, dt, active, newton, nx, ny, nz,
                                     ghosted != 0, bc, prm);
-  int err = stream_step<T>(step_kernel<T>(), z, blocks, stream);
+  int err = has_gravity(prm)
+                ? stream_step<T, decltype(step_kernel<T, true>()), true>(step_kernel<T, true>(), z,
+                                                                         blocks, stream)
+                : stream_step<T>(step_kernel<T, false>(), z, blocks, stream);
   if (!err && ghosted == 2)
     err = launch_cells(CopyBack<T>{in, out, active, z.d, z.ng}, z.d.n, stream);
   return err;

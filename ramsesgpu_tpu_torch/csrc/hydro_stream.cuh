@@ -123,6 +123,7 @@ struct ZArgs {
   Phys<T> cfl;     // the folded CFL's constants (cfl_hydro.cuh)
   int ntx, nty, bz;      // tiles along x and y; depth of a z chunk
   long long items;       // ntx * nty * z chunks
+  T grav[3];             // the uniform static gravity (the gravity instance)
 };
 
 // the planes a block's group walks, item after item: plane p of the item
@@ -177,13 +178,19 @@ struct RingQ {
 };
 
 // One block's step on its ring: the producer's and the consumer's part of
-// each plane (produce, consume), and the inactive step's copy.
-template <typename T>
+// each plane (produce, consume), and the inactive step's copy. GRAV: the
+// uniform static gravity (godunov.py:115-160): the trace adds the half-dt
+// kick 0.5 dt g to each cell's centred velocities, so all six face states
+// of the cell carry it (the twin kicks each face state: the same sum up to
+// rounding), and the update adds the conservative source with the
+// time-centred momentum from the ring's old state.
+template <typename T, bool GRAV = false>
 struct Stream {
   using R = Ring<T>;
   const ZArgs<T>& z;
   T* ring;
-  T dtdx, dtdy, dtdz;
+  T dt, dtdx, dtdy, dtdz;
+  T kick[3];  // GRAV: 0.5 dt g
   T inv = T(0);  // the max inverse dt of the cells this thread updated (folded CFL)
   // common.cuh Clocks: producer 0 state copies and prim; 1 the wait for a
   // free plane; 2 the trace and its hand-over. Consumer: 3 the wait for a
@@ -191,10 +198,13 @@ struct Stream {
   Clocks clk;
 
   HD Stream(const ZArgs<T>& z_, T* ring_) : z(z_), ring(ring_) {
-    const T dt = *z.dt;
+    dt = *z.dt;
     dtdx = dt / z.ph.dx;
     dtdy = dt / z.ph.dy;
     dtdz = dt / z.ph.dz;
+    if constexpr (GRAV) {
+      for (int a = 0; a < 3; ++a) kick[a] = (T(0.5) * dt) * z.grav[a];
+    }
   }
   HD T* state(long long w) const { return ring + (w % R::RS) * NV * R::SPP; }
   HD T* prims(long long w) const { return ring + R::OFF_Q + (w % R::RQ) * NV * R::SPP; }
@@ -268,6 +278,9 @@ struct Stream {
 #pragma unroll
       for (int ch = 0; ch < NV; ++ch) {
         o[ch * R::PPP] = t.q[ch] + t.s[ch];
+        if constexpr (GRAV) {
+          if (ch >= IU) o[ch * R::PPP] = o[ch * R::PPP] + kick[ch - IU];
+        }
 #pragma unroll
         for (int ax = 0; ax < 3; ++ax) o[(NV * (1 + ax) + ch) * R::PPP] = t.h[ax][ch];
       }
@@ -372,6 +385,17 @@ struct Stream {
         u[ch] = update_value(s[ch * R::SPP + so], fx[cf], fx[cf + 1], fy[cf], fy[cf + R::FW],
                              fzl[cf], fzr[cf], dtdx, dtdy, dtdz);
       }
+      if constexpr (GRAV) {
+        // godunov.py:145-158: per axis, the energy from the time-centred
+        // momentum (before its own source), the momentum from rho_old
+        const T rho_old = s[ID * R::SPP + so];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const T mom_half = T(0.5) * (s[(IU + a) * R::SPP + so] + u[IU + a]);
+          u[IU + a] = u[IU + a] + dt * rho_old * z.grav[a];
+          u[IP] = u[IP] + dt * mom_half * z.grav[a];
+        }
+      }
 #pragma unroll
       for (int ch = 0; ch < NV; ++ch) z.So[ch * n + cs] = u[ch];
       if (z.inv != nullptr) inv = pmax(inv, hydro_inv_dt_cell(z.cfl, z.ph.c_iso, u, 1));
@@ -417,10 +441,10 @@ struct Stream {
 // One block's work: its items in turn, on `ring` (its own), by thread tid
 // of the block; returns the max inverse dt of the cells this thread
 // updated (folded CFL), else 0.
-template <typename T>
+template <typename T, bool GRAV = false>
 HD T run_block(const ZArgs<T>& z, T* ring, long long block, long long nblocks, int tid) {
   using R = Ring<T>;
-  Stream<T> st(z, ring);
+  Stream<T, GRAV> st(z, ring);
   if (!*z.active) {
     st.copy(Cursor<T>(z, block, nblocks), Group{tid, R::NT, 0});
     return st.inv;
@@ -475,10 +499,11 @@ HD T run_block(const ZArgs<T>& z, T* ring, long long block, long long nblocks, i
 
 #ifdef __CUDACC__
 // the body of a streamed step kernel of NT threads
-template <typename T>
+template <typename T, bool GRAV = false>
 __device__ void stream_block(const ZArgs<T>& z) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const T inv = run_block<T>(z, reinterpret_cast<T*>(smem), blockIdx.x, gridDim.x, threadIdx.x);
+  const T inv =
+      run_block<T, GRAV>(z, reinterpret_cast<T*>(smem), blockIdx.x, gridDim.x, threadIdx.x);
   if (z.inv != nullptr) atomic_max_nonneg(z.inv, inv);
 }
 
@@ -511,7 +536,7 @@ int chunk_depth(int nx, int ny, int nz, int blocks) {
 // One streamed step: the work items of z's grid on `blocks` blocks of
 // `kernel` (a __global__ running stream_block; the host build runs the
 // blocks in turn on one ring and ignores it).
-template <typename T, typename K>
+template <typename T, typename K, bool GRAV = false>
 int stream_step(K kernel, ZArgs<T> z, int blocks, void* stream) {
   using R = Ring<T>;
   z.ntx = (z.d.nx + R::TX - 1) / R::TX;
@@ -532,7 +557,8 @@ int stream_step(K kernel, ZArgs<T> z, int blocks, void* stream) {
   (void)stream;
   std::vector<T> ring(R::VALUES);  // the serial blocks take turns on one ring
   T inv = T(0);
-  for (int b = 0; b < blocks; ++b) inv = pmax(inv, run_block<T>(z, ring.data(), b, blocks, 0));
+  for (int b = 0; b < blocks; ++b)
+    inv = pmax(inv, run_block<T, GRAV>(z, ring.data(), b, blocks, 0));
   if (z.inv != nullptr) *z.inv = inv;
   return 0;
 #endif
@@ -557,6 +583,7 @@ ZArgs<T> stream_args(const T* S, T* So, T* inv, const T* dt, const unsigned char
   for (int b = 0; b < 6; ++b) z.bc[b] = bc[b];
   z.ph = make_hydro_phys<T>(prm);
   z.cfl = make_phys<T>(prm);
+  for (int a = 0; a < 3; ++a) z.grav[a] = T(prm[P_GX + a]);
   return z;
 }
 

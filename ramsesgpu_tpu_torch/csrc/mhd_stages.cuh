@@ -49,20 +49,29 @@ constexpr int WH = 2;     // stage-grid cells beyond each face, every axis (wind
 // layer); the periodic mode is <false, false, false, false>. SHEAR and
 // GHOST together are the shear window mode: the rotating-frame step of a
 // ghosted window whose ghosts every axis's exchange has written (a rank's
-// block of the sharded shearing box), written out of place (mhd_step.cu)
-template <bool SHEAR_, bool ISO_, bool STRAT_ = false, bool GHOST_ = false>
+// block of the sharded shearing box), written out of place (mhd_step.cu).
+// GRAV (the ghosted mode): the uniform static gravity, a constant vector
+// (Phys::grav): the half-dt kick 0.5 dt g on the velocities of every
+// traced state where FluxEmf forms it, and the conservative source in the
+// update of the interior (godunov_mhd.py:613-618, 745-746)
+template <bool SHEAR_, bool ISO_, bool STRAT_ = false, bool GHOST_ = false, bool GRAV_ = false>
 struct Mode {
   static constexpr bool SHEAR = SHEAR_;
   static constexpr bool ISO = ISO_;
   static constexpr bool STRAT = STRAT_;
   static constexpr bool GHOST = GHOST_;
   static constexpr bool WINDOW = SHEAR_ && GHOST_;
+  static constexpr bool GRAV = GRAV_;
+  static_assert(!GRAV_ || (GHOST_ && !SHEAR_), "the uniform gravity is the ghosted mode's");
 };
 using Periodic = Mode<false, false>;
 using Ghosted = Mode<false, false, false, true>;
 // their isothermal instances (cIso > 0: turbulence, isothermal OT)
 using PeriodicIso = Mode<false, true>;
 using GhostedIso = Mode<false, true, false, true>;
+// the ghosted mode's gravity instances (a uniform [gravity] static_field_*)
+using GhostedGrav = Mode<false, false, false, true, true>;
+using GhostedIsoGrav = Mode<false, true, false, true, true>;
 
 template <typename T>
 struct StepArgs {
@@ -925,6 +934,13 @@ struct FluxEmf {
   HD void state(const P& p, int di, int dj, int dk, const int* perm, T* q) const {
 #pragma unroll
     for (int ch = 0; ch < 8; ++ch) q[ch] = traced<M, S>(a.ph, p, di, dj, dk, perm[ch]);
+    if constexpr (M::GRAV) {
+      // the uniform gravity's half-dt kick, after the floors
+      const T half = T(0.5) * *a.dt;
+#pragma unroll
+      for (int ch = 0; ch < 8; ++ch)
+        if (perm[ch] >= IU && perm[ch] <= IW) q[ch] = q[ch] + half * a.ph.grav[perm[ch] - IU];
+    }
   }
   HD void operator()(long long t) const {
     if (!*a.active) return;
@@ -1075,7 +1091,7 @@ struct UpdateStage {
 #pragma unroll
     for (int ch = 0; ch < 8; ++ch) u[ch] = S[ch * ns + cs];
     if constexpr (COMP) {
-      static_assert(!M::WINDOW, "the window mode has no compensated update");
+      static_assert(!M::WINDOW && !M::GRAV, "the window and gravity modes have no compensated update");
       T d[8], cc[8];
 #pragma unroll
       for (int ch = 0; ch < 8; ++ch) cc[ch] = a.C[ch * ns + cs];
@@ -1105,6 +1121,11 @@ struct UpdateStage {
       }
     } else {
       const T rho_old = u[ID], w_old = u[IW];
+      T m_old[3];
+      if constexpr (M::GRAV) {
+#pragma unroll
+        for (int ax = 0; ax < 3; ++ax) m_old[ax] = u[IU + ax];
+      }
       bool hydro = true;  // ghosted: the CT face layer takes the curl only
       if constexpr (M::GHOST && !M::WINDOW) hydro = p.interior();
       if (hydro) {
@@ -1125,6 +1146,19 @@ struct UpdateStage {
         const T mom_half = T(0.5) * (w_old + w_new);
         u[IW] = w_new + dt * rho_old * g;
         u[IP] = u[IP] + dt * mom_half * g;
+      }
+      if constexpr (M::GRAV) {
+        // the uniform gravity's source on the interior, per axis in turn
+        // (godunov_mhd.py _gravity_source)
+        if (hydro) {
+#pragma unroll
+          for (int ax = 0; ax < 3; ++ax) {
+            const T g = a.ph.grav[ax];
+            const T mom_half = T(0.5) * (m_old[ax] + u[IU + ax]);
+            u[IU + ax] = u[IU + ax] + dt * rho_old * g;
+            u[IP] = u[IP] + dt * mom_half * g;
+          }
+        }
       }
 #pragma unroll
       for (int ch = 0; ch < 8; ++ch)

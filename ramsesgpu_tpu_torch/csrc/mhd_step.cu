@@ -50,7 +50,11 @@
 //   (mhd_ct_update.cuh:124-213). The stage grid is the ghosted array: the
 //   outer edges of that CT layer read the last ghost layer's primitives,
 //   whose +1 face wraps, so a grid of the interior plus 2 cells could not
-//   give that step's values there. Plain twin:
+//   give that step's values there. A uniform static gravity (the
+//   parameter block's P_GX .. P_GZ) selects its gravity instance
+//   (GhostedGrav, GhostedIsoGrav): the half-dt kick of every traced state
+//   and the conservative source of the interior, a constant vector in the
+//   launch's arguments. Plain twin:
 //   solvers/godunov_mhd.py mhd_3d_ghosted_update.
 // - shear window (Mode<true, ISO, STRAT, true>): one rank's block of the
 //   sharded shearing box. Replaces the TPU kernel pallas/fused_mhd3d.py:587
@@ -285,7 +289,7 @@ int run_stages(const StepArgs<T>& a, bool comp, long long n_update, void* stream
   if ((err = launch_cells(PrecursorStage<T, M>{a}, n, stream))) return err;
   const FluxEmfStage<T, M> flux_emf(a);
   if ((err = launch_blocks<T>(flux_emf, flux_emf.blocks, stream))) return err;
-  if constexpr (!M::WINDOW) {  // the window mode has no compensated update
+  if constexpr (!M::WINDOW && !M::GRAV) {  // (they have no compensated update)
     if (comp) return launch_cells(UpdateStage<T, M, true>{a}, n_update, stream);
   }
   return launch_cells(UpdateStage<T, M, false>{a}, n_update, stream);
@@ -328,6 +332,8 @@ int mhd_step_ghosted(T* U, T* scratch, const T* dt, const unsigned char* active,
     const StepArgs<T> a = ghosted_args<T, M>(U, scratch, dt, active, nx, ny, nz, g, prm);
     return run_stages<T, M>(a, false, ghosted_update_cells(nx, ny, nz), stream);
   };
+  if (has_gravity(prm))
+    return prm[P_CISO] > 0.0 ? run(GhostedIsoGrav{}) : run(GhostedGrav{});
   return prm[P_CISO] > 0.0 ? run(GhostedIso{}) : run(Ghosted{});
 }
 
@@ -728,9 +734,11 @@ extern "C" long long ramses_mhd_step_ghosted_ops(const double* U, int nx, int ny
       ramses::counted_copy(U, 8LL * (nx + 2 * g) * (ny + 2 * g) * (nz + 2 * g));
   std::vector<Counted> scratch(ramses_mhd_step_ghosted_scratch(nx, ny, nz, g));
   const Counted dtc(dt);
-  const auto count = prm[ramses::P_CISO] > 0.0
-                         ? ramses::mhd::ghosted_step_ops<ramses::mhd::GhostedIso>
-                         : ramses::mhd::ghosted_step_ops<ramses::mhd::Ghosted>;
+  using namespace ramses::mhd;
+  const bool iso = prm[ramses::P_CISO] > 0.0;
+  const auto count = ramses::has_gravity(prm)
+                         ? (iso ? ghosted_step_ops<GhostedIsoGrav> : ghosted_step_ops<GhostedGrav>)
+                         : (iso ? ghosted_step_ops<GhostedIso> : ghosted_step_ops<Ghosted>);
   return count(u.data(), scratch.data(), &dtc, nx, ny, nz, g, prm);
 }
 

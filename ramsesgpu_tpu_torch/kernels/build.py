@@ -198,6 +198,8 @@ _SIGNATURES = {
     "ramses_dissip_step_launch": ([_I, _I, _I, _I, _P], _I),
     "ramses_dissip_step_f32": ([_P] * 6 + [_I] * 4 + [_P, _P], _I),
     "ramses_dissip_step_f64": ([_P] * 6 + [_I] * 4 + [_P, _P], _I),
+    "ramses_dissip_step_ghosted_f32": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
+    "ramses_dissip_step_ghosted_f64": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
     "ramses_zcarry_mhd_ring_bytes": ([_I], ctypes.c_longlong),
     "ramses_zcarry_mhd_tile": ([_I, _P], None),
     "ramses_zcarry_mhd_chunk_depth": ([_I] * 5, _I),
@@ -264,7 +266,9 @@ def param_block(params) -> ctypes.Array:
     with Lx = dx nx and Ly = dy ny (solvers/shear.py:40-45), the remap's
     with Lx = xmax - xmin and Ly = ymax - ymin (godunov_mhd.py:558-561).
     Then nu and eta; then the stratified z faces' flag and the density
-    factors of their ghost rows (solvers/stratified.py density_factors).
+    factors of their ghost rows (solvers/stratified.py density_factors);
+    then the uniform static gravity (gx, gy, gz), which selects the step
+    kernels' gravity instances where one is non-zero.
     The block is read, never written, by the C side."""
     global _last_block
     if _last_block[0] is params:
@@ -274,7 +278,7 @@ def param_block(params) -> ctypes.Array:
     slope = 0.0 if params.iorder == 1 else float(params.slope_type)
     strat = uses_stratified_z(params)
     lo, hi = density_factors(params) if strat else ((0.0,) * 3, (0.0,) * 3)
-    block = (ctypes.c_double * 28)(
+    block = (ctypes.c_double * 31)(
         params.gamma0, params.smallr, params.smallp, params.smallc, slope,
         params.dx, params.dy, params.dz,
         params.niter_riemann, params.smallpp, params.gamma6, params.c_iso,
@@ -284,6 +288,7 @@ def param_block(params) -> ctypes.Array:
         1.5 * params.omega0 * (params.xmax - params.xmin), params.ymax - params.ymin,
         params.nu, params.eta,
         float(strat), *lo, *hi,
+        params.gravity_x, params.gravity_y, params.gravity_z,
     )
     _last_block = (params, block)
     return block

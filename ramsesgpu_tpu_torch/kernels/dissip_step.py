@@ -1,5 +1,5 @@
 """The viscous and resistive sub-step of 3D MHD: the CUDA kernel
-``csrc/dissip_step.cu`` and its plain PyTorch twins, in two modes.
+``csrc/dissip_step.cu`` and its plain PyTorch twins, in three modes.
 
 - Periodic: replaces the TPU kernels ramsesgpu_tpu/pallas/fused_dissip3d.py:51
   ``make_fused_mhd_dissipation`` and the dissipative second launch of
@@ -11,6 +11,13 @@
   state, and updates the kept Bx face by the resistive CT. Twins:
   ``solvers.dissipation.mhd_dissipation_shear_update`` and
   ``kept_face_resistive_ct``.
+- Ghosted (``DissipStepKernel.ghosted_``; walls and the jet): a ghosted
+  state whose ghosts the fill after the Godunov step has written, updated
+  in place with the JAX whole-array step's semantics (its interior, and
+  the resistive CT's B on the max-side face layer) through a buffer that
+  the kernel writes and the wrapper copies back. Replaces the TPU kernel
+  above on the ghosted array of the walled step (pallas/fused_mhd3d.py:
+  545-547). Twin: ``solvers.dissipation.mhd_dissipation_ghosted_update``.
 
 Compensated (``[implementation] compensated``): the state is [16, nz, ny,
 nx] (the state, then its Kahan carry) and a shearing box's kept face [2,
@@ -31,13 +38,16 @@ import torch
 
 from ..config.params import RunParams
 from ..core.constants import IA
-from ..solvers.dissipation import (kept_face_resistive_ct, mhd_dissipation_periodic_update,
-                                   mhd_dissipation_shear_update)
+from ..solvers.dissipation import (kept_face_resistive_ct, mhd_dissipation_ghosted_update,
+                                   mhd_dissipation_periodic_update, mhd_dissipation_shear_update)
 from .build import load_library, param_block
-from .cfl_mhd import check_plane, check_state, kept_lead
+from .cfl_mhd import check_ghosted, check_plane, check_state, kept_lead
+from .hydro_step import check_scalars
 from .mhd_step import SLAB, check_buffer, require_step_scope, uses_shear
 
 _FN = {torch.float32: "ramses_dissip_step_f32", torch.float64: "ramses_dissip_step_f64"}
+_FN_GHOSTED = {torch.float32: "ramses_dissip_step_ghosted_f32",
+               torch.float64: "ramses_dissip_step_ghosted_f64"}
 
 
 class DissipStepKernel:
@@ -102,6 +112,48 @@ class DissipStepKernel:
             raise RuntimeError(f"dissip_step launch failed: CUDA error {err}")
         self.launches += 1
         return S_out
+
+    @staticmethod
+    def scratch(params: RunParams, U: torch.Tensor):
+        """The ghosted mode's output buffer for U's dtype and device: the
+        cube [8, nz+1, ny+1, nx+1] (None on the CPU)."""
+        if U.device.type == "cpu":
+            return None
+        return U.new_empty((8, params.nz + 1, params.ny + 1, params.nx + 1))
+
+    def ghosted_(self, params: RunParams, U, dt, active, buf=None) -> torch.Tensor:
+        """The dissipative sub-step of the ghosted state U [8, nz+2g, ny+2g,
+        nx+2g], whose ghosts must be filled, in place when ``active``: its
+        interior and, with eta > 0, the resistive CT's B on the max-side
+        face layer (the whole-array step's); the other ghosts stay. On a
+        CUDA tensor the kernel writes them into ``buf`` (``scratch``), which
+        is copied back into U. Returns U."""
+        require_step_scope(params)
+        if not (params.nu > 0 or params.eta > 0):
+            raise ValueError("the dissipation kernel needs nu > 0 or eta > 0")
+        if uses_shear(params):
+            raise NotImplementedError("the ghosted mode covers runs without a shearing box")
+        check_ghosted(params, U)
+        check_scalars(U, dt=(dt, U.dtype), active=(active, torch.bool))
+        if U.device.type == "cpu":
+            U.copy_(torch.where(active, mhd_dissipation_ghosted_update(params, U, dt), U))
+            return U
+        if U.device.type != "cuda":
+            raise ValueError(f"unsupported device {U.device}")
+        g, nx, ny, nz = params.ghost_width, params.nx, params.ny, params.nz
+        if buf is None:
+            raise ValueError("the ghosted mode needs its buffer (DissipStepKernel.scratch)")
+        check_buffer(U, "buf", buf, (8, nz + 1, ny + 1, nx + 1))
+        err = getattr(load_library("cuda"), _FN_GHOSTED[U.dtype])(
+            U.data_ptr(), buf.data_ptr(), dt.data_ptr(), active.data_ptr(), nx, ny, nz, g,
+            param_block(params), torch.cuda.current_stream(U.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"dissip_step ghosted launch failed: CUDA error {err}")
+        self.launches += 1
+        U[:, g:g + nz, g:g + ny, g:g + nx].copy_(buf[:, :nz, :ny, :nx])
+        if params.eta > 0:
+            U[5:, g:g + nz + 1, g:g + ny + 1, g:g + nx + 1].copy_(buf[5:])
+        return U
 
 
 def launch_info(lib, params: RunParams, dtype: torch.dtype) -> dict:

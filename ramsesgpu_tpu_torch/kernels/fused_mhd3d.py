@@ -31,7 +31,10 @@ whole-array step's semantics: the loop state is the ghosted array
 (kernels/loop.py make_ghosted_loop), and each step launches the CFL
 kernel's ghosted mode on the state as it stands, fills the ghosts in
 place (the jet too) and launches the step kernel's ghosted mode, which
-writes the interior and the CT face layer n+g. ``kernel=zcarry`` runs
+writes the interior and the CT face layer n+g; with nu or eta it then
+fills the ghosts again and launches the dissipation kernel's ghosted mode
+(JAX :541-547). A uniform static gravity takes this route on any faces,
+through the step kernel's gravity instance. ``kernel=zcarry`` runs
 the same staged kernel there, as the JAX package takes its whole-array
 step (solvers/step.py:326-358); ``compensated=yes`` runs the plain
 update, as the JAX ``make_step_fn`` has no compensated branch.
@@ -80,8 +83,7 @@ def make_advance_n(params: RunParams, device, packed_form: bool = False,
             raise NotImplementedError("forcing with walls or the jet (fully periodic faces only)")
         return make_ghosted_loop(
             params, device, lambda U: cfl_mhd(params, U, ghost=params.ghost_width),
-            mhd_step.ghosted, lambda U: mhd_step.scratch(params, U, ghosted=True),
-            packed_form=packed_form)
+            ghosted_step_, lambda U: ghosted_scratch(params, U), packed_form=packed_form)
 
     fold = post_step is None
     return make_kernel_loop(
@@ -143,22 +145,44 @@ def bind_step(params: RunParams, S, fold: bool = True):
     return streamed_step(S, step_into)
 
 
+def ghosted_scratch(params: RunParams, U: torch.Tensor):
+    """The buffers of ``ghosted_step_`` for U: the step's stage buffer and,
+    with nu or eta, the dissipation's interior buffer."""
+    return (mhd_step.scratch(params, U, ghosted=True),
+            dissip_step.scratch(params, U) if uses_dissipation(params) else None)
+
+
+def ghosted_step_(params: RunParams, U, dt, active, buf) -> torch.Tensor:
+    """One step of the ghosted state U in place when ``active`` (``buf``:
+    ``ghosted_scratch``), its ghosts filled: the step kernel's ghosted
+    mode; with nu or eta then the in-place fill again and the dissipation
+    kernel's ghosted mode in place (JAX pallas/fused_mhd3d.py:541-547, the
+    whole-array step's refill and apply_dissipation_mhd,
+    godunov_mhd.py:748-761). Returns U."""
+    scratch, dbuf = buf
+    mhd_step.ghosted(params, U, dt, active, scratch)
+    if uses_dissipation(params):
+        fill_ghosts_(params, U, active)
+        dissip_step.ghosted_(params, U, dt, active, dbuf)
+    return U
+
+
 def make_ghosted_step_fn(params: RunParams, device) -> Callable:
     """``step(U, t) -> (U_new, dt)`` of a walled or jet run on the ghosted
     state: the JAX whole-array step (solvers/step.py:208-243 there):
     compute_dt on U as it stands, the fill, the ghosted step; U_new's
     ghosts are that fill's but for the CT face layer. U is not changed."""
     require_step_scope(params)
-    scratch = None  # the stage buffer, allocated once
+    buf = None  # the step's buffers, allocated once
 
     def step(U, t):
-        nonlocal scratch
+        nonlocal buf
         U = U.clone(memory_format=torch.contiguous_format)
-        if scratch is None:
-            scratch = mhd_step.scratch(params, U, ghosted=True)
+        if buf is None:
+            buf = ghosted_scratch(params, U)
         dt = dt_from_inv(params, cfl_mhd(params, U, ghost=params.ghost_width))
-        mhd_step.ghosted(params, fill_ghosts_(params, U), dt,
-                         torch.ones((), dtype=torch.bool, device=U.device), scratch)
+        ghosted_step_(params, fill_ghosts_(params, U), dt,
+                      torch.ones((), dtype=torch.bool, device=U.device), buf)
         return U, dt
 
     return step

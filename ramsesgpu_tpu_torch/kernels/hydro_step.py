@@ -20,6 +20,12 @@ Three modes, one kernel (the streamed block body, csrc/hydro_stream.cuh):
   (the jet's loop on the ghosted state), through the interior buffer
   ``buf`` that the caller allocates once with ``HydroStepKernel.scratch``.
 
+A uniform static gravity ([gravity] static_field_*, a constant vector:
+config/params.py static_gravity) selects the kernel's gravity instance in
+every mode, chosen at launch from the parameter block (the half-dt kick of
+the traced states, the conservative source); the twins take the vector
+(``solvers.godunov.gravity_vector``).
+
 The kernel's intermediates live in shared memory; it runs on a persistent
 grid of as many blocks as the card holds at once.
 """
@@ -30,7 +36,7 @@ import torch
 from ..config.params import RunParams
 from ..core.constants import RiemannSolver
 from ..solvers.boundary import interior, require_simple_bcs
-from ..solvers.godunov import hydro_3d_interior_update, hydro_3d_state_update
+from ..solvers.godunov import gravity_vector, hydro_3d_interior_update, hydro_3d_state_update
 from .build import load_library, param_block
 from .cfl_hydro import check_hydro_state
 from .packed_bc import bc_codes
@@ -50,8 +56,6 @@ def require_hydro_scope(params: RunParams) -> None:
         reasons.append(f"riemannSolver {params.riemann_solver.name} (approx, hll, hllc)")
     if params.nu > 0:
         reasons.append("viscosity (nu > 0)")
-    if params.gravity_x or params.gravity_y or params.gravity_z:
-        reasons.append("static gravity")
     if params.compensated:
         reasons.append("Kahan-compensated state")
     if params.ghost_width != 2:
@@ -107,7 +111,8 @@ class HydroStepKernel:
         check_out(params, S, S_out)
         check_scalars(S, dt=(dt, S.dtype), active=(active, torch.bool))
         if S.device.type == "cpu":
-            S_out.copy_(torch.where(active, hydro_3d_state_update(params, S, dt), S))
+            S_out.copy_(torch.where(
+                active, hydro_3d_state_update(params, S, dt, gravity_vector(params, S)), S))
             return S_out
         self._launch(params, S, S_out, dt, active, 0, newton)
         return S_out
@@ -119,7 +124,7 @@ class HydroStepKernel:
         check_hydro_state(params, U, params.ghost_width)
         check_scalars(U, dt=(dt, U.dtype))
         if U.device.type == "cpu":
-            return hydro_3d_interior_update(params, U, dt)
+            return hydro_3d_interior_update(params, U, dt, gravity_vector(params, U))
         out = torch.empty((5, params.nz, params.ny, params.nx), dtype=U.dtype, device=U.device)
         active = torch.ones((), dtype=torch.bool, device=U.device)
         self._launch(params, U, out, dt, active, 1, None)
@@ -135,7 +140,8 @@ class HydroStepKernel:
         check_scalars(U, dt=(dt, U.dtype), active=(active, torch.bool))
         if U.device.type == "cpu":
             inner = interior(params, U)
-            inner.copy_(torch.where(active, hydro_3d_interior_update(params, U, dt), inner))
+            inner.copy_(torch.where(
+                active, hydro_3d_interior_update(params, U, dt, gravity_vector(params, U)), inner))
             return U
         if buf is None:
             raise ValueError("the in-place ghosted step needs its interior buffer "

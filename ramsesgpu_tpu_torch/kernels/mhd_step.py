@@ -24,7 +24,11 @@ PyTorch twins, in five modes.
   JAX whole-array step's semantics: its interior, and the CT curl of the
   max-side face layer n+g. Replaces the TPU kernel
   pallas/fused_mhd3d.py:80 ``make_fused_mhd_update`` (whose interior is
-  this one's). Twin: ``solvers.godunov_mhd.mhd_3d_ghosted_update``.
+  this one's). Twin: ``solvers.godunov_mhd.mhd_3d_ghosted_update``. A
+  uniform static gravity ([gravity] static_field_*) runs its gravity
+  instance (the kick of every traced state and the conservative source,
+  the vector from the parameter block); every MHD run with such a gravity
+  outside a shearing box takes this mode (``uses_ghosted``).
 
 - Shear window (``MhdWindowKernel``, ``mhd_window``): one rank's ghosted
   block of the sharded shearing box, its ghosts written by the halo
@@ -59,11 +63,11 @@ from __future__ import annotations
 
 import torch
 
-from ..config.params import RunParams
+from ..config.params import RunParams, static_gravity
 from ..core.constants import BoundaryConditionType as BCT, MagneticRiemannSolver, RiemannSolver
 
 from ..solvers.boundary import require_simple_bcs, uses_jet
-from ..solvers.dissipation import uses_dissipation
+from ..solvers.godunov import gravity_vector
 from ..solvers.godunov_mhd import (mhd_3d_ghosted_update, mhd_3d_periodic_update,
                                    mhd_3d_shear_update, mhd_3d_shear_window_update)
 from ..solvers.stratified import uses_stratified_z
@@ -89,9 +93,12 @@ def uses_shear(params: RunParams) -> bool:
 
 def uses_ghosted(params: RunParams) -> bool:
     """Whether an MHD run without a shearing box takes the ghosted step:
-    a face that is not periodic, or the inflow jet."""
+    a face that is not periodic, the inflow jet, or a uniform static
+    gravity (the ghosted mode's gravity instance; the JAX package runs
+    every such field on its whole-array step)."""
     return (not uses_shear(params)
-            and (uses_jet(params) or any(b != BCT.BC_PERIODIC for b in params.boundary_types)))
+            and (uses_jet(params) or static_gravity(params) is not None
+                 or any(b != BCT.BC_PERIODIC for b in params.boundary_types)))
 
 
 def require_step_scope(params: RunParams) -> None:
@@ -104,9 +111,10 @@ def require_step_scope(params: RunParams) -> None:
     field they need is solvers/step.py require_slice's test. Without a
     shearing box any mix of DIRICHLET / NEUMANN / PERIODIC faces and the
     jet are taken, adiabatic or isothermal (cIso > 0: the isothermal
-    instances of the periodic and ghosted modes), ideal, or viscous and
-    resistive on fully periodic faces (walls or the jet with nu or eta
-    need a ghosted mode of the dissipation kernel)."""
+    instances of the periodic and ghosted modes), ideal or viscous and
+    resistive (walls and the jet: the dissipation kernel's ghosted mode),
+    with or without a uniform static gravity (the ghosted mode's gravity
+    instance)."""
     reasons = []
     if params.dim != 3 or not params.mhd:
         reasons.append("only 3D MHD")
@@ -114,9 +122,9 @@ def require_step_scope(params: RunParams) -> None:
         reasons.append(f"riemannSolver {params.riemann_solver.name} (HLLD only)")
     if params.mag_riemann_solver != MagneticRiemannSolver.MAG_HLLD:
         reasons.append(f"magRiemannSolver {params.mag_riemann_solver.name} (HLLD only)")
-    if params.gravity_x or params.gravity_y or params.gravity_z:
-        reasons.append("static gravity")
     if uses_shear(params):
+        if static_gravity(params) is not None:
+            reasons.append("a uniform static gravity in a shearing box")
         bts = params.boundary_types
         if bts[:2] != (BCT.BC_SHEARINGBOX, BCT.BC_SHEARINGBOX):
             reasons.append("a shearing box needs both x faces BC_SHEARINGBOX")
@@ -137,9 +145,6 @@ def require_step_scope(params: RunParams) -> None:
     else:
         if params.omega0 > 0:
             reasons.append("rotating frame (omega0 > 0) without a shearing box")
-        if uses_ghosted(params) and uses_dissipation(params):
-            reasons.append("viscosity or resistivity with walls or the jet (the ghosted mode "
-                           "of csrc/dissip_step.cu)")
     if reasons:
         raise NotImplementedError("not ported: " + "; ".join(reasons))
     if not uses_shear(params):
@@ -228,7 +233,8 @@ class MhdStepKernel:
         check_ghosted(params, U)
         check_scalars(U, dt=(dt, U.dtype), active=(active, torch.bool))
         if U.device.type == "cpu":
-            U.copy_(torch.where(active, mhd_3d_ghosted_update(params, U, dt), U))
+            U.copy_(torch.where(
+                active, mhd_3d_ghosted_update(params, U, dt, gravity_vector(params, U)), U))
             return U
         lib = self._cuda_lib(U, self.scratch_size, params, scratch, True)
         err = getattr(lib, _FN_GHOSTED[U.dtype])(

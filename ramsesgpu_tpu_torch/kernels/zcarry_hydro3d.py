@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ..config.params import RunParams
+from ..config.params import RunParams, static_gravity
 from ..core.constants import BoundaryConditionType as BCT
 from ..solvers.godunov import hydro_3d_state_update
 from ..solvers.timestep import compute_inv_dt_hydro
@@ -30,8 +30,10 @@ def zcarry_hydro_supported(params: RunParams) -> bool:
     """Whether the streamed kernel covers the run: fully periodic faces
     (pallas/zcarry_hydro3d.py:46 without the TPU's tile conditions). A
     walled run takes the step kernel's wall rules and the CFL kernel, as
-    the JAX package takes its whole-array step there."""
-    return all(b == BCT.BC_PERIODIC for b in params.boundary_types)
+    the JAX package takes its whole-array step there; so does a run with
+    static gravity (the step kernel's gravity instance)."""
+    return (all(b == BCT.BC_PERIODIC for b in params.boundary_types)
+            and static_gravity(params) is None)
 
 
 class ZcarryHydroKernel:

@@ -2,17 +2,18 @@
 (the port's copy of ramsesgpu_tpu/problems/__init__.py; reference
 HydroRunBase.cpp:7109-7133, MHDRunBase.cpp:1378-3245).
 
-The port registers the initial conditions it can run: the gravity-free
-hydro problems below, the 2D Riemann problems of ``riemann2d``, the MHD
+The port registers the initial conditions it can run: the hydro problems
+below (Rayleigh-Taylor, falling-bubble and Keplerian-disk with their static
+gravity), the 2D Riemann problems of ``riemann2d``, the MHD
 problems of ``mhd_inits`` and the four turbulence problems of
 ``turbulence_inits`` (hydro and MHD; registered when those modules are
 imported, as the JAX package's problems/__init__.py:60-69 does;
-``solvers/step.py require_slice`` refuses those that need a static
-gravity field). Any other name raises
+``solvers/step.py make_gravity_field`` gives the static gravity of those
+that carry one). Any other name raises
 NotImplementedError. ``has_gravity_field`` is the JAX package's
 gate (problems/__init__.py:48-76): Keplerian-disk always has a field, MRI
 only with a [gravity] section (stratified MRI); ``gravity_field`` builds
-the stratified MRI's.
+both.
 """
 from __future__ import annotations
 
@@ -31,7 +32,10 @@ _HYDRO_REGISTRY: dict[str, InitFn] = {
     "implode": hydro_inits.init_hydro_implode,
     "blast": hydro_inits.init_hydro_blast,
     "Kelvin-Helmholtz": hydro_inits.init_hydro_kelvin_helmholtz,
+    "Rayleigh-Taylor": hydro_inits.init_hydro_rayleigh_taylor,
     "Gresho-vortex": hydro_inits.init_hydro_gresho_vortex,
+    "falling-bubble": hydro_inits.init_hydro_falling_bubble,
+    "Keplerian-disk": hydro_inits.init_hydro_keplerian_disk,
     "jet": hydro_inits.init_hydro_jet,
 }
 
@@ -59,12 +63,12 @@ def has_gravity_field(params: RunParams, config: ConfigMap) -> bool:
 
 
 def gravity_field(params: RunParams, config: ConfigMap):
-    """The problem's static gravity field [3, *ghosted shape] (the
-    reference's h_gravity; JAX problems/__init__.py:48-55), or None. Only
-    the stratified MRI's is ported (mhd_inits.mri_gravity_field); the
-    Keplerian disk's raises NotImplementedError."""
+    """The problem's static gravity field [dim, *ghosted shape] (the
+    reference's h_gravity; JAX problems/__init__.py:48-55), or None: the
+    Keplerian disk's (hydro_inits.keplerian_gravity_field) and the
+    stratified MRI's (mhd_inits.mri_gravity_field)."""
     if params.problem == "Keplerian-disk":
-        raise NotImplementedError("the Keplerian disk's gravity field is not ported")
+        return hydro_inits.keplerian_gravity_field(params, config)
     if params.problem in ("MRI", "Mri", "mri"):
         from .mhd_inits import mri_gravity_field
 

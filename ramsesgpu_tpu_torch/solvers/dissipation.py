@@ -23,7 +23,9 @@ Two forms:
   ``mhd_dissipation_periodic_update`` is that form on the port's
   interior-only periodic state (neighbours by roll), and
   ``mhd_dissipation_shear_update`` on the shearing box's interior with its
-  sheared x ghost slabs beside it. The two forms differ in the energy of
+  sheared x ghost slabs beside it; ``mhd_dissipation_ghosted_update`` on a
+  refilled ghosted state (walls, the jet) with the whole-array form's CT
+  range, so it is the interior of ``apply_dissipation_mhd``. The two forms differ in the energy of
   the cells next to a low face, by the resistive CT of one ghost layer: in
   the JAX package's own f64 runs of the 16^3 dissipative Orszag-Tang test
   (tests/test_torch_dissip.py), 2.2e-8 of the state after one step.
@@ -217,12 +219,14 @@ def apply_dissipation_mhd(params: RunParams, U, dt):
     return U
 
 
-def _interior_update(params: RunParams, W, dt, margin, comp=None):
+def _interior_update(params: RunParams, W, dt, margin, comp=None, cube: bool = False):
     """The interior-only dissipative update of the window W, whose interior
     starts ``margin`` = (mz, my, mx) cells in: (new interior [8, nz, ny, nx],
     emfY and emfZ at the interior's xmax face, or None without resistivity).
     ``comp``: the interior's carry [8, nz, ny, nx]; then the new interior
-    is compensated, [16, nz, ny, nx] (state, then carry)."""
+    is compensated, [16, nz, ny, nx] (state, then carry). ``cube``: the
+    CT updates B on the interior and its max-side face layer only (the
+    whole-array ``ct`` range), not on the whole extent."""
     _require_3d(params)
     mz, my, mx = margin
 
@@ -237,8 +241,10 @@ def _interior_update(params: RunParams, W, dt, margin, comp=None):
         # the CT on the whole extent: later stages read the updated B one
         # cell outside the interior
         W2 = W.clone()
+        ct = (slice(mz, mz + params.nz + 1), slice(my, my + params.ny + 1),
+              slice(mx, mx + params.nx + 1)) if cube else (slice(None),) * 3
         for slot, d in zip((IA, IB, IC), _ct_deltas(params, emfs, dt)):
-            W2[slot] = W[slot] + d
+            W2[(slot,) + ct] = W[(slot,) + ct] + d[ct]
             dB[slot] = crop(d)
         face = (mx + params.nx) % W.shape[-1]  # periodic: face nx is face 0
         eypl = emfs[1][mz:mz + params.nz, my:my + params.ny, face]
@@ -281,6 +287,21 @@ def mhd_dissipation_interior_update(params: RunParams, U, dt, shear_planes: bool
         comp = comp[:, g:g + params.nz, g:g + params.ny, g:g + params.nx]
     out, eypl, ezpl = _interior_update(params, U, dt, (g, g, g), comp)
     return (out, eypl, ezpl) if shear_planes else out
+
+
+def mhd_dissipation_ghosted_update(params: RunParams, U, dt):
+    """The dissipative sub-step of the JAX whole-array step on a ghosted
+    state U [8, nz+2g, ny+2g, nx+2g] whose ghosts a fill has written
+    (``apply_dissipation_mhd`` on the refilled array, godunov_mhd.py:748-761):
+    the new interior, the energy and viscous fluxes summed in the kernel's
+    order, and the resistive CT's new B on the max-side face layer (the
+    whole-array ``ct`` range); every other ghost as U has it. A new
+    tensor. The plain twin of the dissipation kernel's ghosted mode (walls,
+    the jet)."""
+    g = params.ghost_width
+    out = apply_resistivity_ct(params, U, dt) if params.eta > 0 else U.clone()
+    out[:, g:-g, g:-g, g:-g] = _interior_update(params, U, dt, (g, g, g), cube=True)[0]
+    return out
 
 
 def mhd_dissipation_periodic_update(params: RunParams, S, dt):

@@ -15,8 +15,8 @@ fill has written (walls, the jet), ``mhd_3d_ghosted_update`` is the JAX
 whole-array step itself, the twin of the kernel's ghosted mode.
 
 2D (``godunov_unsplit_mhd`` of a [8, ny+2g, nx+2g] state) is the JAX
-``_godunov_unsplit_mhd_2d`` (godunov_mhd.py:103-170) without gravity or
-dissipation: the 2D trace (ops/trace_mhd.py), HLLD fluxes along x and y,
+``_godunov_unsplit_mhd_2d`` (godunov_mhd.py:103-170) without
+dissipation, with its static gravity field: the 2D trace (ops/trace_mhd.py), HLLD fluxes along x and y,
 the conservative update of every channel but IA and IB (the in-plane
 face field; IW and IC, out of plane, go with the fluxes), and the CT
 update of IA and IB from the z-edge EMFs alone. The JAX package has no
@@ -41,7 +41,8 @@ channel's increment d is added as y = d - c; u' = u + y; c' = (u' - u) - y
 (JAX godunov_mhd.py:414-423); a shearing box's kept face becomes [2, nz,
 ny], the face and its carry. The stratified MRI (BC_Z_STRATIFIED z faces,
 solvers/stratified.py) adds the static vertical gravity g_z, one value per
-z row: a half-dt kick of the traced states and the conservative source
+z row, and a uniform [gravity] static_field_* on the ghosted step the
+constant vector (gx, gy, gz): a half-dt kick of the traced states and the conservative source
 with the time-centred momentum, chained through the carry when
 compensated (godunov_mhd.py:213-218, 375-413). Divisions of dt by the
 cell size go through a tensor (dissipation._div), as the kernels divide.
@@ -61,7 +62,7 @@ from ..ops.trace_mhd3d import trace_unsplit_mhd_3d_parts
 from .dissipation import (_div, kahan_add, kept_face_resistive_ct,
                           mhd_dissipation_periodic_update, mhd_dissipation_shear_update,
                           uses_dissipation)
-from .godunov import permute
+from .godunov import _kick, gravity_source, permute
 from .shear import roll_dynamic, shear_slabs, stratified_zslabs
 
 _X, _Y, _Z = -1, -2, -3
@@ -92,21 +93,25 @@ def xpos_array(params: RunParams, dtype, device=None) -> torch.Tensor:
     return params.xmin + params.dx / 2 + (i - params.ghost_width) * params.dx
 
 
-def _kick(q, dt, gz):
-    """The half-dt vertical gravity kick of a traced state [8, ...]."""
-    q = q.clone()
-    q[IW] = q[IW] + 0.5 * dt * gz
-    return q
+def _gravity(gz, gravity):
+    """The gravity components (gx, gy, gz), each None or broadcastable:
+    ``gravity`` if given, else the stratified g_z alone, else None."""
+    if gravity is not None:
+        return tuple(gravity)
+    return None if gz is None else (None, None, gz)
 
 
-def mhd_fluxes_emfs(params: RunParams, U: torch.Tensor, dt, xpos=None, gz=None):
+def mhd_fluxes_emfs(params: RunParams, U: torch.Tensor, dt, xpos=None, gz=None, gravity=None):
     """Face fluxes (x, y, z) and edge EMFs (z, y, x) of one 3D MHD step;
     ``xpos`` (cell-centre x, broadcastable) for the rotating frame; ``gz``
-    (g_z per z row of U, broadcastable) kicks every traced state."""
+    (g_z per z row of U, broadcastable), or ``gravity`` (gx, gy, gz, each
+    None or broadcastable: the uniform field's constant vector), kicks
+    every traced state (godunov_mhd.py:613-618)."""
     Q, _c = constoprim_mhd(params, U, dt)
     P = trace_unsplit_mhd_3d_parts(params, Q, U[IA], U[IB], U[IC], dt, xpos)
-    if gz is not None:
-        P = {k: (lambda f=v: _kick(f(), dt, gz)) for k, v in P.items()}
+    grav = _gravity(gz, gravity)
+    if grav is not None:
+        P = {k: (lambda f=v: _kick((f(),), grav, dt)[0]) for k, v in P.items()}
 
     flux_x = _riemann_dir(params, P["qm_x"](), P["qp_x"](), _X, None)
     flux_y = _riemann_dir(params, P["qm_y"](), P["qp_y"](), _Y, _PERM_Y)
@@ -153,14 +158,15 @@ def split_carry(S: torch.Tensor):
 
 
 def mhd_apply_update(params: RunParams, S, fluxes, emfs, dt, x0: int = 0, z0: int = 0,
-                     comp=None, gz=None, y0: int = 0):
+                     comp=None, gz=None, y0: int = 0, gravity=None):
     """Conservative + CT update of the state [8, nz, ny, nx] from its face
     fluxes and edge EMFs. The fluxes and EMFs extend ``x0`` columns (``y0``
     rows, ``z0`` planes) past S on each x (y, z) side; 0: that axis wraps.
     ``comp``: the carry [8, nz, ny, nx]; then the update is Kahan-
     compensated and [16, ...] returns (state, then the new carry).
-    ``gz``: g_z per z row of the fluxes' frame (broadcastable): the
-    conservative gravity source with the time-centred momentum
+    ``gz``: g_z per z row of the fluxes' frame (broadcastable), or
+    ``gravity`` (gx, gy, gz, each None or broadcastable): the conservative
+    gravity source with the time-centred momentum, per axis in turn
     (JAX godunov_mhd.py:375-413)."""
     dtdx, dtdy, dtdz = _div(dt, params.dx), _div(dt, params.dy), _div(dt, params.dz)
     (flux_x, flux_y, flux_z), (emf_z, emf_y, emf_x) = fluxes, emfs
@@ -176,20 +182,20 @@ def mhd_apply_update(params: RunParams, S, fluxes, emfs, dt, x0: int = 0, z0: in
     inner = (slice(z0, z0 + params.nz), slice(y0, y0 + params.ny), slice(x0, x0 + params.nx))
     if x0 or y0 or z0:
         deltas = [d[(..., *inner)] for d in deltas]
-    g = None
-    if gz is not None:
-        g = torch.broadcast_to(gz, flux_x.shape[1:])[inner]
+    grav = _gravity(gz, gravity) or ()
+    grav = [(slot, torch.broadcast_to(g, flux_x.shape[1:])[inner])
+            for slot, g in zip((IU, IV, IW), grav) if g is not None]
     if comp is None:
         outs = [S[c] + d for c, d in enumerate(deltas)]
-        if g is not None:
-            mom_half = 0.5 * (S[IW] + outs[IW])
-            outs[IW] = outs[IW] + dt * S[ID] * g
+        for slot, g in grav:
+            mom_half = 0.5 * (S[slot] + outs[slot])
+            outs[slot] = outs[slot] + dt * S[ID] * g
             outs[IP] = outs[IP] + dt * mom_half * g
         return torch.stack(outs)
     outs, carries = map(list, zip(*(kahan_add(S[c], comp[c], d) for c, d in enumerate(deltas))))
-    if g is not None:
-        mom_half = 0.5 * (S[IW] + outs[IW])
-        outs[IW], carries[IW] = kahan_add(outs[IW], carries[IW], dt * S[ID] * g)
+    for slot, g in grav:
+        mom_half = 0.5 * (S[slot] + outs[slot])
+        outs[slot], carries[slot] = kahan_add(outs[slot], carries[slot], dt * S[ID] * g)
         outs[IP], carries[IP] = kahan_add(outs[IP], carries[IP], dt * mom_half * g)
     return torch.stack(outs + carries)
 
@@ -203,10 +209,12 @@ def mhd_3d_periodic_update(params: RunParams, S: torch.Tensor, dt) -> torch.Tens
     return mhd_apply_update(params, S, fluxes, emfs, dt, comp=comp)
 
 
-def mhd_3d_ghosted_update(params: RunParams, U: torch.Tensor, dt) -> torch.Tensor:
+def mhd_3d_ghosted_update(params: RunParams, U: torch.Tensor, dt, gravity=None) -> torch.Tensor:
     """One 3D MHD+CT Godunov step of a ghosted state [8, nz+2g, ny+2g,
     nx+2g] whose ghosts a fill has written: the JAX whole-array step
-    (godunov_mhd.py:596-744) without gravity, shear or dissipation. Every
+    (godunov_mhd.py:596-746) without shear or dissipation; ``gravity``: the
+    uniform field's constant vector (gx, gy, gz) or None (the kick of every
+    traced state, :613-618, and the source on the interior, :745-746). Every
     stage runs on the whole array with rolls; the flux divergence updates
     the interior, and the CT curl the cube g .. n+g of every axis
     (:733-744, mhd_ct_update.cuh:124-213), so the max-side face layer n+g
@@ -216,7 +224,8 @@ def mhd_3d_ghosted_update(params: RunParams, U: torch.Tensor, dt) -> torch.Tenso
     its interior)."""
     g = params.ghost_width
     dtdx, dtdy, dtdz = _div(dt, params.dx), _div(dt, params.dy), _div(dt, params.dz)
-    (flux_x, flux_y, flux_z), (emf_z, emf_y, emf_x) = mhd_fluxes_emfs(params, U, dt)
+    (flux_x, flux_y, flux_z), (emf_z, emf_y, emf_x) = mhd_fluxes_emfs(params, U, dt,
+                                                                       gravity=gravity)
     inner = (slice(None),) + (slice(g, -g),) * 3
     ct = tuple(slice(g, n - g + 1) for n in U.shape[1:])
     dU = (
@@ -231,16 +240,21 @@ def mhd_3d_ghosted_update(params: RunParams, U: torch.Tensor, dt) -> torch.Tenso
     out[(slice(0, 5),) + inner[1:]] = U[(slice(0, 5),) + inner[1:]] + dU[:5]
     for ch, d in ((IA, dbx), (IB, dby), (IC, dbz)):
         out[(ch,) + ct] = U[(ch,) + ct] + d
+    if gravity is not None:
+        out[inner] = gravity_source(U[inner], out[inner], gravity, dt)
     return out
 
 
-def _godunov_unsplit_mhd_2d(params: RunParams, U: torch.Tensor, dt) -> torch.Tensor:
+def _godunov_unsplit_mhd_2d(params: RunParams, U: torch.Tensor, dt, gravity=None) -> torch.Tensor:
     """One 2D MHD+CT step of a ghosted state [8, ny+2g, nx+2g] whose ghosts
-    a fill has written (JAX godunov_mhd.py:103-170 without gravity and
-    dissipation). The flux divergence updates the interior of every
-    channel but IA and IB; the CT curl of the z-edge EMF updates IA and IB
-    on one extra face layer (rows and columns g .. n+g, the reference's
-    loop bound jsize-g+1). Every other ghost stays as filled."""
+    a fill has written (JAX godunov_mhd.py:103-170 without dissipation).
+    The flux divergence updates the interior of every channel but IA and
+    IB; the CT curl of the z-edge EMF updates IA and IB on one extra face
+    layer (rows and columns g .. n+g, the reference's loop bound
+    jsize-g+1). Every other ghost stays as filled. ``gravity``: the static
+    field [2, ny+2g, nx+2g] or None: the half-dt kick of the eight traced
+    states and the conservative source on the interior (:115-117,
+    159-160)."""
     g = params.ghost_width
     dtdx, dtdy = _div(dt, params.dx), _div(dt, params.dy)
     xpos = xpos_array(params, U.dtype, U.device)
@@ -248,6 +262,9 @@ def _godunov_unsplit_mhd_2d(params: RunParams, U: torch.Tensor, dt) -> torch.Ten
     Q, _c = constoprim_mhd(params, U, dt)
     (qm_x, qm_y), (qp_x, qp_y), (qRT, qRB, qLT, qLB) = trace_unsplit_mhd_2d(
         params, Q, U[IA], U[IB], dt, xpos)
+    if gravity is not None:
+        qm_x, qm_y, qp_x, qp_y, qRT, qRB, qLT, qLB = _kick(
+            (qm_x, qm_y, qp_x, qp_y, qRT, qRB, qLT, qLB), gravity, dt)
     flux_x = _riemann_dir(params, qm_x, qp_x, _X, None)
     flux_y = _riemann_dir(params, qm_y, qp_y, _Y, _PERM_Y)
 
@@ -270,16 +287,20 @@ def _godunov_unsplit_mhd_2d(params: RunParams, U: torch.Tensor, dt) -> torch.Ten
         out[(ch,) + inner] = U[(ch,) + inner] + dU[(ch,) + inner]
     out[(IA,) + ct] = U[(IA,) + ct] + dbx
     out[(IB,) + ct] = U[(IB,) + ct] + dby
+    if gravity is not None:
+        full = (slice(None),) + inner
+        out[full] = gravity_source(U[full], out[full], gravity[full], dt)
     return out
 
 
-def godunov_unsplit_mhd(params: RunParams, U: torch.Tensor, dt) -> torch.Tensor:
+def godunov_unsplit_mhd(params: RunParams, U: torch.Tensor, dt, gravity=None) -> torch.Tensor:
     """One MHD+CT step of a ghosted 2D or 3D state whose ghosts a fill has
-    written (JAX godunov_mhd.py:55-72 without gravity, shear or
-    dissipation): ``_godunov_unsplit_mhd_2d`` or ``mhd_3d_ghosted_update``."""
+    written (JAX godunov_mhd.py:55-72 without shear or dissipation):
+    ``_godunov_unsplit_mhd_2d`` (``gravity``: the static field) or
+    ``mhd_3d_ghosted_update`` (``gravity``: the constant vector)."""
     if params.dim == 2:
-        return _godunov_unsplit_mhd_2d(params, U, dt)
-    return mhd_3d_ghosted_update(params, U, dt)
+        return _godunov_unsplit_mhd_2d(params, U, dt, gravity)
+    return mhd_3d_ghosted_update(params, U, dt, gravity)
 
 
 def mhd_3d_periodic_step(params: RunParams, S: torch.Tensor, dt) -> torch.Tensor:

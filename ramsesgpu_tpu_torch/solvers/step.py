@@ -50,12 +50,19 @@ kernel for every choice. Of the JAX package's refusals of zcarry
 ("configuration outside the zcarry kernel") only its TPU tile conditions
 are left on the ported paths, and the port's kernels take any nx, ny, nz.
 ``[implementation] zSlabNb`` has no effect on this path, as in the JAX
-package. Of the
-problems with a static gravity field (problems.has_gravity_field) only the
-stratified MRI is ported: its g_z column (problems.gravity_field, the
-field the JAX whole-array path uses, in the state's dtype) goes to the
-shear loop; the builders take the run's ConfigMap to decide that, as the
-JAX ones do.
+package.
+
+Static gravity (``make_gravity_field``, the JAX package's): in 2D the
+field, uniform or the Keplerian disk's, goes to the whole-array step
+(solvers/step2d.py); in 3D a uniform [gravity] static_field_* is one
+constant vector (``config.params.static_gravity``), which the step kernels
+take as three scalars of the launch: the hydro step's interior and ghosted modes
+(kernels/hydro_step.py) and the MHD step's ghosted mode, which every MHD
+run with gravity outside a shearing box takes (kernels/mhd_step.py
+uses_ghosted). The stratified MRI's g_z column (problems.gravity_field,
+in the state's dtype) goes to the shear loop. A non-uniform field in 3D
+other than the stratified MRI's is refused. The builders take the run's
+ConfigMap to decide that, as the JAX ones do.
 """
 from __future__ import annotations
 
@@ -65,7 +72,7 @@ import numpy as np
 import torch
 
 from ..config.configmap import ConfigMap
-from ..config.params import RunParams
+from ..config.params import RunParams, static_gravity
 from ..convert import torch_dtype
 from ..kernels import fused_hydro3d, fused_mhd3d, shear
 from ..kernels.cfl_mhd import cfl_mhd
@@ -91,10 +98,11 @@ def require_slice(params: RunParams, device, config: ConfigMap | None = None) ->
         require_hydro_scope(params)
     gravity = has_gravity_field(params, config if config is not None else ConfigMap(text=""))
     strat = params.mhd and uses_shear(params) and uses_stratified_z(params)
-    if gravity and not strat:
+    if gravity and not strat and params.dim == 3:
         raise NotImplementedError(
-            f"problem {params.problem!r} with a static gravity field is not ported "
-            f"(only the stratified MRI's, with BC_Z_STRATIFIED z faces)")
+            f"problem {params.problem!r} with a non-uniform static gravity field in 3D is not "
+            f"ported (only the stratified MRI's, with BC_Z_STRATIFIED z faces; a uniform "
+            f"[gravity] static_field_* runs)")
     if strat and not gravity:
         raise NotImplementedError(
             "BC_Z_STRATIFIED z faces without the stratified MRI's gravity field are not ported")
@@ -109,6 +117,23 @@ def require_slice(params: RunParams, device, config: ConfigMap | None = None) ->
         )
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
+
+
+def make_gravity_field(params: RunParams, config: ConfigMap | None = None,
+                       device="cpu") -> torch.Tensor | None:
+    """The static gravity field [dim, *ghosted shape] in the state's dtype
+    on ``device`` (JAX solvers/step.py:31-50 make_gravity_field): the
+    problem's own (problems.gravity_field: the Keplerian disk, the
+    stratified MRI) first; else the uniform [gravity] static_field_*; None
+    when all three components are 0."""
+    field = gravity_field(params, config if config is not None else ConfigMap(text=""))
+    if field is None:
+        gvec = static_gravity(params)
+        if gvec is None:
+            return None
+        dtype = np.float64 if params.dtype == "float64" else np.float32
+        field = np.stack([np.full(params.shape[1:], g, dtype=dtype) for g in gvec[:params.dim]])
+    return torch.from_numpy(np.ascontiguousarray(field)).to(device)
 
 
 def gravity_z(params: RunParams, config: ConfigMap | None, device) -> torch.Tensor | None:
@@ -146,7 +171,7 @@ def make_step_fn(params: RunParams, device, config: ConfigMap | None = None) -> 
     run packs a zero carry on each call)."""
     require_slice(params, device, config)
     if params.dim == 2:
-        return step2d.make_step_fn(params)
+        return step2d.make_step_fn(params, make_gravity_field(params, config, device))
     if not params.mhd:
         return fused_hydro3d.make_step_fn(params, device)
     if uses_shear(params):
@@ -173,7 +198,8 @@ def _loop(params: RunParams, device, config: ConfigMap | None, packed_form: bool
     if params.dim == 2:
         if post_step is not None:
             raise NotImplementedError("forcing in 2D")
-        return step2d.make_advance_n(params, device, packed_form=packed_form)
+        return step2d.make_advance_n(params, device, packed_form=packed_form,
+                                     gravity=make_gravity_field(params, config, device))
     if not params.mhd:
         return fused_hydro3d.make_advance_n(params, device, packed_form=packed_form,
                                             post_step=post_step)

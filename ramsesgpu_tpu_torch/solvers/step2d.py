@@ -14,7 +14,9 @@ Each step, as the JAX step: the CFL reduction on the state as it stands
 fill_ghosts_: any mix of DIRICHLET / NEUMANN / PERIODIC faces, the 2D
 jet's YMIN strip), then the Godunov update (solvers/godunov.py
 godunov_unsplit_hydro, solvers/godunov_mhd.py godunov_unsplit_mhd, whose
-CT also writes the face layer n+g). The chunk loop is kernels/loop.py
+CT also writes the face layer n+g), with the static gravity field where
+the run has one (uniform, or the Keplerian disk's: the half-dt kick of
+the traced states and the conservative source). The chunk loop is kernels/loop.py
 make_ghosted_loop: dt, t, the step count and the ``t < t_end`` flag stay
 device tensors and a step past t_end leaves the state as it was, so a
 chunk makes no host sync.
@@ -52,8 +54,6 @@ def require_2d_scope(params: RunParams) -> None:
             reasons.append(f"riemannSolver {params.riemann_solver.name} (approx, hll, hllc)")
         if params.nu > 0:
             reasons.append("2D viscosity (nu > 0)")
-    if params.gravity_x or params.gravity_y or params.gravity_z:
-        reasons.append("static gravity")
     if params.compensated:
         reasons.append("the Kahan-compensated state in 2D")
     if reasons:
@@ -65,28 +65,32 @@ def _update(params: RunParams) -> Callable:
     return godunov_unsplit_mhd if params.mhd else godunov_unsplit_hydro
 
 
-def make_step_fn(params: RunParams) -> Callable:
+def make_step_fn(params: RunParams, gravity: torch.Tensor | None = None) -> Callable:
     """``step(U, t) -> (U_new, dt)`` on the ghosted 2D state: dt from U as
-    it stands, then the update of a filled copy (U is not changed)."""
+    it stands, then the update of a filled copy (U is not changed).
+    ``gravity``: the static field [2, ny+2g, nx+2g] on U's device
+    (solvers/step.py make_gravity_field) or None."""
     require_2d_scope(params)
     update = _update(params)
 
     def step(U, t):
         dt = dt_from_inv(params, inv_dt_ghosted(params, U))
-        return update(params, make_boundaries(params, U), dt), dt
+        return update(params, make_boundaries(params, U), dt, gravity), dt
 
     return step
 
 
-def make_advance_n(params: RunParams, device, packed_form: bool = False):
+def make_advance_n(params: RunParams, device, packed_form: bool = False,
+                   gravity: torch.Tensor | None = None):
     """The 2D chunk loop (kernels/loop.py make_ghosted_loop): the loop
     state is a copy of the ghosted state; see make_kernel_loop there for
-    ``advance_n`` and the ``packed_form`` triple."""
+    ``advance_n`` and the ``packed_form`` triple. ``gravity``: the static
+    field on ``device``, or None."""
     require_2d_scope(params)
     update = _update(params)
 
     def step_(params, U, dt, active, _buf):
-        U.copy_(torch.where(active, update(params, U, dt), U))
+        U.copy_(torch.where(active, update(params, U, dt, gravity), U))
 
     return make_ghosted_loop(params, device, lambda U: inv_dt_ghosted(params, U), step_,
                              lambda U: None, packed_form=packed_form)

@@ -395,7 +395,8 @@ def jax_refs(tmp_path_factory):
     env = dict(os.environ)
     env.pop("JAX_PLATFORMS", None)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p)
-    flags = "--xla_backend_optimization_level=0 --xla_cpu_multi_thread_eigen=false"
+    flags = ("--xla_backend_optimization_level=0 --xla_cpu_multi_thread_eigen=false "
+             "--xla_cpu_use_fusion_emitters=false")
     env["XLA_FLAGS"] = " ".join(f for f in (env.get("XLA_FLAGS"), flags) if f)
     proc = subprocess.Popen(
         [sys.executable, "-c", _JAX_SCRIPT, str(REPO / "tests"), str(out)],

@@ -1127,3 +1127,146 @@ def test_2d_path_on_the_card_matches_cpu_without_host_sync(cuda_device, name):
     assert abs(float(t_gpu) - float(t_cpu)) <= 1e-12 * float(t_cpu)
     diff = torch.linalg.norm((U_gpu.cpu() - U_cpu).flatten()) / torch.linalg.norm(U_cpu.flatten())
     assert torch.isfinite(U_gpu).all() and float(diff) <= 1e-12, float(diff)
+
+
+# static gravity (the step kernels' gravity instances) and the walled
+# dissipation (dissip_step.cu's ghosted mode), at odd sizes
+def gravity_state(name, dtype, device, mesh=(37, 11, 21), keys=None, seed=9):
+    """params, config and the filled ghosted state of data/<name>.ini at
+    ``mesh`` with ``keys`` (a "[section]" key adds a line to it), times
+    1 + 0.02 N(0, 1) from a seed."""
+    import re
+    from pathlib import Path
+
+    from ramsesgpu_tpu_torch.convert import torch_dtype
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+
+    text = (Path(__file__).resolve().parent.parent / "data" / f"{name}.ini").read_text()
+    for key, value in {**dict(zip(("nx", "ny", "nz"), mesh)), **(keys or {})}.items():
+        if key.startswith("["):
+            text = text.replace(key + "\n", f"{key}\n{value}\n")
+        else:
+            text = re.sub(rf"^{key}=.*$", f"{key}={value}", text, flags=re.M)
+    config = ConfigMap(text=text + f"\n[implementation]\ndtype={dtype}\n")
+    params = params_from_config(config)
+    U = torch.from_numpy(init_problem(params, config))
+    gen = torch.Generator().manual_seed(seed)
+    U = U * (1 + 0.02 * torch.randn(U.shape, generator=gen, dtype=U.dtype))
+    return params, config, make_boundaries(params, U.to(device, torch_dtype(params))).contiguous()
+
+
+GRAVITY_CASES = {
+    "hydro": ("rayleigh_taylor_gpu_3d", {}),
+    "mhd": ("rayleigh_taylor_gpu_3d_mhd", {}),
+    "mhd_iso": ("rayleigh_taylor_gpu_3d_mhd", {"[hydro]": "cIso=0.3"}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", list(GRAVITY_CASES))
+def test_gravity_kernels_match_twins(cuda_device, dtype, case):
+    """The gravity instances against their twins at 37 x 11 x 21: the hydro
+    step's interior mode (z walls) and ghosted mode, the MHD step's ghosted
+    mode (adiabatic, isothermal); then 10 steps of the loop against the
+    twins' loop."""
+    from ramsesgpu_tpu_torch.kernels.hydro_step import hydro_step
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.solvers.boundary import interior
+    from ramsesgpu_tpu_torch.solvers.godunov import (gravity_vector, hydro_3d_interior_update,
+                                                     hydro_3d_state_update)
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_ghosted_update
+    from ramsesgpu_tpu_torch.solvers.step import make_advance_n
+
+    name, keys = GRAVITY_CASES[case]
+    params, config, U = gravity_state(name, dtype, cuda_device, keys=keys)
+    grav = gravity_vector(params, U)
+    dt = torch.tensor(2e-3, dtype=U.dtype, device=cuda_device)
+    on = torch.ones((), dtype=torch.bool, device=cuda_device)
+    if params.mhd:
+        got = U.clone()
+        mhd_step.ghosted(params, got, dt, on, mhd_step.scratch(params, U, ghosted=True))
+        assert rel_l2(got, mhd_3d_ghosted_update(params, U, dt, grav)) <= TOL[dtype]
+    else:
+        S = interior(params, U).contiguous()
+        out = torch.empty_like(S)
+        hydro_step(params, S, out, dt, on)
+        assert rel_l2(out, hydro_3d_state_update(params, S, dt, grav)) <= TOL[dtype]
+        got = hydro_step.ghosted(params, U, dt)
+        assert rel_l2(got, hydro_3d_interior_update(params, U, dt, grav)) <= TOL[dtype]
+    t0 = torch.zeros((), dtype=U.dtype, device=cuda_device)
+    got, t, k = make_advance_n(params, cuda_device, config)(U, t0, 10)
+    want, t_ref, _ = make_advance_n(params, "cpu", config)(U.cpu(), t0.cpu(), 10)
+    assert int(k) == 10
+    assert abs(float(t) - float(t_ref)) <= TOL_STEP10[dtype] * float(t_ref)
+    assert rel_l2(interior(params, got).cpu(), interior(params, want)) <= TOL_STEP10[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("keys", [{"[hydro]": "nu=2e-3", "[MHD]": "eta=2e-3"},
+                                  {"[hydro]": "cIso=0.7", "[MHD]": "eta=2e-3"}])
+def test_dissip_ghosted_matches_twin(cuda_device, dtype, keys):
+    """dissip_step.cu's ghosted mode against its twin on a perturbed walled
+    Brio-Wu state at 37 x 11 x 21, in place: the interior and the face
+    layer; an inactive sub-step changes nothing; 10 steps of the walled
+    dissipative loop against the twins' loop."""
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.solvers.dissipation import mhd_dissipation_ghosted_update
+    from ramsesgpu_tpu_torch.solvers.step import make_advance_n
+
+    params, config, U = gravity_state("testRiemannHLLD", dtype, cuda_device, keys=keys)
+    dt = torch.tensor(2e-3, dtype=U.dtype, device=cuda_device)
+    buf = dissip_step.scratch(params, U)
+    got = U.clone()
+    dissip_step.ghosted_(params, got, dt, torch.zeros((), dtype=torch.bool, device=cuda_device),
+                         buf)
+    assert torch.equal(got, U)
+    dissip_step.ghosted_(params, got, dt, torch.ones((), dtype=torch.bool, device=cuda_device),
+                         buf)
+    assert rel_l2(got, mhd_dissipation_ghosted_update(params, U, dt)) <= TOL[dtype]
+    t0 = torch.zeros((), dtype=U.dtype, device=cuda_device)
+    got, t, k = make_advance_n(params, cuda_device, config)(U, t0, 10)
+    want, t_ref, _ = make_advance_n(params, "cpu", config)(U.cpu(), t0.cpu(), 10)
+    assert int(k) == 10 and rel_l2(got.cpu(), want) <= TOL_STEP10[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hydro", "mhd", "walls_dissip"])
+def test_gravity_and_walled_dissip_loops_count_launches(cuda_device, case):
+    """On CUDA the 3D gravity loops and the walled dissipative loop launch
+    their kernels once a step and never a twin."""
+    from ramsesgpu_tpu_torch.kernels import cfl_hydro, cfl_mhd, dissip_step, hydro_step, mhd_step
+    from ramsesgpu_tpu_torch.solvers import dissipation, godunov
+    from ramsesgpu_tpu_torch.solvers.step import make_advance_n
+
+    if case == "walls_dissip":
+        params, config, U = gravity_state("testRiemannHLLD", "float32", cuda_device,
+                                          keys={"[hydro]": "nu=2e-3", "[MHD]": "eta=2e-3"})
+    else:
+        params, config, U = gravity_state(GRAVITY_CASES[case][0], "float32", cuda_device)
+    kernels = ([hydro_step.hydro_step, cfl_hydro.cfl_hydro] if case == "hydro"
+               else [mhd_step.mhd_step, cfl_mhd.cfl_mhd])
+    if case == "walls_dissip":
+        kernels.append(dissip_step.dissip_step)
+    twins = [(mhd_step, "mhd_3d_ghosted_update"), (cfl_mhd, "inv_dt_mhd_ghosted"),
+             (hydro_step, "hydro_3d_state_update"), (cfl_hydro, "compute_inv_dt_hydro"),
+             (dissip_step, "mhd_dissipation_ghosted_update"), (godunov, "gravity_source"),
+             (dissipation, "apply_dissipation_mhd")]
+    saved = [(m, a, getattr(m, a)) for m, a in twins]
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain twin ran on the CUDA path")
+
+    try:
+        for m, a, _fn in saved:
+            setattr(m, a, refuse)
+        before = [kern.launches for kern in kernels]
+        _, _, k = make_advance_n(params, cuda_device, config)(
+            U, torch.zeros((), dtype=U.dtype, device=cuda_device), 3)
+        assert int(k) == 3
+        assert [kern.launches - b for kern, b in zip(kernels, before)] == [3] * len(kernels)
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)

@@ -149,8 +149,15 @@ def test_port_imports_no_jax(tmp_path):
     wave2d = (REPO / "data" / "mhd_inertialWave_2d.ini").read_text().replace(
         "nx=32\nny=32", "nx=8\nny=8")
     assert "nx=8\nny=8\nnz=1" in sod2d and "nx=8\nny=8\nnz=1" in wave2d
+    # a gravity input: the 3D MHD Rayleigh-Taylor (the ghosted step's gravity
+    # instance), as shipped but for the mesh, with nu and eta (the ghosted
+    # dissipation)
+    rt_mhd = (REPO / "data" / "rayleigh_taylor_gpu_3d_mhd.ini").read_text().replace(
+        "nx=50\nny=50\nnz=200", "nx=8\nny=8\nnz=12").replace(
+        "smallc=1e-8", "smallc=1e-8\nnu=1e-4").replace("omega0=0.0", "omega0=0.0\neta=1e-4")
+    assert "nz=12" in rt_mhd and "nu=1e-4" in rt_mhd and "eta=1e-4" in rt_mhd
     texts = [ot, hydro, mri, mri_dissip, ot_dissip, mri_comp, strat, walls, mhd_jet, hydro_jet,
-             turb, sod2d, wave2d]
+             turb, sod2d, wave2d, rt_mhd]
     texts += [zcarry(text) for text in texts + [blast]]
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code, *texts],
@@ -294,14 +301,19 @@ def test_wrappers_take_twins_on_cpu_without_counting():
 @pytest.mark.parametrize(
     "change, exc",
     [
-        # static gravity in MHD (ROADMAP Queue 1 item 4); isothermal periodic
-        # MHD, refused here before, runs (tests/test_torch_forcing.py)
-        ({"gravity_z": -1.0}, NotImplementedError),
+        # a uniform static gravity in a shearing box (static gravity
+        # outside it runs: tests/test_torch_gravity.py); isothermal
+        # periodic MHD, refused here before, runs (tests/test_torch_forcing.py)
+        ({"gravity_z": -1.0, "boundary_xmin": "BC_SHEARINGBOX",
+          "boundary_xmax": "BC_SHEARINGBOX", "omega0": 1.0}, NotImplementedError),
         ({"riemann_solver": "LLF"}, NotImplementedError),
         ({"boundary_xmin": "BC_COPY"}, NotImplementedError),
         ({"omega0": 1.0}, NotImplementedError),
-        # walls with viscosity: a ghosted mode of csrc/dissip_step.cu
-        ({"boundary_xmin": "BC_DIRICHLET", "nu": 1e-3}, NotImplementedError),
+        # the stratified box with viscosity (the z-slab load rule of
+        # csrc/dissip_step.cu; walls with viscosity run its ghosted mode)
+        ({"boundary_xmin": "BC_SHEARINGBOX", "boundary_xmax": "BC_SHEARINGBOX",
+          "boundary_zmin": "BC_Z_STRATIFIED", "boundary_zmax": "BC_Z_STRATIFIED",
+          "omega0": 1.0, "c_iso": 1.0, "nu": 1e-3}, NotImplementedError),
     ],
 )
 def test_out_of_slice_configurations_raise(change, exc):
@@ -311,7 +323,9 @@ def test_out_of_slice_configurations_raise(change, exc):
     from ramsesgpu_tpu_torch.kernels.fused_mhd3d import packed_supported
 
     params, _ = params_for(n=8)
-    enums = {"riemann_solver": RiemannSolver, "boundary_xmin": BoundaryConditionType}
+    enums = {"riemann_solver": RiemannSolver,
+             **{f"boundary_{f}": BoundaryConditionType
+                for f in ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax")}}
     change = {k: enums[k][v] if k in enums else v for k, v in change.items()}
     assert packed_supported(params)
     assert not packed_supported(params.replace(**change))

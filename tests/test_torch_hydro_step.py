@@ -153,7 +153,8 @@ def jax_refs(tmp_path_factory):
     env.pop("JAX_PLATFORMS", None)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p)
     # a quick, single-threaded backend: the suite's other workers share the cores
-    flags = "--xla_backend_optimization_level=0 --xla_cpu_multi_thread_eigen=false"
+    flags = ("--xla_backend_optimization_level=0 --xla_cpu_multi_thread_eigen=false "
+             "--xla_cpu_use_fusion_emitters=false")
     env["XLA_FLAGS"] = " ".join(f for f in (env.get("XLA_FLAGS"), flags) if f)
     res = subprocess.run([sys.executable, "-c", _JAX_SCRIPT, str(REPO / "tests"), str(out)],
                          capture_output=True, text=True, env=env, timeout=600)
@@ -393,10 +394,12 @@ def test_cli_runs_implode_on_cpu_and_writes_vti(tmp_path, capsys):
 @pytest.mark.parametrize(
     "section, key, value, kernels_cover_it",
     [
-        ("gravity", "static_field_z", "-0.1", False),
+        # in the slice since the step kernel's gravity instance
+        # (tests/test_torch_gravity.py)
+        ("gravity", "static_field_z", "-0.1", True),
         ("hydro", "nu", "0.01", False),
         ("hydro", "problem", "jet", True),  # in the slice since the ghosted jet loop
-        ("hydro", "problem", "Rayleigh-Taylor", True),  # no ported initial state
+        ("hydro", "problem", "Rayleigh-Taylor", True),  # ported with its gravity
         ("mesh", "nz", "1", False),  # 2D: no kernel, the whole-array step (test_torch_2d.py)
         ("mesh", "boundary_xmin", "5", False),
         ("implementation", "kernel", "zcarry", True),  # in the slice since the zcarry kernels
@@ -410,11 +413,12 @@ def test_out_of_slice_configurations_raise(section, key, value, kernels_cover_it
 
     text = ini() + f"\n[{section}]\n{key}={value}\n"
     config = ConfigMap(text=text)
-    if value in ("zcarry", "jet") or key == "nz":
+    if value in ("zcarry", "jet", "Rayleigh-Taylor") or key in ("nz", "static_field_z"):
         # the z-streaming kernels (tests/test_torch_zcarry.py): a walled run
         # keeps the step kernel's wall rules under kernel=zcarry, and Run
         # takes it; the jet runs its ghosted loop (tests/test_torch_walls.py);
-        # nz = 1 is a 2D run, in the slice since the 2D path
+        # nz = 1 is a 2D run, in the slice since the 2D path; static gravity
+        # and the Rayleigh-Taylor problem run the gravity instance
         Run(config, "cpu").start(max_steps=1, do_output=False)
     else:
         with pytest.raises(NotImplementedError):
