@@ -213,6 +213,20 @@ Phases, in order; any failure raises and no result line is printed:
      3D hydro and MHD Rayleigh-Taylor physics, and the walled Brio-Wu with
      nu and eta; the new instances and mode against their twins, their
      times and bounds;
+ 49. the sharded periodic, walled and jet runs (parallel/sharded_step.py,
+     JAX make_local_step): the nine [mpi] inputs the slice runs, as shipped
+     through the CLI's main() on their spawned ranks (a world of 4 ranks and
+     one of 8 sharing the card over gloo), at most 20 steps each (no
+     snapshots where an input writes HDF5 and h5py is not installed):
+     per-rank launches (in 3D one ghosted step and one ghosted CFL a step,
+     no other mode; in 2D none), finite, rho > 0, MHD divB, each gathered
+     state against the single-rank path within SHARDED_REL_L2["49"], the
+     VTK pieces reassembled bitwise; three timed cells (49h the 3D implode
+     at 256^3 on 2x2x1, 49m the 3D MHD jet at 128x128x256 on 2x2x2, 49o 2D
+     Orszag-Tang at 2048^2 on 2x2): 2 warm-up + 3 timed chunks of 10 steps
+     (slowest rank), 10 profiled steps (StepProfile sections, CUDA events,
+     the share of a step outside the kernels) held against the single-rank
+     path, whose ms/step at the same mesh is printed beside;
  then the MHD step kernel's rows (A, A', 3, 4, 12, and the isothermal
  instances) with their times and bounds, the kernels JSON line, the card
  line, and the result line.
@@ -223,6 +237,8 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -3531,8 +3547,11 @@ def sharded_gates(label: str, params, S: torch.Tensor, S0: torch.Tensor,
             f"{1e-3 * b_over_dx:.3e}), min rho {float(S[0].min()):.4e}")
 
 
-def check_rank_counts(label: str, ranks: list, steps: int) -> None:
-    want = {"mhd_window": steps, "cfl_mhd_window": steps, "mhd_step": 0, "cfl_mhd": 0}
+def check_rank_counts(label: str, ranks: list, steps: int, launched=("mhd_window",
+                                                                      "cfl_mhd_window")) -> None:
+    """Each rank launched each kernel counter of ``launched`` (parallel/
+    sharded_step.py launch_counts) once a step, and no other."""
+    want = {name: steps if name in launched else 0 for name in ranks[0]["counts"]}
     for r in ranks:
         print(f"[{label}] rank {r['rank']} ({r['device']}): launches {r['counts']}")
         if r["counts"] != want:
@@ -3647,8 +3666,8 @@ def params_from_text(text: str):
 
 
 def cli_rank_checked(argv: list, workdir: str) -> dict:
-    """One rank of phase 38 (a spawned process): the CLI's main(argv) in
-    ``workdir``, as the CLI's own spawned ranks run it, with the
+    """One rank of phases 38 and 49 (a spawned process): the CLI's main(argv)
+    in ``workdir``, as the CLI's own spawned ranks run it, with the
     DistributedRun it builds kept for the gates: launch counts, steps, t,
     and on rank 0 the gathered state and the initial one."""
     import os
@@ -3667,16 +3686,20 @@ def cli_rank_checked(argv: list, workdir: str) -> dict:
         return start(self, *args, **kw)
 
     DistributedRun.start = kept_start
-    before = launch_counts()
-    rc = main(argv)
-    counts = {name: n - before[name] for name, n in launch_counts().items()}
+    try:
+        before = launch_counts()
+        rc = main(argv)
+        counts = {name: n - before[name] for name, n in launch_counts().items()}
+    finally:
+        DistributedRun.start = start
     run = runs[0]
     out = {"rank": run.grid.rank, "rc": rc, "counts": counts, "n_step": run.n_step,
            "t": run.t, "backend": run.grid.describe(), "device": str(run.device)}
     S = run.interior()
     if S is not None:
         g = run.params.ghost_width
-        out.update(U=S, U0=init_problem(run.params, run.config)[:, g:-g, g:-g, g:-g])
+        inner = (slice(None),) + (slice(g, -g),) * run.params.dim
+        out.update(U=S, U0=init_problem(run.params, run.config)[inner])
     return out
 
 
@@ -4820,6 +4843,267 @@ def check_streamed(label: str, kernel: str, rows: dict) -> None:
                              f"stages {staged[:3]}")
 
 
+# ---------------------------------------------------------------------------
+# the sharded periodic, walled and jet runs (JAX make_local_step): phase 49
+# ---------------------------------------------------------------------------
+# the nine shipped [mpi] inputs the slice runs, by world size (4 or 8 ranks
+# sharing the card)
+LOCAL_MPI_INIS = {
+    4: ("data/implode3d_mpi_zslab.ini", "data/implode2d_mpi.ini", "data/jet2d_mpi_cpu.ini",
+        "data/jet2d_mpi_gpu.ini", "data/kelvin_helmholtz_gpu_2d_mhd_mpi.ini",
+        "data/orszag-tang_mpi.ini", "data/rayleigh_taylor_2d_mpi_mhd.ini"),
+    8: ("data/jet3d_mpi_gpu.ini", "data/jet3d_mhd_mpi_gpu.ini"),
+}
+# the timed cells: label, input (its physics and topology), global mesh
+LOCAL_CELLS = (("49h", "data/implode3d_mpi_zslab.ini", (256, 256, 256)),
+               ("49m", "data/jet3d_mhd_mpi_gpu.ini", (128, 128, 256)),
+               ("49o", "data/orszag-tang_mpi.ini", (2048, 2048, 1)))
+SHARDED_REL_L2["49"] = 1e-5
+
+
+def rank_jobs49(jobs: list) -> list:
+    """One rank of phase 49 (a spawned process): each job in turn, in one
+    world, a CLI run (``{"cli": cli_rank_checked's arguments}``) or
+    parallel/sharded_step.py rank_advance's keyword arguments."""
+    from ramsesgpu_tpu_torch.parallel.sharded_step import rank_advance
+
+    return [cli_rank_checked(**job["cli"]) if "cli" in job else rank_advance(**job)
+            for job in jobs]
+
+
+def local_launched(params) -> tuple:
+    """The launch counters a rank of a sharded run outside the shearing box
+    adds to once a step: the step and CFL kernels' ghosted modes in 3D
+    (rows 3 and B's ghosted form; row 5 and row 7), none in 2D."""
+    if params.dim == 2:
+        return ()
+    kind = "mhd" if params.mhd else "hydro"
+    return (f"{kind}_step", f"{kind}_step_ghosted", f"cfl_{kind}", f"cfl_{kind}_ghosted")
+
+
+def single_rank_local(text: str, steps: int):
+    """(interior on the CPU, t, k) of the port's single-rank path on the
+    card (solvers/step.py make_advance_n) from the INI's initial state."""
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.convert import torch_dtype
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+    from ramsesgpu_tpu_torch.solvers.step import make_advance_n
+
+    config = ConfigMap(text=text)
+    params = params_from_text(text)
+    U0 = torch.from_numpy(init_problem(params, config)).to("cuda", torch_dtype(params))
+    U, t, k = make_advance_n(params, "cuda", config)(
+        make_boundaries(params, U0), torch.zeros((), dtype=U0.dtype, device="cuda"), steps)
+    g = params.ghost_width
+    return U[(slice(None),) + (slice(g, -g),) * params.dim].cpu(), float(t), int(k)
+
+
+def compare_single_local(label: str, text: str, got: torch.Tensor, t_got: float, k_got: int,
+                         steps: int) -> None:
+    """The gathered sharded state after ``steps`` against the single-rank
+    path's: t within 1e-6, k equal, each channel's relative L2 (its absolute
+    L2 where the channel is 0) within SHARDED_REL_L2["49"], printed."""
+    single, t1, k1 = single_rank_local(text, steps)
+    diff = (got - single).double()
+    rel = [float(diff[c].norm()) / (float(single[c].double().norm()) or 1.0)
+           for c in range(single.shape[0])]
+    tol = SHARDED_REL_L2["49"]
+    print(f"[{label}] {steps} steps against the single-rank path: t {t_got!r} vs {t1!r}; "
+          f"relative L2 per channel {[f'{x:.3e}' for x in rel]} (<= {tol:.0e}); max |diff| "
+          f"{float(diff.abs().max()):.3e}")
+    if not (max(rel) <= tol and k1 == k_got == steps and abs(t1 - t_got) <= 1e-6 * t1):
+        raise AssertionError(f"{label}: the sharded run disagrees with the single-rank path")
+
+
+def local_gates(label: str, params, S: torch.Tensor) -> str:
+    """Finite, rho > 0; on 2D and 3D MHD max|divB| < 1e-3 max|B| / dx on
+    the interior's faces (the +1 face of the last cells is not held)."""
+    if not bool(torch.isfinite(S).all()) or not float(S[0].min()) > 0:
+        raise AssertionError(f"{label}: non-finite state or rho <= 0 (min {float(S[0].min())})")
+    out = f"finite, min rho {float(S[0].min()):.4e}"
+    if params.mhd:
+        S = S.double()
+        if params.dim == 2:
+            div = ((S[5][:, 1:] - S[5][:, :-1])[:-1] / params.dx
+                   + (S[6][1:] - S[6][:-1])[:, :-1] / params.dy)
+        else:
+            div = ((S[5][..., 1:] - S[5][..., :-1])[:-1, :-1] / params.dx
+                   + (S[6][:, 1:] - S[6][:, :-1])[:-1, :, :-1] / params.dy
+                   + (S[7][1:] - S[7][:-1])[:, :-1, :-1] / params.dz)
+        bound = 1e-3 * max(float(S[5:8].abs().max()), 1e-30) / params.dx
+        divb = float(div.abs().max())
+        if not divb < bound:
+            raise AssertionError(f"{label}: divB {divb} (bound {bound})")
+        out += f", max|divB| {divb:.3e} (bound {bound:.3e})"
+    return out
+
+
+def single_rank_timed(label: str, text: str, card: str, chunk: int = 10):
+    """ms/step of the port's single-rank path on the card at the cell's
+    global mesh (make_packed_advance_chain, 2 warm-up and 3 timed chunks),
+    and its state after its first chunk (CPU)."""
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.convert import torch_dtype
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+
+    config = ConfigMap(text=text)
+    params = params_from_text(text)
+    pack, advance, unpack = make_packed_advance_chain(params, "cuda", config)
+    U0 = torch.from_numpy(init_problem(params, config)).to("cuda", torch_dtype(params))
+    S = pack(make_boundaries(params, U0))
+    del U0
+    t = torch.zeros((), dtype=S.dtype, device="cuda")
+    g = params.ghost_width
+    first, times = None, []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S, t, k = advance(S, t, chunk)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if int(k) != chunk:
+            raise AssertionError(f"{label}: a single-rank chunk stopped early")
+        if i == 0:
+            first = (unpack(S, t)[(slice(None),) + (slice(g, -g),) * params.dim].cpu(),
+                     float(t))
+    del S
+    torch.cuda.empty_cache()
+    return min(times[2:]) * 1e3 / chunk, first
+
+
+def phase49(card: str) -> None:
+    """The sharded periodic, walled and jet runs (parallel/sharded_step.py):
+    (a) the nine shipped [mpi] inputs the slice runs as shipped through the
+    CLI's main() on their spawned ranks, 4 or 8 sharing the card, at most
+    20 steps each (no snapshots where the input writes HDF5 and h5py is not
+    installed): per-rank launches, each gathered state against the
+    single-rank path, the written VTK pieces reassembled against the
+    gathered state; (b) three timed cells, each 2 warm-up and 3 timed
+    chunks of 10 steps (slowest rank) and 10 profiled steps from the initial
+    state against the single-rank path, which is also timed at the same
+    mesh: the 3D implode at 256^3 on 2x2x1, the 3D MHD jet at 128x128x256
+    on 2x2x2, 2D Orszag-Tang at 2048^2 on 2x2."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.core.constants import var_names
+    from ramsesgpu_tpu_torch.io.vtk import read_pvti
+    from ramsesgpu_tpu_torch.parallel.launch import spawn_ranks
+
+    have_h5 = importlib.util.find_spec("h5py") is not None
+    chunk, compare = 10, 10
+    with tempfile.TemporaryDirectory(prefix="smoke49_") as tmp:
+        jobs, meta = {4: [], 8: []}, {4: [], 8: []}
+        for world, inis in LOCAL_MPI_INIS.items():
+            for ini in inis:
+                text = Path(ini).read_text()
+                steps = min(20, params_from_text(text).n_stepmax)
+                argv = ["--param", str(Path(ini).resolve()), "--max-steps", str(steps)]
+                if not have_h5 and "outputHdf5=yes" in text:
+                    argv.append("--no-output")
+                workdir = Path(tmp) / Path(ini).stem
+                workdir.mkdir()
+                jobs[world].append({"cli": dict(argv=argv, workdir=str(workdir))})
+                meta[world].append(("cli", ini, text, steps, workdir, "--no-output" in argv))
+        for label, ini, mesh in LOCAL_CELLS:
+            text = sharded_ini(ini, mesh)
+            world = math.prod(int(re.search(rf"^{k}=(\d+)", text, re.M).group(1))
+                              for k in ("mx", "my", "mz"))
+            jobs[world] += [dict(config_text=text, device="cuda", n_steps=chunk, chunks=5),
+                            dict(config_text=text, device="cuda", n_steps=compare,
+                                 profile=True)]
+            meta[world] += [("timed", label, text, mesh), ("profiled", label, text, mesh)]
+        results = []
+        for world in (4, 8):
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            per_rank = spawn_ranks(rank_jobs49, world, (jobs[world],))
+            print(f"[49] {world} ranks on {card}: {len(jobs[world])} jobs in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            results += [(m, [r[i] for r in per_rank]) for i, m in enumerate(meta[world])]
+        timed = {}
+        for m, ranks in results:
+            r0 = ranks[0]
+            if m[0] == "cli":
+                _kind, ini, text, steps, workdir, no_output = m
+                label = f"49 {Path(ini).name}"
+                params = params_from_text(text)
+                written = sorted(p.name for p in workdir.iterdir())
+                print(f"[{label}] {params.nx}x{params.ny}x{params.nz} {params.dtype} as shipped: "
+                      f"{r0['backend']}, {r0['n_step']} steps, t={r0['t']!r}, "
+                      f"{len(written)} files written")
+                if any(r["rc"] != 0 or r["n_step"] != steps for r in ranks):
+                    raise AssertionError(f"{label}: {[(r['rc'], r['n_step']) for r in ranks]}")
+                check_rank_counts(label, ranks, steps, local_launched(params))
+                got = torch.from_numpy(r0["U"])
+                print(f"[{label}] " + local_gates(label, params, got))
+                compare_single_local(label, text, got, r0["t"], r0["n_step"], steps)
+                config = ConfigMap(text=text)
+                if not no_output and config.get_bool("output", "outputVtk", True):
+                    prefix = config.get_string("output", "outputPrefix", "output")
+                    pieces = read_pvti(workdir / f"{prefix}_{steps:07d}.pvti")
+                    back = torch.from_numpy(np.stack(
+                        [pieces[n] for n in var_names(params.nb_var)]))
+                    n_pieces = len(list(workdir.glob(f"{prefix}_{steps:07d}_p*.vti")))
+                    if n_pieces != len(ranks) or not torch.equal(back, got):
+                        raise AssertionError(f"{label}: the VTK pieces ({n_pieces}) do not "
+                                             f"reassemble to the gathered state")
+                    print(f"[{label}] its {n_pieces} VTK pieces at step {steps} reassemble "
+                          f"to the gathered state, bitwise")
+            else:
+                timed.setdefault(m[1], {})[m[0]] = (m, ranks)
+        for label, _ini, mesh in LOCAL_CELLS:
+            (_, _, text, _), ranks = timed[label]["timed"]
+            _m, profiled = timed[label]["profiled"]
+            params = params_from_text(text)
+            cells = math.prod(mesh)
+            if any(r["k"] != chunk for r in ranks):
+                raise AssertionError(f"{label}: a chunk stopped early")
+            per_chunk = [max(r["chunk_s"][i] for r in ranks) for i in range(2, 5)]
+            ms = min(per_chunk) * 1e3 / chunk
+            size = "x".join(str(n) for n in mesh if n > 1)
+            print(f"[{label}] {size} {params.dtype} on {len(ranks)} ranks ({ranks[0]['transport']}) "
+                  f"on {card}: best chunk {ms:.3f} ms/step, {cells * chunk / (ms * chunk / 1e3):.4e} "
+                  f"cells/s (chunks {[round(x * 1e3 / chunk, 3) for x in per_chunk]} ms/step, "
+                  f"slowest rank each)")
+            check_rank_counts(label, ranks, 5 * chunk, local_launched(params))
+            check_rank_counts(label + "p", profiled, compare, local_launched(params))
+            for r in profiled:
+                prof = r["profile"]
+                step_ms = r["chunk_s"][0] * 1e3 / compare
+                walls = ", ".join(f"{k} {v / compare:.3f}" for k, v in prof["wall_ms"].items())
+                events = ", ".join(f"{k} {v / compare:.4f}" for k, v in prof["kernel_ms"].items())
+                inside = sum(prof["kernel_ms"].values()) / compare
+                what = "kernels" if params.dim == 3 else "whole-array step and CFL"
+                print(f"[{label}p] rank {r['rank']}: step {step_ms:.3f} ms; sections: {walls}; "
+                      f"CUDA events: {events}; share of the step outside the {what}: "
+                      f"{1 - inside / step_ms:.4f}")
+            single_ms, (first, t_first) = single_rank_timed(label, text, card, compare)
+            print(f"[{label}] the single-rank path at the same mesh on {card}: {single_ms:.3f} "
+                  f"ms/step ({cells / (single_ms / 1e3):.4e} cells/s); sharded/single "
+                  f"{ms / single_ms:.3f}")
+            got = torch.from_numpy(profiled[0]["U"])
+            print(f"[{label}] " + local_gates(label, params, got))
+            diff = (got - first).double()
+            rel = [float(diff[c].norm()) / (float(first[c].double().norm()) or 1.0)
+                   for c in range(first.shape[0])]
+            tol = SHARDED_REL_L2["49"]
+            print(f"[{label}] {compare} profiled steps against the single-rank path's first "
+                  f"chunk: t {profiled[0]['t']!r} vs {t_first!r}; relative L2 per channel "
+                  f"{[f'{x:.3e}' for x in rel]} (<= {tol:.0e})")
+            if not (max(rel) <= tol and abs(profiled[0]["t"] - t_first) <= 1e-6 * t_first):
+                raise AssertionError(f"{label}: the sharded cell disagrees with the single-rank "
+                                     f"path")
+            del got, first
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     start = time.perf_counter()
 
@@ -4956,6 +5240,8 @@ def main() -> int:
     lap("47")
     grav = phase48(card, timing["n_twin"])
     lap("48")
+    phase49(card)
+    lap("49")
     bounds.update(grav["bounds"])
     if "jax" in sys.modules or any(m.startswith("ramsesgpu_tpu.") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")

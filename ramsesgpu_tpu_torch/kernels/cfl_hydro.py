@@ -45,6 +45,7 @@ class CflHydroKernel:
 
     def __init__(self) -> None:
         self.launches = 0
+        self.ghosted_launches = 0   # those on a ghosted state, among launches
 
     def __call__(self, params: RunParams, A: torch.Tensor, ghost: int = 0) -> torch.Tensor:
         if params.mhd or params.dim != 3:
@@ -65,6 +66,7 @@ class CflHydroKernel:
         if err:
             raise RuntimeError(f"cfl_hydro launch failed: CUDA error {err}")
         self.launches += 1
+        self.ghosted_launches += int(ghost != 0)
         return out
 
 

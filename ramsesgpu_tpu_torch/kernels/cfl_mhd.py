@@ -108,6 +108,7 @@ class CflMhdKernel:
 
     def __init__(self) -> None:
         self.launches = 0
+        self.ghosted_launches = 0   # those of the ghosted mode, among launches
 
     def __call__(self, params: RunParams, S: torch.Tensor,
                  kept: torch.Tensor | None = None, ghost: int = 0) -> torch.Tensor:
@@ -164,6 +165,7 @@ class CflMhdKernel:
         if err:
             raise RuntimeError(f"cfl_mhd ghosted launch failed: CUDA error {err}")
         self.launches += 1
+        self.ghosted_launches += 1
         return out
 
 

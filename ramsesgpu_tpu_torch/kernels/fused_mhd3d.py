@@ -38,10 +38,10 @@ through the step kernel's gravity instance. ``kernel=zcarry`` runs
 the same staged kernel there, as the JAX package takes its whole-array
 step (solvers/step.py:326-358); ``compensated=yes`` runs the plain
 update, as the JAX ``make_step_fn`` has no compensated branch.
-``make_fused_mhd_update`` is row 3 with its outside contract, for the
-sharded step of a later slice. ``make_fused_mhd_shear`` is TPU row 4
-(pallas/fused_mhd3d.py:587) with its outside contract: a rank's step of
-the sharded shearing box (parallel/sharded_step.py).
+``make_fused_mhd_update`` is row 3 with its outside contract, the step
+of a sharded walled, periodic or jet rank (parallel/sharded_step.py).
+``make_fused_mhd_shear`` is TPU row 4 (pallas/fused_mhd3d.py:587) with
+its outside contract: a rank's step of the sharded shearing box.
 """
 from __future__ import annotations
 
@@ -189,29 +189,32 @@ def make_ghosted_step_fn(params: RunParams, device) -> Callable:
 
 
 def make_fused_mhd_update(params: RunParams, device) -> Callable:
-    """``update(U_ghosted, dt) -> U_interior_new``: TPU row 3
+    """``update(U_ghosted, dt, in_place=False) -> U_interior_new``: TPU row 3
     (pallas/fused_mhd3d.py:80) with its outside contract, for any face
     types: one MHD+CT step of a ghosted state whose ghosts a fill has
     written, and the new interior [8, nz, ny, nx]. ``dt``: a number or a
     0-d tensor. On a CUDA state it launches the step kernel's ghosted
-    mode on a copy of U; on a CPU state the twin runs."""
+    mode on a copy of U, or with ``in_place`` on U itself (a contiguous
+    state, whose interior and CT face layer n+g it updates; the returned
+    interior is then a view of U: a sharded rank's block,
+    parallel/sharded_step.py); on a CPU state the twin runs."""
     require_step_scope(params)
     if uses_shear(params):
         raise NotImplementedError("row 3 does not cover the rotating frame")
     device = torch.device(device)
     scratch = None  # the stage buffer, allocated once
 
-    def update(U, dt):
+    def update(U, dt, in_place: bool = False):
         nonlocal scratch
         if U.device.type != device.type:
             raise ValueError(f"state on {U.device}, update built for {device}")
-        W = U.clone(memory_format=torch.contiguous_format)
+        W = U if in_place else U.clone(memory_format=torch.contiguous_format)
         if scratch is None:
             scratch = mhd_step.scratch(params, W, ghosted=True)
         dt = torch.as_tensor(dt, dtype=W.dtype, device=W.device)
         mhd_step.ghosted(params, W, dt, torch.ones((), dtype=torch.bool, device=W.device),
                          scratch)
-        return interior(params, W).contiguous()
+        return interior(params, W) if in_place else interior(params, W).contiguous()
 
     return update
 

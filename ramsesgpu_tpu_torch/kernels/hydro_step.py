@@ -81,6 +81,7 @@ class HydroStepKernel:
 
     def __init__(self) -> None:
         self.launches = 0
+        self.ghosted_launches = 0   # those of the ghosted modes, among launches
         self._blocks = {}   # (device, dtype) -> the persistent grid
 
     @staticmethod
@@ -167,6 +168,7 @@ class HydroStepKernel:
         if err:
             raise RuntimeError(f"hydro_step launch failed: CUDA error {err}")
         self.launches += 1
+        self.ghosted_launches += int(ghosted != 0)
 
 
 def check_out(params: RunParams, S: torch.Tensor, out: torch.Tensor) -> None:

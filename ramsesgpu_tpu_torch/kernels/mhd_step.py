@@ -164,6 +164,7 @@ class MhdStepKernel:
 
     def __init__(self) -> None:
         self.launches = 0
+        self.ghosted_launches = 0   # those of the ghosted mode, among launches
 
     @staticmethod
     def scratch(params: RunParams, S: torch.Tensor, ghosted: bool = False
@@ -244,6 +245,7 @@ class MhdStepKernel:
         if err:
             raise RuntimeError(f"mhd_step ghosted launch failed: CUDA error {err}")
         self.launches += 1
+        self.ghosted_launches += 1
         return U
 
     @staticmethod

@@ -5,7 +5,7 @@ HydroMpiParameters.cpp:59-124).
 
 One process per rank. Rank r sits at (iz, iy, ix) of the grid [mz, my,
 mx], in the JAX mesh's axis order ('z', 'y', 'x'): r = (iz my + iy) mx +
-ix. Its neighbours on each axis wrap periodically, as the JAX ppermute
+ix; a 2D run has mz = 1 (iz = 0) and (ny, nx) blocks. Its neighbours on each axis wrap periodically, as the JAX ppermute
 rings do; every rank creates one process group per y column (the ranks
 that share iz and ix), in the same order, for the shearing box's y
 gathers.
@@ -57,6 +57,29 @@ def validate_decomposition(params: RunParams, mx: int, my: int, mz: int) -> None
         params.dim == 3 and params.nz // mz < g
     ):
         raise ValueError("per-shard block smaller than the ghost width")
+
+
+def local_params(params: RunParams, grid: "ProcessGrid") -> RunParams:
+    """The rank's block as RunParams: its extent, the global origin and
+    cell size (JAX sharded_step.py:420-425); in 2D nz stays 1."""
+    lnx, lny = params.nx // grid.mx, params.ny // grid.my
+    lp = params.replace(nx=lnx, ny=lny, xmax=params.xmin + lnx * params.dx,
+                        ymax=params.ymin + lny * params.dy)
+    if params.dim == 2:
+        return lp
+    lnz = params.nz // grid.mz
+    return lp.replace(nz=lnz, zmax=params.zmin + lnz * params.dz)
+
+
+def block_slices(params: RunParams, grid: ProcessGrid, rank: int) -> tuple:
+    """The slices of rank ``rank``'s block in the global interior
+    [nvar, (nz,) ny, nx]."""
+    dim = params.dim
+    inner = (params.nz, params.ny, params.nx)[-dim:]
+    sizes = (grid.mz, grid.my, grid.mx)[-dim:]
+    coords = (rank // (grid.mx * grid.my), (rank // grid.mx) % grid.my, rank % grid.mx)[-dim:]
+    return (slice(None),) + tuple(slice(i * (n // m), (i + 1) * (n // m))
+                                  for i, n, m in zip(coords, inner, sizes))
 
 
 def choose_transport(device, world_size: int, rank: int) -> tuple[str, torch.device]:

@@ -1,14 +1,51 @@
 """Time stepping over ranks: one process per rank, torch.distributed
 between them (the port's counterpart of ramsesgpu_tpu/parallel/
-sharded_step.py; reference MHDRunGodunovMpi.cpp).
+sharded_step.py; reference HydroRunGodunovMpi.cpp, MHDRunGodunovMpi.cpp).
 
-Ported: the shearing box (the MRI, ideal or stratified), JAX
+Two loops, as in the JAX ``make_sharded_advance_n`` (:647):
+
+**Periodic, walled and jet runs, 2D and 3D** (JAX ``make_local_step``,
+:117-402, its synchronous branch ``local_step``, :371-400). Each rank
+carries its ghosted local block, whose interior is the state; per step
+
+1. the halo fill in place (parallel/halo.py ``fill_halos_``: the x, y
+   (and z) exchanges, the physical fill of the ranks at the domain's
+   edge, then the inflow jet on the ranks that hold its face);
+2. the inverse dt on the filled block, the max over ranks (all_reduce MAX,
+   JAX ``lax.pmax``), dt;
+3. the update: in 3D MHD TPU row 3 (kernels/fused_mhd3d.py
+   ``make_fused_mhd_update``, the step kernel's ghosted mode in place),
+   after the CFL kernel's ghosted mode (kernels/cfl_mhd.py, the jet's
+   floor in the kernel); in 3D hydro the hydro step kernel's ghosted mode
+   (kernels/hydro_step.py ``ghosted_``, TPU row 5, where the JAX package
+   runs its whole-array step, :292-299, whose counterpart it is) after
+   csrc/cfl_hydro.cu's ghosted form with the jet's floor; in 2D the
+   whole-array ``godunov_unsplit_hydro`` / ``godunov_unsplit_mhd`` on the
+   rank's device (the JAX package has no 2D kernel) after the whole-array
+   CFL. The new interior stays in the block, whose ghosts the next fill
+   rewrites (the MHD step's CT face layer n+g among them).
+
+A static gravity field enters as each rank's ghosted window of the
+global field (``gravity_window``, JAX ``_gravity_windows``, :611-645),
+sliced and never exchanged: in 2D the whole-array step takes it; in 3D a
+uniform field is the constant vector of the parameter block, which
+selects the kernels' gravity instances as on one device; a non-uniform 3D
+field raises (solvers/step.py require_slice). The inflow jet and its dt
+floor are applied as the single-device step applies them (JAX
+solvers/boundary.py:228-229, solvers/timestep.py:257-261); the JAX
+sharded step has neither (ROADMAP Queue 3 item 15), so the port's sharded
+jet runs are held against single-device runs. ``[implementation]
+zSlabNb`` selects nothing, as on the port's kernel paths; where the JAX
+``make_local_step`` would slab (3D hydro, or 3D MHD with gravity), a
+local nz it does not divide raises the JAX package's ValueError.
+
+**The shearing box** (the MRI, ideal or stratified), JAX
 ``_make_sharded_advance_shear`` (:404-608) on its kernel route: each rank
 carries its GHOSTED local block, so the CFL reads ghosts one fill old, as
 the single-device step computes dt before the fill; per step
 
 1. the CFL kernel's ghosted shearing-box form on the block as it stands,
-   and the max over ranks (all_reduce MAX, JAX ``lax.pmax``);
+   and the max over ranks;
 2. the interior, grown again by ``attach_halos_shear`` at t + dt (y ring,
    x ring with the sheared remap at the domain edge, z ring, the rebuilt
    xmax Bx face, the stratified z fill);
@@ -26,13 +63,15 @@ route against its whole-array route (``_mhd_update``) with a tolerance:
 the whole-array update also moves the CT face layer n+g of the block,
 which the next CFL reads.
 
-Every other sharded configuration (periodic or walled MHD, hydro,
-forcing, zslab, halo overlap, the sharded dissipation) raises
-NotImplementedError: ROADMAP Queue 1 item 7.
+Not ported, and raising NotImplementedError naming its ROADMAP item
+(``require_sharded_scope``): the sharded dissipation (nu, eta; Queue 1
+item 7.2), forcing (item 7.3) and ``[implementation] haloOverlap`` (item
+7.5).
 """
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import time
 from typing import Callable
 
@@ -40,74 +79,93 @@ import torch
 import torch.distributed as dist
 
 from ..config.configmap import ConfigMap
-from ..config.params import RunParams
+from ..config.params import RunParams, static_gravity
 from ..convert import torch_dtype
-from ..core.constants import IA, IC, ID, BoundaryConditionType as BCT
-from ..kernels.cfl_mhd import cfl_mhd_window
-from ..kernels.fused_mhd3d import make_fused_mhd_shear
+from ..core.constants import IA, IC, ID
+from ..kernels.cfl_hydro import cfl_hydro
+from ..kernels.cfl_mhd import cfl_mhd, cfl_mhd_window
+from ..kernels.fused_mhd3d import make_fused_mhd_shear, make_fused_mhd_update
+from ..kernels.hydro_step import hydro_step
+from ..kernels.mhd_step import uses_shear
+from ..ops.forcing import FORCED_PROBLEMS
+from ..problems import has_gravity_field
 from ..solvers.dissipation import _div
-from ..solvers.step import mri_gz_profile, require_slice
+from ..solvers.godunov import godunov_unsplit_hydro
+from ..solvers.godunov_mhd import godunov_unsplit_mhd
+from ..solvers.step import make_gravity_field, mri_gz_profile, require_slice
 from ..solvers.stratified import uses_stratified_z
-from ..solvers.timestep import dt_from_inv
-from .halo import exchange, strip_halos
-from .mesh import ProcessGrid
+from ..solvers.timestep import dt_from_inv, inv_dt_ghosted
+from .halo import attach_jet, exchange, fill_halos_, strip_halos
+from .mesh import ProcessGrid, block_slices, local_params, topology_from_config
 from .shear_dist import ShardedShearComm, attach_halos_shear
 
 ROADMAP_ITEM = "ROADMAP Queue 1 item 7"
 
 
 def require_sharded_scope(params: RunParams, device, config: ConfigMap | None = None) -> None:
-    """Raise NotImplementedError for a sharded configuration outside the
-    ported slice (the ideal or stratified MRI shearing box), naming the
-    ROADMAP item that holds the rest. ``[implementation] zSlabNb`` and
-    ``haloOverlap`` select nothing on the shearing box, as in the JAX
-    package (its zslab and overlap paths belong to ``make_local_step``)."""
+    """Raise for a sharded configuration outside the port, before any rank
+    starts: NotImplementedError naming the ROADMAP item that holds the
+    sharded dissipation (Queue 1 item 7.2), forcing (7.3) and
+    ``haloOverlap`` (7.5); then the single-device scope
+    (solvers/step.py require_slice); then, given the run's ``config`` (its
+    [mpi] topology), the JAX package's ValueError for a local nz that
+    ``zSlabNb`` does not divide where the JAX ``make_local_step`` slabs
+    (:361-369: 3D hydro, or 3D MHD with gravity, or any 3D run outside
+    its kernels). On the shearing box ``zSlabNb`` and ``haloOverlap``
+    select nothing, as in the JAX package (its zslab and overlap paths
+    belong to ``make_local_step``)."""
+    shear = uses_shear(params)
     reasons = []
-    if not params.mhd or params.dim != 3:
-        reasons.append("only 3D MHD")
-    if (params.boundary_xmin, params.boundary_xmax) != (BCT.BC_SHEARINGBOX,) * 2:
-        reasons.append("periodic or walled MHD and hydro (make_local_step)")
+    if shear and (not params.mhd or params.dim != 3):
+        reasons.append("a shearing box outside 3D MHD")
     if params.nu > 0 or params.eta > 0:
-        reasons.append("the sharded dissipation")
-    if params.problem.startswith("turbulence"):
-        reasons.append("forcing")
+        reasons.append(f"the sharded dissipation (nu, eta; {ROADMAP_ITEM}.2)")
+    if params.problem in FORCED_PROBLEMS:
+        reasons.append(f"forcing ({ROADMAP_ITEM}.3)")
+    if params.halo_overlap and not shear:
+        reasons.append(f"[implementation] haloOverlap ({ROADMAP_ITEM}.5)")
+    if params.omega0 > 0 and not shear:
+        reasons.append("a rotating frame without a shearing box")
+    topo = (1, 1, 1) if config is None else topology_from_config(config)
+    if params.dim == 2 and topo[2] != 1:
+        reasons.append(f"a 2D run over mz = {topo[2]} z ranks")
     if reasons:
-        raise NotImplementedError(
-            f"sharded runs cover the MRI shearing box (ideal or stratified); not ported: "
-            f"{'; '.join(reasons)} ({ROADMAP_ITEM})")
+        raise NotImplementedError(f"not ported in a sharded run: {'; '.join(reasons)}")
     require_slice(params, device, config)
-
-
-def local_params(params: RunParams, grid: ProcessGrid) -> RunParams:
-    """The rank's block as RunParams: its extent, the global origin and
-    cell size (JAX sharded_step.py:420-425)."""
-    lnx, lny, lnz = params.nx // grid.mx, params.ny // grid.my, params.nz // grid.mz
-    return params.replace(
-        nx=lnx, ny=lny, nz=lnz,
-        xmax=params.xmin + lnx * params.dx,
-        ymax=params.ymin + lny * params.dy,
-        zmax=params.zmin + lnz * params.dz,
-    )
+    if shear or params.dim != 3 or params.z_slab_nb <= 1:
+        return
+    gravity = static_gravity(params) is not None or has_gravity_field(
+        params, config if config is not None else ConfigMap(text=""))
+    kernel_route = params.mhd and params.kernel in ("auto", "pallas") and not gravity
+    lnz = params.nz // topo[2]
+    if not kernel_route and lnz % params.z_slab_nb:
+        raise ValueError(f"local nz={lnz} (nz={params.nz} over mz shards) not "
+                         f"divisible by zSlabNb={params.z_slab_nb}")
 
 
 class StepProfile:
     """Where one rank's steps go (``profile=True`` on a CUDA rank): the host
     wall time of each section of a step, the device synchronised at the
-    section's end so that the device work it queued counts in it
-    (``cfl``: the CFL kernel, the all_reduce and dt; ``exchange``: the
-    grown block at t + dt; ``row4``: the step kernel; ``remap``: the
-    post-correction and its collectives), and the CUDA-event time of the
-    row-4 and CFL launches. Off, it adds nothing."""
+    section's end so that the device work it queued counts in it, and the
+    CUDA-event time of the step and CFL launches. The shearing box's
+    sections (``SHEAR``): ``cfl`` (the CFL kernel, the all_reduce and dt),
+    ``exchange`` (the grown block at t + dt), ``row4`` (the step kernel),
+    ``remap`` (the post-correction and its collectives). The other runs'
+    (``LOCAL``): ``exchange`` (the halo exchanges and the physical fill),
+    ``jet`` (the inflow jet's fill, on jet runs), ``cfl`` and ``step`` (the
+    step kernel, or the 2D whole-array step). Off, it adds nothing."""
 
-    SECTIONS = ("cfl", "exchange", "row4", "remap")
+    SHEAR = (("cfl", "exchange", "row4", "remap"), ("row4", "cfl"))
+    LOCAL = (("exchange", "jet", "cfl", "step"), ("step", "cfl"))
 
-    def __init__(self, enabled: bool) -> None:
+    def __init__(self, enabled: bool, layout=SHEAR) -> None:
         self.enabled = enabled
+        self.sections, self.kernels = layout
         self._reset()
 
     def _reset(self) -> None:
-        self.wall = dict.fromkeys(self.SECTIONS, 0.0)
-        self.events = {"row4": [], "cfl": []}
+        self.wall = dict.fromkeys(self.sections, 0.0)
+        self.events = {name: [] for name in self.kernels}
 
     @contextlib.contextmanager
     def section(self, name: str):
@@ -144,12 +202,14 @@ class StepProfile:
 def make_sharded_advance_n(params: RunParams, grid: ProcessGrid,
                            config: ConfigMap | None = None, profile: bool = False) -> Callable:
     """``advance_n(U_local, t, n) -> (U_local', t', k)`` on this rank:
-    U_local the interior-only block [8, lnz, lny, lnx] on the rank's
+    U_local the interior-only block [nvar, (lnz,) lny, lnx] on the rank's
     device, t a 0-d tensor of its dtype; up to n steps, stopping once
     t >= t_end (t_end > 0), as JAX's while_loop does. Every rank calls it
-    with the same n. ``profile``: time the step's sections and the row-4
+    with the same n. ``profile``: time the step's sections and the step
     and CFL launches (StepProfile; ``advance_n.profile.take()``)."""
     require_sharded_scope(params, grid.device, config)
+    if not uses_shear(params):
+        return _make_local_advance_n(params, grid, config, profile)
     lp = local_params(params, grid)
     lnz, lny, lnx = lp.nz, lp.ny, lp.nx
     g = params.ghost_width
@@ -214,57 +274,145 @@ def make_sharded_advance_n(params: RunParams, grid: ProcessGrid,
     return advance_n
 
 
+def gravity_window(params: RunParams, grid: ProcessGrid, config: ConfigMap | None
+                   ) -> torch.Tensor | None:
+    """This rank's ghosted window [2, lny+2g, lnx+2g] of a 2D run's static
+    gravity field (solvers/step.py make_gravity_field) on its device, or
+    None (JAX ``_gravity_windows``, :611-645): gravity is a function of the
+    coordinates, so its ghost values come from the ghost coordinates and
+    the window is sliced from the global field, never exchanged. In 3D a
+    uniform field is the constant vector of the parameter block, and this
+    returns None."""
+    if params.dim != 2:
+        return None
+    field = make_gravity_field(params, config)
+    if field is None:
+        return None
+    g = params.ghost_width
+    lny, lnx = params.ny // grid.my, params.nx // grid.mx
+    _iz, iy, ix = grid.coords
+    window = field[:, iy * lny:iy * lny + lny + 2 * g, ix * lnx:ix * lnx + lnx + 2 * g]
+    return window.contiguous().to(grid.device)
+
+
+def _make_local_advance_n(params: RunParams, grid: ProcessGrid, config: ConfigMap | None,
+                          profile: bool) -> Callable:
+    """make_sharded_advance_n of a periodic, walled or jet run (see the
+    module note)."""
+    lp = local_params(params, grid)
+    g = params.ghost_width
+    want = (params.nb_var, *(n - 2 * g for n in lp.shape[1:]))
+    t_end = params.t_end
+    prof = StepProfile(profile and grid.device.type == "cuda", StepProfile.LOCAL)
+    always = torch.ones((), dtype=torch.bool, device=grid.device)
+    if params.dim == 2:
+        gravity = gravity_window(params, grid, config)
+        update = godunov_unsplit_mhd if params.mhd else godunov_unsplit_hydro
+
+        def cfl(Ug):
+            return inv_dt_ghosted(lp, Ug)
+
+        def step(Ug, dt):
+            return update(lp, Ug, dt, gravity)
+    elif params.mhd:
+        fused = make_fused_mhd_update(lp, grid.device)
+
+        def cfl(Ug):
+            return cfl_mhd(lp, Ug, ghost=g)
+
+        def step(Ug, dt):
+            fused(Ug, dt, in_place=True)
+            return Ug
+    else:
+        buf = None  # the in-place step's interior buffer, allocated once
+
+        def cfl(Ug):
+            return cfl_hydro(lp, Ug, ghost=g)
+
+        def step(Ug, dt):
+            nonlocal buf
+            if buf is None:
+                buf = hydro_step.scratch(lp, Ug)
+            return hydro_step.ghosted_(lp, Ug, dt, always, buf)
+
+    def advance_n(U, t, n_steps):
+        if U.device != grid.device or tuple(U.shape) != want:
+            raise ValueError(f"block {tuple(U.shape)} on {U.device}, expected {want} on "
+                             f"{grid.device}")
+        Ug = U.new_empty(lp.shape)
+        strip_halos(lp, Ug).copy_(U)
+        k = 0
+        while k < int(n_steps) and (t_end <= 0 or bool(t < t_end)):
+            with prof.section("exchange"):
+                fill_halos_(lp, grid, Ug)
+            with prof.section("jet"):
+                attach_jet(lp, grid, Ug)
+            with prof.section("cfl"):
+                dt = dt_from_inv(params, grid.all_max(prof.kernel("cfl", cfl, Ug)))
+            with prof.section("step"):
+                Ug = prof.kernel("step", step, Ug, dt)
+            t = t + dt
+            k += 1
+        return strip_halos(lp, Ug).contiguous(), t, k
+
+    advance_n.profile = prof
+    return advance_n
+
+
 def shard_global_state(params: RunParams, grid: ProcessGrid, U) -> torch.Tensor:
-    """This rank's interior block [8, lnz, lny, lnx] (contiguous, in the
-    run's dtype, on its device) of a global state U, numpy or tensor,
-    ghosted or interior-only (the JAX sharded array): every rank holds the
-    same global state (the inits are deterministic) and keeps its own block
-    (JAX sharded_step.py:882 shard_global_state)."""
+    """This rank's interior block [nvar, (lnz,) lny, lnx] (contiguous, in
+    the run's dtype, on its device) of a global state U, numpy or tensor,
+    ghosted or interior-only (the JAX sharded array), 2D or 3D: every rank
+    holds the same global state (the inits are deterministic) and keeps its
+    own block (JAX sharded_step.py:882 shard_global_state)."""
     U = torch.as_tensor(U)
+    inner = (params.nz, params.ny, params.nx)[-params.dim:]
     g = params.ghost_width if tuple(U.shape[1:]) == params.shape[1:] else 0
-    if tuple(U.shape[1:]) != (params.nz + 2 * g, params.ny + 2 * g, params.nx + 2 * g):
+    if tuple(U.shape[1:]) != tuple(n + 2 * g for n in inner):
         raise ValueError(f"global state shape {tuple(U.shape)} is neither the interior "
                          f"nor {params.shape}")
-    lnx, lny, lnz = params.nx // grid.mx, params.ny // grid.my, params.nz // grid.mz
-    iz, iy, ix = grid.coords
-    block = U[:, g + iz * lnz:g + (iz + 1) * lnz, g + iy * lny:g + (iy + 1) * lny,
-              g + ix * lnx:g + (ix + 1) * lnx]
+    block = U[(slice(None),) + tuple(slice(s.start + g, s.stop + g)
+                                     for s in block_slices(params, grid, grid.rank)[1:])]
     return block.to(device=grid.device, dtype=torch_dtype(params)).contiguous()
 
 
 def gather_global_state(params: RunParams, grid: ProcessGrid, U_local: torch.Tensor):
-    """The global interior [8, nz, ny, nx] (a CPU tensor) assembled on rank
-    0 from every rank's block; None on the other ranks."""
-    lnz, lny, lnx = U_local.shape[1:]
+    """The global interior [nvar, (nz,) ny, nx] (a CPU tensor) assembled on
+    rank 0 from every rank's block; None on the other ranks."""
     buf = grid.send_form(U_local)
-    if grid.mx * grid.my * grid.mz == 1:
+    n_ranks = grid.mx * grid.my * grid.mz
+    if n_ranks == 1:
         return buf.cpu()
-    parts = [torch.empty_like(buf) for _ in range(grid.mx * grid.my * grid.mz)] \
-        if grid.rank == 0 else None
+    parts = [torch.empty_like(buf) for _ in range(n_ranks)] if grid.rank == 0 else None
     dist.gather(buf, parts, dst=0)
     if grid.rank != 0:
         return None
-    out = torch.empty((8, params.nz, params.ny, params.nx), dtype=U_local.dtype)
+    inner = (params.nz, params.ny, params.nx)[-params.dim:]
+    out = torch.empty((U_local.shape[0], *inner), dtype=U_local.dtype)
     for r, part in enumerate(parts):
-        iz, iy, ix = r // (grid.mx * grid.my), (r // grid.mx) % grid.my, r % grid.mx
-        out[:, iz * lnz:(iz + 1) * lnz, iy * lny:(iy + 1) * lny,
-            ix * lnx:(ix + 1) * lnx] = part.cpu()
+        out[block_slices(params, grid, r)] = part.cpu()
     return out
 
 
 def launch_counts() -> dict:
-    """The launch counters of the kernels a shearing-box rank may run: row
-    4 and its CFL, and the single-device shear step and CFL, which a
-    sharded run never launches."""
-    from ..kernels.cfl_mhd import cfl_mhd
+    """The launch counters of the kernels a rank may run: on the shearing
+    box row 4 and its CFL; on the other 3D runs the step and CFL kernels'
+    ghosted modes (``*_ghosted``) among their totals; the totals' other
+    modes are the single-device loops', which a sharded run never
+    launches."""
     from ..kernels.mhd_step import mhd_step, mhd_window
 
     return {"mhd_window": mhd_window.launches, "cfl_mhd_window": cfl_mhd_window.launches,
-            "mhd_step": mhd_step.launches, "cfl_mhd": cfl_mhd.launches}
+            "mhd_step": mhd_step.launches, "cfl_mhd": cfl_mhd.launches,
+            "mhd_step_ghosted": mhd_step.ghosted_launches,
+            "cfl_mhd_ghosted": cfl_mhd.ghosted_launches,
+            "hydro_step": hydro_step.launches, "cfl_hydro": cfl_hydro.launches,
+            "hydro_step_ghosted": hydro_step.ghosted_launches,
+            "cfl_hydro_ghosted": cfl_hydro.ghosted_launches}
 
 
 def rank_advance(config_text: str, device: str, n_steps: int, U0=None, t0: float = 0.0,
-                 chunks: int = 1, profile: bool = False) -> dict:
+                 chunks: int = 1, profile: bool = False, snapshot=None) -> dict:
     """One rank's part of a sharded advance from the INI text: join the
     world (parallel/mesh.py init_process_group), take this rank's block of
     the global state U0 (numpy, ghosted or the JAX sharded interior;
@@ -273,7 +421,9 @@ def rank_advance(config_text: str, device: str, n_steps: int, U0=None, t0: float
     gather. Every rank returns k (the last chunk's steps) and t, the
     launch counts of its kernels over the chunks, the chunks' seconds and,
     with ``profile`` (a CUDA rank), where its steps went (StepProfile);
-    rank 0 also the global interior (numpy)."""
+    rank 0 also the global interior (numpy). ``snapshot``, a pair
+    (directory, prefix): then the VTK pieces and, where h5py is installed,
+    the HDF5 file of the final state (io/sharded.py), as step k."""
     from ..config.params import params_from_config
     from ..problems import init_problem
     from .mesh import init_process_group, topology_from_config
@@ -302,6 +452,13 @@ def rank_advance(config_text: str, device: str, n_steps: int, U0=None, t0: float
            "backend": grid.backend, "transport": grid.describe(), "device": str(grid.device)}
     if profile:
         out["profile"] = advance.profile.take()
+    if snapshot is not None:
+        from ..io.sharded import output_hdf5_sharded, output_vtk_pieces
+
+        kw = dict(output_dir=snapshot[0], prefix=snapshot[1])
+        output_vtk_pieces(params, grid, U, k, **kw)
+        if importlib.util.find_spec("h5py") is not None:
+            output_hdf5_sharded(params, grid, U, k, total_time=float(t), **kw)
     glob = gather_global_state(params, grid, U)
     if glob is not None:
         out["U"] = glob.numpy()

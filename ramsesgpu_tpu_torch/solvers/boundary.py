@@ -106,24 +106,32 @@ def uses_jet(params: RunParams) -> bool:
     return params.problem in ("jet", "Jet") and params.ijet > 0
 
 
-def make_jet(params: RunParams, U: torch.Tensor, active: torch.Tensor | None = None
-             ) -> torch.Tensor:
+def make_jet(params: RunParams, U: torch.Tensor, active: torch.Tensor | None = None,
+             origin: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """The inflow jet injected into the ghost zone (boundary.py:97-121;
     reference HydroRunBase.cpp make_jet), in place (where ``active``): in
     2D the YMIN ghost strip of width ijet at offsetJet in x, velocity +y
     ujet; in 3D the ZMIN ghost square of width ijet at offsetJet in x and
     y, velocity +z ujet; density djet, pressure pjet; B (and in 2D the
-    out-of-plane momentum) is left as filled. Returns U."""
+    out-of-plane momentum) is left as filled. ``origin``: the global
+    (y, x) cell offset of U's first interior cell (a rank's block,
+    parallel/halo.py attach_jet); the strip or square is clipped to U's
+    ghosted window. Returns U."""
     g = params.ghost_width
     i0 = g + params.offset_jet
     i1 = i0 + params.ijet
     djet, ujet, pjet = params.djet, params.ujet, params.pjet
     e_jet = pjet / (params.gamma0 - 1.0) + 0.5 * djet * ujet * ujet
+
+    def span(o: int, size: int) -> slice:
+        return slice(min(max(i0 - o, 0), size), min(max(i1 - o, 0), size))
+
+    xs = span(origin[1], U.shape[-1])
     if params.dim == 2:
-        sl = (slice(0, g), slice(i0, i1))
+        sl = (slice(0, g), xs)
         values = ((ID, djet), (IP, e_jet), (IU, 0.0), (IV, djet * ujet))
     else:
-        sl = (slice(0, g), slice(i0, i1), slice(i0, i1))
+        sl = (slice(0, g), span(origin[0], U.shape[-2]), xs)
         values = ((ID, djet), (IP, e_jet), (IU, 0.0), (IV, 0.0), (IW, djet * ujet))
     for ch, value in values:
         dst = U[(ch,) + sl]

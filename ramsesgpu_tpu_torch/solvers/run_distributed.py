@@ -12,13 +12,15 @@ is parallel/sharded_step.py's. The distributed path never reads
 ``[implementation] compensated``, as the JAX one does not: the state is
 plain.
 
-Ported: the shearing box (the MRI, ideal or stratified). Snapshots gather
-the blocks onto rank 0, which fills the ghosts at the current time (the
-sheared fill) and writes with io/vtk.py and io/hdf5.py: JAX's path for
-``[output] gatherOutput`` and ``ghostIncluded``, which both shipped MRI
-``[mpi]`` inputs take. JAX's per-piece writers (io/sharded.py) are not
-ported and raise (ROADMAP Queue 1 item 7). The perf report counts global
-cells.
+Ported: the shearing box (the MRI, ideal or stratified) and the
+periodic, walled and jet runs in 2D and 3D, hydro and MHD (with static
+gravity; parallel/sharded_step.py). With ``[output] gatherOutput`` or
+``ghostIncluded`` the snapshots gather the blocks onto rank 0, which fills
+the ghosts at the current time (the sheared fill, or make_boundaries with
+the jet) and writes with io/vtk.py and io/hdf5.py; otherwise every rank
+writes its VTK piece and rank 0 the ``.pvti`` master and the one global
+HDF5 file, block by block (io/sharded.py), as the JAX run does
+(run_distributed.py:107-127 there). The perf report counts global cells.
 """
 from __future__ import annotations
 
@@ -30,20 +32,23 @@ import torch
 from ..config.configmap import ConfigMap
 from ..config.params import RunParams, params_from_config
 from ..io.hdf5 import output_hdf5
+from ..io.sharded import output_hdf5_sharded, output_vtk_pieces
 from ..io.vtk import output_vtk
+from ..kernels.mhd_step import uses_shear
 from ..parallel.mesh import init_process_group, topology_from_config, validate_decomposition
-from ..parallel.sharded_step import (ROADMAP_ITEM, gather_global_state, make_sharded_advance_n,
+from ..parallel.sharded_step import (gather_global_state, make_sharded_advance_n,
                                      require_sharded_scope, shard_global_state)
 from ..problems import init_problem
 from ..utils.timer import Timer
+from .boundary import make_boundaries
 from .run import _UNPORTED_FLAGS, Run
 from .shear import make_all_boundaries_shear
 
 
 class DistributedRun(Run):
     """Run over the ranks of a torch.distributed world: ``self.U`` is this
-    rank's interior block [8, lnz, lny, lnx] on its device. Joins the world
-    from the environment (parallel/mesh.py init_process_group)."""
+    rank's interior block [nvar, (lnz,) lny, lnx] on its device. Joins the
+    world from the environment (parallel/mesh.py init_process_group)."""
 
     def __init__(self, config: ConfigMap, device, params: RunParams | None = None):
         self.config = config
@@ -60,11 +65,7 @@ class DistributedRun(Run):
         self.output_vtk = config.get_bool("output", "outputVtk", True)
         self.output_hdf5 = config.get_bool("output", "outputHdf5", False)
         self.ghost_included = config.get_bool("output", "ghostIncluded", False)
-        gather = config.get_bool("output", "gatherOutput", False) or self.ghost_included
-        if (self.output_vtk or self.output_hdf5) and not gather:
-            raise NotImplementedError(
-                "the per-piece VTK / HDF5 writers of a distributed run (io/sharded.py) are not "
-                f"ported; [output] gatherOutput=yes or ghostIncluded=yes gathers ({ROADMAP_ITEM})")
+        self.gather = config.get_bool("output", "gatherOutput", False) or self.ghost_included
         self.n_log = config.get_integer("run", "nlog", 0)
         self.t = 0.0
         self.n_step = 0
@@ -81,20 +82,34 @@ class DistributedRun(Run):
 
     def _host_ghosted(self) -> torch.Tensor | None:
         """The ghosted global state on rank 0 (CPU): the gathered interior,
-        its ghosts filled at the current time by the sheared fill (JAX
+        its ghosts filled at the current time, by the sheared fill on the
+        shearing box, else by make_boundaries (the jet included; JAX
         run_distributed.py:253-265); None on the other ranks. Every rank
         must call it (a gather)."""
         glob = gather_global_state(self.params, self.grid, self.U)
         if glob is None:
             return None
         g = self.params.ghost_width
-        Ug = torch.nn.functional.pad(glob, (g, g) * 3)
+        Ug = torch.nn.functional.pad(glob, (g, g) * self.params.dim)
+        if not uses_shear(self.params):
+            return make_boundaries(self.params, Ug)
         return make_all_boundaries_shear(self.params, Ug, torch.tensor(self.t, dtype=glob.dtype))
 
     def output(self) -> None:
-        """VTK and/or HDF5 snapshots of the gathered state, written by
-        rank 0 (every rank takes part in the gather)."""
+        """VTK and/or HDF5 snapshots: of the gathered state, written by
+        rank 0, with ``gatherOutput`` or ``ghostIncluded``; else each rank's
+        VTK piece and the one HDF5 file written block by block
+        (io/sharded.py). Every rank takes part."""
         if not (self.output_vtk or self.output_hdf5):
+            return
+        if not self.gather:
+            kw = dict(output_dir=self.output_dir, prefix=self.output_prefix)
+            with self.io_timer:
+                if self.output_vtk:
+                    output_vtk_pieces(self.params, self.grid, self.U, self.n_step, **kw)
+                if self.output_hdf5:
+                    output_hdf5_sharded(self.params, self.grid, self.U, self.n_step,
+                                        total_time=self.t, **kw)
             return
         with self.io_timer:
             Ug = self._host_ghosted()
@@ -145,7 +160,7 @@ class DistributedRun(Run):
         HydroRunGodunovMpi.cpp:3834-3839)."""
         p = self.params
         n_ranks = self.grid.mx * self.grid.my * self.grid.mz
-        n_cells = p.nx * p.ny * p.nz
+        n_cells = p.nx * p.ny * p.nz   # nz = 1 in 2D
         compute = max(elapsed - self.io_timer.total, 1e-30)
         return "\n".join([
             super().perf_summary(elapsed),

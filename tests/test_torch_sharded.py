@@ -372,20 +372,20 @@ def test_sharded_advance_matches_jax(name, jax_refs, port_runs):
     assert all(r[list(CASES).index(name)]["backend"] == "gloo" for r in port_runs[1])
 
 
-def test_cli_distributed_run_writes_the_gathered_state(tmp_path, port_runs):
-    """(d) The CLI spawns the shipped debug input's 4 ranks; its gathered
-    HDF5 (ghostIncluded=yes) holds the state of the same run in (c)'s
-    world."""
+def test_cli_distributed_run_writes_the_gathered_state(tmp_path, port_runs, monkeypatch,
+                                                        capfd):
+    """(d) The CLI's main() spawns the shipped debug input's 4 ranks; its
+    gathered HDF5 (ghostIncluded=yes) holds the state of the same run in
+    (c)'s world."""
+    from ramsesgpu_tpu_torch.cli.main import main
     from ramsesgpu_tpu_torch.io.hdf5 import input_hdf5
 
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    env.pop("WORLD_SIZE", None)
-    res = subprocess.run([sys.executable, "-m", "ramsesgpu_tpu_torch.cli.main", "--param",
-                          str(DEBUG_INI), "--device", "cpu", "--max-steps", "3"],
-                         capture_output=True, text=True, env=env, timeout=300, cwd=tmp_path)
-    assert res.returncode == 0, res.stderr[-4000:]
-    assert "ranks          : 2 x 2 x 1 ranks over gloo" in res.stdout
-    assert "number of time steps   : 3" in res.stdout
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert main(["--param", str(DEBUG_INI), "--device", "cpu", "--max-steps", "3"]) == 0
+    out = capfd.readouterr().out   # rank 0's banner and report, from its own process
+    assert "ranks          : 2 x 2 x 1 ranks over gloo" in out
+    assert "number of time steps   : 3" in out
     params, _ = port(DEBUG_INI.read_text())
     U, t, step = input_hdf5(params, tmp_path / "mhd_mri_3d_mpi_debug_0000003.h5")
     g = params.ghost_width
@@ -413,20 +413,22 @@ def test_transport_rule_and_world_size(monkeypatch):
 
 
 def test_unported_sharded_configurations_raise():
-    """(e) A sharded run outside the shearing box, or a dissipative one,
-    raises NotImplementedError naming ROADMAP Queue 1 item 7, before any
-    rank starts."""
+    """(e) A periodic sharded run with [implementation] haloOverlap, or a
+    dissipative one, raises NotImplementedError naming its ROADMAP Queue 1
+    item 7 sub-item, before any rank starts (the periodic run without it
+    runs: tests/test_torch_sharded_local.py)."""
     from ramsesgpu_tpu_torch.cli.main import main
 
     periodic = MRI_INI.replace("boundary_xmin=4", "boundary_xmin=3").replace(
         "boundary_xmax=4", "boundary_xmax=3").replace("omega0=1.0", "omega0=0.0").replace(
         "cIso=1.0", "cIso=0.0").replace("problem=MRI", "problem=Orszag-Tang")
     dissip = MRI_INI.replace("cIso=1.0", "cIso=1.0\nnu=1e-3")
-    for text in (periodic, dissip):
+    overlap = periodic + "\n[implementation]\nhaloOverlap=yes\n"
+    for text, item in ((overlap, "7.5"), (dissip, "7.2")):
         path = Path(os.environ.get("TMPDIR", "/tmp")) / f"sharded_{os.getpid()}.ini"
         path.write_text(text + "\n[mpi]\nmx=2\n")
         try:
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+            with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
                 main(["--param", str(path), "--device", "cpu"])
         finally:
             path.unlink()
