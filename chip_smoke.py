@@ -227,6 +227,20 @@ Phases, in order; any failure raises and no result line is printed:
      (slowest rank), 10 profiled steps (StepProfile sections, CUDA events,
      the share of a step outside the kernels) held against the single-rank
      path, whose ms/step at the same mesh is printed beside;
+ 50. the sharded dissipation and forcing: dissip_step.cu's ghosted mode as
+     a rank runs it (the interior alone written back) on rank-size blocks
+     (64x64x128 and 15x15x30, walled and shearing-box, f32 + f64) against
+     its twin, every ghost unchanged; in one world of 4 ranks sharing the
+     card, both turbulence [mpi] inputs as shipped through the CLI's main()
+     (per-rank launches, finite, rho > 0, mass within MASS_TOL, MHD divB,
+     the gathered state against the single-rank path within
+     SHARDED_REL_L2["49"]), 10 OU MHD steps at 64^3 on 2x2x1 against the
+     single-rank path (the same draws), and two timed cells as in 49: 50f
+     turbulence_mhd_mpi.ini's physics (static forcing) at 256^3, 50d the
+     walled Brio-Wu with nu and eta at 256^3, both on 2x2x1 (StepProfile
+     sections dissip and force), each beside its single-rank ms/step; 50d's
+     one resistive step held against the single-rank path outside the
+     internal block faces' band (resistive_step);
  then the MHD step kernel's rows (A, A', 3, 4, 12, and the isothermal
  instances) with their times and bounds, the kernels JSON line, the card
  line, and the result line.
@@ -4874,26 +4888,34 @@ def rank_jobs49(jobs: list) -> list:
 def local_launched(params) -> tuple:
     """The launch counters a rank of a sharded run outside the shearing box
     adds to once a step: the step and CFL kernels' ghosted modes in 3D
-    (rows 3 and B's ghosted form; row 5 and row 7), none in 2D."""
+    (rows 3 and B's ghosted form; row 5 and row 7), with nu or eta in 3D
+    MHD also the dissipation kernel's ghosted mode (row 8); none in 2D."""
     if params.dim == 2:
         return ()
     kind = "mhd" if params.mhd else "hydro"
-    return (f"{kind}_step", f"{kind}_step_ghosted", f"cfl_{kind}", f"cfl_{kind}_ghosted")
+    dissip = ("dissip_step", "dissip_step_ghosted") if params.mhd and (
+        params.nu > 0 or params.eta > 0) else ()
+    return (f"{kind}_step", f"{kind}_step_ghosted", f"cfl_{kind}", f"cfl_{kind}_ghosted",
+            *dissip)
 
 
 def single_rank_local(text: str, steps: int):
     """(interior on the CPU, t, k) of the port's single-rank path on the
-    card (solvers/step.py make_advance_n) from the INI's initial state."""
+    card (solvers/step.py make_advance_n; a turbulence problem's
+    make_forced_advance_n, its OU generator on the card seeded as every
+    rank's) from the INI's initial state."""
     from ramsesgpu_tpu_torch.config.configmap import ConfigMap
     from ramsesgpu_tpu_torch.convert import torch_dtype
     from ramsesgpu_tpu_torch.problems import init_problem
     from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
-    from ramsesgpu_tpu_torch.solvers.step import make_advance_n
+    from ramsesgpu_tpu_torch.solvers.step import is_forced, make_advance_n, make_forced_advance_n
 
     config = ConfigMap(text=text)
     params = params_from_text(text)
     U0 = torch.from_numpy(init_problem(params, config)).to("cuda", torch_dtype(params))
-    U, t, k = make_advance_n(params, "cuda", config)(
+    advance = (make_forced_advance_n(params, "cuda", config)[0] if is_forced(params)
+               else make_advance_n(params, "cuda", config))
+    U, t, k = advance(
         make_boundaries(params, U0), torch.zeros((), dtype=U0.dtype, device="cuda"), steps)
     g = params.ghost_width
     return U[(slice(None),) + (slice(g, -g),) * params.dim].cpu(), float(t), int(k)
@@ -4941,17 +4963,20 @@ def local_gates(label: str, params, S: torch.Tensor) -> str:
 
 def single_rank_timed(label: str, text: str, card: str, chunk: int = 10):
     """ms/step of the port's single-rank path on the card at the cell's
-    global mesh (make_packed_advance_chain, 2 warm-up and 3 timed chunks),
-    and its state after its first chunk (CPU)."""
+    global mesh (make_packed_advance_chain, a turbulence problem's
+    make_forced_chain; 2 warm-up and 3 timed chunks), and its state after
+    its first chunk (CPU)."""
     from ramsesgpu_tpu_torch.config.configmap import ConfigMap
     from ramsesgpu_tpu_torch.convert import torch_dtype
     from ramsesgpu_tpu_torch.problems import init_problem
     from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
-    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+    from ramsesgpu_tpu_torch.solvers.step import (is_forced, make_forced_chain,
+                                                  make_packed_advance_chain)
 
     config = ConfigMap(text=text)
     params = params_from_text(text)
-    pack, advance, unpack = make_packed_advance_chain(params, "cuda", config)
+    pack, advance, unpack = (make_forced_chain(params, "cuda", config)[0] if is_forced(params)
+                             else make_packed_advance_chain(params, "cuda", config))
     U0 = torch.from_numpy(init_problem(params, config)).to("cuda", torch_dtype(params))
     S = pack(make_boundaries(params, U0))
     del U0
@@ -4972,6 +4997,56 @@ def single_rank_timed(label: str, text: str, card: str, chunk: int = 10):
     del S
     torch.cuda.empty_cache()
     return min(times[2:]) * 1e3 / chunk, first
+
+
+def timed_cell(label: str, text: str, mesh, ranks: list, profiled: list, card: str,
+               chunk: int = 10, compare: int = 10, hold: bool = True) -> None:
+    """The report of one timed sharded cell (phases 49, 50): the best of the
+    3 timed chunks (slowest rank each) and the cells/s, the launches a
+    rank-step, each rank's profiled sections and the share of its step
+    outside the kernels, the single-rank path at the same mesh (timed), the
+    gates and the profiled steps against the single-rank path's first
+    chunk (held within SHARDED_REL_L2["49"] where ``hold``, else printed:
+    a resistive cell, see phase 50)."""
+    params = params_from_text(text)
+    cells = math.prod(mesh)
+    if any(r["k"] != chunk for r in ranks):
+        raise AssertionError(f"{label}: a chunk stopped early")
+    per_chunk = [max(r["chunk_s"][i] for r in ranks) for i in range(2, 5)]
+    ms = min(per_chunk) * 1e3 / chunk
+    size = "x".join(str(n) for n in mesh if n > 1)
+    print(f"[{label}] {size} {params.dtype} on {len(ranks)} ranks ({ranks[0]['transport']}) "
+          f"on {card}: best chunk {ms:.3f} ms/step, {cells * chunk / (ms * chunk / 1e3):.4e} "
+          f"cells/s (chunks {[round(x * 1e3 / chunk, 3) for x in per_chunk]} ms/step, "
+          f"slowest rank each)")
+    check_rank_counts(label, ranks, 5 * chunk, local_launched(params))
+    check_rank_counts(label + "p", profiled, compare, local_launched(params))
+    for r in profiled:
+        prof = r["profile"]
+        step_ms = r["chunk_s"][0] * 1e3 / compare
+        walls = ", ".join(f"{k} {v / compare:.3f}" for k, v in prof["wall_ms"].items())
+        events = ", ".join(f"{k} {v / compare:.4f}" for k, v in prof["kernel_ms"].items())
+        inside = sum(prof["kernel_ms"].values()) / compare
+        what = "kernels" if params.dim == 3 else "whole-array step and CFL"
+        print(f"[{label}p] rank {r['rank']}: step {step_ms:.3f} ms; sections: {walls}; "
+              f"CUDA events: {events}; share of the step outside the {what}: "
+              f"{1 - inside / step_ms:.4f}")
+    single_ms, (first, t_first) = single_rank_timed(label, text, card, compare)
+    print(f"[{label}] the single-rank path at the same mesh on {card}: {single_ms:.3f} "
+          f"ms/step ({cells / (single_ms / 1e3):.4e} cells/s); sharded/single "
+          f"{ms / single_ms:.3f}")
+    got = torch.from_numpy(profiled[0]["U"])
+    print(f"[{label}] " + local_gates(label, params, got))
+    diff = (got - first).double()
+    rel = [float(diff[c].norm()) / (float(first[c].double().norm()) or 1.0)
+           for c in range(first.shape[0])]
+    tol = SHARDED_REL_L2["49"]
+    print(f"[{label}] {compare} profiled steps against the single-rank path's first "
+          f"chunk: t {profiled[0]['t']!r} vs {t_first!r}; relative L2 per channel "
+          f"{[f'{x:.3e}' for x in rel]} (<= {tol:.0e})")
+    if hold and not (max(rel) <= tol and abs(profiled[0]["t"] - t_first) <= 1e-6 * t_first):
+        raise AssertionError(f"{label}: the sharded cell disagrees with the single-rank "
+                             f"path")
 
 
 def phase49(card: str) -> None:
@@ -5061,47 +5136,224 @@ def phase49(card: str) -> None:
         for label, _ini, mesh in LOCAL_CELLS:
             (_, _, text, _), ranks = timed[label]["timed"]
             _m, profiled = timed[label]["profiled"]
-            params = params_from_text(text)
-            cells = math.prod(mesh)
-            if any(r["k"] != chunk for r in ranks):
-                raise AssertionError(f"{label}: a chunk stopped early")
-            per_chunk = [max(r["chunk_s"][i] for r in ranks) for i in range(2, 5)]
-            ms = min(per_chunk) * 1e3 / chunk
-            size = "x".join(str(n) for n in mesh if n > 1)
-            print(f"[{label}] {size} {params.dtype} on {len(ranks)} ranks ({ranks[0]['transport']}) "
-                  f"on {card}: best chunk {ms:.3f} ms/step, {cells * chunk / (ms * chunk / 1e3):.4e} "
-                  f"cells/s (chunks {[round(x * 1e3 / chunk, 3) for x in per_chunk]} ms/step, "
-                  f"slowest rank each)")
-            check_rank_counts(label, ranks, 5 * chunk, local_launched(params))
-            check_rank_counts(label + "p", profiled, compare, local_launched(params))
-            for r in profiled:
-                prof = r["profile"]
-                step_ms = r["chunk_s"][0] * 1e3 / compare
-                walls = ", ".join(f"{k} {v / compare:.3f}" for k, v in prof["wall_ms"].items())
-                events = ", ".join(f"{k} {v / compare:.4f}" for k, v in prof["kernel_ms"].items())
-                inside = sum(prof["kernel_ms"].values()) / compare
-                what = "kernels" if params.dim == 3 else "whole-array step and CFL"
-                print(f"[{label}p] rank {r['rank']}: step {step_ms:.3f} ms; sections: {walls}; "
-                      f"CUDA events: {events}; share of the step outside the {what}: "
-                      f"{1 - inside / step_ms:.4f}")
-            single_ms, (first, t_first) = single_rank_timed(label, text, card, compare)
-            print(f"[{label}] the single-rank path at the same mesh on {card}: {single_ms:.3f} "
-                  f"ms/step ({cells / (single_ms / 1e3):.4e} cells/s); sharded/single "
-                  f"{ms / single_ms:.3f}")
-            got = torch.from_numpy(profiled[0]["U"])
-            print(f"[{label}] " + local_gates(label, params, got))
-            diff = (got - first).double()
-            rel = [float(diff[c].norm()) / (float(first[c].double().norm()) or 1.0)
-                   for c in range(first.shape[0])]
-            tol = SHARDED_REL_L2["49"]
-            print(f"[{label}] {compare} profiled steps against the single-rank path's first "
-                  f"chunk: t {profiled[0]['t']!r} vs {t_first!r}; relative L2 per channel "
-                  f"{[f'{x:.3e}' for x in rel]} (<= {tol:.0e})")
-            if not (max(rel) <= tol and abs(profiled[0]["t"] - t_first) <= 1e-6 * t_first):
-                raise AssertionError(f"{label}: the sharded cell disagrees with the single-rank "
-                                     f"path")
-            del got, first
+            timed_cell(label, text, mesh, ranks, profiled, card, chunk, compare)
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the sharded dissipation and forcing (phase 50)
+# ---------------------------------------------------------------------------
+TURB_MPI_INIS = ("data/turbulence_hydro_mpi.ini", "data/turbulence_mhd_mpi.ini")
+MPI_221 = "\n[mpi]\nmx=2\nmy=2\nmz=1\n"
+# the timed cells of phase 50: label, input, global mesh, INI text appended
+# (later keys win): 50f turbulence_mhd_mpi.ini's physics (static forcing,
+# isothermal, 2x2x1), 50d the walled Brio-Wu with phase 17's nu and eta
+DISSIP_CELLS_50 = (
+    ("50f", "data/turbulence_mhd_mpi.ini", (256, 256, 256), ""),
+    ("50d", HLLD_INI, (256, 256, 256), "\n[hydro]\nnu=2e-3\n[MHD]\neta=1e-3\n" + MPI_221),
+)
+# 10 OU MHD steps at 64^3 on 2x2x1 against one rank
+OU_50 = ("50o", TURB["turbulence_mhd_ou"], (64, 64, 64))
+
+
+def dissip_block(case: str, dtype: str, mesh):
+    """(params, filled ghosted state on the card) of a rank-size block with
+    nu = 2e-3, eta = 1e-3, times 1 + 0.05 N(0, 1) before the fill: the
+    walled Brio-Wu (the fill), or the MRI (cIso = omega0 = 1) filled by
+    the sheared fill at a t0 whose offset is 2.5 cells."""
+    from ramsesgpu_tpu_torch.convert import torch_dtype
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.shear import make_all_boundaries_shear
+
+    nu, eta = DISSIP_COEFFS["nu=2e-3 eta=1e-3"]
+    if case == "walls":
+        config, params = shipped(HLLD_INI, dtype, mesh)
+        config.set_float("hydro", "nu", nu)
+        config.set_float("MHD", "eta", eta)
+        return params.replace(nu=nu, eta=eta), ghosted_state(config, params.replace(nu=nu, eta=eta),
+                                                             seed=50)
+    params, config, _state = mri_setup(*mesh, dtype, coeffs=1.0, nu=nu, eta=eta)
+    U = torch.from_numpy(init_problem(params, config)).to("cuda", torch_dtype(params))
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    U = U * (1 + 0.05 * torch.randn(U.shape, generator=gen, device="cuda", dtype=U.dtype))
+    return params, make_all_boundaries_shear(params, U, shear_t0(params, U.dtype)).contiguous()
+
+
+def phase50_kernel() -> None:
+    """Row 8's ghosted mode as a rank runs it (interior_only: the interior
+    alone written back) on rank-size blocks, 64x64x128 and an odd
+    15x15x30, walled and shearing-box, f32 and f64: an inactive sub-step
+    changes nothing; the interior's increment against the twin's
+    (mhd_dissipation_ghosted_update); every ghost bitwise as it was."""
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.solvers.dissipation import mhd_dissipation_ghosted_update
+
+    on = torch.ones((), dtype=torch.bool, device="cuda")
+    off = torch.zeros((), dtype=torch.bool, device="cuda")
+    for mesh in ((64, 64, 128), (15, 15, 30)):
+        size = "x".join(map(str, mesh))
+        for dtype in ("float32", "float64"):
+            for case in ("walls", "shear"):
+                label = f"50 row 8 ghosted, interior only, {case} {size} {dtype}"
+                params, U = dissip_block(case, dtype, mesh)
+                g = params.ghost_width
+                inner = (slice(None),) + (slice(g, -g),) * 3
+                dt = torch.tensor(1e-3, dtype=U.dtype, device="cuda")
+                buf = dissip_step.scratch(params, U)
+                got = U.clone()
+                before = dissip_step.ghosted_launches
+                dissip_step.ghosted_(params, got, dt, off, buf, True)
+                if not torch.equal(got, U):
+                    raise AssertionError(f"{label}: an inactive sub-step changed the state")
+                dissip_step.ghosted_(params, got, dt, on, buf, True)
+                if dissip_step.ghosted_launches - before != 2:
+                    raise AssertionError(f"{label}: {dissip_step.ghosted_launches - before} "
+                                         f"launches, expected 2")
+                want = mhd_dissipation_ghosted_update(params, U, dt)
+                check(label + ", increment", increment_rel(got[inner], want[inner], U[inner]),
+                      TOL_STEP1[dtype], f", increment norm / state norm "
+                      f"{rel_l2(want[inner], U[inner]):.3e}")
+                got[inner], U[inner] = 0, 0
+                if not torch.equal(got, U):
+                    raise AssertionError(f"{label}: a ghost changed")
+                del U, got, want
+    torch.cuda.empty_cache()
+
+
+def phase50(card: str) -> None:
+    """The sharded dissipation and forcing (parallel/sharded_step.py), in
+    one world of 4 ranks sharing the card: (a) both turbulence [mpi]
+    inputs as shipped through the CLI's main() (no snapshots where h5py is
+    not installed): per-rank launches, the gates (finite, rho > 0, mass
+    within MASS_TOL, MHD divB), the gathered state against the single-rank
+    path; (b) 10 OU MHD steps at 64^3 on 2x2x1 against the single-rank
+    path (every rank and the single rank seed the same generator on the
+    card: the same draws); (c) the timed cells 50f and 50d, each 2 warm-up
+    and 3 timed chunks of 10 steps (slowest rank) and 10 profiled steps
+    against the single-rank path, also timed at the same mesh."""
+    import importlib.util
+    import tempfile
+
+    from ramsesgpu_tpu_torch.parallel.launch import spawn_ranks
+
+    phase50_kernel()
+    have_h5 = importlib.util.find_spec("h5py") is not None
+    chunk, compare = 10, 10
+    with tempfile.TemporaryDirectory(prefix="smoke50_") as tmp:
+        jobs, meta = [], []
+        for ini in TURB_MPI_INIS:
+            text = Path(ini).read_text()
+            steps = min(20, params_from_text(text).n_stepmax)
+            argv = ["--param", str(Path(ini).resolve()), "--max-steps", str(steps)]
+            if not have_h5 and "outputHdf5=yes" in text:
+                argv.append("--no-output")
+            workdir = Path(tmp) / Path(ini).stem
+            workdir.mkdir()
+            jobs.append({"cli": dict(argv=argv, workdir=str(workdir))})
+            meta.append(("cli", f"50 {Path(ini).name}", text, steps))
+        label, ini, mesh = OU_50
+        text = sharded_ini(ini, mesh) + MPI_221
+        jobs.append(dict(config_text=text, device="cuda", n_steps=compare))
+        meta.append(("ou", label, text, compare))
+        for label, ini, mesh, extra in DISSIP_CELLS_50:
+            text = sharded_ini(ini, mesh) + extra
+            jobs += [dict(config_text=text, device="cuda", n_steps=chunk, chunks=5),
+                     dict(config_text=text, device="cuda", n_steps=compare, profile=True)]
+            meta += [("timed", label, text, mesh), ("profiled", label, text, mesh)]
+            if params_from_text(text).eta > 0:
+                jobs.append(dict(config_text=text, device="cuda", n_steps=1))
+                meta.append(("one", label, text, mesh))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        per_rank = spawn_ranks(rank_jobs49, 4, (jobs,))
+        print(f"[50] 4 ranks on {card}: {len(jobs)} jobs in {time.perf_counter() - t0:.1f} s")
+        timed = {}
+        for i, m in enumerate(meta):
+            ranks = [r[i] for r in per_rank]
+            r0 = ranks[0]
+            if m[0] in ("cli", "ou"):
+                kind, label, text, steps = m
+                params = params_from_text(text)
+                n_step = r0["n_step"] if kind == "cli" else r0["k"]
+                print(f"[{label}] {params.nx}x{params.ny}x{params.nz} {params.dtype}: "
+                      f"{r0['backend']}, {n_step} steps, t={r0['t']!r}")
+                if kind == "cli" and any(r["rc"] != 0 or r["n_step"] != steps for r in ranks):
+                    raise AssertionError(f"{label}: {[(r['rc'], r['n_step']) for r in ranks]}")
+                check_rank_counts(label, ranks, steps, local_launched(params))
+                got = torch.from_numpy(r0["U"])
+                U0 = (torch.from_numpy(r0["U0"]) if kind == "cli"
+                      else initial_interior(params, text))
+                mass0, mass = float(U0[0].double().sum()), float(got[0].double().sum())
+                if not abs(mass - mass0) <= MASS_TOL * abs(mass0):
+                    raise AssertionError(f"{label}: mass {mass} against {mass0}")
+                print(f"[{label}] " + local_gates(label, params, got)
+                      + f", mass rel {abs(mass - mass0) / abs(mass0):.3e} (tol {MASS_TOL:.0e})")
+                compare_single_local(label, text, got, r0["t"], n_step, steps)
+            elif m[0] == "one":
+                resistive_step(m[1], m[2], ranks)
+            else:
+                timed.setdefault(m[1], {})[m[0]] = (m, ranks)
+        for label, _ini, mesh, _extra in DISSIP_CELLS_50:
+            (_, _, text, _), ranks = timed[label]["timed"]
+            _m, profiled = timed[label]["profiled"]
+            timed_cell(label, text, mesh, ranks, profiled, card, chunk, compare,
+                       hold=params_from_text(text).eta == 0)
+    torch.cuda.empty_cache()
+
+
+def resistive_step(label: str, text: str, ranks: list) -> None:
+    """One step of a sharded resistive run against the single-rank path.
+    Each rank's row 8 runs the JAX sharded route's CT range on its refilled
+    block (the interior and its max-side face layer, JAX
+    apply_dissipation_mhd on the CPU): the resistive energy flux of the
+    cells beside an internal block face reads ghost B that the block's CT
+    leaves as the fill wrote it, where the single-rank path reads the
+    neighbour's updated B (ROADMAP Queue 3 item 16). So after one step
+    every channel but the energy, and the energy outside the cells within
+    one cell of an internal block face, equal the single-rank path's
+    within SHARDED_REL_L2["49"]; the band's energy differs by the
+    difference printed. After it the difference spreads: the timed cell's
+    10 steps are printed against the single-rank path, not held."""
+    from ramsesgpu_tpu_torch.core.constants import IP
+
+    params = params_from_text(text)
+    check_rank_counts(label + " one step", ranks, 1, local_launched(params))
+    got = torch.from_numpy(ranks[0]["U"])
+    single, t1, k1 = single_rank_local(text, 1)
+    band = torch.zeros(got.shape[1:], dtype=torch.bool)
+    sizes = ((params.nz, ranks_of(text, "mz")), (params.ny, ranks_of(text, "my")),
+             (params.nx, ranks_of(text, "mx")))
+    for axis, (n, m) in enumerate(sizes):
+        for face in range(n // m, n, n // m):
+            band.narrow(axis, face - 1, 2).fill_(True)
+    diff = (got - single).double()
+    rel = [float(diff[c].norm()) / (float(single[c].double().norm()) or 1.0)
+           for c in range(single.shape[0]) if c != IP]
+    e = single[IP].double()
+    rel_e = float(diff[IP][~band].norm()) / float(e[~band].norm())
+    tol = SHARDED_REL_L2["49"]
+    print(f"[{label} one step] against the single-rank path: t {ranks[0]['t']!r} vs {t1!r}; "
+          f"relative L2 of the channels but the energy {[f'{x:.3e}' for x in rel]}, of the "
+          f"energy outside the internal faces' band {rel_e:.3e} (<= {tol:.0e}); in the band "
+          f"({int(band.sum())} cells) max |diff| {float(diff[IP][band].abs().max()):.3e}, "
+          f"relative L2 {float(diff[IP][band].norm()) / float(e[band].norm()):.3e}")
+    if not (max(rel + [rel_e]) <= tol and k1 == 1 and abs(ranks[0]["t"] - t1) <= 1e-6 * t1):
+        raise AssertionError(f"{label}: one resistive step disagrees with the single-rank path "
+                             f"outside the internal faces' band")
+
+
+def ranks_of(text: str, key: str) -> int:
+    return int(re.search(rf"^{key}=(\d+)", text, re.M).group(1))
+
+
+def initial_interior(params, text: str) -> torch.Tensor:
+    """The INI's initial interior (CPU)."""
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.problems import init_problem
+
+    g = params.ghost_width
+    return torch.from_numpy(init_problem(params, ConfigMap(text=text)))[
+        (slice(None),) + (slice(g, -g),) * params.dim]
 
 
 def main() -> int:
@@ -5242,6 +5494,8 @@ def main() -> int:
     lap("48")
     phase49(card)
     lap("49")
+    phase50(card)
+    lap("50")
     bounds.update(grav["bounds"])
     if "jax" in sys.modules or any(m.startswith("ramsesgpu_tpu.") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")

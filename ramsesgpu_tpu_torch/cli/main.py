@@ -27,8 +27,9 @@ def build_parser() -> argparse.ArgumentParser:
         prog="ramses-tpu-torch",
         description="PyTorch + CUDA port of ramsesgpu_tpu (2D and 3D hydro and ideal "
                     "MHD+CT with walls or periodic faces, the inflow jet, static gravity, "
-                    "viscous-resistive periodic 3D MHD, the MRI shearing box, driven "
-                    "turbulence; [mpi] inputs over one process per rank).",
+                    "viscous-resistive 3D MHD, viscous 3D hydro, the MRI shearing box, "
+                    "driven turbulence; [mpi] inputs, forced and dissipative ones included, "
+                    "over one process per rank).",
     )
     parser.add_argument("--param", "-i", required=True, help="INI parameter file")
     parser.add_argument("--max-steps", type=int, default=None)

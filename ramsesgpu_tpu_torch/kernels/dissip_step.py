@@ -17,7 +17,10 @@
   the resistive CT's B on the max-side face layer) through a buffer that
   the kernel writes and the wrapper copies back. Replaces the TPU kernel
   above on the ghosted array of the walled step (pallas/fused_mhd3d.py:
-  545-547). Twin: ``solvers.dissipation.mhd_dissipation_ghosted_update``.
+  545-547), and on the refilled block of each rank of a sharded run
+  (``interior_only``: the interior alone copied back, shearing-box blocks
+  included; JAX parallel/sharded_step.py:276-283, 567-574). Twin:
+  ``solvers.dissipation.mhd_dissipation_ghosted_update``.
 
 Compensated (``[implementation] compensated``): the state is [16, nz, ny,
 nx] (the state, then its Kahan carry) and a shearing box's kept face [2,
@@ -63,6 +66,7 @@ class DissipStepKernel:
 
     def __init__(self) -> None:
         self.launches = 0
+        self.ghosted_launches = 0   # those of the ghosted mode, among launches
 
     def __call__(self, params, S, S_out, dt, active, shear=None) -> torch.Tensor:
         require_step_scope(params)
@@ -121,26 +125,37 @@ class DissipStepKernel:
             return None
         return U.new_empty((8, params.nz + 1, params.ny + 1, params.nx + 1))
 
-    def ghosted_(self, params: RunParams, U, dt, active, buf=None) -> torch.Tensor:
+    def ghosted_(self, params: RunParams, U, dt, active, buf=None,
+                 interior_only: bool = False) -> torch.Tensor:
         """The dissipative sub-step of the ghosted state U [8, nz+2g, ny+2g,
         nx+2g], whose ghosts must be filled, in place when ``active``: its
         interior and, with eta > 0, the resistive CT's B on the max-side
         face layer (the whole-array step's); the other ghosts stay. On a
         CUDA tensor the kernel writes them into ``buf`` (``scratch``), which
-        is copied back into U. Returns U."""
+        is copied back into U. ``interior_only``: a sharded rank's block
+        (JAX sharded_step.py:282-283, 572-574): the interior alone is
+        written back and every ghost stays that of the fill; a
+        shearing-box block, whose sheared fill has filled it, is taken
+        only so. Returns U."""
         require_step_scope(params)
         if not (params.nu > 0 or params.eta > 0):
             raise ValueError("the dissipation kernel needs nu > 0 or eta > 0")
-        if uses_shear(params):
-            raise NotImplementedError("the ghosted mode covers runs without a shearing box")
+        if uses_shear(params) and not interior_only:
+            raise NotImplementedError("the ghosted mode takes a shearing-box block with "
+                                      "interior_only=True (a sharded rank's) only")
         check_ghosted(params, U)
         check_scalars(U, dt=(dt, U.dtype), active=(active, torch.bool))
+        g, nx, ny, nz = params.ghost_width, params.nx, params.ny, params.nz
+        inner = U[:, g:g + nz, g:g + ny, g:g + nx]
         if U.device.type == "cpu":
-            U.copy_(torch.where(active, mhd_dissipation_ghosted_update(params, U, dt), U))
+            new = mhd_dissipation_ghosted_update(params, U, dt)
+            if interior_only:
+                inner.copy_(torch.where(active, new[:, g:g + nz, g:g + ny, g:g + nx], inner))
+            else:
+                U.copy_(torch.where(active, new, U))
             return U
         if U.device.type != "cuda":
             raise ValueError(f"unsupported device {U.device}")
-        g, nx, ny, nz = params.ghost_width, params.nx, params.ny, params.nz
         if buf is None:
             raise ValueError("the ghosted mode needs its buffer (DissipStepKernel.scratch)")
         check_buffer(U, "buf", buf, (8, nz + 1, ny + 1, nx + 1))
@@ -150,8 +165,9 @@ class DissipStepKernel:
         if err:
             raise RuntimeError(f"dissip_step ghosted launch failed: CUDA error {err}")
         self.launches += 1
-        U[:, g:g + nz, g:g + ny, g:g + nx].copy_(buf[:, :nz, :ny, :nx])
-        if params.eta > 0:
+        self.ghosted_launches += 1
+        inner.copy_(buf[:, :nz, :ny, :nx])
+        if params.eta > 0 and not interior_only:
             U[5:, g:g + nz + 1, g:g + ny + 1, g:g + nx + 1].copy_(buf[5:])
         return U
 

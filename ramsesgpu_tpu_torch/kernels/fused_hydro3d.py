@@ -28,6 +28,13 @@ step.
   and the step kernel's ghosted mode in place (``hydro_step.ghosted_``).
   Its ``make_step_fn`` is the JAX whole-array step (the JAX package takes
   no kernel for the jet, fused_hydro3d.py:42): the same three on a copy.
+- Viscosity (nu > 0) takes the same ghosted loop and step (``ghosted_step_``),
+  the JAX whole-array step with its viscous sub-step (solvers/step.py:
+  257-277 there: dt, the fill, the step, make_boundaries, apply_viscosity):
+  after the step kernel's ghosted mode the in-place fill again (the jet
+  included) and ``solvers.dissipation.viscosity_``, whole-array PyTorch
+  (the JAX package has no kernel for it; the module note there). A forced
+  run takes the forcing after that, on the interior.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ import torch
 
 from ..config.params import RunParams
 from ..solvers.boundary import fill_ghosts_, make_boundaries_concat, uses_jet
+from ..solvers.dissipation import viscosity_
 from ..solvers.timestep import dt_from_inv
 from .cfl_hydro import cfl_hydro
 from .hydro_step import hydro_step, require_hydro_scope
@@ -54,12 +62,13 @@ def make_advance_n(params: RunParams, device, packed_form: bool = False,
     inverse dt each step, not the folded one)."""
     require_hydro_scope(params)
     g = params.ghost_width
-    if uses_jet(params):
-        if post_step is not None:
+    if uses_ghosted_hydro(params):
+        if post_step is not None and uses_jet(params):
             raise NotImplementedError("forcing with the jet")
         return make_ghosted_loop(
-            params, device, lambda U: cfl_hydro(params, U, ghost=g), hydro_step.ghosted_,
-            lambda U: hydro_step.scratch(params, U), packed_form=packed_form)
+            params, device, lambda U: cfl_hydro(params, U, ghost=g), ghosted_step_,
+            lambda U: hydro_step.scratch(params, U), packed_form=packed_form,
+            post_step=post_step)
 
     folded = params.kernel == "zcarry" and zcarry_hydro_supported(params)
 
@@ -77,23 +86,40 @@ def make_advance_n(params: RunParams, device, packed_form: bool = False,
     )
 
 
+def uses_ghosted_hydro(params: RunParams) -> bool:
+    """Whether a hydro run takes the ghosted loop: the inflow jet, or
+    viscosity."""
+    return uses_jet(params) or params.nu > 0
+
+
+def ghosted_step_(params: RunParams, U, dt, active, buf) -> torch.Tensor:
+    """One step of the ghosted state U in place when ``active`` (``buf``:
+    ``hydro_step.scratch``), its ghosts filled: the step kernel's ghosted
+    mode; with nu > 0 then the in-place fill again and the viscous
+    sub-step. Returns U."""
+    hydro_step.ghosted_(params, U, dt, active, buf)
+    if params.nu > 0:
+        viscosity_(params, fill_ghosts_(params, U, active), dt, active)
+    return U
+
+
 def make_step_fn(params: RunParams, device) -> Callable:
     """``step(U, t) -> (U_new, dt)`` on the ghosted state, whose ghosts
     must be valid on entry (every step returns them filled)."""
     require_hydro_scope(params)
     g = params.ghost_width
-    buf = None  # the in-place step's interior buffer (the jet), allocated once
+    buf = None  # the in-place step's interior buffer (the ghosted loop's), allocated once
 
     def step(U, t):
         nonlocal buf
         U = U.contiguous()
         dt = dt_from_inv(params, cfl_hydro(params, U, ghost=g))
-        if uses_jet(params):
+        if uses_ghosted_hydro(params):
             U = fill_ghosts_(params, U.clone())
             if buf is None:
                 buf = hydro_step.scratch(params, U)
             always = torch.ones((), dtype=torch.bool, device=U.device)
-            return hydro_step.ghosted_(params, U, dt, always, buf), dt
+            return ghosted_step_(params, U, dt, always, buf), dt
         new_interior = hydro_step.ghosted(params, U, dt)
         return make_boundaries_concat(params, new_interior, interior_only=True), dt
 

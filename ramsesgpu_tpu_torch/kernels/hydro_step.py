@@ -48,14 +48,14 @@ _SOLVERS = (RiemannSolver.APPROX, RiemannSolver.HLL, RiemannSolver.HLLC)
 def require_hydro_scope(params: RunParams) -> None:
     """Raise NotImplementedError for what the hydro step kernel does not
     compute (as pallas/fused_hydro3d.py:35-43 and solvers/step.py:326-356
-    exclude it from the JAX kernel path)."""
+    exclude it from the JAX kernel path). Viscosity (nu > 0) is taken: the
+    kernel computes the inviscid step and the loops add the whole-array
+    viscous sub-step after it (kernels/fused_hydro3d.py)."""
     reasons = []
     if params.dim != 3 or params.mhd:
         reasons.append("only 3D hydro")
     if params.riemann_solver not in _SOLVERS:
         reasons.append(f"riemannSolver {params.riemann_solver.name} (approx, hll, hllc)")
-    if params.nu > 0:
-        reasons.append("viscosity (nu > 0)")
     if params.compensated:
         reasons.append("Kahan-compensated state")
     if params.ghost_width != 2:

@@ -89,18 +89,26 @@ def make_kernel_loop(params: RunParams, device, cfl: Callable, bind_step: Callab
 
 
 def make_ghosted_loop(params: RunParams, device, cfl: Callable, step_: Callable,
-                      scratch: Callable, packed_form: bool = False):
+                      scratch: Callable, packed_form: bool = False,
+                      post_step: Callable | None = None):
     """The chunk loop on the ghosted state itself, for the runs whose fill
     the interior loops' load rules cannot express (MHD walls, whose
-    step also writes the CT face layer; the inflow jet). Pack is a
+    step also writes the CT face layer; the inflow jet; hydro viscosity,
+    which refills before its sub-step). Pack is a
     contiguous copy of the ghosted state, unpack hands a copy back. Each
     step runs, in this order: ``cfl(U)`` on the state as it stands (the
     JAX compute_dt before make_boundaries, so a wall's +1 face is the
     previous step's ghost); the in-place fill (solvers/boundary.py
     fill_ghosts_, the jet included), gated by the loop's ``active`` flag;
     ``step_(params, U, dt, active, buf)``, the kernel's ghosted mode in
-    place, with ``buf = scratch(U)`` allocated once per chunk. See
+    place, with ``buf = scratch(U)`` allocated once per chunk. ``post_step``
+    (the forcing) then takes the interior, a view of U. See
     make_kernel_loop for the rest."""
+    g = params.ghost_width
+    inner = (slice(None),) + (slice(g, -g),) * params.dim
+    hook = None if post_step is None else (
+        lambda U, dt, active: post_step(U[inner], dt, active))
+
     def bind_step(U):
         buf = scratch(U)
 
@@ -113,7 +121,8 @@ def make_ghosted_loop(params: RunParams, device, cfl: Callable, step_: Callable,
 
     return make_kernel_loop(params, device, cfl, bind_step,
                             pack=lambda U: U.clone(memory_format=torch.contiguous_format),
-                            unpack=lambda U, t: U.clone(), packed_form=packed_form)
+                            unpack=lambda U, t: U.clone(), packed_form=packed_form,
+                            post_step=hook)
 
 
 def copy_state(dst, src) -> None:

@@ -94,18 +94,24 @@ def _cos_of(k1: np.ndarray, aa: float, phase) -> np.ndarray:
     return np.cos(aa * np.arange(lo, int(k1.max()) + 1) + phase)[k1 - lo]
 
 
-def turbulence_init_field(params: RunParams, mach_number: float) -> np.ndarray:
+def turbulence_init_field(params: RunParams, mach_number: float,
+                          block: tuple | None = None) -> np.ndarray:
     """The static 3-component forcing velocity field on the full ghosted
     grid (turbulenceInit.cpp:120-199), [3, nz_t, ny_t, nx_t] numpy in the
     run's dtype; bitwise the JAX package's. Each mode's phase k.x takes a
     few thousand integer values, so its cosines are formed once per value
-    (_cos_of: at 256^3 ~10x faster than on every cell)."""
+    (_cos_of: at 256^3 ~10x faster than on every cell). ``block``: a
+    rank's slices of the global interior (parallel/mesh.py block_slices);
+    then that block of the interior [3, lnz, lny, lnx] alone, each value
+    from its global index: bitwise the global field's block."""
     aa = 2.0 * np.pi / params.nx  # nbox = global nx
     g = params.ghost_width
-    i = (np.arange(params.isize) - g + 1)[None, None, :]
-    j = (np.arange(params.jsize) - g + 1)[None, :, None]
-    k = (np.arange(params.ksize) - g + 1)[:, None, None]
-    shape = (params.ksize, params.jsize, params.isize)
+    i, j, k = (np.arange(n) - g + 1 for n in (params.isize, params.jsize, params.ksize))
+    if block is not None:
+        sz, sy, sx = block[1:]
+        i, j, k = i[g:-g][sx], j[g:-g][sy], k[g:-g][sz]
+    shape = (k.size, j.size, i.size)
+    i, j, k = i[None, None, :], j[None, :, None], k[:, None, None]
 
     u = np.zeros(shape)
     v = np.zeros(shape)
@@ -154,7 +160,8 @@ def default_edot(params: RunParams, config: ConfigMap) -> float:
 
 
 def random_forcing_normalization(params: RunParams, S: torch.Tensor, F: torch.Tensor,
-                                 dt: torch.Tensor, edot: float) -> torch.Tensor:
+                                 dt: torch.Tensor, edot: float,
+                                 reduce: Callable | None = None) -> torch.Tensor:
     """The energy-injection normalization factor, a 0-d tensor of S's
     dtype on S's device (HydroRunBase.cpp:1201-1312): norm = (sqrt(s0^2 +
     s1 dt edot 2 N) - s0) / s1 with s0 = sum rho v.F, s1 = sum rho F^2 over
@@ -164,7 +171,12 @@ def random_forcing_normalization(params: RunParams, S: torch.Tensor, F: torch.Te
     arithmetic): sqrt(s0^2 + X) - s0 cancels where X << s0^2, a moving
     state's case, and in float32 that scales the rounding of the sums and
     of the square root up to ~1e-4 of norm at 256^3 (PERF.md section 6). With
-    edot = 0 it is 0."""
+    edot = 0 it is 0. ``reduce``: on a rank of a sharded run, the sum of
+    the float64 pair [s0, s1] over the ranks (ProcessGrid.all_sum, the JAX
+    lax.psum), S and F being the rank's blocks and N the global cell count
+    of ``params``; default none (one device)."""
+    if edot == 0:
+        return torch.zeros((), dtype=S.dtype, device=S.device)
     rho = S[ID]
     u = S[IU] / rho
     v = S[IV] / rho
@@ -172,9 +184,9 @@ def random_forcing_normalization(params: RunParams, S: torch.Tensor, F: torch.Te
     fu, fv, fw = F[0], F[1], F[2]
     s0 = torch.sum(rho * (u * fu + v * fv + w * fw), dtype=torch.float64)
     s1 = torch.sum(rho * (fu * fu + fv * fv + fw * fw), dtype=torch.float64)
+    if reduce is not None:
+        s0, s1 = reduce(torch.stack([s0, s1]))
     n_cells = params.nx * params.ny * params.nz
-    if edot == 0:
-        return torch.zeros((), dtype=S.dtype, device=S.device)
     norm = (xp.sqrt(s0 * s0 + s1 * dt.double() * edot * 2 * n_cells) - s0) / s1
     return norm.to(S.dtype)
 
@@ -328,22 +340,28 @@ def update_forcing_field_mode(params: RunParams, fp: OUForcingParams, state: OUS
     return state
 
 
-def ou_phase_basis(params: RunParams, state: OUState, dtype, device=None) -> torch.Tensor:
+def ou_phase_basis(params: RunParams, state: OUState, dtype, device=None,
+                   block: tuple | None = None) -> torch.Tensor:
     """cos(2 pi (x kx + y ky + z kz)) of every mode on the interior cells,
     [31, nz, ny, nx]: the JAX basis (computed in float64 and rounded to
     ``dtype``) without its ghost frame, built once on ``device`` (default
     the state's) one mode at a time. 31 values a cell: 2.08 GB at 256^3 in
-    float32."""
+    float32. ``block``: a rank's slices of the global interior
+    (parallel/mesh.py block_slices); then only that block [31, lnz, lny,
+    lnx], from the global coordinates sliced, bitwise the global basis's
+    block."""
     device = state.mode.device if device is None else torch.device(device)
     g = params.ghost_width
     x = params.xmin + params.dx / 2 + (np.arange(params.isize) - g) * params.dx
     y = params.ymin + params.dy / 2 + (np.arange(params.jsize) - g) * params.dy
     z = params.zmin + params.dz / 2 + (np.arange(params.ksize) - g) * params.dz
-    X = torch.from_numpy(x[g:-g]).to(device)[None, None, :]
-    Y = torch.from_numpy(y[g:-g]).to(device)[None, :, None]
-    Z = torch.from_numpy(z[g:-g]).to(device)[:, None, None]
+    sz, sy, sx = (slice(None),) * 3 if block is None else block[1:]
+    X = torch.from_numpy(x[g:-g][sx]).to(device)[None, None, :]
+    Y = torch.from_numpy(y[g:-g][sy]).to(device)[None, :, None]
+    Z = torch.from_numpy(z[g:-g][sz]).to(device)[:, None, None]
     mode = state.mode.cpu().numpy()
-    out = torch.empty((N_MODE_OU, params.nz, params.ny, params.nx), dtype=dtype, device=device)
+    out = torch.empty((N_MODE_OU, Z.shape[0], Y.shape[1], X.shape[2]), dtype=dtype,
+                      device=device)
     for m in range(N_MODE_OU):
         phase = X * float(mode[0, m]) + Y * float(mode[1, m]) + Z * float(mode[2, m])
         out[m] = torch.cos(2.0 * math.pi * phase)
@@ -381,19 +399,27 @@ class StaticForcing:
     """``forcing(S, dt, active)``: the static-spectrum kick of the JAX
     forced step (solvers/step.py:477-486 there) on the loop state after
     each step: the normalization from the field's interior F and the
-    kick, gated by ``active`` through a zero norm."""
+    kick, gated by ``active`` through a zero norm. On a rank of a sharded
+    run (JAX sharded_step.py:739-755) S is the rank's interior block,
+    ``block`` its slices of the global interior, F that block of the
+    global field (formed from the block's global indices alone) and
+    ``reduce`` the sum over the ranks of the normalization's two sums
+    (random_forcing_normalization)."""
 
-    def __init__(self, params: RunParams, config: ConfigMap, device, dtype) -> None:
+    def __init__(self, params: RunParams, config: ConfigMap, device, dtype,
+                 block: tuple | None = None, reduce: Callable | None = None) -> None:
         self.params = params
+        self.reduce = reduce
         mach = config.get_float("turbulence", "machNumber", 0.0)
         self.edot = default_edot(params, config)
         g = params.ghost_width
-        F = turbulence_init_field(params, mach)[:, g:-g, g:-g, g:-g]
+        F = (turbulence_init_field(params, mach)[:, g:-g, g:-g, g:-g] if block is None
+             else turbulence_init_field(params, mach, block))
         self.F = torch.from_numpy(np.ascontiguousarray(F)).to(device=device, dtype=dtype)
         self.state = None
 
     def __call__(self, S: torch.Tensor, dt: torch.Tensor, active: torch.Tensor) -> None:
-        norm = random_forcing_normalization(self.params, S, self.F, dt, self.edot)
+        norm = random_forcing_normalization(self.params, S, self.F, dt, self.edot, self.reduce)
         add_random_forcing(self.params, S, self.F, torch.where(active, norm, 0.0))
 
 
@@ -402,26 +428,34 @@ class OUForcing:
     (solvers/step.py:490-502 there): the mode update, then the kick with
     the basis in S's dtype (the JAX float32 basis, widened in float64 runs),
     both gated by ``active``. ``state`` is the OUState, carried across
-    chunks on the device."""
+    chunks on the device. On a rank of a sharded run (JAX
+    sharded_step.py:757-784) S is the rank's interior block and the basis
+    that ``block`` of the global basis; the state is replicated: every
+    rank seeds the same generator and draws the same blocks, as every JAX
+    shard carries the same key."""
 
-    def __init__(self, params: RunParams, config: ConfigMap, device, dtype) -> None:
+    def __init__(self, params: RunParams, config: ConfigMap, device, dtype,
+                 block: tuple | None = None) -> None:
         self.params = params
         self.fp = OUForcingParams.from_config(config)
         self.state = init_ou_forcing(self.fp, device=device, dtype=dtype)
-        self.basis = ou_phase_basis(params, self.state, torch.float32).to(dtype)
+        self.basis = ou_phase_basis(params, self.state, torch.float32, block=block).to(dtype)
 
     def __call__(self, S: torch.Tensor, dt: torch.Tensor, active: torch.Tensor) -> None:
         update_forcing_field_mode(self.params, self.fp, self.state, dt, active)
         add_ou_forcing_field(self.params, S, self.state, self.basis, dt, active)
 
 
-def make_forcing(params: RunParams, config: ConfigMap, device, dtype):
+def make_forcing(params: RunParams, config: ConfigMap, device, dtype,
+                 block: tuple | None = None, reduce: Callable | None = None):
     """The post-step forcing of a turbulence problem on ``device`` (the
-    JAX make_forced_step_fn's), or None for another problem."""
+    JAX make_forced_step_fn's), or None for another problem. ``block``
+    and ``reduce``: a sharded rank's (StaticForcing); the OU forcing
+    needs no reduction."""
     if params.problem == "turbulence":
-        return StaticForcing(params, config, device, dtype)
+        return StaticForcing(params, config, device, dtype, block, reduce)
     if params.problem == "turbulence-Ornstein-Uhlenbeck":
-        return OUForcing(params, config, device, dtype)
+        return OUForcing(params, config, device, dtype, block)
     return None
 
 

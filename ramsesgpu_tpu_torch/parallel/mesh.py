@@ -198,6 +198,15 @@ class ProcessGrid:
         dist.all_reduce(buf, op=dist.ReduceOp.MAX)
         return self.local_form(buf)
 
+    def all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of x over every rank (the JAX lax.psum) in x's dtype, a
+        new tensor on this rank's device; x itself on a one-rank grid."""
+        if self.mx * self.my * self.mz == 1:
+            return x
+        buf = self.send_form(x.clone())
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+        return self.local_form(buf)
+
     def describe(self) -> str:
         return (f"{self.mx} x {self.my} x {self.mz} ranks over {self.backend}"
                 f"{' (slabs staged through host memory)' if self.staged else ''}")

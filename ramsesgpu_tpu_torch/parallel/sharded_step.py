@@ -23,7 +23,22 @@ carries its ghosted local block, whose interior is the state; per step
    whole-array ``godunov_unsplit_hydro`` / ``godunov_unsplit_mhd`` on the
    rank's device (the JAX package has no 2D kernel) after the whole-array
    CFL. The new interior stays in the block, whose ghosts the next fill
-   rewrites (the MHD step's CT face layer n+g among them).
+   rewrites (the MHD step's CT face layer n+g among them);
+4. with nu or eta (3D; JAX :393-398, whose refill comes before the
+   dissipative sub-step): the fill again, the jet included, then in MHD
+   TPU row 8 (kernels/dissip_step.py ``ghosted_``, the dissipation
+   kernel's ghosted mode, the interior alone written back, JAX
+   ``dissipate``, :276-283), in hydro the whole-array viscous sub-step
+   (solvers/dissipation.py ``viscosity_``, JAX :300-303; the JAX package
+   has no kernel for it);
+5. on a turbulence problem (JAX ``make_sharded_forced_advance_n``,
+   :707-847, its body :810-814) the forcing on the block's interior
+   (ops/forcing.py): the rank's block of the global static field, the sums
+   of its normalization summed over the ranks in float64
+   (``ProcessGrid.all_sum``, JAX ``lax.psum``); or the OU kick with the
+   rank's block of the mode basis and the mode state replicated on every
+   rank. The forcing object lives in the loop (``advance_n.forcing``)
+   across chunks.
 
 A static gravity field enters as each rank's ghosted window of the
 global field (``gravity_window``, JAX ``_gravity_windows``, :611-645),
@@ -56,17 +71,24 @@ the single-device step computes dt before the fill; per step
    emfY remapped across ranks, the border columns' density (floored on
    the domain-edge columns only), Bx and Bz, the z+1 row of the emfY
    delta over the z ring. The new interior replaces the grown block's;
-   its ghosts stay those of the fill, the CFL of the next step reads them.
+   its ghosts stay those of the fill, the CFL of the next step reads them;
+4. with nu or eta (JAX :567-578): the new interior grown again by
+   ``attach_halos_shear`` at t + dt, then TPU row 8, the dissipation
+   kernel's ghosted mode on that block (the sheared fill has filled it),
+   the interior alone written back; the block's ghosts stay those of this
+   second fill.
 
 The JAX package's own test (tests/test_parallel.py:531-550) holds this
 route against its whole-array route (``_mhd_update``) with a tolerance:
 the whole-array update also moves the CT face layer n+g of the block,
-which the next CFL reads.
+which the next CFL reads (so does its whole-array dissipation, ROADMAP
+Queue 3 item 10).
 
 Not ported, and raising NotImplementedError naming its ROADMAP item
-(``require_sharded_scope``): the sharded dissipation (nu, eta; Queue 1
-item 7.2), forcing (item 7.3) and ``[implementation] haloOverlap`` (item
-7.5).
+(``require_sharded_scope``): 2D viscosity or resistivity (Queue 1 item
+3.2, as on one device), the stratified box with nu or eta (item 4, as on
+one device) and ``[implementation] haloOverlap`` (item 7.5). Forcing is
+taken where the single-device forced loops take it.
 """
 from __future__ import annotations
 
@@ -84,12 +106,14 @@ from ..convert import torch_dtype
 from ..core.constants import IA, IC, ID
 from ..kernels.cfl_hydro import cfl_hydro
 from ..kernels.cfl_mhd import cfl_mhd, cfl_mhd_window
+from ..kernels.dissip_step import dissip_step
 from ..kernels.fused_mhd3d import make_fused_mhd_shear, make_fused_mhd_update
 from ..kernels.hydro_step import hydro_step
-from ..kernels.mhd_step import uses_shear
-from ..ops.forcing import FORCED_PROBLEMS
+from ..kernels.mhd_step import uses_ghosted, uses_shear
+from ..ops.forcing import FORCED_PROBLEMS, make_forcing
 from ..problems import has_gravity_field
-from ..solvers.dissipation import _div
+from ..solvers.boundary import uses_jet
+from ..solvers.dissipation import _div, uses_dissipation, viscosity_
 from ..solvers.godunov import godunov_unsplit_hydro
 from ..solvers.godunov_mhd import godunov_unsplit_mhd
 from ..solvers.step import make_gravity_field, mri_gz_profile, require_slice
@@ -104,9 +128,11 @@ ROADMAP_ITEM = "ROADMAP Queue 1 item 7"
 
 def require_sharded_scope(params: RunParams, device, config: ConfigMap | None = None) -> None:
     """Raise for a sharded configuration outside the port, before any rank
-    starts: NotImplementedError naming the ROADMAP item that holds the
-    sharded dissipation (Queue 1 item 7.2), forcing (7.3) and
-    ``haloOverlap`` (7.5); then the single-device scope
+    starts: NotImplementedError naming the ROADMAP item that holds 2D
+    viscosity or resistivity (Queue 1 item 3.2), the stratified box with
+    nu or eta (item 4) and ``haloOverlap`` (item 7.5), and for forcing
+    where the single-device forced loops refuse it (2D, the shearing box,
+    the jet, MHD walls or gravity); then the single-device scope
     (solvers/step.py require_slice); then, given the run's ``config`` (its
     [mpi] topology), the JAX package's ValueError for a local nz that
     ``zSlabNb`` does not divide where the JAX ``make_local_step`` slabs
@@ -118,10 +144,16 @@ def require_sharded_scope(params: RunParams, device, config: ConfigMap | None = 
     reasons = []
     if shear and (not params.mhd or params.dim != 3):
         reasons.append("a shearing box outside 3D MHD")
-    if params.nu > 0 or params.eta > 0:
-        reasons.append(f"the sharded dissipation (nu, eta; {ROADMAP_ITEM}.2)")
-    if params.problem in FORCED_PROBLEMS:
-        reasons.append(f"forcing ({ROADMAP_ITEM}.3)")
+    if uses_dissipation(params) and params.dim == 2:
+        reasons.append("2D viscosity / resistivity (ROADMAP Queue 1 item 3.2)")
+    if uses_dissipation(params) and shear and uses_stratified_z(params):
+        reasons.append("viscosity or resistivity with stratified z faces (ROADMAP Queue 1 "
+                       "item 4)")
+    if params.problem in FORCED_PROBLEMS and (
+            params.dim != 3 or shear or uses_jet(params)
+            or (params.mhd and uses_ghosted(params))):
+        reasons.append("forcing outside periodic 3D MHD and 3D hydro without the jet "
+                       "(as on one device)")
     if params.halo_overlap and not shear:
         reasons.append(f"[implementation] haloOverlap ({ROADMAP_ITEM}.5)")
     if params.omega0 > 0 and not shear:
@@ -147,16 +179,20 @@ class StepProfile:
     """Where one rank's steps go (``profile=True`` on a CUDA rank): the host
     wall time of each section of a step, the device synchronised at the
     section's end so that the device work it queued counts in it, and the
-    CUDA-event time of the step and CFL launches. The shearing box's
-    sections (``SHEAR``): ``cfl`` (the CFL kernel, the all_reduce and dt),
-    ``exchange`` (the grown block at t + dt), ``row4`` (the step kernel),
-    ``remap`` (the post-correction and its collectives). The other runs'
-    (``LOCAL``): ``exchange`` (the halo exchanges and the physical fill),
-    ``jet`` (the inflow jet's fill, on jet runs), ``cfl`` and ``step`` (the
-    step kernel, or the 2D whole-array step). Off, it adds nothing."""
+    CUDA-event time of the step, CFL and dissipation launches. The
+    shearing box's sections (``SHEAR``): ``cfl`` (the CFL kernel, the
+    all_reduce and dt), ``exchange`` (the grown block at t + dt, both
+    fills with nu or eta), ``row4`` (the step kernel), ``remap`` (the
+    post-correction and its collectives), ``dissip`` (row 8 and its copy
+    back). The other runs' (``LOCAL``): ``exchange`` (the halo exchanges
+    and the physical fill, both fills with nu or eta), ``jet`` (the inflow
+    jet's fill, on jet runs), ``cfl``, ``step`` (the step kernel, or the
+    2D whole-array step), ``dissip`` (row 8, or hydro's whole-array
+    viscous sub-step) and ``force`` (the forcing, its all_reduce
+    included). Off, it adds nothing."""
 
-    SHEAR = (("cfl", "exchange", "row4", "remap"), ("row4", "cfl"))
-    LOCAL = (("exchange", "jet", "cfl", "step"), ("step", "cfl"))
+    SHEAR = (("cfl", "exchange", "row4", "remap", "dissip"), ("row4", "cfl", "dissip"))
+    LOCAL = (("exchange", "jet", "cfl", "step", "dissip", "force"), ("step", "cfl", "dissip"))
 
     def __init__(self, enabled: bool, layout=SHEAR) -> None:
         self.enabled = enabled
@@ -205,8 +241,11 @@ def make_sharded_advance_n(params: RunParams, grid: ProcessGrid,
     U_local the interior-only block [nvar, (lnz,) lny, lnx] on the rank's
     device, t a 0-d tensor of its dtype; up to n steps, stopping once
     t >= t_end (t_end > 0), as JAX's while_loop does. Every rank calls it
-    with the same n. ``profile``: time the step's sections and the step
-    and CFL launches (StepProfile; ``advance_n.profile.take()``)."""
+    with the same n. ``profile``: time the step's sections and the step,
+    CFL and dissipation launches (StepProfile; ``advance_n.profile.take()``).
+    A turbulence problem takes its forcing after each step;
+    ``advance_n.forcing`` is its forcing object (ops/forcing.py), whose OU
+    state it carries across calls (None without forcing)."""
     require_sharded_scope(params, grid.device, config)
     if not uses_shear(params):
         return _make_local_advance_n(params, grid, config, profile)
@@ -218,11 +257,13 @@ def make_sharded_advance_n(params: RunParams, grid: ProcessGrid,
     x0 = params.xmin + ix * lnx * params.dx
     z0 = params.zmin + iz * lnz * params.dz
     strat = uses_stratified_z(params)
-    fused_shear = make_fused_mhd_shear(lp, grid.device,
+    # row 4 is the ideal step; the dissipative sub-step is row 8's, after it
+    fused_shear = make_fused_mhd_shear(lp.replace(nu=0.0, eta=0.0), grid.device,
                                        gravity_z=mri_gz_profile(params, config) if strat else None)
     t_end = params.t_end
     prof = StepProfile(profile and grid.device.type == "cuda")
     inner = (slice(None), slice(g, -g), slice(g, -g), slice(g, -g))
+    dissipate = ghosted_dissipation(lp, grid.device) if uses_dissipation(params) else None
 
     def kernel_update(Ub, dt, t):
         """JAX kernel_update (sharded_step.py:501-544) on the grown block
@@ -266,12 +307,35 @@ def make_sharded_advance_n(params: RunParams, grid: ProcessGrid,
             with prof.section("exchange"):
                 Ub = attach_halos_shear(lp, params, strip_halos(lp, Ug), t + dt, comm)
             Ug = kernel_update(Ub, dt, t)
+            if dissipate is not None:
+                with prof.section("exchange"):
+                    Ug = attach_halos_shear(lp, params, strip_halos(lp, Ug), t + dt, comm)
+                with prof.section("dissip"):
+                    prof.kernel("dissip", dissipate, Ug, dt)
             t = t + dt
             k += 1
         return strip_halos(lp, Ug).contiguous(), t, k
 
     advance_n.profile = prof
+    advance_n.forcing = None
     return advance_n
+
+
+def ghosted_dissipation(lp: RunParams, device) -> Callable:
+    """``dissipate(Ug, dt)``: TPU row 8, the dissipation kernel's ghosted
+    mode, on a rank's refilled block Ug in place, the interior alone
+    written back (JAX sharded_step.py:282-283, 572-574); its output buffer
+    allocated once. Returns Ug."""
+    always = torch.ones((), dtype=torch.bool, device=device)
+    buf = None
+
+    def dissipate(Ug, dt):
+        nonlocal buf
+        if buf is None:
+            buf = dissip_step.scratch(lp, Ug)
+        return dissip_step.ghosted_(lp, Ug, dt, always, buf, interior_only=True)
+
+    return dissipate
 
 
 def gravity_window(params: RunParams, grid: ProcessGrid, config: ConfigMap | None
@@ -305,6 +369,13 @@ def _make_local_advance_n(params: RunParams, grid: ProcessGrid, config: ConfigMa
     t_end = params.t_end
     prof = StepProfile(profile and grid.device.type == "cuda", StepProfile.LOCAL)
     always = torch.ones((), dtype=torch.bool, device=grid.device)
+    dissipate = None
+    if uses_dissipation(params):
+        dissipate = (ghosted_dissipation(lp, grid.device) if params.mhd
+                     else lambda Ug, dt: viscosity_(lp, Ug, dt))
+    forcing = make_forcing(params, config if config is not None else ConfigMap(text=""),
+                           grid.device, torch_dtype(params),
+                           block=block_slices(params, grid, grid.rank), reduce=grid.all_sum)
     if params.dim == 2:
         gravity = gravity_window(params, grid, config)
         update = godunov_unsplit_mhd if params.mhd else godunov_unsplit_hydro
@@ -351,11 +422,22 @@ def _make_local_advance_n(params: RunParams, grid: ProcessGrid, config: ConfigMa
                 dt = dt_from_inv(params, grid.all_max(prof.kernel("cfl", cfl, Ug)))
             with prof.section("step"):
                 Ug = prof.kernel("step", step, Ug, dt)
+            if dissipate is not None:
+                with prof.section("exchange"):
+                    fill_halos_(lp, grid, Ug)
+                with prof.section("jet"):
+                    attach_jet(lp, grid, Ug)
+                with prof.section("dissip"):
+                    prof.kernel("dissip", dissipate, Ug, dt)
+            if forcing is not None:
+                with prof.section("force"):
+                    forcing(strip_halos(lp, Ug), dt, always)
             t = t + dt
             k += 1
         return strip_halos(lp, Ug).contiguous(), t, k
 
     advance_n.profile = prof
+    advance_n.forcing = forcing
     return advance_n
 
 
@@ -397,7 +479,8 @@ def gather_global_state(params: RunParams, grid: ProcessGrid, U_local: torch.Ten
 def launch_counts() -> dict:
     """The launch counters of the kernels a rank may run: on the shearing
     box row 4 and its CFL; on the other 3D runs the step and CFL kernels'
-    ghosted modes (``*_ghosted``) among their totals; the totals' other
+    ghosted modes (``*_ghosted``) among their totals; with nu or eta in 3D
+    MHD the dissipation kernel's ghosted mode (row 8). The totals' other
     modes are the single-device loops', which a sharded run never
     launches."""
     from ..kernels.mhd_step import mhd_step, mhd_window
@@ -408,11 +491,14 @@ def launch_counts() -> dict:
             "cfl_mhd_ghosted": cfl_mhd.ghosted_launches,
             "hydro_step": hydro_step.launches, "cfl_hydro": cfl_hydro.launches,
             "hydro_step_ghosted": hydro_step.ghosted_launches,
-            "cfl_hydro_ghosted": cfl_hydro.ghosted_launches}
+            "cfl_hydro_ghosted": cfl_hydro.ghosted_launches,
+            "dissip_step": dissip_step.launches,
+            "dissip_step_ghosted": dissip_step.ghosted_launches}
 
 
 def rank_advance(config_text: str, device: str, n_steps: int, U0=None, t0: float = 0.0,
-                 chunks: int = 1, profile: bool = False, snapshot=None) -> dict:
+                 chunks: int = 1, profile: bool = False, snapshot=None,
+                 ou_draws=None) -> dict:
     """One rank's part of a sharded advance from the INI text: join the
     world (parallel/mesh.py init_process_group), take this rank's block of
     the global state U0 (numpy, ghosted or the JAX sharded interior;
@@ -423,7 +509,11 @@ def rank_advance(config_text: str, device: str, n_steps: int, U0=None, t0: float
     with ``profile`` (a CUDA rank), where its steps went (StepProfile);
     rank 0 also the global interior (numpy). ``snapshot``, a pair
     (directory, prefix): then the VTK pieces and, where h5py is installed,
-    the HDF5 file of the final state (io/sharded.py), as step k."""
+    the HDF5 file of the final state (io/sharded.py), as step k. The
+    forcing of a turbulence problem stays in the loop across the chunks;
+    ``ou_draws`` (numpy [steps, 3, 31]) replaces the OU generator's draws
+    on every rank, one block a step (the tests replay the JAX package's);
+    an OU run returns its final mode field too."""
     from ..config.params import params_from_config
     from ..problems import init_problem
     from .mesh import init_process_group, topology_from_config
@@ -435,6 +525,10 @@ def rank_advance(config_text: str, device: str, n_steps: int, U0=None, t0: float
         U0 = init_problem(params, config)
     U = shard_global_state(params, grid, U0)
     advance = make_sharded_advance_n(params, grid, config, profile=profile)
+    state = None if advance.forcing is None else advance.forcing.state
+    if state is not None and ou_draws is not None:
+        draws = iter(torch.as_tensor(ou_draws).to(grid.device))
+        state.draw = lambda: next(draws)
     t = torch.tensor(t0, dtype=torch_dtype(params), device=grid.device)
     cuda = grid.device.type == "cuda"
     before, seconds, k = launch_counts(), [], 0
@@ -452,6 +546,8 @@ def rank_advance(config_text: str, device: str, n_steps: int, U0=None, t0: float
            "backend": grid.backend, "transport": grid.describe(), "device": str(grid.device)}
     if profile:
         out["profile"] = advance.profile.take()
+    if state is not None:
+        out["forcingField"] = state.forcingField.cpu().numpy()
     if snapshot is not None:
         from ..io.sharded import output_hdf5_sharded, output_vtk_pieces
 

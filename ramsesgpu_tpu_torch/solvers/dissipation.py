@@ -35,6 +35,15 @@ interior forms collect each channel's whole increment, B's being the CT
 delta, and make one Kahan add per channel against the carry; untouched
 channels keep theirs (JAX dissipation.py:357-380).
 
+Hydro viscosity (3D hydro with nu > 0) is ``apply_viscosity``, the JAX
+package's whole-array step (solvers/step.py:273-277 there, after the
+refill), on a ghosted state or a sharded rank's refilled ghosted block
+(``viscosity_``, in place). The JAX package has no kernel for it: its
+hydro kernels exclude nu (pallas/fused_hydro3d.py:39) and its
+dissipation kernel is MHD only (pallas/fused_dissip3d.py:41-48). So on
+the card it runs as whole-array PyTorch, as the 2D step does; it is not a
+fallback from a kernel.
+
 2D dissipation is not ported: every function raises NotImplementedError
 for a 2D configuration.
 """
@@ -138,7 +147,20 @@ def compute_viscosity_fluxes(params: RunParams, U, dt):
 
 
 def apply_viscosity(params: RunParams, U, dt):
+    """The viscous sub-step of a ghosted state (MHD or hydro) whose ghosts
+    a fill has written: a new tensor, its interior updated."""
     return _apply_flux_update(params, U, compute_viscosity_fluxes(params, U, dt))
+
+
+def viscosity_(params: RunParams, U, dt, active=None):
+    """``apply_viscosity`` in place on the ghosted U (its interior; the
+    ghosts stay the fill's), when the 0-d bool ``active`` is true.
+    Returns U."""
+    g = params.ghost_width
+    inner = (slice(None),) + (slice(g, -g),) * 3
+    new = apply_viscosity(params, U, dt)[inner]
+    U[inner] = new if active is None else torch.where(active, new, U[inner])
+    return U
 
 
 def compute_resistivity_emf(params: RunParams, U):

@@ -14,7 +14,15 @@ plain.
 
 Ported: the shearing box (the MRI, ideal or stratified) and the
 periodic, walled and jet runs in 2D and 3D, hydro and MHD (with static
-gravity; parallel/sharded_step.py). With ``[output] gatherOutput`` or
+gravity; in 3D with nu or eta; parallel/sharded_step.py), and the
+turbulence problems: the ranks' loop takes the forcing after each step
+and keeps the forcing object across chunks (JAX run_distributed.py:62-69);
+rank 0 writes the OU mode state beside each output as
+``<prefix>_forcing_<step>.npz`` (JAX :179-188). ``[history] enabled``:
+after each chunk, every ``dtHist`` of simulated time, every rank takes
+part in the gather of ``_host_ghosted`` and rank 0 alone computes the
+sample (io/history.py) and appends it (JAX run.py:290-300 through its
+``_host_ghosted``, run_distributed.py:244-277). With ``[output] gatherOutput`` or
 ``ghostIncluded`` the snapshots gather the blocks onto rank 0, which fills
 the ghosts at the current time (the sheared fill, or make_boundaries with
 the jet) and writes with io/vtk.py and io/hdf5.py; otherwise every rank
@@ -32,9 +40,11 @@ import torch
 from ..config.configmap import ConfigMap
 from ..config.params import RunParams, params_from_config
 from ..io.hdf5 import output_hdf5
+from ..io.history import HistoryWriter, compute_history
 from ..io.sharded import output_hdf5_sharded, output_vtk_pieces
 from ..io.vtk import output_vtk
 from ..kernels.mhd_step import uses_shear
+from ..ops.forcing import OUForcing, save_ou_forcing
 from ..parallel.mesh import init_process_group, topology_from_config, validate_decomposition
 from ..parallel.sharded_step import (gather_global_state, make_sharded_advance_n,
                                      require_sharded_scope, shard_global_state)
@@ -56,7 +66,7 @@ class DistributedRun(Run):
         topo = topology_from_config(config)
         validate_decomposition(p, *topo)
         require_sharded_scope(p, device, config)
-        for section, key in _UNPORTED_FLAGS + (("history", "enabled"),):
+        for section, key in _UNPORTED_FLAGS:
             if config.get_bool(section, key, False):
                 raise NotImplementedError(f"[{section}] {key} is not ported in a distributed "
                                           f"run")
@@ -71,10 +81,18 @@ class DistributedRun(Run):
         self.n_step = 0
         self.io_timer = Timer()
 
+        self.dt_hist = config.get_float("history", "dtHist", 0.0)
+        self._next_hist_time = 0.0
+        self._history = config.get_bool("history", "enabled", False)
+        self._history_writer = None
+
         self.grid = init_process_group(device, topo)
         self.device = self.grid.device
+        if self._history and self.is_root:
+            self._history_writer = HistoryWriter(p, self.output_dir, self.output_prefix)
         self.U = shard_global_state(p, self.grid, init_problem(p, config))
         self._advance = make_sharded_advance_n(p, self.grid, config)
+        self.forcing = self._advance.forcing
 
     @property
     def is_root(self) -> bool:
@@ -99,7 +117,12 @@ class DistributedRun(Run):
         """VTK and/or HDF5 snapshots: of the gathered state, written by
         rank 0, with ``gatherOutput`` or ``ghostIncluded``; else each rank's
         VTK piece and the one HDF5 file written block by block
-        (io/sharded.py). Every rank takes part."""
+        (io/sharded.py); rank 0 the OU forcing state's checkpoint. Every
+        rank takes part."""
+        if isinstance(self.forcing, OUForcing) and self.is_root:
+            with self.io_timer:
+                save_ou_forcing(self.forcing.state, f"{self.output_dir}/{self.output_prefix}"
+                                                    f"_forcing_{self.n_step:07d}.npz")
         if not (self.output_vtk or self.output_hdf5):
             return
         if not self.gather:
@@ -146,6 +169,8 @@ class DistributedRun(Run):
                 break  # t_end reached exactly
             if self.is_root and self.n_log > 0 and self.n_step % self.n_log == 0:
                 print(f"step {self.n_step:7d}  t={self.t:.6f}", file=sys.stderr)
+            if self._history and (self.dt_hist <= 0 or self.t >= self._next_hist_time):
+                self.history()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall.stop()
@@ -153,6 +178,18 @@ class DistributedRun(Run):
             self.output()
         if self.is_root:
             print(self.perf_summary(wall.total))
+
+    def history(self) -> None:
+        """One history sample of the gathered state, appended by rank 0;
+        every rank takes part in the gather and keeps the cadence."""
+        Ug = self._host_ghosted()
+        if Ug is not None:
+            sample = compute_history(self.params, Ug, self.t, 0.0)
+            with self.io_timer:
+                self._history_writer.append(sample)
+        if self.dt_hist > 0:
+            while self._next_hist_time <= self.t:
+                self._next_hist_time += self.dt_hist
 
     def perf_summary(self, elapsed: float) -> str:
         """Global cells/s, then the process grid and per-rank throughput

@@ -1120,6 +1120,45 @@ def test_two_rank_sharded_local_runs_on_the_card(cuda_device, name, mesh, kind):
     assert rel_l2(torch.from_numpy(card["U"]), torch.from_numpy(host["U"])) <= 1e-12
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, mesh, extra, kind", [
+    ("testRiemannHLLD", (24, 16, 12), "[hydro]\nnu=2e-3\n[MHD]\neta=2e-3\n", "mhd"),
+    ("turbulence_mhd_mpi", (24, 16, 16), "", "mhd"),
+    ("turbulence_hydro_mpi", (24, 16, 16), "[hydro]\nnu=2e-3\n[turbulence]\nedot=0.5\n",
+     "hydro")])
+def test_two_rank_sharded_dissipation_and_forcing_on_the_card(cuda_device, name, mesh, extra,
+                                                              kind):
+    """Two ranks (a 2 x 1 x 1 grid) of a sharded dissipative or forced run
+    share the card over gloo: the walled Brio-Wu with nu and eta (row 8's
+    ghosted mode once a rank-step beside the step and CFL kernels), the
+    static forcing on isothermal MHD and on hydro with nu (the whole-array
+    viscosity, no kernel); 3 steps in f64 agree with the same run on the
+    CPU (the twins) within 1e-12."""
+    import re
+    from pathlib import Path
+
+    from ramsesgpu_tpu_torch.parallel.launch import spawn_ranks
+    from ramsesgpu_tpu_torch.parallel.sharded_step import rank_jobs
+
+    text = (Path(__file__).resolve().parent.parent / "data" / f"{name}.ini").read_text()
+    for key, value in zip(("nx", "ny", "nz"), mesh):
+        text = re.sub(rf"^{key}=.*$", f"{key}={value}", text, flags=re.M)
+    # later sections' keys win (ConfigMap is not strict)
+    text += "\n" + extra + "[mpi]\nmx=2\nmy=1\nmz=1\n[implementation]\ndtype=float64\n"
+    jobs = [dict(config_text=text, device=dev, n_steps=3) for dev in ("cuda", "cpu")]
+    ranks = spawn_ranks(rank_jobs, 2, (jobs,))
+    launched = (f"{kind}_step", f"{kind}_step_ghosted", f"cfl_{kind}", f"cfl_{kind}_ghosted")
+    if "eta" in extra:
+        launched += ("dissip_step", "dissip_step_ghosted")
+    for card, host in ranks:
+        assert card["backend"] == "gloo" and card["device"] == "cuda:0"
+        assert card["counts"] == {name: 3 if name in launched else 0 for name in card["counts"]}
+        assert card["k"] == host["k"] == 3
+    card, host = ranks[0]
+    assert abs(card["t"] - host["t"]) <= 1e-12 * host["t"]
+    assert rel_l2(torch.from_numpy(card["U"]), torch.from_numpy(host["U"])) <= 1e-12
+
+
 def input_2d(name, device, n=64, dtype="float64"):
     """data/<name>.ini (a 2D input) at n x n in ``dtype``: params and its
     ghosted initial state on ``device``, ghosts filled."""

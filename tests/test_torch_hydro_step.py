@@ -413,12 +413,14 @@ def test_out_of_slice_configurations_raise(section, key, value, kernels_cover_it
 
     text = ini() + f"\n[{section}]\n{key}={value}\n"
     config = ConfigMap(text=text)
-    if value in ("zcarry", "jet", "Rayleigh-Taylor") or key in ("nz", "static_field_z"):
+    if value in ("zcarry", "jet", "Rayleigh-Taylor") or key in ("nz", "static_field_z", "nu"):
         # the z-streaming kernels (tests/test_torch_zcarry.py): a walled run
         # keeps the step kernel's wall rules under kernel=zcarry, and Run
         # takes it; the jet runs its ghosted loop (tests/test_torch_walls.py);
         # nz = 1 is a 2D run, in the slice since the 2D path; static gravity
-        # and the Rayleigh-Taylor problem run the gravity instance
+        # and the Rayleigh-Taylor problem run the gravity instance; nu runs
+        # the ghosted loop with the whole-array viscous sub-step after the
+        # step kernel (tests/test_torch_sharded_dissip_forced.py)
         Run(config, "cpu").start(max_steps=1, do_output=False)
     else:
         with pytest.raises(NotImplementedError):
@@ -431,6 +433,11 @@ def test_out_of_slice_configurations_raise(section, key, value, kernels_cover_it
         require_slice(params, "cpu")
         with pytest.raises(NotImplementedError):
             require_hydro_scope(params)
+    elif key == "nu":
+        # no kernel covers the viscous sub-step (the JAX package has none):
+        # the step kernel takes the inviscid step and require_slice admits it
+        require_slice(params, "cpu")
+        require_hydro_scope(params)
     elif kernels_cover_it:
         require_slice(params, "cpu")
     else:

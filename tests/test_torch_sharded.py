@@ -37,6 +37,7 @@ XLA backend without its fusion emitters (the arrays agree with the default
 backend's to 1e-16 relative; a quarter of the CPU time).
 """
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -414,21 +415,23 @@ def test_transport_rule_and_world_size(monkeypatch):
 
 def test_unported_sharded_configurations_raise():
     """(e) A periodic sharded run with [implementation] haloOverlap, or a
-    dissipative one, raises NotImplementedError naming its ROADMAP Queue 1
-    item 7 sub-item, before any rank starts (the periodic run without it
-    runs: tests/test_torch_sharded_local.py)."""
+    stratified one with viscosity, raises NotImplementedError naming its
+    ROADMAP Queue 1 item, before any rank starts (the periodic run without
+    it runs: tests/test_torch_sharded_local.py; the dissipative MRI:
+    tests/test_torch_sharded_dissip_forced.py)."""
     from ramsesgpu_tpu_torch.cli.main import main
 
     periodic = MRI_INI.replace("boundary_xmin=4", "boundary_xmin=3").replace(
         "boundary_xmax=4", "boundary_xmax=3").replace("omega0=1.0", "omega0=0.0").replace(
         "cIso=1.0", "cIso=0.0").replace("problem=MRI", "problem=Orszag-Tang")
-    dissip = MRI_INI.replace("cIso=1.0", "cIso=1.0\nnu=1e-3")
+    dissip = STRAT_INI.replace("cIso=0.3", "cIso=0.3\nnu=1e-3")
     overlap = periodic + "\n[implementation]\nhaloOverlap=yes\n"
-    for text, item in ((overlap, "7.5"), (dissip, "7.2")):
+    for text, item in ((overlap, "7.5"), (dissip, "4")):
         path = Path(os.environ.get("TMPDIR", "/tmp")) / f"sharded_{os.getpid()}.ini"
         path.write_text(text + "\n[mpi]\nmx=2\n")
         try:
-            with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
+            with pytest.raises(NotImplementedError,
+                               match=re.escape(f"ROADMAP Queue 1 item {item})")):
                 main(["--param", str(path), "--device", "cpu"])
         finally:
             path.unlink()

@@ -30,9 +30,9 @@ the counterpart of JAX ``make_local_step``) and its per-piece writers
     ranks it spawns: its pieces and its HDF5 file reassemble to the
     gathered state of the same run in (a)'s world.
 (e) Refusals: ``data/implode3d_mpi.ini`` raises the JAX package's zslab
-    ValueError (local nz = 7, zSlabNb = 4); the sharded dissipation,
-    forcing and ``haloOverlap`` raise NotImplementedError naming their
-    ROADMAP items.
+    ValueError (local nz = 7, zSlabNb = 4); 2D viscosity, the stratified
+    box with viscosity and ``haloOverlap`` raise NotImplementedError
+    naming their ROADMAP items.
 (f) The halo fill on a one-rank grid is make_boundaries in 2D, with the
     jet too; the in-place fill equals attach_halos.
 
@@ -335,10 +335,14 @@ def test_cli_writes_pieces_of_the_gathered_state(tmp_path, port_runs, monkeypatc
 REFUSED = {
     "zslab": ("data/implode3d_mpi.ini", "", ValueError,
               r"local nz=7 \(nz=14 over mz shards\) not divisible by zSlabNb=4"),
+    # 2D viscosity, refused on one device too (the 3D sharded dissipation
+    # runs: tests/test_torch_sharded_dissip_forced.py)
     "dissipation": ("data/orszag-tang_mpi.ini", "[hydro]\nnu=1e-3\n", NotImplementedError,
-                    r"the sharded dissipation .*ROADMAP Queue 1 item 7\.2"),
-    "forcing": ("data/turbulence_hydro_mpi.ini", "", NotImplementedError,
-                r"forcing \(ROADMAP Queue 1 item 7\.3\)"),
+                    r"2D viscosity / resistivity \(ROADMAP Queue 1 item 3\.2\)"),
+    # the stratified box with viscosity, refused on one device too (the
+    # sharded forcing runs: tests/test_torch_sharded_dissip_forced.py)
+    "forcing": ("data/mhd_mri_3d_stratified_mpi.ini", "[hydro]\nnu=1e-3\n", NotImplementedError,
+                r"stratified z faces \(ROADMAP Queue 1 item 4\)"),
     "overlap": ("data/orszag-tang_mpi.ini", "[implementation]\nhaloOverlap=yes\n",
                 NotImplementedError, r"haloOverlap \(ROADMAP Queue 1 item 7\.5\)"),
 }
