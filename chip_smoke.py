@@ -241,6 +241,20 @@ Phases, in order; any failure raises and no result line is printed:
      sections dissip and force), each beside its single-rank ms/step; 50d's
      one resistive step held against the single-rank path outside the
      internal block faces' band (resistive_step);
+ 51. the MHD solvers other than HLLD and the stratified box with nu, eta:
+     the step kernels' general instances against their twins (rows A and
+     12 on Orszag-Tang 32^3 for (hll, hlla), (llf, llf) and (hlld, hllf);
+     row 3 on data/testRiemannHLLD.ini's walls with (hll, llf); row 4 on a
+     two-rank window block, ideal and stratified; f32 + f64) and the
+     dissipation kernel's stratified shear mode (plain and, bitwise,
+     compensated); Orszag-Tang 256^3 f32 for each pair with kernel=auto and
+     kernel=zcarry (2 warm-up + 3 timed chunks of 10 steps, launches
+     counted, phase 5's gates), each instance's time, twin time and bound;
+     the stratified MRI with nu 4e-7 and eta 1e-7 as shipped at
+     128x256x128 f32 (phase 13's gates; 51s), the dissipation kernel's
+     stratified mode there against its twin (bitwise), its time and bound;
+     2D Orszag-Tang with (hll, hlla) on the card against the CPU (64^2 f64,
+     10 steps, relative L2 1e-12);
  then the MHD step kernel's rows (A, A', 3, 4, 12, and the isothermal
  instances) with their times and bounds, the kernels JSON line, the card
  line, and the result line.
@@ -415,6 +429,22 @@ KERNELS = {
     "cfl_mhd_ghosted_iso": ("ramsesgpu_tpu_torch/csrc/cfl_mhd.cu",
                             "ramsesgpu_tpu/pallas/packed_io.py:125 (its isothermal reduction on "
                             "the ghosted state)"),
+    # the general instances (any face and corner solver; phase 51), and the
+    # dissipation kernel's stratified shear mode
+    **{f"mhd_step_{face}_{corner}": (
+        "ramsesgpu_tpu_torch/csrc/mhd_step_general.cu",
+        f"ramsesgpu_tpu/pallas/packed_io.py:148 (MHD body fused_mhd3d.py:228 -> "
+        f"godunov_mhd.py:226 mhd_fluxes_emfs_from_parts with riemannSolver={face}, "
+        f"magRiemannSolver={corner})")
+       for face, corner in (("hll", "hlla"), ("llf", "llf"), ("hlld", "hllf"))},
+    **{f"zcarry_mhd_{face}_{corner}": (
+        "ramsesgpu_tpu_torch/csrc/zcarry_mhd_general.cu",
+        f"ramsesgpu_tpu/pallas/zcarry_mhd3d.py:102 (its body zcarry_mhd3d.py:394 -> "
+        f"godunov_mhd.py:226 with riemannSolver={face}, magRiemannSolver={corner})")
+       for face, corner in (("hll", "hlla"), ("llf", "llf"), ("hlld", "hllf"))},
+    "dissip_step_strat": ("ramsesgpu_tpu_torch/csrc/dissip_step.cu",
+                          "ramsesgpu_tpu/pallas/shear_packed.py:917 (the MRI loop's dissipative "
+                          "launch with gravity_z, :868-917)"),
 }
 # ms/step of these paths in the version before the compensated and
 # stratified modes, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
@@ -426,6 +456,8 @@ EARLIER_MS_PER_STEP = {"5": 10.876, "9 implode": 5.251, "9 blast": 5.274, "13": 
 # resistive MRI's (scripts/perf_table.py:93-102: Re = 25000, Pm = 4)
 DISSIP_COEFFS = {"nu=2e-3 eta=1e-3": (2e-3, 1e-3), "nu=0 eta=1e-3": (0.0, 1e-3),
                  "nu=2e-3 eta=0": (2e-3, 0.0), "nu=4e-5 eta=1e-5": (4e-5, 1e-5)}
+# the stratified MRI's timed cell with nu and eta (phase 51s; see there)
+STRAT_DISSIP_COEFFS = (4e-7, 1e-7)
 # the shipped MRI inputs: the flagship and the stratified box, both
 # Kahan-compensated as shipped ([implementation] compensated=yes)
 MRI_INI = "data/mhd_mri_3d.ini"
@@ -4840,7 +4872,11 @@ ROWS = (("A", "mhd_step"), ("A'-compensated", "mhd_step_comp"),
         ("3 isothermal", "mhd_step_ghosted_iso"), ("CFL of 3 isothermal", "cfl_mhd_ghosted_iso"),
         ("12 isothermal", "zcarry_mhd_iso"), ("6 gravity", "hydro_step_grav"),
         ("5 gravity", "hydro_step_ghosted_grav"), ("3 gravity", "mhd_step_ghosted_grav"),
-        ("8 ghosted", "dissip_step_ghosted"))
+        ("8 ghosted", "dissip_step_ghosted"),
+        *((f"{row} {face}/{corner}", f"{kernel}_{face}_{corner}")
+          for row, kernel in (("A", "mhd_step"), ("12", "zcarry_mhd"))
+          for face, corner in (("hll", "hlla"), ("llf", "llf"), ("hlld", "hllf"))),
+        ("A'-shear-dissipation / 10 stratified", "dissip_step_strat"))
 
 
 def check_streamed(label: str, kernel: str, rows: dict) -> None:
@@ -5356,6 +5392,323 @@ def initial_interior(params, text: str) -> torch.Tensor:
         (slice(None),) + (slice(g, -g),) * params.dim]
 
 
+# ---------------------------------------------------------------------------
+# the MHD solvers other than HLLD and the stratified box with nu, eta: phase 51
+# ---------------------------------------------------------------------------
+# the (face, corner) solver pairs of phase 51: between them every solver
+# the HLLD / 2D-HLLD instances do not take
+SOLVER_PAIRS = (("hll", "hlla"), ("llf", "llf"), ("hlld", "hllf"))
+
+
+def with_solvers(params, face: str, corner: str):
+    """params with the face solver ``face`` and the corner solver ``corner``
+    (the INI's [hydro] riemannSolver and [MHD] magRiemannSolver names)."""
+    from ramsesgpu_tpu_torch.core.constants import MagneticRiemannSolver, RiemannSolver
+
+    return params.replace(riemann_solver=RiemannSolver[face.upper()],
+                          mag_riemann_solver=MagneticRiemannSolver[f"MAG_{corner.upper()}"])
+
+
+def phase51_twins() -> None:
+    """The general instances against their twins on small inputs, f32 +
+    f64, at the tolerances of the phases that cover each row: rows A and 12
+    on Orszag-Tang at 32^3 for each pair (the streamed step's folded
+    inverse dt against the CFL twin on its output), row 3 on
+    data/testRiemannHLLD.ini's walls with (hll, llf), row 4 on a window of
+    a two-rank block (ideal, and stratified with g_z) with (llf, hllf) and
+    (hll, hlla), and the dissipation kernel's stratified shear mode (plain:
+    the increment and the kept face's change; compensated: bitwise)."""
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step, mhd_window
+    from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
+    from ramsesgpu_tpu_torch.solvers.dissipation import (kept_face_resistive_ct,
+                                                          mhd_dissipation_shear_update)
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import (mhd_3d_ghosted_update,
+                                                         mhd_3d_periodic_update,
+                                                         mhd_3d_shear_window_update)
+    from ramsesgpu_tpu_torch.solvers.timestep import (dt_from_inv, inv_dt_ghosted,
+                                                      inv_dt_mhd_ghosted_shear,
+                                                      inv_dt_mhd_periodic, inv_dt_mhd_shear)
+
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    for dtype in ("float32", "float64"):
+        base, S = setup(32, dtype)
+        for face, corner in SOLVER_PAIRS:
+            params = with_solvers(base, face, corner)
+            label = f"51 {face}/{corner} 32^3 {dtype}"
+            dt = dt_from_inv(params, cfl_mhd(params, S))
+            want = mhd_3d_periodic_update(params, S, dt)
+            got = mhd_step(params, S.clone(), dt, active, mhd_step.scratch(params, S))
+            check(f"{label} row A", rel_l2(got, want), TOL_STEP1[dtype])
+            out = torch.empty_like(S)
+            inv = zcarry_mhd(params, S, out, dt, active, fold=True)
+            check(f"{label} row 12", rel_l2(out, want), TOL_STEP1[dtype])
+            u = ulps(inv, inv_dt_mhd_periodic(params, out))
+            print(f"[{label}] row 12's folded inverse dt: {u:.2f} ULP of the CFL twin's (bound 4)")
+            if not u <= 4:
+                raise AssertionError(f"{label}: the folded inverse dt disagrees: {u} ULP")
+
+        config, params = shipped(HLLD_INI, dtype, (40, 36, 32))
+        params = with_solvers(params, "hll", "llf")
+        U = ghosted_state(config, params, seed=51)
+        dt = dt_from_inv(params, inv_dt_ghosted(params, U))
+        got = mhd_step.ghosted(params, U.clone(), dt, active,
+                               mhd_step.scratch(params, U, ghosted=True))
+        check(f"51 row 3 hll/llf walls 40x36x32 {dtype}",
+              rel_l2(got, mhd_3d_ghosted_update(params, U, dt)), TOL_STEP1[dtype])
+
+        for ini, topo, rank, (face, corner) in ((DEBUG_INI, (2, 1, 1), (0, 0, 1), ("llf", "hllf")),
+                                                (STRAT_MPI_INI, (1, 1, 2), (1, 0, 0),
+                                                 ("hll", "hlla"))):
+            _p, _c, lp, W, x0, _z0, gz = window_case36(ini, (32, 64, 32), topo, rank, dtype, 51)
+            lp = with_solvers(lp, face, corner)
+            dt = dt_from_inv(lp, inv_dt_mhd_ghosted_shear(lp, W))
+            out, planes = mhd_window(lp, W, dt, x0, gz, mhd_window.scratch(lp, W))
+            want, want_p = mhd_3d_shear_window_update(lp, W, dt, x0, gz)
+            label = (f"51 row 4 {face}/{corner} {'stratified ' if gz is not None else ''}"
+                     f"window {lp.nx}x{lp.ny}x{lp.nz} {dtype}")
+            check(label, rel_l2(out, want), TOL_STEP1[dtype])
+            for c in range(5):
+                check(f"{label} plane {c}", rel_l2(planes[c], want_p[c]), TOL_PLANES[dtype])
+
+        for comp in (False, True):
+            params, _config, (S2, kept), _gz = strat_setup(24, 32, 32, dtype,
+                                                           seed=51 if comp else None)
+            if not comp:
+                S2, kept = S2[:8].contiguous(), kept[0].contiguous()
+            params = params.replace(nu=4e-5, eta=1e-5, compensated=comp)
+            face = kept[0] if comp else kept
+            # (1 + 0.01 N(0, 1)) on the state and the kept face: the
+            # initial field is uniform, which the resistive terms would
+            # not change
+            gen = torch.Generator(device="cuda").manual_seed(51)
+            for x in (S2[:8], face):
+                x *= 1 + 0.01 * torch.randn(x.shape, generator=gen, device="cuda",
+                                            dtype=torch.float64).to(x.dtype)
+            t = shear_t0(params, S2.dtype)
+            dt = dt_from_inv(params, inv_dt_mhd_shear(params, S2[:8], face))
+            slabs, zslabs = strat_slabs(params, S2, kept, t, dt)
+            got, kept_got = torch.empty_like(S2), kept.clone()
+            dissip_step(params, S2, got, dt, active, shear=(slabs, kept_got, zslabs))
+            want, eypl, ezpl = mhd_dissipation_shear_update(params, S2, slabs, dt, zslabs)
+            old = torch.stack([slabs[1, 5, ..., 0], kept[1]]) if comp else slabs[1, 5, ..., 0]
+            kept_want = kept_face_resistive_ct(params, old, eypl, ezpl, dt)
+            label = (f"51 stratified dissipation 24x32x32 {dtype} "
+                     f"{'compensated' if comp else 'plain'}")
+            if comp:
+                check_equal(f"{label} state and carry", got, want)
+                check_equal(f"{label} kept face and carry", kept_got, kept_want)
+            else:
+                check(f"{label} increment", increment_rel(got, want, S2), TOL_STEP1[dtype],
+                      f", increment norm / state norm {rel_l2(want, S2):.3e}")
+                check(f"{label} kept-face change", increment_rel(kept_got, kept_want, kept),
+                      TOL_STEP1[dtype])
+
+
+def solver_path(card: str, label: str, base, S_init, face: str, corner: str, kernel: str):
+    """Orszag-Tang 256^3 f32 (phase 5's workload) with the solver pair
+    through make_packed_advance_chain, staged (kernel=auto) or streamed
+    (kernel=zcarry): 2 warm-up + 3 timed chunks of 10 steps with every
+    launch count set to 0 before and read after (the general instance
+    once a step, its CFL once a step or, streamed, once a chunk); finite
+    state, divB, mass and energy as phase 5. Returns the launch counts,
+    the params and the end state."""
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries_concat
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+
+    n, chunk, steps = 256, 10, 50
+    params = with_solvers(base.replace(kernel=kernel), face, corner)
+    U = make_boundaries_concat(params, S_init, interior_only=True)
+    mass0 = float(U[0, 3:-3, 3:-3, 3:-3].double().sum())
+    energy0 = float(U[1, 3:-3, 3:-3, 3:-3].double().sum())
+    pack, advance, _unpack = make_packed_advance_chain(params, "cuda")
+    t = torch.zeros((), dtype=torch.float32, device="cuda")
+    expect = ({"zcarry_mhd": steps, "cfl_mhd": 5} if kernel == "zcarry"
+              else {"mhd_step": steps, "cfl_mhd": steps})
+    with counted_main_path(label, expect) as launches:
+        S = pack(U)
+        del U
+        S, t, _dt = run_chunks(label, card, advance, S, t, n, chunk)
+    b_over_dx = max(float(S[5].abs().max()), 1e-10) / params.dx
+    divb = div_b_max(params, S)
+    mass, energy = float(S[0].double().sum()), float(S[1].double().sum())
+    print(f"[{label}] {steps} steps to t={float(t)!r}: max|divB|={divb:.3e} "
+          f"(bound {1e-3 * b_over_dx:.3e}), mass rel {abs(mass - mass0) / abs(mass0):.3e} "
+          f"(1e-5), energy rel {abs(energy - energy0) / abs(energy0):.3e} (1e-4)")
+    if not bool(torch.isfinite(S).all()) or not divb < 1e-3 * b_over_dx:
+        raise AssertionError(f"{label}: non-finite state or divB bound violated")
+    if not (abs(mass - mass0) <= 1e-5 * abs(mass0)
+            and abs(energy - energy0) <= 1e-4 * abs(energy0)):
+        raise AssertionError(f"{label}: conservation bound violated")
+    return launches, params, S
+
+
+def phase51(card: str, n_twin: int) -> dict:
+    """The solver pairs' main paths and kernels at full width (Orszag-Tang
+    256^3 f32, kernel=auto and kernel=zcarry), the stratified MRI with nu
+    and eta as shipped but for the mesh (128x256x128 f32, compensated: its
+    ms/step and the dissipation kernel's stratified mode with its time and
+    bound), and 2D Orszag-Tang with (hll, hlla) on the card against the CPU.
+    Returns the new kernels-line entries' launches, times and bounds."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
+    from ramsesgpu_tpu_torch.solvers.dissipation import (kept_face_resistive_ct,
+                                                          mhd_dissipation_shear_update)
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import mhd_3d_periodic_update
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv
+
+    phase51_twins()
+    out = {"launches": {}, "ms": {}, "plain_ms": {}, "max_abs_err": {}, "bounds": {}}
+    lib = load_library("count")
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    base, S_init = setup(256, "float32")
+    n = 256 ** 3
+    ms_step = {}
+    for face, corner in SOLVER_PAIRS:
+        for kernel in ("auto", "zcarry"):
+            label = f"51 {face}/{corner} {kernel}"
+            launches, params, S = solver_path(card, label, base, S_init, face, corner, kernel)
+            key = f"{'zcarry_mhd' if kernel == 'zcarry' else 'mhd_step'}_{face}_{corner}"
+            out["launches"][key] = launches["zcarry_mhd" if kernel == "zcarry" else "mhd_step"]
+            dt = dt_from_inv(params, cfl_mhd(params, S))
+            if kernel == "zcarry":
+                Sw = torch.empty_like(S)
+                out["ms"][key] = time_ms(lambda: zcarry_mhd(params, S, Sw, dt, active, fold=True),
+                                         10)
+            else:
+                Sw, scratch = S.clone(), mhd_step.scratch(params, S)
+                out["ms"][key] = time_ms(lambda: mhd_step(params, Sw, dt, active, scratch), 10)
+                del scratch
+            del Sw
+            torch.cuda.empty_cache()
+            # against the twin at n_twin^3 (256 where its memory fits, phase 6)
+            St = S if n_twin == 256 else S[:, :n_twin, :n_twin, :n_twin].contiguous()
+            pt = params if n_twin == 256 else block_params(params, n_twin)
+            dt_t = dt_from_inv(pt, cfl_mhd(pt, St))
+            if kernel == "zcarry":
+                got = torch.empty_like(St)
+                zcarry_mhd(pt, St, got, dt_t, active, fold=True)
+            else:
+                got = mhd_step(pt, St.clone(), dt_t, active, mhd_step.scratch(pt, St))
+            want = mhd_3d_periodic_update(pt, St, dt_t)
+            out["max_abs_err"][key] = float((got - want).abs().max())
+            check(f"{label} at {n_twin}^3 f32", rel_l2(got, want), TOL_STEP1["float32"],
+                  f", max abs {out['max_abs_err'][key]:.3e}")
+            del got, want
+            torch.cuda.empty_cache()
+            out["plain_ms"][key] = time_ms(lambda: mhd_3d_periodic_update(pt, St, dt_t), 3)
+            # the bound: bytes read and written once (64 B/cell), the step's
+            # operations of this pair counted on a 32^3 block (and, streamed,
+            # the folded CFL's)
+            blk = block_params(params, 32)
+            S_sub = S[:, :32, :32, :32].double().contiguous().cpu()
+            ops = lib.ramses_mhd_step_ops(S_sub.data_ptr(), 0, 32, 32, 32, param_block(blk),
+                                          float(dt)) / 32 ** 3 * n
+            if kernel == "zcarry":
+                ops += lib.ramses_cfl_mhd_ops(S_sub.data_ptr(), 32, 32, 32,
+                                              param_block(blk)) / 32 ** 3 * n
+            t_bytes = 2 * 8 * 4 * n / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / F32_FLOP_PER_S * 1e3
+            out["bounds"][key] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+                                  "operations")
+            ms, (bound_ms, by) = out["ms"][key], out["bounds"][key]
+            print(f"[{label}] kernel {ms:.4f} ms at 256^3 f32, bound {bound_ms:.4f} ms by {by} "
+                  f"({ops / n:.1f} flop/cell; bytes {t_bytes:.4f} ms), {ms / bound_ms:.1f}x; "
+                  f"twin {out['plain_ms'][key]:.3f} ms at {n_twin}^3 ({card})")
+            del S, St
+            torch.cuda.empty_cache()
+    del S_init
+    torch.cuda.empty_cache()
+
+    # the stratified MRI with nu and eta as shipped (compensated) at
+    # 128x256x128. Its init leaves cells at the density floor with
+    # supersonic velocities (ROADMAP Queue 3 item 8), where the explicit
+    # viscous stress (rho_f nu grad v, rho_f of the face) acts as a
+    # kinematic viscosity ~1e4 nu; with scripts/perf_table.py's nu = 4e-5,
+    # eta = 1e-5 (and with 4e-6, 1e-6) the box leaves rho > 0 or goes NaN
+    # within 20 steps (PERF.md section 6), so this cell takes a hundredth of
+    # those
+    launches, (params, S, kept, t, _config) = phase13(
+        card, "51s", *STRAT_DISSIP_COEFFS, compensated=None, ini=STRAT_INI)
+    name, size = "dissip_step_strat", f"{params.nx}x{params.ny}x{params.nz}"
+    out["launches"][name] = launches["dissip_step"]
+    face = kept[0] if params.compensated else kept
+    dt = dt_from_inv(params, cfl_mhd(params, S, kept=kept))
+    slabs, zslabs = strat_slabs(params, S, kept, t, dt)
+    got, kept_got = torch.empty_like(S), kept.clone()
+    dissip_step(params, S, got, dt, active, shear=(slabs, kept_got, zslabs))
+    Sw, kw = torch.empty_like(S), kept.clone()
+    out["ms"][name] = time_ms(
+        lambda: dissip_step(params, S, Sw, dt, active, shear=(slabs, kw, zslabs)), 10)
+    del Sw, kw
+
+    def twin():
+        S_new, eypl, ezpl = mhd_dissipation_shear_update(params, S, slabs, dt, zslabs)
+        old = torch.stack([slabs[1, 5, ..., 0], kept[1]]) if params.compensated else face
+        return S_new, kept_face_resistive_ct(params, old, eypl, ezpl, dt)
+
+    want, kept_want = twin()
+    out["max_abs_err"][name] = max(float((got - want).abs().max()),
+                                   float((kept_got - kept_want).abs().max()))
+    check_equal(f"51s {name} {size} f32 compensated state and carry", got, want)
+    check_equal(f"51s {name} {size} f32 kept face and carry", kept_got, kept_want)
+    del got, want
+    torch.cuda.empty_cache()
+    out["plain_ms"][name] = time_ms(twin, 3)
+    # the bound: the shear mode's bytes (dissip_bytes) and the z slab rows
+    # its stencil reaches (2 a side); the operations counted on an
+    # nx x 32 x nz block (the stratified rows in z), scaled to ny
+    iso, visc, resist = params.c_iso > 0, params.nu > 0, params.eta > 0
+    read = 4 * visc + 3 * resist + (not iso)
+    nbytes = dissip_bytes(params, True) + 4 * 2 * 2 * read * params.nx * params.ny
+    by = 32
+    blk = params.replace(ny=by, ymax=params.ymin + by * params.dy)
+    shear_mode = torch.zeros(1, dtype=torch.float64)  # (a non-null slab pointer: the shear mode)
+    ops = lib.ramses_dissip_step_ops(None, shear_mode.data_ptr(), 1, params.nx, by, params.nz,
+                                     param_block(blk), float(dt)) * params.ny / by
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    out["bounds"][name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    cells = params.nx * params.ny * params.nz
+    print(f"[51s] {name} at {size} f32 (compensated): {nbytes / cells:.1f} B/cell -> "
+          f"{t_bytes:.5f} ms; {ops / cells:.1f} flop/cell -> {t_ops:.5f} ms: bound "
+          f"{out['bounds'][name][0]:.5f} ms by {out['bounds'][name][1]}; kernel "
+          f"{out['ms'][name]:.4f} ms ({out['ms'][name] / out['bounds'][name][0]:.1f}x), twin "
+          f"{out['plain_ms'][name]:.3f} ms ({card})")
+    del S, kept, slabs, zslabs
+    torch.cuda.empty_cache()
+
+    # 2D: the whole-array step with (hll, hlla), card against CPU
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.config.params import params_from_config
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+    from ramsesgpu_tpu_torch.solvers.step import make_advance_n
+
+    config = ConfigMap(Path("data/orszag-tang.ini"))
+    for axis in ("nx", "ny"):
+        config.set_integer("mesh", axis, 64)
+    config.set_string("implementation", "dtype", "float64")
+    config.set_string("hydro", "riemannSolver", "hll")
+    config.set_string("MHD", "magRiemannSolver", "hlla")
+    params = params_from_config(config)
+    U = make_boundaries(params, torch.from_numpy(init_problem(params, config)).cuda())
+    t0 = torch.zeros((), dtype=U.dtype, device="cuda")
+    U_gpu, t_gpu, k_gpu = make_advance_n(params, "cuda", config)(U, t0, 10)
+    U_cpu, t_cpu, k_cpu = make_advance_n(params, "cpu", config)(U.cpu(), t0.cpu(), 10)
+    rel = rel_l2(U_gpu.cpu(), U_cpu)
+    print(f"[51 2D] Orszag-Tang 64^2 f64 hll/hlla, 10 steps, card vs CPU: relative L2 "
+          f"{rel:.3e} (tol 1e-12), t {float(t_gpu):.6e} vs {float(t_cpu):.6e}")
+    if not (int(k_gpu) == int(k_cpu) == 10 and rel <= 1e-12
+            and abs(float(t_gpu) - float(t_cpu)) <= 1e-12 * float(t_cpu)):
+        raise AssertionError(f"51 2D: k {int(k_gpu)}/{int(k_cpu)}, rel {rel}")
+    return out
+
+
 def main() -> int:
     start = time.perf_counter()
 
@@ -5496,7 +5849,10 @@ def main() -> int:
     lap("49")
     phase50(card)
     lap("50")
+    solvers = phase51(card, timing["n_twin"])
+    lap("51")
     bounds.update(grav["bounds"])
+    bounds.update(solvers["bounds"])
     if "jax" in sys.modules or any(m.startswith("ramsesgpu_tpu.") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
 
@@ -5521,12 +5877,12 @@ def main() -> int:
                 "cfl_mhd_iso": turb["launches"]["41a"]["cfl_mhd"],
                 "zcarry_mhd_iso": turb["launches"]["41z"]["zcarry_mhd"],
                 "mhd_step_comp_iso": comp_iso_launches["mhd_step"], **wall_iso["launches"],
-                **grav["launches"], **grav_launches}
+                **grav["launches"], **grav_launches, **solvers["launches"]}
     bounds.update(row4["bounds"])
     measured = {key: {**timing[key], **hydro_timing[key], **shear_timing[key],
                       **dissip_timing[key], **new_timing[key], **zc_timing[key],
                       **wall_timing[key], **row4[key], **iso_timing[key], **wall_iso[key],
-                      **grav[key]}
+                      **grav[key], **solvers[key]}
                 for key in ("ms", "plain_ms", "max_abs_err")}
     # device time (torch.profiler) beside ms (CUDA events) where a kernel
     # runs for less time than its launch takes on the host

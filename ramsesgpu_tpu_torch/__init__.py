@@ -11,11 +11,12 @@ Ported so far, each with its device kernels written by hand in CUDA
 ``ops/``):
 
 - the fully periodic 3D MHD + constrained-transport main path (HLLD face
-  fluxes, 2D-HLLD corner EMFs);
+  fluxes, 2D-HLLD corner EMFs; every MHD path also takes LLF or HLL faces
+  and HLLA, HLLF or LLF corners);
 - the MRI shearing box (rotating frame, sheared-periodic x faces), and the
   stratified MRI (BC_Z_STRATIFIED z faces, static vertical gravity);
-- both MHD paths with viscosity and resistivity, and with the
-  Kahan-compensated state ([implementation] compensated);
+- both MHD paths with viscosity and resistivity (the stratified box too),
+  and with the Kahan-compensated state ([implementation] compensated);
 - 3D hydro (approx / HLL / HLLC, slope_type 0-2, the isothermal EOS)
   with any mix of DIRICHLET / NEUMANN / PERIODIC faces.
 

@@ -44,13 +44,26 @@ namespace ramses {
 // ghost rows below the interior (z = -1, -2, -3) and above it (z = nz,
 // nz + 1, nz + 2), each the running product of the hydrostatic ratios in
 // double (solvers/stratified.py), rounded once to T. Then the uniform
-// static gravity (gx, gy, gz).
+// static gravity (gx, gy, gz). Then the MHD corner solver (P_SOLVER is
+// the face solver, a RiemannSolver value; P_MAGSOLVER a
+// MagneticRiemannSolver value).
 enum {
   P_GAMMA0, P_SMALLR, P_SMALLP, P_SMALLC, P_SLOPE, P_DX, P_DY, P_DZ,
   P_NITER, P_SMALLPP, P_GAMMA6, P_CISO, P_SOLVER,
   P_OMEGA0, P_XMIN, P_FILL_K, P_FILL_LY, P_REMAP_K, P_REMAP_LY, P_NU, P_ETA,
-  P_ZSTRAT, P_ZLO0, P_ZLO1, P_ZLO2, P_ZHI0, P_ZHI1, P_ZHI2, P_GX, P_GY, P_GZ, P_COUNT
+  P_ZSTRAT, P_ZLO0, P_ZLO1, P_ZLO2, P_ZHI0, P_ZHI1, P_ZHI2, P_GX, P_GY, P_GZ, P_MAGSOLVER,
+  P_COUNT
 };
+
+// the MHD solvers (core/constants.py RiemannSolver, MagneticRiemannSolver)
+enum { MHD_HLL = 1, MHD_HLLD = 3, MHD_LLF = 4 };
+enum { MAG_HLLD = 0, MAG_HLLF = 1, MAG_HLLA = 2, MAG_LLF = 4 };
+
+// whether the block asks for another MHD solver pair than HLLD faces with
+// 2D-HLLD corners: the MHD step kernels' general instances
+inline bool general_solvers(const double* p) {
+  return (int)p[P_SOLVER] != MHD_HLLD || (int)p[P_MAGSOLVER] != MAG_HLLD;
+}
 
 // whether the block carries a uniform static gravity (P_GX .. P_GZ, the
 // [gravity] static_field_*): the step kernels' gravity instances
@@ -72,6 +85,8 @@ struct Phys {
   bool zstrat;
   // the uniform static gravity (the gravity instances read it)
   T grav[3];
+  // the MHD face and corner solvers (the general instances branch on them)
+  int solver, mag_solver;
 };
 
 template <typename T>
@@ -100,6 +115,8 @@ inline Phys<T> make_phys(const double* p) {
   ph.vy_shift = T(1.5 * om * p[P_DX] / 2.0);
   ph.zstrat = p[P_ZSTRAT] != 0.0;
   for (int a = 0; a < 3; ++a) ph.grav[a] = T(p[P_GX + a]);
+  ph.solver = (int)p[P_SOLVER];
+  ph.mag_solver = (int)p[P_MAGSOLVER];
   return ph;
 }
 

@@ -9,10 +9,15 @@
 //   mhd_dissipation_periodic_update.
 // - shear: the shearing box's interior with its sheared x ghost slabs
 //   (shear_border.cu, rebuilt at t + dt from the post-Godunov state); y and
-//   z wrap, an x load outside [0, nx) reads a slab. Replaces the dissipative
-//   sub-step of the TPU's MRI loop, pallas/shear_packed.py:917 with the
-//   border strip's mode "dissip" (:339-362 of :237, and of the fused strip
-//   :432). It also applies the resistive CT to the kept Bx face at x = nx;
+//   z wrap, an x load outside [0, nx) reads a slab. On the stratified box
+//   (BC_Z_STRATIFIED z faces, isothermal) a z load outside [0, nz) reads
+//   the stratified z ghost slabs instead of wrapping, rebuilt with the x
+//   slabs from the post-Godunov state (shear_border.cu SlabBuild; the JAX
+//   whole-array step refills every ghost with make_all_boundaries_shear at
+//   t + dt before its dissipation, godunov_mhd.py:748-761). Replaces the
+//   dissipative sub-step of the TPU's MRI loop, pallas/shear_packed.py:917
+//   with the border strip's mode "dissip" (:339-362 of :237, and of the
+//   fused strip :432). It also applies the resistive CT to the kept Bx face at x = nx;
 //   that face's old value comes from the XMAX slab's first Bx column, never
 //   from `kept`, which this kernel writes. Plain twin:
 //   mhd_dissipation_shear_update + kept_face_resistive_ct.
@@ -129,14 +134,18 @@ HD int state_channel(int f) {
 enum { F_U = 0, F_V, F_W, F_EV, F_ER, NF };
 
 // GHOST: the ghosted mode (a filled ghosted state in; its interior and
-// its max-side face layer's B out)
-template <bool SHEAR_, bool ISO_, bool COMP_, bool GHOST_ = false>
+// its max-side face layer's B out). STRAT: the shear mode on a stratified
+// box (z loads outside the interior read the z slabs; isothermal only, as
+// the stratified MRI)
+template <bool SHEAR_, bool ISO_, bool COMP_, bool GHOST_ = false, bool STRAT_ = false>
 struct Mode {
   static constexpr bool SHEAR = SHEAR_;
   static constexpr bool ISO = ISO_;
   static constexpr bool COMP = COMP_;
   static constexpr bool GHOST = GHOST_;
+  static constexpr bool STRAT = STRAT_;
   static_assert(!(SHEAR_ && GHOST_), "the ghosted mode has no shearing box");
+  static_assert(!STRAT_ || (SHEAR_ && ISO_), "the stratified box is isothermal and sheared");
 };
 
 // the coefficients, each formed in double as the JAX package forms its
@@ -200,6 +209,7 @@ struct Args {
                    // the cube 0 .. n of every axis (the interior and its
                    // max-side face layer, whose B the CT updates)
   const T* slabs;  // shear: [2][8][nz][ny][SLAB] sheared x ghosts (XMIN, XMAX)
+  const T* zslabs; // stratified: [2][8][SLAB][ny][nx + 2 SLAB] z ghosts (ZMIN, ZMAX)
   T* kept;         // shear: [nz][ny] the kept Bx face (written when eta > 0)
   T* kept_c;       // compensated shear: [nz][ny] the kept face's carry (kept[1])
   const T* dt;     // device scalar
@@ -386,7 +396,7 @@ struct Body {
   HD void load(const Item& it, int k, int w, T* ring) const {
     const Dims& d = a.d;
     T* dst = state(ring, w);
-    const int kk = M::GHOST ? k : wrap_any(k, d.nz);
+    const int kk = M::GHOST || M::STRAT ? k : wrap_any(k, d.nz);
     const bool mine = k >= it.z0 && k < it.z1;
     block_items(R::LPP, [&](int t) {
       const int li = t % R::LW - 2, lj = t / R::LW - 2;
@@ -399,6 +409,13 @@ struct Body {
         stride = a.ng;
         src = a.S + ((long long)(kk + a.g) * (d.ny + 2 * a.g) + (j + a.g)) * (d.nx + 2 * a.g) +
               i + a.g;
+      } else if (M::STRAT && (kk < 0 || kk >= d.nz)) {
+        // a stratified z slab: ZMIN's rows -3 .. -1, ZMAX's nz .. nz + 2,
+        // each on the columns -3 .. nx + 2 (the x slabs' too)
+        const int side = kk < 0 ? 0 : 1, row = kk < 0 ? kk + SLAB : kk - d.nz;
+        stride = (long long)SLAB * d.ny * (d.nx + 2 * SLAB);
+        src = a.zslabs + (((long long)side * 8 * SLAB + row) * d.ny + j) * (d.nx + 2 * SLAB) + i +
+              SLAB;
       } else if (M::SHEAR && (i < 0 || i >= d.nx)) {
         // a sheared slab: XMIN's columns -3 .. -1, XMAX's nx .. nx + 2
         const int side = i < 0 ? 0 : 1, col = i < 0 ? i + SLAB : i - d.nx;
@@ -793,13 +810,14 @@ int resident_blocks(int* blocks) {
 template <typename T, typename M>
 int dissip_step(const T* S, T* So, const T* slabs, T* kept, const T* dt,
                 const unsigned char* active, int nx, int ny, int nz, const double* prm,
-                void* stream, int g = 0) {
+                void* stream, int g = 0, const T* zslabs = nullptr) {
   using R = Ring<T, M>;
   Body<T, M> body;
   Args<T>& a = body.a;
   a.S = S;
   a.So = So;
   a.slabs = slabs;
+  a.zslabs = zslabs;
   a.kept = kept;
   a.kept_c = M::COMP && kept ? kept + (long long)ny * nz : nullptr;
   a.dt = dt;
@@ -853,10 +871,19 @@ int dissip_ghosted_entry(const T* U, T* out, const T* dt, const unsigned char* a
                                                          nx, ny, nz, prm, stream, g);
 }
 
+// zslabs (stratified; slabs given, isothermal) or null
 template <typename T>
-int dissip_entry(const T* S, T* So, const T* slabs, T* kept, const T* dt,
+int dissip_entry(const T* S, T* So, const T* slabs, T* kept, const T* zslabs, const T* dt,
                  const unsigned char* active, int comp, int nx, int ny, int nz,
                  const double* prm, void* stream) {
+  if (zslabs) {
+    if (!slabs || !(prm[P_CISO] > 0.0)) return 1;  // cudaErrorInvalidValue
+    if (comp)
+      return dissip_step<T, Mode<true, true, true, false, true>>(
+          S, So, slabs, kept, dt, active, nx, ny, nz, prm, stream, 0, zslabs);
+    return dissip_step<T, Mode<true, true, false, false, true>>(
+        S, So, slabs, kept, dt, active, nx, ny, nz, prm, stream, 0, zslabs);
+  }
   if (slabs && comp)
     return dispatch<T, true, true>(S, So, slabs, kept, dt, active, nx, ny, nz, prm, stream);
   if (slabs)
@@ -920,15 +947,36 @@ int ramses_dissip_step_launch(int f64, int shear, int iso, int comp, long long* 
 int ramses_dissip_step_f32(const float* S, float* So, const float* slabs, float* kept,
                            const float* dt, const unsigned char* active, int comp, int nx,
                            int ny, int nz, const double* prm, void* stream) {
-  return ramses::dissip::dissip_entry<float>(S, So, slabs, kept, dt, active, comp, nx, ny, nz,
-                                             prm, stream);
+  return ramses::dissip::dissip_entry<float>(S, So, slabs, kept, nullptr, dt, active, comp, nx,
+                                             ny, nz, prm, stream);
 }
 
 int ramses_dissip_step_f64(const double* S, double* So, const double* slabs, double* kept,
                            const double* dt, const unsigned char* active, int comp, int nx,
                            int ny, int nz, const double* prm, void* stream) {
-  return ramses::dissip::dissip_entry<double>(S, So, slabs, kept, dt, active, comp, nx, ny, nz,
-                                              prm, stream);
+  return ramses::dissip::dissip_entry<double>(S, So, slabs, kept, nullptr, dt, active, comp, nx,
+                                              ny, nz, prm, stream);
+}
+
+// the shear mode on a stratified box (isothermal): as above with the
+// stratified z ghost slabs zslabs [2][8][3][ny][nx + 6] of the block
+// [XMIN slab | S | XMAX slab] beside it
+int ramses_dissip_step_strat_f32(const float* S, float* So, const float* slabs, float* kept,
+                                 const float* zslabs, const float* dt,
+                                 const unsigned char* active, int comp, int nx, int ny, int nz,
+                                 const double* prm, void* stream) {
+  if (zslabs == nullptr) return 1;  // cudaErrorInvalidValue
+  return ramses::dissip::dissip_entry<float>(S, So, slabs, kept, zslabs, dt, active, comp, nx,
+                                             ny, nz, prm, stream);
+}
+
+int ramses_dissip_step_strat_f64(const double* S, double* So, const double* slabs, double* kept,
+                                 const double* zslabs, const double* dt,
+                                 const unsigned char* active, int comp, int nx, int ny, int nz,
+                                 const double* prm, void* stream) {
+  if (zslabs == nullptr) return 1;  // cudaErrorInvalidValue
+  return ramses::dissip::dissip_entry<double>(S, So, slabs, kept, zslabs, dt, active, comp, nx,
+                                              ny, nz, prm, stream);
 }
 
 // the ghosted mode (walls, the jet): U [8][nz+2g][ny+2g][nx+2g], its
@@ -966,8 +1014,9 @@ struct CountFields {
 // each phase's per-cell function once, times the cells it is needed on:
 // periodic, every cell; shear, the EMFs on columns -1..nx+1, the
 // velocities and B2 on -1..nx, the x faces 0..nx and the y and z faces
-// 0..nx-1; the update on the state (and, with eta, the kept face). The
-// tiles' halo recomputation is the kernel's cost, not the function's.
+// 0..nx-1 (stratified: the same rows in z, the z faces 0..nz); the update
+// on the state (and, with eta, the kept face). The tiles' halo
+// recomputation is the kernel's cost, not the function's.
 template <typename M>
 long long count_ops(int nx, int ny, int nz, const double* prm, double dt) {
   const Coef<Counted> k = make_coef<Counted>(prm);
@@ -975,6 +1024,10 @@ long long count_ops(int nx, int ny, int nz, const double* prm, double dt) {
   const long long plane = (long long)ny * nz, n = plane * nx;
   const long long x_emf = M::SHEAR ? nx + 3 : nx, x_b2 = M::SHEAR ? nx + 2 : nx;
   const long long x_face = M::SHEAR ? nx + 1 : nx;
+  // the z rows of the EMFs, B2 and the velocities, and the z faces
+  // (stratified: the extra rows as in x)
+  const long long z_emf = M::STRAT ? nz + 3 : nz, z_b2 = M::STRAT ? nz + 2 : nz;
+  const long long z_face = M::STRAT ? nz + 1 : nz;
   const CountFields p;
   const Counted dtc(dt), one(1.0);
   long long ops = 0;
@@ -987,14 +1040,14 @@ long long count_ops(int nx, int ny, int nz, const double* prm, double dt) {
   Counted e[3 * 2 + 2] = {one, one, one, one, one, one, one, one};
   Counted out[NF];
   if (k.resist) {
-    count(x_emf * plane, [&] {
+    count(x_emf * ny * z_emf, [&] {
       for (int f = 0; f < 3; ++f) out[f] = k.m_eta * current(p, k.d, f, 0, 0, 0);
     });
-    count(x_b2 * plane, [&] {
+    count(x_b2 * ny * z_b2, [&] {
       for (int f = 0; f < 3; ++f) out[f] = one + ct_delta(e, e + 1, 2, 1, 0, f, dtdx, dtdy, dtdz);
     });
   }
-  if (k.visc) count(x_b2 * plane, [&] {
+  if (k.visc) count(x_b2 * ny * z_b2, [&] {
     for (int q = 0; q < 3; ++q) out[q] = one / one;
   });
   if (k.visc || (k.resist && !M::ISO)) {
@@ -1006,7 +1059,7 @@ long long count_ops(int nx, int ny, int nz, const double* prm, double dt) {
     };
     count(x_face * plane, [&] { faces(std::integral_constant<int, 0>{}); });
     count(n, [&] { faces(std::integral_constant<int, 1>{}); });
-    count(n, [&] { faces(std::integral_constant<int, 2>{}); });
+    count((long long)nx * ny * z_face, [&] { faces(std::integral_constant<int, 2>{}); });
   }
   // the update: the flux differences and their adds (Kahan: four
   // operations each), B's CT delta again when compensated
@@ -1036,8 +1089,13 @@ long long count_ops(int nx, int ny, int nz, const double* prm, double dt) {
   return ops;
 }
 
+// (the stratified instances where the block's z faces are, prm[P_ZSTRAT])
 template <bool SHEAR, bool COMP>
 long long count_dispatch(int nx, int ny, int nz, const double* prm, double dt) {
+  if constexpr (SHEAR) {
+    if (prm[P_ZSTRAT] != 0.0 && prm[P_CISO] > 0.0)
+      return count_ops<Mode<true, true, COMP, false, true>>(nx, ny, nz, prm, dt);
+  }
   return prm[P_CISO] > 0.0 ? count_ops<Mode<SHEAR, true, COMP>>(nx, ny, nz, prm, dt)
                            : count_ops<Mode<SHEAR, false, COMP>>(nx, ny, nz, prm, dt);
 }

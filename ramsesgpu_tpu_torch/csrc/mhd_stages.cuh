@@ -8,6 +8,8 @@
 // stages and their modes are described in mhd_step.cu.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 
 // its own namespace, as hydro_step.cu's (shared stage type names)
@@ -53,8 +55,15 @@ constexpr int WH = 2;     // stage-grid cells beyond each face, every axis (wind
 // GRAV (the ghosted mode): the uniform static gravity, a constant vector
 // (Phys::grav): the half-dt kick 0.5 dt g on the velocities of every
 // traced state where FluxEmf forms it, and the conservative source in the
-// update of the interior (godunov_mhd.py:613-618, 745-746)
-template <bool SHEAR_, bool ISO_, bool STRAT_ = false, bool GHOST_ = false, bool GRAV_ = false>
+// update of the interior (godunov_mhd.py:613-618, 745-746). GEN: the
+// general instance of a mode, whose face solver (HLLD, LLF, HLL) and
+// corner solver (2D-HLLD, HLLA, HLLF, LLF) come from the parameter block
+// (Phys::solver, mag_solver), one warp-uniform branch each where a flux or
+// an EMF is formed; the other instances are HLLD / 2D-HLLD only, the code
+// earlier builds ran. The general instances are compiled in their own
+// objects (mhd_step_general.cu, zcarry_mhd_general.cu).
+template <bool SHEAR_, bool ISO_, bool STRAT_ = false, bool GHOST_ = false, bool GRAV_ = false,
+          bool GEN_ = false>
 struct Mode {
   static constexpr bool SHEAR = SHEAR_;
   static constexpr bool ISO = ISO_;
@@ -62,8 +71,20 @@ struct Mode {
   static constexpr bool GHOST = GHOST_;
   static constexpr bool WINDOW = SHEAR_ && GHOST_;
   static constexpr bool GRAV = GRAV_;
+  static constexpr bool GEN = GEN_;
   static_assert(!GRAV_ || (GHOST_ && !SHEAR_), "the uniform gravity is the ghosted mode's");
 };
+// the mode M with its solvers fixed (HLLD / 2D-HLLD: GEN false) or from
+// the parameter block (GEN true)
+template <typename M, bool GEN>
+using WithSolvers = Mode<M::SHEAR, M::ISO, M::STRAT, M::GHOST, M::GRAV, GEN>;
+
+// f(gen) with gen a std::bool_constant: true where prm asks for another
+// solver pair than HLLD / 2D-HLLD (common.cuh general_solvers)
+template <typename F>
+int with_solvers(const double* prm, const F& f) {
+  return general_solvers(prm) ? f(std::true_type{}) : f(std::false_type{});
+}
 using Periodic = Mode<false, false>;
 using Ghosted = Mode<false, false, false, true>;
 // their isothermal instances (cIso > 0: turbulence, isothermal OT)
@@ -453,6 +474,75 @@ HD void riemann_hlld(const Phys<T>& ph, const T* ql, const T* qr, T* f) {
   f[4] = ro * uo * wo - a * co;
 }
 
+// riemann_mhd.py _find_mhd_flux with the normal field a: the conservative
+// state u and the flux f, each [0..4] (rho, E, the normal and two
+// transverse momenta) of the rotated state q
+template <typename M, typename T>
+HD void mhd_flux(const Phys<T>& ph, const T* q, T a, T* u, T* f) {
+  const T d = q[ID], p = pres<M>(ph, q);
+  const T vu = q[IU], v = q[IV], w = q[IW], b = q[IB], c = q[IC];
+  const T ecin = T(0.5) * (vu * vu + v * v + w * w) * d;
+  const T emag = T(0.5) * (a * a + b * b + c * c);
+  const T etot = p * ph.entho + ecin + emag;
+  const T ptot = p + emag;
+  u[0] = d;
+  u[1] = etot;
+  u[2] = d * vu;
+  u[3] = d * v;
+  u[4] = d * w;
+  f[0] = d * vu;
+  f[1] = (etot + ptot) * vu - a * (a * vu + b * v + c * w);
+  f[2] = d * vu * vu - a * a + ptot;
+  f[3] = d * vu * v - a * b;
+  f[4] = d * vu * w - a * c;
+}
+
+// riemann_mhd.py _fast_speed of q along the normal field bn
+template <typename M, typename T>
+HD T fast_speed_q(const Phys<T>& ph, const T* q, T a, T bn) {
+  return fast_speed(fast_pre(ph, q[ID], pres<M>(ph, q), a, q[IB], q[IC]), bn);
+}
+
+// riemann_mhd.py riemann_llf_mhd: the normal field of both sides is their
+// mean before the fluxes and the fast speeds
+template <typename M, typename T>
+HD void riemann_llf(const Phys<T>& ph, const T* ql, const T* qr, T* f) {
+  const T a = T(0.5) * (ql[IA] + qr[IA]);
+  T ul[NFLUX], fl[NFLUX], ur[NFLUX], fr[NFLUX];
+  mhd_flux<M>(ph, ql, a, ul, fl);
+  mhd_flux<M>(ph, qr, a, ur, fr);
+  const T vel = pmax(fast_speed_q<M>(ph, ql, a, a) + r_abs(ql[IU]),
+                     fast_speed_q<M>(ph, qr, a, a) + r_abs(qr[IU]));
+#pragma unroll
+  for (int k = 0; k < NFLUX; ++k) f[k] = T(0.5) * (fl[k] + fr[k]) - T(0.5) * vel * (ur[k] - ul[k]);
+}
+
+// riemann_mhd.py riemann_hll_mhd: the HLL average of the two sides' full
+// MHD fluxes, the fast speeds along the mean normal field
+template <typename M, typename T>
+HD void riemann_hll(const Phys<T>& ph, const T* ql, const T* qr, T* f) {
+  const T a = T(0.5) * (ql[IA] + qr[IA]);
+  T cl[NFLUX], fl[NFLUX], cr[NFLUX], fr[NFLUX];
+  mhd_flux<M>(ph, ql, a, cl, fl);
+  mhd_flux<M>(ph, qr, a, cr, fr);
+  const T cfl = fast_speed_q<M>(ph, ql, a, a), cfr = fast_speed_q<M>(ph, qr, a, a);
+  const T SL = pmin(pmin(ql[IU], qr[IU]) - pmax(cfl, cfr), T(0));
+  const T SR = pmax(pmax(ql[IU], qr[IU]) + pmax(cfl, cfr), T(0));
+#pragma unroll
+  for (int k = 0; k < NFLUX; ++k)
+    f[k] = (SR * fl[k] - SL * fr[k] + SR * SL * (cr[k] - cl[k])) / (SR - SL);
+}
+
+// the face flux of M's solver: HLLD, or (general instances) the block's
+template <typename M, typename T>
+HD void riemann_face(const Phys<T>& ph, const T* ql, const T* qr, T* f) {
+  if constexpr (M::GEN) {
+    if (ph.solver == MHD_LLF) return riemann_llf<M>(ph, ql, qr, f);
+    if (ph.solver == MHD_HLL) return riemann_hll<M>(ph, ql, qr, f);
+  }
+  riemann_hlld<M>(ph, ql, qr, f);
+}
+
 // riemann_mhd.py mag_riemann2d_hlld on corner states in the 2D order
 // (rho, p, u, v, w, A, B, C), plus the four corner EMFs.
 template <typename T>
@@ -578,6 +668,82 @@ HD T mag_riemann2d_hlld(const Phys<T>& ph, const T* qLL, const T* qRL, const T* 
          SAR * SAL * inv_dsx * (BstarR - BstarL);
 }
 
+// riemann_mhd.py mag_riemann2d_hll_family: HLLA (FAST false: the Alfven
+// speeds |B_n| / sqrt(rho), floored at smallc) or HLLF (the fast speeds);
+// the 2D-HLL average of the corner EMFs plus dissipation on the in-plane
+// field jumps
+template <typename M, bool FAST, typename T>
+HD T mag_riemann2d_hll(const Phys<T>& ph, const T* qLL, const T* qRL, const T* qLR,
+                       const T* qRR, T eLL, T eRL, T eLR, T eRR) {
+  const T* q[4] = {qLL, qLR, qRL, qRR};
+  T cx[4], cy[4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    if constexpr (FAST) {
+      const FastPre<T> pre = fast_pre(ph, q[n][ID], pres<M>(ph, q[n]), q[n][IA], q[n][IB],
+                                      q[n][IC]);
+      cx[n] = fast_speed(pre, q[n][IA]);
+      cy[n] = fast_speed(pre, q[n][IB]);
+    } else {
+      cx[n] = r_sqrt(q[n][IA] * q[n][IA] / q[n][ID]);
+      cy[n] = r_sqrt(q[n][IB] * q[n][IB] / q[n][ID]);
+    }
+  }
+  T cxmax = pmax(pmax(cx[0], cx[1]), pmax(cx[2], cx[3]));
+  T cymax = pmax(pmax(cy[0], cy[1]), pmax(cy[2], cy[3]));
+  if constexpr (!FAST) {
+    cxmax = pmax(cxmax, ph.smallc);
+    cymax = pmax(cymax, ph.smallc);
+  }
+  const T ulo = pmin(pmin(pmin(qLL[IU], qLR[IU]), qRL[IU]), qRR[IU]);
+  const T uhi = pmax(pmax(pmax(qLL[IU], qLR[IU]), qRL[IU]), qRR[IU]);
+  const T vlo = pmin(pmin(pmin(qLL[IV], qLR[IV]), qRL[IV]), qRR[IV]);
+  const T vhi = pmax(pmax(pmax(qLL[IV], qLR[IV]), qRL[IV]), qRR[IV]);
+  const T SL = pmin(ulo - cxmax, T(0));
+  const T SR = pmax(uhi + cxmax, T(0));
+  const T SB = pmin(vlo - cymax, T(0));
+  const T ST = pmax(vhi + cymax, T(0));
+  return (SL * SB * eRR - SL * ST * eRL - SR * SB * eLR + SR * ST * eLL) / (SR - SL) /
+             (ST - SB) -
+         ST * SB / (ST - SB) * (qRR[IA] - qLL[IA]) + SR * SL / (SR - SL) * (qRR[IB] - qLL[IB]);
+}
+
+// riemann_mhd.py mag_riemann2d_llf: the mean EMF plus LLF dissipation on
+// the in-plane field jumps, the speeds |u_n| + the fast speed along IA (x)
+// and IB (y)
+template <typename M, typename T>
+HD T mag_riemann2d_llf(const Phys<T>& ph, const T* qLL, const T* qRL, const T* qLR,
+                       const T* qRR, T eLL, T eRL, T eLR, T eRR) {
+  const T E = T(0.25) * (eLL + eRL + eLR + eRR);
+  const T* q[4] = {qLL, qLR, qRL, qRR};
+  T cx[4], cy[4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const FastPre<T> pre = fast_pre(ph, q[n][ID], pres<M>(ph, q[n]), q[n][IA], q[n][IB],
+                                    q[n][IC]);
+    cx[n] = fast_speed(pre, q[n][IA]) + r_abs(q[n][IU]);
+    cy[n] = fast_speed(pre, q[n][IB]) + r_abs(q[n][IV]);
+  }
+  const T vel_x = pmax(pmax(cx[0], cx[1]), pmax(cx[2], cx[3]));
+  const T vel_y = pmax(pmax(cy[0], cy[1]), pmax(cy[2], cy[3]));
+  return E - T(0.5) * vel_y * (qRR[IA] - qLL[IA]) + T(0.5) * vel_x * (qRR[IB] - qLL[IB]);
+}
+
+// the corner EMF of M's solver: 2D-HLLD, or (general instances) the block's
+template <typename M, typename T>
+HD T mag_riemann2d(const Phys<T>& ph, const T* qLL, const T* qRL, const T* qLR, const T* qRR,
+                   T eLL, T eRL, T eLR, T eRR) {
+  if constexpr (M::GEN) {
+    if (ph.mag_solver == MAG_HLLA)
+      return mag_riemann2d_hll<M, false>(ph, qLL, qRL, qLR, qRR, eLL, eRL, eLR, eRR);
+    if (ph.mag_solver == MAG_HLLF)
+      return mag_riemann2d_hll<M, true>(ph, qLL, qRL, qLR, qRR, eLL, eRL, eLR, eRR);
+    if (ph.mag_solver == MAG_LLF)
+      return mag_riemann2d_llf<M>(ph, qLL, qRL, qLR, qRR, eLL, eRL, eLR, eRR);
+  }
+  return mag_riemann2d_hlld<M>(ph, qLL, qRL, qLR, qRR, eLL, eRL, eLR, eRR);
+}
+
 // riemann_mhd.py compute_emf: rotation (iu, iv, iw, ia, ib, ic) of the
 // edge family, corner quadrants qLL <- qRT, qRL <- qLT, qLR <- qRB,
 // qRR <- qLB with in-plane field continuity.
@@ -596,7 +762,7 @@ HD T compute_emf(const Phys<T>& ph, const T* qRT, const T* qRB, const T* qLT,
   const T eRL = qRL[IU] * qRL[IB] - qRL[IV] * qRL[IA];
   const T eLR = qLR[IU] * qLR[IB] - qLR[IV] * qLR[IA];
   const T eRR = qRR[IU] * qRR[IB] - qRR[IV] * qRR[IA];
-  return mag_riemann2d_hlld<M>(ph, qLL, qRL, qLR, qRR, eLL, eRL, eLR, eRR);
+  return mag_riemann2d<M>(ph, qLL, qRL, qLR, qRR, eLL, eRL, eLR, eRR);
 }
 
 // the shearing-box upwind term of an EMF (riemann_mhd.py:599-605):
@@ -917,13 +1083,16 @@ HD T traced(const Phys<T>& ph, const P& p, int di, int dj, int dk, int ch) {
   return val;
 }
 
-// 4: the HLLD flux at each cell's left x, y, z face (godunov_mhd.py
-// mhd_fluxes_emfs: qm of the previous cell against this cell's qp, the y/z
-// problems rotated into the x slots and the flux rotated back) and the
-// 2D-HLLD EMFs at its z, y, x edges (note the reference's RB/LT role swap
-// for EMF_Y), each state formed from the precursors (traced) where it is
-// read. p: a site whose pre() reads the precursors of the cell and of its
-// -1 neighbours (x, y, z and the pairs xy, xz, yz). operator() is one cell
+// 4: the face solver's flux at each cell's left x, y, z face
+// (godunov_mhd.py mhd_fluxes_emfs: qm of the previous cell against this
+// cell's qp, the y/z problems rotated into the x slots and the flux rotated
+// back) and the corner solver's EMFs at its z, y, x edges (note the
+// reference's RB/LT role swap for EMF_Y; the shearing-box upwind term is
+// added to whichever corner solver's EMF), each state formed from the
+// precursors (traced) where it is read. HLLD / 2D-HLLD, or in the general
+// instances the block's pair (riemann_face, mag_riemann2d). p: a site
+// whose pre() reads the precursors of the cell and of its -1 neighbours
+// (x, y, z and the pairs xy, xz, yz). operator() is one cell
 // of the stage grid read from the stage buffer (the operation counts);
 // the kernel runs it on a tile (mhd_step.cu FluxEmfStage).
 template <typename T, typename M>
@@ -976,7 +1145,7 @@ struct FluxEmf {
     // qm of the previous cell, qp of this one
     state<2 * AX + 1>(p, -(AX == 0), -(AX == 1), -(AX == 2), perm, ql);
     state<2 * AX>(p, 0, 0, 0, perm, qr);
-    riemann_hlld<M>(a.ph, ql, qr, f);
+    riemann_face<M>(a.ph, ql, qr, f);
     T* out = a.fl + (long long)AX * NFLUX * n;
     // rotate back: out[ch] = f[perm[ch]] (perm is an involution and keeps
     // the five hydro slots among themselves)

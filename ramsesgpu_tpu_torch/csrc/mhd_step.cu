@@ -1,5 +1,9 @@
 // One unsplit MUSCL-Hancock step of 3D ideal MHD with constrained
-// transport (HLLD face fluxes, 2D-HLLD corner EMFs), in five modes:
+// transport (HLLD face fluxes, 2D-HLLD corner EMFs; or, in each mode's
+// general instance, the face solver HLLD, LLF or HLL and the corner solver
+// 2D-HLLD, HLLA, HLLF or LLF that the parameter block names: the JAX
+// dispatch of godunov_mhd.py:226 mhd_fluxes_emfs_from_parts through
+// ops/riemann_mhd.py riemann_mhd and compute_emf), in five modes:
 //
 // - periodic: the fully periodic state. Replaces the TPU kernel
 //   ramsesgpu_tpu/pallas/packed_io.py:148 make_packed_io_step with the
@@ -109,7 +113,8 @@
 //                                    fields and their transverse
 //                                    half-slopes (mhd_stages.cuh PQ ... PKICK)
 //   4 flux+EMF  pre -> fl[3][5],    HLLD flux at each cell's left x/y/z face,
-//               emf[3]              2D-HLLD EMF on its z, y, x edges
+//               emf[3]              2D-HLLD EMF on its z, y, x edges (the
+//                                    general instances: the block's solvers)
 //   5 update    S += dU, CT curl    in place (reads only fluxes, EMFs and the
 //                                    cell's own S)
 // No traced state is stored: each of the 18 is a sum of a few precursors of
@@ -145,6 +150,13 @@
 //
 // A device flag `active` (the loop's t < t_end test) is read by every
 // stage; when it is 0 the step is skipped, so a chunk needs no host sync.
+//
+// The general instances (mhd_stages.cuh Mode with GEN; compiled from this
+// file in mhd_step_general.cu, so the build compiles them beside the
+// others) branch on the solver pair where a flux or an EMF is formed; the
+// entry points below take them where the block asks for another pair than
+// HLLD / 2D-HLLD (common.cuh general_solvers), so the HLLD instances are
+// the code earlier builds ran.
 //
 // Bound on the H100: the step's least time is its arithmetic, 2979
 // counted flops per cell (op_count.cuh), 0.75 ms at 256^3 at the f32
@@ -323,12 +335,13 @@ HD long long ghosted_update_cells(int nx, int ny, int nz) {
 
 // the ghosted mode: U [8][nz+2g][ny+2g][nx+2g], its ghosts filled; plain
 // update only (the JAX package's walled step has no compensated branch);
-// its isothermal instance where cIso > 0
-template <typename T>
+// its isothermal instance where cIso > 0. GEN (here and in the other
+// modes' entries below): the general instances, the solvers from prm
+template <typename T, bool GEN>
 int mhd_step_ghosted(T* U, T* scratch, const T* dt, const unsigned char* active, int nx, int ny,
                      int nz, int g, const double* prm, void* stream) {
   const auto run = [&](auto mode) {
-    using M = decltype(mode);
+    using M = WithSolvers<decltype(mode), GEN>;
     const StepArgs<T> a = ghosted_args<T, M>(U, scratch, dt, active, nx, ny, nz, g, prm);
     return run_stages<T, M>(a, false, ghosted_update_cells(nx, ny, nz), stream);
   };
@@ -339,14 +352,15 @@ int mhd_step_ghosted(T* U, T* scratch, const T* dt, const unsigned char* active,
 
 // the periodic mode, and its isothermal instance where cIso > 0 (the
 // adiabatic instance is the one every earlier build ran)
-template <typename T>
+template <typename T, bool GEN>
 int mhd_step_periodic(T* S, T* scratch, bool comp, const T* dt, const unsigned char* active,
                       int nx, int ny, int nz, const double* prm, void* stream) {
   if (prm[P_CISO] > 0.0)
-    return mhd_step<T, PeriodicIso>(S, scratch, nullptr, nullptr, nullptr, nullptr, comp, dt,
-                                    active, nx, ny, nz, prm, stream);
-  return mhd_step<T, Periodic>(S, scratch, nullptr, nullptr, nullptr, nullptr, comp, dt, active,
-                               nx, ny, nz, prm, stream);
+    return mhd_step<T, WithSolvers<PeriodicIso, GEN>>(S, scratch, nullptr, nullptr, nullptr,
+                                                      nullptr, comp, dt, active, nx, ny, nz, prm,
+                                                      stream);
+  return mhd_step<T, WithSolvers<Periodic, GEN>>(S, scratch, nullptr, nullptr, nullptr, nullptr,
+                                                 comp, dt, active, nx, ny, nz, prm, stream);
 }
 
 // the shear window mode's arguments: U the ghosted window
@@ -375,25 +389,25 @@ StepArgs<T> window_args(const T* U, T* out, T* scratch, T* planes, const T* gz, 
 // the shear window mode (TPU row 4): the window's ghosts filled by the
 // exchange, x0 in prm[P_XMIN], g_z of the window's rows in gz (stratified)
 // or null; the stencil reaches 1 cell past the stage grid, so g >= WH + 1
-template <typename T>
+template <typename T, bool GEN>
 int mhd_step_window(const T* U, T* out, T* planes, T* scratch, const T* gz, const T* dt,
                     const unsigned char* active, int nx, int ny, int nz, int g,
                     const double* prm, void* stream) {
   if (g != SLAB) return 1;  // cudaErrorInvalidValue (gz rows sit at k + SLAB)
   if (gz != nullptr) {
     if (!(prm[P_CISO] > 0.0)) return 1;
-    using M = Mode<true, true, true, true>;
+    using M = Mode<true, true, true, true, false, GEN>;
     return run_stages<T, M>(
         window_args<T, M>(U, out, scratch, planes, gz, dt, active, nx, ny, nz, g, prm), false,
         (long long)nx * ny * nz, stream);
   }
   if (prm[P_CISO] > 0.0) {
-    using M = Mode<true, true, false, true>;
+    using M = Mode<true, true, false, true, false, GEN>;
     return run_stages<T, M>(
         window_args<T, M>(U, out, scratch, planes, nullptr, dt, active, nx, ny, nz, g, prm),
         false, (long long)nx * ny * nz, stream);
   }
-  using M = Mode<true, false, false, true>;
+  using M = Mode<true, false, false, true, false, GEN>;
   return run_stages<T, M>(
       window_args<T, M>(U, out, scratch, planes, nullptr, dt, active, nx, ny, nz, g, prm),
       false, (long long)nx * ny * nz, stream);
@@ -401,23 +415,47 @@ int mhd_step_window(const T* U, T* out, T* planes, T* scratch, const T* gz, cons
 
 // the shear modes: isothermal or adiabatic; stratified (zslabs and gz
 // given) only isothermal, as its scale height cIso / omega0 needs
-template <typename T>
+template <typename T, bool GEN>
 int mhd_step_shear(T* S, T* scratch, const T* slabs, T* planes, const T* zslabs, const T* gz,
                    bool comp, const T* dt, const unsigned char* active, int nx, int ny, int nz,
                    const double* prm, void* stream) {
   if (zslabs != nullptr) {
     if (!(prm[P_CISO] > 0.0) || gz == nullptr) return 1;  // cudaErrorInvalidValue
-    return mhd_step<T, Mode<true, true, true>>(S, scratch, slabs, planes, zslabs, gz, comp, dt,
-                                               active, nx, ny, nz, prm, stream);
+    return mhd_step<T, Mode<true, true, true, false, false, GEN>>(
+        S, scratch, slabs, planes, zslabs, gz, comp, dt, active, nx, ny, nz, prm, stream);
   }
   if (prm[P_CISO] > 0.0)
-    return mhd_step<T, Mode<true, true>>(S, scratch, slabs, planes, nullptr, nullptr, comp, dt,
-                                         active, nx, ny, nz, prm, stream);
-  return mhd_step<T, Mode<true, false>>(S, scratch, slabs, planes, nullptr, nullptr, comp, dt,
-                                        active, nx, ny, nz, prm, stream);
+    return mhd_step<T, Mode<true, true, false, false, false, GEN>>(
+        S, scratch, slabs, planes, nullptr, nullptr, comp, dt, active, nx, ny, nz, prm, stream);
+  return mhd_step<T, Mode<true, false, false, false, false, GEN>>(
+      S, scratch, slabs, planes, nullptr, nullptr, comp, dt, active, nx, ny, nz, prm, stream);
 }
 
+// the general instances of the four entries above, per dtype: compiled in
+// mhd_step_general.cu (this file with RAMSES_MHD_GENERAL_TU), declared
+// extern here, so the build compiles the two sets side by side
+#define RAMSES_MHD_STEP_GENERAL(SPEC, T)                                                     \
+  SPEC template int mhd_step_ghosted<T, true>(T*, T*, const T*, const unsigned char*, int, int, \
+                                              int, int, const double*, void*);               \
+  SPEC template int mhd_step_periodic<T, true>(T*, T*, bool, const T*, const unsigned char*,  \
+                                               int, int, int, const double*, void*);          \
+  SPEC template int mhd_step_window<T, true>(const T*, T*, T*, T*, const T*, const T*,       \
+                                             const unsigned char*, int, int, int, int,        \
+                                             const double*, void*);                           \
+  SPEC template int mhd_step_shear<T, true>(T*, T*, const T*, T*, const T*, const T*, bool,  \
+                                            const T*, const unsigned char*, int, int, int,    \
+                                            const double*, void*);
+#ifdef RAMSES_MHD_GENERAL_TU
+RAMSES_MHD_STEP_GENERAL(, float)
+RAMSES_MHD_STEP_GENERAL(, double)
+#else
+RAMSES_MHD_STEP_GENERAL(extern, float)
+RAMSES_MHD_STEP_GENERAL(extern, double)
+#endif
+
 }  // namespace ramses::mhd
+
+#ifndef RAMSES_MHD_GENERAL_TU
 
 extern "C" {
 
@@ -447,15 +485,21 @@ long long ramses_mhd_step_window_scratch(int nx, int ny, int nz) {
 int ramses_mhd_step_window_f32(const float* U, float* out, float* planes, float* scratch,
                                const float* gz, const float* dt, const unsigned char* active,
                                int nx, int ny, int nz, int g, const double* prm, void* stream) {
-  return ramses::mhd::mhd_step_window<float>(U, out, planes, scratch, gz, dt, active, nx, ny,
-                                             nz, g, prm, stream);
+  using namespace ramses::mhd;
+  return with_solvers(prm, [&](auto gen) {
+    return mhd_step_window<float, decltype(gen)::value>(
+        U, out, planes, scratch, gz, dt, active, nx, ny, nz, g, prm, stream);
+  });
 }
 
 int ramses_mhd_step_window_f64(const double* U, double* out, double* planes, double* scratch,
                                const double* gz, const double* dt, const unsigned char* active,
                                int nx, int ny, int nz, int g, const double* prm, void* stream) {
-  return ramses::mhd::mhd_step_window<double>(U, out, planes, scratch, gz, dt, active, nx, ny,
-                                              nz, g, prm, stream);
+  using namespace ramses::mhd;
+  return with_solvers(prm, [&](auto gen) {
+    return mhd_step_window<double, decltype(gen)::value>(
+        U, out, planes, scratch, gz, dt, active, nx, ny, nz, g, prm, stream);
+  });
 }
 
 // the ghosted mode: U [8][nz+2g][ny+2g][nx+2g], ghosts filled, updated in
@@ -463,29 +507,42 @@ int ramses_mhd_step_window_f64(const double* U, double* out, double* planes, dou
 int ramses_mhd_step_ghosted_f32(float* U, float* scratch, const float* dt,
                                 const unsigned char* active, int nx, int ny, int nz, int g,
                                 const double* prm, void* stream) {
-  return ramses::mhd::mhd_step_ghosted<float>(U, scratch, dt, active, nx, ny, nz, g, prm, stream);
+  using namespace ramses::mhd;
+  return with_solvers(prm, [&](auto gen) {
+    return mhd_step_ghosted<float, decltype(gen)::value>(
+        U, scratch, dt, active, nx, ny, nz, g, prm, stream);
+  });
 }
 
 int ramses_mhd_step_ghosted_f64(double* U, double* scratch, const double* dt,
                                 const unsigned char* active, int nx, int ny, int nz, int g,
                                 const double* prm, void* stream) {
-  return ramses::mhd::mhd_step_ghosted<double>(U, scratch, dt, active, nx, ny, nz, g, prm,
-                                               stream);
+  using namespace ramses::mhd;
+  return with_solvers(prm, [&](auto gen) {
+    return mhd_step_ghosted<double, decltype(gen)::value>(
+        U, scratch, dt, active, nx, ny, nz, g, prm, stream);
+  });
 }
 
 // the periodic step (isothermal where cIso > 0); comp: S holds 16
 // channels, the state and its carry
 int ramses_mhd_step_f32(float* S, float* scratch, const float* dt, const unsigned char* active,
                         int comp, int nx, int ny, int nz, const double* prm, void* stream) {
-  return ramses::mhd::mhd_step_periodic<float>(S, scratch, comp != 0, dt, active, nx, ny, nz,
-                                               prm, stream);
+  using namespace ramses::mhd;
+  return with_solvers(prm, [&](auto gen) {
+    return mhd_step_periodic<float, decltype(gen)::value>(
+        S, scratch, comp != 0, dt, active, nx, ny, nz, prm, stream);
+  });
 }
 
 int ramses_mhd_step_f64(double* S, double* scratch, const double* dt,
                         const unsigned char* active, int comp, int nx, int ny, int nz,
                         const double* prm, void* stream) {
-  return ramses::mhd::mhd_step_periodic<double>(S, scratch, comp != 0, dt, active, nx, ny, nz,
-                                                prm, stream);
+  using namespace ramses::mhd;
+  return with_solvers(prm, [&](auto gen) {
+    return mhd_step_periodic<double, decltype(gen)::value>(
+        S, scratch, comp != 0, dt, active, nx, ny, nz, prm, stream);
+  });
 }
 
 // the shear modes: comp (S holds 16 channels); stratified (zslabs
@@ -494,16 +551,22 @@ int ramses_mhd_step_shear_f32(float* S, float* scratch, const float* slabs, floa
                               const float* zslabs, const float* gz, const float* dt,
                               const unsigned char* active, int comp, int nx, int ny, int nz,
                               const double* prm, void* stream) {
-  return ramses::mhd::mhd_step_shear<float>(S, scratch, slabs, planes, zslabs, gz, comp != 0,
-                                            dt, active, nx, ny, nz, prm, stream);
+  using namespace ramses::mhd;
+  return with_solvers(prm, [&](auto gen) {
+    return mhd_step_shear<float, decltype(gen)::value>(
+        S, scratch, slabs, planes, zslabs, gz, comp != 0, dt, active, nx, ny, nz, prm, stream);
+  });
 }
 
 int ramses_mhd_step_shear_f64(double* S, double* scratch, const double* slabs, double* planes,
                               const double* zslabs, const double* gz, const double* dt,
                               const unsigned char* active, int comp, int nx, int ny, int nz,
                               const double* prm, void* stream) {
-  return ramses::mhd::mhd_step_shear<double>(S, scratch, slabs, planes, zslabs, gz, comp != 0,
-                                             dt, active, nx, ny, nz, prm, stream);
+  using namespace ramses::mhd;
+  return with_solvers(prm, [&](auto gen) {
+    return mhd_step_shear<double, decltype(gen)::value>(
+        S, scratch, slabs, planes, zslabs, gz, comp != 0, dt, active, nx, ny, nz, prm, stream);
+  });
 }
 
 }  // extern "C"
@@ -565,8 +628,10 @@ extern "C" long long ramses_mhd_step_ops(const double* S, int comp, int nx, int 
   const Counted dtc(dt);
   const unsigned char active = 1;
   Counted::ops = 0;
-  ramses::mhd::mhd_step_periodic<Counted>(s.data(), scratch.data(), comp != 0, &dtc, &active, nx,
-                                          ny, nz, prm, nullptr);
+  ramses::mhd::with_solvers(prm, [&](auto gen) {
+    return ramses::mhd::mhd_step_periodic<Counted, decltype(gen)::value>(
+        s.data(), scratch.data(), comp != 0, &dtc, &active, nx, ny, nz, prm, nullptr);
+  });
   return Counted::ops;
 }
 
@@ -709,20 +774,19 @@ extern "C" long long ramses_mhd_step_window_ops(const double* U, const double* g
   const Counted dtc(dt);
   const unsigned char active = 1;
   const Counted* gzp = gz != nullptr ? gzc.data() : nullptr;
-  auto args = [&](auto mode) {
-    using M = decltype(mode);
-    return ramses::mhd::window_args<Counted, M>(u.data(), out.data(), scratch.data(),
-                                                planes.data(), gzp, &dtc, &active, nx, ny, nz,
-                                                g, prm);
+  auto count = [&](auto mode) {
+    return ramses::mhd::with_solvers(prm, [&](auto gen) {
+      using M = ramses::mhd::WithSolvers<decltype(mode), decltype(gen)::value>;
+      return ramses::mhd::window_step_ops<M>(
+          ramses::mhd::window_args<Counted, M>(u.data(), out.data(), scratch.data(),
+                                               planes.data(), gzp, &dtc, &active, nx, ny, nz, g,
+                                               prm),
+          per_stage);
+    });
   };
-  if (gz != nullptr)
-    return ramses::mhd::window_step_ops<Mode<true, true, true, true>>(
-        args(Mode<true, true, true, true>{}), per_stage);
-  if (prm[ramses::P_CISO] > 0.0)
-    return ramses::mhd::window_step_ops<Mode<true, true, false, true>>(
-        args(Mode<true, true, false, true>{}), per_stage);
-  return ramses::mhd::window_step_ops<Mode<true, false, false, true>>(
-      args(Mode<true, false, false, true>{}), per_stage);
+  if (gz != nullptr) return count(Mode<true, true, true, true>{});
+  if (prm[ramses::P_CISO] > 0.0) return count(Mode<true, true, false, true>{});
+  return count(Mode<true, false, false, true>{});
 }
 
 // the ghosted mode's operations on the interior of a ghosted state U
@@ -736,10 +800,14 @@ extern "C" long long ramses_mhd_step_ghosted_ops(const double* U, int nx, int ny
   const Counted dtc(dt);
   using namespace ramses::mhd;
   const bool iso = prm[ramses::P_CISO] > 0.0;
-  const auto count = ramses::has_gravity(prm)
-                         ? (iso ? ghosted_step_ops<GhostedIsoGrav> : ghosted_step_ops<GhostedGrav>)
-                         : (iso ? ghosted_step_ops<GhostedIso> : ghosted_step_ops<Ghosted>);
-  return count(u.data(), scratch.data(), &dtc, nx, ny, nz, g, prm);
+  const auto count = [&](auto mode) {
+    return with_solvers(prm, [&](auto gen) {
+      return ghosted_step_ops<WithSolvers<decltype(mode), decltype(gen)::value>>(
+          u.data(), scratch.data(), &dtc, nx, ny, nz, g, prm);
+    });
+  };
+  if (ramses::has_gravity(prm)) return iso ? count(GhostedIsoGrav{}) : count(GhostedGrav{});
+  return iso ? count(GhostedIso{}) : count(Ghosted{});
 }
 
 // the same for the shearing-box modes, with the sheared slabs beside S (and,
@@ -763,10 +831,16 @@ extern "C" long long ramses_mhd_step_shear_ops(const double* S, const double* sl
   std::vector<Counted> scratch(ramses_mhd_step_shear_scratch(nx, ny, nz, strat));
   std::vector<Counted> planes(ramses::mhd::NPLANE * (long long)nz * ny);
   const Counted dtc(dt);
-  const auto count = strat ? ramses::mhd::shear_step_ops<Mode<true, true, true>>
-                     : prm[ramses::P_CISO] > 0.0 ? ramses::mhd::shear_step_ops<Mode<true, true>>
-                                                 : ramses::mhd::shear_step_ops<Mode<true, false>>;
-  return count(s.data(), scratch.data(), sl.data(), planes.data(), strat ? zs.data() : nullptr,
-               strat ? g.data() : nullptr, comp != 0, &dtc, nx, ny, nz, prm);
+  const auto count = [&](auto mode) {
+    return ramses::mhd::with_solvers(prm, [&](auto gen) {
+      return ramses::mhd::shear_step_ops<
+          ramses::mhd::WithSolvers<decltype(mode), decltype(gen)::value>>(
+          s.data(), scratch.data(), sl.data(), planes.data(), strat ? zs.data() : nullptr,
+          strat ? g.data() : nullptr, comp != 0, &dtc, nx, ny, nz, prm);
+    });
+  };
+  if (strat) return count(Mode<true, true, true>{});
+  return prm[ramses::P_CISO] > 0.0 ? count(Mode<true, true>{}) : count(Mode<true, false>{});
 }
 #endif
+#endif  // RAMSES_MHD_GENERAL_TU

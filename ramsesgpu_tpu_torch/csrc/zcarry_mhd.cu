@@ -14,7 +14,8 @@
 // (kernels/zcarry_mhd3d.py).
 //
 // It computes the function of mhd_step.cu, whose stages (mhd_stages.cuh)
-// it runs as they are, on another site: RingSite below maps each
+// it runs as they are (the general instances, any solver pair, compiled
+// in zcarry_mhd_general.cu), on another site: RingSite below maps each
 // intermediate array of a stage cell's neighbours into a per-block ring in
 // shared memory instead of a full-grid stage buffer.
 //
@@ -604,7 +605,8 @@ int with_mode(const T* slabs, const T* zslabs, const T* gz, const double* prm, c
   return f(Mode<true, false>{});
 }
 
-template <typename T>
+// GEN: the general instances (mhd_stages.cuh Mode), the solvers from prm
+template <typename T, bool GEN>
 int zcarry_entry(const T* S, T* So, int blocks, const T* slabs, T* planes,
                  const T* zslabs, const T* gz, T* inv, const T* dt, const unsigned char* active,
                  int comp, int nx, int ny, int nz, const double* prm, void* stream) {
@@ -625,11 +627,50 @@ int zcarry_entry(const T* S, T* So, int blocks, const T* slabs, T* planes,
   // the folded CFL: periodic mode only (the shear modes keep their launch)
   z.inv = slabs == nullptr ? inv : nullptr;
   return with_mode(slabs, zslabs, gz, prm, [&](auto mode) {
-    return zcarry_step<T, decltype(mode)>(z, blocks, stream);
+    return zcarry_step<T, WithSolvers<decltype(mode), GEN>>(z, blocks, stream);
   });
 }
 
+// the persistent grid of the mode (shear, strat; isothermal from prm) and
+// dtype T: as many blocks as the card holds at once (host build: 3, so the
+// serial build strides over the items as the blocks do)
+template <typename T, bool GEN>
+int zcarry_blocks(int shear, int strat, const double* prm) {
+#ifdef __CUDACC__
+  int blocks = 0;
+  const T* some = reinterpret_cast<const T*>(prm);  // non-null marks a given input
+  const int err = with_mode<T>(shear ? some : nullptr, strat ? some : nullptr,
+                               strat ? some : nullptr, prm, [&](auto mode) {
+                                 return resident<T, WithSolvers<decltype(mode), GEN>>(&blocks);
+                               });
+  return err ? -err : blocks;
+#else
+  (void)shear;
+  (void)strat;
+  (void)prm;
+  return 3;
+#endif
+}
+
+// the general instances of the two entries above, per dtype: compiled in
+// zcarry_mhd_general.cu (this file with RAMSES_MHD_GENERAL_TU), declared
+// extern here, so the build compiles the two sets side by side
+#define RAMSES_ZCARRY_GENERAL(SPEC, T)                                                       \
+  SPEC template int zcarry_entry<T, true>(const T*, T*, int, const T*, T*, const T*, const T*, \
+                                          T*, const T*, const unsigned char*, int, int, int,   \
+                                          int, const double*, void*);                          \
+  SPEC template int zcarry_blocks<T, true>(int, int, const double*);
+#ifdef RAMSES_MHD_GENERAL_TU
+RAMSES_ZCARRY_GENERAL(, float)
+RAMSES_ZCARRY_GENERAL(, double)
+#else
+RAMSES_ZCARRY_GENERAL(extern, float)
+RAMSES_ZCARRY_GENERAL(extern, double)
+#endif
+
 }  // namespace ramses::zmhd
+
+#ifndef RAMSES_MHD_GENERAL_TU
 
 extern "C" {
 
@@ -662,24 +703,12 @@ int ramses_zcarry_mhd_chunk_depth(int f64, int nx, int ny, int nz, int blocks) {
 // and dtype: as many blocks as the card holds at once (host build: 3, so
 // the serial build strides over the items as the blocks do)
 int ramses_zcarry_mhd_blocks(int shear, int strat, int f64, const double* prm) {
-#ifdef __CUDACC__
   using namespace ramses::zmhd;
-  int blocks = 0;
-  const auto pick = [&](auto t) {
-    using T = decltype(t);
-    const T* some = reinterpret_cast<const T*>(prm);  // non-null marks a given input
-    return with_mode<T>(shear ? some : nullptr, strat ? some : nullptr, strat ? some : nullptr,
-                        prm, [&](auto mode) { return resident<T, decltype(mode)>(&blocks); });
-  };
-  const int err = f64 ? pick(0.0) : pick(0.0f);
-  return err ? -err : blocks;
-#else
-  (void)shear;
-  (void)strat;
-  (void)f64;
-  (void)prm;
-  return 3;
-#endif
+  return ramses::mhd::with_solvers(prm, [&](auto gen) {
+    constexpr bool GEN = decltype(gen)::value;
+    return f64 ? zcarry_blocks<double, GEN>(shear, strat, prm)
+               : zcarry_blocks<float, GEN>(shear, strat, prm);
+  });
 }
 
 // S: the state [8 or 16][nz][ny][nx] (comp: with its carry), So: its new
@@ -691,8 +720,10 @@ int ramses_zcarry_mhd_f32(const float* S, float* So, int blocks, const float* sl
                           float* planes, const float* zslabs, const float* gz, float* inv,
                           const float* dt, const unsigned char* active, int comp, int nx, int ny,
                           int nz, const double* prm, void* stream) {
-  return ramses::zmhd::zcarry_entry<float>(S, So, blocks, slabs, planes, zslabs, gz, inv,
-                                           dt, active, comp, nx, ny, nz, prm, stream);
+  return ramses::mhd::with_solvers(prm, [&](auto gen) {
+    return ramses::zmhd::zcarry_entry<float, decltype(gen)::value>(
+        S, So, blocks, slabs, planes, zslabs, gz, inv, dt, active, comp, nx, ny, nz, prm, stream);
+  });
 }
 
 int ramses_zcarry_mhd_f64(const double* S, double* So, int blocks,
@@ -700,8 +731,11 @@ int ramses_zcarry_mhd_f64(const double* S, double* So, int blocks,
                           const double* gz, double* inv, const double* dt,
                           const unsigned char* active, int comp, int nx, int ny, int nz,
                           const double* prm, void* stream) {
-  return ramses::zmhd::zcarry_entry<double>(S, So, blocks, slabs, planes, zslabs, gz, inv,
-                                            dt, active, comp, nx, ny, nz, prm, stream);
+  return ramses::mhd::with_solvers(prm, [&](auto gen) {
+    return ramses::zmhd::zcarry_entry<double, decltype(gen)::value>(
+        S, So, blocks, slabs, planes, zslabs, gz, inv, dt, active, comp, nx, ny, nz, prm, stream);
+  });
 }
 
 }  // extern "C"
+#endif  // RAMSES_MHD_GENERAL_TU

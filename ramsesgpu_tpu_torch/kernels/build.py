@@ -34,8 +34,11 @@ from dataclasses import dataclass
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("cfl_mhd.cu", "mhd_step.cu", "cfl_hydro.cu", "hydro_step.cu", "shear_border.cu",
-           "dissip_step.cu", "zcarry_mhd.cu", "zcarry_hydro.cu")
+# (the two *_general.cu sources compile the MHD step kernels' general
+# instances, any solver pair, beside their HLLD ones: csrc/mhd_stages.cuh Mode)
+SOURCES = ("cfl_mhd.cu", "mhd_step.cu", "mhd_step_general.cu", "cfl_hydro.cu", "hydro_step.cu",
+           "shear_border.cu", "dissip_step.cu", "zcarry_mhd.cu", "zcarry_mhd_general.cu",
+           "zcarry_hydro.cu")
 HEADERS = ("common.cuh", "op_count.cuh", "mhd_stages.cuh", "hydro_stages.cuh", "hydro_stream.cuh",
            "cfl_mhd.cuh", "cfl_hydro.cuh", "cfl_rows.cuh")
 
@@ -198,6 +201,8 @@ _SIGNATURES = {
     "ramses_dissip_step_launch": ([_I, _I, _I, _I, _P], _I),
     "ramses_dissip_step_f32": ([_P] * 6 + [_I] * 4 + [_P, _P], _I),
     "ramses_dissip_step_f64": ([_P] * 6 + [_I] * 4 + [_P, _P], _I),
+    "ramses_dissip_step_strat_f32": ([_P] * 7 + [_I] * 4 + [_P, _P], _I),
+    "ramses_dissip_step_strat_f64": ([_P] * 7 + [_I] * 4 + [_P, _P], _I),
     "ramses_dissip_step_ghosted_f32": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
     "ramses_dissip_step_ghosted_f64": ([_P] * 4 + [_I] * 4 + [_P, _P], _I),
     "ramses_zcarry_mhd_ring_bytes": ([_I], ctypes.c_longlong),
@@ -268,7 +273,9 @@ def param_block(params) -> ctypes.Array:
     Then nu and eta; then the stratified z faces' flag and the density
     factors of their ghost rows (solvers/stratified.py density_factors);
     then the uniform static gravity (gx, gy, gz), which selects the step
-    kernels' gravity instances where one is non-zero.
+    kernels' gravity instances where one is non-zero; then the MHD corner
+    solver as its MagneticRiemannSolver value (another pair than HLLD /
+    2D-HLLD selects the MHD step kernels' general instances).
     The block is read, never written, by the C side."""
     global _last_block
     if _last_block[0] is params:
@@ -278,7 +285,7 @@ def param_block(params) -> ctypes.Array:
     slope = 0.0 if params.iorder == 1 else float(params.slope_type)
     strat = uses_stratified_z(params)
     lo, hi = density_factors(params) if strat else ((0.0,) * 3, (0.0,) * 3)
-    block = (ctypes.c_double * 31)(
+    block = (ctypes.c_double * 32)(
         params.gamma0, params.smallr, params.smallp, params.smallc, slope,
         params.dx, params.dy, params.dz,
         params.niter_riemann, params.smallpp, params.gamma6, params.c_iso,
@@ -289,6 +296,7 @@ def param_block(params) -> ctypes.Array:
         params.nu, params.eta,
         float(strat), *lo, *hi,
         params.gravity_x, params.gravity_y, params.gravity_z,
+        int(params.mag_riemann_solver),
     )
     _last_block = (params, block)
     return block

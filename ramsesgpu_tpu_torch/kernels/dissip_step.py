@@ -8,7 +8,10 @@
 - Shearing box: replaces the MRI loop's dissipative sub-step
   (pallas/shear_packed.py:917) with the border strip's mode "dissip". It
   reads the sheared x ghost slabs at t + dt, built from the post-Godunov
-  state, and updates the kept Bx face by the resistive CT. Twins:
+  state, and updates the kept Bx face by the resistive CT. On a stratified
+  box (isothermal) it reads the z ghost slabs of that block too, built in
+  the same slab launch (kernels/shear_border.py ``shear_slabs(...,
+  zout=)``), where the periodic box wraps in z. Twins:
   ``solvers.dissipation.mhd_dissipation_shear_update`` and
   ``kept_face_resistive_ct``.
 - Ghosted (``DissipStepKernel.ghosted_``; walls and the jet): a ghosted
@@ -43,12 +46,15 @@ from ..config.params import RunParams
 from ..core.constants import IA
 from ..solvers.dissipation import (kept_face_resistive_ct, mhd_dissipation_ghosted_update,
                                    mhd_dissipation_periodic_update, mhd_dissipation_shear_update)
+from ..solvers.stratified import uses_stratified_z
 from .build import load_library, param_block
 from .cfl_mhd import check_ghosted, check_plane, check_state, kept_lead
 from .hydro_step import check_scalars
-from .mhd_step import SLAB, check_buffer, require_step_scope, uses_shear
+from .mhd_step import SLAB, check_buffer, require_step_scope, uses_shear, zslab_shape
 
 _FN = {torch.float32: "ramses_dissip_step_f32", torch.float64: "ramses_dissip_step_f64"}
+_FN_STRAT = {torch.float32: "ramses_dissip_step_strat_f32",
+             torch.float64: "ramses_dissip_step_strat_f64"}
 _FN_GHOSTED = {torch.float32: "ramses_dissip_step_ghosted_f32",
                torch.float64: "ramses_dissip_step_ghosted_f64"}
 
@@ -61,8 +67,9 @@ class DissipStepKernel:
     ``shear=(slabs, kept)``: the sheared ghost slabs [2, 8, nz, ny, 3] it
     reads, whose XMAX slab's first Bx column holds the kept face, and the
     kept face [nz, ny] ([2, nz, ny] with its carry when compensated) it
-    updates in place when eta > 0. On a CPU tensor the twin runs; on a CUDA
-    tensor the kernel launches."""
+    updates in place when eta > 0; a stratified one ``shear=(slabs, kept,
+    zslabs)`` with the z ghost slabs [2, 8, 3, ny, nx + 6]. On a CPU tensor
+    the twin runs; on a CUDA tensor the kernel launches."""
 
     def __init__(self) -> None:
         self.launches = 0
@@ -86,15 +93,23 @@ class DissipStepKernel:
                 )
         if (shear is not None) != uses_shear(params):
             raise ValueError("shear=(slabs, kept) is given exactly for a shearing-box state")
+        zslabs = None
         if shear is not None:
-            slabs, kept = shear
+            strat = uses_stratified_z(params)
+            if len(shear) != (3 if strat else 2):
+                raise ValueError("a stratified state passes shear=(slabs, kept, zslabs), "
+                                 "another shearing-box state shear=(slabs, kept)")
+            slabs, kept = shear[:2]
             check_buffer(S, "slabs", slabs, (2, 8, params.nz, params.ny, SLAB))
             check_plane(params, S, "kept", kept, kept_lead(params))
+            if strat:
+                zslabs = shear[2]
+                check_buffer(S, "zslabs", zslabs, zslab_shape(params))
         if S.device.type == "cpu":
             if shear is None:
                 S_out.copy_(torch.where(active, mhd_dissipation_periodic_update(params, S, dt), S))
             else:
-                S_new, eypl, ezpl = mhd_dissipation_shear_update(params, S, slabs, dt)
+                S_new, eypl, ezpl = mhd_dissipation_shear_update(params, S, slabs, dt, zslabs)
                 S_out.copy_(torch.where(active, S_new, S))
                 if params.eta > 0:
                     # the face's old value: the XMAX slab's first Bx column
@@ -108,8 +123,9 @@ class DissipStepKernel:
         lib = load_library("cuda")
         slab_ptr, kept_ptr = (None, None) if shear is None else (slabs.data_ptr(),
                                                                   kept.data_ptr())
-        err = getattr(lib, _FN[S.dtype])(
-            S.data_ptr(), S_out.data_ptr(), slab_ptr, kept_ptr, dt.data_ptr(),
+        zslab = () if zslabs is None else (zslabs.data_ptr(),)
+        err = getattr(lib, (_FN if zslabs is None else _FN_STRAT)[S.dtype])(
+            S.data_ptr(), S_out.data_ptr(), slab_ptr, kept_ptr, *zslab, dt.data_ptr(),
             active.data_ptr(), int(params.compensated), params.nx, params.ny, params.nz,
             param_block(params), torch.cuda.current_stream(S.device).cuda_stream)
         if err:

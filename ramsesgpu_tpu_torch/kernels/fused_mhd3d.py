@@ -62,10 +62,11 @@ from .zcarry_mhd3d import zcarry_mhd
 
 
 def packed_supported(params: RunParams) -> bool:
-    """Whether the kernel loop covers this configuration."""
+    """Whether the kernel loop covers this configuration (a solver neither
+    package computes, whose ValueError the JAX dispatchers raise, included)."""
     try:
         require_step_scope(params)
-    except NotImplementedError:
+    except (NotImplementedError, ValueError):
         return False
     return True
 

@@ -64,7 +64,8 @@ from __future__ import annotations
 import torch
 
 from ..config.params import RunParams, static_gravity
-from ..core.constants import BoundaryConditionType as BCT, MagneticRiemannSolver, RiemannSolver
+from ..core.constants import BoundaryConditionType as BCT
+from ..ops.riemann_mhd import check_solvers
 
 from ..solvers.boundary import require_simple_bcs, uses_jet
 from ..solvers.godunov import gravity_vector
@@ -118,10 +119,8 @@ def require_step_scope(params: RunParams) -> None:
     reasons = []
     if params.dim != 3 or not params.mhd:
         reasons.append("only 3D MHD")
-    if params.riemann_solver != RiemannSolver.HLLD:
-        reasons.append(f"riemannSolver {params.riemann_solver.name} (HLLD only)")
-    if params.mag_riemann_solver != MagneticRiemannSolver.MAG_HLLD:
-        reasons.append(f"magRiemannSolver {params.mag_riemann_solver.name} (HLLD only)")
+    else:
+        check_solvers(params)
     if uses_shear(params):
         if static_gravity(params) is not None:
             reasons.append("a uniform static gravity in a shearing box")
@@ -133,8 +132,6 @@ def require_step_scope(params: RunParams) -> None:
                 reasons.append("stratified z needs both z faces BC_Z_STRATIFIED and periodic y")
             if params.c_iso <= 0:
                 reasons.append("stratified z faces with the adiabatic EOS (cIso = 0)")
-            if params.nu > 0 or params.eta > 0:
-                reasons.append("viscosity or resistivity with stratified z faces")
         elif any(b != BCT.BC_PERIODIC for b in bts[2:]):
             reasons.append("a shearing box with non-periodic y or z faces")
         if params.omega0 <= 0:
@@ -303,16 +300,15 @@ def check_buffer(S: torch.Tensor, name: str, x: torch.Tensor, want: tuple) -> No
 
 def require_window_scope(params: RunParams) -> None:
     """Raise NotImplementedError for what the shear window mode does not
-    compute: it is the ideal rotating-frame 3D MHD step (HLLD fluxes,
-    2D-HLLD EMFs), isothermal or adiabatic, on a window of ghost width 3;
-    with g_z (stratified) only isothermal."""
+    compute: it is the ideal rotating-frame 3D MHD step (any face and
+    corner solver pair, ops/riemann_mhd.py check_solvers), isothermal or
+    adiabatic, on a window of ghost width 3; with g_z (stratified) only
+    isothermal."""
     reasons = []
     if params.dim != 3 or not params.mhd:
         reasons.append("only 3D MHD")
-    if params.riemann_solver != RiemannSolver.HLLD:
-        reasons.append(f"riemannSolver {params.riemann_solver.name} (HLLD only)")
-    if params.mag_riemann_solver != MagneticRiemannSolver.MAG_HLLD:
-        reasons.append(f"magRiemannSolver {params.mag_riemann_solver.name} (HLLD only)")
+    else:
+        check_solvers(params)
     if params.omega0 <= 0:
         reasons.append("no rotating frame (omega0 = 0)")
     if params.ghost_width != SLAB:

@@ -11,9 +11,10 @@ the sheared ghost slabs at t + dt (kernels/shear_border.py), the step
 kernel's shearing-box mode (kernels/mhd_step.py), and the remap, border
 corrections and kept-face CT (kernels/shear_border.py). A dissipative run
 (nu > 0 or eta > 0) launches two more: the slabs again at t + dt, from the
-updated state, and the dissipation kernel's shearing-box mode, which also
-takes the kept face's resistive CT (kernels/dissip_step.py; the JAX loop's
-pallas/shear_packed.py:1178-1203); it writes the new state into the other
+updated state (stratified: with the z slabs), and the dissipation
+kernel's shearing-box mode, which also takes the kept face's resistive CT
+(kernels/dissip_step.py; the JAX loop's pallas/shear_packed.py:1178-1203);
+it writes the new state into the other
 of two state buffers, which take turns. The device t feeds the slabs and
 the remap, so a chunk makes no host sync.
 
@@ -131,9 +132,12 @@ def bind_step(params: RunParams, state, gz: torch.Tensor | None = None) -> Calla
 
     def dissip_into(S, kept, out, dt, active, t):
         # the sheared refill at t + dt from the updated state S before the
-        # dissipative sub-step into out (MHDRunGodunov.cpp:1968-1976)
-        shear_slabs(params, S, kept, t, dt, out=slabs)
-        dissip_step(params, S, out, dt, active, shear=(slabs, kept))
+        # dissipative sub-step into out (MHDRunGodunov.cpp:1968-1976; the
+        # stratified z slabs of that block too, as the JAX whole-array
+        # step's make_all_boundaries_shear)
+        shear_slabs(params, S, kept, t, dt, out=slabs, zout=zslabs)
+        dissip_step(params, S, out, dt, active,
+                    shear=(slabs, kept, zslabs) if strat else (slabs, kept))
 
     if streamed and dissip:
         # the step into the other buffer, the sub-step back into S

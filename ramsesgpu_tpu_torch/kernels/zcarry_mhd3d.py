@@ -4,7 +4,7 @@ the CUDA kernel ``csrc/zcarry_mhd.cu`` and its plain PyTorch twin.
 Replaces the TPU kernel ramsesgpu_tpu/pallas/zcarry_mhd3d.py:102
 ``make_zcarry_mhd_packed_io``: the step of kernels/mhd_step.py (periodic,
 shearing-box and stratified modes, plain or compensated, adiabatic or
-isothermal) in one launch,
+isothermal, any face and corner solver pair) in one launch,
 with no stage buffer that grows with the grid: its intermediates live in
 a ring of z planes per block in shared memory. It reads S and
 writes the new state into a second buffer. In the periodic mode it also
@@ -39,13 +39,16 @@ class ZcarryMhdKernel:
 
     def __init__(self) -> None:
         self.launches = 0
-        self._blocks = {}   # (device, dtype, shear, stratified, isothermal) -> blocks
+        # (device, dtype, shear, stratified, isothermal, solvers) -> blocks
+        self._blocks = {}
 
     def blocks(self, params: RunParams, S: torch.Tensor) -> int:
         """The persistent grid of S's mode and dtype: as many blocks as the
-        card holds at once (asked once per device, dtype and mode)."""
+        card holds at once (asked once per device, dtype, mode and solver
+        pair: another pair than HLLD / 2D-HLLD runs the general instance)."""
         shear, strat = uses_shear(params), uses_stratified_z(params)
-        key = (S.device, S.dtype, shear, strat, params.c_iso > 0)
+        key = (S.device, S.dtype, shear, strat, params.c_iso > 0, params.riemann_solver,
+               params.mag_riemann_solver)
         if key not in self._blocks:
             blocks = load_library("cuda").ramses_zcarry_mhd_blocks(
                 int(shear), int(strat), int(S.dtype == torch.float64), param_block(params))

@@ -1,15 +1,16 @@
-"""MHD Riemann solvers: 1D HLLD face fluxes and the 2D HLLD corner solver
-producing the EMF for constrained transport (the PyTorch twin of
-ramsesgpu_tpu/ops/riemann_mhd.py; reference riemann_mhd.h:87-1193,
-mhd_utils.h:29-318; Miyoshi & Kusano 2005).
+"""MHD Riemann solvers: the 1D HLLD, LLF and HLL face fluxes and the 2D
+HLLD, HLLA, HLLF and LLF corner solvers producing the EMF for constrained
+transport (the PyTorch twin of ramsesgpu_tpu/ops/riemann_mhd.py; reference
+riemann_mhd.h:87-1193, mhd_utils.h:29-318; Miyoshi & Kusano 2005 for HLLD,
+Londrillo & Del Zanna for the corner solvers).
 
-State convention for the 1D solver (rotated order):
+State convention for the 1D solvers (rotated order):
   [ID rho, IP p, IU vnormal, IV vt1, IW vt2, IA Bnormal, IB Bt1, IC Bt2]
-For the 2D corner solver IU/IV are the in-plane velocities and IA/IB the
+For the 2D corner solvers IU/IV are the in-plane velocities and IA/IB the
 in-plane field; IW/IC are out of plane.
 
-Only HLLD (faces) and 2D-HLLD (corners) are ported; the LLF/HLL face
-solvers and the HLLA/HLLF/LLF corner solvers raise.
+Each formula keeps the JAX function's operation order; every square root
+goes through ops/backend.py ``sqrt``.
 """
 from __future__ import annotations
 
@@ -47,6 +48,76 @@ def _fast_speed_components(params: RunParams, d, p, a, b, c, bn=None):
 
 def _pressure(params: RunParams, q):
     return q[ID] * params.c_iso**2 if params.c_iso > 0 else q[IP]
+
+
+def _fast_speed(params: RunParams, q, bn):
+    """Fast magnetosonic speed of the state q given the normal field bn
+    (mhd_utils.h:30-52)."""
+    return _fast_speed_components(params, q[ID], _pressure(params, q), q[IA], q[IB], q[IC], bn)
+
+
+def _find_mhd_flux(params: RunParams, q):
+    """Conservative state and flux [8, ...] of a primitive state
+    (mhd_utils.h:106-168); the gas pressure is folded into the
+    normal-momentum flux."""
+    entho = 1.0 / (params.gamma0 - 1.0)
+    d, u, v, w = q[ID], q[IU], q[IV], q[IW]
+    a, b, c = q[IA], q[IB], q[IC]
+    p = _pressure(params, q)
+    ecin = 0.5 * (u * u + v * v + w * w) * d
+    emag = 0.5 * (a * a + b * b + c * c)
+    etot = p * entho + ecin + emag
+    ptot = p + emag
+    cons = torch.stack([d, etot, d * u, d * v, d * w, a, b, c])
+    flux = torch.stack([
+        d * u,
+        (etot + ptot) * u - a * (a * u + b * v + c * w),
+        d * u * u - a * a + ptot,
+        d * u * v - a * b,
+        d * u * w - a * c,
+        torch.zeros_like(d),
+        b * u - a * v,
+        c * u - a * w,
+    ])
+    return cons, flux
+
+
+def _find_speed_info(params: RunParams, q):
+    """Fastest information speed along the normal: cf_x + |u|
+    (mhd_utils.h:296-316)."""
+    return _fast_speed(params, q, q[IA]) + torch.abs(q[IU])
+
+
+def _with_normal_field(q, bn):
+    """q [8, ...] with its normal field IA replaced by bn."""
+    return torch.stack([*q[:IA], bn, *q[IA + 1:]])
+
+
+def riemann_llf_mhd(params: RunParams, ql, qr):
+    """Local Lax-Friedrichs MHD flux (riemann_mhd.h:87-119): the normal
+    field is the mean of both sides before the fluxes and the speeds."""
+    bx_mean = 0.5 * (ql[IA] + qr[IA])
+    ql = _with_normal_field(ql, bx_mean)
+    qr = _with_normal_field(qr, bx_mean)
+    ul, fl = _find_mhd_flux(params, ql)
+    ur, fr = _find_mhd_flux(params, qr)
+    vel_info = torch.maximum(_find_speed_info(params, ql), _find_speed_info(params, qr))
+    return 0.5 * (fl + fr) - 0.5 * vel_info * (ur - ul)
+
+
+def riemann_hll_mhd(params: RunParams, ql, qr):
+    """HLL for MHD: the single-state HLL average of the full MHD fluxes,
+    the fast speeds taken with the mean normal field."""
+    bx_mean = 0.5 * (ql[IA] + qr[IA])
+    ql = _with_normal_field(ql, bx_mean)
+    qr = _with_normal_field(qr, bx_mean)
+    cl, fl = _find_mhd_flux(params, ql)
+    cr, fr = _find_mhd_flux(params, qr)
+    cfl = _fast_speed(params, ql, bx_mean)
+    cfr = _fast_speed(params, qr, bx_mean)
+    SL = xp.minimum(torch.minimum(ql[IU], qr[IU]) - torch.maximum(cfl, cfr), 0.0)
+    SR = xp.maximum(torch.maximum(ql[IU], qr[IU]) + torch.maximum(cfl, cfr), 0.0)
+    return (SR * fl - SL * fr + SR * SL * (cr - cl)) / (SR - SL)
 
 
 def riemann_hlld(params: RunParams, ql, qr):
@@ -152,13 +223,30 @@ def riemann_hlld(params: RunParams, ql, qr):
     )
 
 
+FACE_SOLVERS = (RiemannSolver.HLLD, RiemannSolver.LLF, RiemannSolver.HLL)
+CORNER_SOLVERS = (MagneticRiemannSolver.MAG_HLLD, MagneticRiemannSolver.MAG_HLLA,
+                  MagneticRiemannSolver.MAG_HLLF, MagneticRiemannSolver.MAG_LLF)
+
+
+def check_solvers(params: RunParams) -> None:
+    """Raise the dispatchers' ValueError (riemann_mhd, mag_riemann2d) for a
+    face or corner solver that neither package computes (approx and HLLC
+    faces; the reference's unimplemented MAG_ROE and MAG_UPWIND corners)."""
+    if params.riemann_solver not in FACE_SOLVERS:
+        raise ValueError(f"unsupported MHD Riemann solver: {params.riemann_solver!r}")
+    if params.mag_riemann_solver not in CORNER_SOLVERS:
+        raise ValueError(f"unsupported magnetic Riemann solver {params.mag_riemann_solver!r}")
+
+
 def riemann_mhd(params: RunParams, ql, qr):
-    """Dispatch on [hydro] riemannSolver; only HLLD is ported."""
+    """Dispatch on [hydro] riemannSolver (riemann_mhd.h:355-368)."""
     if params.riemann_solver == RiemannSolver.HLLD:
         return riemann_hlld(params, ql, qr)
-    raise NotImplementedError(
-        f"MHD Riemann solver {params.riemann_solver.name} is not ported (HLLD only)"
-    )
+    if params.riemann_solver == RiemannSolver.LLF:
+        return riemann_llf_mhd(params, ql, qr)
+    if params.riemann_solver == RiemannSolver.HLL:
+        return riemann_hll_mhd(params, ql, qr)
+    raise ValueError(f"unsupported MHD Riemann solver: {params.riemann_solver!r}")
 
 
 def _minmax4(*a):
@@ -292,14 +380,79 @@ def mag_riemann2d_hlld(params: RunParams, qLL, qRL, qLR, qRR, eLL, eRL, eLR, eRR
     )
 
 
-def mag_riemann2d(params: RunParams, qLL, qRL, qLR, qRR, eLL, eRL, eLR, eRR):
-    """Dispatch on [MHD] magRiemannSolver; only HLLD is ported."""
-    s = params.mag_riemann_solver
-    if s == MagneticRiemannSolver.MAG_HLLD:
-        return mag_riemann2d_hlld(params, qLL, qRL, qLR, qRR, eLL, eRL, eLR, eRR)
-    raise NotImplementedError(
-        f"magnetic Riemann solver {s.name} is not ported (HLLD only)"
+def mag_riemann2d_hll_family(params: RunParams, qLL, qRL, qLR, qRR, eLL, eRL, eLR, eRR,
+                             use_fast: bool):
+    """HLLA (Alfven speeds) / HLLF (fast speeds) corner solvers
+    (riemann_mhd.h:418-516): a 2D-HLL average of the four corner EMFs plus
+    dissipation on the in-plane field jumps."""
+    corners = (qLL, qLR, qRL, qRR)
+    if use_fast:
+        cx = [_fast_speed(params, q, q[IA]) for q in corners]
+        cy = [_fast_speed(params, q, q[IB]) for q in corners]
+        cxmax = torch.maximum(torch.maximum(cx[0], cx[1]), torch.maximum(cx[2], cx[3]))
+        cymax = torch.maximum(torch.maximum(cy[0], cy[1]), torch.maximum(cy[2], cy[3]))
+    else:
+        def alfven(q, idx):
+            return xp.sqrt(q[idx] * q[idx] / q[ID])
+
+        cx = [alfven(q, IA) for q in corners]
+        cy = [alfven(q, IB) for q in corners]
+        smallc = params.smallc
+        cxmax = xp.maximum(
+            torch.maximum(torch.maximum(cx[0], cx[1]), torch.maximum(cx[2], cx[3])), smallc)
+        cymax = xp.maximum(
+            torch.maximum(torch.maximum(cy[0], cy[1]), torch.maximum(cy[2], cy[3])), smallc)
+
+    ulo, uhi = _minmax4(qLL[IU], qLR[IU], qRL[IU], qRR[IU])
+    vlo, vhi = _minmax4(qLL[IV], qLR[IV], qRL[IV], qRR[IV])
+    SL = xp.minimum(ulo - cxmax, 0.0)
+    SR = xp.maximum(uhi + cxmax, 0.0)
+    SB = xp.minimum(vlo - cymax, 0.0)
+    ST = xp.maximum(vhi + cymax, 0.0)
+
+    return (
+        (SL * SB * eRR - SL * ST * eRL - SR * SB * eLR + SR * ST * eLL)
+        / (SR - SL) / (ST - SB)
+        - ST * SB / (ST - SB) * (qRR[IA] - qLL[IA])
+        + SR * SL / (SR - SL) * (qRR[IB] - qLL[IB])
     )
+
+
+def mag_riemann2d_llf(params: RunParams, qLL, qRL, qLR, qRR, eLL, eRL, eLR, eRR):
+    """2D LLF corner solver (riemann_mhd.h:519-613): the mean EMF plus LLF
+    dissipation on the in-plane field jumps."""
+    E = 0.25 * (eLL + eRL + eLR + eRR)
+
+    def info(q, bn_idx, v_idx):
+        return _fast_speed(params, q, q[bn_idx]) + torch.abs(q[v_idx])
+
+    corners = (qLL, qLR, qRL, qRR)
+    cx = [info(q, IA, IU) for q in corners]
+    cy = [info(q, IB, IV) for q in corners]
+    vel_x = torch.maximum(torch.maximum(cx[0], cx[1]), torch.maximum(cx[2], cx[3]))
+    vel_y = torch.maximum(torch.maximum(cy[0], cy[1]), torch.maximum(cy[2], cy[3]))
+
+    return (
+        E
+        - 0.5 * vel_y * (qRR[IA] - qLL[IA])
+        + 0.5 * vel_x * (qRR[IB] - qLL[IB])
+    )
+
+
+def mag_riemann2d(params: RunParams, qLL, qRL, qLR, qRR, eLL, eRL, eLR, eRR):
+    """Dispatch on [MHD] magRiemannSolver (compute_emf,
+    riemann_mhd.h:1160-1170)."""
+    s = params.mag_riemann_solver
+    args = (params, qLL, qRL, qLR, qRR, eLL, eRL, eLR, eRR)
+    if s == MagneticRiemannSolver.MAG_HLLD:
+        return mag_riemann2d_hlld(*args)
+    if s == MagneticRiemannSolver.MAG_HLLA:
+        return mag_riemann2d_hll_family(*args, use_fast=False)
+    if s == MagneticRiemannSolver.MAG_HLLF:
+        return mag_riemann2d_hll_family(*args, use_fast=True)
+    if s == MagneticRiemannSolver.MAG_LLF:
+        return mag_riemann2d_llf(*args)
+    raise ValueError(f"unsupported magnetic Riemann solver {s!r}")
 
 
 # component rotations used by compute_emf (riemann_mhd.h:1098-1109)

@@ -241,10 +241,12 @@ def apply_dissipation_mhd(params: RunParams, U, dt):
     return U
 
 
-def _interior_update(params: RunParams, W, dt, margin, comp=None, cube: bool = False):
+def _interior_update(params: RunParams, W, dt, margin, comp=None, cube: bool = False,
+                     ey_rows: int = 0):
     """The interior-only dissipative update of the window W, whose interior
     starts ``margin`` = (mz, my, mx) cells in: (new interior [8, nz, ny, nx],
-    emfY and emfZ at the interior's xmax face, or None without resistivity).
+    emfY and emfZ at the interior's xmax face, or None without resistivity;
+    emfY with ``ey_rows`` more rows above the interior's).
     ``comp``: the interior's carry [8, nz, ny, nx]; then the new interior
     is compensated, [16, nz, ny, nx] (state, then carry). ``cube``: the
     CT updates B on the interior and its max-side face layer only (the
@@ -269,7 +271,7 @@ def _interior_update(params: RunParams, W, dt, margin, comp=None, cube: bool = F
             W2[(slot,) + ct] = W[(slot,) + ct] + d[ct]
             dB[slot] = crop(d)
         face = (mx + params.nx) % W.shape[-1]  # periodic: face nx is face 0
-        eypl = emfs[1][mz:mz + params.nz, my:my + params.ny, face]
+        eypl = emfs[1][mz:mz + params.nz + ey_rows, my:my + params.ny, face]
         ezpl = emfs[0][mz:mz + params.nz, my:my + params.ny, face]
 
     dU = {}
@@ -334,23 +336,34 @@ def mhd_dissipation_periodic_update(params: RunParams, S, dt):
     return _interior_update(params, S[:8], dt, (0, 0, 0), comp)[0]
 
 
-def mhd_dissipation_shear_update(params: RunParams, S, slabs, dt):
+def mhd_dissipation_shear_update(params: RunParams, S, slabs, dt, zslabs=None):
     """The dissipative sub-step of the shearing box's interior S (8 or, with
     its carry, 16 channels) with the sheared x ghost slabs [2, 8, nz, ny, g]
-    beside it (y and z wrap): (S_new, eypl, ezpl), the twin of the kernel's
-    shear mode before the kept face's update (``kept_face_resistive_ct``)."""
+    beside it (y and z wrap; stratified: ``zslabs`` [2, 8, g, ny, nx + 2g],
+    the z ghost slabs of that block, below and above it, and y wraps):
+    (S_new, eypl, ezpl), the twin of the kernel's shear mode before the
+    kept face's update (``kept_face_resistive_ct``)."""
     comp = S[8:] if S.shape[0] == 16 else None
     W = torch.cat([slabs[0], S[:8], slabs[1]], dim=-1)
-    return _interior_update(params, W, dt, (0, 0, params.ghost_width), comp)
+    g = params.ghost_width
+    if zslabs is None:
+        return _interior_update(params, W, dt, (0, 0, g), comp)
+    W = torch.cat([zslabs[0], W, zslabs[1]], dim=-3)
+    # (emfY's row above the interior: the kept face's CT reads it)
+    return _interior_update(params, W, dt, (g, 0, g), comp, ey_rows=1)
 
 
 def kept_face_resistive_ct(params: RunParams, kept, eypl, ezpl, dt):
     """The kept Bx face after the resistive CT with the xmax-face emfY and
     emfZ planes [nz, ny] (pallas/shear_packed.py:1191-1203; the whole-array
-    ``ct`` range reaches that face); a compensated kept carry [2, nz, ny]
-    (face, carry) takes it as a Kahan add."""
+    ``ct`` range reaches that face); emfY [nz + 1, ny] carries its own +1 z
+    row (the stratified box's, from the z ghosts), else that row wraps. A
+    compensated kept carry [2, nz, ny] (face, carry) takes it as a Kahan
+    add."""
     dtdy, dtdz = _div(dt, params.dy), _div(dt, params.dz)
-    d = dtdy * (torch.roll(ezpl, -1, 1) - ezpl) - dtdz * (torch.roll(eypl, -1, 0) - eypl)
+    ey_up = eypl[1:] if eypl.shape[0] > ezpl.shape[0] else torch.roll(eypl, -1, 0)
+    eypl = eypl[:ezpl.shape[0]]
+    d = dtdy * (torch.roll(ezpl, -1, 1) - ezpl) - dtdz * (ey_up - eypl)
     if kept.dim() == 3:
         return torch.stack(kahan_add(kept[0], kept[1], d))
     return kept + d

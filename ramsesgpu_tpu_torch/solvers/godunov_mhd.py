@@ -453,7 +453,9 @@ def mhd_3d_shear_step(params: RunParams, S, kept, t, dt, gz=None):
     interior and of the x slabs first (pallas/shear_packed.py:963-975,
     1006-1021). A dissipative run then refills the slabs at t + dt from the
     updated state (the sheared refill before the dissipative step,
-    MHDRunGodunov.cpp:1968-1976; no flux remap applies to it), takes the
+    MHDRunGodunov.cpp:1968-1976; no flux remap applies to it; stratified:
+    the z slabs of that block too, as the JAX whole-array step's
+    make_all_boundaries_shear before its dissipation), takes the
     dissipative sub-step and, with resistivity, the kept face's resistive CT
     (pallas/shear_packed.py:1178-1203). S and kept may be compensated (16
     channels, [2, nz, ny]). Returns (S_new, kept_new)."""
@@ -463,7 +465,8 @@ def mhd_3d_shear_step(params: RunParams, S, kept, t, dt, gz=None):
     S_new, kept_new, _ = shear_border_update(params, S_new, kept, planes, t, dt)
     if uses_dissipation(params):
         slabs = shear_slabs(params, S_new[:8], kept_face(kept_new), t + dt)
-        S_new, eypl, ezpl = mhd_dissipation_shear_update(params, S_new, slabs, dt)
+        zslabs = None if gz is None else stratified_zslabs(params, S_new[:8], slabs)
+        S_new, eypl, ezpl = mhd_dissipation_shear_update(params, S_new, slabs, dt, zslabs)
         if params.eta > 0:
             kept_new = kept_face_resistive_ct(params, kept_new, eypl, ezpl, dt)
     return S_new, kept_new

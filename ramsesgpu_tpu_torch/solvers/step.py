@@ -1,11 +1,13 @@
 """Step and chunk-advance builders (the port's counterpart of
 ramsesgpu_tpu/solvers/step.py:107-452), for the ported slices: fully
-periodic 3D MHD with HLLD fluxes and 2D-HLLD EMFs; the shearing box (MRI:
-rotating frame, sheared-periodic x faces, isothermal or adiabatic, same
-solvers); both with or without viscosity and resistivity (nu, eta) and
-with or without the Kahan-compensated state ([implementation]
-compensated); the stratified MRI (BC_Z_STRATIFIED z faces and its static
-vertical gravity, ideal); ideal 3D MHD with any mix of DIRICHLET /
+periodic 3D MHD with any of the JAX package's MHD solver pairs (HLLD, LLF
+or HLL fluxes; 2D-HLLD, HLLA, HLLF or LLF EMFs), on every MHD path below;
+the shearing box (MRI: rotating frame, sheared-periodic x faces,
+isothermal or adiabatic); both with or without viscosity and resistivity
+(nu, eta) and with or without the Kahan-compensated state
+([implementation] compensated); the stratified MRI (BC_Z_STRATIFIED z
+faces and its static vertical gravity, isothermal, with or without nu and
+eta); ideal 3D MHD with any mix of DIRICHLET /
 NEUMANN / PERIODIC faces and the inflow jet (the ghosted route,
 kernels/fused_mhd3d.py); 3D hydro (approx / HLL / HLLC, inviscid)
 with any mix of DIRICHLET / NEUMANN / PERIODIC faces and the jet; and 2D

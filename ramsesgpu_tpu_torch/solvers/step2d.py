@@ -1,5 +1,6 @@
 """The 2D path: hydro (approx / HLL / HLLC) and ideal MHD with constrained
-transport (HLLD faces, 2D-HLLD corner EMF, the rotating frame), whole-array
+transport (HLLD, LLF or HLL faces; HLLD, HLLA, HLLF or LLF corner EMFs;
+the rotating frame), whole-array
 PyTorch on the ghosted state (the counterpart of the JAX package's 2D
 ``make_step_fn`` / ``make_advance_n``, solvers/step.py:207-228, 258-280 and
 the jitted while loop at :359-376 there).
@@ -28,7 +29,7 @@ from typing import Callable
 import torch
 
 from ..config.params import RunParams
-from ..core.constants import MagneticRiemannSolver, RiemannSolver
+from ..core.constants import RiemannSolver
 from ..kernels.loop import make_ghosted_loop
 from .boundary import make_boundaries, require_simple_bcs
 from .godunov import godunov_unsplit_hydro
@@ -43,10 +44,6 @@ def require_2d_scope(params: RunParams) -> None:
     not compute (ROADMAP Queue 1 items 3 and 4)."""
     reasons = []
     if params.mhd:
-        if params.riemann_solver != RiemannSolver.HLLD:
-            reasons.append(f"riemannSolver {params.riemann_solver.name} (HLLD only)")
-        if params.mag_riemann_solver != MagneticRiemannSolver.MAG_HLLD:
-            reasons.append(f"magRiemannSolver {params.mag_riemann_solver.name} (HLLD only)")
         if params.nu > 0 or params.eta > 0:
             reasons.append("2D viscosity / resistivity")
     else:

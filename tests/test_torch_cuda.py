@@ -1345,3 +1345,180 @@ def test_gravity_and_walled_dissip_loops_count_launches(cuda_device, case):
     finally:
         for m, a, fn in saved:
             setattr(m, a, fn)
+
+
+# the MHD solvers other than HLLD: the step kernels' general instances
+# (csrc/mhd_stages.cuh Mode with GEN), each new face and corner solver at
+# least once, and a pair of each kind mixed with HLLD
+SOLVER_PAIRS = [("hll", "hlla"), ("llf", "llf"), ("hlld", "hllf"), ("hll", "hlld")]
+
+
+def with_solvers(params, face, corner):
+    from ramsesgpu_tpu_torch.core.constants import MagneticRiemannSolver, RiemannSolver
+
+    return params.replace(riemann_solver=RiemannSolver[face.upper()],
+                          mag_riemann_solver=MagneticRiemannSolver[f"MAG_{corner.upper()}"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("face, corner", SOLVER_PAIRS)
+def test_general_instances_match_twins(cuda_device, dtype, face, corner):
+    """One step of each mode's general instance against its twin, as
+    chip_smoke.py phase 51: the periodic mode staged (plain and
+    compensated) and streamed (its folded inverse dt within 4 ULP of the
+    CFL twin), the isothermal shear mode with its x-face planes, the
+    ghosted mode on mixed walls, the shear window mode."""
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step, mhd_window
+    from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
+    from ramsesgpu_tpu_torch.solvers.godunov_mhd import (mhd_3d_ghosted_update,
+                                                         mhd_3d_periodic_update,
+                                                         mhd_3d_shear_update,
+                                                         mhd_3d_shear_window_update)
+    from ramsesgpu_tpu_torch.solvers.shear import shear_slabs as slabs_twin
+    from ramsesgpu_tpu_torch.solvers.timestep import (dt_from_inv, inv_dt_mhd_ghosted,
+                                                      inv_dt_mhd_ghosted_shear,
+                                                      inv_dt_mhd_periodic, inv_dt_mhd_shear)
+
+    active = torch.ones((), dtype=torch.bool, device=cuda_device)
+    params, S = ot_state(dtype, cuda_device)
+    params = with_solvers(params, face, corner)
+    dt = dt_from_inv(params, inv_dt_mhd_periodic(params, S))
+    want = mhd_3d_periodic_update(params, S, dt)
+    got = mhd_step(params, S.clone(), dt, active, mhd_step.scratch(params, S))
+    assert rel_l2(got, want) <= TOL[dtype]
+    out = torch.empty_like(S)
+    inv = zcarry_mhd(params, S, out, dt, active, fold=True)
+    assert rel_l2(out, want) <= TOL[dtype]
+    assert ulp_close(inv, inv_dt_mhd_periodic(params, out))
+    comp = params.replace(compensated=True)
+    S16 = torch.cat([S, torch.zeros_like(S)])
+    got = mhd_step(comp, S16.clone(), dt, active, mhd_step.scratch(comp, S16))
+    assert rel_l2(got[:8] - got[8:], mhd_3d_periodic_update(comp, S16, dt)[:8]) <= TOL[dtype]
+
+    mri, (Sm, kept), t0 = mri_state(dtype, cuda_device)
+    mri = with_solvers(mri, face, corner)
+    dt = dt_from_inv(mri, inv_dt_mhd_shear(mri, Sm, kept))
+    slabs = slabs_twin(mri, Sm, kept, t0 + dt)
+    planes = torch.zeros((5, mri.nz, mri.ny), dtype=Sm.dtype, device=cuda_device)
+    got = mhd_step(mri, Sm.clone(), dt, active, mhd_step.scratch(mri, Sm), shear=(slabs, planes))
+    want, want_planes = mhd_3d_shear_update(mri, Sm, slabs, dt)
+    assert rel_l2(got, want) <= TOL[dtype]
+    for c in range(5):
+        assert rel_l2(planes[c], want_planes[c]) <= TOL_PLANES[dtype], c
+
+    walls, U = walled_state("mixed", dtype, cuda_device)
+    walls = with_solvers(walls, face, corner)
+    dt = dt_from_inv(walls, inv_dt_mhd_ghosted(walls, U))
+    got = mhd_step.ghosted(walls, U.clone(), dt, active, mhd_step.scratch(walls, U, ghosted=True))
+    assert rel_l2(got, mhd_3d_ghosted_update(walls, U, dt)) <= TOL[dtype]
+
+    lp, W, x0, _z0, gz = window_case(dtype, cuda_device)
+    lp = with_solvers(lp, face, corner)
+    dt = dt_from_inv(lp, inv_dt_mhd_ghosted_shear(lp, W))
+    out, planes = mhd_window(lp, W, dt, x0, gz, mhd_window.scratch(lp, W))
+    want, want_planes = mhd_3d_shear_window_update(lp, W, dt, x0, gz)
+    assert rel_l2(out, want) <= TOL[dtype]
+    for c in range(5):
+        assert rel_l2(planes[c], want_planes[c]) <= TOL_PLANES[dtype], c
+
+
+def strat_dissip_state(dtype, device, comp):
+    """data/mhd_mri_3d_stratified.ini at 16x32x32 with nu 4e-5 and eta
+    1e-5, plain or compensated (a non-zero carry): params, the loop state
+    (S, kept), a t0 whose shear offset is 2.5 cells and the config."""
+    from pathlib import Path
+
+    from ramsesgpu_tpu_torch.convert import torch_dtype
+    from ramsesgpu_tpu_torch.kernels.shear import pack
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+
+    text = (Path(__file__).resolve().parent.parent / "data" /
+            "mhd_mri_3d_stratified.ini").read_text()
+    text = text.replace("nx=16\nny=64\nnz=128", "nx=16\nny=32\nnz=32").replace(
+        "cIso=0.001\n", "cIso=0.001\nnu=4e-5\n").replace(
+        "omega0=0.001\n", "omega0=0.001\neta=1e-5\n")
+    text = text.replace("compensated=yes", f"compensated={'yes' if comp else 'no'}")
+    config = ConfigMap(text=text + f"\n[implementation]\ndtype={dtype}\n")
+    params = params_from_config(config)
+    U = torch.from_numpy(init_problem(params, config)).to(device, torch_dtype(params))
+    S, kept = pack(params, make_boundaries(params, U))
+    # (1 + 0.01 N(0, 1)) on the state and the kept face: the initial field is
+    # uniform, which the resistive terms would not change
+    gen = torch.Generator().manual_seed(11)
+
+    def noise(x):
+        return torch.randn(x.shape, generator=gen, dtype=torch.float64).to(device, x.dtype)
+
+    S[:8] *= 1 + 0.01 * noise(S[:8])
+    face = kept[0] if comp else kept
+    face *= 1 + 0.01 * noise(face)
+    if comp:
+        S[8:] = torch.finfo(S.dtype).eps * S[:8] * noise(S[:8])
+    t0 = 2.5 * params.dy / (1.5 * params.omega0 * params.dx * params.nx)
+    return params, (S, kept), torch.tensor(t0, dtype=S.dtype, device=device), config
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("comp", [False, True], ids=["plain", "compensated"])
+def test_stratified_dissipation_matches_twin(cuda_device, dtype, comp):
+    """The dissipation kernel's stratified shear mode (z loads outside the
+    interior read the z slabs) against its twin on the slab kernel's x and
+    z slabs: plain, the increment and the kept face's change within TOL;
+    compensated, bitwise (the file is FMA-free)."""
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.kernels.mhd_step import zslab_shape
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_slabs
+    from ramsesgpu_tpu_torch.solvers.dissipation import (kept_face_resistive_ct,
+                                                          mhd_dissipation_shear_update)
+    from ramsesgpu_tpu_torch.solvers.timestep import dt_from_inv, inv_dt_mhd_shear
+
+    params, (S, kept), t0, _config = strat_dissip_state(dtype, cuda_device, comp)
+    face = kept[0] if comp else kept
+    dt = dt_from_inv(params, inv_dt_mhd_shear(params, S[:8], face))
+    zslabs = torch.empty(zslab_shape(params), dtype=S.dtype, device=cuda_device)
+    slabs = shear_slabs(params, S, kept, t0, dt, zout=zslabs)
+    active = torch.ones((), dtype=torch.bool, device=cuda_device)
+    got, kept_got = torch.empty_like(S), kept.clone()
+    before = dissip_step.launches
+    dissip_step(params, S, got, dt, active, shear=(slabs, kept_got, zslabs))
+    assert dissip_step.launches == before + 1
+    want, eypl, ezpl = mhd_dissipation_shear_update(params, S, slabs, dt, zslabs)
+    old = torch.stack([slabs[1, 5, ..., 0], kept[1]]) if comp else slabs[1, 5, ..., 0]
+    kept_want = kept_face_resistive_ct(params, old, eypl, ezpl, dt)
+    if comp:
+        assert torch.equal(got, want) and torch.equal(kept_got, kept_want)
+    else:
+        assert rel_l2(got - S, want - S) <= TOL[dtype]
+        assert rel_l2(kept_got - kept, kept_want - kept) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["auto", "zcarry"])
+def test_stratified_dissipative_loop_counts_launches(cuda_device, kernel):
+    """The stratified box with nu and eta through the kernel loop: per step
+    the step kernel, the CFL, the border kernel, the dissipation kernel
+    once and the slab kernel twice; 3 steps within TOL_STEP10 of the twins'
+    loop (the CPU's)."""
+    from ramsesgpu_tpu_torch.kernels.cfl_mhd import cfl_mhd
+    from ramsesgpu_tpu_torch.kernels.dissip_step import dissip_step
+    from ramsesgpu_tpu_torch.kernels.mhd_step import mhd_step
+    from ramsesgpu_tpu_torch.kernels.shear_border import shear_border, shear_slabs
+    from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+
+    params, state, t0, config = strat_dissip_state("float32", cuda_device, False)
+    params = params.replace(kernel=kernel)
+    step = zcarry_mhd if kernel == "zcarry" else mhd_step
+    wrappers = (step, cfl_mhd, shear_border, dissip_step, shear_slabs)
+    before = [w.launches for w in wrappers]
+    _pack, advance, _unpack = make_packed_advance_chain(params, cuda_device, config)
+    got, t, k = advance(tuple(x.clone() for x in state), t0, 3)
+    assert int(k) == 3
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [3, 3, 3, 3, 6]
+    _pack, advance_cpu, _unpack = make_packed_advance_chain(params, "cpu", config)
+    want, t_cpu, _k = advance_cpu(tuple(x.cpu() for x in state), t0.cpu(), 3)
+    assert abs(float(t) - float(t_cpu)) <= TOL_STEP10["float32"] * float(t_cpu)
+    assert rel_l2(got[0].cpu(), want[0]) <= TOL_STEP10["float32"]

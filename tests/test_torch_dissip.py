@@ -577,10 +577,12 @@ def test_out_of_scope_dissipative_configurations_raise(case):
     from ramsesgpu_tpu_torch.solvers.run import Run
     from ramsesgpu_tpu_torch.solvers.step import make_advance_n
 
-    text = ini("mri", coeffs="unit")
+    # the isothermal stratified box with nu / eta runs, staged and streamed,
+    # plain and compensated (tests/test_torch_stratified.py); the adiabatic
+    # one, which no shipped problem gives a state, stays refused on each path
+    text = ini("mri", coeffs="adiabatic" if case != "2d" else "unit")
     if case == "compensated":
-        # compensated dissipative runs are ported (tests/test_torch_compensated.py);
-        # a compensated stratified one is not
+        # compensated dissipative runs are ported (tests/test_torch_compensated.py)
         text = text.replace("boundary_zmin=3", "boundary_zmin=6").replace(
             "boundary_zmax=3", "boundary_zmax=6") + "\n[gravity]\nstatic=yes\n"
         text = text.replace("[implementation]\n", "[implementation]\ncompensated=yes\n")
@@ -588,8 +590,7 @@ def test_out_of_scope_dissipative_configurations_raise(case):
         text = text.replace("boundary_zmin=3", "boundary_zmin=6").replace(
             "boundary_zmax=3", "boundary_zmax=6") + "\n[gravity]\nstatic=yes\n"
     elif case == "zcarry":
-        # dissipative zcarry runs are ported (tests/test_torch_zcarry.py); a
-        # zcarry stratified one, like any stratified one with nu / eta, is not
+        # dissipative zcarry runs are ported (tests/test_torch_zcarry.py)
         text = text.replace("kernel=auto", "kernel=zcarry")
         text = text.replace("boundary_zmin=3", "boundary_zmin=6").replace(
             "boundary_zmax=3", "boundary_zmax=6") + "\n[gravity]\nstatic=yes\n"

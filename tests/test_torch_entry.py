@@ -306,14 +306,17 @@ def test_wrappers_take_twins_on_cpu_without_counting():
         # periodic MHD, refused here before, runs (tests/test_torch_forcing.py)
         ({"gravity_z": -1.0, "boundary_xmin": "BC_SHEARINGBOX",
           "boundary_xmax": "BC_SHEARINGBOX", "omega0": 1.0}, NotImplementedError),
-        ({"riemann_solver": "LLF"}, NotImplementedError),
+        # an MHD face solver neither package computes: the JAX dispatcher's
+        # ValueError (LLF and HLL faces run: tests/test_torch_mhd_solvers.py)
+        ({"riemann_solver": "HLLC"}, ValueError),
         ({"boundary_xmin": "BC_COPY"}, NotImplementedError),
         ({"omega0": 1.0}, NotImplementedError),
-        # the stratified box with viscosity (the z-slab load rule of
-        # csrc/dissip_step.cu; walls with viscosity run its ghosted mode)
+        # the adiabatic stratified box with viscosity (the isothermal one
+        # runs: tests/test_torch_stratified.py; no shipped problem gives the
+        # adiabatic one a state)
         ({"boundary_xmin": "BC_SHEARINGBOX", "boundary_xmax": "BC_SHEARINGBOX",
           "boundary_zmin": "BC_Z_STRATIFIED", "boundary_zmax": "BC_Z_STRATIFIED",
-          "omega0": 1.0, "c_iso": 1.0, "nu": 1e-3}, NotImplementedError),
+          "omega0": 1.0, "c_iso": 0.0, "nu": 1e-3}, NotImplementedError),
     ],
 )
 def test_out_of_slice_configurations_raise(change, exc):

@@ -634,9 +634,9 @@ def test_dissipative_and_strip_fused_configurations_run(section, key, value):
 
 
 def test_stratified_mri_and_keplerian_disk_raise():
-    """The stratified MRI runs (tests/test_torch_stratified.py) but not with
-    viscosity or resistivity, nor adiabatic; a [gravity] section without
-    stratified z faces and the Keplerian disk raise."""
+    """The stratified MRI runs (tests/test_torch_stratified.py), with
+    viscosity or resistivity too, but not adiabatic; a [gravity] section
+    without stratified z faces and the Keplerian disk raise."""
     from ramsesgpu_tpu_torch.solvers.run import Run
     from ramsesgpu_tpu_torch.solvers.step import require_slice
 
@@ -645,8 +645,11 @@ def test_stratified_mri_and_keplerian_disk_raise():
         key, value = change.split("=")
         stratified = ConfigMap(text=text)
         stratified.set_float("MHD" if key == "eta" else "hydro", key, float(value))
-        with pytest.raises(NotImplementedError):
-            Run(stratified, "cpu")
+        if key == "cIso":
+            with pytest.raises(NotImplementedError):
+                Run(stratified, "cpu")
+        else:
+            require_slice(params_from_config(stratified), "cpu", stratified)
     # MRI with a [gravity] section but periodic z: the gravity gate alone
     config = ConfigMap(text=ini() + "\n[gravity]\nstatic=yes\n")
     with pytest.raises(NotImplementedError, match="gravity"):

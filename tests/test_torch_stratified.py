@@ -18,7 +18,17 @@ on the CPU.
 - Mass accounting: each step's mass change equals the outflow through the
   z faces that the step's own z density fluxes give, and that outflow
   equals the JAX run's mass change of the same step.
-- The g++ host build of the stratified kernel modes against the twins.
+- With viscosity and resistivity (nu 4e-5, eta 1e-5, the viscous-resistive
+  MRI's of scripts/perf_table.py): the dissipative sub-step on the
+  refilled box (the sheared x slabs and the stratified z slabs of that
+  block, then the twin and the kept face's resistive CT) against JAX
+  ``apply_dissipation_mhd`` on ``make_all_boundaries_shear``'s fill, per
+  function as above; and the same slice as above with nu and eta, through
+  the port's loop with kernel=auto and kernel=zcarry, plain and
+  compensated, against the JAX whole-array run with nu and eta, at the
+  slice's tolerances.
+- The g++ host build of the stratified kernel modes against the twins
+  (the dissipation kernel's stratified shear mode too).
 """
 import os
 import subprocess
@@ -43,12 +53,20 @@ TOL_L2 = 2e-6
 TOL_MASS = 1e-8
 
 
-def strat_text(dtype="float32", nx=16, ny=32, nz=32) -> str:
+# the viscous-resistive box's coefficients (scripts/perf_table.py:93-102)
+NU, ETA = 4e-5, 1e-5
+
+
+def strat_text(dtype="float32", nx=16, ny=32, nz=32, dissip=False) -> str:
     """data/mhd_mri_3d.ini's stratified sibling as shipped but for the mesh
-    (same z extent, compensated, slope_type 3)."""
+    (same z extent, compensated, slope_type 3); ``dissip``: with nu NU and
+    eta ETA."""
     text = (REPO / "data" / "mhd_mri_3d_stratified.ini").read_text()
     assert "nx=16\nny=64\nnz=128" in text and "compensated=yes" in text
     text = text.replace("nx=16\nny=64\nnz=128", f"nx={nx}\nny={ny}\nnz={nz}")
+    if dissip:
+        text = text.replace("cIso=0.001\n", f"cIso=0.001\nnu={NU}\n", 1).replace(
+            "omega0=0.001\n", f"omega0=0.001\neta={ETA}\n", 1)
     return text.replace("[implementation]\n", f"[implementation]\ndtype={dtype}\n", 1)
 
 
@@ -86,9 +104,15 @@ def function_outputs(package, dtype):
         from ramsesgpu_tpu.config.configmap import ConfigMap as C
         from ramsesgpu_tpu.config.params import params_from_config as P
         from ramsesgpu_tpu.problems.mhd_inits import mri_gravity_field
-        from ramsesgpu_tpu.solvers.shear import _stratified_ghost_slabs
+        from ramsesgpu_tpu.solvers.dissipation import apply_dissipation_mhd
+        from ramsesgpu_tpu.solvers.shear import _stratified_ghost_slabs, make_all_boundaries_shear
         from ramsesgpu_tpu.solvers.stratified import make_boundary_z_stratified
         array, back = jnp.asarray, np.asarray
+
+        def dissipation(params, U, t, dt):
+            g, nx = params.ghost_width, params.nx
+            W = apply_dissipation_mhd(params, make_all_boundaries_shear(params, U, t), dt)
+            return W[:, g:-g, g:-g, g:g + nx], W[5, g:-g, g:-g, nx + g]
     else:
         from ramsesgpu_tpu_torch.config.configmap import ConfigMap as C
         from ramsesgpu_tpu_torch.config.params import params_from_config as P
@@ -97,6 +121,18 @@ def function_outputs(package, dtype):
         from ramsesgpu_tpu_torch.solvers.stratified import \
             stratified_ghost_slabs as _stratified_ghost_slabs
         array, back = torch.from_numpy, (lambda a: a.numpy())
+
+        def dissipation(params, U, t, dt):
+            from ramsesgpu_tpu_torch.solvers.dissipation import (kept_face_resistive_ct,
+                                                                  mhd_dissipation_shear_update)
+            from ramsesgpu_tpu_torch.solvers.shear import shear_slabs, stratified_zslabs
+
+            g, nx = params.ghost_width, params.nx
+            S, kept = U[:, g:-g, g:-g, g:g + nx], U[5, g:-g, g:-g, nx + g]
+            slabs = shear_slabs(params, S, kept, t)
+            zslabs = stratified_zslabs(params, S, slabs)
+            S_new, eypl, ezpl = mhd_dissipation_shear_update(params, S, slabs, dt, zslabs)
+            return S_new, kept_face_resistive_ct(params, slabs[1, 5, ..., 0], eypl, ezpl, dt)
     config = C(text=text)
     params = P(config)
     _p, U, mid = fn_inputs(dtype)
@@ -107,15 +143,21 @@ def function_outputs(package, dtype):
                 params, array(U), side_max=side, floor=floor))]
     out["ghost slabs"] = [back(a) for a in _stratified_ghost_slabs(params, array(mid))]
     out["gravity field"] = [np.asarray(mri_gravity_field(params, config))]
+    # the dissipative sub-step on the refilled box at t0, dt 10 (nu dt / dx^2
+    # = 0.1), its interior and kept face
+    dparams = P(C(text=strat_text(dtype, dissip=True)))
+    t = array(np.asarray(t_start(dparams), dtype))
+    out["dissipation"] = [back(a) for a in dissipation(dparams, array(U), t,
+                                                        array(np.asarray(10.0, dtype)))]
     return out
 
 
 # -------------------------------------------------------------------------
 # the JAX references
 # -------------------------------------------------------------------------
-def jax_run(n_steps=N_STEPS):
+def jax_run(n_steps=N_STEPS, dissip=False):
     """The JAX whole-array stratified run from t0: the ghosted state, t and
-    the interior's mass after each step."""
+    the interior's mass after each step; ``dissip``: with nu and eta."""
     from ramsesgpu_tpu.config.configmap import ConfigMap as JConfigMap
     from ramsesgpu_tpu.config.params import params_from_config as j_params
     from ramsesgpu_tpu.problems import init_problem
@@ -123,7 +165,7 @@ def jax_run(n_steps=N_STEPS):
     from ramsesgpu_tpu.solvers.shear import make_all_boundaries_shear
     from ramsesgpu_tpu.solvers.step import make_step_fn
 
-    config = JConfigMap(text=strat_text())
+    config = JConfigMap(text=strat_text(dissip=dissip))
     params = j_params(config)
     g = params.ghost_width
     out = {}
@@ -150,6 +192,7 @@ import numpy as np
 sys.path.insert(0, sys.argv[1])
 import test_torch_stratified as m
 out = {f"run_{k}": v for k, v in m.jax_run().items()}
+out.update({f"dissip_{k}": v for k, v in m.jax_run(dissip=True).items()})
 for dtype in ("float32", "float64"):
     for name, arrays in m.function_outputs("jax", dtype).items():
         for j, a in enumerate(arrays):
@@ -211,7 +254,7 @@ def test_functions_f32_match_jax(jax_refs):
             assert_close(a, refs[f"fn_{name}_float32_{j}"], f"{name} output {j}")
 
 
-@pytest.mark.parametrize("name", ["boundary", "ghost slabs", "gravity field"])
+@pytest.mark.parametrize("name", ["boundary", "ghost slabs", "gravity field", "dissipation"])
 def test_functions_f64_match_jax(name, jax_refs):
     refs = jax_refs()
     got = function_outputs("port", "float64")
@@ -281,15 +324,15 @@ def port_run(jax_refs):
     return _port_runs["run"]
 
 
-def check_run(params, U, t, refs):
-    """The port's run against the JAX one: t, and the loop state (interior,
-    kept face) as one vector, as tests/test_torch_shear.py
-    test_slice_matches_jax holds it."""
+def check_run(params, U, t, refs, run="run"):
+    """The port's run against the JAX one (``run``: its key prefix): t, and
+    the loop state (interior, kept face) as one vector, as
+    tests/test_torch_shear.py test_slice_matches_jax holds it."""
     from ramsesgpu_tpu_torch.core.constants import IA
 
     g, nx = params.ghost_width, params.nx
-    np.testing.assert_allclose(t, float(refs["run_t"]), rtol=TOL_T)
-    want = refs["run_U"]
+    np.testing.assert_allclose(t, float(refs[f"{run}_t"]), rtol=TOL_T)
+    want = refs[f"{run}_U"]
     got = U.numpy()
     assert np.isfinite(got).all()
     inner = (slice(None), slice(g, -g), slice(g, -g), slice(g, -g))
@@ -322,6 +365,34 @@ def test_zcarry_stratified_mri_matches_jax(jax_refs):
     U, t, k = make_advance_n(params, "cpu", config)(torch.from_numpy(refs["run_U0"]), t0, N_STEPS)
     assert int(k) == N_STEPS
     check_run(params, U, float(t), refs)
+
+
+@pytest.mark.parametrize("comp", ["yes", "no"])
+@pytest.mark.parametrize("kernel", ["auto", "zcarry"])
+def test_dissipative_stratified_mri_matches_jax(kernel, comp, jax_refs):
+    """The stratified box with nu and eta: each step's sheared and
+    stratified refill of the updated state and the dissipation kernel's
+    stratified shear mode after the step (kernels/shear.py; its twins on
+    the CPU), 3 steps in one chunk from the JAX run's initial state, plain
+    and compensated (the JAX whole-array run has no carry), staged and
+    streamed, against the JAX whole-array run with nu and eta."""
+    from ramsesgpu_tpu_torch.solvers.step import make_advance_n
+
+    text = strat_text(dissip=True).replace("compensated=yes", f"compensated={comp}")
+    config = ConfigMap(text=text.replace("[implementation]\n",
+                                         f"[implementation]\nkernel={kernel}\n", 1))
+    params = params_from_config(config)
+    assert (params.nu, params.eta, params.kernel) == (NU, ETA, kernel)
+    assert params.compensated == (comp == "yes")
+    refs = jax_refs()
+    t0 = torch.tensor(t_start(params), dtype=torch.float32)
+    U, t, k = make_advance_n(params, "cpu", config)(torch.from_numpy(refs["dissip_U0"]), t0,
+                                                    N_STEPS)
+    assert int(k) == N_STEPS
+    check_run(params, U, float(t), refs, "dissip")
+    # the dissipation moves the run: the ideal run's state differs by more
+    # than ten times the tolerance (by 1.5e-4 relative)
+    assert rel_l2(refs["dissip_U"], refs["run_U"]) > 10 * TOL_L2
 
 
 def test_stratified_fill_equals_jax(jax_refs):
@@ -499,3 +570,56 @@ def test_csrc_host_build_stratified_slabs_partial_blocks(dtype, nz):
             dt.data_ptr(), torch.tensor(active).data_ptr(), 1, *dims, blk, None) == 0
         expect = want if active else (S, kept, torch.zeros_like(rem))
         assert all(torch.equal(a, b) for a, b in zip((S1, k1, rem), expect)), active
+
+
+@pytest.mark.parametrize("comp", [False, True], ids=["plain", "compensated"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_csrc_host_build_stratified_dissipation(dtype, comp):
+    """csrc/dissip_step.cu's stratified shear mode built with g++ (z loads
+    outside the interior read the z slabs) on a 12x10x5 box, with nu and
+    eta: the new state against the twin's (the increment within 1e-6 /
+    1e-13; compensated, the state and carry bitwise, the file being
+    FMA-free), the kept face's change likewise, S untouched; an inactive
+    sub-step copies S and leaves the kept face."""
+    from ramsesgpu_tpu_torch.kernels.build import load_library, param_block
+    from ramsesgpu_tpu_torch.solvers.dissipation import (kept_face_resistive_ct,
+                                                          mhd_dissipation_shear_update)
+    from ramsesgpu_tpu_torch.solvers.shear import shear_slabs, stratified_zslabs
+
+    lib = load_library("host")
+    tdt = torch.float32 if dtype == "float32" else torch.float64
+    tol = 1e-6 if dtype == "float32" else 1e-13
+    fn = getattr(lib, f"ramses_dissip_step_strat_{'f32' if dtype == 'float32' else 'f64'}")
+    params = params_from_config(ConfigMap(text=strat_text(dtype, 12, 10, 5, dissip=True)))
+    params = params.replace(compensated=comp)
+    rng = np.random.default_rng(31)
+    U = torch.from_numpy(random_state(params, rng, dtype))
+    g, nx, ny, nz = params.ghost_width, params.nx, params.ny, params.nz
+    S = U[:, g:-g, g:-g, g:g + nx].contiguous()
+    kept = U[5, g:-g, g:-g, nx + g].contiguous()
+    if comp:
+        eps = torch.finfo(tdt).eps
+        S = torch.cat([S, eps * S * torch.from_numpy(rng.standard_normal(S.shape)).to(tdt)])
+        kept = torch.stack([kept, eps * kept * torch.from_numpy(
+            rng.standard_normal(kept.shape)).to(tdt)])
+    face = kept[0] if comp else kept
+    slabs = shear_slabs(params, S[:8], face, torch.tensor(t_start(params), dtype=tdt))
+    zslabs = stratified_zslabs(params, S[:8], slabs)
+    dt = torch.tensor(10.0, dtype=tdt)
+    want, eypl, ezpl = mhd_dissipation_shear_update(params, S, slabs, dt, zslabs)
+    old = torch.stack([slabs[1, 5, ..., 0], kept[1]]) if comp else slabs[1, 5, ..., 0]
+    kept_want = kept_face_resistive_ct(params, old, eypl, ezpl, dt)
+    S_in = S.clone()
+    for active in (True, False):
+        got, kept_got = torch.full_like(S, float("nan")), kept.clone()
+        assert fn(S.data_ptr(), got.data_ptr(), slabs.data_ptr(), kept_got.data_ptr(),
+                  zslabs.data_ptr(), dt.data_ptr(), torch.tensor(active).data_ptr(), int(comp),
+                  nx, ny, nz, param_block(params), None) == 0
+        assert torch.equal(S, S_in)
+        if not active:
+            assert torch.equal(got, S) and torch.equal(kept_got, kept)
+        elif comp:
+            assert torch.equal(got, want) and torch.equal(kept_got, kept_want)
+        else:
+            assert rel_l2(got - S, want - S) <= tol
+            assert rel_l2(kept_got - kept, kept_want - kept) <= tol
