@@ -255,6 +255,22 @@ Phases, in order; any failure raises and no result line is printed:
      stratified mode there against its twin (bitwise), its time and bound;
      2D Orszag-Tang with (hll, hlla) on the card against the CPU (64^2 f64,
      10 steps, relative L2 1e-12);
+ 52. checkpoint / restart and the numerics guard: (52a) OT 256^3 f32 at
+     the bench.py INI (kernel=auto and zcarry), the MRI at 128x256x128
+     (compensated=no) and data/turbulence_mhd_ou.ini as shipped, each run
+     2 N52 steps writing NetCDF checkpoints (ghostIncluded) at N52 and
+     2 N52, then a fresh Run restarted from the step-N52 file for N52
+     steps: its interior, t and step bitwise the step-2 N52 file's; the
+     MRI as shipped (compensated) within COMP_RESUME_L2 (the carry a
+     checkpoint does not hold); the 256^3 checkpoint's bytes, write and
+     read ms; (52b) data/implode3d_debug.ini as shipped through the CLI
+     (the guard after each chunk, launches counted), a NaN and a negative
+     density planted in the 256^3 OT state, check_finite's text on the
+     card equal to the CPU's, one check_finite's ms; (52c)
+     data/mhd_mri_3d_stratified_restart.ini as shipped on 4 ranks sharing
+     the card, from the checkpoint the port's sharded run of
+     mhd_mri_3d_stratified_mpi.ini wrote, capped at 2 N52: bitwise the
+     straight run's step-2 N52 file; the first restarted step's ms;
  then the MHD step kernel's rows (A, A', 3, 4, 12, and the isothermal
  instances) with their times and bounds, the kernels JSON line, the card
  line, and the result line.
@@ -5709,6 +5725,251 @@ def phase51(card: str, n_twin: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# checkpoint / restart and the numerics guard: phase 52
+# ---------------------------------------------------------------------------
+# steps between the checkpoints of phase 52's runs; the shipped restart input
+# reads noutput=10, so its run from step 5 is one chunk of 5, as the straight
+# run's second chunk is
+N52 = 5
+# the compensated MRI's resumed-vs-straight relative L2 (the Kahan carry a
+# checkpoint does not hold), tests/test_torch_restart_io.py COMP_RESUME_L2
+COMP_RESUME_L2 = 1e-6
+RESTART_INI = "data/mhd_mri_3d_stratified_restart.ini"
+IMPLODE_DEBUG_INI = "data/implode3d_debug.ini"
+
+
+def ini_with(text: str, section: str, **kv) -> str:
+    """The INI text with the keys of ``section`` set (replaced, else added)."""
+    for k in kv:
+        text = re.sub(rf"^{k}=.*\n", "", text, flags=re.M)
+    lines = "".join(f"{k}={v}\n" for k, v in kv.items())
+    if f"[{section}]\n" in text:
+        return text.replace(f"[{section}]\n", f"[{section}]\n{lines}", 1)
+    return text + f"\n[{section}]\n{lines}"
+
+
+def resumed_case(label: str, text: str, card: str, timed: bool = False) -> dict:
+    """The run of ``text`` on the card for 2 N52 steps writing NetCDF
+    checkpoints (ghostIncluded) at N52 and 2 N52, then a fresh Run restarted
+    from the step-N52 file (beside the OU forcing state's) for N52 steps:
+    whether its interior, t and step are the step-2 N52 file's bitwise, and
+    their relative L2; with ``timed`` the checkpoint's bytes and the ms of
+    its write and read (host clock, the state already on the host) and of
+    the copy from the card."""
+    import shutil
+    import tempfile
+
+    from ramsesgpu_tpu_torch.io.netcdf import input_netcdf, output_netcdf
+    from ramsesgpu_tpu_torch.solvers.run import Run, config_from_ini
+
+    with tempfile.TemporaryDirectory(prefix="smoke52_") as tmp:
+        a, b = Path(tmp) / "straight", Path(tmp) / "resumed"
+        b.mkdir(parents=True)
+        base = ini_with(text, "run", noutput=N52, nstepmax=2 * N52)
+        base = ini_with(base, "output", outputDir=a, outputPrefix="ck", outputVtk="no",
+                        outputHdf5="no", outputNetcdf="yes", ghostIncluded="yes")
+        config, params = config_from_ini(base)
+        Run(config, "cuda", params).start()
+        for f in a.glob(f"ck_forcing_{N52:07d}.npz"):
+            shutil.copy(f, b)
+        resumed = ini_with(base, "run", restart="yes", restart_filename=a / f"ck_{N52:07d}.nc")
+        config, _ = config_from_ini(ini_with(resumed, "output", outputDir=b, outputNetcdf="no"))
+        run = Run(config, "cuda", params)
+        if run.n_step != N52:
+            raise AssertionError(f"{label}: restarted at step {run.n_step}, expected {N52}")
+        run.start()
+        U, t, step = input_netcdf(params, a / f"ck_{2 * N52:07d}.nc")
+        g = params.ghost_width
+        want = torch.from_numpy(U[(slice(None),) + (slice(g, -g),) * params.dim])
+        got = torch.from_numpy(run.interior())
+        out = {"bitwise": bool(torch.equal(got, want)) and run.t == t
+               and run.n_step == step == 2 * N52, "rel_l2": rel_l2(got, want), "t": (run.t, t)}
+        if timed:
+            t0 = time.perf_counter()
+            U_host = run.U.cpu().numpy()
+            out["copy_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            output_netcdf(params, U_host, step, str(b / "timed.nc"), total_time=t,
+                          ghost_included=True)
+            out["write_ms"] = (time.perf_counter() - t0) * 1e3
+            out["bytes"] = (b / "timed.nc").stat().st_size
+            t0 = time.perf_counter()
+            input_netcdf(params, b / "timed.nc")
+            out["read_ms"] = (time.perf_counter() - t0) * 1e3
+    print(f"[{label}] {params.nx}x{params.ny}x{params.nz} {params.dtype} on {card}: resumed at "
+          f"step {N52} and run to {2 * N52}: bitwise {out['bitwise']}, relative L2 "
+          f"{out['rel_l2']:.3e}, t {out['t'][0]!r} vs {out['t'][1]!r}"
+          + ("" if not timed else f"; checkpoint {out['bytes']} bytes, copy from the card "
+             f"{out['copy_ms']:.1f} ms, write {out['write_ms']:.1f} ms, read "
+             f"{out['read_ms']:.1f} ms (host clock, warm page cache)"))
+    return out
+
+
+def phase52a(card: str) -> None:
+    """Restart continuity on the card: OT 256^3 f32 at the bench.py INI
+    (kernel=auto, timed, and kernel=zcarry), the MRI at 128x256x128 with
+    compensated=no, turbulence_mhd_ou.ini as shipped: each resumed run
+    bitwise the straight one; the MRI as shipped (compensated) within
+    COMP_RESUME_L2."""
+    ot = INI.format(n=256, dtype="float32")
+    mri = Path(MRI_INI).read_text().replace("nx=16\nny=32\nnz=16", "nx=128\nny=256\nnz=128")
+    if "nx=128\nny=256\nnz=128" not in mri or "compensated=yes" not in mri:
+        raise AssertionError(f"{MRI_INI}: unexpected mesh or compensated key")
+    cases = [("52a OT", ot, True), ("52a OT kernel=zcarry", ini_with(
+        ot, "implementation", kernel="zcarry"), False),
+        ("52a MRI", mri.replace("compensated=yes", "compensated=no"), False),
+        ("52a turbulence_mhd_ou.ini", Path(TURB["turbulence_mhd_ou"]).read_text(), False)]
+    for label, text, timed in cases:
+        torch.cuda.empty_cache()
+        if not resumed_case(label, text, card, timed)["bitwise"]:
+            raise AssertionError(f"{label}: the resumed run is not the straight run bitwise")
+    out = resumed_case("52a MRI as shipped (compensated)", mri, card)
+    if not 0 < out["rel_l2"] <= COMP_RESUME_L2:
+        raise AssertionError(f"52a compensated MRI: resumed vs straight {out['rel_l2']:.3e}, "
+                             f"bound {COMP_RESUME_L2}")
+
+
+def phase52b(card: str) -> None:
+    """data/implode3d_debug.ini as shipped through the CLI on the card (the
+    guard after each of its 5 one-step chunks, a VTK snapshot a step); a
+    NaN and, separately, a negative density planted in the 256^3 OT state:
+    check_finite on the card raises the CPU's NumericsError text; the
+    device ms of one check_finite at 256^3 (CUDA events, its host read
+    included)."""
+    import os
+    import tempfile
+
+    from ramsesgpu_tpu_torch.cli.main import main as cli_main
+    from ramsesgpu_tpu_torch.convert import torch_dtype
+    from ramsesgpu_tpu_torch.io.vtk import read_vti
+    from ramsesgpu_tpu_torch.problems import init_problem
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries
+    from ramsesgpu_tpu_torch.solvers.run import config_from_ini
+    from ramsesgpu_tpu_torch.utils.guard import NumericsError, check_finite, failure_message
+
+    cwd = os.getcwd()
+    path = Path(IMPLODE_DEBUG_INI).resolve()
+    with tempfile.TemporaryDirectory(prefix="smoke52b_") as workdir:
+        os.chdir(workdir)
+        try:
+            with counted_main_path("52b implode3d_debug.ini", {"hydro_step": 5, "cfl_hydro": 5}):
+                rc = cli_main(["--param", str(path)])
+        finally:
+            os.chdir(cwd)
+        written = sorted(p.name for p in Path(workdir).iterdir())
+        rho = read_vti(Path(workdir) / written[-1])[0]["density"]
+    if rc != 0 or written != [f"implode3d_gpu_v2_{k:07d}.vti" for k in range(6)]:
+        raise AssertionError(f"52b implode3d_debug.ini: rc {rc}, files {written}")
+    if not (math.isfinite(float(rho.min())) and float(rho.min()) > 0):
+        raise AssertionError("52b implode3d_debug.ini: density not finite and positive")
+    print(f"[52b] implode3d_debug.ini as shipped on {card}: 5 steps, guard after each, "
+          f"files {written}")
+
+    config, params = config_from_ini(INI.format(n=256, dtype="float32"))
+    U = make_boundaries(params, torch.from_numpy(init_problem(params, config)).to(
+        "cuda", torch_dtype(params)))
+    g = params.ghost_width
+    ms = time_ms(lambda: check_finite(params, U, 41), 10)
+    for kind, value, where in (("nonfinite", float("nan"), (3, 100, 37, 201)),
+                               ("density", -1.0, (0, 57, 140, 9))):
+        bad = U.clone()
+        bad[where] = value
+        texts = []
+        for state in (bad, bad.cpu()):
+            try:
+                check_finite(params, state, 41)
+            except NumericsError as exc:
+                texts.append(str(exc))
+        cell = (where[0],) + tuple(i - g for i in where[1:])
+        want = failure_message(kind, cell if kind == "nonfinite" else cell[1:], 41)
+        print(f"[52b] planted {kind} at {where}: card {texts[:1]}, CPU {texts[1:]}")
+        if texts != [want, want]:
+            raise AssertionError(f"52b {kind}: {texts}, expected {want!r} twice")
+    print(f"[52b] check_finite at 256^3 f32 (one reduction, one host read): {ms:.3f} ms "
+          f"({card})")
+
+
+def rank52(workdir: str, restart_ini: str) -> dict:
+    """One rank of phase 52c (a spawned process): in ``workdir``, the
+    straight sharded run (straight.ini, the CLI's main()), rank 0 copying
+    its step-N52 checkpoint to the name the restart input reads, then the
+    restart input as shipped through main() capped at N52 + 1 (its first
+    restarted step, timed) and at 2 N52; the last run's gathered state."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from ramsesgpu_tpu_torch.cli.main import main
+    from ramsesgpu_tpu_torch.solvers.run_distributed import DistributedRun
+
+    os.chdir(workdir)
+    runs, walls = [], []
+    start = DistributedRun.start
+
+    def kept_start(self, *args, **kw):
+        runs.append(self)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        start(self, *args, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    DistributedRun.start = kept_start
+    try:
+        rcs = [main(["--param", "straight.ini"])]
+        if dist.get_rank() == 0:
+            shutil.copy(f"mhd_mri_3d_stratified_mpi_{N52:07d}.nc",
+                        "mhd_mri_3d_stratified_mpi_0005000.nc")
+        dist.barrier()
+        for cap in (N52 + 1, 2 * N52):
+            rcs.append(main(["--param", restart_ini, "--max-steps", str(cap)]))
+    finally:
+        DistributedRun.start = start
+    run = runs[-1]
+    return {"rank": run.grid.rank, "rcs": rcs, "steps": [r.n_step for r in runs],
+            "first_step_ms": walls[1] * 1e3, "t": run.t, "U": run.interior(),
+            "transport": run.grid.describe()}
+
+
+def phase52c(card: str) -> None:
+    """The shipped restart input on 4 ranks sharing the card: the port's
+    sharded run of mhd_mri_3d_stratified_mpi.ini with outputNetcdf=yes,
+    noutput=N52, nstepmax=2 N52 writes the checkpoints; the restart input
+    as shipped from the step-N52 one, capped at 2 N52 (both drivers cap
+    the total step count): its gathered interior, t and step are the
+    straight run's step-2 N52 file's bitwise."""
+    import tempfile
+
+    from ramsesgpu_tpu_torch.io.netcdf import input_netcdf
+    from ramsesgpu_tpu_torch.parallel.launch import spawn_ranks
+
+    text = ini_with(Path(STRAT_MPI_INI).read_text(), "run", noutput=N52, nstepmax=2 * N52)
+    text = ini_with(text, "output", outputNetcdf="yes", outputVtk="no")
+    params = params_from_text(text)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="smoke52c_") as workdir:
+        (Path(workdir) / "straight.ini").write_text(text)
+        ranks = spawn_ranks(rank52, 4, (workdir, str(Path(RESTART_INI).resolve())))
+        U, t, step = input_netcdf(params, Path(workdir) /
+                                  f"mhd_mri_3d_stratified_mpi_{2 * N52:07d}.nc")
+        written = sorted(p.name for p in Path(workdir).iterdir())
+    r0 = ranks[0]
+    g = params.ghost_width
+    got, want = torch.from_numpy(r0["U"]), torch.from_numpy(U[:, g:-g, g:-g, g:-g])
+    first = max(r["first_step_ms"] for r in ranks)
+    print(f"[52c] {RESTART_INI} as shipped on {card}, {r0['transport']}: steps "
+          f"{r0['steps']} (straight, first restarted step, restart to {2 * N52}), t "
+          f"{r0['t']!r} vs {t!r}, relative L2 {rel_l2(got, want):.3e}, files {written}; first "
+          f"restarted step {first:.1f} ms (start() of one step, host clock, slowest rank)")
+    if any(r["rcs"] != [0, 0, 0] or r["steps"] != [2 * N52, N52 + 1, 2 * N52] for r in ranks):
+        raise AssertionError(f"52c: {[(r['rcs'], r['steps']) for r in ranks]}")
+    if not (torch.equal(got, want) and r0["t"] == t and step == 2 * N52):
+        raise AssertionError("52c: the restarted sharded run is not the straight run bitwise")
+
+
 def main() -> int:
     start = time.perf_counter()
 
@@ -5851,6 +6112,12 @@ def main() -> int:
     lap("50")
     solvers = phase51(card, timing["n_twin"])
     lap("51")
+    phase52a(card)
+    lap("52a")
+    phase52b(card)
+    lap("52b")
+    phase52c(card)
+    lap("52c")
     bounds.update(grav["bounds"])
     bounds.update(solvers["bounds"])
     if "jax" in sys.modules or any(m.startswith("ramsesgpu_tpu.") for m in sys.modules):

@@ -29,7 +29,7 @@ def build_parser() -> argparse.ArgumentParser:
                     "MHD+CT with walls or periodic faces, the inflow jet, static gravity, "
                     "viscous-resistive 3D MHD, viscous 3D hydro, the MRI shearing box, "
                     "driven turbulence; [mpi] inputs, forced and dissipative ones included, "
-                    "over one process per rank).",
+                    "over one process per rank; checkpoint / restart, the numerics guard).",
     )
     parser.add_argument("--param", "-i", required=True, help="INI parameter file")
     parser.add_argument("--max-steps", type=int, default=None)

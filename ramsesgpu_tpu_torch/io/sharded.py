@@ -13,6 +13,13 @@ master, :4835-5557 the collective PHDF5 hyperslabs).
   XDMF wrapper. Rank 0 writes its own block, then receives the other
   ranks' blocks one at a time and writes each into its hyperslab, so the
   global array is never held on one host.
+- ``output_netcdf_sharded`` (JAX :357-432, its single-process branch):
+  one global-shape ``<prefix>_<step:07d>.nc`` with io/netcdf.py's
+  variables and attributes, interior only. Rank 0 writes it one variable
+  at a time, each assembled from the ranks' blocks of that variable as it
+  is written (scipy's NetCDF-3 file byte for byte, io/netcdf.py
+  write_classic_stream; netCDF4 where it imports), so it holds one
+  variable of the global state, never the whole.
 
 Every rank calls each writer. Both end in a barrier, so the files are
 whole when any rank returns.
@@ -137,5 +144,59 @@ def output_hdf5_sharded(params: RunParams, grid: ProcessGrid, U_local: torch.Ten
         f.attrs["ghost width"] = np.int32(params.ghost_width)
         f.attrs["creation date"] = datetime.datetime.now().isoformat()
     write_xdmf_wrapper(params, path, ghost_included=False)
+    _barrier(grid)
+    return path
+
+
+def output_netcdf_sharded(params: RunParams, grid: ProcessGrid, U_local: torch.Tensor,
+                          n_step: int, total_time: float = 0.0, output_dir: str = ".",
+                          prefix: str = "output") -> Path:
+    """One global-shape NetCDF snapshot (the interior) of the blocks U_local
+    of every rank (JAX io/sharded.py:357-432, single process): for each
+    variable in turn, the other ranks send their block of it and rank 0
+    writes the assembled variable; returns the file's path."""
+    from .netcdf import have_netcdf4, write_classic_stream
+
+    path = Path(output_dir) / f"{prefix}_{n_step:07d}.nc"
+    names = dataset_names(params)
+    if grid.rank != 0:
+        for i in range(len(names)):
+            dist.send(grid.send_form(U_local[i]), dst=0)
+        _barrier(grid)
+        return path
+
+    os.makedirs(output_dir, exist_ok=True)
+    shape = (params.nz, params.ny, params.nx)[-params.dim:]
+    dims = dict(zip(("z", "y", "x")[-params.dim:], shape))
+    dtype = np.float64 if params.dtype == "float64" else np.float32
+
+    def variable(i: int) -> np.ndarray:
+        buf = np.empty(shape, dtype)
+        own = grid.send_form(U_local[i])
+        recv = torch.empty_like(own)
+        for k in range(_n_ranks(grid)):
+            if k:
+                dist.recv(recv, src=k)
+            buf[block_slices(params, grid, k)[1:]] = (own if k == 0 else recv).cpu().numpy()
+        return buf
+
+    if have_netcdf4():
+        import netCDF4
+
+        ds = netCDF4.Dataset(path, "w")
+        try:
+            for name, size in dims.items():
+                ds.createDimension(name, size)
+            for i, name in enumerate(names):
+                ds.createVariable(name, dtype, tuple(dims))[...] = variable(i)
+            ds.setncattr("time step", np.int32(n_step))
+            ds.setncattr("total time", float(total_time))
+            ds.setncattr("ghost included", np.int32(0))
+        finally:
+            ds.close()
+    else:
+        write_classic_stream(path, dims, names, dtype,
+                             {"time_step": np.int32(n_step), "total_time": np.float64(total_time),
+                              "ghost_included": np.int32(0)}, variable)
     _barrier(grid)
     return path

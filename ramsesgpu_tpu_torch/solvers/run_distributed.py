@@ -25,10 +25,24 @@ sample (io/history.py) and appends it (JAX run.py:290-300 through its
 ``_host_ghosted``, run_distributed.py:244-277). With ``[output] gatherOutput`` or
 ``ghostIncluded`` the snapshots gather the blocks onto rank 0, which fills
 the ghosts at the current time (the sheared fill, or make_boundaries with
-the jet) and writes with io/vtk.py and io/hdf5.py; otherwise every rank
-writes its VTK piece and rank 0 the ``.pvti`` master and the one global
-HDF5 file, block by block (io/sharded.py), as the JAX run does
-(run_distributed.py:107-127 there). The perf report counts global cells.
+the jet) and writes every format switched on with the single-device
+writers (solvers/run.py OutputSettings); otherwise every rank writes its
+VTK piece and rank 0 the ``.pvti`` master, the one global HDF5 file and
+the one global NetCDF file, block by block (io/sharded.py), as the JAX run
+does (run_distributed.py:107-127 there), and PNG, NRRD, XSM, BIN and the
+face dumps are written by rank 0 from the gathered state (JAX
+run_distributed.py:131-170: its streamed PNG and faces equal the host
+writers', tests/test_io_sharded.py:207). The perf report counts global
+cells.
+
+``[run] restart``: every rank loads the checkpoint (io/restart.py) and
+keeps its block, and reloads the OU forcing state where its checkpoint
+exists (the JAX Run builds the global state and shards it,
+run_distributed.py:40-77 there). The numerics guard (``fpe_check``,
+``[debug] dumpData``): after each chunk each rank reduces its block on its
+device, one all_reduce joins the flags, and only on failure are the blocks
+gathered, rank 0 finds the first bad value of the global state and dumps
+it, and every rank raises the JAX package's NumericsError text.
 """
 from __future__ import annotations
 
@@ -39,19 +53,19 @@ import torch
 
 from ..config.configmap import ConfigMap
 from ..config.params import RunParams, params_from_config
-from ..io.hdf5 import output_hdf5
 from ..io.history import HistoryWriter, compute_history
-from ..io.sharded import output_hdf5_sharded, output_vtk_pieces
-from ..io.vtk import output_vtk
+from ..io.restart import load_restart
+from ..io.sharded import output_hdf5_sharded, output_netcdf_sharded, output_vtk_pieces
 from ..kernels.mhd_step import uses_shear
 from ..ops.forcing import OUForcing, save_ou_forcing
 from ..parallel.mesh import init_process_group, topology_from_config, validate_decomposition
 from ..parallel.sharded_step import (gather_global_state, make_sharded_advance_n,
                                      require_sharded_scope, shard_global_state)
 from ..problems import init_problem
+from ..utils.guard import NumericsError, check_finite, interior_ok
 from ..utils.timer import Timer
 from .boundary import make_boundaries
-from .run import _UNPORTED_FLAGS, Run
+from .run import OutputSettings, Run, guard_failed, refuse_unported
 from .shear import make_all_boundaries_shear
 
 
@@ -66,17 +80,14 @@ class DistributedRun(Run):
         topo = topology_from_config(config)
         validate_decomposition(p, *topo)
         require_sharded_scope(p, device, config)
-        for section, key in _UNPORTED_FLAGS:
-            if config.get_bool(section, key, False):
-                raise NotImplementedError(f"[{section}] {key} is not ported in a distributed "
-                                          f"run")
-        self.output_dir = config.get_string("output", "outputDir", "./")
-        self.output_prefix = config.get_string("output", "outputPrefix", "output")
-        self.output_vtk = config.get_bool("output", "outputVtk", True)
-        self.output_hdf5 = config.get_bool("output", "outputHdf5", False)
-        self.ghost_included = config.get_bool("output", "ghostIncluded", False)
+        refuse_unported(config)
+        self.out = OutputSettings(config)
+        self.output_dir, self.output_prefix = self.out.output_dir, self.out.output_prefix
+        self.ghost_included = self.out.ghost_included
         self.gather = config.get_bool("output", "gatherOutput", False) or self.ghost_included
         self.n_log = config.get_integer("run", "nlog", 0)
+        self.fpe_check = (config.get_bool("run", "fpe_check", False)
+                          or config.get_bool("debug", "dumpData", False))
         self.t = 0.0
         self.n_step = 0
         self.io_timer = Timer()
@@ -90,9 +101,17 @@ class DistributedRun(Run):
         self.device = self.grid.device
         if self._history and self.is_root:
             self._history_writer = HistoryWriter(p, self.output_dir, self.output_prefix)
-        self.U = shard_global_state(p, self.grid, init_problem(p, config))
+        restart = config.get_bool("run", "restart", False)
+        if restart:
+            U0, self.t, self.n_step = load_restart(p, config)
+        else:
+            U0 = init_problem(p, config)
+        self.U = shard_global_state(p, self.grid, U0)
+        del U0
         self._advance = make_sharded_advance_n(p, self.grid, config)
         self.forcing = self._advance.forcing
+        if restart:
+            self.reload_forcing()
 
     @property
     def is_root(self) -> bool:
@@ -114,37 +133,54 @@ class DistributedRun(Run):
         return make_all_boundaries_shear(self.params, Ug, torch.tensor(self.t, dtype=glob.dtype))
 
     def output(self) -> None:
-        """VTK and/or HDF5 snapshots: of the gathered state, written by
-        rank 0, with ``gatherOutput`` or ``ghostIncluded``; else each rank's
-        VTK piece and the one HDF5 file written block by block
-        (io/sharded.py); rank 0 the OU forcing state's checkpoint. Every
-        rank takes part."""
+        """The snapshots switched on: of the gathered state, written by rank
+        0, with ``gatherOutput`` or ``ghostIncluded``; else each rank's VTK
+        piece and the one HDF5 and NetCDF files written block by block
+        (io/sharded.py), and the other formats from the gathered state;
+        rank 0 the OU forcing state's checkpoint. Every rank takes part."""
         if isinstance(self.forcing, OUForcing) and self.is_root:
             with self.io_timer:
-                save_ou_forcing(self.forcing.state, f"{self.output_dir}/{self.output_prefix}"
-                                                    f"_forcing_{self.n_step:07d}.npz")
-        if not (self.output_vtk or self.output_hdf5):
-            return
-        if not self.gather:
-            kw = dict(output_dir=self.output_dir, prefix=self.output_prefix)
-            with self.io_timer:
-                if self.output_vtk:
-                    output_vtk_pieces(self.params, self.grid, self.U, self.n_step, **kw)
-                if self.output_hdf5:
-                    output_hdf5_sharded(self.params, self.grid, self.U, self.n_step,
-                                        total_time=self.t, **kw)
-            return
+                save_ou_forcing(self.forcing.state, self.forcing_path())
+        out, p = self.out, self.params
         with self.io_timer:
-            Ug = self._host_ghosted()
-            if Ug is None:
+            if not self.gather:
+                kw = dict(output_dir=self.output_dir, prefix=self.output_prefix)
+                if out.output_vtk:
+                    output_vtk_pieces(p, self.grid, self.U, self.n_step, **kw)
+                if out.output_hdf5:
+                    output_hdf5_sharded(p, self.grid, self.U, self.n_step, total_time=self.t,
+                                        **kw)
+                if out.output_netcdf:
+                    output_netcdf_sharded(p, self.grid, self.U, self.n_step,
+                                          total_time=self.t, **kw)
+            gathered = (out.output_png or out.output_nrrd or out.output_xsm or out.output_bin
+                        or out.output_faces)
+            if not (gathered or (self.gather and out.any_snapshot())):
                 return
-            U_host = Ug.numpy()
-            kw = dict(output_dir=self.output_dir, prefix=self.output_prefix,
-                      ghost_included=self.ghost_included)
-            if self.output_vtk:
-                output_vtk(self.params, U_host, self.n_step, **kw)
-            if self.output_hdf5:
-                output_hdf5(self.params, U_host, self.n_step, total_time=self.t, **kw)
+            Ug = self._host_ghosted()
+            if Ug is not None:
+                out.write_snapshots(p, Ug.numpy(), self.n_step, self.t,
+                                    skip=() if self.gather else ("vtk", "hdf5", "netcdf"))
+
+    def check_numerics(self) -> None:
+        """The numerics guard: each rank's block reduced on its device, the
+        flags joined by one all_reduce; on failure the gathered global state
+        checked on rank 0 (utils/guard.py), dumped there, and the
+        NumericsError raised on every rank with the JAX package's text."""
+        bad = self.grid.all_max((~interior_ok(self.U)).to(torch.int32))
+        if not bool(bad):
+            return
+        Ug = self._host_ghosted()
+        message = [None]
+        if Ug is not None:
+            try:
+                check_finite(self.params, Ug, self.n_step)
+            except NumericsError as exc:
+                message[0] = str(exc)
+                guard_failed(self.params, self.config, Ug, self.n_step, self.output_dir)
+        if self.grid.mx * self.grid.my * self.grid.mz > 1:
+            torch.distributed.broadcast_object_list(message, src=0)
+        raise NumericsError(message[0])
 
     def start(self, max_steps: int | None = None, do_output: bool = True) -> None:
         """Run to t_end / nstepmax, writing output every noutput steps; rank
@@ -169,6 +205,8 @@ class DistributedRun(Run):
                 break  # t_end reached exactly
             if self.is_root and self.n_log > 0 and self.n_step % self.n_log == 0:
                 print(f"step {self.n_step:7d}  t={self.t:.6f}", file=sys.stderr)
+            if self.fpe_check:
+                self.check_numerics()
             if self._history and (self.dt_hist <= 0 or self.t >= self._next_hist_time):
                 self.history()
         if self.device.type == "cuda":

@@ -1522,3 +1522,33 @@ def test_stratified_dissipative_loop_counts_launches(cuda_device, kernel):
     want, t_cpu, _k = advance_cpu(tuple(x.cpu() for x in state), t0.cpu(), 3)
     assert abs(float(t) - float(t_cpu)) <= TOL_STEP10["float32"] * float(t_cpu)
     assert rel_l2(got[0].cpu(), want[0]) <= TOL_STEP10["float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["auto", "zcarry"])
+def test_restart_from_netcdf_resumes_bitwise(cuda_device, tmp_path, kernel):
+    """Orszag-Tang at 32^3 f32 on the card: a Run restarted from the
+    straight run's step-5 NetCDF checkpoint (ghostIncluded) and run 5 steps
+    has the straight run's step-10 interior, t and step bitwise."""
+    import numpy as np
+
+    from ramsesgpu_tpu_torch.io.netcdf import input_netcdf
+    from ramsesgpu_tpu_torch.solvers.run import Run
+
+    text = INI.format(dtype="float32", tend=100.0).replace("ny=24", "ny=32").replace(
+        "nz=16", "nz=32").replace("[run]\n", "[run]\nnoutput=5\nnstepmax=10\n")
+    text += f"kernel={kernel}\n[output]\noutputVtk=no\noutputNetcdf=yes\nghostIncluded=yes\n"
+    straight, resumed = tmp_path / "a", tmp_path / "b"
+    config = ConfigMap(text=text + f"outputDir={straight}\n")
+    params = params_from_config(config)
+    Run(config, "cuda", params).start()
+    config = ConfigMap(text=text.replace("[run]\n", f"[run]\nrestart=yes\nrestart_filename="
+                                         f"{straight}/output_0000005.nc\n")
+                       + f"outputDir={resumed}\n")
+    run = Run(config, "cuda", params)
+    assert run.n_step == 5
+    run.start()
+    U, t, step = input_netcdf(params, straight / "output_0000010.nc")
+    g = params.ghost_width
+    assert (run.n_step, run.t) == (step, t) == (10, t)
+    assert np.array_equal(run.interior(), U[:, g:-g, g:-g, g:-g])

@@ -77,8 +77,10 @@ def zcarry(text: str) -> str:
 
 def test_port_imports_no_jax(tmp_path):
     """Importing every module of the port (parallel/* among them) and
-    running a CPU Run of each slice (2D among them) leaves no jax and no
-    ramsesgpu_tpu module in sys.modules."""
+    running a CPU Run of each slice (2D among them), and a run that writes
+    NetCDF, NRRD, BIN and face snapshots under the numerics guard and one
+    restarted from its checkpoint, leaves no jax and no ramsesgpu_tpu
+    module in sys.modules."""
     pkg = REPO / "ramsesgpu_tpu_torch"
     modules = sorted(
         "ramsesgpu_tpu_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
@@ -89,12 +91,22 @@ def test_port_imports_no_jax(tmp_path):
         "torch.set_num_threads(1)\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert all(f'ramsesgpu_tpu_torch.parallel.{m}' in sys.modules\n"
-        "           for m in ('mesh', 'launch', 'halo', 'shear_dist', 'sharded_step'))\n"
+        "assert all(f'ramsesgpu_tpu_torch.{m}' in sys.modules\n"
+        "           for m in ('parallel.mesh', 'parallel.launch', 'parallel.halo',\n"
+        "                     'parallel.shear_dist', 'parallel.sharded_step', 'io.netcdf',\n"
+        "                     'io.restart', 'io.misc_formats', 'io.png', 'io.convert',\n"
+        "                     'utils.guard'))\n"
         "from ramsesgpu_tpu_torch.solvers.run import Run, config_from_ini\n"
-        "for text in sys.argv[1:]:\n"
+        "for text in sys.argv[2:]:\n"
         "    config, params = config_from_ini(text)\n"
         "    Run(config, 'cpu', params).start(max_steps=1, do_output=False)\n"
+        "config, params = config_from_ini(sys.argv[1])\n"
+        "Run(config, 'cpu', params).start(max_steps=1)\n"
+        "config, params = config_from_ini(sys.argv[1].replace(\n"
+        "    '[run]\\n', '[run]\\nrestart=yes\\nrestart_filename=ot3d_0000001.nc\\n'))\n"
+        "run = Run(config, 'cpu', params)\n"
+        "assert run.n_step == 1\n"
+        "run.start(max_steps=2)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'triton'))\n"
         "             or m == 'ramsesgpu_tpu' or m.startswith('ramsesgpu_tpu.'))\n"
         "assert not bad, bad\n"
@@ -159,11 +171,22 @@ def test_port_imports_no_jax(tmp_path):
     texts = [ot, hydro, mri, mri_dissip, ot_dissip, mri_comp, strat, walls, mhd_jet, hydro_jet,
              turb, sod2d, wave2d, rt_mhd]
     texts += [zcarry(text) for text in texts + [blast]]
+    # checkpoints every step, the other writers, the guard (and, in the
+    # code above, a run restarted from the step-1 checkpoint)
+    ck = ot.replace("noutput=100", "noutput=1\nfpe_check=yes").replace(
+        "outputHdf5=no", "outputHdf5=no\noutputVtk=no\noutputNetcdf=yes\noutputNrrd=yes\n"
+        "outputBin=yes\noutputFaces=yes")
+    assert "fpe_check=yes" in ck and "outputFaces=yes" in ck
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    res = subprocess.run([sys.executable, "-c", code, *texts],
+    res = subprocess.run([sys.executable, "-c", code, ck, *texts],
                          capture_output=True, text=True, env=env, timeout=300, cwd=tmp_path)
     assert res.returncode == 0 and res.stdout.strip().endswith("OK"), res.stderr[-4000:]
     assert (tmp_path / "turbulence_mhd_ou.history").read_text().startswith("# totalTime dt mass")
+    assert {p.name for p in tmp_path.glob("ot3d_*0000002.*")} == {
+        "ot3d_0000002.nc", "ot3d_0000002.bin",
+        *(f"ot3d_{n}_0000002.nrrd" for n in ("density", "energy", "mx", "my", "mz", "bx", "by",
+                                             "bz")),
+        *(f"ot3d_face_{f}_0000002.npz" for f in ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax"))}
 
 
 def test_config_copies_match_the_jax_package(data_dir):
