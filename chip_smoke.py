@@ -271,6 +271,27 @@ Phases, in order; any failure raises and no result line is printed:
      the card, from the checkpoint the port's sharded run of
      mhd_mri_3d_stratified_mpi.ini wrote, capped at 2 N52: bitwise the
      straight run's step-2 N52 file; the first restarted step's ms;
+ 53. the other schemes, the analysis tools, the profiler and the planner
+     (whole-array PyTorch on the card: the JAX package has no kernel for
+     them, so no kernel launches here): (53a) each alternative scheme
+     (godunov-split, kurganov, laxliu, relaxingTVD; solvers/run2d_alt.py
+     AltSchemeRun) card vs CPU at 128^2 f64 (10 steps, 1e-12), then timed
+     in f32, the four on data/hydro_sod2d.ini at 1024^2 and godunov-split
+     and relaxing TVD on data/implode3d.ini at 256^3 (ms/step, cells/s,
+     peak memory; finite, rho, p > 0, mass); (53b) the structure
+     functions' on-line hook through Run.output on data/turbulence_mhd.ini
+     at 256^3 f32 as shipped (1000 samples, max_q 6) after 10 forced
+     steps, timed, its counts, zero-distance bin and finite values, and the
+     function at 32^3 f64 card vs CPU; (53c) the sharded structure
+     functions of data/turbulence_mhd_mpi.ini on its 4 ranks against one
+     device; (53d) the power spectrum at 256^3 card vs CPU, timed, and the
+     fBm slope at 512^2; (53e) --profile of the bench.py workload at 256^3
+     and of data/orszag-tang_mpi.ini on 4 ranks, the memory planner
+     against max_memory_allocated (OT 256^3 auto and kernel=zcarry within
+     10 %, 512^3 kernel=zcarry against phase 31's peak); (53f) the live
+     view's frames where matplotlib imports; (53g) compensated=yes on
+     data/implode3d.ini at 256^3 and data/implode2d.ini bitwise the plain
+     runs;
  then the MHD step kernel's rows (A, A', 3, 4, 12, and the isothermal
  instances) with their times and bounds, the kernels JSON line, the card
  line, and the result line.
@@ -2809,11 +2830,11 @@ def phase27() -> None:
             del state, st
 
 
-def phase31(card: str) -> None:
+def phase31(card: str) -> float:
     """One 10-step chunk of Orszag-Tang at 512^3 f32 with kernel=zcarry:
-    the state built on the card, its peak memory and the rings' bytes, in
-    shared memory (the staged step's stage buffer would be 173 values per
-    cell, ~93 GB)."""
+    the state built on the card, its peak memory (returned, bytes) and the
+    rings' bytes, in shared memory (the staged step's stage buffer would be
+    173 values per cell, ~93 GB)."""
     from ramsesgpu_tpu_torch.kernels.build import load_library
     from ramsesgpu_tpu_torch.kernels.zcarry_mhd3d import zcarry_mhd
     from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
@@ -2856,6 +2877,7 @@ def phase31(card: str) -> None:
         raise AssertionError("512^3: divB or mass bound violated")
     if not (peak < 24e9 and ring_bytes < 1e9):
         raise AssertionError(f"512^3: peak {peak} B or rings {ring_bytes} B above their bounds")
+    return peak
 
 
 def zcarry_ring(params) -> None:
@@ -5970,6 +5992,405 @@ def phase52c(card: str) -> None:
         raise AssertionError("52c: the restarted sharded run is not the straight run bitwise")
 
 
+# ---------------------------------------------------------------------------
+# 53: the other schemes, the analysis tools, the profiler and the planner
+# ---------------------------------------------------------------------------
+SOD2D_INI = "data/hydro_sod2d.ini"
+IMPLODE2D_INI = "data/implode2d.ini"
+IMPLODE3D_INI = "data/implode3d.ini"
+OT_MPI_INI = "data/orszag-tang_mpi.ini"
+ALT_2D = ("godunov-split", "kurganov", "laxliu", "relaxingTVD")
+ALT_3D = ("godunov-split", "relaxingTVD")
+MASS_ALT_TOL = 1e-5   # f32, walled boxes (the CPU's 64^2 / 32^3 runs: 1e-9)
+SF_SHARDED_TOL = 1e-6  # f32 means, each rounded once from float64 sums
+SF_CPU_SAMPLES = 200   # the card-vs-CPU check of 53b (the CPU's share of the phase's time)
+MEM_TOL = 0.10
+PROFILE_PHASES = ("dt reduction", "boundary fill", "godunov update", "full fused step")
+
+
+def quiet(fn):
+    """fn() with its standard output dropped (the runs' perf reports)."""
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+def alt_text(path: str, mesh: dict, dtype: str) -> str:
+    return ini_with(ini_with(Path(path).read_text(), "mesh", **mesh), "implementation",
+                    dtype=dtype)
+
+
+def hydro_gates(params, U: torch.Tensor) -> tuple:
+    """(mass, min rho, min p, finite) of a ghosted hydro state's interior."""
+    g = params.ghost_width
+    S = U[(slice(None),) + (slice(g, -g),) * params.dim].double()
+    p = (params.gamma0 - 1.0) * (S[1] - 0.5 * (S[2:] ** 2).sum(0) / S[0])
+    return (float(S[0].sum()), float(S[0].min()), float(p.min()), bool(torch.isfinite(S).all()))
+
+
+def timed_alt(label: str, text: str, scheme: str, card: str, steps: int, warm: int = 2) -> None:
+    """AltSchemeRun of ``scheme`` on the card: ``warm`` steps, then ``steps``
+    timed by the host clock (one host read a step, as the loop makes);
+    ms/step, cells/s, peak memory; finite, rho, p > 0, mass."""
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.solvers.run2d_alt import AltSchemeRun
+
+    torch.cuda.empty_cache()
+    run = AltSchemeRun(ConfigMap(text=text), "cuda", scheme)
+    p = run.params
+    mass0 = hydro_gates(p, run.U)[0]
+    quiet(lambda: run.start(max_steps=warm, do_output=False))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    quiet(lambda: run.start(max_steps=warm + steps, do_output=False))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cells = p.nx * p.ny * (p.nz if p.dim == 3 else 1)
+    mass, rho_min, p_min, finite = hydro_gates(p, run.U)
+    dm = abs(mass - mass0) / mass0
+    print(f"[{label}] {scheme} {'x'.join(str(n) for n in (p.nx, p.ny, p.nz)[:p.dim])} "
+          f"{p.dtype} on {card}: {wall * 1e3 / steps:.3f} ms/step, "
+          f"{cells * steps / wall:.4e} cells/s ({steps} steps after {warm}, host clock), peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; min rho {rho_min:.4e}, min p "
+          f"{p_min:.4e}, mass rel {dm:.3e}")
+    if not (finite and rho_min > 0 and p_min > 0 and dm <= MASS_ALT_TOL
+            and run.n_step == warm + steps):
+        raise AssertionError(f"{label} {scheme}: gates failed")
+
+
+def phase53a(card: str) -> None:
+    """The alternative schemes on the card: each against the CPU at 128^2
+    in f64 (10 steps, relative L2 1e-12), then timed in f32: the four 2D
+    schemes at 1024^2 (scripts/perf_table.py's 2D row size), godunov-split
+    and relaxing TVD on data/implode3d.ini at 256^3."""
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.solvers.run2d_alt import AltSchemeRun
+
+    text = alt_text(SOD2D_INI, dict(nx=128, ny=128), "float64")
+    for scheme in ALT_2D:
+        runs = [AltSchemeRun(ConfigMap(text=text), dev, scheme) for dev in ("cuda", "cpu")]
+        for run in runs:
+            quiet(lambda: run.start(max_steps=10, do_output=False))
+        gpu, cpu = runs
+        err = rel_l2(gpu.U.cpu(), cpu.U)
+        print(f"[53a] {scheme} 128^2 f64, 10 steps: card vs CPU relative L2 {err:.3e}, t "
+              f"{gpu.t!r} vs {cpu.t!r}")
+        if not (gpu.n_step == cpu.n_step == 10 and abs(gpu.t - cpu.t) <= 1e-12 * cpu.t
+                and err <= 1e-12 and bool(torch.isfinite(gpu.U).all())):
+            raise AssertionError(f"53a {scheme}: the card disagrees with the CPU")
+    text = alt_text(SOD2D_INI, dict(nx=1024, ny=1024), "float32")
+    for scheme in ALT_2D:
+        timed_alt("53a", text, scheme, card, steps=20)
+    text = alt_text(IMPLODE3D_INI, dict(nx=256, ny=256, nz=256), "float32")
+    for scheme in ALT_3D:
+        timed_alt("53a", text, scheme, card, steps=5, warm=1)
+
+
+def sf_gates(label: str, result: dict, n_samples: int, cells: int, max_q: int) -> None:
+    import numpy as np
+
+    counts = result["counts"]
+    ok = (float(counts.sum()) == n_samples * cells and result["sf_long"].shape[:2] == (3, max_q)
+          and float(abs(result["sf_long"][:, :, 0]).max()) == 0.0
+          and float(abs(result["sf_tran"][:, :, 0]).max()) == 0.0
+          and all(bool(np.isfinite(result[k]).all()) for k in ("sf_long", "sf_tran")))
+    if not ok:
+        raise AssertionError(f"{label}: structure-function gates failed")
+
+
+def phase53b(card: str) -> None:
+    """The structure functions' on-line hook: data/turbulence_mhd.ini at
+    256^3 f32 with [structureFunctions] enabled as shipped (1000 samples,
+    max_q 6), 10 forced steps through Run, then Run.output (the hook at
+    step 10, timed); the counts, the zero-distance bin, finite values; then
+    the function at 32^3 in f64 (SF_CPU_SAMPLES samples), card against
+    CPU."""
+    import tempfile
+
+    import numpy as np
+
+    from ramsesgpu_tpu_torch.analysis.structure_functions import compute_structure_functions
+    from ramsesgpu_tpu_torch.solvers import run as run_mod
+    from ramsesgpu_tpu_torch.solvers.run import Run, config_from_ini
+
+    hook, times = run_mod.structure_functions_online, []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = hook(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return path
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="smoke53b_") as tmp:
+        text = ini_with(Path(TURB["turbulence_mhd"]).read_text(), "mesh", nx=256, ny=256, nz=256)
+        text = ini_with(text, "run", noutput=10, nstepmax=10)
+        text = ini_with(text, "output", outputDir=tmp, outputHdf5="no", outputVtk="no")
+        text = ini_with(text, "structureFunctions", enabled="yes")
+        config, params = config_from_ini(text)
+        n_samples = config.get_integer("structureFunctions", "nSampleTotal", 1000)
+        max_q = config.get_integer("structureFunctions", "max_q", 5)
+        run_mod.structure_functions_online = timed
+        try:
+            run = Run(config, "cuda", params)
+            t0 = time.perf_counter()
+            quiet(lambda: run.start(do_output=False))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run.output()
+        finally:
+            run_mod.structure_functions_online = hook
+        result = dict(np.load(Path(tmp) / "turbulence_mhd_cpu_sf_0000010.npz"))
+        written = sorted(p.name for p in Path(tmp).iterdir())
+    sf_gates("53b", result, n_samples, 256 ** 3, max_q)
+    print(f"[53b] turbulence_mhd.ini 256^3 f32, {n_samples} samples, max_q {max_q} on {card}: "
+          f"the hook {times[0]:.3f} s ({times[0] / n_samples * 1e3:.2f} ms a sample point; "
+          f"host clock), the 10 forced steps {wall:.2f} s; files {written}; sf_long(v, q=2) "
+          f"over the first bins {[float(f'{x:.4e}') for x in result['sf_long'][0, 1, 1:6]]}")
+    if len(times) != 1 or run.n_step != 10:
+        raise AssertionError(f"53b: the hook ran {len(times)} times after {run.n_step} steps")
+    config, params = config_from_ini(ini_with(ini_with(Path(TURB["turbulence_mhd"]).read_text(),
+                                                       "implementation", dtype="float64"),
+                                              "structureFunctions", enabled="yes"))
+    U = ghosted_state(config, params)
+    n_samples = SF_CPU_SAMPLES
+    got = compute_structure_functions(params, U, n_samples, max_q)
+    want = compute_structure_functions(params, U.cpu(), n_samples, max_q)
+    errs = [rel_l2(torch.from_numpy(got[k]), torch.from_numpy(want[k]))
+            for k in ("sf_long", "sf_tran")]
+    print(f"[53b] 32^3 f64, {n_samples} samples, max_q {max_q}: card vs CPU relative L2 "
+          f"{errs[0]:.3e} (long), {errs[1]:.3e} (transverse), counts equal "
+          f"{bool(np.array_equal(got['counts'], want['counts']))}")
+    sf_gates("53b 32^3", got, n_samples, 32 ** 3, max_q)
+    if not (max(errs) <= 1e-12 and np.array_equal(got["counts"], want["counts"])):
+        raise AssertionError("53b: the card's structure functions disagree with the CPU's")
+
+
+def rank53c(text: str, workdir: str, profile_argv: list) -> dict:
+    """One rank of phase 53c: a DistributedRun of ``text`` on the card and
+    its output at step 0 (the sharded structure functions; rank 0 writes),
+    then the CLI's main(profile_argv) (--profile of an [mpi] input) in the
+    same world, its standard output."""
+    import io
+    import os
+
+    from ramsesgpu_tpu_torch.cli.main import main
+    from ramsesgpu_tpu_torch.config.configmap import ConfigMap
+    from ramsesgpu_tpu_torch.solvers.run_distributed import DistributedRun
+
+    os.chdir(workdir)
+    run = DistributedRun(ConfigMap(text=text), "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.output()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(profile_argv)
+    return {"rank": run.grid.rank, "s": seconds, "transport": run.grid.describe(),
+            "profile": buf.getvalue()}
+
+
+def phase53c(card: str) -> str:
+    """data/turbulence_mhd_mpi.ini with the structure functions enabled on
+    its 4 ranks (gloo, sharing the card): the file rank 0 writes against
+    the single device's function of the same global state (distances and
+    counts bitwise, the f32 means within SF_SHARDED_TOL). The same world
+    then runs --profile of data/orszag-tang_mpi.ini (2x2): rank 0's output
+    is returned (phase 53e)."""
+    import tempfile
+
+    import numpy as np
+
+    from ramsesgpu_tpu_torch.analysis.structure_functions import compute_structure_functions
+    from ramsesgpu_tpu_torch.parallel.launch import spawn_ranks
+    from ramsesgpu_tpu_torch.solvers.run import config_from_ini
+
+    text = ini_with(Path(TURB_MPI_INIS[1]).read_text(), "structureFunctions", enabled="yes")
+    text = ini_with(text, "output", outputHdf5="no", outputVtk="no")
+    config, params = config_from_ini(text)
+    n_samples = config.get_integer("structureFunctions", "nSampleTotal", 1000)
+    max_q = config.get_integer("structureFunctions", "max_q", 5)
+    prefix = config.get_string("output", "outputPrefix", "output")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="smoke53c_") as workdir:
+        ranks = spawn_ranks(rank53c, 4, (text, workdir, [
+            "--param", str(Path(OT_MPI_INI).resolve()), "--profile"]))
+        got = dict(np.load(Path(workdir) / f"{prefix}_sf_0000000.npz"))
+    want = compute_structure_functions(params, ghosted_state(config, params), n_samples, max_q)
+    errs = [rel_l2(torch.from_numpy(got[k]), torch.from_numpy(want[k]))
+            for k in ("sf_long", "sf_tran")]
+    print(f"[53c] {TURB_MPI_INIS[1]} {params.nx}x{params.ny}x{params.nz} f32 on 4 ranks "
+          f"({ranks[0]['transport']}) on {card}: sharded vs single device relative L2 "
+          f"{errs[0]:.3e} / {errs[1]:.3e} (<= {SF_SHARDED_TOL}); the output's time "
+          f"{max(r['s'] for r in ranks):.3f} s (slowest rank)")
+    sf_gates("53c", got, n_samples, params.nx * params.ny * params.nz, max_q)
+    if not (max(errs) <= SF_SHARDED_TOL and np.array_equal(got["counts"], want["counts"])
+            and np.array_equal(got["distance"], want["distance"])):
+        raise AssertionError("53c: the sharded structure functions disagree with one device's")
+    if any(r["profile"] for r in ranks[1:]):
+        raise AssertionError("53c: a rank other than 0 printed the profile")
+    return ranks[0]["profile"]
+
+
+def phase53d(card: str) -> None:
+    """The power spectrum of a seeded 256^3 f64 field on the card against
+    the CPU (bins bitwise, relative L2 1e-12), timed; the fBm slope at
+    512^2."""
+    import numpy as np
+
+    from ramsesgpu_tpu_torch.analysis.generate_fbm import generate_fbm
+    from ramsesgpu_tpu_torch.analysis.power_spectrum import power_spectrum
+
+    gen = torch.Generator().manual_seed(53)
+    field = torch.randn((256, 256, 256), generator=gen, dtype=torch.float64)
+    on_card = field.cuda()
+    k, ek = power_spectrum(on_card)
+    ms = min(time_ms(lambda: power_spectrum(on_card), 1) for _ in range(3))
+    k_cpu, ek_cpu = power_spectrum(field)
+    err = rel_l2(torch.from_numpy(ek), torch.from_numpy(ek_cpu))
+    k2, ek2 = power_spectrum(torch.from_numpy(generate_fbm((512, 512), hurst=0.5, seed=1)).cuda())
+    sel = (k2 >= 4) & (k2 <= 32) & (ek2 > 0)
+    slope = float(np.polyfit(np.log(k2[sel]), np.log(ek2[sel]), 1)[0])
+    print(f"[53d] power spectrum 256^3 f64 on {card}: {ms:.2f} ms a call (CUDA events, the host "
+          f"read of E(k) included), card vs CPU relative L2 {err:.3e}; fBm H=0.5 at 512^2: "
+          f"slope {slope:.3f} (expected ~ -2, -2.6 .. -1.4)")
+    if not (np.array_equal(k, k_cpu) and err <= 1e-12 and -2.6 < slope < -1.4):
+        raise AssertionError("53d: the power spectrum gates failed")
+
+
+def phase53e(card: str, peak31: float, mpi_profile: str) -> None:
+    """--profile on the bench.py workload at 256^3 (one device) and, from
+    phase 53c's world, on data/orszag-tang_mpi.ini (4 ranks sharing the
+    card); the memory planner's estimates against
+    torch.cuda.max_memory_allocated for one chunk of that workload with
+    kernel=auto and kernel=zcarry (within MEM_TOL), and its 512^3
+    kernel=zcarry estimate beside phase 31's peak."""
+    import io
+    import tempfile
+
+    from ramsesgpu_tpu_torch.cli.main import main
+    from ramsesgpu_tpu_torch.solvers.step import make_packed_advance_chain
+    from ramsesgpu_tpu_torch.utils.memory_footprint import estimate
+
+    with tempfile.TemporaryDirectory(prefix="smoke53e_") as tmp:
+        path = Path(tmp) / "ot256.ini"
+        path.write_text(INI.format(n=256, dtype="float32"))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(["--param", str(path), "--profile"])
+        single = buf.getvalue()
+    print(f"[53e] --profile of the bench.py workload 256^3 f32 on {card}:\n{single}")
+    print(f"[53e] --profile of {OT_MPI_INI} on 4 ranks sharing {card}:\n{mpi_profile}")
+    if not (all(name in single for name in PROFILE_PHASES)
+            and all(name in mpi_profile for name in ("halo exchange", "sync step",
+                                                     "not supported for this configuration"))):
+        raise AssertionError("53e: --profile does not print the JAX phase names")
+    for kernel, key in (("auto", "staged_GiB"), ("zcarry", "zcarry_GiB")):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params, S = setup(256, "float32")
+        params = params.replace(kernel=kernel)
+        _pack, advance, _unpack = make_packed_advance_chain(params, "cuda")
+        advance(S, torch.zeros((), device="cuda"), 2)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        est = estimate(params)[key] * 1024 ** 3
+        print(f"[53e] planner, OT 256^3 f32 kernel={kernel}: estimate {est / 1e9:.3f} GB, "
+              f"measured peak {peak / 1e9:.3f} GB (max_memory_allocated over the chunk, the "
+              f"state included): {est / peak:.3f}x ({card})")
+        del S, advance
+        if abs(est - peak) > MEM_TOL * peak:
+            raise AssertionError(f"53e: the planner's {key} is off by more than {MEM_TOL:.0%}")
+    params = params_from_text(INI.format(n=512, dtype="float32")).replace(kernel="zcarry")
+    est512 = estimate(params)["zcarry_GiB"] * 1024 ** 3
+    print(f"[53e] planner, OT 512^3 f32 kernel=zcarry: estimate {est512 / 1e9:.3f} GB, phase "
+          f"31's measured peak {peak31 / 1e9:.3f} GB: {est512 / peak31:.3f}x")
+    if abs(est512 - peak31) > MEM_TOL * peak31:
+        raise AssertionError("53e: the planner disagrees with phase 31's peak")
+
+
+def phase53f(card: str) -> None:
+    """The live view's frames of a 2D run on the card (matplotlib where it
+    imports; the CPU tests cover it either way)."""
+    import importlib.util
+    import tempfile
+
+    if importlib.util.find_spec("matplotlib") is None:
+        print("[53f] matplotlib does not import on this machine: the live view is covered by "
+              "the CPU tests (tests/test_torch_analysis.py)")
+        return
+    import os
+
+    from ramsesgpu_tpu_torch.gui.live_view import main
+
+    text = alt_text(SOD2D_INI, dict(nx=128, ny=128), "float32")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="smoke53f_") as tmp:
+        (Path(tmp) / "sod.ini").write_text(text)
+        os.chdir(tmp)
+        try:
+            quiet(lambda: main(["--param", "sod.ini", "--frames", "--steps", "20", "--interval",
+                                "10", "--device", "cuda"]))
+        finally:
+            os.chdir(cwd)
+        frames = sorted(p.name for p in Path(tmp).glob("frame_*.png"))
+    print(f"[53f] live view of hydro_sod2d.ini 128^2 on {card}: frames {frames}")
+    if frames != ["frame_00000.png", "frame_00001.png"]:
+        raise AssertionError("53f: the live view did not write its frames")
+
+
+def phase53g(card: str) -> None:
+    """[implementation] compensated=yes on 3D hydro (data/implode3d.ini at
+    256^3 f32, 10 steps of make_packed_advance_chain) and in 2D
+    (data/implode2d.ini as shipped, 10 steps of make_advance_n) on the
+    card: bitwise the compensated=no run."""
+    from ramsesgpu_tpu_torch.solvers.run import config_from_ini
+    from ramsesgpu_tpu_torch.solvers.step import make_advance_n, make_packed_advance_chain
+
+    for label, path, mesh in (("3D", IMPLODE3D_INI, dict(nx=256, ny=256, nz=256)),
+                              ("2D", IMPLODE2D_INI, {})):
+        ends = []
+        for comp in ("no", "yes"):
+            torch.cuda.empty_cache()
+            text = alt_text(path, mesh, "float32") if mesh else Path(path).read_text()
+            config, params = config_from_ini(ini_with(text, "implementation", compensated=comp))
+            U = ghosted_state(config, params)
+            t = torch.zeros((), dtype=U.dtype, device="cuda")
+            if params.dim == 3:
+                pack, advance, unpack = make_packed_advance_chain(params, "cuda", config)
+                S, t, k = advance(pack(U), t, 10)
+                U = unpack(S, t)
+            else:
+                U, t, k = make_advance_n(params, "cuda", config)(U, t, 10)
+            ends.append((U.cpu(), float(t), int(k), params.compensated))
+        (a, ta, ka, ca), (b, tb, kb, cb) = ends
+        same = bool(torch.equal(a, b)) and ta == tb and ka == kb == 10 and cb and not ca
+        print(f"[53g] {label} {Path(path).name} compensated=yes on {card}: bitwise the "
+              f"compensated=no run after 10 steps: {same}")
+        if not same:
+            raise AssertionError(f"53g {label}: compensated=yes differs from compensated=no")
+
+
+def phase53(card: str, peak31: float) -> None:
+    start = time.perf_counter()
+    phase53a(card)
+    phase53b(card)
+    mpi_profile = phase53c(card)
+    phase53d(card)
+    phase53e(card, peak31, mpi_profile)
+    phase53f(card)
+    phase53g(card)
+    print(f"[53] phase 53 took {time.perf_counter() - start:.1f} s ({card})")
+
+
 def main() -> int:
     start = time.perf_counter()
 
@@ -6062,7 +6483,7 @@ def main() -> int:
     lap("32")
     del ot_zc, blast, mri_zc, ot_zc_comp, strat_zc
     bounds.update(zc_timing["bounds"])
-    phase31(card)
+    peak31 = phase31(card)
     lap("31")
     phase33()
     lap("33")
@@ -6118,6 +6539,8 @@ def main() -> int:
     lap("52b")
     phase52c(card)
     lap("52c")
+    phase53(card, peak31)
+    lap("53")
     bounds.update(grav["bounds"])
     bounds.update(solvers["bounds"])
     if "jax" in sys.modules or any(m.startswith("ramsesgpu_tpu.") for m in sys.modules):

@@ -20,6 +20,12 @@ Ported so far, each with its device kernels written by hand in CUDA
 - 3D hydro (approx / HLL / HLLC, slope_type 0-2, the isothermal EOS)
   with any mix of DIRICHLET / NEUMANN / PERIODIC faces.
 
+Whole-array PyTorch on the device, as the JAX package has no kernel for
+them: the 2D step, the forcing, the alternative schemes
+(``solvers/alt_schemes.py``, ``alt_laxliu.py``, ``run2d_alt.py``), the
+analysis tools (``analysis/``) and the live view (``gui/``). The step
+profiler, the operation count and the memory planner are ``utils/``.
+
 Everything outside those slices raises NotImplementedError.
 """
 

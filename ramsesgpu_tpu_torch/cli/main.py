@@ -10,6 +10,16 @@ An INI with an ``[mpi]`` topology (mx * my * mz > 1) runs distributed
 itself (parallel/launch.py; the kernels are built first, in this
 process) and waits for them; under ``torchrun`` (``WORLD_SIZE`` set) the
 process joins that world as one rank.
+
+The JAX CLI's other switches: ``--scheme`` (godunov, godunov-split,
+kurganov, laxliu, relaxingTVD; ``[hydro] unsplit=no`` selects
+godunov-split) runs an alternative scheme through solvers/run2d_alt.py
+AltSchemeRun, on one device only; ``--dump-param-file`` prints the
+effective parameter file; ``--profile`` prints the per-phase step profile
+(utils/profile.py; of an ``[mpi]`` input on its ranks) and exits. The JAX
+CLI's platform and multi-host bootstraps (its utils/platform.py and
+parallel/multihost.py) have no counterpart: ``--device`` selects the
+device.
 """
 from __future__ import annotations
 
@@ -29,49 +39,94 @@ def build_parser() -> argparse.ArgumentParser:
                     "MHD+CT with walls or periodic faces, the inflow jet, static gravity, "
                     "viscous-resistive 3D MHD, viscous 3D hydro, the MRI shearing box, "
                     "driven turbulence; [mpi] inputs, forced and dissipative ones included, "
-                    "over one process per rank; checkpoint / restart, the numerics guard).",
+                    "over one process per rank; checkpoint / restart, the numerics guard; "
+                    "the split Godunov, Kurganov-Tadmor, Lax-Liu and relaxing-TVD schemes).",
     )
     parser.add_argument("--param", "-i", required=True, help="INI parameter file")
+    parser.add_argument(
+        "--scheme", default=None,
+        choices=["godunov", "godunov-split", "kurganov", "laxliu", "relaxingTVD"],
+        help="numerical scheme (same switch as the reference's euler_main)",
+    )
+    parser.add_argument("--dump-param-file", action="store_true",
+                        help="print the effective parameter file and exit")
     parser.add_argument("--max-steps", type=int, default=None)
     parser.add_argument("--no-output", action="store_true")
+    parser.add_argument("--profile", action="store_true",
+                        help="print a per-phase step profile and exit "
+                             "(the reference's DO_TIMING breakdown)")
     parser.add_argument(
         "--device", default="cuda",
         help="torch device to run on (default cuda; cpu runs the plain twins)",
     )
-    parser.add_argument(
-        "--scheme", default=None,
-        help="alternative schemes of the JAX CLI; not ported (godunov only)",
-    )
     return parser
+
+
+def spawn(argv: list[str] | None, topo, params, device: str, config: ConfigMap) -> None:
+    """Start the mx * my * mz ranks of this command line (the kernels built
+    first, in this process) and wait for them."""
+    from ..parallel.launch import spawn_ranks
+    from ..parallel.sharded_step import require_sharded_scope
+    from ..solvers.run_distributed import cli_rank
+
+    require_sharded_scope(params, device, config)
+    if device.startswith("cuda"):
+        from ..kernels.build import build
+
+        build("cuda")
+    spawn_ranks(cli_rank, math.prod(topo), (list(sys.argv[1:] if argv is None else argv),))
+
+
+def print_profile(config: ConfigMap, params, device: str, topo) -> None:
+    """The --profile report: the single-device phases, or the distributed
+    ones of this process's world (rank 0 prints)."""
+    from ..utils import profile
+
+    if topo == (1, 1, 1):
+        text = profile.format_profile(profile.profile_step(params, config, device))
+    else:
+        phases = profile.profile_step_distributed(params, config, device)
+        if phases is None:
+            return  # a rank other than 0
+        text = profile.format_profile_distributed(phases, math.prod(topo))
+    print(f"problem        : {params.problem}")
+    print(f"mesh           : {params.nx} x {params.ny} x {params.nz}")
+    print(text)
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.scheme not in (None, "godunov"):
-        raise NotImplementedError(f"--scheme {args.scheme} is not ported")
-
     config = ConfigMap(args.param)
-    if not config.get_bool("hydro", "unsplit", True):
-        raise NotImplementedError("[hydro] unsplit=no is not ported")
+    if args.dump_param_file:
+        print(config.dump())
+        return 0
     params = params_from_config(config)
 
     from ..parallel.mesh import topology_from_config
 
     topo = topology_from_config(config)
-    if topo != (1, 1, 1):
-        from ..solvers.run_distributed import DistributedRun, cli_rank
+    if args.profile:
+        if topo != (1, 1, 1) and "WORLD_SIZE" not in os.environ:
+            spawn(argv, topo, params, args.device, config)
+        else:
+            print_profile(config, params, args.device, topo)
+        return 0
+
+    scheme = args.scheme or "godunov"
+    if scheme == "godunov" and not config.get_bool("hydro", "unsplit", True):
+        scheme = "godunov-split"  # [hydro] unsplit=no (HydroRunGodunov.cpp:70)
+    if scheme != "godunov":
+        if topo != (1, 1, 1):
+            raise SystemExit("--scheme alternatives run single-device only")
+        from ..solvers.run2d_alt import AltSchemeRun
+
+        run = AltSchemeRun(config, args.device, scheme=scheme)
+        params = run.params
+    elif topo != (1, 1, 1):
+        from ..solvers.run_distributed import DistributedRun
 
         if "WORLD_SIZE" not in os.environ:
-            from ..parallel.launch import spawn_ranks
-            from ..parallel.sharded_step import require_sharded_scope
-
-            require_sharded_scope(params, args.device, config)
-            if args.device.startswith("cuda"):
-                from ..kernels.build import build
-
-                build("cuda")
-            spawn_ranks(cli_rank, math.prod(topo),
-                        (list(sys.argv[1:] if argv is None else argv),))
+            spawn(argv, topo, params, args.device, config)
             return 0
         run = DistributedRun(config, args.device, params)
         if run.grid.rank != 0:

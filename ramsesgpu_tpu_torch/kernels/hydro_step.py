@@ -50,14 +50,14 @@ def require_hydro_scope(params: RunParams) -> None:
     compute (as pallas/fused_hydro3d.py:35-43 and solvers/step.py:326-356
     exclude it from the JAX kernel path). Viscosity (nu > 0) is taken: the
     kernel computes the inviscid step and the loops add the whole-array
-    viscous sub-step after it (kernels/fused_hydro3d.py)."""
+    viscous sub-step after it (kernels/fused_hydro3d.py). ``[implementation]
+    compensated`` selects nothing in hydro: the state is plain, as the JAX
+    package reads the switch only on its MHD paths."""
     reasons = []
     if params.dim != 3 or params.mhd:
         reasons.append("only 3D hydro")
     if params.riemann_solver not in _SOLVERS:
         reasons.append(f"riemannSolver {params.riemann_solver.name} (approx, hll, hllc)")
-    if params.compensated:
-        reasons.append("Kahan-compensated state")
     if params.ghost_width != 2:
         reasons.append(f"ghostWidth {params.ghost_width} (2 only)")
     if min(params.nx, params.ny, params.nz) < params.ghost_width:

@@ -78,6 +78,8 @@ def make_kernel_loop(params: RunParams, device, cfl: Callable, bind_step: Callab
         copy_state(S, cur)
         return S, t, k
 
+    # the parts, for a profile of the step's phases (utils/profile.py)
+    advance_packed.cfl, advance_packed.bind_step = cfl, bind_step
     if packed_form:
         return checked_pack, advance_packed, unpack
 

@@ -22,6 +22,10 @@ the OU forcing state ``<prefix>_forcing_<step>.npz`` when it exists. The
 loop state is packed from the loaded state, as at any start, so a
 compensated run resumes with a zero Kahan carry (as the JAX package's).
 
+``[structureFunctions] enabled`` (JAX run.py:57, 226-229): at each
+output the structure functions of the state on the run's device
+(analysis/structure_functions.py), ``<prefix>_sf_<step>.npz``.
+
 ``[run] fpe_check`` or ``[debug] dumpData`` (JAX run.py:59-61, 278-288):
 after each chunk utils/guard.py check_finite on the state, on its device;
 on failure the state and its primitives are dumped (where h5py is
@@ -35,6 +39,7 @@ import sys
 import numpy as np
 import torch
 
+from ..analysis.structure_functions import structure_functions_online
 from ..config.configmap import ConfigMap
 from ..config.params import RunParams, params_from_config
 from ..convert import torch_dtype
@@ -57,7 +62,6 @@ from .step import is_forced, make_forced_chain, make_packed_advance_chain, requi
 # ROADMAP item that holds each
 _UNPORTED_FLAGS = (
     ("output", "outputZarr", "ROADMAP Queue 1 item 8: the JAX writer needs tensorstore"),
-    ("structureFunctions", "enabled", "ROADMAP Queue 1 item 9"),
 )
 
 
@@ -150,9 +154,7 @@ class Run:
         self.config = config
         self.params = params or params_from_config(config)
         self.device = torch.device(device)
-        # (a forced run ignores [implementation] compensated, as the JAX one)
-        require_slice(self.params.replace(compensated=False) if is_forced(self.params)
-                      else self.params, self.device, config)
+        self.require_scope()
         refuse_unported(config)
         topo = tuple(config.get_integer("mpi", k, 1) for k in ("mx", "my", "mz"))
         if topo != (1, 1, 1):
@@ -165,6 +167,7 @@ class Run:
         # the numerics guard (the FPE-trap / debug-dump successor)
         self.fpe_check = (config.get_bool("run", "fpe_check", False)
                           or config.get_bool("debug", "dumpData", False))
+        self.sf_enabled = config.get_bool("structureFunctions", "enabled", False)
 
         # history ([history] section, HydroRunBase.cpp:7235+)
         self._history_writer = None
@@ -186,13 +189,24 @@ class Run:
         U0 = torch.from_numpy(U0).to(device=self.device, dtype=torch_dtype(self.params))
         self.U = make_boundaries(self.params, U0)
         self.forcing = None  # the turbulence problems' forcing, its state on the device
+        self._S = None  # the chained loop state while start() runs
+        self.build_loop(restart)
+
+    def require_scope(self) -> None:
+        """Raise for a configuration outside the port's loops (a forced run
+        ignores [implementation] compensated, as the JAX one)."""
+        require_slice(self.params.replace(compensated=False) if is_forced(self.params)
+                      else self.params, self.device, self.config)
+
+    def build_loop(self, restart: bool) -> None:
+        """The chained loop (and the forcing of a turbulence problem,
+        reloaded on restart)."""
         if is_forced(self.params):
-            self._chain, self.forcing = make_forced_chain(self.params, self.device, config)
+            self._chain, self.forcing = make_forced_chain(self.params, self.device, self.config)
             if restart:
                 self.reload_forcing()
         else:
-            self._chain = make_packed_advance_chain(self.params, self.device, config)
-        self._S = None  # the chained loop state while start() runs
+            self._chain = make_packed_advance_chain(self.params, self.device, self.config)
 
     def forcing_path(self) -> str:
         """The OU forcing state's checkpoint beside the step's snapshot."""
@@ -214,12 +228,16 @@ class Run:
         return self.U
 
     def output(self) -> None:
-        """The snapshots switched on (OutputSettings), and the OU forcing
-        state's checkpoint (``<prefix>_forcing_<step>.npz``)."""
+        """The snapshots switched on (OutputSettings), the structure
+        functions (``[structureFunctions] enabled``: computed on the run's
+        device, ``<prefix>_sf_<step>.npz``) and the OU forcing state's
+        checkpoint (``<prefix>_forcing_<step>.npz``)."""
         with self.io_timer:
+            U_g = self._host_ghosted() if self.out.any_snapshot() or self.sf_enabled else None
             if self.out.any_snapshot():
-                U_host = self._host_ghosted().cpu().numpy()
-                self.out.write_snapshots(self.params, U_host, self.n_step, self.t)
+                self.out.write_snapshots(self.params, U_g.cpu().numpy(), self.n_step, self.t)
+            if self.sf_enabled:
+                structure_functions_online(self.params, self.config, U_g, self.n_step)
             if isinstance(self.forcing, OUForcing):
                 save_ou_forcing(self.forcing.state, self.forcing_path())
 

@@ -35,6 +35,10 @@ run_distributed.py:131-170: its streamed PNG and faces equal the host
 writers', tests/test_io_sharded.py:207). The perf report counts global
 cells.
 
+``[structureFunctions] enabled`` (JAX run_distributed.py:171-180): at
+each output the sharded structure functions of the ranks' blocks
+(analysis/structure_functions.py), written by rank 0.
+
 ``[run] restart``: every rank loads the checkpoint (io/restart.py) and
 keeps its block, and reloads the OU forcing state where its checkpoint
 exists (the JAX Run builds the global state and shards it,
@@ -51,6 +55,7 @@ import sys
 import numpy as np
 import torch
 
+from ..analysis.structure_functions import structure_functions_online_sharded
 from ..config.configmap import ConfigMap
 from ..config.params import RunParams, params_from_config
 from ..io.history import HistoryWriter, compute_history
@@ -88,6 +93,7 @@ class DistributedRun(Run):
         self.n_log = config.get_integer("run", "nlog", 0)
         self.fpe_check = (config.get_bool("run", "fpe_check", False)
                           or config.get_bool("debug", "dumpData", False))
+        self.sf_enabled = config.get_bool("structureFunctions", "enabled", False)
         self.t = 0.0
         self.n_step = 0
         self.io_timer = Timer()
@@ -143,6 +149,9 @@ class DistributedRun(Run):
                 save_ou_forcing(self.forcing.state, self.forcing_path())
         out, p = self.out, self.params
         with self.io_timer:
+            if self.sf_enabled:
+                structure_functions_online_sharded(p, self.config, self.grid, self.U,
+                                                   self.n_step)
             if not self.gather:
                 kw = dict(output_dir=self.output_dir, prefix=self.output_prefix)
                 if out.output_vtk:

@@ -51,8 +51,11 @@ there, and the ghosted one-step hydro ``make_step_fn`` keeps the ghosted
 kernel for every choice. Of the JAX package's refusals of zcarry
 ("configuration outside the zcarry kernel") only its TPU tile conditions
 are left on the ported paths, and the port's kernels take any nx, ny, nz.
-``[implementation] zSlabNb`` has no effect on this path, as in the JAX
-package.
+``[implementation] zSlabNb`` has no effect on the kernel paths, as in the
+JAX package. With ``kernel=jnp`` (the CPU only) a 3D ``make_step_fn`` of a
+run outside the shearing box and without gravity whose zSlabNb > 1 is the
+JAX whole-array step with its z slabs (``whole_array_zslab_step``,
+solvers/zslab.py; step.py:207-277 there), bitwise the monolithic update.
 
 Static gravity (``make_gravity_field``, the JAX package's): in 2D the
 field, uniform or the Keplerian disk's, goes to the whole-array step
@@ -83,6 +86,7 @@ from ..kernels.mhd_step import require_step_scope, uses_ghosted, uses_shear
 from ..ops.forcing import FORCED_PROBLEMS, make_forcing
 from ..problems import gravity_field, has_gravity_field
 from . import step2d
+from .boundary import make_boundaries
 from .stratified import uses_stratified_z
 from .timestep import dt_from_inv
 
@@ -174,6 +178,9 @@ def make_step_fn(params: RunParams, device, config: ConfigMap | None = None) -> 
     require_slice(params, device, config)
     if params.dim == 2:
         return step2d.make_step_fn(params, make_gravity_field(params, config, device))
+    if (params.kernel == "jnp" and params.z_slab_nb > 1 and not uses_shear(params)
+            and make_gravity_field(params, config) is None):
+        return whole_array_zslab_step(params)
     if not params.mhd:
         return fused_hydro3d.make_step_fn(params, device)
     if uses_shear(params):
@@ -191,6 +198,33 @@ def make_step_fn(params: RunParams, device, config: ConfigMap | None = None) -> 
         active = torch.ones((), dtype=torch.bool, device=S.device)
         S, _ = step_S(S, dt, active, t)
         return fused_mhd3d.unpack(params, S), dt
+
+    return step
+
+
+def whole_array_zslab_step(params: RunParams) -> Callable:
+    """``step(U, t) -> (U_new, dt)``: the JAX whole-array 3D step with
+    zSlabNb z slabs (JAX solvers/step.py:213-229, 261-277): dt from U as it
+    stands, the fill, the Godunov update slab by slab (solvers/zslab.py),
+    then the dissipative sub-step once, globally, on a fresh fill (hydro:
+    the viscosity; MHD: nu and eta). U is not changed."""
+    from .dissipation import apply_dissipation_mhd, apply_viscosity, uses_dissipation
+    from .godunov import godunov_unsplit_hydro
+    from .godunov_mhd import godunov_unsplit_mhd
+    from .timestep import compute_dt
+    from .zslab import zslab_apply
+
+    update = godunov_unsplit_mhd if params.mhd else godunov_unsplit_hydro
+
+    def step(U, t):
+        dt = compute_dt(params, U)
+        U_new = zslab_apply(params, make_boundaries(params, U),
+                            lambda w: update(params, w, dt), params.z_slab_nb)
+        if params.mhd and uses_dissipation(params):
+            U_new = apply_dissipation_mhd(params, make_boundaries(params, U_new), dt)
+        elif not params.mhd and params.nu > 0:
+            U_new = apply_viscosity(params, make_boundaries(params, U_new), dt)
+        return U_new, dt
 
     return step
 

@@ -41,7 +41,9 @@ _HYDRO_SOLVERS = (RiemannSolver.APPROX, RiemannSolver.HLL, RiemannSolver.HLLC)
 
 def require_2d_scope(params: RunParams) -> None:
     """Raise NotImplementedError for the 2D configurations the port does
-    not compute (ROADMAP Queue 1 items 3 and 4)."""
+    not compute (ROADMAP Queue 1 items 3 and 4). ``[implementation]
+    compensated`` selects nothing in 2D: the state is plain, as in the JAX
+    package, which reads the switch only on its 3D MHD paths."""
     reasons = []
     if params.mhd:
         if params.nu > 0 or params.eta > 0:
@@ -51,8 +53,6 @@ def require_2d_scope(params: RunParams) -> None:
             reasons.append(f"riemannSolver {params.riemann_solver.name} (approx, hll, hllc)")
         if params.nu > 0:
             reasons.append("2D viscosity (nu > 0)")
-    if params.compensated:
-        reasons.append("the Kahan-compensated state in 2D")
     if reasons:
         raise NotImplementedError("not ported: " + "; ".join(reasons))
     require_simple_bcs(params)

@@ -473,3 +473,16 @@ def test_convert_roundtrip_2d(jax_refs):
         np.testing.assert_array_equal(state_to_jax(params, S), U)
         with pytest.raises(ValueError):
             state_to_jax(params, S[:, 1:])
+
+
+@pytest.mark.parametrize("name", ["implode2d", "orszag-tang"])
+def test_compensated_switch_runs_plain_in_2d(name):
+    """``[implementation] compensated=yes`` selects nothing in 2D (the JAX
+    package reads it on its 3D MHD paths only): 3 steps of the port's CPU
+    loop are bitwise the compensated=no run, which is held against JAX
+    make_advance_n in test_input_matches_jax."""
+    plain = port_advance(cut(name), N_STEPS)
+    comp = port_advance(cut(name, extra="compensated=yes\n"), N_STEPS)
+    assert comp[0].compensated and not plain[0].compensated
+    assert (comp[3], comp[4]) == (plain[3], plain[4]) and plain[4] == N_STEPS
+    assert torch.equal(comp[2], plain[2])

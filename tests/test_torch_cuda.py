@@ -1552,3 +1552,49 @@ def test_restart_from_netcdf_resumes_bitwise(cuda_device, tmp_path, kernel):
     g = params.ghost_width
     assert (run.n_step, run.t) == (step, t) == (10, t)
     assert np.array_equal(run.interior(), U[:, g:-g, g:-g, g:-g])
+
+
+# the alternative schemes and the structure functions (whole-array PyTorch
+# on the card; the JAX package has no kernel for them)
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["godunov-split", "kurganov", "laxliu", "relaxingTVD"])
+def test_alt_scheme_on_the_card_matches_cpu(cuda_device, scheme):
+    """Each alternative scheme's AltSchemeRun on data/hydro_sod2d.ini at
+    64^2, f64, 10 steps on the card and on the CPU: equal step counts, t
+    and state within relative L2 1e-12."""
+    import re
+    from pathlib import Path
+
+    from ramsesgpu_tpu_torch.solvers.run2d_alt import AltSchemeRun
+
+    text = (Path(__file__).resolve().parent.parent / "data" / "hydro_sod2d.ini").read_text()
+    text = re.sub(r"^n([xy])=.*$", r"n\1=64", text, flags=re.M) + "\n[implementation]\ndtype=float64\n"
+    runs = [AltSchemeRun(ConfigMap(text=text), device, scheme) for device in (cuda_device, "cpu")]
+    for run in runs:
+        run.start(max_steps=10, do_output=False)
+    gpu, cpu = runs
+    assert gpu.n_step == cpu.n_step == 10 and abs(gpu.t - cpu.t) <= 1e-12 * cpu.t
+    U = gpu.U.cpu()
+    diff = torch.linalg.norm((U - cpu.U).flatten()) / torch.linalg.norm(cpu.U.flatten())
+    assert torch.isfinite(U).all() and float(diff) <= 1e-12, float(diff)
+
+
+@pytest.mark.cuda
+def test_structure_functions_on_the_card_match_cpu(cuda_device):
+    """compute_structure_functions of the Orszag-Tang state (32x24x16, f64,
+    16 samples, max_q 4) on the card and on the CPU: distances and counts
+    bitwise, the sums within relative L2 1e-12 (the card's scatter-adds
+    sum in another order)."""
+    import numpy as np
+
+    from ramsesgpu_tpu_torch.analysis.structure_functions import compute_structure_functions
+    from ramsesgpu_tpu_torch.solvers.boundary import make_boundaries_concat
+
+    params, S = ot_state("float64", cuda_device)
+    U = make_boundaries_concat(params, S, interior_only=True)
+    gpu = compute_structure_functions(params, U, 16, 4)
+    cpu = compute_structure_functions(params, U.cpu(), 16, 4)
+    for k in ("distance", "counts"):
+        assert np.array_equal(gpu[k], cpu[k]), k
+    for k in ("sf_long", "sf_tran"):
+        assert np.linalg.norm(gpu[k] - cpu[k]) <= 1e-12 * np.linalg.norm(cpu[k]), k

@@ -76,11 +76,12 @@ def zcarry(text: str) -> str:
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Importing every module of the port (parallel/* among them) and
-    running a CPU Run of each slice (2D among them), and a run that writes
-    NetCDF, NRRD, BIN and face snapshots under the numerics guard and one
-    restarted from its checkpoint, leaves no jax and no ramsesgpu_tpu
-    module in sys.modules."""
+    """Importing every module of the port (parallel/*, analysis/* and
+    gui/* among them) and running a CPU Run of each slice (2D among them),
+    a run that writes NetCDF, NRRD, BIN, face and structure-function files
+    under the numerics guard and one restarted from its checkpoint, each
+    alternative scheme, a power spectrum, the planner and the step
+    profile, leaves no jax and no ramsesgpu_tpu module in sys.modules."""
     pkg = REPO / "ramsesgpu_tpu_torch"
     modules = sorted(
         "ramsesgpu_tpu_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
@@ -95,7 +96,11 @@ def test_port_imports_no_jax(tmp_path):
         "           for m in ('parallel.mesh', 'parallel.launch', 'parallel.halo',\n"
         "                     'parallel.shear_dist', 'parallel.sharded_step', 'io.netcdf',\n"
         "                     'io.restart', 'io.misc_formats', 'io.png', 'io.convert',\n"
-        "                     'utils.guard'))\n"
+        "                     'utils.guard', 'solvers.alt_schemes', 'solvers.alt_laxliu',\n"
+        "                     'solvers.run2d_alt', 'solvers.zslab', 'utils.profile', 'utils.flops',\n"
+        "                     'utils.memory_footprint', 'analysis.power_spectrum',\n"
+        "                     'analysis.structure_functions', 'analysis.projected_density',\n"
+        "                     'analysis.read_slice', 'analysis.generate_fbm', 'gui.live_view'))\n"
         "from ramsesgpu_tpu_torch.solvers.run import Run, config_from_ini\n"
         "for text in sys.argv[2:]:\n"
         "    config, params = config_from_ini(text)\n"
@@ -107,6 +112,17 @@ def test_port_imports_no_jax(tmp_path):
         "run = Run(config, 'cpu', params)\n"
         "assert run.n_step == 1\n"
         "run.start(max_steps=2)\n"
+        "from ramsesgpu_tpu_torch.solvers.run2d_alt import AltSchemeRun\n"
+        "from ramsesgpu_tpu_torch.analysis.power_spectrum import velocity_power_spectrum\n"
+        "from ramsesgpu_tpu_torch.utils.memory_footprint import estimate\n"
+        "from ramsesgpu_tpu_torch.utils.profile import profile_step\n"
+        "sod = next(t for t in sys.argv[2:] if '\\nproblem=sod\\n' in t)\n"
+        "for scheme in ('godunov-split', 'kurganov', 'laxliu', 'relaxingTVD'):\n"
+        "    AltSchemeRun(config_from_ini(sod)[0], 'cpu', scheme).start(max_steps=2,\n"
+        "                                                              do_output=False)\n"
+        "velocity_power_spectrum(params, run.U)\n"
+        "estimate(params, config)\n"
+        "profile_step(params, config, 'cpu', reps=1)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'triton'))\n"
         "             or m == 'ramsesgpu_tpu' or m.startswith('ramsesgpu_tpu.'))\n"
         "assert not bad, bad\n"
@@ -175,7 +191,7 @@ def test_port_imports_no_jax(tmp_path):
     # code above, a run restarted from the step-1 checkpoint)
     ck = ot.replace("noutput=100", "noutput=1\nfpe_check=yes").replace(
         "outputHdf5=no", "outputHdf5=no\noutputVtk=no\noutputNetcdf=yes\noutputNrrd=yes\n"
-        "outputBin=yes\noutputFaces=yes")
+        "outputBin=yes\noutputFaces=yes") + "\n[structureFunctions]\nenabled=yes\nnSampleTotal=4\n"
     assert "fpe_check=yes" in ck and "outputFaces=yes" in ck
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code, ck, *texts],
@@ -183,7 +199,7 @@ def test_port_imports_no_jax(tmp_path):
     assert res.returncode == 0 and res.stdout.strip().endswith("OK"), res.stderr[-4000:]
     assert (tmp_path / "turbulence_mhd_ou.history").read_text().startswith("# totalTime dt mass")
     assert {p.name for p in tmp_path.glob("ot3d_*0000002.*")} == {
-        "ot3d_0000002.nc", "ot3d_0000002.bin",
+        "ot3d_0000002.nc", "ot3d_0000002.bin", "ot3d_sf_0000002.npz",
         *(f"ot3d_{n}_0000002.nrrd" for n in ("density", "energy", "mx", "my", "mz", "bx", "by",
                                              "bz")),
         *(f"ot3d_face_{f}_0000002.npz" for f in ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax"))}

@@ -413,6 +413,19 @@ def test_out_of_slice_configurations_raise(section, key, value, kernels_cover_it
 
     text = ini() + f"\n[{section}]\n{key}={value}\n"
     config = ConfigMap(text=text)
+    if key == "compensated":
+        # runs since the compensated switch selects nothing in hydro, as in
+        # the JAX package (which reads it on its MHD paths only): bitwise the
+        # compensated=no run, through Run and through require_slice
+        runs = [Run(c, "cpu") for c in (config, ConfigMap(text=ini()))]
+        for run in runs:
+            run.start(max_steps=2, do_output=False)
+        assert runs[0].params.compensated and not runs[1].params.compensated
+        assert runs[0].n_step == runs[1].n_step == 2 and runs[0].t == runs[1].t
+        assert torch.equal(runs[0].U, runs[1].U)
+        require_slice(params_from_config(config), "cpu")
+        require_hydro_scope(params_from_config(config))
+        return
     if value in ("zcarry", "jet", "Rayleigh-Taylor") or key in ("nz", "static_field_z", "nu"):
         # the z-streaming kernels (tests/test_torch_zcarry.py): a walled run
         # keeps the step kernel's wall rules under kernel=zcarry, and Run

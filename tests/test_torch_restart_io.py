@@ -690,13 +690,21 @@ OT_MPI_2D = with_keys(with_keys(
     "run", fpe_check="yes")
 
 
+# OT 3D at 8^3 on 2x2x1 ranks with the structure functions' hook on
+SF_MPI = with_keys(with_keys(with_keys(OT.format(n=8, dtype="float64", comp="no"), "mpi", mx=2,
+                                       my=2, mz=1), "structureFunctions", enabled="yes",
+                             nSampleTotal=8, max_q=3),
+                   "output", outputVtk="no", outputPrefix="sf")
+
+
 def rank_world(workdir: str) -> dict:
     """One rank of the world of (g): the straight sharded run of
     mhd_mri_3d_stratified_mpi.ini through the CLI (NetCDF checkpoints every
     N_STRAT steps, 2 N_STRAT steps), rank 0 copying the step-N_STRAT file to
     the name the restart input reads; the restart input as shipped, capped
     at 2 N_STRAT; OT 2D on 2x2 with every gathered writer and the guard; a
-    NaN planted on rank 2 and the guard."""
+    NaN planted on rank 2 and the guard; SF_MPI, one step with the
+    structure functions' hook."""
     import torch.distributed as dist
 
     from ramsesgpu_tpu_torch.cli.main import main
@@ -735,6 +743,13 @@ def rank_world(workdir: str) -> dict:
     except NumericsError as exc:
         out["guard"] = str(exc)
     out["ot_nan"] = run.interior()
+
+    # the sharded structure functions' on-line hook (test (h))
+    (work / "sf").mkdir(exist_ok=True)
+    os.chdir(work / "sf")
+    run = DistributedRun(ConfigMap(text=SF_MPI), "cpu")
+    run.start(max_steps=1)
+    out["sf"] = (run.n_step, run.interior())
     return out
 
 
@@ -819,11 +834,46 @@ def test_sharded_guard_names_the_global_cell(world):
 @pytest.mark.parametrize("driver", ["Run", "DistributedRun"])
 @pytest.mark.parametrize("section, key, item", [("structureFunctions", "enabled", "item 9"),
                                                 ("output", "outputZarr", "item 8")])
-def test_unported_switches_raise_naming_their_item(driver, section, key, item):
+def test_unported_switches_raise_naming_their_item(driver, section, key, item, tmp_path,
+                                                   request):
+    """outputZarr raises naming its item. The structure functions (item 9)
+    run since they were ported: a chunk with the hook on writes
+    ``<prefix>_sf_<step>.npz`` at each output, equal to the port's
+    compute_structure_functions of the same state (the distributed run's:
+    SF_MPI in the world's ranks, its file against the gathered state):
+    bins and counts bitwise, sums within 1e-12 relative."""
+    from ramsesgpu_tpu_torch.analysis.structure_functions import compute_structure_functions
     from ramsesgpu_tpu_torch.solvers.run import Run
     from ramsesgpu_tpu_torch.solvers.run_distributed import DistributedRun
 
     text = OT.format(n=8, dtype="float64", comp="no")
+    if key == "enabled":
+        if driver == "DistributedRun":
+            ranks, workdir = request.getfixturevalue("world")
+            n_step, interior = ranks[0]["sf"]
+            params, config = port_config(SF_MPI)
+            g = params.ghost_width
+            U = torch.nn.functional.pad(torch.from_numpy(interior), (g, g) * 3)
+            path = workdir / "sf" / f"sf_sf_{n_step:07d}.npz"
+        else:
+            text = with_keys(with_keys(text, "structureFunctions", enabled="yes",
+                                       nSampleTotal=8, max_q=3),
+                             "output", outputDir=tmp_path, outputVtk="no", outputPrefix="sf")
+            params, config = port_config(text)
+            run = Run(config, "cpu", params)
+            run.start(max_steps=1)
+            n_step, U = run.n_step, run.U
+            path = tmp_path / f"sf_sf_{n_step:07d}.npz"
+        assert n_step == 1 and path.exists() and path.with_name("sf_sf_0000000.npz").exists()
+        got, want = np.load(path), compute_structure_functions(params, U, 8, 3)
+        assert sorted(got) == sorted(want)
+        for k in ("distance", "counts", "types", "max_q"):
+            assert np.array_equal(got[k], want[k]), k
+        assert got["counts"].sum() == 8 * 8 ** 3
+        for k in ("sf_long", "sf_tran"):
+            assert got[k].dtype == np.float64 and np.isfinite(got[k]).all()
+            assert np.linalg.norm(got[k] - want[k]) <= 1e-12 * np.linalg.norm(want[k]), k
+        return
     if driver == "DistributedRun":
         text = with_keys(text, "mpi", mx=2, my=1, mz=1)
     params, config = port_config(with_keys(text, section, **{key: "yes"}))
